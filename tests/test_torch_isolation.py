@@ -79,6 +79,7 @@ def test_ast_scan_finds_no_forbidden_import():
 def test_cuda_request_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device exists here; the refusal path cannot be exercised")
+    import trlx_tpu_torch
     from trlx_tpu_torch.data.configs import TRLConfig
     from trlx_tpu_torch.device import resolve_device
     from trlx_tpu_torch.models.heads import LMWithValueHead
@@ -96,6 +97,8 @@ def test_cuda_request_without_a_card_raises():
     })
     with pytest.raises(RuntimeError, match="CUDA"):
         PPOTrainer(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trlx_tpu_torch.train(reward_fn=lambda s: [0.0] * len(s), prompts=[[1, 2]], config=cfg)
     trainer = PPOTrainer(cfg, device="cpu")
     assert trainer.device.type == "cpu"
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -1,5 +1,7 @@
 """The port's plain kernel versions against the JAX package's Pallas kernels
-run in interpret mode, on the same numpy inputs, in float32.
+run in interpret mode, on the same numpy inputs, in float32: the forwards,
+and the backwards (``jax.vjp`` through the Pallas custom VJPs) against both
+the plain backward functions and the CPU path of the autograd Functions.
 
 On the CPU the port's wrappers take their plain versions, so these tests
 also pin what a wrapper returns here and that its launch counter stays 0.
@@ -10,6 +12,7 @@ version spreads it over all keys; only rows with at least one valid key
 (every mask-1 row) are compared for flash attention.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -52,16 +55,51 @@ def test_flash_plain_matches_pallas(window, pads):
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask), scale=scale, causal=True,
         window=window, block_q=32, block_k=32, interpret=True, return_lse=True,
     )
-    before = flash_mod.flash_attention.launches
+    before = flash_mod.flash_fwd.launches
     o, lse = flash_mod.flash_attention(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), torch.from_numpy(mask),
         scale=scale, window=window, return_lse=True,
     )
-    assert flash_mod.flash_attention.launches == before
+    assert flash_mod.flash_fwd.launches == before
     rows = mask.astype(bool)  # [b, T]: query rows with a valid own key
     np.testing.assert_allclose(o.numpy()[rows], np.asarray(ref_o)[rows], **TOL)
     lse_rows = np.broadcast_to(rows[:, None, :], lse.shape)
     np.testing.assert_allclose(lse.numpy()[lse_rows], np.asarray(ref_lse)[lse_rows], **TOL)
+
+
+@pytest.mark.parametrize(
+    "window,pads", [(0, (0, 11)), (16, (5, 23))], ids=["causal-leftpad", "window-leftpad"],
+)
+def test_flash_backward_matches_pallas_vjp(window, pads):
+    """dq, dk, dv with a nonzero lse cotangent. Padded query rows carry no
+    cotangent (as in the model, where no later position reads them), so
+    every row of dk/dv and every valid row of dq compare."""
+    q, k, v, mask = _flash_inputs(seed=1, pads=pads)
+    rng = np.random.default_rng(2)
+    rows = mask.astype(bool)
+    do = (rng.normal(size=q.shape) * rows[:, :, None, None]).astype(np.float32)
+    dlse = (rng.normal(size=(q.shape[0], q.shape[2], q.shape[1])) * rows[:, None, :]).astype(np.float32)
+    scale = 0.25
+
+    def f(q_, k_, v_):
+        return jax_flash_attention(q_, k_, v_, jnp.asarray(mask), scale=scale, causal=True, window=window,
+                                   block_q=32, block_k=32, interpret=True, return_lse=True)
+
+    (o_ref, lse_ref), vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ref = vjp((jnp.asarray(do), jnp.asarray(dlse)))
+
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    o, lse = flash_mod.flash_attention(tq, tk, tv, torch.from_numpy(mask), scale=scale, window=window,
+                                       return_lse=True)
+    by_fn = torch.autograd.grad((o, lse), (tq, tk, tv), (torch.from_numpy(do), torch.from_numpy(dlse)))
+    plain = flash_mod.flash_attention_bwd_plain(
+        tq.detach(), tk.detach(), tv.detach(), torch.from_numpy(mask), o.detach(), lse.detach(),
+        torch.from_numpy(do), torch.from_numpy(dlse), scale=scale, window=window,
+    )
+    for got in (by_fn, plain):
+        np.testing.assert_allclose(got[0].numpy()[rows], np.asarray(ref[0])[rows], **TOL)
+        np.testing.assert_allclose(got[1].numpy(), np.asarray(ref[1]), **TOL)
+        np.testing.assert_allclose(got[2].numpy(), np.asarray(ref[2]), **TOL)
 
 
 def _decode_inputs(seed=0, B=3, T=200, h=2, d=16):
@@ -112,14 +150,47 @@ def test_fused_logprob_plain_matches_pallas_ragged_V(tied, bias):
         jnp.asarray(x), jnp.asarray(w), jnp.asarray(y), None if b is None else jnp.asarray(b),
         tied=tied, interpret=True, block_v=128,
     )
-    before = flp_mod.fused_logprob.launches
+    before = flp_mod.fused_logprob_fwd.launches
     got = flp_mod.fused_logprob(
         torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(y),
         None if b is None else torch.from_numpy(b), tied=tied,
     )
-    assert flp_mod.fused_logprob.launches == before
+    assert flp_mod.fused_logprob_fwd.launches == before
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("tied,bias", [(False, True), (False, False), (True, False), (True, True)],
+                         ids=["untied-bias", "untied", "tied", "tied-bias"])
+def test_fused_logprob_backward_matches_pallas_vjp(tied, bias):
+    """dx, dW, db with all three cotangents nonzero; N = 12 rows against
+    the kernel's 128-row blocks (ragged N) and V = 300 against 128-wide
+    vocabulary tiles (ragged V)."""
+    x, w, y, b = _logprob_inputs(tied, bias, seed=3)
+    rng = np.random.default_rng(4)
+    cts = [rng.normal(size=y.shape).astype(np.float32) for _ in range(3)]
+
+    def f(x_, w_, *b_):
+        return jax_fused_logprob(x_, w_, jnp.asarray(y), b_[0] if b_ else None, tied=tied, interpret=True,
+                                 block_v=128)
+
+    args = [jnp.asarray(x), jnp.asarray(w)] + ([jnp.asarray(b)] if bias else [])
+    _, vjp = jax.vjp(f, *args)
+    ref = vjp(tuple(jnp.asarray(c) for c in cts))
+
+    tx, tw = torch.from_numpy(x).requires_grad_(), torch.from_numpy(w).requires_grad_()
+    tb = torch.from_numpy(b).requires_grad_() if bias else None
+    lp, lse, ent = flp_mod.fused_logprob(tx, tw, torch.from_numpy(y), tb, tied=tied)
+    wrt = (tx, tw) + ((tb,) if bias else ())
+    by_fn = torch.autograd.grad((lp, lse, ent), wrt, tuple(torch.from_numpy(c) for c in cts))
+    plain = flp_mod.fused_logprob_bwd_plain(
+        tx.detach(), tw.detach(), None if tb is None else tb.detach(), torch.from_numpy(y), lse.detach(),
+        ent.detach(), *(torch.from_numpy(c) for c in cts), tied=tied,
+    )
+    assert (plain[2] is None) == (not bias)
+    for got in (by_fn, plain[: len(wrt)]):
+        for g, r in zip(got, ref):
+            np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("tied", [False, True], ids=["untied", "tied"])

@@ -8,7 +8,7 @@ that copy. No module is duplicated.
 """
 
 from contextlib import contextmanager
-from typing import Dict, Optional
+from typing import Dict, Optional, Set
 
 import torch
 from torch import nn
@@ -137,3 +137,15 @@ def extract_branch_params(model: LMWithValueHead, branch_layer: int) -> Dict[str
     prefixes.append("transformer.ln_f.")
     prefixes.append("transformer.wte." if cfg.tie_word_embeddings else "transformer.lm_head.")
     return {n: p.detach().clone() for n, p in model.named_parameters() if n.startswith(tuple(prefixes))}
+
+
+def trainable_mask(model: nn.Module, cfg: LMConfig, num_layers_unfrozen: int) -> Set[str]:
+    """The names of the parameters that train: with num_layers_unfrozen =
+    k > 0 the bottom N-k blocks are frozen; embeddings, ln_f, the LM head
+    and the value head stay trainable. k <= 0 trains everything (the JAX
+    package's ``trainable_mask``)."""
+    names = [n for n, _ in model.named_parameters()]
+    if num_layers_unfrozen <= 0:
+        return set(names)
+    frozen = tuple(f"transformer.h_{i}." for i in range(cfg.n_layer - num_layers_unfrozen))
+    return {n for n in names if not n.startswith(frozen)}

@@ -19,9 +19,10 @@ Attention routes through three paths, by the JAX package's static rules:
   (``decode_attn_eligible``; CUDA device and bf16);
 - the einsum path with an additive [b, 1, q, kv] bias otherwise.
 
-Not in this slice: the int8 KV cache, int8 decode weights, paged caches,
-multi-token verify windows, ring attention, soft prompts and packed
-segments; the config fields exist and raise when set.
+``remat`` with policy "full" checkpoints every block under grad; policy
+"dots" raises. Not in this slice: the int8 KV cache, int8 decode weights,
+paged caches, multi-token verify windows, ring attention, soft prompts and
+packed segments; the config fields exist and raise when set.
 """
 
 from dataclasses import dataclass, field, replace
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from trlx_tpu_torch.device import resolve_device, torch_dtype
 from trlx_tpu_torch.ops.decode_attention import decode_attention, decode_attn_eligible
@@ -84,6 +86,8 @@ class LMConfig:
             raise NotImplementedError("soft prompts (n_soft_tokens) are not ported yet")
         if self.sp_size > 1:
             raise NotImplementedError("ring attention (sp_size > 1) is not ported yet")
+        if self.remat and self.remat_policy == "dots":
+            raise NotImplementedError("remat_policy='dots' is not ported yet")
 
     @property
     def head_dim(self) -> int:
@@ -445,11 +449,16 @@ class TransformerLM(nn.Module):
 
         branch_hidden = None
         new_cache = [] if cache is not None else None
+        # remat (policy "full"): under grad, each block keeps only its input
+        # and recomputes its activations in the backward, as the JAX
+        # package's nn.remat does. Cache passes run without grad, so the
+        # rollout path is unchanged.
+        remat = cfg.remat and cache is None and torch.is_grad_enabled()
         for i in range(start_layer, stop_layer):
             if collect_hidden_at is not None and i == collect_hidden_at:
                 branch_hidden = x
             is_local = bool(cfg.attention_layers) and cfg.attention_layers[i] == "local"
-            x, layer_cache = self.block(i)(
+            args = (
                 x,
                 local_bias if is_local else attn_bias,
                 position_ids,
@@ -458,6 +467,10 @@ class TransformerLM(nn.Module):
                 flash_mask,
                 cfg.window_size if is_local else 0,
             )
+            if remat:
+                x, layer_cache = checkpoint(self.block(i), *args, use_reentrant=False)
+            else:
+                x, layer_cache = self.block(i)(*args)
             if cache is not None:
                 new_cache.append(layer_cache)
 

@@ -49,6 +49,24 @@ _SIGNATURES = {
                           _I, _I, _I,  # N D V
                           _I, _I, _I,  # tied, w_is_bf16, splits
                           _P],  # stream
+    "flash_bwd_dq_bf16": [_P, _P, _P, _P, _P, _P, _P, _P,  # q k v dout kmask lse delta dq
+                          _I, _I, _I, _I,  # b T h d
+                          _I, _I, _I, _I, _I, _I, _I, _I, _I,  # q k v strides (b, t, h)
+                          _F, _I, _P],  # scale window stream
+    "flash_bwd_dkv_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P,  # q k v dout kmask lse delta dk dv
+                           _I, _I, _I, _I,  # b T h d
+                           _I, _I, _I, _I, _I, _I, _I, _I, _I,  # q k v strides (b, t, h)
+                           _F, _I, _P],  # scale window stream
+    "fused_logprob_bwd_ds_dx": [_P, _P, _P, _P,  # x w bias labels (chunk)
+                                _P, _P, _P, _P, _P,  # lse ent dlp dlse dent (chunk)
+                                _P, _P, _P,  # ds scratch, db partials, dx (chunk)
+                                _I, _I, _I, _I, _I,  # rows D V ldv C
+                                _I, _I, _P],  # tied w_is_bf16 stream
+    "fused_logprob_bwd_dw": [_P, _P, _P,  # x (chunk) ds dw
+                             _I, _I, _I, _I,  # rows D V ldv
+                             _I, _I,  # tied accumulate
+                             _P, _P, _I,  # db partials, db (or null), row tiles
+                             _P],  # stream
 }
 
 

@@ -25,6 +25,25 @@ def masked_mean(values: torch.Tensor, mask: torch.Tensor, dim=None) -> torch.Ten
     return (values * mask).sum(dim) / torch.clamp(mask.sum(dim), min=1e-8)
 
 
+def masked_var(values: torch.Tensor, mask: torch.Tensor, ddof: int = 1) -> torch.Tensor:
+    """Variance over positions where mask == 1 (unbiased by default)."""
+    mask = mask.to(values.dtype)
+    mean = masked_mean(values, mask)
+    sq = ((values - mean) ** 2 * mask).sum()
+    return sq / torch.clamp(mask.sum() - ddof, min=1e-8)
+
+
+def masked_whiten(values: torch.Tensor, mask: torch.Tensor, shift_mean: bool = True) -> torch.Tensor:
+    """Whiten over the valid (mask == 1) positions only; padded positions
+    come back as 0."""
+    mean = masked_mean(values, mask)
+    var = masked_var(values, mask)
+    whitened = (values - mean) * torch.reciprocal(torch.sqrt(var + 1e-8))
+    if not shift_mean:
+        whitened = whitened + mean
+    return whitened * mask.to(values.dtype)
+
+
 def logprobs_from_logits(
     logits: torch.Tensor, labels: torch.Tensor, mask: Optional[torch.Tensor] = None
 ) -> torch.Tensor:

@@ -63,10 +63,12 @@ class PPOOrchestrator(Orchestrator):
         )
         return tokens, mask, P, None, timings
 
-    def make_experience(self, num_rollouts: int = 1024):
-        """Fill the trainer's rollout store with ``num_rollouts`` rows.
+    def make_experience(self, num_rollouts: int = 1024, iter_count: int = 0):
+        """Fill the trainer's rollout store with ``num_rollouts`` rows
+        generated by the current policy (whose step is ``iter_count``).
         Returns the phase statistics (host wall seconds per part, device
-        seconds of prefill / decode / scoring, decode tokens per second)."""
+        seconds of prefill / decode / scoring, decode tokens per second) and
+        logs them to the trainer's tracker at step ``iter_count``."""
         rl = self.rl_model
         store = rl.store
         t_phase = time.perf_counter()
@@ -149,4 +151,5 @@ class PPOOrchestrator(Orchestrator):
             "rollout_max_abs_kl": max_abs_kl,
             "exp_per_sec": num_rollouts / max(exp_time, 1e-9),
         }
+        rl.tracker.log(stats, step=iter_count)
         return stats

@@ -32,3 +32,12 @@ def get_model(name: str) -> type:
 
 
 get_trainer = get_model
+
+
+def intervals(train_cfg, steps: int) -> Dict[str, bool]:
+    """Which per-step side effects fire at step ``steps`` (checkpointing is
+    not ported, so there is no ``do_checkpoint``)."""
+    return {
+        "do_eval": steps % train_cfg.eval_interval == 0,
+        "do_log": steps % train_cfg.log_interval == 0,
+    }

@@ -1,21 +1,111 @@
-"""The trainer base: what every trainer of the port shares on the rollout
-side (the counterpart of the rollout-side pieces of
-``trlx_tpu.trainer.base.JaxBaseTrainer``).
+"""The trainer base (the counterpart of ``trlx_tpu.trainer.base``): the
+learning-rate schedule, the optimizer, evaluation and the ``learn()`` loop,
+plus what every trainer shares on the rollout side.
 
 A trainer owns one device, the model and its parameters, the seeded
-generators, and the host hooks (``reward_fn``, ``metric_fn``,
-``logit_mask``). There is one device and no mesh: ``train.mesh`` is read by
-the JAX package only. Prompts are token ids: loading a tokenizer is not
-ported yet, so ``model.tokenizer_path`` must be empty.
+generators, the optimizer state (its step counts and moments), the
+consecutive-skip count of the non-finite guard, and the host hooks
+(``reward_fn``, ``metric_fn``, ``logit_mask``). There is one device and no
+mesh: ``train.mesh`` is read by the JAX package only. Prompts are token ids:
+loading a tokenizer is not ported yet, so ``model.tokenizer_path`` must be
+empty. Checkpointing (save, load, resume) is not ported either.
 """
 
-from typing import Optional, Union
+import dataclasses
+import math
+import time
+from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
 from trlx_tpu_torch.data.configs import TRLConfig
 from trlx_tpu_torch.device import resolve_device
+from trlx_tpu_torch.resilience.guard import check_bad_steps
+from trlx_tpu_torch.trainer import intervals
+from trlx_tpu_torch.utils.logging import Tracker
+
+
+def lr_schedule(train_cfg) -> Callable[[int], float]:
+    """Linear warmup from 0 over ``lr_ramp_steps``, then cosine decay from
+    ``learning_rate_init`` to ``learning_rate_target`` over
+    ``lr_decay_steps`` (optax's ``join_schedules`` of a linear and a cosine
+    schedule, written out)."""
+    init, target = float(train_cfg.learning_rate_init), float(train_cfg.learning_rate_target)
+    decay_steps = max(train_cfg.lr_decay_steps, 1)
+    alpha = target / max(init, 1e-12)
+    ramp = int(train_cfg.lr_ramp_steps)
+
+    def cosine(count: int) -> float:
+        count = min(count, decay_steps)
+        decay = 0.5 * (1 + math.cos(math.pi * count / decay_steps))
+        return init * ((1 - alpha) * decay + alpha)
+
+    def schedule(count: int) -> float:
+        if ramp > 0:
+            if count < ramp:
+                frac = 1 - min(max(count, 0), ramp) / ramp
+                return (0.0 - init) * frac + init
+            return cosine(count - ramp)
+        return cosine(count)
+
+    return schedule
+
+
+def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, in f32 (0-dim)."""
+    return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
+
+
+class ClippedAdamW:
+    """Global-norm clip, then AdamW with a schedule: optax's
+    ``chain(clip_by_global_norm(max_norm), adamw(schedule, b1, b2,
+    weight_decay=wd))`` over the trainable parameters, written out.
+
+    - The clip scales by ``max_norm / norm`` only when ``norm >= max_norm``
+      (no ``+1e-6``, unlike ``torch.nn.utils.clip_grad_norm_``).
+    - Adam: eps 1e-8 outside the square root, bias correction by the applied
+      step count; decoupled weight decay on every trainable parameter, then
+      ``-schedule(k)`` times the update, where k counts APPLIED updates (a
+      skipped step does not advance it).
+
+    Moments are kept in the parameters' dtype (f32 masters) and updated in
+    place."""
+
+    def __init__(self, params: List[torch.Tensor], schedule: Callable[[int], float], b1: float, b2: float,
+                 weight_decay: float, max_norm: float, eps: float = 1e-8):
+        self.schedule = schedule
+        self.b1, self.b2, self.eps = float(b1), float(b2), float(eps)
+        self.weight_decay, self.max_norm = float(weight_decay), float(max_norm)
+        self.mu = [torch.zeros_like(p) for p in params]
+        self.nu = [torch.zeros_like(p) for p in params]
+        self.count = 0  # applied updates: Adam's bias-correction count and the schedule's
+
+    @torch.no_grad()
+    def step(self, params: List[torch.Tensor], grads: List[torch.Tensor]):
+        norm = global_norm(grads)
+        clip = norm >= self.max_norm
+        grads = [torch.where(clip, g / norm * self.max_norm, g) for g in grads]
+        lr = self.schedule(self.count)
+        self.count += 1
+        bc1 = float(np.float32(1.0) - np.float32(self.b1) ** np.float32(self.count))
+        bc2 = float(np.float32(1.0) - np.float32(self.b2) ** np.float32(self.count))
+        for p, g, m, v in zip(params, grads, self.mu, self.nu):
+            m.mul_(self.b1).add_(g, alpha=1 - self.b1)
+            v.mul_(self.b2).addcmul_(g, g, value=1 - self.b2)
+            upd = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
+            if self.weight_decay:
+                upd.add_(p, alpha=self.weight_decay)
+            p.add_(upd, alpha=-lr)
+
+
+def build_optimizer(train_cfg, params: List[torch.Tensor]):
+    """(optimizer, schedule): global-norm clip then AdamW over ``params``
+    (the trainable parameters only; frozen ones get no moments)."""
+    schedule = lr_schedule(train_cfg)
+    opt = ClippedAdamW(params, schedule, train_cfg.opt_betas[0], train_cfg.opt_betas[1],
+                       train_cfg.weight_decay, train_cfg.grad_clip)
+    return opt, schedule
 
 
 class BaseTrainer:
@@ -33,6 +123,16 @@ class BaseTrainer:
         if kwargs:
             raise TypeError(f"unexpected trainer arguments: {sorted(kwargs)}")
         self.orch = None
+        self.iter_count = 0
+        self._tracker = None
+
+    @property
+    def tracker(self) -> Tracker:
+        """The run's tracker (``<train.checkpoint_dir>/metrics.jsonl``),
+        opened at first use."""
+        if self._tracker is None:
+            self._tracker = Tracker(self.config.train.checkpoint_dir, config=self.config.to_dict())
+        return self._tracker
 
     def seeded_generator(self, *key: int) -> torch.Generator:
         """A generator on the trainer's device seeded from (train.seed,
@@ -52,6 +152,15 @@ class BaseTrainer:
     def put(self, x, dtype=None) -> torch.Tensor:
         """A host array (or tensor) on the trainer's device."""
         return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x, dtype=dtype, device=self.device)
+
+    def put_batch(self, batch):
+        """A batch dataclass of host arrays → the same dataclass of device
+        tensors (the one place a train batch crosses to the device); the
+        host-only ``extras`` stay behind."""
+        fields = {f.name: getattr(batch, f.name) for f in dataclasses.fields(batch)}
+        return dataclasses.replace(
+            batch, **{k: (None if k == "extras" or v is None else self.put(v)) for k, v in fields.items()}
+        )
 
     @staticmethod
     def to_host(tree):
@@ -87,3 +196,112 @@ class BaseTrainer:
             "decode_step_budget": int(resp.shape[1]),
             "episode_steps": resp.sum(axis=1).astype(np.int64),
         }
+
+    # ------------------------------------------------------------ training
+
+    def intervals(self, steps: int) -> Dict[str, bool]:
+        return intervals(self.config.train, steps)
+
+    def prepare_learning(self):
+        """Build the train/eval loaders; set n_updates_per_batch and
+        total_steps."""
+        raise NotImplementedError
+
+    def train_step(self, batch) -> Dict[str, torch.Tensor]:
+        raise NotImplementedError
+
+    def post_backward_callback(self, stats=None):
+        """Called with every step's stats (device scalars)."""
+
+    def post_epoch_callback(self):
+        """Called after every epoch of the train loader."""
+
+    def add_eval_pipeline(self, eval_pipeline):
+        self.eval_pipeline = eval_pipeline
+
+    def eval_generate(self, input_ids, attention_mask, batch_index: int):
+        """(tokens, mask) for one eval batch; the trainer defines how."""
+        raise NotImplementedError
+
+    def evaluate(self):
+        """Sample the eval prompts, score them with ``reward_fn`` and
+        ``metric_fn``, and log a table. Statistics run over exactly the valid
+        eval rows: the loader's fixed-shape wrap-around duplicates are
+        dropped first."""
+        eval_t0 = time.time()
+        stats = {}
+        all_texts = []
+        t0 = time.time()
+        for i, (batch, n_valid) in enumerate(self.eval_dataloader.iter_with_valid()):
+            tokens, mask = self.eval_generate(batch["input_ids"], batch["attention_mask"], i)
+            t, m = self.to_host((tokens, mask))
+            all_texts.extend(self.decode(t[:n_valid], m[:n_valid]))
+        stats["generate_time"] = time.time() - t0
+
+        columns = ["sample"]
+        rows = [[t] for t in all_texts]
+        if self.reward_fn is not None:
+            t0 = time.time()
+            rewards = np.asarray(self.reward_fn(all_texts), dtype=np.float32)
+            stats["reward_time"] = time.time() - t0
+            stats["mean_reward"] = float(np.mean(rewards))
+            columns.append("reward")
+            for row, r in zip(rows, rewards):
+                row.append(float(r))
+        if self.metric_fn is not None:
+            t0 = time.time()
+            metrics = self.metric_fn(all_texts)
+            stats["metric_time"] = time.time() - t0
+            for k, v in metrics.items():
+                v = np.asarray(v)
+                stats[f"metrics/{k}"] = float(np.mean(v))
+                if v.ndim > 0 and len(v) == len(rows):
+                    columns.append(k)
+                    for row, item in zip(rows, v):
+                        row.append(float(item))
+        self.tracker.log_table("samples", columns, rows, step=self.iter_count)
+        stats["eval_wall_time"] = time.time() - eval_t0
+        return stats
+
+    def _check_resilience(self, stats):
+        """Stop after ``train.max_bad_steps`` consecutive skipped updates."""
+        if "resilience/bad_steps" in stats:
+            check_bad_steps(int(stats["resilience/bad_steps"]), self.config.train.max_bad_steps, self.iter_count)
+
+    def learn(self):
+        """The training loop: epochs × store batches × n_updates_per_batch
+        steps, ``post_backward_callback`` after every step, the log and eval
+        cadence of ``train.log_interval`` / ``train.eval_interval``,
+        ``post_epoch_callback`` after every epoch (PPO: the next rollout
+        phase), and a stop at ``total_steps`` followed by ``evaluate()``.
+
+        No checkpoint is saved, at an interval or at the end: checkpointing
+        is not ported yet (``train.checkpoint_interval`` is not read).
+        Returns the final ``evaluate()`` stats."""
+        self.prepare_learning()
+        self.iter_count = 0
+        if self.iter_count >= self.total_steps:
+            return self.evaluate()
+        for _ in range(self.config.train.epochs):
+            for batch in self.train_dataloader:
+                device_batch = self.put_batch(batch)
+                for _ in range(self.n_updates_per_batch):
+                    forward_t0 = time.time()
+                    stats = self.train_step(device_batch)
+                    self.iter_count += 1
+                    self.post_backward_callback(stats)
+                    self._check_resilience(stats)
+                    iv = self.intervals(self.iter_count)
+                    if iv["do_log"] or iv["do_eval"]:
+                        stats_host = {k: float(v) for k, v in stats.items()}
+                        stats_host["step_time"] = time.time() - forward_t0
+                        stats_host["samples_per_sec"] = self.config.train.batch_size / max(
+                            stats_host["step_time"], 1e-9
+                        )
+                        if iv["do_eval"]:
+                            stats_host.update(self.evaluate())
+                        self.tracker.log(stats_host, step=self.iter_count)
+                    if self.iter_count >= self.total_steps:
+                        return self.evaluate()
+            self.post_epoch_callback()
+        return self.evaluate()

@@ -1,10 +1,12 @@
-"""PPO trainer, rollout half: the KL controllers, model build, decode with
-the fused rollout statistics, and rollout scoring (the counterpart of the
-rollout side of ``trlx_tpu.trainer.ppo``).
+"""PPO trainer: the KL controllers, model build, decode with the fused
+rollout statistics, rollout scoring, and the train step (the counterpart of
+``trlx_tpu.trainer.ppo``).
 
-``learn()``, the optimizer and the train step belong to the training slice.
-What ``trlx_tpu.train(reward_fn=...)`` runs before ``learn()`` runs here:
-``PPOTrainer`` → ``PromptPipeline`` → ``PPOOrchestrator.make_experience``.
+``trlx_tpu_torch.train(reward_fn=...)`` runs ``PPOTrainer`` →
+``PromptPipeline`` → ``PPOOrchestrator.make_experience`` → ``learn()``: each
+train step is the PPO loss (GAE, whitening, the policy forward, the clipped
+losses), its backward, the non-finite guard, then global-norm clip and
+AdamW over the trainable parameters.
 """
 
 from typing import Dict, Optional
@@ -12,18 +14,20 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from trlx_tpu_torch.data import PPORLBatch
 from trlx_tpu_torch.data.configs import TRLConfig
 from trlx_tpu_torch.device import stamp
-from trlx_tpu_torch.models.heads import LMWithValueHead, extract_branch_params, swapped_params
+from trlx_tpu_torch.models.heads import LMWithValueHead, extract_branch_params, swapped_params, trainable_mask
 from trlx_tpu_torch.models.hf_import import build_lm_config, init_params
 from trlx_tpu_torch.ops.fused_logprob import fused_logprob_eligible
 from trlx_tpu_torch.ops.generate import make_generate_fn
 from trlx_tpu_torch.ops.modeling import logprobs_from_logits
-from trlx_tpu_torch.ops.rl_losses import kl_penalty_rewards
+from trlx_tpu_torch.ops.rl_losses import kl_penalty_rewards, ppo_loss
 from trlx_tpu_torch.ops.sampling import GenerateConfig, make_bigram_mask_processor, process_logits_default
 from trlx_tpu_torch.pipeline.ppo_pipeline import PPORolloutStorage
+from trlx_tpu_torch.resilience.guard import guarded_update
 from trlx_tpu_torch.trainer import register_model
-from trlx_tpu_torch.trainer.base import BaseTrainer
+from trlx_tpu_torch.trainer.base import BaseTrainer, build_optimizer, global_norm
 
 
 def resolve_fused_head(cfg, device: torch.device) -> bool:
@@ -65,19 +69,46 @@ class FixedKLController:
 
 def _refuse_unported(config: TRLConfig, gen_kwargs: dict):
     """Raise on every knob whose feature is not ported yet, so no config
-    silently runs a different algorithm than it asks for."""
-    m, mc = config.method, config.model
+    silently runs a different algorithm, or records less, than it asks
+    for. The one list of such knobs."""
+    m, mc, t = config.method, config.model, config.train
     unported = {
         "method.rollout_engine": m.rollout_engine,
         "method.paged_kv": m.paged_kv,
         "method.spec_decode": bool(m.spec_decode),
         "method.rollout_overlap": m.rollout_overlap,
         "method.max_staleness": m.max_staleness > 0,
+        "method.pack_train_batch": m.pack_train_batch,
         "method.fleet_disaggregate": m.fleet_disaggregate,
         "method.fleet_elastic": m.fleet_elastic,
         "method.gen_kwargs.prompt_buckets": bool(gen_kwargs.get("prompt_buckets")),
         "model.decode_weight_quant": mc.decode_weight_quant,
         "model.reward_model": mc.has_reward_model,
+        # checkpointing and resume
+        "train.resume_from_checkpoint": t.resume_from_checkpoint,
+        "train.keep_checkpoints": t.keep_checkpoints > 0,
+        # resilience beyond the non-finite guard
+        "train.watchdog_threshold": t.watchdog_threshold > 0,
+        "train.fault_plan": bool(t.fault_plan),
+        "train.reward_fn_timeout": t.reward_fn_timeout > 0,
+        "train.heartbeat_interval": t.heartbeat_interval > 0,
+        "train.collective_deadline": t.collective_deadline > 0,
+        "train.desync_check_interval": t.desync_check_interval > 0,
+        "train.preempt_check_interval": t.preempt_check_interval > 0,
+        "train.fleet_role": bool(t.fleet_role),
+        "train.fleet_dir": bool(t.fleet_dir),
+        # profiling and observability
+        "train.profile_dir": bool(t.profile_dir),
+        "train.watch_interval": t.watch_interval > 0,
+        "train.trace_spans": t.trace_spans,
+        "train.device_telemetry": t.device_telemetry,
+        "train.anomaly_factor": t.anomaly_factor > 0,
+        "train.health_monitor": t.health_monitor,
+        "train.metrics_port": t.metrics_port > 0,
+        "train.graftscope": t.graftscope,
+        "train.graftfleet": t.graftfleet,
+        "train.fleet_resync_interval": t.fleet_resync_interval > 0,
+        "train.graftnum": t.graftnum,
     }
     on = [k for k, v in unported.items() if v]
     if on:
@@ -89,12 +120,13 @@ def _refuse_unported(config: TRLConfig, gen_kwargs: dict):
 @register_model("TPUJaxPPOModel")
 @register_model("PPOTrainer")
 class PPOTrainer(BaseTrainer):
-    """The PPO trainer's rollout side on one device.
+    """The PPO trainer on one device: rollouts, scoring and the train step.
 
     ``device`` defaults to CUDA (and raises where there is none); tests pass
     ``device="cpu"``. Parameters are initialized from ``train.seed``;
     ``load_params`` replaces them (e.g. with ``params_from_jax`` of the JAX
-    package's parameters)."""
+    package's parameters). The bottom n_layer - num_layers_unfrozen blocks
+    are frozen (``requires_grad=False``); everything else trains."""
 
     def __init__(self, config: TRLConfig, device=None, **kwargs):
         super().__init__(config, device=device, **kwargs)
@@ -109,6 +141,17 @@ class PPOTrainer(BaseTrainer):
             self.kl_ctl = AdaptiveKLController(m.init_kl_coef, m.target, m.horizon)
         else:
             self.kl_ctl = FixedKLController(m.init_kl_coef)
+        # Per-step mean_kl device scalars queued by post_backward_callback
+        # and applied in order at the next flush (before any rollout reads
+        # kl_ctl.value), so the controller follows the per-step trajectory.
+        self._kl_pending = []
+
+        # The train state: step count, optimizer (moments and applied-update
+        # count) over the trainable parameters, consecutive guard skips.
+        self.trainable = [p for p in self.model.parameters() if p.requires_grad]
+        self.optimizer, self.schedule = build_optimizer(config.train, self.trainable)
+        self.step = 0
+        self.bad_steps = 0
 
         # Static decode shapes: prompt length + new tokens == seq_length.
         self.prompt_length = int(gen_kwargs.pop("prompt_length", 0)) or max(
@@ -175,7 +218,9 @@ class PPOTrainer(BaseTrainer):
         branch_layer = lm_cfg.n_layer - k if 0 < k < lm_cfg.n_layer else -1
         model = LMWithValueHead(lm_cfg, branch_layer=branch_layer, device=self.device)
         init_params(model, self.seeded_generator(1))
-        model.requires_grad_(False)
+        self.opt_mask = trainable_mask(model, lm_cfg, config.model.num_layers_unfrozen)
+        for name, p in model.named_parameters():
+            p.requires_grad_(name in self.opt_mask)
         return model
 
     def make_extras(self) -> Dict[str, torch.Tensor]:
@@ -291,3 +336,115 @@ class PPOTrainer(BaseTrainer):
         if timings is not None:
             timings["end"] = stamp(self.device)
         return lp, values, rewards, kl
+
+    # ----------------------------------------------------------------- train
+
+    def eval_generate(self, input_ids, attention_mask, batch_index: int):
+        """Eval sampling: a generator per (train.seed, step, batch)."""
+        return self.rollout_generate(input_ids, attention_mask,
+                                     generator=self.seeded_generator(2, self.iter_count, batch_index))
+
+    def build_train_step(self):
+        """The PPO loss of this trainer's model and config (dense, or the
+        fused head when ``resolve_fused_head`` picks it)."""
+        self._loss_fn = make_ppo_loss_fn(self.model, self.config, self.prompt_length,
+                                         resolve_fused_head(self.model.cfg, self.device))
+        return self.train_step
+
+    def train_step(self, batch: PPORLBatch) -> Dict[str, torch.Tensor]:
+        """One PPO update on a device batch: loss, backward, the non-finite
+        guard, clip + AdamW. Returns the loss stats plus ``grad_norm`` (before
+        clipping), ``learning_rate`` (the schedule at this step) and the
+        guard's ``resilience/*`` counters, as device scalars."""
+        if getattr(self, "_loss_fn", None) is None:
+            self.build_train_step()
+        params = self.trainable
+        for p in params:
+            p.grad = None
+        loss, stats = self._loss_fn(batch)
+        loss.backward()
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        for p in params:
+            p.grad = None
+        stats = dict(stats)
+        stats["grad_norm"] = global_norm(grads)
+        if self.config.train.nonfinite_guard:
+            self.bad_steps, applied = guarded_update(self.optimizer, params, grads, loss.detach(), self.bad_steps)
+            stats["resilience/nonfinite"] = torch.tensor(0.0 if applied else 1.0)
+            stats["resilience/bad_steps"] = torch.tensor(float(self.bad_steps))
+        else:
+            self.optimizer.step(params, grads)
+        stats["learning_rate"] = torch.tensor(self.schedule(self.step), dtype=torch.float32)
+        self.step += 1
+        return stats
+
+    def post_backward_callback(self, stats=None):
+        """Queue this step's policy-vs-rollout mean_kl for the adaptive
+        controller; the buffered updates apply in order at the next flush."""
+        if isinstance(self.kl_ctl, FixedKLController):
+            return
+        if stats and "mean_kl" in stats:
+            self._kl_pending.append(stats["mean_kl"])
+            if len(self._kl_pending) >= max(self.config.train.log_interval, 8):
+                self._flush_kl_updates()
+
+    def _flush_kl_updates(self):
+        pending, self._kl_pending = self._kl_pending, []
+        for v in pending:
+            v = float(v)
+            if not np.isfinite(v):
+                # A guard-skipped step's stats are garbage: feeding its NaN to
+                # the controller would poison every later KL-penalty reward.
+                continue
+            self.kl_ctl.update(v, self.config.train.batch_size)
+
+    def learn(self):
+        """The base loop, then the queued KL-controller updates are applied,
+        so ``kl_ctl.value`` is current when training ends (the JAX package's
+        final save flushes them)."""
+        stats = super().learn()
+        self._flush_kl_updates()
+        return stats
+
+    def prepare_learning(self):
+        self.eval_dataloader = self.eval_pipeline.create_loader(self.config.train.batch_size)
+        self.train_dataloader = self.store.create_loader(self.config.train.batch_size, shuffle=True)
+        self.n_updates_per_batch = self.config.method.ppo_epochs
+        self.total_steps = min(
+            self.config.train.epochs * self.n_updates_per_batch * len(self.train_dataloader),
+            self.config.train.total_steps,
+        )
+
+    def post_epoch_callback(self):
+        """Back to rollouts (the serial schedule): apply the queued KL
+        updates, generate the next iteration's experience into the cleared
+        store with the updated policy, and rebuild the train loader."""
+        self._flush_kl_updates()
+        self.store.clear_history()
+        self.orch.make_experience(self.config.method.num_rollouts, self.iter_count)
+        self.train_dataloader = self.store.create_loader(self.config.train.batch_size, shuffle=True)
+
+
+def make_ppo_loss_fn(model: LMWithValueHead, config: TRLConfig, prompt_length: int, use_fused: bool):
+    """``loss_fn(batch) -> (loss, stats)`` over a device ``PPORLBatch``: the
+    policy re-forward of query + response, then ``ppo_loss``. Dense: logits
+    → f32 log_softmax; fused: the label logprobs come from the fused head
+    (its autograd Function), so no [b, R, V] logits exist."""
+    m = config.method
+    P = prompt_length
+    kw = dict(gamma=m.gamma, lam=m.lam, cliprange=m.cliprange, cliprange_value=m.cliprange_value, vf_coef=m.vf_coef)
+
+    def loss_fn(batch: PPORLBatch):
+        all_ids = torch.cat([batch.query_tensors, batch.response_tensors], dim=1)
+        all_mask = torch.cat([batch.query_mask, batch.response_mask], dim=1)
+        if use_fused:
+            out = model(all_ids, all_mask, logits_start=P - 1, labels=all_ids[:, P:],
+                        labels_mask=batch.response_mask)
+            lp = out["logprobs"]
+        else:
+            out = model(all_ids, all_mask, logits_start=P - 1)
+            lp = logprobs_from_logits(out["logits"].float()[:, :-1], all_ids[:, P:])
+        vpred = out["values"].float()[:, P - 1 : -1]
+        return ppo_loss(lp, vpred, batch.logprobs, batch.values, batch.rewards, batch.response_mask, **kw)
+
+    return loss_fn
