@@ -2,15 +2,27 @@
 """Chip smoke test of the PyTorch/CUDA port (``trlx_tpu_torch``) on one
 NVIDIA GPU: builds the hand-written kernels from ``trlx_tpu_torch/csrc``,
 holds each against its plain PyTorch version at the shapes the main paths
-give it, then drives
+give it (the paged decode kernels over scrambled block tables with a shared
+prefix, a dead slot on the trash block and a fully masked row), then drives
 
 1. the PPO experience phase (PPOTrainer → PromptPipeline →
-   PPOOrchestrator.make_experience) at GPT-J-6B width;
-2. a gradient-consistency check at GPT-J-6B width and 4 layers: one PPO
+   PPOOrchestrator.make_experience) at GPT-J-6B full width and depth on the
+   chunked sampler, over a bf16 KV cache and again over an int8 one;
+2. ``make_experience`` through the continuous-batching rollout engine,
+   greedy, bf16 cache, GPT-J-6B width and 4 layers, paged and with fixed
+   slots, and the share of identical tokens between the two;
+3. a gradient-consistency check at GPT-J-6B width and 4 layers: one PPO
    batch's gradients on the kernel route against the plain route;
-3. the training path, ``trlx_tpu_torch.train(reward_fn=...)``, at GPT-J-6B
+4. the training path, ``trlx_tpu_torch.train(reward_fn=...)``, at GPT-J-6B
    full width and depth (random weights): 16 PPO steps with a second
    ``make_experience`` in between and a final ``evaluate()``;
+5. the main path: the same ``train`` through the paged engine with an int8
+   KV cache (``method.rollout_engine``, ``method.paged_kv``,
+   ``model.kv_cache_quant``), 16 prompts of which 8 share a 512-token
+   prefix; prefix hits are held against a count reckoned from the
+   admission order, the pool's leak audit runs after each phase, and the
+   int8 block-table kernel is held against its plain version on the
+   engine's own live pool;
 
 and checks that each path went through every kernel it runs, exactly as
 often as its config says.
@@ -189,7 +201,110 @@ def phase_decode(gen):
     flops = 4 * live * h * d
     bound_ms, by = bound(nbytes, flops)
     return dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                bound_by=by, shape=[B, T, h, d], live_keys=live)
+                bound_by=by, shape=[B, T, h, d], live_keys=live, valid=valid)
+
+
+NO_LIBRARY = "null: no single PyTorch call reads an int8 cache with per-key scales or a block table"
+
+
+def int8_kv(shape, gen):
+    """int8 codes and f32 per-(key, head) scales, as the model's cache write
+    makes them (``quantize_kv``) from bf16-range activations."""
+    from trlx_tpu_torch.models.lm import quantize_kv
+
+    return quantize_kv(torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16))
+
+
+def phase_decode_int8(gen, valid):
+    """Row 8: q [8, 16, 256] over an int8 cache of T = 1024 with f32 per-key
+    scales, under the bias of row 7's phase (the same live keys)."""
+    from trlx_tpu_torch.ops.decode_attention import decode_attention_int8, decode_attention_plain
+
+    B, T, h, d = 8, MAX_LEN, 16, 256
+    q = torch.randn((B, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+    (kq, ks), (vq, vs) = int8_kv((B, T, h, d), gen), int8_kv((B, T, h, d), gen)
+    bias = torch.where(valid, 0.0, -1e9).float()
+    scale = d ** -0.5
+    out = decode_attention_int8(q, kq, vq, ks, vs, bias, scale=scale)
+    ref = decode_attention_plain(q, kq, vq, bias, scale=scale, ks=ks, vs=vs)
+    tol = 1e-2  # row 7's: bf16 output, f32 softmax and scale folding on both sides
+    err = check("decode_int8", out, ref, tol)
+    ms = time_ms(lambda: decode_attention_int8(q, kq, vq, ks, vs, bias, scale=scale), iters=50)
+    plain_ms = time_ms(lambda: decode_attention_plain(q, kq, vq, bias, scale=scale, ks=ks, vs=vs), iters=10)
+    live = int(valid.sum())
+    nbytes = 2 * live * h * d + 2 * live * h * 4 + 2 * B * h * d * 2 + B * T * 4  # int8 K/V, scales, q/o, bias
+    bound_ms, by = bound(nbytes, 4 * live * h * d)
+    return dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=None, library=NO_LIBRARY,
+                bound_ms=bound_ms, bound_by=by, shape=[B, T, h, d], live_keys=live)
+
+
+def paged_case(gen, quant: bool):
+    """The engine's default pool at the smoke's shape: S = 8 slots of
+    bps = 8 blocks of bs = 128 over n_blocks = 65 (trash block 0 + every
+    slot's span). Tables are scrambled (a seeded permutation of blocks
+    1..64); slots 0 and 1 share their first 4 blocks, as a prefix hit does;
+    slot 7 is dead, its table all trash block 0 under a stale mask; slot 6
+    is fully masked; the rest are left-padded prompts of 600-768 tokens at
+    decode step 128."""
+    S, bs, bps, h, d = 8, 128, 8, 16, 256
+    n_blocks = 1 + S * bps
+    T = bs * bps
+    q = torch.randn((S, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+    shape = (n_blocks, bs, h, d)
+    if quant:
+        (kp, ks), (vp, vs) = int8_kv(shape, gen), int8_kv(shape, gen)
+    else:
+        kp, vp = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(2))
+        ks = vs = None
+    tables = (torch.randperm(n_blocks - 1, generator=gen, device="cuda") + 1)[: S * bps].reshape(S, bps)
+    tables = tables.to(torch.int32)
+    tables[1, :4] = tables[0, :4]
+    tables[S - 1] = 0
+    lens = torch.randint(MIN_PROMPT, PROMPT_LEN + 1, (S,), generator=gen, device="cuda")
+    pos = torch.arange(T, device="cuda")[None, :]
+    valid = (pos >= (PROMPT_LEN - lens)[:, None]) & (pos <= PROMPT_LEN + 128)
+    valid[1] = valid[0]  # a prefix hit: the same width and padding, content diverging after block 3
+    valid[S - 2] = False
+    bias = torch.where(valid, 0.0, -1e9).float()
+    return q, kp, vp, ks, vs, tables, bias, valid
+
+
+def phase_paged(gen, quant: bool):
+    """Rows 9 (bf16 pool) and 10 (int8 pool) against the plain version over
+    the gathered view pool[tbl]."""
+    from trlx_tpu_torch.ops.decode_attention import (
+        paged_decode_attention, paged_decode_attention_int8, paged_decode_attention_plain,
+    )
+
+    q, kp, vp, ks, vs, tables, bias, valid = paged_case(gen, quant)
+    (S, h, d), bs = q.shape, kp.shape[1]
+    scale = d ** -0.5
+    if quant:
+        def run():
+            return paged_decode_attention_int8(q, kp, vp, ks, vs, tables, bias, scale=scale)
+    else:
+        def run():
+            return paged_decode_attention(q, kp, vp, tables, bias, scale=scale)
+
+    def plain():
+        return paged_decode_attention_plain(q, kp, vp, tables, bias, scale=scale, ks=ks, vs=vs)
+
+    tol = 1e-2  # row 7's
+    err = check("paged_decode_int8" if quant else "paged_decode", run(), plain(), tol)
+    ms = time_ms(run, iters=50)
+    plain_ms = time_ms(plain, iters=10)
+    # The bytes this data needs: each physical K/V row some slot's bias
+    # leaves visible, once (shared blocks and the dead slot's trash block
+    # are the same memory), plus q/o, bias and tables.
+    t = torch.arange(valid.shape[1], device="cuda")
+    phys = (tables.long().gather(1, (t // bs)[None].expand_as(valid)) * bs + t % bs)[valid]
+    live = int(torch.unique(phys).numel())
+    per_key = h * d * (1 if quant else 2) * 2 + (2 * h * 4 if quant else 0)
+    nbytes = live * per_key + 2 * S * h * d * 2 + valid.numel() * 4 + tables.numel() * 4
+    bound_ms, by = bound(nbytes, 4 * int(valid.sum()) * h * d)
+    return dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=None, library=NO_LIBRARY,
+                bound_ms=bound_ms, bound_by=by, shape=[S, int(kp.shape[0]), bs, int(tables.shape[1]), h, d],
+                live_keys=int(valid.sum()), unique_live_rows=live)
 
 
 def phase_logprob(gen):
@@ -365,36 +480,41 @@ def logprob_bwd_split(seed: int):
         "fused_logprob_bwd_dw": ("logprob_dw_kernel", "logprob_db_kernel")})
 
 
-def smoke_config():
-    """The rollout path's config: GPT-J-6B, experience only."""
+def smoke_config(quant: bool = False, n_layer: int = GPTJ_6B_ARCH["n_layer"], run: str = "rollout",
+                 greedy: bool = False, **method):
+    """The rollout path's config: GPT-J-6B, experience only. ``quant`` sets
+    model.kv_cache_quant, ``greedy`` turns sampling off, ``method`` adds
+    method fields (the engine's)."""
     from trlx_tpu_torch.data.configs import TRLConfig
 
     return TRLConfig.from_dict({
         "model": dict(model_path="", tokenizer_path="", model_type="ppo", num_layers_unfrozen=2,
-                      model_arch=dict(GPTJ_6B_ARCH), dtype="bfloat16", param_dtype="float32"),
+                      model_arch=dict(GPTJ_6B_ARCH, n_layer=n_layer), dtype="bfloat16", param_dtype="float32",
+                      kv_cache_quant=quant),
         "train": dict(total_steps=1, seq_length=MAX_LEN, epochs=1, batch_size=CHUNK, lr_ramp_steps=1,
                       lr_decay_steps=1, weight_decay=1e-6, learning_rate_init=1.412e-4,
-                      learning_rate_target=1.412e-4, seed=1000, checkpoint_dir=os.path.join(RUN_DIR, "rollout")),
+                      learning_rate_target=1.412e-4, seed=1000, checkpoint_dir=os.path.join(RUN_DIR, run)),
         "method": dict(name="ppoconfig", num_rollouts=N_ROLLOUTS, chunk_size=CHUNK, init_kl_coef=0.2, target=6,
                        horizon=10000, gen_kwargs=dict(prompt_length=PROMPT_LEN, max_length=MAX_LEN,
                                                       min_length=MAX_LEN, top_k=0, top_p=0.7, temperature=0.5,
-                                                      do_sample=True)),
+                                                      do_sample=not greedy), **method),
     })
 
 
-def train_config(n_layer: int, model_type: str, run_dir: str, **arch):
+def train_config(n_layer: int, model_type: str, run_dir: str, method=None, quant: bool = False, **arch):
     """The training path's config: GPT-J-6B (depth ``n_layer``) with the
     method and optimizer values of trlx_tpu/configs/ppo_gptj_config.yml
     (remat, 2 unfrozen layers, vf_coef 0.2, betas (0.9, 0.95), lr 1.412e-4
     with a 100-step ramp, 4 PPO epochs, adaptive KL 0.2 → 6), the smoke's
     768 + 256 lengths, 16 rollouts in chunks of 8, batch 8, 2 epochs and 16
-    steps."""
+    steps. ``method`` adds method fields, ``quant`` sets
+    model.kv_cache_quant."""
     from trlx_tpu_torch.data.configs import TRLConfig
 
     return TRLConfig.from_dict({
         "model": dict(model_path="", tokenizer_path="", model_type=model_type, num_layers_unfrozen=2,
                       model_arch=dict(GPTJ_6B_ARCH, n_layer=n_layer, **arch), dtype="bfloat16",
-                      param_dtype="float32", remat=True),
+                      param_dtype="float32", remat=True, kv_cache_quant=quant),
         "train": dict(total_steps=16, seq_length=MAX_LEN, epochs=2, batch_size=CHUNK, lr_ramp_steps=100,
                       lr_decay_steps=79000, weight_decay=1e-6, learning_rate_init=1.412e-4,
                       learning_rate_target=1.412e-4, opt_betas=[0.9, 0.95], grad_clip=1.0,
@@ -403,7 +523,7 @@ def train_config(n_layer: int, model_type: str, run_dir: str, **arch):
                        target=6, horizon=10000, gamma=1.0, lam=0.95, cliprange=0.2, cliprange_value=0.2,
                        vf_coef=0.2, gen_kwargs=dict(prompt_length=PROMPT_LEN, max_length=MAX_LEN,
                                                     min_length=MAX_LEN, top_k=0, top_p=0.7, temperature=0.5,
-                                                    do_sample=True)),
+                                                    do_sample=True), **(method or {})),
     })
 
 
@@ -498,11 +618,13 @@ def group_fingerprints(trainer, n_layer: int):
     return fps
 
 
-def make_timed_trainer(kernels, n_layer: int):
+def make_timed_trainer(kernels, n_layer: int, on_engine=None):
     """A PPOTrainer, registered under its own name and picked by the
     config's ``model_type``, that records per train step its device time
     (CUDA events), its kernel launches and its stats; parameter fingerprints
-    at the start, after step 2 and at the end; and each evaluate()'s stats."""
+    at the start, after step 2 and at the end; the launches so far when
+    evaluate() starts, and each evaluate()'s stats. ``on_engine(engine)``
+    runs once, when the rollout engine is built."""
     from trlx_tpu_torch.trainer import register_model
     from trlx_tpu_torch.trainer.ppo import PPOTrainer
 
@@ -511,7 +633,15 @@ def make_timed_trainer(kernels, n_layer: int):
         def __init__(self, config, **kwargs):
             super().__init__(config, **kwargs)
             self.step_log, self.eval_log = [], []
+            self.launches_before_eval = None
             self.fp = {"start": group_fingerprints(self, n_layer)}
+
+        def rollout_engine(self):
+            fresh = self._rollout_engine is None
+            engine = super().rollout_engine()
+            if fresh and on_engine is not None:
+                on_engine(engine)
+            return engine
 
         def train_step(self, batch):
             before = {n: f.launches for n, f in kernels.items()}
@@ -529,6 +659,7 @@ def make_timed_trainer(kernels, n_layer: int):
             return stats
 
         def evaluate(self):
+            self.launches_before_eval = {n: f.launches for n, f in kernels.items()}
             stats = super().evaluate()
             self.eval_log.append(stats)
             return stats
@@ -536,9 +667,44 @@ def make_timed_trainer(kernels, n_layer: int):
     return SmokeTimedPPOTrainer
 
 
+def train_step_launches(kernels, n_layer: int):
+    """Kernel launches of one train step at the smoke's batch: the flash
+    forward twice per layer (the forward, then its recompute under remat),
+    the flash backward once per layer, the fused head forward once and its
+    backward once per 1024-row chunk; no decode kernel."""
+    bwd_chunks = -(-CHUNK * (MAX_LEN - PROMPT_LEN) // 1024)
+    out = dict.fromkeys(kernels, 0)
+    out.update({"flash_attention_fwd": 2 * n_layer, "flash_attention_bwd_dq": n_layer,
+                "flash_attention_bwd_dkv": n_layer, "fused_logprob_fwd": 1, "fused_logprob_bwd_dx": bwd_chunks,
+                "fused_logprob_bwd_dw": bwd_chunks})
+    return out
+
+
+def check_train_steps(trainer, config, per_step):
+    """Every train step recorded by the timed trainer launched exactly
+    ``per_step``, has finite stats and no guard skip; steps 1 and 9, the
+    first on fresh rollouts (the second make_experience ran with the
+    updated weights), have mean_ratio within 1 +- 0.05: the training
+    forward reproduces the rollout policy's statistics. Returns the log."""
+    log_, steps = trainer.step_log, config.train.total_steps
+    if len(log_) != steps or trainer.iter_count != steps:
+        raise AssertionError(f"{len(log_)} train steps recorded, iter_count {trainer.iter_count}, expected {steps}")
+    for i, rec in enumerate(log_):
+        if rec["launches"] != per_step:
+            raise AssertionError(f"step {i + 1} launched {rec['launches']}, expected {per_step}")
+        bad = [k for k, v in rec.items() if k != "launches" and not np.isfinite(v)]
+        if bad or rec["resilience/nonfinite"] != 0.0:
+            raise AssertionError(f"step {i + 1}: non-finite {bad} or a guard skip ({rec['resilience/nonfinite']})")
+    for i in (0, steps // config.train.epochs):
+        if not abs(log_[i]["mean_ratio"] - 1.0) <= 0.05:
+            raise AssertionError(f"step {i + 1} mean_ratio {log_[i]['mean_ratio']} is not within 1 +- 0.05")
+    return log_
+
+
 def train_path(kernels):
     """``trlx_tpu_torch.train(reward_fn=...)`` at GPT-J-6B full width and
-    depth; returns its numbers and the launches of the whole run."""
+    depth on the chunked sampler with a bf16 cache; returns its numbers and
+    the launches of the whole run."""
     import trlx_tpu_torch
 
     n_layer, k = GPTJ_6B_ARCH["n_layer"], 2
@@ -561,38 +727,21 @@ def train_path(kernels):
     R = MAX_LEN - PROMPT_LEN
     chunks = 2 * N_ROLLOUTS // CHUNK  # two make_experience calls
     bwd_chunks = -(-CHUNK * R // 1024)
-    per_step = {"flash_attention_fwd": 2 * n_layer, "flash_attention_bwd_dq": n_layer,
-                "flash_attention_bwd_dkv": n_layer, "fused_logprob_fwd": 1, "fused_logprob_bwd_dx": bwd_chunks,
-                "fused_logprob_bwd_dw": bwd_chunks, "decode_attention": 0}
-    expected = {
+    per_step = train_step_launches(kernels, n_layer)
+    expected = dict.fromkeys(kernels, 0)
+    expected.update({
         "flash_attention_fwd": chunks * (n_layer + k) + steps * 2 * n_layer + n_layer,
         "decode_attention": (chunks + 1) * n_layer * R,
         "fused_logprob_fwd": chunks + steps,
         "flash_attention_bwd_dq": steps * n_layer, "flash_attention_bwd_dkv": steps * n_layer,
         "fused_logprob_bwd_dx": steps * bwd_chunks, "fused_logprob_bwd_dw": steps * bwd_chunks,
-    }
+    })
     log(f"[train] launches {launches} expected {expected} (rollouts: {chunks} chunks x flash {n_layer + k}, "
         f"decode {n_layer}x{R}, fused logprob 1; per train step {per_step}; eval: flash {n_layer}, "
         f"decode {n_layer}x{R})")
     if launches != expected:
         raise AssertionError(f"kernel launches {launches} != {expected}")
-    log_ = trainer.step_log
-    if len(log_) != steps or trainer.iter_count != steps:
-        raise AssertionError(f"{len(log_)} train steps recorded, iter_count {trainer.iter_count}, expected {steps}")
-    for i, rec in enumerate(log_):
-        if rec["launches"] != per_step:
-            raise AssertionError(f"step {i + 1} launched {rec['launches']}, expected {per_step}")
-        bad = [k for k, v in rec.items() if k not in ("launches",) and not np.isfinite(v)]
-        if bad or rec["resilience/nonfinite"] != 0.0:
-            raise AssertionError(f"step {i + 1}: non-finite {bad} or a guard skip ({rec['resilience/nonfinite']})")
-    # Steps 1 and 9 are the first on fresh rollouts (the second
-    # make_experience ran with the updated weights), where the policy is the
-    # rollout policy: the training forward must reproduce the rollout's
-    # fused statistics.
-    first = steps // config.train.epochs
-    for i in (0, first):
-        if not abs(log_[i]["mean_ratio"] - 1.0) <= 0.05:
-            raise AssertionError(f"step {i + 1} mean_ratio {log_[i]['mean_ratio']} is not within 1 +- 0.05")
+    log_ = check_train_steps(trainer, config, per_step)
 
     fp = trainer.fp
     trained = ["wte", f"h_{n_layer - 2}", f"h_{n_layer - 1}", "lm_head", "v_head"]
@@ -645,18 +794,21 @@ def reward_fn(samples):
     return [float(np.mean(np.asarray(s) % 2 == 0)) for s in samples]
 
 
-def main_path(kernels):
-    """The PPO experience phase at GPT-J-6B width (the rollout path);
-    returns its numbers."""
+def main_path(kernels, quant: bool = False):
+    """The PPO experience phase at GPT-J-6B width (the rollout path) on the
+    chunked sampler, over a bf16 cache or, with ``quant``, an int8 one (the
+    decode steps then run row 8); returns its numbers."""
     from trlx_tpu_torch.orchestrator.ppo_orchestrator import PPOOrchestrator
     from trlx_tpu_torch.pipeline.prompt_pipeline import PromptPipeline
     from trlx_tpu_torch.trainer.ppo import PPOTrainer
 
-    config = smoke_config()
+    tag = "[rollout-int8]" if quant else "[main]"
+    decode = "decode_attention_int8" if quant else "decode_attention"
+    config = smoke_config(quant=quant, run="rollout_int8" if quant else "rollout")
     t0 = time.perf_counter()
     trainer = PPOTrainer(config)
     torch.cuda.synchronize()
-    log(f"[main] PPOTrainer built in {time.perf_counter() - t0:.1f}s: {config.model.model_arch['n_layer']} layers, "
+    log(f"{tag} PPOTrainer built in {time.perf_counter() - t0:.1f}s: {config.model.model_arch['n_layer']} layers, "
         f"branch at layer {trainer.model.branch_layer}, fused rollout {trainer.fused_rollout}")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, 50400, size=int(rng.integers(MIN_PROMPT, PROMPT_LEN + 1))).tolist()
@@ -677,10 +829,10 @@ def main_path(kernels):
     n_chunks = N_ROLLOUTS // CHUNK
     n_layer, k = GPTJ_6B_ARCH["n_layer"], config.model.num_layers_unfrozen
     steps = MAX_LEN - PROMPT_LEN
-    expected = {name: 0 for name in kernels}  # no backward kernel runs on the rollout path
-    expected.update({"flash_attention_fwd": n_chunks * (n_layer + k), "decode_attention": n_chunks * n_layer * steps,
+    expected = dict.fromkeys(kernels, 0)  # no backward kernel runs on the rollout path
+    expected.update({"flash_attention_fwd": n_chunks * (n_layer + k), decode: n_chunks * n_layer * steps,
                      "fused_logprob_fwd": n_chunks})
-    log(f"[main] launches {launches} expected {expected}")
+    log(f"{tag} launches {launches} expected {expected}")
     if launches != expected:
         raise AssertionError(f"kernel launches {launches} != {expected}")
 
@@ -696,20 +848,20 @@ def main_path(kernels):
     # The repo's own consistency check (tests/test_fused_rollout.py): the
     # fused scorer's decode-collected logprobs/values against a full policy
     # re-forward of the last chunk's tokens. bf16 end to end over 28 layers,
-    # KV-cache decode vs one full pass: a small spread is expected; a
-    # misaligned position or a wrong kernel gives errors of order 1.
+    # KV-cache decode vs one full pass: a small spread is expected (with an
+    # int8 cache the JAX package measured |dlogprob| <= ~0.008 against the
+    # full-precision re-forward); a misaligned position or a wrong kernel
+    # gives errors of order 1.
     last = slice(N_ROLLOUTS - CHUNK, N_ROLLOUTS)
-    tokens = torch.as_tensor(np.concatenate([cols["query_tensors"][last], cols["response_tensors"][last]], 1),
-                             device="cuda")
-    mask = torch.as_tensor(np.concatenate([cols["query_mask"][last], cols["response_mask"][last]], 1),
-                           device="cuda")
+    tokens = trainer.put(np.concatenate([cols["query_tensors"][last], cols["response_tensors"][last]], 1))
+    mask = trainer.put(np.concatenate([cols["query_mask"][last], cols["response_mask"][last]], 1))
     scores = np.asarray(reward_fn(trainer.decode(tokens, mask)), dtype=np.float32)
     lp, values, rewards, _ = trainer.to_host(trainer.rollout_score(tokens, mask, scores))
     consistency = {}
     for key, ref in (("logprobs", lp), ("values", values), ("rewards", rewards)):
         diff = np.abs(cols[key][last] - ref)
         consistency[key] = {"mean_abs": float(diff.mean()), "max_abs": float(diff.max())}
-    log(f"[main] fused vs re-forward scoring: {json.dumps(consistency)}")
+    log(f"{tag} fused vs re-forward scoring: {json.dumps(consistency)}")
     if consistency["logprobs"]["mean_abs"] > 0.1 or consistency["values"]["mean_abs"] > 0.1:
         raise AssertionError("fused rollout statistics disagree with the re-forward scorer")
 
@@ -725,8 +877,334 @@ def main_path(kernels):
         "launches": launches,
         "consistency": consistency,
     }
-    log(f"[main] make_experience({N_ROLLOUTS}) at GPT-J-6B width: {json.dumps(out)}")
+    log(f"{tag} make_experience({N_ROLLOUTS}) at GPT-J-6B width: {json.dumps(out)}")
     return out, launches
+
+
+ENGINE = dict(rollout_engine=True, kv_block_size=128, engine_slots=8, prefill_batch=4, engine_steps_per_sync=8)
+
+
+def engine_prompts():
+    """16 token prompts: 8 of 768 tokens that share their first 512 (four
+    128-token blocks a later admission hits), and 8 of seeded lengths in
+    600-768, left-padded to 768."""
+    rng = np.random.default_rng(7)
+    head = rng.integers(1, 50400, size=512)
+    shared = [np.concatenate([head, rng.integers(1, 50400, size=PROMPT_LEN - 512)]).tolist() for _ in range(8)]
+    return shared + seeded_prompts(8, 8)
+
+
+def record_pool_events(pool):
+    """Log the engine pool's calls in order: admit (with the hit tokens it
+    returned), register_prefix, release and flush_registry."""
+    events = []
+    admit, register, release, flush = pool.admit, pool.register_prefix, pool.release, pool.flush_registry
+
+    def admit_(slot, version, ids, mask):
+        row, hit = admit(slot, version, ids, mask)
+        events.append(("admit", slot, version, np.asarray(ids), np.asarray(mask), hit))
+        return row, hit
+
+    def register_(slot, version, ids, mask):
+        register(slot, version, ids, mask)
+        events.append(("register", slot, version, np.asarray(ids), np.asarray(mask)))
+
+    def release_(slot):
+        release(slot)
+        events.append(("release", slot))
+
+    def flush_():
+        flush()
+        events.append(("flush",))
+
+    pool.admit, pool.register_prefix, pool.release, pool.flush_registry = admit_, register_, release_, flush_
+    return events
+
+
+def reckon_prefix_hits(events, bs: int, bps: int, n_blocks: int):
+    """The prefix hit (in tokens) each admission should get, from the order
+    of admissions, registrations, releases and flushes alone: a content
+    model of the pool's documented policy, keyed by the prompt tokens and
+    mask of each leading run of blocks (not by the pool's digests). A
+    prompt hits the longest registered run, at most (width - 1) // bs
+    blocks; registered blocks that no slot holds stay warm until the free
+    blocks run out, then go oldest first; a flush forgets every
+    registration."""
+    free, ids_next = n_blocks - 1, 0
+    owner, key_of, ref, held = {}, {}, {}, {}
+    warm = {}  # warm registered blocks, oldest first (dicts keep insertion order)
+    expected = []
+
+    def key(ver, ids, mask, j):
+        return ver, ids[: (j + 1) * bs].tobytes(), mask[: (j + 1) * bs].tobytes()
+
+    for ev in events:
+        if ev[0] == "flush":
+            free += len(warm)
+            warm.clear()
+            owner.clear()
+            key_of.clear()
+        elif ev[0] == "admit":
+            _, slot, ver, ids, mask, _ = ev
+            hits = []
+            for j in range(min(bps, (len(ids) - 1) // bs)):
+                b = owner.get(key(ver, ids, mask, j))
+                if b is None:
+                    break
+                hits.append(b)
+            for b in hits:
+                warm.pop(b, None)
+                ref[b] += 1
+            private = []
+            for _ in range(bps - len(hits)):
+                if free:
+                    free -= 1
+                    b, ids_next = ids_next, ids_next + 1
+                else:
+                    b = next(iter(warm))
+                    del warm[b], owner[key_of.pop(b)]
+                ref[b] = 1
+                private.append(b)
+            held[slot] = hits + private
+            expected.append(len(hits) * bs)
+        elif ev[0] == "register":
+            _, slot, ver, ids, mask = ev
+            for j in range(len(ids) // bs):
+                k, b = key(ver, ids, mask, j), held[slot][j]
+                if k not in owner and b not in key_of:
+                    owner[k], key_of[b] = b, k
+        else:  # release
+            for b in held.pop(ev[1]):
+                ref[b] -= 1
+                if ref[b] == 0:
+                    if b in key_of:
+                        warm[b] = None
+                    else:
+                        free += 1
+    return expected
+
+
+def check_live_pool(engine):
+    """Row 10 against its plain version on the engine's own layer-0 int8
+    pool, device block tables and cache mask, with a seeded query. The
+    comparison's launch does not count as the path's."""
+    from trlx_tpu_torch.ops.decode_attention import (
+        paged_decode_attention_int8, paged_decode_attention_plain, paged_slot_decode_attention,
+    )
+
+    st, cfg = engine._state, engine.cfg
+    kp, vp, ks, vs = st["cache"][0]
+    tables, mask = st["block_tables"], st["cache_mask"]
+    gen = torch.Generator(device=kp.device).manual_seed(11)
+    q = torch.randn((engine.n_slots, cfg.n_head, cfg.head_dim), generator=gen, device=kp.device).to(torch.bfloat16)
+    scale = cfg.head_dim ** -0.5
+    n = paged_decode_attention_int8.launches
+    out = paged_slot_decode_attention(q, kp, vp, tables, mask, scale=scale, ks=ks, vs=vs)
+    paged_decode_attention_int8.launches = n
+    ref = paged_decode_attention_plain(q, kp, vp, tables, torch.where(mask.bool(), 0.0, -1e9).float(), scale=scale,
+                                       ks=ks, vs=vs)
+    live = [i for i, m in enumerate(engine._slot_meta) if m is not None]
+    blocks = engine.pool.tables[live].ravel()
+    return {"max_abs_err": check("paged_decode_int8[live pool]", out, ref, 1e-2), "tol": 1e-2,
+            "decode_call": engine._decode_calls + 1, "live_slots": len(live),
+            "blocks_shared": int(blocks.size - np.unique(blocks).size)}
+
+
+def engine_train_path(kernels):
+    """The main path: ``trlx_tpu_torch.train(reward_fn=...)`` at GPT-J-6B
+    full width and depth through the continuous-batching engine, paged
+    (block 128, 8 slots, prefill batch 4, 8 steps per sync, the default pool
+    of 65 blocks) with an int8 KV cache, on 16 prompts of which 8 share a
+    512-token prefix, with ``train_config``'s method and optimizer values:
+    16 PPO steps, two experience phases, a final evaluate(). Returns its
+    numbers and the launches of the whole run."""
+    import trlx_tpu_torch
+
+    n_layer, k, R = GPTJ_6B_ARCH["n_layer"], 2, MAX_LEN - PROMPT_LEN
+    spc = ENGINE["engine_steps_per_sync"]
+    eng = {}
+
+    def on_engine(engine):
+        eng["engine"] = engine
+        eng["events"] = record_pool_events(engine.pool)
+        decode, stats = engine._decode, engine.stats
+
+        def decode_():
+            out = decode()
+            if "live_pool" not in eng:
+                live = [i for i, m in enumerate(engine._slot_meta) if m is not None]
+                blocks = engine.pool.tables[live].ravel()
+                if np.unique(blocks).size < blocks.size:  # two live slots share a prefix block
+                    eng["live_pool"] = check_live_pool(engine)
+            return out
+
+        def stats_(reset=True):
+            # The orchestrator reads the gauges once, when a phase has drained.
+            engine.pool.leak_audit(expect_idle=True)
+            eng["audits"] = eng.get("audits", 0) + 1
+            return stats(reset)
+
+        engine._decode, engine.stats = decode_, stats_
+
+    cls = make_timed_trainer(kernels, n_layer, on_engine)
+    run_dir = os.path.join(RUN_DIR, "engine_train")
+    config = train_config(n_layer, cls.__name__, run_dir, method=dict(ENGINE, paged_kv=True), quant=True)
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    trainer = trlx_tpu_torch.train(reward_fn=reward_fn, prompts=engine_prompts(),
+                                   eval_prompts=seeded_prompts(CHUNK, 1), config=config)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if trainer._rollout_engine is not None:
+        raise AssertionError("learn() did not shut the rollout engine down")
+
+    exp = []
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            if "exp_time" in rec:
+                exp.append({k_: v for k_, v in rec.items() if k_.startswith(("exp_", "rollout_", "engine/"))})
+    if len(exp) != 2 or eng.get("audits") != 2:
+        raise AssertionError(f"expected 2 experience phases and 2 leak audits, got {len(exp)} and {eng.get('audits')}")
+    calls = sum(int(r["engine/decode_calls"]) for r in exp)
+    # Each phase: 8 slots admitted at once, every episode 256 tokens (eos is
+    # suppressed up to max_length), so two waves of R / steps_per_sync calls.
+    if calls != 2 * 2 * R // spc:
+        raise AssertionError(f"{calls} engine decode calls, reckoned {2 * 2 * R // spc}")
+
+    steps = config.train.total_steps
+    chunks = 2 * N_ROLLOUTS // CHUNK
+    bwd_chunks = train_step_launches(kernels, n_layer)["fused_logprob_bwd_dx"]
+    expected = dict.fromkeys(kernels, 0)
+    expected.update({
+        # Every decode step of every engine call, in every layer.
+        "paged_decode_attention_int8": n_layer * spc * calls,
+        # Unfused scoring (policy forward + branch replay) per chunk; the
+        # train steps; the eval prefill. The paged suffix prefill is einsum.
+        "flash_attention_fwd": chunks * (n_layer + k) + steps * 2 * n_layer + n_layer,
+        "fused_logprob_fwd": chunks * 2 + steps,
+        # evaluate() samples with the whole-batch sampler over the int8 cache.
+        "decode_attention_int8": n_layer * R,
+        "flash_attention_bwd_dq": steps * n_layer, "flash_attention_bwd_dkv": steps * n_layer,
+        "fused_logprob_bwd_dx": steps * bwd_chunks, "fused_logprob_bwd_dw": steps * bwd_chunks,
+    })
+    got = [ev[5] for ev in eng["events"] if ev[0] == "admit"]
+    pool = eng["engine"].pool
+    want = reckon_prefix_hits(eng["events"], pool.block_size, pool.blocks_per_slot, pool.n_blocks)
+    hits = {"hits": sum(1 for h in want if h), "tokens_saved": sum(want),
+            "engine_hits": exp[-1]["engine/prefix_hits_total"],
+            "engine_tokens_saved": exp[-1]["engine/prefill_tokens_saved_total"], "per_admission": got}
+    log(f"[engine] prefix hits {json.dumps(hits)}")
+    if got != want or (hits["hits"], hits["tokens_saved"]) != (hits["engine_hits"], hits["engine_tokens_saved"]):
+        raise AssertionError(f"prefix hits per admission {got} (engine totals {hits['engine_hits']}, "
+                             f"{hits['engine_tokens_saved']}) != reckoned {want}")
+    if not hits["hits"]:
+        raise AssertionError("no prefix hit on prompts that share a 512-token prefix")
+    if "live_pool" not in eng:
+        raise AssertionError("no decode call ran with two live slots sharing a block: the live-pool check never ran")
+
+    log_ = check_train_steps(trainer, config, train_step_launches(kernels, n_layer))
+    cols = trainer.store.columns()
+    if len(trainer.store) != N_ROLLOUTS:
+        raise AssertionError(f"store holds {len(trainer.store)} rows, expected {N_ROLLOUTS}")
+    for key_, col in cols.items():
+        if col.shape[0] != N_ROLLOUTS or not np.isfinite(col).all():
+            raise AssertionError(f"store {key_}: shape {col.shape} or non-finite values")
+
+    engine = eng["engine"]
+    cfg = trainer.model.cfg
+    per_token = 2 * cfg.n_head * cfg.head_dim + 2 * cfg.n_head * 4  # int8 K and V, f32 scales, per layer
+    dev_s = [r["device_s"] for r in log_]
+    out = {
+        "wall_s": wall,
+        "peak_mem_gb": peak_gb,
+        "decode_tokens_per_s": [r["engine/decode_tokens_per_s"] for r in exp],
+        "slot_occupancy": [r["engine/slot_occupancy"] for r in exp],
+        "decode_calls": calls,
+        "prefix_hits": hits["hits"],
+        "prefill_tokens_saved": hits["tokens_saved"],
+        "pool_bytes": engine.n_blocks * engine.block_size * per_token * cfg.n_layer,
+        "fixed_layout_bytes": engine.n_slots * engine.cache_len * per_token * cfg.n_layer,
+        "live_pool_check": eng["live_pool"],
+        "step_device_s_median": float(np.median(dev_s)),
+        "mean_ratio_per_step": [r["mean_ratio"] for r in log_],
+        "experience": exp,
+        "eval": dict(trainer.eval_log[0]),
+        "launches": launches,
+    }
+    log(f"[engine] trlx_tpu_torch.train through the paged int8 engine at GPT-J-6B ({n_layer} layers), "
+        f"{steps} steps: {json.dumps(out)}")
+    log(f"[engine] launches {launches} expected {expected}")
+    if launches != expected:
+        raise AssertionError(f"kernel launches {launches} != {expected}")
+    before_eval = trainer.launches_before_eval
+    if any(before_eval[n] for n in ("decode_attention", "decode_attention_int8", "paged_decode_attention")):
+        raise AssertionError(f"rows 7-9 launched before evaluate(): {before_eval}")
+
+    del trainer, engine, eng
+    free()
+    return out, launches
+
+
+def engine_rollout_path(kernels, paged: bool):
+    """``make_experience(16)`` through the engine with a bf16 cache, greedy,
+    at GPT-J-6B width and 4 layers, on the engine path's prompts: paged
+    (row 9, einsum suffix prefill) or fixed slots (row 7, flash prefill at
+    offset 0). Returns the responses by prompt, its numbers and launches."""
+    from trlx_tpu_torch.orchestrator.ppo_orchestrator import PPOOrchestrator
+    from trlx_tpu_torch.pipeline.prompt_pipeline import PromptPipeline
+    from trlx_tpu_torch.trainer.ppo import PPOTrainer
+
+    n_layer, k, R = 4, 2, MAX_LEN - PROMPT_LEN
+    spc = ENGINE["engine_steps_per_sync"]
+    name = "engine_paged_bf16" if paged else "engine_fixed_bf16"
+    trainer = PPOTrainer(smoke_config(n_layer=n_layer, run=name, greedy=True, paged_kv=paged, **ENGINE))
+    orch = PPOOrchestrator(trainer, PromptPipeline(engine_prompts(), None, max_prompt_length=PROMPT_LEN),
+                           reward_fn=reward_fn, chunk_size=CHUNK)
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    stats = orch.make_experience(N_ROLLOUTS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    calls, prefills = int(stats["engine/decode_calls"]), int(stats["engine/prefill_batches"])
+    if calls != 2 * R // spc:
+        raise AssertionError(f"{name}: {calls} decode calls, reckoned {2 * R // spc}")
+    chunks = N_ROLLOUTS // CHUNK
+    expected = dict.fromkeys(kernels, 0)
+    expected.update({
+        "paged_decode_attention" if paged else "decode_attention": n_layer * spc * calls,
+        "flash_attention_fwd": (0 if paged else prefills * n_layer) + chunks * (n_layer + k),
+        "fused_logprob_fwd": chunks * 2,
+    })
+    cols = trainer.store.columns()
+    responses = {tuple(q.tolist()): r for q, r in zip(cols["query_tensors"], cols["response_tensors"])}
+    out = {"wall_s": wall, "decode_tokens_per_s": stats["engine/decode_tokens_per_s"],
+           "slot_occupancy": stats["engine/slot_occupancy"], "prefill_calls": prefills,
+           "prefix_hits": stats.get("engine/prefix_hits_total"), "launches": launches}
+    log(f"[{name}] make_experience({N_ROLLOUTS}) at GPT-J-6B width, {n_layer} layers: {json.dumps(out)}")
+    log(f"[{name}] launches {launches} expected {expected} ({prefills} prefill calls)")
+    if launches != expected:
+        raise AssertionError(f"{name}: kernel launches {launches} != {expected}")
+    del trainer, orch
+    free()
+    return responses, out, launches
+
+
+def compare_greedy(paged, fixed):
+    """Share of identical response tokens between the paged and fixed-slot
+    engines, and each row's first divergence (reported, not gated: their
+    prefills take einsum and flash)."""
+    if set(paged) != set(fixed):
+        raise AssertionError("the paged and fixed engines returned different prompts")
+    same = [paged[q] == fixed[q] for q in sorted(fixed)]
+    first = [int(np.argmin(s)) if not s.all() else None for s in same]
+    return {"identical_token_share": float(np.mean(np.concatenate(same))), "first_divergence_per_row": first}
 
 
 def main() -> int:
@@ -735,7 +1213,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     from trlx_tpu_torch.ops import cuda_lib
-    from trlx_tpu_torch.ops.decode_attention import decode_attention
+    from trlx_tpu_torch.ops.decode_attention import (
+        decode_attention, decode_attention_int8, paged_decode_attention, paged_decode_attention_int8,
+    )
     from trlx_tpu_torch.ops.flash_attention import flash_bwd_dkv, flash_bwd_dq, flash_fwd
     from trlx_tpu_torch.ops.fused_logprob import fused_logprob_bwd_dw, fused_logprob_bwd_dx, fused_logprob_fwd
 
@@ -759,55 +1239,82 @@ def main() -> int:
     for name, fn in (("flash_prefill", lambda: phase_flash(gen, PROMPT_LEN, ragged=True)),
                      ("flash_branch_replay", lambda: phase_flash(gen, MAX_LEN, ragged=False)),
                      ("decode", lambda: phase_decode(gen)),
+                     ("decode_int8", lambda: phase_decode_int8(gen, phases["decode"].pop("valid"))),
+                     ("paged_decode", lambda: phase_paged(gen, quant=False)),
+                     ("paged_decode_int8", lambda: phase_paged(gen, quant=True)),
                      ("fused_logprob", lambda: phase_logprob(gen)),
                      ("flash_bwd", lambda: phase_flash_bwd(gen)),
                      ("fused_logprob_bwd", lambda: phase_logprob_bwd(LOGPROB_BWD_SEED))):
         t0 = time.perf_counter()
         phases[name] = fn()
         free()
-        log(f"[kernel] {name} ({time.perf_counter() - t0:.1f}s): {json.dumps(phases[name])}")
+        shown = {k: v for k, v in phases[name].items() if k != "valid"}
+        log(f"[kernel] {name} ({time.perf_counter() - t0:.1f}s): {json.dumps(shown)}")
     for name in ("flash_bwd", "fused_logprob_bwd"):
         phases.update(phases.pop(name))
 
     kernels = {"flash_attention_fwd": flash_fwd, "flash_attention_bwd_dq": flash_bwd_dq,
                "flash_attention_bwd_dkv": flash_bwd_dkv, "decode_attention": decode_attention,
                "fused_logprob_fwd": fused_logprob_fwd, "fused_logprob_bwd_dx": fused_logprob_bwd_dx,
-               "fused_logprob_bwd_dw": fused_logprob_bwd_dw}
-    t0 = time.perf_counter()
-    _, rollout_launches = main_path(kernels)
-    free()
-    log(f"[main] rollout path done in {time.perf_counter() - t0:.1f}s")
+               "fused_logprob_bwd_dw": fused_logprob_bwd_dw, "decode_attention_int8": decode_attention_int8,
+               "paged_decode_attention": paged_decode_attention,
+               "paged_decode_attention_int8": paged_decode_attention_int8}
+    by_path = {}
+
+    def run(path, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        by_path[path] = out[-1]
+        free()
+        log(f"[{path}] done in {time.perf_counter() - t0:.1f}s")
+        return out
+
+    run("rollout_bf16", lambda: main_path(kernels))
+    run("rollout_int8", lambda: main_path(kernels, quant=True))
+    paged, _, _ = run("engine_paged_bf16", lambda: engine_rollout_path(kernels, paged=True))
+    fixed, _, _ = run("engine_fixed_bf16", lambda: engine_rollout_path(kernels, paged=False))
+    log(f"[engine] greedy tokens, paged vs fixed slots (bf16, 4 layers): {json.dumps(compare_greedy(paged, fixed))}")
     t0 = time.perf_counter()
     phase_grad_consistency()
     log(f"[grad] done in {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    _, launches = train_path(kernels)
-    log(f"[train] training path done in {time.perf_counter() - t0:.1f}s")
+    run("train_bf16", lambda: train_path(kernels))
+    run("engine_train", lambda: engine_train_path(kernels))
     for name, ms in logprob_bwd_split(LOGPROB_BWD_SEED).items():
         phases[name]["ms"] = ms
         log(f"[kernel] {name}: {ms:.4f} ms of kernels per fused_logprob_bwd call (profiler)")
 
+    # Each row's launches are those of the main path (engine_train), except
+    # for the two kernels it does not run: row 7 counts on the training path
+    # over the chunked bf16 sampler, row 9 on the paged bf16 engine.
     rows = []
-    for name, phase, src, replaces in (
+    for name, phase, src, replaces, path in (
         ("flash_attention_fwd", "flash_prefill", "trlx_tpu_torch/csrc/flash_fwd.cu",
-         "trlx_tpu/ops/flash_attention.py:155"),
+         "trlx_tpu/ops/flash_attention.py:155", "engine_train"),
         ("flash_attention_bwd_dq", "flash_attention_bwd_dq", "trlx_tpu_torch/csrc/flash_bwd.cu",
-         "trlx_tpu/ops/flash_attention.py:249"),
+         "trlx_tpu/ops/flash_attention.py:249", "engine_train"),
         ("flash_attention_bwd_dkv", "flash_attention_bwd_dkv", "trlx_tpu_torch/csrc/flash_bwd.cu",
-         "trlx_tpu/ops/flash_attention.py:281"),
+         "trlx_tpu/ops/flash_attention.py:281", "engine_train"),
         ("fused_logprob_fwd", "fused_logprob", "trlx_tpu_torch/csrc/fused_logprob.cu",
-         "trlx_tpu/ops/fused_logprob.py:126"),
+         "trlx_tpu/ops/fused_logprob.py:126", "engine_train"),
         ("fused_logprob_bwd_dx", "fused_logprob_bwd_dx", "trlx_tpu_torch/csrc/fused_logprob_bwd.cu",
-         "trlx_tpu/ops/fused_logprob.py:190"),
+         "trlx_tpu/ops/fused_logprob.py:190", "engine_train"),
         ("fused_logprob_bwd_dw", "fused_logprob_bwd_dw", "trlx_tpu_torch/csrc/fused_logprob_bwd.cu",
-         "trlx_tpu/ops/fused_logprob.py:237"),
-        ("decode_attention", "decode", "trlx_tpu_torch/csrc/decode_attn.cu", "trlx_tpu/ops/decode_attention.py:193"),
+         "trlx_tpu/ops/fused_logprob.py:237", "engine_train"),
+        ("decode_attention", "decode", "trlx_tpu_torch/csrc/decode_attn.cu", "trlx_tpu/ops/decode_attention.py:193",
+         "train_bf16"),
+        ("decode_attention_int8", "decode_int8", "trlx_tpu_torch/csrc/decode_attn.cu",
+         "trlx_tpu/ops/decode_attention.py:161", "engine_train"),
+        ("paged_decode_attention", "paged_decode", "trlx_tpu_torch/csrc/decode_attn.cu",
+         "trlx_tpu/ops/decode_attention.py:236", "engine_paged_bf16"),
+        ("paged_decode_attention_int8", "paged_decode_int8", "trlx_tpu_torch/csrc/decode_attn.cu",
+         "trlx_tpu/ops/decode_attention.py:225", "engine_train"),
     ):
         p = phases[phase]
-        row = {"name": name, "route": "cuda", "source": src, "replaces": replaces, "launches": launches[name],
-               "launches_rollout_path": rollout_launches[name], "max_abs_err": p["max_abs_err"], "tol": p["tol"],
-               "ms": p["ms"], "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
-               "library_ms": p["library_ms"], "shape": p["shape"]}
+        row = {"name": name, "route": "cuda", "source": src, "replaces": replaces, "launches": by_path[path][name],
+               "launches_path": path, "launches_by_path": {k: v[name] for k, v in by_path.items()},
+               "max_abs_err": p["max_abs_err"], "tol": p["tol"], "ms": p["ms"], "plain_ms": p["plain_ms"],
+               "bound_ms": p["bound_ms"], "bound_by": p["bound_by"], "library_ms": p["library_ms"],
+               "shape": p["shape"]}
         if "library" in p:
             row["library"] = p["library"]
         if name == "flash_attention_fwd":

@@ -28,13 +28,21 @@ steps timed by CUDA events, then ``PROFILED_STEPS`` steps under the
 profiler, whose kernel time per step over the median unprofiled step time
 is the card's busy share of a step.
 
-    python3 profile_torch_decode.py [--train]
+With ``--engine`` it does the same for a decode call of the rollout engine
+as the smoke's main path runs it (paged, int8 KV cache, 8 slots, 8 steps
+per call, GPT-J-6B): 8 prompts fill the slots, then ``REPEATS`` unprofiled
+``engine.step()`` calls, each ending in its one host sync, are timed by the
+host clock and ``PROFILED_STEPS`` more run under the profiler; kernel time
+per call over the median call time is the card's busy share.
+
+    python3 profile_torch_decode.py [--train | --engine]
 """
 
 import json
 import os
 import subprocess
 import sys
+import time
 from functools import partial
 
 import numpy as np
@@ -59,6 +67,7 @@ KERNEL_CLASSES = (
     ("fused logprob fwd", ("logprob_partial_kernel", "logprob_combine_kernel")),
     ("fused logprob bwd", ("logprob_ds_kernel", "logprob_dx_kernel", "logprob_dw_kernel", "logprob_db_kernel")),
     ("bf16 casts", ("bfloat16_copy_kernel",)),
+    ("decode attention", ("decode_attn_kernel",)),
 )
 
 
@@ -102,10 +111,7 @@ def train_main(smi):
         prof_steps_s = [step() for _ in range(PROFILED_STEPS)]
     evts = cuda_kernels(prof)
     kernel_ms = total_us(evts) / 1e3 / PROFILED_STEPS
-    classes = {}
-    for e in evts:
-        cls = next((c for c, keys in KERNEL_CLASSES if any(k in e.key for k in keys)), "other")
-        classes[cls] = classes.get(cls, 0.0) + e.self_device_time_total / 1e3 / PROFILED_STEPS
+    classes = kernel_classes(evts, PROFILED_STEPS)
     print(json.dumps({
         "device": smi, "layers": n_layer, "batch": chip_smoke.CHUNK, "tokens_per_step": chip_smoke.CHUNK
         * chip_smoke.MAX_LEN, "train_step_ms": step_s * 1e3, "train_step_ms_runs": [t * 1e3 for t in steps_s],
@@ -116,6 +122,51 @@ def train_main(smi):
     }))
 
 
+def kernel_classes(evts, per):
+    """Kernel milliseconds by ``KERNEL_CLASSES`` over ``per`` runs."""
+    classes = {}
+    for e in evts:
+        cls = next((c for c, keys in KERNEL_CLASSES if any(k in e.key for k in keys)), "other")
+        classes[cls] = classes.get(cls, 0.0) + e.self_device_time_total / 1e3 / per
+    return classes
+
+
+def engine_main(smi):
+    config = chip_smoke.smoke_config(quant=True, run="profile_engine", paged_kv=True, **chip_smoke.ENGINE)
+    trainer = PPOTrainer(config)
+    engine = trainer.rollout_engine()
+    engine.update_weights(trainer.model, version=0)
+    pipe = PromptPipeline(chip_smoke.engine_prompts()[: engine.n_slots], None,
+                          max_prompt_length=trainer.prompt_length)
+    engine.submit(pipe.input_ids, pipe.attention_mask)
+    engine.step()  # admission (prefill) and a first decode call
+
+    def call():
+        t0 = time.perf_counter()
+        if engine.step():
+            raise RuntimeError("an episode finished inside the measured window")
+        return time.perf_counter() - t0
+
+    call()  # warm-up
+    calls_s = [call() for _ in range(REPEATS)]
+    call_s = float(np.median(calls_s))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prof_calls_s = [call() for _ in range(PROFILED_STEPS)]
+    evts = cuda_kernels(prof)
+    kernel_ms = total_us(evts) / 1e3 / PROFILED_STEPS
+    spc = engine.steps_per_sync
+    print(json.dumps({
+        "device": smi, "layers": chip_smoke.GPTJ_6B_ARCH["n_layer"], "slots": engine.n_slots,
+        "steps_per_call": spc, "call_ms": call_s * 1e3, "call_ms_runs": [t * 1e3 for t in calls_s],
+        "call_ms_profiled": [t * 1e3 for t in prof_calls_s], "decode_ms_per_step": call_s * 1e3 / spc,
+        "decode_tokens_per_s": engine.n_slots * spc / call_s, "kernel_ms_per_call": kernel_ms,
+        "device_busy_share": kernel_ms / (call_s * 1e3),
+        "kernel_ms_per_call_by_class": kernel_classes(evts, PROFILED_STEPS),
+        "top_kernels_per_call": [dict(k, total_ms=k["total_ms"] / PROFILED_STEPS) for k in top_kernels(evts, 15)],
+    }))
+    engine.shutdown()
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_decode: needs a CUDA device")
@@ -123,6 +174,8 @@ def main():
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     if "--train" in sys.argv[1:]:
         return train_main(smi)
+    if "--engine" in sys.argv[1:]:
+        return engine_main(smi)
 
     trainer = PPOTrainer(chip_smoke.smoke_config())
     rng = np.random.default_rng(0)

@@ -84,6 +84,179 @@ def test_decode_kernel_matches_plain(T, d):
     torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=1e-2)
 
 
+def _int8_kv(shape, g, dev):
+    """int8 codes and f32 per-key scales [..., h] as quantize_kv makes them."""
+    from trlx_tpu_torch.models.lm import quantize_kv
+
+    return quantize_kv(torch.randn(shape, generator=g, device=dev) * 2.0)
+
+
+@pytest.mark.parametrize("T", [1, 77, 300, 1024])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_int8_decode_kernel_matches_plain(T, d):
+    """Row 8: the int8 cache with per-key scales, ragged rows and a fully
+    masked row; the scales are strided views of a [B, T, h, 2] buffer (the
+    kernel reads them through strides, with no transpose)."""
+    dev = _cuda()
+    from trlx_tpu_torch.ops.decode_attention import decode_attention, decode_attention_int8, decode_attention_plain
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    B, h = 3, 8
+    q = torch.randn((B, h, d), generator=g, device=dev).to(torch.bfloat16)
+    (kq, ks), (vq, vs) = _int8_kv((B, T, h, d), g, dev), _int8_kv((B, T, h, d), g, dev)
+    both = torch.stack([ks, vs], dim=-1)
+    ks, vs = both[..., 0], both[..., 1]
+    valid = torch.ones((B, T), dtype=torch.bool, device=dev)
+    valid[0, : T // 3] = False
+    valid[1, T - T // 4:] = False
+    if T > 1:
+        valid[2] = False
+    bias = torch.where(valid, 0.0, -1e9).float()
+    n8, n7 = decode_attention_int8.launches, decode_attention.launches
+    out = decode_attention(q, kq, vq, bias, scale=d ** -0.5, ks=ks, vs=vs)
+    torch.cuda.synchronize()
+    assert (decode_attention_int8.launches, decode_attention.launches) == (n8 + 1, n7)
+    ref = decode_attention_plain(q, kq, vq, bias, scale=d ** -0.5, ks=ks, vs=vs)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=1e-2)
+
+
+def _paged_case(g, dev, S, bs, bps, h, d, quant):
+    """A pool with scrambled tables: slots 0 and 1 share their first
+    min(2, bps) blocks (a prefix hit), slot S-1 is dead on the trash block 0,
+    slot 2 is fully masked, the others ragged."""
+    n_blocks = 1 + S * bps
+    q = torch.randn((S, h, d), generator=g, device=dev).to(torch.bfloat16)
+    shape = (n_blocks, bs, h, d)
+    if quant:
+        (kp, ks), (vp, vs) = _int8_kv(shape, g, dev), _int8_kv(shape, g, dev)
+    else:
+        kp, vp = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16) for _ in range(2))
+        ks = vs = None
+    perm = torch.randperm(n_blocks - 1, generator=g, device=dev) + 1
+    tables = perm[: S * bps].reshape(S, bps).to(torch.int32)
+    shared = min(2, bps)
+    tables[1, :shared] = tables[0, :shared]
+    tables[S - 1] = 0
+    T = bps * bs
+    valid = torch.ones((S, T), dtype=torch.bool, device=dev)
+    valid[0, : bs // 2] = False
+    valid[1, T - bs // 3:] = False
+    valid[2] = False
+    valid[S - 1, T // 2:] = False
+    bias = torch.where(valid, 0.0, -1e9).float()
+    return q, kp, vp, ks, vs, tables, bias
+
+
+@pytest.mark.parametrize("bs,bps", [(128, 3), (128, 8), (48, 1)])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16-pool", "int8-pool"])
+def test_paged_decode_kernels_match_plain(quant, d, bs, bps):
+    """Rows 9 and 10: the block-table kernels against the plain version over
+    the gathered view pool[tbl]."""
+    dev = _cuda()
+    from trlx_tpu_torch.ops import decode_attention as dec
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, kp, vp, ks, vs, tables, bias = _paged_case(g, dev, 5, bs, bps, 8, d, quant)
+    counter = dec.paged_decode_attention_int8 if quant else dec.paged_decode_attention
+    other = dec.paged_decode_attention if quant else dec.paged_decode_attention_int8
+    n, n_other = counter.launches, other.launches
+    out = dec.paged_decode_attention(q, kp, vp, tables, bias, scale=d ** -0.5, ks=ks, vs=vs)
+    torch.cuda.synchronize()
+    assert (counter.launches, other.launches) == (n + 1, n_other)
+    ref = dec.paged_decode_attention_plain(q, kp, vp, tables, bias, scale=d ** -0.5, ks=ks, vs=vs)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=1e-2)
+
+
+def test_decode_wrappers_raise_on_what_the_kernels_do_not_take():
+    """Rows 8-10 on CUDA tensors: an int8 wrapper given a bf16 cache, a head
+    dim with no kernel instance, and tables or bias that do not match the
+    pool all raise; nothing runs the plain version."""
+    dev = _cuda()
+    from trlx_tpu_torch.ops import decode_attention as dec
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    q, kp, vp, ks, vs, tables, bias = _paged_case(g, dev, 4, 128, 2, 8, 128, True)
+    counters = [f.launches for f in (dec.decode_attention_int8, dec.paged_decode_attention,
+                                     dec.paged_decode_attention_int8)]
+    with pytest.raises(TypeError):
+        dec.paged_decode_attention(q, kp.to(torch.bfloat16), vp.to(torch.bfloat16), tables, bias, scale=1.0,
+                                   ks=ks, vs=vs)
+    with pytest.raises(ValueError):
+        dec.paged_decode_attention(q, kp, vp, tables[:, :1], bias, scale=1.0, ks=ks, vs=vs)
+    with pytest.raises(ValueError):
+        dec.paged_decode_attention(q[..., :96], kp[..., :96], vp[..., :96], tables, bias, scale=1.0, ks=ks, vs=vs)
+    kc, vc, kcs, vcs = (dec.gather_pool(x, tables) for x in (kp, vp, ks, vs))
+    with pytest.raises(ValueError):
+        dec.decode_attention(q, kc, vc, bias, scale=1.0, ks=kcs[:, :-1], vs=vcs[:, :-1])
+    with pytest.raises(TypeError):
+        dec.decode_attention(q, kc, vc, bias, scale=1.0, ks=kcs.double(), vs=vcs.double())
+    assert [f.launches for f in (dec.decode_attention_int8, dec.paged_decode_attention,
+                                 dec.paged_decode_attention_int8)] == counters
+
+
+@pytest.mark.parametrize("paged,quant", [(True, True), (True, False), (False, True), (False, False)],
+                         ids=["paged-int8", "paged-bf16", "fixed-int8", "fixed-bf16"])
+def test_engine_on_the_card_matches_the_cpu_engine(paged, quant):
+    """A 2-layer bf16 model at widths every decode kernel takes (8 heads of
+    128): the engine on the card, whose decode steps run rows 7-10, gives
+    the CPU engine's greedy tokens on the same weights and prompts, with
+    refills and (paged) a prefix hit. The logits are spread as a trained
+    head's, so a greedy choice is not a near tie that bf16 rounding flips."""
+    dev = _cuda()
+    import numpy as np
+
+    from trlx_tpu_torch.engine import RolloutEngine
+    from trlx_tpu_torch.models.heads import LMWithValueHead
+    from trlx_tpu_torch.models.hf_import import init_params
+    from trlx_tpu_torch.models.lm import LMConfig
+    from trlx_tpu_torch.ops import decode_attention as dec
+    from trlx_tpu_torch.ops.sampling import GenerateConfig
+
+    cfg = LMConfig(vocab_size=16, n_layer=2, n_head=8, d_model=1024, max_position=512, pos_type="rotary",
+                   rotary_dim=32, parallel_residual=True, fused_qkv=False, qkv_bias=False, out_bias=False,
+                   tie_word_embeddings=False, extra={"lm_head_bias": True}, kv_cache_quant=quant)
+    cpu = LMWithValueHead(cfg, device="cpu")
+    init_params(cpu, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        cpu.transformer.lm_head.kernel.mul_(30.0)
+    cpu.requires_grad_(False)
+    gpu = LMWithValueHead(cfg, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu.requires_grad_(False)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(1, 16, size=(6, 200)).astype(np.int32)
+    prompts[3] = prompts[0]  # a whole-prefix repeat: a hit on the paged engine
+    mask = np.ones_like(prompts)
+    mask[1, :70] = 0
+    gcfg = GenerateConfig(max_new_tokens=8, do_sample=False, pad_token_id=0, eos_token_id=None)
+    kw = dict(n_slots=2, prompt_width=200, prefill_batch=2, steps_per_sync=4, paged_kv=paged, kv_block_size=128)
+    counter = {(True, True): dec.paged_decode_attention_int8, (True, False): dec.paged_decode_attention,
+               (False, True): dec.decode_attention_int8, (False, False): dec.decode_attention}[(paged, quant)]
+    runs = {}
+    for name, model in (("cpu", cpu), ("gpu", gpu)):
+        engine = RolloutEngine(model, gcfg, **kw)
+        engine.update_weights(model, version=1)
+        engine.submit(prompts, mask)
+        before = counter.launches
+        eps = []
+        while not engine.idle:
+            eps.extend(engine.step())
+        calls = engine.stats(reset=False)["engine/decode_calls"]
+        if name == "gpu":
+            torch.cuda.synchronize()
+            assert counter.launches - before == cfg.n_layer * kw["steps_per_sync"] * calls
+        else:
+            assert counter.launches == before
+        if paged:
+            assert engine.pool.hits_total >= 1
+        runs[name] = {(tuple(e.prompt_ids.tolist()), tuple(e.prompt_mask.tolist())): e.response_ids for e in eps}
+        engine.shutdown()
+    assert len(runs["gpu"]) == len(runs["cpu"]) == 5
+    for key, toks in runs["cpu"].items():
+        np.testing.assert_array_equal(runs["gpu"][key], toks)
+
+
 @pytest.mark.parametrize("tied,bias,wdtype", [(False, True, torch.float32), (False, False, torch.bfloat16),
                                               (True, False, torch.float32)])
 @pytest.mark.parametrize("N,V", [(50, 1000), (300, 4097)])

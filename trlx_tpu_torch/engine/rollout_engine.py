@@ -1,0 +1,591 @@
+"""Slot-based continuous-batching rollout engine (the counterpart of
+``trlx_tpu.engine.rollout_engine``).
+
+Whole-batch decode (``ops/generate.py``) pays for the slowest row of every
+chunk. Here a fixed pool of ``n_slots`` decode slots shares one KV cache,
+and a finished slot is refilled from the prompt queue instead of idling:
+
+- Per-slot lengths are data. Every slot carries its own write offset
+  (``write_pos``) and cache-validity row, and the model's vector
+  ``cache_index`` writes each slot's KV at its own offset; the attention
+  bias and the decode kernels take ragged rows.
+- A host slot manager admits same-width prompt groups from a
+  ``PromptSlotQueue`` into free slots through a batched prefill, runs
+  ``steps_per_sync`` decode steps for every slot, and harvests finished
+  slots. The decode steps are a Python loop with no host sync inside:
+  ``finished`` / ``n_gen`` cross to the host once per ``step()``.
+- With ``paged_kv`` the cache is one shared block pool plus per-slot block
+  tables (``paged_pool.BlockPool``); prompts whose leading blocks are
+  bit-identical share them, and the admitted slot prefills only its suffix.
+- Weights are handed over explicitly and versioned (``update_weights``):
+  the engine decodes with the module it is handed, the version is staged
+  and adopted at the top of the next ``step()``, and harvested episodes
+  carry per-token version spans. The paged prefix registry is flushed on a
+  version switch, since KV depends on the weights.
+
+Parity: with greedy sampling a slot's tokens equal whole-batch
+``generate``'s for the same prompt (the new token's mask bit is written
+before the model call, eos is written with its mask bit, post-finish
+positions hold pad / mask 0). Sampling draws from one device generator for
+all slots, so sampled runs match the JAX engine only in distribution.
+
+Not ported here: speculative decoding, multi-process slot managers and the
+schedule fingerprint, the dispatch lock, sanitizer hooks and trace spans.
+"""
+
+import time
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from trlx_tpu_torch.engine.paged_pool import BlockPool, PoolExhausted
+from trlx_tpu_torch.models.lm import init_cache, init_paged_cache
+from trlx_tpu_torch.ops.sampling import GenerateConfig, process_logits_default
+from trlx_tpu_torch.pipeline.prompt_pipeline import PromptSlotQueue
+
+
+@dataclass
+class Episode:
+    """One finished rollout episode, as host arrays.
+
+    ``prompt_ids``/``prompt_mask`` are the left-padded rows as submitted;
+    ``response_ids``/``response_mask`` are right-padded to max_new_tokens
+    with whole-batch ``generate``'s convention (eos mask 1, post-finish
+    positions pad / mask 0). ``version_spans`` is the per-token weight
+    version, ``[(version, n_tokens), ...]`` in generation order, summing to
+    ``decode_steps``; ``weight_version`` is the last span's."""
+
+    prompt_ids: np.ndarray
+    prompt_mask: np.ndarray
+    response_ids: np.ndarray
+    response_mask: np.ndarray
+    decode_steps: int
+    weight_version: Optional[int] = None
+    version_spans: Optional[list] = None
+
+
+class RolloutEngine:
+    """Continuous-batching decode over a fixed slot pool.
+
+        engine.update_weights(model, version=it)   # explicit handoff
+        engine.submit(prompt_ids, prompt_mask)     # any width <= prompt_width
+        while collecting:
+            episodes = engine.step()               # admit -> decode -> harvest
+
+    ``step()`` admits queued prompts (batched prefill once at least
+    ``prefill_batch`` slots are free, or at once when nothing is live),
+    runs ``steps_per_sync`` decode steps, and returns the finished episodes
+    in completion order. ``model`` fixes the config and device; the module
+    handed to ``update_weights`` is the one that decodes."""
+
+    def __init__(
+        self,
+        model,
+        gen_cfg: GenerateConfig,
+        *,
+        n_slots: int,
+        prompt_width: int,
+        processor: Optional[Callable] = None,
+        prefill_batch: int = 4,
+        steps_per_sync: int = 8,
+        paged_kv: bool = False,
+        kv_block_size: int = 128,
+        kv_pool_blocks: int = 0,
+        generator: Optional[torch.Generator] = None,
+    ):
+        if n_slots < 1:
+            raise ValueError(f"n_slots must be >= 1, got {n_slots}")
+        self.model = model
+        self.cfg = model.cfg
+        self.device = next(model.parameters()).device
+        self.gcfg = gen_cfg
+        self.processor = processor
+        self.n_slots = int(n_slots)
+        self.prompt_width = int(prompt_width)
+        self.cache_len = self.prompt_width + int(gen_cfg.max_new_tokens)
+        self.paged = bool(paged_kv)
+        if self.paged:
+            # One shared physical pool and per-slot block tables over a
+            # virtual cache of kv_len = ceil(cache_len / block) * block keys.
+            self.block_size = int(kv_block_size)
+            if self.block_size < 1:
+                raise ValueError(f"kv_block_size must be >= 1, got {kv_block_size}")
+            self.blocks_per_slot = -(-self.cache_len // self.block_size)
+            self.kv_len = self.blocks_per_slot * self.block_size
+            # Default: every slot's full span plus the trash block 0, the
+            # fixed layout's capacity.
+            self.n_blocks = int(kv_pool_blocks) or (1 + self.n_slots * self.blocks_per_slot)
+            self.pool = BlockPool(self.n_blocks, self.block_size, self.blocks_per_slot, self.n_slots)
+        else:
+            self.kv_len = self.cache_len
+            self.pool = None
+        self.prefill_batch = max(1, int(prefill_batch))
+        self.steps_per_sync = max(1, int(steps_per_sync))
+        self.queue = PromptSlotQueue()
+        self._slot_meta = [None] * self.n_slots
+        self._free = list(range(self.n_slots))
+        self._variables = None  # the module that decodes
+        self.weight_version = None
+        self._staged = None  # (module, version) adopted at the next step()
+        self._n_gen_host = None  # per-slot n_gen at the last sync
+        self._state = None
+        if generator is None:
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(0)
+        self.generator = generator
+        self._reset_counters()
+
+    # ------------------------------------------------------------- host side
+
+    def _reset_counters(self):
+        self._decode_calls = 0
+        self._decode_steps = 0
+        self._slot_steps = 0
+        self._live_row_steps = 0
+        self._gen_tokens = 0
+        self._refills = 0
+        self._prefill_calls = 0
+        self._completed = 0
+        self._decode_wall = 0.0
+        self._prefill_wall = 0.0
+        self._weight_switches = 0
+        self._switches_coalesced = 0
+
+    @property
+    def live_slots(self) -> int:
+        return self.n_slots - len(self._free)
+
+    @property
+    def idle(self) -> bool:
+        """Nothing queued and nothing in flight."""
+        return self.live_slots == 0 and len(self.queue) == 0
+
+    @property
+    def pending(self) -> int:
+        """Episodes still owed: queued + in flight."""
+        return self.live_slots + len(self.queue)
+
+    def update_weights(self, variables, version=None):
+        """Hand over the module to decode with (same config and device as
+        the engine's model), under ``version``. Callable at any time; the
+        handoff is staged and adopted at the top of the next ``step()``, and
+        a second push before then replaces the first (coalesced)."""
+        if self._staged is not None and self._staged[1] != version:
+            self._switches_coalesced += 1
+        self._staged = (variables, version)
+
+    def _adopt_staged(self):
+        """Swap in the staged weights at the sync boundary. Live slots whose
+        version changes record the switch position (their tokens so far),
+        so harvest splits their episodes into version spans."""
+        staged, self._staged = self._staged, None
+        if staged is None:
+            return
+        variables, version = staged
+        if self._variables is not None and version != self.weight_version and self.live_slots > 0:
+            for i, meta in enumerate(self._slot_meta):
+                if meta is not None:
+                    pos = int(self._n_gen_host[i]) if self._n_gen_host is not None else 0
+                    meta.setdefault("switches", []).append((pos, version))
+            self._weight_switches += 1
+        if self.paged and version != self.weight_version:
+            # Prefix blocks hold KV of the outgoing weights: never share them
+            # into a new-version slot.
+            self.pool.flush_registry()
+        self._variables = variables
+        self.weight_version = version
+
+    def submit(self, input_ids, attention_mask) -> int:
+        """Queue left-padded prompts ([n, width] or [width]) for decode."""
+        ids = np.asarray(input_ids, dtype=np.int32)
+        msk = np.asarray(attention_mask, dtype=np.int32)
+        if ids.ndim == 1:
+            ids, msk = ids[None], msk[None]
+        if ids.shape[1] > self.prompt_width:
+            raise ValueError(f"prompt width {ids.shape[1]} exceeds the engine's prompt_width {self.prompt_width}")
+        return self.queue.push_rows(ids, msk)
+
+    @torch.no_grad()
+    def step(self):
+        """One sync quantum: adopt staged weights, admit queued prompts into
+        free slots, advance every live slot ``steps_per_sync`` tokens,
+        harvest finished slots. Returns list[Episode]."""
+        self._adopt_staged()
+        if self._variables is None:
+            raise RuntimeError("RolloutEngine.update_weights() must be called before step()")
+        self._ensure_state()
+        self._admit()
+        if self.live_slots == 0:
+            return []
+        finished, n_gen = self._step_decode()
+
+        episodes = []
+        done = [i for i in range(self.n_slots) if self._slot_meta[i] is not None and finished[i]]
+        if done:
+            # A copy: on the CPU .cpu() aliases the slot buffer, which the
+            # next admission overwrites.
+            toks = self._state["tokens"].cpu().numpy().copy()
+            R = int(self.gcfg.max_new_tokens)
+            for i in done:
+                meta, self._slot_meta[i] = self._slot_meta[i], None
+                steps = int(n_gen[i])
+                rmask = np.zeros((R,), dtype=np.int32)
+                rmask[:steps] = 1
+                spans = self._build_spans(meta, steps)
+                episodes.append(Episode(
+                    prompt_ids=meta["prompt_ids"], prompt_mask=meta["prompt_mask"], response_ids=toks[i],
+                    response_mask=rmask, decode_steps=steps, weight_version=spans[-1][0], version_spans=spans,
+                ))
+                self._free.append(i)
+                if self.paged:
+                    self.pool.release(i)
+            if self.paged:
+                # Point the harvested rows' device tables at the trash block
+                # BEFORE a freed block can be reissued: dead rows keep
+                # writing (clamped) in every decode step.
+                self._state["block_tables"][torch.as_tensor(done, device=self.device)] = 0
+            self._completed += len(done)
+        return episodes
+
+    def _step_decode(self):
+        """``steps_per_sync`` decode steps, then the one host sync. Returns
+        the host (finished, n_gen) arrays."""
+        t0 = time.perf_counter()
+        live_steps = self._decode()
+        st = self._state
+        packed = torch.cat([st["finished"].int(), st["n_gen"].int(), live_steps.int().view(1)]).cpu().numpy()
+        S = self.n_slots
+        finished, n_gen, live = packed[:S].astype(bool), packed[S:2 * S], int(packed[-1])
+        self._n_gen_host = n_gen
+        self._decode_wall += time.perf_counter() - t0
+        self._decode_calls += 1
+        self._decode_steps += self.steps_per_sync
+        self._slot_steps += self.steps_per_sync * self.n_slots
+        self._live_row_steps += live
+        self._gen_tokens += live
+        return finished, n_gen
+
+    @staticmethod
+    def _build_spans(meta, steps):
+        """Per-token weight-version spans of one harvested slot,
+        ``[(version, n_tokens), ...]`` summing to ``steps``: the recorded
+        switches in push order, positions clamped to [0, steps], zero-length
+        segments dropped, equal neighbours merged."""
+        spans = []
+        cur_v = meta["version"]
+        cur_start = 0
+        for pos, v in meta.get("switches", ()):
+            pos = max(0, min(int(pos), int(steps)))
+            if v == cur_v:
+                continue
+            if pos > cur_start:
+                spans.append((cur_v, pos - cur_start))
+                cur_start = pos
+            cur_v = v
+        if steps > cur_start or not spans:
+            spans.append((cur_v, int(steps) - cur_start))
+        return spans
+
+    def _pop_admission_group(self):
+        """The next same-width group to admit, or None. While any slot is
+        live, wait until ``prefill_batch`` slots are free (or the whole
+        queue fits); with nothing live, admit at once."""
+        if not (self._free and len(self.queue)):
+            return None
+        want = min(self.prefill_batch, len(self.queue))
+        if len(self._free) < want and self.live_slots > 0:
+            return None
+        return self.queue.pop_group(min(len(self._free), self.prefill_batch))
+
+    def _admit(self) -> int:
+        """Refill free slots from the queue through batched prefills."""
+        if self.paged:
+            return self._admit_paged()
+        admitted = 0
+        while True:
+            group = self._pop_admission_group()
+            if group is None:
+                break
+            width, ids, msk = group
+            slots = [self._free.pop() for _ in range(ids.shape[0])]
+            t0 = time.perf_counter()
+            self._prefill(ids, msk, slots)
+            self._prefill_wall += time.perf_counter() - t0
+            for row, slot in enumerate(slots):
+                self._slot_meta[slot] = {"prompt_ids": ids[row], "prompt_mask": msk[row],
+                                         "version": self.weight_version}
+            self._prefill_calls += 1
+            self._refills += len(slots)
+            admitted += len(slots)
+        return admitted
+
+    def _admit_paged(self) -> int:
+        """Paged admission: the same batching, plus the pool. Each row is
+        admitted against the pool all or nothing; the first row the pool
+        cannot serve stops the group, and it and the rest re-queue until a
+        harvest frees blocks. Admitted rows prefill in (width, hit) groups
+        and then register their full-prompt blocks for later admissions."""
+        admitted = 0
+        while True:
+            group = self._pop_admission_group()
+            if group is None:
+                break
+            width, ids, msk = group
+            n = int(ids.shape[0])
+            rows = []  # (slot, row index, table row, hit tokens)
+            for r in range(n):
+                slot = self._free[-1]
+                try:
+                    tbl_row, hit = self.pool.admit(slot, self.weight_version, ids[r], msk[r])
+                except PoolExhausted:
+                    break
+                self._free.pop()
+                rows.append((slot, r, tbl_row, hit))
+            if len(rows) < n:
+                # Pool-bound: requeue the tail. A lone row always fits an idle
+                # pool, so this happens only with live slots to wait on.
+                self.queue.push_rows(ids[len(rows):], msk[len(rows):])
+            if not rows:
+                break
+            by_hit = {}
+            for slot, r, tbl_row, hit in rows:
+                by_hit.setdefault(hit, []).append((slot, r, tbl_row))
+            for hit, sub in by_hit.items():
+                slots = [s for s, _, _ in sub]
+                rr = [r for _, r, _ in sub]
+                tables = np.stack([t for _, _, t in sub]).astype(np.int32)
+                t0 = time.perf_counter()
+                self._prefill_paged(ids[rr][:, hit:], msk[rr], slots, tables)
+                self._prefill_wall += time.perf_counter() - t0
+                for slot, r in zip(slots, rr):
+                    # Its prompt blocks are written (device order makes them
+                    # visible to every later launch): let later admissions
+                    # of the same (version, content) share them.
+                    self.pool.register_prefix(slot, self.weight_version, ids[r], msk[r])
+                    self._slot_meta[slot] = {"prompt_ids": ids[r], "prompt_mask": msk[r],
+                                             "version": self.weight_version, "prefix_hit": int(hit)}
+                self._prefill_calls += 1
+            self._refills += len(rows)
+            admitted += len(rows)
+            if len(rows) < n:
+                break
+        return admitted
+
+    def stats(self, reset: bool = True) -> dict:
+        """Window gauges: slot occupancy (live-slot decode steps over the
+        slot-steps paid), refill counters, the decode rate (the decode wall
+        time ends in the per-step host sync, so it includes device time),
+        and with ``paged_kv`` the pool's gauges and lifetime totals."""
+        out = {
+            "engine/slot_occupancy": self._live_row_steps / max(1, self._slot_steps),
+            "engine/decode_steps": self._decode_steps,
+            "engine/decode_calls": self._decode_calls,
+            "engine/decode_dispatches": self._decode_calls,
+            "engine/decode_tokens": self._gen_tokens,
+            "engine/gen_tokens": self._gen_tokens,
+            "engine/refills": self._refills,
+            "engine/prefill_batches": self._prefill_calls,
+            "engine/completed": self._completed,
+            "engine/queue_depth": len(self.queue),
+            "engine/free_slots": len(self._free),
+            "engine/decode_wall_s": self._decode_wall,
+            "engine/prefill_wall_s": self._prefill_wall,
+            "engine/decode_tokens_per_s": self._gen_tokens / max(self._decode_wall, 1e-9),
+            "engine/weight_switches": self._weight_switches,
+            "engine/switches_coalesced": self._switches_coalesced,
+        }
+        if self.paged:
+            out["engine/pool_blocks"] = self.n_blocks
+            out["engine/pool_used_blocks"] = self.pool.used_blocks()
+            out["engine/pool_cached_blocks"] = self.pool.cached_blocks()
+            out["engine/pool_free_blocks"] = len(self.pool.free)
+            out["engine/pool_frag_frac"] = self._pool_frag()
+            out["engine/pool_evictions_total"] = self.pool.evictions
+            out["engine/prefix_hits_total"] = self.pool.hits_total
+            out["engine/prefill_tokens_saved_total"] = self.pool.tokens_saved_total
+        if reset:
+            self._reset_counters()
+        return out
+
+    def _pool_frag(self) -> float:
+        """Internal fragmentation of the referenced pool span: 1 - (tokens
+        resident) / (referenced blocks x block_size), shared prefix blocks
+        counted once."""
+        used = self.pool.used_blocks()
+        if used == 0:
+            return 0.0
+        toks = 0
+        shared = set()
+        for i, meta in enumerate(self._slot_meta):
+            if meta is None:
+                continue
+            n_gen = int(self._n_gen_host[i]) if self._n_gen_host is not None else 0
+            toks += min(len(meta["prompt_ids"]) + n_gen, self.kv_len) - int(meta.get("prefix_hit", 0))
+            shared.update(self.pool.shared_blocks(i))
+        toks += len(shared) * self.block_size
+        return max(0.0, 1.0 - toks / float(used * self.block_size))
+
+    def abort(self):
+        """Drop queued prompts and in-flight slots. Device buffers stay for
+        the next phase and every slot is deactivated. With ``paged_kv`` the
+        in-flight slots' blocks are released (the warm prefix cache stays:
+        an abort is not a version change), the device tables point at the
+        trash block, and the pool's leak audit runs."""
+        self.queue.clear()
+        if self.paged:
+            for i, meta in enumerate(self._slot_meta):
+                if meta is not None:
+                    self.pool.release(i)
+            self.pool.leak_audit(expect_idle=True)
+        self._slot_meta = [None] * self.n_slots
+        self._free = list(range(self.n_slots))
+        if self._state is not None:
+            self._state["active"].zero_()
+            if self.paged:
+                self._state["block_tables"].zero_()
+
+    def shutdown(self):
+        """Release the queue, the slots, the device state and the weight
+        reference. Synchronous and idempotent: the engine owns no threads."""
+        self.abort()
+        self._staged = None
+        self._state = None
+        self._variables = None
+        self._n_gen_host = None
+
+    # ----------------------------------------------------------- device side
+
+    def _ensure_state(self):
+        if self._state is not None:
+            return
+        cfg, dev = self.cfg, self.device
+        S, T, R = self.n_slots, self.kv_len, int(self.gcfg.max_new_tokens)
+        if self.paged:
+            cache = init_paged_cache(cfg, self.n_blocks, self.block_size, dev)
+        else:
+            cache = init_cache(cfg, S, T, dev)
+        self._state = {
+            "cache": cache,
+            "cache_mask": torch.zeros((S, T), dtype=torch.int32, device=dev),
+            "write_pos": torch.zeros((S,), dtype=torch.int32, device=dev),
+            "n_gen": torch.zeros((S,), dtype=torch.int32, device=dev),
+            "tokens": torch.full((S, R), self.gcfg.pad_token_id, dtype=torch.int32, device=dev),
+            "active": torch.zeros((S,), dtype=torch.bool, device=dev),
+            "finished": torch.zeros((S,), dtype=torch.bool, device=dev),
+            "last_token": torch.zeros((S,), dtype=torch.int32, device=dev),
+            "last_logits": torch.zeros((S, cfg.vocab_size), dtype=torch.float32, device=dev),
+            "last_hidden": torch.zeros((S, cfg.d_model), dtype=cfg.compute_dtype, device=dev),
+        }
+        if self.paged:
+            # Every slot's virtual blocks point at the trash block until
+            # admission assigns a span.
+            self._state["block_tables"] = torch.zeros((S, self.blocks_per_slot), dtype=torch.int32, device=dev)
+
+    def _reset_slots(self, slots, out, last_token, row_mask, write_pos):
+        """The per-slot columns of freshly prefilled slots."""
+        st = self._state
+        st["cache_mask"][slots] = row_mask
+        st["write_pos"][slots] = write_pos
+        st["n_gen"][slots] = 0
+        st["active"][slots] = True
+        st["finished"][slots] = False
+        st["tokens"][slots] = self.gcfg.pad_token_id
+        st["last_logits"][slots] = out["logits"][:, -1].float()
+        st["last_hidden"][slots] = out["hidden"][:, -1].to(st["last_hidden"].dtype)
+        st["last_token"][slots] = last_token.to(torch.int32)
+
+    def _prefill(self, prompt_ids, prompt_mask, slot_ids):
+        """Batched prefill of a same-width group into its slots: the group
+        runs through a mini cache of its width at the static offset 0 (the
+        flash route on the card), whose leaves are then copied into the
+        slot cache at [slots, :width]."""
+        dev = self.device
+        ids = torch.as_tensor(prompt_ids, device=dev)
+        pm = torch.as_tensor(prompt_mask, device=dev).to(torch.int32)
+        slots = torch.as_tensor(slot_ids, dtype=torch.long, device=dev)
+        j, W = ids.shape
+        out = self._variables(input_ids=ids, attention_mask=pm, cache=init_cache(self.cfg, j, W, dev),
+                              cache_index=0, cache_mask=pm, logits_start=W - 1)
+        for big_layer, mini_layer in zip(self._state["cache"], out["cache"]):
+            for big, mini in zip(big_layer, mini_layer):
+                big[slots, :W] = mini.to(big.dtype)
+        row_mask = torch.zeros((j, self.kv_len), dtype=torch.int32, device=dev)
+        row_mask[:, :W] = pm
+        self._reset_slots(slots, out, ids[:, -1], row_mask, W)
+
+    def _prefill_paged(self, suffix_ids, prompt_mask, slot_ids, tables):
+        """Paged prefill of a same-(width, hit) group: the first H = W - Ws
+        virtual positions of each row are already in shared pool blocks, so
+        only the suffix runs, written through the slot's table straight into
+        the pool at the vector offset H (the einsum route: its offset is not
+        a static zero). Positions come from the full row's mask, so suffix
+        tokens get the phases of a full prefill."""
+        dev = self.device
+        suffix = torch.as_tensor(suffix_ids, device=dev)
+        pm = torch.as_tensor(prompt_mask, device=dev).to(torch.int32)
+        slots = torch.as_tensor(slot_ids, dtype=torch.long, device=dev)
+        tbl = torch.as_tensor(tables, device=dev)
+        j, Ws = suffix.shape
+        W = pm.shape[1]
+        H = W - Ws
+        row_mask = torch.zeros((j, self.kv_len), dtype=torch.int32, device=dev)
+        row_mask[:, :W] = pm
+        out = self._variables(input_ids=suffix, attention_mask=pm[:, H:], cache=self._state["cache"],
+                              cache_index=torch.full((j,), H, dtype=torch.int32, device=dev), cache_mask=row_mask,
+                              block_tables=tbl, logits_start=Ws - 1)
+        self._state["block_tables"][slots] = tbl
+        # Rows are left-padded, so the suffix's last column is the prompt's
+        # last token (the allocator keeps H < W).
+        self._reset_slots(slots, out, suffix[:, -1], row_mask, W)
+
+    def _decode(self):
+        """``steps_per_sync`` decode steps for every slot, launched without
+        a host sync. Per live slot it keeps ``generate``'s order: sample,
+        write the token and its cache-mask bit, then run the model; finished
+        and free slots write nothing visible (value-preserving buffer writes,
+        a clamped cache write on a mask-0 column). Returns the live slot-steps
+        as a device scalar."""
+        gcfg, st = self.gcfg, self._state
+        S, T, R = self.n_slots, self.kv_len, int(gcfg.max_new_tokens)
+        dev = self.device
+        ones = torch.ones((S, 1), dtype=torch.int32, device=dev)
+        live_steps = torch.zeros((), dtype=torch.int32, device=dev)
+        paged_kw = {"block_tables": st["block_tables"]} if self.paged else {}
+        for _ in range(self.steps_per_sync):
+            live = st["active"] & ~st["finished"]
+            step_col = st["n_gen"][:, None]
+            if self.processor is not None:
+                logits = self.processor(st["last_logits"], {"last_token": st["last_token"], "hidden": st["last_hidden"],
+                                                             "step": step_col, "carry": {}})
+            else:
+                logits = process_logits_default(st["last_logits"], gcfg, step_col)
+            if gcfg.do_sample:
+                tok = torch.multinomial(torch.softmax(logits.float(), dim=-1), 1, generator=self.generator)[:, 0]
+            else:
+                tok = torch.argmax(logits, dim=-1)
+            tok = torch.where(live, tok.to(torch.int32), gcfg.pad_token_id)
+
+            # Token at (slot, n_gen), value-preserving for non-live slots.
+            w_ix = torch.clamp(st["n_gen"], max=R - 1).long()[:, None]
+            cur_tok = st["tokens"].gather(1, w_ix)[:, 0]
+            st["tokens"].scatter_(1, w_ix, torch.where(live, tok, cur_tok)[:, None])
+            # Cache-mask bit at each live slot's write offset, before the model.
+            c_ix = torch.clamp(st["write_pos"], max=T - 1)
+            cur_bit = st["cache_mask"].gather(1, c_ix.long()[:, None])[:, 0]
+            st["cache_mask"].scatter_(1, c_ix.long()[:, None], torch.where(live, 1, cur_bit)[:, None])
+
+            hit_eos = tok == gcfg.eos_token_id if gcfg.eos_token_id is not None else torch.zeros_like(live)
+            st["finished"] = st["finished"] | (live & (hit_eos | (st["n_gen"] + 1 >= R)))
+
+            out = self._variables(input_ids=tok[:, None], attention_mask=ones, cache=st["cache"], cache_index=c_ix,
+                                  cache_mask=st["cache_mask"], **paged_kw)
+            live_i = live.to(torch.int32)
+            st["write_pos"] = st["write_pos"] + live_i
+            st["n_gen"] = st["n_gen"] + live_i
+            st["last_token"] = torch.where(live, tok, st["last_token"])
+            st["last_logits"] = out["logits"][:, 0].float()
+            st["last_hidden"] = out["hidden"][:, 0].to(st["last_hidden"].dtype)
+            live_steps = live_steps + live_i.sum(dtype=torch.int32)
+        return live_steps

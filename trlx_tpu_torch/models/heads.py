@@ -74,6 +74,7 @@ class LMWithValueHead(nn.Module):
         cache=None,
         cache_index=None,
         cache_mask=None,
+        block_tables=None,
         collect_branch_hidden: bool = False,
         logits_start: int = 0,
         compute_logits: bool = True,
@@ -88,6 +89,7 @@ class LMWithValueHead(nn.Module):
             cache=cache,
             cache_index=cache_index,
             cache_mask=cache_mask,
+            block_tables=block_tables,
             collect_hidden_at=self.branch_layer if (collect_branch_hidden and self.branch_layer >= 0) else None,
             logits_start=logits_start,
             compute_logits=compute_logits,

@@ -7,22 +7,31 @@ layouts (``transformer.h_{i}.attn.q_proj.kernel`` is ``[in, out]``), so a
 Flax parameter tree carries over one to one (``hf_import.params_from_jax``).
 
 Parameters are stored in ``param_dtype`` and cast to the compute dtype at
-use, as the JAX package does. The KV cache is a tuple of per-layer (k, v)
-tensors [b, T, h, d] written IN PLACE at ``cache_index``.
+use, as the JAX package does. The KV cache is a tuple of per-layer leaves
+written IN PLACE: (k, v) [b, T, h, d], or (k_i8, v_i8, k_scale, v_scale)
+with ``kv_cache_quant`` (``quantize_kv``: per-(token, head) absmax scales
+[b, T, h]). ``cache_index`` is the write offset: an int for the whole batch,
+or a [b] tensor with each row's own offset (the rollout engine's slots).
+With ``block_tables`` [b, bps] the per-layer leaves are ONE shared pool
+[n_blocks, bs, h, d] (``init_paged_cache``) and each row's virtual cache of
+bps * bs keys lives in the pool blocks its table names; offsets, masks,
+positions and biases address the virtual cache unchanged.
 
 Attention routes through three paths, by the JAX package's static rules:
 
-- the flash kernel for full-sequence passes and for prefill at cache index
-  0 (``flash_eligible``; "auto" needs a CUDA device, bf16 and a long
-  128-aligned sequence);
-- the decode kernel for single-token steps over the cache
-  (``decode_attn_eligible``; CUDA device and bf16);
-- the einsum path with an additive [b, 1, q, kv] bias otherwise.
+- the flash kernel for full-sequence passes and for prefill at a static
+  cache index 0 (``flash_eligible``; "auto" needs a CUDA device, bf16 and a
+  long 128-aligned sequence);
+- the decode kernels for single-token steps over the cache
+  (``decode_attn_eligible`` / ``paged_decode_eligible``; CUDA device and
+  bf16): bf16 or int8, direct or through the block tables;
+- the einsum path with an additive [b, 1, q, kv] bias otherwise, over the
+  cache dequantised in the compute dtype and gathered to the virtual view.
 
 ``remat`` with policy "full" checkpoints every block under grad; policy
-"dots" raises. Not in this slice: the int8 KV cache, int8 decode weights,
-paged caches, multi-token verify windows, ring attention, soft prompts and
-packed segments; the config fields exist and raise when set.
+"dots" raises. Not in this slice: int8 decode weights, multi-token verify
+windows, ring attention, soft prompts and packed segments; the config
+fields exist and raise when set.
 """
 
 from dataclasses import dataclass, field, replace
@@ -35,7 +44,13 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from trlx_tpu_torch.device import resolve_device, torch_dtype
-from trlx_tpu_torch.ops.decode_attention import decode_attention, decode_attn_eligible
+from trlx_tpu_torch.ops.decode_attention import (
+    decode_attention,
+    decode_attn_eligible,
+    gather_pool,
+    paged_decode_attention,
+    paged_decode_eligible,
+)
 from trlx_tpu_torch.ops.flash_attention import auto_flash_ok, flash_attention
 from trlx_tpu_torch.ops.fused_logprob import routed_logprob
 
@@ -80,8 +95,6 @@ class LMConfig:
             raise ValueError(f"unknown remat_policy {self.remat_policy!r} (expected 'full' or 'dots')")
         if self.attn_impl not in ("auto", "flash", "xla"):
             raise ValueError(f"attn_impl must be auto|flash|xla, got {self.attn_impl!r}")
-        if self.kv_cache_quant:
-            raise NotImplementedError("the int8 KV cache (kv_cache_quant) is not ported yet")
         if self.n_soft_tokens:
             raise NotImplementedError("soft prompts (n_soft_tokens) are not ported yet")
         if self.sp_size > 1:
@@ -227,7 +240,8 @@ class Attention(nn.Module):
             self.v_proj = Dense(cfg.d_model, cfg.d_model, cfg.qkv_bias, pd, device)
         self.c_proj = Dense(cfg.d_model, cfg.d_model, cfg.out_bias, pd, device)
 
-    def forward(self, x, attn_bias, positions, cache=None, cache_index=None, flash_mask=None, window=0):
+    def forward(self, x, attn_bias, positions, cache=None, cache_index=None, flash_mask=None, window=0,
+                block_tables=None):
         cfg = self.cfg
         dtype = cfg.compute_dtype
         b, q_len, _ = x.shape
@@ -247,23 +261,44 @@ class Attention(nn.Module):
             k = apply_rotary(k, sin, cos, rd, neox)
 
         new_cache = None
-        decode_kv = None
+        decode_kv = None  # (k, v, ks, vs) of a single-token step that takes a decode kernel
         if cache is not None:
-            k_cache, v_cache = cache
-            k_cache[:, cache_index : cache_index + q_len] = k.to(k_cache.dtype)
-            v_cache[:, cache_index : cache_index + q_len] = v.to(v_cache.dtype)
-            new_cache = (k_cache, v_cache)
-            if flash_mask is None:
-                single_step = q_len == 1 and attn_bias is not None
-                if (
-                    single_step
-                    and x.device.type == "cuda"
-                    and dtype == torch.bfloat16
-                    and decode_attn_eligible(cfg.n_head, hd)
-                ):
-                    decode_kv = (k_cache, v_cache)
-                else:
-                    k, v = k_cache, v_cache
+            write, gather_virt = cache_ops(cache[0], b, q_len, cache_index, block_tables)
+            single_step = q_len == 1 and attn_bias is not None
+            if block_tables is not None:
+                shape_ok = paged_decode_eligible(cfg.n_head, hd, cache[0].shape[1], block_tables.shape[1],
+                                                 cfg.kv_cache_quant)
+            else:
+                shape_ok = decode_attn_eligible(cfg.n_head, hd)
+            kernel_ok = single_step and x.device.type == "cuda" and dtype == torch.bfloat16 and shape_ok
+            if cfg.kv_cache_quant:
+                k_cache, v_cache, ks_cache, vs_cache = cache
+                kq, ks = quantize_kv(k)
+                vq, vs = quantize_kv(v)
+                for buf, upd in ((k_cache, kq), (v_cache, vq), (ks_cache, ks), (vs_cache, vs)):
+                    write(buf, upd)
+                new_cache = (k_cache, v_cache, ks_cache, vs_cache)
+                if flash_mask is None:
+                    if kernel_ok:
+                        # The kernel reads the int8 cache and folds the
+                        # scales into the attention algebra in f32.
+                        decode_kv = new_cache
+                    else:
+                        # Dequantise on read in the compute dtype (paged:
+                        # gather the virtual view first), as the JAX einsum
+                        # path does. Flash prefill keeps the local k/v.
+                        k = gather_virt(k_cache).to(dtype) * gather_virt(ks_cache)[..., None].to(dtype)
+                        v = gather_virt(v_cache).to(dtype) * gather_virt(vs_cache)[..., None].to(dtype)
+            else:
+                k_cache, v_cache = cache
+                write(k_cache, k)
+                write(v_cache, v)
+                new_cache = (k_cache, v_cache)
+                if flash_mask is None:
+                    if kernel_ok:
+                        decode_kv = (k_cache, v_cache, None, None)
+                    else:
+                        k, v = gather_virt(k_cache), gather_virt(v_cache)
 
         scale = 1.0 / np.sqrt(hd) if cfg.scale_attn else 1.0
         if flash_mask is not None:
@@ -271,7 +306,13 @@ class Attention(nn.Module):
         elif decode_kv is not None:
             # The single-token step's bias row carries causality, validity
             # and any window at once.
-            out = decode_attention(q[:, 0], decode_kv[0], decode_kv[1], attn_bias[:, 0, 0, :], scale=scale).to(dtype)
+            kc, vc, ksc, vsc = decode_kv
+            bias_row = attn_bias[:, 0, 0, :]
+            if block_tables is not None:
+                out = paged_decode_attention(q[:, 0], kc, vc, block_tables, bias_row, scale=scale, ks=ksc, vs=vsc)
+            else:
+                out = decode_attention(q[:, 0], kc, vc, bias_row, scale=scale, ks=ksc, vs=vsc)
+            out = out.to(dtype)
         else:
             scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
             scores = scores + attn_bias
@@ -315,34 +356,43 @@ class Block(nn.Module):
             self.ln_2 = LayerNorm(cfg.d_model, cfg.ln_eps, cfg.params_dtype, device)
         self.mlp = MLP(cfg, device)
 
-    def forward(self, x, attn_bias, positions, cache=None, cache_index=None, flash_mask=None, window=0):
+    def forward(self, x, attn_bias, positions, cache=None, cache_index=None, flash_mask=None, window=0,
+                block_tables=None):
         cfg = self.cfg
         dtype = cfg.compute_dtype
         if cfg.parallel_residual:
             h = self.ln_1(x, dtype)
-            attn_out, new_cache = self.attn(h, attn_bias, positions, cache, cache_index, flash_mask, window)
+            attn_out, new_cache = self.attn(h, attn_bias, positions, cache, cache_index, flash_mask, window,
+                                            block_tables)
             mlp_in = self.ln_2(x, dtype) if cfg.use_parallel_ln else h
             x = x + attn_out + self.mlp(mlp_in)
         else:
             attn_out, new_cache = self.attn(self.ln_1(x, dtype), attn_bias, positions, cache, cache_index,
-                                            flash_mask, window)
+                                            flash_mask, window, block_tables)
             x = x + attn_out
             x = x + self.mlp(self.ln_2(x, dtype))
         return x, new_cache
 
 
-def make_attn_bias(attn_mask_kv: torch.Tensor, q_len: int, q_offset: int, window: int = 0) -> torch.Tensor:
+def make_attn_bias(attn_mask_kv: torch.Tensor, q_len: int, q_offset, window: int = 0) -> torch.Tensor:
     """Additive attention bias [b, 1, q_len, kv_len]: key j is visible to
     query i iff its slot is valid and j <= q_offset + i (and, with a window,
-    j > q_offset + i − window); 0 where visible, −1e9 elsewhere."""
+    j > q_offset + i − window); 0 where visible, −1e9 elsewhere. A [b]
+    tensor ``q_offset`` gives every row its own causal frontier."""
     kv_len = attn_mask_kv.shape[-1]
     device = attn_mask_kv.device
-    q_idx = q_offset + torch.arange(q_len, device=device)[:, None]
-    k_idx = torch.arange(kv_len, device=device)[None, :]
+    k_idx = torch.arange(kv_len, device=device)
+    if is_vector_index(q_offset):
+        q_idx = q_offset.long()[:, None, None] + torch.arange(q_len, device=device)[None, :, None]  # [b, q, 1]
+        k_idx = k_idx[None, None, :]
+    else:
+        q_idx = q_offset + torch.arange(q_len, device=device)[:, None]
+        k_idx = k_idx[None, :]
     causal = k_idx <= q_idx
     if window > 0:
         causal = causal & (k_idx > q_idx - window)
-    valid = attn_mask_kv.bool()[:, None, None, :] & causal[None, None]
+    causal = causal[:, None] if causal.ndim == 3 else causal[None, None]
+    valid = attn_mask_kv.bool()[:, None, None, :] & causal
     zero = torch.zeros((), dtype=torch.float32, device=device)
     return torch.where(valid, zero, torch.full((), -1e9, dtype=torch.float32, device=device))
 
@@ -380,8 +430,9 @@ class TransformerLM(nn.Module):
         position_ids: Optional[torch.Tensor] = None,
         inputs_embeds: Optional[torch.Tensor] = None,
         cache: Optional[Tuple] = None,
-        cache_index: Optional[int] = None,
+        cache_index=None,
         cache_mask: Optional[torch.Tensor] = None,
+        block_tables: Optional[torch.Tensor] = None,
         start_layer: int = 0,
         stop_layer: Optional[int] = None,
         collect_hidden_at: Optional[int] = None,
@@ -394,8 +445,12 @@ class TransformerLM(nn.Module):
         entropy), as the JAX module does.
 
         - Full-sequence / prefill: attention over the q_len itself.
-        - Decode: ``cache`` (per-layer (k, v)), ``cache_mask`` [b, kv_len]
-          valid key slots, ``cache_index`` the (integer) write offset.
+        - Decode: ``cache`` (per-layer leaves, see ``init_cache``),
+          ``cache_mask`` [b, kv_len] valid key slots, ``cache_index`` the
+          write offset: an int, or a [b] tensor of per-row offsets.
+        - Paged: ``block_tables`` [b, bps] switches the cache leaves to the
+          shared pool (``init_paged_cache``); ``cache_mask`` and
+          ``cache_index`` address each row's virtual cache of bps * bs keys.
         - ``collect_hidden_at=k`` also returns the hidden state entering
           block k (the hydra branch point).
         - ``labels`` [b, S] switches the head to fused-logprob mode: f32
@@ -406,7 +461,8 @@ class TransformerLM(nn.Module):
         cfg = self.cfg
         dtype = cfg.compute_dtype
         stop_layer = cfg.n_layer if stop_layer is None else stop_layer
-        if cache_index is not None:
+        vector_index = is_vector_index(cache_index)
+        if cache_index is not None and not vector_index:
             cache_index = int(cache_index)
 
         if inputs_embeds is None:
@@ -423,7 +479,14 @@ class TransformerLM(nn.Module):
                 # Decode: absolute positions from the cache occupancy mask,
                 # read at the write offset.
                 full_pos = torch.clamp(torch.cumsum(cache_mask, dim=-1) - 1, min=0)
-                position_ids = full_pos[:, cache_index : cache_index + q_len]
+                if vector_index:
+                    # Per-row offsets: positions offset..offset+q_len-1 of
+                    # each row, clamped so rows near the end gather in bounds
+                    # (their extra slots are masked).
+                    ix = cache_index.long()[:, None] + torch.arange(q_len, device=device)[None, :]
+                    position_ids = torch.gather(full_pos, 1, torch.clamp(ix, max=full_pos.shape[1] - 1))
+                else:
+                    position_ids = full_pos[:, cache_index : cache_index + q_len]
             else:
                 # Left-pad aware positions: cumsum over valid tokens.
                 position_ids = torch.clamp(torch.cumsum(attention_mask, dim=-1) - 1, min=0)
@@ -431,7 +494,9 @@ class TransformerLM(nn.Module):
         if start_layer == 0 and cfg.pos_type == "learned":
             x = x + self.wpe(position_ids, dtype)
 
-        prefill_at_zero = cache is not None and cache_index == 0
+        # Flash prefill needs a STATIC zero write offset (a vector offset,
+        # as the paged suffix prefill passes, takes the einsum path).
+        prefill_at_zero = cache is not None and not vector_index and cache_index == 0
         kernel_device = device.type == "cuda" and dtype == torch.bfloat16
         use_flash = flash_eligible(cfg, q_len, cache is not None, prefill_at_zero, kernel_device)
         attn_bias = local_bias = flash_mask = None
@@ -466,6 +531,7 @@ class TransformerLM(nn.Module):
                 cache_index,
                 flash_mask,
                 cfg.window_size if is_local else 0,
+                block_tables,
             )
             if remat:
                 x, layer_cache = checkpoint(self.block(i), *args, use_reentrant=False)
@@ -508,11 +574,104 @@ class TransformerLM(nn.Module):
         }
 
 
-def init_cache(cfg: LMConfig, batch: int, max_len: int, device, dtype=None):
-    """Allocate an empty KV cache: per-layer (k, v) [b, T, n_head, hd]."""
-    shape = (batch, max_len, cfg.n_head, cfg.head_dim)
+def is_vector_index(cache_index) -> bool:
+    """A [b] tensor of per-row write offsets (else an int for the batch)."""
+    return torch.is_tensor(cache_index) and cache_index.ndim == 1
+
+
+def cache_ops(leaf, b: int, q_len: int, cache_index, block_tables=None):
+    """(write(buf, upd), gather_virt(buf)) for one layer's cache leaves, of
+    which ``leaf`` is the first. ``write`` stores this step's [b, q_len, ...]
+    update IN PLACE; ``gather_virt`` returns the [b, kv_len, ...] virtual
+    view the einsum path attends over.
+
+    - Paged: rows write at (physical block, in-block offset) of their
+      virtual positions, clamped to the last virtual key (dead rows' writes
+      land on their own masked columns; the engine points dead rows at the
+      trash block 0). Dead rows may collide on the same pool entry; which
+      write wins is arbitrary, and harmless because those entries are
+      masked.
+    - Vector offset: each row writes at its own offset, the start clamped
+      so the update fits (``dynamic_update_slice``'s rule).
+    - Int offset: one slice write for the batch."""
+    device = leaf.device
+    if block_tables is not None:
+        blk = leaf.shape[1]
+        tables = block_tables.long()
+        t_virt = tables.shape[1] * blk
+        if is_vector_index(cache_index):
+            base = cache_index.long()[:, None]
+        else:
+            base = torch.full((b, 1), int(cache_index), dtype=torch.long, device=device)
+        voff = torch.clamp(base + torch.arange(q_len, device=device)[None, :], max=t_virt - 1)
+        phys = torch.gather(tables, 1, voff // blk)
+        off = voff % blk
+
+        def write(pool, upd):
+            pool[phys, off] = upd.to(pool.dtype)
+
+        return write, lambda pool: gather_pool(pool, tables)
+
+    if is_vector_index(cache_index):
+        start = torch.clamp(cache_index.long(), min=0, max=max(leaf.shape[1] - q_len, 0))
+        cols = start[:, None] + torch.arange(q_len, device=device)[None, :]
+        rows = torch.arange(b, device=device)[:, None]
+
+        def write(buf, upd):
+            buf[rows, cols] = upd.to(buf.dtype)
+
+    else:
+        i = int(cache_index)
+
+        def write(buf, upd):
+            buf[:, i : i + q_len] = upd.to(buf.dtype)
+
+    return write, lambda buf: buf
+
+
+def quantize_kv(x: torch.Tensor):
+    """[b, t, h, d] → (int8 values, [b, t, h] f32 absmax scales): round half
+    to even and clip at ±127, the JAX package's codes bit for bit."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1) / 127.0 + 1e-12
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _cache_leaves(cfg: LMConfig, lead: Tuple[int, int], device, dtype):
+    """Zeroed per-layer leaves over the leading dims ``lead``: (k, v), or
+    (k_i8, v_i8, k_scale, v_scale) with unit scales under kv_cache_quant."""
+    shape = lead + (cfg.n_head, cfg.head_dim)
+    if cfg.kv_cache_quant:
+        if dtype is not None:
+            raise ValueError("kv_cache_quant caches are int8; a dtype is not honoured")
+        return tuple(
+            (
+                torch.zeros(shape, dtype=torch.int8, device=device),
+                torch.zeros(shape, dtype=torch.int8, device=device),
+                torch.ones(shape[:3], dtype=torch.float32, device=device),
+                torch.ones(shape[:3], dtype=torch.float32, device=device),
+            )
+            for _ in range(cfg.n_layer)
+        )
     dtype = dtype or cfg.compute_dtype
     return tuple(
         (torch.zeros(shape, dtype=dtype, device=device), torch.zeros(shape, dtype=dtype, device=device))
         for _ in range(cfg.n_layer)
     )
+
+
+def init_cache(cfg: LMConfig, batch: int, max_len: int, device, dtype=None):
+    """Allocate an empty KV cache: per-layer (k, v) [b, T, n_head, hd], or
+    (k_i8, v_i8, k_scale, v_scale) with kv_cache_quant."""
+    return _cache_leaves(cfg, (batch, max_len), device, dtype)
+
+
+def init_paged_cache(cfg: LMConfig, n_blocks: int, block_size: int, device, dtype=None):
+    """Allocate the shared paged KV pool: per-layer leaves over
+    [n_blocks, block_size, n_head, hd], the paged twin of ``init_cache``.
+    Zeros with unit scales, never ``torch.empty``: freed blocks are never
+    scrubbed and the trash block 0 absorbs dead rows' writes, and masked
+    keys are still read and weighted by an exact zero, which stays zero
+    only if what it weighs is finite."""
+    return _cache_leaves(cfg, (n_blocks, block_size), device, dtype)

@@ -43,6 +43,20 @@ _SIGNATURES = {
                          _I, _I, _I,  # k strides (b, t, h)
                          _I, _I, _I,  # v strides (b, t, h)
                          _F, _P],  # scale stream
+    "decode_attn_int8": [_P, _P, _P, _P, _P, _P, _P,  # q k v ks vs bias o
+                         _I, _I, _I, _I,  # B T h d
+                         _I, _I, _I, _I, _I, _I,  # k v strides (b, t, h)
+                         _I, _I, _I, _I, _I, _I,  # ks vs strides (b, t, h)
+                         _F, _P],  # scale stream
+    "paged_decode_attn_bf16": [_P, _P, _P, _P, _P, _P,  # q k v tables bias o
+                               _I, _I, _I, _I, _I,  # S bs bps h d
+                               _I, _I, _I, _I, _I, _I,  # k v pool strides (block, offset, h)
+                               _F, _P],  # scale stream
+    "paged_decode_attn_int8": [_P, _P, _P, _P, _P, _P, _P, _P,  # q k v ks vs tables bias o
+                               _I, _I, _I, _I, _I,  # S bs bps h d
+                               _I, _I, _I, _I, _I, _I,  # k v pool strides (block, offset, h)
+                               _I, _I, _I, _I, _I, _I,  # ks vs pool strides (block, offset, h)
+                               _F, _P],  # scale stream
     "fused_logprob_fwd": [_P, _P, _P, _P,  # x w bias labels
                           _P, _P, _P,  # lp lse ent
                           _P,  # partials scratch [4, splits, N]

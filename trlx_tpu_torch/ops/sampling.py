@@ -54,12 +54,19 @@ class GenerateConfig:
         )
 
 
-def process_logits_default(logits: torch.Tensor, gcfg: GenerateConfig, step: int) -> torch.Tensor:
-    """The HF-equivalent chain over [b, vocab] logits, in float32."""
+def process_logits_default(logits: torch.Tensor, gcfg: GenerateConfig, step) -> torch.Tensor:
+    """The HF-equivalent chain over [b, vocab] logits, in float32. ``step``
+    is the decode step: an int for the batch, or a per-row [b, 1] tensor
+    (the engine's slots), which suppresses eos row by row."""
     logits = logits.float()
-    if gcfg.eos_token_id is not None and gcfg.min_new_tokens > 0 and step < gcfg.min_new_tokens:
-        logits = logits.clone()
-        logits[:, gcfg.eos_token_id] += NEG_INF
+    if gcfg.eos_token_id is not None and gcfg.min_new_tokens > 0:
+        if torch.is_tensor(step):
+            eos_col = torch.zeros_like(logits[:1])
+            eos_col[:, gcfg.eos_token_id] = NEG_INF
+            logits = torch.where(step < gcfg.min_new_tokens, logits + eos_col, logits)
+        elif step < gcfg.min_new_tokens:
+            logits = logits.clone()
+            logits[:, gcfg.eos_token_id] += NEG_INF
     if gcfg.temperature != 1.0:
         logits = logits / gcfg.temperature
     if gcfg.top_k > 0:

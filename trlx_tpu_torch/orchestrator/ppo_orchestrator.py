@@ -1,15 +1,23 @@
-"""PPO experience generation on the serial chunked path (the counterpart of
-``trlx_tpu.orchestrator.ppo_orchestrator.PPOOrchestrator.make_experience``).
+"""PPO experience generation (the counterpart of
+``trlx_tpu.orchestrator.ppo_orchestrator.PPOOrchestrator.make_experience``),
+serial on both of its paths.
 
-Per prompt chunk: the trainer generates (prefill + decode, with the fused
-rollout statistics for hydra models), the host decodes and calls the user's
-``reward_fn``, the trainer scores (a frozen-branch replay plus the KL-penalty
-rewards), and the rows are pushed into the rollout store. The next chunk's
-generation is launched before the host scores the current one, so its
-device work queues behind the current chunk without threads.
+Chunked path: per prompt chunk the trainer generates (prefill + decode,
+with the fused rollout statistics for hydra models), the host decodes and
+calls the user's ``reward_fn``, the trainer scores (a frozen-branch replay
+plus the KL-penalty rewards), and the rows are pushed into the rollout
+store. The next chunk's generation is launched before the host scores the
+current one, so its device work queues behind the current chunk without
+threads.
 
-Not ported here: the rollout engine, the score-worker thread, the fleet,
-health monitoring and trace spans.
+Engine path (``method.rollout_engine``): every prompt of the phase is
+submitted to the trainer's ``RolloutEngine`` up front, finished episodes
+stream back in completion order, and they are assembled into chunks at the
+trainer's full prompt width and scored unfused (``rollout_score``).
+
+Not ported here: the score-worker thread, in-flight weight polling, fault
+plans, multi-process schedule checks, the fleet, health monitoring and
+trace spans.
 """
 
 import time
@@ -70,6 +78,8 @@ class PPOOrchestrator(Orchestrator):
         seconds of prefill / decode / scoring, decode tokens per second) and
         logs them to the trainer's tracker at step ``iter_count``."""
         rl = self.rl_model
+        if rl.rollout_engine_enabled:
+            return self._make_experience_engine(num_rollouts, iter_count)
         store = rl.store
         t_phase = time.perf_counter()
         gen_s = reward_s = score_s = push_s = 0.0
@@ -151,5 +161,118 @@ class PPOOrchestrator(Orchestrator):
             "rollout_max_abs_kl": max_abs_kl,
             "exp_per_sec": num_rollouts / max(exp_time, 1e-9),
         }
+        rl.tracker.log(stats, step=iter_count)
+        return stats
+
+    def _make_experience_engine(self, num_rollouts: int, iter_count: int):
+        """The engine path: submit exactly ``num_rollouts`` prompts, step the
+        engine until every episode is back, and per chunk of finished
+        episodes: left-pad the prompts to the trainer's width, decode and
+        score on the host, score on the device (a policy re-forward plus the
+        reference pass), push. The phase drains fully, so no episode
+        crosses a phase boundary; the weights are handed over once, as
+        version ``iter_count``. Returns and logs the phase statistics (the
+        JAX package's keys plus the engine's ``engine/*`` gauges)."""
+        rl = self.rl_model
+        store = rl.store
+        engine = rl.rollout_engine()
+        engine.update_weights(rl.rollout_engine_variables(), version=iter_count)
+        P_full, R = int(rl.prompt_length), int(rl.response_length)
+        pad_id = int(rl.pad_token_id)
+        chunk = max(1, min(int(self.chunk_size), int(num_rollouts)))
+
+        t_phase = time.perf_counter()
+        submitted = 0
+        while submitted < num_rollouts:
+            batch = self._next_prompt_batch()
+            ids, msk = np.asarray(batch["input_ids"]), np.asarray(batch["attention_mask"])
+            take = min(int(ids.shape[0]), num_rollouts - submitted)
+            engine.submit(ids[:take], msk[:take])
+            submitted += take
+
+        gen_s = reward_s = score_s = push_s = 0.0
+        episode_steps = []
+        last_scores = np.zeros((1,), dtype=np.float32)
+        last_kl = np.zeros((1, 1), dtype=np.float32)
+
+        def assemble(eps):
+            # Prompts arrive at their submitted width: left-pad them to the
+            # trainer's, so one score shape serves every chunk.
+            tokens_h = np.full((len(eps), P_full + R), pad_id, dtype=np.int32)
+            mask_h = np.zeros((len(eps), P_full + R), dtype=np.int32)
+            for i, e in enumerate(eps):
+                w = int(e.prompt_ids.shape[0])
+                tokens_h[i, P_full - w : P_full] = e.prompt_ids
+                mask_h[i, P_full - w : P_full] = e.prompt_mask
+                tokens_h[i, P_full:] = e.response_ids
+                mask_h[i, P_full:] = e.response_mask
+                episode_steps.append(int(e.decode_steps))
+            return tokens_h, mask_h
+
+        n_collected = 0
+        finished_buf = []
+        ok = False
+        try:
+            while n_collected < num_rollouts:
+                t = time.perf_counter()
+                eps = engine.step()
+                gen_s += time.perf_counter() - t
+                finished_buf.extend(eps)
+                if not eps and engine.idle and n_collected + len(finished_buf) < num_rollouts:
+                    raise RuntimeError(f"rollout engine went idle before the phase collected {num_rollouts} "
+                                       f"episodes (have {n_collected + len(finished_buf)})")
+                # Full chunks, and the last partial one once every prompt is back.
+                while len(finished_buf) >= chunk or (finished_buf and n_collected + len(finished_buf) == num_rollouts):
+                    take = min(chunk, len(finished_buf))
+                    batch_eps, finished_buf = finished_buf[:take], finished_buf[take:]
+                    tokens_h, mask_h = assemble(batch_eps)
+                    t = time.perf_counter()
+                    scores = np.asarray(self.score(rl.decode(tokens_h, mask_h)), dtype=np.float32)
+                    reward_s += time.perf_counter() - t
+                    t = time.perf_counter()
+                    out = rl.rollout_score(rl.put(tokens_h), rl.put(mask_h), scores)
+                    logprobs, values, rewards, kl = rl.to_host(out)
+                    score_s += time.perf_counter() - t
+                    t = time.perf_counter()
+                    store.push_batch({
+                        "query_tensors": tokens_h[:, :P_full],
+                        "query_mask": mask_h[:, :P_full],
+                        "response_tensors": tokens_h[:, P_full:],
+                        "response_mask": mask_h[:, P_full:],
+                        "logprobs": logprobs,
+                        "values": values,
+                        "rewards": rewards,
+                    })
+                    push_s += time.perf_counter() - t
+                    last_scores, last_kl = scores, kl
+                    n_collected += take
+            ok = True
+        finally:
+            if not ok:
+                # Drop queued prompts and in-flight slots, so the next phase
+                # starts from an empty engine.
+                engine.abort()
+
+        eng = engine.stats(reset=True)
+        exp_time = time.perf_counter() - t_phase
+        stats = {
+            "exp_time": exp_time,
+            "exp_gen_s": gen_s,
+            "exp_reward_s": reward_s,
+            "exp_score_s": score_s,
+            "exp_push_s": push_s,
+            # The engine-blocked rate (admission + decode + harvest per
+            # step()); engine/decode_tokens_per_s is the decode alone.
+            "exp_decode_tokens_per_s": float(eng["engine/gen_tokens"]) / max(gen_s, 1e-9),
+            "exp_decode_steps": float(eng["engine/decode_steps"]),
+            "exp_decode_dispatches": float(eng["engine/decode_dispatches"]),
+            "exp_decode_tokens": float(eng["engine/decode_tokens"]),
+            "exp_decode_step_budget": float(R),
+            "exp_decode_steps_per_episode": float(np.mean(episode_steps)) if episode_steps else 0.0,
+            "rollout_mean_score": float(np.mean(last_scores)),
+            "rollout_mean_kl": float(np.mean(np.asarray(last_kl).sum(-1))),
+            "exp_per_sec": num_rollouts / max(exp_time, 1e-9),
+        }
+        stats.update(eng)
         rl.tracker.log(stats, step=iter_count)
         return stats

@@ -28,6 +28,41 @@ def pad_ragged(
     return out_ids, out_mask
 
 
+class PromptSlotQueue:
+    """Width-grouped FIFO feeding the rollout engine's slot admission
+    (``trlx_tpu_torch.engine``). Prompts queue at their width; ``pop_group``
+    hands back up to ``limit`` rows of one width, the width with the most
+    queued prompts, so prefill batches stay full while every width still
+    drains (FIFO within a width)."""
+
+    def __init__(self):
+        self._queues = {}  # width -> list of (ids [w], mask [w]) host rows
+
+    def __len__(self) -> int:
+        return sum(len(q) for q in self._queues.values())
+
+    def push_rows(self, input_ids, attention_mask) -> int:
+        """Queue a [n, width] host batch as n single-prompt rows."""
+        ids = np.asarray(input_ids)
+        msk = np.asarray(attention_mask)
+        q = self._queues.setdefault(int(ids.shape[1]), [])
+        q.extend(zip(ids, msk))
+        return ids.shape[0]
+
+    def pop_group(self, limit: int):
+        """Dequeue up to ``limit`` same-width prompts (the fullest width
+        first). Returns (width, ids [j, width], mask [j, width]) or None."""
+        if limit <= 0 or len(self) == 0:
+            return None
+        width = max((w for w, q in self._queues.items() if q), key=lambda w: len(self._queues[w]))
+        q = self._queues[width]
+        taken, self._queues[width] = q[:limit], q[limit:]
+        return width, np.stack([t[0] for t in taken]), np.stack([t[1] for t in taken])
+
+    def clear(self):
+        self._queues.clear()
+
+
 @register_datapipeline
 class PromptPipeline(BasePipeline):
     """Tokenizes (or takes token ids) and left-pads a list of prompts.

@@ -6,7 +6,10 @@ rollout statistics, rollout scoring, and the train step (the counterpart of
 ``PromptPipeline`` → ``PPOOrchestrator.make_experience`` → ``learn()``: each
 train step is the PPO loss (GAE, whitening, the policy forward, the clipped
 losses), its backward, the non-finite guard, then global-norm clip and
-AdamW over the trainable parameters.
+AdamW over the trainable parameters. With ``method.rollout_engine`` the
+rollouts come from the continuous-batching ``RolloutEngine`` (optionally
+paged, ``method.paged_kv``), which the trainer builds once and shuts down at
+the end of ``learn()``.
 """
 
 from typing import Dict, Optional
@@ -73,8 +76,6 @@ def _refuse_unported(config: TRLConfig, gen_kwargs: dict):
     for. The one list of such knobs."""
     m, mc, t = config.method, config.model, config.train
     unported = {
-        "method.rollout_engine": m.rollout_engine,
-        "method.paged_kv": m.paged_kv,
         "method.spec_decode": bool(m.spec_decode),
         "method.rollout_overlap": m.rollout_overlap,
         "method.max_staleness": m.max_staleness > 0,
@@ -165,7 +166,7 @@ class PPOTrainer(BaseTrainer):
         )
         self.response_length = self.gen_cfg.max_new_tokens
 
-        processor = None
+        processor = None  # the logits chain of both samplers, with the bigram mask when one is given
         if self.logit_mask is not None:
             bigram = make_bigram_mask_processor(self.logit_mask)
             gcfg = self.gen_cfg
@@ -173,6 +174,7 @@ class PPOTrainer(BaseTrainer):
             def processor(logits, state):
                 return process_logits_default(bigram(logits, state), gcfg, state["step"])
 
+        self._gen_processor = processor
         self._generate_fn = make_generate_fn(self.model, self.gen_cfg, processor)
 
         # Fused rollout statistics: the decode loop already computes the
@@ -196,6 +198,19 @@ class PPOTrainer(BaseTrainer):
                 step_stats_fn=rollout_stats_fn,
                 apply_kwargs={"collect_branch_hidden": True},
                 prefill_collect=("branch_hidden",),
+            )
+
+        # The continuous-batching engine (method.rollout_engine), built at
+        # first use. Its episodes are always scored unfused (a policy
+        # re-forward): with kv_cache_quant the stored behaviour logprobs are
+        # then full-precision recomputations of int8-cache samples, a delta
+        # the JAX package measured at |dlogprob| <= ~0.008.
+        self.rollout_engine_enabled = bool(m.rollout_engine)
+        self._rollout_engine = None
+        if m.paged_kv and not self.rollout_engine_enabled:
+            raise ValueError(
+                "method.paged_kv requires method.rollout_engine: the paged block pool and prefix cache live in "
+                "the slot engine's admission/harvest lifecycle; the chunked rollout path has no slot reuse to page."
             )
 
     # ----------------------------------------------------------------- setup
@@ -268,6 +283,40 @@ class PPOTrainer(BaseTrainer):
         if generator is None:
             generator = self.chunk_rng(0)
         return self._generate_fused_fn(self.put(input_ids), self.put(attention_mask), generator, timings=timings)
+
+    def rollout_engine(self):
+        """The lazily built continuous-batching engine: one per trainer, it
+        keeps its slot cache (or block pool) across experience phases, and
+        weights are handed over per phase (``update_weights``)."""
+        if self._rollout_engine is None:
+            from trlx_tpu_torch.engine import RolloutEngine
+
+            m = self.config.method
+            self._rollout_engine = RolloutEngine(
+                self.model, self.gen_cfg,
+                n_slots=int(m.engine_slots or 0) or int(m.chunk_size),
+                prompt_width=self.prompt_length,
+                processor=self._gen_processor,
+                prefill_batch=int(m.prefill_batch or 4),
+                steps_per_sync=int(m.engine_steps_per_sync or 8),
+                paged_kv=bool(m.paged_kv),
+                kv_block_size=int(m.kv_block_size or 128),
+                kv_pool_blocks=int(m.kv_pool_blocks or 0),
+                generator=self.seeded_generator(3),
+            )
+        return self._rollout_engine
+
+    def rollout_engine_variables(self):
+        """The engine's weight handoff: the live policy module. The engine
+        is idle while ``learn()`` trains (the serial schedule), so it never
+        decodes with weights mid-update; a snapshot copy comes with the
+        overlap pipeline."""
+        return self.model
+
+    def _shutdown_rollout_engine(self):
+        engine, self._rollout_engine = self._rollout_engine, None
+        if engine is not None:
+            engine.shutdown()
 
     def _kl_coef(self) -> float:
         return float(self.kl_ctl.value)
@@ -401,9 +450,13 @@ class PPOTrainer(BaseTrainer):
     def learn(self):
         """The base loop, then the queued KL-controller updates are applied,
         so ``kl_ctl.value`` is current when training ends (the JAX package's
-        final save flushes them)."""
-        stats = super().learn()
-        self._flush_kl_updates()
+        final save flushes them). The rollout engine, if any, shuts down on
+        the way out."""
+        try:
+            stats = super().learn()
+            self._flush_kl_updates()
+        finally:
+            self._shutdown_rollout_engine()
         return stats
 
     def prepare_learning(self):
