@@ -172,6 +172,17 @@ def phase_flash(gen, T: int, ragged: bool):
                 bound_by=by, shape=[b, T, h, d])
 
 
+def split_edge_bias(valid):
+    """The bias of ``valid`` with row 1's keys 384-639 masked (two whole
+    splits of 128 in the middle of a visible row, which the split-T walk
+    skips) and row 2 fully masked (no visible key: every split is read and
+    the row attends uniformly)."""
+    valid = valid.clone()
+    valid[1, 384:640] = False
+    valid[2] = False
+    return torch.where(valid, 0.0, -1e9).float()
+
+
 def phase_decode(gen):
     """Decode attention: q [8, 16, 256] over a bf16 cache of T = 1024 at
     decode step 128 after a 768-wide left-padded prompt; the bias row masks
@@ -191,6 +202,9 @@ def phase_decode(gen):
     ref = decode_attention_plain(q, kc, vc, bias, scale=scale)
     tol = 1e-2  # bf16 output; f32 softmax on both sides, other summation order
     err = check("decode", out, ref, tol)
+    edge = split_edge_bias(valid)
+    err_edge = check("decode[split edges]", decode_attention(q, kc, vc, edge, scale=scale),
+                     decode_attention_plain(q, kc, vc, edge, scale=scale), tol)
     ms = time_ms(lambda: decode_attention(q, kc, vc, bias, scale=scale), iters=50)
     plain_ms = time_ms(lambda: decode_attention_plain(q, kc, vc, bias, scale=scale), iters=10)
     q4, k4, v4 = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
@@ -200,8 +214,8 @@ def phase_decode(gen):
     nbytes = 2 * live * h * d * 2 + 2 * B * h * d * 2 + B * T * 4
     flops = 4 * live * h * d
     bound_ms, by = bound(nbytes, flops)
-    return dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                bound_by=by, shape=[B, T, h, d], live_keys=live, valid=valid)
+    return dict(max_abs_err=err, max_abs_err_split_edges=err_edge, tol=tol, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bound_ms, bound_by=by, shape=[B, T, h, d], live_keys=live, valid=valid)
 
 
 NO_LIBRARY = "null: no single PyTorch call reads an int8 cache with per-key scales or a block table"
@@ -229,13 +243,17 @@ def phase_decode_int8(gen, valid):
     ref = decode_attention_plain(q, kq, vq, bias, scale=scale, ks=ks, vs=vs)
     tol = 1e-2  # row 7's: bf16 output, f32 softmax and scale folding on both sides
     err = check("decode_int8", out, ref, tol)
+    edge = split_edge_bias(valid)
+    err_edge = check("decode_int8[split edges]", decode_attention_int8(q, kq, vq, ks, vs, edge, scale=scale),
+                     decode_attention_plain(q, kq, vq, edge, scale=scale, ks=ks, vs=vs), tol)
     ms = time_ms(lambda: decode_attention_int8(q, kq, vq, ks, vs, bias, scale=scale), iters=50)
     plain_ms = time_ms(lambda: decode_attention_plain(q, kq, vq, bias, scale=scale, ks=ks, vs=vs), iters=10)
     live = int(valid.sum())
     nbytes = 2 * live * h * d + 2 * live * h * 4 + 2 * B * h * d * 2 + B * T * 4  # int8 K/V, scales, q/o, bias
     bound_ms, by = bound(nbytes, 4 * live * h * d)
-    return dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=None, library=NO_LIBRARY,
-                bound_ms=bound_ms, bound_by=by, shape=[B, T, h, d], live_keys=live)
+    return dict(max_abs_err=err, max_abs_err_split_edges=err_edge, tol=tol, ms=ms, plain_ms=plain_ms,
+                library_ms=None, library=NO_LIBRARY, bound_ms=bound_ms, bound_by=by, shape=[B, T, h, d],
+                live_keys=live)
 
 
 def paged_case(gen, quant: bool):
@@ -280,17 +298,20 @@ def phase_paged(gen, quant: bool):
     (S, h, d), bs = q.shape, kp.shape[1]
     scale = d ** -0.5
     if quant:
-        def run():
-            return paged_decode_attention_int8(q, kp, vp, ks, vs, tables, bias, scale=scale)
+        def run(b=bias):
+            return paged_decode_attention_int8(q, kp, vp, ks, vs, tables, b, scale=scale)
     else:
-        def run():
-            return paged_decode_attention(q, kp, vp, tables, bias, scale=scale)
+        def run(b=bias):
+            return paged_decode_attention(q, kp, vp, tables, b, scale=scale)
 
-    def plain():
-        return paged_decode_attention_plain(q, kp, vp, tables, bias, scale=scale, ks=ks, vs=vs)
+    def plain(b=bias):
+        return paged_decode_attention_plain(q, kp, vp, tables, b, scale=scale, ks=ks, vs=vs)
 
     tol = 1e-2  # row 7's
-    err = check("paged_decode_int8" if quant else "paged_decode", run(), plain(), tol)
+    name = "paged_decode_int8" if quant else "paged_decode"
+    err = check(name, run(), plain(), tol)
+    edge = split_edge_bias(valid)
+    err_edge = check(f"{name}[split edges]", run(edge), plain(edge), tol)
     ms = time_ms(run, iters=50)
     plain_ms = time_ms(plain, iters=10)
     # The bytes this data needs: each physical K/V row some slot's bias
@@ -302,9 +323,10 @@ def phase_paged(gen, quant: bool):
     per_key = h * d * (1 if quant else 2) * 2 + (2 * h * 4 if quant else 0)
     nbytes = live * per_key + 2 * S * h * d * 2 + valid.numel() * 4 + tables.numel() * 4
     bound_ms, by = bound(nbytes, 4 * int(valid.sum()) * h * d)
-    return dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=None, library=NO_LIBRARY,
-                bound_ms=bound_ms, bound_by=by, shape=[S, int(kp.shape[0]), bs, int(tables.shape[1]), h, d],
-                live_keys=int(valid.sum()), unique_live_rows=live)
+    return dict(max_abs_err=err, max_abs_err_split_edges=err_edge, tol=tol, ms=ms, plain_ms=plain_ms,
+                library_ms=None, library=NO_LIBRARY, bound_ms=bound_ms, bound_by=by,
+                shape=[S, int(kp.shape[0]), bs, int(tables.shape[1]), h, d], live_keys=int(valid.sum()),
+                unique_live_rows=live)
 
 
 def phase_logprob(gen):
@@ -1315,8 +1337,9 @@ def main() -> int:
                "max_abs_err": p["max_abs_err"], "tol": p["tol"], "ms": p["ms"], "plain_ms": p["plain_ms"],
                "bound_ms": p["bound_ms"], "bound_by": p["bound_by"], "library_ms": p["library_ms"],
                "shape": p["shape"]}
-        if "library" in p:
-            row["library"] = p["library"]
+        for key in ("library", "max_abs_err_split_edges"):
+            if key in p:
+                row[key] = p[key]
         if name == "flash_attention_fwd":
             row["branch_replay"] = phases["flash_branch_replay"]
         rows.append(row)

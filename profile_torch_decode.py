@@ -67,7 +67,7 @@ KERNEL_CLASSES = (
     ("fused logprob fwd", ("logprob_partial_kernel", "logprob_combine_kernel")),
     ("fused logprob bwd", ("logprob_ds_kernel", "logprob_dx_kernel", "logprob_dw_kernel", "logprob_db_kernel")),
     ("bf16 casts", ("bfloat16_copy_kernel",)),
-    ("decode attention", ("decode_attn_kernel",)),
+    ("decode attention", ("decode_split_kernel", "decode_merge_kernel")),
 )
 
 

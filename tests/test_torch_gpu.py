@@ -46,6 +46,88 @@ def test_flash_kernel_matches_plain(T, window, pads, d):
     torch.testing.assert_close(lse[lrows], rlse[lrows], rtol=0, atol=1e-2)
 
 
+@pytest.mark.parametrize("window", [0, 48], ids=["causal", "window48"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("T", [1, 64, 127, 128, 200, 768, 1024])
+def test_flash_fwd_tiles_match_plain(T, d, window):
+    """The TMA + wgmma forward at the edges of its 128-query and 64-key
+    tiles (T = 1, 64, 127, 128, 200) and at the rollout lengths, with one
+    left-padded row and, at T > 1, a fully masked one; o and lse on every
+    row with a valid key."""
+    dev = _cuda()
+    from trlx_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    b, h = 3, 2
+    q, k, v = (torch.randn((b, T, h, d), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+    mask = torch.ones((b, T), device=dev)
+    mask[1, : T // 3] = 0
+    if T > 1:
+        mask[2] = 0
+    o, lse = flash_attention(q, k, v, mask, scale=d ** -0.5, window=window, return_lse=True)
+    torch.cuda.synchronize()
+    ro, rlse = flash_attention_plain(q, k, v, mask, scale=d ** -0.5, window=window, return_lse=True)
+    rows = mask.bool()
+    assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
+    torch.testing.assert_close(o[rows].float(), ro[rows].float(), rtol=0, atol=2e-2)
+    lrows = rows[:, None, :].expand_as(lse)
+    torch.testing.assert_close(lse[lrows], rlse[lrows], rtol=0, atol=1e-2)
+
+
+@pytest.mark.parametrize("window", [48, 100])
+@pytest.mark.parametrize("d", [64, 256])
+def test_flash_fwd_window_ring_is_stable(d, window):
+    """With a window, the second consumer warpgroup skips the math of its
+    query tile's first key tile (every tile from q0 = 128 on) and later
+    reuses that ring stage: it must still wait on the skipped phase. Many
+    key tiles and 16 repeats over a large grid; every repeat is bit-equal to
+    the first, which matches the plain version on the valid rows."""
+    dev = _cuda()
+    from trlx_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    b, T, h = 4, 2048, 8
+    q, k, v = (torch.randn((b, T, h, d), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+    mask = torch.ones((b, T), device=dev)
+    mask[1, :300] = 0
+    o, lse = flash_attention(q, k, v, mask, scale=d ** -0.5, window=window, return_lse=True)
+    for _ in range(16):
+        o2, lse2 = flash_attention(q, k, v, mask, scale=d ** -0.5, window=window, return_lse=True)
+        assert torch.equal(o2, o) and torch.equal(lse2, lse)
+    ro, rlse = flash_attention_plain(q, k, v, mask, scale=d ** -0.5, window=window, return_lse=True)
+    rows = mask.bool()
+    torch.testing.assert_close(o[rows].float(), ro[rows].float(), rtol=0, atol=2e-2)
+    lrows = rows[:, None, :].expand_as(lse)
+    torch.testing.assert_close(lse[lrows], rlse[lrows], rtol=0, atol=1e-2)
+
+
+def test_flash_fwd_then_bwd_kernels_match_plain():
+    """The backward kernels (csrc/flash_bwd.cu) on the new forward's o and
+    lse, through the autograd Function, against the plain forward and the
+    plain backward at [2, 768, 4, 256], left-padded rows, a window-free
+    causal walk of 12 key tiles."""
+    dev = _cuda()
+    from trlx_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd_plain, flash_attention_plain
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    b, T, h, d = 2, 768, 4, 256
+    q, k, v = (torch.randn((b, T, h, d), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+    mask = torch.ones((b, T), device=dev)
+    mask[1, :100] = 0
+    rows = mask.bool()
+    do = (torch.randn((b, T, h, d), generator=g, device=dev) * rows[:, :, None, None]).to(torch.bfloat16)
+    dlse = torch.randn((b, h, T), generator=g, device=dev) * rows[:, None, :]
+    tq, tk, tv = (x.clone().requires_grad_() for x in (q, k, v))
+    o, lse = flash_attention(tq, tk, tv, mask, scale=d ** -0.5, return_lse=True)
+    dq, dk, dv = torch.autograd.grad((o, lse), (tq, tk, tv), (do, dlse))
+    ro, rlse = flash_attention_plain(q, k, v, mask, scale=d ** -0.5, return_lse=True)
+    rq, rk, rv = flash_attention_bwd_plain(q, k, v, mask, ro, rlse, do, dlse, scale=d ** -0.5)
+    _close(o[rows], ro[rows], 2e-2)
+    _close(dq[rows], rq[rows], 2e-2)
+    _close(dk, rk, 2e-2)
+    _close(dv, rv, 2e-2)
+
+
 def test_flash_kernel_strided_inputs():
     """q/k/v as views of one fused [b, T, 3, h, d] projection (strided rows)."""
     dev = _cuda()
@@ -168,10 +250,123 @@ def test_paged_decode_kernels_match_plain(quant, d, bs, bps):
     torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=1e-2)
 
 
+def _split_bias(B, T, dev):
+    """A bias row per slot that drives the split-T walk's skip rule (splits
+    of 128 keys): row 0 a left pad and, past 256 keys, a whole split masked
+    in the middle; row 1 no visible key (every split read, uniform); row 2
+    one visible key; row 3 visible keys only in its first split, the rest
+    masked to the end; row 4, a dead slot, visible in its first half."""
+    valid = torch.ones((B, T), dtype=torch.bool, device=dev)
+    valid[0, : min(5, T - 1)] = False
+    if T > 256:
+        valid[0, 128:256] = False
+    if B > 1:
+        valid[1] = False
+    if B > 2:
+        valid[2] = False
+        valid[2, T // 2] = True
+    if B > 3:
+        valid[3, min(T, 100):] = False
+    if B > 4:
+        valid[4, T // 2:] = False
+    return torch.where(valid, 0.0, -1e9).float()
+
+
+@pytest.mark.parametrize("T", [1, 127, 128, 129, 300, 1024])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("B", [1, 5])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_decode_split_walk_matches_plain(quant, B, d, T):
+    """Rows 7 and 8 at the split edges (T = 127..129 around one split of
+    128), with masked splits mid-row and at the end, a row with no visible
+    key and one with a single visible key, for 1 row and for 5 rows of 8
+    heads."""
+    dev = _cuda()
+    from trlx_tpu_torch.ops.decode_attention import decode_attention, decode_attention_int8, decode_attention_plain
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    h = 8
+    q = torch.randn((B, h, d), generator=g, device=dev).to(torch.bfloat16)
+    if quant:
+        (kc, ks), (vc, vs) = _int8_kv((B, T, h, d), g, dev), _int8_kv((B, T, h, d), g, dev)
+    else:
+        kc, vc = (torch.randn((B, T, h, d), generator=g, device=dev).to(torch.bfloat16) for _ in range(2))
+        ks = vs = None
+    bias = _split_bias(B, T, dev)
+    counter = decode_attention_int8 if quant else decode_attention
+    before = counter.launches
+    out = decode_attention(q, kc, vc, bias, scale=d ** -0.5, ks=ks, vs=vs)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    ref = decode_attention_plain(q, kc, vc, bias, scale=d ** -0.5, ks=ks, vs=vs)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=1e-2)
+
+
+@pytest.mark.parametrize("bs,bps", [(128, 1), (128, 8), (256, 3), (48, 1), (43, 1), (300, 1)])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16-pool", "int8-pool"])
+def test_paged_split_walk_matches_plain(quant, d, bs, bps):
+    """Rows 9 and 10 under the split-T walk at the block sizes the kernel
+    takes (``paged_decode_eligible``'s): blocks of 128 or 256 keys, and a
+    slot of one block of any size (43, 48, 300), with the skip rule's rows
+    over scrambled tables, a prefix shared by slots 0 and 1 and a dead slot
+    on the trash block 0."""
+    dev = _cuda()
+    from trlx_tpu_torch.ops import decode_attention as dec
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    S, h = 5, 8
+    q, kp, vp, ks, vs, tables, _ = _paged_case(g, dev, S, bs, bps, h, d, quant)
+    bias = _split_bias(S, bs * bps, dev)
+    counter = dec.paged_decode_attention_int8 if quant else dec.paged_decode_attention
+    n = counter.launches
+    out = dec.paged_decode_attention(q, kp, vp, tables, bias, scale=d ** -0.5, ks=ks, vs=vs)
+    torch.cuda.synchronize()
+    assert counter.launches == n + 1
+    ref = dec.paged_decode_attention_plain(q, kp, vp, tables, bias, scale=d ** -0.5, ks=ks, vs=vs)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=1e-2)
+
+
+@pytest.mark.parametrize("variant", ["bf16", "int8", "paged-bf16", "paged-int8"])
+def test_decode_split_walk_at_the_smoke_width(variant):
+    """All four variants at the smoke's width (8 rows of 16 heads of 256, T
+    = 1024, 8 splits a row): left-padded prompts at decode step 128, one
+    row with a masked split mid-row, one with no visible key."""
+    dev = _cuda()
+    from trlx_tpu_torch.ops import decode_attention as dec
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    B, T, h, d, bs = 8, 1024, 16, 256, 128
+    quant, paged = variant.endswith("int8"), variant.startswith("paged")
+    if paged:
+        q, kp, vp, ks, vs, tables, _ = _paged_case(g, dev, B, bs, T // bs, h, d, quant)
+    else:
+        q = torch.randn((B, h, d), generator=g, device=dev).to(torch.bfloat16)
+        if quant:
+            (kp, ks), (vp, vs) = _int8_kv((B, T, h, d), g, dev), _int8_kv((B, T, h, d), g, dev)
+        else:
+            kp, vp = (torch.randn((B, T, h, d), generator=g, device=dev).to(torch.bfloat16) for _ in range(2))
+            ks = vs = None
+    pos = torch.arange(T, device=dev)[None, :]
+    lens = torch.randint(600, 769, (B,), generator=g, device=dev)
+    valid = (pos >= (768 - lens)[:, None]) & (pos <= 768 + 128)
+    valid[1, 384:640] = False
+    valid[2] = False
+    bias = torch.where(valid, 0.0, -1e9).float()
+    if paged:
+        out = dec.paged_decode_attention(q, kp, vp, tables, bias, scale=d ** -0.5, ks=ks, vs=vs)
+        ref = dec.paged_decode_attention_plain(q, kp, vp, tables, bias, scale=d ** -0.5, ks=ks, vs=vs)
+    else:
+        out = dec.decode_attention(q, kp, vp, bias, scale=d ** -0.5, ks=ks, vs=vs)
+        ref = dec.decode_attention_plain(q, kp, vp, bias, scale=d ** -0.5, ks=ks, vs=vs)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=1e-2)
+
+
 def test_decode_wrappers_raise_on_what_the_kernels_do_not_take():
     """Rows 8-10 on CUDA tensors: an int8 wrapper given a bf16 cache, a head
-    dim with no kernel instance, and tables or bias that do not match the
-    pool all raise; nothing runs the plain version."""
+    dim with no kernel instance, tables or bias that do not match the pool,
+    and a block size that puts a split across blocks all raise; nothing runs
+    the plain version."""
     dev = _cuda()
     from trlx_tpu_torch.ops import decode_attention as dec
 
@@ -186,6 +381,10 @@ def test_decode_wrappers_raise_on_what_the_kernels_do_not_take():
         dec.paged_decode_attention(q, kp, vp, tables[:, :1], bias, scale=1.0, ks=ks, vs=vs)
     with pytest.raises(ValueError):
         dec.paged_decode_attention(q[..., :96], kp[..., :96], vp[..., :96], tables, bias, scale=1.0, ks=ks, vs=vs)
+    for quant in (False, True):  # a split of 128 keys across blocks of 48
+        q48, kp48, vp48, ks48, vs48, tables48, bias48 = _paged_case(g, dev, 4, 48, 3, 8, 128, quant)
+        with pytest.raises(ValueError):
+            dec.paged_decode_attention(q48, kp48, vp48, tables48, bias48, scale=1.0, ks=ks48, vs=vs48)
     kc, vc, kcs, vcs = (dec.gather_pool(x, tables) for x in (kp, vp, ks, vs))
     with pytest.raises(ValueError):
         dec.decode_attention(q, kc, vc, bias, scale=1.0, ks=kcs[:, :-1], vs=vcs[:, :-1])

@@ -1,4 +1,5 @@
-// Flash attention forward for Hopper (sm_90a), bf16 in, f32 softmax.
+// Flash attention forward for Hopper (sm_90a): TMA loads into an mbarrier
+// ring, wgmma on the tensor cores, bf16 in, f32 softmax.
 //
 // Replaces: trlx_tpu/ops/flash_attention.py:_fwd_kernel (pallas_call in _fwd).
 // Computes causal online-softmax attention over q/k/v [b, T, h, d] with a key
@@ -6,217 +7,429 @@
 // (bf16) plus the per-row log-sum-exp lse [b, h, T] (f32). Semantics kept
 // from the TPU kernel: masked scores are REPLACED by -1e9, the running max
 // starts at the finite -1e30, key tiles that the causal/window mask empties
-// are skipped, and a row whose every tile was skipped (l == 0) writes zeros
-// with lse = -1e30. The TPU kernel's non-causal mode and key-position offset
-// (ring attention) have no caller yet and are left out; without the offset
-// every row reaches its own key, so l == 0 is only a guard here.
+// are skipped, P is rounded to bf16 before P.V, and a row whose every tile
+// was skipped (l == 0) writes zeros with lse = -1e30. Rows with no valid key
+// (left padding) attend over the tiles their warpgroup visits; nothing reads
+// them. The TPU kernel's non-causal mode and key-position offset (ring
+// attention) have no caller yet and are left out.
 //
 // What bounds it on an H100: at the rollout shapes ([8, 768..1024, 16, 256])
-// the work is ~40-70 GFLOP against ~200-270 MB of q/k/v/o, so the bound is
-// HBM bytes (~60-80 us) with the tensor cores close behind. Design: one CTA
-// per (64-query tile, head, batch row), 4 warps of 16 query rows each; q, k
-// and v tiles of 64 x d sit in padded shared memory (96 KB at d = 256, so two
-// CTAs fit an SM); the key walk runs inside the block only up to the
-// diagonal; QK^T and PV are mma.sync m16n8k16 bf16 with f32 accumulation, and
-// the score tile, P and the output accumulator never leave registers. The
-// TPU's sequential k grid axis is this in-block loop. Loads are plain 16-byte
-// vector loads; TMA/wgmma pipelining is left to a later change.
+// the causal QK^T and P.V are 39-69 GFLOP against 200-270 MB of q/k/v/o:
+// HBM bytes (60-80 us) with the tensor cores close behind (39-69 us at the
+// 989 TFLOP/s bf16 peak). So the kernel must keep the tensor cores fed.
+//
+// Design (warp-specialised, one CTA per (128-query tile, head, row), 384
+// threads, one CTA per SM):
+// - warpgroup 0 is the producer: it gives its registers away (setmaxnreg 24)
+//   and one thread issues TMA loads (cp.async.bulk.tensor, 128-byte swizzle,
+//   boxes of 64 columns, so a d = 256 row is four boxes): the Q tile once,
+//   then K and V tiles of 64 keys into a 2-stage ring guarded by full (one
+//   for K, one for V) and empty mbarriers. Its lanes stage each key tile's
+//   kv_mask slice in shared memory beside it. Rows past T are zero-filled
+//   by TMA's out-of-bounds fill.
+// - warpgroups 1 and 2 are consumers (setmaxnreg 240), each owning 64 query
+//   rows: S = Q.K^T by wgmma.mma_async m64n64k16 with both operands read
+//   from shared memory through descriptors (K-major), the online softmax on
+//   the f32 accumulator fragment in registers, then O += P.V by wgmma with
+//   A = P from registers (bf16) and B = V through the MN-major (transposed)
+//   descriptor, so V needs no transpose. The f32 O accumulator (64 x d per
+//   warpgroup, d / 2 registers a thread) stays in registers for the whole
+//   key walk. While one warpgroup does its softmax the other's wgmma runs.
+// - query tiles are scheduled longest causal walk first (grid y counts the
+//   tiles down), and a warpgroup skips the math of the key tiles its 64 rows
+//   cannot see; it still waits on their full barriers and frees their stage,
+//   so each consumer observes every phase of the ring.
+// Shared memory at d = 256: Q 64 KB + 2 x (K 32 KB + V 32 KB) = 192 KB.
+// The same template serves d = 64 and 128 (GPT-2, NeoX families).
+// Tensor maps are encoded on the host per call over the strided views,
+// through cudaGetDriverEntryPoint (no -lcuda), and passed as
+// __grid_constant__ parameters.
+
+#include <cuda.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;   // query rows per CTA
+constexpr int BQ = 128;  // query rows per CTA (two consumer warpgroups of 64)
 constexpr int BK = 64;   // keys per tile
-constexpr int NTHREADS = 128;
+constexpr int STAGES = 2;
+constexpr int NTHREADS = 384;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct FlashParams {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
   const float* kmask;  // [b, T] key validity (> 0.5 = valid)
   __nv_bfloat16* o;    // [b, T, h, d] contiguous
   float* lse;          // [b, h, T]
-  int b, T, h;
-  int qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh;  // element strides
+  int b, T, h, n_qt;
   float scale;
   int window;
 };
 
-// Copy rows [t0, t0 + 64) of one (batch, head) slice into a padded tile;
-// rows past T are zero-filled.
+// ---- shared-memory layout ---------------------------------------------------
 template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* base, int t0, int T,
-                                          int st) {
-  constexpr int LD = D + 8;
-  constexpr int VPR = D / 8;  // 16-byte vectors per row
-  for (int i = threadIdx.x; i < BQ * VPR; i += NTHREADS) {
-    int r = i / VPR, c = (i % VPR) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (t0 + r < T) val = *reinterpret_cast<const uint4*>(base + (size_t)(t0 + r) * st + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
+struct Smem {
+  static constexpr int CHUNKS = D / 64;                    // 128-byte column boxes per row
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;
+  static constexpr int Q = 0;
+  static constexpr int K = Q + Q_BYTES;                     // K[stage]
+  static constexpr int V = K + STAGES * KV_BYTES;           // V[stage]
+  static constexpr int KMASK = V + STAGES * KV_BYTES;       // float[stage][BK]
+  static constexpr int BAR = KMASK + STAGES * BK * 4;       // mbarriers
+  static constexpr int BYTES = BAR + 8 * (1 + 3 * STAGES);
+  static constexpr int ALLOC = BYTES + 1024;                // room to align the base to 1024
+};
+
+// ---- PTX wrappers -----------------------------------------------------------
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT_%=;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// One box {64 columns, rows} of a 4-D map (d, t, h, b) into shared memory.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
+      "[%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle. Byte offsets: lbo is
+// the stride between 64-element blocks along M/N (MN-major only), sbo the
+// stride between groups of 8 rows (K-major) or 8 K-rows (MN-major).
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  uint64_t d = (uint64_t)((addr & 0x3FFFF) >> 4);
+  d |= (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
+  d |= (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
+  d |= (uint64_t)1 << 62;
+  return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+
+// Keep the compiler from moving reads or writes of accumulator registers
+// across the asynchronous wgmma (its results are valid only after the wait).
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define TRLX_ACC32                                                                                             \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]),  \
+      "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),   \
+      "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),  \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define TRLX_REGS32                                                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                                    \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// d[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " TRLX_REGS32 ", %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : TRLX_ACC32
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 64] += A[64 x 16] . B[16 x 64], A from registers (bf16 pairs in the
+// mma.sync A-fragment layout), B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " TRLX_REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : TRLX_ACC32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 template <int D>
-__global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(FlashParams p) {
-  constexpr int LD = D + 8;  // padded row: conflict-free fragment loads
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + BQ * LD;
-  __nv_bfloat16* Vs = Ks + BK * LD;
-  float* kval = reinterpret_cast<float*>(Vs + BK * LD);
+__global__ void __launch_bounds__(NTHREADS, 1)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, FlashParams p) {
+  using L = Smem<D>;
+  constexpr int CH = L::CHUNKS;
+  extern __shared__ unsigned char smem_raw[];
+  // 1024-byte aligned: the 128-byte swizzle pattern repeats every 8 rows of 128 bytes.
+  unsigned char* sm =
+      reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t sbase = smem_u32(sm);
+  float* kms = reinterpret_cast<float*>(sm + L::KMASK);
+  const uint32_t bar_q = sbase + L::BAR;
+  auto bar_k = [&](int s) { return sbase + L::BAR + 8 * (1 + s); };
+  auto bar_v = [&](int s) { return sbase + L::BAR + 8 * (1 + STAGES + s); };
+  auto bar_e = [&](int s) { return sbase + L::BAR + 8 * (1 + 2 * STAGES + s); };
 
-  const int qt = blockIdx.x, hi = blockIdx.y, bi = blockIdx.z;
-  const int q_start = qt * BQ;
-  const int T = p.T;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x, hi = bh % p.h, bi = bh / p.h;
+  const int qt = p.n_qt - 1 - (int)blockIdx.y;  // longest causal walk first
+  const int q0 = qt * BQ, T = p.T;
+  // Key tiles the CTA visits: up to the diagonal of its last row, from the
+  // first key its first row's window sees.
+  const int kt_hi = (min(q0 + BQ, T) - 1) / BK;
+  const int kt_lo = p.window > 0 ? max(0, q0 - p.window + 1) / BK : 0;
+  const int n_kv = kt_hi - kt_lo + 1;
 
-  const __nv_bfloat16* qb = p.q + (size_t)bi * p.qsb + (size_t)hi * p.qsh;
-  const __nv_bfloat16* kb = p.k + (size_t)bi * p.ksb + (size_t)hi * p.ksh;
-  const __nv_bfloat16* vb = p.v + (size_t)bi * p.vsb + (size_t)hi * p.vsh;
-  load_tile<D>(Qs, qb, q_start, T, p.qst);
-
-  const int row0 = q_start + warp * 16 + g;  // this thread's two rows
-  const int row1 = row0 + 8;
-  float m0 = TRLX_M_INIT, m1 = TRLX_M_INIT, l0 = 0.f, l1 = 0.f;
-  float acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  const int nk = (T + BK - 1) / BK;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k_start = kt * BK;
-    // Tile liveness, uniform over the CTA (the TPU kernel's _run_if_live).
-    if (k_start > q_start + BQ - 1) continue;
-    if (p.window > 0 && k_start + BK - 1 <= q_start - p.window) continue;
-
-    __syncthreads();  // previous tile fully consumed
-    load_tile<D>(Ks, kb, k_start, T, p.kst);
-    load_tile<D>(Vs, vb, k_start, T, p.vst);
-    if (threadIdx.x < BK) {
-      int key = k_start + threadIdx.x;
-      kval[threadIdx.x] = key < T ? p.kmask[(size_t)bi * T + key] : 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_k(s), 2);  // the TMA's expect_tx and the staged kv_mask slice
+      mbar_init(bar_v(s), 1);
+      mbar_init(bar_e(s), 2 * 128);
     }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    // S = Q K^T for this warp's 16 rows x 64 keys.
-    float s[BK / 8][4];
-#pragma unroll
-    for (int nb = 0; nb < BK / 8; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
-    const __nv_bfloat16* qrow0 = Qs + (warp * 16 + g) * LD;
-    const __nv_bfloat16* qrow1 = qrow0 + 8 * LD;
-#pragma unroll 4
-    for (int ks = 0; ks < D / 16; ++ks) {
-      const int c = ks * 16 + 2 * t;
-      uint32_t a[4];
-      a[0] = *reinterpret_cast<const uint32_t*>(qrow0 + c);
-      a[1] = *reinterpret_cast<const uint32_t*>(qrow1 + c);
-      a[2] = *reinterpret_cast<const uint32_t*>(qrow0 + c + 8);
-      a[3] = *reinterpret_cast<const uint32_t*>(qrow1 + c + 8);
-#pragma unroll
-      for (int nb = 0; nb < BK / 8; ++nb) {
-        const __nv_bfloat16* krow = Ks + (nb * 8 + g) * LD;
-        uint32_t bb[2];
-        bb[0] = *reinterpret_cast<const uint32_t*>(krow + c);
-        bb[1] = *reinterpret_cast<const uint32_t*>(krow + c + 8);
-        mma_bf16_16816(s[nb], a, bb);
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    if (lane == 0) {
+      mbar_expect_tx(bar_q, L::Q_BYTES);
+      for (int c = 0; c < CH; ++c) tma_load(sbase + L::Q + c * BQ * 128, &tq, bar_q, c * 64, q0, hi, bi);
+    }
+    for (int i = 0; i < n_kv; ++i) {
+      const int s = i % STAGES, k0 = (kt_lo + i) * BK;
+      mbar_wait(bar_e(s), ((i / STAGES) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_expect_tx(bar_k(s), L::KV_BYTES);
+        for (int c = 0; c < CH; ++c)
+          tma_load(sbase + L::K + s * L::KV_BYTES + c * BK * 128, &tk, bar_k(s), c * 64, k0, hi, bi);
+        mbar_expect_tx(bar_v(s), L::KV_BYTES);
+        for (int c = 0; c < CH; ++c)
+          tma_load(sbase + L::V + s * L::KV_BYTES + c * BK * 128, &tv, bar_v(s), c * 64, k0, hi, bi);
       }
-    }
-
-    // Scale, mask (replace, not add), online softmax.
-    float mx0 = TRLX_MASK_VAL, mx1 = TRLX_MASK_VAL;
-#pragma unroll
-    for (int nb = 0; nb < BK / 8; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kk = nb * 8 + 2 * t + (e & 1);
-        const int key = k_start + kk;
-        const int row = (e < 2) ? row0 : row1;
-        bool valid = key < T && kval[kk] > 0.5f;
-        valid = valid && key <= row;
-        if (p.window > 0) valid = valid && (key > row - p.window);
-        const float v = valid ? s[nb][e] * p.scale : TRLX_MASK_VAL;
-        s[nb][e] = v;
-        if (e < 2) mx0 = fmaxf(mx0, v); else mx1 = fmaxf(mx1, v);
+      // The mask slice loads while the tiles are in flight; its arrival is
+      // the K barrier's second.
+      for (int j = lane; j < BK; j += 32) {
+        const int key = k0 + j;
+        kms[s * BK + j] = key < T ? p.kmask[(size_t)bi * T + key] : 0.f;
       }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_k(s));
     }
-    const float mn0 = fmaxf(m0, quad_max(mx0));
-    const float mn1 = fmaxf(m1, quad_max(mx1));
-    const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int nb = 0; nb < BK / 8; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k_start + nb * 8 + 2 * t + (e & 1);
-        // Keys past T exist only as tile padding: weight exactly zero.
-        const float pv = key < T ? expf(s[nb][e] - (e < 2 ? mn0 : mn1)) : 0.f;
-        s[nb][e] = pv;
-        if (e < 2) rs0 += pv; else rs1 += pv;
-      }
-    }
-    l0 = al0 * l0 + quad_sum(rs0);
-    l1 = al1 * l1 + quad_sum(rs1);
-    m0 = mn0;
-    m1 = mn1;
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
-      acc[i][0] *= al0; acc[i][1] *= al0;
-      acc[i][2] *= al1; acc[i][3] *= al1;
-    }
-
-    // O += P V, with P rounded to bf16 (the value dtype) as the TPU kernel does.
-    uint32_t pa[BK / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-    }
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      const int col = nd * 8 + g;
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        const int r = kk * 16 + 2 * t;
-        uint32_t bb[2];
-        bb[0] = pack_bf16_pair(Vs + r * LD + col, Vs + (r + 1) * LD + col);
-        bb[1] = pack_bf16_pair(Vs + (r + 8) * LD + col, Vs + (r + 9) * LD + col);
-        mma_bf16_16816(acc[nd], pa[kk], bb);
-      }
-    }
+    return;
   }
 
-  // Finalize: o = acc / l; lse = m + log l, or M_INIT where l == 0.
+  // ---- consumers ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int cw = wg - 1;                   // 64-row half of the tile
+  const int warp = (threadIdx.x / 32) & 3; // warp within the warpgroup: 16 rows
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int rlo = q0 + cw * 64;            // first row of this warpgroup
+  const int row0 = rlo + warp * 16 + g, row1 = row0 + 8;
+  const float sl2 = p.scale * LOG2E;       // scores in log2 units
+  const float mask2 = TRLX_MASK_VAL * LOG2E;
+
+  float o[CH][32];
+#pragma unroll
+  for (int c = 0; c < CH; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
+  float m0 = TRLX_M_INIT, m1 = TRLX_M_INIT, l0 = 0.f, l1 = 0.f;
+
+  mbar_wait(bar_q, 0);
+  const uint32_t q_base = sbase + L::Q + cw * 64 * 128;
+
+  for (int i = 0; i < n_kv; ++i) {
+    const int s = i % STAGES;
+    const uint32_t par = (i / STAGES) & 1;
+    const int k0 = (kt_lo + i) * BK;
+    // Tile liveness for this warpgroup's 64 rows (the TPU kernel's _run_if_live).
+    const bool live = k0 <= rlo + 63 && !(p.window > 0 && k0 + BK - 1 <= rlo - p.window);
+    // Both warpgroups wait on every phase of the ring, live or not: a parity
+    // wait on a phase it skipped two tiles back would pass at once.
+    mbar_wait(bar_k(s), par);
+    if (!live) {
+      mbar_wait(bar_v(s), par);
+    } else {
+      float sc[32];
+#pragma unroll
+      for (int j = 0; j < 32; ++j) sc[j] = 0.f;
+      const uint32_t k_base = sbase + L::K + s * L::KV_BYTES;
+      fence_regs(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;  // 16 columns of the 128-byte row
+        const uint64_t da = make_desc(q_base + (kk / 4) * BQ * 128 + off, 16, 1024);
+        const uint64_t db = make_desc(k_base + (kk / 4) * BK * 128 + off, 16, 1024);
+        wgmma_ss(sc, da, db, kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(sc);
+
+      // Scale, mask (replace, not add), online softmax in log2 units.
+      const float* km = kms + s * BK;
+      float mx0 = mask2, mx1 = mask2;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kk = j * 8 + 2 * t4 + (e & 1);
+          const int key = k0 + kk;
+          const int row = e < 2 ? row0 : row1;
+          bool valid = key < T && km[kk] > 0.5f && key <= row;
+          if (p.window > 0) valid = valid && key > row - p.window;
+          const float v = valid ? sc[j * 4 + e] * sl2 : mask2;
+          sc[j * 4 + e] = v;
+          if (e < 2) mx0 = fmaxf(mx0, v); else mx1 = fmaxf(mx1, v);
+        }
+      }
+      const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
+      const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
+      float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + j * 8 + 2 * t4 + (e & 1);
+          // Keys past T exist only as tile padding: weight exactly zero.
+          const float pv = key < T ? exp2f(sc[j * 4 + e] - (e < 2 ? mn0 : mn1)) : 0.f;
+          sc[j * 4 + e] = pv;
+          if (e < 2) rs0 += pv; else rs1 += pv;
+        }
+      }
+      l0 = al0 * l0 + quad_sum(rs0);
+      l1 = al1 * l1 + quad_sum(rs1);
+      m0 = mn0;
+      m1 = mn1;
+#pragma unroll
+      for (int c = 0; c < CH; ++c)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          o[c][j * 4 + 0] *= al0; o[c][j * 4 + 1] *= al0;
+          o[c][j * 4 + 2] *= al1; o[c][j * 4 + 3] *= al1;
+        }
+      // P rounded to bf16 (the value dtype) as the TPU kernel does, in the
+      // A-fragment layout: keys 16kk.. of rows g and g + 8.
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        pa[kk][0] = pack_bf16(sc[(2 * kk) * 4 + 0], sc[(2 * kk) * 4 + 1]);
+        pa[kk][1] = pack_bf16(sc[(2 * kk) * 4 + 2], sc[(2 * kk) * 4 + 3]);
+        pa[kk][2] = pack_bf16(sc[(2 * kk + 1) * 4 + 0], sc[(2 * kk + 1) * 4 + 1]);
+        pa[kk][3] = pack_bf16(sc[(2 * kk + 1) * 4 + 2], sc[(2 * kk + 1) * 4 + 3]);
+      }
+
+      mbar_wait(bar_v(s), par);
+      const uint32_t v_base = sbase + L::V + s * L::KV_BYTES;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) fence_regs(o[c]);
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < CH; ++c)
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma_rs(o[c], pa[kk], make_desc(v_base + c * BK * 128 + kk * 16 * 128, BK * 128, 1024));
+      wgmma_commit();
+      wgmma_wait0();
+#pragma unroll
+      for (int c = 0; c < CH; ++c) fence_regs(o[c]);
+    }
+    mbar_arrive(bar_e(s));
+  }
+
+  // Finalize: o = acc / l; lse = m + log l (natural units), or M_INIT where l == 0.
   const float ls0 = fmaxf(l0, 1e-30f), ls1 = fmaxf(l1, 1e-30f);
   const float inv0 = 1.f / ls0, inv1 = 1.f / ls1;
   const size_t orow = (size_t)p.h * D;
   __nv_bfloat16* ob = p.o + (size_t)bi * T * orow + (size_t)hi * D;
 #pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) {
-    const int col = nd * 8 + 2 * t;
-    if (row0 < T)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)row0 * orow + col) = pack_bf16(acc[nd][0] * inv0, acc[nd][1] * inv0);
-    if (row1 < T)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)row1 * orow + col) = pack_bf16(acc[nd][2] * inv1, acc[nd][3] * inv1);
-  }
-  if (t == 0) {
+  for (int c = 0; c < CH; ++c)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = c * 64 + j * 8 + 2 * t4;
+      if (row0 < T)
+        *reinterpret_cast<uint32_t*>(ob + (size_t)row0 * orow + col) =
+            pack_bf16(o[c][j * 4 + 0] * inv0, o[c][j * 4 + 1] * inv0);
+      if (row1 < T)
+        *reinterpret_cast<uint32_t*>(ob + (size_t)row1 * orow + col) =
+            pack_bf16(o[c][j * 4 + 2] * inv1, o[c][j * 4 + 3] * inv1);
+    }
+  if (t4 == 0) {
     float* lb = p.lse + ((size_t)bi * p.h + hi) * T;
-    if (row0 < T) lb[row0] = l0 > 0.f ? m0 + logf(ls0) : TRLX_M_INIT;
-    if (row1 < T) lb[row1] = l1 > 0.f ? m1 + logf(ls1) : TRLX_M_INIT;
+    if (row0 < T) lb[row0] = l0 > 0.f ? m0 * LN2 + logf(ls0) : TRLX_M_INIT;
+    if (row1 < T) lb[row1] = l1 > 0.f ? m1 * LN2 + logf(ls1) : TRLX_M_INIT;
   }
 }
 
+// ---- host side ----------------------------------------------------------------
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A 4-D map (d, t, h, b) over a strided [b, T, h, d] bf16 view; boxes of
+// 64 columns by `rows` keys or queries, 128-byte swizzle, zero fill past T.
+bool make_map(CUtensorMap* map, const void* base, int d, int T, int h, int b, int st, int sh, int sb, int rows) {
+  EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)T, (cuuint64_t)h, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)st * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box, estr,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int D>
-cudaError_t launch(const FlashParams& p, cudaStream_t stream) {
-  const int smem = 3 * BQ * (D + 8) * (int)sizeof(__nv_bfloat16) + BK * (int)sizeof(float);
+cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, const FlashParams& p,
+                   cudaStream_t stream) {
+  const int smem = Smem<D>::ALLOC;
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((p.T + BQ - 1) / BQ, p.h, p.b);
-  flash_fwd_kernel<D><<<grid, NTHREADS, smem, stream>>>(p);
+  flash_fwd_kernel<D><<<dim3(p.b * p.h, p.n_qt), NTHREADS, smem, stream>>>(tq, tk, tv, p);
   return cudaGetLastError();
 }
 
@@ -224,25 +437,23 @@ cudaError_t launch(const FlashParams& p, cudaStream_t stream) {
 
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, const void* kmask, void* o, void* lse,
                               int b, int T, int h, int d, int qsb, int qst, int qsh, int ksb, int kst, int ksh,
-                              int vsb, int vst, int vsh, float scale, int window,
-                              void* stream) {
+                              int vsb, int vst, int vsh, float scale, int window, void* stream) {
+  if (d != 64 && d != 128 && d != 256) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, d, T, h, b, qst, qsh, qsb, BQ) || !make_map(&tk, k, d, T, h, b, kst, ksh, ksb, BK) ||
+      !make_map(&tv, v, d, T, h, b, vst, vsh, vsb, BK))
+    return (int)cudaErrorInvalidValue;
   FlashParams p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
   p.kmask = static_cast<const float*>(kmask);
   p.o = static_cast<__nv_bfloat16*>(o);
   p.lse = static_cast<float*>(lse);
   p.b = b; p.T = T; p.h = h;
-  p.qsb = qsb; p.qst = qst; p.qsh = qsh;
-  p.ksb = ksb; p.kst = kst; p.ksh = ksh;
-  p.vsb = vsb; p.vst = vst; p.vsh = vsh;
+  p.n_qt = (T + BQ - 1) / BQ;
   p.scale = scale; p.window = window;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 64: return (int)launch<64>(p, s);
-    case 128: return (int)launch<128>(p, s);
-    case 256: return (int)launch<256>(p, s);
-    default: return (int)cudaErrorInvalidValue;
+    case 64: return (int)launch<64>(tq, tk, tv, p, s);
+    case 128: return (int)launch<128>(tq, tk, tv, p, s);
+    default: return (int)launch<256>(tq, tk, tv, p, s);
   }
 }

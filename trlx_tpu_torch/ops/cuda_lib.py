@@ -39,20 +39,24 @@ _SIGNATURES = {
                        _I, _I, _I,  # v strides
                        _F, _I, _P],  # scale window stream
     "decode_attn_bf16": [_P, _P, _P, _P, _P,  # q k v bias o
+                         _P, _I,  # split partials scratch, splits
                          _I, _I, _I, _I,  # B T h d
                          _I, _I, _I,  # k strides (b, t, h)
                          _I, _I, _I,  # v strides (b, t, h)
                          _F, _P],  # scale stream
     "decode_attn_int8": [_P, _P, _P, _P, _P, _P, _P,  # q k v ks vs bias o
+                         _P, _I,  # split partials scratch, splits
                          _I, _I, _I, _I,  # B T h d
                          _I, _I, _I, _I, _I, _I,  # k v strides (b, t, h)
                          _I, _I, _I, _I, _I, _I,  # ks vs strides (b, t, h)
                          _F, _P],  # scale stream
     "paged_decode_attn_bf16": [_P, _P, _P, _P, _P, _P,  # q k v tables bias o
+                               _P, _I,  # split partials scratch, splits
                                _I, _I, _I, _I, _I,  # S bs bps h d
                                _I, _I, _I, _I, _I, _I,  # k v pool strides (block, offset, h)
                                _F, _P],  # scale stream
     "paged_decode_attn_int8": [_P, _P, _P, _P, _P, _P, _P, _P,  # q k v ks vs tables bias o
+                               _P, _I,  # split partials scratch, splits
                                _I, _I, _I, _I, _I,  # S bs bps h d
                                _I, _I, _I, _I, _I, _I,  # k v pool strides (block, offset, h)
                                _I, _I, _I, _I, _I, _I,  # ks vs pool strides (block, offset, h)

@@ -23,9 +23,8 @@ import torch
 from trlx_tpu_torch.ops import cuda_lib
 
 KERNEL_HEAD_DIMS = (64, 128, 256)
-# The table row lives in dynamic shared memory, beside the kernel's 8 KB of
-# static shared memory, within the 48 KB a block gets without opting in.
-MAX_TABLE_BLOCKS = 8192
+# Keys per split of the kernels' split-T walk (csrc/decode_attn.cu: KS).
+SPLIT_KEYS = 128
 
 
 def decode_attn_eligible(n_head: int, head_dim: int) -> bool:
@@ -80,11 +79,17 @@ def paged_decode_attention_plain(q, k_pool, v_pool, block_tables, bias_row, *, s
 
 
 def _check_rows(name, x):
-    """K/V rows are read d / 32 elements per lane: unit last stride, strides
-    in multiples of 8 elements, a 16-byte aligned start."""
-    if x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:-1]) or x.data_ptr() % 16:
-        raise ValueError(f"{name} needs a unit last stride, strides that are multiples of 8 and a 16-byte "
+    """K/V rows are read 16 bytes per lane: unit last stride, strides in
+    multiples of 16 bytes, a 16-byte aligned start."""
+    if x.stride(-1) != 1 or any(s * x.element_size() % 16 for s in x.stride()[:-1]) or x.data_ptr() % 16:
+        raise ValueError(f"{name} needs a unit last stride, strides that are multiples of 16 bytes and a 16-byte "
                          f"aligned start (got {tuple(x.stride())})")
+
+
+def _partials(B, h, d, T, device):
+    """Scratch for the split partials [B, h, splits, d + 2] f32 (acc, m and
+    l of each split of SPLIT_KEYS keys), which the merge kernel reads."""
+    return torch.empty((B, h, -(-T // SPLIT_KEYS), d + 2), dtype=torch.float32, device=device)
 
 
 def _query(q, fn):
@@ -133,10 +138,12 @@ def decode_attention(q, k_cache, v_cache, bias_row, *, scale: float, ks=None, vs
         _check_rows(f"decode_attention: {name}", x)
     bias = bias_row.to(dtype=torch.float32).contiguous()
     out = torch.empty((B, h, d), dtype=q.dtype, device=q.device)
+    part = _partials(B, h, d, T, q.device)
     ks_, vs_ = k_cache.stride(), v_cache.stride()
     err = cuda_lib.lib().decode_attn_bf16(
-        qc.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        B, T, h, d, ks_[0], ks_[1], ks_[2], vs_[0], vs_[1], vs_[2], float(scale), cuda_lib.stream_ptr(q.device),
+        qc.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), bias.data_ptr(), out.data_ptr(), part.data_ptr(),
+        part.shape[2], B, T, h, d, ks_[0], ks_[1], ks_[2], vs_[0], vs_[1], vs_[2], float(scale),
+        cuda_lib.stream_ptr(q.device),
     )
     cuda_lib.check(err, "decode_attn_bf16")
     decode_attention.launches += 1
@@ -165,10 +172,11 @@ def decode_attention_int8(q, k_cache, v_cache, ks, vs, bias_row, *, scale: float
     sstrides = _scales(ks, vs, (B, T, h), "decode_attention_int8")
     bias = bias_row.to(dtype=torch.float32).contiguous()
     out = torch.empty((B, h, d), dtype=q.dtype, device=q.device)
+    part = _partials(B, h, d, T, q.device)
     err = cuda_lib.lib().decode_attn_int8(
         qc.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ks.data_ptr(), vs.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), B, T, h, d, *k_cache.stride()[:3], *v_cache.stride()[:3], *sstrides, float(scale),
-        cuda_lib.stream_ptr(q.device),
+        out.data_ptr(), part.data_ptr(), part.shape[2], B, T, h, d, *k_cache.stride()[:3], *v_cache.stride()[:3],
+        *sstrides, float(scale), cuda_lib.stream_ptr(q.device),
     )
     cuda_lib.check(err, "decode_attn_int8")
     decode_attention_int8.launches += 1
@@ -184,8 +192,9 @@ def _paged_operands(q, k_pool, v_pool, block_tables, bias_row, fn, dtype):
     if block_tables.shape != (S, bps) or bias_row.shape != (S, bps * bs):
         raise ValueError(f"{fn}: tables {tuple(block_tables.shape)} / bias {tuple(bias_row.shape)} do not match "
                          f"{S} slots of {bps} blocks of {bs}")
-    if bps > MAX_TABLE_BLOCKS:
-        raise ValueError(f"{fn}: {bps} blocks per slot exceed the kernel's {MAX_TABLE_BLOCKS}")
+    if bs % SPLIT_KEYS and bps != 1:
+        raise ValueError(f"{fn} kernel reads each split of {SPLIT_KEYS} keys from one pool block: it takes a block "
+                         f"size divisible by {SPLIT_KEYS} or one block a slot (got {bps} blocks of {bs})")
     if k_pool.dtype != dtype or v_pool.dtype != dtype:
         raise TypeError(f"{fn} kernel takes a {dtype} pool")
     qc = _query(q, fn)
@@ -194,7 +203,8 @@ def _paged_operands(q, k_pool, v_pool, block_tables, bias_row, fn, dtype):
     tables = block_tables.to(dtype=torch.int32).contiguous()
     bias = bias_row.to(dtype=torch.float32).contiguous()
     out = torch.empty((S, h, d), dtype=q.dtype, device=q.device)
-    return qc, tables, bias, out, (S, bs, bps, h, d)
+    part = _partials(S, h, d, bps * bs, q.device)
+    return qc, tables, bias, out, part, (S, bs, bps, h, d)
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, bias_row, *, scale: float, ks=None, vs=None):
@@ -204,19 +214,22 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, bias_row, *, scale: 
     bias_row: [S, bps * bs] over the virtual cache. Returns [S, 1, h, d] in
     q's dtype. With scales ks/vs [n_blocks, bs, h] the pool is int8 and
     ``paged_decode_attention_int8`` runs. CPU tensors take the plain
-    version; CUDA tensors launch the bf16 kernel or raise. The tables must
-    hold block ids below n_blocks (the engine's allocator guarantees it)."""
+    version; CUDA tensors launch the bf16 kernel or raise: the kernel takes
+    the block sizes of ``paged_decode_eligible`` (divisible by 128, or one
+    block a slot). The tables must hold block ids below n_blocks (the
+    engine's allocator guarantees it)."""
     if ks is not None or vs is not None:
         return paged_decode_attention_int8(q, k_pool, v_pool, ks, vs, block_tables, bias_row, scale=scale)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, block_tables, bias_row, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: unsupported device {q.device}")
-    qc, tables, bias, out, dims = _paged_operands(q, k_pool, v_pool, block_tables, bias_row,
-                                                  "paged_decode_attention", torch.bfloat16)
+    qc, tables, bias, out, part, dims = _paged_operands(q, k_pool, v_pool, block_tables, bias_row,
+                                                        "paged_decode_attention", torch.bfloat16)
     err = cuda_lib.lib().paged_decode_attn_bf16(
         qc.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        *dims, *k_pool.stride()[:3], *v_pool.stride()[:3], float(scale), cuda_lib.stream_ptr(q.device),
+        part.data_ptr(), part.shape[2], *dims, *k_pool.stride()[:3], *v_pool.stride()[:3], float(scale),
+        cuda_lib.stream_ptr(q.device),
     )
     cuda_lib.check(err, "paged_decode_attn_bf16")
     paged_decode_attention.launches += 1
@@ -232,13 +245,13 @@ def paged_decode_attention_int8(q, k_pool, v_pool, ks_pool, vs_pool, block_table
                                             vs=vs_pool)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention_int8: unsupported device {q.device}")
-    qc, tables, bias, out, dims = _paged_operands(q, k_pool, v_pool, block_tables, bias_row,
-                                                  "paged_decode_attention_int8", torch.int8)
+    qc, tables, bias, out, part, dims = _paged_operands(q, k_pool, v_pool, block_tables, bias_row,
+                                                        "paged_decode_attention_int8", torch.int8)
     sstrides = _scales(ks_pool, vs_pool, tuple(k_pool.shape[:3]), "paged_decode_attention_int8")
     err = cuda_lib.lib().paged_decode_attn_int8(
         qc.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ks_pool.data_ptr(), vs_pool.data_ptr(),
-        tables.data_ptr(), bias.data_ptr(), out.data_ptr(), *dims, *k_pool.stride()[:3], *v_pool.stride()[:3],
-        *sstrides, float(scale), cuda_lib.stream_ptr(q.device),
+        tables.data_ptr(), bias.data_ptr(), out.data_ptr(), part.data_ptr(), part.shape[2], *dims,
+        *k_pool.stride()[:3], *v_pool.stride()[:3], *sstrides, float(scale), cuda_lib.stream_ptr(q.device),
     )
     cuda_lib.check(err, "paged_decode_attn_int8")
     paged_decode_attention_int8.launches += 1
