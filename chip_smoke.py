@@ -64,6 +64,7 @@ PROMPT_LEN, MAX_LEN = 768, 1024
 MIN_PROMPT = 600  # prompts have seeded lengths in [MIN_PROMPT, PROMPT_LEN]
 CHUNK, N_ROLLOUTS = 8, 16
 LOGPROB_BWD_SEED = 5
+BWD_TURNS = 6  # alternating timing turns of the flash backward pair and SDPA's backward
 ROOT = os.path.dirname(os.path.abspath(__file__))
 RUN_DIR = os.path.join(ROOT, "ckpts", "chip_smoke")  # metrics.jsonl of each path (gitignored)
 
@@ -377,11 +378,18 @@ def phase_flash_bwd(gen):
     do = (torch.randn((b, T, h, d), generator=gen, device=dev) * rows[:, :, None, None]).to(torch.bfloat16)
     dlse = torch.randn((b, h, T), generator=gen, device=dev) * rows[:, None, :]
     delta = ((do.float() * o.float()).sum(-1).transpose(1, 2) - dlse).contiguous()
-    dq = flash_bwd_dq(q, k, v, mask, do, lse, delta, scale=scale, window=0)
-    dk, dv = flash_bwd_dkv(q, k, v, mask, do, lse, delta, scale=scale, window=0)
+
+    def pair():
+        return (flash_bwd_dq(q, k, v, mask, do, lse, delta, scale=scale, window=0),
+                *flash_bwd_dkv(q, k, v, mask, do, lse, delta, scale=scale, window=0))
+
+    dq, dk, dv = pair()
+    # No atomics: a second call gives the same bits.
+    if not all(torch.equal(x, y) for x, y in zip(pair(), (dq, dk, dv))):
+        raise AssertionError("flash_bwd: a second call of dq / dk / dv differs from the first")
     rq, rk, rv = flash_attention_bwd_plain(q, k, v, mask, o, lse, do, dlse, scale=scale)
-    # bf16 outputs and bf16 P / dS in the products on both sides; 64-wide
-    # tiles vs one einsum sum in another order.
+    # bf16 outputs and bf16 P / dS in the products on both sides; tiles vs
+    # one einsum sum in another order.
     rel = 2e-2
     err_q, tol_q = check_rel("flash_bwd.dq", dq[rows], rq[rows], rel)
     err_k, tol_k = check_rel("flash_bwd.dk", dk, rk, rel)
@@ -391,28 +399,34 @@ def phase_flash_bwd(gen):
     ms_dkv = time_ms(lambda: flash_bwd_dkv(q, k, v, mask, do, lse, delta, scale=scale, window=0))
     plain_ms = time_ms(lambda: flash_attention_bwd_plain(q, k, v, mask, o, lse, do, dlse, scale=scale),
                        iters=3, warmup=1)
-    # Library yardstick: SDPA's backward with the same boolean mask (autograd
-    # forward + backward less the forward), rows 2 and 3 together.
+    # Library yardstick: SDPA's backward with the same boolean mask, dq, dk
+    # and dv together (autograd.grad over one retained forward), timed in
+    # alternating turns with the pair of kernels.
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
     dot = do.transpose(1, 2)
     amask = torch.ones((T, T), dtype=torch.bool, device=dev).tril()[None, None] & rows[:, None, None, :]
     backend = torch.nn.attention.SDPBackend(torch._fused_sdp_choice(qt, kt, vt, amask, 0.0, False,
                                                                      scale=scale)).name
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=amask, scale=scale)
 
-    def sdpa_fwd_bwd():
-        F.scaled_dot_product_attention(qt, kt, vt, attn_mask=amask, scale=scale).backward(dot)
+    def sdpa_bwd():
+        torch.autograd.grad(sdpa_out, (qt, kt, vt), dot, retain_graph=True)
 
-    def sdpa_fwd():
-        with torch.no_grad():
-            F.scaled_dot_product_attention(qt, kt, vt, attn_mask=amask, scale=scale)
-
-    lib_ms = time_ms(sdpa_fwd_bwd) - time_ms(sdpa_fwd)
+    turns = {"pair": [], "sdpa_bwd": []}
+    for t in range(BWD_TURNS):
+        for name in (("pair", "sdpa_bwd") if t % 2 == 0 else ("sdpa_bwd", "pair")):
+            turns[name].append(time_ms(pair if name == "pair" else sdpa_bwd, iters=10, warmup=1))
+    del sdpa_out
+    pair_ms, lib_ms = float(np.median(turns["pair"])), float(np.median(turns["sdpa_bwd"]))
+    log(f"[flash_bwd] pair (dq + dk/dv) {pair_ms:.4f} ms vs SDPA backward ({backend}) {lib_ms:.4f} ms, medians of "
+        f"{BWD_TURNS} alternating turns: ratio {pair_ms / lib_ms:.3f}; turns {json.dumps(turns)}")
     pairs = b * h * T * (T + 1) / 2
     one = b * T * h * d * 2  # one bf16 [b, T, h, d] tensor
     rowvec = b * h * T * 4
     bdq = bound(5 * one + 2 * rowvec + b * T * 4, 6 * d * pairs)
     bdkv = bound(6 * one + 2 * rowvec + b * T * 4, 8 * d * pairs)
     common = dict(plain_ms=plain_ms, library_ms=lib_ms, library=f"SDPA backward ({backend}), dq+dk+dv together",
+                  pair_ms=pair_ms, pair_over_library=pair_ms / lib_ms,
                   shape=[b, T, h, d])
     return {
         "flash_attention_bwd_dq": dict(max_abs_err=err_q, tol=tol_q, ms=ms_dq, bound_ms=bdq[0], bound_by=bdq[1],
@@ -1252,7 +1266,7 @@ def main() -> int:
     cuda_lib.lib()
     log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.1f}s")
     for ln in cuda_lib.build_log().splitlines():
-        if "Compiling entry function" in ln or "registers" in ln or "spill" in ln:
+        if any(w in ln for w in ("Compiling entry function", "registers", "spill", "Performance Loss")):
             log(f"[build] {ln.strip()}")
 
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -1,0 +1,295 @@
+"""The walk of the flash backward kernels (``csrc/flash_bwd.cu``) on the CPU:
+a plain model, written here, of which tiles each kernel visits and what it
+computes on them, held against the port's plain backward
+(``flash_attention_bwd_plain``) and the JAX package's Pallas backward run in
+interpret mode (``jax.vjp`` through ``flash_attention``), on the same numpy
+inputs. The tile sizes are read from the kernel's source.
+
+- dq: one CTA per DQ_BQ = 128 query rows, two consumer warpgroups of 64;
+  key tiles of DQ_BK_D256 = 32 keys at d = 256 and DQ_BK = 64 below, from the
+  tile of the first key the CTA's first row's window sees to the diagonal of
+  its last row; a warpgroup skips the math of a tile its 64 rows cannot
+  reach by position (the forward's test).
+- dk/dv: one CTA per DKV_BK = 64 keys; query tiles of DKV_BQ = 64 from the
+  diagonal to T, or with a window to the last query that still sees a key
+  of the tile.
+
+On every visited tile: s = q·kᵀ·scale with masked scores replaced by -1e9,
+p = exp(s - lse), ds = p·(dO·vᵀ - δ), δ = rowsum(dO·O) - dlse; P and dS are
+rounded to the operand dtype (bf16 in the kernels) before their products.
+
+Padded query rows carry no cotangent (dO = dlse = 0), as in the model, where
+no later position reads them: every row of dk/dv and every valid row of dq
+compare.
+"""
+
+import os
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from trlx_tpu.ops.flash_attention import flash_attention as jax_flash_attention
+from trlx_tpu_torch.ops import cuda_lib
+from trlx_tpu_torch.ops import flash_attention as flash_mod
+
+torch.set_num_threads(1)
+
+# float32 on both sides: what differs is the summation order.
+TOL = dict(rtol=1e-4, atol=1e-5)
+WG_ROWS = 64  # query rows of a dq consumer warpgroup (one wgmma M)
+
+
+def _kernel_tiles():
+    """The tile constants of ``csrc/flash_bwd.cu``."""
+    with open(os.path.join(cuda_lib._CSRC, "flash_bwd.cu")) as f:
+        src = f.read()
+    names = ("DQ_BQ", "DQ_BK", "DQ_BK_D256", "DKV_BK", "DKV_BQ")
+    return {n: int(re.search(rf"constexpr int {n} = (\d+);", src).group(1)) for n in names}
+
+
+TILES = _kernel_tiles()
+DQ_KEY_TILES = (TILES["DQ_BK_D256"], TILES["DQ_BK"])  # d = 256; d = 64 / 128
+
+
+def _live(r0, rows, k0, bk, window, T):
+    """The forward's tile test (``_run_if_live``): some pair of rows
+    [r0, r0 + rows) and keys [k0, k0 + bk) is reachable by position; none
+    is when every row lies past T."""
+    return r0 < T and k0 <= r0 + rows - 1 and not (window > 0 and k0 + bk - 1 <= r0 - window)
+
+
+def dq_walk(T, window, bk):
+    """[(q0, [(k0, (live for warpgroup 0, live for warpgroup 1)), ...])]: the
+    key tiles each dq CTA walks, and which of its warpgroups do their math."""
+    bq, out = TILES["DQ_BQ"], []
+    for q0 in range(0, T, bq):
+        kt_hi = (min(q0 + bq, T) - 1) // bk
+        kt_lo = max(0, q0 - window + 1) // bk if window > 0 else 0
+        tiles = [(kt * bk, tuple(_live(q0 + w * WG_ROWS, WG_ROWS, kt * bk, bk, window, T) for w in range(bq // WG_ROWS)))
+                 for kt in range(kt_lo, kt_hi + 1)]
+        out.append((q0, tiles))
+    return out
+
+
+def dkv_walk(T, window):
+    """[(k0, [q0, ...])]: the query tiles each dk/dv CTA walks."""
+    bk, bq = TILES["DKV_BK"], TILES["DKV_BQ"]
+    nq = -(-T // bq)
+    out = []
+    for k0 in range(0, T, bk):
+        hi = min(nq - 1, (k0 + bk - 2 + window) // bq) if window > 0 else nq - 1
+        out.append((k0, [qt * bq for qt in range(k0 // bq, hi + 1)]))
+    return out
+
+
+def walk_bwd(q, k, v, kv_mask, o, lse, do, dlse, *, scale, window, dq_bk, skip=True):
+    """(dq, dk, dv) by the kernels' walks, tile by tile, f32 sums over
+    operands in the inputs' dtype, P and dS rounded to it. ``skip=False``
+    visits every tile of both walks (the skip must not change a bit)."""
+    b, T, h, d = q.shape
+    dt = q.dtype
+
+    def heads(x):
+        return x.float().permute(0, 2, 1, 3)  # [b, h, T, d]
+
+    qf, kf, vf, dof = heads(q), heads(k), heads(v), heads(do)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2) - dlse.float()  # [b, h, T]
+    lsef, km = lse.float(), kv_mask.float() > 0.5
+
+    def rnd(x):
+        return x.to(dt).float()
+
+    def tile(r0, nr, k0, nk):
+        """p and ds of query rows [r0, r0 + nr) and keys [k0, k0 + nk), both cut at T."""
+        rows, keys = torch.arange(r0, min(r0 + nr, T)), torch.arange(k0, min(k0 + nk, T))
+        s = qf[:, :, rows] @ kf[:, :, keys].transpose(-1, -2) * scale
+        reach = keys[None, :] <= rows[:, None]
+        if window > 0:
+            reach = reach & (keys[None, :] > rows[:, None] - window)
+        s = torch.where(reach[None, None] & km[:, None, None, keys], s, torch.full_like(s, flash_mod.MASK_VAL))
+        p = torch.exp(s - lsef[:, :, rows, None])
+        dp = dof[:, :, rows] @ vf[:, :, keys].transpose(-1, -2)
+        return rows, keys, p, p * (dp - delta[:, :, rows, None])
+
+    dq, dk, dv = (torch.zeros((b, h, T, d)) for _ in range(3))
+    for q0, tiles in dq_walk(T, window, dq_bk):
+        for w in range(TILES["DQ_BQ"] // WG_ROWS):
+            r0 = q0 + w * WG_ROWS
+            every = range(0, T, dq_bk) if r0 < T else ()
+            visits = [k0 for k0, live in tiles if live[w]] if skip else every
+            for k0 in visits:
+                rows, keys, _, ds = tile(r0, WG_ROWS, k0, dq_bk)
+                dq[:, :, rows] += rnd(ds) @ kf[:, :, keys]
+    for k0, q0s in dkv_walk(T, window):
+        for q0 in q0s if skip else range(0, T, TILES["DKV_BQ"]):
+            rows, keys, p, ds = tile(q0, TILES["DKV_BQ"], k0, TILES["DKV_BK"])
+            dv[:, :, keys] += rnd(p).transpose(-1, -2) @ dof[:, :, rows]
+            dk[:, :, keys] += rnd(ds).transpose(-1, -2) @ qf[:, :, rows]
+    return tuple(x.permute(0, 2, 1, 3).to(dt) for x in (dq * scale, dk * scale, dv))
+
+
+def _inputs(seed, T, d, pads, b=None, h=2):
+    """Seeded numpy q/k/v (f32), key mask with ``pads[i]`` left-padded slots
+    in row i, and cotangents that vanish on the padded rows."""
+    rng = np.random.default_rng(seed)
+    b = len(pads) if b is None else b
+    q, k, v = (rng.normal(size=(b, T, h, d)).astype(np.float32) for _ in range(3))
+    mask = np.ones((b, T), np.float32)
+    for i, p in enumerate(pads):
+        mask[i, :p] = 0.0
+    rows = mask.astype(bool)
+    do = (rng.normal(size=q.shape) * rows[:, :, None, None]).astype(np.float32)
+    dlse = (rng.normal(size=(b, h, T)) * rows[:, None, :]).astype(np.float32)
+    return q, k, v, mask, do, dlse
+
+
+def _torch_case(arrays, dtype):
+    q, k, v, mask, do, dlse = (torch.from_numpy(x) for x in arrays)
+    q, k, v, do = (x.to(dtype) for x in (q, k, v, do))
+    return q, k, v, mask, do, dlse
+
+
+def _plain_fwd(q, k, v, mask, scale, window):
+    return flash_mod.flash_attention_plain(q, k, v, mask, scale=scale, window=window, return_lse=True)
+
+
+# (T, window, left pads per row, dq key tile): T tails that are not multiples
+# of the tiles, windows across tile edges, left padding that empties whole key
+# tiles of a row (70 and 130 slots) and a fully masked row.
+CASES = [
+    (1, 0, (0, 0), 64),
+    (37, 0, (0, 11), 32),
+    (64, 0, (0, 64), 64),
+    (100, 0, (5, 70), 32),
+    (129, 48, (0, 70), 64),
+    (150, 33, (64, 0), 32),
+    (200, 5, (3, 130), 32),
+    (200, 70, (0, 0), 64),
+    (300, 100, (0, 130), 64),
+]
+CASE_IDS = [f"T{T}-w{w}-pad{p[0]}_{p[1]}-bk{bk}" for T, w, p, bk in CASES]
+
+
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("T,window,pads,dq_bk", CASES, ids=CASE_IDS)
+def test_walk_matches_plain_backward(T, window, pads, dq_bk, d):
+    """float32: the walk (with its skips) gives the plain backward's dq, dk,
+    dv to float32 summation order (TOL)."""
+    q, k, v, mask, do, dlse = _torch_case(_inputs(T + d, T, d, pads), torch.float32)
+    scale = d ** -0.5
+    o, lse = _plain_fwd(q, k, v, mask, scale, window)
+    got = walk_bwd(q, k, v, mask, o, lse, do, dlse, scale=scale, window=window, dq_bk=dq_bk)
+    ref = flash_mod.flash_attention_bwd_plain(q, k, v, mask, o, lse, do, dlse, scale=scale, window=window)
+    rows = mask.bool()
+    torch.testing.assert_close(got[0][rows], ref[0][rows], **TOL)
+    torch.testing.assert_close(got[1], ref[1], **TOL)
+    torch.testing.assert_close(got[2], ref[2], **TOL)
+
+
+@pytest.mark.parametrize("T,window,pads,dq_bk", [CASES[i] for i in (1, 3, 4, 6)],
+                         ids=[CASE_IDS[i] for i in (1, 3, 4, 6)])
+def test_walk_matches_pallas_vjp(T, window, pads, dq_bk):
+    """float32: the walk against the Pallas backward (interpret mode, one
+    block of T rows, so any T is legal) on the same inputs, to float32
+    summation order (TOL)."""
+    d = 16
+    arrays = _inputs(7 * T, T, d, pads)
+    q_np, k_np, v_np, mask_np, do_np, dlse_np = arrays
+    scale = 0.25
+
+    def f(q_, k_, v_):
+        return jax_flash_attention(q_, k_, v_, jnp.asarray(mask_np), scale=scale, causal=True, window=window,
+                                   block_q=T, block_k=T, interpret=True, return_lse=True)
+
+    _, vjp = jax.vjp(f, jnp.asarray(q_np), jnp.asarray(k_np), jnp.asarray(v_np))
+    ref = [np.asarray(x) for x in vjp((jnp.asarray(do_np), jnp.asarray(dlse_np)))]
+    q, k, v, mask, do, dlse = _torch_case(arrays, torch.float32)
+    o, lse = _plain_fwd(q, k, v, mask, scale, window)
+    got = walk_bwd(q, k, v, mask, o, lse, do, dlse, scale=scale, window=window, dq_bk=dq_bk)
+    rows = mask_np.astype(bool)
+    np.testing.assert_allclose(got[0].numpy()[rows], ref[0][rows], **TOL)
+    np.testing.assert_allclose(got[1].numpy(), ref[1], **TOL)
+    np.testing.assert_allclose(got[2].numpy(), ref[2], **TOL)
+
+
+@pytest.mark.parametrize("T,window,pads,dq_bk", [CASES[i] for i in (2, 3, 5, 7)],
+                         ids=[CASE_IDS[i] for i in (2, 3, 5, 7)])
+def test_walk_rounds_p_and_ds_like_the_plain_backward(T, window, pads, dq_bk):
+    """bf16 operands: P and dS rounded to bf16 before their products, as the
+    plain backward (and the TPU kernels) round them. The bf16 outputs agree
+    bit for bit but for at most 0.5% of their elements (a float32 sum in
+    another order flips a rounding), each within 2^-7 of max |ref| (one
+    output rounding on each side); without rounding P and dS, 10% or more of
+    the elements of dq and dk differ."""
+    d = 32
+    q, k, v, mask, do, dlse = _torch_case(_inputs(3 * T, T, d, pads), torch.bfloat16)
+    scale = d ** -0.5
+    o, lse = _plain_fwd(q, k, v, mask, scale, window)
+    ref = flash_mod.flash_attention_bwd_plain(q, k, v, mask, o, lse, do, dlse, scale=scale, window=window)
+    got = walk_bwd(q, k, v, mask, o, lse, do, dlse, scale=scale, window=window, dq_bk=dq_bk)
+    wide = [x.float() if x.dtype == torch.bfloat16 else x for x in (q, k, v, mask, o, lse, do, dlse)]
+    unrounded = [x.to(torch.bfloat16) for x in walk_bwd(*wide, scale=scale, window=window, dq_bk=dq_bk)]
+    rows = mask.bool()
+    for i, (g, u, r) in enumerate(zip(got, unrounded, ref)):
+        if i == 0:
+            g, u, r = g[rows], u[rows], r[rows]
+        assert float((g != r).float().mean()) <= 5e-3
+        assert float((g.float() - r.float()).abs().max()) <= 2.0 ** -7 * float(r.float().abs().max())
+        if i < 2:
+            assert float((u != r).float().mean()) >= 0.1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("T,window,pads,dq_bk", CASES, ids=CASE_IDS)
+def test_skipped_tiles_add_nothing(T, window, pads, dq_bk, dtype):
+    """The skips are exact: visiting every tile of both walks gives the same
+    bits (a skipped tile holds no reachable pair, so its p is 0 on the valid
+    rows, and the padded rows' dS is 0 with their zero cotangent)."""
+    q, k, v, mask, do, dlse = _torch_case(_inputs(5 * T, T, 16, pads), dtype)
+    o, lse = _plain_fwd(q, k, v, mask, 0.25, window)
+    args = (q, k, v, mask, o, lse, do, dlse)
+    walked = walk_bwd(*args, scale=0.25, window=window, dq_bk=dq_bk)
+    every = walk_bwd(*args, scale=0.25, window=window, dq_bk=dq_bk, skip=False)
+    for x, y in zip(walked, every):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("bk", sorted(set(DQ_KEY_TILES)))
+@pytest.mark.parametrize("window", [0, 1, 5, 48, 63, 64, 70, 130])
+@pytest.mark.parametrize("T", [1, 31, 64, 100, 129, 300])
+def test_walks_visit_every_reachable_pair_once(T, window, bk):
+    """Every (query, key) pair reachable by position is visited exactly once
+    by a dq warpgroup that does its math and exactly once by a dk/dv CTA;
+    every tile whose math runs holds a reachable pair and every tile a dq
+    warpgroup skips holds none; each dk/dv walk starts on its diagonal tile
+    and stops at the last query tile that still sees its keys."""
+    qi, kj = np.arange(T)[:, None], np.arange(T)[None, :]
+    reach = kj <= qi
+    if window > 0:
+        reach &= kj > qi - window
+    dq_seen = np.zeros((T, T), int)
+    for q0, tiles in dq_walk(T, window, bk):
+        for k0, live in tiles:
+            for w, lv in enumerate(live):
+                r0 = q0 + w * WG_ROWS
+                block = reach[r0:r0 + WG_ROWS, k0:k0 + bk]
+                assert lv == bool(block.any()), (q0, w, k0)
+                if lv:
+                    dq_seen[r0:r0 + WG_ROWS, k0:k0 + bk] += 1
+    assert (dq_seen[reach] == 1).all()
+    dkv_seen = np.zeros((T, T), int)
+    bkv, bq = TILES["DKV_BK"], TILES["DKV_BQ"]
+    for k0, q0s in dkv_walk(T, window):
+        assert q0s[0] <= k0 < q0s[0] + bq
+        for q0 in q0s:
+            assert reach[q0:q0 + bq, k0:k0 + bkv].any(), (k0, q0)
+            dkv_seen[q0:q0 + bq, k0:k0 + bkv] += 1
+        after = q0s[-1] + bq
+        assert after >= T or not reach[after:after + bq, k0:k0 + bkv].any()
+    assert (dkv_seen[reach] == 1).all()
+    assert dkv_seen.max() <= 1
+

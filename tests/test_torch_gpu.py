@@ -488,7 +488,31 @@ def _close(got, ref, rel):
     assert err <= rel * scale, (err, scale)
 
 
-@pytest.mark.parametrize("T,window,pads", [(128, 0, (0, 37)), (200, 0, (5, 0)), (256, 64, (0, 90)), (77, 8, (0, 30))])
+# (T, window, left pads per row): the first four cases as before; then the
+# TMA + wgmma kernels at the edges of their tiles (dq: 128 queries, 32 or 64
+# keys; dk/dv: 64 keys, 64 queries) and at the train lengths, with a
+# left-padded row and, at T > 1, a fully masked one (pad = T).
+_BWD_CASES = [(128, 0, (0, 37)), (200, 0, (5, 0)), (256, 64, (0, 90)), (77, 8, (0, 30))] + [
+    (T, window, (0, T // 3, T) if T > 1 else (0, 0)) for T in (1, 64, 127, 128, 200, 768, 1024) for window in (0, 48)
+]
+
+
+def _bwd_case(dev, seed, b, T, h, d, pads):
+    """Seeded q/k/v, a key mask with ``pads[i]`` left-padded slots in row i,
+    and dO / dlse cotangents on the valid rows only (padded query rows carry
+    none, as in the model: no later position reads them)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn((b, T, h, d), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+    mask = torch.ones((b, T), device=dev)
+    for i, p in enumerate(pads):
+        mask[i, :p] = 0
+    rows = mask.bool()
+    do = (torch.randn((b, T, h, d), generator=g, device=dev) * rows[:, :, None, None]).to(torch.bfloat16)
+    dlse = torch.randn((b, h, T), generator=g, device=dev) * rows[:, None, :]
+    return q, k, v, mask, do, dlse
+
+
+@pytest.mark.parametrize("T,window,pads", _BWD_CASES)
 @pytest.mark.parametrize("d", [64, 128, 256])
 def test_flash_bwd_kernels_match_plain(T, window, pads, d):
     """dq and dk/dv against the plain backward, with the lse cotangent on.
@@ -499,26 +523,88 @@ def test_flash_bwd_kernels_match_plain(T, window, pads, d):
         flash_attention_bwd, flash_attention_bwd_plain, flash_bwd_dkv, flash_bwd_dq, flash_fwd,
     )
 
-    g = torch.Generator(device=dev).manual_seed(4)
-    b, h, scale = 2, 4, d ** -0.5
-    q, k, v = (torch.randn((b, T, h, d), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
-    mask = torch.ones((b, T), device=dev)
-    for i, p in enumerate(pads):
-        mask[i, :p] = 0
+    b, h, scale = len(pads), 4, d ** -0.5
+    q, k, v, mask, do, dlse = _bwd_case(dev, 4, b, T, h, d, pads)
     rows = mask.bool()
     o, lse = flash_fwd(q, k, v, mask, scale=scale, window=window)
-    do = (torch.randn((b, T, h, d), generator=g, device=dev) * rows[:, :, None, None]).to(torch.bfloat16)
-    dlse = torch.randn((b, h, T), generator=g, device=dev) * rows[:, None, :]
     n_dq, n_dkv = flash_bwd_dq.launches, flash_bwd_dkv.launches
     dq, dk, dv = flash_attention_bwd(q, k, v, mask, o, lse, do, dlse, scale=scale, window=window)
     torch.cuda.synchronize()
     assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == (n_dq + 1, n_dkv + 1)
     rq, rk, rv = flash_attention_bwd_plain(q, k, v, mask, o, lse, do, dlse, scale=scale, window=window)
     # bf16 outputs and bf16 P / dS in the products on both sides; the sums
-    # run in another order (64-wide tiles vs one einsum).
-    _close(dq[rows], rq[rows], 2e-2)
+    # run in another order (tiles vs one einsum).
+    if rows.any():
+        _close(dq[rows], rq[rows], 2e-2)
     _close(dk, rk, 2e-2)
     _close(dv, rv, 2e-2)
+
+
+@pytest.mark.parametrize("window", [48, 100])
+@pytest.mark.parametrize("d", [64, 256])
+def test_flash_bwd_window_ring_is_stable(d, window):
+    """The backward twin of ``test_flash_fwd_window_ring_is_stable``: with a
+    window, a dq consumer warpgroup skips the math of the key tiles its 64
+    rows cannot reach and later reuses their ring stage, and the dk/dv walks
+    start and end at different query tiles per key tile. Many tiles and 16
+    repeats over a large grid; every repeat is bit-equal to the first, which
+    matches the plain backward."""
+    dev = _cuda()
+    from trlx_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_bwd_plain, flash_fwd
+
+    b, T, h = 4, 2048, 8
+    q, k, v, mask, do, dlse = _bwd_case(dev, 15, b, T, h, d, (0, 300))
+    scale = d ** -0.5
+    o, lse = flash_fwd(q, k, v, mask, scale=scale, window=window)
+    first = flash_attention_bwd(q, k, v, mask, o, lse, do, dlse, scale=scale, window=window)
+    for _ in range(16):
+        again = flash_attention_bwd(q, k, v, mask, o, lse, do, dlse, scale=scale, window=window)
+        assert all(torch.equal(x, y) for x, y in zip(again, first))
+    ref = flash_attention_bwd_plain(q, k, v, mask, o, lse, do, dlse, scale=scale, window=window)
+    rows = mask.bool()
+    _close(first[0][rows], ref[0][rows], 2e-2)
+    _close(first[1], ref[1], 2e-2)
+    _close(first[2], ref[2], 2e-2)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_bwd_is_deterministic(d):
+    """No atomics: two calls on the same inputs give bit-equal dq, dk, dv."""
+    dev = _cuda()
+    from trlx_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_fwd
+
+    q, k, v, mask, do, dlse = _bwd_case(dev, 16, 2, 1024, 4, d, (0, 200))
+    o, lse = flash_fwd(q, k, v, mask, scale=d ** -0.5)
+    first = flash_attention_bwd(q, k, v, mask, o, lse, do, dlse, scale=d ** -0.5)
+    second = flash_attention_bwd(q, k, v, mask, o, lse, do, dlse, scale=d ** -0.5)
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("window", [0, 48], ids=["causal", "window48"])
+def test_flash_bwd_strided_inputs(window):
+    """q/k/v as views of one fused [b, T, 3, h, d] projection (strided rows,
+    as the model passes them) through ``FlashAttentionFn``: the gradient of
+    the fused tensor against the plain backward."""
+    dev = _cuda()
+    from trlx_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd_plain
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    b, T, h, d = 2, 300, 4, 128
+    qkv = torch.randn((b, T, 3, h, d), generator=g, device=dev).to(torch.bfloat16).requires_grad_()
+    mask = torch.ones((b, T), device=dev)
+    mask[1, :40] = 0
+    rows = mask.bool()
+    do = (torch.randn((b, T, h, d), generator=g, device=dev) * rows[:, :, None, None]).to(torch.bfloat16)
+    dlse = torch.randn((b, h, T), generator=g, device=dev) * rows[:, None, :]
+    q, k, v = qkv.unbind(2)
+    o, lse = flash_attention(q, k, v, mask, scale=d ** -0.5, window=window, return_lse=True)
+    (dqkv,) = torch.autograd.grad((o, lse), (qkv,), (do, dlse))
+    rq, rk, rv = flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(), mask, o.detach(), lse.detach(), do,
+                                           dlse, scale=d ** -0.5, window=window)
+    _close(dqkv[:, :, 0][rows], rq[rows], 2e-2)
+    _close(dqkv[:, :, 1], rk, 2e-2)
+    _close(dqkv[:, :, 2], rv, 2e-2)
 
 
 @pytest.mark.parametrize("tied,bias,wdtype", [(False, True, torch.float32), (False, False, torch.bfloat16),
