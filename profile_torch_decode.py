@@ -14,7 +14,8 @@ response:
   kernel time less the short run's, over the extra steps, is the kernel
   time of one decode step, prefill excluded.
 
-The kernel time of a step over the median unprofiled step time is the share
+The same difference, by kernel class (``KERNEL_CLASSES``), splits the step's
+kernel time. The kernel time of a step over the median unprofiled step time is the share
 of the step the card is busy; the rest it waits for the host to launch work.
 The host shares its CPU cores with other work, so the unprofiled step time
 is read several times.
@@ -64,7 +65,7 @@ KERNEL_CLASSES = (
     ("gemm (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass")),
     ("flash fwd", ("flash_fwd_kernel",)),
     ("flash bwd", ("flash_bwd_",)),
-    ("fused logprob fwd", ("logprob_partial_kernel", "logprob_combine_kernel")),
+    ("fused logprob fwd", ("logprob_fwd_kernel", "logprob_combine_kernel")),
     ("fused logprob bwd", ("logprob_ds_kernel", "logprob_dx_kernel", "logprob_dw_kernel", "logprob_db_kernel")),
     ("bf16 casts", ("bfloat16_copy_kernel",)),
     ("decode attention", ("decode_split_kernel", "decode_merge_kernel")),
@@ -210,6 +211,7 @@ def main():
     prof_step_s, long_k = kernels(LONG, 2 + REPEATS)
 
     kernel_ms = (total_us(long_k) - total_us(short_k)) / 1e3 / (LONG - SHORT)
+    short_cls = kernel_classes(short_k, 1)
     top = top_kernels(long_k)
     out = {
         "device": smi, "layers": chip_smoke.GPTJ_6B_ARCH["n_layer"], "batch": chip_smoke.CHUNK,
@@ -221,6 +223,8 @@ def main():
         "device_busy_share": kernel_ms / (step_s * 1e3),
         "device_busy_share_profiled": kernel_ms / (prof_step_s * 1e3),
         "long_run_kernel_ms": total_us(long_k) / 1e3,
+        "kernel_ms_per_step_by_class": {
+            c: (ms - short_cls.get(c, 0.0)) / (LONG - SHORT) for c, ms in kernel_classes(long_k, 1).items()},
         "top_kernels_long_run": top,
     }
     print(json.dumps(out))

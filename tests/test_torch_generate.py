@@ -141,3 +141,137 @@ def test_logit_processors_match():
     ref = np.asarray(jax_bigram(jnp.asarray(lm))(jnp.asarray(logits), {"last_token": jnp.asarray(last)}))
     got = make_bigram_mask_processor(lm)(torch.from_numpy(logits), {"last_token": torch.from_numpy(last)}).numpy()
     np.testing.assert_array_equal(got, ref)
+
+
+# ---------------------------------------------------------------------------
+# Compute-dtype weight copies (lm.frozen_copy): cast once per weight version
+# where no gradient flows, with outputs bit-equal to the per-call cast.
+# ---------------------------------------------------------------------------
+
+BF16_ARCH = dict(ARCH, dtype="bfloat16", param_dtype="float32")
+
+
+def _bf16_model(tied: bool, unfrozen: int, seed: int = 0, remat: bool = False):
+    """A bf16-compute model over f32 masters, seeded; the bottom blocks
+    frozen as the trainer freezes them (``trainable_mask``)."""
+    from trlx_tpu_torch.models.heads import trainable_mask
+    from trlx_tpu_torch.models.hf_import import init_params
+
+    arch = dict(BF16_ARCH, tie_word_embeddings=tied, extra={} if tied else {"lm_head_bias": True}, remat=remat)
+    cfg = LMConfig.from_dict(arch)
+    model = LMWithValueHead(cfg, branch_layer=cfg.n_layer - unfrozen, device="cpu")
+    init_params(model, torch.Generator().manual_seed(seed))
+    keep = trainable_mask(model, cfg, unfrozen)
+    for name, p in model.named_parameters():
+        p.requires_grad_(name in keep)
+    return model
+
+
+def _no_weight_cache(monkeypatch):
+    """Every weight cast per call, as before the cache."""
+    from trlx_tpu_torch.models import lm as lm_mod
+
+    monkeypatch.setattr(lm_mod, "frozen_copy", lambda w, dtype: None)
+
+
+def _greedy(model, ids, pmask):
+    gcfg = GenerateConfig.from_gen_kwargs(dict(max_new_tokens=6, do_sample=False), prompt_len=ids.shape[1])
+    with torch.no_grad():
+        return make_generate_fn(model, gcfg, step_stats_fn=_stats_fn_torch, carry_keys=("values", "branch_hidden"),
+                                apply_kwargs={"collect_branch_hidden": True})(ids, pmask, None)
+
+
+def _prompts(seed=2, B=3, P=9):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(1, V, size=(B, P)).astype(np.int32)
+    pmask = np.ones((B, P), dtype=np.int32)
+    pmask[1, :4] = 0
+    ids[1, :4] = 0
+    return torch.from_numpy(ids), torch.from_numpy(pmask)
+
+
+@pytest.mark.parametrize("tied", [False, True], ids=["untied", "tied"])
+def test_weight_cache_greedy_bit_equal(tied, monkeypatch):
+    """Greedy tokens, logprobs, values and the full-pass logits with the
+    cached bf16 copies equal, bit for bit, those of the per-call cast; the
+    copies are made once and reused while the weights do not change."""
+    model = _bf16_model(tied, unfrozen=1)
+    ids, pmask = _prompts()
+    with_cache = _greedy(model, ids, pmask)
+    q = model.transformer.h_0.attn.q_proj.kernel
+    held = q._frozen_copy[1]
+    assert held.dtype == torch.bfloat16
+    with torch.no_grad():
+        logits = model(ids, pmask)["logits"]
+    assert q._frozen_copy[1] is held  # not cast again
+    monkeypatch.setattr(q, "_frozen_copy", None)
+    _no_weight_cache(monkeypatch)
+    without = _greedy(model, ids, pmask)
+    with torch.no_grad():
+        ref_logits = model(ids, pmask)["logits"]
+    assert q._frozen_copy is None
+    assert torch.equal(logits, ref_logits)
+    for a, b in zip(with_cache[:2], without[:2]):
+        assert torch.equal(a, b)
+    for key in ("logprob", "value", "branch_hidden"):
+        assert torch.equal(with_cache[2][key], without[2][key]), key
+
+
+def _ppo_like_loss(model, ids, pmask):
+    """A loss through the whole model: the fused head's label logprobs (and
+    entropy) of the response and the value head."""
+    P = 5
+    out = model(ids, pmask, logits_start=P - 1, labels=ids[:, P:], labels_mask=pmask[:, P:])
+    return -(out["logprobs"].sum() + 0.1 * out["entropy"].sum()) + out["values"].float().pow(2).sum()
+
+
+def test_weight_cache_refreshed_after_optimizer_step():
+    """After one ClippedAdamW step, a no-grad pass equals a fresh module's
+    on the updated weights: the step bumps each trained weight's version,
+    which drops its stale copy."""
+    from trlx_tpu_torch.trainer.base import ClippedAdamW
+
+    model = _bf16_model(tied=False, unfrozen=1)
+    ids, pmask = _prompts()
+    with torch.no_grad():
+        before = model(ids, pmask)["logits"]  # caches every weight, trained ones too
+    params = [p for p in model.parameters() if p.requires_grad]
+    grads = torch.autograd.grad(_ppo_like_loss(model, ids, pmask), params)
+    opt = ClippedAdamW(params, lambda k: 1e-2, 0.9, 0.95, 1e-6, 1.0)
+    opt.step(params, grads)
+    with torch.no_grad():
+        after = model(ids, pmask)["logits"]
+    fresh = _bf16_model(tied=False, unfrozen=1, seed=1)
+    fresh.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        ref = fresh(ids, pmask)["logits"]
+    assert not torch.equal(after, before)
+    assert torch.equal(after, ref)
+
+
+@pytest.mark.parametrize("tied,remat", [(False, False), (True, False), (False, True)],
+                         ids=["untied", "tied", "untied-remat"])
+def test_weight_cache_train_step_grads_unchanged(tied, remat, monkeypatch):
+    """The gradients of a train step, with grad mode on: the frozen blocks
+    take their cached copies (in the remat recompute too) and still pass the
+    gradient through to the embeddings below them; the trained blocks and
+    head take the differentiable per-call cast. Every gradient equals the
+    uncached run's, bit for bit."""
+    ids, pmask = _prompts(seed=4)
+
+    def grads():
+        model = _bf16_model(tied, unfrozen=1, remat=remat)
+        names = [n for n, p in model.named_parameters() if p.requires_grad]
+        loss = _ppo_like_loss(model, ids, pmask)
+        loss2 = _ppo_like_loss(model, ids, pmask)  # a second pass reuses the frozen copies
+        return names, torch.autograd.grad(loss + loss2, [p for p in model.parameters() if p.requires_grad]), model
+
+    names, cached, model = grads()
+    frozen = model.transformer.h_0.mlp.c_fc.kernel
+    assert not frozen.requires_grad and frozen._frozen_copy is not None
+    assert getattr(model.transformer.h_2.mlp.c_fc.kernel, "_frozen_copy", None) is None  # trained: per call
+    _no_weight_cache(monkeypatch)
+    names2, plain, _ = grads()
+    assert names == names2 and "transformer.wte.embedding" in names
+    for n, a, b in zip(names, cached, plain):
+        assert torch.equal(a, b), n

@@ -458,7 +458,7 @@ def test_engine_on_the_card_matches_the_cpu_engine(paged, quant):
 
 @pytest.mark.parametrize("tied,bias,wdtype", [(False, True, torch.float32), (False, False, torch.bfloat16),
                                               (True, False, torch.float32)])
-@pytest.mark.parametrize("N,V", [(50, 1000), (300, 4097)])
+@pytest.mark.parametrize("N,V", [(50, 1000), (300, 4097), (300, 50257), (300, 50400)])
 def test_fused_logprob_kernel_matches_plain(tied, bias, wdtype, N, V):
     dev = _cuda()
     from trlx_tpu_torch.ops.fused_logprob import fused_logprob, fused_logprob_fwd, naive_logprob
@@ -609,13 +609,14 @@ def test_flash_bwd_strided_inputs(window):
 
 @pytest.mark.parametrize("tied,bias,wdtype", [(False, True, torch.float32), (False, False, torch.bfloat16),
                                               (True, False, torch.float32), (True, True, torch.float32)])
-@pytest.mark.parametrize("N,V", [(50, 1000), (1300, 4097)])
+@pytest.mark.parametrize("N,V", [(50, 1000), (1300, 4097), (300, 50257), (300, 50400)])
 def test_fused_logprob_bwd_kernels_match_plain(tied, bias, wdtype, N, V):
     """dx, dW and db against the plain backward with all three cotangents:
     ragged N (1300 rows are two chunks of 1024), V not a multiple of the
-    128-wide tile, logits spread as a trained head's (std ~3.5). dW and db
-    are also held on the columns no label hits, where ds is only the small
-    softmax terms."""
+    256-wide tile (nor of 8 at 4097 and 50257: the weight's rows then need
+    the padded copy for TMA), logits spread as a trained head's (std ~3.5).
+    dW and db are also held on the columns no label hits, where ds is only
+    the small softmax terms."""
     dev = _cuda()
     from trlx_tpu_torch.ops.fused_logprob import (
         BWD_CHUNK_ROWS, fused_logprob_bwd, fused_logprob_bwd_dw, fused_logprob_bwd_dx, fused_logprob_bwd_plain,
@@ -650,6 +651,30 @@ def test_fused_logprob_bwd_kernels_match_plain(tied, bias, wdtype, N, V):
     _close(dw[unhit] if tied else dw[:, unhit], rdw[unhit] if tied else rdw[:, unhit], 1e-2)
     if bias:
         _close(db[unhit], rdb[unhit], 1e-3)
+
+
+@pytest.mark.parametrize("tied", [False, True], ids=["untied", "tied"])
+def test_fused_logprob_bwd_second_call_bit_equal(tied):
+    """No atomics: a second backward call on the same inputs gives the same
+    bits, over two chunks and a vocabulary tail, with the f32 weight cast by
+    the wrapper and with the forward's bf16 copy handed in."""
+    dev = _cuda()
+    from trlx_tpu_torch.ops.fused_logprob import fused_logprob_bwd, fused_logprob_fwd, kernel_weight
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    N, D, V = 1300, 256, 50257
+    x = torch.randn((N, D), generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn((V, D) if tied else (D, V), generator=g, device=dev) * (3.5 * D ** -0.5)
+    b = torch.randn((V,), generator=g, device=dev) * 0.1
+    y = torch.randint(0, V, (N,), generator=g, device=dev)
+    _, lse, ent = fused_logprob_fwd(x, w, y, b, tied=tied)
+    cts = [torch.randn((N,), generator=g, device=dev) for _ in range(3)]
+    first = fused_logprob_bwd(x, w, b, y, lse, ent, *cts, tied=tied)
+    again = fused_logprob_bwd(x, w, b, y, lse, ent, *cts, tied=tied)
+    handed = fused_logprob_bwd(x, w, b, y, lse, ent, *cts, tied=tied, wk=kernel_weight(w))
+    torch.cuda.synchronize()
+    for a, c, h in zip(first, again, handed):
+        assert torch.equal(a, c) and torch.equal(a, h)
 
 
 def test_wrappers_raise_instead_of_falling_back():

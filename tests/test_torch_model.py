@@ -2,9 +2,11 @@
 (``params_from_jax`` of a JAX init) and the same numpy inputs, in float32:
 logits, values and the branch hidden states of a full pass, the hydra
 branch replay through the fused head, and prefill followed by cache decode
-steps. Three layouts: GPT-J-style (interleaved rotary, parallel residual,
+steps. Four layouts: GPT-J-style (interleaved rotary, parallel residual,
 untied head with bias), GPT-2-style (learned positions, fused qkv, tied
-head) and NeoX-style (half-split rotary, two LNs in the parallel block).
+head), NeoX-style (half-split rotary, two LNs in the parallel block) and
+GPT-Neo-style (alternating global and local attention layers with a window
+shorter than the sequence, unscaled scores).
 
 Only mask-1 positions are compared: a left-pad query row has every key
 masked, and what it attends to differs between attention paths.
@@ -47,6 +49,15 @@ FAMILIES = {
         vocab_size=61, n_layer=2, n_head=4, d_model=32, d_ff=48, max_position=64, pos_type="rotary", rotary_dim=4,
         parallel_residual=True, use_parallel_ln=True, fused_qkv=True, qkv_bias=True, tie_word_embeddings=False,
         activation="gelu", extra={"neox_rotary": True},
+    ),
+    # GPT-Neo: learned positions, sequential residual, q/k/v without bias,
+    # tied head, no 1/sqrt(head_dim) scaling, global and local layers in
+    # turn; the window (5) is shorter than the 12-token prompt plus 5 steps.
+    "neo": dict(
+        vocab_size=61, n_layer=3, n_head=4, d_model=32, max_position=64, pos_type="learned",
+        parallel_residual=False, fused_qkv=False, qkv_bias=False, out_bias=True, scale_attn=False,
+        attention_layers=("global", "local", "global"), window_size=5, tie_word_embeddings=True,
+        activation="gelu_new",
     ),
 }
 

@@ -12,122 +12,97 @@
 //
 // What bounds it on an H100: at N = 2048, D = 4096, V = 50400 the least work
 // is one recompute of s plus dx plus dW, 3 * 2NDV = 2.54e12 flops (2.57 ms at
-// the bf16 peak), against ~1.65 GB of W in and dW out (0.49 ms): the tensor
+// the bf16 peak), against ~1.2 GB of W in and dW out (0.37 ms): the tensor
 // cores bound it. The TPU kernels keep a [128, D] dx accumulator and a
 // [D, 256] dW accumulator in VMEM (2 MB and 4 MB); an SM has 228 KB of
 // shared memory, and splitting D instead would recompute s D/bd times. So the
 // work is cut along N instead. The wrapper walks N in chunks of C rows (C =
-// 1024: a bf16 [C, V] ds buffer of ~103 MB, never a full [N, V] one), and per
-// chunk launches
-//   1. the ds kernel: one CTA per (128-row tile, 128-column vocabulary tile),
-//      full-D reduction as in the forward, f32 W converted to bf16 on load,
-//      bias added in f32; writes ds in bf16 (zero past V) and the tile's f32
-//      column sums of ds (for db, merged later in a fixed order);
-//   2. the dx kernel: dx[C, D] = ds . W^T, a tiled mma.sync product reducing
-//      over V, W converted to bf16 on load and zeroed past V;
-//   3. the dW kernel (a separate C entry): dW += x^T . ds, a tiled product
-//      reducing over the chunk's rows, read-modify-write of the f32 dW in
-//      device memory once per chunk (the first chunk stores). After the last
-//      chunk one small kernel sums the column partials into db.
-// s is computed once: 3 * 2NDV in all, against the TPU decomposition's 4.
-// Every sum has a fixed order (no atomics), so the result is deterministic.
+// 1024: a bf16 [C, ldv] ds buffer of ~103 MB, never a full [N, V] one), and
+// per chunk launches
+//   1. the ds kernel: the GEMM mainloop of logprob_gemm.cuh (TMA ring +
+//      wgmma, warp-specialised) over x . W, grid = 128-row tiles x V splits
+//      (one CTA per SM), each CTA walking its split's 256-column tiles; the
+//      epilogue adds the bias in f32, forms ds in f32 on the accumulator
+//      fragment, writes it in bf16 (zero past V and for rows past the
+//      chunk's) and the tile's f32 column sums of ds (for db, merged later
+//      in a fixed order);
+//   2. the dx kernel: dx[C, D] = ds . W^T on the same mainloop, one CTA per
+//      128 x 256 output tile (128 CTAs at C = 1024, D = 4096: one wave),
+//      each reducing over the whole vocabulary with ds and W by TMA;
+//   3. the dW kernel (a separate C entry): dW += x^T . ds, a tiled mma.sync
+//      product reducing over the chunk's rows, read-modify-write of the f32
+//      dW in device memory once per chunk (the first chunk stores). After
+//      the last chunk one small kernel sums the column partials into db.
+// W comes in bf16 (the wrapper's one cast of an f32 master, or the
+// forward's copy), its rows 16-byte aligned for TMA. s is computed once:
+// 3 * 2NDV in all, against the TPU decomposition's 4. Every sum has a fixed
+// order (no atomics), so two calls give the same bits.
 
-#include "common.cuh"
+#include "logprob_gemm.cuh"
 
 namespace {
 
-constexpr int BM = 128;  // rows (or output rows) per CTA
-constexpr int BN = 128;  // columns per CTA
-constexpr int BKC = 64;  // reduction chunk of the ds and dx kernels
-constexpr int BKW = 32;  // reduction chunk (rows) of the dW kernel
+// The dW kernel's tiles (mma.sync, 8 warps).
+constexpr int BM = 128;  // output rows per CTA
+constexpr int BN = 128;  // output columns per CTA
+constexpr int BKW = 32;  // reduction chunk (rows)
 constexpr int NTHREADS = 256;
-constexpr int LDS = BKC + 8;
-
-__device__ __forceinline__ __nv_bfloat16 to_bf16(float v) { return __float2bfloat16(v); }
-__device__ __forceinline__ __nv_bfloat16 to_bf16(__nv_bfloat16 v) { return v; }
+constexpr int DS_LD = 128;  // ds rows are padded to a multiple of this (ldv)
+constexpr int BAR_COLSUM = 1;  // named barrier of the ds kernel's column sums
 
 struct DsParams {
-  const __nv_bfloat16* x;  // [rows, D] (the chunk)
-  const void* w;           // [D, V] (untied) or [V, D] (tied)
-  const float* bias;       // [V] or null
-  const int* labels;       // [rows]
+  const float* bias;                           // [V] or null
+  const int* labels;                           // [rows]
   const float *lse, *ent, *dlp, *dlse, *dent;  // [rows]
-  __nv_bfloat16* ds;       // [C, ldv]
-  float* dbpart;           // [ceil(rows / BM), V] (this chunk's row tiles) or null
-  __nv_bfloat16* dx;       // [rows, D]
-  int rows, D, V, ldv;
+  __nv_bfloat16* ds;                           // [C, ldv]
+  float* dbpart;                               // [ceil(rows / 128), V] (this chunk's row tiles) or null
+  __nv_bfloat16* dx;                           // [rows, D]
+  int rows, D, V, ldv, tiles_per_split;
 };
-
-// Acc[16 rows per warp x 128 cols] += A[BM x BKC] . B^T, with A = As rows and
-// B = Bs rows (both [row][k] in shared memory).
-__device__ __forceinline__ void tile_mma(float (&acc)[BN / 8][4], const __nv_bfloat16* As,
-                                         const __nv_bfloat16* Bs, int warp, int g, int t) {
-  const __nv_bfloat16* ar0 = As + (warp * 16 + g) * LDS;
-  const __nv_bfloat16* ar1 = ar0 + 8 * LDS;
-#pragma unroll
-  for (int ks = 0; ks < BKC / 16; ++ks) {
-    const int c = ks * 16 + 2 * t;
-    uint32_t a[4];
-    a[0] = *reinterpret_cast<const uint32_t*>(ar0 + c);
-    a[1] = *reinterpret_cast<const uint32_t*>(ar1 + c);
-    a[2] = *reinterpret_cast<const uint32_t*>(ar0 + c + 8);
-    a[3] = *reinterpret_cast<const uint32_t*>(ar1 + c + 8);
-#pragma unroll
-    for (int nb = 0; nb < BN / 8; ++nb) {
-      const __nv_bfloat16* br = Bs + (nb * 8 + g) * LDS;
-      uint32_t b[2];
-      b[0] = *reinterpret_cast<const uint32_t*>(br + c);
-      b[1] = *reinterpret_cast<const uint32_t*>(br + c + 8);
-      mma_bf16_16816(acc[nb], a, b);
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // 1. ds (and the column partials of db)
 // ---------------------------------------------------------------------------
 
-template <typename WT, bool TIED>
-__global__ void __launch_bounds__(NTHREADS) logprob_ds_kernel(DsParams p) {
-  __shared__ __align__(16) __nv_bfloat16 Xs[BM * LDS];
-  __shared__ __align__(16) __nv_bfloat16 Wt[BN * LDS];  // [vocab col][k]
-  __shared__ float colsum[NTHREADS / 32][BN];
+// Shared memory past the ring: two [8 warps][256] f32 column-sum buffers,
+// used by alternate tiles, so one named barrier a tile orders their reuse.
+constexpr int DS_COLSUM = GEMM_SMEM_BYTES;
+constexpr int DS_SMEM_BYTES = DS_COLSUM + 2 * 8 * GEMM_BN * 4;
 
-  const int row_tile = blockIdx.x, vt = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int N = p.rows, D = p.D, V = p.V;
-  const int i0 = row_tile * BM, v0 = vt * BN;
-  const WT* W = static_cast<const WT*>(p.w);
+template <bool TIED>
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+    logprob_ds_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw, DsParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align_1024(smem_raw);
+  const GemmRing ring{smem_u32(sm)};
+  float* colsum = reinterpret_cast<float*>(sm + DS_COLSUM);
+  const int row_tile = blockIdx.x, split = blockIdx.y;
+  const int N = p.rows, V = p.V;
+  const int m0 = row_tile * GEMM_BM;
+  const int n_vt = (V + GEMM_BN - 1) / GEMM_BN;
+  const int vt_lo = split * p.tiles_per_split;
+  const int vt_hi = min(vt_lo + p.tiles_per_split, n_vt);
+  const int nk = p.D / GEMM_BK;
 
-  float s[BN / 8][4];
-#pragma unroll
-  for (int nb = 0; nb < BN / 8; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
-  for (int k0 = 0; k0 < D; k0 += BKC) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < BM * (BKC / 8); i += NTHREADS) {
-      const int r = i / (BKC / 8), c = (i % (BKC / 8)) * 8;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (i0 + r < N) val = *reinterpret_cast<const uint4*>(p.x + (size_t)(i0 + r) * D + k0 + c);
-      *reinterpret_cast<uint4*>(Xs + r * LDS + c) = val;
-    }
-    if (TIED) {
-      for (int i = threadIdx.x; i < BN * BKC; i += NTHREADS) {
-        const int nn = i / BKC, kk = i % BKC, col = v0 + nn;
-        Wt[nn * LDS + kk] = col < V ? to_bf16(W[(size_t)col * D + k0 + kk]) : __float2bfloat16(0.f);
-      }
-    } else {
-      for (int i = threadIdx.x; i < BN * BKC; i += NTHREADS) {
-        const int kk = i / BN, nn = i % BN, col = v0 + nn;
-        Wt[nn * LDS + kk] = col < V ? to_bf16(W[(size_t)(k0 + kk) * V + col]) : __float2bfloat16(0.f);
-      }
-    }
-    __syncthreads();
-    tile_mma(s, Xs, Wt, warp, g, t);
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) gemm_produce<TIED>(ring, &tx, &tw, m0, vt_lo, vt_hi, nk);
+    return;
   }
 
-  // Epilogue: ds per element, written in bf16; column sums in f32.
-  const int row0 = i0 + warp * 16 + g, row1 = row0 + 8;
+  // ---- consumers ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int cw = wg - 1;
+  const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int cwarp = cw * 4 + warp;  // 0..7: the warp's 16 rows of the tile
+  const int tid = threadIdx.x - 128;  // 0..255
+  const int row0 = m0 + cwarp * 16 + g, row1 = row0 + 8;
   float lse[2], E[2], dlp[2], dlse[2], dent[2];
   int y[2];
 #pragma unroll
@@ -141,47 +116,55 @@ __global__ void __launch_bounds__(NTHREADS) logprob_ds_kernel(DsParams p) {
     dent[r] = in ? p.dent[row] : 0.f;
     y[r] = in ? p.labels[row] : -1;
   }
+  const bool in0 = row0 < N, in1 = row1 < N;
+
+  float acc[GEMM_NACC];
+  uint32_t it = 0;
+  for (int vt = vt_lo; vt < vt_hi; ++vt) {
+    gemm_tile<TIED>(ring, acc, cw, nk, it);
+    const int v0 = vt * GEMM_BN;
+    float* cs_buf = colsum + ((vt - vt_lo) & 1) * 8 * GEMM_BN;
 #pragma unroll
-  for (int nb = 0; nb < BN / 8; ++nb) {
-    float cs[2] = {0.f, 0.f};
+    for (int j = 0; j < GEMM_BN / 8; ++j) {
+      const int c0 = v0 + 8 * j + 2 * t4;
+      float cs[2] = {0.f, 0.f};
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = e >> 1;
-      const int col = v0 + nb * 8 + 2 * t + (e & 1);
-      float dsv = 0.f;
-      if (col < V && (r ? row1 : row0) < N) {
-        const float sv = s[nb][e] + (p.bias != nullptr ? p.bias[col] : 0.f);
-        const float pv = expf(sv - lse[r]);
-        const float hit = col == y[r] ? 1.f : 0.f;
-        dsv = dlp[r] * (hit - pv) + dlse[r] * pv - dent[r] * pv * (sv - E[r]);
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, col = c0 + (e & 1);
+        float dsv = 0.f;
+        if (col < V && (r ? in1 : in0)) {
+          const float sv = acc[4 * j + e] + (p.bias != nullptr ? __ldg(p.bias + col) : 0.f);
+          const float pv = expf(sv - lse[r]);
+          const float hit = col == y[r] ? 1.f : 0.f;
+          dsv = dlp[r] * (hit - pv) + dlse[r] * pv - dent[r] * pv * (sv - E[r]);
+        }
+        acc[4 * j + e] = dsv;
+        cs[e & 1] += dsv;
       }
-      s[nb][e] = dsv;
-      cs[e & 1] += dsv;
+      // Every row of the tile is written (zeros past the chunk's rows and
+      // past V), up to ldv: the dx and dW kernels then read no garbage.
+      if (c0 < p.ldv) {
+        *reinterpret_cast<uint32_t*>(p.ds + (size_t)row0 * p.ldv + c0) = pack_bf16(acc[4 * j], acc[4 * j + 1]);
+        *reinterpret_cast<uint32_t*>(p.ds + (size_t)row1 * p.ldv + c0) = pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+      }
+      if (p.dbpart != nullptr) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float v = cs[h];
+          v += __shfl_xor_sync(0xffffffffu, v, 4);
+          v += __shfl_xor_sync(0xffffffffu, v, 8);
+          v += __shfl_xor_sync(0xffffffffu, v, 16);
+          if (g == 0) cs_buf[cwarp * GEMM_BN + 8 * j + 2 * t4 + h] = v;
+        }
+      }
     }
-    // Rows past the chunk's valid rows are written as zeros (the dx and dW
-    // kernels then read no garbage).
-    const int col = v0 + nb * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(p.ds + (size_t)(i0 + warp * 16 + g) * p.ldv + col) = pack_bf16(s[nb][0], s[nb][1]);
-    *reinterpret_cast<uint32_t*>(p.ds + (size_t)(i0 + warp * 16 + g + 8) * p.ldv + col) =
-        pack_bf16(s[nb][2], s[nb][3]);
     if (p.dbpart != nullptr) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        float v = cs[j];
-        v += __shfl_xor_sync(0xffffffffu, v, 4);
-        v += __shfl_xor_sync(0xffffffffu, v, 8);
-        v += __shfl_xor_sync(0xffffffffu, v, 16);
-        if (g == 0) colsum[warp][nb * 8 + 2 * t + j] = v;
-      }
-    }
-  }
-  if (p.dbpart != nullptr) {
-    __syncthreads();
-    if (threadIdx.x < BN) {
+      // The 8 warps' sums of column tid, in warp order.
+      named_sync(BAR_COLSUM, 256);
       float v = 0.f;
 #pragma unroll
-      for (int w = 0; w < NTHREADS / 32; ++w) v += colsum[w][threadIdx.x];
-      const int col = v0 + threadIdx.x;
+      for (int w = 0; w < 8; ++w) v += cs_buf[w * GEMM_BN + tid];
+      const int col = v0 + tid;
       if (col < V) p.dbpart[(size_t)row_tile * V + col] = v;
     }
   }
@@ -191,53 +174,43 @@ __global__ void __launch_bounds__(NTHREADS) logprob_ds_kernel(DsParams p) {
 // 2. dx = ds . W^T (untied W [D, V]) or ds . W (tied W [V, D])
 // ---------------------------------------------------------------------------
 
-template <typename WT, bool TIED>
-__global__ void __launch_bounds__(NTHREADS) logprob_dx_kernel(DsParams p) {
-  __shared__ __align__(16) __nv_bfloat16 As[BM * LDS];  // ds [row][v]
-  __shared__ __align__(16) __nv_bfloat16 Bs[BN * LDS];  // W as [d][v]
+// Untied W [D, V] is a K-major B of this product (its rows are dx's
+// columns); tied W [V, D] an MN-major one.
+template <bool TIED>
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+    logprob_dx_kernel(const __grid_constant__ CUtensorMap tds, const __grid_constant__ CUtensorMap tw, DsParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  const GemmRing ring{smem_u32(align_1024(smem_raw))};
+  const int m0 = blockIdx.x * GEMM_BM, dt = blockIdx.y;
+  const int nk = (p.V + GEMM_BK - 1) / GEMM_BK;
 
-  const int row_tile = blockIdx.x, dt = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int D = p.D, V = p.V;
-  const int i0 = row_tile * BM, d0 = dt * BN;
-  const WT* W = static_cast<const WT*>(p.w);
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
 
-  float acc[BN / 8][4];
-#pragma unroll
-  for (int nb = 0; nb < BN / 8; ++nb) acc[nb][0] = acc[nb][1] = acc[nb][2] = acc[nb][3] = 0.f;
-  for (int k0 = 0; k0 < p.ldv; k0 += BKC) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < BM * (BKC / 8); i += NTHREADS) {
-      const int r = i / (BKC / 8), c = (i % (BKC / 8)) * 8;
-      *reinterpret_cast<uint4*>(As + r * LDS + c) =
-          *reinterpret_cast<const uint4*>(p.ds + (size_t)(i0 + r) * p.ldv + k0 + c);
-    }
-    // Vocabulary rows past V hold undefined memory in no buffer here, but
-    // the tail of W is still zeroed: 0 * garbage must never reach the sum.
-    if (TIED) {
-      for (int i = threadIdx.x; i < BN * BKC; i += NTHREADS) {
-        const int kk = i / BN, nn = i % BN, v = k0 + kk;
-        Bs[nn * LDS + kk] = v < V ? to_bf16(W[(size_t)v * D + d0 + nn]) : __float2bfloat16(0.f);
-      }
-    } else {
-      for (int i = threadIdx.x; i < BN * BKC; i += NTHREADS) {
-        const int nn = i / BKC, kk = i % BKC, v = k0 + kk;
-        Bs[nn * LDS + kk] = v < V ? to_bf16(W[(size_t)(d0 + nn) * V + v]) : __float2bfloat16(0.f);
-      }
-    }
-    __syncthreads();
-    tile_mma(acc, As, Bs, warp, g, t);
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) gemm_produce<!TIED>(ring, &tds, &tw, m0, dt, dt + 1, nk);
+    return;
   }
 
-  const int row0 = i0 + warp * 16 + g, row1 = row0 + 8;
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int cw = wg - 1;
+  const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int row0 = m0 + cw * 64 + warp * 16 + g, row1 = row0 + 8;
+  float acc[GEMM_NACC];
+  uint32_t it = 0;
+  gemm_tile<!TIED>(ring, acc, cw, nk, it);
 #pragma unroll
-  for (int nb = 0; nb < BN / 8; ++nb) {
-    const int col = d0 + nb * 8 + 2 * t;
-    if (row0 < p.rows)
-      *reinterpret_cast<uint32_t*>(p.dx + (size_t)row0 * D + col) = pack_bf16(acc[nb][0], acc[nb][1]);
-    if (row1 < p.rows)
-      *reinterpret_cast<uint32_t*>(p.dx + (size_t)row1 * D + col) = pack_bf16(acc[nb][2], acc[nb][3]);
+  for (int j = 0; j < GEMM_BN / 8; ++j) {
+    const int col = dt * GEMM_BN + 8 * j + 2 * t4;
+    if (col < p.D) {
+      if (row0 < p.rows)
+        *reinterpret_cast<uint32_t*>(p.dx + (size_t)row0 * p.D + col) = pack_bf16(acc[4 * j], acc[4 * j + 1]);
+      if (row1 < p.rows)
+        *reinterpret_cast<uint32_t*>(p.dx + (size_t)row1 * p.D + col) = pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+    }
   }
 }
 
@@ -321,29 +294,45 @@ __global__ void logprob_db_kernel(const float* dbpart, float* db, int n_tiles, i
   db[v] = s;
 }
 
-template <typename WT, bool TIED>
-cudaError_t launch_ds_dx(const DsParams& p, cudaStream_t stream) {
-  dim3 grid_ds((p.rows + BM - 1) / BM, p.ldv / BN);
-  logprob_ds_kernel<WT, TIED><<<grid_ds, NTHREADS, 0, stream>>>(p);
-  cudaError_t err = cudaGetLastError();
+template <bool TIED>
+cudaError_t launch_ds_dx(const CUtensorMap& tx, const CUtensorMap& tw_s, const CUtensorMap& tds,
+                         const CUtensorMap& tw_dx, const DsParams& p, int splits, cudaStream_t stream) {
+  const int ds_smem = DS_SMEM_BYTES + 1024, dx_smem = GEMM_SMEM_BYTES + 1024;  // room to align to 1024
+  cudaError_t err = set_gemm_smem(logprob_ds_kernel<TIED>, ds_smem);
   if (err != cudaSuccess) return err;
-  dim3 grid_dx((p.rows + BM - 1) / BM, p.D / BN);
-  logprob_dx_kernel<WT, TIED><<<grid_dx, NTHREADS, 0, stream>>>(p);
+  err = set_gemm_smem(logprob_dx_kernel<TIED>, dx_smem);
+  if (err != cudaSuccess) return err;
+  const int row_tiles = (p.rows + GEMM_BM - 1) / GEMM_BM;
+  logprob_ds_kernel<TIED><<<dim3(row_tiles, splits), GEMM_THREADS, ds_smem, stream>>>(tx, tw_s, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  logprob_dx_kernel<TIED><<<dim3(row_tiles, (p.D + GEMM_BN - 1) / GEMM_BN), GEMM_THREADS, dx_smem, stream>>>(
+      tds, tw_dx, p);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // One chunk of rows: ds (bf16 [C, ldv], C >= rows rounded up to 128) and the
-// db column partials, then dx. ldv = V rounded up to 128.
+// db column partials, then dx. ldv = V rounded up to 128. w is bf16 with row
+// stride ldw elements (a multiple of 8, the base 16-byte aligned): [D, V]
+// untied, [V, D] tied. `splits` V splits of the ds grid.
 extern "C" int fused_logprob_bwd_ds_dx(const void* x, const void* w, const void* bias, const void* labels,
                                        const void* lse, const void* ent, const void* dlp, const void* dlse,
                                        const void* dent, void* ds, void* dbpart, void* dx, int rows, int D, int V,
-                                       int ldv, int C, int tied, int w_is_bf16, void* stream) {
-  if (D % BN != 0 || ldv % BN != 0 || ldv < V || rows > C || C % BM != 0) return (int)cudaErrorInvalidValue;
+                                       int ldv, int C, int ldw, int tied, int splits, void* stream) {
+  if (D % GEMM_BK != 0 || ldv % DS_LD != 0 || ldv < V || rows > C || C % GEMM_BM != 0 || ldw % 8 != 0 ||
+      splits < 1)
+    return (int)cudaErrorInvalidValue;
+  // W as the B of s = x . W (tied: K-major, one 256-row box a chunk; untied:
+  // MN-major, four 64-row boxes) and as the B of dx (the other way round).
+  CUtensorMap tx, tw_s, tds, tw_dx;
+  const bool ok =
+      make_map_2d(&tx, x, D, rows, D, GEMM_BM) && make_map_2d(&tds, ds, ldv, rows, ldv, GEMM_BM) &&
+      (tied ? make_map_2d(&tw_s, w, D, V, ldw, GEMM_BN) && make_map_2d(&tw_dx, w, D, V, ldw, GEMM_BK)
+            : make_map_2d(&tw_s, w, V, D, ldw, GEMM_BK) && make_map_2d(&tw_dx, w, V, D, ldw, GEMM_BN));
+  if (!ok) return (int)cudaErrorInvalidValue;
   DsParams p;
-  p.x = static_cast<const __nv_bfloat16*>(x);
-  p.w = w;
   p.bias = static_cast<const float*>(bias);
   p.labels = static_cast<const int*>(labels);
   p.lse = static_cast<const float*>(lse);
@@ -355,10 +344,12 @@ extern "C" int fused_logprob_bwd_ds_dx(const void* x, const void* w, const void*
   p.dbpart = static_cast<float*>(dbpart);
   p.dx = static_cast<__nv_bfloat16*>(dx);
   p.rows = rows; p.D = D; p.V = V; p.ldv = ldv;
+  const int n_vt = (V + GEMM_BN - 1) / GEMM_BN;
+  p.tiles_per_split = (n_vt + splits - 1) / splits;
+  splits = (n_vt + p.tiles_per_split - 1) / p.tiles_per_split;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (w_is_bf16)
-    return (int)(tied ? launch_ds_dx<__nv_bfloat16, true>(p, s) : launch_ds_dx<__nv_bfloat16, false>(p, s));
-  return (int)(tied ? launch_ds_dx<float, true>(p, s) : launch_ds_dx<float, false>(p, s));
+  return (int)(tied ? launch_ds_dx<true>(tx, tw_s, tds, tw_dx, p, splits, s)
+                    : launch_ds_dx<false>(tx, tw_s, tds, tw_dx, p, splits, s));
 }
 
 // One chunk of rows: dW (f32; [D, V] untied, [V, D] tied) (+)= the chunk's

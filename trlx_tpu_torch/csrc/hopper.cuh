@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the flash-attention kernels:
-// mbarriers, TMA tile loads, named barriers, wgmma shared-memory descriptors
-// and the wgmma products in the three operand forms the kernels use, and the
-// host-side tensor-map encoder.
+// Hopper (sm_90a) building blocks shared by the flash-attention and
+// fused-logprob kernels: mbarriers, TMA tile loads (4-D maps over [b, T, h,
+// d] views, 2-D maps over matrices), named barriers, wgmma shared-memory
+// descriptors and the wgmma products in the operand forms the kernels use,
+// and the host-side tensor-map encoder.
 //
 // Shared-memory tiles are TMA boxes of 64 bf16 columns (128 bytes, the
 // 128-byte swizzle's span) by `rows` rows; a [rows, d] tile is d / 64 such
@@ -71,6 +72,15 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// One box {64 columns, rows} of a 2-D map (inner, outer) into shared memory.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 // Named barriers (id 0 is __syncthreads): `arrive` marks this thread's
 // arrival and goes on, `sync` waits until `threads` have arrived.
 __device__ __forceinline__ void named_arrive(int id, int threads) {
@@ -96,6 +106,8 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint3
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+// Waits until at most one committed batch is still in flight.
+__device__ __forceinline__ void wgmma_wait1() { asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory"); }
 
 // Keep the compiler from moving reads or writes of accumulator registers
 // across the asynchronous wgmma (its results are valid only after the wait).
@@ -116,6 +128,39 @@ __device__ __forceinline__ void fence_regs(float* r) {
 #define TRLX_REGS32                                                                                            \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                                    \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+#define TRLX_F4(o) "+f"(d[(o)]), "+f"(d[(o) + 1]), "+f"(d[(o) + 2]), "+f"(d[(o) + 3])
+#define TRLX_F16(o) TRLX_F4(o), TRLX_F4((o) + 4), TRLX_F4((o) + 8), TRLX_F4((o) + 12)
+#define TRLX_F64(o) TRLX_F16(o), TRLX_F16((o) + 16), TRLX_F16((o) + 32), TRLX_F16((o) + 48)
+#define TRLX_ACC128 TRLX_F64(0), TRLX_F64(64)
+#define TRLX_REGS128 \
+  "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127" \
+  "}"
+
+// d[64 x 256] (+)= A[64 x 16] . B[16 x 256], both from shared memory, A
+// K-major, B K-major (TRANS_B = 0) or MN-major (TRANS_B = 1). 128
+// accumulator registers a thread, in the layout of four m64n64 tiles side by
+// side: d[4 j + e] is row 16 warp + g (+ 8 for e >= 2), column 8 j + 2 t +
+// (e & 1), for lane = 4 g + t.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss_n256(float* d, uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " TRLX_REGS128 ", %128, %129, p, 1, 1, 0, %131;\n"
+      "}\n"
+      : TRLX_ACC128
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+}
 
 // d[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B K-major in shared memory.
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int accumulate) {
@@ -196,6 +241,21 @@ inline bool make_map(CUtensorMap* map, const void* base, int d, int T, int h, in
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box, estr,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 2-D map over a row-major bf16 matrix [outer, inner] with a row stride
+// of `ld` elements (16-byte multiple); boxes of 64 columns by `rows` rows,
+// 128-byte swizzle, zero fill past `inner` and `outer`.
+inline bool make_map_2d(CUtensorMap* map, const void* base, int inner, int outer, long long ld, int rows) {
+  EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)rows};
+  const cuuint32_t estr[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box, estr,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

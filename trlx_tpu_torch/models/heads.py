@@ -35,7 +35,11 @@ class MLPHead(nn.Module):
 def swapped_params(module: nn.Module, tensors: Dict[str, torch.Tensor]):
     """Temporarily replace the named parameters of ``module`` by
     ``tensors`` (same names as ``named_parameters()``), restoring them on
-    exit. Not thread-safe: the module is shared state while swapped."""
+    exit. Not thread-safe: the module is shared state while swapped.
+
+    Each tensor is wrapped in one frozen Parameter for its lifetime (kept on
+    the tensor), so the compute-dtype copy the model caches on a frozen
+    weight (``lm.frozen_copy``) serves every swap, not only one."""
     saved = []
     try:
         for name, t in tensors.items():
@@ -44,7 +48,10 @@ def swapped_params(module: nn.Module, tensors: Dict[str, torch.Tensor]):
             if attr not in sub._parameters:
                 raise KeyError(f"no parameter named {name!r}")
             saved.append((sub, attr, sub._parameters[attr]))
-            sub._parameters[attr] = nn.Parameter(t, requires_grad=False)
+            wrapped = getattr(t, "_frozen_param", None)
+            if wrapped is None:
+                wrapped = t._frozen_param = nn.Parameter(t, requires_grad=False)
+            sub._parameters[attr] = wrapped
         yield module
     finally:
         for sub, attr, p in reversed(saved):

@@ -167,9 +167,42 @@ def apply_rotary(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor, rotary_d
 # ---------------------------------------------------------------------------
 
 
+def frozen_copy(w: torch.Tensor, dtype: torch.dtype) -> Optional[torch.Tensor]:
+    """``w`` in ``dtype`` when no gradient can flow to it (grad mode off, or
+    a parameter that does not require grad), else None.
+
+    The copy is made once per version of ``w`` and kept on it: an in-place
+    update (an optimizer step, ``load_state_dict``, ``copy_``) bumps
+    ``w._version`` and the next call casts anew. It holds the same values
+    as ``w.to(dtype)``, so outputs do not change. Where gradient flows, the
+    caller keeps the differentiable per-call cast."""
+    if w.dtype == dtype:
+        return w
+    if torch.is_grad_enabled() and w.requires_grad:
+        return None
+    if torch.is_inference_mode_enabled():
+        return w.to(dtype)  # an inference tensor must not outlive the mode
+    key = (w._version, w.data_ptr(), dtype)
+    held = getattr(w, "_frozen_copy", None)
+    if held is not None and held[0] == key:
+        return held[1]
+    w._frozen_copy = None  # free the stale copy before making the new one
+    copy = w.detach().to(dtype)
+    w._frozen_copy = (key, copy)
+    return copy
+
+
+def compute_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``w`` cast to the compute dtype: the cached ``frozen_copy`` where no
+    gradient flows to it, else the differentiable ``w.to(dtype)``."""
+    copy = frozen_copy(w, dtype)
+    return w.to(dtype) if copy is None else copy
+
+
 class Dense(nn.Module):
     """``y = x @ kernel (+ bias)`` with kernel [in, out] stored in the param
-    dtype and cast, like the input, to the compute dtype at use."""
+    dtype and cast, like the input, to the compute dtype at use (once per
+    weight version where no gradient flows to it: ``compute_weight``)."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool, param_dtype, device):
         super().__init__()
@@ -179,9 +212,9 @@ class Dense(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        y = x.to(dtype) @ self.kernel.to(dtype)
+        y = x.to(dtype) @ compute_weight(self.kernel, dtype)
         if self.bias is not None:
-            y = y + self.bias.to(dtype)
+            y = y + compute_weight(self.bias, dtype)
         return y
 
 
@@ -552,6 +585,11 @@ class TransformerLM(nn.Module):
                 w_head, b_head, tied = self.wte.embedding, None, True
             else:
                 w_head, b_head, tied = self.lm_head.kernel, self.lm_head.bias, False
+            # A head no gradient reaches goes in as its cached bf16 copy
+            # (the same values as the per-tile cast); a trained one as the
+            # f32 master, so its gradient stays f32.
+            w_frozen = frozen_copy(w_head, dtype)
+            w_head = w_head if w_frozen is None else w_frozen
             logprobs, lse, entropy = routed_logprob(
                 x_head, w_head, labels, b_head, tied=tied,
                 mode=cfg.extra.get("fused_logprob", "auto"), mask=labels_mask,
@@ -559,7 +597,7 @@ class TransformerLM(nn.Module):
         elif compute_logits:
             x_head = x[:, logits_start:] if logits_start else x
             if cfg.tie_word_embeddings:
-                logits = x_head.to(dtype) @ self.wte.embedding.to(dtype).t()
+                logits = x_head.to(dtype) @ compute_weight(self.wte.embedding, dtype).t()
             else:
                 logits = self.lm_head(x_head, dtype)
 

@@ -61,11 +61,11 @@ _SIGNATURES = {
                                _I, _I, _I, _I, _I, _I,  # k v pool strides (block, offset, h)
                                _I, _I, _I, _I, _I, _I,  # ks vs pool strides (block, offset, h)
                                _F, _P],  # scale stream
-    "fused_logprob_fwd": [_P, _P, _P, _P,  # x w bias labels
+    "fused_logprob_fwd": [_P, _P, _P, _P,  # x w(bf16) bias labels
                           _P, _P, _P,  # lp lse ent
                           _P,  # partials scratch [4, splits, N]
                           _I, _I, _I,  # N D V
-                          _I, _I, _I,  # tied, w_is_bf16, splits
+                          _I, _I, _I,  # ldw (w's row stride), tied, splits
                           _P],  # stream
     "flash_bwd_dq_bf16": [_P, _P, _P, _P, _P, _P, _P, _P,  # q k v dout kmask lse delta dq
                           _I, _I, _I, _I,  # b T h d
@@ -75,11 +75,11 @@ _SIGNATURES = {
                            _I, _I, _I, _I,  # b T h d
                            _I, _I, _I, _I, _I, _I, _I, _I, _I,  # q k v strides (b, t, h)
                            _F, _I, _P],  # scale window stream
-    "fused_logprob_bwd_ds_dx": [_P, _P, _P, _P,  # x w bias labels (chunk)
+    "fused_logprob_bwd_ds_dx": [_P, _P, _P, _P,  # x w(bf16) bias labels (chunk)
                                 _P, _P, _P, _P, _P,  # lse ent dlp dlse dent (chunk)
                                 _P, _P, _P,  # ds scratch, db partials, dx (chunk)
                                 _I, _I, _I, _I, _I,  # rows D V ldv C
-                                _I, _I, _P],  # tied w_is_bf16 stream
+                                _I, _I, _I, _P],  # ldw (w's row stride), tied, splits, stream
     "fused_logprob_bwd_dw": [_P, _P, _P,  # x (chunk) ds dw
                              _I, _I, _I, _I,  # rows D V ldv
                              _I, _I,  # tied accumulate

@@ -16,10 +16,11 @@ import torch
 from trlx_tpu_torch.ops import cuda_lib
 
 BLOCK_V = 512  # the JAX package's forward vocab tile, kept for the shape rule
-_KERNEL_BM = 128  # rows per CTA in the CUDA kernels
-_KERNEL_BN = 128  # vocabulary columns per tile in the CUDA kernels
+_KERNEL_BM = 128  # rows per CTA of the forward and ds kernels (GEMM_BM in csrc/logprob_gemm.cuh)
+_KERNEL_BN = 256  # vocabulary columns per tile (GEMM_BN)
 _KERNEL_BK = 64  # forward reduction chunk: D must divide by it
-_BWD_D_MULTIPLE = 128  # the backward's dx tiles: D must divide by it
+_BWD_D_MULTIPLE = 128  # the backward's shape rule: D must divide by it
+_DS_LD = 128  # the ds scratch's rows are padded to a multiple of this (ldv)
 BWD_CHUNK_ROWS = 1024  # rows per backward chunk: a bf16 [C, V] ds buffer
 
 
@@ -78,14 +79,40 @@ def fused_logprob_bwd_plain(x, w, bias, labels, lse, ent, dlp, dlse, dent, *, ti
     return dx, dw.to(w.dtype), db
 
 
-def _splits(n_rows: int, V: int, device) -> int:
-    """V splits per row tile: about two CTAs per SM in all."""
+def split_count(n_rows: int, V: int, sms: int) -> int:
+    """V splits per row tile of the forward and ds grids on a card with
+    ``sms`` SMs: about one CTA per SM in all (each holds 210 KB of shared
+    memory), every split non-empty."""
     n_rt = -(-n_rows // _KERNEL_BM)
     n_vt = -(-V // _KERNEL_BN)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    s0 = max(1, min(n_vt, -(-2 * sms // n_rt)))
+    s0 = max(1, min(n_vt, sms // n_rt))
     tps = -(-n_vt // s0)
     return -(-n_vt // tps)
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _tma_ready(w) -> bool:
+    """bf16, unit stride along the last dimension, every row starting on a
+    16-byte boundary: what the kernels' TMA maps take."""
+    return w.dtype == torch.bfloat16 and w.stride(-1) == 1 and w.stride(0) % 8 == 0 and w.data_ptr() % 16 == 0
+
+
+def kernel_weight(w):
+    """The head weight as the kernels read it (``_tma_ready``). A weight that
+    already is so is returned as it is; any other (an f32 master, a V that
+    is not a multiple of 8) is cast into a fresh buffer whose rows are
+    padded to a multiple of 8 elements, and a view of its first columns is
+    returned. The cast rounds as ``w.to(torch.bfloat16)`` does."""
+    if _tma_ready(w):
+        return w
+    rows, cols = w.shape
+    buf = torch.empty((rows, -(-cols // 8) * 8), dtype=torch.bfloat16, device=w.device)
+    view = buf[:, :cols]
+    view.copy_(w)
+    return view
 
 
 def _check_kernel_inputs(x, w, tied: bool, d_multiple: int):
@@ -106,25 +133,26 @@ def _check_kernel_inputs(x, w, tied: bool, d_multiple: int):
 
 def fused_logprob_fwd(x, w, labels, bias=None, *, tied: bool = False):
     """The forward kernel pair on CUDA tensors: f32 (logprob, lse, entropy)
-    shaped like labels. Raises on what the kernel does not take."""
+    shaped like labels. The weight goes through ``kernel_weight`` (one bf16
+    cast of an f32 master). Raises on what the kernel does not take."""
     D, V = _check_kernel_inputs(x, w, tied, _KERNEL_BK)
     lead = labels.shape
     N = math.prod(lead) if len(lead) else 1
     x2 = x.reshape(N, D).contiguous()
     if x2.data_ptr() % 16:
         raise ValueError("fused_logprob: the activations need a 16-byte aligned start")
-    wc = w.contiguous()
+    wk = kernel_weight(w)
     y = labels.reshape(N).to(torch.int32).contiguous()
     b = None if bias is None else bias.reshape(V).to(torch.float32).contiguous()
-    S = _splits(N, V, x.device)
+    S = split_count(N, V, _sm_count(x.device))
     part = torch.empty((4, S, N), dtype=torch.float32, device=x.device)
     lp = torch.empty(N, dtype=torch.float32, device=x.device)
     lse = torch.empty_like(lp)
     ent = torch.empty_like(lp)
     err = cuda_lib.lib().fused_logprob_fwd(
-        x2.data_ptr(), wc.data_ptr(), None if b is None else b.data_ptr(), y.data_ptr(),
+        x2.data_ptr(), wk.data_ptr(), None if b is None else b.data_ptr(), y.data_ptr(),
         lp.data_ptr(), lse.data_ptr(), ent.data_ptr(), part.data_ptr(),
-        N, D, V, int(bool(tied)), int(wc.dtype == torch.bfloat16), S, cuda_lib.stream_ptr(x.device),
+        N, D, V, wk.stride(0), int(bool(tied)), S, cuda_lib.stream_ptr(x.device),
     )
     cuda_lib.check(err, "fused_logprob_fwd")
     fused_logprob_fwd.launches += 1
@@ -133,14 +161,17 @@ def fused_logprob_fwd(x, w, labels, bias=None, *, tied: bool = False):
 
 def fused_logprob_bwd_dx(x2, wc, b, y, rows_f32, ds, dbpart, dx, *, rows: int, C: int, ldv: int, tied: bool):
     """One chunk of rows: the ds kernel (ds into the bf16 [C, ldv] scratch,
-    db column partials) and the dx kernel. ``rows_f32`` holds the chunk's
-    (lse, ent, dlp, dlse, dent) vectors."""
+    db column partials) and the dx kernel. ``wc`` is the weight as
+    ``kernel_weight`` gives it; ``rows_f32`` holds the chunk's (lse, ent,
+    dlp, dlse, dent) vectors."""
     D, V = x2.shape[1], (wc.shape[0] if tied else wc.shape[1])
+    if not _tma_ready(wc):
+        raise TypeError("fused_logprob_bwd_dx takes the weight as kernel_weight gives it")
     err = cuda_lib.lib().fused_logprob_bwd_ds_dx(
         x2.data_ptr(), wc.data_ptr(), None if b is None else b.data_ptr(), y.data_ptr(),
         *(t.data_ptr() for t in rows_f32), ds.data_ptr(), None if dbpart is None else dbpart.data_ptr(),
-        dx.data_ptr(), rows, D, V, ldv, C, int(bool(tied)), int(wc.dtype == torch.bfloat16),
-        cuda_lib.stream_ptr(x2.device),
+        dx.data_ptr(), rows, D, V, ldv, C, wc.stride(0), int(bool(tied)),
+        split_count(rows, V, _sm_count(x2.device)), cuda_lib.stream_ptr(x2.device),
     )
     cuda_lib.check(err, "fused_logprob_bwd_ds_dx")
     fused_logprob_bwd_dx.launches += 1
@@ -165,22 +196,24 @@ for _fn in (fused_logprob_fwd, fused_logprob_bwd_dx, fused_logprob_bwd_dw):
     _fn.launches = 0
 
 
-def fused_logprob_bwd(x, w, bias, labels, lse, ent, dlp, dlse, dent, *, tied: bool = False):
+def fused_logprob_bwd(x, w, bias, labels, lse, ent, dlp, dlse, dent, *, tied: bool = False, wk=None):
     """(dx, dW, db) of the fused head. CPU tensors take
     ``fused_logprob_bwd_plain``; CUDA tensors walk the rows in chunks of
     ``BWD_CHUNK_ROWS`` (ds + dx, then dW/db per chunk), so no [N, V] buffer
-    exists, or raise. dW accumulates in f32 and comes back in w's dtype."""
+    exists, or raise. ``wk`` is w as ``kernel_weight`` gives it (the
+    forward's copy), made here when not given. dW accumulates in f32 and
+    comes back in w's dtype."""
     if x.device.type == "cpu":
         return fused_logprob_bwd_plain(x, w, bias, labels, lse, ent, dlp, dlse, dent, tied=tied)
     D, V = _check_kernel_inputs(x, w, tied, _BWD_D_MULTIPLE)
     N = labels.numel()
     dev = x.device
     x2 = x.reshape(N, D).contiguous()
-    wc = w.contiguous()
+    wc = kernel_weight(w if wk is None else wk)
     y = labels.reshape(N).to(torch.int32).contiguous()
     b = None if bias is None else bias.reshape(V).to(torch.float32).contiguous()
     vecs = [t.reshape(N).to(torch.float32).contiguous() for t in (lse, ent, dlp, dlse, dent)]
-    ldv = -(-V // _KERNEL_BN) * _KERNEL_BN
+    ldv = -(-V // _DS_LD) * _DS_LD
     C = min(BWD_CHUNK_ROWS, -(-N // _KERNEL_BM) * _KERNEL_BM)
     ds = torch.empty((C, ldv), dtype=torch.bfloat16, device=dev)
     n_tiles = -(-N // _KERNEL_BM)
@@ -201,25 +234,28 @@ def fused_logprob_bwd(x, w, bias, labels, lse, ent, dlp, dlse, dent, *, tied: bo
 
 class FusedLogprobFn(torch.autograd.Function):
     """(logprob, lse, entropy) with the fused backward over (x, w, bias);
-    the labels are not differentiable. Saves x, w, bias, labels and the row
-    residuals (lse, entropy). On the CPU the same Function runs the plain
-    forward and the plain backward."""
+    the labels are not differentiable. Saves x, w, bias, labels, the row
+    residuals (lse, entropy) and, on CUDA, the bf16 weight the forward
+    kernel read, so the backward does not cast it again. On the CPU the same
+    Function runs the plain forward and the plain backward."""
 
     @staticmethod
     def forward(ctx, x, w, bias, labels, tied):
         if x.device.type == "cpu":
+            wk = None
             lp, lse, ent = naive_logprob(x, w, labels, bias, tied=tied)
         else:
-            lp, lse, ent = fused_logprob_fwd(x, w, labels, bias, tied=tied)
-        ctx.save_for_backward(x, w, bias, labels, lse, ent)
+            wk = kernel_weight(w)
+            lp, lse, ent = fused_logprob_fwd(x, wk, labels, bias, tied=tied)
+        ctx.save_for_backward(x, w, bias, labels, lse, ent, wk)
         ctx.tied = tied
         return lp, lse, ent
 
     @staticmethod
     def backward(ctx, dlp, dlse, dent):
-        x, w, bias, labels, lse, ent = ctx.saved_tensors
+        x, w, bias, labels, lse, ent, wk = ctx.saved_tensors
         dlp, dlse, dent = (torch.zeros_like(lse) if g is None else g for g in (dlp, dlse, dent))
-        dx, dw, db = fused_logprob_bwd(x, w, bias, labels, lse, ent, dlp, dlse, dent, tied=ctx.tied)
+        dx, dw, db = fused_logprob_bwd(x, w, bias, labels, lse, ent, dlp, dlse, dent, tied=ctx.tied, wk=wk)
         need = ctx.needs_input_grad
         return (dx if need[0] else None, dw if need[1] else None, db if need[2] else None, None, None)
 
