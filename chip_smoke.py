@@ -96,6 +96,43 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 50, replays: int = 3) -> float:
+    """Mean device milliseconds of ``fn()`` over ``iters`` calls captured in
+    one CUDA graph, timed by CUDA events over ``replays`` replays after one
+    warm-up replay. The decode paths replay their steps, so a decode row's
+    kernel runs there without the host's launch time between calls; timed
+    eagerly, a call whose wrapper takes the host longer than its kernel takes
+    the card would measure the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
+def graph_pool_gb():
+    """GB the caching allocator holds in CUDA graphs' private pools (its
+    segments outside the default pool), or None where its snapshot does not
+    say which pool a segment is in."""
+    segments = torch.cuda.memory._snapshot()["segments"]
+    if segments and "segment_pool_id" not in segments[0]:
+        return None
+    return sum(seg["total_size"] for seg in segments if tuple(seg["segment_pool_id"]) != (0, 0)) / 1e9
+
+
 def bound(nbytes: float, flops: float):
     t_bytes, t_ops = nbytes / PEAK_HBM_BYTES_S, flops / PEAK_BF16_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -184,6 +221,9 @@ def split_edge_bias(valid):
     return torch.where(valid, 0.0, -1e9).float()
 
 
+DECODE_PAIRS = 10  # alternating turns of row 7 and SDPA
+
+
 def phase_decode(gen):
     """Decode attention: q [8, 16, 256] over a bf16 cache of T = 1024 at
     decode step 128 after a 768-wide left-padded prompt; the bias row masks
@@ -206,17 +246,27 @@ def phase_decode(gen):
     edge = split_edge_bias(valid)
     err_edge = check("decode[split edges]", decode_attention(q, kc, vc, edge, scale=scale),
                      decode_attention_plain(q, kc, vc, edge, scale=scale), tol)
-    ms = time_ms(lambda: decode_attention(q, kc, vc, bias, scale=scale), iters=50)
     plain_ms = time_ms(lambda: decode_attention_plain(q, kc, vc, bias, scale=scale), iters=10)
     q4, k4, v4 = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
     b4 = bias[:, None, None, :].to(torch.bfloat16)
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=b4, scale=scale), iters=50)
+    # The kernel and SDPA in DECODE_PAIRS alternating turns, each of graph
+    # replays (``graph_ms``); each row's time is the median of its turns.
+    fns = {"kernel": lambda: decode_attention(q, kc, vc, bias, scale=scale),
+           "sdpa": lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=b4, scale=scale)}
+    turns = {"kernel": [], "sdpa": []}
+    for t in range(DECODE_PAIRS):
+        for name in (("kernel", "sdpa") if t % 2 == 0 else ("sdpa", "kernel")):
+            turns[name].append(graph_ms(fns[name]))
+    ms, lib_ms = float(np.median(turns["kernel"])), float(np.median(turns["sdpa"]))
+    # The same calls launched eagerly: what the host adds to a call.
+    eager_ms = {name: time_ms(fn, iters=50) for name, fn in fns.items()}
     live = int(valid.sum())  # keys the bias leaves visible: the K/V rows this step needs
     nbytes = 2 * live * h * d * 2 + 2 * B * h * d * 2 + B * T * 4
     flops = 4 * live * h * d
     bound_ms, by = bound(nbytes, flops)
     return dict(max_abs_err=err, max_abs_err_split_edges=err_edge, tol=tol, ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=bound_ms, bound_by=by, shape=[B, T, h, d], live_keys=live, valid=valid)
+                library_ms=lib_ms, bound_ms=bound_ms, bound_by=by, shape=[B, T, h, d], live_keys=live, valid=valid,
+                turns_vs_library=turns, eager_ms=eager_ms)
 
 
 NO_LIBRARY = "null: no single PyTorch call reads an int8 cache with per-key scales or a block table"
@@ -247,7 +297,7 @@ def phase_decode_int8(gen, valid):
     edge = split_edge_bias(valid)
     err_edge = check("decode_int8[split edges]", decode_attention_int8(q, kq, vq, ks, vs, edge, scale=scale),
                      decode_attention_plain(q, kq, vq, edge, scale=scale, ks=ks, vs=vs), tol)
-    ms = time_ms(lambda: decode_attention_int8(q, kq, vq, ks, vs, bias, scale=scale), iters=50)
+    ms = graph_ms(lambda: decode_attention_int8(q, kq, vq, ks, vs, bias, scale=scale))
     plain_ms = time_ms(lambda: decode_attention_plain(q, kq, vq, bias, scale=scale, ks=ks, vs=vs), iters=10)
     live = int(valid.sum())
     nbytes = 2 * live * h * d + 2 * live * h * 4 + 2 * B * h * d * 2 + B * T * 4  # int8 K/V, scales, q/o, bias
@@ -313,7 +363,7 @@ def phase_paged(gen, quant: bool):
     err = check(name, run(), plain(), tol)
     edge = split_edge_bias(valid)
     err_edge = check(f"{name}[split edges]", run(edge), plain(edge), tol)
-    ms = time_ms(run, iters=50)
+    ms = graph_ms(run)
     plain_ms = time_ms(plain, iters=10)
     # The bytes this data needs: each physical K/V row some slot's bias
     # leaves visible, once (shared blocks and the dead slot's trash block
@@ -487,23 +537,36 @@ def logprob_bwd_inputs(seed: int):
 
 
 def phase_logprob_bwd(seed: int):
-    """The fused-logprob backward against its plain version; the whole
-    call timed by CUDA events. Its rows' ``ms`` come from
-    ``logprob_bwd_split`` at the end of the run."""
-    from trlx_tpu_torch.ops.fused_logprob import BWD_CHUNK_ROWS, fused_logprob_bwd, fused_logprob_bwd_plain
+    """The fused-logprob backward against its plain version (``check_head_grads``),
+    bit-equal on a second call, with its ds buffer's bytes and the call's
+    peak; the whole call timed by CUDA events, the rows' ``ms`` from
+    ``logprob_bwd_split`` at the end of the run. The yardstick of row 6 is
+    ``torch.matmul`` of the same bf16 product xᵀ·ds, ds given (bf16 out,
+    half of dW's f32 bytes): not a port, and not ``library_ms``."""
+    from trlx_tpu_torch.ops.fused_logprob import BWD_CHUNK_ROWS, _DS_LD, fused_logprob_bwd, fused_logprob_bwd_plain
 
     args = logprob_bwd_inputs(seed)
     x, w, y = args[0], args[1], args[3]
     (N, D), V = x.shape, w.shape[1]
     ref = fused_logprob_bwd_plain(*args)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     got = fused_logprob_bwd(*args)
+    torch.cuda.synchronize()
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
     errs = check_head_grads(got, ref, y)
     # No atomics: a second call gives the same bits.
     if not all(torch.equal(a, b) for a, b in zip(fused_logprob_bwd(*args), got)):
         raise AssertionError("fused_logprob_bwd: a second call of dx / dW / db differs from the first")
-    del ref, got
+    del got, ref
     plain_ms = time_ms(lambda: fused_logprob_bwd_plain(*args), iters=3, warmup=1)
-    ms_all = time_ms(lambda: fused_logprob_bwd(*args), iters=5)
+    ms_all = time_ms(lambda: fused_logprob_bwd(*args), iters=5, warmup=1)
+    ldv = -(-V // _DS_LD) * _DS_LD
+    ds = torch.randn((N, V), generator=torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+    ds = ds.to(torch.bfloat16)
+    matmul_ms = time_ms(lambda: torch.matmul(x.t(), ds), iters=5)
+    del ds
     flops = 2 * N * D * V
     small = N * 4 * 6 + V * 4  # labels, lse, ent, three cotangents; bias or db
     bdx = bound(N * D * 2 + D * V * 4 + small + N * V * 2 + N * D * 2, 2 * flops)  # x, W in; ds, dx out
@@ -511,13 +574,16 @@ def phase_logprob_bwd(seed: int):
     common = dict(plain_ms=plain_ms, library_ms=None, library="none: no single PyTorch call computes it",
                   whole_backward_ms=ms_all, ms_from="profiler kernel times of one fused_logprob_bwd call on the "
                   "f32 weight; the ds + dx row counts the wrapper's bf16 cast of it",
-                  shape=[N, D, V], chunks=-(-N // BWD_CHUNK_ROWS), checks=errs)
+                  shape=[N, D, V], chunks=-(-N // BWD_CHUNK_ROWS), checks=errs,
+                  ds_buffer_bytes=-(-N // 128) * 128 * ldv * 2, call_peak_gb=peak_gb)
     # dW/db's row shows the partition nearest its tolerance.
-    dw_err, dw_tol = max((errs[k] for k in errs if k != "dx"), key=lambda et: et[0] / et[1])
+    dw_err, dw_tol = max((e for k, e in errs.items() if k != "dx"), key=lambda et: et[0] / et[1])
     return {
         "fused_logprob_bwd_dx": dict(max_abs_err=errs["dx"][0], tol=errs["dx"][1], bound_ms=bdx[0],
                                      bound_by=bdx[1], **common),
-        "fused_logprob_bwd_dw": dict(max_abs_err=dw_err, tol=dw_tol, bound_ms=bdw[0], bound_by=bdw[1], **common),
+        "fused_logprob_bwd_dw": dict(max_abs_err=dw_err, tol=dw_tol, bound_ms=bdw[0], bound_by=bdw[1],
+                                     matmul_ms=matmul_ms, matmul="torch.matmul bf16 x^T [D, N] x ds [N, V], ds "
+                                     "given: the yardstick of the dW product", **common),
     }
 
 
@@ -724,13 +790,14 @@ def make_timed_trainer(kernels, n_layer: int, on_engine=None):
 def train_step_launches(kernels, n_layer: int):
     """Kernel launches of one train step at the smoke's batch: the flash
     forward twice per layer (the forward, then its recompute under remat),
-    the flash backward once per layer, the fused head forward once and its
-    backward once per 1024-row chunk; no decode kernel."""
+    the flash backward once per layer, the fused head forward once, its
+    ds + dx once per 1024-row chunk and its dW once over all rows; no decode
+    kernel."""
     bwd_chunks = -(-CHUNK * (MAX_LEN - PROMPT_LEN) // 1024)
     out = dict.fromkeys(kernels, 0)
     out.update({"flash_attention_fwd": 2 * n_layer, "flash_attention_bwd_dq": n_layer,
                 "flash_attention_bwd_dkv": n_layer, "fused_logprob_fwd": 1, "fused_logprob_bwd_dx": bwd_chunks,
-                "fused_logprob_bwd_dw": bwd_chunks})
+                "fused_logprob_bwd_dw": 1})
     return out
 
 
@@ -788,7 +855,7 @@ def train_path(kernels):
         "decode_attention": (chunks + 1) * n_layer * R,
         "fused_logprob_fwd": chunks + steps,
         "flash_attention_bwd_dq": steps * n_layer, "flash_attention_bwd_dkv": steps * n_layer,
-        "fused_logprob_bwd_dx": steps * bwd_chunks, "fused_logprob_bwd_dw": steps * bwd_chunks,
+        "fused_logprob_bwd_dx": steps * bwd_chunks, "fused_logprob_bwd_dw": steps,
     })
     log(f"[train] launches {launches} expected {expected} (rollouts: {chunks} chunks x flash {n_layer + k}, "
         f"decode {n_layer}x{R}, fused logprob 1; per train step {per_step}; eval: flash {n_layer}, "
@@ -879,6 +946,7 @@ def main_path(kernels, quant: bool = False):
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in kernels.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    pool_gb = graph_pool_gb()
 
     n_chunks = N_ROLLOUTS // CHUNK
     n_layer, k = GPTJ_6B_ARCH["n_layer"], config.model.num_layers_unfrozen
@@ -928,6 +996,7 @@ def main_path(kernels, quant: bool = False):
         "decode_tokens_per_s": stats["exp_decode_tokens_per_s"],
         "reward_s": stats["exp_reward_s"],
         "peak_mem_gb": peak_gb,
+        "graph_pool_gb": pool_gb,
         "launches": launches,
         "consistency": consistency,
     }
@@ -1144,7 +1213,7 @@ def engine_train_path(kernels):
         # evaluate() samples with the whole-batch sampler over the int8 cache.
         "decode_attention_int8": n_layer * R,
         "flash_attention_bwd_dq": steps * n_layer, "flash_attention_bwd_dkv": steps * n_layer,
-        "fused_logprob_bwd_dx": steps * bwd_chunks, "fused_logprob_bwd_dw": steps * bwd_chunks,
+        "fused_logprob_bwd_dx": steps * bwd_chunks, "fused_logprob_bwd_dw": steps,
     })
     got = [ev[5] for ev in eng["events"] if ev[0] == "admit"]
     pool = eng["engine"].pool
@@ -1250,6 +1319,254 @@ def engine_rollout_path(kernels, paged: bool):
     return responses, out, launches
 
 
+GRAPH_LAYERS = 4  # depth of the graph-versus-eager phase, at GPT-J-6B width
+
+
+# The port's device kernels, by a substring of their names, and the wrappers
+# each counted launch of which launches that kernel once (the four decode
+# wrappers share one kernel template).
+DECODE_WRAPPERS = ("decode_attention", "decode_attention_int8", "paged_decode_attention",
+                   "paged_decode_attention_int8")
+DEVICE_KERNELS = {
+    "flash_fwd_kernel": ("flash_attention_fwd",),
+    "flash_bwd_dq_kernel": ("flash_attention_bwd_dq",),
+    "flash_bwd_dkv_kernel": ("flash_attention_bwd_dkv",),
+    "logprob_fwd_kernel": ("fused_logprob_fwd",),
+    "logprob_ds_kernel": ("fused_logprob_bwd_dx",),
+    "logprob_dx_kernel": ("fused_logprob_bwd_dx",),
+    "logprob_dw_kernel": ("fused_logprob_bwd_dw",),
+    "decode_split_kernel": DECODE_WRAPPERS,
+    "decode_merge_kernel": DECODE_WRAPPERS,
+}
+
+
+def port_kernels():
+    """The kernel wrappers of the ten rows, by row name."""
+    from trlx_tpu_torch.ops.decode_attention import (
+        decode_attention, decode_attention_int8, paged_decode_attention, paged_decode_attention_int8,
+    )
+    from trlx_tpu_torch.ops.flash_attention import flash_bwd_dkv, flash_bwd_dq, flash_fwd
+    from trlx_tpu_torch.ops.fused_logprob import fused_logprob_bwd_dw, fused_logprob_bwd_dx, fused_logprob_fwd
+
+    return {"flash_attention_fwd": flash_fwd, "flash_attention_bwd_dq": flash_bwd_dq,
+            "flash_attention_bwd_dkv": flash_bwd_dkv, "decode_attention": decode_attention,
+            "fused_logprob_fwd": fused_logprob_fwd, "fused_logprob_bwd_dx": fused_logprob_bwd_dx,
+            "fused_logprob_bwd_dw": fused_logprob_bwd_dw, "decode_attention_int8": decode_attention_int8,
+            "paged_decode_attention": paged_decode_attention,
+            "paged_decode_attention_int8": paged_decode_attention_int8}
+
+
+def traced_kernel_ms(kernels, fn):
+    """fn()'s result, the CUDA kernel milliseconds it ran and the launches of
+    the port's kernels that the trace shows (torch.profiler). The traced
+    launches must equal what the wrappers' counters added in the same run,
+    so a count that a graph replay adds is one the card really ran; raises
+    otherwise, or when the trace shows none of the port's kernels."""
+    before = {n: f.launches for n, f in kernels.items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    counted = {n: f.launches - before[n] for n, f in kernels.items()}
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    us = sum(e.self_device_time_total for e in events)
+    return out, us / 1e3, traced_launches(events, counted)
+
+
+def traced_launches(events, counted):
+    """The launches of the port's kernels among profiler ``events`` (each
+    with a ``key``, the kernel's name, and a ``count``), by device kernel;
+    raises unless they equal what the wrapper ``counted`` launches give, or
+    when there are none. PyTorch's own flash kernels share a name and are
+    left out."""
+    traced = {k: sum(e.count for e in events if k in e.key and "pytorch" not in e.key) for k in DEVICE_KERNELS}
+    want = {k: sum(counted.get(n, 0) for n in names) for k, names in DEVICE_KERNELS.items()}
+    if traced != want or not any(traced.values()):
+        raise AssertionError(f"kernel launches in the trace {traced} != the wrappers' counts {want}")
+    return {k: v for k, v in traced.items() if v}
+
+
+def wall_ms_of(fn):
+    """fn()'s result and its host milliseconds, ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def launches_of(kernels, fn):
+    """fn()'s result and the kernel launches it counted."""
+    before = {n: f.launches for n, f in kernels.items()}
+    out = fn()
+    return out, {n: f.launches - before[n] for n, f in kernels.items() if f.launches != before[n]}
+
+
+def optimizer_step(trainer, seed: int):
+    """One ClippedAdamW step (lr 1e-2, large enough that greedy tokens
+    change) of the trainer's trainable weights with seeded gradients: every
+    trained weight (two blocks, embeddings, the heads) changes in place, as
+    after a PPO step."""
+    from trlx_tpu_torch.trainer.base import ClippedAdamW
+
+    dev = trainer.trainable[0].device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    grads = [torch.randn(p.shape, generator=gen, device=dev) for p in trainer.trainable]
+    ClippedAdamW(trainer.trainable, lambda k: 1e-2, 0.9, 0.95, 0.0, 1.0).step(trainer.trainable, grads)
+
+
+def graph_chunked(kernels):
+    """The chunked sampler, eager against graph replay, at GPT-J-6B width
+    and ``GRAPH_LAYERS`` layers: one chunk of 8 prompts through the fused
+    rollout generation (256 new tokens), greedy, then again after an
+    optimizer step, then sampled from equal generator states. Tokens, masks
+    and stats must be bit-equal and the launches equal; each route's wall
+    and kernel ms per call (prefill included) give its busy share."""
+    from dataclasses import replace
+    from functools import partial
+
+    from trlx_tpu_torch.pipeline.prompt_pipeline import PromptPipeline
+    from trlx_tpu_torch.trainer.ppo import PPOTrainer
+
+    trainer = PPOTrainer(smoke_config(n_layer=GRAPH_LAYERS, run="graph_chunked", greedy=True))
+    pipe = PromptPipeline(seeded_prompts(CHUNK, 9), None, max_prompt_length=trainer.prompt_length)
+    ids, mask = trainer.put(pipe.input_ids), trainer.put(pipe.attention_mask)
+    base = trainer._generate_fused_fn
+
+    def bound_fn(eager, **kw):
+        return partial(base.func, *base.args, **{**base.keywords, "_keep": {}, "_eager": eager, **kw})
+
+    fns = {"eager": bound_fn(True), "graph": base}
+
+    def same(a, b):
+        (ta, ma, sa, _), (tb, mb, sb, _) = a, b
+        return torch.equal(ta, tb) and torch.equal(ma, mb) and all(torch.equal(sa[k], sb[k]) for k in sa)
+
+    out, res = {}, {}
+    for route, fn in fns.items():
+        # The graph route captures in its first call.
+        (res[route], launches), first = wall_ms_of(lambda: launches_of(kernels, lambda: fn(ids, mask, None)))
+        _, wall = wall_ms_of(lambda: fn(ids, mask, None))
+        _, kern, traced = traced_kernel_ms(kernels, lambda: fn(ids, mask, None))
+        out[route] = {"launches": launches, "first_call_wall_ms": first, "wall_ms": wall, "kernel_ms": kern,
+                      "busy_share": kern / wall, "traced_launches": traced}
+    if not same(res["eager"], res["graph"]):
+        raise AssertionError("chunked sampler: graph tokens / masks / stats differ from eager")
+    if out["eager"]["launches"] != out["graph"]["launches"]:
+        raise AssertionError(f"chunked sampler launches: eager {out['eager']['launches']} != graph "
+                             f"{out['graph']['launches']}")
+    optimizer_step(trainer, 21)
+    after = {route: fn(ids, mask, None) for route, fn in fns.items()}
+    if not same(after["eager"], after["graph"]):
+        raise AssertionError("chunked sampler: after an optimizer step, graph tokens differ from eager")
+    out["after_step_rows_changed"] = int((after["graph"][0] != res["graph"][0]).any(1).sum())
+    if not out["after_step_rows_changed"]:
+        raise AssertionError("chunked sampler: no token changed after the optimizer step: the check sees nothing")
+    sampled = replace(trainer.gen_cfg, do_sample=True)
+    gens = {route: trainer.chunk_rng(5) for route in fns}
+    drawn = {route: bound_fn(route == "eager", gcfg=sampled)(ids, mask, gens[route]) for route in fns}
+    if not same(drawn["eager"], drawn["graph"]):
+        raise AssertionError("chunked sampler: sampled graph tokens differ from eager from the same generator state")
+    if not torch.equal(gens["eager"].get_state(), gens["graph"].get_state()):
+        raise AssertionError("chunked sampler: the graph route left the caller's generator in another state")
+    del trainer, base, fns, res, after, drawn
+    free()
+    return out
+
+
+def graph_engine(kernels):
+    """The paged int8 engine (the main path's: 8 slots, block 128, 8 steps a
+    call), eager against graph replay, at GPT-J-6B width and
+    ``GRAPH_LAYERS`` layers: 8 prompts of the engine path filling the slots,
+    drained, greedy; then again after an optimizer step (a new weight
+    version); then sampled from equal generator states. Episodes must be
+    bit-equal and the launches equal. Each route's wall ms per decode call
+    (host clock, ending in its sync) and kernel ms per call (profiler, 2
+    calls) give its busy share."""
+    from dataclasses import replace
+
+    from trlx_tpu_torch.engine import RolloutEngine
+    from trlx_tpu_torch.pipeline.prompt_pipeline import PromptPipeline
+    from trlx_tpu_torch.trainer.ppo import PPOTrainer
+
+    trainer = PPOTrainer(smoke_config(quant=True, n_layer=GRAPH_LAYERS, run="graph_engine", greedy=True,
+                                      paged_kv=True, **ENGINE))
+    pipe = PromptPipeline(engine_prompts()[:ENGINE["engine_slots"]], None, max_prompt_length=trainer.prompt_length)
+
+    def make(route, gcfg):
+        return RolloutEngine(trainer.model, gcfg, n_slots=ENGINE["engine_slots"], prompt_width=PROMPT_LEN,
+                             processor=trainer._gen_processor, prefill_batch=ENGINE["prefill_batch"],
+                             steps_per_sync=ENGINE["engine_steps_per_sync"], paged_kv=True,
+                             kv_block_size=ENGINE["kv_block_size"], generator=trainer.seeded_generator(3),
+                             _eager=route == "eager")
+
+    def drain(engine, version, timed=False):
+        engine.update_weights(trainer.model, version=version)
+        engine.submit(pipe.input_ids, pipe.attention_mask)
+        eps, first = wall_ms_of(engine.step)  # admission, and the first call (the graph captures here)
+        t = {"first_step_wall_ms": first}
+        if timed:
+            walls = [wall_ms_of(lambda: eps.extend(engine.step()))[1] for _ in range(3)]
+            _, kern, traced = traced_kernel_ms(kernels, lambda: [eps.extend(engine.step()) for _ in range(2)])
+            if eps:
+                raise AssertionError("engine: an episode finished inside the measured calls")
+            t.update(wall_ms_per_call=float(np.median(walls)), wall_ms_runs=walls, kernel_ms_per_call=kern / 2,
+                     traced_launches_two_calls=traced)
+            t["busy_share"] = t["kernel_ms_per_call"] / t["wall_ms_per_call"]
+        while not engine.idle:
+            eps.extend(engine.step())
+        return {tuple(e.prompt_ids.tolist()): e.response_ids for e in eps}, t
+
+    def same(a, b):
+        return set(a) == set(b) and all(np.array_equal(a[k], b[k]) for k in a)
+
+    out, first, second = {}, {}, {}
+    engines = {route: make(route, trainer.gen_cfg) for route in ("eager", "graph")}
+    for route, engine in engines.items():
+        (first[route], t), launches = launches_of(kernels, lambda: drain(engine, 0, timed=True))
+        out[route] = {"launches": launches, **t}
+    if not same(first["eager"], first["graph"]):
+        raise AssertionError("engine: graph episodes differ from eager")
+    if out["eager"]["launches"] != out["graph"]["launches"]:
+        raise AssertionError(f"engine launches: eager {out['eager']['launches']} != graph {out['graph']['launches']}")
+    optimizer_step(trainer, 22)
+    for route, engine in engines.items():
+        second[route], _ = drain(engine, 1)
+        engine.shutdown()
+    if not same(second["eager"], second["graph"]):
+        raise AssertionError("engine: after an optimizer step, graph episodes differ from eager")
+    out["after_step_rows_changed"] = sum(not np.array_equal(second["graph"][k], first["graph"][k])
+                                         for k in first["graph"])
+    if not out["after_step_rows_changed"]:
+        raise AssertionError("engine: no token changed after the optimizer step: the check sees nothing")
+    sampled = replace(trainer.gen_cfg, do_sample=True)
+    drawn = {}
+    for route in ("eager", "graph"):
+        engine = make(route, sampled)
+        drawn[route], _ = drain(engine, 2)
+        engine.shutdown()
+    if not same(drawn["eager"], drawn["graph"]):
+        raise AssertionError("engine: sampled graph episodes differ from eager from the same generator state")
+    del trainer, engines
+    free()
+    return out
+
+
+def phase_graph(kernels):
+    """Decode replayed as a CUDA graph against eager launches, through the
+    chunked sampler and the paged int8 engine."""
+    out = {"chunked": graph_chunked(kernels), "engine": graph_engine(kernels)}
+    for path, r in out.items():
+        for route in ("eager", "graph"):
+            x = r[route]
+            wall = x.get("wall_ms", x.get("wall_ms_per_call"))
+            kern = x.get("kernel_ms", x.get("kernel_ms_per_call"))
+            log(f"[graph] {path} ({GRAPH_LAYERS} layers) {route}: wall {wall:.2f} ms, kernels {kern:.2f} ms per "
+                f"{'call' if path == 'chunked' else 'decode call'}, busy {x['busy_share']:.3f}")
+    log(f"[graph] graph vs eager, bit-equal tokens and equal launches: {json.dumps(out)}")
+    return out
+
+
 def compare_greedy(paged, fixed):
     """Share of identical response tokens between the paged and fixed-slot
     engines, and each row's first divergence (reported, not gated: their
@@ -1267,11 +1584,6 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     from trlx_tpu_torch.ops import cuda_lib
-    from trlx_tpu_torch.ops.decode_attention import (
-        decode_attention, decode_attention_int8, paged_decode_attention, paged_decode_attention_int8,
-    )
-    from trlx_tpu_torch.ops.flash_attention import flash_bwd_dkv, flash_bwd_dq, flash_fwd
-    from trlx_tpu_torch.ops.fused_logprob import fused_logprob_bwd_dw, fused_logprob_bwd_dx, fused_logprob_fwd
 
     t_start = time.perf_counter()
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
@@ -1307,12 +1619,7 @@ def main() -> int:
     for name in ("flash_bwd", "fused_logprob_bwd"):
         phases.update(phases.pop(name))
 
-    kernels = {"flash_attention_fwd": flash_fwd, "flash_attention_bwd_dq": flash_bwd_dq,
-               "flash_attention_bwd_dkv": flash_bwd_dkv, "decode_attention": decode_attention,
-               "fused_logprob_fwd": fused_logprob_fwd, "fused_logprob_bwd_dx": fused_logprob_bwd_dx,
-               "fused_logprob_bwd_dw": fused_logprob_bwd_dw, "decode_attention_int8": decode_attention_int8,
-               "paged_decode_attention": paged_decode_attention,
-               "paged_decode_attention_int8": paged_decode_attention_int8}
+    kernels = port_kernels()
     by_path = {}
 
     def run(path, fn):
@@ -1333,6 +1640,9 @@ def main() -> int:
     log(f"[grad] done in {time.perf_counter() - t0:.1f}s")
     run("train_bf16", lambda: train_path(kernels))
     run("engine_train", lambda: engine_train_path(kernels))
+    t0 = time.perf_counter()
+    phase_graph(kernels)
+    log(f"[graph] done in {time.perf_counter() - t0:.1f}s")
     split = logprob_bwd_split(LOGPROB_BWD_SEED)
     phases["fused_logprob_bwd_dx"]["kernels_only_ms"] = split.pop("fused_logprob_bwd_ds_dx_kernels")
     for name, ms in split.items():
@@ -1372,7 +1682,7 @@ def main() -> int:
                "bound_ms": p["bound_ms"], "bound_by": p["bound_by"], "library_ms": p["library_ms"],
                "shape": p["shape"]}
         for key in ("library", "max_abs_err_split_edges", "matmul_ms", "ms_bf16_weight", "cast_ms",
-                    "kernels_only_ms"):
+                    "kernels_only_ms", "turns_vs_library", "eager_ms"):
             if key in p:
                 row[key] = p[key]
         if name == "flash_attention_fwd":

@@ -16,8 +16,14 @@ read from the kernels' sources; the V split is the wrapper's own
   ds into the db partials [row tile, V].
 - dx: one CTA per 128 x 256 tile of dx [rows, D], summed over the
   vocabulary in 64-wide chunks of ds and W.
-- dW (not redesigned): per chunk, dW (+)= xᵀ·ds; db sums the partials of
-  every row tile in order.
+- dW: after the last chunk, once over ds of every row: a
+  persistent grid of min(tiles, SMs) CTAs, CTA c taking output tiles c,
+  c + grid, ... of 128 x 256, ordered ds panel slowest (untied: dW = xᵀ·ds,
+  the 128-row tile of D fastest; tied: dW = dsᵀ·x, the 256-column tile of D
+  fastest); each tile sums over the rows in GEMM_BK = 64 chunks of two
+  64-wide MN-major A boxes and four 64-wide MN-major B boxes, and is stored
+  once, nothing past D or V. db sums the partials of every row tile in
+  order.
 
 Every load is modelled as TMA makes it: rows past N, columns past V and
 reductions past D or V read as zeros (the tensors are zero-padded to whole
@@ -132,9 +138,60 @@ def forward_walk(x, w, y, b, tied, sms):
     return lab - lse, lse, lse - R / ls
 
 
+def dw_order(m_valid, n_valid, tied):
+    """The dW kernel's output tiles (m tile, n tile) in walk order: the ds
+    panel slowest (untied: ds is B, the 128-row tile of D fastest; tied: ds
+    is A, the 256-column tile of D fastest)."""
+    m_tiles, n_tiles = -(-m_valid // BM), -(-n_valid // BN)
+    if tied:
+        return [(t // n_tiles, t % n_tiles) for t in range(m_tiles * n_tiles)]
+    return [(t % m_tiles, t // m_tiles) for t in range(m_tiles * n_tiles)]
+
+
+def dw_walk(x, ds, rows, V, tied, sms):
+    """dW as the dW kernel computes it from ``rows`` rows of x [rows, D] and
+    of the bf16-valued ds [>= rows, ldv] (zero past V): [D, V] untied,
+    [V, D] tied, CTA c of the persistent grid taking tiles c, c + grid, ...
+    of ``dw_order``. Each output element is written by exactly one tile."""
+    D = x.shape[1]
+    ldv = ds.shape[1]
+    a_src, b_src = (ds, x) if tied else (x, ds)  # both [rows, output dim], output dim contiguous
+    m_valid, n_valid = (V, D) if tied else (D, V)
+    m_tiles, n_tiles = -(-m_valid // BM), -(-n_valid // BN)
+    nk = -(-rows // BK)
+    # TMA's fills: zero past the rows and past each map's inner extent.
+    ap = _pad(a_src[:rows].float(), nk * BK, m_tiles * BM)
+    bp = _pad(b_src[:rows].float(), nk * BK, n_tiles * BN)
+    out = torch.zeros((m_valid, n_valid))
+    written = torch.zeros((m_valid, n_valid), dtype=torch.int32)
+    order = dw_order(m_valid, n_valid, tied)
+    grid = min(len(order), sms)
+    for cta in range(grid):
+        for mt, nt in order[cta::grid]:
+            _dw_tile(ap, bp, nk, mt, nt, m_valid, n_valid, out, written)
+    assert ldv >= V and bool((written == 1).all()), "a dW element written twice or never"
+    return out
+
+
+def _dw_tile(ap, bp, nk, mt, nt, m_valid, n_valid, out, written):
+    """One output tile: the products of every 64-row reduction chunk, then
+    the store of its part inside dW."""
+    acc = torch.zeros((BM, BN))
+    for kc in range(nk):
+        k0 = kc * BK
+        a_boxes = [ap[k0:k0 + BK, mt * BM + 64 * j:mt * BM + 64 * (j + 1)] for j in range(BM // 64)]
+        b_boxes = [bp[k0:k0 + BK, nt * BN + 64 * j:nt * BN + 64 * (j + 1)] for j in range(BN // 64)]
+        acc += torch.cat(a_boxes, 1).t() @ torch.cat(b_boxes, 1)
+    r0, c0 = mt * BM, nt * BN
+    r1, c1 = min(BM, m_valid - r0), min(BN, n_valid - c0)
+    out[r0:r0 + r1, c0:c0 + c1] = acc[:r1, :c1]
+    written[r0:r0 + r1, c0:c0 + c1] += 1
+
+
 def backward_walk(x, w, b, y, lse, ent, dlp, dlse, dent, tied, sms, chunk):
     """(dx, dW, db) as the ds, dx and dW kernels compute them, walking the
-    rows in chunks of ``chunk`` (the wrapper's BWD_CHUNK_ROWS)."""
+    rows in chunks of ``chunk`` (the wrapper's BWD_CHUNK_ROWS) for ds and dx,
+    then dW once over every row's ds."""
     N, D = x.shape
     V = w.shape[0] if tied else w.shape[1]
     ldv = _ceil(V, K["DS_LD"])
@@ -142,8 +199,8 @@ def backward_walk(x, w, b, y, lse, ent, dlp, dlse, dent, tied, sms, chunk):
     wdv = _pad(_w_dv(w, tied), _ceil(D, BN), n_vt * BN)  # zero past D (dx tiles) and V
     C = min(chunk, _ceil(N, BM))
     dx = torch.zeros((N, D))
-    dw = torch.zeros((D, V))
     dbpart = torch.zeros((-(-N // BM), V))
+    ds_all = torch.full((_ceil(N, BM), ldv), float("nan"))  # the scratch holds garbage before the kernels
     for c0 in range(0, N, C):
         rows = min(C, N - c0)
         n_rt = -(-rows // BM)
@@ -152,7 +209,7 @@ def backward_walk(x, w, b, y, lse, ent, dlp, dlse, dent, tied, sms, chunk):
         xp = _pad(x[c0:c0 + rows], n_rt * BM, D)
         vec = [_pad(t[c0:c0 + rows][None].float(), 1, n_rt * BM)[0] for t in (lse, ent, dlp, dlse, dent)]
         yc = _pad(y[c0:c0 + rows][None], 1, n_rt * BM)[0]
-        ds = torch.full((C, ldv), float("nan"))  # the scratch holds garbage before the kernel
+        ds = ds_all[c0:]
         for rt in range(n_rt):
             rr = torch.arange(rt * BM, (rt + 1) * BM)
             inr = (rr < rows)[:, None]
@@ -184,10 +241,10 @@ def backward_walk(x, w, b, y, lse, ent, dlp, dlse, dent, tied, sms, chunk):
                 r1 = min(BM, rows - rt * BM)
                 c1 = min(BN, D - dt * BN)
                 dx[c0 + rt * BM:c0 + rt * BM + r1, dt * BN:dt * BN + c1] = acc[:r1, :c1].to(x.dtype).float()
-        # dW (+)= x^T . ds over the chunk's rows.
-        dw += x[c0:c0 + rows].float().t() @ ds[:rows, :V]
+    assert not torch.isnan(ds_all).any(), "a ds row tile the dW kernel reads was never written"
+    dw = dw_walk(x.float(), ds_all, N, V, tied, sms)
     db = None if b is None else dbpart.sum(0)
-    return dx.to(x.dtype), (dw.t() if tied else dw).to(w.dtype), db
+    return dx.to(x.dtype), dw.to(w.dtype), db
 
 
 def _inputs(N, D, V, tied, bias, seed):
@@ -275,3 +332,35 @@ def test_split_count_fills_the_card_once():
             tps = -(-n_vt // S)
             assert (S - 1) * tps < n_vt <= S * tps
             assert -(-n_rows // BM) * S <= max(132, -(-n_rows // BM))
+
+
+@pytest.mark.parametrize("tied", [False, True], ids=["untied", "tied"])
+@pytest.mark.parametrize("N,D,V", [(300, 128, 4097), (130, 384, 1000), (1000, 128, 600)])
+def test_dw_walk_one_pass_matches_plain_backward(N, D, V, tied):
+    """The one dW pass over the ds of every row, after a ds walk in chunks
+    of 128 rows, against the port's plain backward in f32: the same dW and
+    db within f32 order, rows not a multiple of 64, several chunks."""
+    x, w, y, b, cts = _inputs(N, D, V, tied, True, seed=3)
+    tx, tw, ty, tb = (torch.from_numpy(a) for a in (x, w, y, b))
+    lp, lse, ent = flp.naive_logprob(tx, tw, ty, tb, tied=tied)
+    cts = [torch.from_numpy(c) for c in cts]
+    got = backward_walk(tx, tw, tb, ty, lse, ent, *cts, tied, 132, chunk=BM)
+    ref = flp.fused_logprob_bwd_plain(tx, tw, tb, ty, lse, ent, *cts, tied=tied)
+    np.testing.assert_allclose(got[1].numpy(), ref[1].numpy(), **TOL)
+    np.testing.assert_allclose(got[2].numpy(), ref[2].numpy(), **TOL)
+
+
+@pytest.mark.parametrize("tied", [False, True], ids=["untied", "tied"])
+def test_dw_walk_waves_share_ds_panels(tied):
+    """At the smoke's shape (D = 4096, V = 50400, 132 SMs: 6304 tiles), the
+    tiles of a wave share their ds panels: a wave of 132 tiles touches at
+    most ceil(132 / x tiles) + 1 ds panels (5 untied, of 197; 10 tied, of
+    394), so ds is read from memory about once while x stays in L2. Only
+    the walk's order is modelled here (one reduction chunk of 64 rows)."""
+    D, V, sms = 4096, 50400, 132
+    order = dw_order(V, D, True) if tied else dw_order(D, V, False)
+    panels = [mt if tied else nt for mt, nt in order]
+    waves = [panels[i:i + sms] for i in range(0, len(panels), sms)]
+    x_tiles = D // BN if tied else D // BM
+    assert len(order) == len(set(order)) == 6304
+    assert max(len(set(wv)) for wv in waves) <= -(-sms // x_tiles) + 1

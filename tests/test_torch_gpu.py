@@ -635,7 +635,7 @@ def test_fused_logprob_bwd_kernels_match_plain(tied, bias, wdtype, N, V):
     dx, dw, db = fused_logprob_bwd(x, w, b, y, lse, ent, dlp, dlse, dent, tied=tied)
     torch.cuda.synchronize()
     chunks = -(-N // BWD_CHUNK_ROWS)
-    assert (fused_logprob_bwd_dx.launches, fused_logprob_bwd_dw.launches) == (n_dx + chunks, n_dw + chunks)
+    assert (fused_logprob_bwd_dx.launches, fused_logprob_bwd_dw.launches) == (n_dx + chunks, n_dw + 1)
     assert dx.dtype == torch.bfloat16 and dw.dtype == wdtype
     rdx, rdw, rdb = fused_logprob_bwd_plain(x, w, b, y, lse, ent, dlp, dlse, dent, tied=tied)
     # ds is rounded to bf16 on both sides before the products, and a sum in
@@ -651,6 +651,50 @@ def test_fused_logprob_bwd_kernels_match_plain(tied, bias, wdtype, N, V):
     _close(dw[unhit] if tied else dw[:, unhit], rdw[unhit] if tied else rdw[:, unhit], 1e-2)
     if bias:
         _close(db[unhit], rdb[unhit], 1e-3)
+
+
+def _dw_case(g, dev, N, D, V, tied, bias):
+    """Backward inputs with logits spread as a trained head's."""
+    from trlx_tpu_torch.ops.fused_logprob import fused_logprob_fwd
+
+    x = torch.randn((N, D), generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn((V, D) if tied else (D, V), generator=g, device=dev) * (3.5 * D ** -0.5)
+    b = torch.randn((V,), generator=g, device=dev) * 0.1 if bias else None
+    y = torch.randint(0, V, (N,), generator=g, device=dev)
+    _, lse, ent = fused_logprob_fwd(x, w, y, b, tied=tied)
+    return (x, w, b, y, lse, ent, *(torch.randn((N,), generator=g, device=dev) for _ in range(3)))
+
+
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "no-bias"])
+@pytest.mark.parametrize("tied", [False, True], ids=["untied", "tied"])
+@pytest.mark.parametrize("V", [4097, 50257, 50400])
+@pytest.mark.parametrize("rows", [64, 1000, 2048])
+def test_fused_logprob_dw_kernel_matches_plain(rows, V, tied, bias):
+    """Row 6, the dW/db kernel on the wgmma mainloop (both operands
+    MN-major, one launch over all rows, a persistent grid): dW and db
+    against the plain backward on all columns and on the columns no label
+    hits, at row counts that are and are not multiples of 64 and 128, and
+    vocabularies that are not multiples of 256, 128 or 8; launched once."""
+    dev = _cuda()
+    from trlx_tpu_torch.ops.fused_logprob import fused_logprob_bwd, fused_logprob_bwd_dw, fused_logprob_bwd_plain
+
+    g = torch.Generator(device=dev).manual_seed(rows + V)
+    args = _dw_case(g, dev, rows, 256, V, tied, bias)
+    n_dw = fused_logprob_bwd_dw.launches
+    _, dw, db = fused_logprob_bwd(*args, tied=tied)
+    torch.cuda.synchronize()
+    assert fused_logprob_bwd_dw.launches == n_dw + 1
+    _, rdw, rdb = fused_logprob_bwd_plain(*args, tied=tied)
+    assert dw.shape == rdw.shape and dw.dtype == torch.float32
+    _close(dw, rdw, 1e-2)
+    unhit = torch.ones(V, dtype=torch.bool, device=dev)
+    unhit[args[3]] = False
+    _close(dw[unhit] if tied else dw[:, unhit], rdw[unhit] if tied else rdw[:, unhit], 1e-2)
+    if bias:
+        _close(db, rdb, 1e-3)
+        _close(db[unhit], rdb[unhit], 1e-3)
+    else:
+        assert db is None
 
 
 @pytest.mark.parametrize("tied", [False, True], ids=["untied", "tied"])
@@ -743,7 +787,7 @@ def test_generate_eos_exit_on_the_card():
     dev = _cuda()
     from trlx_tpu_torch.models.hf_import import init_params
     from trlx_tpu_torch.models.lm import LMConfig, TransformerLM
-    from trlx_tpu_torch.ops.generate import generate
+    from trlx_tpu_torch.ops.generate import make_generate_fn
     from trlx_tpu_torch.ops.sampling import GenerateConfig, make_bigram_mask_processor
 
     V, eos, N = 64, 40, 48
@@ -765,19 +809,136 @@ def test_generate_eos_exit_on_the_card():
 
     runs = []
     for model, gen in ((cpu_model, torch.Generator()), (gpu_model, torch.Generator(device=dev))):
-        calls = [0]
-        hook = model.register_forward_hook(lambda *_: calls.__setitem__(0, calls[0] + 1))
-        with torch.no_grad():
-            tokens, mask, stats = generate(model, ids, torch.ones_like(ids), gen.manual_seed(0), gcfg=gcfg,
-                                           processor=make_bigram_mask_processor(forbid), step_stats_fn=stats_fn)
-        hook.remove()
-        runs.append((tokens.cpu(), mask.cpu(), stats["lp"].cpu(), calls[0]))
-    (ct, cm, clp, c_calls), (gt, gm, glp, g_calls) = runs
+        fn = make_generate_fn(model, gcfg, processor=make_bigram_mask_processor(forbid), step_stats_fn=stats_fn)
+        tokens, mask, stats = fn(ids, torch.ones_like(ids), gen.manual_seed(0))
+        # The decode steps the loop ran: the step counter a replay advances on the card.
+        runs.append((tokens.cpu(), mask.cpu(), stats["lp"].cpu(), int(fn.keywords["_keep"]["buffers"]["step"])))
+    (ct, cm, clp, c_steps), (gt, gm, glp, g_steps) = runs
     assert torch.equal(ct, gt) and torch.equal(cm, gm)
     assert cm[:, 3:].sum(1).tolist() == [10, 5, 2]
     torch.testing.assert_close(glp, clp, rtol=0, atol=1e-4)
-    assert c_calls == 1 + 10  # prefill, then steps 0..9; all rows finished at step 9
-    assert 1 + 10 <= g_calls < 1 + N
+    assert c_steps == 10  # steps 0..9; all rows finished at step 9
+    assert 10 <= g_steps < N
+
+
+def _graph_model(dev, quant=False):
+    """A bf16 hydra model at widths every decode kernel takes (8 heads of
+    128, rotary, 2 layers, the top one trained), logits spread as a trained
+    head's so greedy choices are no near ties; and its optimizer."""
+    from trlx_tpu_torch.models.heads import LMWithValueHead, trainable_mask
+    from trlx_tpu_torch.models.hf_import import init_params
+    from trlx_tpu_torch.models.lm import LMConfig
+    from trlx_tpu_torch.trainer.base import ClippedAdamW
+
+    cfg = LMConfig(vocab_size=64, n_layer=2, n_head=8, d_model=1024, max_position=512, pos_type="rotary",
+                   rotary_dim=32, parallel_residual=True, fused_qkv=False, qkv_bias=False, out_bias=False,
+                   tie_word_embeddings=False, extra={"lm_head_bias": True}, kv_cache_quant=quant)
+    model = LMWithValueHead(cfg, branch_layer=1, device=dev)
+    init_params(model, torch.Generator(device=dev).manual_seed(0))
+    with torch.no_grad():
+        model.transformer.lm_head.kernel.mul_(30.0)
+    keep = trainable_mask(model, cfg, 1)
+    for name, p in model.named_parameters():
+        p.requires_grad_(name in keep)
+    params = [p for p in model.parameters() if p.requires_grad]
+    return model, params, ClippedAdamW(params, lambda k: 1e-2, 0.9, 0.95, 0.0, 1.0)
+
+
+def _optimizer_step(params, opt, seed):
+    g = torch.Generator(device=params[0].device).manual_seed(seed)
+    opt.step(params, [torch.randn(p.shape, generator=g, device=p.device) for p in params])
+
+
+@pytest.mark.parametrize("sample", [False, True], ids=["greedy", "sampled"])
+def test_generate_graph_equals_eager(sample):
+    """The chunked sampler's CUDA graph route against its eager route: the
+    same tokens, masks and stats, bit for bit, and the same launches; again
+    after an optimizer step (the graph reads the refreshed bf16 copies);
+    sampled from equal generator states, which both leave equal."""
+    dev = _cuda()
+    from functools import partial
+
+    from trlx_tpu_torch.ops.cuda_graph import launch_counters
+    from trlx_tpu_torch.ops.decode_attention import decode_attention
+    from trlx_tpu_torch.ops.generate import make_generate_fn
+    from trlx_tpu_torch.ops.sampling import GenerateConfig
+
+    model, params, opt = _graph_model(dev)
+    gcfg = GenerateConfig(max_new_tokens=24, do_sample=sample, temperature=0.7, top_p=0.9)
+
+    def stats_fn(tok, s):
+        return {"lp": torch.log_softmax(s["last_logits"], -1).gather(-1, tok[:, None].long())[:, 0],
+                "value": s["carry"]["values"], "branch_hidden": s["carry"]["branch_hidden"]}
+
+    graph = make_generate_fn(model, gcfg, step_stats_fn=stats_fn, carry_keys=("values", "branch_hidden"),
+                             apply_kwargs={"collect_branch_hidden": True})
+    eager = partial(graph.func, *graph.args, **{**graph.keywords, "_keep": {}, "_eager": True})
+    ids = torch.randint(1, 64, (4, 256), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    pmask = torch.ones_like(ids)
+    pmask[1, :100] = 0
+    counters = launch_counters()
+    for k in range(3):
+        if k == 2:
+            _optimizer_step(params, opt, 5)
+        runs = {}
+        for name, fn in (("eager", eager), ("graph", graph)):
+            gen = torch.Generator(device=dev).manual_seed(11)
+            before = [c.launches for c in counters]
+            out = fn(ids, pmask, gen)
+            torch.cuda.synchronize()
+            runs[name] = (out, [c.launches - b for c, b in zip(counters, before)], gen.get_state())
+        (eo, el, es), (go, gl, gs) = runs["eager"], runs["graph"]
+        assert torch.equal(eo[0], go[0]) and torch.equal(eo[1], go[1])
+        assert all(torch.equal(eo[2][key], go[2][key]) for key in eo[2])
+        assert el == gl and el[counters.index(decode_attention)] == 2 * 24  # both layers, every step
+        assert torch.equal(es, gs)
+    assert graph.keywords["_keep"]["buffers"]["graph"] is not None
+
+
+@pytest.mark.parametrize("paged,quant", [(True, True), (False, False)], ids=["paged-int8", "fixed-bf16"])
+def test_engine_graph_equals_eager(paged, quant):
+    """The engine's CUDA graph of a decode call against its eager calls:
+    the same episodes, bit for bit, with refills, and the same launches;
+    again after an optimizer step handed over as a new version."""
+    dev = _cuda()
+    import numpy as np
+
+    from trlx_tpu_torch.engine import RolloutEngine
+    from trlx_tpu_torch.ops.cuda_graph import launch_counters
+    from trlx_tpu_torch.ops.sampling import GenerateConfig
+
+    model, params, opt = _graph_model(dev, quant)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(1, 64, size=(6, 200)).astype(np.int32)
+    prompts[3] = prompts[0]
+    mask = np.ones_like(prompts)
+    mask[1, :70] = 0
+    gcfg = GenerateConfig(max_new_tokens=16, do_sample=False)
+    kw = dict(n_slots=4, prompt_width=200, prefill_batch=2, steps_per_sync=4, paged_kv=paged, kv_block_size=128)
+    engines = {name: RolloutEngine(model, gcfg, **kw, _eager=name == "eager") for name in ("eager", "graph")}
+    counters = launch_counters()
+    for version in (1, 2):
+        if version == 2:
+            _optimizer_step(params, opt, 6)
+        runs = {}
+        for name, engine in engines.items():
+            engine.update_weights(model, version=version)
+            engine.submit(prompts, mask)
+            before = [c.launches for c in counters]
+            eps = []
+            while not engine.idle:
+                eps.extend(engine.step())
+            torch.cuda.synchronize()
+            runs[name] = ({(tuple(e.prompt_ids.tolist()), tuple(e.prompt_mask.tolist())): e.response_ids
+                           for e in eps}, [c.launches - b for c, b in zip(counters, before)])
+        (er, el), (gr, gl) = runs["eager"], runs["graph"]
+        assert len(er) == 5 and er.keys() == gr.keys()
+        for key in er:
+            np.testing.assert_array_equal(gr[key], er[key])
+        assert el == gl and sum(el) > 0
+    assert engines["graph"]._graph is not None
+    for engine in engines.values():
+        engine.shutdown()
 
 
 def test_train_on_the_card(tmp_path):

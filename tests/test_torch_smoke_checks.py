@@ -1,7 +1,11 @@
-"""``chip_smoke.py``'s comparison of the fused-logprob backward sees a ds
-that loses or flips one of its softmax terms, at a small shape on the CPU:
-the plain backward is the reference, and a copy with a mutated ds plays the
-kernel. The unmutated copy must pass."""
+"""``chip_smoke.py``'s checks on the CPU. Its comparison of the
+fused-logprob backward sees a ds that loses or flips one of its softmax
+terms, at a small shape: the plain backward is the reference, and a copy
+with a mutated ds plays the kernel; the unmutated copy must pass. Its
+comparison of the launches a trace shows with the wrappers' counters sees
+a kernel launched once too often or too rarely."""
+
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -49,3 +53,34 @@ def test_head_grad_check_sees_a_mutated_ds(mutation):
         chip_smoke.check_head_grads((dx, ref[1], ref[2]), ref, y)
     with pytest.raises(AssertionError, match=r"logprob_bwd.d[wb]"):
         chip_smoke.check_head_grads((ref[0], dw, db), ref, y)
+
+
+def _events(**counts):
+    """Profiler-like kernel events, named as the card's trace names them."""
+    names = {"decode_split": "void (anonymous namespace)::decode_split_kernel<256, false, false>(DecodeParams)",
+             "decode_merge": "void (anonymous namespace)::decode_merge_kernel<256>(float const*, bf16*, int)",
+             "flash_fwd": "void (anonymous namespace)::flash_fwd_kernel<256>(CUtensorMap, FwdParams)",
+             "torch_flash": "void pytorch_flash::flash_fwd_kernel<Flash_fwd_kernel_traits<256>>(Params)",
+             "gemm": "nvjet_tst_128x256_64x4_1x2_h_bz_coopA_NNT"}
+    return [SimpleNamespace(key=names[k], count=n) for k, n in counts.items()]
+
+
+@pytest.mark.parametrize("case", ["equal", "one_replay_short", "one_launch_extra", "none_traced"])
+def test_traced_launch_check(case):
+    """Replayed launches are counted from the trace: equal counts pass and
+    report the port's kernels only (PyTorch's own flash kernel and cuBLAS
+    left out); a trace with a decode kernel fewer or a flash launch more
+    than the counters, or with none of the port's kernels, is refused."""
+    counted = {"decode_attention": 224, "flash_attention_fwd": 28, "fused_logprob_fwd": 0}
+    traced = {"equal": dict(decode_split=224, decode_merge=224, flash_fwd=28, torch_flash=3, gemm=900),
+              "one_replay_short": dict(decode_split=223, decode_merge=223, flash_fwd=28),
+              "one_launch_extra": dict(decode_split=224, decode_merge=224, flash_fwd=29),
+              "none_traced": dict(gemm=900)}[case]
+    if case == "none_traced":
+        counted = {}
+    if case == "equal":
+        got = chip_smoke.traced_launches(_events(**traced), counted)
+        assert got == {"decode_split_kernel": 224, "decode_merge_kernel": 224, "flash_fwd_kernel": 28}
+        return
+    with pytest.raises(AssertionError, match="launches in the trace"):
+        chip_smoke.traced_launches(_events(**traced), counted)

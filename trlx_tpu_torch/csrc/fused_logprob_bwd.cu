@@ -16,9 +16,8 @@
 // cores bound it. The TPU kernels keep a [128, D] dx accumulator and a
 // [D, 256] dW accumulator in VMEM (2 MB and 4 MB); an SM has 228 KB of
 // shared memory, and splitting D instead would recompute s D/bd times. So the
-// work is cut along N instead. The wrapper walks N in chunks of C rows (C =
-// 1024: a bf16 [C, ldv] ds buffer of ~103 MB, never a full [N, V] one), and
-// per chunk launches
+// work is cut along N instead. The wrapper walks N in chunks of C = 1024 rows
+// for ds and dx, and per chunk launches
 //   1. the ds kernel: the GEMM mainloop of logprob_gemm.cuh (TMA ring +
 //      wgmma, warp-specialised) over x . W, grid = 128-row tiles x V splits
 //      (one CTA per SM), each CTA walking its split's 256-column tiles; the
@@ -29,10 +28,17 @@
 //   2. the dx kernel: dx[C, D] = ds . W^T on the same mainloop, one CTA per
 //      128 x 256 output tile (128 CTAs at C = 1024, D = 4096: one wave),
 //      each reducing over the whole vocabulary with ds and W by TMA;
-//   3. the dW kernel (a separate C entry): dW += x^T . ds, a tiled mma.sync
-//      product reducing over the chunk's rows, read-modify-write of the f32
-//      dW in device memory once per chunk (the first chunk stores). After
-//      the last chunk one small kernel sums the column partials into db.
+//   3. after the last chunk, the dW kernel (a separate C entry) over ds of
+//      every chunk (the wrapper keeps a bf16 [N, ldv] ds, ~206 MB at
+//      N = 2048): dW = x^T . ds (ds^T . x tied) on the same mainloop with
+//      both operands MN-major, reducing over all N rows, so dW is written
+//      once in f32 (826 MB at D = 4096, V = 50400: a read-modify-write per
+//      chunk would move it three times); then one small kernel sums the db
+//      column partials in row-tile order.
+// The dW grid is persistent (one CTA per SM walking the 128 x 256 output
+// tiles with a stride of the grid), ordered so that the tiles a wave runs
+// together share their ds panel and walk the x panels, which (16 MB of x)
+// stay in L2: ds is read from memory about once.
 // W comes in bf16 (the wrapper's one cast of an f32 master, or the
 // forward's copy), its rows 16-byte aligned for TMA. s is computed once:
 // 3 * 2NDV in all, against the TPU decomposition's 4. Every sum has a fixed
@@ -42,11 +48,6 @@
 
 namespace {
 
-// The dW kernel's tiles (mma.sync, 8 warps).
-constexpr int BM = 128;  // output rows per CTA
-constexpr int BN = 128;  // output columns per CTA
-constexpr int BKW = 32;  // reduction chunk (rows)
-constexpr int NTHREADS = 256;
 constexpr int DS_LD = 128;  // ds rows are padded to a multiple of this (ldv)
 constexpr int BAR_COLSUM = 1;  // named barrier of the ds kernel's column sums
 
@@ -215,71 +216,80 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
 }
 
 // ---------------------------------------------------------------------------
-// 3. dW (+)= A^T . B over the chunk's rows, f32 read-modify-write
+// 3. dW = A^T . B over the rows, f32 (untied: x^T . ds; tied: ds^T . x)
 // ---------------------------------------------------------------------------
 
+// Both operands are held [rows, output dim] in memory with the output dim
+// contiguous: MN-major A (two 64-row boxes a stage) and MN-major B (four
+// 64-column boxes). Each output element is stored once.
 struct DwParams {
-  const __nv_bfloat16* a;  // [rows, lda]: row k holds A^T's column k (m along the row)
-  const __nv_bfloat16* b;  // [rows, ldb]
-  float* out;              // [m_valid, ldo] f32
-  int rows, lda, ldb, ldo, m_valid, n_valid, accumulate;
+  float* out;  // [m_valid, ldo]
+  int m_valid, n_valid, ldo, nk, m_tiles, n_tiles, m_fastest;
 };
 
-template <int BKR>
-__global__ void __launch_bounds__(NTHREADS) logprob_dw_kernel(DwParams p) {
-  constexpr int LDT = BM + 8;
-  __shared__ __align__(16) __nv_bfloat16 As[BKR * LDT];  // [k][m]
-  __shared__ __align__(16) __nv_bfloat16 Bs[BKR * LDT];  // [k][n]
+// Output tile t of the walk: M-tile fastest when the ds operand is B
+// (untied), N-tile fastest when it is A (tied).
+__device__ __forceinline__ void dw_tile(const DwParams& p, int t, int& mt, int& nt) {
+  if (p.m_fastest) {
+    mt = t % p.m_tiles;
+    nt = t / p.m_tiles;
+  } else {
+    nt = t % p.n_tiles;
+    mt = t / p.n_tiles;
+  }
+}
 
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+    logprob_dw_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb, DwParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  const GemmRing ring{smem_u32(align_1024(smem_raw))};
+  const int n_tiles = p.m_tiles * p.n_tiles;
 
-  float acc[BN / 8][4];
-#pragma unroll
-  for (int nb = 0; nb < BN / 8; ++nb) acc[nb][0] = acc[nb][1] = acc[nb][2] = acc[nb][3] = 0.f;
-  for (int k0 = 0; k0 < p.rows; k0 += BKR) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < BKR * (BM / 8); i += NTHREADS) {
-      const int r = i / (BM / 8), c = (i % (BM / 8)) * 8;
-      const bool in = k0 + r < p.rows;
-      uint4 va = make_uint4(0, 0, 0, 0), vb = make_uint4(0, 0, 0, 0);
-      if (in && m0 + c < p.lda) va = *reinterpret_cast<const uint4*>(p.a + (size_t)(k0 + r) * p.lda + m0 + c);
-      if (in && n0 + c < p.ldb) vb = *reinterpret_cast<const uint4*>(p.b + (size_t)(k0 + r) * p.ldb + n0 + c);
-      *reinterpret_cast<uint4*>(As + r * LDT + c) = va;
-      *reinterpret_cast<uint4*>(Bs + r * LDT + c) = vb;
-    }
-    __syncthreads();
-    const int m = warp * 16 + g;
-#pragma unroll
-    for (int ks = 0; ks < BKR / 16; ++ks) {
-      const int r = ks * 16 + 2 * t;
-      uint32_t a[4];
-      a[0] = pack_bf16_pair(As + r * LDT + m, As + (r + 1) * LDT + m);
-      a[1] = pack_bf16_pair(As + r * LDT + m + 8, As + (r + 1) * LDT + m + 8);
-      a[2] = pack_bf16_pair(As + (r + 8) * LDT + m, As + (r + 9) * LDT + m);
-      a[3] = pack_bf16_pair(As + (r + 8) * LDT + m + 8, As + (r + 9) * LDT + m + 8);
-#pragma unroll
-      for (int nb = 0; nb < BN / 8; ++nb) {
-        const int n = nb * 8 + g;
-        uint32_t b[2];
-        b[0] = pack_bf16_pair(Bs + r * LDT + n, Bs + (r + 1) * LDT + n);
-        b[1] = pack_bf16_pair(Bs + (r + 8) * LDT + n, Bs + (r + 9) * LDT + n);
-        mma_bf16_16816(acc[nb], a, b);
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      uint32_t it = 0;
+      for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+        int mt, nt;
+        dw_tile(p, t, mt, nt);
+        gemm_produce_tile<false, false>(ring, &ta, &tb, mt * GEMM_BM, nt * GEMM_BN, p.nk, it);
       }
     }
+    return;
   }
 
-  const int mr0 = m0 + warp * 16 + g, mr1 = mr0 + 8;
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int cw = wg - 1;
+  const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const bool pairs = (p.ldo & 1) == 0;  // 8-byte aligned column pairs
+  float acc[GEMM_NACC];
+  uint32_t it = 0;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    int mt, nt;
+    dw_tile(p, t, mt, nt);
+    gemm_tile<false, false>(ring, acc, cw, p.nk, it);
+    // The stores are issued and the next tile's products start behind them.
+    const int row0 = mt * GEMM_BM + cw * 64 + warp * 16 + g;
 #pragma unroll
-  for (int nb = 0; nb < BN / 8; ++nb) {
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row >= p.m_valid) continue;
+      float* orow = p.out + (size_t)row * p.ldo;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int m = e < 2 ? mr0 : mr1;
-      const int n = n0 + nb * 8 + 2 * t + (e & 1);
-      if (m < p.m_valid && n < p.n_valid) {
-        float* o = p.out + (size_t)m * p.ldo + n;
-        *o = p.accumulate ? *o + acc[nb][e] : acc[nb][e];
+      for (int j = 0; j < GEMM_BN / 8; ++j) {
+        const int col = nt * GEMM_BN + 8 * j + 2 * t4;
+        const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+        if (pairs && col + 1 < p.n_valid) {
+          *reinterpret_cast<float2*>(orow + col) = make_float2(v0, v1);
+        } else {
+          if (col < p.n_valid) orow[col] = v0;
+          if (col + 1 < p.n_valid) orow[col + 1] = v1;
+        }
       }
     }
   }
@@ -352,28 +362,33 @@ extern "C" int fused_logprob_bwd_ds_dx(const void* x, const void* w, const void*
                     : launch_ds_dx<false>(tx, tw_s, tds, tw_dx, p, splits, s));
 }
 
-// One chunk of rows: dW (f32; [D, V] untied, [V, D] tied) (+)= the chunk's
-// product; with `db` set (the last chunk of a call with a bias), also sums
-// the n_tiles column partials into db.
+// dW (f32; [D, V] untied, [V, D] tied) of `rows` rows of x [rows, D] and
+// ds [rows, ldv] (bf16, zero past V), each element stored once. A
+// persistent grid of min(tiles, sms) CTAs. With `db` set, also sums the
+// n_tiles column partials into db.
 extern "C" int fused_logprob_bwd_dw(const void* x, const void* ds, void* dw, int rows, int D, int V, int ldv,
-                                    int tied, int accumulate, const void* dbpart, void* db, int n_tiles,
-                                    void* stream) {
-  if (D % BN != 0 || ldv % BN != 0) return (int)cudaErrorInvalidValue;
+                                    int tied, const void* dbpart, void* db, int n_tiles, int sms, void* stream) {
+  if (D % GEMM_BK != 0 || ldv % DS_LD != 0 || ldv < V || rows < 1 || sms < 1) return (int)cudaErrorInvalidValue;
+  // Both maps are [rows, output dim] with boxes of 64 x 64.
+  CUtensorMap tx, tds;
+  if (!make_map_2d(&tx, x, D, rows, D, GEMM_BK) || !make_map_2d(&tds, ds, ldv, rows, ldv, GEMM_BK))
+    return (int)cudaErrorInvalidValue;
   DwParams p;
-  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-  const __nv_bfloat16* dsb = static_cast<const __nv_bfloat16*>(ds);
-  if (tied) {  // dW[V, D] = ds^T . x
-    p.a = dsb; p.lda = ldv; p.b = xb; p.ldb = D; p.ldo = D; p.m_valid = V; p.n_valid = D;
-  } else {  // dW[D, V] = x^T . ds
-    p.a = xb; p.lda = D; p.b = dsb; p.ldb = ldv; p.ldo = V; p.m_valid = D; p.n_valid = V;
-  }
   p.out = static_cast<float*>(dw);
-  p.rows = rows;
-  p.accumulate = accumulate;
+  p.m_valid = tied ? V : D;
+  p.n_valid = tied ? D : V;
+  p.ldo = p.n_valid;
+  p.nk = (rows + GEMM_BK - 1) / GEMM_BK;
+  p.m_tiles = (p.m_valid + GEMM_BM - 1) / GEMM_BM;
+  p.n_tiles = (p.n_valid + GEMM_BN - 1) / GEMM_BN;
+  p.m_fastest = tied ? 0 : 1;  // keep the ds panel, walk the x panels
+  const int smem = GEMM_SMEM_BYTES + 1024;  // room to align to 1024
+  cudaError_t err = set_gemm_smem(logprob_dw_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid((p.m_valid + BM - 1) / BM, (p.n_valid + BN - 1) / BN);
-  logprob_dw_kernel<BKW><<<grid, NTHREADS, 0, s>>>(p);
-  cudaError_t err = cudaGetLastError();
+  const int grid = min(p.m_tiles * p.n_tiles, sms);
+  logprob_dw_kernel<<<grid, GEMM_THREADS, smem, s>>>(tied ? tds : tx, tied ? tx : tds, p);
+  err = cudaGetLastError();
   if (err != cudaSuccess || db == nullptr) return (int)err;
   logprob_db_kernel<<<(V + 255) / 256, 256, 0, s>>>(static_cast<const float*>(dbpart), static_cast<float*>(db),
                                                     n_tiles, V);

@@ -146,20 +146,21 @@ __device__ __forceinline__ void fence_regs(float* r) {
   "}"
 
 // d[64 x 256] (+)= A[64 x 16] . B[16 x 256], both from shared memory, A
-// K-major, B K-major (TRANS_B = 0) or MN-major (TRANS_B = 1). 128
-// accumulator registers a thread, in the layout of four m64n64 tiles side by
-// side: d[4 j + e] is row 16 warp + g (+ 8 for e >= 2), column 8 j + 2 t +
+// K-major (TRANS_A = 0) or MN-major (TRANS_A = 1, bf16 allows it), B
+// K-major (TRANS_B = 0) or MN-major (TRANS_B = 1). 128 accumulator
+// registers a thread, in the layout of four m64n64 tiles side by side:
+// d[4 j + e] is row 16 warp + g (+ 8 for e >= 2), column 8 j + 2 t +
 // (e & 1), for lane = 4 g + t.
-template <int TRANS_B>
+template <int TRANS_A, int TRANS_B>
 __device__ __forceinline__ void wgmma_ss_n256(float* d, uint64_t da, uint64_t db, int accumulate) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
       "setp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " TRLX_REGS128 ", %128, %129, p, 1, 1, 0, %131;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " TRLX_REGS128 ", %128, %129, p, 1, 1, %131, %132;\n"
       "}\n"
       : TRLX_ACC128
-      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
 }
 
 // d[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B K-major in shared memory.

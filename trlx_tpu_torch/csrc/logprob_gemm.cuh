@@ -17,12 +17,15 @@
 //   batch is issued (wait_group 1); only then is the older chunk's stage
 //   freed.
 //
-// Operand forms: A is always K-major (its rows are the output rows, its 64
-// columns the reduction). B is K-major when the matrix that holds it is
-// [output column, reduction] in memory (one box of 256 rows), MN-major when
-// it is [reduction, output column] (four boxes of 64 columns side by side,
-// read through the transposed descriptor). Past the matrices' edges TMA
-// fills zeros, so ragged rows, columns and reductions add nothing.
+// Operand forms: A is K-major when the matrix that holds it is [output row,
+// reduction] in memory (one box of 128 rows x 64 reduction columns), MN-major
+// when it is [reduction, output row] (two boxes of 64 rows side by side, one
+// per consumer warpgroup, read through the transposed descriptor). B is
+// K-major when its matrix is [output column, reduction] (one box of 256
+// rows), MN-major when it is [reduction, output column] (four boxes of 64
+// columns side by side, read through the transposed descriptor). Past the
+// matrices' edges TMA fills zeros, so ragged rows, columns and reductions
+// add nothing.
 
 #pragma once
 
@@ -38,7 +41,7 @@ constexpr int GEMM_STAGES = 4;
 constexpr int GEMM_THREADS = 384;
 constexpr int GEMM_NACC = GEMM_BN / 2;                  // f32 accumulators a consumer thread
 constexpr int GEMM_A_BYTES = GEMM_BM * GEMM_BK * 2;     // 16 KB
-constexpr int GEMM_B_BOX = 64 * GEMM_BK * 2;            // one MN-major box, 8 KB
+constexpr int GEMM_MN_BOX = 64 * GEMM_BK * 2;           // one MN-major box (A or B), 8 KB
 constexpr int GEMM_B_BYTES = GEMM_BN * GEMM_BK * 2;     // 32 KB
 constexpr int GEMM_STAGE_BYTES = GEMM_A_BYTES + GEMM_B_BYTES;
 constexpr int GEMM_RING_BYTES = GEMM_STAGES * GEMM_STAGE_BYTES;
@@ -62,36 +65,46 @@ struct GemmRing {
   }
 };
 
-// Producer (one thread): for the output tiles n_lo .. n_hi - 1 of the CTA's
-// row block m0, every reduction chunk's A box and B tile. `ta` maps A as
-// (reduction, row); `tb` maps B as (reduction, column) when B_KMAJOR, else
-// as (column, reduction).
+// Producer (one thread): every reduction chunk's A and B boxes of the
+// output tile at (m0, n0). `ta` maps A as (reduction, row) when A_KMAJOR,
+// else as (row, reduction); `tb` maps B as (reduction, column) when
+// B_KMAJOR, else as (column, reduction). `it` counts the chunks issued.
+template <bool B_KMAJOR, bool A_KMAJOR = true>
+__device__ __forceinline__ void gemm_produce_tile(const GemmRing& r, const CUtensorMap* ta, const CUtensorMap* tb,
+                                                  int m0, int n0, int nk, uint32_t& it) {
+  for (int kc = 0; kc < nk; ++kc, ++it) {
+    const int s = it % GEMM_STAGES, k0 = kc * GEMM_BK;
+    mbar_wait(r.empty(s), ((it / GEMM_STAGES) & 1) ^ 1);
+    // Boxes that reach past an edge still count their full bytes.
+    mbar_expect_tx(r.full(s), GEMM_STAGE_BYTES);
+    if (A_KMAJOR) {
+      tma_load_2d(r.a(s), ta, r.full(s), k0, m0);
+    } else {
+#pragma unroll
+      for (int j = 0; j < GEMM_BM / 64; ++j) tma_load_2d(r.a(s) + j * GEMM_MN_BOX, ta, r.full(s), m0 + 64 * j, k0);
+    }
+    if (B_KMAJOR) {
+      tma_load_2d(r.b(s), tb, r.full(s), k0, n0);
+    } else {
+#pragma unroll
+      for (int j = 0; j < GEMM_BN / 64; ++j) tma_load_2d(r.b(s) + j * GEMM_MN_BOX, tb, r.full(s), n0 + 64 * j, k0);
+    }
+  }
+}
+
+// Producer (one thread): the output tiles n_lo .. n_hi - 1 of the CTA's
+// row block m0, A K-major.
 template <bool B_KMAJOR>
 __device__ __forceinline__ void gemm_produce(const GemmRing& r, const CUtensorMap* ta, const CUtensorMap* tb, int m0,
                                              int n_lo, int n_hi, int nk) {
   uint32_t it = 0;
-  for (int nt = n_lo; nt < n_hi; ++nt) {
-    const int n0 = nt * GEMM_BN;
-    for (int kc = 0; kc < nk; ++kc, ++it) {
-      const int s = it % GEMM_STAGES, k0 = kc * GEMM_BK;
-      mbar_wait(r.empty(s), ((it / GEMM_STAGES) & 1) ^ 1);
-      // Boxes that reach past an edge still count their full bytes.
-      mbar_expect_tx(r.full(s), GEMM_STAGE_BYTES);
-      tma_load_2d(r.a(s), ta, r.full(s), k0, m0);
-      if (B_KMAJOR) {
-        tma_load_2d(r.b(s), tb, r.full(s), k0, n0);
-      } else {
-#pragma unroll
-        for (int j = 0; j < GEMM_BN / 64; ++j) tma_load_2d(r.b(s) + j * GEMM_B_BOX, tb, r.full(s), n0 + 64 * j, k0);
-      }
-    }
-  }
+  for (int nt = n_lo; nt < n_hi; ++nt) gemm_produce_tile<B_KMAJOR>(r, ta, tb, m0, nt * GEMM_BN, nk, it);
 }
 
 // Consumer warpgroup cw (0 or 1): acc = rows 64 cw .. 64 cw + 63 of the
 // next tile, summed over its nk chunks. `it` counts the chunks this
 // warpgroup has taken from the ring (the producer's order).
-template <bool B_KMAJOR>
+template <bool B_KMAJOR, bool A_KMAJOR = true>
 __device__ __forceinline__ void gemm_tile(const GemmRing& r, float (&acc)[GEMM_NACC], int cw, int nk, uint32_t& it) {
   int prev = -1;
   for (int kc = 0; kc < nk; ++kc, ++it) {
@@ -101,12 +114,14 @@ __device__ __forceinline__ void gemm_tile(const GemmRing& r, float (&acc)[GEMM_N
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < GEMM_BK / 16; ++kk) {
-      // A: 16 columns of the 128-byte rows; B K-major the same, MN-major 16
-      // reduction rows down, the next 64 columns one box on.
-      const uint64_t da = make_desc(r.a(s) + cw * 64 * 128 + kk * 32, 16, 1024);
+      // K-major: 16 columns of the 128-byte rows (A: this warpgroup's 64
+      // rows of the box). MN-major: 16 reduction rows down (A: this
+      // warpgroup's box; B: the next 64 columns one box on).
+      const uint64_t da = A_KMAJOR ? make_desc(r.a(s) + cw * 64 * 128 + kk * 32, 16, 1024)
+                                   : make_desc(r.a(s) + cw * GEMM_MN_BOX + kk * 16 * 128, GEMM_MN_BOX, 1024);
       const uint64_t db = B_KMAJOR ? make_desc(r.b(s) + kk * 32, 16, 1024)
-                                   : make_desc(r.b(s) + kk * 16 * 128, GEMM_B_BOX, 1024);
-      wgmma_ss_n256<B_KMAJOR ? 0 : 1>(acc, da, db, kc > 0 || kk > 0);
+                                   : make_desc(r.b(s) + kk * 16 * 128, GEMM_MN_BOX, 1024);
+      wgmma_ss_n256<A_KMAJOR ? 0 : 1, B_KMAJOR ? 0 : 1>(acc, da, db, kc > 0 || kk > 0);
     }
     wgmma_commit();
     wgmma_wait1();  // the previous chunk's batch is done: its stage is free

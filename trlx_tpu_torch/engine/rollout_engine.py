@@ -12,8 +12,12 @@ and a finished slot is refilled from the prompt queue instead of idling:
 - A host slot manager admits same-width prompt groups from a
   ``PromptSlotQueue`` into free slots through a batched prefill, runs
   ``steps_per_sync`` decode steps for every slot, and harvests finished
-  slots. The decode steps are a Python loop with no host sync inside:
-  ``finished`` / ``n_gen`` cross to the host once per ``step()``.
+  slots. The decode steps have no host sync inside and update the slot
+  state in place: ``finished`` / ``n_gen`` cross to the host once per
+  ``step()``. On a CUDA device the whole call of ``steps_per_sync`` steps is
+  captured once as a CUDA graph (``ops.cuda_graph``) and replayed, as the
+  JAX engine runs one compiled scan; it is captured again only when the
+  decoding module is another object.
 - With ``paged_kv`` the cache is one shared block pool plus per-slot block
   tables (``paged_pool.BlockPool``); prompts whose leading blocks are
   bit-identical share them, and the admitted slot prefills only its suffix.
@@ -41,8 +45,9 @@ import numpy as np
 import torch
 
 from trlx_tpu_torch.engine.paged_pool import BlockPool, PoolExhausted
-from trlx_tpu_torch.models.lm import init_cache, init_paged_cache
-from trlx_tpu_torch.ops.sampling import GenerateConfig, process_logits_default
+from trlx_tpu_torch.models.lm import init_cache, init_paged_cache, refresh_weight_copies
+from trlx_tpu_torch.ops.cuda_graph import CudaGraph, StepGraph
+from trlx_tpu_torch.ops.sampling import GenerateConfig, process_logits_default, sample_categorical
 from trlx_tpu_torch.pipeline.prompt_pipeline import PromptSlotQueue
 
 
@@ -78,7 +83,9 @@ class RolloutEngine:
     ``prefill_batch`` slots are free, or at once when nothing is live),
     runs ``steps_per_sync`` decode steps, and returns the finished episodes
     in completion order. ``model`` fixes the config and device; the module
-    handed to ``update_weights`` is the one that decodes."""
+    handed to ``update_weights`` is the one that decodes. ``_eager`` (tests
+    and the chip smoke's comparison only) launches every decode step
+    eagerly on a CUDA device instead of replaying the graph."""
 
     def __init__(
         self,
@@ -94,6 +101,7 @@ class RolloutEngine:
         kv_block_size: int = 128,
         kv_pool_blocks: int = 0,
         generator: Optional[torch.Generator] = None,
+        _eager: bool = False,
     ):
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
@@ -135,6 +143,8 @@ class RolloutEngine:
             generator = torch.Generator(device=self.device)
             generator.manual_seed(0)
         self.generator = generator
+        self._use_graph = self.device.type == "cuda" and not _eager
+        self._graph = None  # (the module it was captured with, its StepGraph)
         self._reset_counters()
 
     # ------------------------------------------------------------- host side
@@ -194,6 +204,9 @@ class RolloutEngine:
             # Prefix blocks hold KV of the outgoing weights: never share them
             # into a new-version slot.
             self.pool.flush_registry()
+        # The decode graph reads the module's bf16 weight copies at fixed
+        # addresses: cast the updated weights into them.
+        refresh_weight_copies(variables)
         self._variables = variables
         self.weight_version = version
 
@@ -452,6 +465,7 @@ class RolloutEngine:
         self.abort()
         self._staged = None
         self._state = None
+        self._graph = None
         self._variables = None
         self._n_gen_host = None
 
@@ -477,6 +491,7 @@ class RolloutEngine:
             "last_token": torch.zeros((S,), dtype=torch.int32, device=dev),
             "last_logits": torch.zeros((S, cfg.vocab_size), dtype=torch.float32, device=dev),
             "last_hidden": torch.zeros((S, cfg.d_model), dtype=cfg.compute_dtype, device=dev),
+            "live_steps": torch.zeros((), dtype=torch.int32, device=dev),  # the decode call's output
         }
         if self.paged:
             # Every slot's virtual blocks point at the trash block until
@@ -542,16 +557,33 @@ class RolloutEngine:
 
     def _decode(self):
         """``steps_per_sync`` decode steps for every slot, launched without
-        a host sync. Per live slot it keeps ``generate``'s order: sample,
-        write the token and its cache-mask bit, then run the model; finished
-        and free slots write nothing visible (value-preserving buffer writes,
-        a clamped cache write on a mask-0 column). Returns the live slot-steps
-        as a device scalar."""
+        a host sync: eagerly on the CPU; on a CUDA device the first call
+        with a module runs eagerly and is then captured as a CUDA graph,
+        which every later call replays. Returns the live slot-steps as a
+        device scalar (a static buffer the next call overwrites)."""
+        if not self._use_graph:
+            self._decode_call()
+        elif self._graph is not None and self._graph[0] is self._variables:
+            self._graph[1].replay()
+        else:
+            self._decode_call()
+            self._graph = None  # the old graph's pool goes before the new capture
+            gen = self.generator if self.gcfg.do_sample else None
+            self._graph = (self._variables, StepGraph(self._decode_call, CudaGraph(gen)))
+        return self._state["live_steps"]
+
+    def _decode_call(self):
+        """The decode call, in place on the slot state. Per live slot it
+        keeps ``generate``'s order: sample, write the token and its
+        cache-mask bit, then run the model; finished and free slots write
+        nothing visible (value-preserving buffer writes, a clamped cache
+        write on a mask-0 column)."""
         gcfg, st = self.gcfg, self._state
         S, T, R = self.n_slots, self.kv_len, int(gcfg.max_new_tokens)
         dev = self.device
         ones = torch.ones((S, 1), dtype=torch.int32, device=dev)
-        live_steps = torch.zeros((), dtype=torch.int32, device=dev)
+        live_steps = st["live_steps"]
+        live_steps.zero_()
         paged_kw = {"block_tables": st["block_tables"]} if self.paged else {}
         for _ in range(self.steps_per_sync):
             live = st["active"] & ~st["finished"]
@@ -562,7 +594,7 @@ class RolloutEngine:
             else:
                 logits = process_logits_default(st["last_logits"], gcfg, step_col)
             if gcfg.do_sample:
-                tok = torch.multinomial(torch.softmax(logits.float(), dim=-1), 1, generator=self.generator)[:, 0]
+                tok = sample_categorical(torch.softmax(logits.float(), dim=-1), self.generator)
             else:
                 tok = torch.argmax(logits, dim=-1)
             tok = torch.where(live, tok.to(torch.int32), gcfg.pad_token_id)
@@ -577,15 +609,14 @@ class RolloutEngine:
             st["cache_mask"].scatter_(1, c_ix.long()[:, None], torch.where(live, 1, cur_bit)[:, None])
 
             hit_eos = tok == gcfg.eos_token_id if gcfg.eos_token_id is not None else torch.zeros_like(live)
-            st["finished"] = st["finished"] | (live & (hit_eos | (st["n_gen"] + 1 >= R)))
+            st["finished"].logical_or_(live & (hit_eos | (st["n_gen"] + 1 >= R)))
 
             out = self._variables(input_ids=tok[:, None], attention_mask=ones, cache=st["cache"], cache_index=c_ix,
                                   cache_mask=st["cache_mask"], **paged_kw)
             live_i = live.to(torch.int32)
-            st["write_pos"] = st["write_pos"] + live_i
-            st["n_gen"] = st["n_gen"] + live_i
-            st["last_token"] = torch.where(live, tok, st["last_token"])
-            st["last_logits"] = out["logits"][:, 0].float()
-            st["last_hidden"] = out["hidden"][:, 0].to(st["last_hidden"].dtype)
-            live_steps = live_steps + live_i.sum(dtype=torch.int32)
-        return live_steps
+            st["write_pos"].add_(live_i)
+            st["n_gen"].add_(live_i)
+            st["last_token"].copy_(torch.where(live, tok, st["last_token"]))
+            st["last_logits"].copy_(out["logits"][:, 0])
+            st["last_hidden"].copy_(out["hidden"][:, 0])
+            live_steps.add_(live_i.sum(dtype=torch.int32))

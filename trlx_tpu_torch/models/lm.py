@@ -134,11 +134,15 @@ class LMConfig:
 # ---------------------------------------------------------------------------
 
 
-def rotary_sincos(positions: torch.Tensor, rotary_dim: int, base: float = 10000.0):
-    """sin/cos tables for rotary positions. positions: [b, t] → [b, t, rd/2]."""
+def rotary_inv_freq(rotary_dim: int, device, base: float = 10000.0) -> torch.Tensor:
+    """The rotary inverse frequencies [rd/2], f32."""
     inv_freq = 1.0 / (base ** (np.arange(0, rotary_dim, 2) / rotary_dim))
-    inv = torch.tensor(inv_freq, dtype=torch.float32, device=positions.device)
-    freqs = positions[..., None].float() * inv[None, None, :]
+    return torch.tensor(inv_freq, dtype=torch.float32, device=device)
+
+
+def rotary_sincos(positions: torch.Tensor, inv_freq: torch.Tensor):
+    """sin/cos tables for rotary positions. positions: [b, t] → [b, t, rd/2]."""
+    freqs = positions[..., None].float() * inv_freq[None, None, :]
     return torch.sin(freqs), torch.cos(freqs)
 
 
@@ -171,10 +175,12 @@ def frozen_copy(w: torch.Tensor, dtype: torch.dtype) -> Optional[torch.Tensor]:
     """``w`` in ``dtype`` when no gradient can flow to it (grad mode off, or
     a parameter that does not require grad), else None.
 
-    The copy is made once per version of ``w`` and kept on it: an in-place
-    update (an optimizer step, ``load_state_dict``, ``copy_``) bumps
-    ``w._version`` and the next call casts anew. It holds the same values
-    as ``w.to(dtype)``, so outputs do not change. Where gradient flows, the
+    The copy is made once and kept on ``w``. An in-place update of ``w``
+    (an optimizer step, ``load_state_dict``, ``copy_``) bumps its
+    ``_version``, and the next call (or ``refresh_weight_copies``) casts the
+    new values INTO the same buffer, so the copy keeps its address: a CUDA
+    graph that read it reads the new weights. It holds the same values as
+    ``w.to(dtype)``, so outputs do not change. Where gradient flows, the
     caller keeps the differentiable per-call cast."""
     if w.dtype == dtype:
         return w
@@ -182,14 +188,34 @@ def frozen_copy(w: torch.Tensor, dtype: torch.dtype) -> Optional[torch.Tensor]:
         return None
     if torch.is_inference_mode_enabled():
         return w.to(dtype)  # an inference tensor must not outlive the mode
-    key = (w._version, w.data_ptr(), dtype)
     held = getattr(w, "_frozen_copy", None)
-    if held is not None and held[0] == key:
-        return held[1]
-    w._frozen_copy = None  # free the stale copy before making the new one
-    copy = w.detach().to(dtype)
-    w._frozen_copy = (key, copy)
-    return copy
+    if held is None or held[1].dtype != dtype or held[1].shape != w.shape:
+        w._frozen_copy = None  # free a copy of another dtype or shape first
+        w._frozen_copy = held = [None, torch.empty(w.shape, dtype=dtype, device=w.device)]
+    _refresh(w, held)
+    return held[1]
+
+
+def _refresh(w: torch.Tensor, held: list):
+    key = (w._version, w.data_ptr())
+    if held[0] != key:
+        held[1].copy_(w.detach())
+        held[0] = key
+
+
+def refresh_weight_copies(module: nn.Module) -> int:
+    """Cast, in place, every stale ``frozen_copy`` of ``module``'s
+    parameters (the frozen-branch tensors too while ``swapped_params`` has
+    them in). A replayed CUDA graph reads the copies without calling
+    ``frozen_copy``: call this before replaying one after the weights may
+    have changed. Returns the number of copies refreshed."""
+    n = 0
+    for w in module.parameters():
+        held = getattr(w, "_frozen_copy", None)
+        if held is not None and held[0] != (w._version, w.data_ptr()):
+            _refresh(w, held)
+            n += 1
+    return n
 
 
 def compute_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -272,6 +298,11 @@ class Attention(nn.Module):
             self.k_proj = Dense(cfg.d_model, cfg.d_model, cfg.qkv_bias, pd, device)
             self.v_proj = Dense(cfg.d_model, cfg.d_model, cfg.qkv_bias, pd, device)
         self.c_proj = Dense(cfg.d_model, cfg.d_model, cfg.out_bias, pd, device)
+        if cfg.pos_type == "rotary":
+            # Made once on the device (not per step), so a captured decode
+            # step copies nothing from the host; not part of the state dict.
+            self.register_buffer("inv_freq", rotary_inv_freq(cfg.rotary_dim or cfg.head_dim, device),
+                                 persistent=False)
 
     def forward(self, x, attn_bias, positions, cache=None, cache_index=None, flash_mask=None, window=0,
                 block_tables=None):
@@ -288,7 +319,7 @@ class Attention(nn.Module):
         v = v.reshape(b, q_len, cfg.n_head, hd)
         if cfg.pos_type == "rotary":
             rd = cfg.rotary_dim or hd
-            sin, cos = rotary_sincos(positions, rd)
+            sin, cos = rotary_sincos(positions, self.inv_freq)
             neox = cfg.extra.get("neox_rotary", False)
             q = apply_rotary(q, sin, cos, rd, neox)
             k = apply_rotary(k, sin, cos, rd, neox)

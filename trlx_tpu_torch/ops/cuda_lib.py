@@ -80,11 +80,11 @@ _SIGNATURES = {
                                 _P, _P, _P,  # ds scratch, db partials, dx (chunk)
                                 _I, _I, _I, _I, _I,  # rows D V ldv C
                                 _I, _I, _I, _P],  # ldw (w's row stride), tied, splits, stream
-    "fused_logprob_bwd_dw": [_P, _P, _P,  # x (chunk) ds dw
+    "fused_logprob_bwd_dw": [_P, _P, _P,  # x ds dw
                              _I, _I, _I, _I,  # rows D V ldv
-                             _I, _I,  # tied accumulate
+                             _I,  # tied
                              _P, _P, _I,  # db partials, db (or null), row tiles
-                             _P],  # stream
+                             _I, _P],  # SMs (the persistent grid), stream
 }
 
 

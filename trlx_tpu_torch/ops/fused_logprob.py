@@ -21,7 +21,7 @@ _KERNEL_BN = 256  # vocabulary columns per tile (GEMM_BN)
 _KERNEL_BK = 64  # forward reduction chunk: D must divide by it
 _BWD_D_MULTIPLE = 128  # the backward's shape rule: D must divide by it
 _DS_LD = 128  # the ds scratch's rows are padded to a multiple of this (ldv)
-BWD_CHUNK_ROWS = 1024  # rows per backward chunk: a bf16 [C, V] ds buffer
+BWD_CHUNK_ROWS = 1024  # rows per chunk of the ds and dx kernels
 
 
 def fused_logprob_eligible(d_model: int, vocab_size: int) -> bool:
@@ -177,16 +177,16 @@ def fused_logprob_bwd_dx(x2, wc, b, y, rows_f32, ds, dbpart, dx, *, rows: int, C
     fused_logprob_bwd_dx.launches += 1
 
 
-def fused_logprob_bwd_dw(x2, ds, dw, *, rows: int, V: int, ldv: int, tied: bool, accumulate: bool,
-                         dbpart=None, db=None):
-    """One chunk of rows: the dW kernel (f32 dW stored on the first chunk,
-    accumulated after), and with ``db`` the db merge of all row tiles."""
+def fused_logprob_bwd_dw(x2, ds, dw, *, rows: int, V: int, ldv: int, tied: bool, dbpart=None, db=None):
+    """The dW kernel over ``rows`` rows of x2 and of the bf16 ds [rows, ldv]:
+    f32 dW, each element stored once; with ``db`` also the db merge of all
+    row tiles."""
     D = x2.shape[1]
     n_tiles = 0 if dbpart is None else dbpart.shape[0]
     err = cuda_lib.lib().fused_logprob_bwd_dw(
-        x2.data_ptr(), ds.data_ptr(), dw.data_ptr(), rows, D, V, ldv, int(bool(tied)), int(accumulate),
+        x2.data_ptr(), ds.data_ptr(), dw.data_ptr(), rows, D, V, ldv, int(bool(tied)),
         None if dbpart is None else dbpart.data_ptr(), None if db is None else db.data_ptr(), n_tiles,
-        cuda_lib.stream_ptr(x2.device),
+        _sm_count(x2.device), cuda_lib.stream_ptr(x2.device),
     )
     cuda_lib.check(err, "fused_logprob_bwd_dw")
     fused_logprob_bwd_dw.launches += 1
@@ -199,10 +199,15 @@ for _fn in (fused_logprob_fwd, fused_logprob_bwd_dx, fused_logprob_bwd_dw):
 def fused_logprob_bwd(x, w, bias, labels, lse, ent, dlp, dlse, dent, *, tied: bool = False, wk=None):
     """(dx, dW, db) of the fused head. CPU tensors take
     ``fused_logprob_bwd_plain``; CUDA tensors walk the rows in chunks of
-    ``BWD_CHUNK_ROWS`` (ds + dx, then dW/db per chunk), so no [N, V] buffer
-    exists, or raise. ``wk`` is w as ``kernel_weight`` gives it (the
-    forward's copy), made here when not given. dW accumulates in f32 and
-    comes back in w's dtype."""
+    ``BWD_CHUNK_ROWS`` (ds + dx per chunk, into a bf16 ds of every row),
+    then launch dW/db once over all rows, so no f32 [N, V] buffer exists and
+    dW is written once; or raise. ``wk`` is w as ``kernel_weight`` gives it
+    (the forward's copy), made here when not given. dW accumulates in f32
+    and comes back in w's dtype.
+
+    The ds buffer grows with N: N rounded up to 128, times V rounded up to
+    128, bf16 (206.6 MB at N = 2048, V = 50400, about 0.83 GB at N = 8192),
+    beside the f32 dW of D x V (826 MB at D = 4096)."""
     if x.device.type == "cpu":
         return fused_logprob_bwd_plain(x, w, bias, labels, lse, ent, dlp, dlse, dent, tied=tied)
     D, V = _check_kernel_inputs(x, w, tied, _BWD_D_MULTIPLE)
@@ -214,9 +219,10 @@ def fused_logprob_bwd(x, w, bias, labels, lse, ent, dlp, dlse, dent, *, tied: bo
     b = None if bias is None else bias.reshape(V).to(torch.float32).contiguous()
     vecs = [t.reshape(N).to(torch.float32).contiguous() for t in (lse, ent, dlp, dlse, dent)]
     ldv = -(-V // _DS_LD) * _DS_LD
-    C = min(BWD_CHUNK_ROWS, -(-N // _KERNEL_BM) * _KERNEL_BM)
-    ds = torch.empty((C, ldv), dtype=torch.bfloat16, device=dev)
     n_tiles = -(-N // _KERNEL_BM)
+    C = min(BWD_CHUNK_ROWS, n_tiles * _KERNEL_BM)
+    # The ds kernel writes whole 128-row tiles: every row tile of N.
+    ds = torch.empty((n_tiles * _KERNEL_BM, ldv), dtype=torch.bfloat16, device=dev)
     dbpart = None if b is None else torch.empty((n_tiles, V), dtype=torch.float32, device=dev)
     dx = torch.empty((N, D), dtype=torch.bfloat16, device=dev)
     dw = torch.empty(tuple(w.shape), dtype=torch.float32, device=dev)
@@ -224,11 +230,9 @@ def fused_logprob_bwd(x, w, bias, labels, lse, ent, dlp, dlse, dent, *, tied: bo
     for c0 in range(0, N, C):
         rows = min(C, N - c0)
         part = None if dbpart is None else dbpart[c0 // _KERNEL_BM:]
-        fused_logprob_bwd_dx(x2[c0:], wc, b, y[c0:], [v[c0:] for v in vecs], ds, part, dx[c0:],
+        fused_logprob_bwd_dx(x2[c0:], wc, b, y[c0:], [v[c0:] for v in vecs], ds[c0:], part, dx[c0:],
                              rows=rows, C=C, ldv=ldv, tied=tied)
-        last = c0 + C >= N
-        fused_logprob_bwd_dw(x2[c0:], ds, dw, rows=rows, V=V, ldv=ldv, tied=tied, accumulate=c0 > 0,
-                             dbpart=dbpart if last else None, db=db if last else None)
+    fused_logprob_bwd_dw(x2, ds, dw, rows=N, V=V, ldv=ldv, tied=tied, dbpart=dbpart, db=db)
     return dx.reshape(x.shape), dw.to(w.dtype), None if db is None else db.to(bias.dtype)
 
 

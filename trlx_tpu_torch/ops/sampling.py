@@ -76,6 +76,16 @@ def process_logits_default(logits: torch.Tensor, gcfg: GenerateConfig, step) -> 
     return logits
 
 
+def sample_categorical(probs: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """One token per row of ``probs`` [b, vocab]: argmax of probs / q with
+    q ~ Exp(1), the race ``torch.multinomial(probs, 1)`` runs, drawing the
+    same numbers from ``generator``, so its tokens equal multinomial's. It
+    has none of multinomial's host-side checks, so a CUDA graph can capture
+    it."""
+    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    return torch.argmax(probs / q, dim=-1)
+
+
 def top_p_mask(logits: torch.Tensor, top_p: float) -> torch.Tensor:
     """Nucleus filtering: keep the tokens whose preceding cumulative
     probability (in descending order) is below ``top_p``."""
