@@ -252,7 +252,7 @@ def capture_main(smi):
         "new_tokens": trainer.gen_cfg.max_new_tokens, "call_wall_ms_runs": walls, "call_wall_ms_median": med,
         "per_call_cost_ms": med["captures"] - med["keeps"], "per_call_cost_share": (med["captures"] - med["keeps"])
         / med["keeps"], "capture_ms_runs": capture_ms, "capture_ms_median": float(np.median(capture_ms)),
-        "profiled_capturing_call": {"kernel_ms": kernel_ms, "traced_launches": traced},
+        "profiled_capturing_call": {"kernel_ms": kernel_ms, "traced": traced},
         "allocated_gb_after": torch.cuda.memory_allocated() / 1e9, "graph_pool_gb": chip_smoke.graph_pool_gb(),
     }))
 

@@ -6,7 +6,9 @@ on a machine with a card run them with
 
 Tolerances: inputs and outputs are bf16 (one ulp is 2^-8 relative); the
 kernels and the plain versions sum in another order, and the fused-logprob
-plain version rounds its logits to bf16 where the kernel keeps f32.
+plain version rounds its logits to bf16 where the kernel keeps f32. The
+fused head's f32 mode (f32 activations and weight, as ILQL's Q heads call
+it) multiplies in f32 on both sides: 1e-4 relative.
 """
 
 import pytest
@@ -456,26 +458,48 @@ def test_engine_on_the_card_matches_the_cpu_engine(paged, quant):
         np.testing.assert_array_equal(runs["gpu"][key], toks)
 
 
-@pytest.mark.parametrize("tied,bias,wdtype", [(False, True, torch.float32), (False, False, torch.bfloat16),
-                                              (True, False, torch.float32)])
-@pytest.mark.parametrize("N,V", [(50, 1000), (300, 4097), (300, 50257), (300, 50400)])
-def test_fused_logprob_kernel_matches_plain(tied, bias, wdtype, N, V):
-    dev = _cuda()
-    from trlx_tpu_torch.ops.fused_logprob import fused_logprob, fused_logprob_fwd, naive_logprob
+# (activation dtype, tied, bias, weight dtype): the bf16 mode with an f32 or
+# bf16 weight, and the f32 mode (f32 activations and weight).
+_HEAD_MODES = [(torch.bfloat16, False, True, torch.float32), (torch.bfloat16, False, False, torch.bfloat16),
+               (torch.bfloat16, True, False, torch.float32), (torch.float32, False, True, torch.float32),
+               (torch.float32, False, False, torch.float32), (torch.float32, True, False, torch.float32)]
 
+
+def _head_counter(xdtype, name):
+    from trlx_tpu_torch.ops import fused_logprob as fl
+
+    return getattr(fl, name + ("_f32" if xdtype == torch.float32 else ""))
+
+
+@pytest.mark.parametrize("xdtype,tied,bias,wdtype", _HEAD_MODES)
+@pytest.mark.parametrize("N,V", [(50, 1000), (300, 4097), (300, 50257), (300, 50400)])
+def test_fused_logprob_kernel_matches_plain(xdtype, tied, bias, wdtype, N, V):
+    """The forward against ``naive_logprob``: bf16 mode within 5e-2 (the
+    plain version rounds its logits to bf16), f32 mode within
+    1e-4 * max(1, |ref|) with TF32 off; each launch counted under its
+    mode's wrapper."""
+    dev = _cuda()
+    from trlx_tpu_torch.ops.fused_logprob import fused_logprob, naive_logprob
+
+    torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=dev).manual_seed(3)
     D = 256
-    x = torch.randn((N, D), generator=g, device=dev).to(torch.bfloat16)
+    x = torch.randn((N, D), generator=g, device=dev).to(xdtype)
     w = (torch.randn((V, D) if tied else (D, V), generator=g, device=dev) * D ** -0.5).to(wdtype)
     b = torch.randn((V,), generator=g, device=dev) * 0.1 if bias else None
     y = torch.randint(0, V, (N,), generator=g, device=dev)
-    before = fused_logprob_fwd.launches
+    counter = _head_counter(xdtype, "fused_logprob_fwd")
+    before = counter.launches
     got = fused_logprob(x, w, y, b, tied=tied)
     torch.cuda.synchronize()
-    assert fused_logprob_fwd.launches == before + 1
+    assert counter.launches == before + 1
     ref = naive_logprob(x, w, y, b, tied=tied)
     for gv, rv in zip(got, ref):
-        torch.testing.assert_close(gv, rv, rtol=0, atol=5e-2)
+        assert gv.dtype == torch.float32
+        if xdtype == torch.float32:
+            assert float(((gv - rv).abs() / rv.abs().clamp(min=1.0)).max()) <= 1e-4
+        else:
+            torch.testing.assert_close(gv, rv, rtol=0, atol=5e-2)
 
 
 def _close(got, ref, rel):
@@ -607,50 +631,55 @@ def test_flash_bwd_strided_inputs(window):
     _close(dqkv[:, :, 2], rv, 2e-2)
 
 
-@pytest.mark.parametrize("tied,bias,wdtype", [(False, True, torch.float32), (False, False, torch.bfloat16),
-                                              (True, False, torch.float32), (True, True, torch.float32)])
+@pytest.mark.parametrize("xdtype,tied,bias,wdtype", _HEAD_MODES + [(torch.bfloat16, True, True, torch.float32),
+                                                                     (torch.float32, True, True, torch.float32)])
 @pytest.mark.parametrize("N,V", [(50, 1000), (1300, 4097), (300, 50257), (300, 50400)])
-def test_fused_logprob_bwd_kernels_match_plain(tied, bias, wdtype, N, V):
+def test_fused_logprob_bwd_kernels_match_plain(xdtype, tied, bias, wdtype, N, V):
     """dx, dW and db against the plain backward with all three cotangents:
     ragged N (1300 rows are two chunks of 1024), V not a multiple of the
-    256-wide tile (nor of 8 at 4097 and 50257: the weight's rows then need
-    the padded copy for TMA), logits spread as a trained head's (std ~3.5).
-    dW and db are also held on the columns no label hits, where ds is only
-    the small softmax terms."""
+    256-wide tile (nor of 8 at 4097 and 50257: in the bf16 mode the weight's
+    rows then need the padded copy for TMA; the f32 mode reads them as they
+    are, with scalar loads at the row ends), logits spread as a trained
+    head's (std ~3.5). dW and db are also held on the columns no label
+    hits, where ds is only the small softmax terms. bf16 mode: ds is rounded
+    to bf16 on both sides before the products, and a sum in another order
+    can flip that rounding; dx comes back in bf16. f32 mode: everything in
+    f32, 1e-4 of each output's max."""
     dev = _cuda()
-    from trlx_tpu_torch.ops.fused_logprob import (
-        BWD_CHUNK_ROWS, fused_logprob_bwd, fused_logprob_bwd_dw, fused_logprob_bwd_dx, fused_logprob_bwd_plain,
-        fused_logprob_fwd,
-    )
+    from trlx_tpu_torch.ops.fused_logprob import BWD_CHUNK_ROWS, fused_logprob_bwd, fused_logprob_bwd_plain
+    from trlx_tpu_torch.ops.fused_logprob import fused_logprob_fwd
 
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32 = xdtype == torch.float32
     g = torch.Generator(device=dev).manual_seed(5)
     D = 256
-    x = torch.randn((N, D), generator=g, device=dev).to(torch.bfloat16)
+    x = torch.randn((N, D), generator=g, device=dev).to(xdtype)
     w = (torch.randn((V, D) if tied else (D, V), generator=g, device=dev) * (3.5 * D ** -0.5)).to(wdtype)
     b = torch.randn((V,), generator=g, device=dev) * 0.1 if bias else None
     y = torch.randint(0, V, (N,), generator=g, device=dev)
     _, lse, ent = fused_logprob_fwd(x, w, y, b, tied=tied)
     dlp, dlse, dent = (torch.randn((N,), generator=g, device=dev) for _ in range(3))
-    n_dx, n_dw = fused_logprob_bwd_dx.launches, fused_logprob_bwd_dw.launches
+    c_dx, c_dw = _head_counter(xdtype, "fused_logprob_bwd_dx"), _head_counter(xdtype, "fused_logprob_bwd_dw")
+    n_dx, n_dw = c_dx.launches, c_dw.launches
     dx, dw, db = fused_logprob_bwd(x, w, b, y, lse, ent, dlp, dlse, dent, tied=tied)
     torch.cuda.synchronize()
     chunks = -(-N // BWD_CHUNK_ROWS)
-    assert (fused_logprob_bwd_dx.launches, fused_logprob_bwd_dw.launches) == (n_dx + chunks, n_dw + 1)
-    assert dx.dtype == torch.bfloat16 and dw.dtype == wdtype
+    assert (c_dx.launches, c_dw.launches) == (n_dx + chunks, n_dw + 1)
+    assert dx.dtype == xdtype and dw.dtype == wdtype
     rdx, rdw, rdb = fused_logprob_bwd_plain(x, w, b, y, lse, ent, dlp, dlse, dent, tied=tied)
-    # ds is rounded to bf16 on both sides before the products, and a sum in
-    # another order can flip that rounding; dx comes back in bf16.
-    _close(dx, rdx, 2e-2)
-    _close(dw, rdw, 1e-2)
+    rel_dx, rel_dw, rel_db = (1e-4, 1e-4, 1e-4) if f32 else (2e-2, 1e-2, 1e-3)
+    _close(dx, rdx, rel_dx)
+    _close(dw, rdw, rel_dw)
     if bias:
-        _close(db, rdb, 1e-3)
+        assert db.dtype == torch.float32
+        _close(db, rdb, rel_db)
     else:
         assert db is None
     unhit = torch.ones(V, dtype=torch.bool, device=dev)
     unhit[y] = False
-    _close(dw[unhit] if tied else dw[:, unhit], rdw[unhit] if tied else rdw[:, unhit], 1e-2)
+    _close(dw[unhit] if tied else dw[:, unhit], rdw[unhit] if tied else rdw[:, unhit], rel_dw)
     if bias:
-        _close(db[unhit], rdb[unhit], 1e-3)
+        _close(db[unhit], rdb[unhit], rel_db)
 
 
 def _dw_case(g, dev, N, D, V, tied, bias):
@@ -734,9 +763,14 @@ def test_wrappers_raise_instead_of_falling_back():
         flash_attention(q, q, q, torch.ones((1, 64), device=dev), scale=1.0)
     with pytest.raises(TypeError):
         decode_attention(q[:, 0], q, q, torch.zeros((1, 64), device=dev), scale=1.0)
+    labels = torch.zeros((4,), dtype=torch.int32, device=dev)
+    # f16 activations: neither mode of the fused head takes them.
     with pytest.raises(TypeError):
-        fused_logprob(torch.randn((4, 64), device=dev), torch.randn((64, 600), device=dev),
-                      torch.zeros((4,), dtype=torch.int32, device=dev))
+        fused_logprob(torch.randn((4, 64), device=dev).half(), torch.randn((64, 600), device=dev), labels)
+    # The f32 mode takes an f32 weight only: nothing is cast for it.
+    with pytest.raises(TypeError):
+        fused_logprob(torch.randn((4, 64), device=dev), torch.randn((64, 600), device=dev).to(torch.bfloat16),
+                      labels)
     qb = q.to(torch.bfloat16)[..., :48]  # head_dim 48: no kernel instance
     with pytest.raises(ValueError):
         flash_attention(qb, qb, qb, torch.ones((1, 64), device=dev), scale=1.0)
@@ -985,3 +1019,88 @@ def test_train_on_the_card(tmp_path):
     assert len(steps) == 8
     assert all(np.isfinite(r["loss"]) and r["resilience/nonfinite"] == 0.0 for r in steps)
     assert abs(steps[0]["mean_ratio"] - 1.0) < 0.05
+
+
+def test_ilql_step_on_the_card_matches_the_cpu(tmp_path):
+    """One ILQL train step on the card equals the same step on the CPU, at a
+    small width the kernels take (d_model 512, V = 1024, T = 256, b = 4):
+    f32 compute, the fused route on both (the card runs the fused head's f32
+    kernels for the AWAC LM head and both Q heads, the CPU their plain
+    versions; attention takes the einsum path at f32), from the same
+    weights, targets and batch. The loss terms and grad_norm agree within
+    1e-4 relative; every gradient the optimizer receives within 2e-3 of its
+    max and at a cosine of at least 1 - 1e-6 (a ReLU of a head's first layer
+    whose pre-activation lies within rounding of 0 takes the other side on
+    the other device and moves that row's share of the gradient: up to
+    9.7e-4 of the max on one H100); the Adam update itself is compared
+    through its inputs (on a first step it is ~sign(g), which rounding can
+    flip where g is ~0). The Polyak sync leaves each target at
+    lerp(target, online, alpha) on the card as on the CPU."""
+    dev = _cuda()
+    import numpy as np
+
+    from trlx_tpu_torch.data.configs import TRLConfig
+    from trlx_tpu_torch.ops import fused_logprob as fl
+    from trlx_tpu_torch.orchestrator.offline_orchestrator import OfflineOrchestrator
+    from trlx_tpu_torch.trainer.ilql import ILQLTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    T, V = 256, 1024
+    arch = dict(vocab_size=V, n_layer=2, n_head=4, d_model=512, max_position=512, pos_type="rotary",
+                rotary_dim=32, parallel_residual=True, fused_qkv=False, qkv_bias=False, out_bias=False,
+                tie_word_embeddings=False, extra={"lm_head_bias": True, "fused_logprob": "force"},
+                eos_token_id=None)
+    config = TRLConfig.from_dict({
+        "model": dict(model_path="", tokenizer_path="", model_type="ilql", num_layers_unfrozen=1, model_arch=arch,
+                      dtype="float32", param_dtype="float32"),
+        "train": dict(total_steps=1, seq_length=T, epochs=1, batch_size=4, lr_ramp_steps=0, lr_decay_steps=100,
+                      weight_decay=1e-6, learning_rate_init=1e-3, learning_rate_target=1e-3,
+                      checkpoint_dir=str(tmp_path), seed=3, orchestrator="OfflineOrchestrator"),
+        "method": dict(name="ilqlconfig", alpha=0.1, steps_for_target_q_sync=1,
+                       gen_kwargs=dict(prompt_length=T - 16, max_new_tokens=16)),
+    })
+    rng = np.random.default_rng(0)
+    samples = [rng.integers(0, V, size=T).astype(np.int32) for _ in range(4)]
+    rewards = rng.normal(size=(4,)).tolist()
+    runs = {}
+    for name, device in (("cpu", "cpu"), ("gpu", dev)):
+        trainer = ILQLTrainer(config, device=device)
+        if name == "gpu":
+            trainer.load_params(runs["cpu"]["init"], runs["cpu"]["init_extras"])
+        OfflineOrchestrator(trainer).make_experience(samples, rewards)
+        batch = trainer.put_batch(next(iter(trainer.store.create_loader(4, shuffle=False))))
+        init = {n: p.detach().cpu().clone() for n, p in trainer.model.named_parameters()}
+        init_extras = {n: t.cpu().clone() for n, t in trainer.extras.items()}
+        grads, step = {}, trainer.optimizer.step
+        names = {id(p): n for n, p in trainer.model.named_parameters()}
+
+        def recording_step(params, gs, step=step, grads=grads):
+            grads.update((names[id(p)], g.detach().cpu().clone()) for p, g in zip(params, gs))
+            return step(params, gs)
+
+        trainer.optimizer.step = recording_step
+        before = fl.fused_logprob_fwd_f32.launches
+        stats = {k: float(v) for k, v in trainer.train_step(batch).items()}
+        online = {n: p.detach().clone() for n, p in trainer.model.named_parameters() if n in trainer.extras}
+        trainer.iter_count = 1
+        trainer.post_backward_callback(stats)
+        if name == "gpu":
+            torch.cuda.synchronize()
+            assert fl.fused_logprob_fwd_f32.launches - before == 3
+        for n, t in trainer.extras.items():
+            want = torch.lerp(init_extras[n].to(t.device), online[n], 0.1)
+            torch.testing.assert_close(t, want, rtol=1e-6, atol=1e-7, msg=n)
+        runs[name] = dict(init=init, init_extras=init_extras, stats=stats, grads=grads)
+    cpu, gpu = runs["cpu"], runs["gpu"]
+    for k in ("losses/loss", "losses/loss_q", "losses/loss_v", "losses/loss_cql", "losses/loss_awac", "grad_norm"):
+        np.testing.assert_allclose(gpu["stats"][k], cpu["stats"][k], rtol=1e-4, err_msg=k)
+    assert sorted(gpu["grads"]) == sorted(cpu["grads"]) and gpu["grads"]
+    errs = {}
+    for n, c in cpu["grads"].items():
+        g = gpu["grads"][n].double()
+        assert torch.isfinite(g).all()
+        cos = float(torch.nn.functional.cosine_similarity(g.reshape(-1), c.double().reshape(-1), dim=0))
+        errs[n] = (float((g - c).abs().max()) / (float(c.abs().max()) + 1e-12), cos)
+    bad = {n: e for n, e in errs.items() if not (e[0] <= 2e-3 and e[1] >= 1 - 1e-6)}
+    assert not bad, bad

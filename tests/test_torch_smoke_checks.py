@@ -3,7 +3,8 @@ fused-logprob backward sees a ds that loses or flips one of its softmax
 terms, at a small shape: the plain backward is the reference, and a copy
 with a mutated ds plays the kernel; the unmutated copy must pass. Its
 comparison of the launches a trace shows with the wrappers' counters sees
-a kernel launched once too often or too rarely."""
+a kernel launched once too often or too rarely, beyond the device records
+the trace proves it lost."""
 
 from types import SimpleNamespace
 
@@ -65,22 +66,57 @@ def _events(**counts):
     return [SimpleNamespace(key=names[k], count=n) for k, n in counts.items()]
 
 
-@pytest.mark.parametrize("case", ["equal", "one_replay_short", "one_launch_extra", "none_traced"])
+@pytest.mark.parametrize("case", ["equal", "one_replay_short", "one_launch_extra", "none_traced",
+                                  "short_within_proven_loss", "short_beyond_proven_loss", "extra_despite_loss"])
 def test_traced_launch_check(case):
     """Replayed launches are counted from the trace: equal counts pass and
     report the port's kernels only (PyTorch's own flash kernel and cuBLAS
     left out); a trace with a decode kernel fewer or a flash launch more
-    than the counters, or with none of the port's kernels, is refused."""
+    than the counters, or with none of the port's kernels, is refused. A
+    trace that proves device records lost may fall short by no more than
+    those in all, and may exceed the counters by none."""
     counted = {"decode_attention": 224, "flash_attention_fwd": 28, "fused_logprob_fwd": 0}
     traced = {"equal": dict(decode_split=224, decode_merge=224, flash_fwd=28, torch_flash=3, gemm=900),
               "one_replay_short": dict(decode_split=223, decode_merge=223, flash_fwd=28),
               "one_launch_extra": dict(decode_split=224, decode_merge=224, flash_fwd=29),
-              "none_traced": dict(gemm=900)}[case]
+              "none_traced": dict(gemm=900),
+              "short_within_proven_loss": dict(decode_split=221, decode_merge=223, flash_fwd=28, gemm=880),
+              "short_beyond_proven_loss": dict(decode_split=221, decode_merge=220, flash_fwd=28, gemm=880),
+              "extra_despite_loss": dict(decode_split=222, decode_merge=222, flash_fwd=29, gemm=880)}[case]
+    lost = 0 if case in ("equal", "one_replay_short", "one_launch_extra", "none_traced") else 4
     if case == "none_traced":
         counted = {}
-    if case == "equal":
-        got = chip_smoke.traced_launches(_events(**traced), counted)
-        assert got == {"decode_split_kernel": 224, "decode_merge_kernel": 224, "flash_fwd_kernel": 28}
+    if case in ("equal", "short_within_proven_loss"):
+        got = chip_smoke.traced_launches(_events(**traced), counted, lost)
+        assert got == {"decode_split_kernel": traced["decode_split"], "decode_merge_kernel": traced["decode_merge"],
+                       "flash_fwd_kernel": 28}
         return
     with pytest.raises(AssertionError, match="launches in the trace"):
-        chip_smoke.traced_launches(_events(**traced), counted)
+        chip_smoke.traced_launches(_events(**traced), counted, lost)
+
+
+def _raw(device_type, name, corr):
+    """A kineto raw event as ``prof.profiler.kineto_results.events()`` gives it."""
+    return SimpleNamespace(device_type=lambda: device_type, name=lambda: name, correlation_id=lambda: corr)
+
+
+@pytest.mark.parametrize("case", ["complete", "kernel_records_lost", "graph_replay_short"])
+def test_lost_device_records(case):
+    """A trace proves records lost from its own host records: a kernel
+    launch with no device record of its correlation id, and a graph launch
+    with fewer device records than the fullest launch of the trace; memset
+    and memcpy calls and device records of other launches prove nothing."""
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    raw = [_raw(cpu, "cudaMemsetAsync", 1), _raw(cuda, "Memset (Device)", 1)]
+    for corr in range(10, 20):
+        raw.append(_raw(cpu, "cudaLaunchKernel" if corr % 2 else "cuLaunchKernelEx", corr))
+        if case != "kernel_records_lost" or corr not in (12, 13, 17):
+            raw.append(_raw(cuda, "decode_split_kernel", corr))
+    for corr in range(30, 34):
+        raw.append(_raw(cpu, "cudaGraphLaunch", corr))
+        n = 8 - 3 * (case == "graph_replay_short" and corr == 32)
+        raw.extend(_raw(cuda, "decode_merge_kernel", corr) for _ in range(n))
+    got = chip_smoke.lost_device_records(raw)
+    assert got["lost"] == {"complete": 0, "kernel_records_lost": 3, "graph_replay_short": 3}[case]
+    assert (got["kernel_launch_records"], got["graph_launch_records"]) == (10, 4)
+    assert got["device_records_per_graph_launch"] == [5 if case == "graph_replay_short" else 8, 8]

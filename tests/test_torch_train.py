@@ -217,21 +217,56 @@ def test_learn_stops_after_max_bad_steps(tmp_path):
         assert torch.equal(p, start[n]), n
 
 
-@pytest.mark.parametrize("section,knob,value", [
-    ("method", "pack_train_batch", True), ("train", "watch_interval", 10), ("train", "graftnum", True),
-    ("train", "trace_spans", True), ("train", "resume_from_checkpoint", True),
-])
-def test_unported_knobs_are_refused(tmp_path, section, knob, value):
+def _ilql_config(tmp_path):
     cfg = _config(tmp_path, kernels=False)
+    cfg["model"]["model_type"] = "ilql"
+    cfg["train"]["orchestrator"] = "OfflineOrchestrator"
+    cfg["method"] = dict(name="ilqlconfig", gen_kwargs=dict(prompt_length=P, max_new_tokens=R))
+    return cfg
+
+
+# The PPO cases keep their ids; the ILQL trainer refuses the shared knobs
+# from the same list (trainer/base.py ``refuse_unported``).
+_KNOBS = [("method", "pack_train_batch", True), ("train", "watch_interval", 10), ("train", "graftnum", True),
+          ("train", "trace_spans", True), ("train", "resume_from_checkpoint", True)]
+_ILQL_KNOBS = [("train", "resume_from_checkpoint", True), ("train", "keep_checkpoints", 2),
+               ("train", "watchdog_threshold", 5.0), ("train", "fleet_role", "rollout"),
+               ("model", "decode_weight_quant", True), ("train", "graftnum", True)]
+
+
+@pytest.mark.parametrize("trainer,section,knob,value", [
+    pytest.param("ppo", *case, id="-".join(map(str, case))) for case in _KNOBS] + [
+    pytest.param("ilql", *case, id="ilql-" + "-".join(map(str, case))) for case in _ILQL_KNOBS])
+def test_unported_knobs_are_refused(tmp_path, trainer, section, knob, value):
+    from trlx_tpu_torch.trainer.ilql import ILQLTrainer
+
+    cfg = _config(tmp_path, kernels=False) if trainer == "ppo" else _ilql_config(tmp_path)
     cfg[section][knob] = value
     with pytest.raises(NotImplementedError, match=f"{section}.{knob}"):
-        PPOTrainer(TRLConfig.from_dict(cfg), device="cpu")
+        (PPOTrainer if trainer == "ppo" else ILQLTrainer)(TRLConfig.from_dict(cfg), device="cpu")
 
 
-def test_train_dispatch_refuses_ilql_and_needs_reward_fn(tmp_path):
-    config = TRLConfig.from_dict(_config(tmp_path, kernels=False))
-    with pytest.raises(NotImplementedError, match="ILQL"):
-        trlx_tpu_torch.train(dataset=(["a"], [1.0]), config=config, device="cpu")
+def test_train_dispatch_refuses_ilql_and_needs_reward_fn(tmp_path, monkeypatch):
+    """``train()``'s dispatch: a ``dataset`` reaches the ILQL trainer
+    through the offline orchestrator (stopped at ``learn()`` here; the
+    whole path is ``tests/test_torch_ilql.py``); ILQL refuses text samples,
+    naming text mode, and a tokenizer; with neither a ``reward_fn`` nor a
+    ``dataset`` it raises ValueError."""
+    from trlx_tpu_torch.trainer.ilql import ILQLTrainer
+
+    config = TRLConfig.from_dict(_ilql_config(tmp_path))
+    reached = []
+    monkeypatch.setattr(ILQLTrainer, "learn", lambda self: reached.append(self))
+    samples = [np.arange(1, 9) % V, np.arange(3, 12) % V]
+    model = trlx_tpu_torch.train(dataset=(samples, [1.0, -1.0]), config=config, device="cpu")
+    assert reached == [model] and type(model) is ILQLTrainer and len(model.store) == 2
+    assert model.eval_pipeline is not None
+    with pytest.raises(NotImplementedError, match="text mode"):
+        trlx_tpu_torch.train(dataset=(["a walk"], [1.0]), config=config, device="cpu")
+    cfg = _ilql_config(tmp_path)
+    cfg["model"]["tokenizer_path"] = "gpt2"
+    with pytest.raises(NotImplementedError, match="tokenizer"):
+        trlx_tpu_torch.train(dataset=(samples, [1.0, -1.0]), config=TRLConfig.from_dict(cfg), device="cpu")
     with pytest.raises(ValueError, match="reward_fn or dataset"):
         trlx_tpu_torch.train(config=config, device="cpu")
 

@@ -27,8 +27,16 @@
 // already loads the next tile's chunks. Each CTA writes its partial
 // (m, l, r, label score) per row; a second small kernel merges the splits
 // of each row in split order into (logprob, lse, entropy).
+//
+// The f32-activation mode (x and W f32, as ILQL's Q heads call it: N = 4092,
+// D = 8192, V = 50400) multiplies in f32 on the CUDA cores, on the SIMT
+// mainloop of sgemm_f32.cuh, into the same epilogue arithmetic
+// (logprob_math.cuh), partials and merge. It is bound by operations: 3.38
+// TFLOP at that shape, against 1.8 GB of f32 weight and activations.
 
 #include "logprob_gemm.cuh"
+#include "logprob_math.cuh"
+#include "sgemm_f32.cuh"
 
 namespace {
 
@@ -89,22 +97,12 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
       const int c0 = v0 + 8 * j + 2 * t4;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = c0 + (e & 1);
-        const bool valid = col < V;
-        float sv = acc[4 * j + e];
-        if (p.bias != nullptr && valid) sv += __ldg(p.bias + col);
-        if (e < 2) {
-          if (valid && col == y0) lab0 += sv;
-        } else {
-          if (valid && col == y1) lab1 += sv;
-        }
-        sv = valid ? sv : TRLX_MASK_VAL;
+        const float sv = lp_score(acc[4 * j + e], p.bias, c0 + (e & 1), V, e < 2 ? y0 : y1, e < 2 ? lab0 : lab1);
         acc[4 * j + e] = sv;
         if (e < 2) mx0 = fmaxf(mx0, sv); else mx1 = fmaxf(mx1, sv);
       }
     }
     const float mn0 = fmaxf(m0s, quad_max(mx0)), mn1 = fmaxf(m1s, quad_max(mx1));
-    const float al0 = expf(m0s - mn0), al1 = expf(m1s - mn1);
     float ps0 = 0.f, ps1 = 0.f, pr0 = 0.f, pr1 = 0.f;
 #pragma unroll
     for (int j = 0; j < GEMM_BN / 8; ++j) {
@@ -116,12 +114,8 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
         if (e < 2) { ps0 += pv; pr0 += pv * sv; } else { ps1 += pv; pr1 += pv * sv; }
       }
     }
-    l0 = al0 * l0 + quad_sum(ps0);
-    l1 = al1 * l1 + quad_sum(ps1);
-    r0 = al0 * r0 + quad_sum(pr0);
-    r1 = al1 * r1 + quad_sum(pr1);
-    m0s = mn0;
-    m1s = mn1;
+    lp_online(m0s, l0, r0, mn0, quad_sum(ps0), quad_sum(pr0));
+    lp_online(m1s, l1, r1, mn1, quad_sum(ps1), quad_sum(pr1));
   }
   lab0 = quad_sum(lab0);
   lab1 = quad_sum(lab1);
@@ -172,6 +166,80 @@ cudaError_t launch(const CUtensorMap& tx, const CUtensorMap& tw, const LogprobPa
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The f32-activation mode: x f32, W f32, f32 products and sums (ILQL's Q
+// heads). The same grid of 128-row tiles x V splits and the same partials
+// and merge as above, on the SIMT mainloop of sgemm_f32.cuh (128-column
+// tiles); each thread reduces its 8 rows x 8 columns and the half-warp that
+// shares those rows reduces across its 16 threads.
+// ---------------------------------------------------------------------------
+
+// TIED: W [V, D] is a K-major B; untied W [D, V] an MN-major one.
+template <bool TIED>
+__global__ void __launch_bounds__(SG_THREADS, 2)
+    logprob_fwd_f32_kernel(const SgOperand x, const SgOperand w, LogprobParams p) {
+  __shared__ __align__(16) SgSmem sm;
+  const int row_tile = blockIdx.x, split = blockIdx.y;
+  const int N = p.N, V = p.V;
+  const int m0 = row_tile * SG_BM;
+  const int n_vt = (V + SG_BN - 1) / SG_BN;
+  const int vt_lo = split * p.tiles_per_split;
+  const int vt_hi = min(vt_lo + p.tiles_per_split, n_vt);
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+
+  float m[8], l[8], r[8], lab[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = TRLX_M_INIT;
+    l[i] = r[i] = lab[i] = 0.f;
+  }
+  float acc[8][8];
+  for (int vt = vt_lo; vt < vt_hi; ++vt) {
+    const int v0 = vt * SG_BN;
+    sgemm_tile<true, TIED>(sm, x, w, m0, v0, p.D, acc);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = m0 + sg_row(ty, i);
+      const int y = row < N ? __ldg(p.labels + row) : -1;
+      float mx = TRLX_MASK_VAL;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        acc[i][j] = lp_score(acc[i][j], p.bias, v0 + sg_col(tx, j), V, y, lab[i]);
+        mx = fmaxf(mx, acc[i][j]);
+      }
+      const float mn = fmaxf(m[i], half_warp_max(mx));
+      float ps = 0.f, pr = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float pv = v0 + sg_col(tx, j) < V ? expf(acc[i][j] - mn) : 0.f;
+        ps += pv;
+        pr += pv * acc[i][j];
+      }
+      lp_online(m[i], l[i], r[i], mn, half_warp_sum(ps), half_warp_sum(pr));
+    }
+  }
+  const size_t SN = (size_t)p.S * N;
+  float* base = p.part + (size_t)split * N;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float lb = half_warp_sum(lab[i]);
+    const int row = m0 + sg_row(ty, i);
+    if (tx == 0 && row < N) {
+      base[row] = m[i]; base[SN + row] = l[i]; base[2 * SN + row] = r[i]; base[3 * SN + row] = lb;
+    }
+  }
+}
+
+template <bool TIED>
+cudaError_t launch_f32(const SgOperand& x, const SgOperand& w, const LogprobParams& p, cudaStream_t stream) {
+  dim3 grid((p.N + SG_BM - 1) / SG_BM, p.S);
+  logprob_fwd_f32_kernel<TIED><<<grid, SG_THREADS, 0, stream>>>(x, w, p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  logprob_combine_kernel<<<(p.N + 255) / 256, 256, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x bf16 [N, D] contiguous; w bf16 with row stride ldw elements (a multiple
@@ -197,4 +265,29 @@ extern "C" int fused_logprob_fwd(const void* x, const void* w, const void* bias,
   p.tiles_per_split = (n_vt + splits - 1) / splits;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(tied ? launch<true>(tx, tw, p, s) : launch<false>(tx, tw, p, s));
+}
+
+// The f32 mode: x f32 [N, D] contiguous; w f32 with row stride ldw elements
+// and unit column stride: [D, V] untied, [V, D] tied. `splits` V splits of
+// 128-column tiles.
+extern "C" int fused_logprob_fwd_f32(const void* x, const void* w, const void* bias, const void* labels, void* lp,
+                                     void* lse, void* ent, void* partials, int N, int D, int V, int ldw, int tied,
+                                     int splits, void* stream) {
+  if (N < 1 || D < 1 || V < 1 || splits < 1) return (int)cudaErrorInvalidValue;
+  const SgOperand xo{static_cast<const float*>(x), D, N, D, D % 4 == 0 && aligned16(x)};
+  const int wvec = ldw % 4 == 0 && aligned16(w);
+  const SgOperand wo = tied ? SgOperand{static_cast<const float*>(w), ldw, V, D, wvec}
+                            : SgOperand{static_cast<const float*>(w), ldw, D, V, wvec};
+  LogprobParams p;
+  p.bias = static_cast<const float*>(bias);
+  p.labels = static_cast<const int*>(labels);
+  p.part = static_cast<float*>(partials);
+  p.lp = static_cast<float*>(lp);
+  p.lse = static_cast<float*>(lse);
+  p.ent = static_cast<float*>(ent);
+  p.N = N; p.D = D; p.V = V; p.S = splits;
+  const int n_vt = (V + SG_BN - 1) / SG_BN;
+  p.tiles_per_split = (n_vt + splits - 1) / splits;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(tied ? launch_f32<true>(xo, wo, p, s) : launch_f32<false>(xo, wo, p, s));
 }

@@ -43,8 +43,16 @@
 // forward's copy), its rows 16-byte aligned for TMA. s is computed once:
 // 3 * 2NDV in all, against the TPU decomposition's 4. Every sum has a fixed
 // order (no atomics), so two calls give the same bits.
+//
+// The f32-activation mode (x, W f32: ILQL's Q heads, N = 4092, D = 8192,
+// V = 50400) runs the same three steps and the same db merge on the SIMT
+// mainloop of sgemm_f32.cuh, with ds kept in f32 (the TPU kernels round ds
+// to x's dtype, here f32) and dx, dW and db in f32; 4 x 2NDV = 13.5 TFLOP a
+// call at that shape, bound by operations.
 
 #include "logprob_gemm.cuh"
+#include "logprob_math.cuh"
+#include "sgemm_f32.cuh"
 
 namespace {
 
@@ -135,9 +143,7 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
         float dsv = 0.f;
         if (col < V && (r ? in1 : in0)) {
           const float sv = acc[4 * j + e] + (p.bias != nullptr ? __ldg(p.bias + col) : 0.f);
-          const float pv = expf(sv - lse[r]);
-          const float hit = col == y[r] ? 1.f : 0.f;
-          dsv = dlp[r] * (hit - pv) + dlse[r] * pv - dent[r] * pv * (sv - E[r]);
+          dsv = ds_score(sv, lse[r], E[r], dlp[r], dlse[r], dent[r], col == y[r]);
         }
         acc[4 * j + e] = dsv;
         cs[e & 1] += dsv;
@@ -321,6 +327,133 @@ cudaError_t launch_ds_dx(const CUtensorMap& tx, const CUtensorMap& tw_s, const C
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The f32-activation mode on the SIMT mainloop (128 x 128 tiles)
+// ---------------------------------------------------------------------------
+
+struct DsF32Params {
+  const float* bias;                           // [V] or null
+  const int* labels;                           // [rows]
+  const float *lse, *ent, *dlp, *dlse, *dent;  // [rows]
+  float* ds;                                   // [C, ldv]
+  float* dbpart;                               // [ceil(rows / 128), V] or null
+  float* dx;                                   // [rows, D]
+  int rows, D, V, ldv, tiles_per_split;
+};
+
+// 1. ds in f32 over the chunk's row tile and V split, every row of the tile
+// written (zeros past the chunk's rows and past V); the db column partials
+// summed over the tile's rows in a fixed order (each thread's 8 rows, then
+// the 16 row groups in order).
+template <bool TIED>
+__global__ void __launch_bounds__(SG_THREADS, 2)
+    logprob_ds_f32_kernel(const SgOperand x, const SgOperand w, DsF32Params p) {
+  __shared__ __align__(16) SgSmem sm;
+  __shared__ float colsum[16][SG_BN];
+  const int row_tile = blockIdx.x, split = blockIdx.y;
+  const int V = p.V;
+  const int m0 = row_tile * SG_BM;
+  const int n_vt = (V + SG_BN - 1) / SG_BN;
+  const int vt_lo = split * p.tiles_per_split;
+  const int vt_hi = min(vt_lo + p.tiles_per_split, n_vt);
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+
+  float acc[8][8];
+  for (int vt = vt_lo; vt < vt_hi; ++vt) {
+    const int v0 = vt * SG_BN;
+    sgemm_tile<true, TIED>(sm, x, w, m0, v0, p.D, acc);
+    float cs[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) cs[j] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      // The row's residuals and cotangents, read here rather than held in
+      // registers across the mainloop.
+      const int row = m0 + sg_row(ty, i);
+      const bool in = row < p.rows;
+      const float lse = in ? __ldg(p.lse + row) : 0.f;
+      const float E = in ? lse - __ldg(p.ent + row) : 0.f;
+      const float dlp = in ? __ldg(p.dlp + row) : 0.f;
+      const float dlse = in ? __ldg(p.dlse + row) : 0.f;
+      const float dent = in ? __ldg(p.dent + row) : 0.f;
+      const int y = in ? __ldg(p.labels + row) : -1;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = v0 + sg_col(tx, j);
+        float dsv = 0.f;
+        if (col < V && in) {
+          const float sv = acc[i][j] + (p.bias != nullptr ? __ldg(p.bias + col) : 0.f);
+          dsv = ds_score(sv, lse, E, dlp, dlse, dent, col == y);
+        }
+        acc[i][j] = dsv;
+        cs[j] += dsv;
+      }
+      float* drow = p.ds + (size_t)(m0 + sg_row(ty, i)) * p.ldv + v0;
+      *reinterpret_cast<float4*>(drow + 4 * tx) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      *reinterpret_cast<float4*>(drow + 64 + 4 * tx) = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+    }
+    if (p.dbpart != nullptr) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) colsum[ty][sg_col(tx, j)] = cs[j];
+      __syncthreads();
+      if (threadIdx.x < SG_BN) {
+        float v = 0.f;
+#pragma unroll
+        for (int g = 0; g < 16; ++g) v += colsum[g][threadIdx.x];
+        const int col = v0 + threadIdx.x;
+        if (col < V) p.dbpart[(size_t)row_tile * V + col] = v;
+      }
+      // The next write to colsum follows the next tile's mainloop barriers.
+    }
+  }
+}
+
+// 2. dx = ds . W^T (untied W [D, V], a K-major B) or ds . W (tied W [V, D],
+// MN-major), in f32, one CTA per 128 x 128 output tile.
+template <bool TIED>
+__global__ void __launch_bounds__(SG_THREADS, 2)
+    logprob_dx_f32_kernel(const SgOperand ds, const SgOperand w, DsF32Params p) {
+  __shared__ __align__(16) SgSmem sm;
+  const int m0 = blockIdx.x * SG_BM, n0 = blockIdx.y * SG_BN;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  float acc[8][8];
+  sgemm_tile<true, !TIED>(sm, ds, w, m0, n0, p.V, acc);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = m0 + sg_row(ty, i);
+    if (row >= p.rows) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = n0 + sg_col(tx, j);
+      if (col < p.D) p.dx[(size_t)row * p.D + col] = acc[i][j];
+    }
+  }
+}
+
+// 3. dW = A^T . B over the rows, f32 (untied: x^T . ds -> [D, V]; tied:
+// ds^T . x -> [V, D]), both operands MN-major, one CTA per 128 x 128 output
+// tile, each element stored once. blockIdx.x walks the output rows, so the
+// CTAs that run together share their B panel.
+__global__ void __launch_bounds__(SG_THREADS, 2)
+    logprob_dw_f32_kernel(const SgOperand a, const SgOperand b, float* out, int m_valid, int n_valid, int K) {
+  __shared__ __align__(16) SgSmem sm;
+  const int m0 = blockIdx.x * SG_BM, n0 = blockIdx.y * SG_BN;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  float acc[8][8];
+  sgemm_tile<false, false>(sm, a, b, m0, n0, K, acc);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = m0 + sg_row(ty, i);
+    if (row >= m_valid) continue;
+    float* orow = out + (size_t)row * n_valid;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = n0 + sg_col(tx, j);
+      if (col < n_valid) orow[col] = acc[i][j];
+    }
+  }
+}
+
 }  // namespace
 
 // One chunk of rows: ds (bf16 [C, ldv], C >= rows rounded up to 128) and the
@@ -389,6 +522,73 @@ extern "C" int fused_logprob_bwd_dw(const void* x, const void* ds, void* dw, int
   const int grid = min(p.m_tiles * p.n_tiles, sms);
   logprob_dw_kernel<<<grid, GEMM_THREADS, smem, s>>>(tied ? tds : tx, tied ? tx : tds, p);
   err = cudaGetLastError();
+  if (err != cudaSuccess || db == nullptr) return (int)err;
+  logprob_db_kernel<<<(V + 255) / 256, 256, 0, s>>>(static_cast<const float*>(dbpart), static_cast<float*>(db),
+                                                    n_tiles, V);
+  return (int)cudaGetLastError();
+}
+
+// The f32 mode, one chunk of rows: ds (f32 [C, ldv]) and the db column
+// partials, then dx (f32 [rows, D]). x f32 [rows, D]; w f32 with row stride
+// ldw and unit column stride: [D, V] untied, [V, D] tied. `splits` V splits
+// of 128-column tiles for the ds grid.
+extern "C" int fused_logprob_bwd_ds_dx_f32(const void* x, const void* w, const void* bias, const void* labels,
+                                           const void* lse, const void* ent, const void* dlp, const void* dlse,
+                                           const void* dent, void* ds, void* dbpart, void* dx, int rows, int D,
+                                           int V, int ldv, int C, int ldw, int tied, int splits, void* stream) {
+  if (rows < 1 || ldv % DS_LD != 0 || ldv < V || rows > C || C % SG_BM != 0 || splits < 1 || !aligned16(ds))
+    return (int)cudaErrorInvalidValue;
+  const SgOperand xo{static_cast<const float*>(x), D, rows, D, D % 4 == 0 && aligned16(x)};
+  const int wvec = ldw % 4 == 0 && aligned16(w);
+  const SgOperand wo = tied ? SgOperand{static_cast<const float*>(w), ldw, V, D, wvec}
+                            : SgOperand{static_cast<const float*>(w), ldw, D, V, wvec};
+  const SgOperand dso{static_cast<const float*>(ds), ldv, rows, V, 1};
+  DsF32Params p;
+  p.bias = static_cast<const float*>(bias);
+  p.labels = static_cast<const int*>(labels);
+  p.lse = static_cast<const float*>(lse);
+  p.ent = static_cast<const float*>(ent);
+  p.dlp = static_cast<const float*>(dlp);
+  p.dlse = static_cast<const float*>(dlse);
+  p.dent = static_cast<const float*>(dent);
+  p.ds = static_cast<float*>(ds);
+  p.dbpart = static_cast<float*>(dbpart);
+  p.dx = static_cast<float*>(dx);
+  p.rows = rows; p.D = D; p.V = V; p.ldv = ldv;
+  const int n_vt = (V + SG_BN - 1) / SG_BN;
+  p.tiles_per_split = (n_vt + splits - 1) / splits;
+  splits = (n_vt + p.tiles_per_split - 1) / p.tiles_per_split;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 ds_grid((rows + SG_BM - 1) / SG_BM, splits), dx_grid((rows + SG_BM - 1) / SG_BM, (D + SG_BN - 1) / SG_BN);
+  if (tied) {
+    logprob_ds_f32_kernel<true><<<ds_grid, SG_THREADS, 0, s>>>(xo, wo, p);
+  } else {
+    logprob_ds_f32_kernel<false><<<ds_grid, SG_THREADS, 0, s>>>(xo, wo, p);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (tied) {
+    logprob_dx_f32_kernel<true><<<dx_grid, SG_THREADS, 0, s>>>(dso, wo, p);
+  } else {
+    logprob_dx_f32_kernel<false><<<dx_grid, SG_THREADS, 0, s>>>(dso, wo, p);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The f32 mode: dW (f32; [D, V] untied, [V, D] tied) of `rows` rows of x
+// [rows, D] and ds [rows, ldv] (f32, zero past V), each element stored
+// once; with `db` set, also sums the n_tiles column partials into db.
+extern "C" int fused_logprob_bwd_dw_f32(const void* x, const void* ds, void* dw, int rows, int D, int V, int ldv,
+                                        int tied, const void* dbpart, void* db, int n_tiles, void* stream) {
+  if (rows < 1 || ldv % DS_LD != 0 || ldv < V || !aligned16(ds)) return (int)cudaErrorInvalidValue;
+  const SgOperand xo{static_cast<const float*>(x), D, rows, D, D % 4 == 0 && aligned16(x)};
+  const SgOperand dso{static_cast<const float*>(ds), ldv, rows, V, 1};
+  const int m_valid = tied ? V : D, n_valid = tied ? D : V;
+  const dim3 grid((m_valid + SG_BM - 1) / SG_BM, (n_valid + SG_BN - 1) / SG_BN);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  logprob_dw_f32_kernel<<<grid, SG_THREADS, 0, s>>>(tied ? dso : xo, tied ? xo : dso, static_cast<float*>(dw),
+                                                   m_valid, n_valid, rows);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || db == nullptr) return (int)err;
   logprob_db_kernel<<<(V + 255) / 256, 256, 0, s>>>(static_cast<const float*>(dbpart), static_cast<float*>(db),
                                                     n_tiles, V);

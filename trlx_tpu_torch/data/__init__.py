@@ -1,8 +1,8 @@
 """Data elements passed between the pipeline, orchestrator and trainer.
 
-The PPO element and batch types of ``trlx_tpu.data`` as plain dataclasses:
-fields hold numpy arrays on the host or tensors on the device, with fixed
-padded shapes (queries left-padded, responses right-padded).
+The PPO and ILQL element and batch types of ``trlx_tpu.data`` as plain
+dataclasses: fields hold numpy arrays on the host or tensors on the device,
+with fixed padded shapes (queries left-padded, responses right-padded).
 """
 
 from dataclasses import dataclass
@@ -60,6 +60,31 @@ class PPORLBatch:
     extras: Any = None
 
 
+@dataclass
+class ILQLElement:
+    """One offline ILQL sample."""
+
+    input_ids: Any
+    attention_mask: Any
+    rewards: Any
+    states_ixs: Any
+    actions_ixs: Any
+    dones: Any
+
+
+@dataclass
+class ILQLBatch:
+    """Batched ILQL samples: input_ids / attention_mask [b, T], rewards and
+    actions_ixs [b, T - 1], states_ixs and dones [b, T] (zero-padded)."""
+
+    input_ids: Any
+    attention_mask: Any
+    rewards: Any
+    states_ixs: Any
+    actions_ixs: Any
+    dones: Any
+
+
 RewardFn = Callable[[Iterable[Any]], Iterable[float]]
 MetricFn = Callable[[Iterable[Any]], dict]
 
@@ -68,6 +93,8 @@ __all__ = [
     "PromptBatch",
     "PPORLElement",
     "PPORLBatch",
+    "ILQLElement",
+    "ILQLBatch",
     "RewardFn",
     "MetricFn",
 ]

@@ -1,12 +1,12 @@
 """Per-method hyperparameter dataclasses and their registry.
 
-The PPO configs of ``trlx_tpu.data.method_configs``, field for field, so the
-same YAML ``method`` section loads into either package. Knobs of features the
+The PPO and ILQL configs of ``trlx_tpu.data.method_configs``, field for
+field, so the same YAML ``method`` section loads into either package. Knobs of features the
 port does not run yet are kept as fields; the trainer refuses them when set.
 """
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 _METHODS: Dict[str, type] = {}
 
@@ -83,6 +83,25 @@ class PPOConfig(MethodConfig):
     fleet_disaggregate: bool = False
     fleet_inflight_weights: bool = False
     fleet_elastic: bool = False
+
+
+@dataclass
+@register_method
+class ILQLConfig(MethodConfig):
+    """ILQL hyperparameters. ``gen_kwargs`` holds the eval decode's lengths
+    and its ``beta``, ``top_k`` and ``temperature``; see
+    ``trlx_tpu.data.method_configs.ILQLConfig``."""
+
+    name: str = "ilqlconfig"
+    tau: float = 0.7
+    gamma: float = 0.99
+    cql_scale: float = 0.1
+    awac_scale: float = 1.0
+    alpha: float = 0.005
+    steps_for_target_q_sync: int = 5
+    betas: List[float] = field(default_factory=lambda: [4.0])
+    two_qs: bool = True
+    gen_kwargs: dict = field(default_factory=dict)
 
 
 @dataclass

@@ -1,5 +1,5 @@
-"""RL heads and the hydra value-head model (the counterparts of
-``trlx_tpu.models.heads``).
+"""RL heads, the hydra value-head model and the ILQL heads model (the
+counterparts of ``trlx_tpu.models.heads``).
 
 The frozen reference branch is the SAME module applied from the branch layer
 up with a frozen copy of that layer range's parameters swapped in
@@ -8,7 +8,7 @@ that copy. No module is duplicated.
 """
 
 from contextlib import contextmanager
-from typing import Dict, Optional, Set
+from typing import Dict, Optional, Set, Tuple
 
 import torch
 from torch import nn
@@ -135,6 +135,84 @@ class LMWithValueHead(nn.Module):
         if labels is not None:
             return out["logprobs"]
         return out["logits"]
+
+
+class LMWithILQLHeads(nn.Module):
+    """LM + vocabulary-wide Q head(s) + scalar V head for ILQL.
+
+    The target Q heads are not modules: the trainer keeps a frozen copy of
+    the Q heads' parameters and applies ``compute_qs`` with it swapped in
+    (``swapped_params``), so the Polyak sync is an in-place blend of
+    tensors."""
+
+    def __init__(self, cfg: LMConfig, two_qs: bool = True, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.two_qs = two_qs
+        device = resolve_device(device)
+        self.transformer = TransformerLM(cfg, device)
+        self.v_head = MLPHead(1, cfg, device)
+        self.q1_head = MLPHead(cfg.vocab_size, cfg, device)
+        if two_qs:
+            self.q2_head = MLPHead(cfg.vocab_size, cfg, device)
+
+    def head_names(self):
+        return ("q1_head", "q2_head") if self.two_qs else ("q1_head",)
+
+    def forward(
+        self,
+        input_ids=None,
+        attention_mask=None,
+        position_ids=None,
+        states_ixs=None,
+        actions_ixs=None,
+        cache=None,
+        cache_index=None,
+        cache_mask=None,
+        logits_start: int = 0,
+        labels=None,
+        labels_mask=None,
+        compute_q_heads: bool = True,
+    ):
+        """Returns dict(logits, qs, vs, hidden, cache, logprobs).
+
+        With ``states_ixs`` / ``actions_ixs`` [b, n] the Q heads run on the
+        action positions' hidden states and the V head on the states'; without,
+        on every position from ``logits_start`` on (the sampler's prefill
+        reads only the last). ``labels`` switches the LM head to the fused
+        logprob mode (``logprobs`` [b, S], no logits: the AWAC term);
+        ``compute_q_heads=False`` leaves ``qs`` None (the fused train route
+        evaluates the Q heads through the fused head itself)."""
+        out = self.transformer(
+            input_ids=input_ids,
+            attention_mask=attention_mask,
+            position_ids=position_ids,
+            cache=cache,
+            cache_index=cache_index,
+            cache_mask=cache_mask,
+            logits_start=logits_start,
+            labels=labels,
+            labels_mask=labels_mask,
+        )
+        hs = out["hidden"]
+        tail = hs[:, logits_start:] if logits_start else hs
+        hs_actions = tail if actions_ixs is None else torch.gather(
+            hs, 1, actions_ixs.long()[..., None].expand(-1, -1, hs.shape[-1]))
+        hs_states = tail if states_ixs is None else torch.gather(
+            hs, 1, states_ixs.long()[..., None].expand(-1, -1, hs.shape[-1]))
+        return {
+            "logits": out["logits"],
+            "qs": self.compute_qs(hs_actions) if compute_q_heads else None,
+            "vs": self.v_head(hs_states)[..., 0],
+            "hidden": hs,
+            "cache": out["cache"],
+            "logprobs": out["logprobs"],
+        }
+
+    def compute_qs(self, hidden) -> Tuple[torch.Tensor, ...]:
+        """The Q heads on ``hidden``: a tuple of f32 [..., V], one per head.
+        With the target copy swapped in, the target Qs."""
+        return tuple(getattr(self, name)(hidden) for name in self.head_names())
 
 
 def extract_branch_params(model: LMWithValueHead, branch_layer: int) -> Dict[str, torch.Tensor]:

@@ -85,6 +85,23 @@ _SIGNATURES = {
                              _I,  # tied
                              _P, _P, _I,  # db partials, db (or null), row tiles
                              _I, _P],  # SMs (the persistent grid), stream
+    # The f32-activation mode of the fused head (x, w, ds, dx, dW all f32).
+    "fused_logprob_fwd_f32": [_P, _P, _P, _P,  # x w bias labels
+                              _P, _P, _P,  # lp lse ent
+                              _P,  # partials scratch [4, splits, N]
+                              _I, _I, _I,  # N D V
+                              _I, _I, _I,  # ldw (w's row stride), tied, splits
+                              _P],  # stream
+    "fused_logprob_bwd_ds_dx_f32": [_P, _P, _P, _P,  # x w bias labels (chunk)
+                                    _P, _P, _P, _P, _P,  # lse ent dlp dlse dent (chunk)
+                                    _P, _P, _P,  # ds scratch, db partials, dx (chunk)
+                                    _I, _I, _I, _I, _I,  # rows D V ldv C
+                                    _I, _I, _I, _P],  # ldw, tied, splits, stream
+    "fused_logprob_bwd_dw_f32": [_P, _P, _P,  # x ds dw
+                                 _I, _I, _I, _I,  # rows D V ldv
+                                 _I,  # tied
+                                 _P, _P, _I,  # db partials, db (or null), row tiles
+                                 _P],  # stream
 }
 
 

@@ -6,7 +6,10 @@ routing rule.
 
 Counterpart of ``trlx_tpu.ops.fused_logprob`` (its ``_fused_core`` custom
 VJP). A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-or raises.
+or raises. The kernels compute in the activation's dtype, as the TPU kernels
+do: bf16 activations go to the tensor-core kernels (the weight read in bf16),
+f32 activations (ILQL's Q heads) to the f32 kernels, which read the f32
+weight as it is; any other dtype raises.
 """
 
 import math
@@ -22,6 +25,9 @@ _KERNEL_BK = 64  # forward reduction chunk: D must divide by it
 _BWD_D_MULTIPLE = 128  # the backward's shape rule: D must divide by it
 _DS_LD = 128  # the ds scratch's rows are padded to a multiple of this (ldv)
 BWD_CHUNK_ROWS = 1024  # rows per chunk of the ds and dx kernels
+_F32_BM = 128  # the f32 kernels' output tile (SG_BM x SG_BN in csrc/sgemm_f32.cuh)
+_F32_BN = 128
+_F32_CTAS_PER_SM = 2  # the f32 kernels launch at most 128 registers a thread, two CTAs an SM
 
 
 def fused_logprob_eligible(d_model: int, vocab_size: int) -> bool:
@@ -79,15 +85,20 @@ def fused_logprob_bwd_plain(x, w, bias, labels, lse, ent, dlp, dlse, dent, *, ti
     return dx, dw.to(w.dtype), db
 
 
-def split_count(n_rows: int, V: int, sms: int) -> int:
-    """V splits per row tile of the forward and ds grids on a card with
-    ``sms`` SMs: about one CTA per SM in all (each holds 210 KB of shared
-    memory), every split non-empty."""
-    n_rt = -(-n_rows // _KERNEL_BM)
-    n_vt = -(-V // _KERNEL_BN)
+def split_count(n_rows: int, V: int, sms: int, bm: int = _KERNEL_BM, bn: int = _KERNEL_BN) -> int:
+    """V splits per row tile of the forward and ds grids (row tiles of
+    ``bm``, vocabulary tiles of ``bn``) for ``sms`` CTAs in flight: about
+    one CTA per slot in all (a bf16 CTA holds 210 KB of shared memory, so one
+    an SM), every split non-empty."""
+    n_rt = -(-n_rows // bm)
+    n_vt = -(-V // bn)
     s0 = max(1, min(n_vt, sms // n_rt))
     tps = -(-n_vt // s0)
     return -(-n_vt // tps)
+
+
+def _f32_splits(n_rows: int, V: int, device) -> int:
+    return split_count(n_rows, V, _F32_CTAS_PER_SM * _sm_count(device), _F32_BM, _F32_BN)
 
 
 def _sm_count(device) -> int:
@@ -120,10 +131,15 @@ def _check_kernel_inputs(x, w, tied: bool, d_multiple: int):
         raise ValueError(f"fused_logprob: unsupported device {x.device}")
     D = x.shape[-1]
     V = w.shape[0] if tied else w.shape[1]
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"fused_logprob kernel takes bfloat16 activations, got {x.dtype}")
-    if w.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"fused_logprob kernel takes a float32 or bfloat16 weight, got {w.dtype}")
+    if x.dtype == torch.bfloat16:
+        if w.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"fused_logprob kernel takes a float32 or bfloat16 weight, got {w.dtype}")
+    elif x.dtype == torch.float32:
+        if w.dtype != torch.float32 or w.stride(-1) != 1:
+            raise TypeError(f"the float32 fused_logprob kernels take a float32 weight with unit column stride, "
+                            f"got {w.dtype} with strides {tuple(w.stride())}")
+    else:
+        raise TypeError(f"fused_logprob kernels take bfloat16 or float32 activations, got {x.dtype}")
     if D % d_multiple:
         raise ValueError(f"fused_logprob kernel needs d_model % {d_multiple} == 0, got {D}")
     if tuple(w.shape) != ((V, D) if tied else (D, V)):
@@ -131,24 +147,31 @@ def _check_kernel_inputs(x, w, tied: bool, d_multiple: int):
     return D, V
 
 
-def fused_logprob_fwd(x, w, labels, bias=None, *, tied: bool = False):
-    """The forward kernel pair on CUDA tensors: f32 (logprob, lse, entropy)
-    shaped like labels. The weight goes through ``kernel_weight`` (one bf16
-    cast of an f32 master). Raises on what the kernel does not take."""
-    D, V = _check_kernel_inputs(x, w, tied, _KERNEL_BK)
-    lead = labels.shape
-    N = math.prod(lead) if len(lead) else 1
+def _fwd_operands(x, labels, bias, D: int, V: int):
+    """(N, x as [N, D] contiguous, int32 labels [N], f32 bias [V] or None,
+    and the f32 lp / lse / ent outputs [N]) of a forward call."""
+    N = math.prod(labels.shape) if labels.dim() else 1
     x2 = x.reshape(N, D).contiguous()
     if x2.data_ptr() % 16:
         raise ValueError("fused_logprob: the activations need a 16-byte aligned start")
-    wk = kernel_weight(w)
     y = labels.reshape(N).to(torch.int32).contiguous()
     b = None if bias is None else bias.reshape(V).to(torch.float32).contiguous()
+    out = [torch.empty(N, dtype=torch.float32, device=x.device) for _ in range(3)]
+    return N, x2, y, b, out
+
+
+def fused_logprob_fwd(x, w, labels, bias=None, *, tied: bool = False):
+    """The forward kernel pair on CUDA tensors: f32 (logprob, lse, entropy)
+    shaped like labels. bf16 x: the weight goes through ``kernel_weight``
+    (one bf16 cast of an f32 master). f32 x: ``fused_logprob_fwd_f32``.
+    Raises on what the kernels do not take."""
+    if x.dtype == torch.float32:
+        return fused_logprob_fwd_f32(x, w, labels, bias, tied=tied)
+    D, V = _check_kernel_inputs(x, w, tied, _KERNEL_BK)
+    N, x2, y, b, (lp, lse, ent) = _fwd_operands(x, labels, bias, D, V)
+    wk = kernel_weight(w)
     S = split_count(N, V, _sm_count(x.device))
     part = torch.empty((4, S, N), dtype=torch.float32, device=x.device)
-    lp = torch.empty(N, dtype=torch.float32, device=x.device)
-    lse = torch.empty_like(lp)
-    ent = torch.empty_like(lp)
     err = cuda_lib.lib().fused_logprob_fwd(
         x2.data_ptr(), wk.data_ptr(), None if b is None else b.data_ptr(), y.data_ptr(),
         lp.data_ptr(), lse.data_ptr(), ent.data_ptr(), part.data_ptr(),
@@ -156,6 +179,28 @@ def fused_logprob_fwd(x, w, labels, bias=None, *, tied: bool = False):
     )
     cuda_lib.check(err, "fused_logprob_fwd")
     fused_logprob_fwd.launches += 1
+    lead = labels.shape
+    return lp.reshape(lead), lse.reshape(lead), ent.reshape(lead)
+
+
+def fused_logprob_fwd_f32(x, w, labels, bias=None, *, tied: bool = False):
+    """The f32 forward kernel pair (x and w f32, f32 products and sums):
+    f32 (logprob, lse, entropy) shaped like labels. The weight is read as it
+    is, through its row stride. Raises on what the kernel does not take."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"fused_logprob_fwd_f32 takes float32 activations, got {x.dtype}")
+    D, V = _check_kernel_inputs(x, w, tied, _KERNEL_BK)
+    N, x2, y, b, (lp, lse, ent) = _fwd_operands(x, labels, bias, D, V)
+    S = _f32_splits(N, V, x.device)
+    part = torch.empty((4, S, N), dtype=torch.float32, device=x.device)
+    err = cuda_lib.lib().fused_logprob_fwd_f32(
+        x2.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(), y.data_ptr(),
+        lp.data_ptr(), lse.data_ptr(), ent.data_ptr(), part.data_ptr(),
+        N, D, V, w.stride(0), int(bool(tied)), S, cuda_lib.stream_ptr(x.device),
+    )
+    cuda_lib.check(err, "fused_logprob_fwd_f32")
+    fused_logprob_fwd_f32.launches += 1
+    lead = labels.shape
     return lp.reshape(lead), lse.reshape(lead), ent.reshape(lead)
 
 
@@ -192,65 +237,103 @@ def fused_logprob_bwd_dw(x2, ds, dw, *, rows: int, V: int, ldv: int, tied: bool,
     fused_logprob_bwd_dw.launches += 1
 
 
-for _fn in (fused_logprob_fwd, fused_logprob_bwd_dx, fused_logprob_bwd_dw):
+def fused_logprob_bwd_dx_f32(x2, w, b, y, rows_f32, ds, dbpart, dx, *, rows: int, C: int, ldv: int, tied: bool):
+    """The f32 mode of one chunk of rows: the ds kernel (f32 ds into the
+    [C, ldv] scratch, db column partials) and the dx kernel (f32 dx); w is
+    the f32 weight as it is."""
+    D, V = x2.shape[1], (w.shape[0] if tied else w.shape[1])
+    err = cuda_lib.lib().fused_logprob_bwd_ds_dx_f32(
+        x2.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(), y.data_ptr(),
+        *(t.data_ptr() for t in rows_f32), ds.data_ptr(), None if dbpart is None else dbpart.data_ptr(),
+        dx.data_ptr(), rows, D, V, ldv, C, w.stride(0), int(bool(tied)), _f32_splits(rows, V, x2.device),
+        cuda_lib.stream_ptr(x2.device),
+    )
+    cuda_lib.check(err, "fused_logprob_bwd_ds_dx_f32")
+    fused_logprob_bwd_dx_f32.launches += 1
+
+
+def fused_logprob_bwd_dw_f32(x2, ds, dw, *, rows: int, V: int, ldv: int, tied: bool, dbpart=None, db=None):
+    """The f32 mode's dW kernel over ``rows`` rows of x2 and of the f32 ds
+    [rows, ldv]: f32 dW, each element stored once; with ``db`` also the db
+    merge of all row tiles."""
+    D = x2.shape[1]
+    n_tiles = 0 if dbpart is None else dbpart.shape[0]
+    err = cuda_lib.lib().fused_logprob_bwd_dw_f32(
+        x2.data_ptr(), ds.data_ptr(), dw.data_ptr(), rows, D, V, ldv, int(bool(tied)),
+        None if dbpart is None else dbpart.data_ptr(), None if db is None else db.data_ptr(), n_tiles,
+        cuda_lib.stream_ptr(x2.device),
+    )
+    cuda_lib.check(err, "fused_logprob_bwd_dw_f32")
+    fused_logprob_bwd_dw_f32.launches += 1
+
+
+for _fn in (fused_logprob_fwd, fused_logprob_bwd_dx, fused_logprob_bwd_dw, fused_logprob_fwd_f32,
+            fused_logprob_bwd_dx_f32, fused_logprob_bwd_dw_f32):
     _fn.launches = 0
 
 
 def fused_logprob_bwd(x, w, bias, labels, lse, ent, dlp, dlse, dent, *, tied: bool = False, wk=None):
     """(dx, dW, db) of the fused head. CPU tensors take
     ``fused_logprob_bwd_plain``; CUDA tensors walk the rows in chunks of
-    ``BWD_CHUNK_ROWS`` (ds + dx per chunk, into a bf16 ds of every row),
-    then launch dW/db once over all rows, so no f32 [N, V] buffer exists and
-    dW is written once; or raise. ``wk`` is w as ``kernel_weight`` gives it
-    (the forward's copy), made here when not given. dW accumulates in f32
-    and comes back in w's dtype.
+    ``BWD_CHUNK_ROWS`` (ds + dx per chunk, into a ds of every row), then
+    launch dW/db once over all rows, so no f32 [N, V] score buffer exists and
+    dW is written once; or raise. dW accumulates in f32 and comes back in w's
+    dtype; dx comes back in x's dtype.
+
+    bf16 x: ``wk`` is w as ``kernel_weight`` gives it (the forward's copy),
+    made here when not given, and ds is kept in bf16. f32 x: the f32 kernels
+    read the f32 w as it is (``wk`` is not used) and keep ds in f32.
 
     The ds buffer grows with N: N rounded up to 128, times V rounded up to
-    128, bf16 (206.6 MB at N = 2048, V = 50400, about 0.83 GB at N = 8192),
-    beside the f32 dW of D x V (826 MB at D = 4096)."""
+    128, in x's dtype (bf16: 206.6 MB at N = 2048, V = 50400; f32: 826 MB at
+    N = 4092), beside the f32 dW of D x V (826 MB at D = 4096)."""
     if x.device.type == "cpu":
         return fused_logprob_bwd_plain(x, w, bias, labels, lse, ent, dlp, dlse, dent, tied=tied)
     D, V = _check_kernel_inputs(x, w, tied, _BWD_D_MULTIPLE)
+    f32 = x.dtype == torch.float32
     N = labels.numel()
     dev = x.device
     x2 = x.reshape(N, D).contiguous()
-    wc = kernel_weight(w if wk is None else wk)
+    wc = w if f32 else kernel_weight(w if wk is None else wk)
     y = labels.reshape(N).to(torch.int32).contiguous()
     b = None if bias is None else bias.reshape(V).to(torch.float32).contiguous()
     vecs = [t.reshape(N).to(torch.float32).contiguous() for t in (lse, ent, dlp, dlse, dent)]
     ldv = -(-V // _DS_LD) * _DS_LD
     n_tiles = -(-N // _KERNEL_BM)
     C = min(BWD_CHUNK_ROWS, n_tiles * _KERNEL_BM)
-    # The ds kernel writes whole 128-row tiles: every row tile of N.
-    ds = torch.empty((n_tiles * _KERNEL_BM, ldv), dtype=torch.bfloat16, device=dev)
+    # The ds kernels write whole 128-row tiles: every row tile of N.
+    ds = torch.empty((n_tiles * _KERNEL_BM, ldv), dtype=x.dtype, device=dev)
     dbpart = None if b is None else torch.empty((n_tiles, V), dtype=torch.float32, device=dev)
-    dx = torch.empty((N, D), dtype=torch.bfloat16, device=dev)
+    dx = torch.empty((N, D), dtype=x.dtype, device=dev)
     dw = torch.empty(tuple(w.shape), dtype=torch.float32, device=dev)
     db = None if b is None else torch.empty((V,), dtype=torch.float32, device=dev)
+    chunk_fn, dw_fn = (fused_logprob_bwd_dx_f32, fused_logprob_bwd_dw_f32) if f32 else (
+        fused_logprob_bwd_dx, fused_logprob_bwd_dw)
     for c0 in range(0, N, C):
         rows = min(C, N - c0)
         part = None if dbpart is None else dbpart[c0 // _KERNEL_BM:]
-        fused_logprob_bwd_dx(x2[c0:], wc, b, y[c0:], [v[c0:] for v in vecs], ds[c0:], part, dx[c0:],
-                             rows=rows, C=C, ldv=ldv, tied=tied)
-    fused_logprob_bwd_dw(x2, ds, dw, rows=N, V=V, ldv=ldv, tied=tied, dbpart=dbpart, db=db)
+        chunk_fn(x2[c0:], wc, b, y[c0:], [v[c0:] for v in vecs], ds[c0:], part, dx[c0:],
+                 rows=rows, C=C, ldv=ldv, tied=tied)
+    dw_fn(x2, ds, dw, rows=N, V=V, ldv=ldv, tied=tied, dbpart=dbpart, db=db)
     return dx.reshape(x.shape), dw.to(w.dtype), None if db is None else db.to(bias.dtype)
 
 
 class FusedLogprobFn(torch.autograd.Function):
     """(logprob, lse, entropy) with the fused backward over (x, w, bias);
     the labels are not differentiable. Saves x, w, bias, labels, the row
-    residuals (lse, entropy) and, on CUDA, the bf16 weight the forward
-    kernel read, so the backward does not cast it again. On the CPU the same
-    Function runs the plain forward and the plain backward."""
+    residuals (lse, entropy) and, on CUDA with bf16 x, the bf16 weight the
+    forward kernel read, so the backward does not cast it again (f32 x: the
+    f32 kernels read w itself, and no copy is made or saved). On the CPU the
+    same Function runs the plain forward and the plain backward."""
 
     @staticmethod
     def forward(ctx, x, w, bias, labels, tied):
+        wk = None
         if x.device.type == "cpu":
-            wk = None
             lp, lse, ent = naive_logprob(x, w, labels, bias, tied=tied)
         else:
-            wk = kernel_weight(w)
-            lp, lse, ent = fused_logprob_fwd(x, wk, labels, bias, tied=tied)
+            wk = kernel_weight(w) if x.dtype == torch.bfloat16 else None
+            lp, lse, ent = fused_logprob_fwd(x, w if wk is None else wk, labels, bias, tied=tied)
         ctx.save_for_backward(x, w, bias, labels, lse, ent, wk)
         ctx.tied = tied
         return lp, lse, ent
@@ -270,8 +353,8 @@ def fused_logprob(x, w, labels, bias=None, *, tied: bool = False):
     shaped like labels; the [..., V] logits are never formed. Differentiable
     in x, w and bias through ``FusedLogprobFn`` whenever grad is enabled and
     one of them requires it. CPU tensors take the plain versions; CUDA
-    tensors launch the kernels (x bf16, w f32 or bf16, D a multiple of 64,
-    of 128 for the backward) or raise."""
+    tensors launch the kernels (x bf16 with w f32 or bf16, or x and w f32;
+    D a multiple of 64, of 128 for the backward) or raise."""
     needs = [t is not None and t.requires_grad for t in (x, w, bias)]
     if torch.is_grad_enabled() and any(needs):
         return FusedLogprobFn.apply(x, w, bias, labels, bool(tied))
@@ -282,15 +365,15 @@ def fused_logprob(x, w, labels, bias=None, *, tied: bool = False):
 
 def routed_logprob(x, w, labels, bias=None, *, tied: bool = False, mode: str = "auto", mask=None):
     """The model layer's entry: the fused head when ``mode`` is "force", or
-    "auto" on a CUDA device with bf16 activations and an eligible shape;
-    else the materializing ``naive_logprob``. ``mask`` zeros masked rows on
-    both paths."""
+    "auto" on a CUDA device with bf16 or f32 activations (the dtypes the
+    kernels take) and an eligible shape; else the materializing
+    ``naive_logprob``. ``mask`` zeros masked rows on both paths."""
     if mode not in ("auto", "force", "off"):
         raise ValueError(f"fused_logprob mode must be auto|force|off, got {mode!r}")
     use_kernel = mode == "force" or (
         mode == "auto"
         and x.device.type == "cuda"
-        and x.dtype == torch.bfloat16
+        and x.dtype in (torch.bfloat16, torch.float32)
         and fused_logprob_eligible(x.shape[-1], w.shape[0] if tied else w.shape[1])
     )
     if use_kernel:

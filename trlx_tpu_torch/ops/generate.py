@@ -31,6 +31,24 @@ from trlx_tpu_torch.ops.sampling import GenerateConfig, process_logits_default, 
 POLL_AHEAD = 8
 
 
+def _last_position(out):
+    """A fresh copy of the last position of a [B, L, ...] model output, or of
+    each tensor of a tuple of them (ILQL's Q heads)."""
+    if isinstance(out, (tuple, list)):
+        return tuple(t[:, -1].clone() for t in out)
+    return out[:, -1].clone()
+
+
+def _copy_last_position(dst, out):
+    """Write the last position of ``out`` into ``dst`` (``_last_position``'s
+    buffers), in place."""
+    if isinstance(dst, tuple):
+        for d, t in zip(dst, out):
+            d.copy_(t[:, -1])
+    else:
+        dst.copy_(out[:, -1])
+
+
 def _static_buffers(cache, B: int, P: int, N: int, prompt_dtype, device, out, carry_keys, step_stats_fn):
     """The decode loop's buffers for one (B, P, N): tokens and mask
     [B, P + N], the KV cache the prefill wrote, the sampler's state, a [1]
@@ -41,7 +59,7 @@ def _static_buffers(cache, B: int, P: int, N: int, prompt_dtype, device, out, ca
         "finished": torch.zeros((B,), dtype=torch.bool, device=device),
         "last_logits": out["logits"][:, -1].float().clone(),
         "last_hidden": out["hidden"][:, -1].clone(),
-        "carry": {k: out[k][:, -1].clone() for k in carry_keys},
+        "carry": {k: _last_position(out[k]) for k in carry_keys},
     }
     buf = {
         "tokens": torch.empty((B, T), dtype=prompt_dtype, device=device),
@@ -103,7 +121,7 @@ def _make_step(model, buf, gcfg: GenerateConfig, P: int, processor, carry_keys, 
         st["last_logits"].copy_(out["logits"][:, 0])
         st["last_hidden"].copy_(out["hidden"][:, 0])
         for k in carry_keys:
-            st["carry"][k].copy_(out[k][:, -1])
+            _copy_last_position(st["carry"][k], out[k])
         step.add_(1)
 
     return step_fn
@@ -145,7 +163,8 @@ def generate(
     mask 0 and zero stats, which the finished rows hold already, so the
     outputs do not change. ``carry_keys``
     names model outputs whose last-position values are carried to the
-    processor under state["carry"]; the processor's state["step"] is the
+    processor under state["carry"] (an output that is a tuple of tensors,
+    as ILQL's Q heads, is carried as a tuple); the processor's state["step"] is the
     decode step as a [b, 1] device tensor. ``step_stats_fn(tok, state) ->
     {name: [b, ...]}`` reduces each step's PRE-step state to per-step values,
     collected into [b, max_new_tokens, ...] buffers (scalars f32, vectors in
@@ -207,7 +226,7 @@ def generate(
     st["last_logits"].copy_(out["logits"][:, -1])
     st["last_hidden"].copy_(out["hidden"][:, -1])
     for k in carry_keys:
-        st["carry"][k].copy_(out[k][:, -1])
+        _copy_last_position(st["carry"][k], out[k])
     if buf["stats"] is not None:
         for v in buf["stats"].values():
             v.zero_()

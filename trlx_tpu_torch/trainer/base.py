@@ -8,7 +8,8 @@ consecutive-skip count of the non-finite guard, and the host hooks
 (``reward_fn``, ``metric_fn``, ``logit_mask``). There is one device and no
 mesh: ``train.mesh`` is read by the JAX package only. Prompts are token ids:
 loading a tokenizer is not ported yet, so ``model.tokenizer_path`` must be
-empty. Checkpointing (save, load, resume) is not ported either.
+empty. Checkpointing (save, load, resume) is not ported either; every knob
+whose feature is missing is refused by ``refuse_unported``.
 """
 
 import dataclasses
@@ -20,8 +21,9 @@ import numpy as np
 import torch
 
 from trlx_tpu_torch.data.configs import TRLConfig
+from trlx_tpu_torch.data.method_configs import PPOConfig
 from trlx_tpu_torch.device import resolve_device
-from trlx_tpu_torch.resilience.guard import check_bad_steps
+from trlx_tpu_torch.resilience.guard import check_bad_steps, guarded_update
 from trlx_tpu_torch.trainer import intervals
 from trlx_tpu_torch.utils.logging import Tracker
 
@@ -70,7 +72,7 @@ class ClippedAdamW:
       skipped step does not advance it).
 
     Moments are kept in the parameters' dtype (f32 masters) and updated in
-    place."""
+    place; ``step`` clips the gradients it is given in place."""
 
     def __init__(self, params: List[torch.Tensor], schedule: Callable[[int], float], b1: float, b2: float,
                  weight_decay: float, max_norm: float, eps: float = 1e-8):
@@ -85,7 +87,8 @@ class ClippedAdamW:
     def step(self, params: List[torch.Tensor], grads: List[torch.Tensor]):
         norm = global_norm(grads)
         clip = norm >= self.max_norm
-        grads = [torch.where(clip, g / norm * self.max_norm, g) for g in grads]
+        for g in grads:  # clipped in place: no second copy of every gradient at once
+            g.copy_(torch.where(clip, g / norm * self.max_norm, g))
         lr = self.schedule(self.count)
         self.count += 1
         bc1 = float(np.float32(1.0) - np.float32(self.b1) ** np.float32(self.count))
@@ -108,6 +111,56 @@ def build_optimizer(train_cfg, params: List[torch.Tensor]):
     return opt, schedule
 
 
+def refuse_unported(config: TRLConfig):
+    """Raise on every knob whose feature is not ported yet, so no config
+    silently runs a different algorithm, or records less, than it asks
+    for. The one list of such knobs: those every trainer shares, then the
+    PPO method's own (a method config without them has none to refuse)."""
+    m, mc, t = config.method, config.model, config.train
+    unported = {
+        "model.decode_weight_quant": mc.decode_weight_quant,
+        # checkpointing and resume
+        "train.resume_from_checkpoint": t.resume_from_checkpoint,
+        "train.keep_checkpoints": t.keep_checkpoints > 0,
+        # resilience beyond the non-finite guard
+        "train.watchdog_threshold": t.watchdog_threshold > 0,
+        "train.fault_plan": bool(t.fault_plan),
+        "train.reward_fn_timeout": t.reward_fn_timeout > 0,
+        "train.heartbeat_interval": t.heartbeat_interval > 0,
+        "train.collective_deadline": t.collective_deadline > 0,
+        "train.desync_check_interval": t.desync_check_interval > 0,
+        "train.preempt_check_interval": t.preempt_check_interval > 0,
+        "train.fleet_role": bool(t.fleet_role),
+        "train.fleet_dir": bool(t.fleet_dir),
+        # profiling and observability
+        "train.profile_dir": bool(t.profile_dir),
+        "train.watch_interval": t.watch_interval > 0,
+        "train.trace_spans": t.trace_spans,
+        "train.device_telemetry": t.device_telemetry,
+        "train.anomaly_factor": t.anomaly_factor > 0,
+        "train.health_monitor": t.health_monitor,
+        "train.metrics_port": t.metrics_port > 0,
+        "train.graftscope": t.graftscope,
+        "train.graftfleet": t.graftfleet,
+        "train.fleet_resync_interval": t.fleet_resync_interval > 0,
+        "train.graftnum": t.graftnum,
+    }
+    if isinstance(m, PPOConfig):
+        unported.update({
+            "method.spec_decode": bool(m.spec_decode),
+            "method.rollout_overlap": m.rollout_overlap,
+            "method.max_staleness": m.max_staleness > 0,
+            "method.pack_train_batch": m.pack_train_batch,
+            "method.fleet_disaggregate": m.fleet_disaggregate,
+            "method.fleet_elastic": m.fleet_elastic,
+            "method.gen_kwargs.prompt_buckets": bool(m.gen_kwargs.get("prompt_buckets")),
+            "model.reward_model": mc.has_reward_model,
+        })
+    on = [k for k, v in unported.items() if v]
+    if on:
+        raise NotImplementedError(f"not ported yet: {', '.join(on)}")
+
+
 class BaseTrainer:
     def __init__(self, config: TRLConfig, device: Optional[Union[str, torch.device]] = None, **kwargs):
         self.config = config
@@ -116,6 +169,7 @@ class BaseTrainer:
             raise NotImplementedError(
                 "tokenizers are not ported yet: set model.tokenizer_path to '' and pass token-id prompts"
             )
+        refuse_unported(config)
         self.tokenizer = None
         self.reward_fn = kwargs.pop("reward_fn", None)
         self.metric_fn = kwargs.pop("metric_fn", None)
@@ -207,8 +261,63 @@ class BaseTrainer:
         total_steps."""
         raise NotImplementedError
 
-    def train_step(self, batch) -> Dict[str, torch.Tensor]:
+    def make_extras(self) -> Dict[str, torch.Tensor]:
+        """The trainer's frozen tensors beside the model (PPO: the reference;
+        ILQL: the target Q heads), fresh copies of the model's."""
         raise NotImplementedError
+
+    @torch.no_grad()
+    def load_params(self, params: Dict[str, torch.Tensor], extras: Optional[Dict[str, torch.Tensor]] = None):
+        """Copy a full state dict into the model (every parameter must be
+        given) and set the frozen extras to ``extras``, or to a fresh
+        ``make_extras()`` of the loaded parameters."""
+        own = dict(self.model.named_parameters())
+        missing = sorted(set(own) - set(params))
+        extra = sorted(set(params) - set(own))
+        if missing or extra:
+            raise KeyError(f"load_params: missing {missing[:4]}, unexpected {extra[:4]}")
+        for name, t in params.items():
+            own[name].copy_(torch.as_tensor(t))
+        if extras is None:
+            self.extras = self.make_extras()
+        else:
+            self.extras = {
+                n: torch.as_tensor(t).to(device=own[n].device, dtype=own[n].dtype).clone()
+                for n, t in extras.items()
+            }
+
+    def build_train_step(self):
+        """Set ``self._loss_fn(batch) -> (loss, stats)`` for this trainer's
+        model and config; returns ``train_step``."""
+        raise NotImplementedError
+
+    def train_step(self, batch) -> Dict[str, torch.Tensor]:
+        """One update on a device batch: loss, backward, the non-finite
+        guard, clip + AdamW over the trainable parameters. Returns the loss
+        stats plus ``grad_norm`` (before clipping), ``learning_rate`` (the
+        schedule at this step) and the guard's ``resilience/*`` counters, as
+        device scalars."""
+        if getattr(self, "_loss_fn", None) is None:
+            self.build_train_step()
+        params = self.trainable
+        for p in params:
+            p.grad = None
+        loss, stats = self._loss_fn(batch)
+        loss.backward()
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        for p in params:
+            p.grad = None
+        stats = dict(stats)
+        stats["grad_norm"] = global_norm(grads)
+        if self.config.train.nonfinite_guard:
+            self.bad_steps, applied = guarded_update(self.optimizer, params, grads, loss.detach(), self.bad_steps)
+            stats["resilience/nonfinite"] = torch.tensor(0.0 if applied else 1.0)
+            stats["resilience/bad_steps"] = torch.tensor(float(self.bad_steps))
+        else:
+            self.optimizer.step(params, grads)
+        stats["learning_rate"] = torch.tensor(self.schedule(self.step), dtype=torch.float32)
+        self.step += 1
+        return stats
 
     def post_backward_callback(self, stats=None):
         """Called with every step's stats (device scalars)."""

@@ -12,7 +12,7 @@ paged, ``method.paged_kv``), which the trainer builds once and shuts down at
 the end of ``learn()``.
 """
 
-from typing import Dict, Optional
+from typing import Dict
 
 import numpy as np
 import torch
@@ -28,9 +28,8 @@ from trlx_tpu_torch.ops.modeling import logprobs_from_logits
 from trlx_tpu_torch.ops.rl_losses import kl_penalty_rewards, ppo_loss
 from trlx_tpu_torch.ops.sampling import GenerateConfig, make_bigram_mask_processor, process_logits_default
 from trlx_tpu_torch.pipeline.ppo_pipeline import PPORolloutStorage
-from trlx_tpu_torch.resilience.guard import guarded_update
 from trlx_tpu_torch.trainer import register_model
-from trlx_tpu_torch.trainer.base import BaseTrainer, build_optimizer, global_norm
+from trlx_tpu_torch.trainer.base import BaseTrainer, build_optimizer
 
 
 def resolve_fused_head(cfg, device: torch.device) -> bool:
@@ -70,52 +69,6 @@ class FixedKLController:
         pass
 
 
-def _refuse_unported(config: TRLConfig, gen_kwargs: dict):
-    """Raise on every knob whose feature is not ported yet, so no config
-    silently runs a different algorithm, or records less, than it asks
-    for. The one list of such knobs."""
-    m, mc, t = config.method, config.model, config.train
-    unported = {
-        "method.spec_decode": bool(m.spec_decode),
-        "method.rollout_overlap": m.rollout_overlap,
-        "method.max_staleness": m.max_staleness > 0,
-        "method.pack_train_batch": m.pack_train_batch,
-        "method.fleet_disaggregate": m.fleet_disaggregate,
-        "method.fleet_elastic": m.fleet_elastic,
-        "method.gen_kwargs.prompt_buckets": bool(gen_kwargs.get("prompt_buckets")),
-        "model.decode_weight_quant": mc.decode_weight_quant,
-        "model.reward_model": mc.has_reward_model,
-        # checkpointing and resume
-        "train.resume_from_checkpoint": t.resume_from_checkpoint,
-        "train.keep_checkpoints": t.keep_checkpoints > 0,
-        # resilience beyond the non-finite guard
-        "train.watchdog_threshold": t.watchdog_threshold > 0,
-        "train.fault_plan": bool(t.fault_plan),
-        "train.reward_fn_timeout": t.reward_fn_timeout > 0,
-        "train.heartbeat_interval": t.heartbeat_interval > 0,
-        "train.collective_deadline": t.collective_deadline > 0,
-        "train.desync_check_interval": t.desync_check_interval > 0,
-        "train.preempt_check_interval": t.preempt_check_interval > 0,
-        "train.fleet_role": bool(t.fleet_role),
-        "train.fleet_dir": bool(t.fleet_dir),
-        # profiling and observability
-        "train.profile_dir": bool(t.profile_dir),
-        "train.watch_interval": t.watch_interval > 0,
-        "train.trace_spans": t.trace_spans,
-        "train.device_telemetry": t.device_telemetry,
-        "train.anomaly_factor": t.anomaly_factor > 0,
-        "train.health_monitor": t.health_monitor,
-        "train.metrics_port": t.metrics_port > 0,
-        "train.graftscope": t.graftscope,
-        "train.graftfleet": t.graftfleet,
-        "train.fleet_resync_interval": t.fleet_resync_interval > 0,
-        "train.graftnum": t.graftnum,
-    }
-    on = [k for k, v in unported.items() if v]
-    if on:
-        raise NotImplementedError(f"not ported yet: {', '.join(on)}")
-
-
 @register_model("ppo")
 @register_model("AcceleratePPOModel")
 @register_model("TPUJaxPPOModel")
@@ -133,7 +86,6 @@ class PPOTrainer(BaseTrainer):
         super().__init__(config, device=device, **kwargs)
         m = config.method
         gen_kwargs = dict(m.gen_kwargs)
-        _refuse_unported(config, gen_kwargs)
 
         self.model = self.get_arch(config)
         self.extras = self.make_extras()
@@ -244,26 +196,6 @@ class PPOTrainer(BaseTrainer):
         if self.model.branch_layer >= 0:
             return extract_branch_params(self.model, self.model.branch_layer)
         return {n: p.detach().clone() for n, p in self.model.named_parameters()}
-
-    @torch.no_grad()
-    def load_params(self, params: Dict[str, torch.Tensor], extras: Optional[Dict[str, torch.Tensor]] = None):
-        """Copy a full state dict into the model (every parameter must be
-        given) and set the frozen reference to ``extras``, or to a fresh copy
-        of the loaded parameters."""
-        own = dict(self.model.named_parameters())
-        missing = sorted(set(own) - set(params))
-        extra = sorted(set(params) - set(own))
-        if missing or extra:
-            raise KeyError(f"load_params: missing {missing[:4]}, unexpected {extra[:4]}")
-        for name, t in params.items():
-            own[name].copy_(torch.as_tensor(t))
-        if extras is None:
-            self.extras = self.make_extras()
-        else:
-            self.extras = {
-                n: torch.as_tensor(t).to(device=own[n].device, dtype=own[n].dtype).clone()
-                for n, t in extras.items()
-            }
 
     # --------------------------------------------------------------- rollout
 
@@ -399,33 +331,6 @@ class PPOTrainer(BaseTrainer):
         self._loss_fn = make_ppo_loss_fn(self.model, self.config, self.prompt_length,
                                          resolve_fused_head(self.model.cfg, self.device))
         return self.train_step
-
-    def train_step(self, batch: PPORLBatch) -> Dict[str, torch.Tensor]:
-        """One PPO update on a device batch: loss, backward, the non-finite
-        guard, clip + AdamW. Returns the loss stats plus ``grad_norm`` (before
-        clipping), ``learning_rate`` (the schedule at this step) and the
-        guard's ``resilience/*`` counters, as device scalars."""
-        if getattr(self, "_loss_fn", None) is None:
-            self.build_train_step()
-        params = self.trainable
-        for p in params:
-            p.grad = None
-        loss, stats = self._loss_fn(batch)
-        loss.backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
-        for p in params:
-            p.grad = None
-        stats = dict(stats)
-        stats["grad_norm"] = global_norm(grads)
-        if self.config.train.nonfinite_guard:
-            self.bad_steps, applied = guarded_update(self.optimizer, params, grads, loss.detach(), self.bad_steps)
-            stats["resilience/nonfinite"] = torch.tensor(0.0 if applied else 1.0)
-            stats["resilience/bad_steps"] = torch.tensor(float(self.bad_steps))
-        else:
-            self.optimizer.step(params, grads)
-        stats["learning_rate"] = torch.tensor(self.schedule(self.step), dtype=torch.float32)
-        self.step += 1
-        return stats
 
     def post_backward_callback(self, stats=None):
         """Queue this step's policy-vs-rollout mean_kl for the adaptive

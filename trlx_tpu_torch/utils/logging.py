@@ -46,3 +46,26 @@ class Tracker:
             print("  " + " | ".join(str(c)[:60] for c in row), file=sys.stderr)
         self._write_record({"table": name, "step": step, "columns": list(columns),
                             "rows": [[str(c) for c in r] for r in rows[:32]]})
+
+    def log_histogram(self, name: str, values, step: Optional[int] = None):
+        """A distribution (ILQL's decode-time Q, V and advantage) as summary
+        statistics: count, mean, std, min, p5, p50, p95, max."""
+        if not self.enabled:
+            return
+        import numpy as np
+
+        values = np.asarray(values, dtype=np.float32).reshape(-1)
+        if values.size == 0:
+            return
+        self._write_record({
+            "histogram": name,
+            "step": step,
+            "count": int(values.size),
+            "mean": float(values.mean()),
+            "std": float(values.std()),
+            "min": float(values.min()),
+            "p5": float(np.percentile(values, 5)),
+            "p50": float(np.median(values)),
+            "p95": float(np.percentile(values, 95)),
+            "max": float(values.max()),
+        })
