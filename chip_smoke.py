@@ -554,7 +554,11 @@ def phase_logprob_bwd(seed: int):
     ds = torch.randn((N, V), generator=torch.Generator(device="cuda").manual_seed(seed), device="cuda")
     ds = ds.to(torch.bfloat16)
     matmul_ms = time_ms(lambda: torch.matmul(x.t(), ds), iters=5)
-    del ds
+    # Row 5's two products as torch.matmul computes them in bf16: the scores
+    # x·W recomputed, then ds·Wᵀ.
+    wb = w.to(torch.bfloat16)
+    dx_matmul_ms = time_ms(lambda: torch.matmul(x, wb), iters=5) + time_ms(lambda: torch.matmul(ds, wb.t()), iters=5)
+    del ds, wb
     flops = 2 * N * D * V
     small = N * 4 * 6 + V * 4  # labels, lse, ent, three cotangents; bias or db
     bdx = bound(N * D * 2 + D * V * 4 + small + N * V * 2 + N * D * 2, 2 * flops)  # x, W in; ds, dx out
@@ -568,7 +572,9 @@ def phase_logprob_bwd(seed: int):
     dw_err, dw_tol = max((e for k, e in errs.items() if k != "dx"), key=lambda et: et[0] / et[1])
     return {
         "fused_logprob_bwd_dx": dict(max_abs_err=errs["dx"][0], tol=errs["dx"][1], bound_ms=bdx[0],
-                                     bound_by=bdx[1], **common),
+                                     bound_by=bdx[1], matmul_ms=dx_matmul_ms,
+                                     matmul="torch.matmul bf16 x [N, D] x W [D, V], then ds [N, V] x W^T: the "
+                                     "yardstick of the ds + dx products", **common),
         "fused_logprob_bwd_dw": dict(max_abs_err=dw_err, tol=dw_tol, bound_ms=bdw[0], bound_by=bdw[1],
                                      matmul_ms=matmul_ms, matmul="torch.matmul bf16 x^T [D, N] x ds [N, V], ds "
                                      "given: the yardstick of the dW product", **common),
@@ -601,7 +607,7 @@ def logprob_bwd_rows(args, iters: int):
     y = y.to(torch.int32)
     dx_fn, dw_fn = (fused_logprob_bwd_dx_f32, fused_logprob_bwd_dw_f32) if f32 else (
         fused_logprob_bwd_dx, fused_logprob_bwd_dw)
-    wk = w if f32 else kernel_weight(w)
+    wk = kernel_weight(w, x.dtype)
 
     def ds_dx(cast: bool):
         wc = kernel_weight(w) if cast else wk
@@ -655,6 +661,13 @@ def check_scaled(name: str, got, ref, rel: float = F32_REL):
     return float(diff.max()), scaled
 
 
+def log_f32_row(name: str, ms: float, flops: float, bound_ms: float, matmul_ms: float, matmul: str):
+    """One f32 row's time beside its rate, its share of the bound (three
+    TF32 passes) and its torch.matmul yardstick."""
+    log(f"[{name}] {ms:.3f} ms, {flops / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of the 3xTF32 bound "
+        f"{bound_ms:.3f} ms; {matmul} {matmul_ms:.3f} ms ({ms / matmul_ms:.2f}x)")
+
+
 def f32_head_inputs(seed: int):
     """A Q head's fused-head inputs at ``F32_SHAPE``: x a ReLU hidden, W with
     the logit spread of a trained head (std ~2.5), a bias, labels."""
@@ -685,8 +698,8 @@ def phase_logprob_f32(seed: int):
     matmul_ms = time_ms(lambda: torch.matmul(x, w), iters=3, warmup=1)
     flops = 2 * N * D * V
     bound_ms, by = bound_f32(N * D * 4 + D * V * 4 + V * 4 + N * 4 + 3 * N * 4, flops)
-    log(f"[fused_logprob_f32] {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s); torch.matmul of the f32 product "
-        f"{matmul_ms:.3f} ms; plain {plain_ms:.3f} ms; bound {bound_ms:.3f} ms")
+    log_f32_row("fused_logprob_f32", ms, flops, bound_ms, matmul_ms, "torch.matmul of the f32 product x·W")
+    log(f"[fused_logprob_f32] plain {plain_ms:.3f} ms")
     return dict(max_abs_err=max(e[0] for e in errs.values()), max_scaled_err=max(e[1] for e in errs.values()),
                 tol=F32_REL, tol_rule="|d| <= 1e-4 * max(1, |ref|) elementwise on lp, lse, entropy",
                 ms=ms, plain_ms=plain_ms, library_ms=None, library="none: no single PyTorch call computes it",
@@ -734,6 +747,8 @@ def phase_logprob_bwd_f32(seed: int):
     plain_ms = time_ms(lambda: fused_logprob_bwd_plain(*args), iters=2, warmup=1)
     ms_all = time_ms(lambda: fused_logprob_bwd(*args), iters=2, warmup=1)
     ds = torch.randn((N, V), generator=torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+    # Row 5f's products as torch.matmul computes them: x·W recomputed, then ds·Wᵀ.
+    scores_matmul_ms = time_ms(lambda: torch.matmul(x, w), iters=3, warmup=1)
     dx_matmul_ms = time_ms(lambda: torch.matmul(ds, w.t()), iters=3, warmup=1)
     dw_matmul_ms = time_ms(lambda: torch.matmul(x.t(), ds), iters=3, warmup=1)
     del ds
@@ -748,17 +763,18 @@ def phase_logprob_bwd_f32(seed: int):
                   shape=[N, D, V], chunks=-(-N // BWD_CHUNK_ROWS), checks=errs,
                   ds_buffer_bytes=-(-N // 128) * 128 * ldv * 4, call_peak_gb=peak_gb)
     dw_err, dw_tol = max((e for k, e in errs.items() if k != "dx"), key=lambda et: et[0] / et[1])
-    log(f"[fused_logprob_bwd_f32] whole backward {ms_all:.3f} ms; torch.matmul of ds·Wᵀ {dx_matmul_ms:.3f} ms, "
-        f"of xᵀ·ds {dw_matmul_ms:.3f} ms; plain {plain_ms:.3f} ms; call peak {peak_gb:.2f} GB")
+    log(f"[fused_logprob_bwd_f32] whole backward {ms_all:.3f} ms; torch.matmul of x·W {scores_matmul_ms:.3f} ms, "
+        f"of ds·Wᵀ {dx_matmul_ms:.3f} ms, of xᵀ·ds {dw_matmul_ms:.3f} ms; plain {plain_ms:.3f} ms; call peak "
+        f"{peak_gb:.2f} GB")
     return {
         "fused_logprob_bwd_dx_f32": dict(max_abs_err=errs["dx"][0], tol=errs["dx"][1], bound_ms=bdx[0],
-                                         bound_by=bdx[1], matmul_ms=dx_matmul_ms,
-                                         matmul="torch.matmul f32 ds [N, V] x W^T [V, D], ds given, TF32 off",
-                                         **common),
+                                         bound_by=bdx[1], matmul_ms=scores_matmul_ms + dx_matmul_ms,
+                                         matmul="torch.matmul f32 x [N, D] x W [D, V], then ds [N, V] x W^T, TF32 "
+                                         "off: the yardstick of the ds + dx products", flops=2 * flops, **common),
         "fused_logprob_bwd_dw_f32": dict(max_abs_err=dw_err, tol=dw_tol, bound_ms=bdw[0], bound_by=bdw[1],
                                          matmul_ms=dw_matmul_ms,
                                          matmul="torch.matmul f32 x^T [D, N] x ds [N, V], ds given, TF32 off",
-                                         **common),
+                                         flops=flops, **common),
     }
 
 
@@ -2156,6 +2172,9 @@ def main() -> int:
     for name, ms in split.items():
         phases[name]["ms"] = ms
         log(f"[kernel] {name}: {ms:.4f} ms per fused_logprob_bwd call (CUDA events over its wrapper calls)")
+        p = phases[name]
+        if name.endswith("_f32"):
+            log_f32_row(name, ms, p["flops"], p["bound_ms"], p["matmul_ms"], "its torch.matmul yardstick")
 
     # Each row's launches are those of the main path (engine_train), except
     # for the kernels it does not run: row 7 counts on the training path
@@ -2196,7 +2215,7 @@ def main() -> int:
                "max_abs_err": p["max_abs_err"], "tol": p["tol"], "ms": p["ms"], "plain_ms": p["plain_ms"],
                "bound_ms": p["bound_ms"], "bound_by": p["bound_by"], "library_ms": p["library_ms"],
                "shape": p["shape"]}
-        for key in ("library", "max_abs_err_split_edges", "matmul_ms", "ms_bf16_weight", "cast_ms",
+        for key in ("library", "max_abs_err_split_edges", "matmul_ms", "matmul", "ms_bf16_weight", "cast_ms",
                     "kernels_only_ms", "turns_vs_library", "eager_ms", "max_scaled_err", "tol_rule"):
             if key in p:
                 row[key] = p[key]

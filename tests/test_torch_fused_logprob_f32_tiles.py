@@ -1,28 +1,37 @@
-"""The walk of the fused-logprob kernels' f32 mode (``csrc/fused_logprob.cu``
-``logprob_fwd_f32_kernel``, ``csrc/fused_logprob_bwd.cu``
-``logprob_ds_f32_kernel`` / ``logprob_dx_f32_kernel`` /
-``logprob_dw_f32_kernel``, on the SIMT mainloop of ``csrc/sgemm_f32.cuh``)
-on the CPU: a plain model, written here, of the thread-level index maps and
-of the tiles each kernel visits, held against the plain versions and the
-JAX package's Pallas kernels (interpret mode) on f32 inputs. The tile sizes
-and the operand forms are read from the sources; the V split is the
-wrapper's own.
+"""The walk of the fused-logprob kernels' f32 mode on the CPU: a plain model,
+written here, of the thread-level index maps and of the tiles each kernel
+visits, held against the plain versions and the JAX package's Pallas
+kernels (interpret mode) on f32 inputs. The tile sizes and the operand forms
+are read from the sources; the V split is the wrapper's own.
 
-- The mainloop: thread (ty, tx) = (tid / 16, tid % 16) of 256 fetches two
-  float4 of each 128 x 16 operand tile (K-major: row f / 4, reduction
-  4 (f % 4); MN-major: reduction row f / 32, columns 4 (f % 32)), zeros past
-  the edges, and stores them into a [k][m] stage of row pitch SG_LD; it owns
-  the outputs at rows sg_row(ty, 0..7) and columns sg_col(tx, 0..7), read as
-  float4 at 4 ty, 64 + 4 ty (A) and 4 tx, 64 + 4 tx (B).
+- The forward, ds and dx kernels (``csrc/fused_logprob.cu``
+  ``logprob_fwd_f32_kernel``, ``csrc/fused_logprob_bwd.cu``
+  ``logprob_ds_f32_kernel`` / ``logprob_dx_f32_kernel``) run on the 3xTF32
+  mainloop of ``csrc/logprob_gemm_tf32.cuh``: 128 x 128 tiles, reduction
+  chunks of 32 (TMA boxes of 128 bytes under the 128-byte swizzle, zeros
+  past the edges), rounded up to whole promotion groups; each operand value
+  split into hi = rna_tf32(v), lo = rna_tf32(v - hi), and per chunk
+  a_hi·b_hi + a_lo·b_hi + a_hi·b_lo summed into a group accumulator that is
+  added into the tile's f32 accumulator after each promotion group. The A
+  fragments come from registers (the wgmma register layout), B from shared
+  memory K-major: the consumers split the raw B tile into B_hi and B_lo,
+  transposing an MN-major tile on the way.
+- The dW kernel (``logprob_dw_f32_kernel``, row 6f) runs on the SIMT
+  mainloop of ``csrc/sgemm_f32.cuh``: thread (ty, tx) = (tid / 16, tid % 16)
+  of 256 fetches two float4 of each 128 x 16 operand tile (K-major: row
+  f / 4, reduction 4 (f % 4); MN-major: reduction row f / 32, columns
+  4 (f % 32)), zeros past the edges, and stores them into a [k][m] stage of
+  row pitch SG_LD; it owns the outputs at rows sg_row(ty, 0..7) and columns
+  sg_col(tx, 0..7).
 - Forward: one CTA per (128-row tile, V split); a split walks its 128-column
-  tiles; per tile and row the max over the half-warp's 16 threads x 8
-  columns, then the online (m, l, r, label score); the merge kernel of the
-  bf16 mode combines the splits.
+  tiles; per tile and row the max over the quad that holds the row, then the
+  online (m, l, r, label score); the merge kernel of the bf16 mode combines
+  the splits.
 - Backward: per chunk of BWD_CHUNK_ROWS rows, ds in f32 into [C, ldv] (zero
   past V and past the chunk's rows) with the db column partials of each row
-  tile (each thread's 8 rows, then the 16 row groups in order), dx = ds·Wᵀ
-  (ds·W tied) over 128 x 128 tiles, then dW = xᵀ·ds (dsᵀ·x tied) once over
-  every row, both operands MN-major, each element stored once.
+  tile (each warp's 16 rows, then the 8 warps in order), dx = ds·Wᵀ (ds·W
+  tied) over 128 x 128 tiles, then dW = xᵀ·ds (dsᵀ·x tied) once over every
+  row, both operands MN-major, each element stored once.
 """
 
 import os
@@ -42,6 +51,8 @@ torch.set_num_threads(1)
 
 M_INIT, MASK_VAL = -1e30, -1e9
 TOL = dict(rtol=1e-4, atol=1e-4)  # float32 on both sides: the summation order differs
+F32_REL = 1e-4  # the f32 mode's tolerance on (logprob, lse, entropy): |d| <= 1e-4 * max(1, |ref|)
+SMEM_LIMIT = 232448  # bytes of shared memory a CTA may hold on an H100
 
 
 def _source(name):
@@ -54,11 +65,16 @@ def _constants():
     out = {n: int(re.search(rf"constexpr int {n} = (\d+);", src).group(1))
            for n in ("SG_BM", "SG_BN", "SG_BK", "SG_THREADS")}
     out["SG_LD"] = out["SG_BM"] + int(re.search(r"constexpr int SG_LD = SG_BM \+ (\d+);", src).group(1))
+    tg = _source("logprob_gemm_tf32.cuh")
+    out.update({n: int(re.search(rf"constexpr int {n} = (\d+);", tg).group(1))
+                for n in ("TG_BM", "TG_BN", "TG_BK", "TG_STAGES", "TG_SPLITS", "TG_GROUP", "TG_THREADS")})
     return out
 
 
 K = _constants()
 BM, BN, BK, THREADS, LD = K["SG_BM"], K["SG_BN"], K["SG_BK"], K["SG_THREADS"], K["SG_LD"]
+TBM, TBN, TBK, GROUP = K["TG_BM"], K["TG_BN"], K["TG_BK"], K["TG_GROUP"]
+MN_BOX = 32 * TBK * 4  # bytes of one MN-major box of B: 32 columns x TBK reduction rows
 
 
 def sg_row(ty, i):
@@ -115,14 +131,110 @@ def sgemm_tile(a, b, a_kmajor, b_kmajor, m0, n0, Kred):
     return acc
 
 
+# ---- the 3xTF32 mainloop ------------------------------------------------------
+
+def rna_tf32(v) -> np.ndarray:
+    """cvt.rna.tf32.f32 on the f32 word: add half of the 13 dropped mantissa
+    bits' range to the magnitude bits (ties away from zero), clear them."""
+    bits = np.asarray(v, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def tf32_split(v):
+    """(hi, lo) = (rna_tf32(v), rna_tf32(v - hi)); v - hi is exact in f32."""
+    v = np.asarray(v, dtype=np.float32)
+    hi = rna_tf32(v)
+    return hi, rna_tf32(v - hi)
+
+
+def tg_chunks(k: int) -> int:
+    """``tg_chunks``: reduction chunks rounded up to whole promotion groups."""
+    return -(-k // (TBK * GROUP)) * GROUP
+
+
+def swizzle(logical):
+    """The 128-byte swizzle on a byte offset from a 1024-aligned base: bits
+    4-6 (the 16-byte chunk of a 128-byte row) xor bits 7-9 (the row mod 8),
+    as TMA writes a box and the wgmma descriptor reads it."""
+    logical = np.asarray(logical)
+    return logical ^ (((logical >> 7) & 7) << 4)
+
+
+def tg_swz(r, c):
+    """``tg_swz``: byte offset of element (r, c) of a [rows][32] f32 tile."""
+    return r * 128 + ((((c >> 2) ^ r) & 7) << 4) + ((c & 3) << 2)
+
+
+def tg_tile(a, b, b_kmajor, m0, n0, kred):
+    """The 128 x 128 f32 tile at (m0, n0) of A·B as the 3xTF32 mainloop
+    computes it: A stored [m][k] (K-major), B stored [n][k] when K-major
+    else [k][n]; the reduction in TBK chunks over ``tg_chunks`` (zeros past
+    every edge, as TMA fills them), each value split into TF32 hi and lo,
+    the three products of each promotion group summed into a group
+    accumulator rounded to f32, which is added into the f32 tile."""
+    nk = tg_chunks(kred)
+    kpad = nk * TBK
+    ap = np.zeros((TBM, kpad), dtype=np.float32)
+    bp = np.zeros((kpad, TBN), dtype=np.float32)
+    blk = a[m0:m0 + TBM, :kpad]
+    ap[:blk.shape[0], :blk.shape[1]] = blk
+    bt = b[n0:n0 + TBN, :kpad].T if b_kmajor else b[:kpad, n0:n0 + TBN]
+    bp[:bt.shape[0], :bt.shape[1]] = bt
+    (ah, al), (bh, bl) = tf32_split(ap), tf32_split(bp)
+    acc = np.zeros((TBM, TBN), dtype=np.float32)
+    span = GROUP * TBK
+    for k0 in range(0, kpad, span):
+        sl = slice(k0, k0 + span)
+        h, l, bh64, bl64 = ah[:, sl].astype(np.float64), al[:, sl].astype(np.float64), bh[sl], bl[sl]
+        part = (h @ bh64 + l @ bh64 + h @ bl64).astype(np.float32)
+        acc = (acc + part).astype(np.float32)
+    return acc
+
+
+def split_pass_map(b_kmajor: bool):
+    """``tg_split_b``: for consumer thread ct (0..255), step i (0..3) and
+    element e (0..3), the byte offset read in the raw B tile and the byte
+    offset written in B_hi and B_lo. Arrays shaped [4, 256, 4]."""
+    i, ct, e = np.meshgrid(np.arange(4), np.arange(256), np.arange(4), indexing="ij")
+    p = i * 256 + ct
+    if b_kmajor:
+        src = dst = p * 16 + 4 * e
+    else:
+        n, kg = p % TBN, p // TBN
+        src = (n >> 5) * MN_BOX + tg_swz(4 * kg + e, n & 31)
+        dst = tg_swz(n, 4 * kg + e)
+    return src, dst
+
+
+def raw_b_tile(b_tile, b_kmajor: bool):
+    """The raw B tile as TMA lands it, one float per 4 bytes: K-major, one
+    box [128 columns][32 reductions] (b_tile[k][n] at tg_swz(n, k));
+    MN-major, four boxes [32 reductions][32 columns] one after another."""
+    raw = np.full(TBN * TBK, np.nan, dtype=np.float32)
+    k, n = np.meshgrid(np.arange(TBK), np.arange(TBN), indexing="ij")
+    off = tg_swz(n, k) if b_kmajor else (n >> 5) * MN_BOX + tg_swz(k, n & 31)
+    raw[off // 4] = b_tile[k, n]
+    return raw
+
+
+def a_fragment_map():
+    """``tg_load_a``: for consumer warpgroup cw, warp, lane and k-step kk,
+    register e holds A[r][c], r = 64 cw + 16 warp + g + 8 (e & 1), c = 8 kk
+    + t + 4 (e >> 1), lane = 4 g + t. Arrays shaped [2, 4, 32, 4, 4]."""
+    cw, warp, lane, kk, e = np.meshgrid(np.arange(2), np.arange(4), np.arange(32), np.arange(TBK // 8),
+                                        np.arange(4), indexing="ij")
+    g, t = lane >> 2, lane & 3
+    return cw * 64 + warp * 16 + g + 8 * (e & 1), 8 * kk + t + 4 * (e >> 1)
+
+
 def test_index_maps_cover_each_tile_once():
-    """Every element of a 128 x 16 operand tile is fetched once and lands at
-    its [k][m] place in the stage, for both operand forms; the pad columns
-    are never written; each thread's outputs are distinct and the 256
-    threads cover the 128 x 128 tile once; the threads' float4 reads of the
-    stage are the rows and columns the outputs name."""
+    """Row 6f's SIMT mainloop: every element of a 128 x 16 operand tile is
+    fetched once and lands at its [k][m] place in the stage, for both
+    operand forms; the pad columns are never written; each thread's outputs
+    are distinct and the 256 threads cover the 128 x 128 tile once; the
+    threads' float4 reads of the stage are the rows and columns the outputs
+    name."""
     assert (BM, BN, BK, THREADS) == (128, 128, 16, 256) and LD > BM
-    assert (flp._F32_BM, flp._F32_BN) == (BM, BN)
     rng = np.random.default_rng(0)
     for kmajor in (True, False):
         r, c, off = MAPS[kmajor]
@@ -140,27 +252,183 @@ def test_index_maps_cover_each_tile_once():
                 assert sg_col(tx, j) == (4 * tx + j if j < 4 else 64 + 4 * tx + j - 4)
                 cover[sg_row(ty, i), sg_col(tx, j)] += 1
     assert (cover == 1).all()
-    # The 16 threads that hold the same rows are one half of one warp, closed
-    # under the xor shuffles (1, 2, 4, 8) of the row reductions.
-    for ty in range(16):
-        tids = [ty * 16 + tx for tx in range(16)]
-        assert len({t // 32 for t in tids}) == 1
-        lanes = {t % 32 for t in tids}
-        assert all(lane ^ o in lanes for lane in lanes for o in (1, 2, 4, 8))
 
 
 def test_operand_forms_of_the_sources():
-    """The kernels instantiate the mainloop with the operand forms the model
-    uses: x K-major and W K-major only when tied (forward, ds); ds K-major
-    and W K-major only when untied (dx); both MN-major (dW)."""
+    """The kernels instantiate the mainloops with the operand forms the
+    model uses: x K-major with W K-major only when tied (forward, ds); ds
+    K-major with W K-major only when untied (dx); on the 3xTF32 mainloop,
+    whose producer loads the same forms; both MN-major on the SIMT one (dW,
+    row 6f). The wrapper sizes the forward and ds grids for the kernels'
+    occupancy."""
     fwd, bwd = _source("fused_logprob.cu"), _source("fused_logprob_bwd.cu")
-    assert "sgemm_tile<true, TIED>(sm, x, w, m0, v0, p.D, acc);" in fwd
-    assert "sgemm_tile<true, TIED>(sm, x, w, m0, v0, p.D, acc);" in bwd
-    assert "sgemm_tile<true, !TIED>(sm, ds, w, m0, n0, p.V, acc);" in bwd
+    assert "tg_produce<TIED>(ring, &tx, &tw, m0, vt_lo, vt_hi, nk);" in fwd
+    assert "tg_tile<TIED>(ring, acc, cw, ct, nk, it);" in fwd
+    assert "tg_produce<TIED>(ring, &tx, &tw, m0, vt_lo, vt_hi, nk);" in bwd
+    assert "tg_tile<TIED>(ring, acc, cw, tid, nk, it);" in bwd
+    assert "tg_produce<!TIED>(ring, &tds, &tw, m0, dt, dt + 1, nk);" in bwd
+    assert "tg_tile<!TIED>(ring, acc, cw, tid, nk, it);" in bwd
     assert "sgemm_tile<false, false>(sm, a, b, m0, n0, K, acc);" in bwd
-    # The wrapper sizes the forward and ds grids for the kernels' occupancy.
-    bounds = re.findall(r"__launch_bounds__\(SG_THREADS, (\d+)\)", fwd + bwd)
-    assert len(bounds) == 4 and set(bounds) == {str(flp._F32_CTAS_PER_SM)}
+    assert "sgemm_tile<" not in fwd
+    # Three kernels on the 3xTF32 mainloop, one CTA an SM; the dW kernel two.
+    tg = re.findall(r"__launch_bounds__\(TG_THREADS, (\d+)\)", fwd + bwd)
+    assert len(tg) == 3 and set(tg) == {str(flp._F32_CTAS_PER_SM)}
+    assert re.findall(r"__launch_bounds__\(SG_THREADS, (\d+)\)", fwd + bwd) == ["2"]
+    assert (flp._F32_BM, flp._F32_BN) == (TBM, TBN)
+
+
+def test_tf32_mainloop_layout_and_shared_memory():
+    """The 3xTF32 mainloop's constants: 128 x 128 tiles in two consumer
+    warpgroups of 64 rows, a reduction chunk of one 128-byte swizzle row of
+    f32, three split buffers (the one-barrier-a-chunk reuse argument needs
+    three), promotion groups that take the two A register sets in turn, and
+    a ds kernel (ring, split buffers, barriers, two [8][128] column-sum
+    buffers, 1 KB to align) within the 227 KB a CTA may hold."""
+    assert (TBM, TBN, TBK, K["TG_THREADS"]) == (128, 128, 32, 384)
+    assert K["TG_SPLITS"] == 3 and GROUP % 2 == 0 and K["TG_STAGES"] >= 2
+    ring = K["TG_STAGES"] * (TBM + TBN) * TBK * 4
+    split = K["TG_SPLITS"] * 2 * TBN * TBK * 4
+    ds_smem = ring + split + 16 * K["TG_STAGES"] + 2 * 8 * TBN * 4 + 1024
+    assert ds_smem <= SMEM_LIMIT, ds_smem
+    # Chunks round up to whole groups; past K they are zeros.
+    assert [tg_chunks(k) for k in (32, 64, 96, 8192, 50400)] == [
+        -(-c // GROUP) * GROUP for c in (1, 2, 3, 256, 1575)]
+
+
+def test_swizzle_offsets_are_the_descriptor_layout():
+    """``tg_swz`` (the byte offset the kernel computes for element (r, c) of
+    a [rows][32] f32 tile) is the 128-byte swizzle of the row-major offset:
+    the layout TMA writes and the K-major wgmma descriptor reads (k-step kk
+    starts 32 kk bytes into each 128-byte row, 8-row groups 1024 bytes
+    apart)."""
+    r, c = np.meshgrid(np.arange(256), np.arange(32), indexing="ij")
+    np.testing.assert_array_equal(tg_swz(r, c), swizzle(r * 128 + c * 4))
+    assert len(np.unique(tg_swz(r, c))) == r.size
+
+
+@pytest.mark.parametrize("b_kmajor", [True, False], ids=["kmajor", "mn-major"])
+def test_split_pass_covers_each_element_once(b_kmajor):
+    """``tg_split_b``'s index map: the 256 consumer threads read every float
+    of the raw B tile once and write every float of B_hi and B_lo once;
+    what lands at (n, k) of the K-major swizzled layout the descriptor reads
+    is B[k][n] (an MN-major tile transposed on the way); no bank conflicts:
+    a warp's scalar reads hit 32 distinct banks, and the 8 lanes of each
+    float4 phase touch 8 distinct 16-byte chunks of a 128-byte line."""
+    src, dst = split_pass_map(b_kmajor)
+    assert sorted(src.ravel().tolist()) == list(range(0, TBN * TBK * 4, 4))
+    assert sorted(dst.ravel().tolist()) == list(range(0, TBN * TBK * 4, 4))
+    b_tile = np.random.default_rng(1).normal(size=(TBK, TBN)).astype(np.float32)
+    raw = raw_b_tile(b_tile, b_kmajor)
+    out = np.full(TBN * TBK, np.nan, dtype=np.float32)
+    out[dst.ravel() // 4] = raw[src.ravel() // 4]
+    n, k = np.meshgrid(np.arange(TBN), np.arange(TBK), indexing="ij")
+    np.testing.assert_array_equal(out[tg_swz(n, k) // 4], b_tile[k, n])
+    def phases_distinct(offsets):  # float4 accesses: 4 phases of 8 lanes
+        chunks = offsets // 16
+        return all(len(set((chunks[8 * ph:8 * ph + 8] % 8).tolist())) == 8 for ph in range(4))
+
+    for i in range(4):
+        for w in range(8):
+            lanes = slice(32 * w, 32 * w + 32)
+            if b_kmajor:  # one float4 read a lane
+                assert phases_distinct(src[i, lanes, 0])
+            else:  # four scalar reads a lane, down one box
+                for e in range(4):
+                    assert len(set(((src[i, lanes, e] // 4) % 32).tolist())) == 32
+            assert phases_distinct(dst[i, lanes, 0])
+
+
+def test_a_fragments_cover_the_box_once():
+    """``tg_load_a``'s map: each consumer warpgroup's registers hold each
+    element of its 64 rows x 32 reductions of the raw A box once, each
+    k-step's four registers in the wgmma A layout of hopper.cuh (rows g and
+    g + 8, columns t and t + 4 of the k-step's 8); every read of a warp hits
+    32 distinct banks."""
+    rows, cols = a_fragment_map()
+    for cw in range(2):
+        r, c = rows[cw], cols[cw]
+        assert r.min() == 64 * cw and r.max() == 64 * cw + 63
+        assert len(set(zip(r.ravel().tolist(), c.ravel().tolist()))) == 64 * TBK == r.size
+    kk = np.arange(TBK // 8)[None, None, None, :, None]
+    assert ((cols - 8 * kk >= 0) & (cols - 8 * kk < 8)).all()
+    banks = (tg_swz(rows, cols) // 4) % 32
+    for idx in np.ndindex(2, 4, 1, TBK // 8, 4):
+        cw, w, _, kk_, e = idx
+        assert len(set(banks[cw, w, :, kk_, e].tolist())) == 32
+
+
+def _outputs(s):
+    """(lse, entropy, logprob of column 0) of f64 scores [N, V]."""
+    s = s.astype(np.float64)
+    m = s.max(1, keepdims=True)
+    e = np.exp(s - m)
+    lse = m[:, 0] + np.log(e.sum(1))
+    p = e / e.sum(1, keepdims=True)
+    return lse, lse - (p * s).sum(1), s[:, 0] - lse
+
+
+def _scaled_err(got, ref):
+    return max(float((np.abs(g - r) / np.maximum(1.0, np.abs(r))).max()) for g, r in zip(got, ref))
+
+
+def _q_head_scores(V, seed):
+    """x [16, 8192] a ReLU hidden and W [8192, V] with the logit spread of a
+    trained Q head (std ~3.5), f32, and their f64 product."""
+    rng = np.random.default_rng(seed)
+    x = np.maximum(rng.normal(size=(16, 8192)), 0).astype(np.float32)
+    w = (rng.normal(size=(8192, V)) * 3.5 * 8192 ** -0.5).astype(np.float32)
+    return x, w, x.astype(np.float64) @ w.astype(np.float64)
+
+
+def test_three_tf32_passes_meet_the_f32_tolerance_and_one_does_not():
+    """Why three passes: rna_tf32 emulated on the f32 words, at D = 8192 on
+    inputs at the Q heads' scale, the products a_hi·b_hi + a_lo·b_hi +
+    a_hi·b_lo (exact in f64) give (lse, entropy, logprob) within the f32
+    mode's 1e-4 · max(1, |ref|) of the f64 reference; one pass (a_hi·b_hi)
+    does not."""
+    x, w, ref = _q_head_scores(512, seed=0)
+    (xh, xl), (wh, wl) = tf32_split(x), tf32_split(w)
+    xh, xl, wh, wl = (t.astype(np.float64) for t in (xh, xl, wh, wl))
+    r = _outputs(ref)
+    three = _scaled_err(_outputs(xh @ wh + xl @ wh + xh @ wl), r)
+    one = _scaled_err(_outputs(xh @ wh), r)
+    assert three < 0.01 * F32_REL < F32_REL < one, (three, one)
+
+
+def _rz_f32(v64):
+    """f64 values rounded to f32 toward zero."""
+    r = v64.astype(np.float32)
+    over = np.abs(r.astype(np.float64)) > np.abs(v64)
+    r[over] = np.nextafter(r[over], np.float32(0))
+    return r
+
+
+def test_promotion_groups_bound_the_truncating_accumulation():
+    """Why promotion groups: modelling the tensor core's accumulator as
+    adding each k-step's 8 products (exact) and rounding toward zero to f32,
+    three passes summed over the whole D = 8192 in one accumulator miss the
+    1e-4 tolerance; a group accumulator of TG_GROUP chunks added into an f32
+    accumulator that rounds to nearest meets it with 20x to spare."""
+    x, w, ref = _q_head_scores(512, seed=0)
+    (xh, xl), (wh, wl) = tf32_split(x), tf32_split(w)
+    xh, xl, wh, wl = (t.astype(np.float64) for t in (xh, xl, wh, wl))
+
+    def accumulate(steps_per_group):
+        acc = np.zeros(ref.shape, dtype=np.float32)
+        part = np.zeros(ref.shape, dtype=np.float32)
+        for k in range(0, 8192, 8):
+            if (k // 8) % steps_per_group == 0:
+                acc = (acc.astype(np.float64) + part).astype(np.float32)
+                part[:] = 0
+            sl = slice(k, k + 8)
+            for a, b in ((xh, wh), (xl, wh), (xh, wl)):
+                part = _rz_f32(part.astype(np.float64) + a[:, sl] @ b[sl])
+        return (acc.astype(np.float64) + part).astype(np.float32)
+
+    r = _outputs(ref)
+    whole = _scaled_err(_outputs(accumulate(8192 // 8)), r)
+    grouped = _scaled_err(_outputs(accumulate(GROUP * TBK // 8)), r)
+    assert grouped < 0.05 * F32_REL < F32_REL < whole, (grouped, whole)
 
 
 def _splits(rows, V, sms):
@@ -172,23 +440,23 @@ def forward_walk(x, w, y, b, tied, sms):
     them."""
     N, D = x.shape
     V = w.shape[0] if tied else w.shape[1]
-    n_rt, n_vt = -(-N // BM), -(-V // BN)
+    n_rt, n_vt = -(-N // TBM), -(-V // TBN)
     S = _splits(N, V, sms)
     tps = -(-n_vt // S)
     assert all(sp * tps < n_vt for sp in range(S)), "an empty split"
     part = np.zeros((4, S, N), dtype=np.float32)
     for rt in range(n_rt):
-        rows = np.arange(rt * BM, (rt + 1) * BM)
-        yr = np.where(rows < N, np.concatenate([y, np.full(n_rt * BM - N, -1)])[rows], -1)
+        rows = np.arange(rt * TBM, (rt + 1) * TBM)
+        yr = np.where(rows < N, np.concatenate([y, np.full(n_rt * TBM - N, -1)])[rows], -1)
         for sp in range(S):
-            m = np.full(BM, M_INIT, dtype=np.float32)
-            l, r, lab = (np.zeros(BM, dtype=np.float32) for _ in range(3))
+            m = np.full(TBM, M_INIT, dtype=np.float32)
+            l, r, lab = (np.zeros(TBM, dtype=np.float32) for _ in range(3))
             for vt in range(sp * tps, min(sp * tps + tps, n_vt)):
-                col = np.arange(vt * BN, (vt + 1) * BN)
+                col = np.arange(vt * TBN, (vt + 1) * TBN)
                 valid = col < V
-                s = sgemm_tile(x, w, True, tied, rt * BM, vt * BN, D)
+                s = tg_tile(x, w, tied, rt * TBM, vt * TBN, D)
                 if b is not None:
-                    s = s + np.where(valid, np.concatenate([b, np.zeros(n_vt * BN - V, np.float32)])[col], 0)
+                    s = s + np.where(valid, np.concatenate([b, np.zeros(n_vt * TBN - V, np.float32)])[col], 0)
                 lab = lab + np.where(valid & (col[None] == yr[:, None]), s, 0).sum(1)
                 s = np.where(valid, s, MASK_VAL).astype(np.float32)
                 mn = np.maximum(m, s.max(1))
@@ -211,27 +479,27 @@ def backward_walk(x, w, b, y, lse, ent, dlp, dlse, dent, tied, sms, chunk):
     N, D = x.shape
     V = w.shape[0] if tied else w.shape[1]
     ldv = -(-V // flp._DS_LD) * flp._DS_LD
-    n_vt = -(-V // BN)
-    C = min(chunk, -(-N // BM) * BM)
-    ds_all = np.full((-(-N // BM) * BM, ldv), np.nan, dtype=np.float32)
-    dbpart = np.zeros((-(-N // BM), V), dtype=np.float32)
+    n_vt = -(-V // TBN)
+    C = min(chunk, -(-N // TBM) * TBM)
+    ds_all = np.full((-(-N // TBM) * TBM, ldv), np.nan, dtype=np.float32)
+    dbpart = np.zeros((-(-N // TBM), V), dtype=np.float32)
     dx = np.zeros((N, D), dtype=np.float32)
-    bp = None if b is None else np.concatenate([b, np.zeros(n_vt * BN - V, np.float32)])
+    bp = None if b is None else np.concatenate([b, np.zeros(n_vt * TBN - V, np.float32)])
     for c0 in range(0, N, C):
         rows = min(C, N - c0)
-        n_rt = -(-rows // BM)
+        n_rt = -(-rows // TBM)
         S = _splits(rows, V, sms)
         tps = -(-n_vt // S)
         xc = x[c0:c0 + rows]
         for rt in range(n_rt):
-            rr = np.arange(rt * BM, (rt + 1) * BM)
+            rr = np.arange(rt * TBM, (rt + 1) * TBM)
             inr = rr < rows
             gr = np.minimum(c0 + rr, N - 1)  # the rows' global index (masked where out)
             for sp in range(S):
                 for vt in range(sp * tps, min(sp * tps + tps, n_vt)):
-                    col = np.arange(vt * BN, (vt + 1) * BN)
+                    col = np.arange(vt * TBN, (vt + 1) * TBN)
                     ok = (col < V)[None] & inr[:, None]
-                    s = sgemm_tile(xc, w, True, tied, rt * BM, vt * BN, D)
+                    s = tg_tile(xc, w, tied, rt * TBM, vt * TBN, D)
                     if bp is not None:
                         s = s + np.where(col < V, bp[col], 0)
                     lse_r, e_r = lse[gr][:, None], (lse[gr] - ent[gr])[:, None]
@@ -239,20 +507,20 @@ def backward_walk(x, w, b, y, lse, ent, dlp, dlse, dent, tied, sms, chunk):
                     hit = (col[None] == y[gr][:, None]).astype(np.float32)
                     dsv = dlp[gr][:, None] * (hit - p) + dlse[gr][:, None] * p - dent[gr][:, None] * p * (s - e_r)
                     dsv = np.where(ok, dsv, 0).astype(np.float32)
-                    ds_all[c0 + rt * BM:c0 + (rt + 1) * BM, col] = dsv
-                    # db partials: each thread's 8 rows, then the 16 row groups.
-                    groups = np.stack([dsv[[sg_row(ty, i) for i in range(8)]].sum(0) for ty in range(16)])
-                    cs = groups.sum(0)
+                    ds_all[c0 + rt * TBM:c0 + (rt + 1) * TBM, col] = dsv
+                    # db partials: each warp's 16 rows, then the 8 warps in order.
+                    warps = dsv.reshape(8, 16, TBN).sum(1)
+                    cs = warps.sum(0)
                     keep = col < V
                     if bp is not None:
-                        dbpart[c0 // BM + rt, col[keep]] = cs[keep]
-        # dx over 128 x 128 tiles of [rows, D], the vocabulary in BK chunks.
+                        dbpart[c0 // TBM + rt, col[keep]] = cs[keep]
+        # dx over 128 x 128 tiles of [rows, D], the vocabulary in TBK chunks.
         ds_c = ds_all[c0:c0 + rows, :V]
         for rt in range(n_rt):
-            for dt in range(-(-D // BN)):
-                acc = sgemm_tile(ds_c, w, True, not tied, rt * BM, dt * BN, V)
-                r1, c1 = min(BM, rows - rt * BM), min(BN, D - dt * BN)
-                dx[c0 + rt * BM:c0 + rt * BM + r1, dt * BN:dt * BN + c1] = acc[:r1, :c1]
+            for dt in range(-(-D // TBN)):
+                acc = tg_tile(ds_c, w, not tied, rt * TBM, dt * TBN, V)
+                r1, c1 = min(TBM, rows - rt * TBM), min(TBN, D - dt * TBN)
+                dx[c0 + rt * TBM:c0 + rt * TBM + r1, dt * TBN:dt * TBN + c1] = acc[:r1, :c1]
     assert not np.isnan(ds_all).any(), "a ds element of a row tile was never written"
     a, bm = (ds_all[:N, :V], x) if tied else (x, ds_all[:N, :V])
     m_valid, n_valid = (V, D) if tied else (D, V)
@@ -323,10 +591,37 @@ def test_f32_walk_matches_pallas_and_plain(N, D, V, sms, tied, bias):
 
 def test_f32_split_count_fills_two_ctas_an_sm():
     """At the Q heads' shape (N = 4092, V = 50400) on 132 SMs the f32
-    forward grid holds about two CTAs an SM, every split non-empty."""
-    N, V, sms = 4092, 50400, 132
-    S = _splits(N, V, sms)
-    n_rt, n_vt = -(-N // BM), -(-V // BN)
-    tps = -(-n_vt // S)
-    assert all(sp * tps < n_vt for sp in range(S))
-    assert n_rt * S <= 2 * sms and n_rt * (S + 1) > 2 * sms
+    forward grid holds about ``_F32_CTAS_PER_SM`` CTAs an SM (one: a CTA of
+    the 3xTF32 kernels holds 200 KB of shared memory; the test's name dates
+    from the SIMT kernels' two), every split non-empty; the ds grid of a
+    1024-row chunk likewise."""
+    assert flp._F32_CTAS_PER_SM == 1
+    for N in (4092, flp.BWD_CHUNK_ROWS):
+        V, sms = 50400, 132
+        S = _splits(N, V, sms)
+        n_rt, n_vt = -(-N // TBM), -(-V // TBN)
+        tps = -(-n_vt // S)
+        assert all(sp * tps < n_vt for sp in range(S))
+        slots = flp._F32_CTAS_PER_SM * sms
+        assert n_rt * S <= slots and n_rt * (S + 1) > slots
+
+
+def test_f32_weight_gets_a_tma_ready_copy_only_when_needed():
+    """``kernel_weight(w, torch.float32)``: a weight whose rows start on
+    16-byte boundaries (V = 50400, the Q heads) is returned as it is; one
+    whose rows do not (V = 4097, 50257; a column-strided view) comes back
+    as a view of a fresh buffer with rows padded to a multiple of 4 floats,
+    equal values, and the copy counted."""
+    w = torch.randn(8, 50400)
+    before = flp.kernel_weight.copies
+    assert flp.kernel_weight(w, torch.float32) is w
+    assert flp.kernel_weight.copies == before
+    for t in (torch.randn(8, 4097), torch.randn(8, 50257), torch.randn(64, 8).t()):
+        wk = flp.kernel_weight(t, torch.float32)
+        assert wk.dtype == torch.float32 and wk.stride(-1) == 1 and wk.stride(0) % 4 == 0
+        assert wk.data_ptr() % 16 == 0 and flp._tma_ready(wk, torch.float32)
+        assert torch.equal(wk, t) and wk.data_ptr() != t.data_ptr()
+    assert flp.kernel_weight.copies == before + 3
+    # The bf16 mode's rule is unchanged: rows of 16 bytes are 8 elements.
+    assert flp.kernel_weight(torch.randn(8, 64).to(torch.bfloat16)).stride(0) == 64
+    assert flp.kernel_weight(torch.randn(8, 60)).stride(0) == 64

@@ -637,10 +637,9 @@ def test_flash_bwd_strided_inputs(window):
 def test_fused_logprob_bwd_kernels_match_plain(xdtype, tied, bias, wdtype, N, V):
     """dx, dW and db against the plain backward with all three cotangents:
     ragged N (1300 rows are two chunks of 1024), V not a multiple of the
-    256-wide tile (nor of 8 at 4097 and 50257: in the bf16 mode the weight's
-    rows then need the padded copy for TMA; the f32 mode reads them as they
-    are, with scalar loads at the row ends), logits spread as a trained
-    head's (std ~3.5). dW and db are also held on the columns no label
+    256-wide tile (nor of 8 at 4097 and 50257, nor of 4 in f32: the weight's
+    rows then need the padded copy for TMA in either mode), logits spread as
+    a trained head's (std ~3.5). dW and db are also held on the columns no label
     hits, where ds is only the small softmax terms. bf16 mode: ds is rounded
     to bf16 on both sides before the products, and a sum in another order
     can flip that rounding; dx comes back in bf16. f32 mode: everything in
@@ -680,6 +679,44 @@ def test_fused_logprob_bwd_kernels_match_plain(xdtype, tied, bias, wdtype, N, V)
     _close(dw[unhit] if tied else dw[:, unhit], rdw[unhit] if tied else rdw[:, unhit], rel_dw)
     if bias:
         _close(db[unhit], rdb[unhit], rel_db)
+
+
+@pytest.mark.parametrize("V", [50400, 50257])
+def test_fused_logprob_f32_at_the_q_head_width(V):
+    """The f32 mode at the Q heads' width (D = 8192), untied with bias, over
+    N = 1300 rows (two backward chunks, the second ragged): the forward
+    within 1e-4 · max(1, |ref|) and dx, dW and db within 1e-4 of each one's
+    max, against the plain versions with TF32 off. V = 50400 is read in
+    place; V = 50257 rows do not start on 16-byte boundaries, so the forward
+    and the backward each make the padded TMA-ready copy and then launch the
+    3xTF32 kernels (never the plain version)."""
+    dev = _cuda()
+    from trlx_tpu_torch.ops import fused_logprob as fl
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(13)
+    N, D = 1300, 8192
+    x = torch.relu(torch.randn((N, D), generator=g, device=dev))
+    w = torch.randn((D, V), generator=g, device=dev) * (3.5 * D ** -0.5)
+    b = torch.randn((V,), generator=g, device=dev) * 0.1
+    y = torch.randint(0, V, (N,), generator=g, device=dev)
+    copies = fl.kernel_weight.copies
+    launches = (fl.fused_logprob_fwd_f32.launches, fl.fused_logprob_bwd_dx_f32.launches,
+                fl.fused_logprob_bwd_dw_f32.launches)
+    lp, lse, ent = fl.fused_logprob_fwd(x, w, y, b)
+    dlp, dlse, dent = (torch.randn((N,), generator=g, device=dev) for _ in range(3))
+    dx, dw, db = fl.fused_logprob_bwd(x, w, b, y, lse, ent, dlp, dlse, dent)
+    torch.cuda.synchronize()
+    padded = V % 4 != 0
+    assert fl.kernel_weight.copies == copies + (2 if padded else 0)
+    assert (fl.fused_logprob_fwd_f32.launches, fl.fused_logprob_bwd_dx_f32.launches,
+            fl.fused_logprob_bwd_dw_f32.launches) == (launches[0] + 1, launches[1] + 2, launches[2] + 1)
+    for got, ref in zip((lp, lse, ent), fl.naive_logprob(x, w, y, b)):
+        assert float(((got - ref).abs() / ref.abs().clamp(min=1.0)).max()) <= 1e-4
+    rdx, rdw, rdb = fl.fused_logprob_bwd_plain(x, w, b, y, lse, ent, dlp, dlse, dent)
+    for got, ref in ((dx, rdx), (dw, rdw), (db, rdb)):
+        assert got.dtype == torch.float32
+        _close(got, ref, 1e-4)
 
 
 def _dw_case(g, dev, N, D, V, tied, bias):

@@ -1,6 +1,6 @@
-"""The port stands alone: ``trlx_tpu_torch``, ``chip_smoke.py`` and
-``profile_torch_decode.py`` import nothing of JAX, Flax, Optax or the JAX
-package, and the port's entry points refuse a CUDA device where there is
+"""The port stands alone: ``trlx_tpu_torch``, ``chip_smoke.py``,
+``profile_torch_decode.py`` and ``probe_f32_head.py`` import nothing of JAX,
+Flax, Optax or the JAX package, and the port's entry points refuse a CUDA device where there is
 none instead of dropping to the CPU."""
 
 import ast
@@ -68,7 +68,7 @@ def _imports(path):
 
 
 def test_ast_scan_finds_no_forbidden_import():
-    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "profile_torch_decode.py")]
+    files = [os.path.join(ROOT, n) for n in ("chip_smoke.py", "profile_torch_decode.py", "probe_f32_head.py")]
     for dirpath, _, names in os.walk(PKG):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     assert len(files) > 20

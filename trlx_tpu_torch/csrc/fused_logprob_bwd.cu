@@ -45,12 +45,16 @@
 // order (no atomics), so two calls give the same bits.
 //
 // The f32-activation mode (x, W f32: ILQL's Q heads, N = 4092, D = 8192,
-// V = 50400) runs the same three steps and the same db merge on the SIMT
-// mainloop of sgemm_f32.cuh, with ds kept in f32 (the TPU kernels round ds
-// to x's dtype, here f32) and dx, dW and db in f32; 4 x 2NDV = 13.5 TFLOP a
-// call at that shape, bound by operations.
+// V = 50400) runs the same three steps, the same epilogues and the same db
+// merge with ds kept in f32 (the TPU kernels round ds to x's dtype, here
+// f32) and dx, dW and db in f32: ds and dx on the 3xTF32 mainloop of
+// logprob_gemm_tf32.cuh (f32-accurate products as three TF32 passes, 128 x
+// 128 tiles), dW on the SIMT mainloop of sgemm_f32.cuh; 4 x 2NDV = 13.5
+// TFLOP a call at that shape, bound by operations (ds + dx: 6.75 TFLOP,
+// three TF32 passes of it at 495 TFLOP/s take 41 ms).
 
 #include "logprob_gemm.cuh"
+#include "logprob_gemm_tf32.cuh"
 #include "logprob_math.cuh"
 #include "sgemm_f32.cuh"
 
@@ -59,15 +63,19 @@ namespace {
 constexpr int DS_LD = 128;  // ds rows are padded to a multiple of this (ldv)
 constexpr int BAR_COLSUM = 1;  // named barrier of the ds kernel's column sums
 
-struct DsParams {
+// T: the type of ds and dx (bf16, or f32 in the f32-activation mode).
+template <typename T>
+struct DsParamsT {
   const float* bias;                           // [V] or null
   const int* labels;                           // [rows]
   const float *lse, *ent, *dlp, *dlse, *dent;  // [rows]
-  __nv_bfloat16* ds;                           // [C, ldv]
+  T* ds;                                       // [C, ldv]
   float* dbpart;                               // [ceil(rows / 128), V] (this chunk's row tiles) or null
-  __nv_bfloat16* dx;                           // [rows, D]
+  T* dx;                                       // [rows, D]
   int rows, D, V, ldv, tiles_per_split;
 };
+using DsParams = DsParamsT<__nv_bfloat16>;
+using DsF32Params = DsParamsT<float>;
 
 // ---------------------------------------------------------------------------
 // 1. ds (and the column partials of db)
@@ -86,7 +94,7 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
   const GemmRing ring{smem_u32(sm)};
   float* colsum = reinterpret_cast<float*>(sm + DS_COLSUM);
   const int row_tile = blockIdx.x, split = blockIdx.y;
-  const int N = p.rows, V = p.V;
+  const int V = p.V;
   const int m0 = row_tile * GEMM_BM;
   const int n_vt = (V + GEMM_BN - 1) / GEMM_BN;
   const int vt_lo = split * p.tiles_per_split;
@@ -111,69 +119,15 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
   const int g = lane >> 2, t4 = lane & 3;
   const int cwarp = cw * 4 + warp;  // 0..7: the warp's 16 rows of the tile
   const int tid = threadIdx.x - 128;  // 0..255
-  const int row0 = m0 + cwarp * 16 + g, row1 = row0 + 8;
-  float lse[2], E[2], dlp[2], dlse[2], dent[2];
-  int y[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r ? row1 : row0;
-    const bool in = row < N;
-    lse[r] = in ? p.lse[row] : 0.f;
-    E[r] = in ? lse[r] - p.ent[row] : 0.f;
-    dlp[r] = in ? p.dlp[row] : 0.f;
-    dlse[r] = in ? p.dlse[row] : 0.f;
-    dent[r] = in ? p.dent[row] : 0.f;
-    y[r] = in ? p.labels[row] : -1;
-  }
-  const bool in0 = row0 < N, in1 = row1 < N;
+  const int row0 = m0 + cwarp * 16 + g;
+  const DsRows d = ds_rows(p, row0, row0 + 8);
 
   float acc[GEMM_NACC];
   uint32_t it = 0;
   for (int vt = vt_lo; vt < vt_hi; ++vt) {
     gemm_tile<TIED>(ring, acc, cw, nk, it);
-    const int v0 = vt * GEMM_BN;
     float* cs_buf = colsum + ((vt - vt_lo) & 1) * 8 * GEMM_BN;
-#pragma unroll
-    for (int j = 0; j < GEMM_BN / 8; ++j) {
-      const int c0 = v0 + 8 * j + 2 * t4;
-      float cs[2] = {0.f, 0.f};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, col = c0 + (e & 1);
-        float dsv = 0.f;
-        if (col < V && (r ? in1 : in0)) {
-          const float sv = acc[4 * j + e] + (p.bias != nullptr ? __ldg(p.bias + col) : 0.f);
-          dsv = ds_score(sv, lse[r], E[r], dlp[r], dlse[r], dent[r], col == y[r]);
-        }
-        acc[4 * j + e] = dsv;
-        cs[e & 1] += dsv;
-      }
-      // Every row of the tile is written (zeros past the chunk's rows and
-      // past V), up to ldv: the dx and dW kernels then read no garbage.
-      if (c0 < p.ldv) {
-        *reinterpret_cast<uint32_t*>(p.ds + (size_t)row0 * p.ldv + c0) = pack_bf16(acc[4 * j], acc[4 * j + 1]);
-        *reinterpret_cast<uint32_t*>(p.ds + (size_t)row1 * p.ldv + c0) = pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
-      }
-      if (p.dbpart != nullptr) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float v = cs[h];
-          v += __shfl_xor_sync(0xffffffffu, v, 4);
-          v += __shfl_xor_sync(0xffffffffu, v, 8);
-          v += __shfl_xor_sync(0xffffffffu, v, 16);
-          if (g == 0) cs_buf[cwarp * GEMM_BN + 8 * j + 2 * t4 + h] = v;
-        }
-      }
-    }
-    if (p.dbpart != nullptr) {
-      // The 8 warps' sums of column tid, in warp order.
-      named_sync(BAR_COLSUM, 256);
-      float v = 0.f;
-#pragma unroll
-      for (int w = 0; w < 8; ++w) v += cs_buf[w * GEMM_BN + tid];
-      const int col = v0 + tid;
-      if (col < V) p.dbpart[(size_t)row_tile * V + col] = v;
-    }
+    ds_tile<GEMM_BN>(acc, p, d, vt * GEMM_BN, row0, row_tile, cwarp, g, t4, tid, cs_buf, BAR_COLSUM);
   }
 }
 
@@ -328,106 +282,116 @@ cudaError_t launch_ds_dx(const CUtensorMap& tx, const CUtensorMap& tw_s, const C
 }
 
 // ---------------------------------------------------------------------------
-// The f32-activation mode on the SIMT mainloop (128 x 128 tiles)
+// The f32-activation mode: ds and dx on the 3xTF32 mainloop
+// (logprob_gemm_tf32.cuh, 128 x 128 tiles), dW on the SIMT one
+// (sgemm_f32.cuh)
 // ---------------------------------------------------------------------------
 
-struct DsF32Params {
-  const float* bias;                           // [V] or null
-  const int* labels;                           // [rows]
-  const float *lse, *ent, *dlp, *dlse, *dent;  // [rows]
-  float* ds;                                   // [C, ldv]
-  float* dbpart;                               // [ceil(rows / 128), V] or null
-  float* dx;                                   // [rows, D]
-  int rows, D, V, ldv, tiles_per_split;
-};
+// Past the f32 ring and split buffers: two [8 warps][128] column-sum buffers.
+constexpr int DS_F32_COLSUM = TG_SMEM_BYTES;
+constexpr int DS_F32_SMEM_BYTES = DS_F32_COLSUM + 2 * 8 * TG_BN * 4;
 
-// 1. ds in f32 over the chunk's row tile and V split, every row of the tile
-// written (zeros past the chunk's rows and past V); the db column partials
-// summed over the tile's rows in a fixed order (each thread's 8 rows, then
-// the 16 row groups in order).
+// 1. ds in f32 over the chunk's row tile and V split, with the db column
+// partials, as logprob_ds_kernel does: TIED W [V, D] is a K-major B, untied
+// W [D, V] an MN-major one.
 template <bool TIED>
-__global__ void __launch_bounds__(SG_THREADS, 2)
-    logprob_ds_f32_kernel(const SgOperand x, const SgOperand w, DsF32Params p) {
-  __shared__ __align__(16) SgSmem sm;
-  __shared__ float colsum[16][SG_BN];
+__global__ void __launch_bounds__(TG_THREADS, 1)
+    logprob_ds_f32_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+                          DsF32Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align_1024(smem_raw);
+  const TgRing ring{sm, smem_u32(sm)};
+  float* colsum = reinterpret_cast<float*>(sm + DS_F32_COLSUM);
   const int row_tile = blockIdx.x, split = blockIdx.y;
-  const int V = p.V;
-  const int m0 = row_tile * SG_BM;
-  const int n_vt = (V + SG_BN - 1) / SG_BN;
+  const int m0 = row_tile * TG_BM;
+  const int n_vt = (p.V + TG_BN - 1) / TG_BN;
   const int vt_lo = split * p.tiles_per_split;
   const int vt_hi = min(vt_lo + p.tiles_per_split, n_vt);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int nk = tg_chunks(p.D);
 
-  float acc[8][8];
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) tg_produce<TIED>(ring, &tx, &tw, m0, vt_lo, vt_hi, nk);
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int cw = wg - 1, tid = threadIdx.x - 128;
+  const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int cwarp = cw * 4 + warp;
+  const int row0 = m0 + cwarp * 16 + g;
+  const DsRows d = ds_rows(p, row0, row0 + 8);
+
+  float acc[TG_NACC];
+  uint32_t it = 0;
   for (int vt = vt_lo; vt < vt_hi; ++vt) {
-    const int v0 = vt * SG_BN;
-    sgemm_tile<true, TIED>(sm, x, w, m0, v0, p.D, acc);
-    float cs[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) cs[j] = 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      // The row's residuals and cotangents, read here rather than held in
-      // registers across the mainloop.
-      const int row = m0 + sg_row(ty, i);
-      const bool in = row < p.rows;
-      const float lse = in ? __ldg(p.lse + row) : 0.f;
-      const float E = in ? lse - __ldg(p.ent + row) : 0.f;
-      const float dlp = in ? __ldg(p.dlp + row) : 0.f;
-      const float dlse = in ? __ldg(p.dlse + row) : 0.f;
-      const float dent = in ? __ldg(p.dent + row) : 0.f;
-      const int y = in ? __ldg(p.labels + row) : -1;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = v0 + sg_col(tx, j);
-        float dsv = 0.f;
-        if (col < V && in) {
-          const float sv = acc[i][j] + (p.bias != nullptr ? __ldg(p.bias + col) : 0.f);
-          dsv = ds_score(sv, lse, E, dlp, dlse, dent, col == y);
-        }
-        acc[i][j] = dsv;
-        cs[j] += dsv;
-      }
-      float* drow = p.ds + (size_t)(m0 + sg_row(ty, i)) * p.ldv + v0;
-      *reinterpret_cast<float4*>(drow + 4 * tx) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-      *reinterpret_cast<float4*>(drow + 64 + 4 * tx) = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
-    }
-    if (p.dbpart != nullptr) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) colsum[ty][sg_col(tx, j)] = cs[j];
-      __syncthreads();
-      if (threadIdx.x < SG_BN) {
-        float v = 0.f;
-#pragma unroll
-        for (int g = 0; g < 16; ++g) v += colsum[g][threadIdx.x];
-        const int col = v0 + threadIdx.x;
-        if (col < V) p.dbpart[(size_t)row_tile * V + col] = v;
-      }
-      // The next write to colsum follows the next tile's mainloop barriers.
-    }
+    tg_tile<TIED>(ring, acc, cw, tid, nk, it);
+    float* cs_buf = colsum + ((vt - vt_lo) & 1) * 8 * TG_BN;
+    ds_tile<TG_BN>(acc, p, d, vt * TG_BN, row0, row_tile, cwarp, g, t4, tid, cs_buf, BAR_COLSUM);
   }
 }
 
 // 2. dx = ds . W^T (untied W [D, V], a K-major B) or ds . W (tied W [V, D],
-// MN-major), in f32, one CTA per 128 x 128 output tile.
+// MN-major), f32, one CTA per 128 x 128 output tile, reducing over the
+// vocabulary (ds is zero past V up to ldv; TMA fills zeros past that).
 template <bool TIED>
-__global__ void __launch_bounds__(SG_THREADS, 2)
-    logprob_dx_f32_kernel(const SgOperand ds, const SgOperand w, DsF32Params p) {
-  __shared__ __align__(16) SgSmem sm;
-  const int m0 = blockIdx.x * SG_BM, n0 = blockIdx.y * SG_BN;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float acc[8][8];
-  sgemm_tile<true, !TIED>(sm, ds, w, m0, n0, p.V, acc);
+__global__ void __launch_bounds__(TG_THREADS, 1)
+    logprob_dx_f32_kernel(const __grid_constant__ CUtensorMap tds, const __grid_constant__ CUtensorMap tw,
+                          DsF32Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align_1024(smem_raw);
+  const TgRing ring{sm, smem_u32(sm)};
+  const int m0 = blockIdx.x * TG_BM, dt = blockIdx.y;
+  const int nk = tg_chunks(p.V);
+
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) tg_produce<!TIED>(ring, &tds, &tw, m0, dt, dt + 1, nk);
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int cw = wg - 1, tid = threadIdx.x - 128;
+  const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int row0 = m0 + cw * 64 + warp * 16 + g;
+  float acc[TG_NACC];
+  uint32_t it = 0;
+  tg_tile<!TIED>(ring, acc, cw, tid, nk, it);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = m0 + sg_row(ty, i);
-    if (row >= p.rows) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = n0 + sg_col(tx, j);
-      if (col < p.D) p.dx[(size_t)row * p.D + col] = acc[i][j];
+  for (int j = 0; j < TG_BN / 8; ++j) {
+    const int col = dt * TG_BN + 8 * j + 2 * t4;
+    if (col < p.D) {
+      if (row0 < p.rows) store_pair(p.dx + (size_t)row0 * p.D + col, acc[4 * j], acc[4 * j + 1]);
+      if (row0 + 8 < p.rows) store_pair(p.dx + (size_t)(row0 + 8) * p.D + col, acc[4 * j + 2], acc[4 * j + 3]);
     }
   }
+}
+
+template <bool TIED>
+cudaError_t launch_ds_dx_f32(const CUtensorMap& tx, const CUtensorMap& tw_s, const CUtensorMap& tds,
+                             const CUtensorMap& tw_dx, const DsF32Params& p, int splits, cudaStream_t stream) {
+  const int ds_smem = DS_F32_SMEM_BYTES + 1024, dx_smem = TG_SMEM_BYTES + 1024;  // room to align to 1024
+  cudaError_t err = set_gemm_smem(logprob_ds_f32_kernel<TIED>, ds_smem);
+  if (err != cudaSuccess) return err;
+  err = set_gemm_smem(logprob_dx_f32_kernel<TIED>, dx_smem);
+  if (err != cudaSuccess) return err;
+  const int row_tiles = (p.rows + TG_BM - 1) / TG_BM;
+  logprob_ds_f32_kernel<TIED><<<dim3(row_tiles, splits), TG_THREADS, ds_smem, stream>>>(tx, tw_s, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  logprob_dx_f32_kernel<TIED><<<dim3(row_tiles, (p.D + TG_BN - 1) / TG_BN), TG_THREADS, dx_smem, stream>>>(
+      tds, tw_dx, p);
+  return cudaGetLastError();
 }
 
 // 3. dW = A^T . B over the rows, f32 (untied: x^T . ds -> [D, V]; tied:
@@ -530,19 +494,23 @@ extern "C" int fused_logprob_bwd_dw(const void* x, const void* ds, void* dw, int
 
 // The f32 mode, one chunk of rows: ds (f32 [C, ldv]) and the db column
 // partials, then dx (f32 [rows, D]). x f32 [rows, D]; w f32 with row stride
-// ldw and unit column stride: [D, V] untied, [V, D] tied. `splits` V splits
-// of 128-column tiles for the ds grid.
+// ldw (a multiple of 4, the base 16-byte aligned: what TMA takes): [D, V]
+// untied, [V, D] tied. `splits` V splits of 128-column tiles for the ds grid.
 extern "C" int fused_logprob_bwd_ds_dx_f32(const void* x, const void* w, const void* bias, const void* labels,
                                            const void* lse, const void* ent, const void* dlp, const void* dlse,
                                            const void* dent, void* ds, void* dbpart, void* dx, int rows, int D,
                                            int V, int ldv, int C, int ldw, int tied, int splits, void* stream) {
-  if (rows < 1 || ldv % DS_LD != 0 || ldv < V || rows > C || C % SG_BM != 0 || splits < 1 || !aligned16(ds))
+  if (rows < 1 || D % 4 != 0 || ldv % DS_LD != 0 || ldv < V || rows > C || C % TG_BM != 0 || ldw % 4 != 0 ||
+      splits < 1)
     return (int)cudaErrorInvalidValue;
-  const SgOperand xo{static_cast<const float*>(x), D, rows, D, D % 4 == 0 && aligned16(x)};
-  const int wvec = ldw % 4 == 0 && aligned16(w);
-  const SgOperand wo = tied ? SgOperand{static_cast<const float*>(w), ldw, V, D, wvec}
-                            : SgOperand{static_cast<const float*>(w), ldw, D, V, wvec};
-  const SgOperand dso{static_cast<const float*>(ds), ldv, rows, V, 1};
+  // W as the B of s = x . W (tied: K-major, one 128-row box a chunk; untied:
+  // MN-major, four 32 x 32 boxes) and as the B of dx (the other way round).
+  CUtensorMap tx, tw_s, tds, tw_dx;
+  const bool ok =
+      make_map_2d<4>(&tx, x, D, rows, D, TG_BM) && make_map_2d<4>(&tds, ds, ldv, rows, ldv, TG_BM) &&
+      (tied ? make_map_2d<4>(&tw_s, w, D, V, ldw, TG_BN) && make_map_2d<4>(&tw_dx, w, D, V, ldw, TG_BK)
+            : make_map_2d<4>(&tw_s, w, V, D, ldw, TG_BK) && make_map_2d<4>(&tw_dx, w, V, D, ldw, TG_BN));
+  if (!ok) return (int)cudaErrorInvalidValue;
   DsF32Params p;
   p.bias = static_cast<const float*>(bias);
   p.labels = static_cast<const int*>(labels);
@@ -555,24 +523,12 @@ extern "C" int fused_logprob_bwd_ds_dx_f32(const void* x, const void* w, const v
   p.dbpart = static_cast<float*>(dbpart);
   p.dx = static_cast<float*>(dx);
   p.rows = rows; p.D = D; p.V = V; p.ldv = ldv;
-  const int n_vt = (V + SG_BN - 1) / SG_BN;
+  const int n_vt = (V + TG_BN - 1) / TG_BN;
   p.tiles_per_split = (n_vt + splits - 1) / splits;
   splits = (n_vt + p.tiles_per_split - 1) / p.tiles_per_split;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 ds_grid((rows + SG_BM - 1) / SG_BM, splits), dx_grid((rows + SG_BM - 1) / SG_BM, (D + SG_BN - 1) / SG_BN);
-  if (tied) {
-    logprob_ds_f32_kernel<true><<<ds_grid, SG_THREADS, 0, s>>>(xo, wo, p);
-  } else {
-    logprob_ds_f32_kernel<false><<<ds_grid, SG_THREADS, 0, s>>>(xo, wo, p);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  if (tied) {
-    logprob_dx_f32_kernel<true><<<dx_grid, SG_THREADS, 0, s>>>(dso, wo, p);
-  } else {
-    logprob_dx_f32_kernel<false><<<dx_grid, SG_THREADS, 0, s>>>(dso, wo, p);
-  }
-  return (int)cudaGetLastError();
+  return (int)(tied ? launch_ds_dx_f32<true>(tx, tw_s, tds, tw_dx, p, splits, s)
+                    : launch_ds_dx_f32<false>(tx, tw_s, tds, tw_dx, p, splits, s));
 }
 
 // The f32 mode: dW (f32; [D, V] untied, [V, D] tied) of `rows` rows of x

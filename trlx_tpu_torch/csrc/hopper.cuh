@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention and
 // fused-logprob kernels: mbarriers, TMA tile loads (4-D maps over [b, T, h,
 // d] views, 2-D maps over matrices), named barriers, wgmma shared-memory
-// descriptors and the wgmma products in the operand forms the kernels use,
-// and the host-side tensor-map encoder.
+// descriptors and the wgmma products in the operand forms the kernels use
+// (bf16, and TF32 for the fused head's f32 mode), and the host-side
+// tensor-map encoders.
 //
 // Shared-memory tiles are TMA boxes of 64 bf16 columns (128 bytes, the
 // 128-byte swizzle's span) by `rows` rows; a [rows, d] tile is d / 64 such
@@ -211,6 +212,37 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t d
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+#define TRLX_ACC64 TRLX_F64(0)
+#define TRLX_REGS64 \
+  "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" \
+  "}"
+
+// d[64 x 128] (+)= A[64 x 8] . B[8 x 128] in TF32, A from registers (the
+// warp's 16 rows: a[0] row g, column t; a[1] row g + 8, column t; a[2] row
+// g, column t + 4; a[3] row g + 8, column t + 4, for lane = 4 g + t), B
+// K-major in shared memory (TF32 has no transposed form). The tensor core
+// reads the top 19 bits of each operand word.
+__device__ __forceinline__ void wgmma_tf32_rs_n128(float* d, const uint32_t* a, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " TRLX_REGS64 ", {%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : TRLX_ACC64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// Orders this thread's generic-proxy writes to shared memory before the
+// async proxy's reads (wgmma through descriptors) that follow a barrier.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ---- host side: tensor maps --------------------------------------------------
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
@@ -245,18 +277,23 @@ inline bool make_map(CUtensorMap* map, const void* base, int d, int T, int h, in
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// A 2-D map over a row-major bf16 matrix [outer, inner] with a row stride
-// of `ld` elements (16-byte multiple); boxes of 64 columns by `rows` rows,
-// 128-byte swizzle, zero fill past `inner` and `outer`.
+// A 2-D map over a row-major matrix [outer, inner] of ELEM_BYTES-wide
+// elements (2: bf16, 4: f32) with a row stride of `ld` elements (a 16-byte
+// multiple); boxes of 128 bytes of columns (64 bf16 or 32 f32: the 128-byte
+// swizzle's span) by `rows` rows, 128-byte swizzle, zero fill past `inner`
+// and `outer`.
+template <int ELEM_BYTES = 2>
 inline bool make_map_2d(CUtensorMap* map, const void* base, int inner, int outer, long long ld, int rows) {
+  static_assert(ELEM_BYTES == 2 || ELEM_BYTES == 4, "make_map_2d: bf16 or f32");
   EncodeTiled enc = encoder();
   if (enc == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * ELEM_BYTES};
+  const cuuint32_t box[2] = {128 / ELEM_BYTES, (cuuint32_t)rows};
   const cuuint32_t estr[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box, estr,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  const CUtensorMapDataType type = ELEM_BYTES == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return enc(map, type, 2, const_cast<void*>(base), dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -1,12 +1,13 @@
-// The f32 GEMM mainloop of the fused-logprob kernels' f32-activation mode,
-// for Hopper (sm_90a): a register-tiled SIMT SGEMM on the CUDA cores that
-// computes a 128 x 128 f32 tile of A . B with f32 products and f32 sums and
-// leaves it in registers for the caller's epilogue.
+// The SIMT f32 GEMM mainloop of the fused-logprob kernels' f32-activation
+// mode (the dW kernel, row 6f; the forward, ds and dx products run on the
+// 3xTF32 mainloop of logprob_gemm_tf32.cuh), for Hopper (sm_90a): a
+// register-tiled SGEMM on the CUDA cores that computes a 128 x 128 f32 tile
+// of A . B with f32 products and f32 sums and leaves it in registers for the
+// caller's epilogue.
 //
 // The TPU kernels compute in the activation's dtype (the weight tile is cast
 // to x's dtype, trlx_tpu/ops/fused_logprob.py:109, :219, :258), so f32
-// activations (ILQL's Q heads) take f32 products. A single TF32 pass keeps
-// ~1e-3 of relative error, so the tensor cores are not used here.
+// activations (ILQL's Q heads) take f32 products.
 //
 // Layout: 256 threads; thread (ty, tx) = (tid / 16, tid % 16) holds the
 // 8 x 8 outputs at rows sg_row(ty, 0..7) and columns sg_col(tx, 0..7): two
@@ -42,20 +43,6 @@ struct SgOperand {
   long long ld;
   int rows, cols, vec;
 };
-
-// Max and sum over the 16 threads of a half-warp: the threads that hold
-// the same rows of the tile.
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 inline bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
 

@@ -7,9 +7,10 @@ routing rule.
 Counterpart of ``trlx_tpu.ops.fused_logprob`` (its ``_fused_core`` custom
 VJP). A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises. The kernels compute in the activation's dtype, as the TPU kernels
-do: bf16 activations go to the tensor-core kernels (the weight read in bf16),
-f32 activations (ILQL's Q heads) to the f32 kernels, which read the f32
-weight as it is; any other dtype raises.
+do: bf16 activations go to the bf16 tensor-core kernels (the weight read in
+bf16), f32 activations (ILQL's Q heads) to the f32 kernels (f32-accurate
+products as three TF32 tensor-core passes, and an f32 SIMT dW), which read
+the f32 weight through TMA; any other dtype raises.
 """
 
 import math
@@ -25,9 +26,9 @@ _KERNEL_BK = 64  # forward reduction chunk: D must divide by it
 _BWD_D_MULTIPLE = 128  # the backward's shape rule: D must divide by it
 _DS_LD = 128  # the ds scratch's rows are padded to a multiple of this (ldv)
 BWD_CHUNK_ROWS = 1024  # rows per chunk of the ds and dx kernels
-_F32_BM = 128  # the f32 kernels' output tile (SG_BM x SG_BN in csrc/sgemm_f32.cuh)
+_F32_BM = 128  # the f32 forward and ds kernels' output tile (TG_BM x TG_BN in csrc/logprob_gemm_tf32.cuh)
 _F32_BN = 128
-_F32_CTAS_PER_SM = 2  # the f32 kernels launch at most 128 registers a thread, two CTAs an SM
+_F32_CTAS_PER_SM = 1  # a CTA of the 3xTF32 kernels holds 200 KB of shared memory: one an SM
 
 
 def fused_logprob_eligible(d_model: int, vocab_size: int) -> bool:
@@ -105,25 +106,33 @@ def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _tma_ready(w) -> bool:
-    """bf16, unit stride along the last dimension, every row starting on a
-    16-byte boundary: what the kernels' TMA maps take."""
-    return w.dtype == torch.bfloat16 and w.stride(-1) == 1 and w.stride(0) % 8 == 0 and w.data_ptr() % 16 == 0
+def _tma_ready(w, dtype=torch.bfloat16) -> bool:
+    """``dtype``, unit stride along the last dimension, every row starting
+    on a 16-byte boundary: what the kernels' TMA maps take."""
+    per16 = 16 // dtype.itemsize
+    return w.dtype == dtype and w.stride(-1) == 1 and w.stride(0) % per16 == 0 and w.data_ptr() % 16 == 0
 
 
-def kernel_weight(w):
-    """The head weight as the kernels read it (``_tma_ready``). A weight that
-    already is so is returned as it is; any other (an f32 master, a V that
-    is not a multiple of 8) is cast into a fresh buffer whose rows are
-    padded to a multiple of 8 elements, and a view of its first columns is
-    returned. The cast rounds as ``w.to(torch.bfloat16)`` does."""
-    if _tma_ready(w):
+def kernel_weight(w, dtype=torch.bfloat16):
+    """The head weight as the kernels read it (``_tma_ready`` in ``dtype``:
+    bf16 for the bf16 kernels, f32 for the f32 ones). A weight that already
+    is so is returned as it is; any other (an f32 master for the bf16
+    kernels, a V that is not a multiple of 16 bytes) is copied, cast as
+    ``w.to(dtype)`` rounds, into a fresh buffer whose rows are padded to a
+    multiple of 16 bytes, and a view of its first columns is returned;
+    ``kernel_weight.copies`` counts those copies."""
+    if _tma_ready(w, dtype):
         return w
     rows, cols = w.shape
-    buf = torch.empty((rows, -(-cols // 8) * 8), dtype=torch.bfloat16, device=w.device)
+    per16 = 16 // dtype.itemsize
+    buf = torch.empty((rows, -(-cols // per16) * per16), dtype=dtype, device=w.device)
     view = buf[:, :cols]
     view.copy_(w)
+    kernel_weight.copies += 1
     return view
+
+
+kernel_weight.copies = 0
 
 
 def _check_kernel_inputs(x, w, tied: bool, d_multiple: int):
@@ -135,9 +144,8 @@ def _check_kernel_inputs(x, w, tied: bool, d_multiple: int):
         if w.dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"fused_logprob kernel takes a float32 or bfloat16 weight, got {w.dtype}")
     elif x.dtype == torch.float32:
-        if w.dtype != torch.float32 or w.stride(-1) != 1:
-            raise TypeError(f"the float32 fused_logprob kernels take a float32 weight with unit column stride, "
-                            f"got {w.dtype} with strides {tuple(w.stride())}")
+        if w.dtype != torch.float32:
+            raise TypeError(f"the float32 fused_logprob kernels take a float32 weight, got {w.dtype}")
     else:
         raise TypeError(f"fused_logprob kernels take bfloat16 or float32 activations, got {x.dtype}")
     if D % d_multiple:
@@ -184,19 +192,22 @@ def fused_logprob_fwd(x, w, labels, bias=None, *, tied: bool = False):
 
 
 def fused_logprob_fwd_f32(x, w, labels, bias=None, *, tied: bool = False):
-    """The f32 forward kernel pair (x and w f32, f32 products and sums):
-    f32 (logprob, lse, entropy) shaped like labels. The weight is read as it
-    is, through its row stride. Raises on what the kernel does not take."""
+    """The f32 forward kernel pair (x and w f32, f32-accurate products as
+    three TF32 passes, f32 sums): f32 (logprob, lse, entropy) shaped like
+    labels. The weight goes through ``kernel_weight`` in f32 (a padded copy
+    only when its rows do not start on 16-byte boundaries). Raises on what
+    the kernel does not take."""
     if x.dtype != torch.float32:
         raise TypeError(f"fused_logprob_fwd_f32 takes float32 activations, got {x.dtype}")
     D, V = _check_kernel_inputs(x, w, tied, _KERNEL_BK)
     N, x2, y, b, (lp, lse, ent) = _fwd_operands(x, labels, bias, D, V)
+    wk = kernel_weight(w, torch.float32)
     S = _f32_splits(N, V, x.device)
     part = torch.empty((4, S, N), dtype=torch.float32, device=x.device)
     err = cuda_lib.lib().fused_logprob_fwd_f32(
-        x2.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(), y.data_ptr(),
+        x2.data_ptr(), wk.data_ptr(), None if b is None else b.data_ptr(), y.data_ptr(),
         lp.data_ptr(), lse.data_ptr(), ent.data_ptr(), part.data_ptr(),
-        N, D, V, w.stride(0), int(bool(tied)), S, cuda_lib.stream_ptr(x.device),
+        N, D, V, wk.stride(0), int(bool(tied)), S, cuda_lib.stream_ptr(x.device),
     )
     cuda_lib.check(err, "fused_logprob_fwd_f32")
     fused_logprob_fwd_f32.launches += 1
@@ -240,8 +251,10 @@ def fused_logprob_bwd_dw(x2, ds, dw, *, rows: int, V: int, ldv: int, tied: bool,
 def fused_logprob_bwd_dx_f32(x2, w, b, y, rows_f32, ds, dbpart, dx, *, rows: int, C: int, ldv: int, tied: bool):
     """The f32 mode of one chunk of rows: the ds kernel (f32 ds into the
     [C, ldv] scratch, db column partials) and the dx kernel (f32 dx); w is
-    the f32 weight as it is."""
+    the f32 weight as ``kernel_weight`` gives it."""
     D, V = x2.shape[1], (w.shape[0] if tied else w.shape[1])
+    if not _tma_ready(w, torch.float32):
+        raise TypeError("fused_logprob_bwd_dx_f32 takes the weight as kernel_weight(w, torch.float32) gives it")
     err = cuda_lib.lib().fused_logprob_bwd_ds_dx_f32(
         x2.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(), y.data_ptr(),
         *(t.data_ptr() for t in rows_f32), ds.data_ptr(), None if dbpart is None else dbpart.data_ptr(),
@@ -280,9 +293,9 @@ def fused_logprob_bwd(x, w, bias, labels, lse, ent, dlp, dlse, dent, *, tied: bo
     dW is written once; or raise. dW accumulates in f32 and comes back in w's
     dtype; dx comes back in x's dtype.
 
-    bf16 x: ``wk`` is w as ``kernel_weight`` gives it (the forward's copy),
-    made here when not given, and ds is kept in bf16. f32 x: the f32 kernels
-    read the f32 w as it is (``wk`` is not used) and keep ds in f32.
+    ``wk`` is w as ``kernel_weight`` gives it in x's dtype (the forward's
+    copy), made here when not given; the ds and dx kernels read it, and ds is
+    kept in x's dtype.
 
     The ds buffer grows with N: N rounded up to 128, times V rounded up to
     128, in x's dtype (bf16: 206.6 MB at N = 2048, V = 50400; f32: 826 MB at
@@ -294,7 +307,7 @@ def fused_logprob_bwd(x, w, bias, labels, lse, ent, dlp, dlse, dent, *, tied: bo
     N = labels.numel()
     dev = x.device
     x2 = x.reshape(N, D).contiguous()
-    wc = w if f32 else kernel_weight(w if wk is None else wk)
+    wc = kernel_weight(w if wk is None else wk, x.dtype)
     y = labels.reshape(N).to(torch.int32).contiguous()
     b = None if bias is None else bias.reshape(V).to(torch.float32).contiguous()
     vecs = [t.reshape(N).to(torch.float32).contiguous() for t in (lse, ent, dlp, dlse, dent)]
@@ -321,10 +334,11 @@ def fused_logprob_bwd(x, w, bias, labels, lse, ent, dlp, dlse, dent, *, tied: bo
 class FusedLogprobFn(torch.autograd.Function):
     """(logprob, lse, entropy) with the fused backward over (x, w, bias);
     the labels are not differentiable. Saves x, w, bias, labels, the row
-    residuals (lse, entropy) and, on CUDA with bf16 x, the bf16 weight the
-    forward kernel read, so the backward does not cast it again (f32 x: the
-    f32 kernels read w itself, and no copy is made or saved). On the CPU the
-    same Function runs the plain forward and the plain backward."""
+    residuals (lse, entropy) and, on CUDA, the weight as the forward kernel
+    read it (``kernel_weight`` in x's dtype: a bf16 copy of an f32 master;
+    for f32 x, w itself unless its rows needed a padded copy), so the
+    backward does not make it again. On the CPU the same Function runs the
+    plain forward and the plain backward."""
 
     @staticmethod
     def forward(ctx, x, w, bias, labels, tied):
@@ -332,8 +346,9 @@ class FusedLogprobFn(torch.autograd.Function):
         if x.device.type == "cpu":
             lp, lse, ent = naive_logprob(x, w, labels, bias, tied=tied)
         else:
-            wk = kernel_weight(w) if x.dtype == torch.bfloat16 else None
-            lp, lse, ent = fused_logprob_fwd(x, w if wk is None else wk, labels, bias, tied=tied)
+            _check_kernel_inputs(x, w, tied, _KERNEL_BK)
+            wk = kernel_weight(w, x.dtype)
+            lp, lse, ent = fused_logprob_fwd(x, wk, labels, bias, tied=tied)
         ctx.save_for_backward(x, w, bias, labels, lse, ent, wk)
         ctx.tied = tied
         return lp, lse, ent
