@@ -704,7 +704,7 @@ def phase_logprob_f32(seed: int):
                 tol=F32_REL, tol_rule="|d| <= 1e-4 * max(1, |ref|) elementwise on lp, lse, entropy",
                 ms=ms, plain_ms=plain_ms, library_ms=None, library="none: no single PyTorch call computes it",
                 matmul_ms=matmul_ms, matmul="torch.matmul f32 [N, D] x [D, V], TF32 off: the yardstick",
-                bound_ms=bound_ms, bound_by=by, shape=[N, D, V], checks=errs)
+                bound_ms=bound_ms, bound_by=by, shape=[N, D, V], checks=errs, flops=flops)
 
 
 def logprob_bwd_f32_inputs(seed: int):
@@ -761,7 +761,8 @@ def phase_logprob_bwd_f32(seed: int):
                   whole_backward_ms=ms_all, tol_rule="max |d| <= 1e-4 * max |ref| (hit and unhit columns apart)",
                   ms_from="CUDA events over the wrapper calls of one fused_logprob_bwd call on f32 x and W",
                   shape=[N, D, V], chunks=-(-N // BWD_CHUNK_ROWS), checks=errs,
-                  ds_buffer_bytes=-(-N // 128) * 128 * ldv * 4, call_peak_gb=peak_gb)
+                  ds_buffer_bytes=-(-N // 128) * 128 * ldv * 4, dw_xt_scratch_bytes=D * -(-N // 4) * 4 * 4,
+                  call_peak_gb=peak_gb)
     dw_err, dw_tol = max((e for k, e in errs.items() if k != "dx"), key=lambda et: et[0] / et[1])
     log(f"[fused_logprob_bwd_f32] whole backward {ms_all:.3f} ms; torch.matmul of x·W {scores_matmul_ms:.3f} ms, "
         f"of ds·Wᵀ {dx_matmul_ms:.3f} ms, of xᵀ·ds {dw_matmul_ms:.3f} ms; plain {plain_ms:.3f} ms; call peak "
@@ -2219,6 +2220,9 @@ def main() -> int:
                     "kernels_only_ms", "turns_vs_library", "eager_ms", "max_scaled_err", "tol_rule"):
             if key in p:
                 row[key] = p[key]
+        if name.endswith("_f32"):  # as log_f32_row prints them
+            row["tflops"] = p["flops"] / p["ms"] / 1e9
+            row["share_of_bound"] = p["bound_ms"] / p["ms"]
         if name == "flash_attention_fwd":
             row["branch_replay"] = phases["flash_branch_replay"]
         rows.append(row)

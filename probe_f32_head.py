@@ -2,27 +2,31 @@
 """Probe of the fused head's f32 mode on one NVIDIA GPU: rebuilds the two
 fused-logprob sources (``trlx_tpu_torch/csrc/fused_logprob.cu`` and
 ``fused_logprob_bwd.cu``) with constants of the 3xTF32 mainloop
-(``csrc/logprob_gemm_tf32.cuh``) set as given, and for each build measures,
-at the Q heads' shape (N = 4092, D = 8192, V = 50400, untied, with bias):
+(``csrc/logprob_gemm_tf32.cuh``) or of the backward set as given, and for
+each build measures, at the Q heads' shape (N = 4092, D = 8192, V = 50400,
+untied, with bias):
 
 - the forward's (logprob, lse, entropy) against ``naive_logprob`` (f32,
   TF32 off), max |d| / max(1, |ref|);
 - the backward's dx, dW and db against the plain backward, max |d| / max |ref|;
-- the device ms (CUDA events) of the forward and of the ds + dx chunk calls
-  of one backward, in alternating turns (first build to last, then back).
+- the device ms (CUDA events) of the forward, of the ds + dx chunk calls
+  and of the dW/db call of one backward (x transposed into its scratch, the
+  dW kernel, the db merge), in alternating turns (first build to last, then
+  back), beside ``torch.matmul`` f32 of xᵀ·ds (TF32 off), dW's yardstick.
 
-    python3 probe_f32_head.py "" TG_GROUP=256 TG_STAGES=2 "drop:tg_split_b<B_KMAJOR>"
+    python3 probe_f32_head.py "" TG_GROUP=256 DW_GROUP_M=64 "drop:transpose_f32_kernel<<<"
 
 Each argument is one build, of space-separated settings (none: the sources
-as they are): NAME=VALUE sets one of the header's ``constexpr int``
-constants; ``drop:TEXT`` deletes every line of the header that contains
-TEXT, to time the kernels without one piece of their work (their results
-are then wrong, and only the times mean anything). TG_GROUP = 256 sums each
-tile's whole D = 8192 reduction (256 chunks) in one tensor-core
-accumulator: no promotion. Builds go to
-``trlx_tpu_torch/csrc/_build/probe/`` (gitignored). Prints the card's name
-and power limit, one line per build and turn, and last one JSON object of
-the results. Exits non-zero when no CUDA device is visible.
+as they are): NAME=VALUE sets one ``constexpr int`` constant of the header
+or of ``fused_logprob_bwd.cu``; ``drop:TEXT`` deletes every line of those
+two files that contains TEXT, to time the kernels without one piece of their
+work (their results are then wrong, and only the times mean anything).
+TG_GROUP = 256 sums each tile's whole D = 8192 reduction (256 chunks) in one
+tensor-core accumulator: no promotion. DW_GROUP_M = 64 walks dW's tiles as
+the bf16 dW kernel does (every x panel fastest, the ds panel slowest). Builds
+go to ``trlx_tpu_torch/csrc/_build/probe/`` (gitignored). Prints the card's
+name and power limit, one line per build and turn, and last one JSON object
+of the results. Exits non-zero when no CUDA device is visible.
 """
 
 import ctypes
@@ -47,20 +51,24 @@ def build(settings: str, out: str):
 
     shutil.rmtree(out, ignore_errors=True)
     shutil.copytree(cuda_lib._CSRC, out, ignore=shutil.ignore_patterns("_build"))
-    path = os.path.join(out, "logprob_gemm_tf32.cuh")
-    src = open(path).read()
+    paths = [os.path.join(out, f) for f in ("logprob_gemm_tf32.cuh", "fused_logprob_bwd.cu")]
+    srcs = {path: open(path).read() for path in paths}
     for item in settings.split():
-        if item.startswith("drop:"):
-            kept = [ln for ln in src.splitlines(keepends=True) if item[5:] not in ln]
-            if len(kept) == len(src.splitlines()):
-                raise ValueError(f"no line of logprob_gemm_tf32.cuh contains {item[5:]!r}")
-            src = "".join(kept)
-            continue
-        name, value = item.split("=")
-        src, n = re.subn(rf"constexpr int {name} = \d+;", f"constexpr int {name} = {int(value)};", src)
-        if n != 1:
-            raise ValueError(f"no constant {name} in logprob_gemm_tf32.cuh")
-    open(path, "w").write(src)
+        hits = 0
+        for path, src in srcs.items():
+            if item.startswith("drop:"):
+                kept = [ln for ln in src.splitlines(keepends=True) if item[5:] not in ln]
+                hits += len(src.splitlines()) - len(kept)
+                srcs[path] = "".join(kept)
+            else:
+                name, value = item.split("=")
+                srcs[path], n = re.subn(rf"constexpr int {name} = \d+;", f"constexpr int {name} = {int(value)};",
+                                        src)
+                hits += n
+        if hits == 0:
+            raise ValueError(f"{item!r} matches nothing in logprob_gemm_tf32.cuh or fused_logprob_bwd.cu")
+    for path, src in srcs.items():
+        open(path, "w").write(src)
     nvcc = cuda_lib._nvcc()
     procs = [subprocess.Popen([nvcc, *cuda_lib.NVCC_FLAGS, "-I", out, "-c", os.path.join(out, f), "-o",
                                os.path.join(out, f + ".o")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
@@ -81,9 +89,9 @@ def build(settings: str, out: str):
             getattr(handle, name).restype = ctypes.c_int
     lines, keep = log.splitlines(), []
     for i, ln in enumerate(lines):
-        if "Compiling entry function" in ln and "f32_kernel" in ln:
-            keep.append(re.search(r"(logprob_\w+?_f32_kernelI?L?b?\d?)", ln).group(1) + ": " +
-                        " ".join(x.strip() for x in lines[i + 1:i + 3]))
+        name = re.search(r"((?:logprob|transpose)_\w*?f32_kernelI?L?b?\d?)", ln)
+        if "Compiling entry function" in ln and name:
+            keep.append(name.group(1) + ": " + " ".join(x.strip() for x in lines[i + 1:i + 3]))
         if "Performance Loss" in ln:
             keep.append(ln.strip())
     return handle, keep
@@ -136,7 +144,8 @@ def main() -> int:
         torch.cuda.synchronize()
         fwd = {n: float(((g - r).abs() / r.abs().clamp(min=1.0)).max()) for n, g, r in zip(("lp", "lse", "ent"), got, ref)}
         bwd = {n: float((g - r).abs().max() / r.abs().max()) for n, g, r in zip(("dx", "dw", "db"), grads, ref_b)}
-        results[settings or "as is"] = {"fwd_scaled_err": fwd, "bwd_rel_err": bwd, "fwd_ms": [], "ds_dx_ms": []}
+        results[settings or "as is"] = {"fwd_scaled_err": fwd, "bwd_rel_err": bwd, "fwd_ms": [], "ds_dx_ms": [],
+                                        "dw_ms": []}
         print(f"[{settings or 'as is'}] forward scaled errors {fwd}; backward errors / max |ref| {bwd}", flush=True)
         del got, grads
     del ref_b
@@ -146,6 +155,7 @@ def main() -> int:
     ds = torch.empty((-(-N // 128) * 128, ldv), device="cuda")
     dx = torch.empty((N, D), device="cuda")
     dbpart = torch.empty((-(-N // 128), V), device="cuda")
+    dw, db = torch.empty((D, V), device="cuda"), torch.empty((V,), device="cuda")
     vecs = [ref[1], ref[2], *cts]
 
     def ds_dx():
@@ -154,18 +164,27 @@ def main() -> int:
                                         dx[c0:], rows=min(fl.BWD_CHUNK_ROWS, N - c0), C=fl.BWD_CHUNK_ROWS, ldv=ldv,
                                         tied=False)
 
+    def dw_db():
+        fl.fused_logprob_bwd_dw_f32(x, ds, dw, rows=N, V=V, ldv=ldv, tied=False, dbpart=dbpart, db=db)
+
     flops = 2 * N * D * V
+    matmul_ms = []
     for turn, order in enumerate((builds, builds[::-1])):
         for settings in order:
             cuda_lib._state["lib"] = libs[settings]
             f_ms = time_ms(lambda: fl.fused_logprob_fwd_f32(x, w, y, b), iters=3)
             b_ms = time_ms(ds_dx, iters=3)
+            w_ms = time_ms(dw_db, iters=3)
             r = results[settings or "as is"]
             r["fwd_ms"].append(f_ms)
             r["ds_dx_ms"].append(b_ms)
+            r["dw_ms"].append(w_ms)
             print(f"[{settings or 'as is'}] turn {turn}: forward {f_ms:.3f} ms ({flops / f_ms / 1e9:.1f} TFLOP/s), "
-                  f"ds + dx {b_ms:.3f} ms ({2 * flops / b_ms / 1e9:.1f} TFLOP/s)", flush=True)
-    print(json.dumps({"device": smi, "shape": [N, D, V], "builds": results}))
+                  f"ds + dx {b_ms:.3f} ms ({2 * flops / b_ms / 1e9:.1f} TFLOP/s), dW/db {w_ms:.3f} ms "
+                  f"({flops / w_ms / 1e9:.1f} TFLOP/s)", flush=True)
+        matmul_ms.append(time_ms(lambda: torch.matmul(x.t(), ds[:N, :V]), iters=3))
+        print(f"[torch.matmul] turn {turn}: f32 x^T . ds {matmul_ms[-1]:.3f} ms", flush=True)
+    print(json.dumps({"device": smi, "shape": [N, D, V], "builds": results, "dw_matmul_ms": matmul_ms}))
     return 0
 
 

@@ -16,13 +16,14 @@ are read from the sources; the V split is the wrapper's own.
   fragments come from registers (the wgmma register layout), B from shared
   memory K-major: the consumers split the raw B tile into B_hi and B_lo,
   transposing an MN-major tile on the way.
-- The dW kernel (``logprob_dw_f32_kernel``, row 6f) runs on the SIMT
-  mainloop of ``csrc/sgemm_f32.cuh``: thread (ty, tx) = (tid / 16, tid % 16)
-  of 256 fetches two float4 of each 128 x 16 operand tile (K-major: row
-  f / 4, reduction 4 (f % 4); MN-major: reduction row f / 32, columns
-  4 (f % 32)), zeros past the edges, and stores them into a [k][m] stage of
-  row pitch SG_LD; it owns the outputs at rows sg_row(ty, 0..7) and columns
-  sg_col(tx, 0..7).
+- The dW kernel (``logprob_dw_f32_kernel``, row 6f) runs on the same
+  mainloop as one product for both cases, C = xᵀ·ds [D, V] over the rows
+  (tied dW = Cᵀ, stored transposed by the epilogue): x is first transposed
+  into a scratch [D, rows rounded up to 4] (``transpose_f32_kernel``, 32 x 32
+  tiles through shared memory), which the mainloop reads as a K-major A, and
+  ds goes in as an MN-major B, as the untied forward takes W. A persistent
+  grid of min(tiles, SMs) CTAs walks the 128 x 128 output tiles in groups of
+  ``DW_GROUP_M`` m-tiles, the m-tile fastest within a group.
 - Forward: one CTA per (128-row tile, V split); a split walks its 128-column
   tiles; per tile and row the max over the quad that holds the row, then the
   online (m, l, r, label score); the merge kernel of the bf16 mode combines
@@ -31,7 +32,7 @@ are read from the sources; the V split is the wrapper's own.
   past V and past the chunk's rows) with the db column partials of each row
   tile (each warp's 16 rows, then the 8 warps in order), dx = ds·Wᵀ (ds·W
   tied) over 128 x 128 tiles, then dW = xᵀ·ds (dsᵀ·x tied) once over every
-  row, both operands MN-major, each element stored once.
+  row, each element stored once.
 """
 
 import os
@@ -60,75 +61,21 @@ def _source(name):
         return f.read()
 
 
+def _constant(src, name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
 def _constants():
-    src = _source("sgemm_f32.cuh")
-    out = {n: int(re.search(rf"constexpr int {n} = (\d+);", src).group(1))
-           for n in ("SG_BM", "SG_BN", "SG_BK", "SG_THREADS")}
-    out["SG_LD"] = out["SG_BM"] + int(re.search(r"constexpr int SG_LD = SG_BM \+ (\d+);", src).group(1))
-    tg = _source("logprob_gemm_tf32.cuh")
-    out.update({n: int(re.search(rf"constexpr int {n} = (\d+);", tg).group(1))
-                for n in ("TG_BM", "TG_BN", "TG_BK", "TG_STAGES", "TG_SPLITS", "TG_GROUP", "TG_THREADS")})
+    tg, bwd = _source("logprob_gemm_tf32.cuh"), _source("fused_logprob_bwd.cu")
+    out = {n: _constant(tg, n) for n in ("TG_BM", "TG_BN", "TG_BK", "TG_STAGES", "TG_SPLITS", "TG_GROUP", "TG_THREADS")}
+    out.update({n: _constant(bwd, n) for n in ("XT_TILE", "XT_ROWS", "DW_GROUP_M")})
     return out
 
 
 K = _constants()
-BM, BN, BK, THREADS, LD = K["SG_BM"], K["SG_BN"], K["SG_BK"], K["SG_THREADS"], K["SG_LD"]
 TBM, TBN, TBK, GROUP = K["TG_BM"], K["TG_BN"], K["TG_BK"], K["TG_GROUP"]
+XT_TILE, XT_ROWS, DW_GROUP_M = K["XT_TILE"], K["XT_ROWS"], K["DW_GROUP_M"]
 MN_BOX = 32 * TBK * 4  # bytes of one MN-major box of B: 32 columns x TBK reduction rows
-
-
-def sg_row(ty, i):
-    return (4 * ty if i < 4 else 64 + 4 * ty) + (i & 3)
-
-
-def sg_col(tx, j):
-    return (4 * tx if j < 4 else 64 + 4 * tx) + (j & 3)
-
-
-def _fetch_map(kmajor: bool):
-    """For each of the 2048 elements a block fetches: (row, col) in the
-    operand's stored matrix relative to (mn0, k0) for K-major or (k0, mn0)
-    for MN-major, and its shared-memory offset in the [k][m] stage."""
-    rows, cols, offs = [], [], []
-    for tid in range(THREADS):
-        for h in range(2):
-            f = tid + h * THREADS
-            for e in range(4):
-                if kmajor:
-                    mn, k = f // 4, 4 * (f % 4)
-                    rows.append(mn), cols.append(k + e), offs.append((k + e) * LD + mn)
-                else:
-                    rows.append(f // 32), cols.append(4 * (f % 32) + e), offs.append((f // 32) * LD + 4 * (f % 32) + e)
-    return np.asarray(rows), np.asarray(cols), np.asarray(offs)
-
-
-MAPS = {True: _fetch_map(True), False: _fetch_map(False)}
-
-
-def stage(a: np.ndarray, kmajor: bool, mn0: int, k0: int) -> np.ndarray:
-    """The [BK, LD] shared-memory stage the block builds from operand ``a``
-    (stored [mn][k] when K-major, [k][mn] otherwise), zeros past its edges;
-    unwritten (pad) entries are NaN."""
-    r, c, off = MAPS[kmajor]
-    r0, c0 = (mn0, k0) if kmajor else (k0, mn0)
-    rr, cc = r + r0, c + c0
-    ok = (rr < a.shape[0]) & (cc < a.shape[1])
-    vals = np.zeros(len(r), dtype=np.float32)
-    vals[ok] = a[rr[ok], cc[ok]]
-    s = np.full(BK * LD, np.nan, dtype=np.float32)
-    s[off] = vals
-    return s.reshape(BK, LD)
-
-
-def sgemm_tile(a, b, a_kmajor, b_kmajor, m0, n0, Kred):
-    """The 128 x 128 f32 tile of A·B over [0, Kred) in BK chunks, read from
-    the stages as the threads read them: output (sg_row(ty, i), sg_col(tx,
-    j)) from stage columns 4 ty + i (i < 4) or 64 + 4 ty + i - 4."""
-    acc = np.zeros((BM, BN), dtype=np.float32)
-    for k0 in range(0, Kred, BK):
-        sa, sb = stage(a, a_kmajor, m0, k0), stage(b, b_kmajor, n0, k0)
-        acc += sa[:, :BM].T @ sb[:, :BN]
-    return acc
 
 
 # ---- the 3xTF32 mainloop ------------------------------------------------------
@@ -227,40 +174,181 @@ def a_fragment_map():
     return cw * 64 + warp * 16 + g + 8 * (e & 1), 8 * kk + t + 4 * (e >> 1)
 
 
-def test_index_maps_cover_each_tile_once():
-    """Row 6f's SIMT mainloop: every element of a 128 x 16 operand tile is
-    fetched once and lands at its [k][m] place in the stage, for both
-    operand forms; the pad columns are never written; each thread's outputs
-    are distinct and the 256 threads cover the 128 x 128 tile once; the
-    threads' float4 reads of the stage are the rows and columns the outputs
-    name."""
-    assert (BM, BN, BK, THREADS) == (128, 128, 16, 256) and LD > BM
-    rng = np.random.default_rng(0)
-    for kmajor in (True, False):
-        r, c, off = MAPS[kmajor]
-        assert len(set(off.tolist())) == BM * BK
-        a = rng.normal(size=(BM, BK) if kmajor else (BK, BM)).astype(np.float32)
-        s = stage(a, kmajor, 0, 0)
-        assert np.isnan(s[:, BM:]).all()
-        np.testing.assert_array_equal(s[:, :BM], a.T if kmajor else a)
-    cover = np.zeros((BM, BN), dtype=np.int32)
-    for tid in range(THREADS):
-        ty, tx = tid // 16, tid % 16
-        for i in range(8):
-            assert sg_row(ty, i) == (4 * ty + i if i < 4 else 64 + 4 * ty + i - 4)
-            for j in range(8):
-                assert sg_col(tx, j) == (4 * tx + j if j < 4 else 64 + 4 * tx + j - 4)
-                cover[sg_row(ty, i), sg_col(tx, j)] += 1
-    assert (cover == 1).all()
+# ---- row 6f: the transpose, the persistent walk, the epilogue's stores ---------
+
+def transpose_map(rows: int, D: int):
+    """``transpose_f32_kernel``'s index map over its grid (ceil(rows / 32),
+    ceil(D / 32)) of 32 x 8 threads: for every read, (block, thread, step,
+    shared offset, row r, column d of x); for every write, (block, thread,
+    step, shared offset, column d, row r of xt). Only in-bounds accesses."""
+    bx, by, ty, tx, i = np.meshgrid(np.arange(-(-rows // XT_TILE)), np.arange(-(-D // XT_TILE)),
+                                    np.arange(XT_ROWS), np.arange(XT_TILE), np.arange(XT_TILE // XT_ROWS),
+                                    indexing="ij")
+    j = ty + XT_ROWS * i
+    pitch = XT_TILE + 1
+    r, d = bx * XT_TILE + j, by * XT_TILE + tx  # the read
+    ok = (r < rows) & (d < D)
+    reads = (bx[ok], by[ok], ty[ok], tx[ok], i[ok], (j * pitch + tx)[ok], r[ok], d[ok])
+    d, r = by * XT_TILE + j, bx * XT_TILE + tx  # the write
+    ok = (d < D) & (r < rows)
+    writes = (bx[ok], by[ok], ty[ok], tx[ok], i[ok], (tx * pitch + j)[ok], d[ok], r[ok])
+    return reads, writes
+
+
+def _warps(block_x, block_y, ty, step, lane, *values):
+    """Group per-access arrays by warp (block, thread row, step): for each
+    warp, its accesses' values ordered by lane."""
+    order = np.lexsort((lane, step, ty, block_y, block_x))
+    key = np.stack([block_x, block_y, ty, step])[:, order]
+    cuts = np.flatnonzero(np.any(np.diff(key, axis=1) != 0, axis=0)) + 1
+    return [np.split(v[order], cuts) for v in values]
+
+
+@pytest.mark.parametrize("rows,D", [(50, 64), (97, 256), (1027, 96), (1, 32)])
+def test_transpose_covers_a_ragged_x_once(rows, D):
+    """Row 6f's transpose of x [rows, D] into the scratch [D, ldr], ldr =
+    rows rounded up to 4 (``fused_logprob_bwd_dw_f32``): every element of x
+    is read once and lands at xt[d][r] once, through the shared slot its
+    block's write step reads back; the pad columns r >= rows are never
+    written (the kernel's TMA map of xt ends at rows and fills zeros); each
+    warp reads and writes consecutive floats of memory, and its 32 shared
+    accesses hit 32 distinct banks of the 33-float-pitch tile."""
+    assert (XT_TILE, XT_ROWS) == (32, 8)
+    ldr = -(-rows // 4) * 4
+    (rb, rby, rty, rtx, ri, roff, r, d), (wb, wby, wty, wtx, wi, woff, wd, wr) = transpose_map(rows, D)
+    x = np.random.default_rng(rows).normal(size=(rows, D)).astype(np.float32)
+    assert len(set(zip(r.tolist(), d.tolist()))) == r.size == rows * D
+    slots = list(zip(rb.tolist(), rby.tolist(), roff.tolist()))
+    assert len(set(slots)) == len(slots)
+    shared = dict(zip(slots, x[r, d].tolist()))
+    xt = np.full((D, ldr), np.nan, dtype=np.float32)
+    count = np.zeros((D, ldr), dtype=np.int32)
+    np.add.at(count, (wd, wr), 1)
+    xt[wd, wr] = [shared[k] for k in zip(wb.tolist(), wby.tolist(), woff.tolist())]
+    assert (count[:, :rows] == 1).all() and (count[:, rows:] == 0).all()
+    np.testing.assert_array_equal(xt[:, :rows], x.T)
+    for (b0, b1, ty, step, lane, off, mem) in ((rb, rby, rty, ri, rtx, roff, r * D + d),
+                                                (wb, wby, wty, wi, wtx, woff, wd * ldr + wr)):
+        offs, mems = _warps(b0, b1, ty, step, lane, off, mem)
+        for o, m in zip(offs, mems):
+            assert len(set((o % 32).tolist())) == len(o)
+            assert (np.diff(m) == 1).all()
+
+
+def dw_f32_tile(t: int, m_tiles: int, n_tiles: int, group: int = DW_GROUP_M):
+    """``dw_f32_tile``: (m-tile, n-tile) of output tile t, groups of
+    ``group`` m-tiles (the last may be narrower), the m-tile fastest in a
+    group."""
+    per_group = group * n_tiles
+    m_first = t // per_group * group
+    gm = min(group, m_tiles - m_first)
+    local = t % per_group
+    return m_first + local % gm, local // gm
+
+
+def dw_walk(m_tiles: int, n_tiles: int, sms: int, group: int = DW_GROUP_M):
+    """Each CTA's tiles in the order it runs them: a grid of min(tiles, sms)
+    CTAs, CTA b taking t = b, b + grid, ..."""
+    tiles = m_tiles * n_tiles
+    grid = min(tiles, sms)
+    return [[dw_f32_tile(t, m_tiles, n_tiles, group) for t in range(b, tiles, grid)] for b in range(grid)]
+
+
+@pytest.mark.parametrize("m_tiles,n_tiles,sms", [(1, 8, 132), (2, 9, 132), (64, 394, 132), (13, 40, 16), (5, 3, 4)],
+                         ids=["tiles<sms", "ragged-group<sms", "q-heads", "ragged-last-group", "tiny-grid"])
+def test_dw_walk_visits_each_tile_once(m_tiles, n_tiles, sms):
+    """Row 6f's persistent walk, in the source's order: every output tile is
+    visited by exactly one CTA, the CTAs' loads differ by at most one tile,
+    and the walk is the one ``fused_logprob_bwd.cu`` runs (its tile map, its
+    loops over t and its grid)."""
+    walk = dw_walk(m_tiles, n_tiles, sms)
+    assert len(walk) == min(m_tiles * n_tiles, sms)
+    seen = [mn for cta in walk for mn in cta]
+    assert sorted(seen) == [(m, n) for m in range(m_tiles) for n in range(n_tiles)]
+    assert max(map(len, walk)) - min(map(len, walk)) <= 1
+    src = _source("fused_logprob_bwd.cu")
+    body = src[src.index("void dw_f32_tile("):]
+    body = body[:body.index("}")]
+    for line in ("const int per_group = DW_GROUP_M * p.n_tiles;",
+                 "const int m_first = t / per_group * DW_GROUP_M;",
+                 "const int gm = min(DW_GROUP_M, p.m_tiles - m_first);",
+                 "const int local = t % per_group;", "mt = m_first + local % gm;", "nt = local / gm;"):
+        assert line in body, line
+    kernel = src[src.index("logprob_dw_f32_kernel(const __grid_constant__"):]
+    kernel = kernel[:kernel.index("\n}\n")]
+    assert kernel.count("for (int t = blockIdx.x; t < tiles; t += gridDim.x) {") == 2
+    assert kernel.count("dw_f32_tile(p, t, mt, nt);") == 2
+    assert "logprob_dw_f32_kernel<<<min(p.m_tiles * p.n_tiles, sms), TG_THREADS, smem, s>>>" in src
+
+
+def test_dw_walk_keeps_a_wave_in_l2():
+    """Why the grouped walk (the reckoning in ``dw_f32_tile``'s comment): at
+    the Q heads' D = 8192, V = 50400, rows = 4092 on 132 SMs, the median wave
+    (132 consecutive t) touches 23 distinct 128-wide panels of xᵀ and ds,
+    each 128 x 4092 f32 (2.1 MB): under the 50 MB L2, and ~9.7 GB over the
+    call's waves. Row 6's order (the m-tile fastest over all 64) touches 67:
+    more than the L2 holds, and ~2.8x the traffic."""
+    m_tiles, n_tiles, sms = 8192 // TBM, -(-50400 // TBN), 132
+    panel = TBM * 4092 * 4
+
+    def panels(group):
+        out = []
+        for w0 in range(0, m_tiles * n_tiles, sms):
+            mn = [dw_f32_tile(t, m_tiles, n_tiles, group) for t in range(w0, min(w0 + sms, m_tiles * n_tiles))]
+            out.append(len({m for m, _ in mn}) + len({n for _, n in mn}))
+        return np.asarray(out)
+
+    grouped, m_fastest = panels(DW_GROUP_M), panels(m_tiles)
+    assert np.median(grouped) * panel < 50e6 < np.median(m_fastest) * panel, (np.median(grouped), np.median(m_fastest))
+    assert 2.5 * grouped.sum() < m_fastest.sum(), (grouped.sum(), m_fastest.sum())
+
+
+def dw_stores(mt: int, nt: int, D: int, V: int, tied: bool):
+    """The epilogue's stores of output tile (mt, nt) of C = xᵀ·ds: for each
+    consumer thread (cw, warp, lane), h and j, accumulator acc[4 j + 2 h + e]
+    is C[d][v], d = 128 mt + 64 cw + 16 warp + g + 8 h, v = 128 nt + 8 j +
+    2 t4 + e; stored to dW[d][v] untied (a float2 pair where V is even), to
+    dW[v][d] tied; nothing past D or V. Returns (tile row, tile column, flat
+    offset into dW, stored as part of a float2 pair)."""
+    cw, warp, lane, h, j, e = np.meshgrid(np.arange(2), np.arange(4), np.arange(32), np.arange(2),
+                                          np.arange(TBN // 8), np.arange(2), indexing="ij")
+    g, t4 = lane >> 2, lane & 3
+    d = mt * TBM + cw * 64 + warp * 16 + g + 8 * h
+    v = nt * TBN + 8 * j + 2 * t4 + e
+    ok = (d < D) & (v < V)
+    off = v * D + d if tied else d * V + v
+    pair = np.zeros_like(ok) if tied else (V % 2 == 0) & (nt * TBN + 8 * j + 2 * t4 + 1 < V)
+    return (d - mt * TBM)[ok], (v - nt * TBN)[ok], off[ok], pair[ok]
+
+
+@pytest.mark.parametrize("tied", [False, True], ids=["untied", "tied"])
+@pytest.mark.parametrize("D,V", [(256, 1000), (384, 1027)])
+def test_dw_stores_cover_the_output_once(D, V, tied):
+    """The dW epilogue over every tile: each element of dW ([D, V] untied,
+    [V, D] tied: C stored transposed) is written once with C's element at
+    its place, nothing past the edges; a float2 pair starts on an 8-byte
+    boundary."""
+    C = np.random.default_rng(D + V).normal(size=(D, V)).astype(np.float32)
+    dw = np.zeros(D * V, dtype=np.float32)
+    count = np.zeros(D * V, dtype=np.int32)
+    for mt, nt in (mn for cta in dw_walk(-(-D // TBM), -(-V // TBN), sms=4) for mn in cta):
+        r, c, off, pair = dw_stores(mt, nt, D, V, tied)
+        np.add.at(count, off, 1)
+        dw[off] = C[mt * TBM + r, nt * TBN + c]
+        assert (off[pair & (c % 2 == 0)] % 2 == 0).all()
+    assert (count == 1).all()
+    np.testing.assert_array_equal(dw.reshape((V, D) if tied else (D, V)), C.T if tied else C)
 
 
 def test_operand_forms_of_the_sources():
-    """The kernels instantiate the mainloops with the operand forms the
-    model uses: x K-major with W K-major only when tied (forward, ds); ds
-    K-major with W K-major only when untied (dx); on the 3xTF32 mainloop,
-    whose producer loads the same forms; both MN-major on the SIMT one (dW,
-    row 6f). The wrapper sizes the forward and ds grids for the kernels'
-    occupancy."""
+    """The kernels instantiate the 3xTF32 mainloop with the operand forms
+    the model uses: x K-major with W K-major only when tied (forward, ds);
+    ds K-major with W K-major only when untied (dx); for dW, xᵀ K-major from
+    the transposed scratch and ds MN-major (``tg_tile<false>``, the untied
+    forward's call), over TF32 ``wgmma``. The SIMT SGEMM mainloop is gone:
+    no source includes ``sgemm_f32.cuh`` and the file does not exist. Four
+    kernels on the 3xTF32 mainloop, one CTA an SM; the wrapper sizes the
+    forward and ds grids for that occupancy."""
     fwd, bwd = _source("fused_logprob.cu"), _source("fused_logprob_bwd.cu")
     assert "tg_produce<TIED>(ring, &tx, &tw, m0, vt_lo, vt_hi, nk);" in fwd
     assert "tg_tile<TIED>(ring, acc, cw, ct, nk, it);" in fwd
@@ -268,12 +356,22 @@ def test_operand_forms_of_the_sources():
     assert "tg_tile<TIED>(ring, acc, cw, tid, nk, it);" in bwd
     assert "tg_produce<!TIED>(ring, &tds, &tw, m0, dt, dt + 1, nk);" in bwd
     assert "tg_tile<!TIED>(ring, acc, cw, tid, nk, it);" in bwd
-    assert "sgemm_tile<false, false>(sm, a, b, m0, n0, K, acc);" in bwd
-    assert "sgemm_tile<" not in fwd
-    # Three kernels on the 3xTF32 mainloop, one CTA an SM; the dW kernel two.
-    tg = re.findall(r"__launch_bounds__\(TG_THREADS, (\d+)\)", fwd + bwd)
-    assert len(tg) == 3 and set(tg) == {str(flp._F32_CTAS_PER_SM)}
-    assert re.findall(r"__launch_bounds__\(SG_THREADS, (\d+)\)", fwd + bwd) == ["2"]
+    assert "tg_produce_tile<false>(ring, &txt, &tds, mt * TG_BM, nt * TG_BN, p.nk, it);" in bwd
+    assert "tg_tile<false>(ring, acc, cw, ct, p.nk, it);" in bwd
+    # x^T: (reduction = row of x, output row = column of x) in 128-row boxes; ds: (v, row) in 32 x 32 boxes.
+    assert "make_map_2d<4>(&txt, xt, rows, D, ldr, TG_BM)" in bwd
+    assert "make_map_2d<4>(&tds, ds, V, rows, ldv, TG_BK)" in bwd
+    tg = _source("logprob_gemm_tf32.cuh")
+    assert tg.count("wgmma_tf32_rs_n128(") == 3
+    assert "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32" in _source("hopper.cuh")
+    names = os.listdir(cuda_lib._CSRC)
+    assert "sgemm_f32.cuh" not in names
+    for name in names:
+        if name.endswith((".cu", ".cuh")):
+            assert "sgemm" not in _source(name), name
+    tgb = re.findall(r"__launch_bounds__\(TG_THREADS, (\d+)\)", fwd + bwd)
+    assert len(tgb) == 4 and set(tgb) == {str(flp._F32_CTAS_PER_SM)}
+    assert "SG_THREADS" not in fwd + bwd
     assert (flp._F32_BM, flp._F32_BN) == (TBM, TBN)
 
 
@@ -522,17 +620,18 @@ def backward_walk(x, w, b, y, lse, ent, dlp, dlse, dent, tied, sms, chunk):
                 r1, c1 = min(TBM, rows - rt * TBM), min(TBN, D - dt * TBN)
                 dx[c0 + rt * TBM:c0 + rt * TBM + r1, dt * TBN:dt * TBN + c1] = acc[:r1, :c1]
     assert not np.isnan(ds_all).any(), "a ds element of a row tile was never written"
-    a, bm = (ds_all[:N, :V], x) if tied else (x, ds_all[:N, :V])
-    m_valid, n_valid = (V, D) if tied else (D, V)
-    dw = np.zeros((m_valid, n_valid), dtype=np.float32)
-    written = np.zeros((m_valid, n_valid), dtype=np.int32)
-    for mt in range(-(-m_valid // BM)):
-        for nt in range(-(-n_valid // BN)):
-            acc = sgemm_tile(a, bm, False, False, mt * BM, nt * BN, N)
-            r1, c1 = min(BM, m_valid - mt * BM), min(BN, n_valid - nt * BN)
-            dw[mt * BM:mt * BM + r1, nt * BN:nt * BN + c1] = acc[:r1, :c1]
-            written[mt * BM:mt * BM + r1, nt * BN:nt * BN + c1] += 1
+    # dW: C = xᵀ·ds over the rows, A the transposed scratch (exact), B = ds
+    # MN-major; the persistent walk's tiles stored by the epilogue (tied: Cᵀ).
+    xt = np.ascontiguousarray(x.T)
+    dw = np.zeros(D * V, dtype=np.float32)
+    written = np.zeros(D * V, dtype=np.int32)
+    for mt, nt in (mn for cta in dw_walk(-(-D // TBM), -(-V // TBN), sms) for mn in cta):
+        acc = tg_tile(xt, ds_all[:N, :V], False, mt * TBM, nt * TBN, N)
+        r, c, off, _ = dw_stores(mt, nt, D, V, tied)
+        dw[off] = acc[r, c]
+        np.add.at(written, off, 1)
     assert (written == 1).all(), "a dW element written twice or never"
+    dw = dw.reshape((V, D) if tied else (D, V))
     db = None if b is None else dbpart.sum(0)
     return dx, dw, db
 
@@ -578,7 +677,7 @@ def test_f32_walk_matches_pallas_and_plain(N, D, V, sms, tied, bias):
         np.testing.assert_allclose(g, np.asarray(r), **TOL, err_msg=name)
         np.testing.assert_allclose(g, p.numpy(), **TOL, err_msg=name)
     lse, ent = got[1].astype(np.float32), got[2].astype(np.float32)
-    grads = backward_walk(x, w, b, y, lse, ent, *cts, tied, sms, chunk=BM)
+    grads = backward_walk(x, w, b, y, lse, ent, *cts, tied, sms, chunk=TBM)
     pgrads = flp.fused_logprob_bwd_plain(tx, tw, tb, ty, torch.from_numpy(lse), torch.from_numpy(ent),
                                          *(torch.from_numpy(c) for c in cts), tied=tied)
     assert (grads[2] is None) == (not bias)

@@ -644,6 +644,19 @@ def test_fused_logprob_bwd_kernels_match_plain(xdtype, tied, bias, wdtype, N, V)
     to bf16 on both sides before the products, and a sum in another order
     can flip that rounding; dx comes back in bf16. f32 mode: everything in
     f32, 1e-4 of each output's max."""
+    _check_head_bwd(xdtype, tied, bias, wdtype, N, V)
+
+
+@pytest.mark.parametrize("tied", [False, True], ids=["untied", "tied"])
+def test_fused_logprob_bwd_f32_zero_filled_last_chunk(tied):
+    """The f32 mode at N = 97 rows, as the previous test holds it: not a
+    multiple of 32 (nor of 4) and above one promotion group of 64 rows, so
+    dW's reduction over the rows ends in a chunk that TMA fills with zeros
+    past row 97, and the xᵀ scratch's rows are padded to 100."""
+    _check_head_bwd(torch.float32, tied, True, torch.float32, 97, 1000)
+
+
+def _check_head_bwd(xdtype, tied, bias, wdtype, N, V):
     dev = _cuda()
     from trlx_tpu_torch.ops.fused_logprob import BWD_CHUNK_ROWS, fused_logprob_bwd, fused_logprob_bwd_plain
     from trlx_tpu_torch.ops.fused_logprob import fused_logprob_fwd

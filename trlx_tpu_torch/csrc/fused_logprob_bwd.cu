@@ -47,16 +47,16 @@
 // The f32-activation mode (x, W f32: ILQL's Q heads, N = 4092, D = 8192,
 // V = 50400) runs the same three steps, the same epilogues and the same db
 // merge with ds kept in f32 (the TPU kernels round ds to x's dtype, here
-// f32) and dx, dW and db in f32: ds and dx on the 3xTF32 mainloop of
-// logprob_gemm_tf32.cuh (f32-accurate products as three TF32 passes, 128 x
-// 128 tiles), dW on the SIMT mainloop of sgemm_f32.cuh; 4 x 2NDV = 13.5
-// TFLOP a call at that shape, bound by operations (ds + dx: 6.75 TFLOP,
-// three TF32 passes of it at 495 TFLOP/s take 41 ms).
+// f32) and dx, dW and db in f32, all three products on the 3xTF32 mainloop
+// of logprob_gemm_tf32.cuh (f32-accurate products as three TF32 passes,
+// 128 x 128 tiles): 3 x 2NDV = 10.1 TFLOP a call at that shape (s again,
+// dx, dW), bound by operations (three TF32 passes of it at 495 TFLOP/s take
+// 61 ms). The dW kernel first transposes x into an f32 scratch, so both of
+// its operands reach the mainloop in forms it reads (see below).
 
 #include "logprob_gemm.cuh"
 #include "logprob_gemm_tf32.cuh"
 #include "logprob_math.cuh"
-#include "sgemm_f32.cuh"
 
 namespace {
 
@@ -282,9 +282,8 @@ cudaError_t launch_ds_dx(const CUtensorMap& tx, const CUtensorMap& tw_s, const C
 }
 
 // ---------------------------------------------------------------------------
-// The f32-activation mode: ds and dx on the 3xTF32 mainloop
-// (logprob_gemm_tf32.cuh, 128 x 128 tiles), dW on the SIMT one
-// (sgemm_f32.cuh)
+// The f32-activation mode: ds, dx and dW on the 3xTF32 mainloop
+// (logprob_gemm_tf32.cuh, 128 x 128 tiles)
 // ---------------------------------------------------------------------------
 
 // Past the f32 ring and split buffers: two [8 warps][128] column-sum buffers.
@@ -394,26 +393,137 @@ cudaError_t launch_ds_dx_f32(const CUtensorMap& tx, const CUtensorMap& tw_s, con
   return cudaGetLastError();
 }
 
-// 3. dW = A^T . B over the rows, f32 (untied: x^T . ds -> [D, V]; tied:
-// ds^T . x -> [V, D]), both operands MN-major, one CTA per 128 x 128 output
-// tile, each element stored once. blockIdx.x walks the output rows, so the
-// CTAs that run together share their B panel.
-__global__ void __launch_bounds__(SG_THREADS, 2)
-    logprob_dw_f32_kernel(const SgOperand a, const SgOperand b, float* out, int m_valid, int n_valid, int K) {
-  __shared__ __align__(16) SgSmem sm;
-  const int m0 = blockIdx.x * SG_BM, n0 = blockIdx.y * SG_BN;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float acc[8][8];
-  sgemm_tile<false, false>(sm, a, b, m0, n0, K, acc);
+// 3. dW in f32 as one product for both cases, C = x^T . ds [D, V] over the
+// rows (M over D, N over V, K over the rows): untied dW = C, tied dW = C^T
+// ([V, D]), stored transposed by the epilogue. TF32 wgmma reads its shared
+// operands K-major only and A not transposed, and both x [rows, D] and ds
+// [rows, ldv] keep their output dimension contiguous (MN-major), so:
+// - A = x^T comes from a scratch [D, ldr] (ldr = rows rounded up to 4: TMA
+//   takes 16-byte row strides) that transpose_f32_kernel writes first; its
+//   TMA map ends at `rows` and fills zeros past it, so the pad columns are
+//   never written or read. A's boxes and fragments are then the forward's.
+// - B = ds is MN-major, split and transposed by the consumers (tg_split_b),
+//   as the untied forward takes W [D, V].
+// So this is tg_tile<false>, the untied forward's call, over K = rows.
+
+constexpr int XT_TILE = 32;  // the transpose's square tile
+constexpr int XT_ROWS = 8;   // thread rows of its block (32 x 8 threads)
+// m-tiles of a group of the dW walk (see dw_f32_tile).
+constexpr int DW_GROUP_M = 12;
+
+// xt[d][r] = x[r][d] for r < rows, d < D (x [rows, D] contiguous, xt row
+// stride ldr): block (rb, db) moves the 32 x 32 tile at rows 32 rb, columns
+// 32 db through shared memory; thread (tx, ty) reads x[32 rb + ty + 8 i][32
+// db + tx] (a warp reads 32 consecutive floats) and writes xt[32 db + ty + 8
+// i][32 rb + tx] (likewise), i = 0..3. The 33-float row pitch keeps both
+// sides free of bank conflicts.
+__global__ void __launch_bounds__(XT_TILE * XT_ROWS)
+    transpose_f32_kernel(const float* __restrict__ x, float* __restrict__ xt, int rows, int D, int ldr) {
+  __shared__ float tile[XT_TILE][XT_TILE + 1];
+  const int r0 = blockIdx.x * XT_TILE, d0 = blockIdx.y * XT_TILE;
+  const int tx = threadIdx.x, ty = threadIdx.y;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = m0 + sg_row(ty, i);
-    if (row >= m_valid) continue;
-    float* orow = out + (size_t)row * n_valid;
+  for (int i = 0; i < XT_TILE / XT_ROWS; ++i) {
+    const int j = ty + XT_ROWS * i, r = r0 + j, d = d0 + tx;
+    if (r < rows && d < D) tile[j][tx] = x[(size_t)r * D + d];
+  }
+  __syncthreads();
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = n0 + sg_col(tx, j);
-      if (col < n_valid) orow[col] = acc[i][j];
+  for (int i = 0; i < XT_TILE / XT_ROWS; ++i) {
+    const int j = ty + XT_ROWS * i, d = d0 + j, r = r0 + tx;
+    if (d < D && r < rows) xt[(size_t)d * ldr + r] = tile[tx][j];
+  }
+}
+
+struct DwF32Params {
+  float* out;  // untied [D, V], tied [V, D]
+  int D, V, nk, m_tiles, n_tiles, tied;
+};
+
+// Output tile t of the persistent walk over C's m_tiles x n_tiles tiles:
+// groups of DW_GROUP_M m-tiles (the last group may be narrower), and in a
+// group the m-tile fastest, so the tiles t .. t + 131 that 132 CTAs run
+// together span ~12 m-tiles by ~11 n-tiles.
+// Why (L2 reuse, at D = 8192, V = 50400, rows = 4092: 64 x 394 tiles, 192
+// waves): each tile reads one x^T panel and one ds panel of 128 x 4092 f32,
+// 2.1 MB each, and the CTAs of a wave walk their reductions about together,
+// so the tiles of a wave that share a panel read it from the 50 MB L2 and
+// memory serves about the distinct panels a wave touches. Row 6's order
+// (m-tile fastest over all 64, the ds panel slowest) touches all 64 x^T
+// panels and 3 ds panels a wave: 140 MB, more than the L2 holds, 26.8 GB a
+// call (8.0 ms at 3.35 TB/s). Groups of 12 touch 23 panels in the median
+// wave, 48 MB, 9.7 GB a call (2.9 ms).
+__device__ __forceinline__ void dw_f32_tile(const DwF32Params& p, int t, int& mt, int& nt) {
+  const int per_group = DW_GROUP_M * p.n_tiles;
+  const int m_first = t / per_group * DW_GROUP_M;
+  const int gm = min(DW_GROUP_M, p.m_tiles - m_first);
+  const int local = t % per_group;
+  mt = m_first + local % gm;
+  nt = local / gm;
+}
+
+// A persistent grid of min(tiles, SMs) CTAs, each walking the output tiles
+// t = blockIdx.x, + gridDim.x, ...: the producer issues every tile's chunks
+// into one ring (its `it` runs on across tiles), the consumers finish a tile
+// (tg_tile ends with no wgmma in flight), store it from registers and go on.
+// The split buffers' one-barrier-a-chunk argument (logprob_gemm_tf32.cuh)
+// holds across a tile boundary: both warpgroups take the same chunks in the
+// same order, and the epilogue between two tiles touches no shared memory.
+__global__ void __launch_bounds__(TG_THREADS, 1)
+    logprob_dw_f32_kernel(const __grid_constant__ CUtensorMap txt, const __grid_constant__ CUtensorMap tds,
+                          DwF32Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align_1024(smem_raw);
+  const TgRing ring{sm, smem_u32(sm)};
+  const int tiles = p.m_tiles * p.n_tiles;
+
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      uint32_t it = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        int mt, nt;
+        dw_f32_tile(p, t, mt, nt);
+        tg_produce_tile<false>(ring, &txt, &tds, mt * TG_BM, nt * TG_BN, p.nk, it);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int cw = wg - 1, ct = threadIdx.x - 128;
+  const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const bool pairs = (p.V & 1) == 0;  // untied rows of even length: 8-byte aligned column pairs
+  float acc[TG_NACC];
+  uint32_t it = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    int mt, nt;
+    dw_f32_tile(p, t, mt, nt);
+    tg_tile<false>(ring, acc, cw, ct, p.nk, it);
+    const int d0 = mt * TG_BM + cw * 64 + warp * 16 + g;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int d = d0 + 8 * h;  // C's row: a column of x
+      if (d >= p.D) continue;
+#pragma unroll
+      for (int j = 0; j < TG_BN / 8; ++j) {
+        const int v = nt * TG_BN + 8 * j + 2 * t4;  // C's column: a vocabulary entry
+        const float c0 = acc[4 * j + 2 * h], c1 = acc[4 * j + 2 * h + 1];
+        if (p.tied) {
+          if (v < p.V) p.out[(size_t)v * p.D + d] = c0;
+          if (v + 1 < p.V) p.out[(size_t)(v + 1) * p.D + d] = c1;
+        } else if (pairs && v + 1 < p.V) {
+          store_pair(p.out + (size_t)d * p.V + v, c0, c1);
+        } else {
+          if (v < p.V) p.out[(size_t)d * p.V + v] = c0;
+          if (v + 1 < p.V) p.out[(size_t)d * p.V + v + 1] = c1;
+        }
+      }
     }
   }
 }
@@ -533,18 +643,37 @@ extern "C" int fused_logprob_bwd_ds_dx_f32(const void* x, const void* w, const v
 
 // The f32 mode: dW (f32; [D, V] untied, [V, D] tied) of `rows` rows of x
 // [rows, D] and ds [rows, ldv] (f32, zero past V), each element stored
-// once; with `db` set, also sums the n_tiles column partials into db.
-extern "C" int fused_logprob_bwd_dw_f32(const void* x, const void* ds, void* dw, int rows, int D, int V, int ldv,
-                                        int tied, const void* dbpart, void* db, int n_tiles, void* stream) {
-  if (rows < 1 || ldv % DS_LD != 0 || ldv < V || !aligned16(ds)) return (int)cudaErrorInvalidValue;
-  const SgOperand xo{static_cast<const float*>(x), D, rows, D, D % 4 == 0 && aligned16(x)};
-  const SgOperand dso{static_cast<const float*>(ds), ldv, rows, V, 1};
-  const int m_valid = tied ? V : D, n_valid = tied ? D : V;
-  const dim3 grid((m_valid + SG_BM - 1) / SG_BM, (n_valid + SG_BN - 1) / SG_BN);
+// once: x transposed into the scratch xt [D, ldr] (ldr >= rows, a multiple
+// of 4), then the dW kernel on a persistent grid of min(tiles, sms) CTAs;
+// with `db` set, also sums the n_tiles column partials into db.
+extern "C" int fused_logprob_bwd_dw_f32(const void* x, const void* ds, void* xt, void* dw, int rows, int D, int V,
+                                        int ldv, int ldr, int tied, const void* dbpart, void* db, int n_tiles,
+                                        int sms, void* stream) {
+  if (rows < 1 || D < 1 || V < 1 || ldv % DS_LD != 0 || ldv < V || ldr < rows || ldr % 4 != 0 || sms < 1 ||
+      (D + XT_TILE - 1) / XT_TILE > 65535)
+    return (int)cudaErrorInvalidValue;
+  // A = x^T: (reduction, row) = (r, d), 128-row boxes; B = ds MN-major:
+  // (column, reduction) = (v, r), four 32 x 32 boxes a chunk.
+  CUtensorMap txt, tds;
+  if (!make_map_2d<4>(&txt, xt, rows, D, ldr, TG_BM) || !make_map_2d<4>(&tds, ds, V, rows, ldv, TG_BK))
+    return (int)cudaErrorInvalidValue;
+  DwF32Params p;
+  p.out = static_cast<float*>(dw);
+  p.D = D; p.V = V; p.tied = tied;
+  p.nk = tg_chunks(rows);
+  p.m_tiles = (D + TG_BM - 1) / TG_BM;
+  p.n_tiles = (V + TG_BN - 1) / TG_BN;
+  const int smem = TG_SMEM_BYTES + 1024;  // room to align to 1024
+  cudaError_t err = set_gemm_smem(logprob_dw_f32_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  logprob_dw_f32_kernel<<<grid, SG_THREADS, 0, s>>>(tied ? dso : xo, tied ? xo : dso, static_cast<float*>(dw),
-                                                   m_valid, n_valid, rows);
-  cudaError_t err = cudaGetLastError();
+  const dim3 xt_grid((rows + XT_TILE - 1) / XT_TILE, (D + XT_TILE - 1) / XT_TILE);
+  const float* xp = static_cast<const float*>(x);
+  transpose_f32_kernel<<<xt_grid, dim3(XT_TILE, XT_ROWS), 0, s>>>(xp, static_cast<float*>(xt), rows, D, ldr);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  logprob_dw_f32_kernel<<<min(p.m_tiles * p.n_tiles, sms), TG_THREADS, smem, s>>>(txt, tds, p);
+  err = cudaGetLastError();
   if (err != cudaSuccess || db == nullptr) return (int)err;
   logprob_db_kernel<<<(V + 255) / 256, 256, 0, s>>>(static_cast<const float*>(dbpart), static_cast<float*>(db),
                                                     n_tiles, V);

@@ -1,8 +1,8 @@
 // The f32 GEMM mainloop of the fused-logprob kernels' f32-activation mode
-// (rows 4f and 5f: the forward, ds and dx products of ILQL's Q heads) for
-// Hopper (sm_90a): f32-accurate products of f32 operands as three TF32
-// tensor-core passes (3xTF32), fed by TMA, computing 128 x 128 f32 tiles of
-// A . B and handing each finished tile to the caller's epilogue.
+// (rows 4f, 5f and 6f: the forward, ds, dx and dW products of ILQL's Q
+// heads) for Hopper (sm_90a): f32-accurate products of f32 operands as three
+// TF32 tensor-core passes (3xTF32), fed by TMA, computing 128 x 128 f32
+// tiles of A . B and handing each finished tile to the caller's epilogue.
 //
 // The split: each f32 operand value v is cut into hi = rna_tf32(v) and
 // lo = rna_tf32(v - hi) (v - hi is exact in f32), and

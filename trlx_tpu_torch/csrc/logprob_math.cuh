@@ -1,12 +1,11 @@
 // The per-score arithmetic of the fused-logprob kernels, shared by the bf16
-// kernels on the wgmma mainloop (logprob_gemm.cuh), the f32 forward and ds
-// kernels on the 3xTF32 mainloop (logprob_gemm_tf32.cuh) and the f32 dW
-// kernel on the SIMT mainloop (sgemm_f32.cuh), so all compute the same
-// function (trlx_tpu/ops/fused_logprob.py: _tile_scores, the online update
-// of _fwd_kernel, _ds_tile); and the tile epilogues of the wgmma kernels,
-// which share one accumulator layout: acc[4 j + e] is row g (+ 8 for
-// e >= 2) of the warp's 16, column 8 j + 2 t4 + (e & 1) of the tile, for
-// lane = 4 g + t4.
+// kernels on the wgmma mainloop (logprob_gemm.cuh) and the f32 forward and
+// ds kernels on the 3xTF32 mainloop (logprob_gemm_tf32.cuh), so all
+// compute the same function (trlx_tpu/ops/fused_logprob.py: _tile_scores,
+// the online update of _fwd_kernel, _ds_tile); and the tile epilogues of
+// the wgmma kernels, which share one accumulator layout: acc[4 j + e] is row
+// g (+ 8 for e >= 2) of the warp's 16, column 8 j + 2 t4 + (e & 1) of the
+// tile, for lane = 4 g + t4.
 #pragma once
 
 #include "common.cuh"

@@ -97,11 +97,11 @@ _SIGNATURES = {
                                     _P, _P, _P,  # ds scratch, db partials, dx (chunk)
                                     _I, _I, _I, _I, _I,  # rows D V ldv C
                                     _I, _I, _I, _P],  # ldw, tied, splits, stream
-    "fused_logprob_bwd_dw_f32": [_P, _P, _P,  # x ds dw
-                                 _I, _I, _I, _I,  # rows D V ldv
+    "fused_logprob_bwd_dw_f32": [_P, _P, _P, _P,  # x ds, x^T scratch, dw
+                                 _I, _I, _I, _I, _I,  # rows D V ldv ldr (the scratch's row stride)
                                  _I,  # tied
                                  _P, _P, _I,  # db partials, db (or null), row tiles
-                                 _P],  # stream
+                                 _I, _P],  # SMs (the persistent grid), stream
 }
 
 

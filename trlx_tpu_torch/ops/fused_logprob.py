@@ -9,8 +9,8 @@ VJP). A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises. The kernels compute in the activation's dtype, as the TPU kernels
 do: bf16 activations go to the bf16 tensor-core kernels (the weight read in
 bf16), f32 activations (ILQL's Q heads) to the f32 kernels (f32-accurate
-products as three TF32 tensor-core passes, and an f32 SIMT dW), which read
-the f32 weight through TMA; any other dtype raises.
+products as three TF32 tensor-core passes), which read the f32 weight
+through TMA; any other dtype raises.
 """
 
 import math
@@ -268,13 +268,18 @@ def fused_logprob_bwd_dx_f32(x2, w, b, y, rows_f32, ds, dbpart, dx, *, rows: int
 def fused_logprob_bwd_dw_f32(x2, ds, dw, *, rows: int, V: int, ldv: int, tied: bool, dbpart=None, db=None):
     """The f32 mode's dW kernel over ``rows`` rows of x2 and of the f32 ds
     [rows, ldv]: f32 dW, each element stored once; with ``db`` also the db
-    merge of all row tiles."""
+    merge of all row tiles. x2's rows are first transposed into a scratch
+    [D, rows rounded up to 4] (what the kernel's A operand reads: 134 MB at
+    the Q heads' N = 4092, D = 8192), made here and freed after the call."""
+    if x2.dtype != torch.float32 or ds.dtype != torch.float32 or not x2.is_contiguous():
+        raise TypeError("fused_logprob_bwd_dw_f32 takes a contiguous f32 x2 and an f32 ds")
     D = x2.shape[1]
     n_tiles = 0 if dbpart is None else dbpart.shape[0]
+    xt = torch.empty((D, -(-rows // 4) * 4), dtype=torch.float32, device=x2.device)
     err = cuda_lib.lib().fused_logprob_bwd_dw_f32(
-        x2.data_ptr(), ds.data_ptr(), dw.data_ptr(), rows, D, V, ldv, int(bool(tied)),
-        None if dbpart is None else dbpart.data_ptr(), None if db is None else db.data_ptr(), n_tiles,
-        cuda_lib.stream_ptr(x2.device),
+        x2.data_ptr(), ds.data_ptr(), xt.data_ptr(), dw.data_ptr(), rows, D, V, ldv, xt.stride(0),
+        int(bool(tied)), None if dbpart is None else dbpart.data_ptr(), None if db is None else db.data_ptr(),
+        n_tiles, _sm_count(x2.device), cuda_lib.stream_ptr(x2.device),
     )
     cuda_lib.check(err, "fused_logprob_bwd_dw_f32")
     fused_logprob_bwd_dw_f32.launches += 1
