@@ -31,6 +31,15 @@ prefix, a dead slot on the trash block and a fully masked row), then drives
    kernel-route-versus-plain-route gradient check at 2 layers. The Q heads
    run the f32 mode of the fused head (rows 4-6 on f32 activations, held
    against their plain versions at N = 4092, D = 8192, V = 50400);
+7. checkpoints: the end of every ``learn()`` saves (``[ckpt]`` lines: bytes,
+   device-to-host, write, crc, manifest and load seconds, GB/s, beside the
+   card), verified against its manifest and deleted when its path is done;
+   ``[resume]``: PPO at full depth resumed from the training path's
+   ``state_16`` into a fresh trainer (the loaded state bit-equal to the
+   saver's, 8 more steps with their launches), ILQL at 2 layers (2 steps,
+   save, resume, 2 steps); and a load into a trainer whose decode graph is
+   captured, whose greedy tokens must equal those of a trainer that loaded
+   first (4 layers, after an async save);
 
 and checks that each path went through every kernel it runs, exactly as
 often as its config says.
@@ -917,13 +926,76 @@ def group_fingerprints(trainer, n_layer: int):
     return fps
 
 
+def state_fingerprints(trainer, n_layer: int):
+    """The parameter groups' and extras' fingerprints, the optimizer's
+    moments', and the train state's scalars: what a checkpoint holds."""
+    fps = group_fingerprints(trainer, n_layer)
+    fps.update(mu=fingerprint(trainer.optimizer.mu), nu=fingerprint(trainer.optimizer.nu),
+               count=trainer.optimizer.count, step=trainer.step, bad_steps=trainer.bad_steps,
+               host=trainer.host_state_dict())
+    return fps
+
+
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def log_ckpt(path: str, trainer):
+    """One ``[ckpt]`` line per save and load the trainer made: bytes on
+    disk, the device-to-host copy, write (the crc overlapped, and what the
+    writes waited for it), manifest and finalize seconds, whether the save was async, the load's verify, read
+    and in-place copy seconds, and GB/s over the disk part; beside the
+    card's name and power limit. Returns the records."""
+    card = card_line()
+    for rec in trainer.checkpoint_log:
+        rec = dict(rec, gb=rec["bytes"] / 1e9)
+        if rec["op"] == "save":
+            rec["write_gb_per_s"] = rec["bytes"] / 1e9 / rec["write_s"]
+            rec["host_gb"] = rec["host_bytes"] / 1e9
+        else:
+            rec["verify_gb_per_s"] = rec["bytes"] / 1e9 / rec["verify_s"]
+            rec["read_copy_gb_per_s"] = rec["bytes"] / 1e9 / (rec["read_s"] + rec["copy_s"])
+        log(f"[ckpt] {path} {rec['op']} {rec['name']}: {json.dumps(rec)} on {card}")
+    return list(trainer.checkpoint_log)
+
+
+def state_bytes(trainer) -> int:
+    """Bytes of the tensors a checkpoint holds: every parameter, the
+    extras and both moments."""
+    ts = [*trainer.model.parameters(), *trainer.extras.values(), *trainer.optimizer.mu, *trainer.optimizer.nu]
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def check_end_save(path: str, trainer, run_dir: str):
+    """The end of learn() saved ``state_<step>``: ``latest.txt`` names it,
+    its manifest verifies, and its host copy held every byte of the state.
+    Logs the trainer's ``[ckpt]`` lines; returns them."""
+    from trlx_tpu_torch.resilience import checkpoint as ckpt_util
+
+    name = f"state_{trainer.step}"
+    saves = [r for r in trainer.checkpoint_log if r["op"] == "save"]
+    if not saves or saves[-1]["name"] != name or ckpt_util.latest_pointer(run_dir) != name:
+        raise AssertionError(f"{path}: the last save is {saves[-1:]}, latest.txt {ckpt_util.latest_pointer(run_dir)}, "
+                             f"expected {name}")
+    if saves[-1]["host_bytes"] != state_bytes(trainer):
+        raise AssertionError(f"{path}: the save copied {saves[-1]['host_bytes']} bytes of a "
+                             f"{state_bytes(trainer)}-byte state")
+    ok, reason = ckpt_util.verify_checkpoint(run_dir, name)
+    if not ok:
+        raise AssertionError(f"{path}: {name} does not verify: {reason}")
+    return log_ckpt(path, trainer)
+
+
 def make_timed_trainer(kernels, n_layer: int, on_engine=None):
     """A PPOTrainer, registered under its own name and picked by the
     config's ``model_type``, that records per train step its device time
     (CUDA events), its kernel launches and its stats; parameter fingerprints
-    at the start, after step 2 and at the end; the launches so far when
-    evaluate() starts, and each evaluate()'s stats. ``on_engine(engine)``
-    runs once, when the rollout engine is built."""
+    at the start (after a resume: the loaded state, moments and scalars
+    too), after step 2 and at the end; the launches so far when evaluate()
+    starts, and each evaluate()'s stats. ``on_engine(engine)`` runs once,
+    when the rollout engine is built."""
     from trlx_tpu_torch.trainer import register_model
     from trlx_tpu_torch.trainer.ppo import PPOTrainer
 
@@ -933,7 +1005,7 @@ def make_timed_trainer(kernels, n_layer: int, on_engine=None):
             super().__init__(config, **kwargs)
             self.step_log, self.eval_log = [], []
             self.launches_before_eval = None
-            self.fp = {"start": group_fingerprints(self, n_layer)}
+            self.fp = {"start": state_fingerprints(self, n_layer)}
 
         def rollout_engine(self):
             fresh = self._rollout_engine is None
@@ -1021,7 +1093,7 @@ def train_path(kernels):
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in kernels.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    trainer.fp["end"] = group_fingerprints(trainer, n_layer)
+    trainer.fp["end"] = state_fingerprints(trainer, n_layer)
 
     steps = config.train.total_steps
     R = MAX_LEN - PROMPT_LEN
@@ -1084,8 +1156,107 @@ def train_path(kernels):
         "launches": launches,
     }
     log(f"[train] trlx_tpu_torch.train at GPT-J-6B ({n_layer} layers), {steps} steps: {json.dumps(out)}")
+    # The end save stays on disk for the resume phase, with the state it holds.
+    out["ckpt"] = check_end_save("train_bf16", trainer, run_dir)
+    out["saved_state"] = fp["end"]
     del trainer
     free()
+    return out, launches
+
+
+RESUME_STEPS = 24  # the resumed PPO run: one more rollout phase of 8 steps after the saved 16
+
+
+def resume_path(kernels, saved):
+    """``trlx_tpu_torch.train(reward_fn=...)`` at GPT-J-6B full width and
+    depth with ``train.resume_from_checkpoint``, from the training path's
+    end checkpoint (``state_16``) into a fresh trainer: the loaded state
+    must be bit-equal to the saving trainer's at its save (parameter groups,
+    extras, moments, the applied-update count, step, guard counts, KL
+    coefficient); then one rollout phase from the restored policy and 8
+    steps to ``RESUME_STEPS``, the first at schedule(restored count), each
+    launching what a train step must, then the end save (``state_24``) and
+    evaluate(). ``state_16`` is deleted once loaded: the disk holds one
+    full-depth checkpoint at a time."""
+    import trlx_tpu_torch
+    from trlx_tpu_torch.resilience import checkpoint as ckpt_util
+    from trlx_tpu_torch.trainer import register_model
+
+    n_layer, k = GPTJ_6B_ARCH["n_layer"], 2
+    run_dir = os.path.join(RUN_DIR, "train")
+
+    @register_model("SmokeResumedPPOTrainer")
+    class SmokeResumedPPOTrainer(make_timed_trainer(kernels, n_layer)):
+        def __init__(self, config, **kwargs):
+            super().__init__(config, **kwargs)
+            shutil.rmtree(os.path.join(run_dir, f"state_{saved['step']}"))
+
+    config = train_config(n_layer, SmokeResumedPPOTrainer.__name__, run_dir)
+    config.train.total_steps, config.train.epochs = RESUME_STEPS, 3
+    config.train.resume_from_checkpoint = True
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    trainer = trlx_tpu_torch.train(reward_fn=reward_fn, prompts=seeded_prompts(N_ROLLOUTS, 0),
+                                   eval_prompts=seeded_prompts(CHUNK, 1), config=config)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    loaded = trainer.fp["start"]
+    diff = {key: (loaded.get(key), v) for key, v in saved.items() if loaded.get(key) != v}
+    log(f"[resume] loaded state vs the saving trainer's: {len(saved) - len(diff)} of {len(saved)} entries equal "
+        f"(step {loaded['step']}, count {loaded['count']}, host {json.dumps(loaded['host'])})")
+    if not trainer._resumed or diff:
+        raise AssertionError(f"resumed {trainer._resumed}; loaded state differs from the saved one: {diff}")
+
+    steps = RESUME_STEPS - saved["step"]
+    R = MAX_LEN - PROMPT_LEN
+    chunks = N_ROLLOUTS // CHUNK  # train()'s make_experience; no epoch ends before RESUME_STEPS
+    per_step = train_step_launches(kernels, n_layer)
+    expected = dict.fromkeys(kernels, 0)
+    expected.update({
+        "flash_attention_fwd": chunks * (n_layer + k) + steps * 2 * n_layer + n_layer,
+        "decode_attention": (chunks + 1) * n_layer * R,
+        "fused_logprob_fwd": chunks + steps,
+        "flash_attention_bwd_dq": steps * n_layer, "flash_attention_bwd_dkv": steps * n_layer,
+        "fused_logprob_bwd_dx": steps * per_step["fused_logprob_bwd_dx"], "fused_logprob_bwd_dw": steps,
+    })
+    log(f"[resume] launches {launches} expected {expected}")
+    if launches != expected:
+        raise AssertionError(f"resumed run's kernel launches {launches} != {expected}")
+    log_ = trainer.step_log
+    if (len(log_), trainer.iter_count, trainer.step, trainer.optimizer.count) != (steps, RESUME_STEPS,
+                                                                                  RESUME_STEPS, RESUME_STEPS):
+        raise AssertionError(f"{len(log_)} steps, iter_count {trainer.iter_count}, step {trainer.step}, count "
+                             f"{trainer.optimizer.count}; expected {steps} steps to {RESUME_STEPS}")
+    for i, rec in enumerate(log_):
+        bad = [key for key, v in rec.items() if key != "launches" and not np.isfinite(v)]
+        if rec["launches"] != per_step or bad or rec["resilience/nonfinite"] != 0.0:
+            raise AssertionError(f"resumed step {saved['step'] + i + 1}: launches {rec['launches']}, non-finite "
+                                 f"{bad}, guard {rec['resilience/nonfinite']}")
+    lr = float(np.float32(trainer.schedule(saved["count"])))
+    if log_[0]["learning_rate"] != lr or not abs(log_[0]["mean_ratio"] - 1.0) <= 0.05:
+        raise AssertionError(f"first resumed step: learning_rate {log_[0]['learning_rate']} (schedule(count) = {lr}), "
+                             f"mean_ratio {log_[0]['mean_ratio']}")
+    if ckpt_util.list_checkpoints(run_dir) != [f"state_{RESUME_STEPS}"]:
+        raise AssertionError(f"checkpoints after the resumed run: {ckpt_util.list_checkpoints(run_dir)}")
+    dev_s = [r["device_s"] for r in log_]
+    out = {
+        "wall_s": wall,
+        "step_device_s": dev_s,
+        "step_device_s_median": float(np.median(dev_s)),
+        "first_step_learning_rate": log_[0]["learning_rate"],
+        "mean_ratio_per_step": [r["mean_ratio"] for r in log_],
+        "kl_coef_start": loaded["host"]["kl_coef"],
+        "kl_coef_end": float(trainer.kl_ctl.value),
+        "eval": dict(trainer.eval_log[0]),
+        "launches": launches,
+    }
+    log(f"[resume] PPO at GPT-J-6B ({n_layer} layers) from state_{saved['step']} to {RESUME_STEPS}: {json.dumps(out)}")
+    out["ckpt"] = check_end_save("resume_ppo", trainer, run_dir)
+    del trainer
+    free()
+    shutil.rmtree(run_dir)
     return out, launches
 
 
@@ -1446,9 +1617,11 @@ def engine_train_path(kernels):
     before_eval = trainer.launches_before_eval
     if any(before_eval[n] for n in ("decode_attention", "decode_attention_int8", "paged_decode_attention")):
         raise AssertionError(f"rows 7-9 launched before evaluate(): {before_eval}")
+    out["ckpt"] = check_end_save("engine_train", trainer, run_dir)
 
     del trainer, engine, eng
     free()
+    shutil.rmtree(run_dir)
     return out, launches
 
 
@@ -1699,9 +1872,9 @@ def ilql_step_launches(kernels, n_layer: int):
 
 def ilql_train_path(kernels):
     """``trlx_tpu_torch.train(dataset=...)`` at GPT-J-6B full width and
-    depth: 16 seeded token-array samples of 1024 tokens with seeded rewards,
-    batch 4, one epoch of 4 steps with a Polyak sync after each, then
-    ``evaluate()`` of 4 prompts of 768 tokens, 256 new tokens (eos off)
+    depth: 16 seeded token-array samples of 1024
+    tokens with seeded rewards, batch 4, one epoch of 4 steps with a
+    Polyak sync after each, then ``evaluate()`` of 4 prompts of 768 tokens, 256 new tokens (eos off)
     steered by the target heads on the chunked sampler's graph. Returns its
     numbers and the launches of the whole run."""
     import trlx_tpu_torch
@@ -1778,9 +1951,93 @@ def ilql_train_path(kernels):
     log(f"[ilql] step device time {out['step_device_s_median_unprofiled']:.4f} s (median of steps 1-"
         f"{ILQL_STEPS - 1}), peak {peak_gb:.2f} GB, Q-head f32 kernels {prof['q_head_f32_kernel_ms']:.1f} ms "
         f"= {prof['q_head_share_of_step']:.3f} of the profiled step ({prof['device_s']:.4f} s)")
+    out["ckpt"] = check_end_save("ilql_train", trainer, run_dir)
     del trainer
     free()
+    shutil.rmtree(run_dir)
     return out, launches
+
+
+def ilql_state_fingerprints(trainer):
+    """ILQL's checkpointed state: the parameter groups' fingerprints (each
+    Q head apart), the target heads', the moments', and the scalars."""
+    groups = ilql_groups(trainer.model)
+    by = {}
+    for name, p in trainer.model.named_parameters():
+        by.setdefault(groups[name], []).append(p)
+    fps = {g: fingerprint(ts) for g, ts in by.items()}
+    fps.update(target=fingerprint(trainer.extras.values()), mu=fingerprint(trainer.optimizer.mu),
+               nu=fingerprint(trainer.optimizer.nu), count=trainer.optimizer.count, step=trainer.step,
+               bad_steps=trainer.bad_steps, host=trainer.host_state_dict())
+    return fps
+
+
+ILQL_RESUME_LAYERS = 2  # the ILQL gradient check's depth, at GPT-J-6B width
+
+
+def ilql_resume_path(kernels):
+    """ILQL through ``train(dataset=...)`` at GPT-J-6B width and
+    ``ILQL_RESUME_LAYERS`` layers (Q heads N = 4092, D = 8192, V = 50400):
+    2 steps and the end save; then a fresh trainer with
+    ``train.resume_from_checkpoint`` whose loaded state, target heads
+    included, must be bit-equal to the saver's, and 2 more steps, each
+    launching what an ILQL step must (rows 4f-6f among them)."""
+    import trlx_tpu_torch
+    from trlx_tpu_torch.trainer import register_model
+    from trlx_tpu_torch.trainer.ilql import ILQLTrainer
+
+    n_layer = ILQL_RESUME_LAYERS
+    run_dir = os.path.join(RUN_DIR, "ilql_resume")
+
+    @register_model("SmokeResumedILQLTrainer")
+    class SmokeResumedILQLTrainer(ILQLTrainer):
+        def __init__(self, config, **kwargs):
+            super().__init__(config, **kwargs)
+            self.loaded = ilql_state_fingerprints(self)
+            self.step_launches = []
+            shutil.rmtree(os.path.join(run_dir, f"state_{ILQL_STEPS // 2}"))  # one checkpoint on disk at a time
+
+        def train_step(self, batch):
+            before = {n: f.launches for n, f in kernels.items()}
+            stats = super().train_step(batch)
+            torch.cuda.synchronize()
+            self.step_launches.append({n: f.launches - before[n] for n, f in kernels.items()})
+            return stats
+
+    samples, rewards = ilql_dataset(ILQL_SAMPLES, seed=7)
+    rng = np.random.default_rng(12)
+    eval_prompts = [rng.integers(0, GPTJ_6B_ARCH["vocab_size"], size=PROMPT_LEN).tolist() for _ in range(ILQL_BATCH)]
+    config = ilql_config(n_layer, "ilql", run_dir)
+    config.train.total_steps = ILQL_STEPS // 2
+    t0 = time.perf_counter()
+    first = trlx_tpu_torch.train(dataset=(samples, rewards), eval_prompts=eval_prompts, config=config)
+    saved = ilql_state_fingerprints(first)
+    ckpt = check_end_save("ilql_resume_first", first, run_dir)
+    del first
+    free()
+    config = ilql_config(n_layer, SmokeResumedILQLTrainer.__name__, run_dir)
+    config.train.resume_from_checkpoint = True
+    resumed = trlx_tpu_torch.train(dataset=(samples, rewards), eval_prompts=eval_prompts, config=config)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    diff = {key: (resumed.loaded.get(key), v) for key, v in saved.items() if resumed.loaded.get(key) != v}
+    log(f"[resume] ILQL loaded state vs the saver's: {len(saved) - len(diff)} of {len(saved)} entries equal "
+        f"(step {resumed.loaded['step']}, count {resumed.loaded['count']}, target heads {resumed.loaded['target']})")
+    if not resumed._resumed or diff:
+        raise AssertionError(f"ILQL resumed {resumed._resumed}; loaded state differs from the saved one: {diff}")
+    per_step = ilql_step_launches(kernels, n_layer)
+    if (resumed.iter_count, resumed.step) != (ILQL_STEPS, ILQL_STEPS) or resumed.step_launches != [per_step] * (
+            ILQL_STEPS - saved["step"]):
+        raise AssertionError(f"ILQL resumed run: iter_count {resumed.iter_count}, step {resumed.step}, per-step "
+                             f"launches {resumed.step_launches}, expected {per_step} each")
+    out = {"wall_s": wall, "resumed_step_launches": resumed.step_launches[0], "ckpt_first": ckpt}
+    out["ckpt"] = check_end_save("ilql_resume", resumed, run_dir)
+    log(f"[resume] ILQL at GPT-J-6B width ({n_layer} layers): steps {saved['step'] + 1}-{ILQL_STEPS} after the "
+        f"load, each launching {per_step}; {wall:.1f} s")
+    del resumed
+    free()
+    shutil.rmtree(run_dir)
+    return out
 
 
 GRAPH_LAYERS = 4  # depth of the graph-versus-eager phase, at GPT-J-6B width
@@ -2068,6 +2325,69 @@ def graph_engine(kernels):
     return out
 
 
+def graph_after_load():
+    """A load into a trainer whose decode graph is captured, at GPT-J-6B
+    width and ``GRAPH_LAYERS`` layers: a source trainer takes an optimizer
+    step and saves asynchronously, then steps again before the save is
+    finalized (the checkpoint must hold the state at save time); trainer A
+    rolls out once (its chunked sampler captures the decode graph), then
+    loads the checkpoint; trainer B loads it before capturing anything.
+    A's loaded state must be bit-equal to the source's at its save, and A's
+    and B's greedy tokens bit-equal (and changed from A's before the
+    load)."""
+    from trlx_tpu_torch.pipeline.prompt_pipeline import PromptPipeline
+    from trlx_tpu_torch.trainer.ppo import PPOTrainer
+
+    def trainer(run: str, seed: int):
+        config = smoke_config(n_layer=GRAPH_LAYERS, run=run, greedy=True)
+        config.train.seed = seed
+        return PPOTrainer(config)
+
+    def adam_step(t, seed: int):
+        gen = torch.Generator(device=t.device).manual_seed(seed)
+        t.optimizer.step(t.trainable, [torch.randn(p.shape, generator=gen, device=t.device) for p in t.trainable])
+        t.step += 1
+
+    src_dir = os.path.join(RUN_DIR, "graph_load")
+    source = trainer("graph_load", 1001)
+    adam_step(source, 23)
+    want = state_fingerprints(source, GRAPH_LAYERS)
+    source.save(block=False)
+    adam_step(source, 24)  # while the writer runs: must not reach the checkpoint
+    source._finalize_pending_save()
+    ckpt = log_ckpt("graph_load_source", source)
+    del source
+    free()
+
+    a = trainer("graph_a", 1000)
+    pipe = PromptPipeline(seeded_prompts(CHUNK, 9), None, max_prompt_length=a.prompt_length)
+    ids, mask = a.put(pipe.input_ids), a.put(pipe.attention_mask)
+    before = a.rollout_generate(ids, mask)[0]
+    if a._generate_fn.keywords["_keep"]["buffers"]["graph"] is None:
+        raise AssertionError("trainer A's rollout captured no decode graph")
+    a.load(src_dir)
+    loaded = state_fingerprints(a, GRAPH_LAYERS)
+    b = trainer("graph_b", 1002)
+    b.load(src_dir)
+    if loaded != want or state_fingerprints(b, GRAPH_LAYERS) != want:
+        raise AssertionError(f"loaded state differs from the source's at its async save: {loaded} vs {want}")
+    ta, tb = a.rollout_generate(ids, mask)[0], b.rollout_generate(ids, mask)[0]
+    out = {"tokens_bit_equal": bool(torch.equal(ta, tb)),
+           "rows_changed_by_the_load": int((ta != before).any(1).sum()),
+           "ckpt": ckpt + log_ckpt("graph_a", a) + log_ckpt("graph_b", b)}
+    log(f"[graph] after a load, GPT-J-6B width, {GRAPH_LAYERS} layers: {json.dumps(out)}")
+    if not out["tokens_bit_equal"]:
+        raise AssertionError("greedy tokens of the trainer that loaded after capturing its graph differ from a "
+                             "fresh trainer's that loaded first")
+    if not out["rows_changed_by_the_load"]:
+        raise AssertionError("no token changed after the load: the check sees nothing")
+    del a, b
+    free()
+    for run in ("graph_load", "graph_a", "graph_b"):
+        shutil.rmtree(os.path.join(RUN_DIR, run), ignore_errors=True)
+    return out
+
+
 def phase_graph(kernels):
     """Decode replayed as a CUDA graph against eager launches, through the
     chunked sampler and the paged int8 engine."""
@@ -2103,10 +2423,13 @@ def main() -> int:
 
     t_start = time.perf_counter()
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    smi = card_line()
     log(f"[device] {kind} x{count}; torch {torch.__version__} cuda {torch.version.cuda}; {smi}")
     shutil.rmtree(RUN_DIR, ignore_errors=True)
+    os.makedirs(RUN_DIR)
+    disk = shutil.disk_usage(RUN_DIR)
+    log(f"[device] disk under {RUN_DIR}: {disk.free / 1e9:.1f} GB free of {disk.total / 1e9:.1f} GB "
+        f"(the largest checkpoint ~45 GB, ILQL's; each is deleted once read or when its path is done)")
 
     t0 = time.perf_counter()
     cuda_lib.lib()
@@ -2161,10 +2484,16 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_ilql_grad_consistency(kernels)
     log(f"[ilql-grad] done in {time.perf_counter() - t0:.1f}s")
-    run("train_bf16", lambda: train_path(kernels))
+    t0 = time.perf_counter()
+    ilql_resume_path(kernels)
+    free()
+    log(f"[resume] ILQL done in {time.perf_counter() - t0:.1f}s")
+    train_out, _ = run("train_bf16", lambda: train_path(kernels))
+    run("resume_ppo", lambda: resume_path(kernels, train_out["saved_state"]))
     run("engine_train", lambda: engine_train_path(kernels))
     t0 = time.perf_counter()
     phase_graph(kernels)
+    graph_after_load()
     log(f"[graph] done in {time.perf_counter() - t0:.1f}s")
     split = logprob_bwd_rows(logprob_bwd_inputs(LOGPROB_BWD_SEED), iters=10)
     phases["fused_logprob_bwd_dx"]["kernels_only_ms"] = split.pop("fused_logprob_bwd_dx_kernels_only")

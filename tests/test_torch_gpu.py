@@ -1154,3 +1154,88 @@ def test_ilql_step_on_the_card_matches_the_cpu(tmp_path):
         errs[n] = (float((g - c).abs().max()) / (float(c.abs().max()) + 1e-12), cos)
     bad = {n: e for n, e in errs.items() if not (e[0] <= 2e-3 and e[1] >= 1 - 1e-6)}
     assert not bad, bad
+
+
+def _ckpt_trainer(tmp_path, run: str, seed: int):
+    """A bf16 PPO trainer on the card at widths every kernel takes (8 heads
+    of 128, d_model 1024, V = 1024, 2 layers, the top one trained), greedy
+    decoding, checkpointing under ``tmp_path / run``."""
+    from trlx_tpu_torch.data.configs import TRLConfig
+    from trlx_tpu_torch.trainer.ppo import PPOTrainer
+
+    P, R, V = 192, 32, 1024
+    arch = dict(vocab_size=V, n_layer=2, n_head=8, d_model=1024, max_position=512, pos_type="rotary",
+                rotary_dim=32, parallel_residual=True, fused_qkv=False, qkv_bias=False, out_bias=False,
+                tie_word_embeddings=False, extra={"lm_head_bias": True})
+    return PPOTrainer(TRLConfig.from_dict({
+        "model": dict(model_path="", tokenizer_path="", model_type="ppo", num_layers_unfrozen=1, model_arch=arch,
+                      dtype="bfloat16", param_dtype="float32"),
+        "train": dict(total_steps=1, seq_length=P + R, epochs=1, batch_size=8, lr_ramp_steps=0, lr_decay_steps=100,
+                      weight_decay=1e-6, learning_rate_init=1e-2, learning_rate_target=1e-2,
+                      checkpoint_dir=str(tmp_path / run), seed=seed),
+        "method": dict(name="ppoconfig", num_rollouts=8, chunk_size=8,
+                       gen_kwargs=dict(prompt_length=P, max_length=P + R, min_length=P + R, do_sample=False)),
+    }))
+
+
+def _adam_step(trainer, seed):
+    g = torch.Generator(device=trainer.device).manual_seed(seed)
+    trainer.optimizer.step(trainer.trainable, [torch.randn(p.shape, generator=g, device=trainer.device)
+                                               for p in trainer.trainable])
+    trainer.step += 1
+
+
+def _train_state(trainer):
+    opt = trainer.optimizer.state_dict()
+    out = {f"param/{n}": p.detach().clone() for n, p in trainer.model.named_parameters()}
+    out.update({f"extra/{n}": t.clone() for n, t in trainer.extras.items()})
+    out.update({f"{k}/{n}": t.clone() for k in ("mu", "nu") for n, t in opt[k].items()})
+    return out, (opt["count"], trainer.step, trainer.bad_steps, trainer.host_state_dict())
+
+
+def test_checkpoint_round_trip_on_the_card(tmp_path):
+    """An async save of a trainer on the card, then a load into a trainer
+    of another seed: every parameter, extra and moment on the card equals
+    the saver's at its save, bit for bit (a step taken while the writer
+    runs does not reach the checkpoint), copied in place."""
+    dev = _cuda()
+    saver = _ckpt_trainer(tmp_path, "a", 3)
+    _adam_step(saver, 1)
+    want = _train_state(saver)
+    saver.save(block=False)
+    _adam_step(saver, 2)
+    saver._finalize_pending_save()
+    fresh = _ckpt_trainer(tmp_path, "b", 4)
+    live = [t.data_ptr() for t in (*fresh.model.parameters(), *fresh.extras.values(), *fresh.optimizer.mu)]
+    assert fresh.load(str(tmp_path / "a")) == "state_1"
+    got = _train_state(fresh)
+    assert got[1] == want[1] and sorted(got[0]) == sorted(want[0])
+    for k, t in want[0].items():
+        assert got[0][k].device.type == dev.type and torch.equal(got[0][k], t), k
+    assert live == [t.data_ptr() for t in (*fresh.model.parameters(), *fresh.extras.values(), *fresh.optimizer.mu)]
+
+
+def test_decode_graph_after_load_equals_a_fresh_load(tmp_path):
+    """Trainer A captures its decode graph (one rollout), then loads a
+    checkpoint; trainer B loads it before capturing anything: their greedy
+    tokens are bit-equal, and A's changed with the load (the graph reads
+    the loaded weights through the refreshed bf16 copies)."""
+    _cuda()
+    import numpy as np
+
+    source = _ckpt_trainer(tmp_path, "src", 5)
+    _adam_step(source, 7)
+    source.save()
+    del source
+    a = _ckpt_trainer(tmp_path, "a", 3)
+    rng = np.random.default_rng(0)
+    ids = a.put(rng.integers(1, 1024, size=(8, a.prompt_length)).astype(np.int32))
+    mask = torch.ones_like(ids)
+    before = a.rollout_generate(ids, mask)[0]
+    assert a._generate_fn.keywords["_keep"]["buffers"]["graph"] is not None
+    a.load(str(tmp_path / "src"))
+    b = _ckpt_trainer(tmp_path, "b", 4)
+    b.load(str(tmp_path / "src"))
+    ta, tb = a.rollout_generate(ids, mask)[0], b.rollout_generate(ids, mask)[0]
+    assert torch.equal(ta, tb)
+    assert not torch.equal(ta, before)

@@ -116,7 +116,7 @@ def test_clip_adamw_update_with_freeze_mask_matches_optax():
 
     tp = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
     trainable = [tp["a"], tp["b"]]
-    topt, _ = build_optimizer(cfg, trainable)
+    topt, _ = build_optimizer(cfg, trainable, ["a", "b"])
     for step, scale in enumerate((30.0, 0.05, 0.1)):
         grads = {k: (rng.normal(size=s) * scale).astype(np.float32) for k, s in shapes.items()}
         updates, state = opt.update(jax.tree_util.tree_map(jnp.asarray, grads), state, jp)

@@ -172,7 +172,7 @@ def test_guarded_update_skips_nonfinite_steps():
     applies and resets it."""
     rng = np.random.default_rng(5)
     params = [torch.from_numpy(rng.normal(size=s).astype(np.float32)) for s in ((4, 3), (5,))]
-    opt, _ = build_optimizer(_guard_train_cfg(), params)
+    opt, _ = build_optimizer(_guard_train_cfg(), params, ["w", "b"])
     grads = [torch.from_numpy(rng.normal(size=p.shape).astype(np.float32)) for p in params]
     bad_steps, applied = guarded_update(opt, params, grads, torch.tensor(1.0), 0)
     assert (bad_steps, applied, opt.count) == (0, True, 1)
@@ -228,8 +228,8 @@ def _ilql_config(tmp_path):
 # The PPO cases keep their ids; the ILQL trainer refuses the shared knobs
 # from the same list (trainer/base.py ``refuse_unported``).
 _KNOBS = [("method", "pack_train_batch", True), ("train", "watch_interval", 10), ("train", "graftnum", True),
-          ("train", "trace_spans", True), ("train", "resume_from_checkpoint", True)]
-_ILQL_KNOBS = [("train", "resume_from_checkpoint", True), ("train", "keep_checkpoints", 2),
+          ("train", "trace_spans", True), ("train", "fault_plan", "sigterm@2")]
+_ILQL_KNOBS = [("train", "reward_fn_timeout", 5.0), ("train", "heartbeat_interval", 10.0),
                ("train", "watchdog_threshold", 5.0), ("train", "fleet_role", "rollout"),
                ("model", "decode_weight_quant", True), ("train", "graftnum", True)]
 

@@ -1,7 +1,9 @@
 """Trainer layer (the counterpart of ``trlx_tpu.trainer``): the registry of
-trainer classes by name."""
+trainer classes by name and the BaseRL protocol every trainer derives
+from."""
 
-from typing import Dict
+from abc import ABC, abstractmethod
+from typing import Any, Dict, Iterable
 
 _MODELS: Dict[str, type] = {}
 
@@ -34,10 +36,45 @@ def get_model(name: str) -> type:
 get_trainer = get_model
 
 
-def intervals(train_cfg, steps: int) -> Dict[str, bool]:
-    """Which per-step side effects fire at step ``steps`` (checkpointing is
-    not ported, so there is no ``do_checkpoint``)."""
-    return {
-        "do_eval": steps % train_cfg.eval_interval == 0,
-        "do_log": steps % train_cfg.log_interval == 0,
-    }
+class BaseRLTrainer(ABC):
+    """The abstract RL trainer (the JAX package's ``BaseRLTrainer``):
+    experience goes into ``store``; ``act`` rolls out a batch, ``sample``
+    samples continuations, ``learn`` trains on the store, ``save`` and
+    ``load`` checkpoint the whole state. A subclass that leaves one of them
+    out cannot be instantiated."""
+
+    def __init__(self, config):
+        self.store = None
+        self.config = config
+
+    def push_to_store(self, data: Iterable[Any]):
+        self.store.push(data)
+
+    @abstractmethod
+    def act(self, data) -> Any:
+        """Roll out a batch of prompts."""
+
+    @abstractmethod
+    def sample(self, prompts, length: int, n_samples: int) -> Any:
+        """Sample continuations of prompts."""
+
+    @abstractmethod
+    def learn(self):
+        """Train on the stored experience."""
+
+    @abstractmethod
+    def save(self, directory=None):
+        ...
+
+    @abstractmethod
+    def load(self, directory=None):
+        ...
+
+    def intervals(self, steps: int) -> Dict[str, bool]:
+        """Which per-step side effects fire at step ``steps``."""
+        train_cfg = self.config.train
+        return {
+            "do_checkpoint": steps % train_cfg.checkpoint_interval == 0,
+            "do_eval": steps % train_cfg.eval_interval == 0,
+            "do_log": steps % train_cfg.log_interval == 0,
+        }

@@ -1,6 +1,6 @@
 """The trainer base (the counterpart of ``trlx_tpu.trainer.base``): the
-learning-rate schedule, the optimizer, evaluation and the ``learn()`` loop,
-plus what every trainer shares on the rollout side.
+learning-rate schedule, the optimizer, evaluation, checkpointing and the
+``learn()`` loop, plus what every trainer shares on the rollout side.
 
 A trainer owns one device, the model and its parameters, the seeded
 generators, the optimizer state (its step counts and moments), the
@@ -8,13 +8,29 @@ consecutive-skip count of the non-finite guard, and the host hooks
 (``reward_fn``, ``metric_fn``, ``logit_mask``). There is one device and no
 mesh: ``train.mesh`` is read by the JAX package only. Prompts are token ids:
 loading a tokenizer is not ported yet, so ``model.tokenizer_path`` must be
-empty. Checkpointing (save, load, resume) is not ported either; every knob
-whose feature is missing is refused by ``refuse_unported``.
+empty. Every knob whose feature is missing is refused by
+``refuse_unported``.
+
+Checkpoints (``save`` / ``load``) are the port's own format, not the JAX
+package's orbax directory: ``<train.checkpoint_dir>/state_<step>/`` holds
+``torch.save`` files of every named parameter (f32 masters, frozen ones
+included), the frozen extras (PPO's reference branch, ILQL's target Q
+heads), the optimizer's moments by parameter name with its applied-update
+count, and the step with the guard's skip count; beside it sit
+``state_<step>.host.json`` (host state), ``state_<step>.manifest.json``
+(every file's size and crc32) and, written last, ``latest.txt``.
 """
 
 import dataclasses
+import json
 import math
+import os
+import shutil
+import signal
+import sys
+import threading
 import time
+import warnings
 from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
@@ -23,8 +39,11 @@ import torch
 from trlx_tpu_torch.data.configs import TRLConfig
 from trlx_tpu_torch.data.method_configs import PPOConfig
 from trlx_tpu_torch.device import resolve_device
+from trlx_tpu_torch.models.lm import refresh_weight_copies
+from trlx_tpu_torch.resilience import checkpoint as ckpt_util
+from trlx_tpu_torch.resilience.checkpoint import CheckpointError
 from trlx_tpu_torch.resilience.guard import check_bad_steps, guarded_update
-from trlx_tpu_torch.trainer import intervals
+from trlx_tpu_torch.trainer import BaseRLTrainer
 from trlx_tpu_torch.utils.logging import Tracker
 
 
@@ -72,16 +91,55 @@ class ClippedAdamW:
       skipped step does not advance it).
 
     Moments are kept in the parameters' dtype (f32 masters) and updated in
-    place; ``step`` clips the gradients it is given in place."""
+    place; ``step`` clips the gradients it is given in place. ``names``
+    (the parameters' names) key the moments in ``state_dict``; an optimizer
+    built without them steps, but has no state to save or load."""
 
     def __init__(self, params: List[torch.Tensor], schedule: Callable[[int], float], b1: float, b2: float,
-                 weight_decay: float, max_norm: float, eps: float = 1e-8):
+                 weight_decay: float, max_norm: float, eps: float = 1e-8, names: Optional[List[str]] = None):
         self.schedule = schedule
         self.b1, self.b2, self.eps = float(b1), float(b2), float(eps)
         self.weight_decay, self.max_norm = float(weight_decay), float(max_norm)
         self.mu = [torch.zeros_like(p) for p in params]
         self.nu = [torch.zeros_like(p) for p in params]
+        self.names = None if names is None else list(names)
+        if self.names is not None and len(self.names) != len(params):
+            raise ValueError(f"{len(self.names)} names for {len(params)} parameters")
         self.count = 0  # applied updates: Adam's bias-correction count and the schedule's
+
+    def _require_names(self):
+        if self.names is None:
+            raise ValueError("this optimizer was built without parameter names: its moments cannot be saved or "
+                             "loaded (give build_optimizer the names)")
+
+    def state_dict(self) -> Dict:
+        """The live moments by parameter name, and the applied-update
+        count."""
+        self._require_names()
+        return {"mu": dict(zip(self.names, self.mu)), "nu": dict(zip(self.names, self.nu)), "count": self.count}
+
+    def check_state_dict(self, state: Dict):
+        """Raise ValueError unless ``state`` has exactly this optimizer's
+        names, each moment of its shape."""
+        self._require_names()
+        for key, own in (("mu", self.mu), ("nu", self.nu)):
+            got = state[key]
+            if set(got) != set(self.names):
+                missing, extra = sorted(set(self.names) - set(got)), sorted(set(got) - set(self.names))
+                raise ValueError(f"optimizer {key}: missing {missing[:4]}, unexpected {extra[:4]}")
+            for name, m in zip(self.names, own):
+                if tuple(got[name].shape) != tuple(m.shape):
+                    raise ValueError(f"optimizer {key} {name}: shape {tuple(got[name].shape)} != {tuple(m.shape)}")
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict):
+        """Copy ``state`` (``state_dict``'s layout) into the existing moment
+        tensors, in place, after checking its names and shapes."""
+        self.check_state_dict(state)
+        for key, own in (("mu", self.mu), ("nu", self.nu)):
+            for name, m in zip(self.names, own):
+                m.copy_(state[key][name])
+        self.count = int(state["count"])
 
     @torch.no_grad()
     def step(self, params: List[torch.Tensor], grads: List[torch.Tensor]):
@@ -102,12 +160,13 @@ class ClippedAdamW:
             p.add_(upd, alpha=-lr)
 
 
-def build_optimizer(train_cfg, params: List[torch.Tensor]):
+def build_optimizer(train_cfg, params: List[torch.Tensor], names: List[str]):
     """(optimizer, schedule): global-norm clip then AdamW over ``params``
-    (the trainable parameters only; frozen ones get no moments)."""
+    (the trainable parameters only; frozen ones get no moments), keyed by
+    ``names``."""
     schedule = lr_schedule(train_cfg)
     opt = ClippedAdamW(params, schedule, train_cfg.opt_betas[0], train_cfg.opt_betas[1],
-                       train_cfg.weight_decay, train_cfg.grad_clip)
+                       train_cfg.weight_decay, train_cfg.grad_clip, names=names)
     return opt, schedule
 
 
@@ -119,9 +178,6 @@ def refuse_unported(config: TRLConfig):
     m, mc, t = config.method, config.model, config.train
     unported = {
         "model.decode_weight_quant": mc.decode_weight_quant,
-        # checkpointing and resume
-        "train.resume_from_checkpoint": t.resume_from_checkpoint,
-        "train.keep_checkpoints": t.keep_checkpoints > 0,
         # resilience beyond the non-finite guard
         "train.watchdog_threshold": t.watchdog_threshold > 0,
         "train.fault_plan": bool(t.fault_plan),
@@ -161,9 +217,9 @@ def refuse_unported(config: TRLConfig):
         raise NotImplementedError(f"not ported yet: {', '.join(on)}")
 
 
-class BaseTrainer:
+class BaseTrainer(BaseRLTrainer):
     def __init__(self, config: TRLConfig, device: Optional[Union[str, torch.device]] = None, **kwargs):
-        self.config = config
+        super().__init__(config)
         self.device = resolve_device(device)
         if config.model.tokenizer_path:
             raise NotImplementedError(
@@ -179,6 +235,29 @@ class BaseTrainer:
         self.orch = None
         self.iter_count = 0
         self._tracker = None
+        # Checkpoint and resilience host state: at most one save in flight;
+        # the guard's total skips; the watchdog's rollback count and LR
+        # scale (no watchdog is ported: they stay 0 and 1.0, and are saved
+        # under the JAX package's names).
+        self._pending_save = None
+        self._saved = None  # (directory, name, host state) of the last finalized save, while the state is unchanged
+        self.skipped_steps = 0
+        self._rollbacks = 0
+        self._lr_scale = 1.0
+        self._resumed = False
+        self._preempted = False
+        self.last_restore_fallback = False  # load() fell past latest.txt
+        self.checkpoint_log: List[Dict] = []  # one record per save and per load: bytes and seconds
+
+    def build_train_state(self):
+        """The train state beside the model: the trainable parameters (and
+        their names), the optimizer over them, the step count and the
+        guard's consecutive skips."""
+        named = [(n, p) for n, p in self.model.named_parameters() if p.requires_grad]
+        self.trainable = [p for _, p in named]
+        self.optimizer, self.schedule = build_optimizer(self.config.train, self.trainable, [n for n, _ in named])
+        self.step = 0
+        self.bad_steps = 0
 
     @property
     def tracker(self) -> Tracker:
@@ -253,9 +332,6 @@ class BaseTrainer:
 
     # ------------------------------------------------------------ training
 
-    def intervals(self, steps: int) -> Dict[str, bool]:
-        return intervals(self.config.train, steps)
-
     def prepare_learning(self):
         """Build the train/eval loaders; set n_updates_per_batch and
         total_steps."""
@@ -278,6 +354,7 @@ class BaseTrainer:
             raise KeyError(f"load_params: missing {missing[:4]}, unexpected {extra[:4]}")
         for name, t in params.items():
             own[name].copy_(torch.as_tensor(t))
+        self._saved = None
         if extras is None:
             self.extras = self.make_extras()
         else:
@@ -311,12 +388,14 @@ class BaseTrainer:
         stats["grad_norm"] = global_norm(grads)
         if self.config.train.nonfinite_guard:
             self.bad_steps, applied = guarded_update(self.optimizer, params, grads, loss.detach(), self.bad_steps)
+            self.skipped_steps += 0 if applied else 1
             stats["resilience/nonfinite"] = torch.tensor(0.0 if applied else 1.0)
             stats["resilience/bad_steps"] = torch.tensor(float(self.bad_steps))
         else:
             self.optimizer.step(params, grads)
         stats["learning_rate"] = torch.tensor(self.schedule(self.step), dtype=torch.float32)
         self.step += 1
+        self._saved = None
         return stats
 
     def post_backward_callback(self, stats=None):
@@ -377,22 +456,56 @@ class BaseTrainer:
         if "resilience/bad_steps" in stats:
             check_bad_steps(int(stats["resilience/bad_steps"]), self.config.train.max_bad_steps, self.iter_count)
 
+    # ----------------------------------------------------------------- learn
+
     def learn(self):
         """The training loop: epochs × store batches × n_updates_per_batch
-        steps, ``post_backward_callback`` after every step, the log and eval
-        cadence of ``train.log_interval`` / ``train.eval_interval``,
+        steps, ``post_backward_callback`` after every step, the checkpoint,
+        log and eval cadence of ``train.checkpoint_interval`` /
+        ``train.log_interval`` / ``train.eval_interval``,
         ``post_epoch_callback`` after every epoch (PPO: the next rollout
-        phase), and a stop at ``total_steps`` followed by ``evaluate()``.
+        phase), and a stop at ``total_steps``: a save, then ``evaluate()``.
 
-        No checkpoint is saved, at an interval or at the end: checkpointing
-        is not ported yet (``train.checkpoint_interval`` is not read).
-        Returns the final ``evaluate()`` stats."""
+        A resumed trainer counts on from its restored step; one that has
+        already reached ``total_steps`` only evaluates. Interval saves
+        follow ``train.async_checkpointing``; the one in flight is
+        finalized on the way out. A SIGTERM (a preemption notice) is acted
+        on after the current step, or at the next batch boundary: a save,
+        a ``preempted_at_step`` record, and ``None`` is returned without
+        evaluating. Otherwise returns the final ``evaluate()`` stats."""
         self.prepare_learning()
-        self.iter_count = 0
+        self.iter_count = self.step if self._resumed else 0
         if self.iter_count >= self.total_steps:
             return self.evaluate()
-        for _ in range(self.config.train.epochs):
+        self._preempted = False
+
+        def on_sigterm(signum, frame):
+            self._preempted = True
+
+        old_handler, installed = None, False
+        try:
+            old_handler = signal.signal(signal.SIGTERM, on_sigterm)
+            installed = True
+        except ValueError:  # not in the main thread
+            pass
+        try:
+            return self._learn_loop()
+        finally:
+            # An async interval save may still be in flight: its sidecars
+            # (manifest, latest.txt) land only at finalize.
+            self._finalize_pending_save()
+            if installed:
+                signal.signal(signal.SIGTERM, old_handler if old_handler is not None else signal.SIG_DFL)
+
+    def _learn_loop(self):
+        train = self.config.train
+        for _ in range(train.epochs):
             for batch in self.train_dataloader:
+                # A SIGTERM may land during the (long) rollout phase that
+                # built this loader: save before spending a step on it.
+                if self._preempted:
+                    self._save_on_preemption()
+                    return None
                 device_batch = self.put_batch(batch)
                 for _ in range(self.n_updates_per_batch):
                     forward_t0 = time.time()
@@ -401,16 +514,326 @@ class BaseTrainer:
                     self.post_backward_callback(stats)
                     self._check_resilience(stats)
                     iv = self.intervals(self.iter_count)
+                    if iv["do_checkpoint"]:
+                        self.save(block=not train.async_checkpointing)
                     if iv["do_log"] or iv["do_eval"]:
                         stats_host = {k: float(v) for k, v in stats.items()}
                         stats_host["step_time"] = time.time() - forward_t0
-                        stats_host["samples_per_sec"] = self.config.train.batch_size / max(
-                            stats_host["step_time"], 1e-9
-                        )
+                        stats_host["samples_per_sec"] = train.batch_size / max(stats_host["step_time"], 1e-9)
                         if iv["do_eval"]:
                             stats_host.update(self.evaluate())
                         self.tracker.log(stats_host, step=self.iter_count)
+                    if self._preempted:
+                        self._save_on_preemption()
+                        return None
                     if self.iter_count >= self.total_steps:
+                        self.save()
                         return self.evaluate()
             self.post_epoch_callback()
+        self.save()
         return self.evaluate()
+
+    def _save_on_preemption(self):
+        self.save()
+        self.tracker.log({"preempted_at_step": self.iter_count}, step=self.iter_count)
+
+    # ------------------------------------------------------------ checkpoint
+
+    def state_tensors(self) -> Dict[str, Dict]:
+        """The live train state, by file: every named parameter, the
+        extras, the optimizer state, and the step with the guard's
+        consecutive skips."""
+        return {
+            "params": dict(self.model.named_parameters()),
+            "extras": dict(self.extras),
+            "optimizer": self.optimizer.state_dict(),
+            "train_state": {"step": int(self.step), "bad_steps": int(self.bad_steps)},
+        }
+
+    def host_state_dict(self) -> dict:
+        """Host-side state a resume restores besides the tensors
+        (subclasses extend: PPO adds the KL coefficient). The port has no
+        counterpart of the JAX package's ``next_rng`` key: every generator
+        is a pure function of (train.seed, its key), so no ``rng`` is
+        saved."""
+        return {
+            "resilience": {
+                "skipped_steps": int(self.skipped_steps),
+                "rollbacks": int(self._rollbacks),
+                "lr_scale": float(self._lr_scale),
+            },
+        }
+
+    def load_host_state(self, d: dict):
+        res = d.get("resilience", {})
+        if res:
+            self.skipped_steps = int(res.get("skipped_steps", self.skipped_steps))
+            # Monotone merges, as in the JAX package: a restored older host
+            # state never lowers the rollback count nor raises the LR scale.
+            self._rollbacks = max(self._rollbacks, int(res.get("rollbacks", 0)))
+            self._lr_scale = min(self._lr_scale, float(res.get("lr_scale", 1.0)))
+            if self._lr_scale != 1.0:
+                raise NotImplementedError(
+                    f"the checkpoint carries lr_scale {self._lr_scale}: the watchdog's LR decay is not ported yet"
+                )
+
+    def save(self, directory: Optional[str] = None, block: bool = True):
+        """Checkpoint the whole train state and the host state to
+        ``<directory>/state_<step>`` (``train.checkpoint_dir`` by default).
+
+        The state is copied to host memory now, so later steps cannot
+        change what is written. ``block=False`` writes the files on one
+        background thread and returns; the sidecars (host state, manifest,
+        then ``latest.txt``) land at ``_finalize_pending_save``, which the
+        next save, ``load()`` and the exit from ``learn()`` call first. At
+        most one save is in flight. The files are written under
+        ``state_<step>.tmp`` and renamed at finalize, so a crash before
+        ``latest.txt`` is rewritten leaves the previous checkpoint as the
+        resume point. A save of the state the last save already holds (the
+        interval save of the step ``learn()`` stops at) writes nothing."""
+        self._finalize_pending_save()
+        directory = os.path.abspath(directory or self.config.train.checkpoint_dir)
+        name = f"state_{int(self.step)}"
+        host_state = self.host_state_dict()  # captured now: the KL coefficient moves on
+        if self._saved == (directory, name, host_state):
+            return
+        t0 = time.perf_counter()
+        snapshot = _host_copy(self.state_tensors())
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        record = {"name": name, "async": not block, "d2h_s": time.perf_counter() - t0,
+                  "host_bytes": _nbytes(snapshot)}
+        pending = {"directory": directory, "name": name, "host_state": host_state, "record": record,
+                   "t0": t0, "result": {}}
+        path = os.path.join(directory, f"{name}.tmp")
+        if block:
+            _write_state(path, snapshot, pending["result"])
+        else:
+            pending["thread"] = threading.Thread(target=_write_state, args=(path, snapshot, pending["result"]),
+                                                 name="trlx-ckpt-writer")
+            pending["thread"].start()
+        self._pending_save = pending
+        if block:
+            self._finalize_pending_save()
+
+    def _finalize_pending_save(self) -> Optional[str]:
+        """Drain the save in flight: join its writer, then atomically write
+        host state, manifest and ``latest.txt`` (in that order — the pointer
+        flips last), and apply ``train.keep_checkpoints``. Returns the
+        checkpoint's name, or None when no save was pending."""
+        pending, self._pending_save = self._pending_save, None
+        if pending is None:
+            return None
+        t0 = time.perf_counter()
+        if "thread" in pending:
+            pending["thread"].join()
+        result, record = pending["result"], pending["record"]
+        if "error" in result:
+            raise CheckpointError(f"writing {pending['name']} failed") from result["error"]
+        record["join_s"] = time.perf_counter() - t0
+        directory, name = pending["directory"], pending["name"]
+        t1 = time.perf_counter()
+        path = os.path.join(directory, name)
+        if os.path.isdir(path):  # torn by a crash, or an older state of this step (reloaded, then changed)
+            shutil.rmtree(path)
+        os.replace(f"{path}.tmp", path)
+        ckpt_util.atomic_write_json(os.path.join(directory, f"{name}.host.json"), pending["host_state"])
+        ckpt_util.write_manifest(directory, name, ckpt_util.checkpoint_step(name), result["digests"])
+        # basename, not abspath: checkpoint dirs move between machines.
+        # Written LAST and atomically: a crash above leaves the old pointer.
+        ckpt_util.atomic_write_text(os.path.join(directory, "latest.txt"), name)
+        ckpt_util.gc_checkpoints(directory, self.config.train.keep_checkpoints, protect=(name,))
+        record.update(bytes=result["bytes"], write_s=result["write_s"], crc_wait_s=result["crc_wait_s"],
+                      manifest_s=time.perf_counter() - t1, finalize_s=time.perf_counter() - t0,
+                      save_s=time.perf_counter() - pending["t0"])
+        self.checkpoint_log.append({"op": "save", **record})
+        self.tracker.log({"save_time": record["save_s"]}, step=self.iter_count)
+        self._saved = (directory, name, pending["host_state"])
+        return name
+
+    def _maybe_resume(self):
+        """With ``train.resume_from_checkpoint``, restore the latest
+        checkpoint if ``latest.txt`` exists (a trainer calls this at the end
+        of its build, before any rollout, so PPO's first experience comes
+        from the restored policy)."""
+        if not self.config.train.resume_from_checkpoint:
+            return
+        if not os.path.exists(os.path.join(os.path.abspath(self.config.train.checkpoint_dir), "latest.txt")):
+            return
+        self.load()
+        self._resumed = True
+        print(f"[trlx_tpu_torch] resumed from step {self.step}", file=sys.stderr)
+
+    def load(self, directory: Optional[str] = None):
+        """Restore the train state and host state saved by ``save``.
+
+        Candidates are tried from the ``latest.txt`` pointer, then every
+        other ``state_*`` newest first; each is manifest-verified before it
+        is read, and one that fails verification, reading or the
+        name-and-shape check falls back to the previous intact checkpoint
+        (``last_restore_fallback``). The values are copied in place into
+        the existing parameters, moments and extras, so the bf16 weight
+        copies and a captured decode graph read them. Raises
+        CheckpointError with every attempt when nothing is restorable."""
+        t_load = time.perf_counter()
+        self._finalize_pending_save()  # a pending async save IS the latest
+        self._saved = None
+        directory = os.path.abspath(directory or self.config.train.checkpoint_dir)
+        latest_path = os.path.join(directory, "latest.txt")
+        latest = None
+        if os.path.exists(latest_path):
+            with open(latest_path) as f:
+                latest = f.read().strip() or None
+        candidates = [] if latest is None else [os.path.basename(latest)]
+        candidates += [n for n in ckpt_util.list_checkpoints(directory) if n not in candidates]
+        if not candidates:
+            raise CheckpointError(
+                f"no checkpoint found in {directory}: "
+                + ("latest.txt is empty" if os.path.exists(latest_path) else "latest.txt is missing")
+                + " and no state_* directories exist — nothing to resume from "
+                "(set train.resume_from_checkpoint=False to start fresh, or "
+                "point train.checkpoint_dir at the directory that holds the run)"
+            )
+        attempts = []
+        for i, name in enumerate(candidates):
+            path = os.path.join(directory, name)
+            with ckpt_util.mark_in_use(directory, name):
+                t0 = time.perf_counter()
+                ok, reason = ckpt_util.verify_checkpoint(directory, name)
+                if not ok:
+                    attempts.append(f"{name}: {reason}")
+                    continue
+                t1 = time.perf_counter()
+                try:
+                    # Mapped from the files on the host, then copied into the
+                    # live tensors: a load onto the device would hold a second
+                    # copy of the whole state on the card.
+                    state = {f: torch.load(os.path.join(path, f"{f}.pt"), map_location="cpu", mmap=True,
+                                           weights_only=True) for f in _STATE_FILES}
+                    self._check_state(state)
+                except (OSError, RuntimeError, ValueError, KeyError, EOFError) as e:
+                    attempts.append(f"{name}: read failed ({type(e).__name__}: {e})")
+                    continue
+                t2 = time.perf_counter()
+                self._copy_state(state)
+                del state
+                t3 = time.perf_counter()
+                self.last_restore_fallback = i > 0
+                if i > 0:
+                    print(f"[trlx_tpu_torch.resilience] latest checkpoint unusable ({'; '.join(attempts)}) "
+                          f"— fell back to {name}", file=sys.stderr)
+                host_file = f"{path}.host.json"
+                if os.path.exists(host_file):
+                    with open(host_file) as f:
+                        self.load_host_state(json.load(f))
+                self.checkpoint_log.append({
+                    "op": "load", "name": name, "fallback": i > 0, "verify_s": t1 - t0, "read_s": t2 - t1,
+                    "copy_s": t3 - t2, "load_s": time.perf_counter() - t_load,
+                    "bytes": sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)),
+                })
+                return name
+        raise CheckpointError(
+            f"no restorable checkpoint in {directory} — every candidate failed verification or reading: "
+            f"{'; '.join(attempts)}. If the data is gone, set train.resume_from_checkpoint=False to start fresh."
+        )
+
+    def _check_state(self, state: Dict):
+        """Raise ValueError unless a read checkpoint names exactly this
+        trainer's parameters and extras, each of its shape, and this
+        optimizer's moments."""
+        for f, own in (("params", dict(self.model.named_parameters())), ("extras", self.extras)):
+            got = state[f]
+            if set(got) != set(own):
+                missing, extra = sorted(set(own) - set(got)), sorted(set(got) - set(own))
+                raise ValueError(f"{f}: missing {missing[:4]}, unexpected {extra[:4]}")
+            for n, t in own.items():
+                if tuple(got[n].shape) != tuple(t.shape):
+                    raise ValueError(f"{f} {n}: shape {tuple(got[n].shape)} != {tuple(t.shape)}")
+        self.optimizer.check_state_dict(state["optimizer"])
+
+    @torch.no_grad()
+    def _copy_state(self, state: Dict):
+        """Copy a checked state into the live tensors, in place, and bring
+        the model's bf16 weight copies up to date."""
+        for n, p in self.model.named_parameters():
+            p.copy_(state["params"][n])
+        for n, t in self.extras.items():
+            t.copy_(state["extras"][n])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step = int(state["train_state"]["step"])
+        self.bad_steps = int(state["train_state"]["bad_steps"])
+        refresh_weight_copies(self.model)
+
+    # ------------------------------------------------------- BaseRL protocol
+
+    def act(self, data):
+        """(tokens, mask) of one rollout of ``data``'s prompts."""
+        return self.rollout_generate(data["input_ids"], data["attention_mask"])
+
+    def sample(self, prompts, length: int = None, n_samples: int = None):
+        """Sample continuations: ``n_samples`` rows by tiling or truncating
+        the prompt batch, the response clipped to ``length`` tokens, at most
+        the configured response length (a longer request warns once).
+        Returns the tokens [n_samples, P + min(length, R)] on the host."""
+        ids = np.asarray(prompts["input_ids"])
+        mask = np.asarray(prompts["attention_mask"])
+        n = n_samples if n_samples is not None else ids.shape[0]
+        reps = -(-n // ids.shape[0])
+        ids, mask = np.tile(ids, (reps, 1))[:n], np.tile(mask, (reps, 1))[:n]
+        tokens, _ = self.rollout_generate(ids, mask)
+        tokens = self.to_host(tokens)
+        if length is not None:
+            P = ids.shape[1]
+            configured = tokens.shape[1] - P
+            if int(length) > configured and not getattr(self, "_warned_sample_clip", False):
+                self._warned_sample_clip = True
+                warnings.warn(
+                    f"sample(length={int(length)}) exceeds the configured response length {configured}; output is "
+                    f"clipped to {configured} new tokens (raise method.gen_kwargs max tokens to generate more)",
+                    stacklevel=2,
+                )
+            tokens = tokens[:, : P + min(int(length), configured)]
+        return tokens
+
+
+_STATE_FILES = ("params", "extras", "optimizer", "train_state")
+
+
+def _host_copy(tree):
+    """A host copy of every tensor in a nest of dicts (a copy on the CPU
+    too: the snapshot must not follow the live tensors)."""
+    if torch.is_tensor(tree):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    return tree
+
+
+def _nbytes(tree) -> int:
+    if torch.is_tensor(tree):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    return 0
+
+
+def _write_state(path: str, snapshot: Dict[str, Dict], result: Dict):
+    """Write one ``torch.save`` file per state group into ``path`` (made
+    anew: a temporary directory the finalize renames), fsynced, with each file's (size, crc32) taken as it is written.
+    Fills ``result`` with the digests, the bytes and the seconds, or with
+    the error (this runs on the async save's writer thread too)."""
+    try:
+        t0 = time.perf_counter()
+        if os.path.isdir(path):
+            shutil.rmtree(path)
+        os.makedirs(path)
+        digests, crc_wait_s = {}, 0.0
+        for f, group in snapshot.items():
+            with ckpt_util.DigestWriter(os.path.join(path, f"{f}.pt")) as w:
+                torch.save(group, w)
+            digests[f"{f}.pt"] = (w.size, w.crc)
+            crc_wait_s += w.crc_wait_s
+        result.update(digests=digests, bytes=sum(s for s, _ in digests.values()), crc_wait_s=crc_wait_s,
+                      write_s=time.perf_counter() - t0)
+    except Exception as e:  # noqa: BLE001 — re-raised by _finalize_pending_save
+        result["error"] = e

@@ -34,7 +34,7 @@ from trlx_tpu_torch.ops.modeling import topk_mask
 from trlx_tpu_torch.ops.sampling import NEG_INF, GenerateConfig, make_bigram_mask_processor
 from trlx_tpu_torch.pipeline.ilql_pipeline import ILQLRolloutStorage
 from trlx_tpu_torch.trainer import register_model
-from trlx_tpu_torch.trainer.base import BaseTrainer, build_optimizer
+from trlx_tpu_torch.trainer.base import BaseTrainer
 
 
 def _gather_positions(hidden: torch.Tensor, ixs: torch.Tensor) -> torch.Tensor:
@@ -74,14 +74,12 @@ class ILQLTrainer(BaseTrainer):
         self.model = self.get_arch(config)
         self.extras = self.make_extras()
         self.store: ILQLRolloutStorage = None
-        self.trainable = [p for p in self.model.parameters() if p.requires_grad]
-        self.optimizer, self.schedule = build_optimizer(config.train, self.trainable)
-        self.step = 0
-        self.bad_steps = 0
+        self.build_train_state()
         self._generate_fn = make_generate_fn(
             self.model, self.gen_cfg, processor=self._make_ilql_processor(), carry_keys=("qs", "vs"),
             step_stats_fn=self._decode_step_stats,
         )
+        self._maybe_resume()  # the target heads are part of the saved state; ILQL adds no host state
 
     # ----------------------------------------------------------------- setup
 

@@ -29,7 +29,7 @@ from trlx_tpu_torch.ops.rl_losses import kl_penalty_rewards, ppo_loss
 from trlx_tpu_torch.ops.sampling import GenerateConfig, make_bigram_mask_processor, process_logits_default
 from trlx_tpu_torch.pipeline.ppo_pipeline import PPORolloutStorage
 from trlx_tpu_torch.trainer import register_model
-from trlx_tpu_torch.trainer.base import BaseTrainer, build_optimizer
+from trlx_tpu_torch.trainer.base import BaseTrainer
 
 
 def resolve_fused_head(cfg, device: torch.device) -> bool:
@@ -99,12 +99,7 @@ class PPOTrainer(BaseTrainer):
         # kl_ctl.value), so the controller follows the per-step trajectory.
         self._kl_pending = []
 
-        # The train state: step count, optimizer (moments and applied-update
-        # count) over the trainable parameters, consecutive guard skips.
-        self.trainable = [p for p in self.model.parameters() if p.requires_grad]
-        self.optimizer, self.schedule = build_optimizer(config.train, self.trainable)
-        self.step = 0
-        self.bad_steps = 0
+        self.build_train_state()
 
         # Static decode shapes: prompt length + new tokens == seq_length.
         self.prompt_length = int(gen_kwargs.pop("prompt_length", 0)) or max(
@@ -164,6 +159,10 @@ class PPOTrainer(BaseTrainer):
                 "method.paged_kv requires method.rollout_engine: the paged block pool and prefix cache live in "
                 "the slot engine's admission/harvest lifecycle; the chunked rollout path has no slot reuse to page."
             )
+        # Resume BEFORE any rollout: the first experience must come from the
+        # restored policy (stale behaviour logprobs would mis-clip the whole
+        # first epoch's importance ratios).
+        self._maybe_resume()
 
     # ----------------------------------------------------------------- setup
 
@@ -354,15 +353,39 @@ class PPOTrainer(BaseTrainer):
 
     def learn(self):
         """The base loop, then the queued KL-controller updates are applied,
-        so ``kl_ctl.value`` is current when training ends (the JAX package's
-        final save flushes them). The rollout engine, if any, shuts down on
-        the way out."""
+        so ``kl_ctl.value`` is current when training ends. The rollout
+        engine, if any, shuts down on the way out."""
         try:
             stats = super().learn()
             self._flush_kl_updates()
         finally:
             self._shutdown_rollout_engine()
         return stats
+
+    def host_state_dict(self) -> dict:
+        """The base host state plus the KL coefficient, after the queued
+        controller updates are applied."""
+        self._flush_kl_updates()
+        d = super().host_state_dict()
+        d["kl_coef"] = float(self.kl_ctl.value)
+        return d
+
+    def load_host_state(self, d: dict):
+        super().load_host_state(d)
+        if "kl_coef" in d:
+            v = float(d["kl_coef"])
+            # A poisoned coefficient would NaN every KL-penalty reward.
+            if np.isfinite(v):
+                self.kl_ctl.value = v
+
+    def load(self, directory=None):
+        """The base load, then the rollout engine (if built) is dropped: its
+        prefix blocks hold KV of the replaced weights under a version the
+        next handoff may repeat. The next rollout builds it anew on the
+        loaded weights, as a resumed run does."""
+        name = super().load(directory)
+        self._shutdown_rollout_engine()
+        return name
 
     def prepare_learning(self):
         self.eval_dataloader = self.eval_pipeline.create_loader(self.config.train.batch_size)
