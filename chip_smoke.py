@@ -14,8 +14,9 @@ prefix, a dead slot on the trash block and a fully masked row), then drives
 3. a gradient-consistency check at GPT-J-6B width and 4 layers: one PPO
    batch's gradients on the kernel route against the plain route;
 4. the training path, ``trlx_tpu_torch.train(reward_fn=...)``, at GPT-J-6B
-   full width and depth (random weights): 16 PPO steps with a second
-   ``make_experience`` in between and a final ``evaluate()``;
+   width and 4 layers (random weights; 8 runs the same call at full depth):
+   16 PPO steps with a second ``make_experience`` in between and a final
+   ``evaluate()``;
 5. the main path: the same ``train`` through the paged engine with an int8
    KV cache (``method.rollout_engine``, ``method.paged_kv``,
    ``model.kv_cache_quant``), 16 prompts of which 8 share a 512-token
@@ -34,12 +35,24 @@ prefix, a dead slot on the trash block and a fully masked row), then drives
 7. checkpoints: the end of every ``learn()`` saves (``[ckpt]`` lines: bytes,
    device-to-host, write, crc, manifest and load seconds, GB/s, beside the
    card), verified against its manifest and deleted when its path is done;
-   ``[resume]``: PPO at full depth resumed from the training path's
+   ``[resume]``: PPO at full depth resumed from ``hf_rm_train``'s
    ``state_16`` into a fresh trainer (the loaded state bit-equal to the
    saver's, 8 more steps with their launches), ILQL at 2 layers (2 steps,
    save, resume, 2 steps); and a load into a trainer whose decode graph is
    captured, whose greedy tokens must equal those of a trainer that loaded
    first (4 layers, after an async save);
+8. HF checkpoints, text and the reward model (``hf_rm_train``, run second):
+   the policy written as a GPT-J-6B HF directory (the published config.json,
+   seeded bf16 safetensors in 5 GB shards with an index) and an 8-layer
+   reward model beside it, ``train(model_path=..., prompts=[str],
+   eval_prompts=[str], metric_fn=<over text>)`` with ``reward_model_path``
+   and a byte-level tokenizer: every loaded tensor held against what was
+   written, both directories deleted before ``learn()``, the rollouts scored
+   by the reward model, 16 steps, ``evaluate()`` on its scores, the end
+   save kept for ``[resume]``; ``text_ppo``: ``train(reward_fn=<over str>,
+   prompts=[str])`` at 4 layers, then ``save_pretrained`` read back in part;
+   ``[rm-route]``: the reward model's score on the kernel route against the
+   plain route (2 layers);
 
 and checks that each path went through every kernel it runs, exactly as
 often as its config says.
@@ -988,14 +1001,16 @@ def check_end_save(path: str, trainer, run_dir: str):
     return log_ckpt(path, trainer)
 
 
-def make_timed_trainer(kernels, n_layer: int, on_engine=None):
+def make_timed_trainer(kernels, n_layer: int, on_engine=None, tokenizer=None, on_built=None):
     """A PPOTrainer, registered under its own name and picked by the
     config's ``model_type``, that records per train step its device time
     (CUDA events), its kernel launches and its stats; parameter fingerprints
     at the start (after a resume: the loaded state, moments and scalars
     too), after step 2 and at the end; the launches so far when evaluate()
     starts, and each evaluate()'s stats. ``on_engine(engine)`` runs once,
-    when the rollout engine is built."""
+    when the rollout engine is built; ``tokenizer`` is what its
+    ``_build_tokenizer`` returns (the smoke needs no ``transformers``);
+    ``on_built(trainer)`` runs at the end of its construction."""
     from trlx_tpu_torch.trainer import register_model
     from trlx_tpu_torch.trainer.ppo import PPOTrainer
 
@@ -1006,6 +1021,11 @@ def make_timed_trainer(kernels, n_layer: int, on_engine=None):
             self.step_log, self.eval_log = [], []
             self.launches_before_eval = None
             self.fp = {"start": state_fingerprints(self, n_layer)}
+            if on_built is not None:
+                on_built(self)
+
+        def _build_tokenizer(self, tokenizer_path):
+            return tokenizer if tokenizer is not None else super()._build_tokenizer(tokenizer_path)
 
         def rollout_engine(self):
             fresh = self._rollout_engine is None
@@ -1073,13 +1093,17 @@ def check_train_steps(trainer, config, per_step):
     return log_
 
 
+TRAIN_LAYERS = 4  # depth of the training path; hf_rm_train runs the same train() at full depth
+
+
 def train_path(kernels):
-    """``trlx_tpu_torch.train(reward_fn=...)`` at GPT-J-6B full width and
-    depth on the chunked sampler with a bf16 cache; returns its numbers and
+    """``trlx_tpu_torch.train(reward_fn=...)`` at GPT-J-6B width and
+    ``TRAIN_LAYERS`` layers on the chunked sampler with a bf16 cache (the
+    same call at full depth is ``hf_rm_train``'s); returns its numbers and
     the launches of the whole run."""
     import trlx_tpu_torch
 
-    n_layer, k = GPTJ_6B_ARCH["n_layer"], 2
+    n_layer, k = TRAIN_LAYERS, 2
     cls = make_timed_trainer(kernels, n_layer)
     run_dir = os.path.join(RUN_DIR, "train")
     config = train_config(n_layer, cls.__name__, run_dir)
@@ -1155,10 +1179,9 @@ def train_path(kernels):
         "eval": {k: v for k, v in trainer.eval_log[0].items()},
         "launches": launches,
     }
-    log(f"[train] trlx_tpu_torch.train at GPT-J-6B ({n_layer} layers), {steps} steps: {json.dumps(out)}")
-    # The end save stays on disk for the resume phase, with the state it holds.
+    log(f"[train] trlx_tpu_torch.train at GPT-J-6B width ({n_layer} layers), {steps} steps: {json.dumps(out)}")
     out["ckpt"] = check_end_save("train_bf16", trainer, run_dir)
-    out["saved_state"] = fp["end"]
+    shutil.rmtree(run_dir)
     del trainer
     free()
     return out, launches
@@ -1167,10 +1190,11 @@ def train_path(kernels):
 RESUME_STEPS = 24  # the resumed PPO run: one more rollout phase of 8 steps after the saved 16
 
 
-def resume_path(kernels, saved):
+def resume_path(kernels, saved, run_dir):
     """``trlx_tpu_torch.train(reward_fn=...)`` at GPT-J-6B full width and
-    depth with ``train.resume_from_checkpoint``, from the training path's
-    end checkpoint (``state_16``) into a fresh trainer: the loaded state
+    depth with ``train.resume_from_checkpoint``, from ``hf_rm_train``'s end
+    checkpoint (``state_16`` in ``run_dir``; the same model and train state
+    as a ``model_arch`` config builds) into a fresh trainer: the loaded state
     must be bit-equal to the saving trainer's at its save (parameter groups,
     extras, moments, the applied-update count, step, guard counts, KL
     coefficient); then one rollout phase from the restored policy and 8
@@ -1183,7 +1207,6 @@ def resume_path(kernels, saved):
     from trlx_tpu_torch.trainer import register_model
 
     n_layer, k = GPTJ_6B_ARCH["n_layer"], 2
-    run_dir = os.path.join(RUN_DIR, "train")
 
     @register_model("SmokeResumedPPOTrainer")
     class SmokeResumedPPOTrainer(make_timed_trainer(kernels, n_layer)):
@@ -2040,6 +2063,386 @@ def ilql_resume_path(kernels):
     return out
 
 
+# ---------------------------------------------------------------------------
+# HF checkpoints in and out, text mode and the on-device reward model
+# ---------------------------------------------------------------------------
+
+RM_LAYERS = 8  # the reward model's depth at GPT-J-6B width: 2.02 B parameters beside the 6.05 B policy
+RM_ROUTE_LAYERS = 2  # depth of the reward model's kernel-versus-plain check
+TEXT_LAYERS = 4  # depth of the text-mode PPO path
+HF_INIT_STD = 0.02  # the seeded HF weights: N(0, 0.02), LayerNorm weights 1 + N(0, 0.02)
+
+# EleutherAI/gpt-j-6B's published config.json, field for field.
+GPTJ_6B_HF_CONFIG = {
+    "activation_function": "gelu_new", "architectures": ["GPTJForCausalLM"], "attn_pdrop": 0.0,
+    "bos_token_id": 50256, "embd_pdrop": 0.0, "eos_token_id": 50256, "gradient_checkpointing": False,
+    "initializer_range": 0.02, "layer_norm_epsilon": 1e-05, "model_type": "gptj", "n_embd": 4096, "n_head": 16,
+    "n_inner": None, "n_layer": 28, "n_positions": 2048, "resid_pdrop": 0.0, "rotary": True, "rotary_dim": 64,
+    "scale_attn_weights": True, "summary_activation": None, "summary_first_dropout": 0.1,
+    "summary_proj_to_labels": True, "summary_type": "cls_index", "summary_use_proj": True,
+    "task_specific_params": {"text-generation": {"do_sample": True, "max_length": 50, "temperature": 1.0}},
+    "tie_word_embeddings": False, "tokenizer_class": "GPT2Tokenizer", "transformers_version": "4.18.0.dev0",
+    "use_cache": True, "vocab_size": 50400,
+}
+
+
+class ByteTokenizer:
+    """A byte-level tokenizer for GPT-J's vocabulary (so the smoke needs no
+    ``transformers``): a text's UTF-8 bytes are its token ids, 50256 is BOS,
+    EOS and pad; decoding maps every other id to the byte id % 256, so a
+    sampled row decodes to one character a token."""
+
+    bos_token_id = eos_token_id = pad_token_id = 50256
+    bos_token = eos_token = pad_token = "<|endoftext|>"
+    padding_side = "left"
+
+    def __call__(self, text, add_special_tokens=False):
+        return {"input_ids": list(text.encode("utf-8"))}
+
+    def batch_decode(self, tokens, skip_special_tokens=True):
+        return [bytes(int(t) % 256 for t in row if int(t) != self.eos_token_id).decode("latin-1")
+                for row in np.asarray(tokens)]
+
+
+def seeded_texts(n: int, seed: int):
+    """``n`` printable ASCII strings of seeded lengths in [MIN_PROMPT,
+    PROMPT_LEN] bytes."""
+    rng = np.random.default_rng(seed)
+    return ["".join(map(chr, rng.integers(32, 127, size=int(rng.integers(MIN_PROMPT, PROMPT_LEN + 1)))))
+            for _ in range(n)]
+
+
+def gptj_hf_shapes(n_layer: int):
+    """The HF GPT-J state dict's names and shapes at GPT-J-6B width."""
+    V, D, F_ = GPTJ_6B_ARCH["vocab_size"], GPTJ_6B_ARCH["d_model"], GPTJ_6B_ARCH["d_ff"]
+    shapes = {"transformer.wte.weight": (V, D), "transformer.ln_f.weight": (D,), "transformer.ln_f.bias": (D,),
+              "lm_head.weight": (V, D), "lm_head.bias": (V,)}
+    for i in range(n_layer):
+        h = f"transformer.h.{i}"
+        shapes.update({f"{h}.ln_1.weight": (D,), f"{h}.ln_1.bias": (D,), f"{h}.mlp.fc_in.weight": (F_, D),
+                       f"{h}.mlp.fc_in.bias": (F_,), f"{h}.mlp.fc_out.weight": (D, F_), f"{h}.mlp.fc_out.bias": (D,)})
+        shapes.update({f"{h}.attn.{p}.weight": (D, D) for p in ("q_proj", "k_proj", "v_proj", "out_proj")})
+    return shapes
+
+
+class SeededGPTJ:
+    """An HF GPT-J state dict of seeded bf16 values, each made on the card
+    when it is looked up (a pure function of the seed and the name), so the
+    checkpoint is written one tensor at a time and each loaded parameter can
+    be held against the tensor it was written from."""
+
+    def __init__(self, n_layer: int, seed: int):
+        self.shapes, self.seed = gptj_hf_shapes(n_layer), seed
+
+    def __iter__(self):
+        return iter(self.shapes)
+
+    def __contains__(self, name):
+        return name in self.shapes
+
+    def __getitem__(self, name):
+        import zlib
+
+        g = torch.Generator(device="cuda").manual_seed(self.seed * 1_000_003 + zlib.crc32(name.encode()))
+        x = torch.randn(self.shapes[name], generator=g, device="cuda") * HF_INIT_STD
+        if name.endswith(("ln_1.weight", "ln_f.weight")):
+            x += 1.0
+        return x.to(torch.bfloat16)
+
+    def nbytes(self) -> int:
+        return sum(2 * int(np.prod(s)) for s in self.shapes.values())
+
+
+def write_hf_gptj(path: str, n_layer: int, seed: int):
+    """A GPT-J HF checkpoint directory: the published config.json (depth
+    ``n_layer``) and bf16 safetensors of ``SeededGPTJ`` in 5 GB shards with
+    an index, written by the port's writer. Returns its record."""
+    from trlx_tpu_torch.models.safetensors_io import LazyTensor, write_safetensors
+
+    sd = SeededGPTJ(n_layer, seed)
+    os.makedirs(path)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(dict(GPTJ_6B_HF_CONFIG, n_layer=n_layer), f, indent=2)
+    t0 = time.perf_counter()
+    files = write_safetensors(path, {n: LazyTensor(sd.shapes[n], torch.bfloat16, lambda n=n: sd[n]) for n in sd})
+    write_s = time.perf_counter() - t0
+    params = sum(int(np.prod(s)) for s in sd.shapes.values())
+    return {"path": os.path.basename(path), "n_layer": n_layer, "params_b": params / 1e9, "gb": sd.nbytes() / 1e9,
+            "files": len(files), "write_s": write_s, "write_gb_per_s": sd.nbytes() / 1e9 / write_s}
+
+
+def check_loaded_trunk(model, n_layer: int, seed: int, name: str):
+    """Every trunk parameter of ``model`` equals, bit for bit, the bf16
+    tensor it was written from, converted (transposed) and cast to f32."""
+    from trlx_tpu_torch.models.hf_import import trunk_spec
+
+    sd = SeededGPTJ(n_layer, seed)
+    params = dict(model.transformer.named_parameters())
+    spec = trunk_spec("gptj", model.transformer.cfg)
+    if set(spec) != set(params):
+        raise AssertionError(f"{name}: the spec names {len(spec)} tensors, the trunk has {len(params)}")
+    bad = [n for n, thunk in spec.items() if not torch.equal(params[n], thunk(sd).to(params[n].dtype))]
+    if bad:
+        raise AssertionError(f"{name}: {len(bad)} loaded tensors differ from what was written: {bad[:4]}")
+    return len(spec)
+
+
+def text_metric(texts):
+    if not texts or not all(isinstance(t, str) for t in texts):
+        raise AssertionError(f"metric_fn got {[type(t).__name__ for t in texts][:4]}, expected strings")
+    return {"text_len": np.asarray([float(len(t)) for t in texts])}
+
+
+def hf_rm_train_path(kernels):
+    """The slice's path at GPT-J-6B width and depth: ``train(model_path=<HF
+    dir>, prompts=[str], eval_prompts=[str], metric_fn=<over text>,
+    config=<reward_model_path = HF dir>)`` with the byte-level tokenizer,
+    then ``save_pretrained``. The policy (28 layers, 12.1 GB bf16) and the
+    reward model (``RM_LAYERS`` layers) are written as HF directories from
+    seeded weights; every loaded trunk tensor is held against what was
+    written; both directories are deleted before ``learn()``; the rollouts
+    are scored by the reward model, 16 steps run with ``train_config``'s
+    values, ``evaluate()`` reports the reward model's mean. The end save
+    stays on disk for ``resume_path`` (returned as ``saved_state`` and
+    ``run_dir``). Returns its numbers and the launches of the whole run."""
+    import trlx_tpu_torch
+
+    n_layer, k, R = GPTJ_6B_ARCH["n_layer"], 2, MAX_LEN - PROMPT_LEN
+    run_dir = os.path.join(RUN_DIR, "hf_rm_train")
+    pol_dir, rm_dir = os.path.join(RUN_DIR, "hf_policy"), os.path.join(RUN_DIR, "hf_reward_model")
+    card = card_line()
+    written = [write_hf_gptj(pol_dir, n_layer, seed=1), write_hf_gptj(rm_dir, RM_LAYERS, seed=2)]
+    for rec in written:
+        log(f"[hf] wrote {json.dumps(rec)} on {card}")
+    built = {}
+
+    def on_built(trainer):
+        # Before learn(), before any rollout: the loads held against the
+        # written tensors, then the directories deleted.
+        built["policy_tensors"] = check_loaded_trunk(trainer.model, n_layer, 1, "policy")
+        built["rm_tensors"] = check_loaded_trunk(trainer.rm_model, RM_LAYERS, 2, "reward model")
+        built["rm_fp"] = fingerprint(trainer.rm_model.parameters())
+        built["load"] = trainer.load_log
+        shutil.rmtree(pol_dir)
+        shutil.rmtree(rm_dir)
+
+    cls = make_timed_trainer(kernels, n_layer, tokenizer=ByteTokenizer(), on_built=on_built)
+    config = train_config(n_layer, cls.__name__, run_dir)
+    config.model.model_arch = {}
+    config.model.tokenizer_path = "byte-level"
+    config.model.reward_model_path = rm_dir
+    eval_texts = []
+
+    def metric_fn(texts):
+        eval_texts.extend(texts)
+        return text_metric(texts)
+
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    trainer = trlx_tpu_torch.train(model_path=pol_dir, prompts=seeded_texts(N_ROLLOUTS, 10),
+                                   eval_prompts=seeded_texts(CHUNK, 11), metric_fn=metric_fn, config=config)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if os.path.exists(pol_dir) or os.path.exists(rm_dir) or "load" not in built:
+        raise AssertionError("the HF directories were not checked and deleted before learn()")
+
+    steps = config.train.total_steps
+    chunks = 2 * N_ROLLOUTS // CHUNK  # two make_experience calls
+    eval_batches = 1
+    bwd_chunks = -(-CHUNK * R // 1024)
+    per_step = train_step_launches(kernels, n_layer)
+    expected = dict.fromkeys(kernels, 0)
+    # A rollout chunk: prefill (n_layer), the policy re-forward (n_layer) and
+    # the reference branch (k) with the fused head once each, and the reward
+    # model (RM_LAYERS, no LM head); eval: prefill and the reward model.
+    expected.update({
+        "flash_attention_fwd": (chunks * (2 * n_layer + k + RM_LAYERS) + steps * 2 * n_layer
+                                + eval_batches * (n_layer + RM_LAYERS)),
+        "decode_attention": (chunks + eval_batches) * n_layer * R,
+        "fused_logprob_fwd": 2 * chunks + steps,
+        "flash_attention_bwd_dq": steps * n_layer, "flash_attention_bwd_dkv": steps * n_layer,
+        "fused_logprob_bwd_dx": steps * bwd_chunks, "fused_logprob_bwd_dw": steps,
+    })
+    log(f"[hf_rm_train] launches {launches} expected {expected} (a rollout chunk: flash {2 * n_layer + k} policy + "
+        f"{RM_LAYERS} reward model, fused head 2; eval: flash {n_layer} + {RM_LAYERS})")
+    if launches != expected:
+        raise AssertionError(f"kernel launches {launches} != {expected}")
+    log_ = check_train_steps(trainer, config, per_step)
+    if fingerprint(trainer.rm_model.parameters()) != built["rm_fp"]:
+        raise AssertionError("the reward model changed during training")
+    if not trainer.has_reward_model or trainer.reward_fn is not None or trainer.fused_rollout:
+        raise AssertionError("the path did not score with the reward model alone, unfused")
+    ev = trainer.eval_log
+    if len(ev) != 1 or not np.isfinite(ev[0]["mean_reward"]) or "reward_time" in ev[0]:
+        raise AssertionError(f"expected one evaluate() with the reward model's finite mean_reward, got {ev}")
+    if len(eval_texts) != CHUNK:
+        raise AssertionError(f"metric_fn saw {len(eval_texts)} eval texts, expected {CHUNK}")
+    exp = []
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            if "exp_time" in rec:
+                exp.append({k_: v for k_, v in rec.items() if k_.startswith("exp_") or k_.startswith("rollout_")})
+    if len(exp) != 2 or any(r["exp_reward_s"] != 0.0 for r in exp):
+        raise AssertionError(f"expected 2 experience phases scored on the device, got {exp}")
+    dev_s = [r["device_s"] for r in log_]
+    out = {
+        "wall_s": wall,
+        "load": built["load"],
+        "load_gb_per_s": {m: r["bytes"] / 1e9 / r["load_s"] for m, r in built["load"].items()},
+        "checked_tensors": {"policy": built["policy_tensors"], "reward_model": built["rm_tensors"]},
+        "rm_score_ms_per_chunk": [1e3 * r["exp_rm_score_device_s"] / (N_ROLLOUTS // CHUNK) for r in exp],
+        "score_device_s": [r["exp_score_device_s"] for r in exp],
+        "step_device_s_median": float(np.median(dev_s)),
+        "train_tokens_per_s_median": CHUNK * MAX_LEN / float(np.median(dev_s)),
+        "peak_mem_gb": peak_gb,
+        "mean_ratio_per_step": [r["mean_ratio"] for r in log_],
+        "rollout_mean_score": [r["rollout_mean_score"] for r in exp],
+        "eval": {k_: v for k_, v in ev[0].items()},
+        "launches": launches,
+    }
+    log(f"[hf_rm_train] train(model_path=HF dir, reward model {RM_LAYERS} layers, text prompts) at GPT-J-6B "
+        f"({n_layer} layers), {steps} steps: {json.dumps(out)} on {card}")
+    # The end save stays on disk for the resume path, with the state it holds.
+    out["ckpt"] = check_end_save("hf_rm_train", trainer, run_dir)
+    out["saved_state"], out["run_dir"] = state_fingerprints(trainer, n_layer), run_dir
+    del trainer
+    free()
+    return out, launches
+
+
+def text_ppo_path(kernels):
+    """Text mode at GPT-J-6B width and ``TEXT_LAYERS`` layers:
+    ``train(reward_fn=<over str>, prompts=[str], eval_prompts=[str],
+    metric_fn=<over str>)`` with the byte-level tokenizer (random init, 8
+    steps). ``reward_fn`` must see only strings, the eval samples must be
+    strings. Then ``save_pretrained``: the export read back in part through
+    the port's reader must equal the live parameters, bit for bit, and the
+    value head its sidecar. Returns its numbers and launches."""
+    import trlx_tpu_torch
+    from trlx_tpu_torch.models.hf_import import trunk_spec
+    from trlx_tpu_torch.models.safetensors_io import SafetensorsReader
+
+    seen = []
+
+    def text_reward(texts):
+        if not texts or not all(isinstance(t, str) for t in texts):
+            raise AssertionError(f"reward_fn got {[type(t).__name__ for t in texts][:4]}, expected strings")
+        seen.extend(texts)
+        return [t.count("e") / max(len(t), 1) for t in texts]
+
+    evals = []
+
+    def metric_fn(texts):
+        evals.append(list(texts))
+        return text_metric(texts)
+
+    cls = make_timed_trainer(kernels, TEXT_LAYERS, tokenizer=ByteTokenizer())
+    run_dir = os.path.join(RUN_DIR, "text_ppo")
+    config = train_config(TEXT_LAYERS, cls.__name__, run_dir)
+    config.model.tokenizer_path = "byte-level"
+    config.train.total_steps, config.train.epochs = 8, 1
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    trainer = trlx_tpu_torch.train(reward_fn=text_reward, prompts=seeded_texts(N_ROLLOUTS, 12),
+                                   eval_prompts=seeded_texts(CHUNK, 13), metric_fn=metric_fn, config=config)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    # reward_fn scores the rollouts and the eval samples.
+    if trainer.iter_count != 8 or len(seen) != N_ROLLOUTS + CHUNK or len(evals) != 1 or len(evals[0]) != CHUNK:
+        raise AssertionError(f"{trainer.iter_count} steps, reward_fn saw {len(seen)} texts, eval {len(evals)} calls")
+    # A row decodes to its prompt's bytes (pad and BOS dropped) and one
+    # character per response token (EOS is suppressed to the full length).
+    lens = sorted(len(t) for t in seen)
+    if lens[0] < MIN_PROMPT + MAX_LEN - PROMPT_LEN or lens[-1] > MAX_LEN:
+        raise AssertionError(f"decoded rollouts of {lens[0]}..{lens[-1]} characters")
+    out = {"wall_s": wall, "steps": trainer.iter_count, "texts": len(seen), "text_chars": [len(t) for t in seen[:4]],
+           "eval_sample": evals[0][0][-32:], "step_device_s_median": float(np.median(
+               [r["device_s"] for r in trainer.step_log])), "launches": launches}
+    log(f"[text_ppo] train(reward_fn=<over str>, prompts=[str]) at GPT-J-6B width, {TEXT_LAYERS} layers: "
+        f"{json.dumps(out)}")
+    check_end_save("text_ppo", trainer, run_dir)
+    shutil.rmtree(run_dir)
+
+    out_dir = os.path.join(RUN_DIR, "hf_export")
+    t0 = time.perf_counter()
+    trainer.save_pretrained(out_dir)
+    export_s = time.perf_counter() - t0
+    export_gb = sum(os.path.getsize(os.path.join(out_dir, f)) for f in os.listdir(out_dir)) / 1e9
+    reader = SafetensorsReader(out_dir)
+    spec = trunk_spec("gptj", trainer.model.cfg)
+    params = dict(trainer.model.transformer.named_parameters())
+    last = TEXT_LAYERS - 1
+    subset = ["wte.embedding", "h_0.attn.q_proj.kernel", f"h_{last}.mlp.c_proj.kernel", f"h_{last}.mlp.c_fc.bias",
+              f"h_{last}.ln_1.scale", "ln_f.bias", "lm_head.kernel", "lm_head.bias"]
+    bad = [n for n in subset if not torch.equal(spec[n](reader).to("cuda"), params[n])]
+    heads = np.load(os.path.join(out_dir, "trlx_tpu_heads.npz"))
+    v_ok = np.array_equal(heads["v_head/layers_1/kernel"], trainer.model.v_head.layers_1.kernel.detach().cpu().numpy())
+    with open(os.path.join(out_dir, "config.json")) as f:
+        hf_cfg = json.load(f)
+    del reader, heads
+    shutil.rmtree(out_dir)
+    out["export"] = {"gb": export_gb, "export_s": export_s, "gb_per_s": export_gb / export_s, "checked": subset,
+                     "n_layer": hf_cfg["n_layer"]}
+    log(f"[text_ppo] save_pretrained: {json.dumps(out['export'])} on {card_line()}")
+    if bad or not v_ok or hf_cfg["n_layer"] != TEXT_LAYERS or hf_cfg["architectures"] != ["GPTJForCausalLM"]:
+        raise AssertionError(f"the export read back differs: {bad}, value head equal {v_ok}, config {hf_cfg}")
+    del trainer
+    free()
+    return out, launches
+
+
+def phase_rm_route(kernels):
+    """The reward model's score on the kernel route (flash forward) against
+    the plain route (einsum attention) on one chunk of 8 × 1024 tokens
+    (seeded left-padded prompts, full responses), GPT-J-6B width and
+    ``RM_ROUTE_LAYERS`` layers, the same seeded weights; each route's time
+    by CUDA events. Tolerance: 2e-2 of max |score|."""
+    from trlx_tpu_torch.models.heads import LMWithValueHead
+    from trlx_tpu_torch.models.hf_import import init_params
+    from trlx_tpu_torch.models.lm import LMConfig
+    from trlx_tpu_torch.pipeline.prompt_pipeline import PromptPipeline
+    from trlx_tpu_torch.trainer.ppo import reward_model_scores
+
+    arch = {k_: v for k_, v in GPTJ_6B_ARCH.items() if k_ != "eos_token_id"}
+    cfg = LMConfig.from_dict(dict(arch, n_layer=RM_ROUTE_LAYERS))
+    rms = {}
+    for route, c in (("kernel", cfg), ("plain", cfg.replace(attn_impl="xla"))):
+        rm = LMWithValueHead(c, branch_layer=-1, device="cuda")
+        init_params(rm, torch.Generator(device="cuda").manual_seed(7))
+        rm.requires_grad_(False)
+        rms[route] = rm
+    prompt = next(iter(PromptPipeline(seeded_prompts(CHUNK, 14), None, max_prompt_length=PROMPT_LEN).create_loader(
+        CHUNK)))
+    resp = np.random.default_rng(15).integers(0, 50400, size=(CHUNK, MAX_LEN - PROMPT_LEN))
+    tokens = torch.as_tensor(np.concatenate([prompt["input_ids"], resp], 1), dtype=torch.int32, device="cuda")
+    mask = torch.as_tensor(np.concatenate([prompt["attention_mask"], np.ones_like(resp)], 1), dtype=torch.int32,
+                           device="cuda")
+    flash = kernels["flash_attention_fwd"]
+    before = flash.launches
+    got = reward_model_scores(rms["kernel"], tokens, mask)
+    n_kernel = flash.launches - before
+    ref = reward_model_scores(rms["plain"], tokens, mask)
+    n_plain = flash.launches - before - n_kernel
+    if (n_kernel, n_plain) != (RM_ROUTE_LAYERS, 0):
+        raise AssertionError(f"flash launches: kernel route {n_kernel}, plain route {n_plain}")
+    err, tol = check_rel("rm_scores", got, ref, 2e-2)
+    out = {"layers": RM_ROUTE_LAYERS, "shape": [CHUNK, MAX_LEN], "max_abs_err": err, "tol": tol,
+           "max_abs_score": float(ref.abs().max()),
+           "kernel_ms": time_ms(lambda: reward_model_scores(rms["kernel"], tokens, mask), iters=5),
+           "plain_ms": time_ms(lambda: reward_model_scores(rms["plain"], tokens, mask), iters=5)}
+    log(f"[rm-route] reward model score, kernel vs plain route: {json.dumps(out)} on {card_line()}")
+    del rms
+    free()
+    return out
+
+
 GRAPH_LAYERS = 4  # depth of the graph-versus-eager phase, at GPT-J-6B width
 
 
@@ -2471,8 +2874,13 @@ def main() -> int:
         log(f"[{path}] done in {time.perf_counter() - t0:.1f}s")
         return out
 
-    # ILQL first: its step nears the card's memory, so it gets the allocator fresh.
+    # ILQL first: its step nears the card's memory, so it gets the allocator
+    # fresh; the HF + reward-model path (~69 GB) next.
     run("ilql_train", lambda: ilql_train_path(kernels))
+    hf_out, _ = run("hf_rm_train", lambda: hf_rm_train_path(kernels))
+    # The resume reads hf_rm_train's end checkpoint, so nothing else is saved
+    # while it is on disk.
+    run("resume_ppo", lambda: resume_path(kernels, hf_out["saved_state"], hf_out["run_dir"]))
     run("rollout_bf16", lambda: main_path(kernels))
     run("rollout_int8", lambda: main_path(kernels, quant=True))
     paged, _, _ = run("engine_paged_bf16", lambda: engine_rollout_path(kernels, paged=True))
@@ -2485,11 +2893,14 @@ def main() -> int:
     phase_ilql_grad_consistency(kernels)
     log(f"[ilql-grad] done in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
+    phase_rm_route(kernels)
+    log(f"[rm-route] done in {time.perf_counter() - t0:.1f}s")
+    run("text_ppo", lambda: text_ppo_path(kernels))
+    t0 = time.perf_counter()
     ilql_resume_path(kernels)
     free()
     log(f"[resume] ILQL done in {time.perf_counter() - t0:.1f}s")
-    train_out, _ = run("train_bf16", lambda: train_path(kernels))
-    run("resume_ppo", lambda: resume_path(kernels, train_out["saved_state"]))
+    run("train_bf16", lambda: train_path(kernels))
     run("engine_train", lambda: engine_train_path(kernels))
     t0 = time.perf_counter()
     phase_graph(kernels)
@@ -2507,8 +2918,9 @@ def main() -> int:
             log_f32_row(name, ms, p["flops"], p["bound_ms"], p["matmul_ms"], "its torch.matmul yardstick")
 
     # Each row's launches are those of the main path (engine_train), except
-    # for the kernels it does not run: row 7 counts on the training path
-    # over the chunked bf16 sampler, row 9 on the paged bf16 engine, and the
+    # for the kernels it does not run: row 7 counts on the full-depth
+    # training path over the chunked bf16 sampler (hf_rm_train), row 9 on
+    # the paged bf16 engine, and the
     # f32 mode of rows 4-6 on the ILQL path.
     rows = []
     for name, phase, src, replaces, path in (
@@ -2525,7 +2937,7 @@ def main() -> int:
         ("fused_logprob_bwd_dw", "fused_logprob_bwd_dw", "trlx_tpu_torch/csrc/fused_logprob_bwd.cu",
          "trlx_tpu/ops/fused_logprob.py:237", "engine_train"),
         ("decode_attention", "decode", "trlx_tpu_torch/csrc/decode_attn.cu", "trlx_tpu/ops/decode_attention.py:193",
-         "train_bf16"),
+         "hf_rm_train"),
         ("decode_attention_int8", "decode_int8", "trlx_tpu_torch/csrc/decode_attn.cu",
          "trlx_tpu/ops/decode_attention.py:161", "engine_train"),
         ("paged_decode_attention", "paged_decode", "trlx_tpu_torch/csrc/decode_attn.cu",

@@ -1239,3 +1239,81 @@ def test_decode_graph_after_load_equals_a_fresh_load(tmp_path):
     ta, tb = a.rollout_generate(ids, mask)[0], b.rollout_generate(ids, mask)[0]
     assert torch.equal(ta, tb)
     assert not torch.equal(ta, before)
+
+
+def test_reward_model_score_kernel_route_matches_plain():
+    """The reward model's score (value head at the last valid token) on the
+    kernel route, whose trunk runs the flash forward once per layer, against
+    the plain route (einsum attention) on the same weights: left-padded
+    rows, one all padding (score 0), within 2e-2 of max |score|."""
+    dev = _cuda()
+    import numpy as np
+
+    from trlx_tpu_torch.models.heads import LMWithValueHead
+    from trlx_tpu_torch.models.hf_import import init_params
+    from trlx_tpu_torch.models.lm import LMConfig
+    from trlx_tpu_torch.ops.flash_attention import flash_fwd
+    from trlx_tpu_torch.trainer.ppo import reward_model_scores
+
+    cfg = LMConfig(vocab_size=1024, n_layer=2, n_head=8, d_model=1024, max_position=512, pos_type="rotary",
+                   rotary_dim=32, parallel_residual=True, fused_qkv=False, qkv_bias=False, out_bias=False,
+                   tie_word_embeddings=False, extra={"lm_head_bias": True})
+    rms = []
+    for c in (cfg, cfg.replace(attn_impl="xla")):
+        rm = LMWithValueHead(c, branch_layer=-1, device=dev)
+        init_params(rm, torch.Generator(device=dev).manual_seed(5))
+        rm.requires_grad_(False)
+        rms.append(rm)
+    rng = np.random.default_rng(0)
+    tokens = torch.as_tensor(rng.integers(0, 1024, size=(4, 256)), dtype=torch.int32, device=dev)
+    mask = torch.ones_like(tokens)
+    for i, pad in enumerate((0, 37, 200, 256)):
+        mask[i, :pad] = 0
+    before = flash_fwd.launches
+    got = reward_model_scores(rms[0], tokens, mask)
+    assert flash_fwd.launches == before + 2
+    ref = reward_model_scores(rms[1], tokens, mask)
+    assert flash_fwd.launches == before + 2
+    assert got[-1] == 0 and ref[-1] == 0
+    torch.testing.assert_close(got, ref, rtol=0, atol=2e-2 * float(ref.abs().max()))
+
+
+def test_hf_load_onto_the_card_equals_the_cpu_load(tmp_path):
+    """An HF directory (bf16 safetensors, sharded with an index, written by
+    the port) loaded straight into a model on the card holds the same
+    parameters, bit for bit, as the same load on the CPU; an export from
+    the card reads back equal."""
+    dev = _cuda()
+    import shutil
+    from types import SimpleNamespace
+
+    from trlx_tpu_torch.models.heads import LMWithValueHead
+    from trlx_tpu_torch.models.hf_export import export_hf
+    from trlx_tpu_torch.models.hf_import import build_lm_config, init_params, load_hf_trunk, load_or_init_params
+    from trlx_tpu_torch.models.lm import LMConfig
+    from trlx_tpu_torch.models.safetensors_io import SafetensorsReader, write_safetensors
+
+    cfg = LMConfig(vocab_size=512, n_layer=2, n_head=4, d_model=256, max_position=512, pos_type="rotary",
+                   rotary_dim=32, parallel_residual=True, fused_qkv=False, qkv_bias=False, out_bias=False,
+                   tie_word_embeddings=False, extra={"lm_head_bias": True})
+    src = LMWithValueHead(cfg, device="cpu")
+    init_params(src, torch.Generator().manual_seed(1))
+    f32_dir = export_hf(dict(src.named_parameters()), cfg, str(tmp_path / "f32"))
+    reader = SafetensorsReader(f32_dir)
+    bf16_dir = str(tmp_path / "bf16")
+    write_safetensors(bf16_dir, {k: reader[k].to(torch.bfloat16) for k in reader}, max_shard_bytes=1 << 20)
+    shutil.copy(f"{f32_dir}/config.json", bf16_dir)
+    config = SimpleNamespace(model=SimpleNamespace(model_path=bf16_dir, model_arch={}, dtype="bfloat16",
+                                                   param_dtype="float32", remat=False, remat_policy="full",
+                                                   kv_cache_quant=False))
+    models = {}
+    for d in ("cpu", dev):
+        models[str(d)] = LMWithValueHead(build_lm_config(config), device=d)
+        load_or_init_params(models[str(d)], config, torch.Generator(device=d).manual_seed(2))
+    cpu, card = models["cpu"], models[str(dev)]
+    for (n, a), (_, b) in zip(cpu.transformer.named_parameters(), card.transformer.named_parameters()):
+        assert b.device.type == "cuda" and torch.equal(a, b.cpu()), n
+    out = export_hf(dict(card.named_parameters()), card.cfg, str(tmp_path / "out"))
+    back = load_hf_trunk(out, card.cfg)
+    for n, p in card.transformer.named_parameters():
+        assert torch.equal(back[n], p.cpu()), n

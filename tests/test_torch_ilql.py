@@ -322,7 +322,8 @@ def _samples(n=16, seed=0):
 def test_offline_orchestrator_degenerate_samples(tmp_path):
     """Prompt-only and over-truncated samples build a store (empty action
     rows are padded no-ops) equal, array for array, to the JAX package's
-    for the same samples; a text sample raises naming text mode."""
+    for the same samples; a text sample on a trainer without a tokenizer
+    raises ValueError naming the tokenizer (text mode needs one)."""
     samples = [np.asarray([3]), np.arange(1, T + 5) % V, np.asarray([4, 5, 6]), np.asarray([], dtype=np.int32)]
     rewards = [0.5, 1.0, -1.0, 2.0]
     config = TRLConfig.from_dict(_trainer_config(tmp_path))
@@ -337,7 +338,7 @@ def test_offline_orchestrator_degenerate_samples(tmp_path):
         JaxOfflineOrchestrator(jmodel).make_experience(samples, rewards)
     for key in ("input_ids", "attention_mask", "rewards", "states_ixs", "actions_ixs", "dones"):
         np.testing.assert_allclose(getattr(model.store, key), getattr(jmodel.store, key), rtol=1e-6, err_msg=key)
-    with pytest.raises(NotImplementedError, match="text mode"):
+    with pytest.raises(ValueError, match="text samples need a tokenizer"):
         OfflineOrchestrator(model).make_experience(["a walk"], [1.0])
 
 

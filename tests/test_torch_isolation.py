@@ -76,6 +76,32 @@ def test_ast_scan_finds_no_forbidden_import():
     assert not bad, bad
 
 
+def test_no_transformers_or_safetensors_outside_the_tokenizer():
+    """The port reads and writes HF checkpoints itself: no module imports
+    ``safetensors``, and ``transformers`` is imported only inside
+    ``_build_tokenizer`` (a tokenizer path given), never at import time nor
+    on the load or export path."""
+    found = []
+    for dirpath, _, names in os.walk(PKG):
+        for n in names:
+            if not n.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, n)
+
+            def visit(node, fn):
+                if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                    fn = node.name
+                names_ = [a.name for a in node.names] if isinstance(node, ast.Import) else (
+                    [node.module] if isinstance(node, ast.ImportFrom) and node.module else [])
+                found.extend((os.path.relpath(path, ROOT), fn, m) for m in names_
+                             if m.split(".")[0] in ("transformers", "safetensors", "huggingface_hub"))
+                for child in ast.iter_child_nodes(node):
+                    visit(child, fn)
+
+            visit(ast.parse(open(path).read(), filename=path), None)
+    assert found and all(f[1] == "_build_tokenizer" and f[2] == "transformers" for f in found), found
+
+
 def test_cuda_request_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device exists here; the refusal path cannot be exercised")

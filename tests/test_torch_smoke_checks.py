@@ -120,3 +120,32 @@ def test_lost_device_records(case):
     assert got["lost"] == {"complete": 0, "kernel_records_lost": 3, "graph_replay_short": 3}[case]
     assert (got["kernel_launch_records"], got["graph_launch_records"]) == (10, 4)
     assert got["device_records_per_graph_launch"] == [5 if case == "graph_replay_short" else 8, 8]
+
+
+def test_smoke_gptj_checkpoint_layout(tmp_path):
+    """The HF directory the smoke writes: the published GPT-J-6B config maps
+    to the smoke's GPT-J-6B architecture, and its tensor names are exactly
+    the HF GPT-J state dict the port's exporter checks against."""
+    import json
+
+    from trlx_tpu_torch.models.hf_export import hf_state_keys
+    from trlx_tpu_torch.models.hf_import import lm_config_from_hf, read_hf_config
+
+    (tmp_path / "config.json").write_text(json.dumps(chip_smoke.GPTJ_6B_HF_CONFIG))
+    cfg = lm_config_from_hf(read_hf_config(str(tmp_path)))
+    arch = {k: v for k, v in chip_smoke.GPTJ_6B_ARCH.items() if k not in ("eos_token_id", "d_ff")}
+    assert cfg.ff_dim == chip_smoke.GPTJ_6B_ARCH["d_ff"]  # n_inner null: 4 x n_embd
+    for k, v in arch.items():
+        assert getattr(cfg, k) == (tuple(v) if isinstance(v, list) else v), k
+    for n_layer in (2, 28):
+        assert set(chip_smoke.gptj_hf_shapes(n_layer)) == hf_state_keys("gptj", cfg.replace(n_layer=n_layer))
+
+
+def test_smoke_byte_tokenizer_round_trip():
+    """The smoke's byte-level tokenizer: text → its bytes → the same text;
+    BOS / EOS / pad (50256) are skipped when decoding."""
+    tok = chip_smoke.ByteTokenizer()
+    text = "".join(chip_smoke.seeded_texts(1, 0))
+    ids = tok(text)["input_ids"]
+    assert len(ids) == len(text) and max(ids) < 127
+    assert tok.batch_decode([[50256, 50256, *ids, 50256]]) == [text]

@@ -249,9 +249,12 @@ def test_unported_knobs_are_refused(tmp_path, trainer, section, knob, value):
 def test_train_dispatch_refuses_ilql_and_needs_reward_fn(tmp_path, monkeypatch):
     """``train()``'s dispatch: a ``dataset`` reaches the ILQL trainer
     through the offline orchestrator (stopped at ``learn()`` here; the
-    whole path is ``tests/test_torch_ilql.py``); ILQL refuses text samples,
-    naming text mode, and a tokenizer; with neither a ``reward_fn`` nor a
-    ``dataset`` it raises ValueError."""
+    whole path is ``tests/test_torch_ilql.py``); text samples need a
+    tokenizer (ValueError without one); with ``model.tokenizer_path`` the
+    trainer builds its tokenizer (``_build_tokenizer``) and text samples
+    reach the store; with neither a ``reward_fn`` nor a ``dataset`` it
+    raises ValueError."""
+    from trlx_tpu_torch.trainer.base import BaseTrainer
     from trlx_tpu_torch.trainer.ilql import ILQLTrainer
 
     config = TRLConfig.from_dict(_ilql_config(tmp_path))
@@ -261,12 +264,23 @@ def test_train_dispatch_refuses_ilql_and_needs_reward_fn(tmp_path, monkeypatch):
     model = trlx_tpu_torch.train(dataset=(samples, [1.0, -1.0]), config=config, device="cpu")
     assert reached == [model] and type(model) is ILQLTrainer and len(model.store) == 2
     assert model.eval_pipeline is not None
-    with pytest.raises(NotImplementedError, match="text mode"):
+    with pytest.raises(ValueError, match="text samples need a tokenizer"):
         trlx_tpu_torch.train(dataset=(["a walk"], [1.0]), config=config, device="cpu")
     cfg = _ilql_config(tmp_path)
-    cfg["model"]["tokenizer_path"] = "gpt2"
-    with pytest.raises(NotImplementedError, match="tokenizer"):
-        trlx_tpu_torch.train(dataset=(samples, [1.0, -1.0]), config=TRLConfig.from_dict(cfg), device="cpu")
+    cfg["model"]["tokenizer_path"] = "char-tokenizer"
+    built = []
+
+    class ByteTokenizer:
+        bos_token_id, eos_token_id, pad_token_id, bos_token = 2, 1, 1, "\x02"
+
+        def __call__(self, text, add_special_tokens=False):
+            return {"input_ids": [3 + b % (V - 3) for b in text.encode()]}
+
+    monkeypatch.setattr(BaseTrainer, "_build_tokenizer", lambda self, path: built.append(path) or ByteTokenizer())
+    model = trlx_tpu_torch.train(dataset=(["a walk", "ab"], [1.0, -1.0]), config=TRLConfig.from_dict(cfg),
+                                 device="cpu")
+    assert built == ["char-tokenizer"] and reached[-1] is model and len(model.store) == 2
+    np.testing.assert_array_equal(model.store.input_ids[1, :4], [2, 3 + 97 % (V - 3), 3 + 98 % (V - 3), 1])
     with pytest.raises(ValueError, match="reward_fn or dataset"):
         trlx_tpu_torch.train(config=config, device="cpu")
 

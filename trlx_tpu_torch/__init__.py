@@ -9,7 +9,11 @@ caller passes ``device="cpu"``; the hand-written Hopper kernels live under
 Online PPO runs end to end through ``trlx_tpu_torch.train(reward_fn=...)``:
 prompts → prefill + KV-cache decode → host reward → frozen-branch scoring →
 rollout store → ``learn()`` (PPO loss, backward through the flash and
-fused-logprob kernels, AdamW) → the next rollouts → ``evaluate()``.
+fused-logprob kernels, AdamW) → the next rollouts → ``evaluate()``. The model
+may come from a local HF directory (``model_path``) and go back to one
+(``save_pretrained``), prompts may be text (``model.tokenizer_path``), and
+an on-device reward model (``model.reward_model_path``) may score the
+rollouts in place of ``reward_fn``.
 """
 
 __version__ = "0.2.0"

@@ -1,11 +1,10 @@
 """Offline (ILQL) experience (the counterpart of
-``trlx_tpu.orchestrator.offline_orchestrator``): token-array samples →
-action and state indices, z-scored returns with the terminal reward on the
-final action → ``ILQLRolloutStorage``.
+``trlx_tpu.orchestrator.offline_orchestrator``): samples (text with a
+tokenizer, or token arrays) → action and state indices, z-scored returns
+with the terminal reward on the final action → ``ILQLRolloutStorage``.
 
-Samples are token arrays (text samples need a tokenizer: text mode is not
-ported). The JAX package's multi-host sample-count check waits for the
-distributed stack."""
+The JAX package's multi-host sample-count check waits for the distributed
+stack."""
 
 import warnings
 
@@ -22,24 +21,32 @@ class OfflineOrchestrator(Orchestrator):
         self.split_token = split_token
 
     def make_experience(self, samples, rewards):
-        """Fill ``model.store`` from (samples, rewards). Without a tokenizer
-        the prompt is the first token (``split_token`` splits text, which
-        needs one), so every later token is an action: the states are
-        positions 0 .. L - 1 and the actions 0 .. L - 2 of the (truncated)
-        sample. A sample of one token or none has no action: it is stored as
-        a padded no-op and left out of the return statistics."""
+        """Fill ``model.store`` from (samples, rewards). With a tokenizer and
+        ``split_token``, the prompt of a text sample runs through the first
+        ``split_token``; otherwise it is the first token (BOS for text). The
+        states are positions start .. L - 1 and the actions start .. L - 2
+        of the (truncated) sample, start being the prompt's last token. A
+        sample whose prompt takes it whole has no action: it is stored as a
+        padded no-op and left out of the return statistics."""
         model = self.model
+        tokenizer = model.tokenizer
         input_ids = model.tokenize_ilql(samples)
 
         T = model.config.train.seq_length
         states_ixs, actions_ixs, dones = [], [], []
-        for s_tok in input_ids:
+        for s, s_tok in zip(samples, input_ids):
+            if self.split_token and tokenizer is not None:
+                prompt_str_len = s.index(self.split_token) + len(self.split_token)
+                prompt_tok_len = len(tokenizer(s[:prompt_str_len])["input_ids"])
+            else:
+                prompt_tok_len = 1
             L = min(len(s_tok), T)
-            s_ixs = np.arange(L)
+            start = max(0, min(prompt_tok_len - 1, L - 1))
+            s_ixs = np.arange(start, L)
             terminals = np.ones_like(s_ixs)
             if len(terminals):
                 terminals[-1] = 0
-            actions_ixs.append(np.arange(max(L - 1, 0)))
+            actions_ixs.append(np.arange(start, L - 1))
             states_ixs.append(s_ixs)
             dones.append(terminals)
 

@@ -15,6 +15,11 @@ submitted to the trainer's ``RolloutEngine`` up front, finished episodes
 stream back in completion order, and they are assembled into chunks at the
 trainer's full prompt width and scored unfused (``rollout_score``).
 
+With an on-device reward model (``rl.has_reward_model``) both paths score a
+chunk with ``rollout_score_rm`` instead: the reward model's scores and the
+policy and reference passes, all on the device, with no decode and no host
+reward.
+
 Not ported here: the score-worker thread, in-flight weight polling, fault
 plans, multi-process schedule checks, the fleet, health monitoring and
 trace spans.
@@ -83,7 +88,8 @@ class PPOOrchestrator(Orchestrator):
         store = rl.store
         t_phase = time.perf_counter()
         gen_s = reward_s = score_s = push_s = 0.0
-        prefill_dev_s = decode_dev_s = score_dev_s = 0.0
+        prefill_dev_s = decode_dev_s = score_dev_s = rm_dev_s = 0.0
+        has_rm = rl.has_reward_model
         gen_tokens = 0
         decode_steps = []
         n_collected = 0
@@ -109,19 +115,27 @@ class PPOOrchestrator(Orchestrator):
             gen_tokens += ds["gen_tokens"]
             decode_steps.append(ds["decode_steps"])
 
-            t = time.perf_counter()
-            texts_or_tokens = rl.decode(tokens_h, mask_h)
-            scores = np.asarray(self.score(texts_or_tokens), dtype=np.float32)
-            reward_s += time.perf_counter() - t
-
-            t = time.perf_counter()
             score_t = {}
-            if gen_aux is not None:
-                out = rl.rollout_score_fused(tokens, mask, scores, gen_aux, timings=score_t)
+            if has_rm:
+                # The reward model scores on the device: no decode, no host
+                # reward.
+                t = time.perf_counter()
+                logprobs, values, rewards, kl, scores = rl.to_host(rl.rollout_score_rm(tokens, mask, timings=score_t))
+                score_s += time.perf_counter() - t
+                rm_dev_s += elapsed_s(score_t["rm_start"], score_t["rm_end"])
             else:
-                out = rl.rollout_score(tokens, mask, scores, timings=score_t)
-            logprobs, values, rewards, kl = rl.to_host(out)
-            score_s += time.perf_counter() - t
+                t = time.perf_counter()
+                texts_or_tokens = rl.decode(tokens_h, mask_h)
+                scores = np.asarray(self.score(texts_or_tokens), dtype=np.float32)
+                reward_s += time.perf_counter() - t
+
+                t = time.perf_counter()
+                if gen_aux is not None:
+                    out = rl.rollout_score_fused(tokens, mask, scores, gen_aux, timings=score_t)
+                else:
+                    out = rl.rollout_score(tokens, mask, scores, timings=score_t)
+                logprobs, values, rewards, kl = rl.to_host(out)
+                score_s += time.perf_counter() - t
             score_dev_s += elapsed_s(score_t["start"], score_t["end"])
 
             t = time.perf_counter()
@@ -161,6 +175,8 @@ class PPOOrchestrator(Orchestrator):
             "rollout_max_abs_kl": max_abs_kl,
             "exp_per_sec": num_rollouts / max(exp_time, 1e-9),
         }
+        if has_rm:
+            stats["exp_rm_score_device_s"] = rm_dev_s
         rl.tracker.log(stats, step=iter_count)
         return stats
 
@@ -226,12 +242,16 @@ class PPOOrchestrator(Orchestrator):
                     take = min(chunk, len(finished_buf))
                     batch_eps, finished_buf = finished_buf[:take], finished_buf[take:]
                     tokens_h, mask_h = assemble(batch_eps)
-                    t = time.perf_counter()
-                    scores = np.asarray(self.score(rl.decode(tokens_h, mask_h)), dtype=np.float32)
-                    reward_s += time.perf_counter() - t
-                    t = time.perf_counter()
-                    out = rl.rollout_score(rl.put(tokens_h), rl.put(mask_h), scores)
-                    logprobs, values, rewards, kl = rl.to_host(out)
+                    if rl.has_reward_model:
+                        t = time.perf_counter()
+                        logprobs, values, rewards, kl, scores = rl.to_host(rl.rollout_score_rm(tokens_h, mask_h))
+                    else:
+                        t = time.perf_counter()
+                        scores = np.asarray(self.score(rl.decode(tokens_h, mask_h)), dtype=np.float32)
+                        reward_s += time.perf_counter() - t
+                        t = time.perf_counter()
+                        out = rl.rollout_score(rl.put(tokens_h), rl.put(mask_h), scores)
+                        logprobs, values, rewards, kl = rl.to_host(out)
                     score_s += time.perf_counter() - t
                     t = time.perf_counter()
                     store.push_batch({

@@ -1,11 +1,13 @@
 """``train()`` dispatch (the counterpart of ``trlx_tpu.trainer.api``): a
-``reward_fn`` runs online PPO — trainer, ``PromptPipeline``, orchestrator,
-the first ``make_experience``, the eval pipeline, ``learn()``; a ``dataset``
-of (token-array samples, rewards) runs offline ILQL — trainer,
-``OfflineOrchestrator.make_experience``, the eval pipeline, ``learn()``. The
-on-device reward model and text samples (a tokenizer) are not ported yet and
-raise."""
+``reward_fn`` or an on-device reward model in the config runs online PPO —
+trainer, ``PromptPipeline``, orchestrator, the first ``make_experience``,
+the eval pipeline, ``learn()``; a ``dataset`` of (samples, rewards) runs
+offline ILQL — trainer, ``OfflineOrchestrator.make_experience``, the eval
+pipeline, ``learn()``. Prompts and samples are strings (with the config's
+tokenizer) or token ids. Without a config, the port's copies of the JAX
+package's default configs are read (``trlx_tpu_torch/configs``)."""
 
+import os
 from typing import Callable, List, Optional, Tuple
 
 # Importing these modules populates the registries.
@@ -18,6 +20,13 @@ from trlx_tpu_torch.data.configs import TRLConfig
 from trlx_tpu_torch.orchestrator import get_orchestrator
 from trlx_tpu_torch.pipeline.prompt_pipeline import PromptPipeline
 from trlx_tpu_torch.trainer import get_model
+
+_CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs")
+
+
+def default_config(name: str) -> TRLConfig:
+    """The default config of method ``name`` ("ppo" or "ilql")."""
+    return TRLConfig.load_yaml(os.path.join(_CONFIG_DIR, f"{name}_config.yml"))
 
 
 def train(
@@ -34,42 +43,51 @@ def train(
 ):
     """Train a model and return its trainer. ``device`` is the port's
     explicit device: CUDA unless the caller names another ("cpu" in the
-    tests). Prompts and samples are token-id lists or arrays (tokenizers are
-    not ported), and a ``config`` is required: the JAX package's default
-    configs name a tokenizer."""
-    if config is not None and config.model.has_reward_model:
-        raise NotImplementedError("the on-device reward model is not ported yet")
-    if reward_fn is None and dataset is None:
-        raise ValueError("Either reward_fn or dataset must be given")
-    if reward_fn is None:
-        samples, rewards = dataset
-        if any(isinstance(s, str) for s in samples):
-            raise NotImplementedError("text samples need a tokenizer (text mode is not ported yet): "
-                                      "pass token-id arrays")
-    if config is None:
-        raise ValueError("train() needs a config: the default configs name a tokenizer, which is not ported yet")
-    if model_path:
-        config.model.model_path = model_path
-
-    if reward_fn is not None:
-        if prompts is None:
-            raise ValueError("train() needs token-id prompts: default prompts need a tokenizer")
+    tests). Without prompts, PPO starts from BOS × ``train.batch_size``,
+    which needs a tokenizer; ILQL's eval prompts default to the same (token
+    0 without a tokenizer)."""
+    has_rm = config is not None and config.model.has_reward_model
+    if reward_fn is not None and has_rm:
+        raise ValueError(
+            "Both reward_fn and an on-device reward model "
+            "(model.reward_model_path/reward_model_arch) are set — rollouts "
+            "would optimize the RM while eval reports reward_fn. Pick one "
+            "reward source."
+        )
+    if reward_fn is not None or has_rm:
+        if config is None:
+            config = default_config("ppo")
+        if model_path:
+            config.model.model_path = model_path
         model = get_model(config.model.model_type)(
             config, device=device, reward_fn=reward_fn, metric_fn=metric_fn, logit_mask=logit_mask
         )
-        pipeline = PromptPipeline(prompts, None, max_prompt_length=model.prompt_length)
+        if prompts is None:
+            if model.tokenizer is None:
+                raise ValueError("default prompts need a tokenizer: pass prompts or set model.tokenizer_path")
+            prompts = [model.tokenizer.bos_token] * config.train.batch_size
+        pipeline = PromptPipeline(prompts, model.tokenizer, max_prompt_length=model.prompt_length)
         orch = get_orchestrator(config.train.orchestrator)(
             model, pipeline, reward_fn=reward_fn, metric_fn=metric_fn, chunk_size=config.method.chunk_size
         )
         orch.make_experience(config.method.num_rollouts)
         eval_prompts = eval_prompts if eval_prompts is not None else prompts
-    else:
+    elif dataset is not None:
+        samples, rewards = dataset
+        if config is None:
+            config = default_config("ilql")
+        if model_path:
+            config.model.model_path = model_path
         if len(samples) != len(rewards):
             raise ValueError(f"Number of samples {len(samples)} should match the number of rewards {len(rewards)}")
         model = get_model(config.model.model_type)(config, device=device, metric_fn=metric_fn, logit_mask=logit_mask)
         orch = get_orchestrator(config.train.orchestrator)(model, split_token=split_token)
         orch.make_experience(samples, rewards)
-        eval_prompts = eval_prompts if eval_prompts is not None else [[0]] * config.train.batch_size
-    model.add_eval_pipeline(PromptPipeline(eval_prompts, None, max_prompt_length=model.prompt_length))
+        if eval_prompts is None:
+            bs = config.train.batch_size
+            eval_prompts = [model.tokenizer.bos_token] * bs if model.tokenizer is not None else [[0]] * bs
+    else:
+        raise ValueError("Either reward_fn or dataset must be given")
+    model.add_eval_pipeline(PromptPipeline(eval_prompts, model.tokenizer, max_prompt_length=model.prompt_length))
     model.learn()
     return model

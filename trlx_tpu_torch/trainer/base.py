@@ -4,12 +4,16 @@ learning-rate schedule, the optimizer, evaluation, checkpointing and the
 
 A trainer owns one device, the model and its parameters, the seeded
 generators, the optimizer state (its step counts and moments), the
-consecutive-skip count of the non-finite guard, and the host hooks
-(``reward_fn``, ``metric_fn``, ``logit_mask``). There is one device and no
-mesh: ``train.mesh`` is read by the JAX package only. Prompts are token ids:
-loading a tokenizer is not ported yet, so ``model.tokenizer_path`` must be
-empty. Every knob whose feature is missing is refused by
-``refuse_unported``.
+consecutive-skip count of the non-finite guard, the tokenizer, and the host
+hooks (``reward_fn``, ``metric_fn``, ``logit_mask``). There is one device and
+no mesh: ``train.mesh`` is read by the JAX package only. With
+``model.tokenizer_path`` the trainer runs in text mode (``_build_tokenizer``:
+``transformers.AutoTokenizer``, imported when called, or any object with the
+same interface a subclass returns): prompts are strings, ``decode`` gives
+text to ``reward_fn`` and ``metric_fn``; without one, prompts and samples
+are token ids. ``save_pretrained`` exports the trunk as an HF checkpoint
+(``models/hf_export.py``). Every knob whose feature is missing is refused
+by ``refuse_unported``.
 
 Checkpoints (``save`` / ``load``) are the port's own format, not the JAX
 package's orbax directory: ``<train.checkpoint_dir>/state_<step>/`` holds
@@ -39,6 +43,7 @@ import torch
 from trlx_tpu_torch.data.configs import TRLConfig
 from trlx_tpu_torch.data.method_configs import PPOConfig
 from trlx_tpu_torch.device import resolve_device
+from trlx_tpu_torch.models.hf_export import export_hf
 from trlx_tpu_torch.models.lm import refresh_weight_copies
 from trlx_tpu_torch.resilience import checkpoint as ckpt_util
 from trlx_tpu_torch.resilience.checkpoint import CheckpointError
@@ -210,7 +215,6 @@ def refuse_unported(config: TRLConfig):
             "method.fleet_disaggregate": m.fleet_disaggregate,
             "method.fleet_elastic": m.fleet_elastic,
             "method.gen_kwargs.prompt_buckets": bool(m.gen_kwargs.get("prompt_buckets")),
-            "model.reward_model": mc.has_reward_model,
         })
     on = [k for k, v in unported.items() if v]
     if on:
@@ -221,12 +225,8 @@ class BaseTrainer(BaseRLTrainer):
     def __init__(self, config: TRLConfig, device: Optional[Union[str, torch.device]] = None, **kwargs):
         super().__init__(config)
         self.device = resolve_device(device)
-        if config.model.tokenizer_path:
-            raise NotImplementedError(
-                "tokenizers are not ported yet: set model.tokenizer_path to '' and pass token-id prompts"
-            )
         refuse_unported(config)
-        self.tokenizer = None
+        self.tokenizer = self._build_tokenizer(config.model.tokenizer_path)
         self.reward_fn = kwargs.pop("reward_fn", None)
         self.metric_fn = kwargs.pop("metric_fn", None)
         self.logit_mask = kwargs.pop("logit_mask", None)
@@ -307,10 +307,39 @@ class BaseTrainer(BaseRLTrainer):
             return {k: BaseTrainer.to_host(v) for k, v in tree.items()}
         return tree
 
+    def _build_tokenizer(self, tokenizer_path: str):
+        """The tokenizer at ``tokenizer_path`` (None for ""): pad = eos, left
+        padding, as the JAX package sets them. ``transformers`` is imported
+        here, only when a path is given; a subclass may return any object
+        with the same interface (``__call__``, ``batch_decode``,
+        ``bos_token_id``, ``eos_token_id``, ``pad_token_id``)."""
+        if not tokenizer_path:
+            return None
+        from transformers import AutoTokenizer
+
+        tokenizer = AutoTokenizer.from_pretrained(tokenizer_path)
+        tokenizer.pad_token = tokenizer.eos_token
+        tokenizer.padding_side = "left"
+        return tokenizer
+
+    def tokenize(self, texts):
+        """BOS + text, truncated to ``train.seq_length`` keeping the trailing
+        tokens (the prompts' keep-last rule)."""
+        assert self.tokenizer is not None, "tokenize() requires a tokenizer"
+        out = []
+        for text in texts:
+            ids = self.tokenizer(text, add_special_tokens=False)["input_ids"]
+            if self.tokenizer.bos_token_id is not None:
+                ids = [self.tokenizer.bos_token_id] + ids
+            out.append(ids[-self.config.train.seq_length:])
+        return out
+
     def decode(self, tokens, mask=None):
-        """Token grids → per-row token arrays, trimmed to the mask (the
-        no-tokenizer mode of the JAX package's ``decode``)."""
+        """Token grids → text with a tokenizer (special tokens skipped), else
+        per-row token arrays trimmed to the mask."""
         tokens = self.to_host(tokens)
+        if self.tokenizer is not None:
+            return self.tokenizer.batch_decode(tokens, skip_special_tokens=True)
         if mask is None:
             return [t for t in tokens]
         mask = self.to_host(mask)
@@ -415,23 +444,32 @@ class BaseTrainer(BaseRLTrainer):
         """Sample the eval prompts, score them with ``reward_fn`` and
         ``metric_fn``, and log a table. Statistics run over exactly the valid
         eval rows: the loader's fixed-shape wrap-around duplicates are
-        dropped first."""
+        dropped first. With an on-device reward model and no ``reward_fn``,
+        the rewards are the reward model's scores."""
         eval_t0 = time.time()
         stats = {}
         all_texts = []
+        rm_scores = []
+        use_rm = self.reward_fn is None and getattr(self, "has_reward_model", False)
         t0 = time.time()
         for i, (batch, n_valid) in enumerate(self.eval_dataloader.iter_with_valid()):
             tokens, mask = self.eval_generate(batch["input_ids"], batch["attention_mask"], i)
+            if use_rm:
+                rm_scores.append(self.to_host(self.rm_eval_scores(tokens, mask))[:n_valid])
             t, m = self.to_host((tokens, mask))
             all_texts.extend(self.decode(t[:n_valid], m[:n_valid]))
         stats["generate_time"] = time.time() - t0
 
         columns = ["sample"]
         rows = [[t] for t in all_texts]
-        if self.reward_fn is not None:
+        rewards = None
+        if use_rm:
+            rewards = np.concatenate(rm_scores).astype(np.float32)
+        elif self.reward_fn is not None:
             t0 = time.time()
             rewards = np.asarray(self.reward_fn(all_texts), dtype=np.float32)
             stats["reward_time"] = time.time() - t0
+        if rewards is not None:
             stats["mean_reward"] = float(np.mean(rewards))
             columns.append("reward")
             for row, r in zip(rows, rewards):
@@ -763,6 +801,19 @@ class BaseTrainer(BaseRLTrainer):
         self.step = int(state["train_state"]["step"])
         self.bad_steps = int(state["train_state"]["bad_steps"])
         refresh_weight_copies(self.model)
+
+    # ------------------------------------------------------------ HF export
+
+    def save_pretrained(self, out_dir: str, family: Optional[str] = None) -> str:
+        """Export the trained trunk as an HF checkpoint directory
+        (``config.json``, f32 safetensors) and every other parameter (value
+        head, ILQL's Q and V heads) beside it in ``trlx_tpu_heads.npz``. The
+        frozen extras (the reference branch, the target Q heads) are not
+        exported. Streams one tensor at a time from the device. Returns
+        ``out_dir``."""
+        params = dict(self.model.named_parameters())
+        heads = {k: v for k, v in params.items() if not k.startswith("transformer.")}
+        return export_hf(params, self.model.cfg, out_dir, family=family, head_params=heads)
 
     # ------------------------------------------------------- BaseRL protocol
 

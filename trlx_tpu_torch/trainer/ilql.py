@@ -25,7 +25,7 @@ import torch
 from trlx_tpu_torch.data import ILQLBatch
 from trlx_tpu_torch.data.configs import TRLConfig
 from trlx_tpu_torch.models.heads import LMWithILQLHeads, swapped_params, trainable_mask
-from trlx_tpu_torch.models.hf_import import build_lm_config, init_params
+from trlx_tpu_torch.models.hf_import import build_lm_config, load_or_init_params
 from trlx_tpu_torch.models.lm import compute_weight
 from trlx_tpu_torch.ops.fused_logprob import fused_logprob_eligible, routed_logprob
 from trlx_tpu_torch.ops.generate import make_generate_fn
@@ -71,6 +71,7 @@ class ILQLTrainer(BaseTrainer):
             eos_token_id=self.eos_token_id,
         )
 
+        self.load_log = {}  # the HF load's record (bytes, seconds); None for a model built from scratch
         self.model = self.get_arch(config)
         self.extras = self.make_extras()
         self.store: ILQLRolloutStorage = None
@@ -85,18 +86,23 @@ class ILQLTrainer(BaseTrainer):
 
     @property
     def pad_token_id(self) -> int:
+        if self.tokenizer is not None and self.tokenizer.pad_token_id is not None:
+            return int(self.tokenizer.pad_token_id)
         return 0
 
     @property
     def eos_token_id(self):
+        if self.tokenizer is not None:
+            return self.tokenizer.eos_token_id
         return self.config.model.model_arch.get("eos_token_id")
 
     def get_arch(self, config: TRLConfig) -> LMWithILQLHeads:
-        """The ILQL heads model, seeded from ``train.seed``; the bottom
-        n_layer - num_layers_unfrozen blocks are frozen."""
+        """The ILQL heads model, seeded from ``train.seed``, its trunk loaded
+        from ``model.model_path`` when the config names a checkpoint; the
+        bottom n_layer - num_layers_unfrozen blocks are frozen."""
         lm_cfg = build_lm_config(config)
         model = LMWithILQLHeads(lm_cfg, two_qs=config.method.two_qs, device=self.device)
-        init_params(model, self.seeded_generator(1))
+        self.load_log["policy"] = load_or_init_params(model, config, self.seeded_generator(1))
         self.opt_mask = trainable_mask(model, lm_cfg, config.model.num_layers_unfrozen)
         for name, p in model.named_parameters():
             p.requires_grad_(name in self.opt_mask)
@@ -204,12 +210,24 @@ class ILQLTrainer(BaseTrainer):
     # -------------------------------------------------------------- tokenize
 
     def tokenize_ilql(self, samples):
-        """Token-array samples as flat arrays (text needs a tokenizer: text
-        mode is not ported)."""
-        if any(isinstance(s, str) for s in samples):
-            raise NotImplementedError("text samples need a tokenizer (text mode is not ported yet): "
-                                      "pass token-id arrays")
-        return [np.asarray(s).reshape(-1) for s in samples]
+        """Samples → token arrays: a text sample is BOS + its tokens + EOS,
+        truncated to ``train.seq_length`` keeping the leading tokens (so
+        action and state indices stay aligned from the start); a token-array
+        sample is taken as it is."""
+        out = []
+        for text in samples:
+            if not isinstance(text, str):
+                out.append(np.asarray(text).reshape(-1))
+                continue
+            if self.tokenizer is None:
+                raise ValueError("text samples need a tokenizer: set model.tokenizer_path or pass token-id arrays")
+            ids = self.tokenizer(text, add_special_tokens=False)["input_ids"]
+            if self.tokenizer.bos_token_id is not None:
+                ids = [self.tokenizer.bos_token_id] + ids
+            if self.tokenizer.eos_token_id is not None:
+                ids = ids + [self.tokenizer.eos_token_id]
+            out.append(np.asarray(ids[: self.config.train.seq_length], dtype=np.int32))
+        return out
 
 
 def make_ilql_loss_fn(model: LMWithILQLHeads, config: TRLConfig, get_extras, use_fused: bool):

@@ -10,8 +10,15 @@ AdamW over the trainable parameters. With ``method.rollout_engine`` the
 rollouts come from the continuous-batching ``RolloutEngine`` (optionally
 paged, ``method.paged_kv``), which the trainer builds once and shuts down at
 the end of ``learn()``.
+
+With ``model.reward_model_path`` (an HF checkpoint) or
+``model.reward_model_arch`` the rollouts are scored by an on-device reward
+model instead of a host ``reward_fn``: a frozen ``LMWithValueHead`` without
+a branch whose value head at each sequence's last valid token is its score.
+It is never trained, never in the optimizer and never in a checkpoint.
 """
 
+import copy
 from typing import Dict
 
 import numpy as np
@@ -21,7 +28,7 @@ from trlx_tpu_torch.data import PPORLBatch
 from trlx_tpu_torch.data.configs import TRLConfig
 from trlx_tpu_torch.device import stamp
 from trlx_tpu_torch.models.heads import LMWithValueHead, extract_branch_params, swapped_params, trainable_mask
-from trlx_tpu_torch.models.hf_import import build_lm_config, init_params
+from trlx_tpu_torch.models.hf_import import build_lm_config, load_or_init_params
 from trlx_tpu_torch.ops.fused_logprob import fused_logprob_eligible
 from trlx_tpu_torch.ops.generate import make_generate_fn
 from trlx_tpu_torch.ops.modeling import logprobs_from_logits
@@ -87,8 +94,10 @@ class PPOTrainer(BaseTrainer):
         m = config.method
         gen_kwargs = dict(m.gen_kwargs)
 
+        self.load_log = {}  # the HF loads' records (bytes, seconds) by model; None for a model built from scratch
         self.model = self.get_arch(config)
         self.extras = self.make_extras()
+        self.rm_model = self._build_reward_model(config) if config.model.has_reward_model else None
         self.store = PPORolloutStorage(self.pad_token_id)
         if m.target is not None:
             self.kl_ctl = AdaptiveKLController(m.init_kl_coef, m.target, m.horizon)
@@ -127,8 +136,10 @@ class PPOTrainer(BaseTrainer):
         # Fused rollout statistics: the decode loop already computes the
         # policy's logprob of each sampled token, its value and (hydra) the
         # branch-point hidden state, so scoring only replays the frozen
-        # reference branch.
-        self.fused_rollout = bool(m.fused_rollout_stats and self.model.branch_layer >= 0)
+        # reference branch. With a reward model, scoring runs the full
+        # policy re-forward beside the reward model's pass instead.
+        self.fused_rollout = bool(m.fused_rollout_stats and self.model.branch_layer >= 0
+                                  and not config.model.has_reward_model)
         if self.fused_rollout:
 
             def rollout_stats_fn(tok, s):
@@ -168,26 +179,74 @@ class PPOTrainer(BaseTrainer):
 
     @property
     def pad_token_id(self) -> int:
+        if self.tokenizer is not None and self.tokenizer.pad_token_id is not None:
+            return int(self.tokenizer.pad_token_id)
         return 0
 
     @property
     def eos_token_id(self):
+        if self.tokenizer is not None:
+            return self.tokenizer.eos_token_id
         return self.config.model.model_arch.get("eos_token_id")
 
     def get_arch(self, config: TRLConfig) -> LMWithValueHead:
         """The value-head model with its hydra branch point, seeded from
-        ``train.seed``. With k = num_layers_unfrozen in (0, n_layer) the top
-        k blocks form the frozen reference branch; otherwise there is no
-        branch and the reference is a full frozen copy."""
+        ``train.seed``, its trunk loaded from ``model.model_path`` when the
+        config names a checkpoint (``hf_import.load_or_init_params``). With k
+        = num_layers_unfrozen in (0, n_layer) the top k blocks form the
+        frozen reference branch; otherwise there is no branch and the
+        reference is a full frozen copy."""
         lm_cfg = build_lm_config(config)
         k = config.model.num_layers_unfrozen
         branch_layer = lm_cfg.n_layer - k if 0 < k < lm_cfg.n_layer else -1
         model = LMWithValueHead(lm_cfg, branch_layer=branch_layer, device=self.device)
-        init_params(model, self.seeded_generator(1))
+        self.load_log["policy"] = load_or_init_params(model, config, self.seeded_generator(1))
         self.opt_mask = trainable_mask(model, lm_cfg, config.model.num_layers_unfrozen)
         for name, p in model.named_parameters():
             p.requires_grad_(name in self.opt_mask)
         return model
+
+    def _build_reward_model(self, config: TRLConfig) -> LMWithValueHead:
+        """The on-device reward model: ``LMWithValueHead`` with no branch,
+        its trunk loaded from ``model.reward_model_path`` or built from
+        ``model.reward_model_arch``, its value head fresh. The port has no
+        ``next_rng`` key: the reward model is seeded by its own generator
+        key. Every parameter is frozen, so each forward reads the bf16 copy
+        made once per weight (``models/lm.py`` ``frozen_copy``)."""
+        rm_config = copy.deepcopy(config)
+        rm_config.model.model_path = config.model.reward_model_path
+        rm_config.model.model_arch = dict(config.model.reward_model_arch)
+        rm = LMWithValueHead(build_lm_config(rm_config), branch_layer=-1, device=self.device)
+        self.load_log["reward_model"] = load_or_init_params(rm, rm_config, self.seeded_generator(4))
+        rm.requires_grad_(False)
+        return rm
+
+    @property
+    def has_reward_model(self) -> bool:
+        return self.rm_model is not None
+
+    @torch.no_grad()
+    def rollout_score_rm(self, tokens, mask, timings=None):
+        """Scoring with the on-device reward model: its scores, then the
+        policy re-forward and reference pass of ``rollout_score`` with those
+        scores. Returns (logprobs, values, rewards, kl, scores), on the
+        device. ``timings`` gets the reward model's pass (``rm_start`` /
+        ``rm_end``) and the whole scoring (``start`` / ``end``)."""
+        tokens, mask = self.put(tokens), self.put(mask)
+        if timings is not None:
+            timings["rm_start"] = stamp(self.device)
+        scores = reward_model_scores(self.rm_model, tokens, mask)
+        if timings is not None:
+            timings["rm_end"] = stamp(self.device)
+        out = self.rollout_score(tokens, mask, scores)
+        if timings is not None:
+            timings["start"], timings["end"] = timings["rm_start"], stamp(self.device)
+        return (*out, scores)
+
+    def rm_eval_scores(self, tokens, mask) -> torch.Tensor:
+        """Reward-model scores of eval generations (device tensors in and
+        out)."""
+        return reward_model_scores(self.rm_model, self.put(tokens), self.put(mask))
 
     def make_extras(self) -> Dict[str, torch.Tensor]:
         """The frozen reference: the branch's parameters for a hydra model,
@@ -273,7 +332,7 @@ class PPOTrainer(BaseTrainer):
         else:
             ref_logits = self.model.forward_branch(bh, mask, logits_start=P - 1, params=self.extras).float()
             rlp = logprobs_from_logits(ref_logits[:, :-1], rlabels)
-        scores = self.put(np.asarray(scores, dtype=np.float32))
+        scores = self.put(scores, dtype=torch.float32)
         rewards, kl = kl_penalty_rewards(stats["logprob"], rlp, rmask, scores, self._kl_coef())
         if timings is not None:
             timings["end"] = stamp(self.device)
@@ -311,7 +370,7 @@ class PPOTrainer(BaseTrainer):
             lp = logprobs_from_logits(logits[:, :-1], rlabels)
             rlp = logprobs_from_logits(ref_logits[:, :-1], rlabels)
         values = out["values"].float()[:, P - 1 : -1]
-        scores = self.put(np.asarray(scores, dtype=np.float32))
+        scores = self.put(scores, dtype=torch.float32)
         rewards, kl = kl_penalty_rewards(lp, rlp, rmask, scores, self._kl_coef())
         if timings is not None:
             timings["end"] = stamp(self.device)
@@ -404,6 +463,18 @@ class PPOTrainer(BaseTrainer):
         self.store.clear_history()
         self.orch.make_experience(self.config.method.num_rollouts, self.iter_count)
         self.train_dataloader = self.store.create_loader(self.config.train.batch_size, shuffle=True)
+
+
+@torch.no_grad()
+def reward_model_scores(rm: LMWithValueHead, tokens: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Scalar reward per sequence [b], f32: the reward model's value head at
+    the last valid token (the sequence-classifier convention), with no LM
+    head pass. An all-padding row scores 0."""
+    vals = rm(tokens, mask, compute_logits=False)["values"].float()
+    B, T = tokens.shape
+    last_ix = T - 1 - torch.argmax(torch.flip(mask, dims=[1]).int(), dim=-1)
+    has_valid = (mask.sum(dim=-1) > 0).float()
+    return vals[torch.arange(B, device=vals.device), last_ix] * has_valid
 
 
 def make_ppo_loss_fn(model: LMWithValueHead, config: TRLConfig, prompt_length: int, use_fused: bool):
