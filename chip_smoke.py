@@ -7,7 +7,10 @@ prefix, a dead slot on the trash block and a fully masked row), then drives
 
 1. the PPO experience phase (PPOTrainer → PromptPipeline →
    PPOOrchestrator.make_experience) at GPT-J-6B full width and depth on the
-   chunked sampler, over a bf16 KV cache and again over an int8 one;
+   chunked sampler over a bf16 KV cache, again with int8 decode weights
+   (``rollout_w8``: every product of prefill and decode through the W8A16
+   kernel, then an optimizer step's in-place re-quantize read by the
+   replayed graph), and over an int8 cache;
 2. ``make_experience`` through the continuous-batching rollout engine,
    greedy, bf16 cache, GPT-J-6B width and 4 layers, paged and with fixed
    slots, and the share of identical tokens between the two;
@@ -25,7 +28,7 @@ prefix, a dead slot on the trash block and a fully masked row), then drives
    int8 block-table kernel is held against its plain version on the
    engine's own live pool;
 6. offline ILQL, ``trlx_tpu_torch.train(dataset=...)``, at GPT-J-6B full
-   width and depth (run first): 16 seeded token-array samples of 1024
+   width and 8 layers (run first): 16 seeded token-array samples of 1024
    tokens, batch 4, 4 steps each followed by a Polyak sync held against
    alpha·online + (1 − alpha)·target, the last step profiled for the Q
    heads' share, then evaluate() steered by the target heads; and the ILQL
@@ -53,11 +56,23 @@ prefix, a dead slot on the trash block and a fully masked row), then drives
    prompts=[str])`` at 4 layers, then ``save_pretrained`` read back in part;
    ``[rm-route]``: the reward model's score on the kernel route against the
    plain route (2 layers);
+9. soft-prompt PPO (``softprompt_train``): ``train(reward_fn=...)`` through
+   ``PPOSoftpromptTrainer`` at GPT-J-6B width and depth, 8 prefix rows,
+   760-token prompts, 4 steps: the trunk and head bit-equal, the prefix
+   moved, the flash backward in every layer and no dW launch (frozen head);
+10. speculative decoding in the engine (``engine_spec``, 4 layers): the
+   n-gram drafter with spec_k 4 against spec off, fixed and paged, bf16
+   (accept rate, rate, identical-token share) and float32 with a soft-prompt
+   model too (tokens identical);
 
 and checks that each path went through every kernel it runs, exactly as
 often as its config says.
 
     python3 chip_smoke.py
+
+The W8A16 product (``[w8a16]``) is held against its plain version at
+GPT-J-6B's decode shapes and one prefill shape; it has no Pallas
+counterpart (XLA fuses QDense's int8 convert on the TPU).
 
 Exits non-zero, printing no result, when no CUDA device is visible or any
 phase fails. Output, in order: one line per phase; the device's name and
@@ -802,10 +817,10 @@ def phase_logprob_bwd_f32(seed: int):
 
 
 def smoke_config(quant: bool = False, n_layer: int = GPTJ_6B_ARCH["n_layer"], run: str = "rollout",
-                 greedy: bool = False, **method):
+                 greedy: bool = False, method_name: str = "ppoconfig", **method):
     """The rollout path's config: GPT-J-6B, experience only. ``quant`` sets
     model.kv_cache_quant, ``greedy`` turns sampling off, ``method`` adds
-    method fields (the engine's)."""
+    method fields (the engine's, the soft prompt's with ``method_name``)."""
     from trlx_tpu_torch.data.configs import TRLConfig
 
     return TRLConfig.from_dict({
@@ -815,36 +830,39 @@ def smoke_config(quant: bool = False, n_layer: int = GPTJ_6B_ARCH["n_layer"], ru
         "train": dict(total_steps=1, seq_length=MAX_LEN, epochs=1, batch_size=CHUNK, lr_ramp_steps=1,
                       lr_decay_steps=1, weight_decay=1e-6, learning_rate_init=1.412e-4,
                       learning_rate_target=1.412e-4, seed=1000, checkpoint_dir=os.path.join(RUN_DIR, run)),
-        "method": dict(name="ppoconfig", num_rollouts=N_ROLLOUTS, chunk_size=CHUNK, init_kl_coef=0.2, target=6,
+        "method": dict(name=method_name, num_rollouts=N_ROLLOUTS, chunk_size=CHUNK, init_kl_coef=0.2, target=6,
                        horizon=10000, gen_kwargs=dict(prompt_length=PROMPT_LEN, max_length=MAX_LEN,
                                                       min_length=MAX_LEN, top_k=0, top_p=0.7, temperature=0.5,
                                                       do_sample=not greedy), **method),
     })
 
 
-def train_config(n_layer: int, model_type: str, run_dir: str, method=None, quant: bool = False, **arch):
+def train_config(n_layer: int, model_type: str, run_dir: str, method=None, quant: bool = False,
+                 method_name: str = "ppoconfig", prompt_len: int = PROMPT_LEN, **arch):
     """The training path's config: GPT-J-6B (depth ``n_layer``) with the
     method and optimizer values of trlx_tpu/configs/ppo_gptj_config.yml
     (remat, 2 unfrozen layers, vf_coef 0.2, betas (0.9, 0.95), lr 1.412e-4
     with a 100-step ramp, 4 PPO epochs, adaptive KL 0.2 → 6), the smoke's
     768 + 256 lengths, 16 rollouts in chunks of 8, batch 8, 2 epochs and 16
-    steps. ``method`` adds method fields, ``quant`` sets
-    model.kv_cache_quant."""
+    steps. ``method`` adds method fields (of ``method_name``'s config),
+    ``quant`` sets model.kv_cache_quant, ``prompt_len`` is the prompt width
+    (256 new tokens after it)."""
     from trlx_tpu_torch.data.configs import TRLConfig
 
     return TRLConfig.from_dict({
         "model": dict(model_path="", tokenizer_path="", model_type=model_type, num_layers_unfrozen=2,
                       model_arch=dict(GPTJ_6B_ARCH, n_layer=n_layer, **arch), dtype="bfloat16",
                       param_dtype="float32", remat=True, kv_cache_quant=quant),
-        "train": dict(total_steps=16, seq_length=MAX_LEN, epochs=2, batch_size=CHUNK, lr_ramp_steps=100,
+        "train": dict(total_steps=16, seq_length=prompt_len + MAX_LEN - PROMPT_LEN, epochs=2, batch_size=CHUNK,
+                      lr_ramp_steps=100,
                       lr_decay_steps=79000, weight_decay=1e-6, learning_rate_init=1.412e-4,
                       learning_rate_target=1.412e-4, opt_betas=[0.9, 0.95], grad_clip=1.0,
                       checkpoint_interval=10**6, eval_interval=10**6, checkpoint_dir=run_dir, seed=1000),
-        "method": dict(name="ppoconfig", num_rollouts=N_ROLLOUTS, chunk_size=CHUNK, ppo_epochs=4, init_kl_coef=0.2,
+        "method": dict(name=method_name, num_rollouts=N_ROLLOUTS, chunk_size=CHUNK, ppo_epochs=4, init_kl_coef=0.2,
                        target=6, horizon=10000, gamma=1.0, lam=0.95, cliprange=0.2, cliprange_value=0.2,
-                       vf_coef=0.2, gen_kwargs=dict(prompt_length=PROMPT_LEN, max_length=MAX_LEN,
-                                                    min_length=MAX_LEN, top_k=0, top_p=0.7, temperature=0.5,
-                                                    do_sample=True), **(method or {})),
+                       vf_coef=0.2, gen_kwargs=dict(prompt_length=prompt_len, max_length=prompt_len + MAX_LEN - PROMPT_LEN,
+                                                    min_length=prompt_len + MAX_LEN - PROMPT_LEN, top_k=0, top_p=0.7,
+                                                    temperature=0.5, do_sample=True), **(method or {})),
     })
 
 
@@ -865,6 +883,8 @@ def param_groups(model, n_layer: int):
             return "v_head"
         if name.startswith("transformer.ln_f."):
             return "ln_f"
+        if name == "transformer.soft_prompt":
+            return "soft_prompt"
         blk = int(name.split(".")[1][2:])
         return f"h_{blk}" if blk >= n_layer - 2 else "frozen_blocks"
     return {n: group(n) for n, _ in model.named_parameters()}
@@ -981,10 +1001,12 @@ def state_bytes(trainer) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def check_end_save(path: str, trainer, run_dir: str):
+def check_end_save(path: str, trainer, run_dir: str, verify: bool = True):
     """The end of learn() saved ``state_<step>``: ``latest.txt`` names it,
     its manifest verifies, and its host copy held every byte of the state.
-    Logs the trainer's ``[ckpt]`` lines; returns them."""
+    ``verify=False`` where the next path loads the checkpoint, whose load
+    verifies the same manifest (``check_loaded_from``). Logs the trainer's
+    ``[ckpt]`` lines; returns them."""
     from trlx_tpu_torch.resilience import checkpoint as ckpt_util
 
     name = f"state_{trainer.step}"
@@ -995,14 +1017,23 @@ def check_end_save(path: str, trainer, run_dir: str):
     if saves[-1]["host_bytes"] != state_bytes(trainer):
         raise AssertionError(f"{path}: the save copied {saves[-1]['host_bytes']} bytes of a "
                              f"{state_bytes(trainer)}-byte state")
-    ok, reason = ckpt_util.verify_checkpoint(run_dir, name)
-    if not ok:
-        raise AssertionError(f"{path}: {name} does not verify: {reason}")
+    if verify:
+        ok, reason = ckpt_util.verify_checkpoint(run_dir, name)
+        if not ok:
+            raise AssertionError(f"{path}: {name} does not verify: {reason}")
     return log_ckpt(path, trainer)
 
 
-def make_timed_trainer(kernels, n_layer: int, on_engine=None, tokenizer=None, on_built=None):
-    """A PPOTrainer, registered under its own name and picked by the
+def check_loaded_from(path: str, trainer, name: str):
+    """The trainer's resume loaded ``name`` itself (its manifest verified
+    by the load), not an older checkpoint it fell back to."""
+    loads = [r for r in trainer.checkpoint_log if r["op"] == "load"]
+    if not loads or loads[0]["name"] != name or loads[0]["fallback"]:
+        raise AssertionError(f"{path}: the resume loaded {loads[:1]}, expected {name} without a fallback")
+
+
+def make_timed_trainer(kernels, n_layer: int, on_engine=None, tokenizer=None, on_built=None, base=None):
+    """A PPOTrainer (or ``base``, a subclass), registered under its own name and picked by the
     config's ``model_type``, that records per train step its device time
     (CUDA events), its kernel launches and its stats; parameter fingerprints
     at the start (after a resume: the loaded state, moments and scalars
@@ -1015,7 +1046,7 @@ def make_timed_trainer(kernels, n_layer: int, on_engine=None, tokenizer=None, on
     from trlx_tpu_torch.trainer.ppo import PPOTrainer
 
     @register_model("SmokeTimedPPOTrainer")
-    class SmokeTimedPPOTrainer(PPOTrainer):
+    class SmokeTimedPPOTrainer(base or PPOTrainer):
         def __init__(self, config, **kwargs):
             super().__init__(config, **kwargs)
             self.step_log, self.eval_log = [], []
@@ -1231,6 +1262,7 @@ def resume_path(kernels, saved, run_dir):
         f"(step {loaded['step']}, count {loaded['count']}, host {json.dumps(loaded['host'])})")
     if not trainer._resumed or diff:
         raise AssertionError(f"resumed {trainer._resumed}; loaded state differs from the saved one: {diff}")
+    check_loaded_from("resume_ppo", trainer, f"state_{saved['step']}")
 
     steps = RESUME_STEPS - saved["step"]
     R = MAX_LEN - PROMPT_LEN
@@ -1288,17 +1320,23 @@ def reward_fn(samples):
     return [float(np.mean(np.asarray(s) % 2 == 0)) for s in samples]
 
 
-def main_path(kernels, quant: bool = False):
+def main_path(kernels, quant: bool = False, w8: bool = False, n_layer: int = GPTJ_6B_ARCH["n_layer"]):
     """The PPO experience phase at GPT-J-6B width (the rollout path) on the
     chunked sampler, over a bf16 cache or, with ``quant``, an int8 one (the
-    decode steps then run row 8); returns its numbers."""
+    decode steps then run row 8), at depth ``n_layer``; with ``w8``, int8
+    decode weights (``model.decode_weight_quant``): every product of prefill
+    and decode goes through the W8 kernel, and after the phase an optimizer
+    step's re-quantize is checked (``check_w8_requantize``). Returns its
+    numbers."""
     from trlx_tpu_torch.orchestrator.ppo_orchestrator import PPOOrchestrator
     from trlx_tpu_torch.pipeline.prompt_pipeline import PromptPipeline
     from trlx_tpu_torch.trainer.ppo import PPOTrainer
 
-    tag = "[rollout-int8]" if quant else "[main]"
+    tag = "[rollout-w8]" if w8 else ("[rollout-int8]" if quant else "[main]")
     decode = "decode_attention_int8" if quant else "decode_attention"
-    config = smoke_config(quant=quant, run="rollout_int8" if quant else "rollout")
+    config = smoke_config(quant=quant, n_layer=n_layer, run="rollout_w8" if w8 else
+                          ("rollout_int8" if quant else "rollout"))
+    config.model.decode_weight_quant = w8
     t0 = time.perf_counter()
     trainer = PPOTrainer(config)
     torch.cuda.synchronize()
@@ -1322,11 +1360,15 @@ def main_path(kernels, quant: bool = False):
     pool_gb = graph_pool_gb()
 
     n_chunks = N_ROLLOUTS // CHUNK
-    n_layer, k = GPTJ_6B_ARCH["n_layer"], config.model.num_layers_unfrozen
+    k = config.model.num_layers_unfrozen
     steps = MAX_LEN - PROMPT_LEN
     expected = dict.fromkeys(kernels, 0)  # no backward kernel runs on the rollout path
     expected.update({"flash_attention_fwd": n_chunks * (n_layer + k), decode: n_chunks * n_layer * steps,
                      "fused_logprob_fwd": n_chunks})
+    if w8:
+        # q, k, v, the attention output, c_fc and the MLP output in every
+        # layer, and the LM head, once in the prefill and in every step.
+        expected["w8a16_matmul"] = n_chunks * (1 + steps) * (W8_PRODUCTS * n_layer + 1)
     log(f"{tag} launches {launches} expected {expected}")
     if launches != expected:
         raise AssertionError(f"kernel launches {launches} != {expected}")
@@ -1372,9 +1414,62 @@ def main_path(kernels, quant: bool = False):
         "graph_pool_gb": pool_gb,
         "launches": launches,
         "consistency": consistency,
+        "n_layer": n_layer,
     }
-    log(f"{tag} make_experience({N_ROLLOUTS}) at GPT-J-6B width: {json.dumps(out)}")
+    log(f"{tag} make_experience({N_ROLLOUTS}) at GPT-J-6B width, {n_layer} layers: {json.dumps(out)}")
+    if w8:
+        out["requantize"] = check_w8_requantize(trainer, prompts[:CHUNK], n_layer)
+    del trainer, orch
+    free()
     return out, launches
+
+
+W8_PRODUCTS = 6  # Dense products a GPT-J block runs: q, k, v, attention out, c_fc, MLP out
+
+
+def check_w8_requantize(trainer, prompts, n_layer: int):
+    """After an optimizer step the int8 decode copies are re-quantized in
+    place (every buffer keeps its address; a trained layer's codes move, a
+    frozen layer's do not), and the sampler's replayed graph reads them: one
+    chunk through the fused rollout generation, graph route against the
+    eager route from equal generator states, bit-equal tokens and stats."""
+    from functools import partial
+
+    from trlx_tpu_torch.ops.w8a16 import quantize_weights, quantized_weights
+
+    top, bottom = f"transformer.h_{n_layer - 1}.mlp.c_fc", "transformer.h_0.mlp.c_fc"
+    before = {name: (kq.data_ptr(), sc.data_ptr()) for name, (kq, sc) in quantized_weights(trainer.model).items()}
+    codes = {name: quantized_weights(trainer.model)[name][0].clone() for name in (top, bottom)}
+    optimizer_step(trainer, seed=21)
+    n = quantize_weights(trainer.model)  # what the sampler's refresh_weight_copies runs before its call
+    if n != 2 * W8_PRODUCTS + 1:  # the two trained blocks and the LM head
+        raise AssertionError(f"re-quantize after an optimizer step touched {n} kernels, expected 13")
+    qw = quantized_weights(trainer.model)
+    moved = [name for name, (kq, sc) in qw.items() if (kq.data_ptr(), sc.data_ptr()) != before[name]]
+    if moved or set(qw) != set(before):
+        raise AssertionError(f"re-quantize moved the int8 buffers of {moved[:4]}")
+    if torch.equal(qw[top][0], codes[top]) or not torch.equal(qw[bottom][0], codes[bottom]):
+        raise AssertionError("re-quantize: the trained layer's codes did not move, or a frozen layer's did")
+    pipe_ids = np.zeros((CHUNK, PROMPT_LEN), np.int64)
+    pipe_mask = np.zeros((CHUNK, PROMPT_LEN), np.int64)
+    for i, p in enumerate(prompts):
+        pipe_ids[i, PROMPT_LEN - len(p):], pipe_mask[i, PROMPT_LEN - len(p):] = p, 1
+    graph = trainer._generate_fused_fn
+    eager = partial(graph.func, *graph.args, **{**graph.keywords, "_keep": {}, "_eager": True})
+    runs = {}
+    for name, fn in (("graph", graph), ("eager", eager)):
+        out, ms = wall_ms_of(lambda: fn(trainer.put(pipe_ids), trainer.put(pipe_mask),
+                                        torch.Generator(device="cuda").manual_seed(5)))
+        runs[name] = (out, ms)
+    (g_out, g_ms), (e_out, e_ms) = runs["graph"], runs["eager"]
+    same = torch.equal(g_out[0], e_out[0]) and all(torch.equal(g_out[2][key], e_out[2][key]) for key in g_out[2])
+    if not same:
+        raise AssertionError("W8: the replayed graph after a re-quantize differs from the eager route")
+    rec = {"buffers": len(qw), "requantized": n, "addresses_kept": True, "graph_equals_eager": True,
+           "graph_wall_ms": g_ms,
+           "eager_wall_ms": e_ms}
+    log(f"[rollout-w8] after an optimizer step: {json.dumps(rec)}")
+    return rec
 
 
 ENGINE = dict(rollout_engine=True, kv_block_size=128, engine_slots=8, prefill_batch=4, engine_steps_per_sync=8)
@@ -1696,6 +1791,10 @@ def engine_rollout_path(kernels, paged: bool):
 
 ILQL_STEPS = 4
 ILQL_SAMPLES = 16
+# The ILQL path's depth, cut from 28 to keep the smoke near 1000 s: the Q
+# heads' f32 rows run as at full depth, and rows 1-7 count at full depth on
+# hf_rm_train and engine_train.
+ILQL_TRAIN_LAYERS = 8
 F32_HEAD_KERNELS = ("logprob_fwd_f32_kernel", "logprob_ds_f32_kernel", "logprob_dx_f32_kernel",
                     "logprob_dw_f32_kernel")
 
@@ -1895,14 +1994,14 @@ def ilql_step_launches(kernels, n_layer: int):
 
 def ilql_train_path(kernels):
     """``trlx_tpu_torch.train(dataset=...)`` at GPT-J-6B full width and
-    depth: 16 seeded token-array samples of 1024
+    ``ILQL_TRAIN_LAYERS`` layers: 16 seeded token-array samples of 1024
     tokens with seeded rewards, batch 4, one epoch of 4 steps with a
     Polyak sync after each, then ``evaluate()`` of 4 prompts of 768 tokens, 256 new tokens (eos off)
     steered by the target heads on the chunked sampler's graph. Returns its
     numbers and the launches of the whole run."""
     import trlx_tpu_torch
 
-    n_layer, R = GPTJ_6B_ARCH["n_layer"], MAX_LEN - PROMPT_LEN
+    n_layer, R = ILQL_TRAIN_LAYERS, MAX_LEN - PROMPT_LEN
     cls = make_timed_ilql_trainer(kernels)
     run_dir = os.path.join(RUN_DIR, "ilql_train")
     config = ilql_config(n_layer, cls.__name__, run_dir)
@@ -2035,7 +2134,7 @@ def ilql_resume_path(kernels):
     t0 = time.perf_counter()
     first = trlx_tpu_torch.train(dataset=(samples, rewards), eval_prompts=eval_prompts, config=config)
     saved = ilql_state_fingerprints(first)
-    ckpt = check_end_save("ilql_resume_first", first, run_dir)
+    ckpt = check_end_save("ilql_resume_first", first, run_dir, verify=False)  # the resume's load verifies it
     del first
     free()
     config = ilql_config(n_layer, SmokeResumedILQLTrainer.__name__, run_dir)
@@ -2048,6 +2147,7 @@ def ilql_resume_path(kernels):
         f"(step {resumed.loaded['step']}, count {resumed.loaded['count']}, target heads {resumed.loaded['target']})")
     if not resumed._resumed or diff:
         raise AssertionError(f"ILQL resumed {resumed._resumed}; loaded state differs from the saved one: {diff}")
+    check_loaded_from("ilql_resume", resumed, f"state_{saved['step']}")
     per_step = ilql_step_launches(kernels, n_layer)
     if (resumed.iter_count, resumed.step) != (ILQL_STEPS, ILQL_STEPS) or resumed.step_launches != [per_step] * (
             ILQL_STEPS - saved["step"]):
@@ -2308,7 +2408,7 @@ def hf_rm_train_path(kernels):
     log(f"[hf_rm_train] train(model_path=HF dir, reward model {RM_LAYERS} layers, text prompts) at GPT-J-6B "
         f"({n_layer} layers), {steps} steps: {json.dumps(out)} on {card}")
     # The end save stays on disk for the resume path, with the state it holds.
-    out["ckpt"] = check_end_save("hf_rm_train", trainer, run_dir)
+    out["ckpt"] = check_end_save("hf_rm_train", trainer, run_dir, verify=False)  # resume_path's load verifies it
     out["saved_state"], out["run_dir"] = state_fingerprints(trainer, n_layer), run_dir
     del trainer
     free()
@@ -2465,11 +2565,12 @@ DEVICE_KERNELS = {
     "logprob_dw_f32_kernel": ("fused_logprob_bwd_dw_f32",),
     "decode_split_kernel": DECODE_WRAPPERS,
     "decode_merge_kernel": DECODE_WRAPPERS,
+    "w8a16_gemm_kernel": ("w8a16_matmul",),
 }
 
 
 def port_kernels():
-    """The kernel wrappers of the thirteen rows, by row name."""
+    """The kernel wrappers of the fourteen rows, by row name."""
     from trlx_tpu_torch.ops.decode_attention import (
         decode_attention, decode_attention_int8, paged_decode_attention, paged_decode_attention_int8,
     )
@@ -2478,8 +2579,9 @@ def port_kernels():
         fused_logprob_bwd_dw, fused_logprob_bwd_dw_f32, fused_logprob_bwd_dx, fused_logprob_bwd_dx_f32,
         fused_logprob_fwd, fused_logprob_fwd_f32,
     )
+    from trlx_tpu_torch.ops.w8a16 import w8a16_matmul
 
-    return {"flash_attention_fwd": flash_fwd, "flash_attention_bwd_dq": flash_bwd_dq,
+    return {"w8a16_matmul": w8a16_matmul, "flash_attention_fwd": flash_fwd, "flash_attention_bwd_dq": flash_bwd_dq,
             "flash_attention_bwd_dkv": flash_bwd_dkv, "decode_attention": decode_attention,
             "fused_logprob_fwd": fused_logprob_fwd, "fused_logprob_bwd_dx": fused_logprob_bwd_dx,
             "fused_logprob_bwd_dw": fused_logprob_bwd_dw, "decode_attention_int8": decode_attention_int8,
@@ -2806,6 +2908,305 @@ def phase_graph(kernels):
     return out
 
 
+W8_SHAPES = ((4096, 4096), (4096, 16384), (16384, 4096), (4096, 50400))  # GPT-J-6B's (K, N): q/k/v/out, c_fc, MLP out, lm_head
+
+
+def phase_w8a16(gen):
+    """The W8A16 product against ``w8a16_plain`` at GPT-J-6B's decode shapes
+    (M = the chunk's rows; each (K, N) of ``W8_SHAPES``) and one prefill shape
+    (M = B * P, c_fc's K and N), within 1e-2 of max |y|, and never less than
+    three bf16 ulps of max |y|: the kernel's f32 sums run in another order,
+    a sum that lands near a bf16 boundary rounds to the other neighbour, and
+    QDense's scale and bias round twice more, so an output may move by two
+    ulps (seen at the prefill shape: 0.0625 at |y| in [4, 8), where 1e-2 of
+    max |y| = 5.69 allowed 0.057). Times: decode shapes as replays of a graph of 50
+    calls (the wrapper's host time would hide the kernel), prefill by events
+    over back-to-back calls; beside each, the bound (bytes: x, the int8
+    weight, scale, bias read once, y written once; operations: 2 M K N at
+    the bf16 peak), the plain version and ``torch.matmul`` of x and the
+    weight in bf16, the yardstick (no PyTorch call reads int8 weights). The
+    row's numbers are those of c_fc at decode (M = 8, K = 4096, N = 16384)."""
+    from trlx_tpu_torch.ops.w8a16 import plan, quantize_channels, w8a16_matmul, w8a16_plain
+
+    cases = [(CHUNK, k, n) for k, n in W8_SHAPES] + [(CHUNK * PROMPT_LEN, 4096, 16384)]
+    shapes = []
+    for M, K, N in cases:
+        x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+        kq, scale = quantize_channels(torch.randn((K, N), generator=gen, device="cuda") * K ** -0.5)
+        bias = torch.randn((N,), generator=gen, device="cuda") * 0.1
+        y = w8a16_matmul(x, kq, scale, bias)
+        torch.cuda.synchronize()
+        ref = w8a16_plain(x, kq, scale, bias)
+        top = float(ref.float().abs().max())
+        tol = max(1e-2 * top, 3 * 2.0 ** (np.floor(np.log2(top)) - 7))  # 2^(e - 7): one bf16 ulp at 2^e
+        err = check(f"w8a16 M={M} K={K} N={N}", y, ref, tol)
+        if not torch.equal(y, w8a16_matmul(x, kq, scale, bias)):
+            raise AssertionError(f"w8a16 M={M} K={K} N={N}: two calls differ")
+        timer = graph_ms if M <= 32 else time_ms
+        wb = kq.to(torch.bfloat16)
+        ms = timer(lambda: w8a16_matmul(x, kq, scale, bias))
+        mm = timer(lambda: torch.matmul(x, wb))
+        plain = time_ms(lambda: w8a16_plain(x, kq, scale, bias), iters=3, warmup=1)
+        b_ms, by = bound(M * K * 2 + K * N + 8 * N + M * N * 2, 2 * M * K * N)
+        rec = {"M": M, "K": K, "N": N, "plan": list(plan(M, N, K, torch.cuda.get_device_properties(0).multi_processor_count)),
+               "max_abs_err": err, "tol": tol, "ms": ms, "timed": "graph" if M <= 32 else "events", "plain_ms": plain,
+               "matmul_ms": mm, "bound_ms": b_ms, "bound_by": by, "share_of_bound": b_ms / ms}
+        log(f"[w8a16] {json.dumps(rec)}")
+        shapes.append(rec)
+        del x, kq, scale, bias, y, ref, wb
+        free()
+    row = next(r for r in shapes if (r["M"], r["K"], r["N"]) == (CHUNK, 4096, 16384))
+    worst = max(shapes, key=lambda r: r["max_abs_err"] / r["tol"])  # the error nearest its tolerance
+    return {"max_abs_err": worst["max_abs_err"], "tol": worst["tol"], "err_shape": [worst["M"], worst["K"], worst["N"]],
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None, "matmul_ms": row["matmul_ms"],
+            "matmul": "torch.matmul of x and the weight in bf16 (the bf16 decode path's product)",
+            "shape": [CHUNK, 4096, 16384], "shapes": shapes}
+
+
+SOFT_PROMPT_LEN, N_SOFT, SOFT_STEPS = 760, 8, 4
+
+
+def softprompt_train_path(kernels):
+    """Soft-prompt PPO: ``trlx_tpu_torch.train(reward_fn=...)`` through
+    ``PPOSoftpromptTrainer`` at GPT-J-6B width and depth with ``N_SOFT``
+    prefix rows, prompts of width ``SOFT_PROMPT_LEN`` (prefill 760 + 8 = 768
+    and the train sequence 760 + 8 + 256 = 1024 both take flash, by the JAX
+    rule), ``SOFT_STEPS`` steps of ``train_config``'s values. No branch: a
+    rollout chunk scores by a policy forward and a reference forward (the
+    policy's frozen trunk with the initial prefix swapped in); the gradient
+    reaches the prefix through every layer, so every layer's flash backward
+    runs, and the frozen LM head launches no dW (row 6 at 0). Checks the
+    launches, that the trunk, the LM head and the reference stayed bit-equal
+    and the prefix and the value head moved. Returns its numbers."""
+    import trlx_tpu_torch
+    from trlx_tpu_torch.trainer.ppo_softprompt import PPOSoftpromptTrainer
+
+    n_layer, R = GPTJ_6B_ARCH["n_layer"], MAX_LEN - PROMPT_LEN
+    cls = make_timed_trainer(kernels, n_layer, base=PPOSoftpromptTrainer)
+    run_dir = os.path.join(RUN_DIR, "softprompt_train")
+    config = train_config(n_layer, cls.__name__, run_dir, method=dict(n_soft_tokens=N_SOFT),
+                          method_name="pposoftpromptconfig", prompt_len=SOFT_PROMPT_LEN)
+    config.train.total_steps = SOFT_STEPS
+    rng = np.random.default_rng(30)
+    prompts = [rng.integers(0, 50400, size=int(rng.integers(MIN_PROMPT, SOFT_PROMPT_LEN + 1))).tolist()
+               for _ in range(N_ROLLOUTS + CHUNK)]
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    trainer = trlx_tpu_torch.train(reward_fn=reward_fn, prompts=prompts[:N_ROLLOUTS], eval_prompts=prompts[N_ROLLOUTS:],
+                                   config=config)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    trainer.fp["end"] = state_fingerprints(trainer, n_layer)
+
+    chunks = N_ROLLOUTS // CHUNK  # one experience phase: the 4 steps end inside the first epoch
+    bwd_chunks = -(-CHUNK * R // 1024)
+    per_step = dict.fromkeys(kernels, 0)
+    per_step.update({"flash_attention_fwd": 2 * n_layer, "flash_attention_bwd_dq": n_layer,
+                     "flash_attention_bwd_dkv": n_layer, "fused_logprob_fwd": 1, "fused_logprob_bwd_dx": bwd_chunks})
+    expected = dict.fromkeys(kernels, 0)
+    # A rollout chunk: prefill (n_layer), the policy and the reference
+    # forwards (n_layer each) with the fused head once each; eval: prefill.
+    expected.update({
+        "flash_attention_fwd": chunks * 3 * n_layer + SOFT_STEPS * 2 * n_layer + n_layer,
+        "decode_attention": (chunks + 1) * n_layer * R,
+        "fused_logprob_fwd": 2 * chunks + SOFT_STEPS,
+        "flash_attention_bwd_dq": SOFT_STEPS * n_layer, "flash_attention_bwd_dkv": SOFT_STEPS * n_layer,
+        "fused_logprob_bwd_dx": SOFT_STEPS * bwd_chunks,
+    })
+    log(f"[softprompt_train] launches {launches} expected {expected} (a rollout chunk: flash {3 * n_layer}, fused "
+        f"head 2; per step {per_step}; eval: flash {n_layer}, decode {n_layer}x{R}; no dW: the head is frozen)")
+    if launches != expected:
+        raise AssertionError(f"kernel launches {launches} != {expected}")
+    log_ = trainer.step_log
+    if len(log_) != SOFT_STEPS or trainer.iter_count != SOFT_STEPS:
+        raise AssertionError(f"{len(log_)} train steps recorded, iter_count {trainer.iter_count}")
+    for i, rec in enumerate(log_):
+        bad = [k for k, v in rec.items() if k != "launches" and not np.isfinite(v)]
+        if rec["launches"] != per_step or bad or rec["resilience/nonfinite"] != 0.0:
+            raise AssertionError(f"step {i + 1}: launched {rec['launches']} (expected {per_step}), non-finite {bad}")
+    if not abs(log_[0]["mean_ratio"] - 1.0) <= 0.05:
+        raise AssertionError(f"step 1 mean_ratio {log_[0]['mean_ratio']} is not within 1 +- 0.05")
+    fp = trainer.fp
+    moved = [g for g in ("soft_prompt", "v_head") if fp["end"][g] == fp["start"][g]]
+    kept = [g for g in ("wte", "frozen_blocks", f"h_{n_layer - 2}", f"h_{n_layer - 1}", "ln_f", "lm_head", "extras")
+            if fp["end"][g] != fp["start"][g]]
+    if moved or kept:
+        raise AssertionError(f"soft prompt PPO: {moved} did not move, {kept} changed")
+    if set(trainer.extras) != {"transformer.soft_prompt"}:
+        raise AssertionError(f"the reference owns {sorted(trainer.extras)}, expected the initial prefix only")
+    dev_s = [r["device_s"] for r in log_]
+    params = sum(p.numel() for p in trainer.model.parameters())
+    out = {
+        "wall_s": wall, "n_layer": n_layer, "n_soft": N_SOFT, "prompt_len": SOFT_PROMPT_LEN,
+        "step_device_s": dev_s, "step_device_s_median": float(np.median(dev_s)),
+        "train_tokens_per_s_median": CHUNK * (SOFT_PROMPT_LEN + R) / float(np.median(dev_s)),
+        "peak_mem_gb": peak_gb, "params": params,
+        "reference_bytes": sum(t.numel() * t.element_size() for t in trainer.extras.values()),
+        "full_copy_bytes_avoided": params * 4,
+        "mean_ratio_per_step": [r["mean_ratio"] for r in log_],
+        "eval": {k: v for k, v in trainer.eval_log[0].items()}, "launches": launches,
+    }
+    log(f"[softprompt_train] train() through PPOSoftpromptTrainer at GPT-J-6B ({n_layer} layers), {SOFT_STEPS} "
+        f"steps: {json.dumps(out)} on {card_line()}")
+    out["ckpt"] = check_end_save("softprompt_train", trainer, run_dir)
+    shutil.rmtree(run_dir)
+    del trainer
+    free()
+    return out, launches
+
+
+SPEC_K, SPEC_LAYERS, SPEC_SUCCESSORS = 4, 4, 32
+
+
+def successor_processor(gcfg, vocab: int):
+    """A logit processor that allows ``SPEC_SUCCESSORS`` successors of each
+    token (a seeded hash of it), then the default chain: constrained
+    decoding, as a logit mask does, without a [V, V] table on the card."""
+    from trlx_tpu_torch.ops.sampling import process_logits_default
+
+    def processor(logits, state):
+        last = state["last_token"].long()[:, None]
+        cand = (last * 7919 + torch.arange(SPEC_SUCCESSORS, device=logits.device)[None, :] * 1543 + 11) % vocab
+        allowed = torch.full_like(logits, -1e9).scatter(1, cand, logits.gather(1, cand))
+        return process_logits_default(allowed, gcfg, state["step"])
+
+    return processor
+
+
+GREEDY_GAP = 0.25  # logits: a random head's are ~N(0, 1), a wrongly placed token's gap ~4
+
+
+@torch.no_grad()
+def greedy_gap(trainer):
+    """The largest gap, over the store's response tokens, between the best
+    logit of a position and the chosen token's, from one teacher-forced
+    forward of the stored sequences (8 rows at a time). Greedy decoding
+    makes it 0 up to the rounding that tells the forward's path from the
+    decode path's; a token placed at the wrong position or chosen from the
+    wrong logits shows a gap of the logits' scale."""
+    cols = trainer.store.columns()
+    P = cols["query_tensors"].shape[1]
+    worst = 0.0
+    for i in range(0, len(trainer.store), CHUNK):
+        tokens = trainer.put(np.concatenate([cols["query_tensors"][i:i + CHUNK], cols["response_tensors"][i:i + CHUNK]], 1))
+        mask = trainer.put(np.concatenate([cols["query_mask"][i:i + CHUNK], cols["response_mask"][i:i + CHUNK]], 1))
+        logits = trainer.model(tokens, mask, logits_start=P - 1)["logits"][:, :-1].float()
+        chosen = logits.gather(-1, tokens[:, P:, None].long())[..., 0]
+        worst = max(worst, float((logits.amax(-1) - chosen).max()))
+    return worst
+
+
+def engine_spec_path(kernels):
+    """Speculative decoding in the engine: ``make_experience`` at GPT-J-6B
+    width and ``SPEC_LAYERS`` layers, greedy, the engine's settings
+    (``ENGINE``), with ``method.spec_decode = "ngram"`` and ``spec_k =
+    SPEC_K`` against spec off, on fixed slots and paged.
+
+    - bf16 (the rollout configuration, 16 rollouts): accept rate, decode
+      rate and launches (spec runs launch no decode kernel: the window
+      attends by einsum), and the share of identical tokens, reported: the
+      one-token steps attend through the decode kernels and the window by
+      einsum (its probabilities in bf16), the two round differently, and a
+      random head's logits (~N(0, 1), their top two ~0.2 apart) come
+      within that rounding often enough to pick another token, from which
+      the row diverges. Both runs' tokens must be greedy up to rounding:
+      each within ``GREEDY_GAP`` of its position's best logit in a
+      teacher-forced forward (``greedy_gap``).
+    - float32 compute (8 rollouts; einsum attention on both sides, logits in
+      f32), fixed, paged and a soft-prompt model (``N_SOFT`` rows, fixed),
+      decoding constrained to ``SPEC_SUCCESSORS`` successors a token
+      (``successor_processor``) so no two candidates tie: tokens identical
+      with spec on and off.
+    Returns its numbers and launches."""
+    from trlx_tpu_torch.orchestrator.ppo_orchestrator import PPOOrchestrator
+    from trlx_tpu_torch.pipeline.prompt_pipeline import PromptPipeline
+    from trlx_tpu_torch.trainer.ppo import PPOTrainer
+    from trlx_tpu_torch.trainer.ppo_softprompt import PPOSoftpromptTrainer
+
+    n_layer, k, spc = SPEC_LAYERS, 2, ENGINE["engine_steps_per_sync"]
+    out, total = {}, dict.fromkeys(kernels, 0)
+    for dtype, soft in (("bfloat16", False), ("float32", False), ("float32", True)):
+        n_roll = N_ROLLOUTS if dtype == "bfloat16" else CHUNK
+        run_name = f"engine_spec_{dtype}" + ("_soft" if soft else "")
+        if soft:
+            config = smoke_config(n_layer=n_layer, run=run_name, greedy=True, method_name="pposoftpromptconfig",
+                                  n_soft_tokens=N_SOFT, **ENGINE)
+        else:
+            config = smoke_config(n_layer=n_layer, run=run_name, greedy=True, **ENGINE)
+        config.model.dtype = dtype
+        trainer = (PPOSoftpromptTrainer if soft else PPOTrainer)(config)
+        if dtype == "float32":
+            trainer._gen_processor = successor_processor(trainer.gen_cfg, GPTJ_6B_ARCH["vocab_size"])
+        for paged in ((False,) if soft else (False, True)):
+            name = ("soft_" if soft else "") + ("paged" if paged else "fixed") + ("_bf16" if dtype == "bfloat16" else
+                                                                                  "_f32")
+            runs = {}
+            for spec in (False, True):
+                m = trainer.config.method
+                m.paged_kv, m.spec_decode, m.spec_k = paged, "ngram" if spec else "", SPEC_K if spec else 0
+                trainer._shutdown_rollout_engine()
+                trainer.store.clear_history()
+                # A fresh orchestrator: the same prompt order (the loader's
+                # seeded shuffle), so both runs admit alike.
+                orch = PPOOrchestrator(trainer, PromptPipeline(engine_prompts(), None, max_prompt_length=PROMPT_LEN),
+                                       reward_fn=reward_fn, chunk_size=CHUNK)
+                for fn in kernels.values():
+                    fn.launches = 0
+                t0 = time.perf_counter()
+                stats = orch.make_experience(n_roll)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = {n: fn.launches for n, fn in kernels.items()}
+                for n_, v in launches.items():
+                    total[n_] += v
+                calls, prefills = int(stats["engine/decode_calls"]), int(stats["engine/prefill_batches"])
+                expected = dict.fromkeys(kernels, 0)
+                if dtype == "bfloat16":
+                    # Flash: the fixed engine's prefill at offset 0, then the
+                    # scoring forwards (the policy and the branch), each with
+                    # the fused head; the decode kernel in spec-off calls only.
+                    chunks = n_roll // CHUNK
+                    expected["paged_decode_attention" if paged else "decode_attention"] = (
+                        0 if spec else n_layer * spc * calls)
+                    expected["flash_attention_fwd"] = (0 if paged else prefills * n_layer) + chunks * (n_layer + k)
+                    expected["fused_logprob_fwd"] = chunks * 2
+                if launches != expected:
+                    raise AssertionError(f"engine_spec {name} spec={spec}: launches {launches} != {expected}")
+                cols = trainer.store.columns()
+                responses = {tuple(q.tolist()): r for q, r in zip(cols["query_tensors"], cols["response_tensors"])}
+                gap = greedy_gap(trainer) if dtype == "bfloat16" else None
+                if gap is not None and not gap <= GREEDY_GAP:
+                    raise AssertionError(f"engine_spec {name} spec={spec}: a token {gap:.4f} below its position's "
+                                         f"best logit (greedy allows {GREEDY_GAP})")
+                runs[spec] = (responses, stats, wall, calls, gap)
+            (off, s_off, w_off, c_off, g_off), (on, s_on, w_on, c_on, g_on) = runs[False], runs[True]
+            if set(off) != set(on):
+                raise AssertionError(f"engine_spec {name}: the spec on and off runs decoded other prompts")
+            same = [off[q] == on[q] for q in sorted(off)]
+            share = float(np.mean(np.concatenate(same)))
+            rec = {"rollouts": n_roll, "identical_token_share": share,
+                   "first_divergence_per_row": [int(np.argmin(x)) if not x.all() else None for x in same],
+                   "spec_accept_rate": s_on["engine/spec_accept_rate"], "spec_proposed": s_on["engine/spec_proposed"],
+                   "spec_accepted": s_on["engine/spec_accepted"], "decode_calls": {"off": c_off, "on": c_on},
+                   "decode_tokens_per_s": {"off": s_off["engine/decode_tokens_per_s"],
+                                           "on": s_on["engine/decode_tokens_per_s"]},
+                   "decode_wall_s": {"off": s_off["engine/decode_wall_s"], "on": s_on["engine/decode_wall_s"]},
+                   "wall_s": {"off": w_off, "on": w_on}, "greedy_gap": {"off": g_off, "on": g_on}}
+            log(f"[engine_spec] {name} ({n_layer} layers, spec_k {SPEC_K}): {json.dumps(rec)}")
+            if dtype == "float32" and share < 1.0:
+                raise AssertionError(f"engine_spec {name}: identical token share {share:.4f} with spec on and off")
+            out[name] = rec
+        trainer._shutdown_rollout_engine()
+        del trainer, orch
+        free()
+    return out, total
+
+
 def compare_greedy(paged, fixed):
     """Share of identical response tokens between the paged and fixed-slot
     engines, and each row's first divergence (reported, not gated: their
@@ -2854,7 +3255,8 @@ def main() -> int:
                      ("flash_bwd", lambda: phase_flash_bwd(gen)),
                      ("fused_logprob_bwd", lambda: phase_logprob_bwd(LOGPROB_BWD_SEED)),
                      ("fused_logprob_f32", lambda: phase_logprob_f32(F32_SEED)),
-                     ("fused_logprob_bwd_f32", lambda: phase_logprob_bwd_f32(F32_SEED))):
+                     ("fused_logprob_bwd_f32", lambda: phase_logprob_bwd_f32(F32_SEED)),
+                     ("w8a16", lambda: phase_w8a16(gen))):
         t0 = time.perf_counter()
         phases[name] = fn()
         free()
@@ -2881,11 +3283,18 @@ def main() -> int:
     # The resume reads hf_rm_train's end checkpoint, so nothing else is saved
     # while it is on disk.
     run("resume_ppo", lambda: resume_path(kernels, hf_out["saved_state"], hf_out["run_dir"]))
-    run("rollout_bf16", lambda: main_path(kernels))
+    bf16_out, _ = run("rollout_bf16", lambda: main_path(kernels))
+    w8_out, _ = run("rollout_w8", lambda: main_path(kernels, w8=True))
+    log(f"[rollout-w8] decode tokens/s at GPT-J-6B full depth: W8A16 {w8_out['decode_tokens_per_s']:.1f} against "
+        f"bf16 weights {bf16_out['decode_tokens_per_s']:.1f} (decode device s {w8_out['decode_device_s']:.4f} against "
+        f"{bf16_out['decode_device_s']:.4f}, prefill {w8_out['prefill_device_s']:.4f} against "
+        f"{bf16_out['prefill_device_s']:.4f}) on {smi}")
+    run("softprompt_train", lambda: softprompt_train_path(kernels))
     run("rollout_int8", lambda: main_path(kernels, quant=True))
     paged, _, _ = run("engine_paged_bf16", lambda: engine_rollout_path(kernels, paged=True))
     fixed, _, _ = run("engine_fixed_bf16", lambda: engine_rollout_path(kernels, paged=False))
     log(f"[engine] greedy tokens, paged vs fixed slots (bf16, 4 layers): {json.dumps(compare_greedy(paged, fixed))}")
+    run("engine_spec", lambda: engine_spec_path(kernels))
     t0 = time.perf_counter()
     phase_grad_consistency()
     log(f"[grad] done in {time.perf_counter() - t0:.1f}s")
@@ -2920,8 +3329,8 @@ def main() -> int:
     # Each row's launches are those of the main path (engine_train), except
     # for the kernels it does not run: row 7 counts on the full-depth
     # training path over the chunked bf16 sampler (hf_rm_train), row 9 on
-    # the paged bf16 engine, and the
-    # f32 mode of rows 4-6 on the ILQL path.
+    # the paged bf16 engine, the f32 mode of rows 4-6 on the ILQL path, and
+    # the W8A16 product on the full-depth W8 rollout.
     rows = []
     for name, phase, src, replaces, path in (
         ("flash_attention_fwd", "flash_prefill", "trlx_tpu_torch/csrc/flash_fwd.cu",
@@ -2950,6 +3359,8 @@ def main() -> int:
          "trlx_tpu/ops/fused_logprob.py:190", "ilql_train"),
         ("fused_logprob_bwd_dw_f32", "fused_logprob_bwd_dw_f32", "trlx_tpu_torch/csrc/fused_logprob_bwd.cu",
          "trlx_tpu/ops/fused_logprob.py:237", "ilql_train"),
+        # No Pallas kernel: on the TPU XLA fuses QDense's int8 convert into the dot.
+        ("w8a16_matmul", "w8a16", "trlx_tpu_torch/csrc/w8a16_gemm.cu", "trlx_tpu/models/lm.py:226", "rollout_w8"),
     ):
         p = phases[phase]
         row = {"name": name, "route": "cuda", "source": src, "replaces": replaces, "launches": by_path[path][name],
@@ -2958,7 +3369,8 @@ def main() -> int:
                "bound_ms": p["bound_ms"], "bound_by": p["bound_by"], "library_ms": p["library_ms"],
                "shape": p["shape"]}
         for key in ("library", "max_abs_err_split_edges", "matmul_ms", "matmul", "ms_bf16_weight", "cast_ms",
-                    "kernels_only_ms", "turns_vs_library", "eager_ms", "max_scaled_err", "tol_rule"):
+                    "kernels_only_ms", "turns_vs_library", "eager_ms", "max_scaled_err", "tol_rule", "shapes",
+                    "err_shape"):
             if key in p:
                 row[key] = p[key]
         if name.endswith("_f32"):  # as log_f32_row prints them

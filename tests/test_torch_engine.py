@@ -391,7 +391,8 @@ def test_engine_requires_weight_handoff_and_bounds_prompt_width():
 def test_rollout_engine_config_validation(tmp_path):
     """method.rollout_engine builds the engine (slots from engine_slots, the
     live module as the handoff); paged_kv without the engine raises, as in
-    the JAX package; spec decoding and int8 decode weights stay refused."""
+    the JAX package; spec decoding arms the engine's drafter and scratch
+    tail, and int8 decode weights ride on the handed-over module."""
     from trlx_tpu_torch.data.configs import TRLConfig
     from trlx_tpu_torch.trainer.ppo import PPOTrainer
 
@@ -416,12 +417,12 @@ def test_rollout_engine_config_validation(tmp_path):
     assert trainer._rollout_engine is None
     with pytest.raises(ValueError, match="paged_kv requires method.rollout_engine"):
         PPOTrainer(cfg(paged_kv=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="spec_decode"):
-        PPOTrainer(cfg(rollout_engine=True, spec_decode="ngram"), device="cpu")
+    spec = PPOTrainer(cfg(rollout_engine=True, spec_decode="ngram", spec_k=3), device="cpu").rollout_engine()
+    assert spec.spec_k == 3 and spec.drafter is not None and spec.cache_len == 6 + 6 + 2
     c = cfg(rollout_engine=True)
     c.model.decode_weight_quant = True
-    with pytest.raises(NotImplementedError, match="decode_weight_quant"):
-        PPOTrainer(c, device="cpu")
+    w8 = PPOTrainer(c, device="cpu")
+    assert w8.rollout_engine_variables().transformer.h_0.attn.c_qkv.w8[1].dtype == torch.int8
 
 
 # --------------------------------------------------------- paged KV cache

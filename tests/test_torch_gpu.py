@@ -11,6 +11,8 @@ fused head's f32 mode (f32 activations and weight, as ILQL's Q heads call
 it) multiplies in f32 on both sides: 1e-4 relative.
 """
 
+import math
+
 import pytest
 import torch
 
@@ -824,6 +826,14 @@ def test_wrappers_raise_instead_of_falling_back():
     qb = q.to(torch.bfloat16)[..., :48]  # head_dim 48: no kernel instance
     with pytest.raises(ValueError):
         flash_attention(qb, qb, qb, torch.ones((1, 64), device=dev), scale=1.0)
+    from trlx_tpu_torch.ops.w8a16 import w8a16_matmul
+
+    kq = torch.zeros((64, 32), dtype=torch.int8, device=dev)
+    scale = torch.ones((32,), device=dev)
+    with pytest.raises(TypeError):  # f32 activations: the W8 kernel takes bf16
+        w8a16_matmul(torch.randn((4, 64), device=dev), kq, scale)
+    with pytest.raises(ValueError):  # N % 16 != 0
+        w8a16_matmul(torch.randn((4, 64), device=dev).to(torch.bfloat16), kq[:, :24].contiguous(), scale[:24])
 
 
 def test_model_routes_through_kernels():
@@ -1023,6 +1033,165 @@ def test_engine_graph_equals_eager(paged, quant):
     assert engines["graph"]._graph is not None
     for engine in engines.values():
         engine.shutdown()
+
+
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "no-bias"])
+@pytest.mark.parametrize("M", [1, 8, 13, 16, 33, 200])
+@pytest.mark.parametrize("K,N", [(64, 16), (200, 400), (1024, 4096), (4096, 1040)])
+def test_w8a16_kernel_matches_plain(M, K, N, bias):
+    """The W8A16 product against ``w8a16_plain`` at both tilings (M <= 32
+    with K split, M > 32), with masked edges in M, N (not a multiple of 128)
+    and K (not a multiple of 64), within 1e-2 of max |y| and never less than
+    three bf16 ulps of it (the kernel's f32 sums run in another order, a sum
+    near a bf16 boundary rounds either way, and QDense's scale and bias
+    round twice more, so an output may move by two ulps); a second call is
+    bit-equal."""
+    dev = _cuda()
+    from trlx_tpu_torch.ops.w8a16 import quantize_channels, w8a16_matmul, w8a16_plain
+
+    g = torch.Generator(device=dev).manual_seed(M + K + N)
+    x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+    kq, scale = quantize_channels(torch.randn((K, N), generator=g, device=dev) * K ** -0.5)
+    b = torch.randn((N,), generator=g, device=dev) if bias else None
+    before = w8a16_matmul.launches
+    y = w8a16_matmul(x, kq, scale, b)
+    y2 = w8a16_matmul(x, kq, scale, b)
+    torch.cuda.synchronize()
+    assert w8a16_matmul.launches == before + 2
+    ref = w8a16_plain(x, kq, scale, b)
+    assert y.shape == (M, N) and y.dtype == torch.bfloat16 and torch.equal(y, y2)
+    err = (y.float() - ref.float()).abs().max().item()
+    top = ref.float().abs().max().item()
+    assert err <= max(1e-2 * top, 3 * 2.0 ** (math.floor(math.log2(top)) - 7)), err
+
+
+def _w8_graph_model(dev):
+    from trlx_tpu_torch.ops.w8a16 import quantize_weights
+
+    model, params, opt = _graph_model(dev)
+    assert quantize_weights(model) == 2 * 6 + 1  # q k v out fc proj a layer, and lm_head
+    return model, params, opt
+
+
+def test_w8_generate_graph_reads_requantized_weights():
+    """W8A16 decode on the chunked sampler: the graph route equals the eager
+    route bit for bit, every product of prefill and decode goes through the
+    W8 kernel (13 a forward), and after an optimizer step the int8 copies
+    are re-quantized in place (same addresses, new codes) and the replayed
+    graph reads them (graph still equals eager)."""
+    dev = _cuda()
+    from functools import partial
+
+    from trlx_tpu_torch.ops.generate import make_generate_fn
+    from trlx_tpu_torch.ops.sampling import GenerateConfig
+    from trlx_tpu_torch.ops.w8a16 import quantized_weights, w8a16_matmul
+
+    model, params, opt = _w8_graph_model(dev)
+    N = 16
+    graph = make_generate_fn(model, GenerateConfig(max_new_tokens=N, do_sample=False))
+    eager = partial(graph.func, *graph.args, **{**graph.keywords, "_keep": {}, "_eager": True})
+    ids = torch.randint(1, 64, (4, 256), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    pmask = torch.ones_like(ids)
+    qw0 = {k: (kq.data_ptr(), kq.clone()) for k, (kq, _) in quantized_weights(model).items()}
+    for k in range(3):
+        if k == 2:
+            _optimizer_step(params, opt, 5)
+        out = {}
+        for name, fn in (("eager", eager), ("graph", graph)):
+            before = w8a16_matmul.launches
+            out[name] = fn(ids, pmask, None)
+            torch.cuda.synchronize()
+            assert w8a16_matmul.launches - before == 13 * (1 + N)
+        assert torch.equal(out["eager"][0], out["graph"][0])
+    qw = quantized_weights(model)
+    assert all(qw[k][0].data_ptr() == ptr for k, (ptr, _) in qw0.items())
+    assert not torch.equal(qw["transformer.h_1.mlp.c_fc"][0], qw0["transformer.h_1.mlp.c_fc"][1])
+    assert torch.equal(qw["transformer.h_0.mlp.c_fc"][0], qw0["transformer.h_0.mlp.c_fc"][1])  # frozen layer
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["fixed", "paged"])
+def test_engine_spec_greedy_and_graph(paged):
+    """The speculative engine on the card: its verify call replayed as a
+    CUDA graph equals its eager calls bit for bit, and its greedy tokens
+    equal the non-speculative engine's (logits spread as a trained head's,
+    so the verify window's einsum attention and the decode kernels do not
+    split a near tie)."""
+    dev = _cuda()
+    import numpy as np
+
+    from trlx_tpu_torch.engine import RolloutEngine
+    from trlx_tpu_torch.ops.sampling import GenerateConfig
+
+    model, _, _ = _graph_model(dev)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(1, 64, size=(6, 200)).astype(np.int32)
+    mask = np.ones_like(prompts)
+    mask[1, :70] = 0
+    gcfg = GenerateConfig(max_new_tokens=16, do_sample=False)
+    kw = dict(n_slots=4, prompt_width=200, prefill_batch=2, steps_per_sync=4, paged_kv=paged, kv_block_size=128)
+    engines = {"off": RolloutEngine(model, gcfg, **kw),
+               "eager": RolloutEngine(model, gcfg, **kw, spec_decode="ngram", spec_k=4, _eager=True),
+               "graph": RolloutEngine(model, gcfg, **kw, spec_decode="ngram", spec_k=4)}
+    runs = {}
+    for name, engine in engines.items():
+        engine.update_weights(model, version=1)
+        engine.submit(prompts, mask)
+        eps = []
+        while not engine.idle:
+            eps.extend(engine.step())
+        torch.cuda.synchronize()
+        runs[name] = {tuple(e.prompt_ids.tolist()) + tuple(e.prompt_mask.tolist()): e.response_ids for e in eps}
+        assert len(runs[name]) == 6
+    for key in runs["off"]:
+        np.testing.assert_array_equal(runs["graph"][key], runs["eager"][key])
+        np.testing.assert_array_equal(runs["graph"][key], runs["off"][key])
+    assert engines["graph"]._graph is not None
+    assert engines["graph"].stats()["engine/spec_accept_rate"] > 0
+    for engine in engines.values():
+        engine.shutdown()
+
+
+def test_soft_prompt_backward_skips_the_frozen_heads_dw():
+    """A soft-prompt model on the card: the gradient reaches the prefix
+    through the flash backward of every layer and the fused head's ds + dx,
+    and the frozen LM head launches no dW/db kernel; the prefix's gradient
+    equals the plain route's (float32 model on the CPU, same weights) within
+    bf16 tolerance."""
+    dev = _cuda()
+    from trlx_tpu_torch.models.heads import LMWithValueHead
+    from trlx_tpu_torch.models.hf_import import init_params
+    from trlx_tpu_torch.models.lm import LMConfig
+    from trlx_tpu_torch.ops.flash_attention import flash_bwd_dq
+    from trlx_tpu_torch.ops.fused_logprob import fused_logprob_bwd_dw, fused_logprob_bwd_dx
+
+    arch = dict(vocab_size=1024, n_layer=2, n_head=8, d_model=1024, max_position=512, pos_type="rotary",
+                rotary_dim=32, parallel_residual=True, fused_qkv=False, qkv_bias=False, out_bias=False,
+                tie_word_embeddings=False, extra={"lm_head_bias": True}, n_soft_tokens=8)
+    grads = {}
+    for name, device, dtype in (("card", dev, "bfloat16"), ("cpu", "cpu", "float32")):
+        cfg = LMConfig(**arch, dtype=dtype)
+        model = LMWithValueHead(cfg, device=device)
+        init_params(model, torch.Generator(device=device).manual_seed(0))
+        if name == "cpu":
+            model.load_state_dict({k: v.cpu() for k, v in ref_state.items()})
+        else:
+            ref_state = model.state_dict()
+        for n, p in model.named_parameters():
+            p.requires_grad_(n == "transformer.soft_prompt")
+        ids = torch.randint(0, 1024, (2, 248), generator=torch.Generator().manual_seed(1)).to(device)
+        mask = torch.ones_like(ids)
+        before = (flash_bwd_dq.launches, fused_logprob_bwd_dx.launches, fused_logprob_bwd_dw.launches)
+        lp = model(ids, mask, logits_start=0, labels=ids[:, 1:])["logprobs"]
+        lp.sum().backward()
+        if name == "card":
+            torch.cuda.synchronize()
+            dq, dx, dw = (a - b for a, b in zip((flash_bwd_dq.launches, fused_logprob_bwd_dx.launches,
+                                                 fused_logprob_bwd_dw.launches), before))
+            assert (dq, dw) == (2, 0) and dx >= 1
+        grads[name] = model.transformer.soft_prompt.grad.float().cpu()
+    ref = grads["cpu"]
+    assert torch.isfinite(grads["card"]).all()
+    assert (grads["card"] - ref).abs().max() <= 5e-2 * ref.abs().max()
 
 
 def test_train_on_the_card(tmp_path):

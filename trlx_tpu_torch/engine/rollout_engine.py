@@ -27,14 +27,36 @@ and a finished slot is refilled from the prompt queue instead of idling:
   carry per-token version spans. The paged prefix registry is flushed on a
   version switch, since KV depends on the weights.
 
+- A soft-prompt model (``n_soft_tokens``) prefills its learned prefix into
+  rows [0, n_soft) of every admitted slot; decode and verify steps run with
+  ``prepend_soft=False`` at the slot's absolute offset. The paged pool
+  refuses soft prompts, as in the JAX package.
+- A model with int8 decode weights (``ops.w8a16``) prefills, decodes and
+  verifies inside ``models.lm.decode_weights``; the handoff re-quantizes
+  stale copies in place.
+- Speculative decoding (``spec_decode="ngram"``, ``spec_k >= 2``): a host
+  drafter (``engine.drafters``) proposes spec_k - 1 tokens per slot, and ONE
+  verify call runs the model over every slot's window [its own next token,
+  the drafts] (q_len = spec_k, vector ``cache_index``, the einsum attention
+  path as in the JAX package: there is no multi-token kernel) and keeps each
+  slot's longest accepted prefix: greedy, a draft is accepted iff it is the
+  argmax after its predecessor, so the tokens equal the non-speculative
+  engine's; sampled, by rejection sampling against a point-mass drafter.
+  Rejected positions are rolled back by the cache mask alone. The cache has
+  a scratch tail of spec_k - 1 columns so a live window never clamps. On a
+  CUDA device the verify call is captured as a CUDA graph like the decode
+  call; the drafts reach it through a static buffer copied before replay.
+  The JAX engine's ``spec_verify_supported`` blesses TPU tile layouts
+  (``ops/tiling.py``, not ported by decision) and has no counterpart here.
+
 Parity: with greedy sampling a slot's tokens equal whole-batch
 ``generate``'s for the same prompt (the new token's mask bit is written
 before the model call, eos is written with its mask bit, post-finish
 positions hold pad / mask 0). Sampling draws from one device generator for
 all slots, so sampled runs match the JAX engine only in distribution.
 
-Not ported here: speculative decoding, multi-process slot managers and the
-schedule fingerprint, the dispatch lock, sanitizer hooks and trace spans.
+Not ported here: multi-process slot managers and the schedule fingerprint,
+the dispatch lock, sanitizer hooks and trace spans.
 """
 
 import time
@@ -45,7 +67,7 @@ import numpy as np
 import torch
 
 from trlx_tpu_torch.engine.paged_pool import BlockPool, PoolExhausted
-from trlx_tpu_torch.models.lm import init_cache, init_paged_cache, refresh_weight_copies
+from trlx_tpu_torch.models.lm import decode_weights, init_cache, init_paged_cache, refresh_weight_copies
 from trlx_tpu_torch.ops.cuda_graph import CudaGraph, StepGraph
 from trlx_tpu_torch.ops.sampling import GenerateConfig, process_logits_default, sample_categorical
 from trlx_tpu_torch.pipeline.prompt_pipeline import PromptSlotQueue
@@ -83,7 +105,10 @@ class RolloutEngine:
     ``prefill_batch`` slots are free, or at once when nothing is live),
     runs ``steps_per_sync`` decode steps, and returns the finished episodes
     in completion order. ``model`` fixes the config and device; the module
-    handed to ``update_weights`` is the one that decodes. ``_eager`` (tests
+    handed to ``update_weights`` is the one that decodes. With
+    ``spec_decode`` ("ngram"; "off" or "" disarm it) each ``step()`` runs one
+    verify call of ``spec_k`` window positions per slot instead, drafted by
+    ``drafter`` (default ``make_drafter(spec_decode)``). ``_eager`` (tests
     and the chip smoke's comparison only) launches every decode step
     eagerly on a CUDA device instead of replaying the graph."""
 
@@ -100,6 +125,9 @@ class RolloutEngine:
         paged_kv: bool = False,
         kv_block_size: int = 128,
         kv_pool_blocks: int = 0,
+        spec_decode: str = "",
+        spec_k: int = 0,
+        drafter=None,
         generator: Optional[torch.Generator] = None,
         _eager: bool = False,
     ):
@@ -112,9 +140,29 @@ class RolloutEngine:
         self.processor = processor
         self.n_slots = int(n_slots)
         self.prompt_width = int(prompt_width)
-        self.cache_len = self.prompt_width + int(gen_cfg.max_new_tokens)
+        self.n_soft = int(self.cfg.n_soft_tokens)
+        spec = (spec_decode or "").lower()
+        if spec == "off":
+            spec = ""
+        if spec not in ("", "ngram", "model"):
+            raise ValueError(f"unknown spec_decode mode: {spec_decode!r}")
+        self.spec_decode = spec
+        self.spec_k = int(spec_k) if spec_k else (4 if spec else 0)
+        if spec and self.spec_k < 2:
+            raise ValueError(f"spec_k must be >= 2 when spec_decode is armed, got {self.spec_k}")
+        self.cache_len = self.n_soft + self.prompt_width + int(gen_cfg.max_new_tokens)
+        if spec:
+            # Scratch tail: the last budgeted token can sit at cache_len - 1,
+            # and a window of spec_k written there must not clamp back onto
+            # valid entries. Scratch columns never get a mask bit.
+            self.cache_len += self.spec_k - 1
         self.paged = bool(paged_kv)
         if self.paged:
+            if self.n_soft:
+                raise ValueError(
+                    "paged_kv does not compose with soft prompts yet: the learned prefix would alias every "
+                    "slot's block 0 content (disable method.paged_kv or n_soft_tokens)"
+                )
             # One shared physical pool and per-slot block tables over a
             # virtual cache of kv_len = ceil(cache_len / block) * block keys.
             self.block_size = int(kv_block_size)
@@ -145,6 +193,18 @@ class RolloutEngine:
         self.generator = generator
         self._use_graph = self.device.type == "cuda" and not _eager
         self._graph = None  # (the module it was captured with, its StepGraph)
+        if spec:
+            from trlx_tpu_torch.engine.drafters import make_drafter
+
+            self.drafter = drafter if drafter is not None else make_drafter(spec, gen_cfg.pad_token_id)
+            # Each slot's frontier token on the host: the drafter's basis,
+            # set at admission and after every verify sync.
+            self._spec_last_tok = np.zeros((self.n_slots,), dtype=np.int64)
+            self._verify = self._verify_call  # the call _decode() launches (or captures) in place of _decode_call
+        else:
+            self.drafter = None
+            self._spec_last_tok = None
+            self._verify = None
         self._reset_counters()
 
     # ------------------------------------------------------------- host side
@@ -162,6 +222,8 @@ class RolloutEngine:
         self._prefill_wall = 0.0
         self._weight_switches = 0
         self._switches_coalesced = 0
+        self._spec_proposed = 0
+        self._spec_accepted = 0
 
     @property
     def live_slots(self) -> int:
@@ -229,10 +291,12 @@ class RolloutEngine:
         if self._variables is None:
             raise RuntimeError("RolloutEngine.update_weights() must be called before step()")
         self._ensure_state()
-        self._admit()
-        if self.live_slots == 0:
-            return []
-        finished, n_gen = self._step_decode()
+        with decode_weights(self._variables):
+            self._admit()
+            n_live = self.live_slots
+            if n_live == 0:
+                return []
+            finished, n_gen = self._step_verify(n_live) if self.spec_decode else self._step_decode()
 
         episodes = []
         done = [i for i in range(self.n_slots) if self._slot_meta[i] is not None and finished[i]]
@@ -279,6 +343,63 @@ class RolloutEngine:
         self._live_row_steps += live
         self._gen_tokens += live
         return finished, n_gen
+
+    def _step_verify(self, n_live: int):
+        """One speculative sync quantum: draft spec_k - 1 tokens per slot on
+        the host, run ONE verify call over every slot's window, adopt each
+        slot's longest accepted prefix. Dispatches count calls; tokens count
+        ACCEPTED tokens only. Returns the host (finished, n_gen) arrays."""
+        K, S = self.spec_k, self.n_slots
+        drafts = self._propose_drafts()
+        t0 = time.perf_counter()
+        st = self._state
+        st["drafts"].copy_(torch.from_numpy(drafts))
+        self._decode()
+        packed = torch.cat([st["finished"].int(), st["n_gen"].int(), st["accepted"].int(),
+                            st["window"].reshape(-1)]).cpu().numpy()
+        finished, n_gen = packed[:S].astype(bool), packed[S:2 * S]
+        acc, window = packed[2 * S:3 * S].astype(np.int64), packed[3 * S:].reshape(S, K)
+        acc_total = int(acc.sum())
+        self._n_gen_host = n_gen
+        self._decode_wall += time.perf_counter() - t0
+        self._decode_calls += 1
+        self._decode_steps += K
+        self._slot_steps += K * S
+        self._live_row_steps += acc_total
+        self._gen_tokens += acc_total
+        self._spec_proposed += K * n_live
+        self._spec_accepted += acc_total
+        self._observe_accepted(acc, window)
+        return finished, n_gen
+
+    def _propose_drafts(self):
+        """The [S, K] windows' drafts. Column 0 is a placeholder: the verify
+        call puts the model's own next token there (accepted by force, so a
+        live slot gains >= 1 token a call and a cold drafter decodes at the
+        non-speculative rate). Columns 1..K-1 are the drafter's chain from
+        the slot's frontier token shifted by one: its first guess is column
+        0's, so its continuations sit where they would if that guess is the
+        model's token."""
+        K = self.spec_k
+        drafts = np.full((self.n_slots, K), int(self.gcfg.pad_token_id), dtype=np.int32)
+        for i, meta in enumerate(self._slot_meta):
+            if meta is None:
+                continue
+            chain = self.drafter.propose(i, int(self._spec_last_tok[i]), K)
+            drafts[i, 1:] = np.asarray(chain[1:], dtype=np.int32)
+            meta["dispatches"] = meta.get("dispatches", 0) + 1
+        return drafts
+
+    def _observe_accepted(self, acc, window):
+        """Fold each slot's ACCEPTED tokens (never the rejected drafts) into
+        the drafter and advance the host frontier tokens."""
+        for i, meta in enumerate(self._slot_meta):
+            a = int(acc[i])
+            if meta is None or a <= 0:
+                continue
+            toks = [int(self._spec_last_tok[i])] + [int(t) for t in window[i, :a]]
+            self.drafter.observe(i, toks)
+            self._spec_last_tok[i] = toks[-1]
 
     @staticmethod
     def _build_spans(meta, steps):
@@ -329,6 +450,7 @@ class RolloutEngine:
             for row, slot in enumerate(slots):
                 self._slot_meta[slot] = {"prompt_ids": ids[row], "prompt_mask": msk[row],
                                          "version": self.weight_version}
+                self._reset_drafter(slot, ids[row], msk[row])
             self._prefill_calls += 1
             self._refills += len(slots)
             admitted += len(slots)
@@ -379,12 +501,21 @@ class RolloutEngine:
                     self.pool.register_prefix(slot, self.weight_version, ids[r], msk[r])
                     self._slot_meta[slot] = {"prompt_ids": ids[r], "prompt_mask": msk[r],
                                              "version": self.weight_version, "prefix_hit": int(hit)}
+                    self._reset_drafter(slot, ids[r], msk[r])
                 self._prefill_calls += 1
             self._refills += len(rows)
             admitted += len(rows)
             if len(rows) < n:
                 break
         return admitted
+
+    def _reset_drafter(self, slot: int, ids, msk):
+        """A spec engine's admitted slot: its frontier is the prompt's last
+        column (rows are left-padded) and its drafter table starts from the
+        prompt's tokens."""
+        if self.spec_decode:
+            self._spec_last_tok[slot] = int(ids[-1])
+            self.drafter.reset_slot(slot, ids[msk > 0].tolist())
 
     def stats(self, reset: bool = True) -> dict:
         """Window gauges: slot occupancy (live-slot decode steps over the
@@ -418,6 +549,10 @@ class RolloutEngine:
             out["engine/pool_evictions_total"] = self.pool.evictions
             out["engine/prefix_hits_total"] = self.pool.hits_total
             out["engine/prefill_tokens_saved_total"] = self.pool.tokens_saved_total
+        if self.spec_decode:
+            out["engine/spec_proposed"] = self._spec_proposed
+            out["engine/spec_accepted"] = self._spec_accepted
+            out["engine/spec_accept_rate"] = self._spec_accepted / max(1, self._spec_proposed)
         if reset:
             self._reset_counters()
         return out
@@ -439,6 +574,20 @@ class RolloutEngine:
             shared.update(self.pool.shared_blocks(i))
         toks += len(shared) * self.block_size
         return max(0.0, 1.0 - toks / float(used * self.block_size))
+
+    def slot_states(self) -> list:
+        """Host summary of the in-flight slots: slot, prompt width, weight
+        version, tokens at the last sync and recorded version switches."""
+        out = []
+        for i, meta in enumerate(self._slot_meta):
+            if meta is None:
+                continue
+            out.append({
+                "slot": i, "width": int(len(meta["prompt_ids"])), "version": meta["version"],
+                "n_gen": int(self._n_gen_host[i]) if self._n_gen_host is not None else 0,
+                "switches": [[int(p), v] for p, v in meta.get("switches", ())],
+            })
+        return out
 
     def abort(self):
         """Drop queued prompts and in-flight slots. Device buffers stay for
@@ -493,6 +642,17 @@ class RolloutEngine:
             "last_hidden": torch.zeros((S, cfg.d_model), dtype=cfg.compute_dtype, device=dev),
             "live_steps": torch.zeros((), dtype=torch.int32, device=dev),  # the decode call's output
         }
+        if self.spec_decode:
+            K = self.spec_k
+            self._state.update({
+                "drafts": torch.zeros((S, K), dtype=torch.int32, device=dev),  # copied in before each call
+                "accepted": torch.zeros((S,), dtype=torch.int32, device=dev),  # the verify call's outputs
+                "window": torch.zeros((S, K), dtype=torch.int32, device=dev),
+                # The draft token the last window rejected at its break (-1:
+                # none): masked at the next window's position 0, so that
+                # position draws from the exact residual distribution.
+                "spec_resid": torch.full((S,), -1, dtype=torch.int32, device=dev),
+            })
         if self.paged:
             # Every slot's virtual blocks point at the trash block until
             # admission assigns a span.
@@ -510,25 +670,31 @@ class RolloutEngine:
         st["last_logits"][slots] = out["logits"][:, -1].float()
         st["last_hidden"][slots] = out["hidden"][:, -1].to(st["last_hidden"].dtype)
         st["last_token"][slots] = last_token.to(torch.int32)
+        if self.spec_decode:
+            st["spec_resid"][slots] = -1
 
     def _prefill(self, prompt_ids, prompt_mask, slot_ids):
         """Batched prefill of a same-width group into its slots: the group
-        runs through a mini cache of its width at the static offset 0 (the
-        flash route on the card), whose leaves are then copied into the
-        slot cache at [slots, :width]."""
+        runs through a mini cache of its width (plus the soft prefix) at the
+        static offset 0 (the flash route on the card), whose leaves are then
+        copied into the slot cache at [slots, :n_soft + width]."""
         dev = self.device
         ids = torch.as_tensor(prompt_ids, device=dev)
         pm = torch.as_tensor(prompt_mask, device=dev).to(torch.int32)
         slots = torch.as_tensor(slot_ids, dtype=torch.long, device=dev)
         j, W = ids.shape
-        out = self._variables(input_ids=ids, attention_mask=pm, cache=init_cache(self.cfg, j, W, dev),
-                              cache_index=0, cache_mask=pm, logits_start=W - 1)
+        Ws = W + self.n_soft  # cache rows the prefill fills, the prefix first
+        soft_pm = pm
+        if self.n_soft:
+            soft_pm = torch.cat([torch.ones((j, self.n_soft), dtype=torch.int32, device=dev), pm], dim=1)
+        out = self._variables(input_ids=ids, attention_mask=pm, cache=init_cache(self.cfg, j, Ws, dev),
+                              cache_index=0, cache_mask=soft_pm, logits_start=W - 1)
         for big_layer, mini_layer in zip(self._state["cache"], out["cache"]):
             for big, mini in zip(big_layer, mini_layer):
-                big[slots, :W] = mini.to(big.dtype)
+                big[slots, :Ws] = mini.to(big.dtype)
         row_mask = torch.zeros((j, self.kv_len), dtype=torch.int32, device=dev)
-        row_mask[:, :W] = pm
-        self._reset_slots(slots, out, ids[:, -1], row_mask, W)
+        row_mask[:, :Ws] = soft_pm
+        self._reset_slots(slots, out, ids[:, -1], row_mask, Ws)
 
     def _prefill_paged(self, suffix_ids, prompt_mask, slot_ids, tables):
         """Paged prefill of a same-(width, hit) group: the first H = W - Ws
@@ -556,20 +722,22 @@ class RolloutEngine:
         self._reset_slots(slots, out, suffix[:, -1], row_mask, W)
 
     def _decode(self):
-        """``steps_per_sync`` decode steps for every slot, launched without
-        a host sync: eagerly on the CPU; on a CUDA device the first call
-        with a module runs eagerly and is then captured as a CUDA graph,
-        which every later call replays. Returns the live slot-steps as a
-        device scalar (a static buffer the next call overwrites)."""
+        """The decode call (``steps_per_sync`` steps for every slot), or a
+        spec engine's verify call, launched without a host sync: eagerly on
+        the CPU; on a CUDA device the first call with a module runs eagerly
+        and is then captured as a CUDA graph, which every later call
+        replays. Returns the live slot-steps as a device scalar (a static
+        buffer the next call overwrites)."""
+        call = self._verify or self._decode_call
         if not self._use_graph:
-            self._decode_call()
+            call()
         elif self._graph is not None and self._graph[0] is self._variables:
             self._graph[1].replay()
         else:
-            self._decode_call()
+            call()
             self._graph = None  # the old graph's pool goes before the new capture
             gen = self.generator if self.gcfg.do_sample else None
-            self._graph = (self._variables, StepGraph(self._decode_call, CudaGraph(gen)))
+            self._graph = (self._variables, StepGraph(call, CudaGraph(gen)))
         return self._state["live_steps"]
 
     def _decode_call(self):
@@ -585,6 +753,8 @@ class RolloutEngine:
         live_steps = st["live_steps"]
         live_steps.zero_()
         paged_kw = {"block_tables": st["block_tables"]} if self.paged else {}
+        if self.n_soft:
+            paged_kw["prepend_soft"] = False  # the prefix is in the cache
         for _ in range(self.steps_per_sync):
             live = st["active"] & ~st["finished"]
             step_col = st["n_gen"][:, None]
@@ -620,3 +790,105 @@ class RolloutEngine:
             st["last_logits"].copy_(out["logits"][:, 0])
             st["last_hidden"].copy_(out["hidden"][:, 0])
             live_steps.add_(live_i.sum(dtype=torch.int32))
+
+    def _process(self, logits, last_token, hidden, step_col):
+        """The logits chain of one window position (the decode call's, with
+        an empty carry)."""
+        if self.processor is not None:
+            return self.processor(logits, {"last_token": last_token, "hidden": hidden, "step": step_col,
+                                           "carry": {}})
+        return process_logits_default(logits, self.gcfg, step_col)
+
+    def _verify_call(self):
+        """ONE speculative verify call for every slot, in place on the slot
+        state (``trlx_tpu.engine.rollout_engine._verify_fn``).
+
+        The window of a slot is [its own next token, drafts 1..K-1]: position
+        0 comes from the frontier logits (argmax, or a draw with the last
+        rejected draft masked out), so a live slot gains >= 1 token. The
+        model runs once over every window (q_len = K at the vector offset
+        ``write_pos``), then each slot keeps its longest accepted prefix:
+        greedy, draft j is accepted iff it is the argmax of the processed
+        logits after position j - 1; sampled, with probability p(draft), the
+        first rejected draft kept in ``spec_resid``. Eos and the response
+        budget stop a window. Rejected positions need no rollback beyond the
+        mask: only the accepted prefix's cache-mask bits are set, and the
+        next window rewrites the stale tail before any bit there is set.
+        Writes ``accepted`` [S] and ``window`` [S, K] for the host."""
+        gcfg, st = self.gcfg, self._state
+        S, T, K, R = self.n_slots, self.kv_len, self.spec_k, int(gcfg.max_new_tokens)
+        dev = self.device
+        pad = gcfg.pad_token_id
+        eos = gcfg.eos_token_id
+        live = st["active"] & ~st["finished"]
+        n_gen, wp = st["n_gen"].clone(), st["write_pos"].clone()
+
+        def is_eos(t):
+            return t == eos if eos is not None else torch.zeros_like(live)
+
+        logits0 = self._process(st["last_logits"], st["last_token"], st["last_hidden"], n_gen[:, None])
+        if gcfg.do_sample:
+            vocab = torch.arange(logits0.shape[-1], device=dev)[None, :]
+            logits0 = torch.where(vocab == st["spec_resid"][:, None].long(), -1e9, logits0)
+            tok0 = sample_categorical(torch.softmax(logits0.float(), dim=-1), self.generator)
+        else:
+            tok0 = torch.argmax(logits0, dim=-1)
+        tok0 = torch.where(live, tok0.to(torch.int32), pad)
+        window = torch.cat([tok0[:, None], st["drafts"][:, 1:]], dim=1)
+        window = torch.where(live[:, None], window, pad)
+
+        # The whole window is visible to itself before the call (the per-row
+        # causal bias hides each query's successors). Live rows never clamp
+        # (the scratch tail); dead rows' clamped writes land on mask-0 columns.
+        pos = torch.arange(T, device=dev)[None, :]
+        in_window = (pos >= wp[:, None]) & (pos < (wp + K)[:, None]) & live[:, None]
+        mask_apply = torch.maximum(st["cache_mask"], in_window.to(torch.int32))
+        kw = {"block_tables": st["block_tables"]} if self.paged else {}
+        if self.n_soft:
+            kw["prepend_soft"] = False
+        out = self._variables(input_ids=window, attention_mask=torch.ones((S, K), dtype=torch.int32, device=dev),
+                              cache=st["cache"], cache_index=torch.clamp(wp, max=T - K), cache_mask=mask_apply,
+                              **kw)
+        L = out["logits"].float()  # [S, K, V]
+
+        accepted = live.to(torch.int32)
+        stop = live & is_eos(window[:, 0])
+        resid = torch.full((S,), -1, dtype=torch.int32, device=dev)
+        acc_prev = live
+        for j in range(1, K):
+            lj = self._process(L[:, j - 1], window[:, j - 1], out["hidden"][:, j - 1], (n_gen + j)[:, None])
+            alive = acc_prev & ~stop & ((n_gen + j) < R)
+            if gcfg.do_sample:
+                p_d = torch.softmax(lj.float(), dim=-1).gather(1, window[:, j:j + 1].long())[:, 0]
+                match = torch.rand((S,), generator=self.generator, device=dev) < p_d
+                resid = torch.where(alive & ~match, window[:, j], resid)
+            else:
+                match = window[:, j] == torch.argmax(lj, dim=-1).to(torch.int32)
+            acc_j = alive & match
+            accepted = accepted + acc_j.to(torch.int32)
+            stop = stop | (acc_j & is_eos(window[:, j]))
+            acc_prev = acc_j
+
+        # Commit the accepted prefix.
+        a = torch.where(live, accepted, 0)
+        n_gen2, wp2 = n_gen + a, wp + a
+        keep = (pos >= wp[:, None]) & (pos < wp2[:, None]) & live[:, None]
+        st["cache_mask"].copy_(torch.maximum(st["cache_mask"], keep.to(torch.int32)))
+        rpos = torch.arange(R, device=dev)[None, :]
+        vals = window.gather(1, torch.clamp(rpos - n_gen[:, None], 0, K - 1).long())
+        put = (rpos >= n_gen[:, None]) & (rpos < n_gen2[:, None]) & live[:, None]
+        st["tokens"].copy_(torch.where(put, vals, st["tokens"]))
+        st["finished"].logical_or_(live & (stop | (n_gen2 >= R)))
+        ix = torch.clamp(a - 1, min=0).long()
+        rows = torch.arange(S, device=dev)
+        st["last_token"].copy_(torch.where(live, window[rows, ix], st["last_token"]))
+        st["last_logits"].copy_(torch.where(live[:, None], L[rows, ix], st["last_logits"]))
+        st["last_hidden"].copy_(torch.where(live[:, None], out["hidden"][rows, ix].to(st["last_hidden"].dtype),
+                                            st["last_hidden"]))
+        st["write_pos"].copy_(wp2)
+        st["n_gen"].copy_(n_gen2)
+        if gcfg.do_sample:
+            st["spec_resid"].copy_(torch.where(live, resid, st["spec_resid"]))
+        st["accepted"].copy_(a)
+        st["window"].copy_(window)
+        st["live_steps"].copy_(a.sum(dtype=torch.int32))

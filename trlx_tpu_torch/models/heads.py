@@ -62,10 +62,14 @@ class LMWithValueHead(nn.Module):
     """Policy LM + scalar value head (+ hydra frozen-branch support).
 
     ``branch_layer`` is the block where the frozen reference branch starts
-    (n_layer - num_layers_unfrozen); -1 disables branch collection."""
+    (n_layer - num_layers_unfrozen); -1 disables branch collection. A
+    soft-prompt model has no branch: the branch could not replay a prefix it
+    never saw, so its reference is a whole frozen model."""
 
     def __init__(self, cfg: LMConfig, branch_layer: int = -1, device=None):
         super().__init__()
+        if cfg.n_soft_tokens > 0 and branch_layer >= 0:
+            raise ValueError("soft-prompt models use a full frozen ref copy, not the hydra branch")
         self.cfg = cfg
         self.branch_layer = branch_layer
         device = resolve_device(device)
@@ -87,6 +91,7 @@ class LMWithValueHead(nn.Module):
         compute_logits: bool = True,
         labels=None,
         labels_mask=None,
+        prepend_soft: bool = True,
     ):
         out = self.transformer(
             input_ids=input_ids,
@@ -102,6 +107,7 @@ class LMWithValueHead(nn.Module):
             compute_logits=compute_logits,
             labels=labels,
             labels_mask=labels_mask,
+            prepend_soft=prepend_soft,
         )
         values = self.v_head(out["hidden"])[..., 0]
         return {
@@ -173,6 +179,7 @@ class LMWithILQLHeads(nn.Module):
         labels=None,
         labels_mask=None,
         compute_q_heads: bool = True,
+        prepend_soft: bool = True,
     ):
         """Returns dict(logits, qs, vs, hidden, cache, logprobs).
 
@@ -193,6 +200,7 @@ class LMWithILQLHeads(nn.Module):
             logits_start=logits_start,
             labels=labels,
             labels_mask=labels_mask,
+            prepend_soft=prepend_soft,
         )
         hs = out["hidden"]
         tail = hs[:, logits_start:] if logits_start else hs

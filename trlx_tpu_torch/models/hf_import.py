@@ -131,8 +131,11 @@ def lm_config_from_hf(hf, **overrides) -> LMConfig:
 def init_params(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded from-scratch init, in place, on the parameters' device:
     Dense kernels N(0, 1/fan_in), embeddings N(0, 1/features), LayerNorm
-    scale 1, every bias 0 (the variances of the Flax initializers)."""
+    scale 1, every bias 0, a soft prompt N(0, 0.02^2) (the variances of the
+    Flax initializers)."""
     for mod in model.modules():
+        if isinstance(getattr(mod, "soft_prompt", None), torch.Tensor):
+            mod.soft_prompt.normal_(0.0, 0.02, generator=generator)
         if isinstance(mod, Dense):
             mod.kernel.normal_(0.0, float(mod.kernel.shape[0]) ** -0.5, generator=generator)
             if mod.bias is not None:
@@ -158,7 +161,8 @@ def load_or_init_params(model: nn.Module, config, generator: torch.Generator) ->
     mc = config.model
     if not (mc.model_path and not mc.model_arch):
         return None
-    own = dict(model.transformer.named_parameters())
+    # A soft prompt has no HF counterpart: it keeps its seeded init.
+    own = {n: p for n, p in model.transformer.named_parameters() if n != "soft_prompt"}
     t0 = time.perf_counter()
     nbytes = 0
 

@@ -28,12 +28,21 @@ Attention routes through three paths, by the JAX package's static rules:
 - the einsum path with an additive [b, 1, q, kv] bias otherwise, over the
   cache dequantised in the compute dtype and gathered to the virtual view.
 
+``n_soft_tokens`` prepends a learned prefix (``soft_prompt``
+[n_soft, d_model]) to the embeddings and ones to the mask, shifts the
+positions, and slices the outputs back to the caller's length;
+``prepend_soft=False`` on decode and verify steps, whose cache already
+holds the prefix. Int8 decode weights (W8A16): ``ops.w8a16.quantize_weights``
+gives each quantized Dense an int8 copy, which it reads instead of its
+kernel inside ``decode_weights(module)`` (the decode paths), as QDense
+reads the ``qw`` collection; training and scoring never enter it.
+
 ``remat`` with policy "full" checkpoints every block under grad; policy
-"dots" raises. Not in this slice: int8 decode weights, multi-token verify
-windows, ring attention, soft prompts and packed segments; the config
-fields exist and raise when set.
+"dots" raises. Not in this slice: ring attention and packed segments; the
+config fields exist and raise when set.
 """
 
+from contextlib import contextmanager
 from dataclasses import dataclass, field, replace
 from typing import Any, Dict, Optional, Tuple
 
@@ -53,6 +62,7 @@ from trlx_tpu_torch.ops.decode_attention import (
 )
 from trlx_tpu_torch.ops.flash_attention import auto_flash_ok, flash_attention
 from trlx_tpu_torch.ops.fused_logprob import routed_logprob
+from trlx_tpu_torch.ops.w8a16 import quantize_weights, w8a16_matmul
 
 
 @dataclass(frozen=True)
@@ -95,8 +105,6 @@ class LMConfig:
             raise ValueError(f"unknown remat_policy {self.remat_policy!r} (expected 'full' or 'dots')")
         if self.attn_impl not in ("auto", "flash", "xla"):
             raise ValueError(f"attn_impl must be auto|flash|xla, got {self.attn_impl!r}")
-        if self.n_soft_tokens:
-            raise NotImplementedError("soft prompts (n_soft_tokens) are not ported yet")
         if self.sp_size > 1:
             raise NotImplementedError("ring attention (sp_size > 1) is not ported yet")
         if self.remat and self.remat_policy == "dots":
@@ -206,16 +214,35 @@ def _refresh(w: torch.Tensor, held: list):
 def refresh_weight_copies(module: nn.Module) -> int:
     """Cast, in place, every stale ``frozen_copy`` of ``module``'s
     parameters (the frozen-branch tensors too while ``swapped_params`` has
-    them in). A replayed CUDA graph reads the copies without calling
-    ``frozen_copy``: call this before replaying one after the weights may
-    have changed. Returns the number of copies refreshed."""
+    them in), and re-quantize, in place, every stale int8 decode copy
+    (``ops.w8a16.quantize_weights``). A replayed CUDA graph reads the copies
+    without making them: call this before replaying one after the weights
+    may have changed. Returns the number of copies refreshed."""
     n = 0
     for w in module.parameters():
         held = getattr(w, "_frozen_copy", None)
         if held is not None and held[0] != (w._version, w.data_ptr()):
             _refresh(w, held)
             n += 1
+    if any(getattr(m, "w8", None) is not None for m in module.modules()):
+        n += quantize_weights(module)
     return n
+
+
+@contextmanager
+def decode_weights(module: nn.Module):
+    """Within, every Dense of ``module`` that holds an int8 decode copy
+    (``ops.w8a16.quantize_weights``) reads it instead of its kernel: the
+    decode paths' counterpart of applying with the ``qw`` collection. A
+    module without copies is unchanged."""
+    held = [m for m in module.modules() if getattr(m, "w8", None) is not None]
+    for m in held:
+        m.w8_on = True
+    try:
+        yield module
+    finally:
+        for m in held:
+            m.w8_on = False
 
 
 def compute_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -228,7 +255,15 @@ def compute_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 class Dense(nn.Module):
     """``y = x @ kernel (+ bias)`` with kernel [in, out] stored in the param
     dtype and cast, like the input, to the compute dtype at use (once per
-    weight version where no gradient flows to it: ``compute_weight``)."""
+    weight version where no gradient flows to it: ``compute_weight``).
+
+    ``w8`` ([key, int8 codes [in, out], f32 scales [out]]) is the int8 decode
+    copy ``quantize_weights`` attaches; inside ``decode_weights`` the layer
+    reads it through ``w8a16_matmul`` (QDense with ``qw``) and makes no
+    compute-dtype copy of its kernel."""
+
+    w8 = None
+    w8_on = False
 
     def __init__(self, in_features: int, features: int, use_bias: bool, param_dtype, device):
         super().__init__()
@@ -238,6 +273,8 @@ class Dense(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        if self.w8_on:
+            return w8a16_matmul(x.to(dtype), self.w8[1], self.w8[2], self.bias)
         y = x.to(dtype) @ compute_weight(self.kernel, dtype)
         if self.bias is not None:
             y = y + compute_weight(self.bias, dtype)
@@ -462,7 +499,8 @@ def make_attn_bias(attn_mask_kv: torch.Tensor, q_len: int, q_offset, window: int
 
 
 class TransformerLM(nn.Module):
-    """Embeddings + N blocks + final LN (+ untied head).
+    """Embeddings + N blocks + final LN (+ untied head), and with
+    ``n_soft_tokens`` the learned prefix ``soft_prompt``.
 
     ``start_layer=k`` with ``inputs_embeds`` = the hidden states entering
     block k replays blocks [k..N) + ln_f + head: the hydra reference branch.
@@ -483,6 +521,8 @@ class TransformerLM(nn.Module):
         self.ln_f = LayerNorm(cfg.d_model, cfg.ln_eps, pd, device)
         if not cfg.tie_word_embeddings:
             self.lm_head = Dense(cfg.d_model, cfg.vocab_size, cfg.extra.get("lm_head_bias", False), pd, device)
+        if cfg.n_soft_tokens > 0:
+            self.soft_prompt = nn.Parameter(torch.empty((cfg.n_soft_tokens, cfg.d_model), dtype=pd, device=device))
 
     def block(self, i: int) -> Block:
         return getattr(self, f"h_{i}")
@@ -504,6 +544,7 @@ class TransformerLM(nn.Module):
         logits_start: int = 0,
         labels: Optional[torch.Tensor] = None,
         labels_mask: Optional[torch.Tensor] = None,
+        prepend_soft: bool = True,
     ):
         """Returns dict(logits, hidden, branch_hidden, cache, logprobs, lse,
         entropy), as the JAX module does.
@@ -521,6 +562,13 @@ class TransformerLM(nn.Module):
           ``logprobs``/``lse``/``entropy`` [b, S] at positions
           logits_start.. instead of logits (``extra['fused_logprob']`` ∈
           auto|force|off); ``labels_mask`` zeros masked rows.
+        - Soft prompt (``n_soft_tokens``, ``start_layer`` 0): the prefix is
+          prepended ahead of the left-padded sequence, its mask ones and
+          its positions 0..n_soft-1 (the tokens' shifted by n_soft), and the
+          outputs are sliced back to the caller's length. With a cache, the
+          caller's ``cache_mask`` and ``cache_index`` are in cache space
+          (the prefix in rows [0, n_soft)). ``prepend_soft=False`` on
+          decode and verify steps: the prefix is in the cache already.
         """
         cfg = self.cfg
         dtype = cfg.compute_dtype
@@ -537,6 +585,17 @@ class TransformerLM(nn.Module):
         device = x.device
         if attention_mask is None:
             attention_mask = torch.ones((b, q_len), dtype=torch.int32, device=device)
+
+        n_soft = cfg.n_soft_tokens if (cfg.n_soft_tokens > 0 and start_layer == 0 and prepend_soft) else 0
+        if n_soft:
+            soft = compute_weight(self.soft_prompt, dtype)
+            x = torch.cat([soft[None].expand(b, -1, -1), x], dim=1)
+            attention_mask = torch.cat(
+                [torch.ones((b, n_soft), dtype=attention_mask.dtype, device=device), attention_mask], dim=1)
+            if position_ids is not None:
+                position_ids = torch.cat(
+                    [torch.arange(n_soft, device=device)[None].expand(b, -1), position_ids + n_soft], dim=1)
+            q_len += n_soft
 
         if position_ids is None:
             if cache is not None and cache_mask is not None:
@@ -607,6 +666,12 @@ class TransformerLM(nn.Module):
         x = self.ln_f(x, dtype)
         if collect_hidden_at is not None and collect_hidden_at == cfg.n_layer:
             branch_hidden = x
+        if n_soft:
+            # Callers see their own length; a hydra branch cannot replay a
+            # prefix, so soft-prompt models have none (``heads``).
+            x = x[:, n_soft:]
+            if branch_hidden is not None:
+                branch_hidden = branch_hidden[:, n_soft:]
 
         logits = logprobs = lse = entropy = None
         if labels is not None:

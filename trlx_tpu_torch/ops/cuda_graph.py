@@ -27,10 +27,10 @@ import torch
 
 def launch_counters():
     """Every kernel wrapper that counts its launches."""
-    from trlx_tpu_torch.ops import decode_attention, flash_attention, fused_logprob
+    from trlx_tpu_torch.ops import decode_attention, flash_attention, fused_logprob, w8a16
 
     found = {}
-    for mod in (decode_attention, flash_attention, fused_logprob):
+    for mod in (decode_attention, flash_attention, fused_logprob, w8a16):
         for fn in vars(mod).values():
             if callable(fn) and isinstance(getattr(fn, "launches", None), int):
                 found[id(fn)] = fn

@@ -102,6 +102,9 @@ _SIGNATURES = {
                                  _I,  # tied
                                  _P, _P, _I,  # db partials, db (or null), row tiles
                                  _I, _P],  # SMs (the persistent grid), stream
+    "w8a16_gemm": [_P, _P, _P, _P, _P, _P,  # x kq scale bias(or null) y, split partials (or null)
+                   _I, _I, _I,  # M N K
+                   _I, _I, _I, _P],  # bm splits per(BK chunks a split), stream
 }
 
 

@@ -290,13 +290,16 @@ for _fn in (fused_logprob_fwd, fused_logprob_bwd_dx, fused_logprob_bwd_dw, fused
     _fn.launches = 0
 
 
-def fused_logprob_bwd(x, w, bias, labels, lse, ent, dlp, dlse, dent, *, tied: bool = False, wk=None):
+def fused_logprob_bwd(x, w, bias, labels, lse, ent, dlp, dlse, dent, *, tied: bool = False, wk=None,
+                      need_dw: bool = True):
     """(dx, dW, db) of the fused head. CPU tensors take
     ``fused_logprob_bwd_plain``; CUDA tensors walk the rows in chunks of
     ``BWD_CHUNK_ROWS`` (ds + dx per chunk, into a ds of every row), then
     launch dW/db once over all rows, so no f32 [N, V] score buffer exists and
     dW is written once; or raise. dW accumulates in f32 and comes back in w's
-    dtype; dx comes back in x's dtype.
+    dtype; dx comes back in x's dtype. With ``need_dw`` False (a frozen
+    head: neither w nor bias takes a gradient) the dW/db kernel is not
+    launched and dW and db come back None.
 
     ``wk`` is w as ``kernel_weight`` gives it in x's dtype (the forward's
     copy), made here when not given; the ds and dx kernels read it, and ds is
@@ -323,8 +326,6 @@ def fused_logprob_bwd(x, w, bias, labels, lse, ent, dlp, dlse, dent, *, tied: bo
     ds = torch.empty((n_tiles * _KERNEL_BM, ldv), dtype=x.dtype, device=dev)
     dbpart = None if b is None else torch.empty((n_tiles, V), dtype=torch.float32, device=dev)
     dx = torch.empty((N, D), dtype=x.dtype, device=dev)
-    dw = torch.empty(tuple(w.shape), dtype=torch.float32, device=dev)
-    db = None if b is None else torch.empty((V,), dtype=torch.float32, device=dev)
     chunk_fn, dw_fn = (fused_logprob_bwd_dx_f32, fused_logprob_bwd_dw_f32) if f32 else (
         fused_logprob_bwd_dx, fused_logprob_bwd_dw)
     for c0 in range(0, N, C):
@@ -332,6 +333,10 @@ def fused_logprob_bwd(x, w, bias, labels, lse, ent, dlp, dlse, dent, *, tied: bo
         part = None if dbpart is None else dbpart[c0 // _KERNEL_BM:]
         chunk_fn(x2[c0:], wc, b, y[c0:], [v[c0:] for v in vecs], ds[c0:], part, dx[c0:],
                  rows=rows, C=C, ldv=ldv, tied=tied)
+    if not need_dw:
+        return dx.reshape(x.shape), None, None
+    dw = torch.empty(tuple(w.shape), dtype=torch.float32, device=dev)
+    db = None if b is None else torch.empty((V,), dtype=torch.float32, device=dev)
     dw_fn(x2, ds, dw, rows=N, V=V, ldv=ldv, tied=tied, dbpart=dbpart, db=db)
     return dx.reshape(x.shape), dw.to(w.dtype), None if db is None else db.to(bias.dtype)
 
@@ -362,8 +367,10 @@ class FusedLogprobFn(torch.autograd.Function):
     def backward(ctx, dlp, dlse, dent):
         x, w, bias, labels, lse, ent, wk = ctx.saved_tensors
         dlp, dlse, dent = (torch.zeros_like(lse) if g is None else g for g in (dlp, dlse, dent))
-        dx, dw, db = fused_logprob_bwd(x, w, bias, labels, lse, ent, dlp, dlse, dent, tied=ctx.tied, wk=wk)
         need = ctx.needs_input_grad
+        # A frozen head (the soft-prompt path) launches no dW/db kernel.
+        dx, dw, db = fused_logprob_bwd(x, w, bias, labels, lse, ent, dlp, dlse, dent, tied=ctx.tied, wk=wk,
+                                       need_dw=need[1] or need[2])
         return (dx if need[0] else None, dw if need[1] else None, db if need[2] else None, None, None)
 
 

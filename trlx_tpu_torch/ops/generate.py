@@ -13,6 +13,14 @@ next call of the same shape. On the CPU the same step function runs
 eagerly, so the CPU tests run the code that is captured. Prompts are
 left-padded to a fixed width, so the last prompt position is always the
 sampling position.
+
+A soft-prompt model (``n_soft_tokens``) prefills its prefix into cache rows
+[0, n_soft): the cache holds T + n_soft rows, the model sees the
+cache-space mask (ones for the prefix, then the token mask), and a decode
+step writes at P + step + n_soft with ``prepend_soft=False``. A model with
+int8 decode weights (``ops.w8a16.quantize_weights``) prefills and decodes
+inside ``models.lm.decode_weights``; its copies are re-quantized in place
+before the loop when the weights changed.
 """
 
 from functools import partial
@@ -21,7 +29,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from trlx_tpu_torch.device import stamp
-from trlx_tpu_torch.models.lm import init_cache, refresh_weight_copies
+from trlx_tpu_torch.models.lm import decode_weights, init_cache, refresh_weight_copies
 from trlx_tpu_torch.ops.cuda_graph import CudaGraph, StepGraph
 from trlx_tpu_torch.ops.sampling import GenerateConfig, process_logits_default, sample_categorical
 
@@ -49,9 +57,11 @@ def _copy_last_position(dst, out):
         dst.copy_(out[:, -1])
 
 
-def _static_buffers(cache, B: int, P: int, N: int, prompt_dtype, device, out, carry_keys, step_stats_fn):
+def _static_buffers(cache, B: int, P: int, N: int, n_soft: int, prompt_dtype, device, out, carry_keys,
+                    step_stats_fn):
     """The decode loop's buffers for one (B, P, N): tokens and mask
-    [B, P + N], the KV cache the prefill wrote, the sampler's state, a [1]
+    [B, P + N], the cache-space mask [B, n_soft + P + N] (ones over the soft
+    prefix; the mask itself without one), the KV cache the prefill wrote, the sampler's state, a [1]
     step counter and, with ``step_stats_fn``, the [B, N, ...] stats (their
     shapes read from one call on the prefill state)."""
     T = P + N
@@ -71,6 +81,7 @@ def _static_buffers(cache, B: int, P: int, N: int, prompt_dtype, device, out, ca
         "stats": None,
         "graph": None,
     }
+    buf["cache_mask"] = torch.ones((B, n_soft + T), dtype=torch.int32, device=device) if n_soft else buf["mask"]
     if step_stats_fn is not None:
         probe = step_stats_fn(torch.zeros((B,), dtype=prompt_dtype, device=device), st)
         buf["stats"] = {
@@ -89,6 +100,10 @@ def _make_step(model, buf, gcfg: GenerateConfig, P: int, processor, carry_keys, 
     tokens, mask, cache, st, step = buf["tokens"], buf["mask"], buf["cache"], buf["state"], buf["step"]
     B = tokens.shape[0]
     eos = gcfg.eos_token_id
+    n_soft = model.cfg.n_soft_tokens
+    # The cache-space mask: the token mask behind the soft prefix's ones.
+    cache_mask = buf["cache_mask"]
+    step_kw = {"prepend_soft": False} if n_soft else {}
 
     def step_fn():
         pos = step + P  # [1] write position
@@ -110,8 +125,10 @@ def _make_step(model, buf, gcfg: GenerateConfig, P: int, processor, carry_keys, 
 
         tokens.index_copy_(1, pos, tok[:, None])
         mask.index_copy_(1, pos, live.to(torch.int32)[:, None])
-        out = model(input_ids=tok[:, None], attention_mask=buf["ones"], cache=cache, cache_index=pos.expand(B),
-                    cache_mask=mask, **extra)
+        if n_soft:
+            cache_mask.index_copy_(1, pos + n_soft, live.to(torch.int32)[:, None])
+        out = model(input_ids=tok[:, None], attention_mask=buf["ones"], cache=cache,
+                    cache_index=(pos + n_soft).expand(B), cache_mask=cache_mask, **step_kw, **extra)
         if step_stats_fn is not None:
             for k, v in step_stats_fn(tok, st).items():
                 keep = live.reshape((-1,) + (1,) * (v.ndim - 1)).to(v.dtype)
@@ -182,38 +199,51 @@ def generate(
     every step eagerly instead."""
     if prefill_collect and step_stats_fn is None:
         raise ValueError("prefill_collect requires step_stats_fn")
+    with decode_weights(model):
+        return _generate(model, prompt_ids, prompt_mask, generator, gcfg, processor, carry_keys, step_stats_fn,
+                         apply_kwargs, prefill_collect, timings, _keep, _eager)
+
+
+def _generate(model, prompt_ids, prompt_mask, generator, gcfg, processor, carry_keys, step_stats_fn, apply_kwargs,
+              prefill_collect, timings, _keep, _eager):
     cfg = model.cfg
     device = next(model.parameters()).device
     prompt_ids = torch.as_tensor(prompt_ids, device=device)
     prompt_mask = torch.as_tensor(prompt_mask, device=device)
     B, P = prompt_ids.shape
     N = gcfg.max_new_tokens
+    n_soft = cfg.n_soft_tokens
     eos = gcfg.eos_token_id
     extra = apply_kwargs or {}
     use_graph = device.type == "cuda" and not _eager
-    # Replays read the bf16 weight copies without casting them: bring stale
-    # ones (an optimizer step since the last call) up to date in place.
+    # Replays read the bf16 weight copies and the int8 decode copies without
+    # making them: bring stale ones (an optimizer step since the last call)
+    # up to date in place.
     refresh_weight_copies(model)
+    w8 = any(getattr(m, "w8_on", False) for m in model.modules())
 
     # What the buffers and the captured step depend on, besides the weights.
     key = (B, P, prompt_ids.dtype, gcfg, use_graph, model, processor, carry_keys, step_stats_fn,
-           tuple(sorted(extra.items())), generator is None)
+           tuple(sorted(extra.items())), generator is None, w8)
     buf = _keep.get("buffers") if _keep is not None else None
     if buf is not None and buf["key"] != key:
         _keep.clear()
         buf = None
     if timings is not None:
         timings["start"] = stamp(device)
-    cache = buf["cache"] if buf is not None else init_cache(cfg, B, P + N, device)
+    cache = buf["cache"] if buf is not None else init_cache(cfg, B, n_soft + P + N, device)
     mask0 = torch.cat([prompt_mask.to(torch.int32), torch.zeros((B, N), dtype=torch.int32, device=device)], dim=1)
+    soft_mask0 = mask0
+    if n_soft:
+        soft_mask0 = torch.cat([torch.ones((B, n_soft), dtype=torch.int32, device=device), mask0], dim=1)
     # Only the last prompt position's logits are sampled from.
     out = model(
-        input_ids=prompt_ids, attention_mask=prompt_mask, cache=cache, cache_index=0, cache_mask=mask0,
+        input_ids=prompt_ids, attention_mask=prompt_mask, cache=cache, cache_index=0, cache_mask=soft_mask0,
         logits_start=P - 1, **extra,
     )
     prefill_extras = {k: out[k] for k in prefill_collect}
     if buf is None:
-        buf = _static_buffers(cache, B, P, N, prompt_ids.dtype, device, out, carry_keys, step_stats_fn)
+        buf = _static_buffers(cache, B, P, N, n_soft, prompt_ids.dtype, device, out, carry_keys, step_stats_fn)
         buf["key"] = key
         if _keep is not None:
             _keep["buffers"] = buf
@@ -221,6 +251,8 @@ def generate(
     buf["tokens"][:, :P] = prompt_ids
     buf["tokens"][:, P:] = gcfg.pad_token_id
     buf["mask"].copy_(mask0)
+    if n_soft:
+        buf["cache_mask"].copy_(soft_mask0)
     buf["step"].zero_()
     st["finished"].zero_()
     st["last_logits"].copy_(out["logits"][:, -1])

@@ -16,6 +16,7 @@ import trlx_tpu_torch.orchestrator.ppo_orchestrator  # noqa: F401
 import trlx_tpu_torch.pipeline.prompt_pipeline  # noqa: F401
 import trlx_tpu_torch.trainer.ilql  # noqa: F401
 import trlx_tpu_torch.trainer.ppo  # noqa: F401
+import trlx_tpu_torch.trainer.ppo_softprompt  # noqa: F401
 from trlx_tpu_torch.data.configs import TRLConfig
 from trlx_tpu_torch.orchestrator import get_orchestrator
 from trlx_tpu_torch.pipeline.prompt_pipeline import PromptPipeline

@@ -179,10 +179,11 @@ def refuse_unported(config: TRLConfig):
     """Raise on every knob whose feature is not ported yet, so no config
     silently runs a different algorithm, or records less, than it asks
     for. The one list of such knobs: those every trainer shares, then the
-    PPO method's own (a method config without them has none to refuse)."""
+    PPO method's own (a method config without them has none to refuse).
+    Int8 decode weights are PPO's rollout feature: other trainers refuse
+    them."""
     m, mc, t = config.method, config.model, config.train
     unported = {
-        "model.decode_weight_quant": mc.decode_weight_quant,
         # resilience beyond the non-finite guard
         "train.watchdog_threshold": t.watchdog_threshold > 0,
         "train.fault_plan": bool(t.fault_plan),
@@ -208,7 +209,6 @@ def refuse_unported(config: TRLConfig):
     }
     if isinstance(m, PPOConfig):
         unported.update({
-            "method.spec_decode": bool(m.spec_decode),
             "method.rollout_overlap": m.rollout_overlap,
             "method.max_staleness": m.max_staleness > 0,
             "method.pack_train_batch": m.pack_train_batch,
@@ -216,6 +216,8 @@ def refuse_unported(config: TRLConfig):
             "method.fleet_elastic": m.fleet_elastic,
             "method.gen_kwargs.prompt_buckets": bool(m.gen_kwargs.get("prompt_buckets")),
         })
+    else:
+        unported["model.decode_weight_quant"] = mc.decode_weight_quant
     on = [k for k, v in unported.items() if v]
     if on:
         raise NotImplementedError(f"not ported yet: {', '.join(on)}")

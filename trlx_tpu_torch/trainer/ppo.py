@@ -16,6 +16,15 @@ With ``model.reward_model_path`` (an HF checkpoint) or
 model instead of a host ``reward_fn``: a frozen ``LMWithValueHead`` without
 a branch whose value head at each sequence's last valid token is its score.
 It is never trained, never in the optimizer and never in a checkpoint.
+
+With ``model.decode_weight_quant`` (W8A16) the trunk's products and the LM
+head decode from int8 copies (``ops.w8a16``): made at build, re-quantized
+in place from the live policy by the samplers before every call (the
+``refresh_weight_copies`` they run before any replay: the counterpart of
+the JAX trainer's ``_refresh_decode_weights``), and read only by the
+samplers (``models.lm.decode_weights``), never by scoring or training.
+With ``method.spec_decode`` the engine verifies drafted windows
+(``engine.drafters``).
 """
 
 import copy
@@ -34,6 +43,7 @@ from trlx_tpu_torch.ops.generate import make_generate_fn
 from trlx_tpu_torch.ops.modeling import logprobs_from_logits
 from trlx_tpu_torch.ops.rl_losses import kl_penalty_rewards, ppo_loss
 from trlx_tpu_torch.ops.sampling import GenerateConfig, make_bigram_mask_processor, process_logits_default
+from trlx_tpu_torch.ops.w8a16 import quantize_weights
 from trlx_tpu_torch.pipeline.ppo_pipeline import PPORolloutStorage
 from trlx_tpu_torch.trainer import register_model
 from trlx_tpu_torch.trainer.base import BaseTrainer
@@ -97,6 +107,13 @@ class PPOTrainer(BaseTrainer):
         self.load_log = {}  # the HF loads' records (bytes, seconds) by model; None for a model built from scratch
         self.model = self.get_arch(config)
         self.extras = self.make_extras()
+        # W8A16 decode: int8 copies of the trunk's products and the LM head
+        # on their Dense layers, which the samplers read instead of the
+        # masters (the weight bytes of a decode step halve) and re-quantize
+        # in place when a master changed.
+        self.decode_weight_quant = bool(config.model.decode_weight_quant)
+        if self.decode_weight_quant:
+            quantize_weights(self.model)
         self.rm_model = self._build_reward_model(config) if config.model.has_reward_model else None
         self.store = PPORolloutStorage(self.pad_token_id)
         if m.target is not None:
@@ -140,6 +157,17 @@ class PPOTrainer(BaseTrainer):
         # policy re-forward beside the reward model's pass instead.
         self.fused_rollout = bool(m.fused_rollout_stats and self.model.branch_layer >= 0
                                   and not config.model.has_reward_model)
+        # The engine's episodes are always scored unfused, a delta bounded as
+        # for the int8 KV cache; the chunked path needs the fused statistics.
+        if self.decode_weight_quant and not self.fused_rollout and not m.rollout_engine:
+            raise ValueError(
+                "model.decode_weight_quant requires the fused rollout-stats path (a hydra model with a host "
+                "reward_fn and method.fused_rollout_stats on): fused stats store the QUANTIZED sampler's own "
+                "logprobs, keeping PPO on-policy by construction. Unfused scoring would recompute behavior "
+                "logprobs at full precision against int8-sampled tokens — a silent off-policy bias. Disable "
+                "decode_weight_quant, enable the fused path, or use method.rollout_engine (whose unfused scoring "
+                "delta is bounded by the engine+int8 parity test)."
+            )
         if self.fused_rollout:
 
             def rollout_stats_fn(tok, s):
@@ -292,15 +320,17 @@ class PPOTrainer(BaseTrainer):
                 paged_kv=bool(m.paged_kv),
                 kv_block_size=int(m.kv_block_size or 128),
                 kv_pool_blocks=int(m.kv_pool_blocks or 0),
+                spec_decode=str(m.spec_decode or ""),
+                spec_k=int(m.spec_k or 0),
                 generator=self.seeded_generator(3),
             )
         return self._rollout_engine
 
     def rollout_engine_variables(self):
-        """The engine's weight handoff: the live policy module. The engine
-        is idle while ``learn()`` trains (the serial schedule), so it never
-        decodes with weights mid-update; a snapshot copy comes with the
-        overlap pipeline."""
+        """The engine's weight handoff: the live policy module, with its int8
+        decode copies when W8A16 is on. The engine is idle while ``learn()``
+        trains (the serial schedule), so it never decodes with weights
+        mid-update; a snapshot copy comes with the overlap pipeline."""
         return self.model
 
     def _shutdown_rollout_engine(self):
