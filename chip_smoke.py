@@ -57,13 +57,25 @@ prefix, a dead slot on the trash block and a fully masked row), then drives
    ``[rm-route]``: the reward model's score on the kernel route against the
    plain route (2 layers);
 9. soft-prompt PPO (``softprompt_train``): ``train(reward_fn=...)`` through
-   ``PPOSoftpromptTrainer`` at GPT-J-6B width and depth, 8 prefix rows,
+   ``PPOSoftpromptTrainer`` at GPT-J-6B width and 8 layers, 8 prefix rows,
    760-token prompts, 4 steps: the trunk and head bit-equal, the prefix
    moved, the flash backward in every layer and no dW launch (frozen head);
 10. speculative decoding in the engine (``engine_spec``, 4 layers): the
    n-gram drafter with spec_k 4 against spec off, fixed and paged, bf16
    (accept rate, rate, identical-token share) and float32 with a soft-prompt
    model too (tokens identical);
+11. sequence parallelism: ``[flash_ring]`` holds rows 1-3 in the key-offset
+   and non-causal modes (a ring chunk of ppo_long's T = 4096 over sp = 4:
+   [2, 1024, 16, 256], offsets -2048, -1024, 0, +1024, one ragged mask, one
+   window) against their plain versions; ``[ring]`` holds
+   ``ring_attention_sharded`` on a ``LocalSpGroup(4)`` (the four ranks on
+   this card) at [2, 4096, 16, 256], zig-zag, contiguous and non-causal,
+   forward and backward, against single-device flash, launches as the
+   schedule says; ``sp_train`` runs ``train(reward_fn=...)`` with
+   ``ppo_long_config.yml``'s values at GPT-J-6B width, 4 layers, T = 4096
+   and int8 KV on that mesh (every full-sequence pass through the ring, rows
+   1-3 in the offset mode in every layer, row 8 on decode), then the same
+   run at sp = 1: token-identical rollouts, step 1 within 2e-2;
 
 and checks that each path went through every kernel it runs, exactly as
 often as its config says.
@@ -521,6 +533,202 @@ def phase_flash_bwd(gen):
         "flash_attention_bwd_dkv": dict(max_abs_err=max(err_k, err_v), tol=max(tol_k, tol_v), ms=ms_dkv,
                                         bound_ms=bdkv[0], bound_by=bdkv[1], **common),
     }
+
+
+# [flash_ring]: rows 1-3 in the ring's modes at a local chunk of ppo_long's
+# T = 4096 over sp = 4, GPT-J-6B's heads. (name, causal, offset, window,
+# ragged): wholly past chunks, the diagonal, a wholly future chunk, the
+# non-causal mode, a window that reaches into the previous chunk.
+RING_T, RING_SP = 4096, 4
+FLASH_RING_CASES = (
+    ("causal_off-2048", True, -2048, 0, False),
+    ("causal_off-1024_ragged", True, -1024, 0, True),
+    ("causal_off0", True, 0, 0, False),
+    ("causal_off+1024", True, 1024, 0, False),
+    ("noncausal_off0", False, 0, 0, False),
+    ("causal_off-1024_window1280", True, -1024, 1280, False),
+)
+
+
+def phase_flash_ring(gen):
+    """The flash forward, dq and dk/dv kernels in their offset and
+    non-causal modes at [2, 1024, 16, 256] bf16, each against its plain
+    version with nonzero dO and dlse on every row that has a valid reachable
+    key and on every row that reaches none (those must get o = 0, lse =
+    -1e30 and dq = 0, and add nothing to dk/dv); rows that reach only masked
+    keys carry no cotangent (their combine weight is 0 in the ring). Per case
+    the kernels' times, the plain versions', SDPA's with the equivalent
+    boolean mask (forward, and its backward for dq + dk + dv), and the
+    bounds over the case's reachable pairs only."""
+    from trlx_tpu_torch.ops.flash_attention import (
+        M_INIT, flash_attention_bwd_plain, flash_attention_plain, flash_bwd_dkv, flash_bwd_dq, flash_fwd, reachable,
+    )
+
+    b, t, h, d = 2, RING_T // RING_SP, 16, 256
+    dev = "cuda"
+    scale = d ** -0.5
+    one, rowvec, maskb = b * t * h * d * 2, b * h * t * 4, b * t * 4
+    out = {}
+    for name, causal, offset, window, ragged in FLASH_RING_CASES:
+        modes = dict(scale=scale, causal=causal, window=window, offset=offset)
+        q, k, v = (torch.randn((b, t, h, d), generator=gen, device=dev).to(torch.bfloat16) for _ in range(3))
+        mask = torch.ones((b, t), device=dev)
+        if ragged:
+            mask[1, :300] = 0
+        reach = reachable(t, t, dev, causal=causal, window=window, offset=offset)
+        good = (reach[None] & mask.bool()[:, None, :]).any(-1)
+        dead = ~reach.any(-1)
+        keep = good | dead[None]
+        do = (torch.randn((b, t, h, d), generator=gen, device=dev) * keep[:, :, None, None]).to(torch.bfloat16)
+        dlse = torch.randn((b, h, t), generator=gen, device=dev) * keep[:, None, :]
+        o, lse = flash_fwd(q, k, v, mask, **modes)
+        ro, rlse = flash_attention_plain(q, k, v, mask, return_lse=True, **modes)
+        rec = {"causal": causal, "offset": offset, "window": window, "ragged": ragged,
+               "good_rows": int(good.sum()), "dead_rows": int(dead.sum()) * b}
+        if bool((o[:, dead] != 0).any()) or bool((lse[:, :, dead] != M_INIT).any()):
+            raise AssertionError(f"flash_ring[{name}]: a row that reaches no key has o != 0 or lse != -1e30")
+        rec["err_o"] = check(f"flash_ring[{name}].o", o[good], ro[good], 2e-2) if good.any() else 0.0
+        lg = good[:, None, :].expand_as(lse)
+        rec["err_lse"] = check(f"flash_ring[{name}].lse", lse[lg], rlse[lg], 1e-2) if good.any() else 0.0
+        delta = ((do.float() * o.float()).sum(-1).transpose(1, 2) - dlse).contiguous()
+        bw = dict(scale=scale, window=window, causal=causal, offset=offset)
+        dq = flash_bwd_dq(q, k, v, mask, do, lse, delta, **bw)
+        dk, dv = flash_bwd_dkv(q, k, v, mask, do, lse, delta, **bw)
+        rq, rk, rv = flash_attention_bwd_plain(q, k, v, mask, o, lse, do, dlse, **modes)
+        if bool((dq[:, dead] != 0).any()):
+            raise AssertionError(f"flash_ring[{name}]: dq of a row that reaches no key is not 0")
+        rec["err_dq"], rec["tol_dq"] = check_rel(f"flash_ring[{name}].dq", dq[good], rq[good], 2e-2) \
+            if good.any() else (0.0, 0.0)
+        err_k, tol_k = check_rel(f"flash_ring[{name}].dk", dk, rk, 2e-2)
+        err_v, tol_v = check_rel(f"flash_ring[{name}].dv", dv, rv, 2e-2)
+        rec["err_dkv"], rec["tol_dkv"] = max(err_k, err_v), max(tol_k, tol_v)
+        del rq, rk, rv, ro, rlse
+        rec["ms_fwd"] = time_ms(lambda: flash_fwd(q, k, v, mask, **modes))
+        rec["ms_dq"] = time_ms(lambda: flash_bwd_dq(q, k, v, mask, do, lse, delta, **bw))
+        rec["ms_dkv"] = time_ms(lambda: flash_bwd_dkv(q, k, v, mask, do, lse, delta, **bw))
+        rec["plain_ms_fwd"] = time_ms(lambda: flash_attention_plain(q, k, v, mask, **modes), iters=3, warmup=1)
+        rec["plain_ms_bwd"] = time_ms(lambda: flash_attention_bwd_plain(q, k, v, mask, o, lse, do, dlse, **modes),
+                                      iters=3, warmup=1)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        amask = reach[None, None] & mask.bool()[:, None, None, :]
+        rec["library_ms_fwd"] = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=amask,
+                                                                                scale=scale))
+        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=amask, scale=scale)
+        dot = do.transpose(1, 2)
+        rec["library_ms_bwd"] = time_ms(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot, retain_graph=True))
+        del sdpa_out
+        pairs = b * h * int(reach.sum())  # reachable (query, key) pairs: the work this case's data needs
+        rec["bound_fwd"] = bound(4 * one + rowvec + maskb, 4 * d * pairs)
+        rec["bound_dq"] = bound(5 * one + 2 * rowvec + maskb, 6 * d * pairs)
+        rec["bound_dkv"] = bound(6 * one + 2 * rowvec + maskb, 8 * d * pairs)
+        rec["reachable_pairs"] = pairs
+        out[name] = rec
+        log(f"[flash_ring] {name}: {json.dumps(rec)}")
+        free()
+    return out
+
+
+def flash_ring_rows(cases, names, shape):
+    """The kernels line's phase entries of the modes: each kernel's numbers
+    at the case ``names[0]`` (its row's figures), every named case beside."""
+    rows = {}
+    for kernel, key, err, tol in (("flash_attention_fwd", "fwd", "err_o", None), ("flash_attention_bwd_dq", "dq",
+                                  "err_dq", "tol_dq"), ("flash_attention_bwd_dkv", "dkv", "err_dkv", "tol_dkv")):
+        c = cases[names[0]]
+        plain = c["plain_ms_fwd"] if key == "fwd" else c["plain_ms_bwd"]
+        lib = c["library_ms_fwd"] if key == "fwd" else c["library_ms_bwd"]
+        rows[kernel] = dict(
+            max_abs_err=max(cases[n][err] for n in names), tol=2e-2 if tol is None else max(cases[n][tol] for n in names),
+            ms=c[f"ms_{key}"], plain_ms=plain, library_ms=lib, bound_ms=c[f"bound_{key}"][0],
+            bound_by=c[f"bound_{key}"][1], shape=shape, case=names[0],
+            library="SDPA with the boolean mask" + ("" if key == "fwd" else ", backward: dq + dk + dv together"),
+            cases={n: {"ms": cases[n][f"ms_{key}"], "bound_ms": cases[n][f"bound_{key}"][0],
+                       "max_abs_err": cases[n][err]} for n in names})
+    return rows
+
+
+def ring_mode_rows(cases, ring, sp_by_mode):
+    """The kernels line's rows of rows 1-3 in the ring's modes: the offset
+    mode's figures at a wholly past chunk (offset -1024, ragged), its
+    launches on sp_train (every ring chunk off the diagonal); the
+    non-causal mode's at offset 0, its launches on [ring]'s contiguous
+    non-causal variant (it has no trainer path)."""
+    shape = [2, RING_T // RING_SP, 16, 256]
+    offset = ["causal_off-1024_ragged"] + [n for n, c in cases.items()
+                                           if c["causal"] and c["offset"] != 0 and n != "causal_off-1024_ragged"]
+    noncausal = [n for n, c in cases.items() if not c["causal"]]
+    counts_ring = {k: {"noncausal": v} for k, v in ring["contiguous_noncausal"]["launches"].items()}
+    rows = []
+    for mode, names, path, counts in (("offset", offset, "sp_train", sp_by_mode),
+                                      ("noncausal", noncausal, "ring", counts_ring)):
+        mode_rows = flash_ring_rows(cases, names, shape)
+        for name, src, replaces in (
+                ("flash_attention_fwd", "trlx_tpu_torch/csrc/flash_fwd.cu", "trlx_tpu/ops/flash_attention.py:155"),
+                ("flash_attention_bwd_dq", "trlx_tpu_torch/csrc/flash_bwd.cu", "trlx_tpu/ops/flash_attention.py:249"),
+                ("flash_attention_bwd_dkv", "trlx_tpu_torch/csrc/flash_bwd.cu",
+                 "trlx_tpu/ops/flash_attention.py:281")):
+            rows.append({"name": f"{name}_{mode}", "route": "cuda", "source": src, "replaces": replaces,
+                         "launches": counts[name][mode], "launches_path": path, **mode_rows[name]})
+    return rows
+
+
+def phase_ring(gen, kernels):
+    """``ring_attention_sharded`` on a ``LocalSpGroup(4)`` mesh (the four sp
+    ranks of ppo_long's T = 4096 played on this card) at [2, 4096, 16, 256]
+    bf16, forward and backward, zig-zag, contiguous and contiguous
+    non-causal, against single-device ``flash_attention`` over the whole
+    sequence (row 1 left-padded by 700 keys). The kernels' launches per
+    variant must be the schedule's: zig-zag attends the live half-pairs
+    (``causal_live_half_pairs``: 2n + 1 a rank), the contiguous flash ring
+    every chunk (n a rank; a wholly future one walks no tile); each forward
+    launch has its dq and dk/dv in the backward."""
+    from trlx_tpu_torch.ops.flash_attention import flash_attention
+    from trlx_tpu_torch.parallel.mesh import LocalSpGroup, make_mesh
+    from trlx_tpu_torch.parallel.ring_attention import causal_live_half_pairs, ring_attention_sharded
+
+    b, T, h, d, n = 2, RING_T, 16, 256, RING_SP
+    dev = "cuda"
+    scale = d ** -0.5
+    mesh = make_mesh((1, 1, 1, n), sp_group=LocalSpGroup(n))
+    q, k, v = (torch.randn((b, T, h, d), generator=gen, device=dev).to(torch.bfloat16) for _ in range(3))
+    mask = torch.ones((b, T), device=dev)
+    mask[1, :700] = 0
+    do = torch.randn((b, T, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    flash_names = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+    out = {}
+    for name, causal, layout in (("zigzag", True, "zigzag"), ("contiguous", True, "contiguous"),
+                                 ("contiguous_noncausal", False, "contiguous")):
+        rows = mask.bool() if causal else torch.ones_like(mask, dtype=torch.bool)
+        do_v = do * rows[:, :, None, None].to(do.dtype)
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+
+        def ring():
+            o = ring_attention_sharded(*leaves, mask, scale=scale, causal=causal, mesh=mesh, layout=layout)
+            return (o, *torch.autograd.grad(o, leaves, do_v))
+
+        def single():
+            o = flash_attention(*leaves, mask, scale=scale, causal=causal)
+            return (o, *torch.autograd.grad(o, leaves, do_v))
+
+        (got, launches) = launches_of(kernels, ring)
+        per = sum(causal_live_half_pairs(n, "zigzag")) if layout == "zigzag" else n * n
+        expected = {k_: per for k_ in flash_names}
+        if {k_: launches.get(k_, 0) for k_ in flash_names} != expected or set(launches) - set(flash_names):
+            raise AssertionError(f"ring[{name}]: launches {launches}, expected {expected}")
+        ref = single()
+        rec = {"launches": launches, "expected": expected}
+        rec["err_o"] = check(f"ring[{name}].o", got[0][rows], ref[0][rows], 2e-2)
+        rec["err_dq"], rec["tol_dq"] = check_rel(f"ring[{name}].dq", got[1][rows], ref[1][rows], 2e-2)
+        err_k, tol_k = check_rel(f"ring[{name}].dk", got[2], ref[2], 2e-2)
+        err_v, tol_v = check_rel(f"ring[{name}].dv", got[3], ref[3], 2e-2)
+        rec.update(err_dkv=max(err_k, err_v), tol_dkv=max(tol_k, tol_v))
+        del got, ref
+        rec["ring_ms"] = time_ms(ring, iters=3, warmup=1)
+        rec["single_ms"] = time_ms(single, iters=3, warmup=1)
+        out[name] = rec
+        log(f"[ring] {name} (sp = {n} on one card, fwd + bwd): {json.dumps(rec)}")
+        free()
+    return out
 
 
 def check_head_grads(got, ref, labels, rel_dx=2e-2, rel_dw=1e-2, rel_db=1e-3, name="logprob_bwd"):
@@ -2965,11 +3173,12 @@ def phase_w8a16(gen):
 
 
 SOFT_PROMPT_LEN, N_SOFT, SOFT_STEPS = 760, 8, 4
+SOFT_LAYERS = 8  # GPT-J-6B width; full depth until the sp phases came (the smoke's time limit)
 
 
 def softprompt_train_path(kernels):
     """Soft-prompt PPO: ``trlx_tpu_torch.train(reward_fn=...)`` through
-    ``PPOSoftpromptTrainer`` at GPT-J-6B width and depth with ``N_SOFT``
+    ``PPOSoftpromptTrainer`` at GPT-J-6B width and ``SOFT_LAYERS`` layers with ``N_SOFT``
     prefix rows, prompts of width ``SOFT_PROMPT_LEN`` (prefill 760 + 8 = 768
     and the train sequence 760 + 8 + 256 = 1024 both take flash, by the JAX
     rule), ``SOFT_STEPS`` steps of ``train_config``'s values. No branch: a
@@ -2982,7 +3191,7 @@ def softprompt_train_path(kernels):
     import trlx_tpu_torch
     from trlx_tpu_torch.trainer.ppo_softprompt import PPOSoftpromptTrainer
 
-    n_layer, R = GPTJ_6B_ARCH["n_layer"], MAX_LEN - PROMPT_LEN
+    n_layer, R = SOFT_LAYERS, MAX_LEN - PROMPT_LEN
     cls = make_timed_trainer(kernels, n_layer, base=PPOSoftpromptTrainer)
     run_dir = os.path.join(RUN_DIR, "softprompt_train")
     config = train_config(n_layer, cls.__name__, run_dir, method=dict(n_soft_tokens=N_SOFT),
@@ -3061,6 +3270,166 @@ def softprompt_train_path(kernels):
 
 
 SPEC_K, SPEC_LAYERS, SPEC_SUCCESSORS = 4, 4, 32
+
+
+SP_LAYERS, SP_STEPS = 4, 4
+SP_PROMPT, SP_MAX = 3072, 4096  # ppo_long_config.yml's gen_kwargs
+# Step 1 at sp = 4 against sp = 1: |a - b| <= SP_STAT_TOL * max(1, |b|) for the per-token statistics.
+# The ring combines four chunks' bf16 outputs in f32 where one kernel rounds once, so per-token
+# logprobs differ by bf16 rounding (~1e-2 at most); means over 8 x 1024 tokens stay well inside
+# 2e-2. The token-summed mean_kl and mean_return (sums over 1024 tokens of such differences) are
+# reported, not held.
+SP_STAT_TOL = 2e-2
+SP_STAT_KEYS = ("loss", "pg_loss", "vf_loss", "mean_ratio", "mean_entropy", "grad_norm")
+SP_REPORTED_KEYS = ("mean_kl", "mean_return", "mean_advantage", "explained_variance")
+
+
+def sp_config(run_dir: str, mesh, total_steps: int):
+    """``trlx_tpu/configs/ppo_long_config.yml``'s model, train and method
+    values (remat, int8 KV, 2 unfrozen layers, seq 4096 from 3072-token
+    prompts, batch 8, 8 rollouts, 4 PPO epochs, its optimizer and sampling)
+    at GPT-J-6B width and ``SP_LAYERS`` layers, with ``mesh`` for train.mesh."""
+    from trlx_tpu_torch.data.configs import TRLConfig
+
+    return TRLConfig.from_dict({
+        "model": dict(model_path="", tokenizer_path="", model_type="ppo", num_layers_unfrozen=2,
+                      model_arch=dict(GPTJ_6B_ARCH, n_layer=SP_LAYERS), dtype="bfloat16", param_dtype="float32",
+                      remat=True, kv_cache_quant=True),
+        "train": dict(seq_length=SP_MAX, epochs=2500, total_steps=total_steps, batch_size=8, lr_ramp_steps=100,
+                      lr_decay_steps=9000, weight_decay=1e-6, learning_rate_init=1e-4, learning_rate_target=1e-5,
+                      opt_betas=[0.9, 0.95], checkpoint_interval=10**6, eval_interval=10**6, mesh=list(mesh),
+                      grad_clip=1.0, seed=1000, checkpoint_dir=run_dir),
+        "method": dict(name="ppoconfig", num_rollouts=8, chunk_size=8, ppo_epochs=4, init_kl_coef=0.2, target=6,
+                       horizon=10000, gamma=1, lam=0.95, cliprange=0.2, cliprange_value=0.2, vf_coef=0.2,
+                       gen_kwargs=dict(prompt_length=SP_PROMPT, max_length=SP_MAX, min_length=SP_MAX, top_k=0,
+                                       top_p=0.9, do_sample=True, temperature=0.7)),
+    })
+
+
+def sp_run(kernels, mesh, total_steps: int, tag: str):
+    """``trlx_tpu_torch.train(reward_fn=...)`` on ``sp_config`` through the
+    timed trainer, with ``mesh`` handed to the trainer (None: built from
+    train.mesh [1, 1, 1, 1]); no checkpoint is written (the smoke's time
+    limit). Returns (trainer, wall s, launches, launches by flash mode,
+    peak GB)."""
+    import trlx_tpu_torch
+    from trlx_tpu_torch.ops import flash_attention as fa
+    from trlx_tpu_torch.trainer.ppo import PPOTrainer
+
+    class SpPPOTrainer(PPOTrainer):
+        def __init__(self, config, **kw):
+            super().__init__(config, mesh=mesh, **kw)
+
+        def save(self, directory=None, block=True):
+            self.saves_skipped = getattr(self, "saves_skipped", 0) + 1
+
+    cls = make_timed_trainer(kernels, SP_LAYERS, base=SpPPOTrainer)
+    run_dir = os.path.join(RUN_DIR, tag)
+    config = sp_config(run_dir, (1, 1, 1, mesh.shape["sp"] if mesh is not None else 1), total_steps)
+    config.model.model_type = cls.__name__
+    rng = np.random.default_rng(40)
+    prompts = [rng.integers(0, GPTJ_6B_ARCH["vocab_size"], size=int(rng.integers(SP_PROMPT * 2 // 3, SP_PROMPT + 1)))
+               .tolist() for _ in range(16)]
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    trainer = trlx_tpu_torch.train(reward_fn=reward_fn, prompts=prompts[:8], eval_prompts=prompts[8:], config=config)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    by_mode = {name: dict(getattr(fa, w).launches_by_mode) for name, w in (
+        ("flash_attention_fwd", "flash_fwd"), ("flash_attention_bwd_dq", "flash_bwd_dq"),
+        ("flash_attention_bwd_dkv", "flash_bwd_dkv"))}
+    for name, modes in by_mode.items():
+        if sum(modes.values()) != launches[name]:
+            raise AssertionError(f"[{tag}] {name}: launches by mode {modes} do not sum to {launches[name]}")
+    return trainer, wall, launches, by_mode, torch.cuda.max_memory_allocated() / 1e9
+
+
+def sp_train_path(kernels):
+    """Sequence parallelism on the PPO path of ``ppo_long_config.yml``:
+    ``train(reward_fn=...)`` at GPT-J-6B width, ``SP_LAYERS`` layers, 3072 +
+    1024 tokens, int8 KV, remat, 8 rollouts and ``SP_STEPS`` steps, on a
+    ``LocalSpGroup(4)`` mesh (train.mesh [1, 1, 1, 4], the four sp ranks
+    played on this card). Every full-sequence pass (the reference branch's
+    replay, each train step's forward, its remat recompute and backward)
+    runs the zig-zag ring: 4 ranks x 9 live half-pairs a layer, 8 of them
+    on a diagonal (offset 0), 28 in the offset mode; prefill and decode stay
+    local (the flash kernel at offset 0, row 8 on the int8 cache). Then the
+    same run at sp = 1 for one step: the rollouts must be token-identical
+    and step 1's statistics within ``SP_STAT_TOL``. Returns its numbers."""
+    from trlx_tpu_torch.parallel.mesh import LocalSpGroup, make_mesh
+    from trlx_tpu_torch.parallel.ring_attention import causal_live_half_pairs
+
+    n_layer, k, n, R = SP_LAYERS, 2, RING_SP, SP_MAX - SP_PROMPT
+    mesh = make_mesh((1, 1, 1, n), sp_group=LocalSpGroup(n))
+    trainer, wall, launches, by_mode, peak = sp_run(kernels, mesh, SP_STEPS, "sp_train")
+    ring = sum(causal_live_half_pairs(n, "zigzag"))  # flash launches of one ring pass over one layer
+    diag = 2 * n  # of which on a diagonal: each rank's two q halves meet their own half once
+    passes_fwd = k + SP_STEPS * 2 * n_layer  # the branch replay; each step's forward and remat recompute
+    passes_bwd = SP_STEPS * n_layer
+    local = 2 * n_layer  # prefill of the rollout chunk and of the eval chunk
+    bwd_chunks = -(-8 * R // 1024)
+    expected = dict.fromkeys(kernels, 0)
+    expected.update({
+        "flash_attention_fwd": local + passes_fwd * ring, "flash_attention_bwd_dq": passes_bwd * ring,
+        "flash_attention_bwd_dkv": passes_bwd * ring, "decode_attention_int8": 2 * n_layer * R,
+        "fused_logprob_fwd": 1 + SP_STEPS, "fused_logprob_bwd_dx": SP_STEPS * bwd_chunks,
+        "fused_logprob_bwd_dw": SP_STEPS,
+    })
+    expected_modes = {
+        "flash_attention_fwd": {"causal": local + passes_fwd * diag, "offset": passes_fwd * (ring - diag),
+                                "noncausal": 0},
+        "flash_attention_bwd_dq": {"causal": passes_bwd * diag, "offset": passes_bwd * (ring - diag), "noncausal": 0},
+    }
+    expected_modes["flash_attention_bwd_dkv"] = expected_modes["flash_attention_bwd_dq"]
+    log(f"[sp_train] launches {launches} expected {expected}; by flash mode {by_mode} expected {expected_modes} "
+        f"(a ring pass over a layer: {ring} launches, {diag} on a diagonal; {passes_fwd} forward passes, "
+        f"{passes_bwd} backward; prefill {local} local; decode {n_layer}x{R} a chunk, rollout and eval)")
+    if launches != expected or by_mode != expected_modes:
+        raise AssertionError(f"sp_train launches {launches} / {by_mode} != {expected} / {expected_modes}")
+    log_ = trainer.step_log
+    if len(log_) != SP_STEPS or trainer.iter_count != SP_STEPS:
+        raise AssertionError(f"{len(log_)} train steps recorded, iter_count {trainer.iter_count}")
+    for i, rec in enumerate(log_):
+        bad = [k_ for k_, v in rec.items() if k_ != "launches" and not np.isfinite(v)]
+        if bad or rec["resilience/nonfinite"] != 0.0:
+            raise AssertionError(f"sp_train step {i + 1}: non-finite {bad} or a guard skip")
+    fp = trainer.fp
+    fp["end"] = state_fingerprints(trainer, n_layer)
+    trained = ("wte", f"h_{n_layer - 2}", f"h_{n_layer - 1}", "lm_head", "v_head")
+    same = [g for g in trained if fp["end"][g] == fp["start"][g]]
+    if same or fp["end"]["frozen_blocks"] != fp["start"]["frozen_blocks"]:
+        raise AssertionError(f"sp_train: trainable groups {same} unchanged, or the frozen blocks moved")
+    tokens_sp = trainer.store.columns()["response_tensors"]
+    sp4 = {"wall_s": wall, "peak_mem_gb": peak, "step_device_s": [r["device_s"] for r in log_],
+           "stats_step1": {k_: log_[0][k_] for k_ in SP_STAT_KEYS + SP_REPORTED_KEYS}, "eval": trainer.eval_log[0],
+           "saves_skipped": trainer.saves_skipped}
+    del trainer
+    free()
+
+    ref, wall1, launches1, _, peak1 = sp_run(kernels, None, 1, "sp_train_sp1")
+    same_tokens = bool(np.array_equal(tokens_sp, ref.store.columns()["response_tensors"]))
+    if not same_tokens:
+        raise AssertionError("sp_train: the sp = 4 rollouts differ from the sp = 1 rollouts (decode is local)")
+    s1 = {k_: ref.step_log[0][k_] for k_ in SP_STAT_KEYS + SP_REPORTED_KEYS}
+    diffs = {k_: abs(sp4["stats_step1"][k_] - s1[k_]) for k_ in SP_STAT_KEYS + SP_REPORTED_KEYS}
+    off = {k_: diffs[k_] for k_ in SP_STAT_KEYS if not diffs[k_] <= SP_STAT_TOL * max(1.0, abs(s1[k_]))}
+    sp1 = {"wall_s": wall1, "peak_mem_gb": peak1, "step_device_s": [r["device_s"] for r in ref.step_log],
+           "stats_step1": s1, "launches": launches1}
+    del ref
+    free()
+    out = {"n_layer": n_layer, "sp": n, "sp4": sp4, "sp1": sp1, "step1_abs_diff": diffs, "tol": SP_STAT_TOL,
+           "rollouts_token_identical": same_tokens, "launches": launches, "launches_by_mode": by_mode}
+    log(f"[sp_train] train() at GPT-J-6B width ({n_layer} layers), T = {SP_MAX}, sp = {n} on a LocalSpGroup mesh "
+        f"against sp = 1: {json.dumps(out)} on {card_line()}")
+    if off:
+        raise AssertionError(f"sp_train: step 1 statistics off beyond {SP_STAT_TOL}: {off}")
+    shutil.rmtree(os.path.join(RUN_DIR, "sp_train"), ignore_errors=True)
+    shutil.rmtree(os.path.join(RUN_DIR, "sp_train_sp1"), ignore_errors=True)
+    return out, launches
 
 
 def successor_processor(gcfg, vocab: int):
@@ -3244,6 +3613,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
+    kernels = port_kernels()
     phases = {}
     for name, fn in (("flash_prefill", lambda: phase_flash(gen, PROMPT_LEN, ragged=True)),
                      ("flash_branch_replay", lambda: phase_flash(gen, MAX_LEN, ragged=False)),
@@ -3256,7 +3626,9 @@ def main() -> int:
                      ("fused_logprob_bwd", lambda: phase_logprob_bwd(LOGPROB_BWD_SEED)),
                      ("fused_logprob_f32", lambda: phase_logprob_f32(F32_SEED)),
                      ("fused_logprob_bwd_f32", lambda: phase_logprob_bwd_f32(F32_SEED)),
-                     ("w8a16", lambda: phase_w8a16(gen))):
+                     ("w8a16", lambda: phase_w8a16(gen)),
+                     ("flash_ring", lambda: phase_flash_ring(gen)),
+                     ("ring", lambda: phase_ring(gen, kernels))):
         t0 = time.perf_counter()
         phases[name] = fn()
         free()
@@ -3265,7 +3637,6 @@ def main() -> int:
     for name in ("flash_bwd", "fused_logprob_bwd", "fused_logprob_bwd_f32"):
         phases.update(phases.pop(name))
 
-    kernels = port_kernels()
     by_path = {}
 
     def run(path, fn):
@@ -3295,6 +3666,7 @@ def main() -> int:
     fixed, _, _ = run("engine_fixed_bf16", lambda: engine_rollout_path(kernels, paged=False))
     log(f"[engine] greedy tokens, paged vs fixed slots (bf16, 4 layers): {json.dumps(compare_greedy(paged, fixed))}")
     run("engine_spec", lambda: engine_spec_path(kernels))
+    sp_out, _ = run("sp_train", lambda: sp_train_path(kernels))
     t0 = time.perf_counter()
     phase_grad_consistency()
     log(f"[grad] done in {time.perf_counter() - t0:.1f}s")
@@ -3379,6 +3751,7 @@ def main() -> int:
         if name == "flash_attention_fwd":
             row["branch_replay"] = phases["flash_branch_replay"]
         rows.append(row)
+    rows += ring_mode_rows(phases["flash_ring"], phases["ring"], sp_out["launches_by_mode"])
     log(f"[done] total {time.perf_counter() - t_start:.1f}s")
     print(smi)
     print(json.dumps({"kernels": rows}))

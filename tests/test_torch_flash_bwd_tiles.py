@@ -21,6 +21,12 @@ rounded to the operand dtype (bf16 in the kernels) before their products.
 Padded query rows carry no cotangent (dO = dlse = 0), as in the model, where
 no later position reads them: every row of dk/dv and every valid row of dq
 compare.
+
+The offset frame (ring attention): with ``offset`` key k sits at k + offset
+of the query frame and ``causal=False`` drops the diagonal; the walks'
+ranges and tile tests are written in that frame, as the kernels compute
+them (``floor_div`` of possibly negative positions), and a row whose
+forward reached no key (lse = -1e30) takes p = 0 on every tile.
 """
 
 import os
@@ -55,38 +61,44 @@ TILES = _kernel_tiles()
 DQ_KEY_TILES = (TILES["DQ_BK_D256"], TILES["DQ_BK"])  # d = 256; d = 64 / 128
 
 
-def _live(r0, rows, k0, bk, window, T):
-    """The forward's tile test (``_run_if_live``): some pair of rows
-    [r0, r0 + rows) and keys [k0, k0 + bk) is reachable by position; none
+def _live(r0, rows, k0, bk, window, T, causal=True, offset=0):
+    """The forward's tile test (``_run_if_live``, common.cuh
+    ``flash_tile_live``): some pair of rows [r0, r0 + rows) and keys
+    [k0, k0 + bk), at positions k + offset, is reachable by position; none
     is when every row lies past T."""
-    return r0 < T and k0 <= r0 + rows - 1 and not (window > 0 and k0 + bk - 1 <= r0 - window)
+    k0, k1 = k0 + offset, min(k0 + bk, T) - 1 + offset
+    return r0 < T and (not causal or k0 <= min(r0 + rows, T) - 1) and not (window > 0 and k1 <= r0 - window)
 
 
-def dq_walk(T, window, bk):
+def dq_walk(T, window, bk, causal=True, offset=0):
     """[(q0, [(k0, (live for warpgroup 0, live for warpgroup 1)), ...])]: the
-    key tiles each dq CTA walks, and which of its warpgroups do their math."""
+    key tiles each dq CTA walks, and which of its warpgroups do their math.
+    Python's // is the kernels' floor_div."""
     bq, out = TILES["DQ_BQ"], []
+    n_kt = -(-T // bk)
     for q0 in range(0, T, bq):
-        kt_hi = (min(q0 + bq, T) - 1) // bk
-        kt_lo = max(0, q0 - window + 1) // bk if window > 0 else 0
-        tiles = [(kt * bk, tuple(_live(q0 + w * WG_ROWS, WG_ROWS, kt * bk, bk, window, T) for w in range(bq // WG_ROWS)))
+        kt_hi = min(n_kt - 1, (min(q0 + bq, T) - 1 - offset) // bk) if causal else n_kt - 1
+        kt_lo = max(0, (q0 - window + 1 - offset) // bk) if window > 0 else 0
+        tiles = [(kt * bk, tuple(_live(q0 + w * WG_ROWS, WG_ROWS, kt * bk, bk, window, T, causal, offset)
+                                 for w in range(bq // WG_ROWS)))
                  for kt in range(kt_lo, kt_hi + 1)]
         out.append((q0, tiles))
     return out
 
 
-def dkv_walk(T, window):
+def dkv_walk(T, window, causal=True, offset=0):
     """[(k0, [q0, ...])]: the query tiles each dk/dv CTA walks."""
     bk, bq = TILES["DKV_BK"], TILES["DKV_BQ"]
     nq = -(-T // bq)
     out = []
     for k0 in range(0, T, bk):
-        hi = min(nq - 1, (k0 + bk - 2 + window) // bq) if window > 0 else nq - 1
-        out.append((k0, [qt * bq for qt in range(k0 // bq, hi + 1)]))
+        lo = (nq if k0 + offset > T - 1 else max(0, (k0 + offset) // bq)) if causal else 0
+        hi = min(nq - 1, (min(k0 + bk, T) - 2 + offset + window) // bq) if window > 0 else nq - 1
+        out.append((k0, [qt * bq for qt in range(lo, hi + 1)]))
     return out
 
 
-def walk_bwd(q, k, v, kv_mask, o, lse, do, dlse, *, scale, window, dq_bk, skip=True):
+def walk_bwd(q, k, v, kv_mask, o, lse, do, dlse, *, scale, window, dq_bk, skip=True, causal=True, offset=0):
     """(dq, dk, dv) by the kernels' walks, tile by tile, f32 sums over
     operands in the inputs' dtype, P and dS rounded to it. ``skip=False``
     visits every tile of both walks (the skip must not change a bit)."""
@@ -98,7 +110,9 @@ def walk_bwd(q, k, v, kv_mask, o, lse, do, dlse, *, scale, window, dq_bk, skip=T
 
     qf, kf, vf, dof = heads(q), heads(k), heads(v), heads(do)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2) - dlse.float()  # [b, h, T]
-    lsef, km = lse.float(), kv_mask.float() > 0.5
+    # A row whose forward reached no key: +inf, so exp(s - lse) = 0 (the kernels' dead_or_log2).
+    lsef = torch.where(lse.float() > flash_mod.DEAD_LSE, lse.float(), torch.full_like(lse.float(), float("inf")))
+    km = kv_mask.float() > 0.5
 
     def rnd(x):
         return x.to(dt).float()
@@ -107,16 +121,18 @@ def walk_bwd(q, k, v, kv_mask, o, lse, do, dlse, *, scale, window, dq_bk, skip=T
         """p and ds of query rows [r0, r0 + nr) and keys [k0, k0 + nk), both cut at T."""
         rows, keys = torch.arange(r0, min(r0 + nr, T)), torch.arange(k0, min(k0 + nk, T))
         s = qf[:, :, rows] @ kf[:, :, keys].transpose(-1, -2) * scale
-        reach = keys[None, :] <= rows[:, None]
+        reach = torch.ones((len(rows), len(keys)), dtype=torch.bool)
+        if causal:
+            reach = reach & (keys[None, :] + offset <= rows[:, None])
         if window > 0:
-            reach = reach & (keys[None, :] > rows[:, None] - window)
+            reach = reach & (keys[None, :] + offset > rows[:, None] - window)
         s = torch.where(reach[None, None] & km[:, None, None, keys], s, torch.full_like(s, flash_mod.MASK_VAL))
         p = torch.exp(s - lsef[:, :, rows, None])
         dp = dof[:, :, rows] @ vf[:, :, keys].transpose(-1, -2)
         return rows, keys, p, p * (dp - delta[:, :, rows, None])
 
     dq, dk, dv = (torch.zeros((b, h, T, d)) for _ in range(3))
-    for q0, tiles in dq_walk(T, window, dq_bk):
+    for q0, tiles in dq_walk(T, window, dq_bk, causal, offset):
         for w in range(TILES["DQ_BQ"] // WG_ROWS):
             r0 = q0 + w * WG_ROWS
             every = range(0, T, dq_bk) if r0 < T else ()
@@ -124,7 +140,7 @@ def walk_bwd(q, k, v, kv_mask, o, lse, do, dlse, *, scale, window, dq_bk, skip=T
             for k0 in visits:
                 rows, keys, _, ds = tile(r0, WG_ROWS, k0, dq_bk)
                 dq[:, :, rows] += rnd(ds) @ kf[:, :, keys]
-    for k0, q0s in dkv_walk(T, window):
+    for k0, q0s in dkv_walk(T, window, causal, offset):
         for q0 in q0s if skip else range(0, T, TILES["DKV_BQ"]):
             rows, keys, p, ds = tile(q0, TILES["DKV_BQ"], k0, TILES["DKV_BK"])
             dv[:, :, keys] += rnd(p).transpose(-1, -2) @ dof[:, :, rows]
@@ -293,3 +309,77 @@ def test_walks_visit_every_reachable_pair_once(T, window, bk):
     assert (dkv_seen[reach] == 1).all()
     assert dkv_seen.max() <= 1
 
+
+
+# The offset frame: ring chunk displacements (multiples of the chunk, and of
+# half a chunk for zig-zag) and offsets that cut tiles, causal and not.
+OFFSET_CASES = [
+    (128, 0, True, -128), (128, 0, True, 128), (128, 0, True, -64), (128, 40, True, -128), (200, 0, True, 37),
+    (200, 0, False, 0), (200, 70, False, -100), (150, 33, True, -150), (129, 48, False, 64), (300, 100, True, -200),
+]
+OFFSET_IDS = [f"T{T}-w{w}-{'causal' if c else 'full'}-off{o}" for T, w, c, o in OFFSET_CASES]
+
+
+@pytest.mark.parametrize("dq_bk", sorted(set(DQ_KEY_TILES)))
+@pytest.mark.parametrize("T,window,causal,offset", OFFSET_CASES, ids=OFFSET_IDS)
+def test_offset_walk_matches_plain_backward(T, window, causal, offset, dq_bk):
+    """float32, offset frame: the walk (with its skips, and p = 0 on rows
+    that reach no key) gives the plain backward's dq, dk, dv, with nonzero
+    cotangents on every row (TOL); rows that reach no key get dq = 0."""
+    q, k, v, mask, do, dlse = _torch_case(_inputs(T + abs(offset), T, 16, (0, 9)), torch.float32)
+    rows = mask.bool()
+    do = torch.from_numpy(np.random.default_rng(T).normal(size=q.shape).astype(np.float32))
+    modes = dict(scale=0.25, window=window, causal=causal, offset=offset)
+    o, lse = flash_mod.flash_attention_plain(q, k, v, mask, return_lse=True, **modes)
+    got = walk_bwd(q, k, v, mask, o, lse, do, dlse, dq_bk=dq_bk, **modes)
+    ref = flash_mod.flash_attention_bwd_plain(q, k, v, mask, o, lse, do, dlse, **modes)
+    # Rows that reach keys but only masked ones carry cotangents here: the
+    # walk spreads them over its tiles, the plain backward over every key.
+    good = (flash_mod.reachable(T, T, "cpu", causal=causal, window=window, offset=offset)[None]
+            & rows[:, None, :]).any(-1)
+    reaches = flash_mod.reachable(T, T, "cpu", causal=causal, window=window, offset=offset).any(-1)
+    keep = good | ~reaches[None]
+    do2, dlse2 = do * keep[:, :, None, None], dlse * keep[:, None, :]
+    got = walk_bwd(q, k, v, mask, o, lse, do2, dlse2, dq_bk=dq_bk, **modes)
+    ref = flash_mod.flash_attention_bwd_plain(q, k, v, mask, o, lse, do2, dlse2, **modes)
+    for g, r in zip(got, ref):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, r, **TOL)
+    assert (got[0][:, ~reaches] == 0).all()
+
+
+@pytest.mark.parametrize("bk", sorted(set(DQ_KEY_TILES)))
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("window", [0, 5, 64, 130])
+@pytest.mark.parametrize("offset", [-256, -128, -64, -37, 0, 37, 64, 128, 256])
+@pytest.mark.parametrize("T", [64, 129, 256])
+def test_offset_walks_visit_every_reachable_pair_once(T, offset, window, causal, bk):
+    """The offset twin of ``test_walks_visit_every_reachable_pair_once``:
+    every (query, key) pair reachable in the offset frame is visited exactly
+    once by a dq warpgroup that does its math and once by a dk/dv CTA; every
+    tile whose math runs holds a reachable pair, every tile a dq warpgroup
+    skips holds none, and every walk that is cut short stops where the next
+    tile would hold none."""
+    reach = flash_mod.reachable(T, T, "cpu", causal=causal, window=window, offset=offset).numpy()
+    dq_seen = np.zeros((T, T), int)
+    for q0, tiles in dq_walk(T, window, bk, causal, offset):
+        for k0, live in tiles:
+            for w, lv in enumerate(live):
+                r0 = q0 + w * WG_ROWS
+                assert lv == bool(reach[r0:r0 + WG_ROWS, k0:k0 + bk].any()), (q0, w, k0)
+                if lv:
+                    dq_seen[r0:r0 + WG_ROWS, k0:k0 + bk] += 1
+        # Tiles outside the walk hold no reachable pair of this CTA's rows.
+        walked = {k0 for k0, _ in tiles}
+        for k0 in range(0, T, bk):
+            if k0 not in walked:
+                assert not reach[q0:q0 + TILES["DQ_BQ"], k0:k0 + bk].any(), (q0, k0)
+    assert (dq_seen[reach] == 1).all()
+    dkv_seen = np.zeros((T, T), int)
+    bkv, bq = TILES["DKV_BK"], TILES["DKV_BQ"]
+    for k0, q0s in dkv_walk(T, window, causal, offset):
+        for q0 in q0s:
+            assert reach[q0:q0 + bq, k0:k0 + bkv].any(), (k0, q0)
+            dkv_seen[q0:q0 + bq, k0:k0 + bkv] += 1
+    assert (dkv_seen[reach] == 1).all()
+    assert dkv_seen.max() <= 1

@@ -1486,3 +1486,147 @@ def test_hf_load_onto_the_card_equals_the_cpu_load(tmp_path):
     back = load_hf_trunk(out, card.cfg)
     for n, p in card.transformer.named_parameters():
         assert torch.equal(back[n], p.cpu()), n
+
+
+# The key-offset and non-causal modes (ring attention's per-chunk attention):
+# offsets that put the visiting chunk wholly in the past, across the
+# diagonal, off the tile grid, and wholly in the future.
+_MODE_CASES = [(T, off, causal, window) for T in (128, 200) for off in (-2 * T, -T, -64, 0, 37, T)
+               for causal in (True, False) for window in (0, 48)]
+
+
+@pytest.mark.parametrize("T,offset,causal,window", _MODE_CASES,
+                         ids=[f"T{T}-off{o}-{'causal' if c else 'full'}-w{w}" for T, o, c, w in _MODE_CASES])
+@pytest.mark.parametrize("d", [64, 256])
+def test_flash_modes_match_plain(T, offset, causal, window, d):
+    """Forward, dq and dk/dv in the offset frame against the plain versions.
+    Rows with a valid reachable key compare; rows that reach no key get o = 0
+    and lse = -1e30 exactly and, with cotangents on, add nothing (dq = 0 and
+    dk/dv as the plain backward's); rows that reach only masked keys carry
+    no cotangent (their combine weight is 0)."""
+    dev = _cuda()
+    from trlx_tpu_torch.ops.flash_attention import (
+        M_INIT, flash_attention_bwd, flash_attention_bwd_plain, flash_attention_plain, flash_fwd, reachable,
+    )
+
+    b, h, scale = 2, 4, d ** -0.5
+    q, k, v, mask, _, _ = _bwd_case(dev, 21, b, T, h, d, (0, 70))
+    g = torch.Generator(device=dev).manual_seed(22)
+    reach = reachable(T, T, dev, causal=causal, window=window, offset=offset)
+    good = (reach[None] & mask.bool()[:, None, :]).any(-1)  # [b, T]
+    dead = ~reach.any(-1)  # [T]
+    keep = good | dead[None]
+    do = (torch.randn((b, T, h, d), generator=g, device=dev) * keep[:, :, None, None]).to(torch.bfloat16)
+    dlse = torch.randn((b, h, T), generator=g, device=dev) * keep[:, None, :]
+    modes = dict(scale=scale, causal=causal, window=window, offset=offset)
+    n0 = flash_fwd.launches
+    o, lse = flash_fwd(q, k, v, mask, **modes)
+    dq, dk, dv = flash_attention_bwd(q, k, v, mask, o, lse, do, dlse, **modes)
+    torch.cuda.synchronize()
+    assert flash_fwd.launches == n0 + 1
+    ro, rlse = flash_attention_plain(q, k, v, mask, return_lse=True, **modes)
+    if good.any():
+        torch.testing.assert_close(o[good].float(), ro[good].float(), rtol=0, atol=2e-2)
+        lg = good[:, None, :].expand_as(lse)
+        torch.testing.assert_close(lse[lg], rlse[lg], rtol=0, atol=1e-2)
+    assert (o[:, dead] == 0).all() and (lse[:, :, dead] == M_INIT).all()
+    rq, rk, rv = flash_attention_bwd_plain(q, k, v, mask, o, lse, do, dlse, **modes)
+    if good.any():
+        _close(dq[good], rq[good], 2e-2)
+    assert (dq[:, dead] == 0).all()
+    _close(dk, rk, 2e-2)
+    _close(dv, rv, 2e-2)
+
+
+@pytest.mark.parametrize("layout,causal", [("zigzag", True), ("contiguous", True), ("contiguous", False)],
+                         ids=["zigzag", "contiguous", "contiguous-noncausal"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_ring_on_local_group_matches_flash(n, layout, causal):
+    """``ring_attention_sharded`` on a ``LocalSpGroup(n)`` (every rank on
+    this card, the chunks through the kernels' offset mode) against
+    single-device flash over the whole sequence, forward and backward; the
+    kernels launch as the schedule says (zig-zag: the live half-pairs, 2n + 1
+    a rank; contiguous: every chunk)."""
+    dev = _cuda()
+    from trlx_tpu_torch.ops.flash_attention import flash_attention, flash_bwd_dkv, flash_bwd_dq, flash_fwd
+    from trlx_tpu_torch.parallel.mesh import LocalSpGroup, make_mesh
+    from trlx_tpu_torch.parallel.ring_attention import causal_live_half_pairs, ring_attention_sharded
+
+    b, T, h, d = 2, 2048, 4, 128
+    q, k, v, mask, do, _ = _bwd_case(dev, 31, b, T, h, d, (0, 300))
+    rows = mask.bool() if causal else torch.ones_like(mask, dtype=torch.bool)
+    do = torch.randn((b, T, h, d), generator=torch.Generator(device=dev).manual_seed(32), device=dev)
+    do = (do * rows[:, :, None, None]).to(torch.bfloat16)
+    mesh = make_mesh((1, 1, 1, n), sp_group=LocalSpGroup(n))
+    counters = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+
+    def run(fn):
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        o = fn(*leaves)
+        return (o, *torch.autograd.grad(o, leaves, do))
+
+    before = [c.launches for c in counters]
+    got = run(lambda q_, k_, v_: ring_attention_sharded(q_, k_, v_, mask, scale=d ** -0.5, causal=causal, mesh=mesh,
+                                                        layout=layout))
+    torch.cuda.synchronize()
+    per = sum(causal_live_half_pairs(n, "zigzag")) if layout == "zigzag" else n * n
+    assert [c.launches - b_ for c, b_ in zip(counters, before)] == [per] * 3
+    ref = run(lambda q_, k_, v_: flash_attention(q_, k_, v_, mask, scale=d ** -0.5, causal=causal))
+    torch.testing.assert_close(got[0][rows].float(), ref[0][rows].float(), rtol=0, atol=2e-2)
+    _close(got[1][rows], ref[1][rows], 2e-2)
+    _close(got[2], ref[2], 2e-2)
+    _close(got[3], ref[3], 2e-2)
+
+
+_NCCL_RANK = """
+import os, sys, torch, torch.distributed as dist
+sys.path.insert(0, {root!r})
+rank, world = int(sys.argv[1]), 2
+torch.cuda.set_device(rank)
+dist.init_process_group("nccl", init_method="file://" + {store!r}, rank=rank, world_size=world)
+from trlx_tpu_torch.ops.flash_attention import flash_attention
+from trlx_tpu_torch.parallel.mesh import make_mesh
+from trlx_tpu_torch.parallel.ring_attention import ring_attention_sharded
+g = torch.Generator(device="cuda").manual_seed(0)
+q, k, v = (torch.randn((2, 2048, 4, 128), generator=g, device="cuda").to(torch.bfloat16).requires_grad_()
+           for _ in range(3))
+mask = torch.ones((2, 2048), device="cuda")
+do = torch.randn((2, 2048, 4, 128), generator=g, device="cuda").to(torch.bfloat16)
+o = ring_attention_sharded(q, k, v, mask, scale=128 ** -0.5, mesh=make_mesh((1, 1, 1, world)))
+got = (o, *torch.autograd.grad(o, (q, k, v), do))
+leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+r = flash_attention(*leaves, mask, scale=128 ** -0.5)
+ref = (r, *torch.autograd.grad(r, leaves, do))
+for a, b in zip(got, ref):
+    err = float((a.float() - b.float()).abs().max())
+    assert err <= 2e-2 * float(b.float().abs().max()) + 2e-2, err
+dist.destroy_process_group()
+print("ok")
+"""
+
+
+def test_ring_over_nccl_on_two_cards(tmp_path):
+    """The ring over a real NCCL group of two processes, one card each,
+    against single-device flash (zig-zag, forward and backward). Needs two
+    cards: the chip machine of this repository's runs has one, and NCCL
+    refuses two ranks on one device."""
+    _cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices (NCCL refuses two ranks on one card)")
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = _NCCL_RANK.format(root=root, store=str(tmp_path / "store"))
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in range(2)]
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=300)[0].decode())
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise
+    assert all(p.returncode == 0 for p in procs), outs

@@ -5,6 +5,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 // Running-max init: finite, so a row whose every key is masked degrades to
@@ -12,6 +13,34 @@
 #define TRLX_M_INIT (-1e30f)
 // Masked scores are REPLACED by this value (not biased).
 #define TRLX_MASK_VAL (-1e9f)
+// A flash row whose walk reached no key by position has lse = TRLX_M_INIT;
+// the backward kernels give such a row p = 0 on every tile (below this).
+#define TRLX_DEAD_LSE (-1e29f)
+
+// floor(a / b) for b > 0 and any sign of a (C's division truncates).
+__host__ __device__ __forceinline__ int floor_div(int a, int b) { return a >= 0 ? a / b : -((b - 1 - a) / b); }
+
+// The flash kernels' position rule, shared by the forward, dq and dk/dv (the
+// JAX kernels' _masked_scores): a key at position kpos of the query frame
+// (its index plus the block's offset) is reachable from query row `row`
+// under causality when kpos <= row, and within a window when
+// kpos > row - window. Each thread turns it into bounds once, so the mask of
+// a score is two compares:
+// - the key indices a query row reaches, [lo, hi] within [0, T) (empty when
+//   lo > hi: the row reaches no key);
+__device__ __forceinline__ int2 flash_key_span(int row, int T, int causal, int window, int offset) {
+  return make_int2(window > 0 ? max(0, row - window + 1 - offset) : 0, causal ? min(T - 1, row - offset) : T - 1);
+}
+// - the query rows that reach a key index, [lo, hi].
+__device__ __forceinline__ int2 flash_query_span(int key, int causal, int window, int offset) {
+  return make_int2(causal ? key + offset : INT_MIN, window > 0 ? key + offset + window - 1 : INT_MAX);
+}
+
+// Some pair of rows [r0, r1] and key positions [k0, k1] is reachable (the
+// JAX kernels' _run_if_live): the tile test of all three flash kernels.
+__host__ __device__ __forceinline__ bool flash_tile_live(int r0, int r1, int k0, int k1, int causal, int window) {
+  return (!causal || k0 <= r1) && !(window > 0 && k1 <= r0 - window);
+}
 
 // D[16x8] += A[16x16] (row-major) * B[16x8] (column-major), bf16 in, f32 acc.
 // Fragment layout for lane = 4*g + t (g = lane>>2, t = lane&3):

@@ -12,13 +12,15 @@
 //        caller, as the JAX package computes it outside Pallas)
 //   dq = (ds . k) * scale,  dv = p^T . dO,  dk = (ds^T . q) * scale
 // p and ds are rounded to bf16 before their products, as the TPU kernels cast
-// them to the operand dtype. Tiles that the causal/window mask empties are
-// skipped by the forward's test (a tile is live when some pair in it is
-// reachable by position), so p is the forward's p on every visited pair and
-// exactly 0 on the valid rows' masked pairs. Rows past T have zero q and dO
-// (TMA's out-of-bounds fill) and lse = delta = 0, so every term they add is 0.
-// The key-position offset and the non-causal mode (ring attention) are left
-// out, as in the forward.
+// them to the operand dtype. Masking follows the forward (common.cuh
+// flash_key_span / flash_query_span: causal or not, a window, key k at
+// position k + offset of the query frame). Tiles that the position rule empties are skipped by the
+// forward's test (a tile is live when some pair in it is reachable by
+// position), so p is the forward's p on every visited pair and exactly 0 on
+// the valid rows' masked pairs. A row whose forward reached no key (lse =
+// -1e30, e.g. a wholly future ring chunk) gets p = 0 on every tile, so it
+// adds nothing to dq, dk or dv. Rows past T have zero q and dO (TMA's
+// out-of-bounds fill) and lse = delta = 0, so every term they add is 0.
 //
 // What bounds it on an H100: at the train shape [8, 1024, 16, 256] there are
 // 67.2M live (query, key) pairs; dq costs 6*d flops a pair (1.03e11, 0.104 ms
@@ -64,8 +66,9 @@
 // dk/dv (one CTA per (64-key tile, head, row), key tile 0 of a head first: it
 // walks the most query tiles): K and V are loaded once; Q, dO and the tile's lse /
 // delta slices stream through a 2-stage ring of 64-query tiles, from the
-// diagonal to T (with a window, to the last query that still sees a key of
-// the tile: every visited tile is live). The two [64, d] accumulators do not
+// diagonal in the offset frame (from tile 0 without causality) to T (with a
+// window, to the last query that still sees a key of the tile: every visited
+// tile is live). The two [64, d] accumulators do not
 // fit one warpgroup at d = 256, so the work is split:
 // - warpgroup 1: S^T = K.Q^T (SS), P^T = exp(S^T * scale - lse) in
 //   registers, hands P^T (f32) to warpgroup 2 through shared memory behind
@@ -103,6 +106,8 @@ struct BwdParams {
   int b, T, h, n_tiles;
   float scale;
   int window;
+  int causal;  // 0: every key position is reachable (subject to the window)
+  int offset;  // key k sits at k + offset in the query frame
 };
 
 // out rows row0 and row0 + 8 of a [64, d] f32 accumulator (the wgmma
@@ -136,6 +141,12 @@ __device__ __forceinline__ void to_frags(uint32_t (&a)[KS][4], const float* r) {
     a[kk][2] = pack_bf16(r[(2 * kk + 1) * 4 + 0], r[(2 * kk + 1) * 4 + 1]);
     a[kk][3] = pack_bf16(r[(2 * kk + 1) * 4 + 2], r[(2 * kk + 1) * 4 + 3]);
   }
+}
+
+// A row's lse in log2 units, or +inf where its forward reached no key
+// (lse = M_INIT): exp2(s - inf) = 0, so the row adds nothing.
+__device__ __forceinline__ float dead_or_log2(float lse) {
+  return lse > TRLX_DEAD_LSE ? lse * LOG2E : __int_as_float(0x7f800000);
 }
 
 template <int D>
@@ -181,15 +192,18 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   auto bar_e = [&](int s) { return sbase + L::BAR + 8 * (1 + STAGES + s); };
 
   // Tiles of a head are neighbours in the grid, so a wave's CTAs share
-  // their K / V tiles in L2; within a head the longest causal walk first.
+  // their K / V tiles in L2; within a head the longest causal walk first (at
+  // any offset a later tile's walk is no shorter).
   const int bh = blockIdx.x / p.n_tiles, hi = bh % p.h, bi = bh / p.h;
   const int qt = p.n_tiles - 1 - (int)(blockIdx.x % p.n_tiles);
   const int q0 = qt * DQ_BQ, T = p.T;
-  // Key tiles the CTA visits: up to the diagonal of its last row, from the
-  // first key its first row's window sees.
-  const int kt_hi = (min(q0 + DQ_BQ, T) - 1) / BK;
-  const int kt_lo = p.window > 0 ? max(0, q0 - p.window + 1) / BK : 0;
-  const int n_kv = kt_hi - kt_lo + 1;
+  // Key tiles the CTA visits (the forward's walk): under causality up to the
+  // diagonal of its last row, with a window from the first key its first row
+  // sees, both in the offset frame; none when no row reaches a key.
+  const int n_kt = (T + BK - 1) / BK;
+  const int kt_hi = p.causal ? min(n_kt - 1, floor_div(min(q0 + DQ_BQ, T) - 1 - p.offset, BK)) : n_kt - 1;
+  const int kt_lo = p.window > 0 ? max(0, floor_div(q0 - p.window + 1 - p.offset, BK)) : 0;
+  const int n_kv = max(0, kt_hi - kt_lo + 1);
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
@@ -244,10 +258,12 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   const float sl2 = p.scale * LOG2E;  // scores in log2 units
   const float mask2 = TRLX_MASK_VAL * LOG2E;
   const size_t rv = ((size_t)bi * p.h + hi) * T;
-  const float lse0 = row0 < T ? p.lse[rv + row0] * LOG2E : 0.f;
-  const float lse1 = row1 < T ? p.lse[rv + row1] * LOG2E : 0.f;
+  const float lse0 = row0 < T ? dead_or_log2(p.lse[rv + row0]) : 0.f;
+  const float lse1 = row1 < T ? dead_or_log2(p.lse[rv + row1]) : 0.f;
   const float dl0 = row0 < T ? p.delta[rv + row0] : 0.f;
   const float dl1 = row1 < T ? p.delta[rv + row1] : 0.f;
+  const int2 sp0 = flash_key_span(row0, T, p.causal, p.window, p.offset);
+  const int2 sp1 = flash_key_span(row1, T, p.causal, p.window, p.offset);
 
   float acc[CH][32];
   init_acc<D>(acc);
@@ -259,9 +275,11 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     const int s = i % STAGES;
     const uint32_t par = (i / STAGES) & 1;
     const int k0 = (kt_lo + i) * BK;
-    // Tile liveness for this warpgroup's 64 rows (the TPU kernel's _run_if_live;
-    // a warpgroup whose rows all lie past T has none).
-    const bool live = rlo < T && k0 <= rlo + 63 && !(p.window > 0 && k0 + BK - 1 <= rlo - p.window);
+    // Tile liveness for this warpgroup's 64 rows and the tile's keys, both cut
+    // at T (the TPU kernel's _run_if_live; a warpgroup whose rows all lie past
+    // T has none).
+    const bool live = rlo < T && flash_tile_live(rlo, min(rlo + 63, T - 1), k0 + p.offset,
+                                                 min(k0 + BK, T) - 1 + p.offset, p.causal, p.window);
     // Wait on every phase, live or not: a parity wait on a phase skipped two
     // tiles back would pass at once.
     mbar_wait(bar_f(s), par);
@@ -299,9 +317,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         for (int e = 0; e < 4; ++e) {
           const int kk = j * 8 + 2 * t4 + (e & 1);
           const int key = k0 + kk;
-          const int row = e < 2 ? row0 : row1;
-          bool valid = km[kk] > 0.5f && key <= row;
-          if (p.window > 0) valid = valid && key > row - p.window;
+          const int2 sp = e < 2 ? sp0 : sp1;
+          const bool valid = km[kk] > 0.5f && key >= sp.x && key <= sp.y;
           const float pv = exp2f((valid ? sc[j * 4 + e] * sl2 : mask2) - (e < 2 ? lse0 : lse1));
           sc[j * 4 + e] = pv * (dp[j * 4 + e] - (e < 2 ? dl0 : dl1));
         }
@@ -372,12 +389,15 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   // their Q / dO tiles in L2; within a head key tile 0, the longest walk, first.
   const int bh = blockIdx.x / p.n_tiles, hi = bh % p.h, bi = bh / p.h;
   const int k0 = (int)(blockIdx.x % p.n_tiles) * DKV_BK, T = p.T;
-  // Query tiles the CTA visits: from the diagonal to T, or with a window to
-  // the last query that still sees key k0 + BK - 1.
+  // Query tiles the CTA visits, all live: under causality from the tile of
+  // the first query that sees key k0 (its diagonal in the offset frame), to
+  // T, or with a window to the last query that still sees the tile's last
+  // key below T; none when no query reaches a key of the tile (dk = dv = 0).
   const int nq = (T + DKV_BQ - 1) / DKV_BQ;
-  const int qt_lo = k0 / DKV_BQ;
-  const int qt_hi = p.window > 0 ? min(nq - 1, (k0 + DKV_BK - 2 + p.window) / DKV_BQ) : nq - 1;
-  const int n_q = qt_hi - qt_lo + 1;
+  const int qt_lo = !p.causal ? 0 : k0 + p.offset > T - 1 ? nq : max(0, floor_div(k0 + p.offset, DKV_BQ));
+  const int qt_hi =
+      p.window > 0 ? min(nq - 1, floor_div(min(k0 + DKV_BK, T) - 2 + p.offset + p.window, DKV_BQ)) : nq - 1;
+  const int n_q = max(0, qt_hi - qt_lo + 1);
   const size_t rv = ((size_t)bi * p.h + hi) * T;
 
   if (threadIdx.x == 0) {
@@ -421,7 +441,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       }
       for (int j = lane; j < DKV_BQ; j += 32) {
         const int row = q0 + j;
-        lse_s[s * DKV_BQ + j] = row < T ? p.lse[rv + row] * LOG2E : 0.f;
+        lse_s[s * DKV_BQ + j] = row < T ? dead_or_log2(p.lse[rv + row]) : 0.f;
         delta_s[s * DKV_BQ + j] = row < T ? p.delta[rv + row] : 0.f;
       }
       __syncwarp();
@@ -444,6 +464,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   init_acc<D>(acc);
   mbar_wait(bar_kv, 0);
   const bool kv0 = kms[key0 - k0] > 0.5f, kv1 = kms[key1 - k0] > 0.5f;
+  // The query rows that reach keys key0 and key1 by position.
+  const int2 qs0 = flash_query_span(key0, p.causal, p.window, p.offset);
+  const int2 qs1 = flash_query_span(key1, p.causal, p.window, p.offset);
   // A of the first product: K for S^T, V for dP^T.
   const uint32_t a_base = sbase + (p_group ? L::K : L::V);
 
@@ -479,9 +502,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         for (int e = 0; e < 4; ++e) {
           const int ql = j * 8 + 2 * t4 + (e & 1);
           const int query = q0 + ql;
-          const int key = e < 2 ? key0 : key1;
-          bool valid = (e < 2 ? kv0 : kv1) && key <= query;
-          if (p.window > 0) valid = valid && key > query - p.window;
+          const int2 qs = e < 2 ? qs0 : qs1;
+          const bool valid = (e < 2 ? kv0 : kv1) && query >= qs.x && query <= qs.y;
           st[j * 4 + e] = exp2f((valid ? st[j * 4 + e] * sl2 : mask2) - ls[ql]);
         }
       }
@@ -550,7 +572,7 @@ bool make_maps(Maps* m, const void* q, const void* k, const void* v, const void*
 }
 
 BwdParams make_params(const void* kmask, const void* lse, const void* delta, int b, int T, int h, float scale,
-                      int window) {
+                      int window, int causal, int offset) {
   BwdParams p;
   p.kmask = static_cast<const float*>(kmask);
   p.lse = static_cast<const float*>(lse);
@@ -558,6 +580,7 @@ BwdParams make_params(const void* kmask, const void* lse, const void* delta, int
   p.dq = p.dk = p.dv = nullptr;
   p.b = b; p.T = T; p.h = h; p.n_tiles = 0;
   p.scale = scale; p.window = window;
+  p.causal = causal; p.offset = offset;
   return p;
 }
 
@@ -586,13 +609,13 @@ cudaError_t launch_dkv(const Maps& m, BwdParams p, cudaStream_t stream) {
 extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* dout, const void* kmask,
                                  const void* lse, const void* delta, void* dq, int b, int T, int h, int d, int qsb,
                                  int qst, int qsh, int ksb, int kst, int ksh, int vsb, int vst, int vsh, float scale,
-                                 int window, void* stream) {
+                                 int window, int causal, int offset, void* stream) {
   if (d != 64 && d != 128 && d != 256) return (int)cudaErrorInvalidValue;
   Maps m;
   if (!make_maps(&m, q, k, v, dout, b, T, h, d, qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh, DQ_BQ,
                  d == 256 ? DQ_BK_D256 : DQ_BK))
     return (int)cudaErrorInvalidValue;
-  BwdParams p = make_params(kmask, lse, delta, b, T, h, scale, window);
+  BwdParams p = make_params(kmask, lse, delta, b, T, h, scale, window, causal, offset);
   p.dq = static_cast<__nv_bfloat16*>(dq);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
@@ -605,12 +628,12 @@ extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v, co
 extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* dout, const void* kmask,
                                   const void* lse, const void* delta, void* dk, void* dv, int b, int T, int h, int d,
                                   int qsb, int qst, int qsh, int ksb, int kst, int ksh, int vsb, int vst, int vsh,
-                                  float scale, int window, void* stream) {
+                                  float scale, int window, int causal, int offset, void* stream) {
   if (d != 64 && d != 128 && d != 256) return (int)cudaErrorInvalidValue;
   Maps m;
   if (!make_maps(&m, q, k, v, dout, b, T, h, d, qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh, DKV_BQ, DKV_BK))
     return (int)cudaErrorInvalidValue;
-  BwdParams p = make_params(kmask, lse, delta, b, T, h, scale, window);
+  BwdParams p = make_params(kmask, lse, delta, b, T, h, scale, window, causal, offset);
   p.dk = static_cast<__nv_bfloat16*>(dk);
   p.dv = static_cast<__nv_bfloat16*>(dv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

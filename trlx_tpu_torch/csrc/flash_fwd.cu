@@ -2,16 +2,20 @@
 // ring, wgmma on the tensor cores, bf16 in, f32 softmax.
 //
 // Replaces: trlx_tpu/ops/flash_attention.py:_fwd_kernel (pallas_call in _fwd).
-// Computes causal online-softmax attention over q/k/v [b, T, h, d] with a key
-// padding mask and an optional trailing window, and emits o [b, T, h, d]
-// (bf16) plus the per-row log-sum-exp lse [b, h, T] (f32). Semantics kept
+// Computes online-softmax attention over q/k/v [b, T, h, d] with a key
+// padding mask, causal or not, an optional trailing window and a key-position
+// offset, and emits o [b, T, h, d] (bf16) plus the per-row log-sum-exp lse
+// [b, h, T] (f32). The offset puts key k at position k + offset of the query
+// frame (ring attention: the visiting chunk's displacement); the causal and
+// window tests read that position (common.cuh flash_key_span). Semantics kept
 // from the TPU kernel: masked scores are REPLACED by -1e9, the running max
-// starts at the finite -1e30, key tiles that the causal/window mask empties
-// are skipped, P is rounded to bf16 before P.V, and a row whose every tile
-// was skipped (l == 0) writes zeros with lse = -1e30. Rows with no valid key
-// (left padding) attend over the tiles their warpgroup visits; nothing reads
-// them. The TPU kernel's non-causal mode and key-position offset (ring
-// attention) have no caller yet and are left out.
+// starts at the finite -1e30, key tiles that the position rule empties are
+// skipped, and P is rounded to bf16 before P.V. A row that reaches no key by
+// position (every tile skipped, or a wholly future ring chunk) writes zeros
+// with lse = -1e30, the JAX kernel's finalisation for l == 0: a log-sum-exp
+// combine gives it weight 0 and the backward kernels give it p = 0. Rows that
+// reach keys but no valid one (left padding) attend over the tiles their
+// warpgroup visits; nothing reads them.
 //
 // What bounds it on an H100: at the rollout shapes ([8, 768..1024, 16, 256])
 // the causal QK^T and P.V are 39-69 GFLOP against 200-270 MB of q/k/v/o:
@@ -36,9 +40,11 @@
 //   warpgroup, d / 2 registers a thread) stays in registers for the whole
 //   key walk. While one warpgroup does its softmax the other's wgmma runs.
 // - query tiles are scheduled longest causal walk first (grid y counts the
-//   tiles down), and a warpgroup skips the math of the key tiles its 64 rows
-//   cannot see; it still waits on their full barriers and frees their stage,
-//   so each consumer observes every phase of the ring.
+//   tiles down; at any offset a later tile's causal walk is no shorter, and
+//   without causality all walks are equal), and a warpgroup skips the math of
+//   the key tiles its 64 rows cannot see; it still waits on their full
+//   barriers and frees their stage, so each consumer observes every phase of
+//   the ring. A CTA whose rows reach no key walks no tile.
 // Shared memory at d = 256: Q 64 KB + 2 x (K 32 KB + V 32 KB) = 192 KB.
 // The same template serves d = 64 and 128 (GPT-2, NeoX families).
 // Tensor maps are encoded on the host per call over the strided views,
@@ -64,6 +70,8 @@ struct FlashParams {
   int b, T, h, n_qt;
   float scale;
   int window;
+  int causal;  // 0: every key position is reachable (subject to the window)
+  int offset;  // key k sits at k + offset in the query frame
 };
 
 // ---- shared-memory layout ---------------------------------------------------
@@ -100,11 +108,13 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   const int bh = blockIdx.x, hi = bh % p.h, bi = bh / p.h;
   const int qt = p.n_qt - 1 - (int)blockIdx.y;  // longest causal walk first
   const int q0 = qt * BQ, T = p.T;
-  // Key tiles the CTA visits: up to the diagonal of its last row, from the
-  // first key its first row's window sees.
-  const int kt_hi = (min(q0 + BQ, T) - 1) / BK;
-  const int kt_lo = p.window > 0 ? max(0, q0 - p.window + 1) / BK : 0;
-  const int n_kv = kt_hi - kt_lo + 1;
+  // Key tiles the CTA visits: under causality up to the diagonal of its last
+  // row, with a window from the first key its first row sees (both in the
+  // offset frame); none when no row reaches a key.
+  const int n_kt = (T + BK - 1) / BK;
+  const int kt_hi = p.causal ? min(n_kt - 1, floor_div(min(q0 + BQ, T) - 1 - p.offset, BK)) : n_kt - 1;
+  const int kt_lo = p.window > 0 ? max(0, floor_div(q0 - p.window + 1 - p.offset, BK)) : 0;
+  const int n_kv = max(0, kt_hi - kt_lo + 1);
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
@@ -166,6 +176,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
   float m0 = TRLX_M_INIT, m1 = TRLX_M_INIT, l0 = 0.f, l1 = 0.f;
+  // The keys rows row0 and row1 reach by position (past T excluded).
+  const int2 sp0 = flash_key_span(row0, T, p.causal, p.window, p.offset);
+  const int2 sp1 = flash_key_span(row1, T, p.causal, p.window, p.offset);
 
   mbar_wait(bar_q, 0);
   const uint32_t q_base = sbase + L::Q + cw * 64 * 128;
@@ -174,8 +187,10 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     const int s = i % STAGES;
     const uint32_t par = (i / STAGES) & 1;
     const int k0 = (kt_lo + i) * BK;
-    // Tile liveness for this warpgroup's 64 rows (the TPU kernel's _run_if_live).
-    const bool live = k0 <= rlo + 63 && !(p.window > 0 && k0 + BK - 1 <= rlo - p.window);
+    // Tile liveness for this warpgroup's 64 rows and the tile's keys, both cut
+    // at T (the TPU kernel's _run_if_live).
+    const bool live = rlo < T && flash_tile_live(rlo, min(rlo + 63, T - 1), k0 + p.offset,
+                                                 min(k0 + BK, T) - 1 + p.offset, p.causal, p.window);
     // Both warpgroups wait on every phase of the ring, live or not: a parity
     // wait on a phase it skipped two tiles back would pass at once.
     mbar_wait(bar_k(s), par);
@@ -208,10 +223,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         for (int e = 0; e < 4; ++e) {
           const int kk = j * 8 + 2 * t4 + (e & 1);
           const int key = k0 + kk;
-          const int row = e < 2 ? row0 : row1;
-          bool valid = key < T && km[kk] > 0.5f && key <= row;
-          if (p.window > 0) valid = valid && key > row - p.window;
-          const float v = valid ? sc[j * 4 + e] * sl2 : mask2;
+          const int2 sp = e < 2 ? sp0 : sp1;
+          const float v = km[kk] > 0.5f && key >= sp.x && key <= sp.y ? sc[j * 4 + e] * sl2 : mask2;
           sc[j * 4 + e] = v;
           if (e < 2) mx0 = fmaxf(mx0, v); else mx1 = fmaxf(mx1, v);
         }
@@ -270,9 +283,13 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     mbar_arrive(bar_e(s));
   }
 
-  // Finalize: o = acc / l; lse = m + log l (natural units), or M_INIT where l == 0.
+  // Finalize: o = acc / l; lse = m + log l (natural units); a row that
+  // reaches no key by position (l == 0 if its tiles were all skipped, else
+  // only masked keys of a live tile) gets o = 0 and lse = M_INIT.
+  const bool live0 = l0 > 0.f && sp0.x <= sp0.y;
+  const bool live1 = l1 > 0.f && sp1.x <= sp1.y;
   const float ls0 = fmaxf(l0, 1e-30f), ls1 = fmaxf(l1, 1e-30f);
-  const float inv0 = 1.f / ls0, inv1 = 1.f / ls1;
+  const float inv0 = live0 ? 1.f / ls0 : 0.f, inv1 = live1 ? 1.f / ls1 : 0.f;
   const size_t orow = (size_t)p.h * D;
   __nv_bfloat16* ob = p.o + (size_t)bi * T * orow + (size_t)hi * D;
 #pragma unroll
@@ -289,8 +306,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     }
   if (t4 == 0) {
     float* lb = p.lse + ((size_t)bi * p.h + hi) * T;
-    if (row0 < T) lb[row0] = l0 > 0.f ? m0 * LN2 + logf(ls0) : TRLX_M_INIT;
-    if (row1 < T) lb[row1] = l1 > 0.f ? m1 * LN2 + logf(ls1) : TRLX_M_INIT;
+    if (row0 < T) lb[row0] = live0 ? m0 * LN2 + logf(ls0) : TRLX_M_INIT;
+    if (row1 < T) lb[row1] = live1 ? m1 * LN2 + logf(ls1) : TRLX_M_INIT;
   }
 }
 
@@ -309,7 +326,8 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorM
 
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, const void* kmask, void* o, void* lse,
                               int b, int T, int h, int d, int qsb, int qst, int qsh, int ksb, int kst, int ksh,
-                              int vsb, int vst, int vsh, float scale, int window, void* stream) {
+                              int vsb, int vst, int vsh, float scale, int window, int causal, int offset,
+                              void* stream) {
   if (d != 64 && d != 128 && d != 256) return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, d, T, h, b, qst, qsh, qsb, BQ) || !make_map(&tk, k, d, T, h, b, kst, ksh, ksb, BK) ||
@@ -322,6 +340,7 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, const
   p.b = b; p.T = T; p.h = h;
   p.n_qt = (T + BQ - 1) / BQ;
   p.scale = scale; p.window = window;
+  p.causal = causal; p.offset = offset;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64: return (int)launch<64>(tq, tk, tv, p, s);

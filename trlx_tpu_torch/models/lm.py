@@ -17,8 +17,12 @@ With ``block_tables`` [b, bps] the per-layer leaves are ONE shared pool
 bps * bs keys lives in the pool blocks its table names; offsets, masks,
 positions and biases address the virtual cache unchanged.
 
-Attention routes through three paths, by the JAX package's static rules:
+Attention routes through four paths, by the JAX package's static rules:
 
+- ring attention over the mesh's sp group for full-sequence passes of a
+  model built for sp > 1 (``ring_eligible``: no cache, the length divides
+  the ring; ``parallel.ring_attention.ring_attention_sharded``, whose
+  chunks take the flash kernels' offset mode on a CUDA device);
 - the flash kernel for full-sequence passes and for prefill at a static
   cache index 0 (``flash_eligible``; "auto" needs a CUDA device, bf16 and a
   long 128-aligned sequence);
@@ -38,8 +42,7 @@ kernel inside ``decode_weights(module)`` (the decode paths), as QDense
 reads the ``qw`` collection; training and scoring never enter it.
 
 ``remat`` with policy "full" checkpoints every block under grad; policy
-"dots" raises. Not in this slice: ring attention and packed segments; the
-config fields exist and raise when set.
+"dots" raises. Not ported: packed segments (their trainer knob raises).
 """
 
 from contextlib import contextmanager
@@ -50,7 +53,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from trlx_tpu_torch.device import resolve_device, torch_dtype
 from trlx_tpu_torch.ops.decode_attention import (
@@ -63,6 +66,8 @@ from trlx_tpu_torch.ops.decode_attention import (
 from trlx_tpu_torch.ops.flash_attention import auto_flash_ok, flash_attention
 from trlx_tpu_torch.ops.fused_logprob import routed_logprob
 from trlx_tpu_torch.ops.w8a16 import quantize_weights, w8a16_matmul
+from trlx_tpu_torch.parallel.mesh import AXIS_DP, AXIS_FSDP, AXIS_SP, AXIS_TP, get_mesh
+from trlx_tpu_torch.parallel.ring_attention import ring_attention_sharded
 
 
 @dataclass(frozen=True)
@@ -105,8 +110,6 @@ class LMConfig:
             raise ValueError(f"unknown remat_policy {self.remat_policy!r} (expected 'full' or 'dots')")
         if self.attn_impl not in ("auto", "flash", "xla"):
             raise ValueError(f"attn_impl must be auto|flash|xla, got {self.attn_impl!r}")
-        if self.sp_size > 1:
-            raise NotImplementedError("ring attention (sp_size > 1) is not ported yet")
         if self.remat and self.remat_policy == "dots":
             raise NotImplementedError("remat_policy='dots' is not ported yet")
 
@@ -305,6 +308,22 @@ class Embed(nn.Module):
         return self.embedding[ids.long()].to(dtype)
 
 
+def ring_eligible(cfg: LMConfig, q_len: int, has_cache: bool, batch: Optional[int] = None) -> bool:
+    """Sequence-parallel ring attention applies to full-sequence passes of a
+    model built for an sp > 1 mesh whose shapes divide the mesh: sequence
+    over sp, batch over (dp, fsdp), heads over tp. Decode and prefill with a
+    cache stay local (the JAX package's rule)."""
+    if cfg.sp_size <= 1 or has_cache or q_len % cfg.sp_size:
+        return False
+    mesh = get_mesh()
+    if mesh.shape[AXIS_SP] != cfg.sp_size:
+        raise ValueError(f"the model was built for sp = {cfg.sp_size}, the mesh has {mesh.shape}")
+    data = mesh.shape[AXIS_DP] * mesh.shape[AXIS_FSDP]
+    if batch is not None and batch % data:
+        return False
+    return cfg.n_head % mesh.shape[AXIS_TP] == 0
+
+
 def flash_eligible(cfg: LMConfig, q_len: int, has_cache: bool, prefill_at_zero: bool, kernel_device: bool) -> bool:
     """Static routing between the flash kernel and the einsum path (the JAX
     package's rule). Flash applies to full-sequence passes and to prefill at
@@ -342,7 +361,7 @@ class Attention(nn.Module):
                                  persistent=False)
 
     def forward(self, x, attn_bias, positions, cache=None, cache_index=None, flash_mask=None, window=0,
-                block_tables=None):
+                block_tables=None, ring=False):
         cfg = self.cfg
         dtype = cfg.compute_dtype
         b, q_len, _ = x.shape
@@ -403,7 +422,8 @@ class Attention(nn.Module):
 
         scale = 1.0 / np.sqrt(hd) if cfg.scale_attn else 1.0
         if flash_mask is not None:
-            out = flash_attention(q, k, v, flash_mask, scale=scale, window=window).to(dtype)
+            attend = ring_attention_sharded if ring else flash_attention
+            out = attend(q, k, v, flash_mask, scale=scale, causal=True, window=window).to(dtype)
         elif decode_kv is not None:
             # The single-token step's bias row carries causality, validity
             # and any window at once.
@@ -458,18 +478,18 @@ class Block(nn.Module):
         self.mlp = MLP(cfg, device)
 
     def forward(self, x, attn_bias, positions, cache=None, cache_index=None, flash_mask=None, window=0,
-                block_tables=None):
+                block_tables=None, ring=False):
         cfg = self.cfg
         dtype = cfg.compute_dtype
         if cfg.parallel_residual:
             h = self.ln_1(x, dtype)
             attn_out, new_cache = self.attn(h, attn_bias, positions, cache, cache_index, flash_mask, window,
-                                            block_tables)
+                                            block_tables, ring)
             mlp_in = self.ln_2(x, dtype) if cfg.use_parallel_ln else h
             x = x + attn_out + self.mlp(mlp_in)
         else:
             attn_out, new_cache = self.attn(self.ln_1(x, dtype), attn_bias, positions, cache, cache_index,
-                                            flash_mask, window, block_tables)
+                                            flash_mask, window, block_tables, ring)
             x = x + attn_out
             x = x + self.mlp(self.ln_2(x, dtype))
         return x, new_cache
@@ -621,7 +641,8 @@ class TransformerLM(nn.Module):
         # as the paged suffix prefill passes, takes the einsum path).
         prefill_at_zero = cache is not None and not vector_index and cache_index == 0
         kernel_device = device.type == "cuda" and dtype == torch.bfloat16
-        use_flash = flash_eligible(cfg, q_len, cache is not None, prefill_at_zero, kernel_device)
+        use_ring = ring_eligible(cfg, q_len, cache is not None, b)
+        use_flash = use_ring or flash_eligible(cfg, q_len, cache is not None, prefill_at_zero, kernel_device)
         attn_bias = local_bias = flash_mask = None
         if use_flash:
             flash_mask = attention_mask.float()
@@ -640,7 +661,9 @@ class TransformerLM(nn.Module):
         # remat (policy "full"): under grad, each block keeps only its input
         # and recomputes its activations in the backward, as the JAX
         # package's nn.remat does. Cache passes run without grad, so the
-        # rollout path is unchanged.
+        # rollout path is unchanged. Under the ring the recompute re-issues
+        # the block's collectives, so it always runs the whole block on every
+        # rank (no early stop at the last saved tensor).
         remat = cfg.remat and cache is None and torch.is_grad_enabled()
         for i in range(start_layer, stop_layer):
             if collect_hidden_at is not None and i == collect_hidden_at:
@@ -655,9 +678,11 @@ class TransformerLM(nn.Module):
                 flash_mask,
                 cfg.window_size if is_local else 0,
                 block_tables,
+                use_ring,
             )
             if remat:
-                x, layer_cache = checkpoint(self.block(i), *args, use_reentrant=False)
+                with set_checkpoint_early_stop(not use_ring):
+                    x, layer_cache = checkpoint(self.block(i), *args, use_reentrant=False)
             else:
                 x, layer_cache = self.block(i)(*args)
             if cache is not None:

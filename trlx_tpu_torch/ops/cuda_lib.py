@@ -37,7 +37,7 @@ _SIGNATURES = {
                        _I, _I, _I,  # q strides (b, t, h) in elements
                        _I, _I, _I,  # k strides
                        _I, _I, _I,  # v strides
-                       _F, _I, _P],  # scale window stream
+                       _F, _I, _I, _I, _P],  # scale window causal offset stream
     "decode_attn_bf16": [_P, _P, _P, _P, _P,  # q k v bias o
                          _P, _I,  # split partials scratch, splits
                          _I, _I, _I, _I,  # B T h d
@@ -70,11 +70,11 @@ _SIGNATURES = {
     "flash_bwd_dq_bf16": [_P, _P, _P, _P, _P, _P, _P, _P,  # q k v dout kmask lse delta dq
                           _I, _I, _I, _I,  # b T h d
                           _I, _I, _I, _I, _I, _I, _I, _I, _I,  # q k v strides (b, t, h)
-                          _F, _I, _P],  # scale window stream
+                          _F, _I, _I, _I, _P],  # scale window causal offset stream
     "flash_bwd_dkv_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P,  # q k v dout kmask lse delta dk dv
                            _I, _I, _I, _I,  # b T h d
                            _I, _I, _I, _I, _I, _I, _I, _I, _I,  # q k v strides (b, t, h)
-                           _F, _I, _P],  # scale window stream
+                           _F, _I, _I, _I, _P],  # scale window causal offset stream
     "fused_logprob_bwd_ds_dx": [_P, _P, _P, _P,  # x w(bf16) bias labels (chunk)
                                 _P, _P, _P, _P, _P,  # lse ent dlp dlse dent (chunk)
                                 _P, _P, _P,  # ds scratch, db partials, dx (chunk)

@@ -46,8 +46,9 @@ class PPOOrchestrator(Orchestrator):
         self.rl_model.metric_fn = metric_fn
 
     def score(self, texts):
-        """The user's reward on decoded samples."""
-        return self.rl_model.reward_fn(texts)
+        """The user's reward on decoded samples (called on the main process,
+        broadcast to every rank)."""
+        return self.rl_model.host_reward(texts)
 
     def _next_prompt_batch(self):
         try:

@@ -5,8 +5,14 @@ learning-rate schedule, the optimizer, evaluation, checkpointing and the
 A trainer owns one device, the model and its parameters, the seeded
 generators, the optimizer state (its step counts and moments), the
 consecutive-skip count of the non-finite guard, the tokenizer, and the host
-hooks (``reward_fn``, ``metric_fn``, ``logit_mask``). There is one device and
-no mesh: ``train.mesh`` is read by the JAX package only. With
+hooks (``reward_fn``, ``metric_fn``, ``logit_mask``). It builds its mesh from
+``train.mesh`` (``parallel.mesh``): only the sp axis may exceed 1 (ring
+attention; every other axis is refused), over the processes ``torchrun``
+starts (one a card, each holding the full batch and the same parameters), or
+over a prebuilt mesh (``mesh=``, e.g. a ``LocalSpGroup`` that plays every
+sp rank in this process). The main process alone writes the tracker's
+records, checkpoints and exports, with a barrier after each, and alone calls
+``reward_fn`` and ``metric_fn``, whose results it broadcasts. With
 ``model.tokenizer_path`` the trainer runs in text mode (``_build_tokenizer``:
 ``transformers.AutoTokenizer``, imported when called, or any object with the
 same interface a subclass returns): prompts are strings, ``decode`` gives
@@ -44,7 +50,11 @@ from trlx_tpu_torch.data.configs import TRLConfig
 from trlx_tpu_torch.data.method_configs import PPOConfig
 from trlx_tpu_torch.device import resolve_device
 from trlx_tpu_torch.models.hf_export import export_hf
-from trlx_tpu_torch.models.lm import refresh_weight_copies
+from trlx_tpu_torch.models.lm import LMConfig, refresh_weight_copies
+from trlx_tpu_torch.parallel.mesh import (
+    AXIS_SP, allgather_host, barrier, broadcast_host, init_distributed, is_main_process, make_mesh, resolve_mesh_shape,
+    set_mesh, world_size,
+)
 from trlx_tpu_torch.resilience import checkpoint as ckpt_util
 from trlx_tpu_torch.resilience.checkpoint import CheckpointError
 from trlx_tpu_torch.resilience.guard import check_bad_steps, guarded_update
@@ -184,6 +194,8 @@ def refuse_unported(config: TRLConfig):
     them."""
     m, mc, t = config.method, config.model, config.train
     unported = {
+        # the mesh beyond sequence parallelism
+        "train.mesh dp/fsdp/tp > 1 (ROADMAP §A11)": any(int(a) > 1 for a in t.mesh[:3]),
         # resilience beyond the non-finite guard
         "train.watchdog_threshold": t.watchdog_threshold > 0,
         "train.fault_plan": bool(t.fault_plan),
@@ -226,8 +238,17 @@ def refuse_unported(config: TRLConfig):
 class BaseTrainer(BaseRLTrainer):
     def __init__(self, config: TRLConfig, device: Optional[Union[str, torch.device]] = None, **kwargs):
         super().__init__(config)
-        self.device = resolve_device(device)
         refuse_unported(config)
+        init_distributed()
+        self.device = resolve_device(device)
+        mesh = kwargs.pop("mesh", None)
+        if mesh is None:
+            mesh = make_mesh(config.train.mesh)
+        elif tuple(mesh.shape.values()) != resolve_mesh_shape(config.train.mesh, mesh.size):
+            raise ValueError(f"the mesh {mesh} is not train.mesh {tuple(config.train.mesh)}")
+        self.mesh = mesh
+        set_mesh(mesh)
+        barrier()
         self.tokenizer = self._build_tokenizer(config.model.tokenizer_path)
         self.reward_fn = kwargs.pop("reward_fn", None)
         self.metric_fn = kwargs.pop("metric_fn", None)
@@ -261,13 +282,28 @@ class BaseTrainer(BaseRLTrainer):
         self.step = 0
         self.bad_steps = 0
 
+    def finalize_lm_config(self, lm_cfg: LMConfig) -> LMConfig:
+        """The mesh's settings the architecture needs: sp > 1 turns on ring
+        attention. The JAX package also switches a sharded mesh's embedding
+        to a one-hot matmul (``onehot_embed``) for XLA's SPMD partitioner;
+        the port keeps the gather, which gives the same numbers, since every
+        rank holds the whole table."""
+        sp = self.mesh.shape[AXIS_SP]
+        return lm_cfg.replace(sp_size=sp) if sp > 1 else lm_cfg
+
     @property
     def tracker(self) -> Tracker:
         """The run's tracker (``<train.checkpoint_dir>/metrics.jsonl``),
-        opened at first use."""
+        opened at first use; it writes on the main process only."""
         if self._tracker is None:
             self._tracker = Tracker(self.config.train.checkpoint_dir, config=self.config.to_dict())
         return self._tracker
+
+    def host_reward(self, samples) -> np.ndarray:
+        """``reward_fn`` on the main process, its f32 scores broadcast to
+        every rank, so every rank trains on the same rewards."""
+        scores = np.asarray(self.reward_fn(samples), dtype=np.float32) if is_main_process() else None
+        return broadcast_host(scores)
 
     def seeded_generator(self, *key: int) -> torch.Generator:
         """A generator on the trainer's device seeded from (train.seed,
@@ -469,7 +505,7 @@ class BaseTrainer(BaseRLTrainer):
             rewards = np.concatenate(rm_scores).astype(np.float32)
         elif self.reward_fn is not None:
             t0 = time.time()
-            rewards = np.asarray(self.reward_fn(all_texts), dtype=np.float32)
+            rewards = self.host_reward(all_texts)
             stats["reward_time"] = time.time() - t0
         if rewards is not None:
             stats["mean_reward"] = float(np.mean(rewards))
@@ -478,7 +514,7 @@ class BaseTrainer(BaseRLTrainer):
                 row.append(float(r))
         if self.metric_fn is not None:
             t0 = time.time()
-            metrics = self.metric_fn(all_texts)
+            metrics = broadcast_host(self.metric_fn(all_texts) if is_main_process() else None)
             stats["metric_time"] = time.time() - t0
             for k, v in metrics.items():
                 v = np.asarray(v)
@@ -543,7 +579,7 @@ class BaseTrainer(BaseRLTrainer):
             for batch in self.train_dataloader:
                 # A SIGTERM may land during the (long) rollout phase that
                 # built this loader: save before spending a step on it.
-                if self._preempted:
+                if self._any_preempted():
                     self._save_on_preemption()
                     return None
                 device_batch = self.put_batch(batch)
@@ -563,7 +599,7 @@ class BaseTrainer(BaseRLTrainer):
                         if iv["do_eval"]:
                             stats_host.update(self.evaluate())
                         self.tracker.log(stats_host, step=self.iter_count)
-                    if self._preempted:
+                    if self._any_preempted():
                         self._save_on_preemption()
                         return None
                     if self.iter_count >= self.total_steps:
@@ -572,6 +608,12 @@ class BaseTrainer(BaseRLTrainer):
             self.post_epoch_callback()
         self.save()
         return self.evaluate()
+
+    def _any_preempted(self) -> bool:
+        """A SIGTERM reached some rank: every rank stops at the same step."""
+        if world_size() == 1:
+            return self._preempted
+        return bool(allgather_host(np.asarray([self._preempted])).any())
 
     def _save_on_preemption(self):
         self.save()
@@ -630,13 +672,26 @@ class BaseTrainer(BaseRLTrainer):
         ``state_<step>.tmp`` and renamed at finalize, so a crash before
         ``latest.txt`` is rewritten leaves the previous checkpoint as the
         resume point. A save of the state the last save already holds (the
-        interval save of the step ``learn()`` stops at) writes nothing."""
+        interval save of the step ``learn()`` stops at) writes nothing.
+
+        With several processes the main one writes, blocking, and every
+        rank leaves after the files are in place (a barrier)."""
         self._finalize_pending_save()
         directory = os.path.abspath(directory or self.config.train.checkpoint_dir)
         name = f"state_{int(self.step)}"
         host_state = self.host_state_dict()  # captured now: the KL coefficient moves on
         if self._saved == (directory, name, host_state):
             return
+        if world_size() > 1:
+            if is_main_process():
+                self._write(directory, name, host_state, block=True)
+            else:
+                self._saved = (directory, name, host_state)
+            barrier()
+            return
+        self._write(directory, name, host_state, block)
+
+    def _write(self, directory: str, name: str, host_state: dict, block: bool):
         t0 = time.perf_counter()
         snapshot = _host_copy(self.state_tensors())
         if self.device.type == "cuda":
@@ -698,7 +753,8 @@ class BaseTrainer(BaseRLTrainer):
         from the restored policy)."""
         if not self.config.train.resume_from_checkpoint:
             return
-        if not os.path.exists(os.path.join(os.path.abspath(self.config.train.checkpoint_dir), "latest.txt")):
+        path = os.path.join(os.path.abspath(self.config.train.checkpoint_dir), "latest.txt")
+        if not broadcast_host(os.path.exists(path)):  # every rank takes the main process's answer
             return
         self.load()
         self._resumed = True
@@ -813,9 +869,12 @@ class BaseTrainer(BaseRLTrainer):
         frozen extras (the reference branch, the target Q heads) are not
         exported. Streams one tensor at a time from the device. Returns
         ``out_dir``."""
-        params = dict(self.model.named_parameters())
-        heads = {k: v for k, v in params.items() if not k.startswith("transformer.")}
-        return export_hf(params, self.model.cfg, out_dir, family=family, head_params=heads)
+        if is_main_process():
+            params = dict(self.model.named_parameters())
+            heads = {k: v for k, v in params.items() if not k.startswith("transformer.")}
+            export_hf(params, self.model.cfg, out_dir, family=family, head_params=heads)
+        barrier()  # the other ranks wait for the export to land
+        return out_dir
 
     # ------------------------------------------------------- BaseRL protocol
 

@@ -100,7 +100,7 @@ class ILQLTrainer(BaseTrainer):
         """The ILQL heads model, seeded from ``train.seed``, its trunk loaded
         from ``model.model_path`` when the config names a checkpoint; the
         bottom n_layer - num_layers_unfrozen blocks are frozen."""
-        lm_cfg = build_lm_config(config)
+        lm_cfg = self.finalize_lm_config(build_lm_config(config))
         model = LMWithILQLHeads(lm_cfg, two_qs=config.method.two_qs, device=self.device)
         self.load_log["policy"] = load_or_init_params(model, config, self.seeded_generator(1))
         self.opt_mask = trainable_mask(model, lm_cfg, config.model.num_layers_unfrozen)

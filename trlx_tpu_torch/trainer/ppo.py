@@ -224,7 +224,7 @@ class PPOTrainer(BaseTrainer):
         = num_layers_unfrozen in (0, n_layer) the top k blocks form the
         frozen reference branch; otherwise there is no branch and the
         reference is a full frozen copy."""
-        lm_cfg = build_lm_config(config)
+        lm_cfg = self.finalize_lm_config(build_lm_config(config))
         k = config.model.num_layers_unfrozen
         branch_layer = lm_cfg.n_layer - k if 0 < k < lm_cfg.n_layer else -1
         model = LMWithValueHead(lm_cfg, branch_layer=branch_layer, device=self.device)
@@ -244,7 +244,7 @@ class PPOTrainer(BaseTrainer):
         rm_config = copy.deepcopy(config)
         rm_config.model.model_path = config.model.reward_model_path
         rm_config.model.model_arch = dict(config.model.reward_model_arch)
-        rm = LMWithValueHead(build_lm_config(rm_config), branch_layer=-1, device=self.device)
+        rm = LMWithValueHead(self.finalize_lm_config(build_lm_config(rm_config)), branch_layer=-1, device=self.device)
         self.load_log["reward_model"] = load_or_init_params(rm, rm_config, self.seeded_generator(4))
         rm.requires_grad_(False)
         return rm

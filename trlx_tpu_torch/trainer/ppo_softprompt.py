@@ -33,7 +33,7 @@ class PPOSoftpromptTrainer(PPOTrainer):
         """The value-head model with ``method.n_soft_tokens`` prefix rows
         and no branch; only ``transformer.soft_prompt`` and ``v_head`` train."""
         m = config.method
-        lm_cfg = build_lm_config(config).replace(n_soft_tokens=m.n_soft_tokens)
+        lm_cfg = self.finalize_lm_config(build_lm_config(config).replace(n_soft_tokens=m.n_soft_tokens))
         model = LMWithValueHead(lm_cfg, branch_layer=-1, device=self.device)
         self.load_log["policy"] = load_or_init_params(model, config, self.seeded_generator(1))
         if m.initialize_from_vocab:

@@ -1,6 +1,7 @@
 """Experiment tracking: ``<checkpoint_dir>/metrics.jsonl`` (the JSONL
-fallback of ``trlx_tpu.utils.logging.Tracker``; wandb is not ported).
-Setting ``TRLX_TPU_DISABLE_TRACKER`` disables it, as in the JAX package."""
+fallback of ``trlx_tpu.utils.logging.Tracker``; wandb is not ported). It
+writes on the main process only; setting ``TRLX_TPU_DISABLE_TRACKER``
+disables it, as in the JAX package."""
 
 import json
 import os
@@ -8,10 +9,12 @@ import sys
 import time
 from typing import Any, Dict, Optional
 
+from trlx_tpu_torch.parallel.mesh import is_main_process
+
 
 class Tracker:
     def __init__(self, log_dir: str, config: Optional[Dict[str, Any]] = None):
-        self.enabled = os.environ.get("TRLX_TPU_DISABLE_TRACKER", "") in ("", "0")
+        self.enabled = is_main_process() and os.environ.get("TRLX_TPU_DISABLE_TRACKER", "") in ("", "0")
         self._file = None
         if not self.enabled:
             return
