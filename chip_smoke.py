@@ -10,7 +10,8 @@ prefix, a dead slot on the trash block and a fully masked row), then drives
    chunked sampler over a bf16 KV cache, again with int8 decode weights
    (``rollout_w8``: every product of prefill and decode through the W8A16
    kernel, then an optimizer step's in-place re-quantize read by the
-   replayed graph), and over an int8 cache;
+   replayed graph, whose launches a trace holds against the counters), and
+   over an int8 cache;
 2. ``make_experience`` through the continuous-batching rollout engine,
    greedy, bf16 cache, GPT-J-6B width and 4 layers, paged and with fixed
    slots, and the share of identical tokens between the two;
@@ -83,8 +84,9 @@ often as its config says.
     python3 chip_smoke.py
 
 The W8A16 product (``[w8a16]``) is held against its plain version at
-GPT-J-6B's decode shapes and one prefill shape; it has no Pallas
-counterpart (XLA fuses QDense's int8 convert on the TPU).
+GPT-J-6B's decode shapes (timed with the weight L2-warm and cold) and one
+prefill shape; it has no Pallas counterpart (XLA fuses QDense's int8
+convert on the TPU).
 
 Exits non-zero, printing no result, when no CUDA device is visible or any
 phase fails. Output, in order: one line per phase; the device's name and
@@ -1626,7 +1628,7 @@ def main_path(kernels, quant: bool = False, w8: bool = False, n_layer: int = GPT
     }
     log(f"{tag} make_experience({N_ROLLOUTS}) at GPT-J-6B width, {n_layer} layers: {json.dumps(out)}")
     if w8:
-        out["requantize"] = check_w8_requantize(trainer, prompts[:CHUNK], n_layer)
+        out["requantize"] = check_w8_requantize(trainer, prompts[:CHUNK], n_layer, kernels)
     del trainer, orch
     free()
     return out, launches
@@ -1635,12 +1637,17 @@ def main_path(kernels, quant: bool = False, w8: bool = False, n_layer: int = GPT
 W8_PRODUCTS = 6  # Dense products a GPT-J block runs: q, k, v, attention out, c_fc, MLP out
 
 
-def check_w8_requantize(trainer, prompts, n_layer: int):
+def check_w8_requantize(trainer, prompts, n_layer: int, kernels):
     """After an optimizer step the int8 decode copies are re-quantized in
     place (every buffer keeps its address; a trained layer's codes move, a
     frozen layer's do not), and the sampler's replayed graph reads them: one
     chunk through the fused rollout generation, graph route against the
-    eager route from equal generator states, bit-equal tokens and stats."""
+    eager route from equal generator states, bit-equal tokens and stats.
+    The graph route runs once more under the profiler: the traced launches
+    of every kernel, the W8 product's among them, equal the counters short
+    of the records the trace proves lost, and every decode step's graph
+    launch that the trace holds whole shows exactly the step's W8 launches
+    (6 a layer and the LM head)."""
     from functools import partial
 
     from trlx_tpu_torch.ops.w8a16 import quantize_weights, quantized_weights
@@ -1673,9 +1680,17 @@ def check_w8_requantize(trainer, prompts, n_layer: int):
     same = torch.equal(g_out[0], e_out[0]) and all(torch.equal(g_out[2][key], e_out[2][key]) for key in g_out[2])
     if not same:
         raise AssertionError("W8: the replayed graph after a re-quantize differs from the eager route")
+    _, kern_ms, traced = traced_kernel_ms(kernels, lambda: graph(trainer.put(pipe_ids), trainer.put(pipe_mask),
+                                                                 torch.Generator(device="cuda").manual_seed(5)))
+    # Every decode step's graph launch that the trace holds whole ran each W8
+    # product of the step on the card: 6 a layer and the LM head.
+    step = W8_PRODUCTS * n_layer + 1
+    per_step = traced["kernels_per_complete_graph_launch"].get("w8a16_")
+    if traced["complete_graph_launches"] < 1 or per_step != [step]:
+        raise AssertionError(f"W8 launches in the trace's whole decode-step graph launches {per_step} "
+                             f"(of {traced['complete_graph_launches']}) != {step} a step")
     rec = {"buffers": len(qw), "requantized": n, "addresses_kept": True, "graph_equals_eager": True,
-           "graph_wall_ms": g_ms,
-           "eager_wall_ms": e_ms}
+           "graph_wall_ms": g_ms, "eager_wall_ms": e_ms, "traced_kernel_ms": kern_ms, "traced": traced}
     log(f"[rollout-w8] after an optimizer step: {json.dumps(rec)}")
     return rec
 
@@ -2773,7 +2788,7 @@ DEVICE_KERNELS = {
     "logprob_dw_f32_kernel": ("fused_logprob_bwd_dw_f32",),
     "decode_split_kernel": DECODE_WRAPPERS,
     "decode_merge_kernel": DECODE_WRAPPERS,
-    "w8a16_gemm_kernel": ("w8a16_matmul",),
+    "w8a16_": ("w8a16_matmul",),  # w8a16_swap_kernel and w8a16_wide_kernel: one launch a product
 }
 
 
@@ -2836,23 +2851,35 @@ def lost_device_records(raw):
     API record: a kernel launch whose correlation id has no device record
     lost its kernel, and a graph launch lost as many as it has fewer than
     the fullest launch of the trace (each trace this script takes replays
-    one graph)."""
-    device = {}
+    one graph). Beside them, the port's kernels in each complete graph
+    launch (one with the fullest count): by ``DEVICE_KERNELS`` key, the
+    counts the complete launches show (one count where every replay runs
+    the same kernels)."""
+    device, ours = {}, {}
     for e in raw:
         if e.device_type() == torch.autograd.DeviceType.CUDA:
-            device[e.correlation_id()] = device.get(e.correlation_id(), 0) + 1
+            cid = e.correlation_id()
+            device[cid] = device.get(cid, 0) + 1
+            for k in DEVICE_KERNELS:
+                if k in e.name() and "pytorch" not in e.name():
+                    ours.setdefault(cid, {})[k] = ours.get(cid, {}).get(k, 0) + 1
     kernel_launches, graph_launches = [], []
     for e in raw:
         if e.device_type() == torch.autograd.DeviceType.CUDA:
             continue
         if "GraphLaunch" in e.name():
-            graph_launches.append(device.get(e.correlation_id(), 0))
+            graph_launches.append(e.correlation_id())
         elif "LaunchKernel" in e.name() or "LaunchCooperativeKernel" in e.name():
             kernel_launches.append(device.get(e.correlation_id(), 0))
-    full = max(graph_launches, default=0)
-    lost = sum(n == 0 for n in kernel_launches) + sum(full - n for n in graph_launches)
-    return {"lost": lost, "kernel_launch_records": len(kernel_launches), "graph_launch_records": len(graph_launches),
-            "device_records_per_graph_launch": [min(graph_launches, default=0), full]}
+    records = [device.get(cid, 0) for cid in graph_launches]
+    full = max(records, default=0)
+    lost = sum(n == 0 for n in kernel_launches) + sum(full - n for n in records)
+    complete = [cid for cid, n in zip(graph_launches, records) if n == full and n > 0]
+    per_launch = {k: sorted({ours.get(cid, {}).get(k, 0) for cid in complete}) for k in DEVICE_KERNELS}
+    return {"lost": lost, "kernel_launch_records": len(kernel_launches), "graph_launch_records": len(records),
+            "device_records_per_graph_launch": [min(records, default=0), full],
+            "complete_graph_launches": len(complete),
+            "kernels_per_complete_graph_launch": {k: v for k, v in per_launch.items() if v != [0]}}
 
 
 def traced_launches(events, counted, lost: int = 0):
@@ -3119,6 +3146,45 @@ def phase_graph(kernels):
 W8_SHAPES = ((4096, 4096), (4096, 16384), (16384, 4096), (4096, 50400))  # GPT-J-6B's (K, N): q/k/v/out, c_fc, MLP out, lm_head
 
 
+W8_COLD_BYTES = 150_000_000  # int8 weight bytes a cold-weight time rotates through: three times the 50 MB L2
+
+
+def w8_tolerance(ref) -> float:
+    """The W8 product's tolerance on the plain version's ``ref``: 1e-2 of
+    max |y|, and never less than three bf16 ulps of max |y| (why: see
+    ``phase_w8a16``)."""
+    top = float(ref.float().abs().max())
+    return max(1e-2 * top, 3 * 2.0 ** (np.floor(np.log2(top)) - 7))  # 2^(e - 7): one bf16 ulp at 2^e
+
+
+def w8_cold_copies(K: int, N: int) -> int:
+    """Distinct int8 weights a cold-weight time rotates through: at least 4
+    and ``W8_COLD_BYTES``, so the L2 holds none of the next call's."""
+    return max(4, -(-W8_COLD_BYTES // (K * N)))
+
+
+def w8_inputs(M: int, K: int, N: int, gen, copies: int = 1):
+    """x [M, K] bf16, ``copies`` int8 weights [(codes [K, N], f32 scales
+    [N])] of N(0, 1/K) kernels and a bias [N], from ``gen``, on the card."""
+    from trlx_tpu_torch.ops.w8a16 import quantize_channels
+
+    x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    weights = [quantize_channels(torch.randn((K, N), generator=gen, device="cuda") * K ** -0.5) for _ in range(copies)]
+    bias = torch.randn((N,), generator=gen, device="cuda") * 0.1
+    return x, weights, bias
+
+
+def rotating(fn, args):
+    """A call of ``fn`` over args[1], args[2], ... in turn, one a call."""
+    state = {"i": 0}
+
+    def call():
+        state["i"] += 1
+        return fn(*args[state["i"] % len(args)])
+
+    return call
+
+
 def phase_w8a16(gen):
     """The W8A16 product against ``w8a16_plain`` at GPT-J-6B's decode shapes
     (M = the chunk's rows; each (K, N) of ``W8_SHAPES``) and one prefill shape
@@ -3128,40 +3194,50 @@ def phase_w8a16(gen):
     QDense's scale and bias round twice more, so an output may move by two
     ulps (seen at the prefill shape: 0.0625 at |y| in [4, 8), where 1e-2 of
     max |y| = 5.69 allowed 0.057). Times: decode shapes as replays of a graph of 50
-    calls (the wrapper's host time would hide the kernel), prefill by events
-    over back-to-back calls; beside each, the bound (bytes: x, the int8
-    weight, scale, bias read once, y written once; operations: 2 M K N at
-    the bf16 peak), the plain version and ``torch.matmul`` of x and the
-    weight in bf16, the yardstick (no PyTorch call reads int8 weights). The
-    row's numbers are those of c_fc at decode (M = 8, K = 4096, N = 16384)."""
-    from trlx_tpu_torch.ops.w8a16 import plan, quantize_channels, w8a16_matmul, w8a16_plain
+    calls (the wrapper's host time would hide the kernel), with the weight
+    L2-warm (``ms``: one weight) and cold (``cold_ms``: the calls rotate
+    through ``cold_copies`` distinct weights, at least 4 and 150 MB, so the
+    50 MB L2 holds none of the next call's, as on the decode path, where every
+    weight comes from HBM once a step); prefill by events over back-to-back
+    calls; beside each, ``plan``'s launch (x rows a tile, weight columns a
+    tile, warpgroups, K splits, grid), the bound (bytes: x, the int8 weight, scale, bias read
+    once, y written once; operations: 2 M K N at the bf16 peak), the plain
+    version and ``torch.matmul`` of x and the weight in bf16 (warm and cold),
+    the yardstick (no PyTorch call reads int8 weights). The row's numbers are
+    those of c_fc at decode (M = 8, K = 4096, N = 16384)."""
+    from trlx_tpu_torch.ops.w8a16 import launch_plan, w8a16_matmul, w8a16_plain
 
     cases = [(CHUNK, k, n) for k, n in W8_SHAPES] + [(CHUNK * PROMPT_LEN, 4096, 16384)]
     shapes = []
     for M, K, N in cases:
-        x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
-        kq, scale = quantize_channels(torch.randn((K, N), generator=gen, device="cuda") * K ** -0.5)
-        bias = torch.randn((N,), generator=gen, device="cuda") * 0.1
+        decode = M <= 32
+        copies = w8_cold_copies(K, N) if decode else 1
+        x, weights, bias = w8_inputs(M, K, N, gen, copies)
+        kq, scale = weights[0]
         y = w8a16_matmul(x, kq, scale, bias)
         torch.cuda.synchronize()
         ref = w8a16_plain(x, kq, scale, bias)
-        top = float(ref.float().abs().max())
-        tol = max(1e-2 * top, 3 * 2.0 ** (np.floor(np.log2(top)) - 7))  # 2^(e - 7): one bf16 ulp at 2^e
+        tol = w8_tolerance(ref)
         err = check(f"w8a16 M={M} K={K} N={N}", y, ref, tol)
         if not torch.equal(y, w8a16_matmul(x, kq, scale, bias)):
             raise AssertionError(f"w8a16 M={M} K={K} N={N}: two calls differ")
-        timer = graph_ms if M <= 32 else time_ms
-        wb = kq.to(torch.bfloat16)
+        timer = graph_ms if decode else time_ms
+        wb = [w.to(torch.bfloat16) for w, _ in weights]
         ms = timer(lambda: w8a16_matmul(x, kq, scale, bias))
-        mm = timer(lambda: torch.matmul(x, wb))
+        mm = timer(lambda: torch.matmul(x, wb[0]))
         plain = time_ms(lambda: w8a16_plain(x, kq, scale, bias), iters=3, warmup=1)
         b_ms, by = bound(M * K * 2 + K * N + 8 * N + M * N * 2, 2 * M * K * N)
-        rec = {"M": M, "K": K, "N": N, "plan": list(plan(M, N, K, torch.cuda.get_device_properties(0).multi_processor_count)),
-               "max_abs_err": err, "tol": tol, "ms": ms, "timed": "graph" if M <= 32 else "events", "plain_ms": plain,
+        rec = {"M": M, "K": K, "N": N, "plan": list(launch_plan(M, N, K, x.device)),
+               "max_abs_err": err, "tol": tol, "ms": ms, "timed": "graph" if decode else "events", "plain_ms": plain,
                "matmul_ms": mm, "bound_ms": b_ms, "bound_by": by, "share_of_bound": b_ms / ms}
+        if decode:
+            rec["cold_ms"] = timer(rotating(w8a16_matmul, [(x, w, s, bias) for w, s in weights]))
+            rec["matmul_cold_ms"] = timer(rotating(torch.matmul, [(x, w) for w in wb]))
+            rec["cold_copies"] = copies
+            rec["cold_share_of_bound"] = b_ms / rec["cold_ms"]
         log(f"[w8a16] {json.dumps(rec)}")
         shapes.append(rec)
-        del x, kq, scale, bias, y, ref, wb
+        del x, weights, kq, scale, bias, y, ref, wb
         free()
     row = next(r for r in shapes if (r["M"], r["K"], r["N"]) == (CHUNK, 4096, 16384))
     worst = max(shapes, key=lambda r: r["max_abs_err"] / r["tol"])  # the error nearest its tolerance

@@ -1035,18 +1035,7 @@ def test_engine_graph_equals_eager(paged, quant):
         engine.shutdown()
 
 
-@pytest.mark.parametrize("bias", [True, False], ids=["bias", "no-bias"])
-@pytest.mark.parametrize("M", [1, 8, 13, 16, 33, 200])
-@pytest.mark.parametrize("K,N", [(64, 16), (200, 400), (1024, 4096), (4096, 1040)])
-def test_w8a16_kernel_matches_plain(M, K, N, bias):
-    """The W8A16 product against ``w8a16_plain`` at both tilings (M <= 32
-    with K split, M > 32), with masked edges in M, N (not a multiple of 128)
-    and K (not a multiple of 64), within 1e-2 of max |y| and never less than
-    three bf16 ulps of it (the kernel's f32 sums run in another order, a sum
-    near a bf16 boundary rounds either way, and QDense's scale and bias
-    round twice more, so an output may move by two ulps); a second call is
-    bit-equal."""
-    dev = _cuda()
+def _w8_check(M, K, N, bias, dev):
     from trlx_tpu_torch.ops.w8a16 import quantize_channels, w8a16_matmul, w8a16_plain
 
     g = torch.Generator(device=dev).manual_seed(M + K + N)
@@ -1063,6 +1052,83 @@ def test_w8a16_kernel_matches_plain(M, K, N, bias):
     err = (y.float() - ref.float()).abs().max().item()
     top = ref.float().abs().max().item()
     assert err <= max(1e-2 * top, 3 * 2.0 ** (math.floor(math.log2(top)) - 7)), err
+
+
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "no-bias"])
+@pytest.mark.parametrize("M", [1, 8, 13, 16, 33, 64, 65, 200, 255, 256, 1000])
+@pytest.mark.parametrize("K,N", [(64, 16), (200, 400), (1024, 4096), (4096, 1040), (256, 16384)])
+def test_w8a16_kernel_matches_plain(M, K, N, bias):
+    """The W8A16 product against ``w8a16_plain`` at the edges of its tilings
+    (x tiles of 8, 32, 64 and 128 rows, 128 or 64 weight columns; K split
+    over a cluster or not; the wide kernel from M = 65 at N = 4096), with
+    masked edges in M, N (not a multiple of 128) and K (not a multiple of
+    64), within 1e-2 of max |y| and never less than three bf16 ulps of it
+    (the kernel's f32 sums run in another order, a sum near a bf16 boundary
+    rounds either way, and QDense's scale and bias round twice more, so an
+    output may move by two ulps); a second call is bit-equal."""
+    _w8_check(M, K, N, bias, _cuda())
+
+
+@pytest.mark.parametrize("M,K,N", [(65, 200, 33808), (1000, 200, 8208), (1669, 4096, 8208)])
+def test_w8a16_wide_tiles_match_plain(M, K, N):
+    """The two-warpgroup tiling on its persistent grid (more tiles than SMs,
+    a partial last column tile, one or 14 row tiles) against the plain
+    version, as above."""
+    dev = _cuda()
+    from trlx_tpu_torch.ops.w8a16 import launch_plan
+
+    assert launch_plan(M, N, K, dev)[2] == 2
+    _w8_check(M, K, N, True, dev)
+
+
+def test_w8a16_cluster_counts_of_the_card():
+    """The clusters of s CTAs the card runs at once for every swap tiling,
+    which ``plan`` reads: on an H100 SXM (132 SMs) its GPCs hold 66 of 2 but
+    only 30 of 4 (the table the CPU tests' model of ``plan`` takes), and at
+    GPT-J-6B's 4096 x 4096 decode shape the launch is 64 narrow tiles split
+    2 ways."""
+    dev = _cuda()
+    from trlx_tpu_torch.ops.w8a16 import BX_SIZES, launch_plan, max_clusters, tile_cols
+
+    for bx in BX_SIZES:
+        got = max_clusters(dev, bx)
+        assert set(got) == {(c, s) for c in tile_cols(bx) for s in range(2, 9)}
+        assert all(n >= 1 for n in got.values()), got
+    if torch.cuda.get_device_properties(dev).multi_processor_count == 132:
+        h100 = {2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
+        assert max_clusters(dev, 8) == {(c, s): n for c in (64, 128) for s, n in h100.items()}
+        assert launch_plan(8, 4096, 4096, dev) == (8, 64, 1, 2, 64)
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 4096, 4096), (8, 16384, 4096), (8, 4096, 16384), (8, 4096, 50400),
+                                   (40, 4096, 4096), (13, 200, 400)])
+def test_w8a16_decode_graph_replay_bit_equal(M, K, N):
+    """A decode-shape product (one launch: a K-split cluster, or the
+    persistent grid) captured in a CUDA graph: two replays give the eager
+    call's bits."""
+    dev = _cuda()
+    from trlx_tpu_torch.ops.w8a16 import quantize_channels, w8a16_matmul
+
+    g = torch.Generator(device=dev).manual_seed(M + K + N)
+    x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+    kq, scale = quantize_channels(torch.randn((K, N), generator=g, device=dev) * K ** -0.5)
+    b = torch.randn((N,), generator=g, device=dev)
+    eager = w8a16_matmul(x, kq, scale, b)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        w8a16_matmul(x, kq, scale, b)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = w8a16_matmul.launches
+    with torch.cuda.graph(graph):
+        out = w8a16_matmul(x, kq, scale, b)
+    assert w8a16_matmul.launches == before + 1  # one launch a product
+    graph.replay()
+    first = out.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(first, eager) and torch.equal(out, eager)
 
 
 def _w8_graph_model(dev):

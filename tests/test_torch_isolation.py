@@ -68,7 +68,8 @@ def _imports(path):
 
 
 def test_ast_scan_finds_no_forbidden_import():
-    files = [os.path.join(ROOT, n) for n in ("chip_smoke.py", "profile_torch_decode.py", "probe_f32_head.py")]
+    files = [os.path.join(ROOT, n) for n in ("chip_smoke.py", "profile_torch_decode.py", "probe_f32_head.py",
+                                             "probe_w8a16.py")]
     for dirpath, _, names in os.walk(PKG):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     assert len(files) > 20

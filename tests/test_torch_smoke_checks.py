@@ -100,12 +100,15 @@ def _raw(device_type, name, corr):
     return SimpleNamespace(device_type=lambda: device_type, name=lambda: name, correlation_id=lambda: corr)
 
 
-@pytest.mark.parametrize("case", ["complete", "kernel_records_lost", "graph_replay_short"])
+@pytest.mark.parametrize("case", ["complete", "kernel_records_lost", "graph_replay_short", "replay_runs_another"])
 def test_lost_device_records(case):
     """A trace proves records lost from its own host records: a kernel
     launch with no device record of its correlation id, and a graph launch
     with fewer device records than the fullest launch of the trace; memset
-    and memcpy calls and device records of other launches prove nothing."""
+    and memcpy calls and device records of other launches prove nothing.
+    The port's kernels in each complete graph launch are counted by kernel:
+    one count where every whole replay ran the same, two where one whole
+    replay ran another kernel in place of one of them."""
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
     raw = [_raw(cpu, "cudaMemsetAsync", 1), _raw(cuda, "Memset (Device)", 1)]
     for corr in range(10, 20):
@@ -115,9 +118,16 @@ def test_lost_device_records(case):
     for corr in range(30, 34):
         raw.append(_raw(cpu, "cudaGraphLaunch", corr))
         n = 8 - 3 * (case == "graph_replay_short" and corr == 32)
-        raw.extend(_raw(cuda, "decode_merge_kernel", corr) for _ in range(n))
+        other = int(case == "replay_runs_another" and corr == 31)
+        raw.extend(_raw(cuda, "decode_merge_kernel", corr) for _ in range(n - other))
+        raw.extend(_raw(cuda, "void (anonymous namespace)::w8a16_swap_kernel<8, 2, 64>(CUtensorMap_st)", corr)
+                   for _ in range(other))
     got = chip_smoke.lost_device_records(raw)
-    assert got["lost"] == {"complete": 0, "kernel_records_lost": 3, "graph_replay_short": 3}[case]
+    assert got["complete_graph_launches"] == (3 if case == "graph_replay_short" else 4)
+    assert got["kernels_per_complete_graph_launch"] == (
+        {"decode_merge_kernel": [7, 8], "w8a16_": [0, 1]} if case == "replay_runs_another"
+        else {"decode_merge_kernel": [8]})
+    assert got["lost"] == {"complete": 0, "kernel_records_lost": 3, "graph_replay_short": 3, "replay_runs_another": 0}[case]
     assert (got["kernel_launch_records"], got["graph_launch_records"]) == (10, 4)
     assert got["device_records_per_graph_launch"] == [5 if case == "graph_replay_short" else 8, 8]
 

@@ -18,9 +18,12 @@ the ``qw`` collection (twins of ``tests/test_weight_quant.py``).
   quantization bias bounded, and the learning gate (marked slow, like its
   JAX twin).
 - A model of the W8 kernel's tile walk (``csrc/w8a16_gemm.cu``): the tile
-  sizes read from the source, the K splits of ``ops.w8a16.plan``, the
-  interleaved column map of the four m16n8 tiles and the masked edges, at
-  N = 50400 and M not a multiple of 16, against ``w8a16_plain``.
+  sizes, tilings, A-fragment load table and epilogue column order read from
+  the source; the persistent grid (grouped row tiles) and the K-split
+  cluster launch of ``ops.w8a16.plan``, split partials summed in rank order,
+  the masked edges at N = 50400, K = 200 and M not a multiple of the tile,
+  against ``w8a16_plain``; and ``plan``'s even share of weight bytes per SM
+  at GPT-J-6B's decode shapes.
 """
 
 import dataclasses
@@ -277,91 +280,383 @@ def test_w8_decode_learning_gate(tmp_path):
 
 # ------------------------------------------------------ the kernel's tile walk
 
+GPTJ_DECODE_KN = ((4096, 4096), (4096, 16384), (16384, 4096), (4096, 50400))
+# Clusters of s CTAs that an H100 SXM (132 SMs) runs at once for every swap
+# tiling, as the card's cudaOccupancyMaxActiveClusters reports them
+# (``w8a16_max_clusters``; the ``[clusters]`` line of ``probe_w8a16.py``):
+# its GPCs hold whole clusters, so 30 of 4, not 132 // 4 = 33.
+H100_SMS = 132
+H100_CLUSTERS = {(c, s): n for c in (64, 128) for s, n in {2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}.items()}
+# (M, K, N): ragged decode and small-M shapes at N = 4096 and at
+# N = 50400 (a partial last column tile of 96), K = 200 (a partial last chunk),
+# and a walk of 14 row tiles (a full group of GROUP_ROWS and a partial one)
+# on the wide kernel's persistent grid, with 154 tiles for 132 CTAs; then
+# K = 4096 at M = 8 and 40 (narrow tiles split 2 ways; 128-column tiles on a
+# persistent grid at N = 50400).
+WALK_CASES = ([(m, 200, n) for m in (13, 40, 200) for n in (4096, 50400)] + [(3333, 200, 1296)]
+              + [(8, 4096, 4096), (40, 4096, 1040)])
+
 
 def _source_constants():
+    """The tile constants, the launched tilings (bx, cols, wgs, kwg: x rows
+    a tile, weight columns a tile, column warpgroups (2: the wide kernel), K
+    lanes), the A-fragment load table and the epilogue's column order (for
+    column c0 + c of a pair, the A tile and accumulator offset), read from
+    the source."""
     src = open(os.path.join(CSRC, "w8a16_gemm.cu")).read()
     const = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
-    tilings = [tuple(int(a) for a in m) for m in re.findall(r"launch<(\d+), (\d+)>\(p, s\)", src)]
-    return const, tilings
+    for k, v in re.findall(r"constexpr int ((?:WIDE_)?\w+) = (\d+), ", src):  # WIDE_BX = 256, WIDE_STAGES = 5
+        const[k] = int(v)
+    const.update({k: int(v) for k, v in re.findall(r", (WIDE_\w+) = (\d+)", src)})
+    tilings = {(int(bx), const[cols], 1, int(kwg)) for bx, kwg, cols in
+               re.findall(r"launch_swap<(\d+), (\d+), (WG_COLS|NARROW_COLS)>\(tx, tw, p, grid, s\)", src)}
+    if "if (wgs == 2) return launch_wide(tx, tw, p, grid, s);" in src:
+        tilings.add((const["WIDE_BX"], const["WG_COLS"], 2, 1))
+    # a[u][i] = i8_pair_bf16<byte>(w[lo], w[hi]): register i of A tile u
+    # holds byte `byte` of the words w[lo] (low half) and w[hi]; tile 1 only
+    # where a warpgroup has two (NA == 2).
+    load = {(int(u), int(i)): (int(b), int(lo), int(hi)) for u, i, b, lo, hi in
+            re.findall(r"a\[(\d)\]\[(\d)\] = i8_pair_bf16<(\d)>\(w\[(\d)\], w\[(\d)\]\);", src)}
+    assert src.index("if constexpr (NA == 2) {") < src.index("a[1][0] = i8_pair_bf16")
+    assert "const int r = 16 * kk + 2 * t + (i & 1) + 8 * (i >> 1);" in src  # word i's K row
+    # the swizzles: 128-byte rows, chunk ^ (r % 8); 64-byte rows, chunk ^ (r / 2 % 4)
+    assert "const int sw = PITCH == 128 ? r : r >> 1;" in src
+    assert "box + r * PITCH + ((((c0 >> 4) ^ sw) & (PITCH / 16 - 1)) << 4) + (c0 & 15)" in src
+    assert "const int c0 = WC / 4 * ((threadIdx.x / 32) & 3) + 2 * NA * g;" in src
+    assert "load_a<C::NA, WC>(box, kk, c0, t, a[kk]);" in src  # a swap tile's rows are WC bytes
+    # The 2 NA columns c0 .. of x row 8 j + 2 t + q take, pair element e of A
+    # tile u, acc[u][4 j + off_e + q] (row_sums), and K lane 1's sums come
+    # back into them in the same order.
+    sums = re.findall(r"v\[2 \* u( \+ 1)?\] = acc\[u\]\[4 \* j \+ (?:(\d) \+ )?q\];", src)
+    offs = {int(e == " + 1"): int(off or 0) for e, off in sums}
+    assert len(sums) == 2 and set(offs) == {0, 1}, sums
+    back = {int(e == " + 1"): int(off or 0) for off, e in
+            re.findall(r"acc\[u\]\[4 \* j \+ (?:(\d) \+ )?q\] \+= v\[2 \* u( \+ 1)?\];", src)}
+    assert back == offs
+    assert src.count("row_sums(acc, j, q, v);") == 3  # K lane 1's store, the epilogue, the split partial
+    assert "const int n = ct * WC + c0;" in src
+    # The wide kernel: warpgroup wg's one A tile (load_a<1, WG_COLS>: tile 0's
+    # table), fragment rows g and g + 8 of warp w are columns c0 and c0 + 1;
+    # x row 8 j + 2 t + q takes acc[4 j + q], acc[4 j + 2 + q].
+    assert "const int n = ct * WG_COLS + c0;" in src
+    assert "const int c0 = 64 * wg + 16 * ((threadIdx.x / 32) & 3) + 2 * g;" in src
+    assert "load_a<1, WG_COLS>(box, kk, c0, t, a[kk]);" in src
+    assert "const float v[2] = {acc[4 * j + q], acc[4 * j + 2 + q]};" in src
+    return const, tilings, load, offs
 
 
-def _kernel_walk(x, kq, scale, bias, bm, warps_m, splits, per, const):
-    """The kernel's arithmetic in its own order of tiles: grid (n tiles, m
-    tiles, splits), each CTA over its BK chunks, four warps along N of 32
-    columns, each warp's four m16n8 tiles interleaved (tile u, fragment
-    column j is physical column 4j + u), zero-filled loads past M, N and K,
-    partials summed in split order, then the epilogue; stores past M and N
-    dropped. Returns y and the count of stores to each output."""
-    BN, BK = const["BN"], const["BK"]
+def _store(offs, na):
+    """(A tile, accumulator offset) of column c0 + c, c < 2 na."""
+    return [(c // 2, offs[c % 2]) for c in range(2 * na)]
+
+
+def _column_map(load, na):
+    """col[u][r]: the column of a swap tile (of 64 na columns) that row r of
+    A tile u holds, from the load table and wgmma's A-fragment layout
+    (register i of lane 4 g + t of warp w: row 16 w + g + 8 (i & 1), K 2 t +
+    8 (i >> 1) and + 1; a thread's first column 16 na w + 2 na g), checking
+    that the K rows the loads read are the fragment's K."""
+    col = -np.ones((na, 64), np.int64)
+    for (u, i), (byte, lo, hi) in load.items():
+        if u >= na:
+            continue
+        # word l of the load is K row 2 t + (l & 1) + 8 (l >> 1)
+        assert (lo & 1, lo >> 1) == (0, i >> 1) and hi == lo + 1, (u, i, lo, hi)
+        assert byte < 2 * na  # a load holds 2 na columns
+        for w in range(4):
+            for g in range(8):
+                r, c = 16 * w + g + 8 * (i & 1), 16 * na * w + 2 * na * g + byte
+                assert col[u, r] in (-1, c), (u, r, col[u, r], c)
+                col[u, r] = c
+    return col
+
+
+def _tile_at(tile, row_tiles, col_tiles, group):
+    per_group = group * col_tiles
+    grp, r = divmod(tile, per_group)
+    rows = min(group, row_tiles - grp * group)
+    return grp * group + r % rows, r // rows
+
+
+def _kernel_walk(x, kq, scale, bias, plan, const, tilings, load, offs):
+    """The kernel's arithmetic in its own walk: the CTAs of the grid (x
+    splits) over their tiles and K chunks, chunk i of a CTA's range taken by
+    K lane i % kwg, each consumer warpgroup's A tiles built from the load
+    table, each thread's accumulators read through wgmma's layout and
+    stored through the epilogue's column order; the K lanes' sums added in
+    lane order, split partials summed by the rank that owns their quads in
+    rank order. Returns y, the stores to each output, the (tile, chunk)
+    coverage and the order of each output's parts, as (rank, lane)."""
+    bx, cols, wgs, splits, grid = plan
+    kwg = {t[:3]: t[3] for t in tilings}[bx, cols, wgs]
+    if wgs == 2:
+        return _wide_walk(x, kq, scale, bias, plan, const)
+    BK, na = const["BK"], cols // 64
     M, K = x.shape
     N = kq.shape[1]
     kchunks = -(-K // BK)
-    mt = bm // warps_m // 16
-    part = torch.zeros((splits, M, N), dtype=torch.float64)
-    written = torch.zeros((M, N), dtype=torch.int64)
-    xf, wf = x.double(), kq.double()
-    for z in range(splits):
-        k0, k1 = z * per * BK, min(kchunks, (z + 1) * per) * BK
-        for nt in range(-(-N // BN)):
-            for mtile in range(-(-M // bm)):
-                for warp in range(warps_m * 4):
-                    wn, wm = warp % 4, warp // 4
-                    for i in range(mt):
-                        for h in range(2):
-                            for g in range(8):
-                                m = mtile * bm + wm * mt * 16 + i * 16 + g + 8 * h
-                                if m >= M:
-                                    continue
-                                for t in range(4):
-                                    for j in range(2):
-                                        for u in range(4):
-                                            n = nt * BN + wn * 32 + 4 * (2 * t + j) + u
-                                            if n >= N:
-                                                continue
-                                            kk = slice(k0, min(k1, K))
-                                            part[z, m, n] = (xf[m, kk] * wf[kk, n]).sum()
-                                            written[m, n] += 1
-    acc = part.sum(0).float()
+    row_tiles, col_tiles = -(-M // bx), -(-N // cols)
+    tiles = row_tiles * col_tiles
+    xp = np.zeros((row_tiles * bx, kchunks * BK))  # TMA's zero fill past M and K
+    xp[:M, :K] = x.double().numpy()
+    wp = np.zeros((kchunks * BK, col_tiles * cols))  # and past N
+    wp[:K, :N] = kq.double().numpy()
+    col = _column_map(load, na)
+    store = _store(offs, na)
+    W, G, T = (a.reshape(-1) for a in np.meshgrid(np.arange(4), np.arange(8), np.arange(4), indexing="ij"))
+    J, Q, C = np.arange(bx // 8), np.arange(2), np.arange(2 * na)
+    # [thread, j, q, c]: x row, accumulator row of A tile u, output column
+    xrow = 8 * J[None, :, None, None] + 2 * T[:, None, None, None] + Q[None, None, :, None]
+    u = np.array([store[c][0] for c in C])[None, None, None, :]
+    arow = 16 * W[:, None, None, None] + G[:, None, None, None] + 8 * (np.array([store[c][1] for c in C]) // 2)
+    ocol = (16 * na * W + 2 * na * G)[:, None, None, None] + C[None, None, None, :]
+    xrow, u, arow, ocol = np.broadcast_arrays(xrow, u, arow, ocol)
+    acc = np.zeros((M, N))
+    stores = np.zeros((M, N), np.int64)
+    covered = np.zeros((row_tiles, col_tiles, kchunks), np.int64)
+    partials, order = {}, {}
+    for cta in range(grid):
+        for rank in range(splits):
+            kc0, kc1 = rank * kchunks // splits, (rank + 1) * kchunks // splits
+            for tile in range(cta, tiles, grid):
+                rt, ct = _tile_at(tile, row_tiles, col_tiles, const["GROUP_ROWS"])
+                covered[rt, ct, kc0:kc1] += 1
+                xt = xp[rt * bx:(rt + 1) * bx]
+                n0 = ct * cols
+                out = np.zeros((bx, cols))
+                for lane in range(kwg):
+                    ks = np.concatenate([np.arange(kc * BK, (kc + 1) * BK) for kc in range(kc0 + lane, kc1, kwg)]
+                                        + [np.zeros(0, np.int64)])
+                    # D_u[r, n] = sum_k A_u[r, k] B[k, n]: A_u row r = weight column col[u, r], B = x^T
+                    wk, xk = wp[ks, n0:n0 + cols], xt[:, ks]
+                    d = np.stack([wk[:, col[uu]].T @ xk.T for uu in range(na)])
+                    out[xrow, ocol] += d[u, arow, xrow]  # lane 0's sums, then lane 1's
+                if splits == 1:
+                    m, n = rt * bx + xrow, n0 + ocol
+                    ok = (m < M) & (n < N)
+                    acc[m[ok], n[ok]] = out[xrow[ok], ocol[ok]]
+                    np.add.at(stores, (m[ok], n[ok]), 1)
+                    order[tile, rank] = [(rank, lane) for lane in range(kwg)]
+                else:
+                    partials[tile, rank] = out
+    if splits > 1:
+        quads = bx * cols // 4
+        for tile in range(tiles):
+            rt, ct = _tile_at(tile, row_tiles, col_tiles, const["GROUP_ROWS"])
+            for rank in range(splits):  # the owner of quads [rank U / S, (rank + 1) U / S)
+                qd = np.arange(rank * quads // splits, (rank + 1) * quads // splits)
+                row, cq = np.repeat(qd // (cols // 4), 4), (qd % (cols // 4))[:, None] * 4 + np.arange(4)[None, :]
+                cq = cq.reshape(-1)
+                total = partials[tile, 0][row, cq].copy()
+                adds = [(0, lane) for lane in range(kwg)]
+                for r in range(1, splits):
+                    total += partials[tile, r][row, cq]
+                    adds += [(r, lane) for lane in range(kwg)]
+                m, n = rt * bx + row, ct * cols + cq
+                ok = (m < M) & (n < N)
+                acc[m[ok], n[ok]] = total[ok]
+                np.add.at(stores, (m[ok], n[ok]), 1)
+                order[tile, rank] = adds
     dt = x.dtype
-    y = acc.to(dt) * scale.to(dt)
+    y = torch.from_numpy(acc).to(dt) * scale.to(dt)
     if bias is not None:
         y = y + bias.to(dt)
-    return y, written
+    return y, stores, covered, order
+
+
+def _wide_walk(x, kq, scale, bias, plan, const):
+    """The wide kernel's walk: CTAs over their tiles of WIDE_BX x rows x 128
+    columns and every K chunk; warpgroup wg's A tile row 16 w + g + 8 h is
+    column 64 wg + 16 w + 2 g + h, its accumulator 4 j + 2 h + e (x row 8 j +
+    2 t + e) stored to that column."""
+    bx, cols, wgs, splits, grid = plan
+    BK, WG = const["BK"], const["WG_COLS"]
+    assert cols == WG
+    M, K = x.shape
+    N = kq.shape[1]
+    kchunks = -(-K // BK)
+    row_tiles, col_tiles = -(-M // bx), -(-N // WG)
+    xp = np.zeros((row_tiles * bx, kchunks * BK))
+    xp[:M, :K] = x.double().numpy()
+    wp = np.zeros((kchunks * BK, col_tiles * WG))
+    wp[:K, :N] = kq.double().numpy()
+    CW, W, G, T, H, J, Q = np.meshgrid(np.arange(2), np.arange(4), np.arange(8), np.arange(4), np.arange(2),
+                                       np.arange(bx // 8), np.arange(2), indexing="ij")
+    arow = 64 * CW + 16 * W + G + 8 * H  # the tile's A row (both warpgroups' tiles stacked)
+    col = 64 * CW + 16 * W + 2 * G + H  # its column
+    xrow = 8 * J + 2 * T + Q
+    cw, w, g, h = (v.reshape(-1) for v in np.meshgrid(np.arange(2), np.arange(4), np.arange(8), np.arange(2),
+                                                      indexing="ij"))
+    arow_u, col_u = 64 * cw + 16 * w + g + 8 * h, 64 * cw + 16 * w + 2 * g + h
+    assert sorted(arow_u) == list(range(128)) and sorted(col_u) == list(range(128))
+    acc = np.zeros((M, N))
+    stores = np.zeros((M, N), np.int64)
+    covered = np.zeros((row_tiles, col_tiles, kchunks), np.int64)
+    order = {}
+    for cta in range(grid):
+        for tile in range(cta, row_tiles * col_tiles, grid):
+            rt, ct = _tile_at(tile, row_tiles, col_tiles, const["GROUP_ROWS"])
+            covered[rt, ct, :] += 1
+            a = np.zeros((128, kchunks * BK))
+            a[arow_u] = wp[:, ct * WG + col_u].T  # A row r holds its column's weights
+            d = a @ xp[rt * bx:(rt + 1) * bx].T  # D[A row, x row]
+            m, n = rt * bx + xrow, ct * WG + col
+            ok = (m < M) & (n < N)
+            acc[m[ok], n[ok]] = d[arow[ok], xrow[ok]]
+            np.add.at(stores, (m[ok], n[ok]), 1)
+            order[tile, 0] = [(0, 0)]
+    dt = x.dtype
+    y = torch.from_numpy(acc).to(dt) * scale.to(dt)
+    if bias is not None:
+        y = y + bias.to(dt)
+    return y, stores, covered, order
+
+
+def _walk_inputs(M, K, N, seed):
+    # x in eighths: every product and every partial sum is exact in f32, so
+    # the walk's result equals the plain version's whatever the sum's order.
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((rng.integers(-64, 65, size=(M, K)) / 8).astype(np.float32))
+    kq = torch.from_numpy(rng.integers(-127, 128, size=(K, N)).astype(np.int8))
+    scale = torch.from_numpy(rng.uniform(1e-3, 1e-2, size=(N,)).astype(np.float32))
+    bias = torch.from_numpy(rng.normal(size=(N,)).astype(np.float32))
+    return x, kq, scale, bias
+
+
+def _check_walk(M, K, N, seed):
+    const, tilings, load, offs = _source_constants()
+    plan = w8a16.plan(M, N, K, H100_SMS, H100_CLUSTERS)
+    assert plan[:3] in {t[:3] for t in tilings}, (plan, tilings)
+    x, kq, scale, bias = _walk_inputs(M, K, N, seed)
+    y, stores, covered, order = _kernel_walk(x, kq, scale, bias, plan, const, tilings, load, offs)
+    kwg = {t[:3]: t[3] for t in tilings}[plan[:3]]
+    assert (covered == 1).all()  # every (output tile, K chunk) once
+    assert (stores == 1).all()  # every output stored once, by one CTA
+    # parts added K lane by K lane, split by split, in rank order
+    want = [(r, lane) for r in range(plan[3]) for lane in range(kwg)]
+    assert all(adds == (want if plan[3] > 1 else want[:kwg]) for adds in order.values())
+    np.testing.assert_array_equal(y.numpy(), w8a16_plain(x, kq, scale, bias).numpy())
+    return plan
 
 
 def test_w8a16_kernel_tile_walk_matches_plain():
-    """Both tilings of the source at M = 13 (decode; K split at N = 4096)
-    and M = 40 (BM = 128), N = 50400 (a partial last column tile of 96) and
-    K = 200 (a partial last BK chunk): every output stored once a split,
-    and the walk's result equals ``w8a16_plain``. Each case walks the last
-    full column tile and the one after it, with the launch's plan at the
-    full N."""
-    const, tilings = _source_constants()
-    assert (const["BN"], const["BK"]) == (w8a16.BN, w8a16.BK)
-    assert {bm for bm, _ in tilings} == {w8a16.BM_DECODE, w8a16.BM_LARGE}
-    warps = dict(tilings)
-    rng = np.random.default_rng(2)
-    for M, N in ((13, 50400), (13, 4096), (40, 50400)):
-        K = 200
-        bm, splits, per = w8a16.plan(M, N, K, sms=132)
-        assert bm == (w8a16.BM_DECODE if M <= w8a16.DECODE_MAX_M else w8a16.BM_LARGE)
-        assert (splits - 1) * per < -(-K // const["BK"]) <= splits * per
-        lo = (N // const["BN"]) * const["BN"] - const["BN"]  # the last full tile and the partial one
-        x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32))
-        kq = torch.from_numpy(rng.integers(-127, 128, size=(K, N - lo)).astype(np.int8))
-        scale = torch.from_numpy(rng.uniform(1e-3, 1e-2, size=(N - lo,)).astype(np.float32))
-        bias = torch.from_numpy(rng.normal(size=(N - lo,)).astype(np.float32))
-        y, written = _kernel_walk(x, kq, scale, bias, bm, warps[bm], splits, per, const)
-        assert (written == splits).all()  # one store a split (a partial when K is split)
-        np.testing.assert_allclose(y.numpy(), w8a16_plain(x, kq, scale, bias).numpy(), rtol=1e-5, atol=1e-5)
+    """The tile constants and tilings of the source match ``ops.w8a16``;
+    at M = 13, 40 and 200, N = 4096 and 50400 (a partial last column tile)
+    and K = 200 (a partial last chunk), the walk of the launch ``plan``
+    chooses on an H100 covers every (output tile, K chunk) once, stores every
+    output once, sums split partials in rank order, and equals
+    ``w8a16_plain``. Narrow and 128-column tiles, the K-split cluster launch
+    and the persistent grid are all walked."""
+    const, tilings, _, _ = _source_constants()
+    assert (const["BK"], const["WG_COLS"], const["NARROW_COLS"], const["MAX_SPLITS"]) == (
+        w8a16.BK, w8a16.WG_COLS, w8a16.NARROW_COLS, w8a16.SPLITS[-1])
+    swap = {t[:2] for t in tilings if t[2] == 1}
+    assert swap == {(bx, c) for bx in w8a16.BX_SIZES for c in w8a16.tile_cols(bx)}, swap
+    assert (w8a16.WIDE_BX, w8a16.WG_COLS, 2, 1) in tilings
+    assert all(kwg == (2 if bx <= 64 else 1) for bx, _, _, kwg in tilings)  # K lanes where M <= 64
+    assert const["WIDE_BX"] == w8a16.WIDE_BX
+    plans = [_check_walk(M, K, N, seed=2) for M, K, N in WALK_CASES[:6]]
+    assert any(p[3] > 1 for p in plans) and any(p[3] == 1 and p[4] < -(-50400 // 128) for p in plans)
+    assert {p[1] for p in plans} == {64, 128}
+
+
+@pytest.mark.parametrize("M,K,N", WALK_CASES, ids=[f"M{m}-K{k}-N{n}" for m, k, n in WALK_CASES])
+def test_w8a16_walk_case_matches_plain(M, K, N):
+    """One case of the walk above on its own (the seventh is the wide
+    kernel's grouped persistent walk over 14 row tiles)."""
+    plan = _check_walk(M, K, N, seed=M + N)
+    if M > 1000:
+        assert plan == (w8a16.WIDE_BX, w8a16.WG_COLS, 2, 1, H100_SMS)
+
+
+@pytest.mark.parametrize("na,pitch", [(2, 128), (1, 64), (1, 128)], ids=["swap128", "swap64", "wide"])
+def test_w8a16_fragment_maps_from_source(na, pitch):
+    """The load table of the source gives every row of a warpgroup's A
+    tiles a column, each of its 64 na columns once; a thread's 2 na columns
+    are neighbours (one load a K row); each load of a warp (fixed kk and
+    word) hits distinct banks (or one word for two lanes) of the swizzled
+    int8 box, of 128-byte rows (a 128-column tile, and the wide kernel's
+    warpgroups at columns 64 wg ..) or 64-byte rows (a narrow tile); and the
+    epilogue's column order reads, for column c0 + c, the accumulator whose
+    A-tile row holds that column."""
+    _, _, load, offs = _source_constants()
+    assert len(load) == 8
+    col = _column_map(load, na)
+    store = _store(offs, na)
+    assert sorted(col.reshape(-1).tolist()) == list(range(64 * na))
+    for w in range(4):
+        for g in range(8):
+            c0 = 16 * na * w + 2 * na * g
+            held = {int(col[u, 16 * w + g + 8 * h]) for u in range(na) for h in range(2)}
+            assert held == set(range(c0, c0 + 2 * na))
+            for c, (u, off) in enumerate(store):
+                assert col[u, 16 * w + g + 8 * (off // 2)] == c0 + c
+    for base in ((0, 64) if pitch == 128 and na == 1 else (0,)):  # the wide kernel's two warpgroups
+        for w in range(4):
+            for kk in range(4):
+                for i in range(4):
+                    words = set()
+                    for g in range(8):
+                        for t in range(4):
+                            r, c0 = 16 * kk + 2 * t + (i & 1) + 8 * (i >> 1), base + 16 * na * w + 2 * na * g
+                            sw = r if pitch == 128 else r >> 1
+                            words.add((r * pitch + ((((c0 >> 4) ^ sw) & (pitch // 16 - 1)) << 4) + (c0 & 15)) // 4)
+                    assert len({wd % 32 for wd in words}) == len(words) == 32 * na // 2, (w, kk, i, words)
+
+
+def _sm_bytes(M, K, N, sms, clusters):
+    """(the most weight bytes an SM streams, the even share) under ``plan``:
+    CTA (tile walk, split) reads its tiles' columns over its K chunks, and
+    the CTAs spread over the SMs so that none holds more than ceil(ctas /
+    sms) of them (the most loaded take the largest)."""
+    bx, cols, wgs, splits, grid = w8a16.plan(M, N, K, sms, clusters)
+    kchunks = -(-K // w8a16.BK)
+    tiles = -(-M // bx) * -(-N // cols)
+    per_cta = []
+    for cta in range(grid):
+        for rank in range(splits):
+            k0, k1 = rank * kchunks // splits * w8a16.BK, min(K, (rank + 1) * kchunks // splits * w8a16.BK)
+            per_cta.append(sum(max(0, k1 - k0) * min(cols, N - (t % -(-N // cols)) * cols)
+                               for t in range(cta, tiles, grid)))
+    per_cta.sort(reverse=True)
+    return sum(per_cta[:-(-len(per_cta) // sms)]), K * N / sms
+
+
+@pytest.mark.parametrize("K,N", GPTJ_DECODE_KN, ids=[f"{k}x{n}" for k, n in GPTJ_DECODE_KN])
+def test_w8a16_plan_even_weight_bytes_per_sm(K, N):
+    """At GPT-J-6B's decode shapes (M = 8) on an H100 (132 SMs and the
+    clusters its GPCs hold) ``plan`` gives the busiest SM at most 5% more
+    weight bytes than an even share (the parent's fixed two CTAs an SM gave
+    one SM 25% more at 4096 x 4096; 128-column tiles alone, 40%), in one
+    launch whose clusters all run at once."""
+    most, even = _sm_bytes(8, K, N, H100_SMS, H100_CLUSTERS)
+    bx, cols, wgs, splits, grid = w8a16.plan(8, N, K, H100_SMS, H100_CLUSTERS)
+    assert (bx, wgs) == (w8a16.BX_SIZES[0], 1) and splits in w8a16.SPLITS
+    assert splits == 1 or grid <= H100_CLUSTERS[cols, splits]
+    assert most <= 1.05 * even, (most, even)
 
 
 def test_w8a16_plan_splits_small_m_to_fill_the_card():
-    """Decode shapes of GPT-J-6B get at least two CTAs a SM where K allows;
-    prefill shapes are not split."""
-    sms = 132
-    for K, N in ((4096, 4096), (4096, 16384), (16384, 4096), (4096, 50400)):
-        bm, splits, per = w8a16.plan(8, N, K, sms)
-        ctas = -(-N // w8a16.BN) * splits
-        assert bm == w8a16.BM_DECODE and ctas >= 2 * sms and splits * per >= K // w8a16.BK
-    assert w8a16.plan(6144, 16384, 4096, sms)[1:] == (1, 4096 // w8a16.BK)
+    """On an H100, decode shapes of GPT-J-6B whose 128-column tiles leave SMs
+    idle (4096 x 4096 and 16384 x 4096: 32 tiles, and only 30 clusters of 4
+    fit) take 64 narrow tiles split 2 ways, 128 CTAs; those whose tiles fill
+    the card (4096 x 16384: 128 tiles; lm_head: 394 tiles on a persistent
+    grid of 132) are not split; prefill shapes are not split and run two
+    warpgroups on a persistent grid of one CTA an SM."""
+    sms, card = H100_SMS, H100_CLUSTERS
+    assert w8a16.plan(8, 4096, 4096, sms, card) == (8, 64, 1, 2, 64)
+    assert w8a16.plan(8, 4096, 16384, sms, card) == (8, 64, 1, 2, 64)
+    assert w8a16.plan(8, 16384, 4096, sms, card) == (8, 128, 1, 1, 128)
+    assert w8a16.plan(8, 50400, 4096, sms, card) == (8, 128, 1, 1, sms)
+    for N, K in ((16384, 4096), (4096, 4096), (4096, 16384)):
+        assert w8a16.plan(6144, N, K, sms, card) == (w8a16.WIDE_BX, w8a16.WG_COLS, 2, 1, sms)
+
+
+def test_w8a16_plan_follows_the_cards_clusters():
+    """``plan`` reads the card's cluster counts: where every cluster of 4 of
+    the 32 tiles at 4096 x 4096 would fit at once (33 of 4 on 132 SMs), the
+    128-column tiles split 4 ways stream the same bytes an SM as narrow tiles
+    split 2 ways, and the wider tile wins the tie."""
+    fits_all = {(c, s): H100_SMS // s for c in (64, 128) for s in range(2, 9)}
+    assert w8a16.plan(8, 4096, 4096, H100_SMS, fits_all) == (8, 128, 1, 4, 32)
+    assert w8a16.plan(8, 4096, 4096, H100_SMS, H100_CLUSTERS) == (8, 64, 1, 2, 64)

@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks shared by the flash-attention and
-// fused-logprob kernels: mbarriers, TMA tile loads (4-D maps over [b, T, h,
-// d] views, 2-D maps over matrices), named barriers, wgmma shared-memory
+// Hopper (sm_90a) building blocks shared by the flash-attention, fused-logprob
+// and W8A16 kernels: mbarriers, TMA tile loads (4-D maps over [b, T, h, d]
+// views, 2-D maps over matrices), named barriers, thread-block cluster
+// barriers and distributed shared-memory reads, wgmma shared-memory
 // descriptors and the wgmma products in the operand forms the kernels use
 // (bf16, and TF32 for the fused head's f32 mode), and the host-side
 // tensor-map encoders.
@@ -90,6 +91,26 @@ __device__ __forceinline__ void named_arrive(int id, int threads) {
 
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---- thread-block clusters ---------------------------------------------------
+// Every thread of every CTA of the cluster arrives (release) and waits
+// (acquire): shared-memory writes before it are visible cluster-wide after.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Four f32 at shared address `addr` of the cluster's CTA `rank`.
+__device__ __forceinline__ float4 dsmem_ld4(uint32_t addr, int rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(remote)
+               : "memory");
+  return v;
 }
 
 // ---- wgmma -------------------------------------------------------------------
@@ -221,6 +242,61 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t d
   "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" \
   "}"
 
+// d[64 x N] += A[64 x 16] . B[16 x N] for N = 8, 32, 64, 128 or 256 (N / 2
+// accumulator registers a thread), A from registers (bf16 pairs in the
+// mma.sync A-fragment layout), B K-major in shared memory.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_kb(float* d, const uint32_t* a, uint64_t db) {
+  static_assert(N == 8 || N == 32 || N == 64 || N == 128 || N == 256, "wgmma_rs_kb: N is 8, 32, 64, 128 or 256");
+  if constexpr (N == 8) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n"
+        "}\n"
+        : TRLX_F4(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " TRLX_REGS16 ", {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
+        "}\n"
+        : TRLX_ACC16
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else if constexpr (N == 64) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " TRLX_REGS32 ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+        "}\n"
+        : TRLX_ACC32
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else if constexpr (N == 128) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " TRLX_REGS64 ", {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+        "}\n"
+        : TRLX_ACC64
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " TRLX_REGS128
+        ", {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n"
+        "}\n"
+        : TRLX_ACC128
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+}
+
 // d[64 x 128] (+)= A[64 x 8] . B[8 x 128] in TF32, A from registers (the
 // warp's 16 rows: a[0] row g, column t; a[1] row g + 8, column t; a[2] row
 // g, column t + 4; a[3] row g + 8, column t + 4, for lane = 4 g + t), B
@@ -278,23 +354,26 @@ inline bool make_map(CUtensorMap* map, const void* base, int d, int T, int h, in
 }
 
 // A 2-D map over a row-major matrix [outer, inner] of ELEM_BYTES-wide
-// elements (2: bf16, 4: f32) with a row stride of `ld` elements (a 16-byte
-// multiple); boxes of 128 bytes of columns (64 bf16 or 32 f32: the 128-byte
-// swizzle's span) by `rows` rows, 128-byte swizzle, zero fill past `inner`
-// and `outer`.
-template <int ELEM_BYTES = 2>
+// elements (1: int8, 2: bf16, 4: f32) with a row stride of `ld` elements (a
+// 16-byte multiple); boxes of BOX_BYTES bytes of columns (128: 128 int8, 64
+// bf16 or 32 f32, the 128-byte swizzle's span; 64: the 64-byte swizzle's) by
+// `rows` rows, swizzled at that span, zero fill past `inner` and `outer`.
+template <int ELEM_BYTES = 2, int BOX_BYTES = 128>
 inline bool make_map_2d(CUtensorMap* map, const void* base, int inner, int outer, long long ld, int rows) {
-  static_assert(ELEM_BYTES == 2 || ELEM_BYTES == 4, "make_map_2d: bf16 or f32");
+  static_assert(ELEM_BYTES == 1 || ELEM_BYTES == 2 || ELEM_BYTES == 4, "make_map_2d: int8, bf16 or f32");
+  static_assert(BOX_BYTES == 64 || BOX_BYTES == 128, "make_map_2d: 64- or 128-byte boxes");
   EncodeTiled enc = encoder();
   if (enc == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
   const cuuint64_t strides[1] = {(cuuint64_t)ld * ELEM_BYTES};
-  const cuuint32_t box[2] = {128 / ELEM_BYTES, (cuuint32_t)rows};
+  const cuuint32_t box[2] = {BOX_BYTES / ELEM_BYTES, (cuuint32_t)rows};
   const cuuint32_t estr[2] = {1, 1};
-  const CUtensorMapDataType type = ELEM_BYTES == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUtensorMapDataType type = ELEM_BYTES == 4   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                   : ELEM_BYTES == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                     : CU_TENSOR_MAP_DATA_TYPE_UINT8;
   return enc(map, type, 2, const_cast<void*>(base), dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+             BOX_BYTES == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace

@@ -102,9 +102,10 @@ _SIGNATURES = {
                                  _I,  # tied
                                  _P, _P, _I,  # db partials, db (or null), row tiles
                                  _I, _P],  # SMs (the persistent grid), stream
-    "w8a16_gemm": [_P, _P, _P, _P, _P, _P,  # x kq scale bias(or null) y, split partials (or null)
+    "w8a16_gemm": [_P, _P, _P, _P, _P,  # x kq scale bias(or null) y
                    _I, _I, _I,  # M N K
-                   _I, _I, _I, _P],  # bm splits per(BK chunks a split), stream
+                   _I, _I, _I, _I, _I, _P],  # bx cols wgs splits grid, stream
+    "w8a16_max_clusters": [_I, _I, _I],  # bx cols splits
 }
 
 

@@ -21,13 +21,16 @@ import torch
 from trlx_tpu_torch.ops import cuda_lib
 
 QUANT_KERNEL_NAMES = ("c_qkv", "q_proj", "k_proj", "v_proj", "c_proj", "c_fc", "lm_head")
-# The kernel's tilings (csrc/w8a16_gemm.cu): rows a CTA for decode and for
-# larger M, columns and K a CTA step. Decode splits K until SPLIT_TARGET CTAs
-# per SM stream the weight.
-BM_DECODE, BM_LARGE, BN, BK = 16, 128, 128, 64
-DECODE_MAX_M = 32
-SPLIT_TARGET = 2
+# The kernel's tilings (csrc/w8a16_gemm.cu): K a chunk, weight columns a
+# tile (128, or 64: a narrow swap tile, at x tiles of at most 64 rows), the
+# x rows a tile takes, and the CTAs a K split may use (one cluster: at most
+# the portable 8).
+BK, WG_COLS, NARROW_COLS = 64, 128, 64
+BX_SIZES = (8, 32, 64, 128)
+WIDE_BX = 256  # x rows a tile of the wide kernel (two warpgroups of 64 columns)
+SPLITS = tuple(range(1, 9))
 
+_CLUSTERS = {}
 _SMS = {}
 
 
@@ -82,18 +85,61 @@ def w8a16_plain(x, kq, scale, bias=None):
     return y
 
 
-def plan(M: int, N: int, K: int, sms: int):
-    """(bm, splits, per) of one launch: the tiling by M, and for decode
-    (M <= DECODE_MAX_M) K split so that at least SPLIT_TARGET CTAs per SM
-    stream the weight where K has the chunks; each split takes ``per`` BK
-    chunks of K."""
+def tile_rows(M: int) -> int:
+    """x rows a tile of the kernel takes: the least of ``BX_SIZES`` that
+    holds M, else the largest."""
+    return next((b for b in BX_SIZES if M <= b), BX_SIZES[-1])
+
+
+def tile_cols(bx: int):
+    """Weight columns a swap tile of ``bx`` x rows may take."""
+    return (WG_COLS, NARROW_COLS) if bx <= 64 else (WG_COLS,)
+
+
+def plan(M: int, N: int, K: int, sms: int, clusters: dict):
+    """(bx, cols, wgs, splits, grid) of one launch: x rows a tile, weight
+    columns a tile, warpgroups a tile's 128 weight columns (2: the wide
+    kernel), CTAs splitting K (one cluster a tile) and CTAs along the tiles.
+    M > 64 with a tile of WIDE_BX rows for every SM: the wide kernel on a
+    persistent grid of one CTA an SM. Otherwise the swap kernel, at the tile
+    width and split that give the busiest SM the fewest weight bytes: one CTA
+    an SM, ``clusters[cols, s]`` clusters of s CTAs at once (the device's
+    count for the tiling, ``max_clusters``), split s of a tile taking K
+    chunks [s kc / S, (s + 1) kc / S); ties go to the wider tile, then the
+    smaller split. Unsplit, the grid walks the tiles persistently."""
     kchunks = -(-K // BK)
-    bm = BM_DECODE if M <= DECODE_MAX_M else BM_LARGE
-    tiles = -(-N // BN) * -(-M // bm)
-    per = kchunks
-    if bm == BM_DECODE:
-        per = max(1, kchunks // -(-SPLIT_TARGET * sms // tiles))
-    return bm, -(-kchunks // per), per
+    bx = tile_rows(M)
+    if bx == BX_SIZES[-1] and -(-M // WIDE_BX) * -(-N // WG_COLS) >= sms:
+        return WIDE_BX, WG_COLS, 2, 1, sms
+    row_tiles = -(-M // bx)
+
+    def cost(cols_s):
+        cols, s = cols_s
+        at_once = sms if s == 1 else clusters.get((cols, s), 0)
+        tiles = row_tiles * -(-N // cols)
+        busiest = -(-tiles // at_once) * -(-kchunks // s) * cols if at_once > 0 else float("inf")
+        return busiest, -cols, s
+
+    cols, splits = min(((c, s) for c in tile_cols(bx) for s in SPLITS if s <= kchunks), key=cost)
+    tiles = row_tiles * -(-N // cols)
+    return bx, cols, 1, splits, tiles if splits > 1 else min(tiles, sms)
+
+
+def max_clusters(device, bx: int) -> dict:
+    """{(cols, s): clusters of s CTAs of the swap kernel's tiling with x
+    tiles of ``bx`` rows and tiles of ``cols`` weight columns that the card
+    runs at once} for s = 2 .. 8 (a card's GPCs hold whole clusters, so fewer
+    than sms // s may fit), asked of the device once."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if (idx, bx) not in _CLUSTERS:
+        lib = cuda_lib.lib()
+        _CLUSTERS[idx, bx] = {(c, s): lib.w8a16_max_clusters(bx, c, s) for c in tile_cols(bx) for s in SPLITS[1:]}
+    return _CLUSTERS[idx, bx]
+
+
+def launch_plan(M: int, N: int, K: int, device):
+    """``plan`` of a launch on ``device``: its SMs and cluster counts."""
+    return plan(M, N, K, _sm_count(device), max_clusters(device, tile_rows(M)))
 
 
 def _sm_count(device) -> int:
@@ -121,17 +167,16 @@ def w8a16_matmul(x, kq, scale, bias=None):
     if not kq.is_contiguous() or kq.data_ptr() % 16:
         raise ValueError("w8a16_matmul: kq must be contiguous with a 16-byte aligned start")
     x2 = x.reshape(-1, K).contiguous()
-    if x2.data_ptr() % 16:  # rows are read 16 bytes a lane
+    if x2.data_ptr() % 16:  # TMA reads from a 16-byte aligned start
         x2 = x2.clone()
     M = x2.shape[0]
     sc = scale.to(torch.float32).contiguous()
     b = None if bias is None else bias.to(torch.float32).contiguous()
-    bm, splits, per = plan(M, N, K, _sm_count(x.device))
+    bx, cols, wgs, splits, grid = launch_plan(M, N, K, x.device)
     y = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-    ws = torch.empty((splits, M, N), dtype=torch.float32, device=x.device) if splits > 1 else None
     err = cuda_lib.lib().w8a16_gemm(
         x2.data_ptr(), kq.data_ptr(), sc.data_ptr(), None if b is None else b.data_ptr(), y.data_ptr(),
-        None if ws is None else ws.data_ptr(), M, N, K, bm, splits, per, cuda_lib.stream_ptr(x.device),
+        M, N, K, bx, cols, wgs, splits, grid, cuda_lib.stream_ptr(x.device),
     )
     cuda_lib.check(err, "w8a16_gemm")
     w8a16_matmul.launches += 1
