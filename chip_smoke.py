@@ -100,6 +100,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1421,8 +1422,9 @@ def train_path(kernels):
         "launches": launches,
     }
     log(f"[train] trlx_tpu_torch.train at GPT-J-6B width ({n_layer} layers), {steps} steps: {json.dumps(out)}")
-    out["ckpt"] = check_end_save("train_bf16", trainer, run_dir)
-    shutil.rmtree(run_dir)
+    # The end save stays on disk for the resume path, with the state it holds.
+    out["ckpt"] = check_end_save("train_bf16", trainer, run_dir, verify=False)  # resume_path's load verifies it
+    out["saved_state"], out["run_dir"] = fp["end"], run_dir
     del trainer
     free()
     return out, launches
@@ -1432,22 +1434,23 @@ RESUME_STEPS = 24  # the resumed PPO run: one more rollout phase of 8 steps afte
 
 
 def resume_path(kernels, saved, run_dir):
-    """``trlx_tpu_torch.train(reward_fn=...)`` at GPT-J-6B full width and
-    depth with ``train.resume_from_checkpoint``, from ``hf_rm_train``'s end
-    checkpoint (``state_16`` in ``run_dir``; the same model and train state
-    as a ``model_arch`` config builds) into a fresh trainer: the loaded state
+    """``trlx_tpu_torch.train(reward_fn=...)`` at GPT-J-6B width and
+    ``TRAIN_LAYERS`` layers (cut from full depth to keep the smoke inside
+    its time limit) with ``train.resume_from_checkpoint``, from
+    ``train_bf16``'s end checkpoint (``state_16`` in ``run_dir``) into a
+    fresh trainer: the loaded state
     must be bit-equal to the saving trainer's at its save (parameter groups,
     extras, moments, the applied-update count, step, guard counts, KL
     coefficient); then one rollout phase from the restored policy and 8
     steps to ``RESUME_STEPS``, the first at schedule(restored count), each
     launching what a train step must, then the end save (``state_24``) and
     evaluate(). ``state_16`` is deleted once loaded: the disk holds one
-    full-depth checkpoint at a time."""
+    checkpoint at a time."""
     import trlx_tpu_torch
     from trlx_tpu_torch.resilience import checkpoint as ckpt_util
     from trlx_tpu_torch.trainer import register_model
 
-    n_layer, k = GPTJ_6B_ARCH["n_layer"], 2
+    n_layer, k = TRAIN_LAYERS, 2
 
     @register_model("SmokeResumedPPOTrainer")
     class SmokeResumedPPOTrainer(make_timed_trainer(kernels, n_layer)):
@@ -1964,6 +1967,145 @@ def engine_train_path(kernels):
     free()
     shutil.rmtree(run_dir)
     return out, launches
+
+
+OVERLAP_LAYERS = 4  # depth of the overlapped-pipeline path, at GPT-J-6B width
+OVERLAP_BUCKETS = [704, 768]  # the engine prompts' lengths fill both (6 and 10 prompts)
+REWARD_HOST_S = 0.2  # host wall time the overlap path's reward_fn spends per chunk, in every run alike
+
+
+def overlap_train_path(kernels):
+    """The overlapped rollout/train pipeline (``method.rollout_overlap``,
+    ``max_staleness``, ``pack_train_batch``, ``prompt_buckets``) on the main
+    path: ``trlx_tpu_torch.train(reward_fn=...)`` through the paged int8
+    engine with ``engine_train``'s settings at GPT-J-6B width and 4 layers,
+    24 steps (three rollout iterations), a reward_fn that spends 0.2 s of
+    host time per chunk. Three runs: (a) serial; (b) rollout_overlap at
+    staleness 0 with prefetch, whose every store, step statistic and final
+    parameter must equal (a)'s bit for bit; (c) staleness 1 with packed
+    train batches and two prompt buckets, whose producer stores must read
+    the boundary snapshot (the engine's weight_version is the snapshot's).
+    (a) must launch rows 2-3 (the unpacked backward); (c) rows 1, 4-6, 8
+    and 10. Returns the three runs' numbers and their summed launches."""
+    import trlx_tpu_torch
+    from trlx_tpu_torch.orchestrator.ppo_orchestrator import PPOOrchestrator
+
+    n_layer = OVERLAP_LAYERS
+    runs_cfg = {
+        "serial": {},
+        "overlap_s0": {"rollout_overlap": True, "max_staleness": 0, "prefetch_depth": 1},
+        "stale1_packed": {"max_staleness": 1, "pack_train_batch": True, "prefetch_depth": 1},
+    }
+
+    def slow_reward(samples):
+        # 0.2 s of host wall time that leaves the interpreter free, as a call
+        # out to a reward service does.
+        time.sleep(REWARD_HOST_S)
+        return reward_fn(samples)
+
+    orig_make = PPOOrchestrator.make_experience
+    stores = []
+
+    def recorded_make(self, num_rollouts=1024, iter_count=0, store=None, snapshot=None, staleness=0, stop=None):
+        out = orig_make(self, num_rollouts, iter_count, store=store, snapshot=snapshot, staleness=staleness,
+                        stop=stop)
+        if out is not None:
+            rl = self.rl_model
+            st = store if store is not None else rl.store
+            stores.append({"columns": st.columns(), "staleness": staleness,
+                           "snapshot_version": None if snapshot is None else snapshot["weights"].version,
+                           "engine_version": rl._rollout_engine.weight_version})
+        return out
+
+    results, launches_sum = {}, dict.fromkeys(kernels, 0)
+    PPOOrchestrator.make_experience = recorded_make
+    try:
+        for name, method in runs_cfg.items():
+            run_dir = os.path.join(RUN_DIR, f"overlap_{name}")
+            gen_kwargs = dict(prompt_length=PROMPT_LEN, max_length=MAX_LEN, min_length=MAX_LEN, top_k=0, top_p=0.7,
+                              temperature=0.5, do_sample=True)
+            if method.get("pack_train_batch"):
+                gen_kwargs["prompt_buckets"] = OVERLAP_BUCKETS
+            config = train_config(n_layer, "ppo", run_dir, method=dict(ENGINE, paged_kv=True, **method), quant=True)
+            config.method.gen_kwargs = gen_kwargs
+            config.train.epochs, config.train.total_steps = 3, 24
+            stores.clear()
+            free()
+            torch.cuda.reset_peak_memory_stats()
+            for fn in kernels.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            trainer = trlx_tpu_torch.train(reward_fn=slow_reward, prompts=engine_prompts(),
+                                           eval_prompts=seeded_prompts(CHUNK, 1), config=config)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: fn.launches for k, fn in kernels.items()}
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            if [t.name for t in threading.enumerate() if t.name.startswith("trlx-")]:
+                raise AssertionError(f"{name}: trlx-* threads outlived learn()")
+            with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+                recs = [json.loads(line) for line in f]
+            steps = [r for r in recs if "loss" in r]
+            windows = [r for r in recs if "time/overlap_fraction" in r]
+            if trainer.iter_count != 24 or len(steps) != 24 or len(windows) != 2:
+                raise AssertionError(f"{name}: {trainer.iter_count} steps, {len(steps)} step records, "
+                                     f"{len(windows)} phase windows (expected 24, 24, 2)")
+            bad = [r["step"] for r in steps if not np.isfinite(r["loss"]) or r["resilience/nonfinite"] != 0.0]
+            if bad:
+                raise AssertionError(f"{name}: non-finite or skipped steps {bad}")
+            snap = trainer._snapshot_weights
+            out = {
+                "wall_s": wall,
+                "iteration_wall_s": [w["time/window_wall_s"] for w in windows],
+                "time/rollout_s": [w["time/rollout_s"] for w in windows],
+                "time/score_s": [w["time/score_s"] for w in windows],
+                "time/train_s": [w["time/train_s"] for w in windows],
+                "time/overlap_fraction": [w["time/overlap_fraction"] for w in windows],
+                "train_tokens_per_s": [w.get("train_tokens_per_s") for w in windows],
+                "pack_fill": [w.get("train_batch_fill") for w in windows],
+                "staleness/mean": [r["staleness/mean"] for r in steps if "staleness/mean" in r],
+                "stores": [(s["staleness"], s["snapshot_version"], s["engine_version"]) for s in stores],
+                "snapshot_bytes": None if snap is None else snap.nbytes(),
+                "peak_mem_gb": peak_gb,
+                "launches": launches,
+            }
+            log(f"[overlap_train] {name} ({n_layer} layers, {json.dumps(method)}) on {card_line()}: "
+                f"{json.dumps({k: v for k, v in out.items() if k != 'staleness/mean'})}")
+            log(f"[overlap_train] {name} staleness/mean per logged step {out['staleness/mean']}")
+            results[name] = dict(out, steps=[{k: r[k] for k in ("loss", "pg_loss", "vf_loss", "mean_kl", "grad_norm")}
+                                             for r in steps], store_columns=[s["columns"] for s in stores],
+                                 params={n: fingerprint([p]) for n, p in trainer.model.named_parameters()})
+            for k, v in launches.items():
+                launches_sum[k] += v
+            del trainer
+            free()
+            shutil.rmtree(run_dir)
+    finally:
+        PPOOrchestrator.make_experience = orig_make
+
+    a, b, c = results["serial"], results["overlap_s0"], results["stale1_packed"]
+    if b["steps"] != a["steps"] or b["params"] != a["params"] or len(b["store_columns"]) != 3:
+        raise AssertionError("(b) rollout_overlap at staleness 0: step stats or final parameters differ from (a)")
+    for i, (sa, sb) in enumerate(zip(a["store_columns"], b["store_columns"])):
+        for key in sa:
+            if not np.array_equal(sa[key], sb[key]):
+                raise AssertionError(f"(b) store {i} column {key} differs from (a)'s")
+    if b["launches"] != a["launches"]:
+        raise AssertionError(f"(b) launched {b['launches']}, (a) {a['launches']}")
+    stale_stores = [s for s in c["stores"] if s[0] == 1]
+    if len(stale_stores) < 2 or any(v is None or e != v for _, v, e in stale_stores):
+        raise AssertionError(f"(c) producer stores (staleness, snapshot version, engine version): {c['stores']}")
+    if not max(c["staleness/mean"]) > 0 or not all(f is not None and 0 < f <= 1 for f in c["pack_fill"]):
+        raise AssertionError(f"(c) staleness/mean {c['staleness/mean']}, pack_fill {c['pack_fill']}")
+    need_c = ("flash_attention_fwd", "fused_logprob_fwd", "fused_logprob_bwd_dx", "fused_logprob_bwd_dw",
+              "decode_attention_int8", "paged_decode_attention_int8")
+    if any(c["launches"][k] == 0 for k in need_c) or any(a["launches"][k] == 0 for k in (
+            "flash_attention_bwd_dq", "flash_attention_bwd_dkv")):
+        raise AssertionError(f"rows not launched: (a) {a['launches']}, (c) {c['launches']}")
+    if c["launches"]["flash_attention_bwd_dq"] or c["launches"]["flash_attention_bwd_dkv"]:
+        raise AssertionError(f"(c)'s packed steps launched the flash backward: {c['launches']}")
+    return {k: {kk: vv for kk, vv in v.items() if kk not in ("store_columns", "params", "steps")}
+            for k, v in results.items()}, launches_sum
 
 
 def engine_rollout_path(kernels, paged: bool):
@@ -2526,8 +2668,10 @@ def hf_rm_train_path(kernels):
     written; both directories are deleted before ``learn()``; the rollouts
     are scored by the reward model, 16 steps run with ``train_config``'s
     values, ``evaluate()`` reports the reward model's mean. The end save
-    stays on disk for ``resume_path`` (returned as ``saved_state`` and
-    ``run_dir``). Returns its numbers and the launches of the whole run."""
+    is checked and deleted (``resume_path`` resumes ``train_bf16``'s
+    4-layer checkpoint, whose load verifies the manifest this one was
+    written with). Returns its numbers and the launches of the whole
+    run."""
     import trlx_tpu_torch
 
     n_layer, k, R = GPTJ_6B_ARCH["n_layer"], 2, MAX_LEN - PROMPT_LEN
@@ -2630,11 +2774,10 @@ def hf_rm_train_path(kernels):
     }
     log(f"[hf_rm_train] train(model_path=HF dir, reward model {RM_LAYERS} layers, text prompts) at GPT-J-6B "
         f"({n_layer} layers), {steps} steps: {json.dumps(out)} on {card}")
-    # The end save stays on disk for the resume path, with the state it holds.
-    out["ckpt"] = check_end_save("hf_rm_train", trainer, run_dir, verify=False)  # resume_path's load verifies it
-    out["saved_state"], out["run_dir"] = state_fingerprints(trainer, n_layer), run_dir
+    out["ckpt"] = check_end_save("hf_rm_train", trainer, run_dir, verify=False)
     del trainer
     free()
+    shutil.rmtree(run_dir)
     return out, launches
 
 
@@ -3726,10 +3869,7 @@ def main() -> int:
     # ILQL first: its step nears the card's memory, so it gets the allocator
     # fresh; the HF + reward-model path (~69 GB) next.
     run("ilql_train", lambda: ilql_train_path(kernels))
-    hf_out, _ = run("hf_rm_train", lambda: hf_rm_train_path(kernels))
-    # The resume reads hf_rm_train's end checkpoint, so nothing else is saved
-    # while it is on disk.
-    run("resume_ppo", lambda: resume_path(kernels, hf_out["saved_state"], hf_out["run_dir"]))
+    run("hf_rm_train", lambda: hf_rm_train_path(kernels))
     bf16_out, _ = run("rollout_bf16", lambda: main_path(kernels))
     w8_out, _ = run("rollout_w8", lambda: main_path(kernels, w8=True))
     log(f"[rollout-w8] decode tokens/s at GPT-J-6B full depth: W8A16 {w8_out['decode_tokens_per_s']:.1f} against "
@@ -3757,8 +3897,12 @@ def main() -> int:
     ilql_resume_path(kernels)
     free()
     log(f"[resume] ILQL done in {time.perf_counter() - t0:.1f}s")
-    run("train_bf16", lambda: train_path(kernels))
+    train_out, _ = run("train_bf16", lambda: train_path(kernels))
+    # The resume reads train_bf16's end checkpoint, so nothing else is saved
+    # while it is on disk.
+    run("resume_ppo", lambda: resume_path(kernels, train_out["saved_state"], train_out["run_dir"]))
     run("engine_train", lambda: engine_train_path(kernels))
+    run("overlap_train", lambda: overlap_train_path(kernels))
     t0 = time.perf_counter()
     phase_graph(kernels)
     graph_after_load()

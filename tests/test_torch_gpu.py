@@ -1696,3 +1696,149 @@ def test_ring_over_nccl_on_two_cards(tmp_path):
                 q.kill()
             raise
     assert all(p.returncode == 0 for p in procs), outs
+
+
+def test_graph_capture_beside_a_thread_that_allocates_and_syncs():
+    """The overlapped pipeline's capture rule (``ops.cuda_graph``): a thread
+    captures decode-step graphs while another allocates and reads results
+    back (cudaMalloc, host syncs) on the default stream. Every capture
+    succeeds, every replay gives the eager result, and the other thread's
+    launches are neither taken back nor replayed."""
+    dev = _cuda()
+    import threading
+
+    from trlx_tpu_torch.ops.cuda_graph import CudaGraph, StepGraph
+    from trlx_tpu_torch.ops.decode_attention import decode_attention
+
+    stop, errors, sums = threading.Event(), [], []
+
+    def busy():
+        try:
+            n = 1 << 16
+            own = torch.Generator(device=dev).manual_seed(1)  # a capture registers the default generator
+            while not stop.is_set():
+                x = torch.randn((n,), device=dev, generator=own)  # new sizes: the allocator grows
+                sums.append(float(x.sum()))  # a host sync
+                n = n + 4096 if n < (1 << 24) else 1 << 16
+        except Exception as e:  # noqa: BLE001 — asserted below
+            errors.append(e)
+
+    other = threading.Thread(target=busy, name="trlx-test-busy")
+    other.start()
+    try:
+        g = torch.Generator(device=dev).manual_seed(0)
+        B, T, h, d = 4, 256, 16, 256
+        q = torch.randn((B, h, d), generator=g, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn((B, T, h, d), generator=g, device=dev).to(torch.bfloat16) for _ in range(2))
+        bias = torch.zeros((B, T), device=dev)
+        out = torch.empty((B, h, d), dtype=torch.bfloat16, device=dev)
+
+        def step():
+            out.copy_(decode_attention(q, k, v, bias, scale=d ** -0.5)[:, 0])
+
+        step()
+        want = out.clone()
+        for _ in range(5):
+            before = decode_attention.launches
+            graph = StepGraph(step, CudaGraph())
+            assert decode_attention.launches == before
+            out.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, want)
+            assert decode_attention.launches == before + 1
+    finally:
+        stop.set()
+        other.join(timeout=60)
+    assert not errors and sums
+
+
+def test_staleness_zero_producer_thread_gives_the_serial_run(tmp_path):
+    """train() on the card with rollout_overlap at staleness 0, whose
+    producer captures its decode graphs on its own thread: the step stats,
+    the last store and the final parameters equal the serial run's, bit for
+    bit."""
+    _cuda()
+    import json
+
+    import numpy as np
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.data.configs import TRLConfig
+
+    P, R, V = 192, 32, 1024
+    arch = dict(vocab_size=V, n_layer=2, n_head=8, d_model=1024, max_position=512, pos_type="rotary",
+                rotary_dim=32, parallel_residual=True, fused_qkv=False, qkv_bias=False, out_bias=False,
+                tie_word_embeddings=False, extra={"lm_head_bias": True})
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, V, size=int(rng.integers(100, P + 1))).tolist() for _ in range(16)]
+    runs = {}
+    for name, method in (("serial", {}), ("overlap", {"rollout_overlap": True})):
+        config = TRLConfig.from_dict({
+            "model": dict(model_path="", tokenizer_path="", model_type="ppo", num_layers_unfrozen=1,
+                          model_arch=arch, dtype="bfloat16", param_dtype="float32"),
+            "train": dict(total_steps=6, seq_length=P + R, epochs=3, batch_size=8, lr_ramp_steps=1,
+                          lr_decay_steps=100, weight_decay=1e-6, learning_rate_init=1e-4, learning_rate_target=1e-4,
+                          checkpoint_interval=10**6, eval_interval=10**6, checkpoint_dir=str(tmp_path / name),
+                          seed=3),
+            "method": dict(name="ppoconfig", num_rollouts=16, chunk_size=8, ppo_epochs=1,
+                           gen_kwargs=dict(prompt_length=P, max_length=P + R, min_length=P + R, top_k=0,
+                                           top_p=0.9, temperature=0.7, do_sample=True), **method),
+        })
+        trainer = trlx_tpu_torch.train(reward_fn=lambda s: [float(np.mean(np.asarray(x) % 2)) for x in s],
+                                       prompts=prompts, config=config)
+        with open(tmp_path / name / "metrics.jsonl") as f:
+            steps = [{k: r[k] for k in ("loss", "pg_loss", "vf_loss", "mean_kl", "grad_norm")}
+                     for r in map(json.loads, f) if "loss" in r]
+        runs[name] = (steps, trainer.store.columns(), {n: p.detach().cpu() for n, p in
+                                                       trainer.model.named_parameters()})
+    (s_steps, s_store, s_params), (o_steps, o_store, o_params) = runs["serial"], runs["overlap"]
+    assert len(s_steps) == 6 and o_steps == s_steps
+    for k in s_store:
+        np.testing.assert_array_equal(o_store[k], s_store[k], err_msg=k)
+    for n in s_params:
+        assert torch.equal(o_params[n], s_params[n]), n
+
+
+def test_snapshot_graph_on_the_producer_thread_reads_only_snapshot_weights(tmp_path):
+    """A rollout from a boundary snapshot, replayed as a CUDA graph on a
+    producer thread again and again while the main thread takes optimizer
+    steps and decodes from the live weights: every replay gives the tokens
+    the boundary weights give, and the live weights' tokens move away."""
+    _cuda()
+    import threading
+
+    import numpy as np
+
+    trainer = _ckpt_trainer(tmp_path, "snap", 3)
+    rng = np.random.default_rng(0)
+    ids = trainer.put(rng.integers(1, 1024, size=(8, trainer.prompt_length)).astype(np.int32))
+    mask = torch.ones_like(ids)
+    want = trainer.rollout_generate(ids, mask)[0]  # the boundary weights, live
+    snapshot = trainer._rollout_snapshot()
+    got, errors = [], []
+    stop = threading.Event()
+
+    def producer():
+        try:
+            assert snapshot["weights"].adopt() == 0
+            while not stop.is_set() or len(got) < 4:
+                got.append(trainer.rollout_generate(ids, mask, snapshot=snapshot)[0].cpu())
+        except Exception as e:  # noqa: BLE001 — asserted below
+            errors.append(e)
+
+    thread = threading.Thread(target=producer, name="trlx-test-producer")
+    thread.start()
+    try:
+        for seed in range(8):
+            _adam_step(trainer, 100 + seed)
+            live = trainer.rollout_generate(ids, mask)[0]
+    finally:
+        stop.set()
+        thread.join(timeout=300)
+    assert not errors and not thread.is_alive() and len(got) >= 4
+    snap_fn = trainer._generate_fns_for(snapshot["weights"].module)[0]
+    assert snap_fn.keywords["_keep"]["buffers"]["graph"] is not None
+    for toks in got:
+        assert torch.equal(toks, want.cpu())
+    assert not torch.equal(live, want)

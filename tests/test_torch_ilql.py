@@ -442,6 +442,25 @@ def test_train_matches_jax(tmp_path, kernels):
     assert te == je
 
 
+def test_decode_weight_quant_is_accepted_and_ignored(tmp_path):
+    """``model.decode_weight_quant`` on an ILQL config trains as the JAX
+    ILQL trainer does, which never reads the knob: the same step stats, bit
+    for bit, as with the knob off, and no int8 copies are made."""
+    samples, rewards = _samples()
+    stats = {}
+    for quant in (False, True):
+        cfg = _trainer_config(tmp_path / str(quant), total_steps=2)
+        cfg["model"]["decode_weight_quant"] = quant
+        model = trlx_tpu_torch.train(dataset=(samples, rewards), eval_prompts=[[1, 2]], config=TRLConfig.from_dict(cfg),
+                                     device="cpu")
+        assert not any(getattr(m, "w8", None) is not None for m in model.model.modules())
+        stats[quant] = _step_stats(os.path.join(tmp_path, str(quant), "metrics.jsonl"))
+    assert sorted(stats[True]) == sorted(stats[False]) == [1, 2]
+    for step in (1, 2):
+        for k in STAT_KEYS:
+            assert stats[True][step][k] == stats[False][step][k], (step, k)
+
+
 # --------------------------------------------------------------- learning
 
 

@@ -72,9 +72,46 @@ def test_remat_grads_equal_no_remat_grads():
         assert torch.equal(grads[0][n], grads[1][n]), n
 
 
-def test_remat_dots_policy_refused():
-    with pytest.raises(NotImplementedError, match="dots"):
-        LMConfig(remat=True, remat_policy="dots")
+def test_remat_dots_grads_equal_full_and_no_remat(monkeypatch):
+    """remat policy "dots" (save the weight products, recompute the rest)
+    gives exactly the gradients of policy "full" and of no remat, in
+    float32; its policy saves every block's weight products (mm: 6 a block
+    here) and recomputes attention's batched products (bmm)."""
+    from functools import partial
+
+    from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
+
+    from trlx_tpu_torch.models import lm
+
+    decided = {}
+
+    def spy(ctx, op, *args, **kwargs):
+        policy = lm._save_dots(ctx, op, *args, **kwargs)
+        decided[(str(op), policy)] = decided.get((str(op), policy), 0) + 1
+        return policy
+
+    monkeypatch.setattr(lm, "_save_dots_context", partial(create_selective_checkpoint_contexts, spy))
+    cfg = LMConfig(vocab_size=V, n_layer=3, n_head=4, d_model=32, max_position=64, pos_type="rotary", rotary_dim=4,
+                   parallel_residual=True, fused_qkv=False, qkv_bias=False, out_bias=False,
+                   tie_word_embeddings=False, dtype="float32", extra={"lm_head_bias": True})
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(1, V, size=(2, 12)).astype(np.int32))
+    mask = torch.ones_like(ids)
+    mask[1, :4] = 0
+    grads = {}
+    for name, kw in (("none", dict(remat=False)), ("full", dict(remat=True)),
+                     ("dots", dict(remat=True, remat_policy="dots"))):
+        model = LMWithValueHead(cfg.replace(**kw), branch_layer=2, device="cpu")
+        init_params(model, torch.Generator().manual_seed(0))
+        out = model(ids, mask, labels=ids[:, 5:], logits_start=4)
+        (out["logprobs"].sum() + out["values"].sum()).backward()
+        grads[name] = {n: p.grad.clone() for n, p in model.named_parameters()}
+    for other in ("full", "dots"):
+        assert grads[other].keys() == grads["none"].keys()
+        for n in grads["none"]:
+            assert torch.equal(grads[other][n], grads["none"][n]), (other, n)
+    assert decided[("aten.mm.default", CheckpointPolicy.MUST_SAVE)] == 6 * cfg.n_layer
+    assert decided[("aten.bmm.default", CheckpointPolicy.PREFER_RECOMPUTE)] == 2 * cfg.n_layer
 
 
 _JAX_INIT = {}
@@ -227,11 +264,11 @@ def _ilql_config(tmp_path):
 
 # The PPO cases keep their ids; the ILQL trainer refuses the shared knobs
 # from the same list (trainer/base.py ``refuse_unported``).
-_KNOBS = [("method", "pack_train_batch", True), ("train", "watch_interval", 10), ("train", "graftnum", True),
+_KNOBS = [("method", "fleet_disaggregate", True), ("train", "watch_interval", 10), ("train", "graftnum", True),
           ("train", "trace_spans", True), ("train", "fault_plan", "sigterm@2")]
 _ILQL_KNOBS = [("train", "reward_fn_timeout", 5.0), ("train", "heartbeat_interval", 10.0),
                ("train", "watchdog_threshold", 5.0), ("train", "fleet_role", "rollout"),
-               ("model", "decode_weight_quant", True), ("train", "graftnum", True)]
+               ("train", "profile_dir", "profiles"), ("train", "graftnum", True)]
 
 
 @pytest.mark.parametrize("trainer,section,knob,value", [

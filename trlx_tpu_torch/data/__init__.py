@@ -61,6 +61,40 @@ class PPORLBatch:
 
 
 @dataclass
+class PackedPPOBatch:
+    """A PPO train batch with its episodes packed into dense rows
+    (``pipeline.ppo_pipeline.pack_ppo_batch``, ``method.pack_train_batch``).
+
+    All arrays [rows, W] with W = query_len + response_len and rows at most
+    the batch size (bucketed, so the step sees few shapes):
+
+    input_ids/attention_mask: the packed valid tokens, right-padded.
+    segment_ids: 1-based episode id per token, 0 at padding (the
+       block-diagonal attention and the GAE reset).
+    position_ids: per-episode positions (restarting at 0 each segment).
+    labels: the next token at every state position (0 elsewhere).
+    loss_mask: 1 exactly at the response STATE positions.
+    old_logprobs/old_values/rewards: the rollout stats at the state
+       positions (zero elsewhere).
+    n_seqs: unused (the trainer's train.batch_size is the episode count).
+    extras: host-side metadata (fill fraction, token counts, staleness),
+       left on the host by ``put_batch``.
+    """
+
+    input_ids: Any
+    attention_mask: Any
+    segment_ids: Any
+    position_ids: Any
+    labels: Any
+    loss_mask: Any
+    old_logprobs: Any
+    old_values: Any
+    rewards: Any
+    n_seqs: Any = None
+    extras: Any = None
+
+
+@dataclass
 class ILQLElement:
     """One offline ILQL sample."""
 
@@ -93,6 +127,7 @@ __all__ = [
     "PromptBatch",
     "PPORLElement",
     "PPORLBatch",
+    "PackedPPOBatch",
     "ILQLElement",
     "ILQLBatch",
     "RewardFn",

@@ -92,11 +92,13 @@ class LMWithValueHead(nn.Module):
         labels=None,
         labels_mask=None,
         prepend_soft: bool = True,
+        segment_ids=None,
     ):
         out = self.transformer(
             input_ids=input_ids,
             attention_mask=attention_mask,
             position_ids=position_ids,
+            segment_ids=segment_ids,
             inputs_embeds=inputs_embeds,
             cache=cache,
             cache_index=cache_index,

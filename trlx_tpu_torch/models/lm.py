@@ -41,19 +41,27 @@ gives each quantized Dense an int8 copy, which it reads instead of its
 kernel inside ``decode_weights(module)`` (the decode paths), as QDense
 reads the ``qw`` collection; training and scoring never enter it.
 
-``remat`` with policy "full" checkpoints every block under grad; policy
-"dots" raises. Not ported: packed segments (their trainer knob raises).
+``remat`` checkpoints every block under grad: policy "full" keeps only the
+block's input, policy "dots" also keeps the outputs of the weight products
+(``aten.mm`` / ``addmm``, the JAX package's ``dots_with_no_batch_dims_saveable``)
+and recomputes the rest. ``segment_ids`` (packed train batches, full-sequence
+passes only) makes the attention block-diagonal per packed episode; such a
+pass takes the einsum path, since the flash and ring kernels take no
+segments (the JAX package's rule).
 """
 
 from contextlib import contextmanager
 from dataclasses import dataclass, field, replace
+from functools import partial
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts, set_checkpoint_early_stop,
+)
 
 from trlx_tpu_torch.device import resolve_device, torch_dtype
 from trlx_tpu_torch.ops.decode_attention import (
@@ -110,8 +118,6 @@ class LMConfig:
             raise ValueError(f"unknown remat_policy {self.remat_policy!r} (expected 'full' or 'dots')")
         if self.attn_impl not in ("auto", "flash", "xla"):
             raise ValueError(f"attn_impl must be auto|flash|xla, got {self.attn_impl!r}")
-        if self.remat and self.remat_policy == "dots":
-            raise NotImplementedError("remat_policy='dots' is not ported yet")
 
     @property
     def head_dim(self) -> int:
@@ -495,11 +501,14 @@ class Block(nn.Module):
         return x, new_cache
 
 
-def make_attn_bias(attn_mask_kv: torch.Tensor, q_len: int, q_offset, window: int = 0) -> torch.Tensor:
+def make_attn_bias(attn_mask_kv: torch.Tensor, q_len: int, q_offset, window: int = 0,
+                   segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Additive attention bias [b, 1, q_len, kv_len]: key j is visible to
     query i iff its slot is valid and j <= q_offset + i (and, with a window,
     j > q_offset + i − window); 0 where visible, −1e9 elsewhere. A [b]
-    tensor ``q_offset`` gives every row its own causal frontier."""
+    tensor ``q_offset`` gives every row its own causal frontier.
+    ``segment_ids`` [b, q_len] (full-sequence passes, q_len == kv_len) also
+    hides every key of another packed segment."""
     kv_len = attn_mask_kv.shape[-1]
     device = attn_mask_kv.device
     k_idx = torch.arange(kv_len, device=device)
@@ -514,6 +523,8 @@ def make_attn_bias(attn_mask_kv: torch.Tensor, q_len: int, q_offset, window: int
         causal = causal & (k_idx > q_idx - window)
     causal = causal[:, None] if causal.ndim == 3 else causal[None, None]
     valid = attn_mask_kv.bool()[:, None, None, :] & causal
+    if segment_ids is not None:
+        valid = valid & (segment_ids[:, None, None, :] == segment_ids[:, None, :, None])
     zero = torch.zeros((), dtype=torch.float32, device=device)
     return torch.where(valid, zero, torch.full((), -1e9, dtype=torch.float32, device=device))
 
@@ -565,6 +576,7 @@ class TransformerLM(nn.Module):
         labels: Optional[torch.Tensor] = None,
         labels_mask: Optional[torch.Tensor] = None,
         prepend_soft: bool = True,
+        segment_ids: Optional[torch.Tensor] = None,
     ):
         """Returns dict(logits, hidden, branch_hidden, cache, logprobs, lse,
         entropy), as the JAX module does.
@@ -589,8 +601,13 @@ class TransformerLM(nn.Module):
           caller's ``cache_mask`` and ``cache_index`` are in cache space
           (the prefix in rows [0, n_soft)). ``prepend_soft=False`` on
           decode and verify steps: the prefix is in the cache already.
+        - ``segment_ids`` [b, q_len] (packed train batches, no cache, with
+          per-segment ``position_ids``): attention is block-diagonal per
+          segment, on the einsum path.
         """
         cfg = self.cfg
+        if segment_ids is not None and (cache is not None or cfg.n_soft_tokens):
+            raise ValueError("segment packing is a full-sequence train-batch layout: no cache, no soft prompt")
         dtype = cfg.compute_dtype
         stop_layer = cfg.n_layer if stop_layer is None else stop_layer
         vector_index = is_vector_index(cache_index)
@@ -643,6 +660,10 @@ class TransformerLM(nn.Module):
         kernel_device = device.type == "cuda" and dtype == torch.bfloat16
         use_ring = ring_eligible(cfg, q_len, cache is not None, b)
         use_flash = use_ring or flash_eligible(cfg, q_len, cache is not None, prefill_at_zero, kernel_device)
+        if segment_ids is not None:
+            # The flash and ring kernels' masks (causal x key validity)
+            # cannot express segments.
+            use_ring = use_flash = False
         attn_bias = local_bias = flash_mask = None
         if use_flash:
             flash_mask = attention_mask.float()
@@ -652,19 +673,22 @@ class TransformerLM(nn.Module):
                 bias_mask, bias_offset = kv_mask, cache_index
             else:
                 bias_mask, bias_offset = attention_mask, 0
-            attn_bias = make_attn_bias(bias_mask, q_len, bias_offset)
+            attn_bias = make_attn_bias(bias_mask, q_len, bias_offset, segment_ids=segment_ids)
             if any(t == "local" for t in cfg.attention_layers):
-                local_bias = make_attn_bias(bias_mask, q_len, bias_offset, window=cfg.window_size)
+                local_bias = make_attn_bias(bias_mask, q_len, bias_offset, window=cfg.window_size,
+                                            segment_ids=segment_ids)
 
         branch_hidden = None
         new_cache = [] if cache is not None else None
-        # remat (policy "full"): under grad, each block keeps only its input
-        # and recomputes its activations in the backward, as the JAX
-        # package's nn.remat does. Cache passes run without grad, so the
-        # rollout path is unchanged. Under the ring the recompute re-issues
-        # the block's collectives, so it always runs the whole block on every
-        # rank (no early stop at the last saved tensor).
+        # remat: under grad, each block keeps only its input (policy "full")
+        # and, with "dots", its weight products' outputs, and recomputes the
+        # rest in the backward, as the JAX package's nn.remat does. Cache
+        # passes run without grad, so the rollout path is unchanged. Under
+        # the ring the recompute re-issues the block's collectives, so it
+        # always runs the whole block on every rank (no early stop at the
+        # last saved tensor).
         remat = cfg.remat and cache is None and torch.is_grad_enabled()
+        remat_kw = {"context_fn": _save_dots_context} if cfg.remat_policy == "dots" else {}
         for i in range(start_layer, stop_layer):
             if collect_hidden_at is not None and i == collect_hidden_at:
                 branch_hidden = x
@@ -682,7 +706,7 @@ class TransformerLM(nn.Module):
             )
             if remat:
                 with set_checkpoint_early_stop(not use_ring):
-                    x, layer_cache = checkpoint(self.block(i), *args, use_reentrant=False)
+                    x, layer_cache = checkpoint(self.block(i), *args, use_reentrant=False, **remat_kw)
             else:
                 x, layer_cache = self.block(i)(*args)
             if cache is not None:
@@ -731,6 +755,18 @@ class TransformerLM(nn.Module):
             "lse": lse,
             "entropy": entropy,
         }
+
+
+# The products with no batch dimension: x [.., d] @ kernel [d, o] lowers to
+# mm / addmm (attention's batched einsums lower to bmm and are recomputed).
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOT_OPS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_save_dots_context = partial(create_selective_checkpoint_contexts, _save_dots)
 
 
 def is_vector_index(cache_index) -> bool:

@@ -27,6 +27,18 @@ NVCC_FLAGS = (
 _lock = threading.Lock()
 _state = {"lib": None, "log": ""}
 
+# Held while a wrapper adds to its launch count and across a graph capture
+# (``ops.cuda_graph.StepGraph``), which takes back what the capture added:
+# another thread's launches during a capture wait for it, so they are
+# neither taken back nor replayed.
+launch_lock = threading.RLock()
+
+
+def count_launch(fn, n: int = 1):
+    """Add ``n`` launches to ``fn.launches`` (thread-safe)."""
+    with launch_lock:
+        fn.launches += n
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float

@@ -146,7 +146,7 @@ def decode_attention(q, k_cache, v_cache, bias_row, *, scale: float, ks=None, vs
         cuda_lib.stream_ptr(q.device),
     )
     cuda_lib.check(err, "decode_attn_bf16")
-    decode_attention.launches += 1
+    cuda_lib.count_launch(decode_attention)
     return out[:, None]
 
 
@@ -179,7 +179,7 @@ def decode_attention_int8(q, k_cache, v_cache, ks, vs, bias_row, *, scale: float
         *sstrides, float(scale), cuda_lib.stream_ptr(q.device),
     )
     cuda_lib.check(err, "decode_attn_int8")
-    decode_attention_int8.launches += 1
+    cuda_lib.count_launch(decode_attention_int8)
     return out[:, None]
 
 
@@ -232,7 +232,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, bias_row, *, scale: 
         cuda_lib.stream_ptr(q.device),
     )
     cuda_lib.check(err, "paged_decode_attn_bf16")
-    paged_decode_attention.launches += 1
+    cuda_lib.count_launch(paged_decode_attention)
     return out[:, None]
 
 
@@ -254,7 +254,7 @@ def paged_decode_attention_int8(q, k_pool, v_pool, ks_pool, vs_pool, block_table
         *k_pool.stride()[:3], *v_pool.stride()[:3], *sstrides, float(scale), cuda_lib.stream_ptr(q.device),
     )
     cuda_lib.check(err, "paged_decode_attn_int8")
-    paged_decode_attention_int8.launches += 1
+    cuda_lib.count_launch(paged_decode_attention_int8)
     return out[:, None]
 
 

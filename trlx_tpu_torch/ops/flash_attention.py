@@ -181,8 +181,9 @@ def _count(fn, causal: bool, offset: int):
     """One launch of ``fn``'s kernel, also counted by mode: "causal" (offset
     0, the model's own attention and the ring's diagonal chunks), "offset"
     (a ring chunk's displacement) or "noncausal"."""
-    fn.launches += 1
-    fn.launches_by_mode["noncausal" if not causal else "offset" if offset else "causal"] += 1
+    with cuda_lib.launch_lock:
+        fn.launches += 1
+        fn.launches_by_mode["noncausal" if not causal else "offset" if offset else "causal"] += 1
 
 
 def reset_launches():

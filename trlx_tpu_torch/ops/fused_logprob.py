@@ -186,7 +186,7 @@ def fused_logprob_fwd(x, w, labels, bias=None, *, tied: bool = False):
         N, D, V, wk.stride(0), int(bool(tied)), S, cuda_lib.stream_ptr(x.device),
     )
     cuda_lib.check(err, "fused_logprob_fwd")
-    fused_logprob_fwd.launches += 1
+    cuda_lib.count_launch(fused_logprob_fwd)
     lead = labels.shape
     return lp.reshape(lead), lse.reshape(lead), ent.reshape(lead)
 
@@ -210,7 +210,7 @@ def fused_logprob_fwd_f32(x, w, labels, bias=None, *, tied: bool = False):
         N, D, V, wk.stride(0), int(bool(tied)), S, cuda_lib.stream_ptr(x.device),
     )
     cuda_lib.check(err, "fused_logprob_fwd_f32")
-    fused_logprob_fwd_f32.launches += 1
+    cuda_lib.count_launch(fused_logprob_fwd_f32)
     lead = labels.shape
     return lp.reshape(lead), lse.reshape(lead), ent.reshape(lead)
 
@@ -230,7 +230,7 @@ def fused_logprob_bwd_dx(x2, wc, b, y, rows_f32, ds, dbpart, dx, *, rows: int, C
         split_count(rows, V, _sm_count(x2.device)), cuda_lib.stream_ptr(x2.device),
     )
     cuda_lib.check(err, "fused_logprob_bwd_ds_dx")
-    fused_logprob_bwd_dx.launches += 1
+    cuda_lib.count_launch(fused_logprob_bwd_dx)
 
 
 def fused_logprob_bwd_dw(x2, ds, dw, *, rows: int, V: int, ldv: int, tied: bool, dbpart=None, db=None):
@@ -245,7 +245,7 @@ def fused_logprob_bwd_dw(x2, ds, dw, *, rows: int, V: int, ldv: int, tied: bool,
         _sm_count(x2.device), cuda_lib.stream_ptr(x2.device),
     )
     cuda_lib.check(err, "fused_logprob_bwd_dw")
-    fused_logprob_bwd_dw.launches += 1
+    cuda_lib.count_launch(fused_logprob_bwd_dw)
 
 
 def fused_logprob_bwd_dx_f32(x2, w, b, y, rows_f32, ds, dbpart, dx, *, rows: int, C: int, ldv: int, tied: bool):
@@ -262,7 +262,7 @@ def fused_logprob_bwd_dx_f32(x2, w, b, y, rows_f32, ds, dbpart, dx, *, rows: int
         cuda_lib.stream_ptr(x2.device),
     )
     cuda_lib.check(err, "fused_logprob_bwd_ds_dx_f32")
-    fused_logprob_bwd_dx_f32.launches += 1
+    cuda_lib.count_launch(fused_logprob_bwd_dx_f32)
 
 
 def fused_logprob_bwd_dw_f32(x2, ds, dw, *, rows: int, V: int, ldv: int, tied: bool, dbpart=None, db=None):
@@ -282,7 +282,7 @@ def fused_logprob_bwd_dw_f32(x2, ds, dw, *, rows: int, V: int, ldv: int, tied: b
         n_tiles, _sm_count(x2.device), cuda_lib.stream_ptr(x2.device),
     )
     cuda_lib.check(err, "fused_logprob_bwd_dw_f32")
-    fused_logprob_bwd_dw_f32.launches += 1
+    cuda_lib.count_launch(fused_logprob_bwd_dw_f32)
 
 
 for _fn in (fused_logprob_fwd, fused_logprob_bwd_dx, fused_logprob_bwd_dw, fused_logprob_fwd_f32,

@@ -194,7 +194,7 @@ def generate(
 
     On a CUDA device the decode steps after the first replay a CUDA graph of
     the step. ``_keep`` is a dict that keeps the static buffers and the
-    graph for the next call of the same shape (``make_generate_fn`` passes
+    graph of every shape for its next call (``make_generate_fn`` passes
     one); ``_eager`` (tests and the chip smoke's comparison only) launches
     every step eagerly instead."""
     if prefill_collect and step_stats_fn is None:
@@ -225,10 +225,16 @@ def _generate(model, prompt_ids, prompt_mask, generator, gcfg, processor, carry_
     # What the buffers and the captured step depend on, besides the weights.
     key = (B, P, prompt_ids.dtype, gcfg, use_graph, model, processor, carry_keys, step_stats_fn,
            tuple(sorted(extra.items())), generator is None, w8)
-    buf = _keep.get("buffers") if _keep is not None else None
-    if buf is not None and buf["key"] != key:
-        _keep.clear()
-        buf = None
+    # One set of buffers (and one graph) per prompt width, so prompt buckets
+    # keep one each; a change of anything else frees them all first, as a
+    # change of shape did before buckets. ``_keep["buffers"]`` is the set
+    # last used.
+    buf = None
+    if _keep is not None:
+        kept = _keep.setdefault("by_key", {})
+        for k in [k for k in kept if k[:1] + k[2:] != key[:1] + key[2:]]:
+            del kept[k]
+        buf = kept.get(key)
     if timings is not None:
         timings["start"] = stamp(device)
     cache = buf["cache"] if buf is not None else init_cache(cfg, B, n_soft + P + N, device)
@@ -246,7 +252,9 @@ def _generate(model, prompt_ids, prompt_mask, generator, gcfg, processor, carry_
         buf = _static_buffers(cache, B, P, N, n_soft, prompt_ids.dtype, device, out, carry_keys, step_stats_fn)
         buf["key"] = key
         if _keep is not None:
-            _keep["buffers"] = buf
+            _keep["by_key"][key] = buf
+    if _keep is not None:
+        _keep["buffers"] = buf
     st = buf["state"]
     buf["tokens"][:, :P] = prompt_ids
     buf["tokens"][:, P:] = gcfg.pad_token_id

@@ -5,8 +5,8 @@ shapes.
 The JAX package's conventions are kept: values are indexed
 state-before-token ([P-1, P+R-1)) by both the rollout and the loss, and the
 terminal score lands on the last VALID response token. Packed train batches
-(``segment_ids`` / ``n_seqs``) are not ported; the trainer refuses
-``method.pack_train_batch``.
+pass ``segment_ids`` (GAE stops at episode boundaries) and ``n_seqs`` (the
+per-sequence stats divide by the episode count, not the row count).
 """
 
 from typing import Dict, Tuple
@@ -17,23 +17,32 @@ from trlx_tpu_torch.ops.modeling import masked_mean, masked_whiten
 
 
 def gae_advantages(
-    rewards: torch.Tensor, values: torch.Tensor, mask: torch.Tensor, gamma: float, lam: float
+    rewards: torch.Tensor, values: torch.Tensor, mask: torch.Tensor, gamma: float, lam: float,
+    segment_ids: torch.Tensor = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Generalized advantage estimation over the response region.
 
     rewards/values/mask: [b, R] right-padded. Returns (advantages, returns),
     both zeroed at padded positions. The reversed recurrence
     A_t = delta_t + gamma*lam*A_{t+1} runs as a loop over reversed time
-    (the JAX package's ``lax.scan``)."""
+    (the JAX package's ``lax.scan``). With ``segment_ids`` ([b, R], 0 =
+    padding: several packed episodes a row) the bootstrap V(s_{t+1}) and the
+    carry stop where the next position is not a valid token of the same
+    episode, so each episode gets the recurrence it would get unpacked."""
     mask = mask.float()
     r = rewards.float() * mask
     v = values.float() * mask
     next_v = torch.cat([v[:, 1:], torch.zeros_like(v[:, :1])], dim=1)
+    cont = None
+    if segment_ids is not None:
+        same = (segment_ids[:, 1:] == segment_ids[:, :-1]) & (mask[:, 1:] > 0)
+        cont = torch.cat([same.float(), torch.zeros_like(mask[:, :1])], dim=1)
+        next_v = next_v * cont
     deltas = r + gamma * next_v - v  # zero at the padded tail: a clean boundary
     carry = torch.zeros_like(deltas[:, 0])
     advs = []
     for t in range(deltas.shape[1] - 1, -1, -1):
-        carry = deltas[:, t] + gamma * lam * carry
+        carry = deltas[:, t] + gamma * lam * (carry if cont is None else carry * cont[:, t])
         advs.append(carry)
     advantages = torch.stack(advs[::-1], dim=1) * mask
     returns = (advantages + v) * mask
@@ -53,15 +62,19 @@ def ppo_loss(
     cliprange: float,
     cliprange_value: float,
     vf_coef: float,
+    segment_ids: torch.Tensor = None,
+    n_seqs: int = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Clipped PPO objective over the response region. All args [b, R]
     (right-padded; ``mask`` marks valid response tokens). GAE and whitening
     run inside, without gradient. Returns (loss, stats); ``stats["mean_kl"]``
     is the policy-vs-rollout sum-over-tokens KL the adaptive controller
-    reads."""
+    reads. Packed batches pass ``segment_ids`` (to GAE) and ``n_seqs``, the
+    number of episodes packed in: ``mean_kl`` and ``mean_return`` divide the
+    sums by it instead of averaging over rows."""
     mask = mask.float()
     with torch.no_grad():
-        advantages, returns = gae_advantages(rewards, old_values, mask, gamma, lam)
+        advantages, returns = gae_advantages(rewards, old_values, mask, gamma, lam, segment_ids=segment_ids)
         advantages = masked_whiten(advantages, mask)
 
     vpred = vpred.float()
@@ -89,9 +102,9 @@ def ppo_loss(
             "vf_loss": vf_loss,
             "pg_clipfrac": pg_clipfrac,
             "vf_clipfrac": vf_clipfrac,
-            "mean_kl": log_ratio.sum(-1).mean(),
+            "mean_kl": log_ratio.sum(-1).mean() if n_seqs is None else log_ratio.sum() / n_seqs,
             "mean_ratio": masked_mean(ratio, mask),
-            "mean_return": (rewards * mask).sum(-1).mean(),
+            "mean_return": (rewards * mask).sum(-1).mean() if n_seqs is None else (rewards * mask).sum() / n_seqs,
             "mean_advantage": masked_mean(advantages, mask),
             "mean_entropy": masked_mean(-logprobs, mask),
             "explained_variance": 1.0 - err_var / (ret_var + 1e-8),

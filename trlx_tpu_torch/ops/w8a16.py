@@ -179,7 +179,7 @@ def w8a16_matmul(x, kq, scale, bias=None):
         M, N, K, bx, cols, wgs, splits, grid, cuda_lib.stream_ptr(x.device),
     )
     cuda_lib.check(err, "w8a16_gemm")
-    w8a16_matmul.launches += 1
+    cuda_lib.count_launch(w8a16_matmul)
     return y.reshape(tuple(x.shape[:-1]) + (N,))
 
 

@@ -1,13 +1,26 @@
 """Prompt pipeline: text or token-id prompts → fixed-shape left-padded
-batches (the counterpart of ``trlx_tpu.pipeline.prompt_pipeline``, without
-prompt-length bucketing). Prompts longer than the width keep their trailing
-tokens."""
+batches (the counterpart of ``trlx_tpu.pipeline.prompt_pipeline``). Prompts
+longer than the width keep their trailing tokens. With ``bucket_widths``
+each prompt pads only to the smallest bucket width that holds it, and the
+loader's batches are bucket-uniform."""
 
-from typing import Iterable, Sequence, Tuple
+from typing import Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 
-from trlx_tpu_torch.pipeline import BasePipeline, BatchLoader, register_datapipeline
+from trlx_tpu_torch.pipeline import BasePipeline, BatchLoader, BucketedBatchLoader, register_datapipeline
+
+
+def normalize_buckets(widths: Optional[Sequence[int]], max_width: int):
+    """Sorted, deduplicated bucket widths in (0, max_width], with max_width
+    always the last bucket; None for None or an empty input (bucketing
+    off)."""
+    if not widths:
+        return None
+    ws = sorted({int(w) for w in widths if 0 < int(w) <= max_width})
+    if not ws or ws[-1] != max_width:
+        ws.append(max_width)
+    return tuple(ws)
 
 
 def pad_ragged(
@@ -71,11 +84,18 @@ class PromptPipeline(BasePipeline):
         mode, no tokenizer).
     :param tokenizer: HF tokenizer or None.
     :param max_prompt_length: fixed prompt width.
+    :param bucket_widths: optional prompt-length buckets (``normalize_buckets``;
+        max_prompt_length is always the last). Each prompt is padded to the
+        smallest width that holds it, and ``create_loader`` returns a
+        ``BucketedBatchLoader``. ``__getitem__`` and the full-width arrays
+        keep the single-width layout.
     """
 
-    def __init__(self, prompts: Iterable, tokenizer=None, max_prompt_length: int = 64, add_bos: bool = True):
+    def __init__(self, prompts: Iterable, tokenizer=None, max_prompt_length: int = 64, add_bos: bool = True,
+                 bucket_widths: Optional[Sequence[int]] = None):
         self.tokenizer = tokenizer
         self.max_prompt_length = max_prompt_length
+        self.bucket_widths = normalize_buckets(bucket_widths, max_prompt_length)
         if tokenizer is not None:
             bos = [tokenizer.bos_token_id] if (add_bos and tokenizer.bos_token_id is not None) else []
             token_lists = [bos + tokenizer(text, add_special_tokens=False)["input_ids"] for text in prompts]
@@ -88,6 +108,19 @@ class PromptPipeline(BasePipeline):
         )
         self.pad_id = pad_id
 
+        # Per bucket width, its member rows padded to that width.
+        self._bucket_rows, self._bucket_ids, self._bucket_mask = {}, {}, {}
+        if self.bucket_widths is not None:
+            lengths = [min(len(t), max_prompt_length) for t in token_lists]
+            target = [next(w for w in self.bucket_widths if w >= n) for n in lengths]
+            for w in self.bucket_widths:
+                rows = np.asarray([i for i, t in enumerate(target) if t == w], dtype=np.int64)
+                if len(rows) == 0:
+                    continue
+                self._bucket_rows[w] = rows
+                self._bucket_ids[w], self._bucket_mask[w] = pad_ragged(
+                    [token_lists[i] for i in rows], w, pad_id, left_pad=True, keep_last=True)
+
     def __len__(self) -> int:
         return self.input_ids.shape[0]
 
@@ -95,6 +128,14 @@ class PromptPipeline(BasePipeline):
         return {"input_ids": self.input_ids[ix], "attention_mask": self.attention_mask[ix]}
 
     def create_loader(self, batch_size: int, shuffle: bool = False, drop_last: bool = False, seed: int = 0):
+        if self.bucket_widths is not None:
+            def bucket_collate(width, ixs):
+                return {"input_ids": self._bucket_ids[width][ixs], "attention_mask": self._bucket_mask[width][ixs]}
+
+            buckets = {w: np.arange(len(rows)) for w, rows in self._bucket_rows.items()}
+            return BucketedBatchLoader(buckets, batch_size, bucket_collate, shuffle=shuffle, drop_last=drop_last,
+                                       seed=seed)
+
         def collate(ixs):
             return {"input_ids": self.input_ids[ixs], "attention_mask": self.attention_mask[ixs]}
 

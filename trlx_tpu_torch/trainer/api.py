@@ -67,7 +67,10 @@ def train(
             if model.tokenizer is None:
                 raise ValueError("default prompts need a tokenizer: pass prompts or set model.tokenizer_path")
             prompts = [model.tokenizer.bos_token] * config.train.batch_size
-        pipeline = PromptPipeline(prompts, model.tokenizer, max_prompt_length=model.prompt_length)
+        # Prompt buckets (method.gen_kwargs) shape the rollout loader only;
+        # the eval pipeline stays single-width, as in the JAX package.
+        pipeline = PromptPipeline(prompts, model.tokenizer, max_prompt_length=model.prompt_length,
+                                  bucket_widths=model.prompt_buckets)
         orch = get_orchestrator(config.train.orchestrator)(
             model, pipeline, reward_fn=reward_fn, metric_fn=metric_fn, chunk_size=config.method.chunk_size
         )

@@ -55,6 +55,7 @@ from trlx_tpu_torch.parallel.mesh import (
     AXIS_SP, allgather_host, barrier, broadcast_host, init_distributed, is_main_process, make_mesh, resolve_mesh_shape,
     set_mesh, world_size,
 )
+from trlx_tpu_torch.pipeline.overlap import PrefetchIterator, SerialFeed
 from trlx_tpu_torch.resilience import checkpoint as ckpt_util
 from trlx_tpu_torch.resilience.checkpoint import CheckpointError
 from trlx_tpu_torch.resilience.guard import check_bad_steps, guarded_update
@@ -190,9 +191,9 @@ def refuse_unported(config: TRLConfig):
     silently runs a different algorithm, or records less, than it asks
     for. The one list of such knobs: those every trainer shares, then the
     PPO method's own (a method config without them has none to refuse).
-    Int8 decode weights are PPO's rollout feature: other trainers refuse
-    them."""
-    m, mc, t = config.method, config.model, config.train
+    Int8 decode weights are PPO's rollout feature: other trainers accept
+    and ignore them, as the JAX package's do."""
+    m, t = config.method, config.train
     unported = {
         # the mesh beyond sequence parallelism
         "train.mesh dp/fsdp/tp > 1 (ROADMAP §A11)": any(int(a) > 1 for a in t.mesh[:3]),
@@ -221,15 +222,9 @@ def refuse_unported(config: TRLConfig):
     }
     if isinstance(m, PPOConfig):
         unported.update({
-            "method.rollout_overlap": m.rollout_overlap,
-            "method.max_staleness": m.max_staleness > 0,
-            "method.pack_train_batch": m.pack_train_batch,
             "method.fleet_disaggregate": m.fleet_disaggregate,
             "method.fleet_elastic": m.fleet_elastic,
-            "method.gen_kwargs.prompt_buckets": bool(m.gen_kwargs.get("prompt_buckets")),
         })
-    else:
-        unported["model.decode_weight_quant"] = mc.decode_weight_quant
     on = [k for k, v in unported.items() if v]
     if on:
         raise NotImplementedError(f"not ported yet: {', '.join(on)}")
@@ -567,22 +562,68 @@ class BaseTrainer(BaseRLTrainer):
         try:
             return self._learn_loop()
         finally:
-            # An async interval save may still be in flight: its sidecars
-            # (manifest, latest.txt) land only at finalize.
+            # The pipeline's threads first (a prefetch feed, a rollout
+            # producer): an early return (SIGTERM, total_steps mid-epoch) or
+            # an exception leaves them running otherwise. Then the save in
+            # flight: its sidecars (manifest, latest.txt) land only at
+            # finalize.
+            self._close_batch_feed()
+            self._shutdown_experience_pipeline()
             self._finalize_pending_save()
             if installed:
                 signal.signal(signal.SIGTERM, old_handler if old_handler is not None else signal.SIG_DFL)
 
+    def _prepare_batch(self, batch):
+        """Host batch → (device batch, host extras): the host-only
+        ``extras`` (the staleness column, a packed batch's fill) stay on
+        the host."""
+        return self.put_batch(batch), getattr(batch, "extras", None)
+
+    def _train_batch_feed(self):
+        """One epoch's feed of (device batch, host extras): inline
+        (``SerialFeed``) by default; with the overlapped pipeline
+        (``overlap_rollouts``) and ``method.prefetch_depth`` > 0 a
+        ``PrefetchIterator`` stages batch k+1 while step k runs. Its copies
+        are blocking copies from pageable host memory on the device's
+        default stream, which the train steps use too: a staged batch is
+        whole when it is handed over, and the card orders it with the
+        steps."""
+        depth = 0
+        if getattr(self, "overlap_rollouts", False):
+            depth = max(0, int(getattr(self.config.method, "prefetch_depth", 0) or 0))
+        if depth > 0:
+            feed = PrefetchIterator(self.train_dataloader, self._prepare_batch, depth=depth)
+        else:
+            feed = SerialFeed(self.train_dataloader, self._prepare_batch)
+        self._active_feed = feed
+        return feed
+
+    def _close_batch_feed(self):
+        feed, self._active_feed = getattr(self, "_active_feed", None), None
+        if feed is not None:
+            feed.close()
+
+    def _shutdown_experience_pipeline(self):
+        """Stop background experience machinery; PPO's override stops its
+        rollout producer."""
+
     def _learn_loop(self):
         train = self.config.train
+        timer = getattr(self, "_phase_timer", None)
         for _ in range(train.epochs):
-            for batch in self.train_dataloader:
+            feed = self._train_batch_feed()
+            while True:
+                try:
+                    device_batch, host_extras = next(feed)
+                except StopIteration:
+                    break
                 # A SIGTERM may land during the (long) rollout phase that
                 # built this loader: save before spending a step on it.
                 if self._any_preempted():
                     self._save_on_preemption()
                     return None
-                device_batch = self.put_batch(batch)
+                train_t0 = time.time()
+                phase_exclude_s = 0.0  # eval wall inside the train window
                 for _ in range(self.n_updates_per_batch):
                     forward_t0 = time.time()
                     stats = self.train_step(device_batch)
@@ -598,6 +639,13 @@ class BaseTrainer(BaseRLTrainer):
                         stats_host["samples_per_sec"] = train.batch_size / max(stats_host["step_time"], 1e-9)
                         if iv["do_eval"]:
                             stats_host.update(self.evaluate())
+                            phase_exclude_s += stats_host["eval_wall_time"]
+                        # Host-side batch metadata (the producer's staleness
+                        # column, a packed batch's fill), at log boundaries.
+                        for k, v in (host_extras or {}).items():
+                            v = np.asarray(v)
+                            stats_host[f"{k}/mean"] = float(v.mean())
+                            stats_host[f"{k}/max"] = float(v.max())
                         self.tracker.log(stats_host, step=self.iter_count)
                     if self._any_preempted():
                         self._save_on_preemption()
@@ -605,6 +653,9 @@ class BaseTrainer(BaseRLTrainer):
                     if self.iter_count >= self.total_steps:
                         self.save()
                         return self.evaluate()
+                if timer is not None:
+                    timer.add("train", max(0.0, time.time() - train_t0 - phase_exclude_s))
+            self._close_batch_feed()
             self.post_epoch_callback()
         self.save()
         return self.evaluate()

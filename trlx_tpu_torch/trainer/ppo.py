@@ -25,6 +25,30 @@ the JAX trainer's ``_refresh_decode_weights``), and read only by the
 samplers (``models.lm.decode_weights``), never by scoring or training.
 With ``method.spec_decode`` the engine verifies drafted windows
 (``engine.drafters``).
+
+The overlapped pipeline (``method.rollout_overlap``, ``method.max_staleness``;
+``pipeline.overlap``): the next iteration's experience is produced on a
+``RolloutProducer`` thread, host scoring runs on a ``ScoreWorker`` and train
+batches are staged by a ``PrefetchIterator``. At staleness 0 the producer
+runs while this thread waits for its store, from the live weights, so the
+run equals the serial one. At staleness S > 0 it runs up to S iterations
+ahead, from the boundary weights of a ``models.snapshot.RolloutSnapshot``
+handed over at each iteration boundary. Every rollout phase logs the phase
+window (``time/*_s``, ``time/overlap_fraction``, ``train_tokens_per_s``),
+serial or not. ``method.pack_train_batch`` packs each train batch's episodes
+into dense rows (``pipeline.ppo_pipeline.pack_ppo_batch``) trained with a
+block-diagonal mask and segment-aware GAE; ``method.gen_kwargs.prompt_buckets``
+pads each rollout prompt to its bucket's width.
+
+Threads and the card. Both threads enqueue on the device's default stream,
+so the card runs their work in the order it was enqueued, and the boundary
+handoff orders its copies under the snapshot's lock; the card's SMs are
+shared, so the overlap hides host and phase time rather than adding device
+throughput. Graph captures run in ``thread_local`` mode (``ops.cuda_graph``)
+because either thread may capture while the other issues work. No
+collective runs in the producer: the pipeline is refused with several
+processes, whose reward broadcast and sp ring would put two threads on one
+communicator.
 """
 
 import copy
@@ -33,18 +57,22 @@ from typing import Dict
 import numpy as np
 import torch
 
-from trlx_tpu_torch.data import PPORLBatch
+from trlx_tpu_torch.data import PackedPPOBatch, PPORLBatch
 from trlx_tpu_torch.data.configs import TRLConfig
 from trlx_tpu_torch.device import stamp
 from trlx_tpu_torch.models.heads import LMWithValueHead, extract_branch_params, swapped_params, trainable_mask
 from trlx_tpu_torch.models.hf_import import build_lm_config, load_or_init_params
+from trlx_tpu_torch.models.snapshot import RolloutSnapshot
 from trlx_tpu_torch.ops.fused_logprob import fused_logprob_eligible
 from trlx_tpu_torch.ops.generate import make_generate_fn
 from trlx_tpu_torch.ops.modeling import logprobs_from_logits
 from trlx_tpu_torch.ops.rl_losses import kl_penalty_rewards, ppo_loss
 from trlx_tpu_torch.ops.sampling import GenerateConfig, make_bigram_mask_processor, process_logits_default
 from trlx_tpu_torch.ops.w8a16 import quantize_weights
+from trlx_tpu_torch.parallel.mesh import AXIS_DP, AXIS_FSDP, world_size
+from trlx_tpu_torch.pipeline.overlap import PhaseTimer, RolloutProducer
 from trlx_tpu_torch.pipeline.ppo_pipeline import PPORolloutStorage
+from trlx_tpu_torch.pipeline.prompt_pipeline import normalize_buckets
 from trlx_tpu_torch.trainer import register_model
 from trlx_tpu_torch.trainer.base import BaseTrainer
 
@@ -115,7 +143,28 @@ class PPOTrainer(BaseTrainer):
         if self.decode_weight_quant:
             quantize_weights(self.model)
         self.rm_model = self._build_reward_model(config) if config.model.has_reward_model else None
-        self.store = PPORolloutStorage(self.pad_token_id)
+
+        # The overlapped pipeline (pipeline.overlap): background scoring,
+        # batch prefetch and the rollout producer; max_staleness > 0 also
+        # lets the producer run ahead from boundary snapshots.
+        self.max_staleness = max(0, int(m.max_staleness or 0))
+        self.overlap_rollouts = bool(m.rollout_overlap) or self.max_staleness > 0
+        if self.overlap_rollouts and world_size() > 1:
+            raise NotImplementedError(
+                "method.rollout_overlap / method.max_staleness with several processes (ROADMAP §A11): the producer's "
+                "reward broadcast and sp-ring collectives would share a communicator with the train loop's")
+        self._pack_train_batch = bool(m.pack_train_batch)
+        # Packed row counts round up to a multiple of the batch's data axes.
+        self._pack_rows_multiple = int(self.mesh.shape[AXIS_DP] * self.mesh.shape[AXIS_FSDP])
+        self._window_tokens = []
+        self._window_fill = []
+        self._phase_timer = PhaseTimer()
+        self._rollout_producer = None
+        self._snapshot_weights = None  # the producer's RolloutSnapshot, built at the first boundary
+        self._last_exp_stats = None
+        # Decided once, so iteration 0's store and every producer-built one
+        # share one column layout.
+        self.store = PPORolloutStorage(self.pad_token_id, record_staleness=self.overlap_rollouts)
         if m.target is not None:
             self.kl_ctl = AdaptiveKLController(m.init_kl_coef, m.target, m.horizon)
         else:
@@ -132,7 +181,11 @@ class PPOTrainer(BaseTrainer):
             config.train.seq_length - int(gen_kwargs.get("max_new_tokens", config.train.seq_length // 2)),
             1,
         )
-        gen_kwargs.pop("prompt_buckets", None)
+        # Prompt-length buckets: the prompt pipeline pads each prompt to the
+        # smallest listed width that holds it; rollouts decode at that width
+        # (a decode graph per bucket) and the stored queries are left-padded
+        # back to prompt_length, so the train step keeps one width.
+        self.prompt_buckets = normalize_buckets(gen_kwargs.pop("prompt_buckets", None), self.prompt_length)
         self.gen_cfg = GenerateConfig.from_gen_kwargs(
             gen_kwargs, prompt_len=self.prompt_length, pad_token_id=self.pad_token_id,
             eos_token_id=self.eos_token_id,
@@ -148,7 +201,7 @@ class PPOTrainer(BaseTrainer):
                 return process_logits_default(bigram(logits, state), gcfg, state["step"])
 
         self._gen_processor = processor
-        self._generate_fn = make_generate_fn(self.model, self.gen_cfg, processor)
+        self._generate_fns = {}  # id(module) → the module's (generate, fused generate) functions
 
         # Fused rollout statistics: the decode loop already computes the
         # policy's logprob of each sampled token, its value and (hydra) the
@@ -168,23 +221,7 @@ class PPOTrainer(BaseTrainer):
                 "decode_weight_quant, enable the fused path, or use method.rollout_engine (whose unfused scoring "
                 "delta is bounded by the engine+int8 parity test)."
             )
-        if self.fused_rollout:
-
-            def rollout_stats_fn(tok, s):
-                lp = torch.log_softmax(s["last_logits"], dim=-1)
-                return {
-                    "logprob": torch.gather(lp, -1, tok[:, None].long())[:, 0],
-                    "value": s["carry"]["values"],
-                    "branch_hidden": s["carry"]["branch_hidden"],
-                }
-
-            self._generate_fused_fn = make_generate_fn(
-                self.model, self.gen_cfg, processor,
-                carry_keys=("values", "branch_hidden"),
-                step_stats_fn=rollout_stats_fn,
-                apply_kwargs={"collect_branch_hidden": True},
-                prefill_collect=("branch_hidden",),
-            )
+        self._generate_fn, self._generate_fused_fn = self._generate_fns_for(self.model)
 
         # The continuous-batching engine (method.rollout_engine), built at
         # first use. Its episodes are always scored unfused (a policy
@@ -254,7 +291,7 @@ class PPOTrainer(BaseTrainer):
         return self.rm_model is not None
 
     @torch.no_grad()
-    def rollout_score_rm(self, tokens, mask, timings=None):
+    def rollout_score_rm(self, tokens, mask, timings=None, snapshot=None):
         """Scoring with the on-device reward model: its scores, then the
         policy re-forward and reference pass of ``rollout_score`` with those
         scores. Returns (logprobs, values, rewards, kl, scores), on the
@@ -266,7 +303,7 @@ class PPOTrainer(BaseTrainer):
         scores = reward_model_scores(self.rm_model, tokens, mask)
         if timings is not None:
             timings["rm_end"] = stamp(self.device)
-        out = self.rollout_score(tokens, mask, scores)
+        out = self.rollout_score(tokens, mask, scores, snapshot=snapshot)
         if timings is not None:
             timings["start"], timings["end"] = timings["rm_start"], stamp(self.device)
         return (*out, scores)
@@ -288,19 +325,73 @@ class PPOTrainer(BaseTrainer):
     def _batch_prompt_length(self, tokens) -> int:
         return int(tokens.shape[1]) - self.response_length
 
-    def rollout_generate(self, input_ids, attention_mask, generator=None, timings=None):
+    def _generate_fns_for(self, module):
+        """(generate, fused generate or None) bound to ``module``: the live
+        model's, or the rollout snapshot's. Each keeps its own buffers and
+        decode graphs."""
+        fns = self._generate_fns.get(id(module))
+        if fns is None:
+            fused = None
+            if self.fused_rollout:
+
+                def rollout_stats_fn(tok, s):
+                    lp = torch.log_softmax(s["last_logits"], dim=-1)
+                    return {
+                        "logprob": torch.gather(lp, -1, tok[:, None].long())[:, 0],
+                        "value": s["carry"]["values"],
+                        "branch_hidden": s["carry"]["branch_hidden"],
+                    }
+
+                fused = make_generate_fn(
+                    module, self.gen_cfg, self._gen_processor,
+                    carry_keys=("values", "branch_hidden"),
+                    step_stats_fn=rollout_stats_fn,
+                    apply_kwargs={"collect_branch_hidden": True},
+                    prefill_collect=("branch_hidden",),
+                )
+            fns = self._generate_fns[id(module)] = (make_generate_fn(module, self.gen_cfg, self._gen_processor), fused)
+        return fns
+
+    def _decode_module(self, snapshot=None):
+        """The module rollouts read: the live model, or a boundary
+        snapshot's (``_rollout_snapshot``)."""
+        return self.model if snapshot is None else snapshot["weights"].module
+
+    def _adopt_snapshot(self, snapshot=None):
+        """Start of a store: bring a snapshot's module to its newest staged
+        boundary (``RolloutSnapshot.adopt``; between stores only) and return
+        the weight version the store's rollouts read (the live model's:
+        ``iter_count``)."""
+        if snapshot is None:
+            return self.iter_count
+        return snapshot["weights"].adopt()
+
+    def _rollout_snapshot(self):
+        """Stage the live weights for the producer (main thread, at an
+        iteration boundary, no train step in flight): ``{"version":
+        iter_count, "weights": RolloutSnapshot}``. The snapshot is built at
+        the first boundary; later ones copy into it in place."""
+        if self._snapshot_weights is None:
+            trainable = {n for n, p in self.model.named_parameters() if p.requires_grad}
+            self._snapshot_weights = RolloutSnapshot(self.model, trainable)
+        self._snapshot_weights.take(self.iter_count)
+        return {"version": int(self.iter_count), "weights": self._snapshot_weights}
+
+    def rollout_generate(self, input_ids, attention_mask, generator=None, timings=None, snapshot=None):
         """Prefill + decode. Returns (tokens, mask) [b, P + R] on the device."""
         if generator is None:
             generator = self.chunk_rng(0)
-        return self._generate_fn(self.put(input_ids), self.put(attention_mask), generator, timings=timings)
+        fn = self._generate_fns_for(self._decode_module(snapshot))[0]
+        return fn(self.put(input_ids), self.put(attention_mask), generator, timings=timings)
 
-    def rollout_generate_fused(self, input_ids, attention_mask, generator=None, timings=None):
+    def rollout_generate_fused(self, input_ids, attention_mask, generator=None, timings=None, snapshot=None):
         """Generation that also returns the statistics collected in the
         decode loop: (tokens, mask, stats, prefill_extras); feed the last two
         to ``rollout_score_fused``."""
         if generator is None:
             generator = self.chunk_rng(0)
-        return self._generate_fused_fn(self.put(input_ids), self.put(attention_mask), generator, timings=timings)
+        fn = self._generate_fns_for(self._decode_module(snapshot))[1]
+        return fn(self.put(input_ids), self.put(attention_mask), generator, timings=timings)
 
     def rollout_engine(self):
         """The lazily built continuous-batching engine: one per trainer, it
@@ -326,12 +417,12 @@ class PPOTrainer(BaseTrainer):
             )
         return self._rollout_engine
 
-    def rollout_engine_variables(self):
-        """The engine's weight handoff: the live policy module, with its int8
-        decode copies when W8A16 is on. The engine is idle while ``learn()``
-        trains (the serial schedule), so it never decodes with weights
-        mid-update; a snapshot copy comes with the overlap pipeline."""
-        return self.model
+    def rollout_engine_variables(self, snapshot=None):
+        """The engine's weight handoff: the module rollouts read (with its
+        int8 decode copies when W8A16 is on): the live model, which the
+        engine reads only while no train step runs (serial schedule, or
+        staleness 0), or a boundary snapshot's module."""
+        return self._decode_module(snapshot)
 
     def _shutdown_rollout_engine(self):
         engine, self._rollout_engine = self._rollout_engine, None
@@ -342,7 +433,7 @@ class PPOTrainer(BaseTrainer):
         return float(self.kl_ctl.value)
 
     @torch.no_grad()
-    def rollout_score_fused(self, tokens, mask, scores, gen_aux, timings=None):
+    def rollout_score_fused(self, tokens, mask, scores, gen_aux, timings=None, snapshot=None):
         """Scoring with the decode-collected statistics: only the frozen
         reference branch replays (for the KL term). The branch-hidden
         sequence is [prefill positions 0..P) ; per-step entries 1..
@@ -355,12 +446,13 @@ class PPOTrainer(BaseTrainer):
         bh_steps = stats["branch_hidden"]
         bh = torch.cat([prefill_extras["branch_hidden"], bh_steps[:, 1:], torch.zeros_like(bh_steps[:, :1])], dim=1)
         rlabels, rmask = tokens[:, P:], mask[:, P:]
-        if resolve_fused_head(self.model.cfg, self.device):
-            rlp = self.model.forward_branch(
+        model = self._decode_module(snapshot)
+        if resolve_fused_head(model.cfg, self.device):
+            rlp = model.forward_branch(
                 bh, mask, logits_start=P - 1, labels=rlabels, labels_mask=rmask, params=self.extras
             )
         else:
-            ref_logits = self.model.forward_branch(bh, mask, logits_start=P - 1, params=self.extras).float()
+            ref_logits = model.forward_branch(bh, mask, logits_start=P - 1, params=self.extras).float()
             rlp = logprobs_from_logits(ref_logits[:, :-1], rlabels)
         scores = self.put(scores, dtype=torch.float32)
         rewards, kl = kl_penalty_rewards(stats["logprob"], rlp, rmask, scores, self._kl_coef())
@@ -369,14 +461,14 @@ class PPOTrainer(BaseTrainer):
         return stats["logprob"], stats["value"], rewards, kl
 
     @torch.no_grad()
-    def rollout_score(self, tokens, mask, scores, timings=None):
+    def rollout_score(self, tokens, mask, scores, timings=None, snapshot=None):
         """Scoring by a full policy re-forward plus the reference pass (the
         path for models without a hydra branch, or with fused statistics
         off). Returns (logprobs, values, rewards, kl) [b, R]."""
         P = self._batch_prompt_length(tokens)
         if timings is not None:
             timings["start"] = stamp(self.device)
-        model, extras = self.model, self.extras
+        model, extras = self._decode_module(snapshot), self.extras
         rlabels, rmask = tokens[:, P:], mask[:, P:]
         if resolve_fused_head(model.cfg, self.device):
             out = model(tokens, mask, collect_branch_hidden=True, logits_start=P - 1,
@@ -443,7 +535,8 @@ class PPOTrainer(BaseTrainer):
     def learn(self):
         """The base loop, then the queued KL-controller updates are applied,
         so ``kl_ctl.value`` is current when training ends. The rollout
-        engine, if any, shuts down on the way out."""
+        producer (in the base loop's teardown) and then the rollout engine,
+        if any, shut down on the way out."""
         try:
             stats = super().learn()
             self._flush_kl_updates()
@@ -476,23 +569,90 @@ class PPOTrainer(BaseTrainer):
         self._shutdown_rollout_engine()
         return name
 
+    def _create_train_loader(self):
+        return self.store.create_loader(self.config.train.batch_size, shuffle=True, pack=self._pack_train_batch,
+                                        rows_multiple=self._pack_rows_multiple)
+
     def prepare_learning(self):
+        """The loaders and step counts; with the overlapped pipeline, the
+        rollout producer starts here: parked at staleness 0 (its first
+        store waits for the first boundary), generating iteration 1's store
+        at once at staleness S > 0, from a snapshot of the weights that
+        built iteration 0's."""
         self.eval_dataloader = self.eval_pipeline.create_loader(self.config.train.batch_size)
-        self.train_dataloader = self.store.create_loader(self.config.train.batch_size, shuffle=True)
+        self.train_dataloader = self._create_train_loader()
         self.n_updates_per_batch = self.config.method.ppo_epochs
         self.total_steps = min(
             self.config.train.epochs * self.n_updates_per_batch * len(self.train_dataloader),
             self.config.train.total_steps,
         )
+        orch = self.orch
+        if self.overlap_rollouts and orch is not None and self._rollout_producer is None:
+            num_rollouts = self.config.method.num_rollouts
+
+            def produce(store, index, snapshot, staleness, stop):
+                orch.make_experience(num_rollouts, self.iter_count, store=store, snapshot=snapshot,
+                                     staleness=staleness, stop=stop)
+
+            def new_store():
+                return PPORolloutStorage(self.pad_token_id, record_staleness=True)
+
+            self._rollout_producer = RolloutProducer(produce, new_store, max_staleness=self.max_staleness).start(
+                snapshot=self._rollout_snapshot() if self.max_staleness > 0 else None)
 
     def post_epoch_callback(self):
-        """Back to rollouts (the serial schedule): apply the queued KL
-        updates, generate the next iteration's experience into the cleared
-        store with the updated policy, and rebuild the train loader."""
+        """Back to rollouts: apply the queued KL updates, then either
+        generate the next iteration's experience into the cleared store
+        (serial), or release the producer (one iteration consumed, with the
+        boundary snapshot at staleness > 0) and take its next store. Then
+        the train loader is rebuilt and the phase window logged."""
         self._flush_kl_updates()
-        self.store.clear_history()
-        self.orch.make_experience(self.config.method.num_rollouts, self.iter_count)
-        self.train_dataloader = self.store.create_loader(self.config.train.batch_size, shuffle=True)
+        if self._rollout_producer is None:
+            self.store.clear_history()
+            self.orch.make_experience(self.config.method.num_rollouts, self.iter_count)
+        else:
+            snapshot = self._rollout_snapshot() if self.max_staleness > 0 else None
+            self._rollout_producer.consume_done(snapshot=snapshot)
+            self.store = self._rollout_producer.next_store()
+        self.train_dataloader = self._create_train_loader()
+        self._log_phase_window()
+
+    def _prepare_batch(self, batch):
+        """The base staging, metering the train phase's tokens (the padded
+        row area the step processes, times the PPO epochs that reuse the
+        batch) and, for a packed batch, its fill. Appended per batch (safe
+        from the prefetch thread), reduced at the next phase window."""
+        if isinstance(batch, PackedPPOBatch):
+            tokens = int(np.prod(batch.input_ids.shape))
+            if batch.extras and "pack_fill" in batch.extras:
+                self._window_fill.append(float(batch.extras["pack_fill"]))
+        else:
+            tokens = batch.query_tensors.shape[0] * (batch.query_tensors.shape[1] + batch.response_tensors.shape[1])
+        self._window_tokens.append(tokens * max(1, getattr(self, "n_updates_per_batch", 1)))
+        return super()._prepare_batch(batch)
+
+    def _log_phase_window(self):
+        """Log the phase window at the rollout boundary: one window spans
+        train(iteration n) + rollout/score(iteration n+1), the span the
+        pipeline overlaps."""
+        stats = self._phase_timer.window()
+        window_tokens, self._window_tokens = self._window_tokens, []
+        window_fill, self._window_fill = self._window_fill, []
+        train_s = stats.get("time/train_s", 0.0)
+        if window_tokens and train_s > 0:
+            stats["train_tokens_per_s"] = float(sum(window_tokens)) / train_s
+        if window_fill:
+            stats["train_batch_fill"] = float(np.mean(window_fill))
+        if self._last_exp_stats:
+            stats.update(self._last_exp_stats)
+        self.tracker.log(stats, step=self.iter_count)
+
+    def _shutdown_experience_pipeline(self):
+        """learn()'s teardown: stop the rollout producer (also on the
+        preemption and early-return paths)."""
+        producer, self._rollout_producer = self._rollout_producer, None
+        if producer is not None:
+            producer.shutdown()
 
 
 @torch.no_grad()
@@ -511,10 +671,25 @@ def make_ppo_loss_fn(model: LMWithValueHead, config: TRLConfig, prompt_length: i
     """``loss_fn(batch) -> (loss, stats)`` over a device ``PPORLBatch``: the
     policy re-forward of query + response, then ``ppo_loss``. Dense: logits
     → f32 log_softmax; fused: the label logprobs come from the fused head
-    (its autograd Function), so no [b, R, V] logits exist."""
+    (its autograd Function), so no [b, R, V] logits exist. With
+    ``method.pack_train_batch`` over a ``PackedPPOBatch``: the segment-masked
+    forward in labels mode (the fused head where ``routed_logprob`` takes
+    it, as the JAX package's packed loss does) and the segment-aware loss,
+    per-sequence stats over ``train.batch_size`` episodes."""
     m = config.method
     P = prompt_length
     kw = dict(gamma=m.gamma, lam=m.lam, cliprange=m.cliprange, cliprange_value=m.cliprange_value, vf_coef=m.vf_coef)
+
+    if m.pack_train_batch:
+
+        def packed_loss_fn(batch: PackedPPOBatch):
+            out = model(batch.input_ids, batch.attention_mask, position_ids=batch.position_ids,
+                        segment_ids=batch.segment_ids, labels=batch.labels, labels_mask=batch.loss_mask)
+            return ppo_loss(out["logprobs"], out["values"].float(), batch.old_logprobs, batch.old_values,
+                            batch.rewards, batch.loss_mask, segment_ids=batch.segment_ids,
+                            n_seqs=config.train.batch_size, **kw)
+
+        return packed_loss_fn
 
     def loss_fn(batch: PPORLBatch):
         all_ids = torch.cat([batch.query_tensors, batch.response_tensors], dim=1)

@@ -6,6 +6,7 @@ disables it, as in the JAX package."""
 import json
 import os
 import sys
+import threading
 import time
 from typing import Any, Dict, Optional
 
@@ -16,6 +17,7 @@ class Tracker:
     def __init__(self, log_dir: str, config: Optional[Dict[str, Any]] = None):
         self.enabled = is_main_process() and os.environ.get("TRLX_TPU_DISABLE_TRACKER", "") in ("", "0")
         self._file = None
+        self._lock = threading.Lock()  # the rollout producer logs from its own thread
         if not self.enabled:
             return
         os.makedirs(log_dir, exist_ok=True)
@@ -25,8 +27,10 @@ class Tracker:
             self._write_record({"_config": {k: str(v) for k, v in config.items()}})
 
     def _write_record(self, record: Dict[str, Any]):
-        self._file.write(json.dumps(record) + "\n")
-        self._file.flush()
+        line = json.dumps(record) + "\n"
+        with self._lock:
+            self._file.write(line)
+            self._file.flush()
 
     def log(self, stats: Dict[str, Any], step: Optional[int] = None):
         """One record of scalars (non-numeric values are stored as str)."""
