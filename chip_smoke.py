@@ -39,12 +39,10 @@ prefix, a dead slot on the trash block and a fully masked row), then drives
 7. checkpoints: the end of every ``learn()`` saves (``[ckpt]`` lines: bytes,
    device-to-host, write, crc, manifest and load seconds, GB/s, beside the
    card), verified against its manifest and deleted when its path is done;
-   ``[resume]``: PPO at full depth resumed from ``hf_rm_train``'s
-   ``state_16`` into a fresh trainer (the loaded state bit-equal to the
-   saver's, 8 more steps with their launches), ILQL at 2 layers (2 steps,
-   save, resume, 2 steps); and a load into a trainer whose decode graph is
-   captured, whose greedy tokens must equal those of a trainer that loaded
-   first (4 layers, after an async save);
+   ``[resume]``: ILQL at 8 layers from ``ilql_train``'s end save (2 more
+   steps); PPO's
+   resume, and a load into a trainer whose decode graphs are captured, are
+   ``resilience_drill``'s run 2 (13.);
 8. HF checkpoints, text and the reward model (``hf_rm_train``, run second):
    the policy written as a GPT-J-6B HF directory (the published config.json,
    seeded bf16 safetensors in 5 GB shards with an index) and an 8-layer
@@ -53,7 +51,7 @@ prefix, a dead slot on the trash block and a fully masked row), then drives
    and a byte-level tokenizer: every loaded tensor held against what was
    written, both directories deleted before ``learn()``, the rollouts scored
    by the reward model, 16 steps, ``evaluate()`` on its scores, the end
-   save kept for ``[resume]``; ``text_ppo``: ``train(reward_fn=<over str>,
+   save checked and deleted; ``text_ppo``: ``train(reward_fn=<over str>,
    prompts=[str])`` at 4 layers, then ``save_pretrained`` read back in part;
    ``[rm-route]``: the reward model's score on the kernel route against the
    plain route (2 layers);
@@ -77,6 +75,18 @@ prefix, a dead slot on the trash block and a fully masked row), then drives
    and int8 KV on that mesh (every full-sequence pass through the ring, rows
    1-3 in the offset mode in every layer, row 8 on decode), then the same
    run at sp = 1: token-identical rollouts, step 1 within 2e-2;
+12. the overlapped pipeline (``overlap_train``, 4 layers): serial, overlapped
+   at staleness 0 (bit-equal to serial) and staleness 1 with packed batches
+   and prompt buckets;
+13. resilience and the incident path (``resilience_drill``, 4 layers, the
+   paged int8 engine): a run with a reward_fn exception and hang (retried),
+   a NaN-poisoned step (skipped, parameters and moments bit-equal, its
+   gradients non-finite through the backward kernels), a corrupted
+   checkpoint and a SIGTERM; its resume past the corrupt checkpoint with the
+   watchdog rolling back in place at a decayed LR, a slow step's and a
+   reward-drift CRIT's incident bundles, ``/healthz`` and ``/metrics``
+   scraped live; and the live engine's greedy tokens after the rollback
+   against a fresh trainer's on the restored checkpoint;
 
 and checks that each path went through every kernel it runs, exactly as
 often as its config says.
@@ -107,6 +117,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
+
+# The port's Tracker logs to wandb whenever wandb imports, as the JAX
+# package's does. The smoke records to metrics.jsonl only: wandb stays out
+# of this process even where the card machine's Python has it installed, so
+# no run reaches for a wandb login or the network.
+sys.modules.setdefault("wandb", None)
 
 # H100 SXM published dense peaks (NVIDIA data sheet): bf16 tensor cores and
 # HBM3 bandwidth. Bounds below are the larger of bytes / BW and ops / peak.
@@ -1422,106 +1438,8 @@ def train_path(kernels):
         "launches": launches,
     }
     log(f"[train] trlx_tpu_torch.train at GPT-J-6B width ({n_layer} layers), {steps} steps: {json.dumps(out)}")
-    # The end save stays on disk for the resume path, with the state it holds.
-    out["ckpt"] = check_end_save("train_bf16", trainer, run_dir, verify=False)  # resume_path's load verifies it
-    out["saved_state"], out["run_dir"] = fp["end"], run_dir
-    del trainer
-    free()
-    return out, launches
-
-
-RESUME_STEPS = 24  # the resumed PPO run: one more rollout phase of 8 steps after the saved 16
-
-
-def resume_path(kernels, saved, run_dir):
-    """``trlx_tpu_torch.train(reward_fn=...)`` at GPT-J-6B width and
-    ``TRAIN_LAYERS`` layers (cut from full depth to keep the smoke inside
-    its time limit) with ``train.resume_from_checkpoint``, from
-    ``train_bf16``'s end checkpoint (``state_16`` in ``run_dir``) into a
-    fresh trainer: the loaded state
-    must be bit-equal to the saving trainer's at its save (parameter groups,
-    extras, moments, the applied-update count, step, guard counts, KL
-    coefficient); then one rollout phase from the restored policy and 8
-    steps to ``RESUME_STEPS``, the first at schedule(restored count), each
-    launching what a train step must, then the end save (``state_24``) and
-    evaluate(). ``state_16`` is deleted once loaded: the disk holds one
-    checkpoint at a time."""
-    import trlx_tpu_torch
-    from trlx_tpu_torch.resilience import checkpoint as ckpt_util
-    from trlx_tpu_torch.trainer import register_model
-
-    n_layer, k = TRAIN_LAYERS, 2
-
-    @register_model("SmokeResumedPPOTrainer")
-    class SmokeResumedPPOTrainer(make_timed_trainer(kernels, n_layer)):
-        def __init__(self, config, **kwargs):
-            super().__init__(config, **kwargs)
-            shutil.rmtree(os.path.join(run_dir, f"state_{saved['step']}"))
-
-    config = train_config(n_layer, SmokeResumedPPOTrainer.__name__, run_dir)
-    config.train.total_steps, config.train.epochs = RESUME_STEPS, 3
-    config.train.resume_from_checkpoint = True
-    for fn in kernels.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
-    trainer = trlx_tpu_torch.train(reward_fn=reward_fn, prompts=seeded_prompts(N_ROLLOUTS, 0),
-                                   eval_prompts=seeded_prompts(CHUNK, 1), config=config)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in kernels.items()}
-    loaded = trainer.fp["start"]
-    diff = {key: (loaded.get(key), v) for key, v in saved.items() if loaded.get(key) != v}
-    log(f"[resume] loaded state vs the saving trainer's: {len(saved) - len(diff)} of {len(saved)} entries equal "
-        f"(step {loaded['step']}, count {loaded['count']}, host {json.dumps(loaded['host'])})")
-    if not trainer._resumed or diff:
-        raise AssertionError(f"resumed {trainer._resumed}; loaded state differs from the saved one: {diff}")
-    check_loaded_from("resume_ppo", trainer, f"state_{saved['step']}")
-
-    steps = RESUME_STEPS - saved["step"]
-    R = MAX_LEN - PROMPT_LEN
-    chunks = N_ROLLOUTS // CHUNK  # train()'s make_experience; no epoch ends before RESUME_STEPS
-    per_step = train_step_launches(kernels, n_layer)
-    expected = dict.fromkeys(kernels, 0)
-    expected.update({
-        "flash_attention_fwd": chunks * (n_layer + k) + steps * 2 * n_layer + n_layer,
-        "decode_attention": (chunks + 1) * n_layer * R,
-        "fused_logprob_fwd": chunks + steps,
-        "flash_attention_bwd_dq": steps * n_layer, "flash_attention_bwd_dkv": steps * n_layer,
-        "fused_logprob_bwd_dx": steps * per_step["fused_logprob_bwd_dx"], "fused_logprob_bwd_dw": steps,
-    })
-    log(f"[resume] launches {launches} expected {expected}")
-    if launches != expected:
-        raise AssertionError(f"resumed run's kernel launches {launches} != {expected}")
-    log_ = trainer.step_log
-    if (len(log_), trainer.iter_count, trainer.step, trainer.optimizer.count) != (steps, RESUME_STEPS,
-                                                                                  RESUME_STEPS, RESUME_STEPS):
-        raise AssertionError(f"{len(log_)} steps, iter_count {trainer.iter_count}, step {trainer.step}, count "
-                             f"{trainer.optimizer.count}; expected {steps} steps to {RESUME_STEPS}")
-    for i, rec in enumerate(log_):
-        bad = [key for key, v in rec.items() if key != "launches" and not np.isfinite(v)]
-        if rec["launches"] != per_step or bad or rec["resilience/nonfinite"] != 0.0:
-            raise AssertionError(f"resumed step {saved['step'] + i + 1}: launches {rec['launches']}, non-finite "
-                                 f"{bad}, guard {rec['resilience/nonfinite']}")
-    lr = float(np.float32(trainer.schedule(saved["count"])))
-    if log_[0]["learning_rate"] != lr or not abs(log_[0]["mean_ratio"] - 1.0) <= 0.05:
-        raise AssertionError(f"first resumed step: learning_rate {log_[0]['learning_rate']} (schedule(count) = {lr}), "
-                             f"mean_ratio {log_[0]['mean_ratio']}")
-    if ckpt_util.list_checkpoints(run_dir) != [f"state_{RESUME_STEPS}"]:
-        raise AssertionError(f"checkpoints after the resumed run: {ckpt_util.list_checkpoints(run_dir)}")
-    dev_s = [r["device_s"] for r in log_]
-    out = {
-        "wall_s": wall,
-        "step_device_s": dev_s,
-        "step_device_s_median": float(np.median(dev_s)),
-        "first_step_learning_rate": log_[0]["learning_rate"],
-        "mean_ratio_per_step": [r["mean_ratio"] for r in log_],
-        "kl_coef_start": loaded["host"]["kl_coef"],
-        "kl_coef_end": float(trainer.kl_ctl.value),
-        "eval": dict(trainer.eval_log[0]),
-        "launches": launches,
-    }
-    log(f"[resume] PPO at GPT-J-6B ({n_layer} layers) from state_{saved['step']} to {RESUME_STEPS}: {json.dumps(out)}")
-    out["ckpt"] = check_end_save("resume_ppo", trainer, run_dir)
+    # resilience_drill's loads verify manifests written by the same save.
+    out["ckpt"] = check_end_save("train_bf16", trainer, run_dir, verify=False)
     del trainer
     free()
     shutil.rmtree(run_dir)
@@ -1961,7 +1879,8 @@ def engine_train_path(kernels):
     before_eval = trainer.launches_before_eval
     if any(before_eval[n] for n in ("decode_attention", "decode_attention_int8", "paged_decode_attention")):
         raise AssertionError(f"rows 7-9 launched before evaluate(): {before_eval}")
-    out["ckpt"] = check_end_save("engine_train", trainer, run_dir)
+    # resilience_drill's loads verify manifests written by the same save.
+    out["ckpt"] = check_end_save("engine_train", trainer, run_dir, verify=False)
 
     del trainer, engine, eng
     free()
@@ -2106,6 +2025,451 @@ def overlap_train_path(kernels):
         raise AssertionError(f"(c)'s packed steps launched the flash backward: {c['launches']}")
     return {k: {kk: vv for kk, vv in v.items() if kk not in ("store_columns", "params", "steps")}
             for k, v in results.items()}, launches_sum
+
+
+DRILL_LAYERS = 4  # depth of the resilience drill, at GPT-J-6B width
+DRILL_STEPS = 12
+DRILL_RUN1_FAULTS = "reward_exc@1,reward_hang@2,nan_grad@3,ckpt_corrupt@2,sigterm@5"
+DRILL_SAVE_INTERVAL = 4  # run 1 saves state_4, then the preemption's state_5: a 4-layer save is 14.2 GB, ~28 s
+DRILL_RUN2_FAULTS = "reward_drift@2,nan_grad@6,nan_grad@7,slow_step@10"
+DRILL_SLOW_STEP_S = 2.0
+DRILL_REWARD_TIMEOUT_S = 1.0
+# Only the poisoned steps may trip the watchdog: at 0.5 a new store's loss
+# jump after a rollout tripped it a second time on random weights, and at
+# an unramped LR the loss reached 98.8 by step 12.
+DRILL_WATCHDOG_THRESHOLD = 1e6
+
+
+def drill_fingerprints(trainer, n_layer: int):
+    """``state_fingerprints`` without the host state (reading it flushes
+    the trainer's resilience buffer, which would change what the watchdog
+    sees)."""
+    fps = group_fingerprints(trainer, n_layer)
+    fps.update(mu=fingerprint(trainer.optimizer.mu), nu=fingerprint(trainer.optimizer.nu),
+               count=trainer.optimizer.count, step=trainer.step, bad_steps=trainer.bad_steps)
+    return fps
+
+
+def free_local_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def scrape(port: int, path: str) -> str:
+    """GET a path of the trainer's metrics endpoint on this machine."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=10) as r:
+        return r.read().decode()
+
+
+def incident_bundles(run_dir: str):
+    """{reason: [(step directory, incident.json)]} of a run's bundles."""
+    root = os.path.join(run_dir, "incidents")
+    out = {}
+    for name in sorted(os.listdir(root)) if os.path.isdir(root) else []:
+        with open(os.path.join(root, name, "incident.json")) as f:
+            rec = json.load(f)
+        out.setdefault(rec["reason"], []).append((name, rec))
+    return out
+
+
+def engine_greedy_tokens(trainer, prompts):
+    """Drain the trainer's rollout engine over ``prompts`` under the live
+    weights (version ``step``): {prompt ids: response ids}."""
+    from trlx_tpu_torch.pipeline.prompt_pipeline import PromptPipeline
+
+    engine = trainer.rollout_engine()
+    pipe = PromptPipeline(prompts, None, max_prompt_length=trainer.prompt_length)
+    engine.update_weights(trainer.model, version=trainer.step)
+    engine.submit(pipe.input_ids, pipe.attention_mask)
+    eps = []
+    while True:
+        eps.extend(engine.step())
+        if engine.idle:
+            break
+    engine.stats(reset=True)  # the next phase's gauges count only its own calls
+    return {tuple(e.prompt_ids.tolist()): e.response_ids.copy() for e in eps}
+
+
+def chunked_greedy_tokens(trainer, prompts):
+    """The chunked sampler's greedy tokens [b, P + R] (host) over
+    ``prompts`` under the live weights."""
+    from trlx_tpu_torch.pipeline.prompt_pipeline import PromptPipeline
+
+    pipe = PromptPipeline(prompts, None, max_prompt_length=trainer.prompt_length)
+    return trainer.to_host(trainer.rollout_generate(pipe.input_ids, pipe.attention_mask)[0])
+
+
+def chunked_graph(trainer):
+    """The chunked sampler's captured decode graph (None before a capture)."""
+    return trainer._generate_fn.keywords["_keep"].get("buffers", {}).get("graph")
+
+
+def resilience_drill_path(kernels):
+    """The resilience layer and the single-process incident path on the main
+    path: ``trlx_tpu_torch.train(reward_fn=...)`` through the paged int8
+    engine with ``engine_train``'s settings at GPT-J-6B width and
+    ``DRILL_LAYERS`` layers (16 prompts, batch 8, 4 PPO epochs, 12 steps),
+    reward_fn_timeout 1 s, backoff 0.
+
+    (a) Run 1: ``DRILL_RUN1_FAULTS``, a save every ``DRILL_SAVE_INTERVAL``
+    steps (a 4-layer checkpoint is 14.2 GB), spans, the anomaly detector
+    (factor 3). It must stop at step 5, preempted, with every fault fired:
+    the score wrapper makes 2 more attempts than the chunks it scored (the
+    raised one never reaches reward_fn; the hung one's call finishes on its
+    abandoned thread, so reward_fn runs chunks + 1 times); one skipped step,
+    whose gradients through the hand-written backward kernels are wholly
+    non-finite (the kernels hand the NaN on) while parameters and moments
+    stay bit-equal and it launches what a step launches; the second
+    completed save, the preemption's state_5, named by latest.txt and
+    failing verification; a guard_skip bundle at step 3 (threads, the card's
+    memory); spans of the train step, the engine and the checkpoints and
+    the guard_skip instant.
+
+    (b) Run 2 resumes (greedy decode, saves only at the end), and holds what
+    the resumed PPO run of earlier smokes held: the loaded state bit-equal,
+    the first resumed step at schedule(step) with mean_ratio within 1 +-
+    0.05, every step's launches. It arms the health
+    monitor (warmup 1, streaks 1 and 2) with the metrics endpoint on a local
+    port and reward_drift@2; the anomaly detector with slow_step@10 (2 s);
+    the watchdog (``DRILL_WATCHDOG_THRESHOLD``, patience 2, warmup 1, decay
+    0.5, 2 rollbacks) with nan_grad@6 and @7. The resume falls back past state_5 to
+    state_4, bit-equal to run 1's state there; step 7's flush rolls back to
+    state_4 again, in place, at lr_scale 0.5 (the next step's learning rate
+    half the schedule's); a slow_step bundle at step 10; the reward-drift
+    detector at CRIT with its bundle; /healthz critical and /metrics serving
+    health/* while the run is live; step 12 with a finite loss.
+
+    (c) Run 2's trainer, fresh off its resume load of state_4, decodes 8
+    prompts greedily through its engine and its chunked sampler (each
+    captures its decode graph); just before the rollback the tokens must
+    differ (step 5 moved the weights, at an unramped LR), and right after it,
+    replaying the same graphs, they must be equal again. With run 1's async
+    save of state_4 (step 5 trains before it is finalized) and run 2's
+    bit-equal load, this is the smoke's check of a load into a trainer whose
+    decode graphs are captured.
+
+    Returns the runs' numbers and the launches of runs 1 and 2."""
+    import trlx_tpu_torch
+    from trlx_tpu_torch.observability.spans import read_spans
+    from trlx_tpu_torch.resilience import checkpoint as ckpt_util
+    from trlx_tpu_torch.trainer import base as trainer_base
+    from trlx_tpu_torch.trainer import register_model
+    from trlx_tpu_torch.trainer.base import lr_schedule
+
+    if os.environ.get("TRLX_TPU_FAULTS"):
+        raise AssertionError("TRLX_TPU_FAULTS is set: it would replace the drill's fault plans")
+    n_layer = DRILL_LAYERS
+    run_dir = os.path.join(RUN_DIR, "resilience_drill")
+    card = card_line()
+    check_prompts = engine_prompts()[:ENGINE["engine_slots"]]
+    lock = threading.Lock()
+    drill = {"reward_fn": 0, "fp": {}, "nan_grads": [], "record_fp": True}
+
+    def counted_reward(samples):
+        with lock:  # an abandoned timed-out attempt may call it from its own thread
+            drill["reward_fn"] += 1
+        return reward_fn(samples)
+
+    orig_guard = trainer_base.guarded_update
+
+    def spy_guard(optimizer, params, grads, loss, bad_steps):
+        out = orig_guard(optimizer, params, grads, loss, bad_steps)
+        if not out[1]:  # a skipped step: the finite elements left in each gradient
+            drill["nan_grads"].append([(int(torch.isfinite(g).sum()), g.numel()) for g in grads])
+        return out
+
+    def finite_by_name(trainer, counts):
+        names = [n for n, p in trainer.model.named_parameters() if p.requires_grad]
+        return dict(zip(names, counts))
+
+    def on_built(trainer):
+        # Run 2's trainer, fresh off its resume load of state_4 and before any
+        # rollout: its engine's greedy tokens, the reference the rollback
+        # check holds the live engine to (a second trainer would cost another
+        # 14.2 GB load the smoke's time limit has no room for).
+        if trainer._resumed:
+            t0 = time.perf_counter()
+            drill["tokens_fresh"] = engine_greedy_tokens(trainer, check_prompts)
+            drill["chunked_fresh"] = chunked_greedy_tokens(trainer, check_prompts)
+            drill["fresh_s"] = time.perf_counter() - t0
+            graph = trainer._rollout_engine._graph
+            drill["graph_fresh"] = graph[1] if graph is not None else None
+            drill["chunked_graph_fresh"] = chunked_graph(trainer)
+
+    @register_model("SmokeDrillPPOTrainer")
+    class SmokeDrillPPOTrainer(make_timed_trainer(kernels, n_layer, on_built=on_built)):
+        def train_step(self, batch):
+            stats = super().train_step(batch)  # synced, its launches recorded
+            if drill["record_fp"]:
+                drill["fp"][self.step] = drill_fingerprints(self, n_layer)
+            return stats
+
+        def _rollback(self):
+            engine = self._rollout_engine
+            graph = engine._graph[1] if engine is not None and engine._graph is not None else None
+            # The weights the rollback replaces decode otherwise, or the
+            # check below would see nothing.
+            drill["tokens_pre"] = engine_greedy_tokens(self, check_prompts)
+            drill["chunked_pre"] = chunked_greedy_tokens(self, check_prompts)
+            ptrs = [t.data_ptr() for t in (*self.model.parameters(), *self.optimizer.mu, *self.optimizer.nu)]
+            loads = len(self.checkpoint_log)
+            t0 = time.perf_counter()
+            super()._rollback()
+            rb = {"wall_s": time.perf_counter() - t0, "iter_count": self.iter_count, "lr_scale": self._lr_scale,
+                  "rollbacks": self._rollbacks, "load": self.checkpoint_log[loads:],
+                  "in_place": ptrs == [t.data_ptr() for t in (*self.model.parameters(), *self.optimizer.mu,
+                                                              *self.optimizer.nu)],
+                  "graph_before": graph is not None}
+            t0 = time.perf_counter()
+            drill["tokens_live"] = engine_greedy_tokens(self, check_prompts)
+            drill["chunked_live"] = chunked_greedy_tokens(self, check_prompts)
+            rb["check_s"] = time.perf_counter() - t0
+            rb["chunked_graph_fresh"] = (drill.get("chunked_graph_fresh") is not None
+                                         and chunked_graph(self) is drill["chunked_graph_fresh"])
+            rb["graph_kept"] = graph is not None and engine._graph is not None and engine._graph[1] is graph
+            rb["graph_fresh"] = rb["graph_kept"] and graph is drill.get("graph_fresh")
+            rb["engine_version"] = engine.weight_version
+            drill["rollback"] = rb
+
+        def evaluate(self):
+            if self._metrics_exporter is not None:  # run 2's end, with the endpoint still live
+                port = self._metrics_exporter.port
+                drill["healthz"] = json.loads(scrape(port, "/healthz"))
+                drill["metrics_text"] = scrape(port, "/metrics")
+            return super().evaluate()
+
+    def config_for(**train):
+        config = train_config(n_layer, SmokeDrillPPOTrainer.__name__, run_dir, method=dict(ENGINE, paged_kv=True),
+                              quant=True)
+        config.train.total_steps = DRILL_STEPS
+        config.train.reward_fn_timeout, config.train.reward_fn_backoff = DRILL_REWARD_TIMEOUT_S, 0.0
+        config.train.max_incidents = 16  # a detector's own trip must not spend the drill's budget
+        # No LR ramp: step 5's update must move the greedy tokens the rollback check compares.
+        config.train.lr_ramp_steps = 1
+        for key, v in train.items():
+            setattr(config.train, key, v)
+        return config
+
+    def run(config):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = trlx_tpu_torch.train(reward_fn=counted_reward, prompts=engine_prompts(),
+                                       eval_prompts=seeded_prompts(CHUNK, 1), config=config)
+        torch.cuda.synchronize()
+        return trainer, time.perf_counter() - t0
+
+    def records():
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            return [json.loads(line) for line in f]
+
+    def ckpt_summary(trainer):
+        return [{k: rec.get(k) for k in ("op", "name", "fallback", "bytes", "save_s", "write_s", "load_s",
+                                         "verify_s", "read_s", "copy_s")} for rec in trainer.checkpoint_log]
+
+    per_step = train_step_launches(kernels, n_layer)
+    need = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "fused_logprob_fwd",
+            "fused_logprob_bwd_dx", "fused_logprob_bwd_dw", "decode_attention_int8", "paged_decode_attention_int8")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    trainer_base.guarded_update = spy_guard
+    slow_env = os.environ.get("TRLX_TPU_SLOW_STEP_SECONDS")
+    for fn in kernels.values():
+        fn.launches = 0
+    try:
+        # ------------------------------------------------------------ run 1
+        trainer, wall1 = run(config_for(fault_plan=DRILL_RUN1_FAULTS, checkpoint_interval=DRILL_SAVE_INTERVAL,
+                                        trace_spans=True, anomaly_factor=3.0))
+        orch = trainer.orch
+        deadline = time.time() + 3 * DRILL_REWARD_TIMEOUT_S + 10
+        while any(t.name == "call-with-timeout" for t in threading.enumerate()) and time.time() < deadline:
+            time.sleep(0.1)
+        chunks = len(orch.reward_log)
+        recs1 = records()
+        step3 = [r for r in recs1 if r.get("step") == 3 and "loss" in r]
+        saves = [r["name"] for r in trainer.checkpoint_log if r["op"] == "save"]
+        bundles1 = incident_bundles(run_dir)
+        events = read_spans(os.path.join(run_dir, "spans.jsonl"))
+        span_names = {e["name"] for e in events if e["ph"] == "X"}
+        guard3 = [(d, rec) for d, rec in bundles1.get("guard_skip", []) if d == "3"]
+        run1 = {
+            "wall_s": wall1, "iter_count": trainer.iter_count, "skipped_steps": trainer.skipped_steps,
+            "fired": [(f.kind, f.at, f.fired) for f in trainer.fault_plan.faults],
+            "reward_calls": orch.reward_log, "reward_fn_runs": drill["reward_fn"], "chunks_scored": chunks,
+            "retry_cost_s": [c["wall_s"] - c["last_attempt_s"] for c in orch.reward_log if c["attempts"] > 1],
+            "saves": saves, "latest": ckpt_util.latest_pointer(run_dir),
+            "state_5_verifies": ckpt_util.verify_checkpoint(run_dir, "state_5")[0],
+            "nan_step_finite_grad_elements": [finite_by_name(trainer, c) for c in drill["nan_grads"]],
+            "nan_step_launches": trainer.step_log[2]["launches"] if len(trainer.step_log) > 2 else None,
+            "incidents": {k: [d for d, _ in v] for k, v in bundles1.items()},
+            "incident_capture_s": [(b["step"], b["reason"], b["capture_s"]) for b in trainer._incidents.bundles],
+            "ckpt": ckpt_summary(trainer),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        }
+        log(f"[resilience_drill] run 1 ({n_layer} layers, {DRILL_RUN1_FAULTS}) on {card}: {json.dumps(run1)}")
+        fp = drill["fp"]
+        if trainer.iter_count != 5 or not any(r.get("preempted_at_step") == 5 for r in recs1):
+            raise AssertionError(f"run 1 stopped at {trainer.iter_count}, not preempted at step 5")
+        if not all(f for _, _, f in run1["fired"]):
+            raise AssertionError(f"run 1: faults not fired {run1['fired']}")
+        if [c["attempts"] for c in orch.reward_log] != [2, 2] or drill["reward_fn"] != chunks + 1:
+            raise AssertionError(f"run 1: reward attempts {[c['attempts'] for c in orch.reward_log]} (expected 2, 2: "
+                                 f"{chunks} chunks + 2), reward_fn ran {drill['reward_fn']} times (expected "
+                                 f"{chunks + 1}: the hung attempt's call finishes on its own thread)")
+        if trainer.skipped_steps != 1 or not step3 or step3[0]["resilience/nonfinite"] != 1.0 or \
+                step3[0]["resilience/bad_steps"] != 1.0:
+            raise AssertionError(f"run 1: skipped {trainer.skipped_steps}, step 3's record {step3}")
+        keys = [k for k in fp[2] if k not in ("step", "bad_steps")]
+        if any(fp[2][k] != fp[3][k] for k in keys):
+            raise AssertionError(f"run 1: the poisoned step 3 changed {[k for k in keys if fp[2][k] != fp[3][k]]}")
+        # Every gradient that comes through a hand-written backward kernel
+        # (the blocks: rows 2-3 and 5; ln_f: row 5's dx; the LM head: row 6)
+        # is wholly non-finite. The embedding's rows of tokens absent from
+        # the batch get no gradient, and the value head's first layer keeps
+        # zeros for ReLU units dead on every position (PyTorch's ReLU
+        # backward selects 0): those two are reported, not held.
+        counts = run1["nan_step_finite_grad_elements"]
+        kernel_fed = ("transformer.h_", "transformer.ln_f.", "transformer.lm_head.")
+        bad = {n: c for n, c in (counts[0] if len(counts) == 1 else {}).items() if n.startswith(kernel_fed) and c[0]}
+        if len(counts) != 1 or bad or not any(n.startswith(kernel_fed) for n in counts[0]):
+            raise AssertionError(f"run 1: step 3's kernel-fed gradients kept finite values: {bad or counts}")
+        if any(rec["launches"] != per_step for rec in trainer.step_log):
+            raise AssertionError(f"run 1: step launches {[rec['launches'] for rec in trainer.step_log]} != {per_step}")
+        if saves != ["state_4", "state_5"] or run1["latest"] != "state_5" or run1["state_5_verifies"]:
+            raise AssertionError(f"run 1: saves {saves}, latest {run1['latest']}, state_5 verifies "
+                                 f"{run1['state_5_verifies']}")
+        if not guard3:
+            raise AssertionError(f"run 1: no guard_skip bundle at step 3: {run1['incidents']}")
+        with open(os.path.join(run_dir, "incidents", "3", "threads.txt")) as f:
+            threads_txt = f.read()
+        with open(os.path.join(run_dir, "incidents", "3", "memory.json")) as f:
+            mem = json.load(f)["gauges"]
+        if "MainThread" not in threads_txt or mem.get("name") != torch.cuda.get_device_name(0) or \
+                not mem.get("allocated_bytes"):
+            raise AssertionError(f"run 1: the guard_skip bundle's threads ({len(threads_txt)} chars) or memory {mem}")
+        want_spans = {"train/step", "engine/prefill", "engine/decode", "rollout/reward_fn", "ckpt/save",
+                      "ckpt/finalize"}
+        if not want_spans <= span_names or not any(e["ph"] == "i" and e["name"] == "guard_skip" for e in events):
+            raise AssertionError(f"run 1 spans: missing {want_spans - span_names} or the guard_skip instant")
+        saved4 = fp[4]
+        del trainer, orch
+        free()
+
+        # ------------------------------------------------------------ run 2
+        drill["record_fp"] = False
+        os.environ["TRLX_TPU_SLOW_STEP_SECONDS"] = str(DRILL_SLOW_STEP_S)
+        config = config_for(resume_from_checkpoint=True, fault_plan=DRILL_RUN2_FAULTS, trace_spans=True,
+                            anomaly_factor=3.0, health_monitor=True, health_warmup=1, health_warn_streak=1,
+                            health_crit_streak=2, metrics_port=free_local_port(),
+                            watchdog_patience=2, watchdog_warmup=1, watchdog_lr_decay=0.5, max_rollbacks=2,
+                            watchdog_threshold=DRILL_WATCHDOG_THRESHOLD)
+        config.method.gen_kwargs = dict(config.method.gen_kwargs, do_sample=False)
+        trainer, wall2 = run(config)
+        launches = {name: fn.launches for name, fn in kernels.items()}
+        recs2 = records()
+        loads = [r for r in trainer.checkpoint_log if r["op"] == "load"]
+        loaded = trainer.fp["start"]
+        rb = drill.get("rollback") or {}
+        rb_i = next((i for i, r in enumerate(recs2) if "resilience/rollbacks" in r), None)
+        after = ([r for r in recs2[rb_i + 1:] if "loss" in r and r["resilience/nonfinite"] == 0.0]
+                 if rb_i is not None else [])
+        unscaled = float(np.float32(lr_schedule(config.train)(saved4["step"])))  # before the LR decay
+        bundles2 = incident_bundles(run_dir)
+        steps2 = [r for r in recs2 if "loss" in r]
+        health_states = [r["health/reward_drift_state"] for r in recs2 if "health/reward_drift_state" in r]
+        run2 = {
+            "wall_s": wall2, "iter_count": trainer.iter_count, "skipped_steps": trainer.skipped_steps,
+            "fired": [(f.kind, f.at, f.fired) for f in trainer.fault_plan.faults],
+            "loads": [(r["name"], r["fallback"], r["load_s"]) for r in loads],
+            "rollback": {k: v for k, v in rb.items() if k != "load"},
+            "rollback_load_s": [r.get("load_s") for r in rb.get("load", [])],
+            "lr_after_rollback": after[0]["learning_rate"] if after else None, "lr_unscaled": unscaled,
+            "incidents": {k: [d for d, _ in v] for k, v in bundles2.items()},
+            "incident_capture_s": [(b["step"], b["reason"], b["capture_s"]) for b in trainer._incidents.bundles],
+            "slow_step_detail": [rec["detail"] for d, rec in bundles2.get("slow_step", []) if d == "10"],
+            "healthz_status": drill.get("healthz", {}).get("status"),
+            "reward_drift_states": health_states,
+            "last_loss": steps2[-1]["loss"] if steps2 else None,
+            "ckpt": ckpt_summary(trainer),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches,
+        }
+        log(f"[resilience_drill] run 2 (resumed; {DRILL_RUN2_FAULTS}, watchdog, health, /metrics) on {card}: "
+            f"{json.dumps(run2)}")
+        diff = {k: (loaded.get(k), v) for k, v in saved4.items() if loaded.get(k) != v}
+        if not trainer._resumed or diff:
+            raise AssertionError(f"run 2: resumed {trainer._resumed}; the loaded state differs from run 1's at step 4: "
+                                 f"{diff}")
+        if [(r["name"], r["fallback"]) for r in loads] != [("state_4", True), ("state_4", True)] or \
+                not trainer.last_restore_fallback:
+            raise AssertionError(f"run 2: loads {run2['loads']} (expected the resume and the rollback, each falling "
+                                 "back past state_5 to state_4)")
+        if (rb.get("iter_count"), rb.get("lr_scale"), rb.get("rollbacks"), rb.get("in_place"), rb.get("graph_kept"),
+                rb.get("engine_version")) != (4, 0.5, 1, True, True, 4):
+            raise AssertionError(f"run 2: the rollback {run2['rollback']}")
+        rb_rec = recs2[rb_i] if rb_i is not None else {}
+        if rb_rec.get("step") != 4 or rb_rec.get("resilience/lr_scale") != 0.5:
+            raise AssertionError(f"run 2: the rollback record {rb_rec}")
+        if not after or abs(after[0]["learning_rate"] - 0.5 * unscaled) > 1e-6 * unscaled:
+            raise AssertionError(f"run 2: learning rate after the rollback {run2['lr_after_rollback']}, expected "
+                                 f"0.5 x {unscaled}")
+        if not any(d == "10" for d, _ in bundles2.get("slow_step", [])):
+            raise AssertionError(f"run 2: no slow_step bundle at step 10: {run2['incidents']}")
+        if not health_states or max(health_states) != 2.0 or "health_reward_drift" not in bundles2:
+            raise AssertionError(f"run 2: reward drift states {health_states}, bundles {run2['incidents']}")
+        healthz, metrics_text = drill.get("healthz", {}), drill.get("metrics_text", "")
+        if healthz.get("status") != "critical" or healthz["detectors"]["reward_drift"]["state"] != "crit" or \
+                "trlx_tpu_health_reward_drift_state 2.0" not in metrics_text:
+            raise AssertionError(f"run 2: /healthz {healthz}, /metrics health gauges "
+                                 f"{[ln for ln in metrics_text.splitlines() if 'health_' in ln][:6]}")
+        if trainer.iter_count != DRILL_STEPS or not steps2 or not np.isfinite(steps2[-1]["loss"]):
+            raise AssertionError(f"run 2 ended at {trainer.iter_count} with loss {run2['last_loss']}")
+        if any(rec["launches"] != per_step for rec in trainer.step_log):
+            raise AssertionError(f"run 2: step launches {[rec['launches'] for rec in trainer.step_log]}")
+        first = trainer.step_log[0]
+        if first["learning_rate"] != unscaled or \
+                not abs(first["mean_ratio"] - 1.0) <= 0.05:
+            raise AssertionError(f"run 2's first resumed step: learning_rate {first['learning_rate']}, mean_ratio "
+                                 f"{first['mean_ratio']}")
+        missing = [k for k in need if not launches[k]]
+        if missing:
+            raise AssertionError(f"the drill launched no {missing}: {launches}")
+        if [t.name for t in threading.enumerate() if t.name.startswith("trlx-")]:
+            raise AssertionError("trlx-* threads outlived run 2")
+        del trainer
+        free()
+
+        # ------------------------------------------------- (c) the rollback check
+        live, fresh, pre = drill["tokens_live"], drill["tokens_fresh"], drill["tokens_pre"]
+        same = set(live) == set(fresh) and all(np.array_equal(live[k], fresh[k]) for k in live)
+        chunked_same = bool(np.array_equal(drill["chunked_live"], drill["chunked_fresh"]))
+        check = {"prompts": len(live), "engine_tokens_bit_equal": bool(same), "chunked_tokens_bit_equal": chunked_same,
+                 "engine_rows_changed_before_the_rollback": sum(not np.array_equal(pre[k], fresh[k]) for k in fresh),
+                 "chunked_rows_changed_before_the_rollback": int(
+                     (drill["chunked_pre"] != drill["chunked_fresh"]).any(1).sum()),
+                 "fresh_drain_s": drill["fresh_s"], "live_drain_s": rb.get("check_s"),
+                 "engine_graph_of_the_fresh_drain_replayed": rb.get("graph_fresh"),
+                 "chunked_graph_of_the_fresh_drain_replayed": rb.get("chunked_graph_fresh")}
+        log(f"[resilience_drill] rollback check ({n_layer} layers, greedy engine and chunked sampler after the "
+            f"rollback vs the same trainer fresh off its state_4 load) on {card}: {json.dumps(check)}")
+        if not (same and chunked_same and len(live) == len(check_prompts) and rb.get("graph_fresh")
+                and rb.get("chunked_graph_fresh")):
+            raise AssertionError("greedy tokens after the rollback differ from the freshly loaded trainer's on "
+                                 f"state_4, or a graph is not the one captured then: {check}")
+        if not (check["engine_rows_changed_before_the_rollback"] and check["chunked_rows_changed_before_the_rollback"]):
+            raise AssertionError(f"no token changed between state_4 and the weights the rollback replaced: the check "
+                                 f"sees nothing: {check}")
+    finally:
+        trainer_base.guarded_update = orig_guard
+        if slow_env is None:
+            os.environ.pop("TRLX_TPU_SLOW_STEP_SECONDS", None)
+        else:
+            os.environ["TRLX_TPU_SLOW_STEP_SECONDS"] = slow_env
+    shutil.rmtree(run_dir)
+    return {"run1": run1, "run2": run2, "rollback_check": check}, launches
 
 
 def engine_rollout_path(kernels, paged: bool):
@@ -2438,10 +2802,11 @@ def ilql_train_path(kernels):
     log(f"[ilql] step device time {out['step_device_s_median_unprofiled']:.4f} s (median of steps 1-"
         f"{ILQL_STEPS - 1}), peak {peak_gb:.2f} GB, Q-head f32 kernels {prof['q_head_f32_kernel_ms']:.1f} ms "
         f"= {prof['q_head_share_of_step']:.3f} of the profiled step ({prof['device_s']:.4f} s)")
-    out["ckpt"] = check_end_save("ilql_train", trainer, run_dir)
+    # The end save stays on disk for ilql_resume, whose load verifies it.
+    out["ckpt"] = check_end_save("ilql_train", trainer, run_dir, verify=False)
+    out["saved_state"], out["run_dir"] = ilql_state_fingerprints(trainer), run_dir
     del trainer
     free()
-    shutil.rmtree(run_dir)
     return out, launches
 
 
@@ -2459,22 +2824,24 @@ def ilql_state_fingerprints(trainer):
     return fps
 
 
-ILQL_RESUME_LAYERS = 2  # the ILQL gradient check's depth, at GPT-J-6B width
+ILQL_RESUME_STEPS = 2  # the resumed ILQL run's steps after ilql_train's ILQL_STEPS
 
 
-def ilql_resume_path(kernels):
-    """ILQL through ``train(dataset=...)`` at GPT-J-6B width and
-    ``ILQL_RESUME_LAYERS`` layers (Q heads N = 4092, D = 8192, V = 50400):
-    2 steps and the end save; then a fresh trainer with
-    ``train.resume_from_checkpoint`` whose loaded state, target heads
-    included, must be bit-equal to the saver's, and 2 more steps, each
-    launching what an ILQL step must (rows 4f-6f among them)."""
+def ilql_resume_path(kernels, saved, run_dir):
+    """ILQL through ``train(dataset=...)`` with ``train.resume_from_checkpoint``
+    at GPT-J-6B width and ``ILQL_TRAIN_LAYERS`` layers (Q heads N = 4092,
+    D = 8192, V = 50400), from ``ilql_train``'s end checkpoint in
+    ``run_dir`` into a fresh trainer: its loaded state, target heads
+    included, must be bit-equal to the saver's, and ``ILQL_RESUME_STEPS``
+    more steps each launch what an ILQL step must (rows 4f-6f among them).
+    The saved checkpoint is deleted once loaded: the disk holds one
+    checkpoint at a time."""
     import trlx_tpu_torch
     from trlx_tpu_torch.trainer import register_model
     from trlx_tpu_torch.trainer.ilql import ILQLTrainer
 
-    n_layer = ILQL_RESUME_LAYERS
-    run_dir = os.path.join(RUN_DIR, "ilql_resume")
+    n_layer = ILQL_TRAIN_LAYERS
+    total = ILQL_STEPS + ILQL_RESUME_STEPS
 
     @register_model("SmokeResumedILQLTrainer")
     class SmokeResumedILQLTrainer(ILQLTrainer):
@@ -2482,7 +2849,7 @@ def ilql_resume_path(kernels):
             super().__init__(config, **kwargs)
             self.loaded = ilql_state_fingerprints(self)
             self.step_launches = []
-            shutil.rmtree(os.path.join(run_dir, f"state_{ILQL_STEPS // 2}"))  # one checkpoint on disk at a time
+            shutil.rmtree(os.path.join(run_dir, f"state_{saved['step']}"))  # one checkpoint on disk at a time
 
         def train_step(self, batch):
             before = {n: f.launches for n, f in kernels.items()}
@@ -2491,19 +2858,13 @@ def ilql_resume_path(kernels):
             self.step_launches.append({n: f.launches - before[n] for n, f in kernels.items()})
             return stats
 
-    samples, rewards = ilql_dataset(ILQL_SAMPLES, seed=7)
+    samples, rewards = ilql_dataset(ILQL_SAMPLES, seed=7)  # ilql_train's
     rng = np.random.default_rng(12)
     eval_prompts = [rng.integers(0, GPTJ_6B_ARCH["vocab_size"], size=PROMPT_LEN).tolist() for _ in range(ILQL_BATCH)]
-    config = ilql_config(n_layer, "ilql", run_dir)
-    config.train.total_steps = ILQL_STEPS // 2
-    t0 = time.perf_counter()
-    first = trlx_tpu_torch.train(dataset=(samples, rewards), eval_prompts=eval_prompts, config=config)
-    saved = ilql_state_fingerprints(first)
-    ckpt = check_end_save("ilql_resume_first", first, run_dir, verify=False)  # the resume's load verifies it
-    del first
-    free()
     config = ilql_config(n_layer, SmokeResumedILQLTrainer.__name__, run_dir)
+    config.train.total_steps, config.train.epochs = total, 2
     config.train.resume_from_checkpoint = True
+    t0 = time.perf_counter()
     resumed = trlx_tpu_torch.train(dataset=(samples, rewards), eval_prompts=eval_prompts, config=config)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2514,13 +2875,14 @@ def ilql_resume_path(kernels):
         raise AssertionError(f"ILQL resumed {resumed._resumed}; loaded state differs from the saved one: {diff}")
     check_loaded_from("ilql_resume", resumed, f"state_{saved['step']}")
     per_step = ilql_step_launches(kernels, n_layer)
-    if (resumed.iter_count, resumed.step) != (ILQL_STEPS, ILQL_STEPS) or resumed.step_launches != [per_step] * (
-            ILQL_STEPS - saved["step"]):
+    if (resumed.iter_count, resumed.step) != (total, total) or resumed.step_launches != [per_step] * (
+            total - saved["step"]):
         raise AssertionError(f"ILQL resumed run: iter_count {resumed.iter_count}, step {resumed.step}, per-step "
                              f"launches {resumed.step_launches}, expected {per_step} each")
-    out = {"wall_s": wall, "resumed_step_launches": resumed.step_launches[0], "ckpt_first": ckpt}
-    out["ckpt"] = check_end_save("ilql_resume", resumed, run_dir)
-    log(f"[resume] ILQL at GPT-J-6B width ({n_layer} layers): steps {saved['step'] + 1}-{ILQL_STEPS} after the "
+    out = {"wall_s": wall, "resumed_step_launches": resumed.step_launches[0]}
+    # The load above verified a manifest written by the same save.
+    out["ckpt"] = check_end_save("ilql_resume", resumed, run_dir, verify=False)
+    log(f"[resume] ILQL at GPT-J-6B width ({n_layer} layers): steps {saved['step'] + 1}-{total} after the "
         f"load, each launching {per_step}; {wall:.1f} s")
     del resumed
     free()
@@ -2668,10 +3030,9 @@ def hf_rm_train_path(kernels):
     written; both directories are deleted before ``learn()``; the rollouts
     are scored by the reward model, 16 steps run with ``train_config``'s
     values, ``evaluate()`` reports the reward model's mean. The end save
-    is checked and deleted (``resume_path`` resumes ``train_bf16``'s
-    4-layer checkpoint, whose load verifies the manifest this one was
-    written with). Returns its numbers and the launches of the whole
-    run."""
+    is checked and deleted (``resilience_drill`` resumes a 4-layer
+    checkpoint, whose load verifies a manifest written by the same save).
+    Returns its numbers and the launches of the whole run."""
     import trlx_tpu_torch
 
     n_layer, k, R = GPTJ_6B_ARCH["n_layer"], 2, MAX_LEN - PROMPT_LEN
@@ -3205,69 +3566,6 @@ def graph_engine(kernels):
         raise AssertionError("engine: sampled graph episodes differ from eager from the same generator state")
     del trainer, engines
     free()
-    return out
-
-
-def graph_after_load():
-    """A load into a trainer whose decode graph is captured, at GPT-J-6B
-    width and ``GRAPH_LAYERS`` layers: a source trainer takes an optimizer
-    step and saves asynchronously, then steps again before the save is
-    finalized (the checkpoint must hold the state at save time); trainer A
-    rolls out once (its chunked sampler captures the decode graph), then
-    loads the checkpoint; trainer B loads it before capturing anything.
-    A's loaded state must be bit-equal to the source's at its save, and A's
-    and B's greedy tokens bit-equal (and changed from A's before the
-    load)."""
-    from trlx_tpu_torch.pipeline.prompt_pipeline import PromptPipeline
-    from trlx_tpu_torch.trainer.ppo import PPOTrainer
-
-    def trainer(run: str, seed: int):
-        config = smoke_config(n_layer=GRAPH_LAYERS, run=run, greedy=True)
-        config.train.seed = seed
-        return PPOTrainer(config)
-
-    def adam_step(t, seed: int):
-        gen = torch.Generator(device=t.device).manual_seed(seed)
-        t.optimizer.step(t.trainable, [torch.randn(p.shape, generator=gen, device=t.device) for p in t.trainable])
-        t.step += 1
-
-    src_dir = os.path.join(RUN_DIR, "graph_load")
-    source = trainer("graph_load", 1001)
-    adam_step(source, 23)
-    want = state_fingerprints(source, GRAPH_LAYERS)
-    source.save(block=False)
-    adam_step(source, 24)  # while the writer runs: must not reach the checkpoint
-    source._finalize_pending_save()
-    ckpt = log_ckpt("graph_load_source", source)
-    del source
-    free()
-
-    a = trainer("graph_a", 1000)
-    pipe = PromptPipeline(seeded_prompts(CHUNK, 9), None, max_prompt_length=a.prompt_length)
-    ids, mask = a.put(pipe.input_ids), a.put(pipe.attention_mask)
-    before = a.rollout_generate(ids, mask)[0]
-    if a._generate_fn.keywords["_keep"]["buffers"]["graph"] is None:
-        raise AssertionError("trainer A's rollout captured no decode graph")
-    a.load(src_dir)
-    loaded = state_fingerprints(a, GRAPH_LAYERS)
-    b = trainer("graph_b", 1002)
-    b.load(src_dir)
-    if loaded != want or state_fingerprints(b, GRAPH_LAYERS) != want:
-        raise AssertionError(f"loaded state differs from the source's at its async save: {loaded} vs {want}")
-    ta, tb = a.rollout_generate(ids, mask)[0], b.rollout_generate(ids, mask)[0]
-    out = {"tokens_bit_equal": bool(torch.equal(ta, tb)),
-           "rows_changed_by_the_load": int((ta != before).any(1).sum()),
-           "ckpt": ckpt + log_ckpt("graph_a", a) + log_ckpt("graph_b", b)}
-    log(f"[graph] after a load, GPT-J-6B width, {GRAPH_LAYERS} layers: {json.dumps(out)}")
-    if not out["tokens_bit_equal"]:
-        raise AssertionError("greedy tokens of the trainer that loaded after capturing its graph differ from a "
-                             "fresh trainer's that loaded first")
-    if not out["rows_changed_by_the_load"]:
-        raise AssertionError("no token changed after the load: the check sees nothing")
-    del a, b
-    free()
-    for run in ("graph_load", "graph_a", "graph_b"):
-        shutil.rmtree(os.path.join(RUN_DIR, run), ignore_errors=True)
     return out
 
 
@@ -3868,7 +4166,13 @@ def main() -> int:
 
     # ILQL first: its step nears the card's memory, so it gets the allocator
     # fresh; the HF + reward-model path (~69 GB) next.
-    run("ilql_train", lambda: ilql_train_path(kernels))
+    ilql_out, _ = run("ilql_train", lambda: ilql_train_path(kernels))
+    # ILQL's resume reads ilql_train's end checkpoint, so nothing else is
+    # saved while it is on disk.
+    t0 = time.perf_counter()
+    ilql_resume_path(kernels, ilql_out["saved_state"], ilql_out["run_dir"])
+    free()
+    log(f"[resume] ILQL done in {time.perf_counter() - t0:.1f}s")
     run("hf_rm_train", lambda: hf_rm_train_path(kernels))
     bf16_out, _ = run("rollout_bf16", lambda: main_path(kernels))
     w8_out, _ = run("rollout_w8", lambda: main_path(kernels, w8=True))
@@ -3893,19 +4197,12 @@ def main() -> int:
     phase_rm_route(kernels)
     log(f"[rm-route] done in {time.perf_counter() - t0:.1f}s")
     run("text_ppo", lambda: text_ppo_path(kernels))
-    t0 = time.perf_counter()
-    ilql_resume_path(kernels)
-    free()
-    log(f"[resume] ILQL done in {time.perf_counter() - t0:.1f}s")
-    train_out, _ = run("train_bf16", lambda: train_path(kernels))
-    # The resume reads train_bf16's end checkpoint, so nothing else is saved
-    # while it is on disk.
-    run("resume_ppo", lambda: resume_path(kernels, train_out["saved_state"], train_out["run_dir"]))
+    run("train_bf16", lambda: train_path(kernels))
     run("engine_train", lambda: engine_train_path(kernels))
     run("overlap_train", lambda: overlap_train_path(kernels))
+    run("resilience_drill", lambda: resilience_drill_path(kernels))
     t0 = time.perf_counter()
     phase_graph(kernels)
-    graph_after_load()
     log(f"[graph] done in {time.perf_counter() - t0:.1f}s")
     split = logprob_bwd_rows(logprob_bwd_inputs(LOGPROB_BWD_SEED), iters=10)
     phases["fused_logprob_bwd_dx"]["kernels_only_ms"] = split.pop("fused_logprob_bwd_dx_kernels_only")

@@ -19,6 +19,15 @@ import torch
 pytestmark = pytest.mark.gpu
 
 
+@pytest.fixture(autouse=True)
+def _no_wandb(monkeypatch):
+    """The card machine's Python may have wandb installed; a trainer here
+    records to metrics.jsonl only and never reaches for a wandb login."""
+    import trlx_tpu_torch.utils.logging as tracker_module
+
+    monkeypatch.setattr(tracker_module, "_HAS_WANDB", False)
+
+
 def _cuda():
     """Decided inside each test, never at import: every worker must collect
     the same tests."""

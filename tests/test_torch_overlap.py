@@ -404,6 +404,7 @@ def test_reward_hang_inside_score_worker_drains_cleanly(task, tmp_path):
     _, logit_mask, metric_fn, reward_fn = task
     config = _port_config(tmp_path / "ck", rollout_overlap=True)
     config.method.num_rollouts = 32
+    config.train.reward_fn_retries = 0  # as the JAX twin: the error must surface, not be retried away
     calls = []
 
     def hanging_reward(samples):

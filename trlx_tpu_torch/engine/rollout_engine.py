@@ -55,8 +55,11 @@ before the model call, eos is written with its mask bit, post-finish
 positions hold pad / mask 0). Sampling draws from one device generator for
 all slots, so sampled runs match the JAX engine only in distribution.
 
+Host spans (``observability.spans``, when armed): ``engine/prefill`` per
+prefill group, ``engine/decode`` / ``engine/verify`` per sync quantum.
+
 Not ported here: multi-process slot managers and the schedule fingerprint,
-the dispatch lock, sanitizer hooks and trace spans.
+the dispatch lock, sanitizer hooks, and the slot timeline of graftscope.
 """
 
 import time
@@ -68,6 +71,7 @@ import torch
 
 from trlx_tpu_torch.engine.paged_pool import BlockPool, PoolExhausted
 from trlx_tpu_torch.models.lm import decode_weights, init_cache, init_paged_cache, refresh_weight_copies
+from trlx_tpu_torch.observability.spans import trace_span
 from trlx_tpu_torch.ops.cuda_graph import CudaGraph, StepGraph
 from trlx_tpu_torch.ops.sampling import GenerateConfig, process_logits_default, sample_categorical
 from trlx_tpu_torch.pipeline.prompt_pipeline import PromptSlotQueue
@@ -184,6 +188,7 @@ class RolloutEngine:
         self._free = list(range(self.n_slots))
         self._variables = None  # the module that decodes
         self.weight_version = None
+        self._weights_invalid = False  # set by invalidate_weights(), read at the next adoption
         self._staged = None  # (module, version) adopted at the next step()
         self._n_gen_host = None  # per-slot n_gen at the last sync
         self._state = None
@@ -262,7 +267,9 @@ class RolloutEngine:
                     pos = int(self._n_gen_host[i]) if self._n_gen_host is not None else 0
                     meta.setdefault("switches", []).append((pos, version))
             self._weight_switches += 1
-        if self.paged and version != self.weight_version:
+        changed = version != self.weight_version or self._weights_invalid
+        self._weights_invalid = False
+        if self.paged and changed:
             # Prefix blocks hold KV of the outgoing weights: never share them
             # into a new-version slot.
             self.pool.flush_registry()
@@ -271,6 +278,14 @@ class RolloutEngine:
         refresh_weight_copies(variables)
         self._variables = variables
         self.weight_version = version
+
+    def invalidate_weights(self):
+        """The module's values changed without a new version (a checkpoint
+        load, a watchdog rollback): the next adopted handoff counts as a
+        version switch whatever its version, so the prefix registry is
+        flushed. Buffers and captured graphs stay. A flag the next
+        ``step()`` reads: safe to set from another thread."""
+        self._weights_invalid = True
 
     def submit(self, input_ids, attention_mask) -> int:
         """Queue left-padded prompts ([n, width] or [width]) for decode."""
@@ -296,7 +311,12 @@ class RolloutEngine:
             n_live = self.live_slots
             if n_live == 0:
                 return []
-            finished, n_gen = self._step_verify(n_live) if self.spec_decode else self._step_decode()
+            if self.spec_decode:
+                with trace_span("engine/verify", slots=n_live, k=self.spec_k):
+                    finished, n_gen = self._step_verify(n_live)
+            else:
+                with trace_span("engine/decode", slots=n_live, steps=self.steps_per_sync):
+                    finished, n_gen = self._step_decode()
 
         episodes = []
         done = [i for i in range(self.n_slots) if self._slot_meta[i] is not None and finished[i]]
@@ -445,7 +465,8 @@ class RolloutEngine:
             width, ids, msk = group
             slots = [self._free.pop() for _ in range(ids.shape[0])]
             t0 = time.perf_counter()
-            self._prefill(ids, msk, slots)
+            with trace_span("engine/prefill", n=len(slots), width=int(width)):
+                self._prefill(ids, msk, slots)
             self._prefill_wall += time.perf_counter() - t0
             for row, slot in enumerate(slots):
                 self._slot_meta[slot] = {"prompt_ids": ids[row], "prompt_mask": msk[row],
@@ -492,7 +513,8 @@ class RolloutEngine:
                 rr = [r for _, r, _ in sub]
                 tables = np.stack([t for _, _, t in sub]).astype(np.int32)
                 t0 = time.perf_counter()
-                self._prefill_paged(ids[rr][:, hit:], msk[rr], slots, tables)
+                with trace_span("engine/prefill", n=len(slots), width=int(width), hit=int(hit)):
+                    self._prefill_paged(ids[rr][:, hit:], msk[rr], slots, tables)
                 self._prefill_wall += time.perf_counter() - t0
                 for slot, r in zip(slots, rr):
                     # Its prompt blocks are written (device order makes them

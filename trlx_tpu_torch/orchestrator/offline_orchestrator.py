@@ -1,7 +1,8 @@
 """Offline (ILQL) experience (the counterpart of
 ``trlx_tpu.orchestrator.offline_orchestrator``): samples (text with a
 tokenizer, or token arrays) → action and state indices, z-scored returns
-with the terminal reward on the final action → ``ILQLRolloutStorage``.
+with the terminal reward on the final action → ``ILQLRolloutStorage``; the
+raw rewards' mean feeds the health monitor when it is armed.
 
 The JAX package's multi-host sample-count check waits for the distributed
 stack."""
@@ -51,8 +52,13 @@ class OfflineOrchestrator(Orchestrator):
             dones.append(terminals)
 
         sample_lengths = np.asarray([len(x) for x in input_ids], dtype=np.float32)
-        print(f"[Mean reward] {float(np.mean(np.asarray(rewards, dtype=np.float32))):.2f}")
+        mean_reward = float(np.mean(np.asarray(rewards, dtype=np.float32)))
+        print(f"[Mean reward] {mean_reward:.2f}")
         print(f"[Mean sample length] {np.mean(sample_lengths):.2f}")
+        if model._health is not None:
+            # One reward-distribution observation per experience batch: the
+            # raw rewards (z-scored returns would hide the drift).
+            model._health.observe_reward(mean_reward)
 
         # z-score the returns over the samples that train; the terminal
         # reward goes on the final action.

@@ -30,8 +30,19 @@ records it) and a ``stop`` poll checked between chunks. With prompt
 buckets the chunks decode at their bucket's width and the stored queries
 are left-padded to the trainer's ``prompt_length``.
 
-Not ported here: in-flight weight polling, fault plans, multi-process
-schedule checks, the fleet, health monitoring and trace spans.
+``score`` runs ``reward_fn`` through ``call_with_retries`` with
+``train.reward_fn_retries`` / ``reward_fn_backoff`` / ``reward_fn_timeout``
+(inline and on the score worker; the timeout's own daemon thread nests
+under either), and fires the fault plan's reward drills keyed by the
+reward-call index: ``reward_exc``, ``reward_hang``, and ``reward_drift``
+(which latches the health monitor's observed offset). With the health
+monitor armed every scored chunk feeds it (reward, sentinels, and a lineage
+record with its weight version, and on the engine path its version spans).
+Host spans (when armed): ``rollout/generate``, ``rollout/decode``,
+``rollout/reward_fn``, ``rollout/score_device`` and ``rollout/push``.
+
+Not ported here: in-flight weight polling, multi-process schedule checks
+and the fleet.
 """
 
 import time
@@ -40,8 +51,11 @@ from collections import deque
 import numpy as np
 
 from trlx_tpu_torch.device import elapsed_s
+from trlx_tpu_torch.observability.spans import complete as span_complete, trace_span
 from trlx_tpu_torch.orchestrator import Orchestrator, register_orchestrator
 from trlx_tpu_torch.pipeline.overlap import ScoreWorker
+from trlx_tpu_torch.resilience.faults import FaultInjected
+from trlx_tpu_torch.resilience.retry import call_with_retries
 
 
 @register_orchestrator
@@ -52,14 +66,45 @@ class PPOOrchestrator(Orchestrator):
         self.pipeline_loader = self.pipeline.create_loader(self.chunk_size, shuffle=True)
         self.pipeline_iterator = iter(self.pipeline_loader)
         self._chunks_consumed = 0
+        self._reward_calls = 0
+        self.reward_log = []  # per reward call: its index, attempts and wall seconds
         self.rl_model.orch = self
         self.rl_model.reward_fn = reward_fn
         self.rl_model.metric_fn = metric_fn
 
     def score(self, texts):
-        """The user's reward on decoded samples (called on the main process,
-        broadcast to every rank)."""
-        return self.rl_model.host_reward(texts)
+        """The user's reward on decoded samples: on the main process, with
+        bounded retries on an exception or a timeout, broadcast to every
+        rank. The reward drills of the fault plan fire here, keyed by this
+        call's index."""
+        rl = self.rl_model
+        t = rl.config.train
+        self._reward_calls += 1
+        call_index = self._reward_calls
+        fault_plan = rl.fault_plan
+        attempts = []
+
+        def call():
+            attempts.append(time.perf_counter())
+            if fault_plan:
+                if fault_plan.fire("reward_exc", call_index):
+                    raise FaultInjected(f"injected reward_fn exception (call {call_index})")
+                if fault_plan.fire("reward_hang", call_index):
+                    # Well past the timeout, so the timeout decides.
+                    time.sleep(max(t.reward_fn_timeout, 0.1) * 3)
+                if fault_plan.fire("reward_drift", call_index) and rl._health is not None:
+                    # The health monitor's observed reward shifts from this
+                    # call's index on; training rewards stay as they are.
+                    rl._health.inject_reward_drift(from_call=call_index)
+            return rl.reward_fn(texts)
+
+        t0 = time.perf_counter()
+        scores = rl.host_reward(texts, call=lambda: call_with_retries(
+            call, retries=t.reward_fn_retries, backoff=t.reward_fn_backoff, timeout=t.reward_fn_timeout,
+            description="reward_fn"))
+        self.reward_log.append({"call": call_index, "attempts": len(attempts), "wall_s": time.perf_counter() - t0,
+                                "last_attempt_s": time.perf_counter() - attempts[-1] if attempts else 0.0})
+        return scores
 
     def _next_prompt_batch(self):
         try:
@@ -92,9 +137,24 @@ class PPOOrchestrator(Orchestrator):
 
     def _host_score(self, args):
         """The host boundary: decode, then the user's reward. Runs on the
-        score worker with the overlapped pipeline, inline otherwise."""
-        tokens_h, mask_h = args
-        return np.asarray(self.score(self.rl_model.decode(tokens_h, mask_h)), dtype=np.float32)
+        score worker with the overlapped pipeline, inline otherwise. Returns
+        (scores, the reward call's index)."""
+        tokens_h, mask_h, step = args
+        with trace_span("rollout/decode", step=step):
+            samples = self.rl_model.decode(tokens_h, mask_h)
+        with trace_span("rollout/reward_fn", step=step):
+            scores = np.asarray(self.score(samples), dtype=np.float32)
+        return scores, self._reward_calls
+
+    def _note_chunk(self, tokens_h, mask_h, P, scores, weight_version, staleness, step, reward_call=None,
+                    version_spans=None):
+        """The health feed of one scored chunk: reward drift over its mean
+        score, the degenerate-sample sentinels, its lineage record."""
+        monitor = self.rl_model._health
+        if monitor is not None:
+            monitor.observe_chunk(tokens_h, mask_h, P, scores=scores, weight_version=weight_version,
+                                  staleness=staleness, step=step, reward_call=reward_call,
+                                  version_spans=version_spans)
 
     def _score_worker(self):
         """(worker, depth), or (None, 0) where scoring stays inline (no
@@ -119,7 +179,8 @@ class PPOOrchestrator(Orchestrator):
             return self._make_experience_engine(num_rollouts, iter_count, store, snapshot, staleness, stop)
         store = store if store is not None else rl.store
         record_staleness = store.record_staleness
-        rl._adopt_snapshot(snapshot)  # between stores: the whole store reads one weight version
+        # Between stores: the whole store reads one weight version.
+        weight_version = rl._adopt_snapshot(snapshot)
         snap_kw = {} if snapshot is None else {"snapshot": snapshot}  # the live weights' calls keep their form
         P_full = int(rl.prompt_length)
         pad_id = int(rl.pad_token_id)
@@ -134,27 +195,33 @@ class PPOOrchestrator(Orchestrator):
         last_kl = np.zeros((1, 1), dtype=np.float32)
         max_abs_kl = 0.0
 
-        def finish_chunk(ctx, scores):
-            # Device scoring, the pulls and the store push of one chunk;
-            # only this thread issues device work.
+        def finish_chunk(ctx, scored):
+            # Device scoring, the pulls, the store push and the health feed
+            # of one chunk; only this thread issues device work.
             nonlocal score_s, score_dev_s, push_s, last_scores, last_kl, max_abs_kl
+            scores, reward_call = scored
             tokens, mask, P, gen_aux = ctx["tokens"], ctx["mask"], ctx["P"], ctx["gen_aux"]
             score_t = {}
             t = time.perf_counter()
+            t_span = time.time()
             if gen_aux is not None:
                 out = rl.rollout_score_fused(tokens, mask, scores, gen_aux, timings=score_t, **snap_kw)
             else:
                 out = rl.rollout_score(tokens, mask, scores, timings=score_t, **snap_kw)
             logprobs, values, rewards, kl = rl.to_host(out)
             score_s += time.perf_counter() - t
+            span_complete("rollout/score_device", t_span, step=iter_count)
             score_dev_s += elapsed_s(score_t["start"], score_t["end"])
             push(ctx["tokens_h"], ctx["mask_h"], P, logprobs, values, rewards)
+            self._note_chunk(ctx["tokens_h"], ctx["mask_h"], P, scores, weight_version, staleness, iter_count,
+                             reward_call)
             last_scores, last_kl = scores, kl
             max_abs_kl = max(max_abs_kl, float(np.abs(kl).max()) if kl.size else 0.0)
 
         def push(tokens_h, mask_h, P, logprobs, values, rewards):
             nonlocal push_s
             t = time.perf_counter()
+            t_span = time.time()
             q_ids, q_mask = tokens_h[:, :P], mask_h[:, :P]
             if P < P_full:
                 # A bucket's chunk: its queries left-padded to the trainer's
@@ -175,14 +242,17 @@ class PPOOrchestrator(Orchestrator):
                 rows["staleness"] = np.full((q_ids.shape[0], 1), float(staleness), dtype=np.float32)
             store.push_batch(rows)
             push_s += time.perf_counter() - t
+            span_complete("rollout/push", t_span, rows=int(q_ids.shape[0]))
 
         worker, depth = self._score_worker()
         inflight = deque()
         aborted = False
         try:
             t = time.perf_counter()
+            t_span = time.time()
             pending = self._generate_next_chunk(snapshot)
             gen_s += time.perf_counter() - t
+            span_complete("rollout/generate", t_span, step=iter_count, dispatch=True)
             while True:
                 if stop is not None and stop():
                     aborted = True
@@ -191,10 +261,12 @@ class PPOOrchestrator(Orchestrator):
                 chunk_rows = int(tokens.shape[0])
                 need_more = n_collected + chunk_rows < num_rollouts
                 t = time.perf_counter()
+                t_span = time.time()
                 if need_more:
                     pending = self._generate_next_chunk(snapshot)
                 tokens_h, mask_h = rl.to_host((tokens, mask))
                 gen_s += time.perf_counter() - t
+                span_complete("rollout/generate", t_span, step=iter_count)
                 prefill_dev_s += elapsed_s(timings["start"], timings["prefill"])
                 decode_dev_s += elapsed_s(timings["prefill"], timings["end"])
                 ds = rl.rollout_decode_stats(mask_h, P)
@@ -214,21 +286,22 @@ class PPOOrchestrator(Orchestrator):
                     rm_dev_s += elapsed_s(score_t["rm_start"], score_t["rm_end"])
                     score_dev_s += elapsed_s(score_t["start"], score_t["end"])
                     push(tokens_h, mask_h, P, logprobs, values, rewards)
+                    self._note_chunk(tokens_h, mask_h, P, scores, weight_version, staleness, iter_count)
                     last_scores, last_kl = scores, kl
                     max_abs_kl = max(max_abs_kl, float(np.abs(kl).max()) if kl.size else 0.0)
                 elif worker is not None:
                     # Decode + reward on the worker; drain finished scores
                     # (FIFO pairs them with their chunks) and block only once
                     # ``depth`` chunks wait unscored.
-                    worker.submit((tokens_h, mask_h))
+                    worker.submit((tokens_h, mask_h, iter_count))
                     inflight.append(ctx)
                     while inflight and (len(inflight) > depth or worker.ready()):
                         finish_chunk(inflight.popleft(), worker.result())
                 else:
                     t = time.perf_counter()
-                    scores = self._host_score((tokens_h, mask_h))
+                    scored = self._host_score((tokens_h, mask_h, iter_count))
                     reward_s += time.perf_counter() - t
-                    finish_chunk(ctx, scores)
+                    finish_chunk(ctx, scored)
                 n_collected += chunk_rows
                 if not need_more:
                     break
@@ -310,9 +383,11 @@ class PPOOrchestrator(Orchestrator):
 
         def assemble(eps):
             # Prompts arrive at their submitted width: left-pad them to the
-            # trainer's, so one score shape serves every chunk.
+            # trainer's, so one score shape serves every chunk. Also the
+            # chunk's per-token weight versions, [[version, tokens], ...].
             tokens_h = np.full((len(eps), P_full + R), pad_id, dtype=np.int32)
             mask_h = np.zeros((len(eps), P_full + R), dtype=np.int32)
+            spans = {}
             for i, e in enumerate(eps):
                 w = int(e.prompt_ids.shape[0])
                 tokens_h[i, P_full - w : P_full] = e.prompt_ids
@@ -320,20 +395,29 @@ class PPOOrchestrator(Orchestrator):
                 tokens_h[i, P_full:] = e.response_ids
                 mask_h[i, P_full:] = e.response_mask
                 episode_steps.append(int(e.decode_steps))
-            return tokens_h, mask_h
+                for v, k in e.version_spans or ((e.weight_version, e.decode_steps),):
+                    spans[v] = spans.get(v, 0) + int(k)
+            version_spans = sorted(([v, k] for v, k in spans.items()), key=lambda x: (x[0] is None, x[0]))
+            return tokens_h, mask_h, version_spans
 
-        def finish_chunk(tokens_h, mask_h, scores):
-            # Device scoring and the push; only this thread issues device work.
+        def finish_chunk(tokens_h, mask_h, version_spans, scored):
+            # Device scoring, the push and the health feed; only this thread
+            # issues device work.
             nonlocal score_s, push_s, last_scores, last_kl
             t = time.perf_counter()
-            if scores is None:
+            t_span = time.time()
+            if scored is None:
+                reward_call = None
                 logprobs, values, rewards, kl, scores = rl.to_host(
                     rl.rollout_score_rm(tokens_h, mask_h, **snap_kw))
             else:
+                scores, reward_call = scored
                 out = rl.rollout_score(rl.put(tokens_h), rl.put(mask_h), scores, **snap_kw)
                 logprobs, values, rewards, kl = rl.to_host(out)
             score_s += time.perf_counter() - t
+            span_complete("rollout/score_device", t_span, step=iter_count)
             t = time.perf_counter()
+            t_span = time.time()
             rows = {
                 "query_tensors": tokens_h[:, :P_full],
                 "query_mask": mask_h[:, :P_full],
@@ -347,6 +431,9 @@ class PPOOrchestrator(Orchestrator):
                 rows["staleness"] = np.full((tokens_h.shape[0], 1), float(staleness), dtype=np.float32)
             store.push_batch(rows)
             push_s += time.perf_counter() - t
+            span_complete("rollout/push", t_span, rows=int(tokens_h.shape[0]))
+            self._note_chunk(tokens_h, mask_h, P_full, scores, weight_version, staleness, iter_count, reward_call,
+                             version_spans)
             last_scores, last_kl = scores, kl
 
         worker, depth = self._score_worker()
@@ -370,19 +457,19 @@ class PPOOrchestrator(Orchestrator):
                 while len(finished_buf) >= chunk or (finished_buf and n_collected + len(finished_buf) == num_rollouts):
                     take = min(chunk, len(finished_buf))
                     batch_eps, finished_buf = finished_buf[:take], finished_buf[take:]
-                    tokens_h, mask_h = assemble(batch_eps)
+                    tokens_h, mask_h, version_spans = assemble(batch_eps)
                     if rl.has_reward_model:
-                        finish_chunk(tokens_h, mask_h, None)
+                        finish_chunk(tokens_h, mask_h, version_spans, None)
                     elif worker is not None:
-                        worker.submit((tokens_h, mask_h))
-                        inflight.append((tokens_h, mask_h))
+                        worker.submit((tokens_h, mask_h, iter_count))
+                        inflight.append((tokens_h, mask_h, version_spans))
                         while inflight and (len(inflight) > depth or worker.ready()):
                             finish_chunk(*inflight.popleft(), worker.result())
                     else:
                         t = time.perf_counter()
-                        scores = self._host_score((tokens_h, mask_h))
+                        scored = self._host_score((tokens_h, mask_h, iter_count))
                         reward_s += time.perf_counter() - t
-                        finish_chunk(tokens_h, mask_h, scores)
+                        finish_chunk(tokens_h, mask_h, version_spans, scored)
                     n_collected += take
             while inflight:
                 if stop is not None and stop():

@@ -18,10 +18,10 @@ pieces overlap them, in plain ``threading``:
   staleness gate (``method.max_staleness``), with its ``history`` lineage.
 
 All of it is off unless the method config sets ``rollout_overlap`` or
-``max_staleness``. Every thread is named ``trlx-*``. The JAX module's
-observability hooks (``trace_span``, graftscope lanes and the sanitizer's
-race tracker) belong to the observability stack, which the port does not
-have yet; they are left out, and nothing else differs.
+``max_staleness``. Every thread is named ``trlx-*``, and each records its
+host spans on its own lane when tracing is armed (``score/host``,
+``prefetch/stage``, ``rollout/produce``). The JAX module's graftscope lanes
+and the sanitizer's race tracker are not ported.
 """
 
 import queue
@@ -29,6 +29,8 @@ import threading
 import time
 from collections import deque
 from contextlib import contextmanager
+
+from trlx_tpu_torch.observability.spans import trace_span
 
 
 def staleness_gate_open(index: int, consumed: int, max_staleness: int) -> bool:
@@ -114,7 +116,8 @@ class ScoreWorker:
                 return
             t0 = time.time()
             try:
-                self._out.put(("ok", self._fn(item)))
+                with trace_span("score/host"):
+                    self._out.put(("ok", self._fn(item)))
             except BaseException as e:  # noqa: BLE001 — delivered via result()
                 self._out.put(("err", e))
             finally:
@@ -196,7 +199,9 @@ class PrefetchIterator:
             for item in it:
                 if self._stop.is_set():
                     return
-                if not self._put(("ok", self._transform(item))):
+                with trace_span("prefetch/stage"):
+                    staged = ("ok", self._transform(item))
+                if not self._put(staged):
                     return
         except BaseException as e:  # noqa: BLE001 — re-raised at __next__
             self._put(("err", e))
@@ -288,7 +293,8 @@ class RolloutProducer:
                 staleness = index - self._consumed
             store = self._new_store()
             try:
-                self._produce(store, index, snapshot, staleness, self._should_stop)
+                with trace_span("rollout/produce", index=index, staleness=staleness):
+                    self._produce(store, index, snapshot, staleness, self._should_stop)
             except BaseException as e:  # noqa: BLE001 — re-raised in next_store()
                 with self._cv:
                     self._error = e

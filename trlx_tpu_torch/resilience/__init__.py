@@ -1,6 +1,13 @@
 """Resilience (the counterpart of ``trlx_tpu.resilience``): the train
-step's non-finite guard and checkpoint hardening (``checkpoint``). The
-watchdog, heartbeats and fault plans are not ported yet; the trainer
-refuses their knobs."""
+step's non-finite guard (``guard``), checkpoint hardening (``checkpoint``),
+the divergence watchdog with checkpoint rollback (``watchdog``; the
+trainer restores, decays the LR and resumes), the reward call's retry and
+timeout (``retry``), and the single-process fault drills (``faults``).
+Heartbeats, the collective guard and the multi-host and fleet fault kinds
+wait for the distributed stack."""
 
-from trlx_tpu_torch.resilience.checkpoint import CheckpointError  # noqa: F401
+from trlx_tpu_torch.resilience.checkpoint import CheckpointError, corrupt_checkpoint, verify_checkpoint  # noqa: F401
+from trlx_tpu_torch.resilience.faults import FaultInjected, FaultPlan, poison_nan  # noqa: F401
+from trlx_tpu_torch.resilience.guard import TrainingDiverged, all_finite, guarded_update  # noqa: F401
+from trlx_tpu_torch.resilience.retry import call_with_retries  # noqa: F401
+from trlx_tpu_torch.resilience.watchdog import DivergenceWatchdog  # noqa: F401

@@ -169,11 +169,18 @@ def verify_checkpoint(directory: str, name: str) -> Tuple[bool, str]:
             manifest = json.load(f)
     except (OSError, json.JSONDecodeError) as e:
         return False, f"unreadable manifest: {e}"
-    for rel, expect in manifest.get("files", {}).items():
+    files = manifest.get("files", {})
+    # Every file's size before any checksum: a truncated file fails without
+    # reading the others.
+    for rel, expect in files.items():
         full = os.path.join(path, rel)
         if not os.path.exists(full):
             return False, f"missing file {rel}"
-        size, crc = _file_digest(full)
+        size = os.path.getsize(full)
+        if size != expect["size"]:
+            return False, f"{rel}: size {size} != manifest {expect['size']} (truncated?)"
+    for rel, expect in files.items():
+        size, crc = _file_digest(os.path.join(path, rel))
         if size != expect["size"]:
             return False, f"{rel}: size {size} != manifest {expect['size']} (truncated?)"
         if crc != expect["crc32"]:

@@ -5,7 +5,8 @@ A single bad batch (an inf reward, an overflow, a host feeding NaN) must not
 poison the parameters or the Adam moments: ``guarded_update`` applies the
 optimizer only when the loss and every gradient are finite, and otherwise
 leaves parameters, moments and the optimizer's step counts untouched — the
-JAX package's ``where``-select — and counts the consecutive skips.
+JAX package's ``where``-select — and counts the consecutive skips; the
+trainer's resilience flush stops the run after ``train.max_bad_steps``.
 """
 
 from typing import Iterable
@@ -14,7 +15,9 @@ import torch
 
 
 class TrainingDiverged(RuntimeError):
-    """Raised after ``train.max_bad_steps`` consecutive non-finite steps."""
+    """Raised when training cannot continue: ``train.max_bad_steps``
+    consecutive non-finite steps, or a divergence past
+    ``train.max_rollbacks`` watchdog rollbacks."""
 
 
 def all_finite(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
@@ -38,15 +41,3 @@ def guarded_update(optimizer, params, grads, loss: torch.Tensor, bad_steps: int)
         return bad_steps + 1, False
     optimizer.step(params, grads)
     return 0, True
-
-
-def check_bad_steps(bad_steps: int, max_bad_steps: int, step: int):
-    """Stop after ``max_bad_steps`` consecutive skipped updates (0 never
-    stops)."""
-    if max_bad_steps > 0 and bad_steps >= max_bad_steps:
-        raise TrainingDiverged(
-            f"{bad_steps} consecutive non-finite train steps (>= train.max_bad_steps={max_bad_steps}) "
-            f"around step {step} — persistent numeric blow-up, not a one-off bad batch. Lower the "
-            "learning rate, tighten train.grad_clip, or inspect the data; raise train.max_bad_steps "
-            "only if skips are expected."
-        )

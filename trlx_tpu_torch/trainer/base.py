@@ -29,6 +29,19 @@ heads), the optimizer's moments by parameter name with its applied-update
 count, and the step with the guard's skip count; beside it sit
 ``state_<step>.host.json`` (host state), ``state_<step>.manifest.json``
 (every file's size and crc32) and, written last, ``latest.txt``.
+
+Resilience beyond the guard: each step's (loss, nonfinite, bad_steps) is
+buffered and flushed at every log or eval boundary and every
+``max(log_interval, 8)`` steps (the JAX package's cadence): the flush counts
+guard skips, stops after ``train.max_bad_steps``, and feeds the divergence
+watchdog (``train.watchdog_threshold``), whose trip rolls back to the last
+intact checkpoint in place, decays the LR (``_lr_scale``, saved with the host
+state) and goes on. The fault plan (``train.fault_plan`` /
+``TRLX_TPU_FAULTS``) fires its step, save and host drills here and its
+reward drills in the PPO orchestrator. Observability: span tracing, the
+step-time anomaly detector with incident bundles, the health monitor and the
+live ``/metrics`` endpoint arm from the config or the environment
+(``_setup_observability``).
 """
 
 import dataclasses
@@ -53,12 +66,18 @@ from trlx_tpu_torch.models.hf_export import export_hf
 from trlx_tpu_torch.models.lm import LMConfig, refresh_weight_copies
 from trlx_tpu_torch.parallel.mesh import (
     AXIS_SP, allgather_host, barrier, broadcast_host, init_distributed, is_main_process, make_mesh, resolve_mesh_shape,
-    set_mesh, world_size,
+    process_rank, set_mesh, world_size,
 )
+from trlx_tpu_torch.observability import env_flag
+from trlx_tpu_torch.observability import spans as obs_spans
+from trlx_tpu_torch.observability.anomaly import AnomalyDetector, IncidentCapture, register_emergency
+from trlx_tpu_torch.observability.health import HealthMonitor
 from trlx_tpu_torch.pipeline.overlap import PrefetchIterator, SerialFeed
 from trlx_tpu_torch.resilience import checkpoint as ckpt_util
 from trlx_tpu_torch.resilience.checkpoint import CheckpointError
-from trlx_tpu_torch.resilience.guard import check_bad_steps, guarded_update
+from trlx_tpu_torch.resilience.faults import FaultPlan, poison_nan
+from trlx_tpu_torch.resilience.guard import TrainingDiverged, guarded_update
+from trlx_tpu_torch.resilience.watchdog import DivergenceWatchdog
 from trlx_tpu_torch.trainer import BaseRLTrainer
 from trlx_tpu_torch.utils.logging import Tracker
 
@@ -186,40 +205,60 @@ def build_optimizer(train_cfg, params: List[torch.Tensor], names: List[str]):
     return opt, schedule
 
 
+# Environment switches of the JAX package whose features are not ported:
+# each raises by name (the ported ones, TRLX_TPU_FAULTS / _SPANS / _HEALTH /
+# _ANOMALY_FACTOR / _METRICS_PORT, are read where their features arm, the
+# environment winning over the config as in the JAX package). The parameters
+# of unported features (TRLX_TPU_PEAK_TFLOPS, TRLX_TPU_HANG_SECONDS, ...) act
+# only through a switch, knob or fault kind refused here.
+UNPORTED_ENV_SWITCHES = {
+    "TRLX_TPU_DEVICE_TELEMETRY": "device telemetry (ROADMAP §A13)",
+    "TRLX_TPU_GRAFTSCOPE": "graftscope (ROADMAP §A13)",
+    "TRLX_TPU_GRAFTFLEET": "graftfleet (ROADMAP §A13)",
+    "TRLX_TPU_GRAFTNUM": "graftnum (ROADMAP §A13)",
+    "TRLX_TPU_SANITIZE": "the dispatch sanitizer (the port has no dispatch lock)",
+    "TRLX_TPU_FLEET_ROLE": "the fleet (ROADMAP §A12)",
+    "TRLX_TPU_FLEET_WORKER": "the fleet (ROADMAP §A12)",
+    "TRLX_TPU_FLEET_LEAVE_AFTER": "the fleet (ROADMAP §A12)",
+    "TRLX_TPU_ENGINE_SCHEDULE_SKEW": "the multi-process engine schedule check (ROADMAP §A11)",
+}
+
+
 def refuse_unported(config: TRLConfig):
-    """Raise on every knob whose feature is not ported yet, so no config
-    silently runs a different algorithm, or records less, than it asks
-    for. The one list of such knobs: those every trainer shares, then the
-    PPO method's own (a method config without them has none to refuse).
-    Int8 decode weights are PPO's rollout feature: other trainers accept
-    and ignore them, as the JAX package's do."""
+    """Raise on every knob, environment switch and fault kind whose feature
+    is not ported yet, so no config silently runs a different algorithm, or
+    records less, than it asks for. The one list of such knobs: those every
+    trainer shares, the environment switches (``UNPORTED_ENV_SWITCHES``),
+    the fault kinds only other subsystems fire (``faults.UNFIRED_KINDS``;
+    ``TRLX_TPU_FAULTS`` wins over ``train.fault_plan``), then the PPO
+    method's own (a method config without them has none to refuse). Int8
+    decode weights are PPO's rollout feature: other trainers accept and
+    ignore them, as the JAX package's do."""
     m, t = config.method, config.train
     unported = {
         # the mesh beyond sequence parallelism
         "train.mesh dp/fsdp/tp > 1 (ROADMAP §A11)": any(int(a) > 1 for a in t.mesh[:3]),
-        # resilience beyond the non-finite guard
-        "train.watchdog_threshold": t.watchdog_threshold > 0,
-        "train.fault_plan": bool(t.fault_plan),
-        "train.reward_fn_timeout": t.reward_fn_timeout > 0,
+        # resilience across processes
         "train.heartbeat_interval": t.heartbeat_interval > 0,
         "train.collective_deadline": t.collective_deadline > 0,
         "train.desync_check_interval": t.desync_check_interval > 0,
         "train.preempt_check_interval": t.preempt_check_interval > 0,
         "train.fleet_role": bool(t.fleet_role),
         "train.fleet_dir": bool(t.fleet_dir),
-        # profiling and observability
+        # profiling and observability beyond the single-process core
         "train.profile_dir": bool(t.profile_dir),
         "train.watch_interval": t.watch_interval > 0,
-        "train.trace_spans": t.trace_spans,
         "train.device_telemetry": t.device_telemetry,
-        "train.anomaly_factor": t.anomaly_factor > 0,
-        "train.health_monitor": t.health_monitor,
-        "train.metrics_port": t.metrics_port > 0,
         "train.graftscope": t.graftscope,
         "train.graftfleet": t.graftfleet,
         "train.fleet_resync_interval": t.fleet_resync_interval > 0,
         "train.graftnum": t.graftnum,
     }
+    for var, feature in UNPORTED_ENV_SWITCHES.items():
+        unported[f"{var} ({feature})"] = env_flag(var)
+    kinds = FaultPlan.from_env_or_config(t.fault_plan).unfired_kinds()
+    unported[f"train.fault_plan / TRLX_TPU_FAULTS kinds {', '.join(kinds)} (fired only by subsystems not ported: "
+             "the numerics observatory, multi-host resilience and the fleet)"] = bool(kinds)
     if isinstance(m, PPOConfig):
         unported.update({
             "method.fleet_disaggregate": m.fleet_disaggregate,
@@ -253,19 +292,86 @@ class BaseTrainer(BaseRLTrainer):
         self.orch = None
         self.iter_count = 0
         self._tracker = None
-        # Checkpoint and resilience host state: at most one save in flight;
+        # Checkpoint and resilience host state: at most one save in flight
+        # and the count of completed saves (the ckpt_corrupt drill's tick);
         # the guard's total skips; the watchdog's rollback count and LR
-        # scale (no watchdog is ported: they stay 0 and 1.0, and are saved
-        # under the JAX package's names).
+        # scale (saved under the JAX package's names); the fault plan; the
+        # per-step (loss, nonfinite, bad_steps) scalars buffered until the
+        # next flush.
+        t = config.train
+        self.fault_plan = FaultPlan.from_env_or_config(t.fault_plan)
         self._pending_save = None
+        self._save_count = 0
         self._saved = None  # (directory, name, host state) of the last finalized save, while the state is unchanged
         self.skipped_steps = 0
         self._rollbacks = 0
         self._lr_scale = 1.0
+        self._res_pending = []
+        self.watchdog = (DivergenceWatchdog(t.watchdog_threshold, patience=t.watchdog_patience,
+                                            ema_alpha=t.watchdog_ema_alpha, warmup=t.watchdog_warmup)
+                         if t.watchdog_threshold > 0 else None)
         self._resumed = False
         self._preempted = False
         self.last_restore_fallback = False  # load() fell past latest.txt
         self.checkpoint_log: List[Dict] = []  # one record per save and per load: bytes and seconds
+        self._setup_observability()
+
+    def _setup_observability(self):
+        """Arm what the config and the environment ask for (the environment
+        wins, as in the JAX package): span tracing into
+        ``<checkpoint_dir>/spans.jsonl``, the step-time anomaly detector with
+        incident bundles, the health monitor (whose CRIT escalates into an
+        incident, and whose lineage lands in ``lineage.jsonl``), and the live
+        ``/metrics`` endpoint on the main process. The trainer's construction
+        owns the process's tracer and emergency hook: an earlier trainer's
+        are replaced, or disarmed when this one arms none."""
+        t = self.config.train
+        ckpt_dir = os.path.abspath(t.checkpoint_dir)
+        if t.trace_spans or env_flag("TRLX_TPU_SPANS"):
+            obs_spans.configure(os.path.join(ckpt_dir, obs_spans.SPANS_FILENAME), process_index=process_rank())
+        else:
+            obs_spans.shutdown()
+        anomaly_factor = float(os.environ.get("TRLX_TPU_ANOMALY_FACTOR", "") or t.anomaly_factor)
+        self._anomaly = self._incidents = self._health = None
+        if anomaly_factor > 0:
+            self._anomaly = AnomalyDetector(anomaly_factor, window=t.anomaly_window)
+            self._incidents = self._build_incident_capture(ckpt_dir)
+        if t.health_monitor or env_flag("TRLX_TPU_HEALTH"):
+            if self._incidents is None:
+                self._incidents = self._build_incident_capture(ckpt_dir)
+            self._health = HealthMonitor(
+                warmup=t.health_warmup, warn_streak=t.health_warn_streak, crit_streak=t.health_crit_streak,
+                lineage_path=os.path.join(ckpt_dir, "lineage.jsonl") if is_main_process() else None)
+        if self._incidents is None:
+            register_emergency(None)
+        self._metrics_port = int(os.environ.get("TRLX_TPU_METRICS_PORT", "") or t.metrics_port)
+        self._metrics_exporter = None
+        if self._metrics_port > 0 and is_main_process():
+            from trlx_tpu_torch.observability.export import MetricsExporter
+
+            os.makedirs(ckpt_dir, exist_ok=True)
+            # port_file: where a scraper finds the port actually bound when
+            # the requested one was busy.
+            self._metrics_exporter = MetricsExporter(self._metrics_port,
+                                                     port_file=os.path.join(ckpt_dir, "metrics_port"))
+
+    def _build_incident_capture(self, ckpt_dir: str) -> IncidentCapture:
+        """The run's IncidentCapture, registered as the emergency hook (the
+        health monitor's CRIT escalation runs with no trainer in scope)."""
+        incidents = IncidentCapture(ckpt_dir, device=self.device, metrics_path=os.path.join(ckpt_dir, "metrics.jsonl"),
+                                    max_incidents=self.config.train.max_incidents)
+        register_emergency(incidents, lambda: getattr(self, "iter_count", 0))
+        return incidents
+
+    def _export_metrics(self, stats_host: dict):
+        """The freshest log-boundary scalars (health gauges included) to the
+        live /metrics, and the health status to /healthz. With several
+        processes the main one serves its own numbers: the port's ranks are
+        sp ranks, which train on the same batch."""
+        if self._metrics_exporter is not None:
+            health = self._health
+            self._metrics_exporter.update(stats_host, step=self.iter_count,
+                                          health=health.healthz() if health is not None else None)
 
     def build_train_state(self):
         """The train state beside the model: the trainable parameters (and
@@ -273,9 +379,25 @@ class BaseTrainer(BaseRLTrainer):
         guard's consecutive skips."""
         named = [(n, p) for n, p in self.model.named_parameters() if p.requires_grad]
         self.trainable = [p for _, p in named]
-        self.optimizer, self.schedule = build_optimizer(self.config.train, self.trainable, [n for n, _ in named])
+        self.optimizer, self.schedule = build_optimizer(self._scaled_train_cfg(), self.trainable,
+                                                        [n for n, _ in named])
         self.step = 0
         self.bad_steps = 0
+
+    def _scaled_train_cfg(self):
+        """The train config with the watchdog's LR decay folded into the
+        schedule's endpoints (the config itself while no rollback fired)."""
+        if self._lr_scale == 1.0:
+            return self.config.train
+        t = self.config.train
+        return dataclasses.replace(t, learning_rate_init=t.learning_rate_init * self._lr_scale,
+                                   learning_rate_target=t.learning_rate_target * self._lr_scale)
+
+    def _rebuild_for_lr_scale(self):
+        """Swap the scaled schedule into the optimizer after ``_lr_scale``
+        changed; its moments and applied-update count stay."""
+        self.schedule = lr_schedule(self._scaled_train_cfg())
+        self.optimizer.schedule = self.schedule
 
     def finalize_lm_config(self, lm_cfg: LMConfig) -> LMConfig:
         """The mesh's settings the architecture needs: sp > 1 turns on ring
@@ -291,13 +413,19 @@ class BaseTrainer(BaseRLTrainer):
         """The run's tracker (``<train.checkpoint_dir>/metrics.jsonl``),
         opened at first use; it writes on the main process only."""
         if self._tracker is None:
-            self._tracker = Tracker(self.config.train.checkpoint_dir, config=self.config.to_dict())
+            c = self.config
+            self._tracker = Tracker(c.train.checkpoint_dir, config=c.to_dict(), project_name=c.train.project_name,
+                                    run_name=c.model.model_path or "from-scratch", entity_name=c.train.entity_name)
         return self._tracker
 
-    def host_reward(self, samples) -> np.ndarray:
-        """``reward_fn`` on the main process, its f32 scores broadcast to
-        every rank, so every rank trains on the same rewards."""
-        scores = np.asarray(self.reward_fn(samples), dtype=np.float32) if is_main_process() else None
+    def host_reward(self, samples, call: Optional[Callable] = None) -> np.ndarray:
+        """``reward_fn(samples)`` (or ``call()``, e.g. the orchestrator's
+        retrying wrapper of it) on the main process, its f32 scores
+        broadcast to every rank, so every rank trains on the same rewards."""
+        if is_main_process():
+            scores = np.asarray(call() if call is not None else self.reward_fn(samples), dtype=np.float32)
+        else:
+            scores = None
         return broadcast_host(scores)
 
     def seeded_generator(self, *key: int) -> torch.Generator:
@@ -450,7 +578,6 @@ class BaseTrainer(BaseRLTrainer):
         stats["grad_norm"] = global_norm(grads)
         if self.config.train.nonfinite_guard:
             self.bad_steps, applied = guarded_update(self.optimizer, params, grads, loss.detach(), self.bad_steps)
-            self.skipped_steps += 0 if applied else 1
             stats["resilience/nonfinite"] = torch.tensor(0.0 if applied else 1.0)
             stats["resilience/bad_steps"] = torch.tensor(float(self.bad_steps))
         else:
@@ -522,10 +649,86 @@ class BaseTrainer(BaseRLTrainer):
         stats["eval_wall_time"] = time.time() - eval_t0
         return stats
 
-    def _check_resilience(self, stats):
-        """Stop after ``train.max_bad_steps`` consecutive skipped updates."""
-        if "resilience/bad_steps" in stats:
-            check_bad_steps(int(stats["resilience/bad_steps"]), self.config.train.max_bad_steps, self.iter_count)
+    # ------------------------------------------------------------ resilience
+
+    def _flush_resilience(self, allow_rollback: bool = True):
+        """Drain the buffered per-step (loss, nonfinite, bad_steps) scalars.
+
+        Per buffered step: count a skipped (non-finite) update, stop after
+        ``train.max_bad_steps`` consecutive skips, and feed the loss to the
+        divergence watchdog, which may roll back to the last intact
+        checkpoint (not with ``allow_rollback=False``: from inside a save,
+        where a rollback would recurse). A flush that counted skips records
+        a ``guard_skip`` span instant, an incident bundle (when incidents are
+        armed) and ``resilience/skipped_steps``."""
+        if not self._res_pending:
+            return
+        pending, self._res_pending = self._res_pending, []
+        max_bad = self.config.train.max_bad_steps
+        skips_before = self.skipped_steps
+        for loss, nonfinite, bad in pending:
+            if nonfinite is not None and float(nonfinite) > 0:
+                self.skipped_steps += 1
+            if bad is not None and max_bad > 0 and int(bad) >= max_bad:
+                raise TrainingDiverged(
+                    f"{int(bad)} consecutive non-finite train steps (>= train.max_bad_steps={max_bad}) around step "
+                    f"{self.iter_count} — persistent numeric blow-up, not a one-off bad batch. Lower the learning "
+                    "rate, tighten train.grad_clip, or inspect the data; raise train.max_bad_steps only if skips "
+                    "are expected."
+                )
+            if allow_rollback and self.watchdog is not None and loss is not None and self.watchdog.observe(float(loss)):
+                self._rollback()  # the remaining observations predate the rollback: dropped
+                return
+        if self.skipped_steps != skips_before:
+            obs_spans.instant("guard_skip", step=self.iter_count, skipped=int(self.skipped_steps))
+            if self._incidents is not None:
+                self._incidents.capture(self.iter_count, "guard_skip",
+                                        detail={"skipped_steps": int(self.skipped_steps)})
+            self.tracker.log({"resilience/skipped_steps": float(self.skipped_steps)}, step=self.iter_count)
+
+    def _rollback(self):
+        """The watchdog's response: restore the last intact checkpoint (in
+        place: the bf16 and int8 weight copies refresh, so captured decode
+        graphs read the restored weights), decay the LR, reset the watchdog
+        and go on from the restored step; past ``train.max_rollbacks``
+        raise TrainingDiverged."""
+        self._rollbacks += 1
+        # Before the restore (and the abort): the bundle shows the run at the divergence.
+        obs_spans.instant("watchdog_rollback", step=self.iter_count)
+        if self._incidents is not None:
+            self._incidents.capture(self.iter_count, "watchdog_rollback", detail={"rollbacks": int(self._rollbacks)})
+        t = self.config.train
+        if self._rollbacks > t.max_rollbacks:
+            raise TrainingDiverged(
+                f"divergence watchdog fired after {t.max_rollbacks} rollback(s) already spent — training is not "
+                "recovering. Lower the learning rate / tighten train.grad_clip, or raise train.max_rollbacks if the "
+                "loss spikes are believed transient."
+            )
+        if is_main_process():
+            print(f"[trlx_tpu_torch.resilience] divergence watchdog fired at step {self.iter_count} — rolling back "
+                  f"({self._rollbacks}/{t.max_rollbacks})", file=sys.stderr, flush=True)
+        try:
+            self.load()
+        except CheckpointError as e:
+            raise TrainingDiverged(f"divergence watchdog fired at step {self.iter_count} but no restorable "
+                                   f"checkpoint exists to roll back to: {e}") from e
+        if t.watchdog_lr_decay < 1.0:
+            self._lr_scale *= t.watchdog_lr_decay
+            self._rebuild_for_lr_scale()
+        self.watchdog.reset()
+        self._res_pending = []
+        self.iter_count = int(self.step)
+        self.tracker.log({"resilience/rollback_to_step": float(self.iter_count),
+                          "resilience/rollbacks": float(self._rollbacks),
+                          "resilience/lr_scale": float(self._lr_scale)}, step=self.iter_count)
+
+    def _fire_host_faults(self):
+        """The host-side drill of a step: ``slow_step@N`` stalls
+        ``TRLX_TPU_SLOW_STEP_SECONDS`` (default 1) between step N's dispatch
+        and its log-boundary sync, so the measured step time trips the
+        anomaly detector."""
+        if self.fault_plan and self.fault_plan.fire("slow_step", self.iter_count):
+            time.sleep(float(os.environ.get("TRLX_TPU_SLOW_STEP_SECONDS", "1")))
 
     # ----------------------------------------------------------------- learn
 
@@ -543,7 +746,8 @@ class BaseTrainer(BaseRLTrainer):
         finalized on the way out. A SIGTERM (a preemption notice) is acted
         on after the current step, or at the next batch boundary: a save,
         a ``preempted_at_step`` record, and ``None`` is returned without
-        evaluating. Otherwise returns the final ``evaluate()`` stats."""
+        evaluating. Otherwise returns the final ``evaluate()`` stats. The
+        metrics endpoint closes on the way out."""
         self.prepare_learning()
         self.iter_count = self.step if self._resumed else 0
         if self.iter_count >= self.total_steps:
@@ -570,6 +774,10 @@ class BaseTrainer(BaseRLTrainer):
             self._close_batch_feed()
             self._shutdown_experience_pipeline()
             self._finalize_pending_save()
+            if self._metrics_exporter is not None:
+                # Last: it serves the final gauges right up to teardown.
+                self._metrics_exporter.close()
+                self._metrics_exporter = None
             if installed:
                 signal.signal(signal.SIGTERM, old_handler if old_handler is not None else signal.SIG_DFL)
 
@@ -626,16 +834,35 @@ class BaseTrainer(BaseRLTrainer):
                 phase_exclude_s = 0.0  # eval wall inside the train window
                 for _ in range(self.n_updates_per_batch):
                     forward_t0 = time.time()
-                    stats = self.train_step(device_batch)
+                    step_batch = device_batch
+                    if self.fault_plan and self.fault_plan.fire("nan_grad", self.iter_count + 1):
+                        # The drill: this step's float tensors NaN-poisoned;
+                        # the non-finite guard must skip the update.
+                        step_batch = poison_nan(device_batch)
+                    stats = self.train_step(step_batch)
                     self.iter_count += 1
+                    self._fire_host_faults()
                     self.post_backward_callback(stats)
-                    self._check_resilience(stats)
+                    if self.watchdog is not None or "resilience/bad_steps" in stats:
+                        self._res_pending.append((stats.get("loss"), stats.get("resilience/nonfinite"),
+                                                  stats.get("resilience/bad_steps")))
+                        if len(self._res_pending) >= max(train.log_interval, 8):
+                            self._flush_resilience()
+                    if self.fault_plan and self.fault_plan.fire("sigterm", self.iter_count):
+                        # A real signal, so the installed handler acts on it.
+                        os.kill(os.getpid(), signal.SIGTERM)
                     iv = self.intervals(self.iter_count)
                     if iv["do_checkpoint"]:
                         self.save(block=not train.async_checkpointing)
                     if iv["do_log"] or iv["do_eval"]:
+                        self._flush_resilience()
                         stats_host = {k: float(v) for k, v in stats.items()}
                         stats_host["step_time"] = time.time() - forward_t0
+                        obs_spans.complete("train/step", forward_t0, step=self.iter_count)
+                        if self._anomaly is not None and self._anomaly.observe(stats_host["step_time"]):
+                            self._incidents.capture(self.iter_count, "slow_step", detail={
+                                "step_time": stats_host["step_time"], "p50": self._anomaly.p50(),
+                                "factor": self._anomaly.factor})
                         stats_host["samples_per_sec"] = train.batch_size / max(stats_host["step_time"], 1e-9)
                         if iv["do_eval"]:
                             stats_host.update(self.evaluate())
@@ -646,6 +873,9 @@ class BaseTrainer(BaseRLTrainer):
                             v = np.asarray(v)
                             stats_host[f"{k}/mean"] = float(v.mean())
                             stats_host[f"{k}/max"] = float(v.max())
+                        if self._health is not None:
+                            self._observe_health(stats_host)
+                        self._export_metrics(stats_host)
                         self.tracker.log(stats_host, step=self.iter_count)
                     if self._any_preempted():
                         self._save_on_preemption()
@@ -659,6 +889,20 @@ class BaseTrainer(BaseRLTrainer):
             self.post_epoch_callback()
         self.save()
         return self.evaluate()
+
+    def _observe_health(self, stats_host: dict):
+        """The health feed at a log boundary: the ``entropy_collapse``
+        drill's latch, the step's stats with the KL controller's state, then
+        the ``health/*`` gauges ride along in the same record, and the
+        lineage staleness histogram of the chunks since the last flush."""
+        if self.fault_plan and self.fault_plan.fire("entropy_collapse", self.iter_count):
+            self._health.inject_entropy_collapse()
+        kl_ctl = getattr(self, "kl_ctl", None)
+        self._health.observe_train(stats_host, self.iter_count, kl_coef=getattr(kl_ctl, "value", None),
+                                   kl_target=getattr(kl_ctl, "target", None),
+                                   kl_init_coef=getattr(self.config.method, "init_kl_coef", None))
+        stats_host.update(self._health.gauges())
+        self._health.maybe_log_lineage(self.tracker, self.iter_count)
 
     def _any_preempted(self) -> bool:
         """A SIGTERM reached some rank: every rank stops at the same step."""
@@ -688,7 +932,9 @@ class BaseTrainer(BaseRLTrainer):
         (subclasses extend: PPO adds the KL coefficient). The port has no
         counterpart of the JAX package's ``next_rng`` key: every generator
         is a pure function of (train.seed, its key), so no ``rng`` is
-        saved."""
+        saved. The buffered resilience scalars are flushed first, so the
+        counts are current."""
+        self._flush_resilience(allow_rollback=False)
         return {
             "resilience": {
                 "skipped_steps": int(self.skipped_steps),
@@ -704,11 +950,10 @@ class BaseTrainer(BaseRLTrainer):
             # Monotone merges, as in the JAX package: a restored older host
             # state never lowers the rollback count nor raises the LR scale.
             self._rollbacks = max(self._rollbacks, int(res.get("rollbacks", 0)))
-            self._lr_scale = min(self._lr_scale, float(res.get("lr_scale", 1.0)))
-            if self._lr_scale != 1.0:
-                raise NotImplementedError(
-                    f"the checkpoint carries lr_scale {self._lr_scale}: the watchdog's LR decay is not ported yet"
-                )
+            scale = min(self._lr_scale, float(res.get("lr_scale", 1.0)))
+            if scale != self._lr_scale:
+                self._lr_scale = scale
+                self._rebuild_for_lr_scale()
 
     def save(self, directory: Optional[str] = None, block: bool = True):
         """Checkpoint the whole train state and the host state to
@@ -727,6 +972,7 @@ class BaseTrainer(BaseRLTrainer):
 
         With several processes the main one writes, blocking, and every
         rank leaves after the files are in place (a barrier)."""
+        save_t0 = time.time()
         self._finalize_pending_save()
         directory = os.path.abspath(directory or self.config.train.checkpoint_dir)
         name = f"state_{int(self.step)}"
@@ -739,8 +985,11 @@ class BaseTrainer(BaseRLTrainer):
             else:
                 self._saved = (directory, name, host_state)
             barrier()
-            return
-        self._write(directory, name, host_state, block)
+        else:
+            self._write(directory, name, host_state, block)
+        # The wall the train loop paid: through finalize when blocking, the
+        # host copy alone when async (its finalize is a span of its own).
+        obs_spans.complete("ckpt/save", save_t0, ckpt=name, blocking=bool(block))
 
     def _write(self, directory: str, name: str, host_state: dict, block: bool):
         t0 = time.perf_counter()
@@ -765,11 +1014,13 @@ class BaseTrainer(BaseRLTrainer):
     def _finalize_pending_save(self) -> Optional[str]:
         """Drain the save in flight: join its writer, then atomically write
         host state, manifest and ``latest.txt`` (in that order — the pointer
-        flips last), and apply ``train.keep_checkpoints``. Returns the
+        flips last), fire a ``ckpt_corrupt`` drill keyed by this completed
+        save's index, and apply ``train.keep_checkpoints``. Returns the
         checkpoint's name, or None when no save was pending."""
         pending, self._pending_save = self._pending_save, None
         if pending is None:
             return None
+        fin_t0 = time.time()
         t0 = time.perf_counter()
         if "thread" in pending:
             pending["thread"].join()
@@ -788,6 +1039,11 @@ class BaseTrainer(BaseRLTrainer):
         # basename, not abspath: checkpoint dirs move between machines.
         # Written LAST and atomically: a crash above leaves the old pointer.
         ckpt_util.atomic_write_text(os.path.join(directory, "latest.txt"), name)
+        self._save_count += 1
+        if self.fault_plan and self.fault_plan.fire("ckpt_corrupt", self._save_count):
+            rel = ckpt_util.corrupt_checkpoint(directory, name)
+            print(f"[trlx_tpu_torch.resilience] injected checkpoint corruption: truncated {name}/{rel}",
+                  file=sys.stderr)
         ckpt_util.gc_checkpoints(directory, self.config.train.keep_checkpoints, protect=(name,))
         record.update(bytes=result["bytes"], write_s=result["write_s"], crc_wait_s=result["crc_wait_s"],
                       manifest_s=time.perf_counter() - t1, finalize_s=time.perf_counter() - t0,
@@ -795,6 +1051,7 @@ class BaseTrainer(BaseRLTrainer):
         self.checkpoint_log.append({"op": "save", **record})
         self.tracker.log({"save_time": record["save_s"]}, step=self.iter_count)
         self._saved = (directory, name, pending["host_state"])
+        obs_spans.complete("ckpt/finalize", fin_t0, ckpt=name)
         return name
 
     def _maybe_resume(self):
@@ -823,6 +1080,7 @@ class BaseTrainer(BaseRLTrainer):
         copies and a captured decode graph read them. Raises
         CheckpointError with every attempt when nothing is restorable."""
         t_load = time.perf_counter()
+        load_t0 = time.time()
         self._finalize_pending_save()  # a pending async save IS the latest
         self._saved = None
         directory = os.path.abspath(directory or self.config.train.checkpoint_dir)
@@ -878,6 +1136,7 @@ class BaseTrainer(BaseRLTrainer):
                     "copy_s": t3 - t2, "load_s": time.perf_counter() - t_load,
                     "bytes": sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)),
                 })
+                obs_spans.complete("ckpt/load", load_t0, ckpt=name, fallback=bool(i > 0))
                 return name
         raise CheckpointError(
             f"no restorable checkpoint in {directory} — every candidate failed verification or reading: "

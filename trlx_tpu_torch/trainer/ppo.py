@@ -561,12 +561,15 @@ class PPOTrainer(BaseTrainer):
                 self.kl_ctl.value = v
 
     def load(self, directory=None):
-        """The base load, then the rollout engine (if built) is dropped: its
+        """The base load (in place), then the rollout engine, if built, is
+        told that its weights changed under it (``invalidate_weights``): its
         prefix blocks hold KV of the replaced weights under a version the
-        next handoff may repeat. The next rollout builds it anew on the
-        loaded weights, as a resumed run does."""
+        next handoff may repeat. Its buffers and captured decode graphs
+        stay: they read the model's tensors, which the load refreshed in
+        place (a watchdog rollback inside ``learn()`` loads so)."""
         name = super().load(directory)
-        self._shutdown_rollout_engine()
+        if self._rollout_engine is not None:
+            self._rollout_engine.invalidate_weights()
         return name
 
     def _create_train_loader(self):
@@ -645,7 +648,12 @@ class PPOTrainer(BaseTrainer):
             stats["train_batch_fill"] = float(np.mean(window_fill))
         if self._last_exp_stats:
             stats.update(self._last_exp_stats)
+        if self._health is not None:
+            # The detectors' state at the rollout boundary, in the window record.
+            stats.update(self._health.gauges())
         self.tracker.log(stats, step=self.iter_count)
+        if self._metrics_exporter is not None:
+            self._metrics_exporter.update(stats, step=self.iter_count)
 
     def _shutdown_experience_pipeline(self):
         """learn()'s teardown: stop the rollout producer (also on the
