@@ -29,7 +29,7 @@ prefix, a dead slot on the trash block and a fully masked row), then drives
    int8 block-table kernel is held against its plain version on the
    engine's own live pool;
 6. offline ILQL, ``trlx_tpu_torch.train(dataset=...)``, at GPT-J-6B full
-   width and 8 layers (run first): 16 seeded token-array samples of 1024
+   width and 6 layers (run first): 16 seeded token-array samples of 1024
    tokens, batch 4, 4 steps each followed by a Polyak sync held against
    alpha·online + (1 − alpha)·target, the last step profiled for the Q
    heads' share, then evaluate() steered by the target heads; and the ILQL
@@ -39,7 +39,7 @@ prefix, a dead slot on the trash block and a fully masked row), then drives
 7. checkpoints: the end of every ``learn()`` saves (``[ckpt]`` lines: bytes,
    device-to-host, write, crc, manifest and load seconds, GB/s, beside the
    card), verified against its manifest and deleted when its path is done;
-   ``[resume]``: ILQL at 8 layers from ``ilql_train``'s end save (2 more
+   ``[resume]``: ILQL at 6 layers from ``ilql_train``'s end save (2 more
    steps); PPO's
    resume, and a load into a trainer whose decode graphs are captured, are
    ``resilience_drill``'s run 2 (13.);
@@ -87,6 +87,14 @@ prefix, a dead slot on the trash block and a fully masked row), then drives
    reward-drift CRIT's incident bundles, ``/healthz`` and ``/metrics``
    scraped live; and the live engine's greedy tokens after the rollback
    against a fresh trainer's on the restored checkpoint;
+14. data, fully sharded and tensor parallelism (``dist_train``): 4 processes
+   on this card over gloo, train.mesh [1, 2, 2, 1] (fsdp 2 x tp 2), GPT-J-6B
+   width at 2 layers with ppo_gptj_config.yml's values and the training
+   path's prompts, against one process with the same seeded weights,
+   prompts and store: teacher-forced logprobs and values, step 1's
+   statistics, the parameters after 4 steps (replicas bit-equal under the
+   consistency guard), each rank's launches of rows 1-3 at 8 heads, 4-6
+   and 7, and the greedy tokens' identical share (printed);
 
 and checks that each path went through every kernel it runs, exactly as
 often as its config says.
@@ -1751,9 +1759,12 @@ def engine_train_path(kernels):
     (block 128, 8 slots, prefill batch 4, 8 steps per sync, the default pool
     of 65 blocks) with an int8 KV cache, on 16 prompts of which 8 share a
     512-token prefix, with ``train_config``'s method and optimizer values:
-    16 PPO steps, two experience phases, a final evaluate(). Returns its
+    16 PPO steps, two experience phases, a final evaluate(). Its end save
+    is not written (since dist_train, the smoke's time): ``hf_rm_train``'s
+    end save of the same 33.6 GB state is written and checked. Returns its
     numbers and the launches of the whole run."""
     import trlx_tpu_torch
+    from trlx_tpu_torch.trainer.ppo import PPOTrainer
 
     n_layer, k, R = GPTJ_6B_ARCH["n_layer"], 2, MAX_LEN - PROMPT_LEN
     spc = ENGINE["engine_steps_per_sync"]
@@ -1781,7 +1792,13 @@ def engine_train_path(kernels):
 
         engine._decode, engine.stats = decode_, stats_
 
-    cls = make_timed_trainer(kernels, n_layer, on_engine)
+    class NoSavePPOTrainer(PPOTrainer):
+        saves_skipped = 0
+
+        def save(self, directory=None, block=True):
+            self.saves_skipped += 1
+
+    cls = make_timed_trainer(kernels, n_layer, on_engine, base=NoSavePPOTrainer)
     run_dir = os.path.join(RUN_DIR, "engine_train")
     config = train_config(n_layer, cls.__name__, run_dir, method=dict(ENGINE, paged_kv=True), quant=True)
     torch.cuda.reset_peak_memory_stats()
@@ -1879,8 +1896,8 @@ def engine_train_path(kernels):
     before_eval = trainer.launches_before_eval
     if any(before_eval[n] for n in ("decode_attention", "decode_attention_int8", "paged_decode_attention")):
         raise AssertionError(f"rows 7-9 launched before evaluate(): {before_eval}")
-    # resilience_drill's loads verify manifests written by the same save.
-    out["ckpt"] = check_end_save("engine_train", trainer, run_dir, verify=False)
+    if trainer.saves_skipped != 1:
+        raise AssertionError(f"engine_train asked for {trainer.saves_skipped} saves, expected its end save")
 
     del trainer, engine, eng
     free()
@@ -1897,7 +1914,7 @@ def overlap_train_path(kernels):
     """The overlapped rollout/train pipeline (``method.rollout_overlap``,
     ``max_staleness``, ``pack_train_batch``, ``prompt_buckets``) on the main
     path: ``trlx_tpu_torch.train(reward_fn=...)`` through the paged int8
-    engine with ``engine_train``'s settings at GPT-J-6B width and 4 layers,
+    engine with ``engine_train``'s settings at GPT-J-6B width and ``OVERLAP_LAYERS`` layers,
     24 steps (three rollout iterations), a reward_fn that spends 0.2 s of
     host time per chunk. Three runs: (a) serial; (b) rollout_overlap at
     staleness 0 with prefetch, whose every store, step statistic and final
@@ -2177,8 +2194,8 @@ def resilience_drill_path(kernels):
 
     orig_guard = trainer_base.guarded_update
 
-    def spy_guard(optimizer, params, grads, loss, bad_steps):
-        out = orig_guard(optimizer, params, grads, loss, bad_steps)
+    def spy_guard(optimizer, params, grads, loss, bad_steps, **kw):
+        out = orig_guard(optimizer, params, grads, loss, bad_steps, **kw)
         if not out[1]:  # a skipped step: the finite elements left in each gradient
             drill["nan_grads"].append([(int(torch.isfinite(g).sum()), g.numel()) for g in grads])
         return out
@@ -2523,7 +2540,7 @@ ILQL_SAMPLES = 16
 # The ILQL path's depth, cut from 28 to keep the smoke near 1000 s: the Q
 # heads' f32 rows run as at full depth, and rows 1-7 count at full depth on
 # hf_rm_train and engine_train.
-ILQL_TRAIN_LAYERS = 8
+ILQL_TRAIN_LAYERS = 6  # 8 until dist_train came (the smoke's time limit)
 F32_HEAD_KERNELS = ("logprob_fwd_f32_kernel", "logprob_ds_f32_kernel", "logprob_dx_f32_kernel",
                     "logprob_dw_f32_kernel")
 
@@ -2835,7 +2852,9 @@ def ilql_resume_path(kernels, saved, run_dir):
     included, must be bit-equal to the saver's, and ``ILQL_RESUME_STEPS``
     more steps each launch what an ILQL step must (rows 4f-6f among them).
     The saved checkpoint is deleted once loaded: the disk holds one
-    checkpoint at a time."""
+    checkpoint at a time. Its own end save is not written (since
+    dist_train, the smoke's time): ``ilql_train``'s end save of the same
+    27.7 GB state is written, checked and loaded here."""
     import trlx_tpu_torch
     from trlx_tpu_torch.trainer import register_model
     from trlx_tpu_torch.trainer.ilql import ILQLTrainer
@@ -2849,7 +2868,11 @@ def ilql_resume_path(kernels, saved, run_dir):
             super().__init__(config, **kwargs)
             self.loaded = ilql_state_fingerprints(self)
             self.step_launches = []
+            self.saves_skipped = 0
             shutil.rmtree(os.path.join(run_dir, f"state_{saved['step']}"))  # one checkpoint on disk at a time
+
+        def save(self, directory=None, block=True):
+            self.saves_skipped += 1
 
         def train_step(self, batch):
             before = {n: f.launches for n, f in kernels.items()}
@@ -2879,9 +2902,9 @@ def ilql_resume_path(kernels, saved, run_dir):
             total - saved["step"]):
         raise AssertionError(f"ILQL resumed run: iter_count {resumed.iter_count}, step {resumed.step}, per-step "
                              f"launches {resumed.step_launches}, expected {per_step} each")
-    out = {"wall_s": wall, "resumed_step_launches": resumed.step_launches[0]}
-    # The load above verified a manifest written by the same save.
-    out["ckpt"] = check_end_save("ilql_resume", resumed, run_dir, verify=False)
+    out = {"wall_s": wall, "resumed_step_launches": resumed.step_launches[0], "saves_skipped": resumed.saves_skipped}
+    if resumed.saves_skipped != 1:
+        raise AssertionError(f"ILQL resumed run asked for {resumed.saves_skipped} saves, expected its end save")
     log(f"[resume] ILQL at GPT-J-6B width ({n_layer} layers): steps {saved['step'] + 1}-{total} after the "
         f"load, each launching {per_step}; {wall:.1f} s")
     del resumed
@@ -3149,9 +3172,13 @@ def text_ppo_path(kernels):
     steps). ``reward_fn`` must see only strings, the eval samples must be
     strings. Then ``save_pretrained``: the export read back in part through
     the port's reader must equal the live parameters, bit for bit, and the
-    value head its sidecar. Returns its numbers and launches."""
+    value head its sidecar. Its end save is not written (since dist_train,
+    the smoke's time): ``train_bf16``'s end save of the same 14.2 GB state
+    is written and checked, ``softprompt_train``'s verified against its
+    manifest. Returns its numbers and launches."""
     import trlx_tpu_torch
     from trlx_tpu_torch.models.hf_import import trunk_spec
+    from trlx_tpu_torch.trainer.ppo import PPOTrainer
     from trlx_tpu_torch.models.safetensors_io import SafetensorsReader
 
     seen = []
@@ -3168,7 +3195,13 @@ def text_ppo_path(kernels):
         evals.append(list(texts))
         return text_metric(texts)
 
-    cls = make_timed_trainer(kernels, TEXT_LAYERS, tokenizer=ByteTokenizer())
+    class NoSavePPOTrainer(PPOTrainer):
+        saves_skipped = 0
+
+        def save(self, directory=None, block=True):
+            self.saves_skipped += 1
+
+    cls = make_timed_trainer(kernels, TEXT_LAYERS, tokenizer=ByteTokenizer(), base=NoSavePPOTrainer)
     run_dir = os.path.join(RUN_DIR, "text_ppo")
     config = train_config(TEXT_LAYERS, cls.__name__, run_dir)
     config.model.tokenizer_path = "byte-level"
@@ -3194,7 +3227,8 @@ def text_ppo_path(kernels):
                [r["device_s"] for r in trainer.step_log])), "launches": launches}
     log(f"[text_ppo] train(reward_fn=<over str>, prompts=[str]) at GPT-J-6B width, {TEXT_LAYERS} layers: "
         f"{json.dumps(out)}")
-    check_end_save("text_ppo", trainer, run_dir)
+    if trainer.saves_skipped != 1:
+        raise AssertionError(f"text_ppo asked for {trainer.saves_skipped} saves, expected its end save")
     shutil.rmtree(run_dir)
 
     out_dir = os.path.join(RUN_DIR, "hf_export")
@@ -3949,6 +3983,305 @@ def sp_train_path(kernels):
     return out, launches
 
 
+DIST_LAYERS = 2  # GPT-J-6B width; the whole model is 0.82 B parameters at this depth
+DIST_MESH = (1, 2, 2, 1)  # fsdp 2 x tp 2: 8 local heads, half of every split piece
+DIST_WORLD = 4  # processes sharing this one card over gloo (NCCL refuses two ranks on one device)
+DIST_STEPS = 4
+DIST_TIMEOUT_S = 420  # the workers' wall limit, build load and gloo start included
+DIST_LP_TOL = 0.25  # (a) max |logprob| difference, teacher-forced: tp reorders every bf16 sum
+DIST_LP_MEAN_TOL = 2e-2  # (a) mean |logprob| difference
+DIST_VALUE_TOL = 0.1  # (a) max |value| difference
+DIST_STAT_TOL = 2e-2  # (b) step 1's statistics from the same store, per token, as sp_train
+# (c) after DIST_STEPS steps: each Adam step moves a weight by at most about
+# its learning rate (1.412e-4 x count / 100 on the 100-step ramp: 0, 1.4e-6,
+# 2.8e-6, 4.2e-6), so two runs that differ only in the order of their sums
+# differ by at most twice the sum of those: 1.7e-5. Adam's first steps move
+# each weight by about its rate whatever the gradient's size, so the bound
+# is reached where a tiny gradient's sign differs; the share of weights that
+# moved the reference's way is the finer check.
+DIST_PARAM_TOL = 2e-5
+DIST_SIGN_AGREE = 0.9
+DIST_GREEDY_PROMPTS = 8
+DIST_GREEDY_TOKENS = 64  # (e)'s greedy decode: enough tokens to show where tp's bf16 sums split near ties
+
+
+def dist_config(run_dir: str, mesh):
+    """``train_path``'s config (ppo_gptj_config.yml's values at GPT-J-6B
+    width, 768 + 256 tokens, 16 rollouts in chunks of 8, batch 8) at
+    ``DIST_LAYERS`` layers for ``DIST_STEPS`` steps on train.mesh ``mesh``,
+    the consistency guard every step on a mesh."""
+    config = train_config(DIST_LAYERS, "DistSmokeTrainer", run_dir)
+    config.train.total_steps = DIST_STEPS
+    config.train.mesh = list(mesh)
+    if any(a > 1 for a in mesh):
+        config.train.desync_check_interval = 1
+    return config
+
+
+def dist_trainer_class(kernels, ref):
+    """The trainer of ``dist_train``: before ``learn()`` it scores the fixed
+    sequences teacher-forced (a), decodes greedily (e) and, on the mesh,
+    takes the reference's store; it records each step's device time, stats
+    and the flash and decode kernels' head counts."""
+    import dataclasses
+
+    from trlx_tpu_torch.models import lm as lm_mod
+    from trlx_tpu_torch.ops.generate import make_generate_fn
+    from trlx_tpu_torch.parallel import collectives as coll
+    from trlx_tpu_torch.trainer import register_model
+    from trlx_tpu_torch.trainer.ppo import PPOTrainer
+
+    heads = {"flash": set(), "decode": set()}
+    flash, decode = lm_mod.flash_attention, lm_mod.decode_attention
+
+    def flash_spy(q, *a, **kw):
+        heads["flash"].add(int(q.shape[2]))
+        return flash(q, *a, **kw)
+
+    def decode_spy(q, *a, **kw):
+        heads["decode"].add(int(q.shape[1]))
+        return decode(q, *a, **kw)
+
+    lm_mod.flash_attention, lm_mod.decode_attention = flash_spy, decode_spy
+
+    @register_model("DistSmokeTrainer")
+    class DistSmokeTrainer(PPOTrainer):
+        def __init__(self, config, **kwargs):
+            super().__init__(config, **kwargs)
+            self.step_log, self.report, self.heads = [], {}, heads
+            # The seeded initial weights (pieces on the mesh: every rank
+            # draws the whole tensors, so they are the one process's).
+            self.init_params = {n: p.detach().float().cpu().clone() for n, p in self.model.named_parameters()}
+
+        def learn(self):
+            store = ref["store"] if ref is not None else self.store.columns()
+            rows = {k: v[:CHUNK] for k, v in store.items()}
+            tokens = np.concatenate([rows["query_tensors"], rows["response_tensors"]], axis=1)
+            mask = np.concatenate([rows["query_mask"], rows["response_mask"]], axis=1)
+            with torch.no_grad():
+                lp, values, _, _ = self.rollout_score(self.put(self.local_rows(tokens)), self.put(self.local_rows(mask)),
+                                                      np.zeros(tokens.shape[0] // self.mesh.data_size, np.float32))
+            rmask = mask[:, self.prompt_length:]
+            self.report["teacher_forced"] = {"logprobs": self.gather_rows(self.to_host(lp)) * rmask,
+                                             "values": self.gather_rows(self.to_host(values)) * rmask}
+            greedy = make_generate_fn(self.model, dataclasses.replace(self.gen_cfg, do_sample=False,
+                                                                      max_new_tokens=DIST_GREEDY_TOKENS))
+            prompts = {k: v[:DIST_GREEDY_PROMPTS] for k, v in ref["prompts"].items()} if ref is not None else None
+            if prompts is None:
+                prompts = {"input_ids": rows["query_tensors"][:DIST_GREEDY_PROMPTS],
+                           "attention_mask": rows["query_mask"][:DIST_GREEDY_PROMPTS]}
+                self.report["prompts"] = prompts
+            toks, _ = greedy(self.put(self.local_rows(prompts["input_ids"])),
+                             self.put(self.local_rows(prompts["attention_mask"])), None)
+            self.report["greedy"] = self.gather_rows(self.to_host(toks))
+            self.report["store"] = store
+            if ref is not None:
+                # (b): train from the reference's store.
+                self.store.clear_history()
+                self.store.push_batch(ref["store"])
+            coll.reset_traffic()
+            torch.cuda.synchronize()
+            return super().learn()
+
+        def train_step(self, batch):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            stats = super().train_step(batch)
+            end.record()
+            torch.cuda.synchronize()
+            rec = {k: float(v) for k, v in stats.items()}
+            rec["device_s"] = start.elapsed_time(end) / 1e3
+            rec["wall_s"] = time.perf_counter() - t0
+            self.step_log.append(rec)
+            return stats
+
+        def save(self, directory=None, block=True):
+            self.saves_skipped = getattr(self, "saves_skipped", 0) + 1
+
+    return DistSmokeTrainer
+
+
+def dist_run(kernels, mesh, ref, tag: str):
+    """``train(reward_fn=...)`` through ``dist_trainer_class`` on
+    train.mesh ``mesh`` (every rank of the mesh calls it). Returns the
+    trainer, its wall seconds, its launches and its peak memory."""
+    import trlx_tpu_torch
+
+    from trlx_tpu_torch.models import lm as lm_mod
+
+    spied = lm_mod.flash_attention, lm_mod.decode_attention
+    dist_trainer_class(kernels, ref)
+    config = dist_config(os.path.join(RUN_DIR, tag), mesh)
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    try:
+        trainer = trlx_tpu_torch.train(reward_fn=reward_fn, prompts=seeded_prompts(N_ROLLOUTS, 0),
+                                       eval_prompts=seeded_prompts(CHUNK, 1), config=config)
+    finally:
+        lm_mod.flash_attention, lm_mod.decode_attention = spied
+    torch.cuda.synchronize()
+    return trainer, time.perf_counter() - t0, {n: f.launches for n, f in kernels.items()}, \
+        torch.cuda.max_memory_allocated() / 1e9
+
+
+def dist_worker_cmd(rank: int, run_dir: str):
+    """The command of one ``dist_train`` rank: this script in worker mode."""
+    return [sys.executable, os.path.abspath(__file__), "--dist-rank", str(rank), "--dist-world", str(DIST_WORLD),
+            "--dist-dir", run_dir]
+
+
+def dist_worker(rank: int, world: int, run_dir: str) -> int:
+    """One rank of ``dist_train``: joins the gloo group through a file
+    store, trains on ``DIST_MESH`` against the reference's file, checks (a),
+    (b) and (c) on its pieces and writes its numbers to
+    ``<run_dir>/rank<r>.json``."""
+    import torch.distributed as dist
+    from trlx_tpu_torch.models.lm import placement_of
+    from trlx_tpu_torch.ops import cuda_lib
+    from trlx_tpu_torch.parallel import collectives as coll
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{os.path.join(run_dir, 'store')}", rank=rank,
+                            world_size=world)
+    cuda_lib.lib()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels = port_kernels()
+    ref = torch.load(os.path.join(run_dir, "ref.pt"), weights_only=False)
+    trainer, wall, launches, peak = dist_run(kernels, DIST_MESH, ref, f"dist_rank{rank}")
+    out = {"rank": rank, "coords": trainer.mesh.coords, "wall_s": wall, "peak_mem_gb": peak, "launches": launches,
+           "heads": {k: sorted(v) for k, v in trainer.heads.items()}, "steps": trainer.step_log,
+           "iter_count": trainer.iter_count, "traffic": coll.traffic(),
+           "local_heads": trainer.model.cfg.local_heads}
+    tf, rtf = trainer.report["teacher_forced"], ref["teacher_forced"]
+    rmask = ref["store"]["response_mask"][:CHUNK].astype(bool)
+    dlp = np.abs(tf["logprobs"] - rtf["logprobs"])[rmask]
+    out["a"] = {"logprob_max_abs": float(dlp.max()), "logprob_mean_abs": float(dlp.mean()),
+                "value_max_abs": float(np.abs(tf["values"] - rtf["values"])[rmask].max())}
+    g, rg = trainer.report["greedy"], ref["greedy"]
+    P = trainer.prompt_length
+    out["e_greedy_share"] = float((g[:, P:] == rg[:, P:]).mean())
+    s1, r1 = trainer.step_log[0], ref["steps"][0]
+    out["b"] = {k: abs(s1[k] - r1[k]) / max(1.0, abs(r1[k])) for k in SP_STAT_KEYS + SP_REPORTED_KEYS}
+    worst, moved, agree, counted = 0.0, 0.0, 0, 0
+    fsdp_rank, tp_rank = trainer.mesh.coords["fsdp"], trainer.mesh.coords["tp"]
+    ref_update = torch.load(os.path.join(run_dir, "ref_update.pt"), mmap=True, weights_only=True)
+    for name, p in trainer.model.named_parameters():
+        pl = placement_of(trainer.model, name)
+        update = ref_update[name] if pl is None else pl.shard(ref_update[name], fsdp_rank, tp_rank)
+        start = trainer.init_params[name]
+        want = start + update.float()
+        mine = p.detach().float().cpu()
+        worst = max(worst, float((mine - want).abs().max()))
+        moved = max(moved, float((mine - start).abs().max()))
+        ref_moved = want != start
+        agree += int(((mine - start).sign() == (want - start).sign())[ref_moved].sum())
+        counted += int(ref_moved.sum())
+    out["c"] = {"param_max_abs": worst, "moved_max_abs": moved, "update_sign_agreement": agree / max(counted, 1)}
+    with open(os.path.join(run_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def dist_train_path(kernels):
+    """Data, fully sharded and tensor parallelism on the card: ``DIST_WORLD``
+    processes share it over gloo on train.mesh ``DIST_MESH`` (fsdp 2 x tp 2)
+    at GPT-J-6B width and ``DIST_LAYERS`` layers with ppo_gptj_config.yml's
+    values and ``train_path``'s prompts (768 + 256 tokens), held against one
+    process on the same card with the same seeded weights, prompts and
+    store (run here first). Checks: (a) teacher-forced policy logprobs and
+    values on fixed sequences (rows 1 and 4 on 8 local heads); (b) step 1's
+    statistics from the same store within ``DIST_STAT_TOL``; (c) after
+    ``DIST_STEPS`` steps the replicated parameters bit-equal across ranks
+    (the consistency guard every step) and every rank's pieces within
+    ``DIST_PARAM_TOL`` of the one-process run's; (d) every rank launched
+    rows 1-3 at 8 heads, 4-6 and 7. (e), the share of greedy tokens equal to
+    the one-process run's, is printed, not gated. No checkpoint is written."""
+    run_dir = os.path.join(RUN_DIR, "dist")
+    os.makedirs(run_dir, exist_ok=True)
+    trainer, wall, launches, peak = dist_run(kernels, (1, 1, 1, 1), None, "dist_single")
+    ref = {"store": trainer.report["store"], "teacher_forced": trainer.report["teacher_forced"],
+           "greedy": trainer.report["greedy"], "prompts": trainer.report["prompts"], "steps": trainer.step_log}
+    torch.save(ref, os.path.join(run_dir, "ref.pt"))
+    # The one-process run's update (trained less initial weights) in bf16:
+    # ~1e-5 a weight, kept to 3 significant digits, half the bytes to write.
+    torch.save({n: (p.detach().float().cpu() - trainer.init_params[n]).to(torch.bfloat16)
+                for n, p in trainer.model.named_parameters()}, os.path.join(run_dir, "ref_update.pt"))
+    single = {"wall_s": wall, "peak_mem_gb": peak, "launches": launches, "heads": {k: sorted(v) for k, v in
+                                                                                   trainer.heads.items()},
+              "step_device_s": [r["device_s"] for r in trainer.step_log]}
+    del trainer
+    free()
+
+    t0 = time.perf_counter()
+    procs = []
+    for r in range(DIST_WORLD):
+        logf = open(os.path.join(run_dir, f"rank{r}.log"), "w")
+        procs.append((subprocess.Popen(dist_worker_cmd(r, run_dir), stdout=logf, stderr=subprocess.STDOUT), logf))
+    deadline = time.monotonic() + DIST_TIMEOUT_S
+    failed = []
+    for r, (p, logf) in enumerate(procs):
+        try:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            failed.append(f"rank {r} timed out")
+        if p.returncode:
+            failed.append(f"rank {r} exit {p.returncode}")
+    for p, logf in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        logf.close()
+    mesh_wall = time.perf_counter() - t0
+    if failed:
+        for r in range(DIST_WORLD):
+            with open(os.path.join(run_dir, f"rank{r}.log")) as f:
+                log(f"[dist_train] rank {r} output (tail):\n{f.read()[-4000:]}")
+        raise AssertionError(f"dist_train: {failed}")
+    ranks = []
+    for r in range(DIST_WORLD):
+        with open(os.path.join(run_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    per_step_bytes = {op: v["bytes"] / DIST_STEPS for op, v in ranks[0]["traffic"].items()}
+    out = {"mesh": DIST_MESH, "n_layer": DIST_LAYERS, "single": single, "mesh_wall_s": mesh_wall,
+           "ranks": [{k: r[k] for k in ("rank", "coords", "wall_s", "peak_mem_gb", "launches", "heads", "a", "b",
+                                        "c", "e_greedy_share", "traffic", "local_heads")}
+                     | {"step_device_s": [s["device_s"] for s in r["steps"]],
+                        "step_wall_s": [s["wall_s"] for s in r["steps"]]} for r in ranks],
+           "rank0_traffic_bytes_per_step": per_step_bytes,
+           "tol": {"a_logprob_max": DIST_LP_TOL, "a_logprob_mean": DIST_LP_MEAN_TOL, "a_value": DIST_VALUE_TOL,
+                   "b": DIST_STAT_TOL, "c": DIST_PARAM_TOL, "c_sign": DIST_SIGN_AGREE}}
+    log(f"[dist_train] {DIST_WORLD} processes on one card over gloo, train.mesh {list(DIST_MESH)} at GPT-J-6B width "
+        f"({DIST_LAYERS} layers), against one process: {json.dumps(out)} on {card_line()}")
+    errors = []
+    need = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "fused_logprob_fwd",
+            "fused_logprob_bwd_dx", "fused_logprob_bwd_dw", "decode_attention")
+    for r in ranks:
+        a, b, c = r["a"], r["b"], r["c"]
+        if not (a["logprob_max_abs"] <= DIST_LP_TOL and a["logprob_mean_abs"] <= DIST_LP_MEAN_TOL
+                and a["value_max_abs"] <= DIST_VALUE_TOL):
+            errors.append(f"rank {r['rank']} (a) {a}")
+        off = {k: v for k, v in b.items() if k in SP_STAT_KEYS and not v <= DIST_STAT_TOL}
+        if off:
+            errors.append(f"rank {r['rank']} (b) {off}")
+        if not (c["param_max_abs"] <= DIST_PARAM_TOL and c["moved_max_abs"] > 0
+                and c["update_sign_agreement"] >= DIST_SIGN_AGREE):
+            errors.append(f"rank {r['rank']} (c) {c}")
+        zero = [n for n in need if r["launches"][n] == 0]
+        if zero or r["heads"]["flash"] != [8] or r["heads"]["decode"] != [8] or r["local_heads"] != 8:
+            errors.append(f"rank {r['rank']} (d) no launches of {zero}, heads {r['heads']}")
+        if r["iter_count"] != DIST_STEPS:
+            errors.append(f"rank {r['rank']} stopped at step {r['iter_count']}")
+    if errors:
+        raise AssertionError(f"dist_train: {errors}")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    return out, ranks[0]["launches"]
+
+
 def successor_processor(gcfg, vocab: int):
     """A logit processor that allows ``SPEC_SUCCESSORS`` successors of each
     token (a seeded hash of it), then the default chain: constrained
@@ -4105,6 +4438,10 @@ def compare_greedy(paged, fixed):
 
 
 def main() -> int:
+    if "--dist-rank" in sys.argv:
+        args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+        sys.path.insert(0, ROOT)
+        return dist_worker(int(args["--dist-rank"]), int(args["--dist-world"]), args["--dist-dir"])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a CUDA device", file=sys.stderr)
         return 2
@@ -4187,6 +4524,7 @@ def main() -> int:
     log(f"[engine] greedy tokens, paged vs fixed slots (bf16, 4 layers): {json.dumps(compare_greedy(paged, fixed))}")
     run("engine_spec", lambda: engine_spec_path(kernels))
     sp_out, _ = run("sp_train", lambda: sp_train_path(kernels))
+    run("dist_train", lambda: dist_train_path(kernels))
     t0 = time.perf_counter()
     phase_grad_consistency()
     log(f"[grad] done in {time.perf_counter() - t0:.1f}s")

@@ -1851,3 +1851,99 @@ def test_snapshot_graph_on_the_producer_thread_reads_only_snapshot_weights(tmp_p
     for toks in got:
         assert torch.equal(toks, want.cpu())
     assert not torch.equal(live, want)
+
+
+_NCCL_SHARDED_RANK = """
+import os, sys, torch, torch.distributed as dist
+sys.path.insert(0, {root!r})
+rank, world, shape = int(sys.argv[1]), 2, tuple(int(x) for x in sys.argv[2].split(","))
+torch.cuda.set_device(rank)
+dist.init_process_group("nccl", init_method="file://" + {store!r}, rank=rank, world_size=world)
+from trlx_tpu_torch.models.heads import LMWithValueHead
+from trlx_tpu_torch.models.lm import LMConfig, gather_tensor, shard_tensor
+from trlx_tpu_torch.ops import generate as gen_mod
+from trlx_tpu_torch.ops.sampling import GenerateConfig
+from trlx_tpu_torch.parallel import collectives as coll
+from trlx_tpu_torch.parallel.mesh import make_mesh, set_mesh
+from trlx_tpu_torch.trainer.base import reduce_gradients
+arch = dict(vocab_size=512, n_layer=2, n_head=8, d_model=512, max_position=512, pos_type="rotary", rotary_dim=32,
+            parallel_residual=True, fused_qkv=False, qkv_bias=False, out_bias=False, tie_word_embeddings=False,
+            extra={{"lm_head_bias": True}})
+torch.manual_seed(0)
+ref = LMWithValueHead(LMConfig(**arch), device="cuda")
+for p in ref.parameters():
+    p.data.normal_(0, 0.05)
+mesh = make_mesh(shape)
+set_mesh(mesh)
+model = LMWithValueHead(LMConfig(**arch).with_mesh(tp=shape[2], fsdp=shape[1]), device="cuda")
+whole = dict(ref.named_parameters())
+with torch.no_grad():
+    for n, p in model.named_parameters():
+        p.copy_(shard_tensor(model, n, whole[n].detach()))
+ids = torch.randint(0, 512, (4, 256), device="cuda", generator=torch.Generator(device="cuda").manual_seed(1))
+mask = torch.ones_like(ids)
+if {mode!r} == "step":
+    def loss_of(m, i, k, rows):
+        out = m(i, k)
+        return (out["logits"].float().logsumexp(-1).sum() + out["values"].float().sum()) / rows
+    loss_of(ref, ids, mask, 4).backward()
+    b = 4 // mesh.data_size
+    sl = slice(mesh.data_index * b, (mesh.data_index + 1) * b)
+    loss_of(model, ids[sl], mask[sl], 4).backward()
+    names = [n for n, _ in model.named_parameters()]
+    grads = reduce_gradients(model, mesh, names, [p.grad for _, p in model.named_parameters()])
+    for n, g in zip(names, grads):
+        got, want = gather_tensor(model, n, g).float(), whole[n].grad.float()
+        err = float((got - want).abs().max())
+        assert err <= 2e-2 * float(want.abs().max()) + 1e-4, (n, err)
+    assert coll.TRAFFIC and all(r["stage_s"] == 0.0 for r in coll.traffic().values()), coll.traffic()
+else:
+    assert gen_mod.graphs_allowed(torch.device("cuda"))  # NCCL: the step with its all-reduces is captured
+    gcfg = GenerateConfig(max_new_tokens=16, do_sample=False, eos_token_id=None, pad_token_id=0)
+    keep = {{}}
+    for _ in range(2):
+        toks, _ = gen_mod.generate(model, ids[:, :64], mask[:, :64], None, gcfg=gcfg, _keep=keep)
+    assert keep["buffers"]["graph"] is not None
+    eager, _ = gen_mod.generate(model, ids[:, :64], mask[:, :64], None, gcfg=gcfg, _eager=True)
+    assert torch.equal(toks, eager)
+dist.destroy_process_group()
+print("ok")
+"""
+
+
+def _two_card_ranks(tmp_path, shape, mode):
+    _cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices (NCCL refuses two ranks on one card)")
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = _NCCL_SHARDED_RANK.format(root=root, store=str(tmp_path / "store"), mode=mode)
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), ",".join(map(str, shape))],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for r in range(2)]
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=300)[0].decode())
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise
+    assert all(p.returncode == 0 for p in procs), outs
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 1, 1), (1, 1, 2, 1)])
+def test_fsdp_tp_train_step_over_nccl_on_two_cards(tmp_path, shape):
+    """A train step's loss and gradients over a real NCCL group, one card
+    a rank, with the parameters split over fsdp or tp, against one process:
+    every collective runs on the card (nothing staged). Needs two cards."""
+    _two_card_ranks(tmp_path, shape, "step")
+
+
+def test_decode_graph_capture_under_tp2_over_nccl(tmp_path):
+    """Decode steps whose tp all-reduces run over NCCL are captured as CUDA
+    graphs (``ops.generate.graphs_allowed``), and the replayed steps' greedy
+    tokens equal the eager ones. Needs two cards."""
+    _two_card_ranks(tmp_path, (1, 1, 2, 1), "decode")

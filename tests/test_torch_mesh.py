@@ -1,8 +1,7 @@
 """Twins of ``tests/test_mesh.py``'s ``test_device_count`` and
 ``test_resolve_mesh_shape`` for the port's mesh (``trlx_tpu_torch.parallel.mesh``),
-and the port's refusal of every mesh axis but sp: ``train.mesh`` is read,
-not ignored, so ``ppo_long_config.yml``'s own [1, 2, 2, -1] raises and names
-ROADMAP §A11."""
+the process groups of every axis against the JAX mesh's device order, and
+``ppo_long_config.yml``'s own [1, 2, 2, -1] accepted."""
 
 import os
 
@@ -43,19 +42,33 @@ def test_resolve_mesh_shape():
 
 
 @pytest.mark.parametrize("shape", [(2, 1, 1, 1), (1, 2, 1, 1), (1, 1, 2, 1), (2, 1, 1, 2), (-1, 1, 1, 1)])
-def test_make_mesh_refuses_every_axis_but_sp(shape):
-    group = port_mesh.LocalSpGroup(int(np.prod([s for s in shape if s > 0])) if -1 not in shape else 4)
-    with pytest.raises(NotImplementedError, match="§A11"):
-        port_mesh.make_mesh(shape, sp_group=group)
+def test_make_mesh_lays_out_every_axis(shape):
+    """Every axis builds: the process groups of each axis are the JAX
+    mesh's device ids along it (the ranks a process mesh of that shape
+    joins; ``tests/test_torch_dist.py`` runs them), and a LocalSpGroup, which
+    plays sp ranks in one process, takes no other axis."""
+    from trlx_tpu.parallel.mesh import make_mesh as jax_make_mesh
+
+    n = int(np.prod(shape)) if -1 not in shape else 4
+    resolved = port_mesh.resolve_mesh_shape(shape, n)
+    ids = np.vectorize(lambda d: d.id)(jax_make_mesh(resolved, devices=jax.devices()[:n]).devices)
+    lines = port_mesh.axis_lines(resolved)
+    for i, axis in enumerate(port_mesh.MESH_AXES):
+        if resolved[i] > 1:
+            assert sorted(lines[axis]) == sorted(np.moveaxis(ids, i, -1).reshape(-1, resolved[i]).tolist()), axis
+    if any(s > 1 for s in resolved[:3]):
+        with pytest.raises(ValueError, match="LocalSpGroup"):
+            port_mesh.make_mesh(shape, sp_group=port_mesh.LocalSpGroup(n))
 
 
-def test_ppo_long_config_mesh_is_refused():
-    """``ppo_long_config.yml`` asks for dp 1, fsdp 2, tp 2: refused by name
-    before anything is built; its sp-only form passes the check."""
+def test_ppo_long_config_mesh_is_accepted():
+    """``ppo_long_config.yml`` asks for dp 1, fsdp 2, tp 2: accepted before
+    anything is built (the port shards over every axis), and its sp-only
+    form too."""
     config = TRLConfig.load_yaml(os.path.join(ROOT, "trlx_tpu", "configs", "ppo_long_config.yml"))
     assert tuple(config.train.mesh) == (1, 2, 2, -1)
-    with pytest.raises(NotImplementedError, match=r"train\.mesh dp/fsdp/tp > 1 \(ROADMAP §A11\)"):
-        refuse_unported(config)
+    refuse_unported(config)
+    assert port_mesh.resolve_mesh_shape(config.train.mesh, 8) == jax_resolve(config.train.mesh, 8) == (1, 2, 2, 2)
     config.train.mesh = (1, 1, 1, -1)
     refuse_unported(config)
 

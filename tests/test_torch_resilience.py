@@ -104,12 +104,16 @@ def test_multihost_fault_kinds_parse_and_fire_once():
     from trlx_tpu.resilience.faults import KINDS as JAX_KINDS
     from trlx_tpu_torch.resilience.faults import KINDS
 
+    from trlx_tpu_torch.resilience.faults import MULTI_PROCESS_KINDS
+
     assert set(KINDS) == set(JAX_KINDS)
     plan = FaultPlan.parse("host_hang@2,host_kill@3,slow_host@1,host_desync@4")
     assert plan.fire("slow_host", 1) and not plan.fire("slow_host", 1)
     assert plan.fire("host_desync", 4) and plan.fire("host_kill", 3) and plan.fire("host_hang", 2)
-    assert plan.unfired_kinds() == ["host_desync", "host_hang", "host_kill", "slow_host"]
-    assert FaultPlan.parse("nan_grad@1,slow_step@2").unfired_kinds() == []
+    # The multi-process kinds fire in the port's trainer now: none is refused.
+    assert set(MULTI_PROCESS_KINDS) == {"host_desync", "host_hang", "host_kill", "slow_host"}
+    assert plan.unfired_kinds() == []
+    assert FaultPlan.parse("nan_grad@1,slow_step@2,rollout_host_kill@3").unfired_kinds() == ["rollout_host_kill"]
 
 
 @pytest.mark.parametrize("seed", range(4))
@@ -690,7 +694,7 @@ def test_unported_env_switch_is_refused(task, tmp_path, monkeypatch, var):
         _trainer(task, tmp_path)
 
 
-@pytest.mark.parametrize("kind", ["nan_layer", "host_hang", "rollout_host_kill", "worker_join_mid_run"])
+@pytest.mark.parametrize("kind", ["nan_layer", "episode_stream_stall", "rollout_host_kill", "worker_join_mid_run"])
 def test_unported_fault_kind_is_refused(task, tmp_path, monkeypatch, kind):
     assert kind in UNFIRED_KINDS
     monkeypatch.setenv("TRLX_TPU_FAULTS", f"nan_grad@1,{kind}@2")

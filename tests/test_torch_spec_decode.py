@@ -329,7 +329,7 @@ def test_spec_version_spans_straddle_inflight_switch():
     engine.shutdown()
 
 
-@pytest.mark.skip(reason="the engine's multi-process slot schedule crc is not ported (ROADMAP §A11, distributed)")
+@pytest.mark.skip(reason="the engine's multi-process slot schedule crc is not ported (ROADMAP §A11a, the engine on several processes)")
 def test_spec_schedule_fingerprint_deterministic():
     pass
 

@@ -265,9 +265,9 @@ def _ilql_config(tmp_path):
 # The PPO cases keep their ids; the ILQL trainer refuses the shared knobs
 # from the same list (trainer/base.py ``refuse_unported``).
 _KNOBS = [("method", "fleet_disaggregate", True), ("train", "watch_interval", 10), ("train", "graftnum", True),
-          ("train", "device_telemetry", True), ("train", "fault_plan", "host_kill@2")]
-_ILQL_KNOBS = [("train", "graftscope", True), ("train", "heartbeat_interval", 10.0),
-               ("train", "collective_deadline", 5.0), ("train", "fleet_role", "rollout"),
+          ("train", "device_telemetry", True), ("train", "fault_plan", "rollout_host_kill@2")]
+_ILQL_KNOBS = [("train", "graftscope", True), ("train", "graftfleet", True),
+               ("train", "fleet_dir", "fleet"), ("train", "fleet_role", "rollout"),
                ("train", "profile_dir", "profiles"), ("train", "graftnum", True)]
 
 

@@ -42,9 +42,10 @@ def _arch():
                 extra={"lm_head_bias": True})
 
 
-def ppo_config(ckpt_dir: str, mesh, remat: bool = True):
+def ppo_config(ckpt_dir: str, mesh, remat: bool = True, arch=None):
     return {
-        "model": dict(model_path="", tokenizer_path="", model_type="ppo", num_layers_unfrozen=2, model_arch=_arch(),
+        "model": dict(model_path="", tokenizer_path="", model_type="ppo", num_layers_unfrozen=2,
+                      model_arch=arch or _arch(),
                       dtype="float32", param_dtype="float32", remat=remat),
         "train": dict(total_steps=STEPS, seq_length=P + R, epochs=1, batch_size=8, lr_ramp_steps=0, lr_decay_steps=12,
                       weight_decay=1e-4, learning_rate_init=3e-3, learning_rate_target=3e-4,
@@ -57,8 +58,8 @@ def ppo_config(ckpt_dir: str, mesh, remat: bool = True):
     }
 
 
-def ilql_config(ckpt_dir: str, mesh):
-    arch = dict(_arch(), eos_token_id=0)
+def ilql_config(ckpt_dir: str, mesh, arch=None):
+    arch = dict(arch or _arch(), eos_token_id=0)
     return {
         "model": dict(model_path="", tokenizer_path="", model_type="ilql", num_layers_unfrozen=1, model_arch=arch,
                       dtype="float32", param_dtype="float32"),
@@ -76,15 +77,15 @@ def reward_fn(samples):
     return [float(np.sum(s) % 7) - 3.0 for s in samples]
 
 
-def task(seed: int = 0):
+def task(seed: int = 0, vocab: int = V):
     """Prompts, eval prompts, a forced-bigram logit mask (one allowed
     successor a token), and ILQL's samples and rewards."""
     rng = np.random.default_rng(seed)
-    succ = rng.permutation(V)
-    logit_mask = np.ones((V, V), dtype=bool)
-    logit_mask[np.arange(V), succ] = False
-    prompts = [rng.integers(1, V, size=int(rng.integers(3, P + 1))).tolist() for _ in range(8)]
-    samples = [rng.integers(1, V, size=int(rng.integers(3, ILQL_T + 4))).astype(np.int32) for _ in range(16)]
+    succ = rng.permutation(vocab)
+    logit_mask = np.ones((vocab, vocab), dtype=bool)
+    logit_mask[np.arange(vocab), succ] = False
+    prompts = [rng.integers(1, vocab, size=int(rng.integers(3, P + 1))).tolist() for _ in range(8)]
+    samples = [rng.integers(1, vocab, size=int(rng.integers(3, ILQL_T + 4))).astype(np.int32) for _ in range(16)]
     rewards = rng.normal(size=(16,)).astype(np.float32).tolist()
     return dict(prompts=prompts, eval_prompts=prompts[:4], logit_mask=logit_mask, samples=samples, rewards=rewards)
 

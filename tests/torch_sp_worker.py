@@ -6,8 +6,11 @@ port only, so a rank starts in seconds):
 
 MODE ``ring`` runs ``ring_cases`` on the data in IN (``torch.save`` of a
 dict of numpy arrays and settings) and ``torch.save``s its results to OUT;
-MODE ``train`` runs ``train_case``. The group joins through a ``file://``
-store (INIT_FILE), never a TCP port.
+MODE ``train`` runs ``train_case``; MODE ``dist`` runs the case of
+``tests/torch_dist_case.py`` that ``data["case"]`` names. The group joins
+through a ``file://`` store (INIT_FILE), never a TCP port; torchrun's
+``LOCAL_WORLD_SIZE`` and ``GROUP_RANK`` may come from the caller's
+environment (several nodes simulated on one machine).
 """
 
 import os
@@ -116,6 +119,10 @@ def main():
         from torch_sp_train_case import train_case
 
         result = train_case(data)
+    elif mode == "dist":
+        from torch_dist_case import dist_case
+
+        result = dist_case(data)
     else:
         raise ValueError(mode)
     torch.save(result, out_path)
@@ -125,46 +132,68 @@ def main():
     dist.destroy_process_group()
 
 
-def spawn(mode: str, world: int, data, tmp_dir: str, timeout: float):
-    """Run ``world`` ranks of MODE on ``data`` (all killed once ``timeout``
-    seconds have passed); returns their results by rank. A rank that fails or hangs
-    fails the caller with its output."""
+def launch(mode: str, world: int, data, tmp_dir: str, timeout: float, env_by_rank=None, tag: str = "",
+           first: int = None):
+    """Run ``world`` ranks of MODE on ``data``, rank r with the extra
+    environment ``env_by_rank[r]`` (all killed once ``timeout`` seconds
+    have passed; with ``first``, the others killed as soon as rank
+    ``first`` has ended). Returns, by rank, (exit code or None when killed,
+    its output, its result or None)."""
     import subprocess
     import time
 
     os.makedirs(tmp_dir, exist_ok=True)
-    in_path = os.path.join(tmp_dir, f"{mode}{world}.in")
+    name = f"{mode}{tag}{world}"
+    in_path = os.path.join(tmp_dir, f"{name}.in")
     torch.save(data, in_path)
-    init_file = os.path.join(tmp_dir, f"{mode}{world}.store")
+    init_file = os.path.join(tmp_dir, f"{name}.store")
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.path.dirname(os.path.abspath(__file__)),
                OMP_NUM_THREADS="1")
+    env.pop("TRLX_TPU_FAULTS", None)
     procs = []
     for r in range(world):
-        log = open(os.path.join(tmp_dir, f"{mode}{world}.rank{r}.log"), "w")
+        log = open(os.path.join(tmp_dir, f"{name}.rank{r}.log"), "w")
         cmd = [sys.executable, os.path.abspath(__file__), mode, str(r), str(world), init_file, in_path,
-               os.path.join(tmp_dir, f"{mode}{world}.rank{r}.out")]
-        procs.append((subprocess.Popen(cmd, env=env, stdout=log, stderr=subprocess.STDOUT), log))
-    failed = []
+               os.path.join(tmp_dir, f"{name}.rank{r}.out")]
+        procs.append((subprocess.Popen(cmd, env=dict(env, **((env_by_rank or {}).get(r, {}))), stdout=log,
+                                       stderr=subprocess.STDOUT), log))
     deadline = time.monotonic() + timeout
-    for r, (p, log) in enumerate(procs):
+    if first is not None:
+        try:
+            procs[first][0].wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            pass
+        deadline = time.monotonic()
+    codes = []
+    for p, log in procs:
         try:
             p.wait(timeout=max(0.0, deadline - time.monotonic()))
+            codes.append(p.returncode)
         except subprocess.TimeoutExpired:
-            for q, _ in procs:
-                q.kill()
+            p.kill()
             p.wait()
-            failed.append(f"rank {r}: timed out after {timeout} s")
+            codes.append(None)
         log.close()
-        if p.returncode:
-            failed.append(f"rank {r}: exit {p.returncode}")
+    out = []
+    for r, code in enumerate(codes):
+        with open(os.path.join(tmp_dir, f"{name}.rank{r}.log")) as f:
+            text = f.read()
+        res = os.path.join(tmp_dir, f"{name}.rank{r}.out")
+        out.append((code, text, torch.load(res, weights_only=False) if code == 0 and os.path.exists(res) else None))
+    return out
+
+
+def spawn(mode: str, world: int, data, tmp_dir: str, timeout: float, env_by_rank=None, tag: str = ""):
+    """Run ``world`` ranks of MODE on ``data`` (all killed once ``timeout``
+    seconds have passed); returns their results by rank. A rank that fails or hangs
+    fails the caller with its output."""
+    runs = launch(mode, world, data, tmp_dir, timeout, env_by_rank, tag)
+    failed = [f"rank {r}: " + ("timed out" if code is None else f"exit {code}")
+              for r, (code, _, _) in enumerate(runs) if code != 0]
     if failed:
-        tails = []
-        for r in range(world):
-            with open(os.path.join(tmp_dir, f"{mode}{world}.rank{r}.log")) as f:
-                tails.append(f"--- rank {r}\n" + f.read()[-3000:])
+        tails = [f"--- rank {r}\n" + text[-3000:] for r, (_, text, _) in enumerate(runs)]
         raise AssertionError("; ".join(failed) + "\n" + "\n".join(tails))
-    return [torch.load(os.path.join(tmp_dir, f"{mode}{world}.rank{r}.out"), weights_only=False)
-            for r in range(world)]
+    return [res for _, _, res in runs]
 
 
 if __name__ == "__main__":

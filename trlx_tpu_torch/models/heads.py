@@ -14,21 +14,31 @@ import torch
 from torch import nn
 
 from trlx_tpu_torch.device import resolve_device
-from trlx_tpu_torch.models.lm import Dense, LMConfig, TransformerLM
+from trlx_tpu_torch.models.lm import Dense, LMConfig, TransformerLM, place_model, tp_group
+from trlx_tpu_torch.parallel import collectives as coll
 
 
 class MLPHead(nn.Module):
-    """Dense(2*d) → ReLU → Dense(out); the output layer runs in f32."""
+    """Dense(2*d) → ReLU → Dense(out); the output layer runs in f32. Under
+    tp (``cfg.tp_heads`` > 1) the rules' layout: ``layers_0``
+    column-parallel, ``layers_1`` row-parallel with one all-reduce."""
 
     def __init__(self, out_features: int, cfg: LMConfig, device=None):
         super().__init__()
         self.cfg = cfg
-        self.layers_0 = Dense(cfg.d_model, 2 * cfg.d_model, True, cfg.params_dtype, device)
-        self.layers_1 = Dense(2 * cfg.d_model, out_features, True, cfg.params_dtype, device)
+        split = cfg.tp_heads > 1
+        wide = 2 * cfg.d_model // cfg.tp_heads
+        self.layers_0 = Dense(cfg.d_model, wide, True, cfg.params_dtype, device, tp_split=split)
+        self.layers_1 = Dense(wide, out_features, True, cfg.params_dtype, device, tp_split=split)
+
+    def hidden(self, x):
+        """relu(layers_0(x)): this rank's columns of it under tp."""
+        if self.cfg.tp_heads > 1:
+            x = coll.copy_to(x, tp_group())
+        return torch.relu(self.layers_0(x, self.cfg.compute_dtype))
 
     def forward(self, x):
-        h = torch.relu(self.layers_0(x, self.cfg.compute_dtype))
-        return self.layers_1(h, torch.float32)
+        return self.layers_1.row_parallel(self.hidden(x), torch.float32)
 
 
 @contextmanager
@@ -73,8 +83,9 @@ class LMWithValueHead(nn.Module):
         self.cfg = cfg
         self.branch_layer = branch_layer
         device = resolve_device(device)
-        self.transformer = TransformerLM(cfg, device)
+        self.transformer = TransformerLM(cfg, device, place=False)
         self.v_head = MLPHead(1, cfg, device)
+        place_model(self)
 
     def forward(
         self,
@@ -158,11 +169,12 @@ class LMWithILQLHeads(nn.Module):
         self.cfg = cfg
         self.two_qs = two_qs
         device = resolve_device(device)
-        self.transformer = TransformerLM(cfg, device)
+        self.transformer = TransformerLM(cfg, device, place=False)
         self.v_head = MLPHead(1, cfg, device)
         self.q1_head = MLPHead(cfg.vocab_size, cfg, device)
         if two_qs:
             self.q2_head = MLPHead(cfg.vocab_size, cfg, device)
+        place_model(self)
 
     def head_names(self):
         return ("q1_head", "q2_head") if self.two_qs else ("q1_head",)

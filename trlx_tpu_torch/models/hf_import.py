@@ -18,13 +18,13 @@ import json
 import os
 from collections.abc import Mapping
 from types import SimpleNamespace
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from trlx_tpu_torch.models.lm import Dense, Embed, LayerNorm, LMConfig
+from trlx_tpu_torch.models.lm import Dense, Embed, LayerNorm, LMConfig, mesh_coords, placement_of
 from trlx_tpu_torch.models.safetensors_io import SafetensorsReader
 
 # Every field each transformers config class writes into config.json, with
@@ -127,21 +127,43 @@ def lm_config_from_hf(hf, **overrides) -> LMConfig:
     return LMConfig.from_dict(d)
 
 
+def _fill(mod: nn.Module, attr: str, draw: Callable[[torch.Tensor], None]):
+    """Fill ``mod.<attr>`` by ``draw``: on a sharded mesh the whole tensor
+    is drawn (so a seeded init equals the single-process one) and this
+    rank's piece kept."""
+    p = getattr(mod, attr)
+    pl = getattr(mod, "placement", {}).get(attr)
+    if pl is None:
+        draw(p)
+        return
+    full = torch.empty(pl.full_shape, dtype=p.dtype, device=p.device)
+    draw(full)
+    p.copy_(pl.shard(full, *mesh_coords()))
+
+
+def _whole(mod: nn.Module, attr: str) -> Tuple[int, ...]:
+    pl = getattr(mod, "placement", {}).get(attr)
+    return tuple(getattr(mod, attr).shape) if pl is None else pl.full_shape
+
+
 @torch.no_grad()
 def init_params(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded from-scratch init, in place, on the parameters' device:
     Dense kernels N(0, 1/fan_in), embeddings N(0, 1/features), LayerNorm
     scale 1, every bias 0, a soft prompt N(0, 0.02^2) (the variances of the
-    Flax initializers)."""
+    Flax initializers). On a sharded mesh each rank draws every whole
+    tensor and keeps its piece."""
     for mod in model.modules():
         if isinstance(getattr(mod, "soft_prompt", None), torch.Tensor):
-            mod.soft_prompt.normal_(0.0, 0.02, generator=generator)
+            _fill(mod, "soft_prompt", lambda t: t.normal_(0.0, 0.02, generator=generator))
         if isinstance(mod, Dense):
-            mod.kernel.normal_(0.0, float(mod.kernel.shape[0]) ** -0.5, generator=generator)
+            std = float(_whole(mod, "kernel")[0]) ** -0.5
+            _fill(mod, "kernel", lambda t: t.normal_(0.0, std, generator=generator))
             if mod.bias is not None:
                 mod.bias.zero_()
         elif isinstance(mod, Embed):
-            mod.embedding.normal_(0.0, float(mod.embedding.shape[1]) ** -0.5, generator=generator)
+            std = float(_whole(mod, "embedding")[1]) ** -0.5
+            _fill(mod, "embedding", lambda t: t.normal_(0.0, std, generator=generator))
         elif isinstance(mod, LayerNorm):
             mod.scale.fill_(1.0)
             mod.bias.zero_()
@@ -169,9 +191,13 @@ def load_or_init_params(model: nn.Module, config, generator: torch.Generator) ->
     def put(name: str, t: torch.Tensor):
         nonlocal nbytes
         p = own[name]
-        if tuple(t.shape) != tuple(p.shape):
-            raise ValueError(f"{name}: checkpoint shape {tuple(t.shape)} != parameter shape {tuple(p.shape)}")
+        pl = placement_of(model.transformer, name)
+        whole = tuple(p.shape) if pl is None else pl.full_shape
+        if tuple(t.shape) != whole:
+            raise ValueError(f"{name}: checkpoint shape {tuple(t.shape)} != parameter shape {whole}")
         nbytes += t.numel() * t.element_size()
+        if pl is not None:
+            t = pl.shard(t, *mesh_coords())
         # To the device in the checkpoint's dtype and layout (a transposed
         # view keeps its strides: one memcpy of its storage), then cast and
         # transposed there by copy_.
@@ -401,7 +427,8 @@ def params_from_jax(params: Mapping, model: Optional[nn.Module] = None) -> Dict[
     embeddings [V, D]), so every leaf carries over as it is.
 
     With ``model``, every name and shape is checked against its parameters
-    (a subset is allowed: the branch extras are one)."""
+    (a subset is allowed: the branch extras are one); the tensors stay
+    whole (``BaseTrainer.load_params`` cuts a sharded model's pieces)."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node, prefix):
@@ -418,6 +445,8 @@ def params_from_jax(params: Mapping, model: Optional[nn.Module] = None) -> Dict[
         for name, t in out.items():
             if name not in known:
                 raise KeyError(f"JAX parameter {name!r} has no counterpart in {type(model).__name__}")
-            if tuple(known[name].shape) != tuple(t.shape):
-                raise ValueError(f"{name}: JAX shape {tuple(t.shape)} != port shape {tuple(known[name].shape)}")
+            pl = placement_of(model, name)  # a sharded model's pieces: the whole's shape
+            shape = tuple(known[name].shape) if pl is None else pl.full_shape
+            if shape != tuple(t.shape):
+                raise ValueError(f"{name}: JAX shape {tuple(t.shape)} != port shape {shape}")
     return out

@@ -41,6 +41,16 @@ gives each quantized Dense an int8 copy, which it reads instead of its
 kernel inside ``decode_weights(module)`` (the decode paths), as QDense
 reads the ``qw`` collection; training and scoring never enter it.
 
+On a mesh with fsdp or tp above 1 (``LMConfig.with_mesh``) each module
+builds its tp-local shapes (Megatron: qkv and mlp-up column-parallel, each
+rank its heads' columns of q, k and v; attn-out and mlp-down row-parallel
+with one all-reduce; the vocabulary's rows over tp) and ``place_model``
+makes every parameter this rank's piece by ``parallel.sharding``'s rules.
+Forwards read bf16 compute copies gathered over fsdp once per weight
+version (``fsdp_weight``; the LM head's whole, ``full_weight``), whose
+gradient is reduce-scattered back to the piece in f32. The kernel gates read
+the model's head count, not the rank's.
+
 ``remat`` checkpoints every block under grad: policy "full" keeps only the
 block's input, policy "dots" also keeps the outputs of the weight products
 (``aten.mm`` / ``addmm``, the JAX package's ``dots_with_no_batch_dims_saveable``)
@@ -74,8 +84,10 @@ from trlx_tpu_torch.ops.decode_attention import (
 from trlx_tpu_torch.ops.flash_attention import auto_flash_ok, flash_attention
 from trlx_tpu_torch.ops.fused_logprob import routed_logprob
 from trlx_tpu_torch.ops.w8a16 import quantize_weights, w8a16_matmul
-from trlx_tpu_torch.parallel.mesh import AXIS_DP, AXIS_FSDP, AXIS_SP, AXIS_TP, get_mesh
+from trlx_tpu_torch.parallel import collectives as coll
+from trlx_tpu_torch.parallel.mesh import AXIS_FSDP, AXIS_SP, AXIS_TP, get_mesh, peek_mesh
 from trlx_tpu_torch.parallel.ring_attention import ring_attention_sharded
+from trlx_tpu_torch.parallel.sharding import Placement, match_rule, placement, tp_divides
 
 
 @dataclass(frozen=True)
@@ -126,6 +138,58 @@ class LMConfig:
     @property
     def ff_dim(self) -> int:
         return self.d_ff if self.d_ff else 4 * self.d_model
+
+    @property
+    def tp_size(self) -> int:
+        """The mesh's tp (``extra["tp_size"]``, set by the trainer; 0 or 1:
+        none): modules split by ``parallel.sharding``'s rules."""
+        return int(self.extra.get("tp_size", 0))
+
+    @property
+    def fsdp_size(self) -> int:
+        """The mesh's fsdp (``extra["fsdp_size"]``): masters split, compute
+        copies gathered."""
+        return int(self.extra.get("fsdp_size", 0))
+
+    def with_mesh(self, tp: int = 1, fsdp: int = 1) -> "LMConfig":
+        """This config on a mesh with ``tp`` and ``fsdp`` (kept in
+        ``extra``, so the fields stay the JAX package's)."""
+        extra = {k: v for k, v in self.extra.items() if k not in ("tp_size", "fsdp_size")}
+        extra.update({k: v for k, v in (("tp_size", tp), ("fsdp_size", fsdp)) if v > 1})
+        return replace(self, extra=extra)
+
+    def _tp_if(self, name: str, shape) -> int:
+        tp = max(1, self.tp_size)
+        return tp if tp_divides(name, shape, tp) else 1
+
+    @property
+    def tp_attn(self) -> int:
+        """The tp ranks attention splits over: its heads (and the rules'
+        qkv / attn-out dims) divide among them, else 1 (every rank computes
+        every head)."""
+        tp = self._tp_if("attn/c_proj/kernel", (self.d_model, self.d_model))
+        return tp if self.n_head % tp == 0 and self._tp_if("attn/c_qkv/kernel", (self.d_model, 3 * self.d_model)) == tp \
+            else 1
+
+    @property
+    def tp_mlp(self) -> int:
+        return self._tp_if("mlp/c_fc/kernel", (self.d_model, self.ff_dim))
+
+    @property
+    def tp_vocab(self) -> int:
+        """The tp ranks the vocabulary (embedding rows, LM head columns)
+        splits over."""
+        return self._tp_if("wte/embedding", (self.vocab_size, self.d_model))
+
+    @property
+    def tp_heads(self) -> int:
+        """The tp ranks the value and Q heads' hidden width splits over."""
+        return self._tp_if("v_head/layers_0/kernel", (self.d_model, 2 * self.d_model))
+
+    @property
+    def local_heads(self) -> int:
+        """Attention heads this rank computes (and caches)."""
+        return self.n_head // self.tp_attn
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -223,19 +287,151 @@ def _refresh(w: torch.Tensor, held: list):
 def refresh_weight_copies(module: nn.Module) -> int:
     """Cast, in place, every stale ``frozen_copy`` of ``module``'s
     parameters (the frozen-branch tensors too while ``swapped_params`` has
-    them in), and re-quantize, in place, every stale int8 decode copy
-    (``ops.w8a16.quantize_weights``). A replayed CUDA graph reads the copies
-    without making them: call this before replaying one after the weights
-    may have changed. Returns the number of copies refreshed."""
+    them in), gather again every stale fsdp or whole-parameter copy
+    (``fsdp_weight``, ``full_weight``: collectives, in parameter order, so
+    every rank issues the same ones), and re-quantize, in place, every stale
+    int8 decode copy (``ops.w8a16.quantize_weights``). A replayed CUDA graph
+    reads the copies without making them: call this before replaying one
+    after the weights may have changed. Returns the number of copies
+    refreshed."""
     n = 0
     for w in module.parameters():
+        key = (w._version, w.data_ptr())
         held = getattr(w, "_frozen_copy", None)
-        if held is not None and held[0] != (w._version, w.data_ptr()):
+        if held is not None and held[0] != key:
             _refresh(w, held)
             n += 1
+        for attr, gather in (("_fsdp_copy", _gather_fsdp), ("_full_copy", _gather_full)):
+            held = getattr(w, attr, None)
+            if held is not None and held[0] != key:
+                held[1].copy_(gather(w, held[1].dtype, held[2]))
+                held[0] = key
+                n += 1
     if any(getattr(m, "w8", None) is not None for m in module.modules()):
         n += quantize_weights(module)
     return n
+
+
+# ---------------------------------------------------------------------------
+# Sharded parameters: the compute copies of fsdp / tp pieces
+# ---------------------------------------------------------------------------
+
+
+def _coords():
+    mesh = get_mesh()
+    return mesh.group(AXIS_FSDP), mesh.group(AXIS_TP)
+
+
+def _gather_fsdp(w: torch.Tensor, dtype: torch.dtype, dim: int) -> torch.Tensor:
+    fsdp, _ = _coords()
+    return coll.all_gather(w.detach().to(dtype), fsdp, dim)
+
+
+def _gather_full(w: torch.Tensor, dtype: torch.dtype, pl: Placement) -> torch.Tensor:
+    fsdp, tp = _coords()
+    piece = w.detach().to(dtype)
+    if pl.fsdp_dim is not None:
+        piece = coll.all_gather(piece, fsdp, pl.fsdp_dim)
+    if pl.tp_dim is None:
+        return piece
+    return pl.join_tp(coll.all_gather(piece, tp, pl.tp_dim).chunk(tp.size, dim=pl.tp_dim))
+
+
+def _held(w: torch.Tensor, attr: str, dtype: torch.dtype, how, gather) -> torch.Tensor:
+    """The gathered copy of ``w`` kept on it under ``attr``, gathered again
+    (into the same buffer) when ``w`` changed."""
+    if torch.is_inference_mode_enabled():
+        return gather(w, dtype, how)
+    key = (w._version, w.data_ptr())
+    held = getattr(w, attr, None)
+    if held is None or held[1].dtype != dtype:
+        setattr(w, attr, None)
+        held = [key, gather(w, dtype, how), how]
+        setattr(w, attr, held)
+    elif held[0] != key:
+        held[1].copy_(gather(w, dtype, how))
+        held[0] = key
+    return held[1]
+
+
+class _ShardGrad(torch.autograd.Function):
+    """The gathered copy forward; backward, the gradient of the whole
+    reduced to this rank's piece in f32: its tp piece (every tp rank holds
+    the same gradient of replicated compute) then the sum over fsdp of its
+    fsdp piece (each fsdp rank's rows contributed)."""
+
+    @staticmethod
+    def forward(ctx, w, copy, tp_piece, fsdp_dim):
+        ctx.tp_piece, ctx.fsdp_dim, ctx.dtype = tp_piece, fsdp_dim, w.dtype
+        return copy.detach()
+
+    @staticmethod
+    def backward(ctx, g):
+        fsdp, tp = _coords()
+        g = g.float()
+        if ctx.tp_piece is not None:
+            g = ctx.tp_piece(g, tp.rank)
+        if ctx.fsdp_dim is not None:
+            g = coll.reduce_scatter(g, fsdp, ctx.fsdp_dim)
+        return g.to(ctx.dtype), None, None, None
+
+
+def fsdp_weight(w: torch.Tensor, dtype: torch.dtype, dim: int) -> torch.Tensor:
+    """This rank's fsdp piece ``w`` (split along ``dim``) as the whole over
+    fsdp in ``dtype``: all-gathered once per weight version and held (the
+    compute copy decode and every forward read; its address stays, so a
+    captured decode graph reads new weights). Where gradient flows to ``w``
+    the copy is differentiable: its gradient is reduce-scattered over fsdp
+    in f32."""
+    copy = _held(w, "_fsdp_copy", dtype, dim, _gather_fsdp)
+    if torch.is_grad_enabled() and w.requires_grad:
+        return _ShardGrad.apply(w, copy, None, dim)
+    return copy
+
+
+def full_weight(w: torch.Tensor, dtype: torch.dtype, pl: Placement) -> torch.Tensor:
+    """The whole parameter (gathered over fsdp and tp by its placement) in
+    ``dtype``, held per weight version: what replicated compute reads (the
+    LM head, whose fused kernels need the whole vocabulary). Differentiable
+    as ``fsdp_weight``, keeping this rank's tp piece of the gradient."""
+    if pl.fsdp_dim is None and pl.tp_dim is None:
+        return compute_weight(w, dtype)
+    copy = _held(w, "_full_copy", dtype, pl, _gather_full)
+    if torch.is_grad_enabled() and w.requires_grad:
+        return _ShardGrad.apply(w, copy, pl.tp_piece if pl.tp_dim is not None else None, pl.fsdp_dim)
+    return copy
+
+
+class FullParam:
+    """A sharded parameter as its whole, for the fused head's wrapper
+    (``ops.fused_logprob``): ``shape``, ``copy(dtype)`` (the held whole, no
+    gradient) and ``piece(g)`` (the whole's f32 gradient reduced to this
+    rank's piece)."""
+
+    def __init__(self, w: torch.Tensor, pl: Placement):
+        self.w, self.pl = w, pl
+        self.shape = pl.full_shape
+
+    def copy(self, dtype: torch.dtype) -> torch.Tensor:
+        with torch.no_grad():
+            return full_weight(self.w, dtype, self.pl)
+
+    def whole(self, dtype: torch.dtype) -> torch.Tensor:
+        """The whole in ``dtype``, differentiable to the piece."""
+        return full_weight(self.w, dtype, self.pl)
+
+    def piece(self, g: torch.Tensor) -> torch.Tensor:
+        fsdp, tp = _coords()
+        g = g.float()
+        if self.pl.tp_dim is not None:
+            g = self.pl.tp_piece(g, tp.rank)
+        if self.pl.fsdp_dim is not None:
+            g = coll.reduce_scatter(g, fsdp, self.pl.fsdp_dim)
+        return g.to(self.w.dtype)
+
+
+def tp_group():
+    return get_mesh().group(AXIS_TP)
 
 
 @contextmanager
@@ -254,9 +450,12 @@ def decode_weights(module: nn.Module):
             m.w8_on = False
 
 
-def compute_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def compute_weight(w: torch.Tensor, dtype: torch.dtype, fsdp_dim: Optional[int] = None) -> torch.Tensor:
     """``w`` cast to the compute dtype: the cached ``frozen_copy`` where no
-    gradient flows to it, else the differentiable ``w.to(dtype)``."""
+    gradient flows to it, else the differentiable ``w.to(dtype)``; for an
+    fsdp piece (``fsdp_dim``), its gathered ``fsdp_weight``."""
+    if fsdp_dim is not None:
+        return fsdp_weight(w, dtype, fsdp_dim)
     copy = frozen_copy(w, dtype)
     return w.to(dtype) if copy is None else copy
 
@@ -265,6 +464,10 @@ class Dense(nn.Module):
     """``y = x @ kernel (+ bias)`` with kernel [in, out] stored in the param
     dtype and cast, like the input, to the compute dtype at use (once per
     weight version where no gradient flows to it: ``compute_weight``).
+    On a sharded mesh the kernel is this rank's piece (``placement``: the
+    whole's split by ``parallel.sharding``'s rules); ``in_features`` and
+    ``features`` are the tp-local sizes the product computes, and
+    ``kernel_fsdp`` the dim gathered over fsdp at use.
 
     ``w8`` ([key, int8 codes [in, out], f32 scales [out]]) is the int8 decode
     copy ``quantize_weights`` attaches; inside ``decode_weights`` the layer
@@ -273,18 +476,32 @@ class Dense(nn.Module):
 
     w8 = None
     w8_on = False
+    kernel_fsdp = None
 
-    def __init__(self, in_features: int, features: int, use_bias: bool, param_dtype, device):
+    def __init__(self, in_features: int, features: int, use_bias: bool, param_dtype, device, tp_split: bool = False,
+                 qkv: bool = False):
         super().__init__()
+        self.tp_split, self.qkv = tp_split, qkv
+        self.placement = {}
         self.kernel = nn.Parameter(torch.empty((in_features, features), dtype=param_dtype, device=device))
         self.bias = (
             nn.Parameter(torch.empty((features,), dtype=param_dtype, device=device)) if use_bias else None
         )
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype, add_bias: bool = True) -> torch.Tensor:
         if self.w8_on:
-            return w8a16_matmul(x.to(dtype), self.w8[1], self.w8[2], self.bias)
-        y = x.to(dtype) @ compute_weight(self.kernel, dtype)
+            return w8a16_matmul(x.to(dtype), self.w8[1], self.w8[2], self.bias if add_bias else None)
+        y = x.to(dtype) @ compute_weight(self.kernel, dtype, self.kernel_fsdp)
+        if add_bias and self.bias is not None:
+            y = y + compute_weight(self.bias, dtype)
+        return y
+
+    def row_parallel(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """A row-parallel product (its input dim split over tp): each rank's
+        partial sum, summed over tp (Megatron's g), then the bias once."""
+        if not self.tp_split:
+            return self(x, dtype)
+        y = coll.reduce_from(self(x, dtype, add_bias=False), tp_group())
         if self.bias is not None:
             y = y + compute_weight(self.bias, dtype)
         return y
@@ -296,6 +513,7 @@ class LayerNorm(nn.Module):
     def __init__(self, features: int, eps: float, param_dtype, device):
         super().__init__()
         self.eps = eps
+        self.placement = {}
         self.scale = nn.Parameter(torch.empty((features,), dtype=param_dtype, device=device))
         self.bias = nn.Parameter(torch.empty((features,), dtype=param_dtype, device=device))
 
@@ -305,28 +523,46 @@ class LayerNorm(nn.Module):
 
 
 class Embed(nn.Module):
-    def __init__(self, num: int, features: int, param_dtype, device):
+    """A lookup table [num, features]. On a sharded mesh it is this rank's
+    piece: ``fsdp_dim`` gathered at use, and with ``tp_split`` the
+    vocabulary's rows over tp: each rank looks up the rows it owns, writes
+    zero elsewhere, and the tp group sums (exact: one nonzero term per
+    token, as the JAX package's ``onehot_embed``)."""
+
+    fsdp_dim = None
+
+    def __init__(self, num: int, features: int, param_dtype, device, tp_split: bool = False):
         super().__init__()
+        self.tp_split = tp_split
+        self.placement = {}
         self.embedding = nn.Parameter(torch.empty((num, features), dtype=param_dtype, device=device))
 
     def forward(self, ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        # Gather, then cast: the same values as casting the table first.
-        return self.embedding[ids.long()].to(dtype)
+        ids = ids.long()
+        if self.fsdp_dim is None and not self.tp_split:
+            # Gather, then cast: the same values as casting the table first.
+            return self.embedding[ids].to(dtype)
+        table = compute_weight(self.embedding, dtype, self.fsdp_dim)
+        if not self.tp_split:
+            return table[ids]
+        tp = tp_group()
+        n = table.shape[0]
+        local = ids - tp.rank * n
+        own = (local >= 0) & (local < n)
+        rows = table[local.clamp(0, n - 1)] * own[..., None].to(dtype)
+        return coll.reduce_from(rows, tp)
 
 
-def ring_eligible(cfg: LMConfig, q_len: int, has_cache: bool, batch: Optional[int] = None) -> bool:
+def ring_eligible(cfg: LMConfig, q_len: int, has_cache: bool) -> bool:
     """Sequence-parallel ring attention applies to full-sequence passes of a
     model built for an sp > 1 mesh whose shapes divide the mesh: sequence
-    over sp, batch over (dp, fsdp), heads over tp. Decode and prefill with a
-    cache stay local (the JAX package's rule)."""
+    over sp, heads over tp (the batch is this data rank's rows already).
+    Decode and prefill with a cache stay local (the JAX package's rule)."""
     if cfg.sp_size <= 1 or has_cache or q_len % cfg.sp_size:
         return False
     mesh = get_mesh()
     if mesh.shape[AXIS_SP] != cfg.sp_size:
         raise ValueError(f"the model was built for sp = {cfg.sp_size}, the mesh has {mesh.shape}")
-    data = mesh.shape[AXIS_DP] * mesh.shape[AXIS_FSDP]
-    if batch is not None and batch % data:
-        return False
     return cfg.n_head % mesh.shape[AXIS_TP] == 0
 
 
@@ -347,19 +583,26 @@ def flash_eligible(cfg: LMConfig, q_len: int, has_cache: bool, prefill_at_zero: 
 
 
 class Attention(nn.Module):
-    """Multi-head causal attention with an in-place KV cache."""
+    """Multi-head causal attention with an in-place KV cache. Under tp
+    (``cfg.tp_attn`` > 1) Megatron's layout: qkv column-parallel (each rank
+    its heads' columns of q, k and v), the rank's ``cfg.local_heads`` heads
+    attended (and cached) locally, attn-out row-parallel with one all-reduce.
+    The kernel gates read the MODEL's head count, as the JAX package routes
+    on its unsharded config."""
 
     def __init__(self, cfg: LMConfig, device):
         super().__init__()
         self.cfg = cfg
         pd = cfg.params_dtype
+        split = cfg.tp_attn > 1
+        d = cfg.d_model // cfg.tp_attn
         if cfg.fused_qkv:
-            self.c_qkv = Dense(cfg.d_model, 3 * cfg.d_model, cfg.qkv_bias, pd, device)
+            self.c_qkv = Dense(cfg.d_model, 3 * d, cfg.qkv_bias, pd, device, tp_split=split, qkv=True)
         else:
-            self.q_proj = Dense(cfg.d_model, cfg.d_model, cfg.qkv_bias, pd, device)
-            self.k_proj = Dense(cfg.d_model, cfg.d_model, cfg.qkv_bias, pd, device)
-            self.v_proj = Dense(cfg.d_model, cfg.d_model, cfg.qkv_bias, pd, device)
-        self.c_proj = Dense(cfg.d_model, cfg.d_model, cfg.out_bias, pd, device)
+            self.q_proj = Dense(cfg.d_model, d, cfg.qkv_bias, pd, device, tp_split=split)
+            self.k_proj = Dense(cfg.d_model, d, cfg.qkv_bias, pd, device, tp_split=split)
+            self.v_proj = Dense(cfg.d_model, d, cfg.qkv_bias, pd, device, tp_split=split)
+        self.c_proj = Dense(d, cfg.d_model, cfg.out_bias, pd, device, tp_split=split)
         if cfg.pos_type == "rotary":
             # Made once on the device (not per step), so a captured decode
             # step copies nothing from the host; not part of the state dict.
@@ -372,13 +615,16 @@ class Attention(nn.Module):
         dtype = cfg.compute_dtype
         b, q_len, _ = x.shape
         hd = cfg.head_dim
+        h = cfg.local_heads
+        if cfg.tp_attn > 1:
+            x = coll.copy_to(x, tp_group())
         if cfg.fused_qkv:
-            q, k, v = self.c_qkv(x, dtype).split(cfg.d_model, dim=-1)
+            q, k, v = self.c_qkv(x, dtype).split(h * hd, dim=-1)
         else:
             q, k, v = self.q_proj(x, dtype), self.k_proj(x, dtype), self.v_proj(x, dtype)
-        q = q.reshape(b, q_len, cfg.n_head, hd)
-        k = k.reshape(b, q_len, cfg.n_head, hd)
-        v = v.reshape(b, q_len, cfg.n_head, hd)
+        q = q.reshape(b, q_len, h, hd)
+        k = k.reshape(b, q_len, h, hd)
+        v = v.reshape(b, q_len, h, hd)
         if cfg.pos_type == "rotary":
             rd = cfg.rotary_dim or hd
             sin, cos = rotary_sincos(positions, self.inv_freq)
@@ -445,20 +691,27 @@ class Attention(nn.Module):
             scores = scores + attn_bias
             probs = torch.softmax(scores, dim=-1).to(dtype)
             out = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(dtype))
-        out = out.reshape(b, q_len, cfg.d_model)
-        return self.c_proj(out, dtype), new_cache
+        out = out.reshape(b, q_len, h * hd)
+        return self.c_proj.row_parallel(out, dtype), new_cache
 
 
 class MLP(nn.Module):
+    """Dense → activation → Dense; under tp (``cfg.tp_mlp`` > 1) mlp-up
+    column-parallel and mlp-down row-parallel with one all-reduce."""
+
     def __init__(self, cfg: LMConfig, device):
         super().__init__()
         self.cfg = cfg
         pd = cfg.params_dtype
-        self.c_fc = Dense(cfg.d_model, cfg.ff_dim, True, pd, device)
-        self.c_proj = Dense(cfg.ff_dim, cfg.d_model, True, pd, device)
+        split = cfg.tp_mlp > 1
+        ff = cfg.ff_dim // cfg.tp_mlp
+        self.c_fc = Dense(cfg.d_model, ff, True, pd, device, tp_split=split)
+        self.c_proj = Dense(ff, cfg.d_model, True, pd, device, tp_split=split)
 
     def forward(self, x):
         cfg = self.cfg
+        if cfg.tp_mlp > 1:
+            x = coll.copy_to(x, tp_group())
         h = self.c_fc(x, cfg.compute_dtype)
         if cfg.activation == "gelu_new":
             h = F.gelu(h, approximate="tanh")
@@ -468,7 +721,7 @@ class MLP(nn.Module):
             h = F.relu(h)
         else:
             raise ValueError(f"unknown activation {cfg.activation}")
-        return self.c_proj(h, cfg.compute_dtype)
+        return self.c_proj.row_parallel(h, cfg.compute_dtype)
 
 
 class Block(nn.Module):
@@ -539,21 +792,44 @@ class TransformerLM(nn.Module):
     (raises where there is no CUDA device).
     """
 
-    def __init__(self, cfg: LMConfig, device=None):
+    soft_fsdp = None
+
+    def __init__(self, cfg: LMConfig, device=None, place: bool = True):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
+        self.placement = {}  # the soft prompt's, on a sharded mesh
         pd = cfg.params_dtype
-        self.wte = Embed(cfg.vocab_size, cfg.d_model, pd, device)
+        vocab_split = cfg.tp_vocab > 1
+        self.wte = Embed(cfg.vocab_size // cfg.tp_vocab, cfg.d_model, pd, device, tp_split=vocab_split)
         if cfg.pos_type == "learned":
             self.wpe = Embed(cfg.max_position, cfg.d_model, pd, device)
         for i in range(cfg.n_layer):
             self.add_module(f"h_{i}", Block(cfg, device))
         self.ln_f = LayerNorm(cfg.d_model, cfg.ln_eps, pd, device)
         if not cfg.tie_word_embeddings:
-            self.lm_head = Dense(cfg.d_model, cfg.vocab_size, cfg.extra.get("lm_head_bias", False), pd, device)
+            # Stored split by the rules; computed whole (``head``).
+            self.lm_head = Dense(cfg.d_model, cfg.vocab_size // cfg.tp_vocab, cfg.extra.get("lm_head_bias", False),
+                                 pd, device, tp_split=vocab_split)
         if cfg.n_soft_tokens > 0:
             self.soft_prompt = nn.Parameter(torch.empty((cfg.n_soft_tokens, cfg.d_model), dtype=pd, device=device))
+        if place:
+            place_model(self)
+
+    def head(self) -> Tuple[torch.Tensor, Optional[torch.Tensor], bool, Optional["FullParam"], Optional["FullParam"]]:
+        """The LM head as (weight, bias, tied, whole weight, whole bias):
+        the tied embedding or the untied kernel; on a sharded mesh the
+        pieces and their ``FullParam`` wholes (else None)."""
+        if self.cfg.tie_word_embeddings:
+            w, b, tied, mod = self.wte.embedding, None, True, self.wte
+            pw, pb = mod.placement.get("embedding"), None
+        else:
+            mod = self.lm_head
+            w, b, tied = mod.kernel, mod.bias, False
+            pw, pb = mod.placement.get("kernel"), mod.placement.get("bias")
+        if pw is None:
+            return w, b, tied, None, None
+        return w, b, tied, FullParam(w, pw), (None if b is None else FullParam(b, pb))
 
     def block(self, i: int) -> Block:
         return getattr(self, f"h_{i}")
@@ -625,7 +901,7 @@ class TransformerLM(nn.Module):
 
         n_soft = cfg.n_soft_tokens if (cfg.n_soft_tokens > 0 and start_layer == 0 and prepend_soft) else 0
         if n_soft:
-            soft = compute_weight(self.soft_prompt, dtype)
+            soft = compute_weight(self.soft_prompt, dtype, self.soft_fsdp)
             x = torch.cat([soft[None].expand(b, -1, -1), x], dim=1)
             attention_mask = torch.cat(
                 [torch.ones((b, n_soft), dtype=attention_mask.dtype, device=device), attention_mask], dim=1)
@@ -658,7 +934,7 @@ class TransformerLM(nn.Module):
         # as the paged suffix prefill passes, takes the einsum path).
         prefill_at_zero = cache is not None and not vector_index and cache_index == 0
         kernel_device = device.type == "cuda" and dtype == torch.bfloat16
-        use_ring = ring_eligible(cfg, q_len, cache is not None, b)
+        use_ring = ring_eligible(cfg, q_len, cache is not None)
         use_flash = use_ring or flash_eligible(cfg, q_len, cache is not None, prefill_at_zero, kernel_device)
         if segment_ids is not None:
             # The flash and ring kernels' masks (causal x key validity)
@@ -723,25 +999,30 @@ class TransformerLM(nn.Module):
                 branch_hidden = branch_hidden[:, n_soft:]
 
         logits = logprobs = lse = entropy = None
+        w_head, b_head, tied, full_w, full_b = self.head()
         if labels is not None:
             S = labels.shape[1]
             x_head = x[:, logits_start:][:, :S]
-            if cfg.tie_word_embeddings:
-                w_head, b_head, tied = self.wte.embedding, None, True
-            else:
-                w_head, b_head, tied = self.lm_head.kernel, self.lm_head.bias, False
-            # A head no gradient reaches goes in as its cached bf16 copy
-            # (the same values as the per-tile cast); a trained one as the
-            # f32 master, so its gradient stays f32.
-            w_frozen = frozen_copy(w_head, dtype)
-            w_head = w_head if w_frozen is None else w_frozen
+            if full_w is None:
+                # A head no gradient reaches goes in as its cached bf16 copy
+                # (the same values as the per-tile cast); a trained one as
+                # the f32 master, so its gradient stays f32.
+                w_frozen = frozen_copy(w_head, dtype)
+                w_head = w_head if w_frozen is None else w_frozen
             logprobs, lse, entropy = routed_logprob(
                 x_head, w_head, labels, b_head, tied=tied,
-                mode=cfg.extra.get("fused_logprob", "auto"), mask=labels_mask,
+                mode=cfg.extra.get("fused_logprob", "auto"), mask=labels_mask, whole=(full_w, full_b),
             )
         elif compute_logits:
             x_head = x[:, logits_start:] if logits_start else x
-            if cfg.tie_word_embeddings:
+            if full_w is not None:
+                # Sharded: every rank computes the whole vocabulary from the
+                # gathered head (its gradient keeps this rank's piece).
+                w = full_weight(w_head, dtype, full_w.pl)
+                logits = x_head.to(dtype) @ (w.t() if tied else w)
+                if b_head is not None:
+                    logits = logits + full_weight(b_head, dtype, full_b.pl)
+            elif tied:
                 logits = x_head.to(dtype) @ compute_weight(self.wte.embedding, dtype).t()
             else:
                 logits = self.lm_head(x_head, dtype)
@@ -835,8 +1116,9 @@ def quantize_kv(x: torch.Tensor):
 
 def _cache_leaves(cfg: LMConfig, lead: Tuple[int, int], device, dtype):
     """Zeroed per-layer leaves over the leading dims ``lead``: (k, v), or
-    (k_i8, v_i8, k_scale, v_scale) with unit scales under kv_cache_quant."""
-    shape = lead + (cfg.n_head, cfg.head_dim)
+    (k_i8, v_i8, k_scale, v_scale) with unit scales under kv_cache_quant;
+    this rank's heads (``cfg.local_heads``) under tp."""
+    shape = lead + (cfg.local_heads, cfg.head_dim)
     if cfg.kv_cache_quant:
         if dtype is not None:
             raise ValueError("kv_cache_quant caches are int8; a dtype is not honoured")
@@ -857,7 +1139,7 @@ def _cache_leaves(cfg: LMConfig, lead: Tuple[int, int], device, dtype):
 
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int, device, dtype=None):
-    """Allocate an empty KV cache: per-layer (k, v) [b, T, n_head, hd], or
+    """Allocate an empty KV cache: per-layer (k, v) [b, T, local heads, hd], or
     (k_i8, v_i8, k_scale, v_scale) with kv_cache_quant."""
     return _cache_leaves(cfg, (batch, max_len), device, dtype)
 
@@ -870,3 +1152,85 @@ def init_paged_cache(cfg: LMConfig, n_blocks: int, block_size: int, device, dtyp
     keys are still read and weighted by an exact zero, which stays zero
     only if what it weighs is finite."""
     return _cache_leaves(cfg, (n_blocks, block_size), device, dtype)
+
+
+# ---------------------------------------------------------------------------
+# Placement on a sharded mesh
+# ---------------------------------------------------------------------------
+
+
+def _sharded_leaves(module: nn.Module):
+    """(qualified name, owning module, attribute, parameter) of every
+    parameter of ``module``, in ``named_parameters`` order."""
+    for name, p in module.named_parameters():
+        mod_name, _, attr = name.rpartition(".")
+        yield name, module.get_submodule(mod_name) if mod_name else module, attr, p
+
+
+def place_model(module: nn.Module):
+    """Split ``module``'s parameters over the mesh (its config's
+    ``fsdp_size`` and ``tp_size``) by ``parallel.sharding``'s rules: each
+    module built its tp-local shapes; here every parameter gets its
+    ``Placement`` (on its module's ``placement`` dict: ``placement_of``)
+    and, where fsdp splits it, becomes this rank's fsdp
+    piece (uninitialised: ``hf_import.init_params`` and the loaders fill
+    the pieces from whole tensors). A no-op on an unsharded mesh."""
+    cfg = module.cfg
+    fsdp, tp = max(1, cfg.fsdp_size), max(1, cfg.tp_size)
+    if fsdp == 1 and tp == 1:
+        return module
+    sizes = {AXIS_FSDP: fsdp, AXIS_TP: tp}
+    for name, mod, attr, p in _sharded_leaves(module):
+        split = tp > 1 and bool(getattr(mod, "tp_split", False))
+        full = list(p.shape)
+        spec = match_rule(name)
+        rule_tp = spec.index(AXIS_TP) if AXIS_TP in spec else None
+        if split and rule_tp is not None:
+            full[rule_tp] *= tp
+        pl = placement(name, full, sizes, tp_split=split, qkv=bool(getattr(mod, "qkv", False)))
+        if split and rule_tp is not None and pl.tp_dim != rule_tp:
+            raise ValueError(f"{name}: its module splits over tp but the rules replicate it")
+        if pl.fsdp_dim is not None:
+            piece = nn.Parameter(torch.empty(pl.local_shape, dtype=p.dtype, device=p.device),
+                                 requires_grad=p.requires_grad)
+            setattr(mod, attr, piece)
+        if isinstance(mod, Dense) and attr == "kernel":
+            mod.kernel_fsdp = pl.fsdp_dim
+        elif isinstance(mod, Embed):
+            mod.fsdp_dim = pl.fsdp_dim
+        elif attr == "soft_prompt":
+            mod.soft_fsdp = pl.fsdp_dim
+        elif pl.fsdp_dim is not None:
+            raise ValueError(f"{name}: split over fsdp, but its module reads it whole")
+        mod.placement[attr] = pl
+    return module
+
+
+def placement_of(module: nn.Module, name: str) -> Optional[Placement]:
+    """The ``Placement`` of parameter ``name`` (relative to ``module``), or
+    None where it is not split."""
+    mod_name, _, attr = name.rpartition(".")
+    sub = module.get_submodule(mod_name) if mod_name else module
+    return getattr(sub, "placement", {}).get(attr)
+
+
+def mesh_coords():
+    """(fsdp rank, tp rank) of this process on the current mesh."""
+    mesh = peek_mesh()
+    if mesh is None:
+        return 0, 0
+    return mesh.coords[AXIS_FSDP], mesh.coords[AXIS_TP]
+
+
+def shard_tensor(module: nn.Module, name: str, full: torch.Tensor) -> torch.Tensor:
+    """This rank's piece of the whole tensor ``full`` of parameter ``name``
+    (``full`` itself where it is not split)."""
+    pl = placement_of(module, name)
+    return full if pl is None else pl.shard(full, *mesh_coords())
+
+
+def gather_tensor(module: nn.Module, name: str, piece: torch.Tensor) -> torch.Tensor:
+    """The whole of parameter ``name`` from every rank's piece (a
+    collective over fsdp and tp; ``piece`` itself where it is not split)."""
+    pl = placement_of(module, name)
+    return piece if pl is None else _gather_full(piece, piece.dtype, pl)

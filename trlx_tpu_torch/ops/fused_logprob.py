@@ -59,7 +59,7 @@ def naive_logprob(x, w, labels, bias=None, *, tied: bool = False, mask=None):
     return lp, lse, ent
 
 
-def fused_logprob_bwd_plain(x, w, bias, labels, lse, ent, dlp, dlse, dent, *, tied: bool = False):
+def fused_logprob_bwd_plain(x, w, bias, labels, lse, ent, dlp, dlse, dent, *, tied: bool = False, dw_dtype=None):
     """The backward kernels' function with a materialized [N, V] score
     matrix: s = x·W (the weight cast to x's dtype, f32 accumulation) + bias,
     p = exp(s − lse), E = lse − ent, and
@@ -83,7 +83,7 @@ def fused_logprob_bwd_plain(x, w, bias, labels, lse, ent, dlp, dlse, dent, *, ti
     dx = (dsc @ (wc if tied else wc.t())).to(x.dtype).reshape(x.shape)
     dw = (dsc.t() @ x2.float()) if tied else (x2.float().t() @ dsc)
     db = None if bias is None else ds.sum(0).to(bias.dtype)
-    return dx, dw.to(w.dtype), db
+    return dx, dw.to(dw_dtype or w.dtype), db
 
 
 def split_count(n_rows: int, V: int, sms: int, bm: int = _KERNEL_BM, bn: int = _KERNEL_BN) -> int:
@@ -291,7 +291,7 @@ for _fn in (fused_logprob_fwd, fused_logprob_bwd_dx, fused_logprob_bwd_dw, fused
 
 
 def fused_logprob_bwd(x, w, bias, labels, lse, ent, dlp, dlse, dent, *, tied: bool = False, wk=None,
-                      need_dw: bool = True):
+                      need_dw: bool = True, dw_dtype=None):
     """(dx, dW, db) of the fused head. CPU tensors take
     ``fused_logprob_bwd_plain``; CUDA tensors walk the rows in chunks of
     ``BWD_CHUNK_ROWS`` (ds + dx per chunk, into a ds of every row), then
@@ -299,7 +299,8 @@ def fused_logprob_bwd(x, w, bias, labels, lse, ent, dlp, dlse, dent, *, tied: bo
     dW is written once; or raise. dW accumulates in f32 and comes back in w's
     dtype; dx comes back in x's dtype. With ``need_dw`` False (a frozen
     head: neither w nor bias takes a gradient) the dW/db kernel is not
-    launched and dW and db come back None.
+    launched and dW and db come back None. ``dw_dtype`` overrides the dtype
+    dW comes back in (f32 for a sharded head whose pieces are f32 masters).
 
     ``wk`` is w as ``kernel_weight`` gives it in x's dtype (the forward's
     copy), made here when not given; the ds and dx kernels read it, and ds is
@@ -309,7 +310,7 @@ def fused_logprob_bwd(x, w, bias, labels, lse, ent, dlp, dlse, dent, *, tied: bo
     128, in x's dtype (bf16: 206.6 MB at N = 2048, V = 50400; f32: 826 MB at
     N = 4092), beside the f32 dW of D x V (826 MB at D = 4096)."""
     if x.device.type == "cpu":
-        return fused_logprob_bwd_plain(x, w, bias, labels, lse, ent, dlp, dlse, dent, tied=tied)
+        return fused_logprob_bwd_plain(x, w, bias, labels, lse, ent, dlp, dlse, dent, tied=tied, dw_dtype=dw_dtype)
     D, V = _check_kernel_inputs(x, w, tied, _BWD_D_MULTIPLE)
     f32 = x.dtype == torch.float32
     N = labels.numel()
@@ -338,7 +339,7 @@ def fused_logprob_bwd(x, w, bias, labels, lse, ent, dlp, dlse, dent, *, tied: bo
     dw = torch.empty(tuple(w.shape), dtype=torch.float32, device=dev)
     db = None if b is None else torch.empty((V,), dtype=torch.float32, device=dev)
     dw_fn(x2, ds, dw, rows=N, V=V, ldv=ldv, tied=tied, dbpart=dbpart, db=db)
-    return dx.reshape(x.shape), dw.to(w.dtype), None if db is None else db.to(bias.dtype)
+    return dx.reshape(x.shape), dw.to(dw_dtype or w.dtype), None if db is None else db.to(bias.dtype)
 
 
 class FusedLogprobFn(torch.autograd.Function):
@@ -374,6 +375,42 @@ class FusedLogprobFn(torch.autograd.Function):
         return (dx if need[0] else None, dw if need[1] else None, db if need[2] else None, None, None)
 
 
+class WholeHeadLogprobFn(torch.autograd.Function):
+    """The fused head over a head split across ranks (a sharded mesh):
+    ``w`` and ``bias`` are this rank's pieces, ``full_w`` / ``full_b`` their
+    wholes (``models.lm.FullParam``: the copy gathered over fsdp and tp once
+    per weight version). The unchanged kernels (or, on the CPU, their plain
+    versions) run over the whole vocabulary on every rank (each tp rank
+    repeats the head's work, as XLA hands the Pallas call replicated
+    operands under pjit); the backward's f32 dW and db over the whole
+    vocabulary are reduced to this rank's pieces."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, labels, tied, full_w, full_b):
+        wk = full_w.copy(x.dtype)
+        b = None if full_b is None else full_b.copy(torch.float32)
+        if x.device.type == "cpu":
+            lp, lse, ent = naive_logprob(x, wk, labels, b, tied=tied)
+        else:
+            _check_kernel_inputs(x, wk, tied, _KERNEL_BK)
+            wk = kernel_weight(wk, x.dtype)
+            lp, lse, ent = fused_logprob_fwd(x, wk, labels, b, tied=tied)
+        ctx.save_for_backward(x, labels, lse, ent)
+        ctx.tied, ctx.wk, ctx.b, ctx.full_w, ctx.full_b = tied, wk, b, full_w, full_b
+        return lp, lse, ent
+
+    @staticmethod
+    def backward(ctx, dlp, dlse, dent):
+        x, labels, lse, ent = ctx.saved_tensors
+        dlp, dlse, dent = (torch.zeros_like(lse) if g is None else g for g in (dlp, dlse, dent))
+        need = ctx.needs_input_grad
+        dx, dw, db = fused_logprob_bwd(x, ctx.wk, ctx.b, labels, lse, ent, dlp, dlse, dent, tied=ctx.tied, wk=ctx.wk,
+                                       need_dw=need[1] or need[2], dw_dtype=torch.float32)
+        dw = ctx.full_w.piece(dw) if need[1] else None
+        db = ctx.full_b.piece(db) if need[2] else None
+        return dx if need[0] else None, dw, db, None, None, None, None
+
+
 def fused_logprob(x, w, labels, bias=None, *, tied: bool = False):
     """Per-token f32 (logprob, lse, entropy) of ``labels`` under the head
     x [..., D] · w ([D, V], or the tied embedding [V, D]) + bias [V], each
@@ -390,19 +427,42 @@ def fused_logprob(x, w, labels, bias=None, *, tied: bool = False):
     return fused_logprob_fwd(x, w, labels, bias, tied=tied)
 
 
-def routed_logprob(x, w, labels, bias=None, *, tied: bool = False, mode: str = "auto", mask=None):
+def routed_logprob(x, w, labels, bias=None, *, tied: bool = False, mode: str = "auto", mask=None,
+                   whole=(None, None)):
     """The model layer's entry: the fused head when ``mode`` is "force", or
     "auto" on a CUDA device with bf16 or f32 activations (the dtypes the
     kernels take) and an eligible shape; else the materializing
-    ``naive_logprob``. ``mask`` zeros masked rows on both paths."""
+    ``naive_logprob``. ``mask`` zeros masked rows on both paths. On a
+    sharded mesh ``w`` and ``bias`` are this rank's pieces and ``whole``
+    their ``FullParam`` wholes: both paths compute over the whole
+    vocabulary (``WholeHeadLogprobFn``; the naive path over the gathered
+    copy), and the gradient reaches each piece."""
     if mode not in ("auto", "force", "off"):
         raise ValueError(f"fused_logprob mode must be auto|force|off, got {mode!r}")
+    full_w, full_b = whole
+    shape = full_w.shape if full_w is not None else w.shape
     use_kernel = mode == "force" or (
         mode == "auto"
         and x.device.type == "cuda"
         and x.dtype in (torch.bfloat16, torch.float32)
-        and fused_logprob_eligible(x.shape[-1], w.shape[0] if tied else w.shape[1])
+        and fused_logprob_eligible(x.shape[-1], shape[0] if tied else shape[1])
     )
+    if full_w is not None:
+        if use_kernel:
+            needs = [t is not None and t.requires_grad for t in (x, w, bias)]
+            if torch.is_grad_enabled() and any(needs):
+                lp, lse, ent = WholeHeadLogprobFn.apply(x, w, bias, labels, bool(tied), full_w, full_b)
+            else:
+                wk = full_w.copy(x.dtype)
+                b = None if full_b is None else full_b.copy(torch.float32)
+                lp, lse, ent = (naive_logprob(x, wk, labels, b, tied=tied) if x.device.type == "cpu" else
+                                fused_logprob_fwd(x, kernel_weight(wk, x.dtype), labels, b, tied=tied))
+            if mask is not None:
+                m = mask.float()
+                lp, lse, ent = lp * m, lse * m, ent * m
+            return lp, lse, ent
+        return naive_logprob(x, full_w.whole(x.dtype), labels, None if full_b is None else full_b.whole(x.dtype),
+                             tied=tied, mask=mask)
     if use_kernel:
         lp, lse, ent = fused_logprob(x, w, labels, bias, tied=tied)
         if mask is not None:

@@ -23,6 +23,7 @@ inside ``models.lm.decode_weights``; its copies are re-quantized in place
 before the loop when the weights changed.
 """
 
+import sys
 from functools import partial
 from typing import Callable, Optional, Tuple
 
@@ -32,6 +33,7 @@ from trlx_tpu_torch.device import stamp
 from trlx_tpu_torch.models.lm import decode_weights, init_cache, refresh_weight_copies
 from trlx_tpu_torch.ops.cuda_graph import CudaGraph, StepGraph
 from trlx_tpu_torch.ops.sampling import GenerateConfig, process_logits_default, sample_categorical
+from trlx_tpu_torch.parallel.mesh import AXIS_TP, peek_mesh
 
 # Decode steps the host may queue on the card past an unread "every row
 # finished" flag: enough to keep the card fed while the host waits for the
@@ -92,7 +94,8 @@ def _static_buffers(cache, B: int, P: int, N: int, n_soft: int, prompt_dtype, de
     return buf
 
 
-def _make_step(model, buf, gcfg: GenerateConfig, P: int, processor, carry_keys, step_stats_fn, extra, generator):
+def _make_step(model, buf, gcfg: GenerateConfig, P: int, processor, carry_keys, step_stats_fn, extra, generator,
+               rows=None):
     """The decode step over ``buf``: sample from the carried logits, write
     the token and its mask bit at P + step, run the model over the cache at
     that offset, collect the stats of the PRE-step state, carry the new
@@ -115,7 +118,7 @@ def _make_step(model, buf, gcfg: GenerateConfig, P: int, processor, carry_keys, 
         else:
             logits = process_logits_default(st["last_logits"], gcfg, step_col)
         if gcfg.do_sample:
-            tok = sample_categorical(torch.softmax(logits.float(), dim=-1), generator)
+            tok = sample_categorical(torch.softmax(logits.float(), dim=-1), generator, rows)
         else:
             tok = torch.argmax(logits, dim=-1)
         was_finished = st["finished"]
@@ -158,6 +161,7 @@ def generate(
     apply_kwargs: Optional[dict] = None,
     prefill_collect: Tuple[str, ...] = (),
     timings: Optional[dict] = None,
+    rows=None,
     _keep: Optional[dict] = None,
     _eager: bool = False,
 ):
@@ -189,11 +193,14 @@ def generate(
     output. ``apply_kwargs`` is merged into every model call;
     ``prefill_collect`` names prefill outputs returned as a fourth output.
     Sampling draws from ``generator`` (the default generator when None) and
-    advances it as an eager loop would. ``timings``, when given, receives
+    advances it as an eager loop would; ``rows`` = (first, total) marks the
+    prompts as rows first.. of a batch of ``total`` (a data rank's share:
+    ``sampling.sample_categorical``). ``timings``, when given, receives
     device ``stamp``s at "start", "prefill" (prefill done) and "end".
 
     On a CUDA device the decode steps after the first replay a CUDA graph of
-    the step. ``_keep`` is a dict that keeps the static buffers and the
+    the step, where ``graphs_allowed`` says a graph may hold the step's
+    collectives. ``_keep`` is a dict that keeps the static buffers and the
     graph of every shape for its next call (``make_generate_fn`` passes
     one); ``_eager`` (tests and the chip smoke's comparison only) launches
     every step eagerly instead."""
@@ -201,11 +208,34 @@ def generate(
         raise ValueError("prefill_collect requires step_stats_fn")
     with decode_weights(model):
         return _generate(model, prompt_ids, prompt_mask, generator, gcfg, processor, carry_keys, step_stats_fn,
-                         apply_kwargs, prefill_collect, timings, _keep, _eager)
+                         apply_kwargs, prefill_collect, timings, _keep, _eager, rows)
+
+
+_ANNOUNCED = set()
+
+
+def graphs_allowed(device: torch.device) -> bool:
+    """The one rule for capturing decode steps: a CUDA device, and every
+    collective inside a step capturable. A decode step issues tp's
+    all-reduces (fsdp's weights are gathered before the loop, the data
+    ranks decode apart); on an NCCL tp group they are captured with the
+    step, on a gloo one (staged through host memory:
+    ``parallel.collectives``) they cannot be, and the sampler runs its steps
+    eagerly. The process prints which mode it took, once."""
+    if device.type != "cuda":
+        return False
+    mesh = peek_mesh()
+    tp = mesh.group(AXIS_TP) if mesh is not None else None
+    ok = tp is None or tp.capturable
+    mode = "graphs" if ok else f"eager (tp over {tp.backend} cannot be captured)"
+    if mode not in _ANNOUNCED:
+        _ANNOUNCED.add(mode)
+        print(f"[trlx_tpu_torch] decode steps: {mode}", file=sys.stderr, flush=True)
+    return ok
 
 
 def _generate(model, prompt_ids, prompt_mask, generator, gcfg, processor, carry_keys, step_stats_fn, apply_kwargs,
-              prefill_collect, timings, _keep, _eager):
+              prefill_collect, timings, _keep, _eager, rows=None):
     cfg = model.cfg
     device = next(model.parameters()).device
     prompt_ids = torch.as_tensor(prompt_ids, device=device)
@@ -215,7 +245,7 @@ def _generate(model, prompt_ids, prompt_mask, generator, gcfg, processor, carry_
     n_soft = cfg.n_soft_tokens
     eos = gcfg.eos_token_id
     extra = apply_kwargs or {}
-    use_graph = device.type == "cuda" and not _eager
+    use_graph = not _eager and graphs_allowed(device)
     # Replays read the bf16 weight copies and the int8 decode copies without
     # making them: bring stale ones (an optimizer step since the last call)
     # up to date in place.
@@ -224,7 +254,7 @@ def _generate(model, prompt_ids, prompt_mask, generator, gcfg, processor, carry_
 
     # What the buffers and the captured step depend on, besides the weights.
     key = (B, P, prompt_ids.dtype, gcfg, use_graph, model, processor, carry_keys, step_stats_fn,
-           tuple(sorted(extra.items())), generator is None, w8)
+           tuple(sorted(extra.items())), generator is None, w8, rows)
     # One set of buffers (and one graph) per prompt width, so prompt buckets
     # keep one each; a change of anything else frees them all first, as a
     # change of shape did before buckets. ``_keep["buffers"]`` is the set
@@ -282,7 +312,7 @@ def _generate(model, prompt_ids, prompt_mask, generator, gcfg, processor, carry_
         sampler = buf["generator"]
         sampler.set_state(generator.get_state())
     if buf.get("step_fn") is None or not use_graph:
-        buf["step_fn"] = _make_step(model, buf, gcfg, P, processor, carry_keys, step_stats_fn, extra, sampler)
+        buf["step_fn"] = _make_step(model, buf, gcfg, P, processor, carry_keys, step_stats_fn, extra, sampler, rows)
 
     poll = None  # GPU: (event, pinned flag, step) of an in-flight "every row finished" copy
     for step in range(N):

@@ -16,7 +16,7 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
-from trlx_tpu_torch.ops.modeling import logprobs_from_logits
+from trlx_tpu_torch.ops.modeling import global_ratio, logprobs_from_logits, loss_group
 
 
 def action_tokens(input_ids: torch.Tensor, actions_ixs: torch.Tensor) -> torch.Tensor:
@@ -42,28 +42,33 @@ def ilql_loss_terms(
     f32 each (one per Q head), ``vs`` [b, A + 1] the V head at the states,
     ``rewards`` [b, A], ``dones`` [b, A + 1] (1 while alive, 0 at the
     terminal and in padding), ``loss_awac`` a scalar. The target Qs and
-    V(s') carry no gradient."""
+    V(s') carry no gradient. On a mesh with data axes each mean runs over
+    the whole batch (``ops.modeling.loss_group``)."""
+    g = loss_group()
     targetQs = [q.detach() for q in targetQs]
     targetQ = torch.minimum(*targetQs) if len(targetQs) > 1 else targetQs[0]
 
     dones = dones.float()
     terminal_mask = dones[:, :-1]
-    n_nonterminal = torch.clamp(terminal_mask.sum(), min=1.0)
+    n_local = terminal_mask.sum()
+
+    def over_nonterminal(t):
+        return global_ratio((t * terminal_mask).sum(), n_local, g, min_den=1.0)
 
     vs = vs.float()
     V = vs[:, :-1]
     Vnext = vs[:, 1:].detach() * dones[:, 1:]
     Q_target_value = rewards.float() + gamma * Vnext
 
-    loss_q = sum(((Q - Q_target_value).square() * terminal_mask).sum() / n_nonterminal for Q in Qs)
+    loss_q = sum(over_nonterminal((Q - Q_target_value).square()) for Q in Qs)
 
     # Expectile regression of V toward the target Q.
     diff = targetQ - V
     weight = torch.where(diff >= 0, torch.full_like(diff, tau), torch.full_like(diff, 1.0 - tau))
-    loss_v = (weight * diff.square() * terminal_mask).sum() / n_nonterminal
+    loss_v = over_nonterminal(weight * diff.square())
 
     # CQL: cross-entropy of the Q heads at the dataset actions.
-    loss_cql = sum((nll * terminal_mask).sum() / n_nonterminal for nll in cql_nlls)
+    loss_cql = sum(over_nonterminal(nll) for nll in cql_nlls)
 
     loss = loss_q + loss_v + cql_scale * loss_cql + awac_scale * loss_awac
     stats = {
@@ -106,7 +111,7 @@ def ilql_loss(
 
     attn = attention_mask.float()
     nll = -logprobs_from_logits(logits[:, :-1], input_ids[:, 1:])
-    loss_awac = (nll * attn[:, 1:]).sum() / torch.clamp(attn[:, 1:].sum(), min=1.0)
+    loss_awac = global_ratio((nll * attn[:, 1:]).sum(), attn[:, 1:].sum(), loss_group(), min_den=1.0)
 
     return ilql_loss_terms(
         Qs, targetQs, cql_nlls, vs, rewards, dones, loss_awac,

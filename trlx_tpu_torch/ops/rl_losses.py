@@ -13,7 +13,8 @@ from typing import Dict, Tuple
 
 import torch
 
-from trlx_tpu_torch.ops.modeling import masked_mean, masked_whiten
+from trlx_tpu_torch.ops.modeling import global_ratio, loss_group, masked_mean, masked_whiten
+from trlx_tpu_torch.parallel.collectives import global_sum
 
 
 def gae_advantages(
@@ -71,42 +72,54 @@ def ppo_loss(
     is the policy-vs-rollout sum-over-tokens KL the adaptive controller
     reads. Packed batches pass ``segment_ids`` (to GAE) and ``n_seqs``, the
     number of episodes packed in: ``mean_kl`` and ``mean_return`` divide the
-    sums by it instead of averaging over rows."""
+    sums by it instead of averaging over rows. On a mesh with data axes the
+    whitening, every mean and every statistic run over the whole batch
+    (``ops.modeling.loss_group``): each rank holds its rows, the numbers
+    are the global ones."""
+    g = loss_group()
     mask = mask.float()
     with torch.no_grad():
         advantages, returns = gae_advantages(rewards, old_values, mask, gamma, lam, segment_ids=segment_ids)
-        advantages = masked_whiten(advantages, mask)
+        advantages = masked_whiten(advantages, mask, group=g)
 
     vpred = vpred.float()
     vpredclipped = torch.clamp(vpred, old_values - cliprange_value, old_values + cliprange_value)
     vf_losses1 = (vpred - returns) ** 2
     vf_losses2 = (vpredclipped - returns) ** 2
-    vf_loss = 0.5 * masked_mean(torch.maximum(vf_losses1, vf_losses2), mask)
-    vf_clipfrac = masked_mean((vf_losses2 > vf_losses1).float(), mask)
+    vf_loss = 0.5 * masked_mean(torch.maximum(vf_losses1, vf_losses2), mask, group=g)
+    vf_clipfrac = masked_mean((vf_losses2 > vf_losses1).float(), mask, group=g)
 
     log_ratio = (logprobs - old_logprobs) * mask
     ratio = torch.exp(log_ratio)
     pg_losses = -advantages * ratio
     pg_losses2 = -advantages * torch.clamp(ratio, 1.0 - cliprange, 1.0 + cliprange)
-    pg_loss = masked_mean(torch.maximum(pg_losses, pg_losses2), mask)
-    pg_clipfrac = masked_mean((pg_losses2 > pg_losses).float(), mask)
+    pg_loss = masked_mean(torch.maximum(pg_losses, pg_losses2), mask, group=g)
+    pg_clipfrac = masked_mean((pg_losses2 > pg_losses).float(), mask, group=g)
 
     loss = pg_loss + vf_coef * vf_loss
     with torch.no_grad():
-        ret_mean = masked_mean(returns, mask)
-        ret_var = masked_mean((returns - ret_mean) ** 2, mask)
-        err_var = masked_mean((returns - vpred) ** 2, mask)
+        ret_mean = masked_mean(returns, mask, group=g)
+        ret_var = masked_mean((returns - ret_mean) ** 2, mask, group=g)
+        err_var = masked_mean((returns - vpred) ** 2, mask, group=g)
+        rows = torch.tensor(float(mask.shape[0]), device=mask.device)
+
+        def per_sequence(t):
+            # The per-sequence sum's mean: over rows, or over n_seqs packed episodes.
+            if n_seqs is not None:
+                return global_sum(t.sum(), g) / n_seqs
+            return t.sum(-1).mean() if g is None else global_ratio(t.sum(), rows, g)
+
         stats = {
             "loss": loss,
             "pg_loss": pg_loss,
             "vf_loss": vf_loss,
             "pg_clipfrac": pg_clipfrac,
             "vf_clipfrac": vf_clipfrac,
-            "mean_kl": log_ratio.sum(-1).mean() if n_seqs is None else log_ratio.sum() / n_seqs,
-            "mean_ratio": masked_mean(ratio, mask),
-            "mean_return": (rewards * mask).sum(-1).mean() if n_seqs is None else (rewards * mask).sum() / n_seqs,
-            "mean_advantage": masked_mean(advantages, mask),
-            "mean_entropy": masked_mean(-logprobs, mask),
+            "mean_kl": per_sequence(log_ratio),
+            "mean_ratio": masked_mean(ratio, mask, group=g),
+            "mean_return": per_sequence(rewards * mask),
+            "mean_advantage": masked_mean(advantages, mask, group=g),
+            "mean_entropy": masked_mean(-logprobs, mask, group=g),
             "explained_variance": 1.0 - err_var / (ret_var + 1e-8),
         }
         stats = {k: v.detach() for k, v in stats.items()}

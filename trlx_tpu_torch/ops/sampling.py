@@ -76,13 +76,20 @@ def process_logits_default(logits: torch.Tensor, gcfg: GenerateConfig, step) -> 
     return logits
 
 
-def sample_categorical(probs: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+def sample_categorical(probs: torch.Tensor, generator: Optional[torch.Generator], rows=None) -> torch.Tensor:
     """One token per row of ``probs`` [b, vocab]: argmax of probs / q with
     q ~ Exp(1), the race ``torch.multinomial(probs, 1)`` runs, drawing the
     same numbers from ``generator``, so its tokens equal multinomial's. It
     has none of multinomial's host-side checks, so a CUDA graph can capture
-    it."""
-    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    it. ``rows`` = (first, total): these are rows first.. of a batch of
+    ``total`` (a data rank's share): the whole batch's noise is drawn and
+    these rows' kept, so the tokens equal the whole batch's."""
+    if rows is None:
+        q = torch.empty_like(probs).exponential_(1, generator=generator)
+    else:
+        first, total = rows
+        q = torch.empty((total, probs.shape[-1]), dtype=probs.dtype, device=probs.device)
+        q = q.exponential_(1, generator=generator)[first:first + probs.shape[0]]
     return torch.argmax(probs / q, dim=-1)
 
 

@@ -4,14 +4,18 @@ tokenizer, or token arrays) → action and state indices, z-scored returns
 with the terminal reward on the final action → ``ILQLRolloutStorage``; the
 raw rewards' mean feeds the health monitor when it is armed.
 
-The JAX package's multi-host sample-count check waits for the distributed
-stack."""
+With several nodes each node feeds its own samples; their counts must
+agree (the JAX package's multi-host check), or every rank raises the same
+``HostDesync``: per-node loaders of different lengths would leave the ranks
+in different train steps."""
 
 import warnings
 
 import numpy as np
 
 from trlx_tpu_torch.orchestrator import Orchestrator, register_orchestrator
+from trlx_tpu_torch.parallel.mesh import allgather_host, world_size
+from trlx_tpu_torch.resilience.distributed import HostDesync
 from trlx_tpu_torch.pipeline.ilql_pipeline import ILQLRolloutStorage
 
 
@@ -30,6 +34,12 @@ class OfflineOrchestrator(Orchestrator):
         sample whose prompt takes it whole has no action: it is stored as a
         padded no-op and left out of the return statistics."""
         model = self.model
+        if world_size() > 1:
+            counts = allgather_host(np.asarray([len(samples)], dtype=np.int64)).reshape(-1)
+            if len(set(int(c) for c in counts)) != 1:
+                raise HostDesync(f"offline sample count differs across ranks: {counts.tolist()} (rank ids are the "
+                                 "list indices) — every rank must feed the same number of samples to "
+                                 "make_experience")
         tokenizer = model.tokenizer
         input_ids = model.tokenize_ilql(samples)
 

@@ -41,8 +41,15 @@ record with its weight version, and on the engine path its version spans).
 Host spans (when armed): ``rollout/generate``, ``rollout/decode``,
 ``rollout/reward_fn``, ``rollout/score_device`` and ``rollout/push``.
 
-Not ported here: in-flight weight polling, multi-process schedule checks
-and the fleet.
+On a mesh with data axes (several processes) the chunked path's chunk is
+the node's ``chunk_size`` rows (a node is a JAX host): each data rank
+generates its rows, the reward runs once a chunk on the main process over
+every node's rows, each rank scores its rows on the device, and every rank
+of a node stores the node's rows, so the store and the train loader's
+batches are those of a one-process run.
+
+Not ported here: in-flight weight polling, the engine on several processes
+(its schedule checks) and the fleet.
 """
 
 import time
@@ -53,6 +60,7 @@ import numpy as np
 from trlx_tpu_torch.device import elapsed_s
 from trlx_tpu_torch.observability.spans import complete as span_complete, trace_span
 from trlx_tpu_torch.orchestrator import Orchestrator, register_orchestrator
+from trlx_tpu_torch.parallel.mesh import node_count
 from trlx_tpu_torch.pipeline.overlap import ScoreWorker
 from trlx_tpu_torch.resilience.faults import FaultInjected
 from trlx_tpu_torch.resilience.retry import call_with_retries
@@ -118,21 +126,23 @@ class PPOOrchestrator(Orchestrator):
     def _generate_next_chunk(self, snapshot=None):
         """Launch one chunk's generation from the module ``snapshot`` names
         (the live one for None). The sampling generator is a pure function
-        of (train.seed, absolute chunk index)."""
+        of (train.seed, absolute chunk index). On a mesh with data axes the
+        chunk is the node's and this data rank generates its rows of it
+        (drawing the node's sampling noise and keeping its rows)."""
         rl = self.rl_model
         snap_kw = {} if snapshot is None else {"snapshot": snapshot}
         generator = rl.chunk_rng(self._chunks_consumed)
         batch = self._next_prompt_batch()
         P = batch["input_ids"].shape[1]
+        ids, mask = rl.local_rows(batch["input_ids"]), rl.local_rows(batch["attention_mask"])
+        rows = rl.sample_rows(ids.shape[0])
         timings = {}
         if rl.fused_rollout:
             tokens, mask, stats, prefill = rl.rollout_generate_fused(
-                batch["input_ids"], batch["attention_mask"], generator=generator, timings=timings, **snap_kw
+                ids, mask, generator=generator, timings=timings, rows=rows, **snap_kw
             )
             return tokens, mask, P, (stats, prefill), timings
-        tokens, mask = rl.rollout_generate(
-            batch["input_ids"], batch["attention_mask"], generator=generator, timings=timings, **snap_kw
-        )
+        tokens, mask = rl.rollout_generate(ids, mask, generator=generator, timings=timings, rows=rows, **snap_kw)
         return tokens, mask, P, None, timings
 
     def _host_score(self, args):
@@ -199,16 +209,17 @@ class PPOOrchestrator(Orchestrator):
             # Device scoring, the pulls, the store push and the health feed
             # of one chunk; only this thread issues device work.
             nonlocal score_s, score_dev_s, push_s, last_scores, last_kl, max_abs_kl
-            scores, reward_call = scored
+            scores, reward_call = scored  # the node's rows
             tokens, mask, P, gen_aux = ctx["tokens"], ctx["mask"], ctx["P"], ctx["gen_aux"]
             score_t = {}
             t = time.perf_counter()
             t_span = time.time()
+            local_scores = rl.local_rows(scores)
             if gen_aux is not None:
-                out = rl.rollout_score_fused(tokens, mask, scores, gen_aux, timings=score_t, **snap_kw)
+                out = rl.rollout_score_fused(tokens, mask, local_scores, gen_aux, timings=score_t, **snap_kw)
             else:
-                out = rl.rollout_score(tokens, mask, scores, timings=score_t, **snap_kw)
-            logprobs, values, rewards, kl = rl.to_host(out)
+                out = rl.rollout_score(tokens, mask, local_scores, timings=score_t, **snap_kw)
+            logprobs, values, rewards, kl = (rl.gather_rows(a) for a in rl.to_host(out))
             score_s += time.perf_counter() - t
             span_complete("rollout/score_device", t_span, step=iter_count)
             score_dev_s += elapsed_s(score_t["start"], score_t["end"])
@@ -258,13 +269,18 @@ class PPOOrchestrator(Orchestrator):
                     aborted = True
                     return None
                 tokens, mask, P, gen_aux, timings = pending
-                chunk_rows = int(tokens.shape[0])
+                if rl.heartbeat is not None:
+                    rl.heartbeat.beat(step=iter_count, phase="rollout")
+                # The node's rows (num_rollouts and chunk_size count a node's:
+                # a JAX host's), gathered from its data ranks.
+                chunk_rows = int(tokens.shape[0]) * (rl.mesh.data_size // node_count())
                 need_more = n_collected + chunk_rows < num_rollouts
                 t = time.perf_counter()
                 t_span = time.time()
                 if need_more:
                     pending = self._generate_next_chunk(snapshot)
-                tokens_h, mask_h = rl.to_host((tokens, mask))
+                tokens_e, mask_e = (rl.gather_rows(a, every_node=True) for a in rl.to_host((tokens, mask)))
+                tokens_h, mask_h = rl.node_slice(tokens_e), rl.node_slice(mask_e)
                 gen_s += time.perf_counter() - t
                 span_complete("rollout/generate", t_span, step=iter_count)
                 prefill_dev_s += elapsed_s(timings["start"], timings["prefill"])
@@ -280,8 +296,8 @@ class PPOOrchestrator(Orchestrator):
                     # host reward.
                     score_t = {}
                     t = time.perf_counter()
-                    logprobs, values, rewards, kl, scores = rl.to_host(
-                        rl.rollout_score_rm(tokens, mask, timings=score_t, **snap_kw))
+                    logprobs, values, rewards, kl, scores = (rl.gather_rows(a) for a in rl.to_host(
+                        rl.rollout_score_rm(tokens, mask, timings=score_t, **snap_kw)))
                     score_s += time.perf_counter() - t
                     rm_dev_s += elapsed_s(score_t["rm_start"], score_t["rm_end"])
                     score_dev_s += elapsed_s(score_t["start"], score_t["end"])
@@ -298,10 +314,13 @@ class PPOOrchestrator(Orchestrator):
                     while inflight and (len(inflight) > depth or worker.ready()):
                         finish_chunk(inflight.popleft(), worker.result())
                 else:
+                    # One reward call a chunk, on the main process over every
+                    # node's rows (a one-host JAX run's call), broadcast; each
+                    # node keeps its rows.
                     t = time.perf_counter()
-                    scored = self._host_score((tokens_h, mask_h, iter_count))
+                    scores, call = self._host_score((tokens_e, mask_e, iter_count))
                     reward_s += time.perf_counter() - t
-                    finish_chunk(ctx, scored)
+                    finish_chunk(ctx, (rl.node_slice(scores), call))
                 n_collected += chunk_rows
                 if not need_more:
                     break

@@ -4,23 +4,37 @@
 The JAX package runs one controller over a ``jax.sharding.Mesh`` of four
 named axes (dp, fsdp, tp, sp). The port runs SPMD, one process a card, under
 ``torchrun --nproc_per_node n``: ``init_distributed`` reads torchrun's
-environment and joins the default process group (NCCL on CUDA, gloo on the
-CPU). Of the four axes only sp (sequence parallelism: ring attention) is
-ported; a mesh with dp, fsdp or tp above 1 raises (ROADMAP §A11). Every sp
-rank holds the same full batch and runs the same non-attention compute; the
-ring splits attention only.
+environment and joins the default process group (NCCL where each rank has a
+card of its own, gloo on the CPU or when the caller asks for it: several
+processes sharing one card). ``make_mesh`` lays the processes out in the JAX
+order, (dp, fsdp, tp, sp) with sp fastest: global rank
+((dp·F + fsdp)·T + tp)·S + sp. Each process knows its coordinates and holds
+one ``torch.distributed`` subgroup per axis (``collectives.AxisGroup``), plus
+the data group (dp × fsdp: the ranks that hold different rows of a batch).
+Parameters are split over fsdp and tp by ``parallel.sharding``'s rules; the
+batch is split over the data axes; every sp rank of a data rank holds the
+same rows and the ring splits attention only.
+
+**A JAX process is a host, a port process is one card.** The JAX package's
+per-process quantities (``num_rollouts``, ``chunk_size``, ``batch_size``:
+rows a host feeds) are per NODE here: ``node_count()`` is
+``WORLD_SIZE // LOCAL_WORLD_SIZE``, and a node's ranks are consecutive (its
+index is torchrun's ``GROUP_RANK``: rank // LOCAL_WORLD_SIZE). N ranks of one node run, row for row, what one JAX host runs
+over an N-device mesh. Failure detection (heartbeats, fingerprints, the
+collective guard) counts per rank: a port process can die alone.
 
 An sp group is the ring's interface: ``ranks`` (the ranks this process
 plays), ``size``, ``rotate`` (each rank's tensors to rank + 1), and
 ``scatter_seq`` / ``gather_seq`` (the sequence chunks of the ranks played,
 and the full sequence back). Two implement it:
 
-- ``DistSpGroup``: one rank a process, over a ``torch.distributed`` group;
+- ``DistSpGroup``: one rank a process, over the sp subgroup;
 - ``LocalSpGroup(n)``: all n ranks in one process, each rank's chunk a list
   entry. The ring body runs once a rank, and ``rotate`` hands each rank the
   chunk it would have received, so autograd routes every gradient to its
   owner. The counterpart of the JAX package's single-process mesh over
-  several devices; chosen only where a caller builds it into a mesh.
+  several devices; chosen only where a caller builds it into a mesh, whose
+  other axes are then 1.
 
 Every rank issues the same collectives in the same order, in the forward,
 in autograd's backward and in remat's recompute: each op waits on its own
@@ -34,6 +48,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from trlx_tpu_torch.parallel.collectives import SOLO, AxisGroup, all_gather_object
 
 AXIS_DP = "dp"
 AXIS_FSDP = "fsdp"
@@ -50,17 +66,32 @@ def _initialized() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
-def init_distributed():
+def init_distributed(backend: Optional[str] = None):
     """Join the default process group from torchrun's environment
     (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR``,
-    ``MASTER_PORT``): NCCL when CUDA is available, gloo otherwise, each
-    process on the card ``LOCAL_RANK``. A no-op for a single process and
-    when the group exists already (a caller that built its own)."""
+    ``MASTER_PORT``). NCCL when each rank of the node has a card of its own
+    (``LOCAL_WORLD_SIZE`` at most the visible cards), each process on the
+    card ``LOCAL_RANK``; gloo on the CPU. ``backend`` overrides the choice
+    (gloo for several processes sharing one card: NCCL refuses two ranks on
+    one device). More ranks than cards with no ``backend`` raises. A no-op
+    for a single process and when the group exists already (a caller that
+    built its own)."""
     if _initialized() or int(os.environ.get("WORLD_SIZE", "1")) <= 1:
         return
+    local_rank = int(os.environ.get("LOCAL_RANK", "0"))
+    if backend is None:
+        if not torch.cuda.is_available():
+            backend = "gloo"
+        elif int(os.environ.get("LOCAL_WORLD_SIZE", os.environ["WORLD_SIZE"])) <= torch.cuda.device_count():
+            backend = "nccl"
+        else:
+            raise RuntimeError(
+                f"{os.environ.get('LOCAL_WORLD_SIZE', os.environ['WORLD_SIZE'])} ranks on this node but "
+                f"{torch.cuda.device_count()} card(s): NCCL takes one rank a card; pass backend='gloo' to "
+                "share a card")
     if torch.cuda.is_available():
-        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
-    dist.init_process_group("nccl" if torch.cuda.is_available() else "gloo")
+        torch.cuda.set_device(local_rank % torch.cuda.device_count())
+    dist.init_process_group(backend)
 
 
 def world_size() -> int:
@@ -69,6 +100,18 @@ def world_size() -> int:
 
 def process_rank() -> int:
     return dist.get_rank() if _initialized() else 0
+
+
+def node_count() -> int:
+    """The nodes of the run: ``WORLD_SIZE // LOCAL_WORLD_SIZE`` (one JAX
+    host each); 1 without torchrun's ``LOCAL_WORLD_SIZE``."""
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", "0") or 0)
+    n = world_size()
+    if local <= 0 or n == 1:
+        return 1
+    if n % local:
+        raise ValueError(f"WORLD_SIZE {n} is not a multiple of LOCAL_WORLD_SIZE {local}")
+    return n // local
 
 
 def resolve_mesh_shape(shape: Sequence[int], n_devices: Optional[int] = None) -> Tuple[int, ...]:
@@ -90,35 +133,95 @@ def resolve_mesh_shape(shape: Sequence[int], n_devices: Optional[int] = None) ->
 
 
 class Mesh:
-    """The axis sizes (``shape``, by axis name) and the sp group."""
+    """The axis sizes (``shape``, by axis name), this process's coordinates
+    (``coords``), one ``AxisGroup`` per axis, for the data axes together and
+    for every process (``group(name)``: "dp", "fsdp", "tp", "sp", "data" or
+    "world"), and the sp group of the ring."""
 
-    def __init__(self, shape: Tuple[int, ...], sp_group):
+    def __init__(self, shape: Tuple[int, ...], sp_group, coords: Tuple[int, ...] = (0, 0, 0, 0),
+                 groups: Optional[dict] = None):
         self.shape = dict(zip(MESH_AXES, shape))
+        self.coords = dict(zip(MESH_AXES, coords))
+        self.groups = dict(groups or {})
         self.sp_group = sp_group
 
     @property
     def size(self) -> int:
         return int(np.prod(list(self.shape.values())))
 
+    def group(self, name: str) -> AxisGroup:
+        return self.groups.get(name, SOLO)
+
+    @property
+    def data_size(self) -> int:
+        """dp × fsdp: the ranks that hold different rows of a batch."""
+        return self.shape[AXIS_DP] * self.shape[AXIS_FSDP]
+
+    @property
+    def data_index(self) -> int:
+        """This process's index over the data axes (dp slowest)."""
+        return self.coords[AXIS_DP] * self.shape[AXIS_FSDP] + self.coords[AXIS_FSDP]
+
+    @property
+    def sharded(self) -> bool:
+        """Parameters are split (fsdp or tp above 1)."""
+        return self.shape[AXIS_FSDP] > 1 or self.shape[AXIS_TP] > 1
+
     def __repr__(self):
         return f"Mesh({self.shape}, {type(self.sp_group).__name__})"
 
 
+def axis_lines(shape: Tuple[int, ...]) -> dict:
+    """The process groups of a mesh: for each axis of size > 1 (and the data
+    axes together as "data"), the lists of global ranks that vary along it
+    with every other coordinate fixed, each in axis order (rank =
+    np.ravel_multi_index(coords, shape): sp fastest, the JAX package's
+    device order)."""
+    grid = np.arange(int(np.prod(shape))).reshape(shape)
+    spans = {a: (i,) for i, a in enumerate(MESH_AXES)}
+    spans["data"] = (0, 1)
+    out = {}
+    for name, axes in spans.items():
+        size = int(np.prod([shape[i] for i in axes]))
+        if size == 1:
+            continue
+        rest = [i for i in range(4) if i not in axes]
+        out[name] = [[int(r) for r in line] for line in np.transpose(grid, rest + list(axes)).reshape(-1, size)]
+    return out
+
+
+def _axis_groups(shape: Tuple[int, ...], rank: int) -> dict:
+    """One subgroup per line of ``axis_lines``: every process creates every
+    group, in the same order (``new_group`` is collective), and keeps the
+    ones it is in."""
+    groups = {}
+    for name, lines in axis_lines(shape).items():
+        for ranks in lines:
+            pg = dist.new_group(ranks)
+            if rank in ranks:
+                groups[name] = AxisGroup(pg, ranks, ranks.index(rank), name)
+    return groups
+
+
 def make_mesh(shape: Sequence[int] = (-1, 1, 1, 1), sp_group=None) -> Mesh:
-    """Build the (dp, fsdp, tp, sp) mesh over the default group's processes,
-    or over ``sp_group`` (a ``LocalSpGroup``: n ranks in this process). Only
-    sp may exceed 1; sp = 1 is a ring of one."""
-    n = world_size() if sp_group is None else sp_group.size
-    shape = resolve_mesh_shape(shape, n)
-    over = [f"{a}={s}" for a, s in zip(MESH_AXES, shape) if a != AXIS_SP and s > 1]
-    if over:
-        raise NotImplementedError(
-            f"mesh {shape}: {', '.join(over)} is not ported yet (ROADMAP §A11: data, fully sharded and tensor "
-            "parallelism); the port shards the sequence over sp only, e.g. train.mesh [1, 1, 1, n]"
-        )
-    if sp_group is None:
-        sp_group = DistSpGroup() if shape[3] > 1 else LocalSpGroup(1)
-    return Mesh(shape, sp_group)
+    """Build the (dp, fsdp, tp, sp) mesh over the default group's processes
+    (every process calls it: the subgroups are made collectively), or over
+    ``sp_group`` (a ``LocalSpGroup``: n sp ranks in this process, every
+    other axis 1)."""
+    if sp_group is not None:
+        shape = resolve_mesh_shape(shape, sp_group.size)
+        if any(s > 1 for s in shape[:3]):
+            raise ValueError(f"mesh {shape}: a LocalSpGroup plays sp ranks in one process; dp, fsdp and tp "
+                             "need a process a rank")
+        return Mesh(shape, sp_group)
+    shape = resolve_mesh_shape(shape, world_size())
+    rank = process_rank()
+    coords = tuple(int(c) for c in np.unravel_index(rank, shape))
+    groups = _axis_groups(shape, rank) if world_size() > 1 else {}
+    if world_size() > 1:
+        groups["world"] = AxisGroup(dist.group.WORLD, range(world_size()), rank, "world")
+    sp = DistSpGroup(groups["sp"].pg) if shape[3] > 1 else LocalSpGroup(1)
+    return Mesh(shape, sp, coords, groups)
 
 
 def set_mesh(mesh: Optional[Mesh]):
@@ -145,10 +248,14 @@ def is_main_process() -> bool:
     return process_rank() == 0
 
 
-def barrier():
-    """Every process waits for the others (a no-op for one process)."""
+def barrier(name: str = "barrier"):
+    """Every process waits for the others (a no-op for one process),
+    guarded by the collective deadline."""
     if world_size() > 1:
-        dist.barrier()
+        from trlx_tpu_torch.resilience.distributed import collective_guard
+
+        with collective_guard(f"barrier:{name}"):
+            dist.barrier()
 
 
 def broadcast_host(value):
@@ -156,19 +263,29 @@ def broadcast_host(value):
     process): decisions and host results every rank must share."""
     if world_size() == 1:
         return value
+    from trlx_tpu_torch.resilience.distributed import collective_guard
+
     box = [value]
-    dist.broadcast_object_list(box, src=0)
+    with collective_guard("broadcast_host"):
+        dist.broadcast_object_list(box, src=0)
     return box[0]
 
 
-def allgather_host(x) -> np.ndarray:
+def allgather_host(x, group: Optional[AxisGroup] = None) -> np.ndarray:
     """Each process's host rows (a numpy array) → every process's rows,
-    concatenated along axis 0 in rank order (``np.asarray(x)`` for one
-    process)."""
-    if world_size() == 1:
+    concatenated along axis 0 in rank order (in ``group``'s order over its
+    ranks when given; ``np.asarray(x)`` for one process). Guarded by the
+    collective deadline (``resilience.distributed.collective_guard``)."""
+    if world_size() == 1 or (group is not None and group.size == 1):
         return np.asarray(x)
-    parts = [None] * world_size()
-    dist.all_gather_object(parts, np.asarray(x))
+    from trlx_tpu_torch.resilience.distributed import collective_guard
+
+    with collective_guard("allgather_host"):
+        if group is not None:
+            parts = all_gather_object(np.asarray(x), group)
+        else:
+            parts = [None] * world_size()
+            dist.all_gather_object(parts, np.asarray(x))
     return np.concatenate(parts, axis=0)
 
 
@@ -205,7 +322,7 @@ class LocalSpGroup:
 
 class DistSpGroup:
     """This process's one rank of an sp ring over a ``torch.distributed``
-    group (the default group: every process of the run)."""
+    group (the mesh's sp subgroup; the default group when none is given)."""
 
     def __init__(self, group=None):
         self.group = group if group is not None else dist.group.WORLD

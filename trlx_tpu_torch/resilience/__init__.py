@@ -2,9 +2,9 @@
 step's non-finite guard (``guard``), checkpoint hardening (``checkpoint``),
 the divergence watchdog with checkpoint rollback (``watchdog``; the
 trainer restores, decays the LR and resumes), the reward call's retry and
-timeout (``retry``), and the single-process fault drills (``faults``).
-Heartbeats, the collective guard and the multi-host and fleet fault kinds
-wait for the distributed stack."""
+timeout (``retry``), the fault drills (``faults``), and across processes
+the heartbeats, the collective guard and the consistency guard
+(``distributed``). The fleet's fault kinds wait for the fleet."""
 
 from trlx_tpu_torch.resilience.checkpoint import CheckpointError, corrupt_checkpoint, verify_checkpoint  # noqa: F401
 from trlx_tpu_torch.resilience.faults import FaultInjected, FaultPlan, poison_nan  # noqa: F401

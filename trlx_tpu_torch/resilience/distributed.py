@@ -1,0 +1,333 @@
+"""Multi-process resilience: heartbeats, the collective hang guard and the
+cross-rank consistency guard (the counterpart of
+``trlx_tpu.resilience.distributed``).
+
+A JAX process is a host; a port process is one card, and can die alone, so
+every check here counts per RANK:
+
+- **Heartbeats**: each rank's ``Heartbeat`` thread writes an atomic
+  ``heartbeats/rank_<r>.json`` (last step, phase, progress stamp) every
+  ``train.heartbeat_interval`` seconds. Progress is stamped by ``beat()``
+  from the train loop and the orchestrator, so a rank that is alive but
+  stuck (``written_t`` advancing, ``progress_t`` frozen) is told from one
+  that makes progress.
+- **Collective hang guard**: ``collective_guard(name)`` wraps every blocking
+  collective between processes: the host collectives of ``parallel.mesh``
+  (``allgather_host``, ``broadcast_host``, ``barrier``) and each train
+  step, whose tensor collectives block in the calling thread. One that
+  outlives ``train.collective_deadline`` seconds means a peer died or
+  wedged: the guard's timer prints a ``CollectiveTimeout`` naming the step
+  and the slowest rank (from the heartbeat files) and ends the process with
+  ``EXIT_COLLECTIVE_TIMEOUT`` (117), an exit every supervisor can restart.
+  A collective blocks its thread inside the backend, so no exception can be
+  raised into it: the abort comes from the timer thread. A backend error
+  inside an armed guard (gloo sees a dead peer's socket close at once) ends
+  the process the same way. The deadline must exceed a train step's time.
+- **Consistency guard**: ``host_fingerprint`` condenses a rank's view
+  (step counter, crc32 of its copy of a replicated parameter, a key crc)
+  into three ints; ``verify_fingerprints`` all-gathers and compares them
+  every ``train.desync_check_interval`` steps and raises the same
+  ``HostDesync`` on every rank, naming the ranks that differ from rank 0.
+- **Drills**: ``perturb_local_replicas`` skews one rank's copy of a
+  replicated parameter (``host_desync``); ``host_hang``, ``host_kill`` and
+  ``slow_host`` fire in the trainer (``resilience/faults.py``).
+"""
+
+import json
+import os
+import sys
+import threading
+import time
+import traceback
+import zlib
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from trlx_tpu_torch.resilience.checkpoint import atomic_write_text
+
+EXIT_COLLECTIVE_TIMEOUT = 117
+
+
+class CollectiveTimeout(RuntimeError):
+    """A collective between processes exceeded train.collective_deadline:
+    some rank died or wedged inside it. The message names the collective,
+    the step and the slowest rank (from the heartbeat files)."""
+
+
+class HostDesync(RuntimeError):
+    """Ranks disagree on the run state (step counter, replicated parameter
+    crc, key): training would go on with diverged replicas. The message
+    names the ranks and the component."""
+
+
+# ------------------------------------------------------------------ heartbeat
+
+
+class Heartbeat:
+    """A rank's liveness and progress file. ``beat(step, phase)`` stores
+    under a lock (no I/O); a daemon thread writes the latest beat to
+    ``<directory>/rank_<r>.json`` (atomically) every ``interval`` seconds."""
+
+    def __init__(self, directory: str, interval: float, rank: int = 0):
+        self.directory = directory
+        self.interval = float(interval)
+        self.rank = int(rank)
+        self._lock = threading.Lock()
+        self.step = 0
+        self.phase = "init"
+        self.progress_t = time.time()
+        self.progress_mono = time.monotonic()
+        self._stop = threading.Event()
+        self._thread = None
+
+    @property
+    def path(self) -> str:
+        return os.path.join(self.directory, f"rank_{self.rank}.json")
+
+    def beat(self, step: Optional[int] = None, phase: Optional[str] = None):
+        with self._lock:
+            if step is not None:
+                self.step = int(step)
+            if phase is not None:
+                self.phase = phase
+            self.progress_t = time.time()
+            self.progress_mono = time.monotonic()
+
+    def _write(self):
+        with self._lock:
+            payload = json.dumps({"rank": self.rank, "step": self.step, "phase": self.phase,
+                                  "progress_t": self.progress_t, "progress_mono": self.progress_mono,
+                                  "written_t": time.time(), "written_mono": time.monotonic()})
+        atomic_write_text(self.path, payload)
+
+    def start(self):
+        os.makedirs(self.directory, exist_ok=True)
+        self._write()
+        if self.interval <= 0:
+            return self
+
+        def run():
+            while not self._stop.wait(self.interval):
+                try:
+                    self._write()
+                except OSError:
+                    pass  # the heartbeat must never end the run it watches
+
+        self._thread = threading.Thread(target=run, name="trlx-heartbeat", daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self):
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=2 * self.interval + 1.0)
+            self._thread = None
+        try:
+            self._write()
+        except OSError:
+            pass
+
+
+def read_heartbeats(directory: str) -> Dict[int, dict]:
+    """Every rank's heartbeat record, by rank; unreadable files skipped."""
+    out = {}
+    if not os.path.isdir(directory):
+        return out
+    for fname in os.listdir(directory):
+        if not (fname.startswith("rank_") and fname.endswith(".json")):
+            continue
+        try:
+            with open(os.path.join(directory, fname)) as f:
+                rec = json.load(f)
+            out[int(rec["rank"])] = rec
+        except (OSError, ValueError, KeyError):
+            continue
+    return out
+
+
+def stall_report(directory: str, collective: str, now: Optional[float] = None) -> str:
+    """Name the slowest rank from the heartbeat files: among the ranks whose
+    phase is not inside the timed-out collective (the waiters are), the one
+    with the oldest progress stamp (then the lowest step); over every rank
+    when all look inside."""
+    now = time.time() if now is None else now
+    beats = read_heartbeats(directory)
+    if not beats:
+        return "no heartbeat files found — enable train.heartbeat_interval for rank-level diagnostics"
+    stragglers = {i: r for i, r in beats.items() if r.get("phase") != f"collective:{collective}"} or beats
+    culprit = min(stragglers.values(), key=lambda r: (r.get("progress_t", 0), r.get("step", 0)))
+    age = now - culprit.get("progress_t", now)
+    lines = ", ".join(f"rank {i}: step {r.get('step')} phase {r.get('phase')!r} "
+                      f"({now - r.get('progress_t', now):.1f}s since progress)" for i, r in sorted(beats.items()))
+    return (f"slowest rank: rank {culprit.get('rank')} (last progress at step {culprit.get('step')}, phase "
+            f"{culprit.get('phase')!r}, {age:.1f}s ago) — [{lines}]")
+
+
+# ----------------------------------------------------------- collective guard
+
+# Set by the trainer from train.*; deadline <= 0 leaves every guard a no-op.
+_CONFIG = {"deadline": 0.0, "heartbeat": None, "step_provider": None, "on_timeout": None}
+
+
+def configure(deadline: float = 0.0, heartbeat: Optional[Heartbeat] = None,
+              step_provider: Optional[Callable[[], int]] = None, on_timeout: Optional[Callable] = None):
+    """Arm (or disarm, deadline 0) the process-global collective guard."""
+    _CONFIG.update(deadline=float(deadline), heartbeat=heartbeat, step_provider=step_provider,
+                   on_timeout=on_timeout)
+
+
+def _default_on_timeout(exc: CollectiveTimeout):
+    """Print the diagnostic and end the process: ``os._exit``, since the
+    main thread is blocked inside the backend and would never unwind."""
+    print(f"[trlx_tpu_torch.resilience] FATAL: {type(exc).__name__}: {exc}", file=sys.stderr, flush=True)
+    traceback.print_stack(file=sys.stderr)
+    sys.stderr.flush()
+    os._exit(EXIT_COLLECTIVE_TIMEOUT)
+
+
+class collective_guard:
+    """A deadline around one blocking collective: ``with
+    collective_guard("allgather_host"): ...``. Past the deadline the timer
+    thread raises the alarm (default: diagnostic, then exit 117); so does a
+    backend error raised inside (``only_collectives`` False: a body that
+    also computes, where only ``torch.distributed.DistError`` counts). An
+    explicit ``deadline`` / ``on_timeout`` overrides the process-global
+    configuration (tests)."""
+
+    def __init__(self, name: str, deadline: Optional[float] = None, on_timeout: Optional[Callable] = None,
+                 only_collectives: bool = True):
+        self.name = name
+        self.only_collectives = only_collectives
+        self.deadline = _CONFIG["deadline"] if deadline is None else float(deadline)
+        self.on_timeout = on_timeout or _CONFIG["on_timeout"] or _default_on_timeout
+        self._timer = None
+
+    def _fire(self, cause: Optional[BaseException] = None):
+        step = None
+        provider = _CONFIG["step_provider"]
+        if provider is not None:
+            try:
+                step = provider()
+            except Exception:  # noqa: BLE001 — the abort path must still abort
+                step = None
+        try:
+            from trlx_tpu_torch.observability import anomaly as obs_anomaly
+            from trlx_tpu_torch.observability import spans as obs_spans
+
+            obs_spans.instant("collective_timeout", collective=self.name, deadline_s=self.deadline)
+            obs_anomaly.emergency_capture("collective_timeout", detail={"collective": self.name})
+        except Exception:  # noqa: BLE001 — the abort path must still abort
+            pass
+        hb = _CONFIG["heartbeat"]
+        if hb is not None:
+            try:
+                hb._write()  # this rank's own file shows it inside the collective now
+            except OSError:
+                pass
+        detail = (stall_report(hb.directory, self.name) if hb is not None
+                  else "no heartbeat configured — set train.heartbeat_interval to name the slow rank")
+        what = (f"exceeded train.collective_deadline={self.deadline:g}s" if cause is None else
+                f"failed ({type(cause).__name__}: {str(cause).splitlines()[0][:200]}) under "
+                f"train.collective_deadline={self.deadline:g}s")
+        self.on_timeout(CollectiveTimeout(
+            f"collective {self.name!r} {what} at step {step} — a peer rank died or hung; {detail}. Aborting so the "
+            "supervisor can restart and resume from the last coordinated checkpoint."))
+
+    def __enter__(self):
+        if self.deadline <= 0:
+            return self
+        hb = _CONFIG["heartbeat"]
+        if hb is not None:
+            hb.beat(phase=f"collective:{self.name}")
+        self._timer = threading.Timer(self.deadline, self._fire)
+        self._timer.daemon = True
+        self._timer.start()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if self._timer is not None:
+            self._timer.cancel()
+            self._timer = None
+            if isinstance(exc, dist.DistError) or (self.only_collectives and isinstance(exc, RuntimeError)):
+                # gloo notices a dead peer's closed socket at once, where NCCL
+                # would wait: the same diagnostic and exit as a deadline. A
+                # guard whose body also computes (a train step) converts only
+                # the backend's own error class.
+                self._fire(cause=exc)
+        return False
+
+
+# ---------------------------------------------------------- consistency guard
+
+
+def _crc_of(t) -> int:
+    arr = t.detach().cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
+    return zlib.crc32(np.ascontiguousarray(arr).tobytes())
+
+
+def replicated_parameter(module: torch.nn.Module):
+    """The first float parameter every rank holds whole (a layer norm's
+    scale under the rules; anything on a pure-dp mesh): its copies must be
+    bit-equal across ranks. None when every float parameter is split."""
+    from trlx_tpu_torch.models.lm import placement_of
+
+    for name, p in module.named_parameters():
+        if not p.is_floating_point():
+            continue
+        pl = placement_of(module, name)
+        if pl is None or (pl.fsdp_dim is None and pl.tp_dim is None):
+            return p
+    return None
+
+
+def host_fingerprint(step: int, module: torch.nn.Module, key: int = 0) -> np.ndarray:
+    """This rank's view of the run as int64[3]: [step, crc32 of its copy of
+    the first replicated parameter, ``key``'s crc32] (the port's generators
+    are pure functions of the seed, so the key is the seed)."""
+    p = replicated_parameter(module)
+    return np.asarray([int(step), 0 if p is None else _crc_of(p), zlib.crc32(str(int(key)).encode())],
+                      dtype=np.int64)
+
+
+_FINGERPRINT_FIELDS = ("step counter", "param replica crc32", "rng key crc32")
+
+
+def compare_fingerprints(gathered: np.ndarray) -> None:
+    """Raise HostDesync when any rank's row of the all-gathered (ranks, 3)
+    matrix differs from rank 0's. Every rank holds the same matrix, so every
+    rank raises the same error."""
+    gathered = np.asarray(gathered).reshape(-1, len(_FINGERPRINT_FIELDS))
+    ref = gathered[0]
+    problems = []
+    for r in range(1, gathered.shape[0]):
+        bad = [f"{_FINGERPRINT_FIELDS[j]} {gathered[r, j]} != {ref[j]}" for j in range(gathered.shape[1])
+               if gathered[r, j] != ref[j]]
+        if bad:
+            problems.append(f"rank {r}: " + ", ".join(bad))
+    if problems:
+        raise HostDesync("cross-rank consistency check failed vs rank 0 — " + "; ".join(problems)
+                         + ". Replicas have silently diverged (a flaky card or host, a torn restore, or "
+                         "non-deterministic host code); restart every rank from the last coordinated checkpoint.")
+
+
+def verify_fingerprints(fingerprint: np.ndarray) -> None:
+    """All-gather this rank's fingerprint (guarded) and compare; a single
+    process is trivially consistent."""
+    from trlx_tpu_torch.parallel.mesh import allgather_host, world_size
+
+    if world_size() == 1:
+        return
+    compare_fingerprints(allgather_host(np.asarray(fingerprint)[None, :]))
+
+
+@torch.no_grad()
+def perturb_local_replicas(module: torch.nn.Module, scale: float = 1e-3):
+    """Skew THIS rank's copy of the first replicated parameter in place
+    (the ``host_desync`` drill); no collective runs, the other ranks keep
+    theirs."""
+    p = replicated_parameter(module)
+    if p is not None:
+        p.mul_(1.0 + scale)

@@ -7,7 +7,7 @@ A ``FaultPlan`` is parsed from ``train.fault_plan`` (or the
 list of ``kind@tick`` entries, e.g.
 ``TRLX_TPU_FAULTS="nan_grad@3,reward_exc@2,ckpt_corrupt@1,sigterm@5"``.
 Each entry fires exactly once when its site reaches the tick. The kinds
-this package fires (``SINGLE_PROCESS_KINDS``):
+this package fires in one process (``SINGLE_PROCESS_KINDS``):
 
 - ``nan_grad@N``: the Nth train step's batch is NaN-poisoned (its float
   tensors; token ids stay) → the non-finite guard skips the update;
@@ -24,10 +24,23 @@ this package fires (``SINGLE_PROCESS_KINDS``):
   step N on, the health monitor OBSERVES shifted rewards / scaled entropy
   (training never sees them) → the health detectors' WARN → CRIT path.
 
+The multi-process kinds (``MULTI_PROCESS_KINDS``) fire per PROCESS, each
+rank reading its own ``TRLX_TPU_FAULTS``, after the train step N:
+
+- ``host_hang@N``: this rank sleeps ``TRLX_TPU_HANG_SECONDS`` (default
+  3600), its heartbeat thread still writing → the others' collective guard
+  ends them with ``CollectiveTimeout`` (exit 117), naming this rank;
+- ``host_kill@N``: this rank dies at once (``os._exit(1)``) → the same, and
+  torn-file tolerance on resume;
+- ``slow_host@N``: this rank stalls ``TRLX_TPU_SLOW_SECONDS`` (default 2)
+  → a straggler in the heartbeat files, under the deadline;
+- ``host_desync@N``: this rank's copy of a replicated parameter is skewed
+  → the consistency guard's ``HostDesync`` on every rank.
+
 The JAX package's other kinds parse here too, but fire only where their
-subsystems run: ``nan_layer`` (the numerics observatory), the multi-host
-kinds, and the fleet and elastic-fleet kinds; the trainer refuses a plan
-that names one (``UNFIRED_KINDS``).
+subsystems run: ``nan_layer`` (the numerics observatory) and the fleet and
+elastic-fleet kinds; the trainer refuses a plan that names one
+(``UNFIRED_KINDS``).
 """
 
 import dataclasses
@@ -40,12 +53,9 @@ import torch
 
 SINGLE_PROCESS_KINDS = ("nan_grad", "reward_exc", "reward_hang", "ckpt_corrupt", "sigterm", "slow_step",
                         "reward_drift", "entropy_collapse")
+MULTI_PROCESS_KINDS = ("host_hang", "host_kill", "slow_host", "host_desync")
 UNFIRED_KINDS = {
     "nan_layer": "the numerics observatory (graftnum, ROADMAP §A13)",
-    "host_hang": "multi-host resilience (ROADMAP §A11)",
-    "host_kill": "multi-host resilience (ROADMAP §A11)",
-    "slow_host": "multi-host resilience (ROADMAP §A11)",
-    "host_desync": "multi-host resilience (ROADMAP §A11)",
     "rollout_host_kill": "the fleet (ROADMAP §A12)",
     "episode_stream_stall": "the fleet (ROADMAP §A12)",
     "broadcast_timeout": "the fleet (ROADMAP §A12)",
@@ -56,7 +66,7 @@ UNFIRED_KINDS = {
     "slow_worker_reclaim": "the elastic fleet (ROADMAP §A12)",
     "worker_join_mid_run": "the elastic fleet (ROADMAP §A12)",
 }
-KINDS = SINGLE_PROCESS_KINDS + tuple(UNFIRED_KINDS)
+KINDS = SINGLE_PROCESS_KINDS + MULTI_PROCESS_KINDS + tuple(UNFIRED_KINDS)
 
 _ENTRY_RE = re.compile(r"^([a-z_]+)@(\d+)$")
 

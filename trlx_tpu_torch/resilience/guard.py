@@ -28,15 +28,23 @@ def all_finite(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.stack(checks).all()
 
 
-def guarded_update(optimizer, params, grads, loss: torch.Tensor, bad_steps: int):
+def guarded_update(optimizer, params, grads, loss: torch.Tensor, bad_steps: int, group=None):
     """Apply ``optimizer.step(params, grads)`` only when the loss and the
     gradients are finite. Returns ``(bad_steps, finite)``: the consecutive
     skip count (0 after an applied step) and whether the step was applied.
+    With ``group`` (every process of a sharded or data-parallel mesh, each
+    holding pieces) the flag is the minimum over it, so every rank applies
+    or skips together.
 
     The finite flag is read on the host once per step: a branch in Python
     is the plain way to leave the state untouched, and the device queue
     drains at each step in exchange."""
-    finite = bool(all_finite([loss, *grads]).item())
+    flag = all_finite([loss, *grads])
+    if group is not None and group.size > 1:
+        from trlx_tpu_torch.parallel.collectives import all_reduce
+
+        flag = all_reduce(flag.float(), group, op="min") > 0
+    finite = bool(flag.item())
     if not finite:
         return bad_steps + 1, False
     optimizer.step(params, grads)

@@ -6,13 +6,21 @@ A trainer owns one device, the model and its parameters, the seeded
 generators, the optimizer state (its step counts and moments), the
 consecutive-skip count of the non-finite guard, the tokenizer, and the host
 hooks (``reward_fn``, ``metric_fn``, ``logit_mask``). It builds its mesh from
-``train.mesh`` (``parallel.mesh``): only the sp axis may exceed 1 (ring
-attention; every other axis is refused), over the processes ``torchrun``
-starts (one a card, each holding the full batch and the same parameters), or
-over a prebuilt mesh (``mesh=``, e.g. a ``LocalSpGroup`` that plays every
-sp rank in this process). The main process alone writes the tracker's
-records, checkpoints and exports, with a barrier after each, and alone calls
-``reward_fn`` and ``metric_fn``, whose results it broadcasts. With
+``train.mesh`` (``parallel.mesh``) over the processes ``torchrun`` starts (one
+a card), or over a prebuilt mesh (``mesh=``, e.g. a ``LocalSpGroup`` that
+plays every sp rank in this process). fsdp and tp split the parameters, the
+optimizer's moments and the gradients by ``parallel.sharding``'s rules
+(``models.lm.place_model``); the data axes (dp × fsdp) split each batch, whose
+rows are a node's (a node is a JAX host) and whose reductions are global
+(``ops.modeling.loss_group``); gradients are summed over the data ranks in
+f32 (``reduce_gradients``) and the clip reads the whole gradient's norm. The
+main process alone writes the tracker's records and exports, with a barrier
+after each, and alone calls ``reward_fn`` and ``metric_fn``, whose results it
+broadcasts. Across processes: heartbeats (``train.heartbeat_interval``), the
+collective deadline (``train.collective_deadline``, exit 117), the
+consistency guard (``train.desync_check_interval``), the preemption
+agreement (``train.preempt_check_interval``) and the host fault drills
+(``resilience.distributed``). With
 ``model.tokenizer_path`` the trainer runs in text mode (``_build_tokenizer``:
 ``transformers.AutoTokenizer``, imported when called, or any object with the
 same interface a subclass returns): prompts are strings, ``decode`` gives
@@ -28,7 +36,9 @@ included), the frozen extras (PPO's reference branch, ILQL's target Q
 heads), the optimizer's moments by parameter name with its applied-update
 count, and the step with the guard's skip count; beside it sit
 ``state_<step>.host.json`` (host state), ``state_<step>.manifest.json``
-(every file's size and crc32) and, written last, ``latest.txt``.
+(every file's size and crc32) and, written last, ``latest.txt``. A sharded
+mesh writes each distinct piece once (``params.f<i>t<j>.pt``, ...) beside
+``layout.json``; ``load`` reassembles either form onto the current mesh.
 
 Resilience beyond the guard: each step's (loss, nonfinite, bad_steps) is
 buffered and flushed at every log or eval boundary and every
@@ -54,6 +64,7 @@ import sys
 import threading
 import time
 import warnings
+import weakref
 from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
@@ -63,11 +74,14 @@ from trlx_tpu_torch.data.configs import TRLConfig
 from trlx_tpu_torch.data.method_configs import PPOConfig
 from trlx_tpu_torch.device import resolve_device
 from trlx_tpu_torch.models.hf_export import export_hf
-from trlx_tpu_torch.models.lm import LMConfig, refresh_weight_copies
+from trlx_tpu_torch.models.lm import LMConfig, gather_tensor, placement_of, refresh_weight_copies, shard_tensor
+from trlx_tpu_torch.ops.modeling import set_loss_group
+from trlx_tpu_torch.parallel import collectives as coll
 from trlx_tpu_torch.parallel.mesh import (
-    AXIS_SP, allgather_host, barrier, broadcast_host, init_distributed, is_main_process, make_mesh, resolve_mesh_shape,
-    process_rank, set_mesh, world_size,
+    AXIS_DP, AXIS_FSDP, AXIS_SP, AXIS_TP, allgather_host, barrier, broadcast_host, init_distributed, is_main_process,
+    make_mesh, node_count, resolve_mesh_shape, process_rank, set_mesh, world_size,
 )
+from trlx_tpu_torch.resilience import distributed as dist_res
 from trlx_tpu_torch.observability import env_flag
 from trlx_tpu_torch.observability import spans as obs_spans
 from trlx_tpu_torch.observability.anomaly import AnomalyDetector, IncidentCapture, register_emergency
@@ -108,9 +122,39 @@ def lr_schedule(train_cfg) -> Callable[[int], float]:
     return schedule
 
 
-def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in f32 (0-dim)."""
-    return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
+def global_norm(tensors: List[torch.Tensor], weights: Optional[List[float]] = None, group=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, in f32 (0-dim). On a
+    sharded mesh each tensor is this rank's piece: its sum of squares
+    counts ``weights[i]`` (one over the ranks holding the same piece) and
+    the sum runs over ``group`` (every process), so the norm is that of
+    every parameter's whole gradient."""
+    if weights is None:
+        return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
+    sq = sum(t.float().pow(2).sum() * w for t, w in zip(tensors, weights))
+    return torch.sqrt(coll.all_reduce(sq, group))
+
+
+def reduce_gradients(model, mesh, names: List[str], grads: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Sum each named parameter's gradient over the data ranks, in f32: a
+    piece split over fsdp arrives reduce-scattered over fsdp already (the
+    backward of its gathered copy) and is summed over dp; every other one
+    over dp × fsdp. One all-reduce per group over the flattened gradients;
+    every sp and tp rank of a data rank holds the same sum."""
+    if mesh.data_size == 1:
+        return grads
+    buckets = {}
+    for i, name in enumerate(names):
+        pl = placement_of(model, name)
+        buckets.setdefault("dp" if pl is not None and pl.fsdp_dim is not None else "data", []).append(i)
+    out = list(grads)
+    for gname, idx in buckets.items():
+        group = mesh.group(gname)
+        if group.size == 1:
+            continue
+        flat = coll.all_reduce(torch.cat([grads[i].float().reshape(-1) for i in idx]), group)
+        for i, part in zip(idx, flat.split([grads[i].numel() for i in idx])):
+            out[i] = part.view_as(grads[i]).to(grads[i].dtype)
+    return out
 
 
 class ClippedAdamW:
@@ -126,7 +170,11 @@ class ClippedAdamW:
       skipped step does not advance it).
 
     Moments are kept in the parameters' dtype (f32 masters) and updated in
-    place; ``step`` clips the gradients it is given in place. ``names``
+    place; on a sharded mesh parameters, gradients and moments are this
+    rank's pieces, the clip reads the norm of the whole gradient
+    (``norm_fn``) and each rank updates its pieces (ZeRO: the moments shard
+    like the parameters). ``step`` clips the gradients it is given in
+    place. ``names``
     (the parameters' names) key the moments in ``state_dict``; an optimizer
     built without them steps, but has no state to save or load."""
 
@@ -141,6 +189,7 @@ class ClippedAdamW:
         if self.names is not None and len(self.names) != len(params):
             raise ValueError(f"{len(self.names)} names for {len(params)} parameters")
         self.count = 0  # applied updates: Adam's bias-correction count and the schedule's
+        self.norm_fn = global_norm  # a sharded mesh's trainer sets the global one
 
     def _require_names(self):
         if self.names is None:
@@ -178,7 +227,7 @@ class ClippedAdamW:
 
     @torch.no_grad()
     def step(self, params: List[torch.Tensor], grads: List[torch.Tensor]):
-        norm = global_norm(grads)
+        norm = self.norm_fn(grads)
         clip = norm >= self.max_norm
         for g in grads:  # clipped in place: no second copy of every gradient at once
             g.copy_(torch.where(clip, g / norm * self.max_norm, g))
@@ -236,13 +285,7 @@ def refuse_unported(config: TRLConfig):
     ignore them, as the JAX package's do."""
     m, t = config.method, config.train
     unported = {
-        # the mesh beyond sequence parallelism
-        "train.mesh dp/fsdp/tp > 1 (ROADMAP §A11)": any(int(a) > 1 for a in t.mesh[:3]),
-        # resilience across processes
-        "train.heartbeat_interval": t.heartbeat_interval > 0,
-        "train.collective_deadline": t.collective_deadline > 0,
-        "train.desync_check_interval": t.desync_check_interval > 0,
-        "train.preempt_check_interval": t.preempt_check_interval > 0,
+        # the fleet
         "train.fleet_role": bool(t.fleet_role),
         "train.fleet_dir": bool(t.fleet_dir),
         # profiling and observability beyond the single-process core
@@ -258,7 +301,7 @@ def refuse_unported(config: TRLConfig):
         unported[f"{var} ({feature})"] = env_flag(var)
     kinds = FaultPlan.from_env_or_config(t.fault_plan).unfired_kinds()
     unported[f"train.fault_plan / TRLX_TPU_FAULTS kinds {', '.join(kinds)} (fired only by subsystems not ported: "
-             "the numerics observatory, multi-host resilience and the fleet)"] = bool(kinds)
+             "the numerics observatory and the fleet)"] = bool(kinds)
     if isinstance(m, PPOConfig):
         unported.update({
             "method.fleet_disaggregate": m.fleet_disaggregate,
@@ -282,7 +325,28 @@ class BaseTrainer(BaseRLTrainer):
             raise ValueError(f"the mesh {mesh} is not train.mesh {tuple(config.train.mesh)}")
         self.mesh = mesh
         set_mesh(mesh)
-        barrier()
+        # Multi-process resilience: the heartbeat file of this rank, and the
+        # deadline of every guarded collective (train.collective_deadline).
+        t = config.train
+        self.heartbeat = None
+        if t.heartbeat_interval > 0:
+            self.heartbeat = dist_res.Heartbeat(os.path.join(os.path.abspath(t.checkpoint_dir), "heartbeats"),
+                                                t.heartbeat_interval, process_rank()).start()
+        # A weak reference: the process-global guard must not keep a finished
+        # trainer (and its device memory) alive.
+        me = weakref.ref(self)
+        dist_res.configure(deadline=t.collective_deadline, heartbeat=self.heartbeat,
+                           step_provider=lambda: getattr(me(), "iter_count", 0))
+        barrier("init")
+        # The batch reductions (whitening, loss means, statistics) run over
+        # the data ranks.
+        set_loss_group(mesh.group("data") if mesh.data_size > 1 else None)
+        # Rows are per node (a JAX host): they must split evenly over the
+        # node's data ranks.
+        self._validate_data_sharding(t.batch_size, "train.batch_size")
+        chunk = getattr(config.method, "chunk_size", None)
+        if chunk is not None:
+            self._validate_data_sharding(chunk, "method.chunk_size (rollout chunk)")
         self.tokenizer = self._build_tokenizer(config.model.tokenizer_path)
         self.reward_fn = kwargs.pop("reward_fn", None)
         self.metric_fn = kwargs.pop("metric_fn", None)
@@ -298,7 +362,6 @@ class BaseTrainer(BaseRLTrainer):
         # scale (saved under the JAX package's names); the fault plan; the
         # per-step (loss, nonfinite, bad_steps) scalars buffered until the
         # next flush.
-        t = config.train
         self.fault_plan = FaultPlan.from_env_or_config(t.fault_plan)
         self._pending_save = None
         self._save_count = 0
@@ -379,10 +442,48 @@ class BaseTrainer(BaseRLTrainer):
         guard's consecutive skips."""
         named = [(n, p) for n, p in self.model.named_parameters() if p.requires_grad]
         self.trainable = [p for _, p in named]
+        self.trainable_names = [n for n, _ in named]
         self.optimizer, self.schedule = build_optimizer(self._scaled_train_cfg(), self.trainable,
                                                         [n for n, _ in named])
+        if self._distributed_grads():
+            self.optimizer.norm_fn = self.grad_norm
         self.step = 0
         self.bad_steps = 0
+
+    def _distributed_grads(self) -> bool:
+        """Gradients need a reduction across processes: a mesh whose data
+        axes or parameter splits exceed 1 (every sp rank of an unsplit mesh
+        holds the whole gradient already)."""
+        return self.mesh.data_size > 1 or self.mesh.sharded
+
+    def _piece_weights(self) -> List[float]:
+        """Per trainable parameter, one over the processes that hold the
+        same piece of its gradient after ``reduce_gradients``."""
+        if getattr(self, "_norm_weights", None) is None:
+            shape = self.mesh.shape
+            out = []
+            for name in self.trainable_names:
+                pl = placement_of(self.model, name)
+                rep = shape[AXIS_DP] * shape[AXIS_SP]
+                rep *= shape[AXIS_FSDP] if pl is None or pl.fsdp_dim is None else 1
+                rep *= shape[AXIS_TP] if pl is None or pl.tp_dim is None else 1
+                out.append(1.0 / rep)
+            self._norm_weights = out
+        return self._norm_weights
+
+    def grad_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """The global norm of the whole gradient (``global_norm`` over every
+        process's pieces)."""
+        if not self._distributed_grads():
+            return global_norm(grads)
+        return global_norm(grads, self._piece_weights(), self.mesh.group("world"))
+
+    def reduce_gradients(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The trainable gradients summed over the data ranks
+        (``reduce_gradients``)."""
+        if not self._distributed_grads():
+            return grads
+        return reduce_gradients(self.model, self.mesh, self.trainable_names, grads)
 
     def _scaled_train_cfg(self):
         """The train config with the watchdog's LR decay folded into the
@@ -401,12 +502,79 @@ class BaseTrainer(BaseRLTrainer):
 
     def finalize_lm_config(self, lm_cfg: LMConfig) -> LMConfig:
         """The mesh's settings the architecture needs: sp > 1 turns on ring
-        attention. The JAX package also switches a sharded mesh's embedding
-        to a one-hot matmul (``onehot_embed``) for XLA's SPMD partitioner;
-        the port keeps the gather, which gives the same numbers, since every
-        rank holds the whole table."""
-        sp = self.mesh.shape[AXIS_SP]
-        return lm_cfg.replace(sp_size=sp) if sp > 1 else lm_cfg
+        attention; fsdp and tp above 1 split the parameters by
+        ``parallel.sharding``'s rules (``models.lm.place_model``). The JAX
+        package also switches a sharded mesh's embedding to a one-hot matmul
+        (``onehot_embed``) for XLA's SPMD partitioner; the port looks up the
+        rows each tp rank owns and sums over tp, which gives the same
+        numbers."""
+        shape = self.mesh.shape
+        if shape[AXIS_SP] > 1:
+            lm_cfg = lm_cfg.replace(sp_size=shape[AXIS_SP])
+        return lm_cfg.with_mesh(tp=shape[AXIS_TP], fsdp=shape[AXIS_FSDP]) if self.mesh.sharded else lm_cfg
+
+    def _validate_data_sharding(self, rows_per_node: int, name: str):
+        """Rows are per node (the JAX package's per-process rows: a node is
+        one JAX host) and split evenly over the node's data ranks; each node
+        holds whole tp × sp groups."""
+        mesh, nodes = self.mesh, node_count()
+        per_node_ranks = world_size() // nodes
+        inner = mesh.shape[AXIS_TP] * mesh.shape[AXIS_SP]
+        if world_size() > 1 and (per_node_ranks % inner or mesh.data_size % nodes):
+            raise ValueError(f"{nodes} node(s) of {per_node_ranks} ranks cannot hold whole tp x sp groups of "
+                             f"{inner} on the mesh {mesh.shape}")
+        data = mesh.data_size // nodes
+        if rows_per_node % data:
+            raise ValueError(
+                f"{name}={rows_per_node} rows per node do not divide over the node's {data} data rank(s) of the "
+                f"mesh {mesh.shape} — pick a size that shards evenly")
+
+    def node_rows(self, n: int) -> slice:
+        """This data rank's rows of a node's ``n`` (dp slowest, then fsdp):
+        every tp and sp rank of a data rank holds the same rows."""
+        per = self.mesh.data_size // node_count()
+        b = n // per
+        i = self.mesh.data_index % per
+        return slice(i * b, (i + 1) * b)
+
+    def sample_rows(self, n_local: int):
+        """(first row, node rows) of this data rank's ``n_local`` rows: the
+        sampler draws the node's noise and keeps its rows, so a rank samples
+        the tokens a single process would (None on one data rank)."""
+        if self.mesh.data_size == 1:
+            return None
+        per = self.mesh.data_size // node_count()
+        return ((self.mesh.data_index % per) * n_local, n_local * per)
+
+    def local_rows(self, x):
+        """This data rank's rows of a node's host array (or tensor)."""
+        if self.mesh.data_size == 1 or x is None:
+            return x
+        return x[self.node_rows(x.shape[0])]
+
+    def gather_rows(self, x, every_node: bool = False) -> np.ndarray:
+        """Every data rank's host rows of this node (or, ``every_node``, of
+        every node, node by node), in row order: the inverse of
+        ``local_rows``, a collective over the data ranks."""
+        if self.mesh.data_size == 1:
+            return np.asarray(x)
+        rows = allgather_host(np.asarray(x), self.mesh.group("data"))
+        if every_node or node_count() == 1:
+            return rows
+        per = self.mesh.data_size // node_count()
+        b = np.asarray(x).shape[0]
+        first = (self.mesh.data_index // per) * per * b
+        return rows[first:first + per * b]
+
+    def node_slice(self, rows_every_node: np.ndarray) -> np.ndarray:
+        """This node's rows of a ``gather_rows(..., every_node=True)``."""
+        n = node_count()
+        if n == 1:
+            return rows_every_node
+        b = rows_every_node.shape[0] // n
+        per = self.mesh.data_size // n
+        first = (self.mesh.data_index // per) * b
+        return rows_every_node[first:first + b]
 
     @property
     def tracker(self) -> Tracker:
@@ -448,12 +616,13 @@ class BaseTrainer(BaseRLTrainer):
         return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x, dtype=dtype, device=self.device)
 
     def put_batch(self, batch):
-        """A batch dataclass of host arrays → the same dataclass of device
-        tensors (the one place a train batch crosses to the device); the
-        host-only ``extras`` stay behind."""
+        """A batch dataclass of a node's host arrays → the same dataclass of
+        this data rank's rows as device tensors (the one place a train batch
+        crosses to the device); the host-only ``extras`` stay behind."""
         fields = {f.name: getattr(batch, f.name) for f in dataclasses.fields(batch)}
         return dataclasses.replace(
-            batch, **{k: (None if k == "extras" or v is None else self.put(v)) for k, v in fields.items()}
+            batch, **{k: (None if k == "extras" or v is None else self.put(self.local_rows(v)))
+                      for k, v in fields.items()}
         )
 
     @staticmethod
@@ -543,15 +712,23 @@ class BaseTrainer(BaseRLTrainer):
         if missing or extra:
             raise KeyError(f"load_params: missing {missing[:4]}, unexpected {extra[:4]}")
         for name, t in params.items():
-            own[name].copy_(torch.as_tensor(t))
+            own[name].copy_(shard_tensor(self.model, name, torch.as_tensor(t)))
         self._saved = None
         if extras is None:
             self.extras = self.make_extras()
         else:
             self.extras = {
-                n: torch.as_tensor(t).to(device=own[n].device, dtype=own[n].dtype).clone()
+                n: shard_tensor(self.model, n, torch.as_tensor(t)).to(device=own[n].device, dtype=own[n].dtype).clone()
                 for n, t in extras.items()
             }
+
+    def full_params(self, tensors: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+        """The whole of every named parameter (or of ``tensors``, by
+        parameter name: the extras, the moments), gathered from every rank's
+        piece: a collective on a sharded mesh, every rank calls it."""
+        tensors = dict(self.model.named_parameters()) if tensors is None else tensors
+        with torch.no_grad():
+            return {n: gather_tensor(self.model, n, t.detach()) for n, t in tensors.items()}
 
     def build_train_step(self):
         """Set ``self._loss_fn(batch) -> (loss, stats)`` for this trainer's
@@ -569,15 +746,19 @@ class BaseTrainer(BaseRLTrainer):
         params = self.trainable
         for p in params:
             p.grad = None
-        loss, stats = self._loss_fn(batch)
-        loss.backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
-        for p in params:
-            p.grad = None
+        with dist_res.collective_guard("train_step", only_collectives=False):
+            loss, stats = self._loss_fn(batch)
+            loss.backward()
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+            for p in params:
+                p.grad = None
+            grads = self.reduce_gradients(grads)
         stats = dict(stats)
-        stats["grad_norm"] = global_norm(grads)
+        stats["grad_norm"] = self.grad_norm(grads)
         if self.config.train.nonfinite_guard:
-            self.bad_steps, applied = guarded_update(self.optimizer, params, grads, loss.detach(), self.bad_steps)
+            group = self.mesh.group("world") if self._distributed_grads() else None
+            self.bad_steps, applied = guarded_update(self.optimizer, params, grads, loss.detach(), self.bad_steps,
+                                                     group=group)
             stats["resilience/nonfinite"] = torch.tensor(0.0 if applied else 1.0)
             stats["resilience/bad_steps"] = torch.tensor(float(self.bad_steps))
         else:
@@ -613,10 +794,13 @@ class BaseTrainer(BaseRLTrainer):
         use_rm = self.reward_fn is None and getattr(self, "has_reward_model", False)
         t0 = time.time()
         for i, (batch, n_valid) in enumerate(self.eval_dataloader.iter_with_valid()):
-            tokens, mask = self.eval_generate(batch["input_ids"], batch["attention_mask"], i)
+            # Each data rank samples its rows of the node's batch; the rows
+            # are gathered back in order before anything is scored.
+            tokens, mask = self.eval_generate(self.local_rows(batch["input_ids"]),
+                                              self.local_rows(batch["attention_mask"]), i)
             if use_rm:
-                rm_scores.append(self.to_host(self.rm_eval_scores(tokens, mask))[:n_valid])
-            t, m = self.to_host((tokens, mask))
+                rm_scores.append(self.gather_rows(self.to_host(self.rm_eval_scores(tokens, mask)))[:n_valid])
+            t, m = (self.gather_rows(a) for a in self.to_host((tokens, mask)))
             all_texts.extend(self.decode(t[:n_valid], m[:n_valid]))
         stats["generate_time"] = time.time() - t0
 
@@ -723,12 +907,39 @@ class BaseTrainer(BaseRLTrainer):
                           "resilience/lr_scale": float(self._lr_scale)}, step=self.iter_count)
 
     def _fire_host_faults(self):
-        """The host-side drill of a step: ``slow_step@N`` stalls
-        ``TRLX_TPU_SLOW_STEP_SECONDS`` (default 1) between step N's dispatch
-        and its log-boundary sync, so the measured step time trips the
-        anomaly detector."""
-        if self.fault_plan and self.fault_plan.fire("slow_step", self.iter_count):
+        """The host-side drills of a step, each rank reading its own plan:
+        ``slow_step@N`` stalls ``TRLX_TPU_SLOW_STEP_SECONDS`` (default 1)
+        between step N's dispatch and its log-boundary sync, so the measured
+        step time trips the anomaly detector; ``slow_host@N`` stalls
+        ``TRLX_TPU_SLOW_SECONDS`` (default 2), a straggler under the
+        deadline; ``host_desync@N`` skews this rank's copy of a replicated
+        parameter (no collective) for the consistency guard; ``host_hang@N``
+        sleeps ``TRLX_TPU_HANG_SECONDS`` (default 3600) with the heartbeat
+        thread still writing, for the peers' collective guard; ``host_kill@N``
+        ends the process at once (``os._exit(1)``)."""
+        plan, step = self.fault_plan, self.iter_count
+        if not plan:
+            return
+        if plan.fire("slow_step", step):
             time.sleep(float(os.environ.get("TRLX_TPU_SLOW_STEP_SECONDS", "1")))
+        if plan.fire("slow_host", step):
+            time.sleep(float(os.environ.get("TRLX_TPU_SLOW_SECONDS", "2")))
+        if plan.fire("host_desync", step):
+            dist_res.perturb_local_replicas(self.model)
+        if plan.fire("host_hang", step):
+            if self.heartbeat is not None:
+                self.heartbeat.beat(step=step, phase="fault:host_hang")
+            time.sleep(float(os.environ.get("TRLX_TPU_HANG_SECONDS", "3600")))
+        if plan.fire("host_kill", step):
+            os._exit(1)
+
+    def _check_desync(self):
+        """The consistency guard: all-gather and compare every rank's
+        [step, replicated-parameter crc32, key crc32] fingerprint; every rank
+        sees the same matrix and raises the same ``HostDesync``."""
+        if world_size() == 1:
+            return
+        dist_res.verify_fingerprints(dist_res.host_fingerprint(self.iter_count, self.model, self.config.train.seed))
 
     # ----------------------------------------------------------------- learn
 
@@ -774,6 +985,9 @@ class BaseTrainer(BaseRLTrainer):
             self._close_batch_feed()
             self._shutdown_experience_pipeline()
             self._finalize_pending_save()
+            if self.heartbeat is not None:
+                self.heartbeat.beat(step=self.iter_count, phase="exited")
+                self.heartbeat.stop()
             if self._metrics_exporter is not None:
                 # Last: it serves the final gauges right up to teardown.
                 self._metrics_exporter.close()
@@ -833,6 +1047,8 @@ class BaseTrainer(BaseRLTrainer):
                 train_t0 = time.time()
                 phase_exclude_s = 0.0  # eval wall inside the train window
                 for _ in range(self.n_updates_per_batch):
+                    if self.heartbeat is not None:
+                        self.heartbeat.beat(step=self.iter_count, phase="train")
                     forward_t0 = time.time()
                     step_batch = device_batch
                     if self.fault_plan and self.fault_plan.fire("nan_grad", self.iter_count + 1):
@@ -851,6 +1067,11 @@ class BaseTrainer(BaseRLTrainer):
                     if self.fault_plan and self.fault_plan.fire("sigterm", self.iter_count):
                         # A real signal, so the installed handler acts on it.
                         os.kill(os.getpid(), signal.SIGTERM)
+                    # The consistency guard: every rank enters at the same
+                    # step (keyed on iter_count).
+                    di = train.desync_check_interval
+                    if di and self.iter_count % di == 0:
+                        self._check_desync()
                     iv = self.intervals(self.iter_count)
                     if iv["do_checkpoint"]:
                         self.save(block=not train.async_checkpointing)
@@ -877,7 +1098,7 @@ class BaseTrainer(BaseRLTrainer):
                             self._observe_health(stats_host)
                         self._export_metrics(stats_host)
                         self.tracker.log(stats_host, step=self.iter_count)
-                    if self._any_preempted():
+                    if self._preempted_mid_batch():
                         self._save_on_preemption()
                         return None
                     if self.iter_count >= self.total_steps:
@@ -905,10 +1126,23 @@ class BaseTrainer(BaseRLTrainer):
         self._health.maybe_log_lineage(self.tracker, self.iter_count)
 
     def _any_preempted(self) -> bool:
-        """A SIGTERM reached some rank: every rank stops at the same step."""
+        """A SIGTERM reached some rank: every rank stops at the same step
+        (an any-reduce over the ranks' flags, so the coordinated save is
+        entered by all or by none)."""
         if world_size() == 1:
             return self._preempted
         return bool(allgather_host(np.asarray([self._preempted])).any())
+
+    def _preempted_mid_batch(self) -> bool:
+        """The check between the steps of a batch: the local flag for one
+        process; with several, the agreement every
+        ``train.preempt_check_interval`` steps (0: at batch boundaries
+        only, keeping the collective off the step loop), as the JAX
+        package."""
+        if world_size() == 1:
+            return self._preempted
+        pi = self.config.train.preempt_check_interval
+        return bool(pi) and self.iter_count % pi == 0 and self._any_preempted()
 
     def _save_on_preemption(self):
         self.save()
@@ -970,8 +1204,14 @@ class BaseTrainer(BaseRLTrainer):
         resume point. A save of the state the last save already holds (the
         interval save of the step ``learn()`` stops at) writes nothing.
 
-        With several processes the main one writes, blocking, and every
-        rank leaves after the files are in place (a barrier)."""
+        With several processes the save blocks. On an unsplit mesh the main
+        process writes and every rank leaves after the files are in place
+        (a barrier). On a sharded mesh every rank that holds a distinct piece
+        (dp and sp coordinate 0) writes its pieces, ``<group>.f<i>t<j>.pt``,
+        beside ``layout.json`` (each parameter's placement); the main
+        process then writes the manifest over every rank's files and flips
+        ``latest.txt`` only after every rank has committed (``_write_shards``).
+        ``load`` reassembles the pieces by the rules onto any mesh."""
         save_t0 = time.time()
         self._finalize_pending_save()
         directory = os.path.abspath(directory or self.config.train.checkpoint_dir)
@@ -979,12 +1219,14 @@ class BaseTrainer(BaseRLTrainer):
         host_state = self.host_state_dict()  # captured now: the KL coefficient moves on
         if self._saved == (directory, name, host_state):
             return
-        if world_size() > 1:
+        if self.mesh.sharded:
+            self._write_shards(directory, name, host_state)
+        elif world_size() > 1:
             if is_main_process():
                 self._write(directory, name, host_state, block=True)
             else:
                 self._saved = (directory, name, host_state)
-            barrier()
+            barrier("save")
         else:
             self._write(directory, name, host_state, block)
         # The wall the train loop paid: through finalize when blocking, the
@@ -1010,6 +1252,54 @@ class BaseTrainer(BaseRLTrainer):
         self._pending_save = pending
         if block:
             self._finalize_pending_save()
+
+    def _write_shards(self, directory: str, name: str, host_state: dict):
+        """The sharded save: the main process makes ``<name>.tmp``, each
+        writer rank writes its pieces there, the (size, crc32) digests are
+        all-gathered, and the main process finalizes (rename, host state,
+        manifest over every file, then ``latest.txt``); a barrier ends it."""
+        t0 = time.perf_counter()
+        mesh = self.mesh
+        path = os.path.join(directory, f"{name}.tmp")
+        if is_main_process():
+            if os.path.isdir(path):
+                shutil.rmtree(path)
+            os.makedirs(path)
+        barrier("save_shards")
+        result = {"digests": {}, "bytes": 0, "write_s": 0.0, "crc_wait_s": 0.0}
+        writer = mesh.coords[AXIS_DP] == 0 and mesh.coords[AXIS_SP] == 0
+        record = {"name": name, "async": False, "d2h_s": 0.0, "host_bytes": 0, "sharded": True}
+        if writer:
+            state = self.state_tensors()
+            suffix = f".f{mesh.coords[AXIS_FSDP]}t{mesh.coords[AXIS_TP]}"
+            snapshot = {f"{f}{suffix}": _host_copy(state[f]) for f in ("params", "extras", "optimizer")}
+            if is_main_process():
+                snapshot["train_state"] = state["train_state"]
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            record.update(d2h_s=time.perf_counter() - t0, host_bytes=_nbytes(snapshot))
+            _write_state(path, snapshot, result, fresh=False)
+            if "error" in result:
+                raise CheckpointError(f"writing {name} failed") from result["error"]
+            if is_main_process():
+                layout = {n: _placement_json(placement_of(self.model, n)) for n in state["params"]}
+                with ckpt_util.DigestWriter(os.path.join(path, "layout.json")) as w:
+                    w.write(json.dumps({"mesh": list(mesh.shape.values()), "params": layout}).encode())
+                result["digests"]["layout.json"] = (w.size, w.crc)
+        gathered = coll.all_gather_object(result, mesh.group("world"))
+        if is_main_process():
+            merged = {"digests": {}, "bytes": 0, "write_s": 0.0, "crc_wait_s": 0.0}
+            for r in gathered:
+                merged["digests"].update(r["digests"])
+                merged["bytes"] += sum(sz for sz, _ in r["digests"].values())
+                merged["write_s"] = max(merged["write_s"], r["write_s"])
+                merged["crc_wait_s"] = max(merged["crc_wait_s"], r["crc_wait_s"])
+            self._pending_save = {"directory": directory, "name": name, "host_state": host_state, "record": record,
+                                  "t0": t0, "result": merged}
+            self._finalize_pending_save()
+        else:
+            self._saved = (directory, name, host_state)
+        barrier("save_commit")
 
     def _finalize_pending_save(self) -> Optional[str]:
         """Drain the save in flight: join its writer, then atomically write
@@ -1104,7 +1394,9 @@ class BaseTrainer(BaseRLTrainer):
             path = os.path.join(directory, name)
             with ckpt_util.mark_in_use(directory, name):
                 t0 = time.perf_counter()
-                ok, reason = ckpt_util.verify_checkpoint(directory, name)
+                # The main process verifies; every rank takes its answer.
+                ok, reason = broadcast_host(ckpt_util.verify_checkpoint(directory, name) if is_main_process()
+                                            else None)
                 if not ok:
                     attempts.append(f"{name}: {reason}")
                     continue
@@ -1112,12 +1404,18 @@ class BaseTrainer(BaseRLTrainer):
                 try:
                     # Mapped from the files on the host, then copied into the
                     # live tensors: a load onto the device would hold a second
-                    # copy of the whole state on the card.
-                    state = {f: torch.load(os.path.join(path, f"{f}.pt"), map_location="cpu", mmap=True,
-                                           weights_only=True) for f in _STATE_FILES}
+                    # copy of the whole state on the card. Sharded files are
+                    # reassembled a tensor at a time.
+                    state = _StateReader(path)
                     self._check_state(state)
+                    error = None
                 except (OSError, RuntimeError, ValueError, KeyError, EOFError) as e:
-                    attempts.append(f"{name}: read failed ({type(e).__name__}: {e})")
+                    error = f"{name}: read failed ({type(e).__name__}: {e})"
+                if world_size() > 1:
+                    errors = [e for e in allgather_host(np.asarray([error or ""], dtype=object)) if e]
+                    error = errors[0] if errors else None
+                if error is not None:
+                    attempts.append(error)
                     continue
                 t2 = time.perf_counter()
                 self._copy_state(state)
@@ -1143,31 +1441,43 @@ class BaseTrainer(BaseRLTrainer):
             f"{'; '.join(attempts)}. If the data is gone, set train.resume_from_checkpoint=False to start fresh."
         )
 
-    def _check_state(self, state: Dict):
+    def _check_state(self, state: "_StateReader"):
         """Raise ValueError unless a read checkpoint names exactly this
-        trainer's parameters and extras, each of its shape, and this
+        trainer's parameters and extras, each of its whole shape, and this
         optimizer's moments."""
-        for f, own in (("params", dict(self.model.named_parameters())), ("extras", self.extras)):
-            got = state[f]
-            if set(got) != set(own):
-                missing, extra = sorted(set(own) - set(got)), sorted(set(got) - set(own))
+        whole = {n: tuple(placement_of(self.model, n).full_shape) if placement_of(self.model, n) else tuple(p.shape)
+                 for n, p in self.model.named_parameters()}
+        for f, names in (("params", list(whole)), ("extras", list(self.extras)),
+                         ("optimizer:mu", self.optimizer.names or []), ("optimizer:nu", self.optimizer.names or [])):
+            got = state.names(f)
+            if set(got) != set(names):
+                missing, extra = sorted(set(names) - set(got)), sorted(set(got) - set(names))
                 raise ValueError(f"{f}: missing {missing[:4]}, unexpected {extra[:4]}")
-            for n, t in own.items():
-                if tuple(got[n].shape) != tuple(t.shape):
-                    raise ValueError(f"{f} {n}: shape {tuple(got[n].shape)} != {tuple(t.shape)}")
-        self.optimizer.check_state_dict(state["optimizer"])
+            for n in names:
+                if state.shape(f, n) != whole[n]:
+                    raise ValueError(f"{f} {n}: shape {state.shape(f, n)} != {whole[n]}")
 
     @torch.no_grad()
-    def _copy_state(self, state: Dict):
-        """Copy a checked state into the live tensors, in place, and bring
-        the model's bf16 weight copies up to date."""
+    def _copy_state(self, state: "_StateReader"):
+        """Copy a checked state into the live tensors, in place (each whole
+        tensor cut to this rank's piece by the current mesh's rules), and
+        bring the model's bf16 weight copies up to date."""
+        def piece(f, n):
+            return shard_tensor(self.model, n, state.whole(f, n))
+
         for n, p in self.model.named_parameters():
-            p.copy_(state["params"][n])
+            p.copy_(piece("params", n))
         for n, t in self.extras.items():
-            t.copy_(state["extras"][n])
-        self.optimizer.load_state_dict(state["optimizer"])
-        self.step = int(state["train_state"]["step"])
-        self.bad_steps = int(state["train_state"]["bad_steps"])
+            t.copy_(piece("extras", n))
+        opt = self.optimizer
+        opt._require_names()
+        for key, own in (("mu", opt.mu), ("nu", opt.nu)):
+            for n, m in zip(opt.names, own):
+                m.copy_(piece(f"optimizer:{key}", n))
+        opt.count = int(state.optimizer_count())
+        ts = state.train_state()
+        self.step = int(ts["step"])
+        self.bad_steps = int(ts["bad_steps"])
         refresh_weight_copies(self.model)
 
     # ------------------------------------------------------------ HF export
@@ -1179,11 +1489,12 @@ class BaseTrainer(BaseRLTrainer):
         frozen extras (the reference branch, the target Q heads) are not
         exported. Streams one tensor at a time from the device. Returns
         ``out_dir``."""
+        params = self.full_params()  # every rank: a collective on a sharded mesh
         if is_main_process():
-            params = dict(self.model.named_parameters())
             heads = {k: v for k, v in params.items() if not k.startswith("transformer.")}
             export_hf(params, self.model.cfg, out_dir, family=family, head_params=heads)
-        barrier()  # the other ranks wait for the export to land
+        del params
+        barrier("save_pretrained")  # the other ranks wait for the export to land
         return out_dir
 
     # ------------------------------------------------------- BaseRL protocol
@@ -1239,16 +1550,88 @@ def _nbytes(tree) -> int:
     return 0
 
 
-def _write_state(path: str, snapshot: Dict[str, Dict], result: Dict):
+def _placement_json(pl) -> Optional[dict]:
+    if pl is None:
+        return None
+    return {"full_shape": list(pl.full_shape), "fsdp_dim": pl.fsdp_dim, "tp_dim": pl.tp_dim, "qkv": pl.qkv,
+            "fsdp": pl.fsdp, "tp": pl.tp}
+
+
+class _StateReader:
+    """A checkpoint's tensors as WHOLE tensors by (group, name), whatever
+    the mesh that wrote it: the single-file groups (``params.pt``, ...), or
+    a sharded save's pieces (``params.f<i>t<j>.pt``, ...) reassembled by
+    ``layout.json``'s placements a tensor at a time. Groups: "params",
+    "extras", "optimizer:mu", "optimizer:nu"."""
+
+    def __init__(self, path: str):
+        def load(f):
+            return torch.load(os.path.join(path, f), map_location="cpu", mmap=True, weights_only=True)
+
+        layout_path = os.path.join(path, "layout.json")
+        self.layout = None
+        if os.path.exists(layout_path):
+            from trlx_tpu_torch.parallel.sharding import Placement
+
+            with open(layout_path) as fh:
+                spec = json.load(fh)
+            self.layout = {n: None if d is None else Placement(tuple(d["full_shape"]), d["fsdp_dim"], d["tp_dim"],
+                                                                d["qkv"], d["fsdp"], d["tp"])
+                           for n, d in spec["params"].items()}
+            pieces = {}
+            for fname in os.listdir(path):
+                stem, _, _ = fname.rpartition(".")
+                group, _, coord = stem.partition(".")
+                if coord.startswith("f") and group in ("params", "extras", "optimizer"):
+                    fi, ti = coord[1:].split("t")
+                    pieces.setdefault(group, {})[(int(fi), int(ti))] = load(fname)
+            self._pieces = pieces
+            self._train_state = load("train_state.pt")
+        else:
+            self._groups = {f: load(f"{f}.pt") for f in _STATE_FILES}
+
+    def _table(self, group: str, coord=None):
+        top, _, key = group.partition(":")
+        if self.layout is None:
+            t = self._groups[top]
+        else:
+            t = self._pieces[top][coord if coord is not None else next(iter(self._pieces[top]))]
+        return t[key] if key else t
+
+    def names(self, group: str):
+        return list(self._table(group))
+
+    def shape(self, group: str, name: str):
+        pl = None if self.layout is None else self.layout.get(name)
+        return tuple(pl.full_shape) if pl is not None else tuple(self._table(group)[name].shape)
+
+    def whole(self, group: str, name: str) -> torch.Tensor:
+        pl = None if self.layout is None else self.layout.get(name)
+        if pl is None:
+            return self._table(group)[name]
+        top = group.partition(":")[0]
+        return pl.assemble({c: self._table(group, c)[name] for c in self._pieces[top]})
+
+    def optimizer_count(self) -> int:
+        return int(self._table("optimizer")["count"])
+
+    def train_state(self) -> dict:
+        return self._train_state if self.layout is not None else self._groups["train_state"]
+
+
+def _write_state(path: str, snapshot: Dict[str, Dict], result: Dict, fresh: bool = True):
     """Write one ``torch.save`` file per state group into ``path`` (made
     anew: a temporary directory the finalize renames), fsynced, with each file's (size, crc32) taken as it is written.
     Fills ``result`` with the digests, the bytes and the seconds, or with
-    the error (this runs on the async save's writer thread too)."""
+    the error (this runs on the async save's writer thread too). With
+    ``fresh`` False the directory exists already (a sharded save's, shared
+    by its writer ranks)."""
     try:
         t0 = time.perf_counter()
-        if os.path.isdir(path):
-            shutil.rmtree(path)
-        os.makedirs(path)
+        if fresh:
+            if os.path.isdir(path):
+                shutil.rmtree(path)
+            os.makedirs(path)
         digests, crc_wait_s = {}, 0.0
         for f, group in snapshot.items():
             with ckpt_util.DigestWriter(os.path.join(path, f"{f}.pt")) as w:

@@ -26,11 +26,12 @@ from trlx_tpu_torch.data import ILQLBatch
 from trlx_tpu_torch.data.configs import TRLConfig
 from trlx_tpu_torch.models.heads import LMWithILQLHeads, swapped_params, trainable_mask
 from trlx_tpu_torch.models.hf_import import build_lm_config, load_or_init_params
-from trlx_tpu_torch.models.lm import compute_weight
+from trlx_tpu_torch.models.lm import FullParam, compute_weight, full_weight, placement_of, tp_group
+from trlx_tpu_torch.parallel import collectives as coll
 from trlx_tpu_torch.ops.fused_logprob import fused_logprob_eligible, routed_logprob
 from trlx_tpu_torch.ops.generate import make_generate_fn
 from trlx_tpu_torch.ops.ilql_loss import action_tokens, ilql_loss, ilql_loss_terms
-from trlx_tpu_torch.ops.modeling import topk_mask
+from trlx_tpu_torch.ops.modeling import global_ratio, loss_group, topk_mask
 from trlx_tpu_torch.ops.sampling import NEG_INF, GenerateConfig, make_bigram_mask_processor
 from trlx_tpu_torch.pipeline.ilql_pipeline import ILQLRolloutStorage
 from trlx_tpu_torch.trainer import register_model
@@ -151,7 +152,8 @@ class ILQLTrainer(BaseTrainer):
         model for the call). Returns (tokens, mask) [b, P + R]; logs the
         decode-time Q, V and advantage distributions."""
         with swapped_params(self.model, self.extras):
-            tokens, mask, dstats = self._generate_fn(self.put(input_ids), self.put(attention_mask), generator)
+            tokens, mask, dstats = self._generate_fn(self.put(input_ids), self.put(attention_mask), generator,
+                                                     rows=self.sample_rows(np.asarray(input_ids).shape[0]))
         if self.tracker.enabled:
             self._log_decode_stats(dstats, mask)
         return tokens, mask
@@ -239,16 +241,23 @@ def make_ilql_loss_fn(model: LMWithILQLHeads, config: TRLConfig, get_extras, use
     dtype = cfg.compute_dtype
     kw = dict(gamma=m.gamma, tau=m.tau, cql_scale=m.cql_scale, awac_scale=m.awac_scale)
 
-    def mlp_hidden(k0, b0, x):
+    def whole(extras, name, dt):
+        # A parameter (a target head's, from the extras) whole: gathered
+        # over fsdp and tp on a sharded mesh.
+        t, pl = extras[name], placement_of(model, name)
+        return compute_weight(t, dt) if pl is None else full_weight(t, dt, pl)
+
+    def mlp_hidden(extras, name, x):
         # MLPHead.layers_0 + relu in the compute dtype, over raw tensors.
-        return torch.relu(x.to(dtype) @ compute_weight(k0, dtype) + compute_weight(b0, dtype))
+        return torch.relu(x.to(dtype) @ whole(extras, f"{name}.layers_0.kernel", dtype)
+                          + whole(extras, f"{name}.layers_0.bias", dtype))
 
     def gathered_head_logit(extras, name, x, actions):
         # The target heads feed only the TD targets at the dataset action: a
         # gather of layers_1's columns instead of all V outputs.
-        h = mlp_hidden(extras[f"{name}.layers_0.kernel"], extras[f"{name}.layers_0.bias"], x).float()
-        k1 = extras[f"{name}.layers_1.kernel"].float()  # [D2, V]
-        b1 = extras[f"{name}.layers_1.bias"].float()
+        h = mlp_hidden(extras, name, x).float()
+        k1 = whole(extras, f"{name}.layers_1.kernel", torch.float32)  # [D2, V]
+        b1 = whole(extras, f"{name}.layers_1.bias", torch.float32)
         w = k1.t()[actions.long()]  # [b, A, D2]
         return (h * w).sum(-1) + b1[actions.long()]
 
@@ -258,14 +267,21 @@ def make_ilql_loss_fn(model: LMWithILQLHeads, config: TRLConfig, get_extras, use
         out = model(batch.input_ids, batch.attention_mask, states_ixs=batch.states_ixs,
                     actions_ixs=batch.actions_ixs, labels=labels, labels_mask=attn1, compute_q_heads=False)
         attn = attn1.float()
-        loss_awac = (-out["logprobs"] * attn).sum() / torch.clamp(attn.sum(), min=1.0)
+        loss_awac = global_ratio((-out["logprobs"] * attn).sum(), attn.sum(), loss_group(), min_den=1.0)
         hs_actions = _gather_positions(out["hidden"], batch.actions_ixs)
         actions = action_tokens(batch.input_ids, batch.actions_ixs)
         Qs, cql_nlls = [], []
         for name in model.head_names():
             head = getattr(model, name)
-            h = torch.relu(head.layers_0(hs_actions, dtype)).float()
-            lp, lse, _ = routed_logprob(h, head.layers_1.kernel, actions, head.layers_1.bias, tied=False, mode=mode)
+            # Under tp each rank holds its columns of the hidden: the fused
+            # head runs over the whole of it and of layers_1 (gathered), its
+            # gradients cut back to this rank's pieces.
+            h = coll.gather_from(head.hidden(hs_actions).float(), tp_group(), -1) if cfg.tp_heads > 1 else \
+                head.hidden(hs_actions).float()
+            k1, b1 = head.layers_1.kernel, head.layers_1.bias
+            pk, pb = head.layers_1.placement.get("kernel"), head.layers_1.placement.get("bias")
+            whole_head = (None, None) if pk is None else (FullParam(k1, pk), FullParam(b1, pb))
+            lp, lse, _ = routed_logprob(h, k1, actions, b1, tied=False, mode=mode, whole=whole_head)
             Qs.append(lp + lse)  # the label logit
             cql_nlls.append(-lp)
         extras = get_extras()

@@ -69,7 +69,7 @@ from trlx_tpu_torch.ops.modeling import logprobs_from_logits
 from trlx_tpu_torch.ops.rl_losses import kl_penalty_rewards, ppo_loss
 from trlx_tpu_torch.ops.sampling import GenerateConfig, make_bigram_mask_processor, process_logits_default
 from trlx_tpu_torch.ops.w8a16 import quantize_weights
-from trlx_tpu_torch.parallel.mesh import AXIS_DP, AXIS_FSDP, world_size
+from trlx_tpu_torch.parallel.mesh import node_count, world_size
 from trlx_tpu_torch.pipeline.overlap import PhaseTimer, RolloutProducer
 from trlx_tpu_torch.pipeline.ppo_pipeline import PPORolloutStorage
 from trlx_tpu_torch.pipeline.prompt_pipeline import normalize_buckets
@@ -140,6 +140,10 @@ class PPOTrainer(BaseTrainer):
         # masters (the weight bytes of a decode step halve) and re-quantize
         # in place when a master changed.
         self.decode_weight_quant = bool(config.model.decode_weight_quant)
+        if self.decode_weight_quant and self.mesh.sharded:
+            raise NotImplementedError(
+                "model.decode_weight_quant on a mesh with fsdp or tp > 1 (ROADMAP §A11c: row W8 on local shard "
+                "shapes): the int8 copies are quantized per output column from whole masters")
         if self.decode_weight_quant:
             quantize_weights(self.model)
         self.rm_model = self._build_reward_model(config) if config.model.has_reward_model else None
@@ -151,11 +155,15 @@ class PPOTrainer(BaseTrainer):
         self.overlap_rollouts = bool(m.rollout_overlap) or self.max_staleness > 0
         if self.overlap_rollouts and world_size() > 1:
             raise NotImplementedError(
-                "method.rollout_overlap / method.max_staleness with several processes (ROADMAP §A11): the producer's "
+                "method.rollout_overlap / method.max_staleness with several processes (ROADMAP §A11b): the producer's "
                 "reward broadcast and sp-ring collectives would share a communicator with the train loop's")
+        if m.rollout_engine and world_size() > 1:
+            raise NotImplementedError(
+                "method.rollout_engine with several processes (ROADMAP §A11a: the engine's lock-step slot schedule, "
+                "verify_engine_schedule and _globalize are not ported)")
         self._pack_train_batch = bool(m.pack_train_batch)
-        # Packed row counts round up to a multiple of the batch's data axes.
-        self._pack_rows_multiple = int(self.mesh.shape[AXIS_DP] * self.mesh.shape[AXIS_FSDP])
+        # Packed row counts round up to a multiple of the node's data ranks.
+        self._pack_rows_multiple = int(self.mesh.data_size // node_count())
         self._window_tokens = []
         self._window_fill = []
         self._phase_timer = PhaseTimer()
@@ -377,21 +385,24 @@ class PPOTrainer(BaseTrainer):
         self._snapshot_weights.take(self.iter_count)
         return {"version": int(self.iter_count), "weights": self._snapshot_weights}
 
-    def rollout_generate(self, input_ids, attention_mask, generator=None, timings=None, snapshot=None):
-        """Prefill + decode. Returns (tokens, mask) [b, P + R] on the device."""
+    def rollout_generate(self, input_ids, attention_mask, generator=None, timings=None, snapshot=None, rows=None):
+        """Prefill + decode. Returns (tokens, mask) [b, P + R] on the device.
+        ``rows``: this data rank's place in the node's batch
+        (``sample_rows``)."""
         if generator is None:
             generator = self.chunk_rng(0)
         fn = self._generate_fns_for(self._decode_module(snapshot))[0]
-        return fn(self.put(input_ids), self.put(attention_mask), generator, timings=timings)
+        return fn(self.put(input_ids), self.put(attention_mask), generator, timings=timings, rows=rows)
 
-    def rollout_generate_fused(self, input_ids, attention_mask, generator=None, timings=None, snapshot=None):
+    def rollout_generate_fused(self, input_ids, attention_mask, generator=None, timings=None, snapshot=None,
+                               rows=None):
         """Generation that also returns the statistics collected in the
         decode loop: (tokens, mask, stats, prefill_extras); feed the last two
         to ``rollout_score_fused``."""
         if generator is None:
             generator = self.chunk_rng(0)
         fn = self._generate_fns_for(self._decode_module(snapshot))[1]
-        return fn(self.put(input_ids), self.put(attention_mask), generator, timings=timings)
+        return fn(self.put(input_ids), self.put(attention_mask), generator, timings=timings, rows=rows)
 
     def rollout_engine(self):
         """The lazily built continuous-batching engine: one per trainer, it
@@ -503,7 +514,8 @@ class PPOTrainer(BaseTrainer):
     def eval_generate(self, input_ids, attention_mask, batch_index: int):
         """Eval sampling: a generator per (train.seed, step, batch)."""
         return self.rollout_generate(input_ids, attention_mask,
-                                     generator=self.seeded_generator(2, self.iter_count, batch_index))
+                                     generator=self.seeded_generator(2, self.iter_count, batch_index),
+                                     rows=self.sample_rows(np.asarray(input_ids).shape[0]))
 
     def build_train_step(self):
         """The PPO loss of this trainer's model and config (dense, or the
@@ -695,7 +707,7 @@ def make_ppo_loss_fn(model: LMWithValueHead, config: TRLConfig, prompt_length: i
                         segment_ids=batch.segment_ids, labels=batch.labels, labels_mask=batch.loss_mask)
             return ppo_loss(out["logprobs"], out["values"].float(), batch.old_logprobs, batch.old_values,
                             batch.rewards, batch.loss_mask, segment_ids=batch.segment_ids,
-                            n_seqs=config.train.batch_size, **kw)
+                            n_seqs=config.train.batch_size * node_count(), **kw)
 
         return packed_loss_fn
 
