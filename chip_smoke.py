@@ -38,7 +38,9 @@ prefix, a dead slot on the trash block and a fully masked row), then drives
    against their plain versions at N = 4092, D = 8192, V = 50400);
 7. checkpoints: the end of every ``learn()`` saves (``[ckpt]`` lines: bytes,
    device-to-host, write, crc, manifest and load seconds, GB/s, beside the
-   card), verified against its manifest and deleted when its path is done;
+   card), verified against its manifest and deleted when its path is done,
+   but where another path saves the same state (the ILQL resume,
+   ``text_ppo``, ``train_bf16``, ``engine_train``: the smoke's time);
    ``[resume]``: ILQL at 6 layers from ``ilql_train``'s end save (2 more
    steps); PPO's
    resume, and a load into a trainer whose decode graphs are captured, are
@@ -87,14 +89,22 @@ prefix, a dead slot on the trash block and a fully masked row), then drives
    reward-drift CRIT's incident bundles, ``/healthz`` and ``/metrics``
    scraped live; and the live engine's greedy tokens after the rollback
    against a fresh trainer's on the restored checkpoint;
-14. data, fully sharded and tensor parallelism (``dist_train``): 4 processes
-   on this card over gloo, train.mesh [1, 2, 2, 1] (fsdp 2 x tp 2), GPT-J-6B
-   width at 2 layers with ppo_gptj_config.yml's values and the training
-   path's prompts, against one process with the same seeded weights,
-   prompts and store: teacher-forced logprobs and values, step 1's
-   statistics, the parameters after 4 steps (replicas bit-equal under the
-   consistency guard), each rank's launches of rows 1-3 at 8 heads, 4-6
-   and 7, and the greedy tokens' identical share (printed);
+14. data, fully sharded and tensor parallelism with the rollout engine, the
+   overlapped pipeline and int8 decode weights on the mesh (``dist_train``
+   and its ``dist_engine`` leg): 4 processes on this card over gloo,
+   train.mesh [1, 2, 2, 1] (fsdp 2 x tp 2), GPT-J-6B width at 2 layers with
+   ppo_gptj_config.yml's values (1 PPO epoch an iteration), against one
+   process with the same seeded weights: teacher-forced logprobs and values,
+   step 1's statistics and the parameters after 2 steps from the one
+   process's store (replicas bit-equal under the consistency guard every
+   step), each rank's launches of rows 1-3, 8 and 10 at 8 heads, 4-6 and
+   W8, the greedy tokens' identical share (printed); the mesh's own rollouts
+   come from the paged int8 engine (engine_train's settings and prompts)
+   with W8A16 decode weights at the tp-local shapes, the second iteration's
+   from the rollout producer at staleness 1 with graftfleet armed: every
+   rank's schedule crc of each engine phase (equal, or the phase raised),
+   the W8 shapes launched, the recorded staleness, and the engine store's
+   logprobs against a one-process model on the same tokens;
 
 and checks that each path went through every kernel it runs, exactly as
 often as its config says.
@@ -102,9 +112,10 @@ often as its config says.
     python3 chip_smoke.py
 
 The W8A16 product (``[w8a16]``) is held against its plain version at
-GPT-J-6B's decode shapes (timed with the weight L2-warm and cold) and one
-prefill shape; it has no Pallas counterpart (XLA fuses QDense's int8
-convert on the TPU).
+GPT-J-6B's decode shapes (timed with the weight L2-warm and cold), one
+prefill shape, and the tp-local shapes of tp 2 that ``dist_train``'s ranks
+launch (decode, and one engine prefill); it has no Pallas counterpart (XLA
+fuses QDense's int8 convert on the TPU).
 
 Exits non-zero, printing no result, when no CUDA device is visible or any
 phase fails. Output, in order: one line per phase; the device's name and
@@ -1362,15 +1373,33 @@ def check_train_steps(trainer, config, per_step):
 TRAIN_LAYERS = 4  # depth of the training path; hf_rm_train runs the same train() at full depth
 
 
+def no_save_trainer():
+    """A PPOTrainer whose saves count (``saves_skipped``) and write nothing:
+    a path whose end state another path saves and checks in the same format
+    (the smoke's time)."""
+    from trlx_tpu_torch.trainer.ppo import PPOTrainer
+
+    class NoSavePPOTrainer(PPOTrainer):
+        saves_skipped = 0
+
+        def save(self, directory=None, block=True):
+            self.saves_skipped += 1
+
+    return NoSavePPOTrainer
+
+
 def train_path(kernels):
     """``trlx_tpu_torch.train(reward_fn=...)`` at GPT-J-6B width and
     ``TRAIN_LAYERS`` layers on the chunked sampler with a bf16 cache (the
     same call at full depth is ``hf_rm_train``'s); returns its numbers and
-    the launches of the whole run."""
+    the launches of the whole run. Its end save is not written (since the
+    engine, the overlap and W8 on the mesh came, the smoke's time): the same
+    4-layer PPO state is saved, verified and loaded by ``resilience_drill``,
+    and ``hf_rm_train`` checks a PPO end save at full depth."""
     import trlx_tpu_torch
 
     n_layer, k = TRAIN_LAYERS, 2
-    cls = make_timed_trainer(kernels, n_layer)
+    cls = make_timed_trainer(kernels, n_layer, base=no_save_trainer())
     run_dir = os.path.join(RUN_DIR, "train")
     config = train_config(n_layer, cls.__name__, run_dir)
     torch.cuda.reset_peak_memory_stats()
@@ -1446,8 +1475,8 @@ def train_path(kernels):
         "launches": launches,
     }
     log(f"[train] trlx_tpu_torch.train at GPT-J-6B width ({n_layer} layers), {steps} steps: {json.dumps(out)}")
-    # resilience_drill's loads verify manifests written by the same save.
-    out["ckpt"] = check_end_save("train_bf16", trainer, run_dir, verify=False)
+    if trainer.saves_skipped != 1:
+        raise AssertionError(f"train_bf16 asked for {trainer.saves_skipped} saves, expected its end save")
     del trainer
     free()
     shutil.rmtree(run_dir)
@@ -1792,13 +1821,7 @@ def engine_train_path(kernels):
 
         engine._decode, engine.stats = decode_, stats_
 
-    class NoSavePPOTrainer(PPOTrainer):
-        saves_skipped = 0
-
-        def save(self, directory=None, block=True):
-            self.saves_skipped += 1
-
-    cls = make_timed_trainer(kernels, n_layer, on_engine, base=NoSavePPOTrainer)
+    cls = make_timed_trainer(kernels, n_layer, on_engine, base=no_save_trainer())
     run_dir = os.path.join(RUN_DIR, "engine_train")
     config = train_config(n_layer, cls.__name__, run_dir, method=dict(ENGINE, paged_kv=True), quant=True)
     torch.cuda.reset_peak_memory_stats()
@@ -3173,9 +3196,9 @@ def text_ppo_path(kernels):
     strings. Then ``save_pretrained``: the export read back in part through
     the port's reader must equal the live parameters, bit for bit, and the
     value head its sidecar. Its end save is not written (since dist_train,
-    the smoke's time): ``train_bf16``'s end save of the same 14.2 GB state
-    is written and checked, ``softprompt_train``'s verified against its
-    manifest. Returns its numbers and launches."""
+    the smoke's time): ``resilience_drill`` saves, verifies and loads the
+    same 14.2 GB state, and ``softprompt_train``'s end save is verified
+    against its manifest. Returns its numbers and launches."""
     import trlx_tpu_torch
     from trlx_tpu_torch.models.hf_import import trunk_spec
     from trlx_tpu_torch.trainer.ppo import PPOTrainer
@@ -3619,6 +3642,9 @@ def phase_graph(kernels):
 
 
 W8_SHAPES = ((4096, 4096), (4096, 16384), (16384, 4096), (4096, 50400))  # GPT-J-6B's (K, N): q/k/v/out, c_fc, MLP out, lm_head
+# GPT-J-6B's tp-local (K, N) at tp 2: q / k / v, out_proj, fc_in, fc_out (the
+# head's int8 copy is whole on every tp rank: W8_SHAPES' last).
+W8_TP_SHAPES = ((4096, 2048), (2048, 4096), (4096, 8192), (8192, 4096))
 
 
 W8_COLD_BYTES = 150_000_000  # int8 weight bytes a cold-weight time rotates through: three times the 50 MB L2
@@ -3682,7 +3708,11 @@ def phase_w8a16(gen):
     those of c_fc at decode (M = 8, K = 4096, N = 16384)."""
     from trlx_tpu_torch.ops.w8a16 import launch_plan, w8a16_matmul, w8a16_plain
 
-    cases = [(CHUNK, k, n) for k, n in W8_SHAPES] + [(CHUNK * PROMPT_LEN, 4096, 16384)]
+    # The engine's prefill rows at tp 2: a group of prefill_batch prompts.
+    tp_prefill = ENGINE["prefill_batch"] * PROMPT_LEN
+    cases = ([(CHUNK, k, n) for k, n in W8_SHAPES] + [(CHUNK * PROMPT_LEN, 4096, 16384)]
+             + [(CHUNK, k, n) for k, n in W8_TP_SHAPES] + [(tp_prefill, 4096, 8192)])
+    tp_cases = {(CHUNK, k, n) for k, n in W8_TP_SHAPES} | {(tp_prefill, 4096, 8192)}
     shapes = []
     for M, K, N in cases:
         decode = M <= 32
@@ -3702,7 +3732,7 @@ def phase_w8a16(gen):
         mm = timer(lambda: torch.matmul(x, wb[0]))
         plain = time_ms(lambda: w8a16_plain(x, kq, scale, bias), iters=3, warmup=1)
         b_ms, by = bound(M * K * 2 + K * N + 8 * N + M * N * 2, 2 * M * K * N)
-        rec = {"M": M, "K": K, "N": N, "plan": list(launch_plan(M, N, K, x.device)),
+        rec = {"M": M, "K": K, "N": N, "tp_local": (M, K, N) in tp_cases, "plan": list(launch_plan(M, N, K, x.device)),
                "max_abs_err": err, "tol": tol, "ms": ms, "timed": "graph" if decode else "events", "plain_ms": plain,
                "matmul_ms": mm, "bound_ms": b_ms, "bound_by": by, "share_of_bound": b_ms / ms}
         if decode:
@@ -3986,8 +4016,13 @@ def sp_train_path(kernels):
 DIST_LAYERS = 2  # GPT-J-6B width; the whole model is 0.82 B parameters at this depth
 DIST_MESH = (1, 2, 2, 1)  # fsdp 2 x tp 2: 8 local heads, half of every split piece
 DIST_WORLD = 4  # processes sharing this one card over gloo (NCCL refuses two ranks on one device)
-DIST_STEPS = 4
-DIST_TIMEOUT_S = 420  # the workers' wall limit, build load and gloo start included
+DIST_PPO_EPOCHS = 1  # 16 rollouts in batches of 8: 2 steps an iteration
+DIST_REF_STEPS = 2  # the one process's steps; (b) and (c) hold the mesh's first 2 against them
+DIST_STEPS = 4  # the mesh's: iteration 0 from the one process's store, iteration 1 from its producer's
+# The dist_engine leg: the mesh's own rollouts through engine_train's paged
+# int8 engine with W8A16 decode weights, the producer at staleness 1.
+DIST_ENGINE = dict(ENGINE, paged_kv=True, max_staleness=1)
+DIST_TIMEOUT_S = 480  # the workers' wall limit, build load and gloo start included
 DIST_LP_TOL = 0.25  # (a) max |logprob| difference, teacher-forced: tp reorders every bf16 sum
 DIST_LP_MEAN_TOL = 2e-2  # (a) mean |logprob| difference
 DIST_VALUE_TOL = 0.1  # (a) max |value| difference
@@ -4005,16 +4040,27 @@ DIST_GREEDY_PROMPTS = 8
 DIST_GREEDY_TOKENS = 64  # (e)'s greedy decode: enough tokens to show where tp's bf16 sums split near ties
 
 
-def dist_config(run_dir: str, mesh):
+def dist_config(run_dir: str, mesh, model_type: str = "DistSmokeTrainer"):
     """``train_path``'s config (ppo_gptj_config.yml's values at GPT-J-6B
-    width, 768 + 256 tokens, 16 rollouts in chunks of 8, batch 8) at
-    ``DIST_LAYERS`` layers for ``DIST_STEPS`` steps on train.mesh ``mesh``,
-    the consistency guard every step on a mesh."""
-    config = train_config(DIST_LAYERS, "DistSmokeTrainer", run_dir)
-    config.train.total_steps = DIST_STEPS
+    width, 768 + 256 tokens, 16 rollouts in chunks of 8, batch 8, one PPO
+    epoch an iteration) at ``DIST_LAYERS`` layers on train.mesh ``mesh``:
+    ``DIST_REF_STEPS`` steps for one process; on a mesh ``DIST_STEPS`` over
+    two iterations with the consistency guard every step, the rollouts
+    through ``DIST_ENGINE`` (the paged int8 engine, the producer at
+    staleness 1) with int8 decode weights, and graftfleet armed."""
+    # An int8 KV cache on both: the engine's, and (e)'s greedy decode reads
+    # the same cache kind on both sides (row 8).
+    config = train_config(DIST_LAYERS, model_type, run_dir, quant=True)
+    config.method.ppo_epochs = DIST_PPO_EPOCHS
+    config.train.total_steps = DIST_REF_STEPS
     config.train.mesh = list(mesh)
     if any(a > 1 for a in mesh):
+        config.train.total_steps = DIST_STEPS
         config.train.desync_check_interval = 1
+        config.train.graftfleet = True
+        config.model.decode_weight_quant = True
+        for k, v in DIST_ENGINE.items():
+            setattr(config.method, k, v)
     return config
 
 
@@ -4031,8 +4077,9 @@ def dist_trainer_class(kernels, ref):
     from trlx_tpu_torch.trainer import register_model
     from trlx_tpu_torch.trainer.ppo import PPOTrainer
 
-    heads = {"flash": set(), "decode": set()}
-    flash, decode = lm_mod.flash_attention, lm_mod.decode_attention
+    heads = {"flash": set(), "decode": set(), "paged": set(), "w8": set()}
+    flash, decode, paged, w8 = lm_mod.flash_attention, lm_mod.decode_attention, lm_mod.paged_decode_attention, \
+        lm_mod.w8a16_matmul
 
     def flash_spy(q, *a, **kw):
         heads["flash"].add(int(q.shape[2]))
@@ -4042,7 +4089,16 @@ def dist_trainer_class(kernels, ref):
         heads["decode"].add(int(q.shape[1]))
         return decode(q, *a, **kw)
 
+    def paged_spy(q, *a, **kw):
+        heads["paged"].add(int(q.shape[1]))
+        return paged(q, *a, **kw)
+
+    def w8_spy(x, kq, *a, **kw):
+        heads["w8"].add(tuple(int(d) for d in kq.shape))  # the (K, N) each W8 product reads
+        return w8(x, kq, *a, **kw)
+
     lm_mod.flash_attention, lm_mod.decode_attention = flash_spy, decode_spy
+    lm_mod.paged_decode_attention, lm_mod.w8a16_matmul = paged_spy, w8_spy
 
     @register_model("DistSmokeTrainer")
     class DistSmokeTrainer(PPOTrainer):
@@ -4054,6 +4110,7 @@ def dist_trainer_class(kernels, ref):
             self.init_params = {n: p.detach().float().cpu().clone() for n, p in self.model.named_parameters()}
 
         def learn(self):
+            self.report["own_store"] = self.store.columns()  # the mesh's: the engine's rollouts
             store = ref["store"] if ref is not None else self.store.columns()
             rows = {k: v[:CHUNK] for k, v in store.items()}
             tokens = np.concatenate([rows["query_tensors"], rows["response_tensors"]], axis=1)
@@ -4094,6 +4151,19 @@ def dist_trainer_class(kernels, ref):
             rec["device_s"] = start.elapsed_time(end) / 1e3
             rec["wall_s"] = time.perf_counter() - t0
             self.step_log.append(rec)
+            if len(self.step_log) == DIST_REF_STEPS:
+                # (c): the pieces after the steps the one process took.
+                self.params_at_ref = {n: p.detach().float().cpu().clone() for n, p in self.model.named_parameters()}
+                if self.decode_weight_quant:
+                    # The int8 copies after an optimizer step: every product of
+                    # the two trained blocks and the head re-quantized from the
+                    # pieces (collective, the same on every rank), in place.
+                    from trlx_tpu_torch.ops.w8a16 import quantize_weights, quantized_weights
+
+                    before = {n: (kq.data_ptr(), sc.data_ptr()) for n, (kq, sc) in quantized_weights(self.model).items()}
+                    n = quantize_weights(self.model)
+                    after = {n_: (kq.data_ptr(), sc.data_ptr()) for n_, (kq, sc) in quantized_weights(self.model).items()}
+                    self.report["requantized"] = {"kernels": n, "in_place": after == before}
             return stats
 
         def save(self, directory=None, block=True):
@@ -4110,18 +4180,19 @@ def dist_run(kernels, mesh, ref, tag: str):
 
     from trlx_tpu_torch.models import lm as lm_mod
 
-    spied = lm_mod.flash_attention, lm_mod.decode_attention
+    spied = lm_mod.flash_attention, lm_mod.decode_attention, lm_mod.paged_decode_attention, lm_mod.w8a16_matmul
     dist_trainer_class(kernels, ref)
     config = dist_config(os.path.join(RUN_DIR, tag), mesh)
+    prompts = engine_prompts() if config.method.rollout_engine else seeded_prompts(N_ROLLOUTS, 0)
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
         fn.launches = 0
     t0 = time.perf_counter()
     try:
-        trainer = trlx_tpu_torch.train(reward_fn=reward_fn, prompts=seeded_prompts(N_ROLLOUTS, 0),
-                                       eval_prompts=seeded_prompts(CHUNK, 1), config=config)
+        trainer = trlx_tpu_torch.train(reward_fn=reward_fn, prompts=prompts, eval_prompts=seeded_prompts(CHUNK, 1),
+                                       config=config)
     finally:
-        lm_mod.flash_attention, lm_mod.decode_attention = spied
+        lm_mod.flash_attention, lm_mod.decode_attention, lm_mod.paged_decode_attention, lm_mod.w8a16_matmul = spied
     torch.cuda.synchronize()
     return trainer, time.perf_counter() - t0, {n: f.launches for n, f in kernels.items()}, \
         torch.cuda.max_memory_allocated() / 1e9
@@ -4150,11 +4221,16 @@ def dist_worker(rank: int, world: int, run_dir: str) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     kernels = port_kernels()
     ref = torch.load(os.path.join(run_dir, "ref.pt"), weights_only=False)
-    trainer, wall, launches, peak = dist_run(kernels, DIST_MESH, ref, f"dist_rank{rank}")
+    # One checkpoint directory for the ranks: graftfleet joins their files.
+    trainer, wall, launches, peak = dist_run(kernels, DIST_MESH, ref, "dist_mesh")
     out = {"rank": rank, "coords": trainer.mesh.coords, "wall_s": wall, "peak_mem_gb": peak, "launches": launches,
            "heads": {k: sorted(v) for k, v in trainer.heads.items()}, "steps": trainer.step_log,
            "iter_count": trainer.iter_count, "traffic": coll.traffic(),
-           "local_heads": trainer.model.cfg.local_heads}
+           "local_heads": trainer.model.cfg.local_heads, "schedule_crcs": trainer.orch.schedule_crcs,
+           "requantized": trainer.report.get("requantized")}
+    own = trainer.report["own_store"]
+    torch.save({k: own[k] for k in ("query_tensors", "query_mask", "response_tensors", "response_mask", "logprobs")},
+               os.path.join(run_dir, f"own_store{rank}.pt"))
     tf, rtf = trainer.report["teacher_forced"], ref["teacher_forced"]
     rmask = ref["store"]["response_mask"][:CHUNK].astype(bool)
     dlp = np.abs(tf["logprobs"] - rtf["logprobs"])[rmask]
@@ -4168,12 +4244,12 @@ def dist_worker(rank: int, world: int, run_dir: str) -> int:
     worst, moved, agree, counted = 0.0, 0.0, 0, 0
     fsdp_rank, tp_rank = trainer.mesh.coords["fsdp"], trainer.mesh.coords["tp"]
     ref_update = torch.load(os.path.join(run_dir, "ref_update.pt"), mmap=True, weights_only=True)
-    for name, p in trainer.model.named_parameters():
+    for name, _ in trainer.model.named_parameters():
         pl = placement_of(trainer.model, name)
         update = ref_update[name] if pl is None else pl.shard(ref_update[name], fsdp_rank, tp_rank)
         start = trainer.init_params[name]
         want = start + update.float()
-        mine = p.detach().float().cpu()
+        mine = trainer.params_at_ref[name]
         worst = max(worst, float((mine - want).abs().max()))
         moved = max(moved, float((mine - start).abs().max()))
         ref_moved = want != start
@@ -4187,20 +4263,64 @@ def dist_worker(rank: int, world: int, run_dir: str) -> int:
     return 0
 
 
+def dist_engine_logprobs(run_dir: str, ranks):
+    """The dist_engine leg's logprob check: the rollouts of the mesh's first
+    iteration (the engine's tokens, from W8A16 decode weights; the same node
+    rows on every rank) scored by a one-process model with the same seeded
+    weights, against the logprobs each rank stored for them (its scoring at
+    8 local heads). Returns the differences over the response tokens."""
+    from trlx_tpu_torch.trainer.ppo import PPOTrainer
+
+    stores = [torch.load(os.path.join(run_dir, f"own_store{r['rank']}.pt"), weights_only=False) for r in ranks]
+    for st in stores[1:]:
+        for k in ("query_tensors", "response_tensors", "logprobs"):
+            if not np.array_equal(st[k], stores[0][k]):
+                raise AssertionError(f"dist_engine: the ranks' stores differ in {k}")
+    st = stores[0]
+    tokens = np.concatenate([st["query_tensors"], st["response_tensors"]], axis=1)
+    mask = np.concatenate([st["query_mask"], st["response_mask"]], axis=1)
+    trainer = PPOTrainer(dist_config(os.path.join(RUN_DIR, "dist_engine_ref"), (1, 1, 1, 1), model_type="ppo"))
+    lps = []
+    with torch.no_grad():
+        for i in range(0, tokens.shape[0], CHUNK):
+            lp, _, _, _ = trainer.rollout_score(trainer.put(tokens[i:i + CHUNK]), trainer.put(mask[i:i + CHUNK]),
+                                                np.zeros(min(CHUNK, tokens.shape[0] - i), np.float32))
+            lps.append(trainer.to_host(lp))
+    del trainer
+    free()
+    rmask = st["response_mask"].astype(bool)
+    d = np.abs(np.concatenate(lps) - st["logprobs"])[rmask]
+    return {"rows": int(tokens.shape[0]), "logprob_max_abs": float(d.max()), "logprob_mean_abs": float(d.mean())}
+
+
+DIST_TP_W8 = {tuple(s) for s in W8_TP_SHAPES} | {W8_SHAPES[-1]}  # the (K, N) a tp-2 rank's W8 products read
+# The kernels the dist_engine leg prints by rank: rows 1-6 and row 10.
+DIST_ENGINE_ROWS = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "fused_logprob_fwd",
+                    "fused_logprob_bwd_dx", "fused_logprob_bwd_dw", "paged_decode_attention_int8")
+
+
 def dist_train_path(kernels):
     """Data, fully sharded and tensor parallelism on the card: ``DIST_WORLD``
     processes share it over gloo on train.mesh ``DIST_MESH`` (fsdp 2 x tp 2)
     at GPT-J-6B width and ``DIST_LAYERS`` layers with ppo_gptj_config.yml's
-    values and ``train_path``'s prompts (768 + 256 tokens), held against one
-    process on the same card with the same seeded weights, prompts and
-    store (run here first). Checks: (a) teacher-forced policy logprobs and
-    values on fixed sequences (rows 1 and 4 on 8 local heads); (b) step 1's
-    statistics from the same store within ``DIST_STAT_TOL``; (c) after
-    ``DIST_STEPS`` steps the replicated parameters bit-equal across ranks
-    (the consistency guard every step) and every rank's pieces within
-    ``DIST_PARAM_TOL`` of the one-process run's; (d) every rank launched
-    rows 1-3 at 8 heads, 4-6 and 7. (e), the share of greedy tokens equal to
-    the one-process run's, is printed, not gated. No checkpoint is written."""
+    values (768 + 256 tokens), held against one process on the same card
+    with the same seeded weights, run here first for ``DIST_REF_STEPS``
+    steps on ``train_path``'s prompts. Checks: (a) teacher-forced policy
+    logprobs and values on the one process's rows (rows 1 and 4 on 8 local
+    heads); (b) step 1's statistics from the one process's store within
+    ``DIST_STAT_TOL``; (c) after ``DIST_REF_STEPS`` steps the replicated
+    parameters bit-equal across ranks (the consistency guard every step) and
+    every rank's pieces within ``DIST_PARAM_TOL`` of the one process's; (d)
+    every rank launched rows 1-3, 8 and 10 at 8 heads, 4-6 and W8 at every
+    tp-local shape; (e), the share of greedy tokens equal to the one
+    process's, is printed, not gated. The ``dist_engine`` leg, in the same
+    launch: the mesh's own rollouts come from the paged int8 engine with
+    W8A16 decode weights (iteration 0 on the main thread, iteration 1 from
+    the producer at staleness 1, graftfleet armed); every rank's schedule
+    crc of each phase equal (else ``verify_engine_schedule`` raised), the
+    staleness recorded at most 1, the rank files graftfleet writes, and the
+    engine store's logprobs within (a)'s tolerance of a one-process model on
+    the same tokens. No checkpoint is written."""
     run_dir = os.path.join(RUN_DIR, "dist")
     os.makedirs(run_dir, exist_ok=True)
     trainer, wall, launches, peak = dist_run(kernels, (1, 1, 1, 1), None, "dist_single")
@@ -4246,20 +4366,40 @@ def dist_train_path(kernels):
     for r in range(DIST_WORLD):
         with open(os.path.join(run_dir, f"rank{r}.json")) as f:
             ranks.append(json.load(f))
+    t1 = time.perf_counter()
+    engine_lp = dist_engine_logprobs(run_dir, ranks)
+    mesh_dir = os.path.join(RUN_DIR, "dist_mesh")
+    with open(os.path.join(mesh_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    staleness = [r[k] for r in records for k in ("exp_staleness", "staleness/max") if k in r]
+    fleet_files = sorted(n for n in os.listdir(mesh_dir) if n.startswith(("spans.host", "fleet_")))
+    from trlx_tpu_torch.observability.fleet import collective_skew_table
+
+    skew = sorted(collective_skew_table(mesh_dir), key=lambda row: -row["p95_ms"])[:6]
     per_step_bytes = {op: v["bytes"] / DIST_STEPS for op, v in ranks[0]["traffic"].items()}
     out = {"mesh": DIST_MESH, "n_layer": DIST_LAYERS, "single": single, "mesh_wall_s": mesh_wall,
            "ranks": [{k: r[k] for k in ("rank", "coords", "wall_s", "peak_mem_gb", "launches", "heads", "a", "b",
-                                        "c", "e_greedy_share", "traffic", "local_heads")}
+                                        "c", "e_greedy_share", "traffic", "local_heads", "schedule_crcs",
+                                        "requantized")}
                      | {"step_device_s": [s["device_s"] for s in r["steps"]],
                         "step_wall_s": [s["wall_s"] for s in r["steps"]]} for r in ranks],
            "rank0_traffic_bytes_per_step": per_step_bytes,
+           "dist_engine": {"engine_logprobs": engine_lp, "staleness": staleness, "fleet_files": fleet_files,
+                           "collective_skew_top": skew, "check_s": time.perf_counter() - t1},
            "tol": {"a_logprob_max": DIST_LP_TOL, "a_logprob_mean": DIST_LP_MEAN_TOL, "a_value": DIST_VALUE_TOL,
                    "b": DIST_STAT_TOL, "c": DIST_PARAM_TOL, "c_sign": DIST_SIGN_AGREE}}
     log(f"[dist_train] {DIST_WORLD} processes on one card over gloo, train.mesh {list(DIST_MESH)} at GPT-J-6B width "
         f"({DIST_LAYERS} layers), against one process: {json.dumps(out)} on {card_line()}")
+    for r in ranks:
+        log(f"[dist_engine] rank {r['rank']}: schedule crcs {r['schedule_crcs']}, W8 launches "
+            f"{r['launches']['w8a16_matmul']} at (K, N) {r['heads']['w8']}, rows 1-6 and 10 launches "
+            f"{ {k: r['launches'][k] for k in DIST_ENGINE_ROWS} }, peak {r['peak_mem_gb']:.2f} GB, "
+            f"engine logprobs max {engine_lp['logprob_max_abs']:.4f} mean {engine_lp['logprob_mean_abs']:.5f}, "
+            f"staleness {staleness} on {card_line()}")
     errors = []
     need = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "fused_logprob_fwd",
-            "fused_logprob_bwd_dx", "fused_logprob_bwd_dw", "decode_attention")
+            "fused_logprob_bwd_dx", "fused_logprob_bwd_dw", "decode_attention_int8", "paged_decode_attention_int8",
+            "w8a16_matmul")
     for r in ranks:
         a, b, c = r["a"], r["b"], r["c"]
         if not (a["logprob_max_abs"] <= DIST_LP_TOL and a["logprob_mean_abs"] <= DIST_LP_MEAN_TOL
@@ -4272,14 +4412,31 @@ def dist_train_path(kernels):
                 and c["update_sign_agreement"] >= DIST_SIGN_AGREE):
             errors.append(f"rank {r['rank']} (c) {c}")
         zero = [n for n in need if r["launches"][n] == 0]
-        if zero or r["heads"]["flash"] != [8] or r["heads"]["decode"] != [8] or r["local_heads"] != 8:
-            errors.append(f"rank {r['rank']} (d) no launches of {zero}, heads {r['heads']}")
+        heads = r["heads"]
+        if (zero or heads["flash"] != [8] or heads["decode"] != [8] or heads["paged"] != [8]
+                or r["local_heads"] != 8 or not DIST_TP_W8 <= {tuple(s) for s in heads["w8"]}):
+            errors.append(f"rank {r['rank']} (d) no launches of {zero}, heads and W8 shapes {heads}")
         if r["iter_count"] != DIST_STEPS:
             errors.append(f"rank {r['rank']} stopped at step {r['iter_count']}")
+        if r["requantized"] != {"kernels": 2 * W8_PRODUCTS + 1, "in_place": True}:
+            errors.append(f"rank {r['rank']} re-quantize after step {DIST_REF_STEPS}: {r['requantized']} (13 kernels "
+                          "in place expected: the two trained blocks' products and the head)")
+        if r["schedule_crcs"] != ranks[0]["schedule_crcs"] or len(r["schedule_crcs"]) < 2:
+            errors.append(f"rank {r['rank']} engine schedule crcs {r['schedule_crcs']} against rank 0's "
+                          f"{ranks[0]['schedule_crcs']}")
+    if not (engine_lp["logprob_max_abs"] <= DIST_LP_TOL and engine_lp["logprob_mean_abs"] <= DIST_LP_MEAN_TOL):
+        errors.append(f"dist_engine: the engine store's logprobs against one process {engine_lp}")
+    if not staleness or max(staleness) > 1 or 1.0 not in staleness:
+        errors.append(f"dist_engine: recorded staleness {staleness} (a store at staleness 1 expected, none above)")
+    want_files = {f"spans.host{r}.jsonl" for r in range(DIST_WORLD)} | {
+        f"fleet_collectives.host{r}.jsonl" for r in range(DIST_WORLD)} | {"fleet_clock.jsonl"}
+    if not want_files <= set(fleet_files):
+        errors.append(f"dist_engine: graftfleet files {fleet_files}")
     if errors:
         raise AssertionError(f"dist_train: {errors}")
     shutil.rmtree(run_dir, ignore_errors=True)
     return out, ranks[0]["launches"]
+
 
 
 def successor_processor(gcfg, vocab: int):

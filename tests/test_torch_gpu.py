@@ -1947,3 +1947,58 @@ def test_decode_graph_capture_under_tp2_over_nccl(tmp_path):
     graphs (``ops.generate.graphs_allowed``), and the replayed steps' greedy
     tokens equal the eager ones. Needs two cards."""
     _two_card_ranks(tmp_path, (1, 1, 2, 1), "decode")
+
+
+_NCCL_OVERLAP_RANK = """
+import os, sys, torch, torch.distributed as dist
+sys.path.insert(0, {root!r})
+sys.path.insert(0, os.path.join({root!r}, "tests"))
+rank, world = int(sys.argv[1]), 2
+os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE="2")
+torch.cuda.set_device(rank)
+dist.init_process_group("nccl", init_method="file://" + {store!r}, rank=rank, world_size=world)
+import trlx_tpu_torch
+import torch_sp_train_case as case
+from trlx_tpu_torch.data.configs import TRLConfig
+cfg = case.ppo_config(os.path.join({ckpt!r}), (1, 1, 2, 1), arch=dict(case._arch(), vocab_size=32, dtype="bfloat16"))
+cfg["train"].update(total_steps=4, epochs=2, desync_check_interval=1)
+cfg["method"].update(max_staleness=1, rollout_engine=True, engine_slots=4, prefill_batch=2, engine_steps_per_sync=2)
+cfg["model"].update(decode_weight_quant=True, dtype="bfloat16")
+t = case.task(vocab=32)
+trainer = trlx_tpu_torch.train(reward_fn=case.reward_fn, prompts=t["prompts"], eval_prompts=t["eval_prompts"],
+                               config=TRLConfig.from_dict(cfg), logit_mask=t["logit_mask"])
+assert trainer.iter_count == 4, trainer.iter_count
+assert trainer._producer_stream is not None and trainer._producer_stream != torch.cuda.default_stream()
+assert len(trainer.orch.schedule_crcs) >= 2
+dist.destroy_process_group()
+print("ok")
+"""
+
+
+def test_overlapped_pipeline_over_nccl_on_two_cards(tmp_path):
+    """The overlapped pipeline at staleness 1 with the engine and int8
+    decode weights on tp 2 over NCCL, one card a rank: the producer and its
+    score worker use the second group set and a stream of their own,
+    ordered at the snapshot handoff by events, and the run ends with the
+    consistency guard on every step and equal engine schedules. Needs two
+    cards (NCCL refuses two ranks on one card)."""
+    _cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices (NCCL refuses two ranks on one card)")
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = _NCCL_OVERLAP_RANK.format(root=root, store=str(tmp_path / "store"), ckpt=str(tmp_path / "ckpt"))
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in range(2)]
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=600)[0].decode())
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise
+    assert all(p.returncode == 0 for p in procs), [o[-3000:] for o in outs]

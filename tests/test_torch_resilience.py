@@ -110,8 +110,9 @@ def test_multihost_fault_kinds_parse_and_fire_once():
     plan = FaultPlan.parse("host_hang@2,host_kill@3,slow_host@1,host_desync@4")
     assert plan.fire("slow_host", 1) and not plan.fire("slow_host", 1)
     assert plan.fire("host_desync", 4) and plan.fire("host_kill", 3) and plan.fire("host_hang", 2)
-    # The multi-process kinds fire in the port's trainer now: none is refused.
-    assert set(MULTI_PROCESS_KINDS) == {"host_desync", "host_hang", "host_kill", "slow_host"}
+    # The multi-process kinds fire in the port's trainer and its engine loop
+    # now: none is refused.
+    assert set(MULTI_PROCESS_KINDS) == {"host_desync", "host_hang", "host_kill", "slow_host", "mid_decode_host_kill"}
     assert plan.unfired_kinds() == []
     assert FaultPlan.parse("nan_grad@1,slow_step@2,rollout_host_kill@3").unfired_kinds() == ["rollout_host_kill"]
 

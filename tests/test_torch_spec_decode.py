@@ -13,9 +13,8 @@ target, and the soft-prompt and reward-model trainers through a speculative
 engine end to end. Sampled streams are compared in their invariants only:
 the two packages draw different random numbers.
 
-Skipped with the ROADMAP item that ports what they need:
-``test_spec_schedule_fingerprint_deterministic`` (the multi-process slot
-schedule crc, §A11).
+The slot schedule crc of a speculative engine (its accepted totals folded
+in) is deterministic and equals the JAX engine's.
 """
 
 import dataclasses
@@ -329,9 +328,33 @@ def test_spec_version_spans_straddle_inflight_switch():
     engine.shutdown()
 
 
-@pytest.mark.skip(reason="the engine's multi-process slot schedule crc is not ported (ROADMAP §A11a, the engine on several processes)")
 def test_spec_schedule_fingerprint_deterministic():
-    pass
+    """Speculation folds each verify call's accepted-token total into the
+    slot schedule crc: two identical runs fingerprint identically, and equal
+    the JAX speculative engine's crc on the same weights (the two-rank
+    drills of tests/test_torch_dist_engine.py check the crc across ranks)."""
+    jmodel, jparams, model, ids, msk = _tiny_model()
+    gkw = dict(max_new_tokens=6, do_sample=False, eos_token_id=None, pad_token_id=0)
+    gcfg = GenerateConfig(**gkw)
+
+    def fingerprint():
+        e, _, _ = _run_engine(model, [(ids, msk)], gcfg, spec_decode="ngram", spec_k=3)
+        fp = e.schedule_fingerprint()
+        e.shutdown()
+        return fp
+
+    fp1, fp2 = fingerprint(), fingerprint()
+    assert fp1 == fp2 != 0
+    jeng = JaxRolloutEngine(jmodel, JaxGenerateConfig(**gkw), n_slots=2, prompt_width=6, prefill_batch=2,
+                            steps_per_sync=3, rng=jax.random.PRNGKey(2), spec_decode="ngram", spec_k=3)
+    jeng.update_weights(jparams, version=1)
+    jeng.submit(ids, msk)
+    for _ in range(300):
+        jeng.step()
+        if jeng.idle:
+            break
+    assert jeng.schedule_fingerprint() == fp1
+    jeng.shutdown()
 
 
 # -------------------------------------------------------- rejection sampling

@@ -266,7 +266,7 @@ def _ilql_config(tmp_path):
 # from the same list (trainer/base.py ``refuse_unported``).
 _KNOBS = [("method", "fleet_disaggregate", True), ("train", "watch_interval", 10), ("train", "graftnum", True),
           ("train", "device_telemetry", True), ("train", "fault_plan", "rollout_host_kill@2")]
-_ILQL_KNOBS = [("train", "graftscope", True), ("train", "graftfleet", True),
+_ILQL_KNOBS = [("train", "graftscope", True), ("train", "watch_interval", 10),
                ("train", "fleet_dir", "fleet"), ("train", "fleet_role", "rollout"),
                ("train", "profile_dir", "profiles"), ("train", "graftnum", True)]
 

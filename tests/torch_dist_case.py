@@ -255,7 +255,112 @@ def case_drill(d):
     return {}
 
 
-CASES = {"drill": case_drill, "grad": case_grad, "forward": case_forward, "generate": case_generate, "uneven": case_uneven,
+def case_engine_mesh(d):
+    """The rollout engine on the mesh: every rank builds the sharded model
+    from the given whole weights (int8 decode copies with ``w8``), submits
+    every prompt and drains greedily. Returns the episodes in completion
+    order, the schedule crc and, with ``w8``, this rank's int8 copies with
+    their placements."""
+    from trlx_tpu_torch.engine import RolloutEngine
+    from trlx_tpu_torch.models.lm import placement_of
+    from trlx_tpu_torch.ops.w8a16 import quantize_weights, quantized_weights
+
+    mesh = _mesh(d["shape"])
+    model = _sharded_model(d["arch"], d["shape"], d["params"])
+    model.requires_grad_(False)
+    out = {"coords": dict(mesh.coords)}
+    if d.get("w8"):
+        quantize_weights(model)
+        out["w8"] = {}
+        for name, (kq, sc) in quantized_weights(model).items():
+            pl = placement_of(model, name + ".kernel")
+            out["w8"][name] = (kq.numpy().copy(), sc.numpy().copy(),
+                               None if pl is None else dict(full_shape=pl.full_shape, fsdp_dim=pl.fsdp_dim,
+                                                            tp_dim=pl.tp_dim, qkv=pl.qkv, fsdp=pl.fsdp, tp=pl.tp))
+    engine = RolloutEngine(model, GenerateConfig(**d["gcfg"]), **d["engine"])
+    engine.update_weights(model, version=1)
+    engine.submit(d["prompts"], d["pmask"])
+    episodes = []
+    for _ in range(300):
+        episodes.extend(engine.step())
+        if engine.idle:
+            break
+    out["episodes"] = [(e.prompt_ids, e.prompt_mask, e.response_ids, e.response_mask) for e in episodes]
+    out["crc"] = engine.schedule_fingerprint()
+    engine.shutdown()
+    return out
+
+
+def _engine_config(d, ckpt_dir):
+    cfg = _train_config(d, ckpt_dir)
+    cfg["model"]["model_type"] = "PPOFromGivenWhole"
+    cfg["train"].update(d.get("train", {}))
+    cfg["method"].update(d.get("method", {}))
+    cfg["model"].update(d.get("model", {}))
+    return TRLConfig.from_dict(cfg)
+
+
+def case_engine_drill(d):
+    """One rank of an engine drill (tests/test_torch_dist_engine.py): PPO
+    ``train()`` through the rollout engine on the mesh, graftfleet armed.
+    Prints its verdict and the schedule crc of each engine phase."""
+    from trlx_tpu_torch.parallel.mesh import process_rank
+    from trlx_tpu_torch.resilience import distributed as dist_res
+
+    _INIT.clear()  # the trainer's own seeded weights
+    mode, rank = d["mode"], process_rank()
+    t = d["task"]
+    config = _engine_config(d, d["dir"])
+    try:
+        trainer = trlx_tpu_torch.train(reward_fn=sp_case.reward_fn, prompts=t["prompts"],
+                                       eval_prompts=t["eval_prompts"], config=config, logit_mask=t.get("logit_mask"),
+                                       device="cpu")
+    except dist_res.HostDesync as e:
+        ok = "rank 1" in str(e) and "slot schedule crc32" in str(e) and "engine slot-schedule check failed" in str(e)
+        print(f"engine {mode} rank {rank} {'DESYNC NAMED' if ok else 'DESYNC UNNAMED'}: {e}", flush=True)
+        return {"desync": str(e)}
+    crcs = trainer.orch.schedule_crcs
+    print(f"engine {mode} rank {rank} DONE crcs={crcs}", flush=True)
+    return {"crcs": crcs, "iter_count": trainer.iter_count, "store": trainer.store.columns()}
+
+
+def case_overlap_mesh(d):
+    """``train()`` once a run of ``d["runs"]`` (method and model overrides
+    each) on the mesh, from the trainer's seeded weights: serial, overlapped
+    at staleness 0, at staleness 1. Returns each run's whole parameters,
+    main-process statistics, recorded staleness and step count."""
+    out = {}
+    _INIT.clear()  # the trainer's own seeded weights
+    for name, over in d["runs"].items():
+        ckpt = os.path.join(d["dir"], name)
+        config = _engine_config(dict(d, method=dict(d.get("method", {}), **over.get("method", {})),
+                                     model=over.get("model", {})), ckpt)
+        t = d["task"]
+        trainer = trlx_tpu_torch.train(reward_fn=sp_case.reward_fn, prompts=t["prompts"],
+                                       eval_prompts=t["eval_prompts"], config=config, logit_mask=t.get("logit_mask"),
+                                       device="cpu")
+        snap = trainer._snapshot_weights
+        run = {"iter_count": trainer.iter_count, "params": _whole(trainer.model, dict(trainer.model.named_parameters())),
+               "producer_groups": trainer.mesh.producer_groups is not None, "crcs": trainer.orch.schedule_crcs,
+               "snapshot_held": 0 if snap is None else len(snap._held),
+               "snapshot_w8": 0 if snap is None else len(snap._quant)}
+        if is_main_process():
+            run["stats"] = sp_case.step_stats(os.path.join(ckpt, "metrics.jsonl"), sp_case.PPO_STAT_KEYS)
+            run["staleness"] = [r.get("staleness/max") for r in _records(os.path.join(ckpt, "metrics.jsonl"))
+                                if "staleness/max" in r]
+        out[name] = run
+    return out
+
+
+def _records(path):
+    import json
+
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+CASES = {"drill": case_drill, "engine_mesh": case_engine_mesh, "engine_drill": case_engine_drill,
+         "overlap_mesh": case_overlap_mesh, "grad": case_grad, "forward": case_forward, "generate": case_generate, "uneven": case_uneven,
          "ppo": case_ppo, "load": case_load, "ilql": case_ilql}
 
 

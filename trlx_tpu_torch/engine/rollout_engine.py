@@ -17,7 +17,9 @@ and a finished slot is refilled from the prompt queue instead of idling:
   ``step()``. On a CUDA device the whole call of ``steps_per_sync`` steps is
   captured once as a CUDA graph (``ops.cuda_graph``) and replayed, as the
   JAX engine runs one compiled scan; it is captured again only when the
-  decoding module is another object.
+  decoding module is another object. Where tp's all-reduces are staged
+  through the host (a gloo mesh) the steps run eagerly, by the sampler's
+  rule (``ops.generate.graphs_allowed``).
 - With ``paged_kv`` the cache is one shared block pool plus per-slot block
   tables (``paged_pool.BlockPool``); prompts whose leading blocks are
   bit-identical share them, and the admitted slot prefills only its suffix.
@@ -58,11 +60,39 @@ all slots, so sampled runs match the JAX engine only in distribution.
 Host spans (``observability.spans``, when armed): ``engine/prefill`` per
 prefill group, ``engine/decode`` / ``engine/verify`` per sync quantum.
 
-Not ported here: multi-process slot managers and the schedule fingerprint,
-the dispatch lock, sanitizer hooks, and the slot timeline of graftscope.
+Multi-process contract (a mesh of several ranks, ``parallel.mesh``): every
+rank runs this same slot manager over the same prompt set (the node set's
+whole, submitted on every rank; never a rank's slice), so every rank makes
+the same admission, pool and harvest decisions and launches the same
+decode steps. The slot state and the KV pool are replicated over the data
+ranks; the attention heads in the cache are the rank's tp heads, as the
+model splits them, so the only collectives inside a decode step are the
+model's tp all-reduces (and the fsdp pieces' compute copies are held whole,
+gathered once per weight version). What the slot manager reads from the
+device at a sync (the finish flags, the tokens generated, a spec engine's
+accepted totals and windows) is identical on every rank by construction:
+every rank's engine draws from one generator seed at the same offsets, its
+inputs are identical (the same prompts, weights that are replicas or the
+same tp pieces), and each decode step's kernels are deterministic, as is
+the tp all-reduce, which hands every rank of a group the same sum. Each
+decision is folded into a rolling crc32 (``schedule_fingerprint``; the tags
+and payloads of the JAX engine, so the two crcs are equal for one
+schedule), which the orchestrator checks across ranks at the end of each
+phase (``resilience.distributed.verify_engine_schedule``): the check should
+only ever catch a bug. With ``collective_deadline`` set and several
+processes, each sync quantum (admission, decode or verify, and the read
+back) runs under ``collective_guard("engine/decode_sync")`` whose incident
+detail is ``slot_states()``: a peer that dies mid-decode ends the others
+with exit 117 and the in-flight slots in the bundle. Sharding the slots
+over the data ranks is not done (ROADMAP §B).
+
+Not ported here: the dispatch lock, sanitizer hooks, and the slot timeline
+of graftscope.
 """
 
 import time
+import zlib
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -73,6 +103,7 @@ from trlx_tpu_torch.engine.paged_pool import BlockPool, PoolExhausted
 from trlx_tpu_torch.models.lm import decode_weights, init_cache, init_paged_cache, refresh_weight_copies
 from trlx_tpu_torch.observability.spans import trace_span
 from trlx_tpu_torch.ops.cuda_graph import CudaGraph, StepGraph
+from trlx_tpu_torch.ops.generate import graphs_allowed
 from trlx_tpu_torch.ops.sampling import GenerateConfig, process_logits_default, sample_categorical
 from trlx_tpu_torch.pipeline.prompt_pipeline import PromptSlotQueue
 
@@ -133,6 +164,7 @@ class RolloutEngine:
         spec_k: int = 0,
         drafter=None,
         generator: Optional[torch.Generator] = None,
+        collective_deadline: Optional[float] = None,
         _eager: bool = False,
     ):
         if n_slots < 1:
@@ -196,7 +228,16 @@ class RolloutEngine:
             generator = torch.Generator(device=self.device)
             generator.manual_seed(0)
         self.generator = generator
-        self._use_graph = self.device.type == "cuda" and not _eager
+        # The rolling crc32 of every slot-manager decision (admissions, pool
+        # rows, harvests, accepted totals): equal on every rank iff their
+        # schedules matched (the module docstring's contract).
+        self._schedule_crc = 0
+        # The deadline of each sync quantum's collective guard with several
+        # processes; None leaves it unguarded.
+        self._collective_deadline = collective_deadline
+        # The sampler's capture rule (ops.generate.graphs_allowed): eager where
+        # tp's all-reduces are staged through the host (gloo).
+        self._use_graph = not _eager and graphs_allowed(self.device)
         self._graph = None  # (the module it was captured with, its StepGraph)
         if spec:
             from trlx_tpu_torch.engine.drafters import make_drafter
@@ -306,7 +347,7 @@ class RolloutEngine:
         if self._variables is None:
             raise RuntimeError("RolloutEngine.update_weights() must be called before step()")
         self._ensure_state()
-        with decode_weights(self._variables):
+        with decode_weights(self._variables), self._sync_guard():
             self._admit()
             n_live = self.live_slots
             if n_live == 0:
@@ -321,6 +362,7 @@ class RolloutEngine:
         episodes = []
         done = [i for i in range(self.n_slots) if self._slot_meta[i] is not None and finished[i]]
         if done:
+            self._roll_schedule("harvest", *done)
             # A copy: on the CPU .cpu() aliases the slot buffer, which the
             # next admission overwrites.
             toks = self._state["tokens"].cpu().numpy().copy()
@@ -389,6 +431,9 @@ class RolloutEngine:
         self._gen_tokens += acc_total
         self._spec_proposed += K * n_live
         self._spec_accepted += acc_total
+        # A pure function of the slot state: folded in, a numerics
+        # divergence between ranks is named before it desyncs admissions.
+        self._roll_schedule("verify", acc_total)
         self._observe_accepted(acc, window)
         return finished, n_gen
 
@@ -464,6 +509,7 @@ class RolloutEngine:
                 break
             width, ids, msk = group
             slots = [self._free.pop() for _ in range(ids.shape[0])]
+            self._roll_schedule("admit", int(width), int(ids.shape[0]), *slots)
             t0 = time.perf_counter()
             with trace_span("engine/prefill", n=len(slots), width=int(width)):
                 self._prefill(ids, msk, slots)
@@ -505,6 +551,11 @@ class RolloutEngine:
                 self.queue.push_rows(ids[len(rows):], msk[len(rows):])
             if not rows:
                 break
+            self._roll_schedule("admit", int(width), len(rows), *[slot for slot, _, _, _ in rows])
+            for slot, _, tbl_row, hit in rows:
+                # Pool decisions too: a divergent allocator is named, not
+                # read as silently different attention.
+                self._roll_schedule("pool", slot, hit, *tbl_row)
             by_hit = {}
             for slot, r, tbl_row, hit in rows:
                 by_hit.setdefault(hit, []).append((slot, r, tbl_row))
@@ -596,6 +647,30 @@ class RolloutEngine:
             shared.update(self.pool.shared_blocks(i))
         toks += len(shared) * self.block_size
         return max(0.0, 1.0 - toks / float(used * self.block_size))
+
+    def _roll_schedule(self, tag: str, *vals):
+        """Fold one slot-manager decision into the rolling schedule crc:
+        ``zlib.crc32`` of ``tag:v,v,...`` (the JAX engine's payload)."""
+        payload = (tag + ":" + ",".join(str(int(v)) for v in vals)).encode()
+        self._schedule_crc = zlib.crc32(payload, self._schedule_crc)
+
+    def schedule_fingerprint(self) -> int:
+        """The rolling crc32 of every admission, pool, harvest and verify
+        decision this engine made: equal across ranks iff their schedules
+        were (``resilience.distributed.verify_engine_schedule``)."""
+        return self._schedule_crc
+
+    def _sync_guard(self):
+        """The collective guard of a sync quantum, armed with several
+        processes and a deadline; a no-op context otherwise."""
+        from trlx_tpu_torch.parallel.mesh import world_size
+
+        if self._collective_deadline is None or world_size() <= 1:
+            return nullcontext()
+        from trlx_tpu_torch.resilience.distributed import collective_guard
+
+        return collective_guard("engine/decode_sync", deadline=self._collective_deadline,
+                                detail=lambda: {"slot_states": self.slot_states()})
 
     def slot_states(self) -> list:
         """Host summary of the in-flight slots: slot, prompt width, weight

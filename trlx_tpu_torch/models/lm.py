@@ -1015,7 +1015,11 @@ class TransformerLM(nn.Module):
             )
         elif compute_logits:
             x_head = x[:, logits_start:] if logits_start else x
-            if full_w is not None:
+            if full_w is not None and not tied and self.lm_head.w8_on:
+                # Sharded, int8 decode weights: the head's whole int8 copy.
+                bias = None if b_head is None else full_weight(b_head, dtype, full_b.pl)
+                logits = w8a16_matmul(x_head.to(dtype), self.lm_head.w8[1], self.lm_head.w8[2], bias)
+            elif full_w is not None:
                 # Sharded: every rank computes the whole vocabulary from the
                 # gathered head (its gradient keeps this rank's piece).
                 w = full_weight(w_head, dtype, full_w.pl)

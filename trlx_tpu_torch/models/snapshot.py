@@ -25,15 +25,30 @@ whose weights only the boundary handoff writes:
   (the JAX package re-quantizes its f32 snapshot), and shares the frozen
   ones.
 
+On a sharded mesh (fsdp or tp above 1) the live module reads an fsdp
+piece through its held compute copy, whole over fsdp (``fsdp_weight``), and
+the LM head through its held whole (``full_weight``). The snapshot copies
+those held copies, not the pieces: the take refreshes each one on the main
+thread (a gather on the main group set, in parameter order, the same on
+every rank) and stages it, the adopt copies it into the snapshot
+parameter's own held copy, whose key stays current because nothing writes
+the snapshot's piece. So the producer's rollouts issue no fsdp gather; its
+only collectives are the tp all-reduces of its forwards, on the producer's
+own groups (``parallel.mesh``). The int8 copies of a sharded model are the
+decode shapes' (``ops.w8a16.quantize_dense``, collective on the main
+thread at the take).
+
 The handoff is staged. ``take(version)`` (main thread, at the boundary,
 when no train step is in flight) writes the live values into a staging
 copy; ``adopt()`` (producer thread, between stores only) copies the stage
 into the module's tensors in place, so they keep their addresses and a
-decode graph captured on the snapshot reads the new weights. Both enqueue
-their copies on the device's default stream, which both threads use, under
-one lock, so the card runs them in the order the lock let them in: a take
-never overwrites a stage that an adopt in progress reads, and an adopt
-reads a whole stage.
+decode graph captured on the snapshot reads the new weights. Both run
+under one lock. On one stream (the default stream both threads use) the
+card runs their copies in the order the lock let them in. When the producer
+enqueues on a stream of its own (several processes over NCCL), an event
+recorded after each take is waited on by the next adopt's stream, and one
+recorded after each adopt by the next take's: a take never overwrites a
+stage that an adopt in progress reads, and an adopt reads a whole stage.
 """
 
 import copy
@@ -43,8 +58,8 @@ from typing import Dict, Optional, Set
 import torch
 from torch import nn
 
-from trlx_tpu_torch.models.lm import Dense, Embed
-from trlx_tpu_torch.ops.w8a16 import quantize_channels
+from trlx_tpu_torch.models.lm import Dense, Embed, fsdp_weight, full_weight, placement_of
+from trlx_tpu_torch.ops.w8a16 import quantize_dense
 
 
 def _compute_dtype_names(model: nn.Module) -> Set[str]:
@@ -63,6 +78,29 @@ def _compute_dtype_names(model: nn.Module) -> Set[str]:
             names.add(prefix + "embedding")
     names.update(n for n, _ in model.named_parameters() if n.endswith("soft_prompt"))
     return names
+
+
+def _held_reads(model: nn.Module) -> Dict[str, list]:
+    """{parameter name: [(attribute, how), ...]}: the held copies through
+    which a sharded module reads a parameter (``_fsdp_copy`` with its fsdp
+    dim, ``_full_copy`` with its placement for the LM head's weight and
+    bias). Empty for an unsharded module."""
+    out = {}
+    tied = bool(model.cfg.tie_word_embeddings)
+    for name, _ in model.named_parameters():
+        pl = placement_of(model, name)
+        if pl is None or (pl.fsdp_dim is None and pl.tp_dim is None):
+            continue
+        parts = name.split(".")
+        lm_head = "lm_head" in parts
+        reads = []
+        if lm_head or (tied and parts[-2:] == ["wte", "embedding"]):
+            reads.append(("_full_copy", pl))  # the sharded head reads its whole
+        if pl.fsdp_dim is not None and not lm_head:
+            reads.append(("_fsdp_copy", pl.fsdp_dim))  # every other reader gathers over fsdp
+        if reads:
+            out[name] = reads
+    return out
 
 
 class RolloutSnapshot:
@@ -92,36 +130,73 @@ class RolloutSnapshot:
                 memo[id(mod.w8)] = mod.w8
         self.module = copy.deepcopy(model, memo)
         own = dict(self.module.named_parameters())
-        self.params = {n: own[n] for n in self.names}
+        # A sharded module's trainable parameters read through held copies:
+        # those are the snapshot's, with keys fixed to its untouched pieces.
+        held = {n: h for n, h in _held_reads(model).items() if n in trainable}
+        self._held = []  # (name, attribute, how, the snapshot's held buffer)
+        for n, reads in held.items():
+            p = own[n]
+            for attr, how in reads:
+                shape = tuple(how.full_shape) if attr == "_full_copy" else _gathered_shape(p.shape, how, model)
+                buf = torch.empty(shape, dtype=dtype, device=p.device)
+                setattr(p, attr, [(p._version, p.data_ptr()), buf, how])
+                self._held.append((n, attr, how, buf))
+        # A piece is copied too where a reader takes it as it is (an
+        # fsdp-whole parameter split over tp only, outside the head).
+        self.params = {n: own[n] for n in self.names if n not in held or _read_as_piece(model, n)}
         snap_mods = dict(self.module.named_modules())
         for name, mod in model.named_modules():
             if getattr(mod, "w8", None) is not None and mod.kernel.requires_grad:
-                self._quant.append((mod, snap_mods[name]))
+                self._quant.append((name, mod, snap_mods[name]))
         self._stage = {n: torch.empty_like(t) for n, t in self.params.items()}
-        self._stage_w8 = [(torch.empty_like(s.w8[1]), torch.empty_like(s.w8[2])) for _, s in self._quant]
+        self._stage_held = [torch.empty_like(buf) for _, _, _, buf in self._held]
+        self._stage_w8 = [(torch.empty_like(s.w8[1]), torch.empty_like(s.w8[2])) for _, _, s in self._quant]
         self._lock = threading.Lock()
+        self._taken = self._adopted = None  # CUDA events ordering takes and adopts across streams
         self.staged_version: Optional[int] = None
         self.version: Optional[int] = None
 
     def nbytes(self) -> Dict[str, int]:
-        """Device bytes the snapshot owns: the module's own tensors (and
-        int8 copies) and the stage, each."""
+        """Device bytes the snapshot owns: the module's own tensors (its
+        held copies, its int8 copies) and the stage, each."""
         own = sum(t.numel() * t.element_size() for t in self.params.values())
-        own += sum(s.w8[1].numel() + s.w8[2].numel() * 4 for _, s in self._quant)
+        own += sum(buf.numel() * buf.element_size() for _, _, _, buf in self._held)
+        own += sum(s.w8[1].numel() + s.w8[2].numel() * 4 for _, _, s in self._quant)
         return {"module": own, "stage": own}
+
+    @staticmethod
+    def _wait(event):
+        """Order the current stream after ``event`` (another stream's copies)."""
+        if event is not None:
+            torch.cuda.current_stream().wait_event(event)
+
+    def _record(self):
+        """An event after the copies just enqueued (None off the card)."""
+        if not next(self.module.parameters()).is_cuda:
+            return None
+        event = torch.cuda.Event()
+        event.record()
+        return event
 
     @torch.no_grad()
     def take(self, version: int):
         """Stage the live values under ``version`` (main thread, at an
         iteration boundary)."""
         with self._lock:
-            for n, p in self.live.named_parameters():
+            self._wait(self._adopted)
+            live = dict(self.live.named_parameters())
+            for n, p in live.items():
                 if n in self._stage:
                     self._stage[n].copy_(p.detach())
-            for (mod, _), (kq, sc) in zip(self._quant, self._stage_w8):
-                q, s = quantize_channels(mod.kernel)
+            dtype = self.live.cfg.compute_dtype
+            for (n, attr, how, _), st in zip(self._held, self._stage_held):
+                w = live[n]
+                st.copy_(full_weight(w, dtype, how) if attr == "_full_copy" else fsdp_weight(w, dtype, how))
+            for (name, mod, _), (kq, sc) in zip(self._quant, self._stage_w8):
+                q, s = quantize_dense(name, mod)
                 kq.copy_(q)
                 sc.copy_(s)
+            self._taken = self._record()
             self.staged_version = version
 
     @torch.no_grad()
@@ -130,13 +205,35 @@ class RolloutSnapshot:
         between stores) and return the version it holds."""
         with self._lock:
             if self.staged_version is not None and self.staged_version != self.version:
+                self._wait(self._taken)
                 for n, t in self.params.items():
                     t.copy_(self._stage[n])
-                for (_, snap), (kq, sc) in zip(self._quant, self._stage_w8):
+                own = dict(self.module.named_parameters())
+                for (n, attr, _, buf), st in zip(self._held, self._stage_held):
+                    buf.copy_(st)
+                    # Current for the snapshot's piece as it now is: the
+                    # forward reads the copy and gathers nothing.
+                    getattr(own[n], attr)[0] = (own[n]._version, own[n].data_ptr())
+                for (_, _, snap), (kq, sc) in zip(self._quant, self._stage_w8):
                     snap.w8[1].copy_(kq)
                     snap.w8[2].copy_(sc)
                     # Made from the live master, not from the snapshot's own
                     # (compute-dtype) kernel: mark the copy current.
                     snap.w8[0] = (snap.kernel._version, snap.kernel.data_ptr())
+                self._adopted = self._record()
                 self.version = self.staged_version
             return self.version
+
+
+def _read_as_piece(model: nn.Module, name: str) -> bool:
+    """A reader takes parameter ``name`` as its piece (no fsdp split, and
+    not the untied LM head's, which the sharded head reads whole)."""
+    pl = placement_of(model, name)
+    return pl is None or (pl.fsdp_dim is None and "lm_head" not in name.split("."))
+
+
+def _gathered_shape(piece_shape, fsdp_dim: int, model: nn.Module):
+    """The shape of a piece gathered over the mesh's fsdp axis."""
+    shape = list(piece_shape)
+    shape[fsdp_dim] *= max(1, model.cfg.fsdp_size)
+    return tuple(shape)

@@ -10,7 +10,8 @@ default:
   prefixed ``trlx_tpu_``; keys ending ``_total`` are counters, the rest
   gauges; cumulative histograms (``observe``) with optional labels.
 - ``GET /healthz``: the HealthMonitor's JSON status (``ok`` / ``degraded``
-  / ``critical`` and each detector's state).
+  / ``critical`` and each detector's state), with graftfleet's ``fleet``
+  block when it is armed (``set_fleet``).
 
 The handler reads a snapshot under a lock and never touches trainer state,
 so a scrape never stalls a train step.
@@ -69,6 +70,7 @@ class MetricsExporter:
         # "sum": float, "count": int} — cumulative, Prometheus-style.
         self._histograms = {}
         self._health = None
+        self._fleet = None  # graftfleet's /healthz block (set_fleet)
         self._step = 0
         exporter = self
 
@@ -147,6 +149,13 @@ class MetricsExporter:
                 self._step = int(step)
             if health is not None:
                 self._health = health
+
+    def set_fleet(self, payload):
+        """Attach graftfleet's block (per-rank heartbeat ages, the desync
+        check's status, the straggler verdict, the clock estimate) to
+        ``/healthz``."""
+        with self._lock:
+            self._fleet = payload
 
     def observe(self, key: str, values, buckets, labels: dict = None):
         """Fold ``values`` into the cumulative histogram ``key`` (creating
@@ -237,10 +246,13 @@ class MetricsExporter:
     def render_healthz(self) -> dict:
         with self._lock:
             health = self._health
+            fleet = self._fleet
             step = self._step
         payload = {"status": "unknown", "detectors": {}}
         if health:
             payload.update(health)
+        if fleet is not None:
+            payload["fleet"] = fleet
         payload["step"] = step
         return payload
 

@@ -438,6 +438,15 @@ class HealthMonitor:
         self.entropy_scale = 1.0
         self._drift_from_call = None
 
+    def register_detector(self, detector: HysteresisDetector):
+        """Adopt a detector another module feeds (graftfleet's
+        ``FleetStragglerDetector``): its state rides the ``health/*`` gauges
+        and ``/healthz``, and its CRIT escalates like the built-ins'."""
+        with self._lock:
+            self.detectors[detector.name] = detector
+            detector.on_crit = self._escalate
+        return detector
+
     # ------------------------------------------------------------ drills
 
     def inject_reward_drift(self, from_call=None):

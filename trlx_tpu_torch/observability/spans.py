@@ -20,17 +20,40 @@ work, and no site adds a device sync.
 Events: ``ph:"X"`` complete spans (``ts``/``dur`` in microseconds of wall
 clock), ``ph:"i"`` instants (guard skip, watchdog rollback, incident), and
 ``ph:"M"`` ``thread_name`` metadata at a lane's first event.
+
+With graftfleet armed (``observability.fleet``) each rank writes its own
+``spans.host<k>.jsonl`` (k its rank; one file a rank survives a torn tail
+per rank), and ``read_fleet_spans`` merges them into one trace with a lane
+per rank, shifted into rank 0's clock by the last ``fleet_clock.jsonl``
+estimate, with its alignment bound stated.
 """
 
+import os
+import re
 import threading
 import time
 import warnings
 
 from trlx_tpu_torch.utils import jsonl
 
-__all__ = ["configure", "shutdown", "enabled", "trace_span", "complete", "instant", "read_spans", "SPANS_FILENAME"]
+__all__ = ["configure", "shutdown", "enabled", "trace_span", "complete", "instant", "read_spans", "SPANS_FILENAME",
+           "FLEET_CLOCK_FILENAME", "TID_STRIDE", "host_spans_filename", "read_fleet_spans"]
 
 SPANS_FILENAME = "spans.jsonl"
+# graftfleet's clock-offset history (observability/fleet.py appends one
+# record an estimate); read_fleet_spans applies the last one.
+FLEET_CLOCK_FILENAME = "fleet_clock.jsonl"
+# Rank k's lane t becomes k * TID_STRIDE + t in the merged trace, so the
+# small per-rank thread counters never collide.
+TID_STRIDE = 1000
+
+_HOST_SPANS_RE = re.compile(r"^spans\.host(\d+)\.jsonl$")
+
+
+def host_spans_filename(process_index: int) -> str:
+    """Rank ``process_index``'s spans file under graftfleet:
+    ``spans.host<k>.jsonl``."""
+    return f"spans.host{int(process_index)}.jsonl"
 
 
 class _NullSpan:
@@ -167,3 +190,64 @@ def instant(name: str, **args):
 def read_spans(path: str):
     """Parse a spans.jsonl, tolerating a torn final line."""
     return jsonl.read_jsonl(path)
+
+
+def _last_clock_record(checkpoint_dir: str):
+    """The newest clock-offset record of ``fleet_clock.jsonl`` (None
+    without one); a torn tail is routine after a kill."""
+    path = os.path.join(checkpoint_dir, FLEET_CLOCK_FILENAME)
+    if not os.path.exists(path):
+        return None
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        records = jsonl.read_jsonl(path)
+    return records[-1] if records else None
+
+
+def read_fleet_spans(checkpoint_dir: str) -> dict:
+    """Every rank's span file merged into ONE Chrome trace: rank k's events
+    on pid k, their tids remapped to ``k * TID_STRIDE + tid`` and their
+    timestamps shifted by −offset_k into rank 0's clock when a
+    ``fleet_clock.jsonl`` estimate exists (each rank's process_name states
+    its offset and the bound: uncertainty plus drift). Each file's torn tail
+    is tolerated; a plain ``spans.jsonl`` (graftfleet off) merges as the
+    pids it carries. Returns ``{"traceEvents", "hosts", "clock",
+    "alignment_error_s"}``."""
+    checkpoint_dir = os.path.abspath(checkpoint_dir)
+    try:
+        names = sorted(os.listdir(checkpoint_dir))
+    except OSError:
+        names = []
+    files = [(int(m.group(1)), os.path.join(checkpoint_dir, n)) for n in names for m in [_HOST_SPANS_RE.match(n)] if m]
+    if not files and SPANS_FILENAME in names:
+        files.append((None, os.path.join(checkpoint_dir, SPANS_FILENAME)))
+    clock = _last_clock_record(checkpoint_dir)
+    offsets = list(clock.get("offsets_s", [])) if clock else []
+    bound = float(clock.get("uncertainty_s", 0.0)) + float(clock.get("drift_s", 0.0)) if clock else 0.0
+    events, hosts = [], []
+    for host, path in sorted(files, key=lambda kv: (kv[0] is None, kv[0])):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # torn tails, per file
+            try:
+                host_events = jsonl.read_jsonl(path)
+            except (OSError, ValueError):
+                continue
+        if host is None:
+            events.extend(host_events)
+            hosts.extend(sorted({e.get("pid", 0) for e in host_events}))
+            continue
+        hosts.append(host)
+        shift_us = int(offsets[host] * 1e6) if host < len(offsets) else 0
+        for event in host_events:
+            event = dict(event)
+            event["pid"] = host
+            if "tid" in event:
+                event["tid"] = host * TID_STRIDE + int(event["tid"])
+            if shift_us and "ts" in event:
+                event["ts"] = int(event["ts"]) - shift_us
+            events.append(event)
+        label = f"host{host}"
+        if host < len(offsets):
+            label += f" (clock offset {offsets[host] * 1e3:+.3f}ms ± {bound * 1e3:.3f}ms)"
+        events.append({"name": "process_name", "ph": "M", "pid": host, "args": {"name": label}})
+    return {"traceEvents": events, "hosts": sorted(set(hosts)), "clock": clock, "alignment_error_s": bound}

@@ -14,6 +14,18 @@ port's product is a kernel of its own that reads the int8 bytes once.
   ``QUANT_KERNEL_NAMES`` (the trunk's products and an untied ``lm_head``),
   kept on the Dense (``Dense.w8``) and re-quantized in place when its master
   changes, so a captured decode graph reads the new codes.
+
+On a sharded mesh (``parallel.sharding``) a Dense's master is this rank's
+piece, and its int8 copy has the shape the decode product reads: the
+tp-local kernel whole over fsdp (the LM head: the whole kernel, as its bf16
+copy is). The scale is per output column over the whole K, so the column
+absmax of the rows this rank holds is first all-reduced (max) over each
+axis that splits K (tp for the row-parallel attention output and MLP
+output, fsdp for the column-parallel products); the codes of the piece are
+then gathered over fsdp (and, for the head, over tp), with the scales of an
+axis that splits the columns. Each rank's codes and scales are the slice of
+the whole master's quantization, bit for bit. Every rank quantizes the same
+kernels in module order, so the collectives line up.
 """
 
 import torch
@@ -43,6 +55,41 @@ def quantize_channels(w: torch.Tensor):
     return torch.round(wf / scale).to(torch.int8), scale
 
 
+def quantize_dense(name: str, mod: torch.nn.Module):
+    """(int8 codes, f32 scales) of the Dense ``mod`` (``name`` its module
+    path): ``quantize_channels`` of its kernel, or on a sharded mesh the
+    slice of the whole master's quantization its decode product reads (the
+    module docstring). Collective where the kernel is split."""
+    w = mod.kernel
+    pl = getattr(mod, "placement", {}).get("kernel")
+    if pl is None or (pl.fsdp_dim is None and pl.tp_dim is None):
+        return quantize_channels(w)
+    from trlx_tpu_torch.parallel import collectives as coll
+    from trlx_tpu_torch.parallel.mesh import AXIS_FSDP, AXIS_TP, get_mesh
+
+    mesh = get_mesh()
+    fsdp, tp = mesh.group(AXIS_FSDP), mesh.group(AXIS_TP)
+    wf = w.detach().float()
+    amax = wf.abs().amax(dim=0)
+    # The column max over the whole K: over the axes that split K.
+    if pl.fsdp_dim == 0:
+        amax = coll.all_reduce(amax, fsdp, op="max")
+    if pl.tp_dim == 0:
+        amax = coll.all_reduce(amax, tp, op="max")
+    scale = torch.clamp(amax / 127.0, min=1e-8)
+    codes = torch.round(wf / scale).to(torch.int8)
+    if pl.fsdp_dim is not None:
+        codes = coll.all_gather(codes, fsdp, pl.fsdp_dim)
+        if pl.fsdp_dim == 1:
+            scale = coll.all_gather(scale, fsdp, 0)
+    if name.rpartition(".")[2] == "lm_head" and pl.tp_dim is not None:
+        # The head decodes from its whole, on every tp rank.
+        codes = pl.join_tp(coll.all_gather(codes, tp, pl.tp_dim).chunk(tp.size, dim=pl.tp_dim))
+        if pl.tp_dim == 1:
+            scale = torch.cat(coll.all_gather(scale, tp, 0).chunk(tp.size, dim=0))
+    return codes.contiguous(), scale.contiguous()
+
+
 def quantize_weights(module: torch.nn.Module) -> int:
     """Give every Dense of ``module`` named in ``QUANT_KERNEL_NAMES`` its
     int8 copy ``w8 = [key, codes, scales]``, or bring a stale one up to date
@@ -58,7 +105,7 @@ def quantize_weights(module: torch.nn.Module) -> int:
         held = getattr(mod, "w8", None)
         if held is not None and held[0] == key:
             continue
-        kq, scale = quantize_channels(w)
+        kq, scale = quantize_dense(name, mod)
         if held is None:
             mod.w8 = [key, kq, scale]
         else:

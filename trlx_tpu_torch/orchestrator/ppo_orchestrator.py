@@ -22,7 +22,10 @@ reward.
 With the overlapped pipeline (``rl.overlap_rollouts``) host decode and
 ``reward_fn`` run on a FIFO ``ScoreWorker`` thread (unless a reward model
 scores), so this thread keeps generating and scoring on the device; FIFO
-keeps the serial path's reward-call and push order. The rollout producer
+keeps the serial path's reward-call and push order. With several processes
+a scored chunk is finished when the queue is full or the phase drains,
+never because its score happens to be ready early: the collectives of
+finishing it must come at the same point on every rank. The rollout producer
 calls ``make_experience`` with a fresh ``store``, the boundary ``snapshot``
 (adopted here, at the store's start: the rollouts of one store read one
 weight version), the store's ``staleness`` (a column of a store that
@@ -48,10 +51,21 @@ every node's rows, each rank scores its rows on the device, and every rank
 of a node stores the node's rows, so the store and the train loader's
 batches are those of a one-process run.
 
-Not ported here: in-flight weight polling, the engine on several processes
-(its schedule checks) and the fleet.
+The engine path on several processes follows the engine's multi-process
+contract (``engine.rollout_engine``): every rank submits the same prompt
+set (the node set's whole: every node's prompts), so its slot manager makes
+the same decisions; a chunk of harvested episodes is split as the chunked
+path splits its chunk (the reward over every node's rows on the main
+process, each data rank scoring its rows of its node's, every rank storing
+its node's). The sync ticks carry ``mid_decode_host_kill``, the heartbeat
+says ``rollout``, and the phase ends with ``verify_engine_schedule`` under
+``collective_guard("engine/schedule_verify")`` with the slot states as its
+incident detail.
+
+Not ported here: in-flight weight polling and the fleet.
 """
 
+import os
 import time
 from collections import deque
 
@@ -60,7 +74,7 @@ import numpy as np
 from trlx_tpu_torch.device import elapsed_s
 from trlx_tpu_torch.observability.spans import complete as span_complete, trace_span
 from trlx_tpu_torch.orchestrator import Orchestrator, register_orchestrator
-from trlx_tpu_torch.parallel.mesh import node_count
+from trlx_tpu_torch.parallel.mesh import node_count, world_size
 from trlx_tpu_torch.pipeline.overlap import ScoreWorker
 from trlx_tpu_torch.resilience.faults import FaultInjected
 from trlx_tpu_torch.resilience.retry import call_with_retries
@@ -76,6 +90,7 @@ class PPOOrchestrator(Orchestrator):
         self._chunks_consumed = 0
         self._reward_calls = 0
         self.reward_log = []  # per reward call: its index, attempts and wall seconds
+        self.schedule_crcs = []  # the engine's schedule crc at the end of each engine phase
         self.rl_model.orch = self
         self.rl_model.reward_fn = reward_fn
         self.rl_model.metric_fn = metric_fn
@@ -174,6 +189,14 @@ class PPOOrchestrator(Orchestrator):
             return None, 0
         depth = max(1, int(rl.config.method.score_queue_depth or 2))
         return ScoreWorker(self._host_score, depth=depth), depth
+
+    @staticmethod
+    def _drain_ready(worker) -> bool:
+        """Finish a scored chunk before the queue is full: when its score is
+        ready, on one process. Finishing issues collectives (the scoring
+        forwards, the row gathers), and readiness is a matter of each rank's
+        timing, so with several processes only the queue depth decides."""
+        return world_size() == 1 and worker.ready()
 
     def make_experience(self, num_rollouts: int = 1024, iter_count: int = 0, store=None, snapshot=None,
                         staleness: int = 0, stop=None):
@@ -311,7 +334,7 @@ class PPOOrchestrator(Orchestrator):
                     # ``depth`` chunks wait unscored.
                     worker.submit((tokens_h, mask_h, iter_count))
                     inflight.append(ctx)
-                    while inflight and (len(inflight) > depth or worker.ready()):
+                    while inflight and (len(inflight) > depth or self._drain_ready(worker)):
                         finish_chunk(inflight.popleft(), worker.result())
                 else:
                     # One reward call a chunk, on the main process over every
@@ -386,14 +409,31 @@ class PPOOrchestrator(Orchestrator):
         pad_id = int(rl.pad_token_id)
         chunk = max(1, min(int(self.chunk_size), int(num_rollouts)))
 
+        nodes = node_count()
         t_phase = time.perf_counter()
+        # Every rank submits the whole set: each node's num_rollouts, node by
+        # node (the node's own prompts where there is one node).
         submitted = 0
         while submitted < num_rollouts:
             batch = self._next_prompt_batch()
             ids, msk = np.asarray(batch["input_ids"]), np.asarray(batch["attention_mask"])
             take = min(int(ids.shape[0]), num_rollouts - submitted)
-            engine.submit(ids[:take], msk[:take])
+            if nodes > 1:
+                ids, msk = rl.gather_node_rows(ids[:take]), rl.gather_node_rows(msk[:take])
+            engine.submit(ids[:take * nodes], msk[:take * nodes])
             submitted += take
+        total = num_rollouts * nodes
+        # A chunk counts every node's rows, as on the chunked path, and
+        # splits over the node's data ranks.
+        chunk_all = chunk * nodes
+        per_node_ranks = rl.mesh.data_size // nodes
+        for rows in {chunk, num_rollouts % chunk or chunk}:
+            if rows % per_node_ranks:
+                raise ValueError(
+                    f"rollout chunk of {rows} rows does not divide evenly over {per_node_ranks} processes — pick a "
+                    "chunk_size (and num_rollouts) that is a positive multiple of the process count")
+        fault_plan = rl.fault_plan
+        sync_tick = 0
 
         gen_s = reward_s = score_s = push_s = 0.0
         episode_steps = []
@@ -420,19 +460,21 @@ class PPOOrchestrator(Orchestrator):
             return tokens_h, mask_h, version_spans
 
         def finish_chunk(tokens_h, mask_h, version_spans, scored):
-            # Device scoring, the push and the health feed; only this thread
-            # issues device work.
+            # Device scoring of this data rank's rows of the node's chunk
+            # (``tokens_h``), the push of the node's rows and the health
+            # feed; only this thread issues device work.
             nonlocal score_s, push_s, last_scores, last_kl
             t = time.perf_counter()
             t_span = time.time()
+            loc_t, loc_m = rl.local_rows(tokens_h), rl.local_rows(mask_h)
             if scored is None:
                 reward_call = None
-                logprobs, values, rewards, kl, scores = rl.to_host(
-                    rl.rollout_score_rm(tokens_h, mask_h, **snap_kw))
+                logprobs, values, rewards, kl, scores = (rl.gather_rows(a) for a in rl.to_host(
+                    rl.rollout_score_rm(loc_t, loc_m, **snap_kw)))
             else:
-                scores, reward_call = scored
-                out = rl.rollout_score(rl.put(tokens_h), rl.put(mask_h), scores, **snap_kw)
-                logprobs, values, rewards, kl = rl.to_host(out)
+                scores, reward_call = scored  # the node's rows
+                out = rl.rollout_score(rl.put(loc_t), rl.put(loc_m), rl.local_rows(scores), **snap_kw)
+                logprobs, values, rewards, kl = (rl.gather_rows(a) for a in rl.to_host(out))
             score_s += time.perf_counter() - t
             span_complete("rollout/score_device", t_span, step=iter_count)
             t = time.perf_counter()
@@ -461,40 +503,54 @@ class PPOOrchestrator(Orchestrator):
         finished_buf = []
         ok = aborted = False
         try:
-            while n_collected < num_rollouts:
+            while n_collected < total:
                 if stop is not None and stop():
                     aborted = True
                     return None
+                if rl.heartbeat is not None:
+                    rl.heartbeat.beat(step=iter_count, phase="rollout")
+                sync_tick += 1
+                if fault_plan and fault_plan.fire("mid_decode_host_kill", sync_tick):
+                    # Death mid-phase with slots live: no cleanup, no last
+                    # heartbeat. The others' guarded decode sync turns it
+                    # into exit 117 with their slot states in the bundle.
+                    os._exit(1)
                 t = time.perf_counter()
                 eps = engine.step()
                 gen_s += time.perf_counter() - t
                 finished_buf.extend(eps)
-                if not eps and engine.idle and n_collected + len(finished_buf) < num_rollouts:
-                    raise RuntimeError(f"rollout engine went idle before the phase collected {num_rollouts} "
+                if not eps and engine.idle and n_collected + len(finished_buf) < total:
+                    raise RuntimeError(f"rollout engine went idle before the phase collected {total} "
                                        f"episodes (have {n_collected + len(finished_buf)})")
                 # Full chunks, and the last partial one once every prompt is back.
-                while len(finished_buf) >= chunk or (finished_buf and n_collected + len(finished_buf) == num_rollouts):
-                    take = min(chunk, len(finished_buf))
+                while len(finished_buf) >= chunk_all or (finished_buf and n_collected + len(finished_buf) == total):
+                    take = min(chunk_all, len(finished_buf))
                     batch_eps, finished_buf = finished_buf[:take], finished_buf[take:]
-                    tokens_h, mask_h, version_spans = assemble(batch_eps)
+                    tokens_e, mask_e, version_spans = assemble(batch_eps)
+                    # This node's rows (every node's episodes, node by node).
+                    tokens_h, mask_h = rl.node_slice(tokens_e), rl.node_slice(mask_e)
                     if rl.has_reward_model:
                         finish_chunk(tokens_h, mask_h, version_spans, None)
                     elif worker is not None:
-                        worker.submit((tokens_h, mask_h, iter_count))
+                        worker.submit((tokens_e, mask_e, iter_count))
                         inflight.append((tokens_h, mask_h, version_spans))
-                        while inflight and (len(inflight) > depth or worker.ready()):
-                            finish_chunk(*inflight.popleft(), worker.result())
+                        while inflight and (len(inflight) > depth or self._drain_ready(worker)):
+                            ctx, (scores, call) = inflight.popleft(), worker.result()
+                            finish_chunk(*ctx, (rl.node_slice(scores), call))
                     else:
+                        # One reward call a chunk, on the main process over
+                        # every node's rows, broadcast; each node keeps its rows.
                         t = time.perf_counter()
-                        scored = self._host_score((tokens_h, mask_h, iter_count))
+                        scores, call = self._host_score((tokens_e, mask_e, iter_count))
                         reward_s += time.perf_counter() - t
-                        finish_chunk(tokens_h, mask_h, version_spans, scored)
+                        finish_chunk(tokens_h, mask_h, version_spans, (rl.node_slice(scores), call))
                     n_collected += take
             while inflight:
                 if stop is not None and stop():
                     aborted = True
                     return None
-                finish_chunk(*inflight.popleft(), worker.result())
+                ctx, (scores, call) = inflight.popleft(), worker.result()
+                finish_chunk(*ctx, (rl.node_slice(scores), call))
             ok = True
         finally:
             if not ok:
@@ -507,6 +563,18 @@ class PPOOrchestrator(Orchestrator):
             if not aborted:
                 rl._phase_timer.add("rollout", gen_s + score_s + push_s)
                 rl._phase_timer.add("score", reward_s)
+
+        if world_size() > 1:
+            # Every rank's slot manager must have made the same decisions; a
+            # desynced schedule is named here, at the phase boundary. The
+            # guard's detail carries the slot states should a peer never
+            # arrive (a data-parallel decode has no collective of its own).
+            from trlx_tpu_torch.resilience import distributed as dist_res
+
+            with dist_res.collective_guard("engine/schedule_verify",
+                                           detail=lambda: {"slot_states": engine.slot_states()}):
+                dist_res.verify_engine_schedule(engine.schedule_fingerprint(), phase=iter_count)
+        self.schedule_crcs.append(engine.schedule_fingerprint())
 
         eng = engine.stats(reset=True)
         exp_time = time.perf_counter() - t_phase

@@ -40,9 +40,25 @@ Every rank issues the same collectives in the same order, in the forward,
 in autograd's backward and in remat's recompute: each op waits on its own
 requests before it returns, and no collective sits behind a rank-dependent
 branch.
+
+**Two sets of groups.** The overlapped pipeline runs rollouts on a producer
+thread (and the reward on its score worker) while the main thread trains.
+Two threads must never share a communicator: their collectives would reach
+it in different orders on different ranks. So ``make_mesh(...,
+producer_groups=True)`` builds a second group of every axis, "data" and
+"world" (and a second sp ring), after the first set and in the same order on
+every rank; a thread inside ``producer_collectives()`` (the producer's, and
+a score worker it starts) gets the second set from ``Mesh.group``,
+``Mesh.sp_group`` and the host collectives below, every other thread the
+first. Over gloo (host staging) the separate groups are enough. Over NCCL
+the producer also enqueues on a stream of its own (``pipeline.overlap``),
+since two communicators whose kernels share one stream in different orders
+on different ranks deadlock across ranks.
 """
 
 import os
+import threading
+from contextlib import contextmanager
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -60,6 +76,25 @@ MESH_AXES = (AXIS_DP, AXIS_FSDP, AXIS_TP, AXIS_SP)
 DATA_AXES = (AXIS_DP, AXIS_FSDP)
 
 _GLOBAL_MESH = None
+_THREAD = threading.local()  # .set: the group set this thread's collectives use
+
+
+def group_set() -> str:
+    """The group set of the calling thread: "producer" inside
+    ``producer_collectives()``, else "main"."""
+    return getattr(_THREAD, "set", "main")
+
+
+@contextmanager
+def producer_collectives(name: str = "producer"):
+    """Within, this thread's collectives take the mesh's second group set
+    (``name`` "main" restores the first, e.g. for a thread that inherits)."""
+    prev = group_set()
+    _THREAD.set = name
+    try:
+        yield
+    finally:
+        _THREAD.set = prev
 
 
 def _initialized() -> bool:
@@ -136,21 +171,43 @@ class Mesh:
     """The axis sizes (``shape``, by axis name), this process's coordinates
     (``coords``), one ``AxisGroup`` per axis, for the data axes together and
     for every process (``group(name)``: "dp", "fsdp", "tp", "sp", "data" or
-    "world"), and the sp group of the ring."""
+    "world"), and the sp group of the ring; with ``producer`` a second set
+    of both, which threads inside ``producer_collectives()`` get."""
 
     def __init__(self, shape: Tuple[int, ...], sp_group, coords: Tuple[int, ...] = (0, 0, 0, 0),
-                 groups: Optional[dict] = None):
+                 groups: Optional[dict] = None, producer: Optional[Tuple[dict, object]] = None):
         self.shape = dict(zip(MESH_AXES, shape))
         self.coords = dict(zip(MESH_AXES, coords))
         self.groups = dict(groups or {})
-        self.sp_group = sp_group
+        self._sp = {"main": sp_group}
+        self.producer_groups = None
+        if producer is not None:
+            self.producer_groups = dict(producer[0])
+            self._sp["producer"] = producer[1]
 
     @property
     def size(self) -> int:
         return int(np.prod(list(self.shape.values())))
 
+    def _groups(self) -> dict:
+        if group_set() == "main":
+            return self.groups
+        if self.producer_groups is None:
+            if not self.groups:
+                return self.groups  # one process: every group is SOLO
+            raise RuntimeError("a producer thread's collectives need the mesh's second group set: "
+                               "make_mesh(..., producer_groups=True)")
+        return self.producer_groups
+
     def group(self, name: str) -> AxisGroup:
-        return self.groups.get(name, SOLO)
+        return self._groups().get(name, SOLO)
+
+    @property
+    def sp_group(self):
+        """The sp ring of the calling thread's group set."""
+        if group_set() == "main" or "producer" not in self._sp:
+            return self._sp["main"]
+        return self._sp["producer"]
 
     @property
     def data_size(self) -> int:
@@ -203,11 +260,13 @@ def _axis_groups(shape: Tuple[int, ...], rank: int) -> dict:
     return groups
 
 
-def make_mesh(shape: Sequence[int] = (-1, 1, 1, 1), sp_group=None) -> Mesh:
+def make_mesh(shape: Sequence[int] = (-1, 1, 1, 1), sp_group=None, producer_groups: bool = False) -> Mesh:
     """Build the (dp, fsdp, tp, sp) mesh over the default group's processes
     (every process calls it: the subgroups are made collectively), or over
     ``sp_group`` (a ``LocalSpGroup``: n sp ranks in this process, every
-    other axis 1)."""
+    other axis 1). ``producer_groups``: also the second group set of the
+    overlapped pipeline's threads (the module docstring), made after the
+    first in the same order on every rank."""
     if sp_group is not None:
         shape = resolve_mesh_shape(shape, sp_group.size)
         if any(s > 1 for s in shape[:3]):
@@ -221,7 +280,12 @@ def make_mesh(shape: Sequence[int] = (-1, 1, 1, 1), sp_group=None) -> Mesh:
     if world_size() > 1:
         groups["world"] = AxisGroup(dist.group.WORLD, range(world_size()), rank, "world")
     sp = DistSpGroup(groups["sp"].pg) if shape[3] > 1 else LocalSpGroup(1)
-    return Mesh(shape, sp, coords, groups)
+    producer = None
+    if producer_groups and world_size() > 1:
+        second = _axis_groups(shape, rank)
+        second["world"] = AxisGroup(dist.new_group(list(range(world_size()))), range(world_size()), rank, "world")
+        producer = (second, DistSpGroup(second["sp"].pg) if shape[3] > 1 else LocalSpGroup(1))
+    return Mesh(shape, sp, coords, groups, producer)
 
 
 def set_mesh(mesh: Optional[Mesh]):
@@ -248,6 +312,14 @@ def is_main_process() -> bool:
     return process_rank() == 0
 
 
+def _world_pg():
+    """The process group of every process for the calling thread's group
+    set: the default group, or the producer set's own."""
+    if group_set() == "main" or _GLOBAL_MESH is None:
+        return None
+    return _GLOBAL_MESH.group("world").pg
+
+
 def barrier(name: str = "barrier"):
     """Every process waits for the others (a no-op for one process),
     guarded by the collective deadline."""
@@ -255,7 +327,7 @@ def barrier(name: str = "barrier"):
         from trlx_tpu_torch.resilience.distributed import collective_guard
 
         with collective_guard(f"barrier:{name}"):
-            dist.barrier()
+            dist.barrier(group=_world_pg())
 
 
 def broadcast_host(value):
@@ -267,7 +339,7 @@ def broadcast_host(value):
 
     box = [value]
     with collective_guard("broadcast_host"):
-        dist.broadcast_object_list(box, src=0)
+        dist.broadcast_object_list(box, src=0, group=_world_pg())
     return box[0]
 
 
@@ -285,7 +357,7 @@ def allgather_host(x, group: Optional[AxisGroup] = None) -> np.ndarray:
             parts = all_gather_object(np.asarray(x), group)
         else:
             parts = [None] * world_size()
-            dist.all_gather_object(parts, np.asarray(x))
+            dist.all_gather_object(parts, np.asarray(x), group=_world_pg())
     return np.concatenate(parts, axis=0)
 
 

@@ -31,6 +31,7 @@ from collections import deque
 from contextlib import contextmanager
 
 from trlx_tpu_torch.observability.spans import trace_span
+from trlx_tpu_torch.parallel.mesh import group_set, producer_collectives
 
 
 def staleness_gate_open(index: int, consumed: int, max_staleness: int) -> bool:
@@ -106,10 +107,18 @@ class ScoreWorker:
         self._in = queue.Queue(maxsize=max(1, int(depth)))
         self._out = queue.Queue()
         self.busy_s = 0.0  # wall inside fn; written only by the worker thread
+        # The worker's collectives (the reward broadcast) take the group set
+        # of the thread that starts it: a producer's worker never shares a
+        # communicator with the train loop.
+        self._group_set = group_set()
         self._thread = threading.Thread(target=self._run, name="trlx-score-worker", daemon=True)
         self._thread.start()
 
     def _run(self):
+        with producer_collectives(self._group_set):
+            self._loop()
+
+    def _loop(self):
         while True:
             item = self._in.get()
             if item is self._STOP:
@@ -256,12 +265,27 @@ class RolloutProducer:
     producer exception is re-raised, the same object, by the next
     ``next_store()``. ``history`` keeps (index, staleness, version) of the
     last 64 completed stores, the version read from a dict snapshot's
-    ``"version"`` (None otherwise)."""
+    ``"version"`` (None otherwise).
 
-    def __init__(self, produce, new_store, max_staleness: int = 0):
+    ``collective`` (several processes, whose producers run collectives with
+    each other): what each rank's producer does must not depend on its
+    timing. A stop must fall at the same point of every rank's program, so
+    ``stop_fn`` never stops a phase, and after ``shutdown()`` the producer
+    still makes every store whose gate the final consumed count opens (the
+    same stores on every rank), then exits; ``shutdown`` waits for it. And
+    the weights a store reads must be the same boundary's on every rank:
+    ``prepare(snapshot)`` (the snapshot's adopt) runs before a store counts
+    as started, and the trainer calls ``wait_due_started()`` before staging
+    the next boundary, so store n reads boundary n - S (the initial weights
+    for n <= S) on every rank."""
+
+    def __init__(self, produce, new_store, max_staleness: int = 0, collective: bool = False, prepare=None):
         self._produce = produce
         self._new_store = new_store
         self.max_staleness = max(0, int(max_staleness))
+        self.collective = bool(collective)
+        self._prepare = prepare
+        self._started = 0  # the last store index started (its snapshot adopted)
         self._cv = threading.Condition(threading.Lock())
         self._consumed = 0  # training iterations fully consumed
         self._ready = deque()  # completed stores, FIFO
@@ -278,19 +302,31 @@ class RolloutProducer:
         return self
 
     def _should_stop(self) -> bool:
-        return self._stop.is_set()
+        return self._stop.is_set() and not self.collective
+
+    def _stopping(self, index: int) -> bool:
+        """Store ``index`` is not to be made: stopped, and (collective) its
+        gate shut at the final consumed count."""
+        if not self._stop.is_set():
+            return False
+        return not (self.collective and staleness_gate_open(index, self._consumed, self.max_staleness))
 
     def _run(self):
         index = 1
         while True:
             with self._cv:
-                while not self._stop.is_set() and not staleness_gate_open(index, self._consumed,
-                                                                           self.max_staleness):
+                while not self._stopping(index) and not staleness_gate_open(index, self._consumed,
+                                                                            self.max_staleness):
                     self._cv.wait(timeout=0.5)
-                if self._stop.is_set():
+                if self._stopping(index):
                     return
                 snapshot = self._snapshot
                 staleness = index - self._consumed
+            if self._prepare is not None:
+                self._prepare(snapshot)
+            with self._cv:
+                self._started = index
+                self._cv.notify_all()
             store = self._new_store()
             try:
                 with trace_span("rollout/produce", index=index, staleness=staleness):
@@ -302,15 +338,27 @@ class RolloutProducer:
                 return
             with self._cv:
                 if self._stop.is_set():
-                    return  # aborted mid-phase: the partial store is dropped
-                self._ready.append(store)
-                self.history.append({
-                    "index": index,
-                    "staleness": staleness,
-                    "version": snapshot.get("version") if isinstance(snapshot, dict) else None,
-                })
-                self._cv.notify_all()
+                    if not self.collective:
+                        return  # aborted mid-phase: the partial store is dropped
+                    # collective: dropped too, but the next due store is still made
+                else:
+                    self._ready.append(store)
+                    self.history.append({
+                        "index": index,
+                        "staleness": staleness,
+                        "version": snapshot.get("version") if isinstance(snapshot, dict) else None,
+                    })
+                    self._cv.notify_all()
             index += 1
+
+    def wait_due_started(self):
+        """Block until no store whose gate is open waits to start (each
+        started store has adopted its snapshot): then a new boundary may be
+        staged without any store reading it by chance of timing."""
+        with self._cv:
+            while (staleness_gate_open(self._started + 1, self._consumed, self.max_staleness)
+                   and self._thread.is_alive() and self._error is None and not self._stop.is_set()):
+                self._cv.wait(timeout=0.5)
 
     def consume_done(self, snapshot=None):
         """Mark one training iteration fully consumed, optionally handing
@@ -350,9 +398,11 @@ class RolloutProducer:
     def shutdown(self, timeout: float = 60.0):
         """Stop and join. A mid-phase producer exits at its next
         between-chunk stop poll; the thread is a daemon, so a wedged produce
-        fn cannot block process exit."""
+        fn cannot block process exit. ``collective``: the stores already due
+        are finished first, and the join waits for them (a peer that never
+        arrives is the collective guard's to end)."""
         with self._cv:
             self._stop.set()
             self._cv.notify_all()
         if self._thread.ident is not None and self._thread.is_alive():
-            self._thread.join(timeout=timeout)
+            self._thread.join(timeout=None if self.collective else timeout)

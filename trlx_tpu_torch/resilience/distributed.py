@@ -28,9 +28,22 @@ every check here counts per RANK:
   into three ints; ``verify_fingerprints`` all-gathers and compares them
   every ``train.desync_check_interval`` steps and raises the same
   ``HostDesync`` on every rank, naming the ranks that differ from rank 0.
+- **Engine schedule check**: ``verify_engine_schedule`` all-gathers each
+  rank's rolling crc of its slot manager's decisions (the rollout engine's
+  ``schedule_fingerprint``) at the end of an engine phase and raises the
+  same ``HostDesync`` on every rank, naming the ranks whose schedule
+  differs from rank 0's. ``TRLX_TPU_ENGINE_SCHEDULE_SKEW`` (a nonzero int)
+  XORs this rank's reported crc: the drill of a desynced slot manager.
 - **Drills**: ``perturb_local_replicas`` skews one rank's copy of a
   replicated parameter (``host_desync``); ``host_hang``, ``host_kill`` and
-  ``slow_host`` fire in the trainer (``resilience/faults.py``).
+  ``slow_host`` fire in the trainer, ``mid_decode_host_kill`` in the
+  orchestrator's engine loop (``resilience/faults.py``).
+
+A guard's ``detail`` (a callable, e.g. the engine's slot states) is
+evaluated only when the guard fires and lands in the emergency incident
+capture's ``detail``; with graftfleet armed (``observability.fleet``) every
+guarded collective also leaves this rank's arrival record, and a firing
+guard writes the cross-rank incident bundle.
 """
 
 import json
@@ -188,6 +201,12 @@ def _default_on_timeout(exc: CollectiveTimeout):
     os._exit(EXIT_COLLECTIVE_TIMEOUT)
 
 
+# The guards this thread is inside, outermost first: a guard that fires
+# inside another (the host all-gather of the engine's schedule check) names
+# the outer site and carries its detail too.
+_ACTIVE = threading.local()
+
+
 class collective_guard:
     """A deadline around one blocking collective: ``with
     collective_guard("allgather_host"): ...``. Past the deadline the timer
@@ -198,12 +217,17 @@ class collective_guard:
     configuration (tests)."""
 
     def __init__(self, name: str, deadline: Optional[float] = None, on_timeout: Optional[Callable] = None,
-                 only_collectives: bool = True):
+                 only_collectives: bool = True, detail: Optional[Callable[[], dict]] = None):
         self.name = name
         self.only_collectives = only_collectives
         self.deadline = _CONFIG["deadline"] if deadline is None else float(deadline)
         self.on_timeout = on_timeout or _CONFIG["on_timeout"] or _default_on_timeout
+        # Extra forensic fields for the incident bundle (the engine's slot
+        # states), evaluated only on the abort path.
+        self.detail = detail
         self._timer = None
+        self._fleet_t0 = None
+        self._outer = []
 
     def _fire(self, cause: Optional[BaseException] = None):
         step = None
@@ -213,12 +237,31 @@ class collective_guard:
                 step = provider()
             except Exception:  # noqa: BLE001 — the abort path must still abort
                 step = None
+        extra = {}
+        for guard in self._outer + [self]:
+            if guard.detail is not None:
+                try:
+                    extra.update(guard.detail())
+                except Exception:  # noqa: BLE001 — forensics must not block the abort
+                    pass
+        site = self._outer[0].name if self._outer else self.name
+        if site != self.name:
+            extra["op"] = self.name
         try:
             from trlx_tpu_torch.observability import anomaly as obs_anomaly
             from trlx_tpu_torch.observability import spans as obs_spans
 
             obs_spans.instant("collective_timeout", collective=self.name, deadline_s=self.deadline)
-            obs_anomaly.emergency_capture("collective_timeout", detail={"collective": self.name})
+            obs_anomaly.emergency_capture("collective_timeout", detail={"collective": site, **extra})
+        except Exception:  # noqa: BLE001 — the abort path must still abort
+            pass
+        try:
+            # graftfleet: every reachable rank's span tail and heartbeat into
+            # incidents/<step>/ (the wedged peer cannot dump its own).
+            from trlx_tpu_torch.observability import fleet as obs_fleet
+
+            obs_fleet.incident_bundle(step, "collective_timeout",
+                                      detail={"collective": site, "deadline_s": self.deadline, **extra})
         except Exception:  # noqa: BLE001 — the abort path must still abort
             pass
         hb = _CONFIG["heartbeat"]
@@ -237,6 +280,17 @@ class collective_guard:
             "supervisor can restart and resume from the last coordinated checkpoint."))
 
     def __enter__(self):
+        from trlx_tpu_torch.observability import fleet as obs_fleet
+
+        # graftfleet's arrival stamp, before the deadline gate: straggler
+        # attribution also covers guards left at deadline 0.
+        if obs_fleet.armed():
+            self._fleet_t0 = time.time()
+        stack = getattr(_ACTIVE, "stack", None)
+        if stack is None:
+            stack = _ACTIVE.stack = []
+        self._outer = list(stack)
+        stack.append(self)
         if self.deadline <= 0:
             return self
         hb = _CONFIG["heartbeat"]
@@ -248,9 +302,19 @@ class collective_guard:
         return self
 
     def __exit__(self, exc_type, exc, tb):
+        stack = _ACTIVE.stack
+        if stack and stack[-1] is self:
+            stack.pop()
+        if self._fleet_t0 is not None:
+            from trlx_tpu_torch.observability import fleet as obs_fleet
+
+            obs_fleet.collective_complete(self.name, self._fleet_t0, time.time())
+            self._fleet_t0 = None
         if self._timer is not None:
             self._timer.cancel()
             self._timer = None
+            if isinstance(exc, HostDesync):
+                return False  # the checks' coordinated, named abort: raised as it is on every rank
             if isinstance(exc, dist.DistError) or (self.only_collectives and isinstance(exc, RuntimeError)):
                 # gloo notices a dead peer's closed socket at once, where NCCL
                 # would wait: the same diagnostic and exit as a deadline. A
@@ -321,6 +385,42 @@ def verify_fingerprints(fingerprint: np.ndarray) -> None:
     if world_size() == 1:
         return
     compare_fingerprints(allgather_host(np.asarray(fingerprint)[None, :]))
+
+
+def verify_engine_schedule(schedule_crc: int, phase: Optional[int] = None) -> None:
+    """Check that every rank's slot manager made the same admission, pool
+    and harvest decisions this engine phase: all-gather [phase, crc] (the
+    engine's ``schedule_fingerprint``) and raise the same ``HostDesync`` on
+    every rank, naming the ranks that differ from rank 0. A rank whose
+    schedule diverged would launch decode steps with other live rows and
+    hang its tp peers inside a collective; the check names it at the phase
+    boundary instead. A single process is trivially consistent.
+
+    Drill hook: ``TRLX_TPU_ENGINE_SCHEDULE_SKEW`` (a nonzero int) XORs THIS
+    rank's reported crc, the signature of a desynced slot manager (a real
+    divergence would wedge in a decode collective before any check ran, so
+    the drill skews the report, not the schedule)."""
+    from trlx_tpu_torch.parallel.mesh import allgather_host, world_size
+
+    if world_size() == 1:
+        return
+    crc = int(schedule_crc) & 0xFFFFFFFF
+    skew = int(os.environ.get("TRLX_TPU_ENGINE_SCHEDULE_SKEW", "0") or "0")
+    if skew:
+        crc ^= skew & 0xFFFFFFFF
+    row = np.asarray([int(phase or 0), crc], dtype=np.int64)
+    gathered = np.asarray(allgather_host(row[None, :])).reshape(-1, 2)
+    fields = ("engine phase counter", "slot schedule crc32")
+    problems = []
+    for r in range(1, gathered.shape[0]):
+        bad = [f"{fields[j]} {gathered[r, j]} != {gathered[0, j]}" for j in range(2) if gathered[r, j] != gathered[0, j]]
+        if bad:
+            problems.append(f"rank {r}: " + ", ".join(bad))
+    if problems:
+        raise HostDesync("engine slot-schedule check failed vs rank 0 — " + "; ".join(problems)
+                         + ". The slot managers made different admission/harvest decisions (non-deterministic host "
+                         "code or skewed prompt data); the next decode step would hang the ranks in a collective. "
+                         "Restart the phase with identical inputs on every rank.")
 
 
 @torch.no_grad()

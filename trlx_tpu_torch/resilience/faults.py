@@ -35,7 +35,11 @@ rank reading its own ``TRLX_TPU_FAULTS``, after the train step N:
 - ``slow_host@N``: this rank stalls ``TRLX_TPU_SLOW_SECONDS`` (default 2)
   → a straggler in the heartbeat files, under the deadline;
 - ``host_desync@N``: this rank's copy of a replicated parameter is skewed
-  → the consistency guard's ``HostDesync`` on every rank.
+  → the consistency guard's ``HostDesync`` on every rank;
+- ``mid_decode_host_kill@N``: this rank dies at once (``os._exit(1)``) at
+  the Nth sync tick of the rollout engine's loop, with slots mid-decode
+  (``PPOOrchestrator``'s engine path) → the others' guarded decode sync
+  ends them with exit 117 and their slot states in the incident bundle.
 
 The JAX package's other kinds parse here too, but fire only where their
 subsystems run: ``nan_layer`` (the numerics observatory) and the fleet and
@@ -53,7 +57,7 @@ import torch
 
 SINGLE_PROCESS_KINDS = ("nan_grad", "reward_exc", "reward_hang", "ckpt_corrupt", "sigterm", "slow_step",
                         "reward_drift", "entropy_collapse")
-MULTI_PROCESS_KINDS = ("host_hang", "host_kill", "slow_host", "host_desync")
+MULTI_PROCESS_KINDS = ("host_hang", "host_kill", "slow_host", "host_desync", "mid_decode_host_kill")
 UNFIRED_KINDS = {
     "nan_layer": "the numerics observatory (graftnum, ROADMAP §A13)",
     "rollout_host_kill": "the fleet (ROADMAP §A12)",
@@ -61,7 +65,6 @@ UNFIRED_KINDS = {
     "broadcast_timeout": "the fleet (ROADMAP §A12)",
     "weight_push_torn": "the fleet (ROADMAP §A12)",
     "version_switch_storm": "the fleet (ROADMAP §A12)",
-    "mid_decode_host_kill": "the fleet (ROADMAP §A12)",
     "worker_kill_mid_lease": "the elastic fleet (ROADMAP §A12)",
     "slow_worker_reclaim": "the elastic fleet (ROADMAP §A12)",
     "worker_join_mid_run": "the elastic fleet (ROADMAP §A12)",

@@ -49,8 +49,11 @@ intact checkpoint in place, decays the LR (``_lr_scale``, saved with the host
 state) and goes on. The fault plan (``train.fault_plan`` /
 ``TRLX_TPU_FAULTS``) fires its step, save and host drills here and its
 reward drills in the PPO orchestrator. Observability: span tracing, the
-step-time anomaly detector with incident bundles, the health monitor and the
-live ``/metrics`` endpoint arm from the config or the environment
+step-time anomaly detector with incident bundles, the health monitor, the
+live ``/metrics`` endpoint and graftfleet (``observability.fleet``: a span
+file and an arrival file a rank, the clock estimate at start and every
+``train.fleet_resync_interval`` steps, rank 0's skew gauges at log
+boundaries, the bundle of a desync) arm from the config or the environment
 (``_setup_observability``).
 """
 
@@ -83,6 +86,7 @@ from trlx_tpu_torch.parallel.mesh import (
 )
 from trlx_tpu_torch.resilience import distributed as dist_res
 from trlx_tpu_torch.observability import env_flag
+from trlx_tpu_torch.observability import fleet as obs_fleet
 from trlx_tpu_torch.observability import spans as obs_spans
 from trlx_tpu_torch.observability.anomaly import AnomalyDetector, IncidentCapture, register_emergency
 from trlx_tpu_torch.observability.health import HealthMonitor
@@ -263,13 +267,11 @@ def build_optimizer(train_cfg, params: List[torch.Tensor], names: List[str]):
 UNPORTED_ENV_SWITCHES = {
     "TRLX_TPU_DEVICE_TELEMETRY": "device telemetry (ROADMAP §A13)",
     "TRLX_TPU_GRAFTSCOPE": "graftscope (ROADMAP §A13)",
-    "TRLX_TPU_GRAFTFLEET": "graftfleet (ROADMAP §A13)",
     "TRLX_TPU_GRAFTNUM": "graftnum (ROADMAP §A13)",
     "TRLX_TPU_SANITIZE": "the dispatch sanitizer (the port has no dispatch lock)",
     "TRLX_TPU_FLEET_ROLE": "the fleet (ROADMAP §A12)",
     "TRLX_TPU_FLEET_WORKER": "the fleet (ROADMAP §A12)",
     "TRLX_TPU_FLEET_LEAVE_AFTER": "the fleet (ROADMAP §A12)",
-    "TRLX_TPU_ENGINE_SCHEDULE_SKEW": "the multi-process engine schedule check (ROADMAP §A11)",
 }
 
 
@@ -293,8 +295,6 @@ def refuse_unported(config: TRLConfig):
         "train.watch_interval": t.watch_interval > 0,
         "train.device_telemetry": t.device_telemetry,
         "train.graftscope": t.graftscope,
-        "train.graftfleet": t.graftfleet,
-        "train.fleet_resync_interval": t.fleet_resync_interval > 0,
         "train.graftnum": t.graftnum,
     }
     for var, feature in UNPORTED_ENV_SWITCHES.items():
@@ -320,7 +320,10 @@ class BaseTrainer(BaseRLTrainer):
         self.device = resolve_device(device)
         mesh = kwargs.pop("mesh", None)
         if mesh is None:
-            mesh = make_mesh(config.train.mesh)
+            # The overlapped pipeline's threads get a second group set.
+            m = config.method
+            mesh = make_mesh(config.train.mesh, producer_groups=bool(getattr(m, "rollout_overlap", False))
+                             or int(getattr(m, "max_staleness", 0) or 0) > 0)
         elif tuple(mesh.shape.values()) != resolve_mesh_shape(config.train.mesh, mesh.size):
             raise ValueError(f"the mesh {mesh} is not train.mesh {tuple(config.train.mesh)}")
         self.mesh = mesh
@@ -390,8 +393,12 @@ class BaseTrainer(BaseRLTrainer):
         are replaced, or disarmed when this one arms none."""
         t = self.config.train
         ckpt_dir = os.path.abspath(t.checkpoint_dir)
-        if t.trace_spans or env_flag("TRLX_TPU_SPANS"):
-            obs_spans.configure(os.path.join(ckpt_dir, obs_spans.SPANS_FILENAME), process_index=process_rank())
+        # graftfleet owns the span file's name when armed (one file a rank,
+        # spans.host<k>.jsonl) and implies span tracing.
+        fleet_on = t.graftfleet or env_flag("TRLX_TPU_GRAFTFLEET")
+        if t.trace_spans or fleet_on or env_flag("TRLX_TPU_SPANS"):
+            name = obs_spans.host_spans_filename(process_rank()) if fleet_on else obs_spans.SPANS_FILENAME
+            obs_spans.configure(os.path.join(ckpt_dir, name), process_index=process_rank())
         else:
             obs_spans.shutdown()
         anomaly_factor = float(os.environ.get("TRLX_TPU_ANOMALY_FACTOR", "") or t.anomaly_factor)
@@ -407,6 +414,20 @@ class BaseTrainer(BaseRLTrainer):
                 lineage_path=os.path.join(ckpt_dir, "lineage.jsonl") if is_main_process() else None)
         if self._incidents is None:
             register_emergency(None)
+        # graftfleet: this rank's collective arrivals, the clock estimate
+        # (its first sync is collective: the knob is the same on every rank)
+        # and, on rank 0, the skew gauges and /healthz block at log
+        # boundaries.
+        self._fleet = None
+        if fleet_on:
+            os.makedirs(ckpt_dir, exist_ok=True)
+            self._fleet = obs_fleet.configure(ckpt_dir, process_index=process_rank(), process_count=world_size(),
+                                              resync_interval=t.fleet_resync_interval)
+            self._fleet.clock_sync(step=0)
+            if self._health is not None:
+                self._health.register_detector(self._fleet.straggler)
+        else:
+            obs_fleet.shutdown()
         self._metrics_port = int(os.environ.get("TRLX_TPU_METRICS_PORT", "") or t.metrics_port)
         self._metrics_exporter = None
         if self._metrics_port > 0 and is_main_process():
@@ -565,6 +586,18 @@ class BaseTrainer(BaseRLTrainer):
         b = np.asarray(x).shape[0]
         first = (self.mesh.data_index // per) * per * b
         return rows[first:first + per * b]
+
+    def gather_node_rows(self, x) -> np.ndarray:
+        """Every node's copy of a node-wide host array (one each node's
+        ranks hold alike, e.g. its prompt batch), node by node: a collective
+        over the data ranks; ``x`` itself with one node."""
+        n = node_count()
+        if n == 1:
+            return np.asarray(x)
+        per = self.mesh.data_size // n
+        b = np.asarray(x).shape[0]
+        rows = allgather_host(np.asarray(x), self.mesh.group("data"))
+        return np.concatenate([rows[k * per * b:k * per * b + b] for k in range(n)], axis=0)
 
     def node_slice(self, rows_every_node: np.ndarray) -> np.ndarray:
         """This node's rows of a ``gather_rows(..., every_node=True)``."""
@@ -939,7 +972,19 @@ class BaseTrainer(BaseRLTrainer):
         sees the same matrix and raises the same ``HostDesync``."""
         if world_size() == 1:
             return
-        dist_res.verify_fingerprints(dist_res.host_fingerprint(self.iter_count, self.model, self.config.train.seed))
+        fingerprint = dist_res.host_fingerprint(self.iter_count, self.model, self.config.train.seed)
+        fleet = self._fleet
+        if fleet is not None:
+            # Kept before the check: a desync's bundle shows what this rank brought.
+            fleet.note_fingerprint(self.iter_count, fingerprint)
+        try:
+            dist_res.verify_fingerprints(fingerprint)
+        except dist_res.HostDesync as e:
+            if fleet is not None:
+                fleet.incident_bundle(self.iter_count, "host_desync", detail=str(e))
+            raise
+        if fleet is not None:
+            fleet.note_desync(self.iter_count, ok=True)
 
     # ----------------------------------------------------------------- learn
 
@@ -988,6 +1033,11 @@ class BaseTrainer(BaseRLTrainer):
             if self.heartbeat is not None:
                 self.heartbeat.beat(step=self.iter_count, phase="exited")
                 self.heartbeat.stop()
+            if self._fleet is not None:
+                # Closes the arrival file; the fleet's files stay for
+                # read_fleet_spans and the skew table.
+                obs_fleet.shutdown()
+                self._fleet = None
             if self._metrics_exporter is not None:
                 # Last: it serves the final gauges right up to teardown.
                 self._metrics_exporter.close()
@@ -1072,6 +1122,9 @@ class BaseTrainer(BaseRLTrainer):
                     di = train.desync_check_interval
                     if di and self.iter_count % di == 0:
                         self._check_desync()
+                    if self._fleet is not None:
+                        # The clock resync: collective, keyed on iter_count.
+                        self._fleet.maybe_resync(self.iter_count)
                     iv = self.intervals(self.iter_count)
                     if iv["do_checkpoint"]:
                         self.save(block=not train.async_checkpointing)
@@ -1097,6 +1150,10 @@ class BaseTrainer(BaseRLTrainer):
                         if self._health is not None:
                             self._observe_health(stats_host)
                         self._export_metrics(stats_host)
+                        if self._fleet is not None:
+                            # Rank 0's fleet rollup (empty on the others).
+                            stats_host.update(self._fleet.on_log_boundary(self.iter_count,
+                                                                          exporter=self._metrics_exporter))
                         self.tracker.log(stats_host, step=self.iter_count)
                     if self._preempted_mid_batch():
                         self._save_on_preemption()

@@ -45,13 +45,24 @@ so the card runs their work in the order it was enqueued, and the boundary
 handoff orders its copies under the snapshot's lock; the card's SMs are
 shared, so the overlap hides host and phase time rather than adding device
 throughput. Graph captures run in ``thread_local`` mode (``ops.cuda_graph``)
-because either thread may capture while the other issues work. No
-collective runs in the producer: the pipeline is refused with several
-processes, whose reward broadcast and sp ring would put two threads on one
-communicator.
+because either thread may capture while the other issues work.
+
+On several processes (a mesh) the producer and its score worker issue their
+collectives (the tp all-reduces of decode and scoring, the reward
+broadcast, the row gathers, the sp ring, the engine's schedule check) over
+the mesh's second group set (``parallel.mesh.producer_collectives``), so no
+communicator is shared with the train loop, which keeps the first; the
+boundary snapshot holds the fsdp-gathered compute copies, so the producer
+gathers nothing over fsdp. Over NCCL the producer also enqueues on a stream
+of its own, ordered against the main stream at the snapshot handoff by
+events. The fingerprint checks at the boundaries stay on the main thread.
+The engine runs under its multi-process contract (``engine.rollout_engine``)
+and the int8 decode copies of a sharded model are quantized from its pieces
+(``ops.w8a16.quantize_dense``).
 """
 
 import copy
+from contextlib import nullcontext
 from typing import Dict
 
 import numpy as np
@@ -69,7 +80,7 @@ from trlx_tpu_torch.ops.modeling import logprobs_from_logits
 from trlx_tpu_torch.ops.rl_losses import kl_penalty_rewards, ppo_loss
 from trlx_tpu_torch.ops.sampling import GenerateConfig, make_bigram_mask_processor, process_logits_default
 from trlx_tpu_torch.ops.w8a16 import quantize_weights
-from trlx_tpu_torch.parallel.mesh import node_count, world_size
+from trlx_tpu_torch.parallel.mesh import node_count, producer_collectives, world_size
 from trlx_tpu_torch.pipeline.overlap import PhaseTimer, RolloutProducer
 from trlx_tpu_torch.pipeline.ppo_pipeline import PPORolloutStorage
 from trlx_tpu_torch.pipeline.prompt_pipeline import normalize_buckets
@@ -140,10 +151,6 @@ class PPOTrainer(BaseTrainer):
         # masters (the weight bytes of a decode step halve) and re-quantize
         # in place when a master changed.
         self.decode_weight_quant = bool(config.model.decode_weight_quant)
-        if self.decode_weight_quant and self.mesh.sharded:
-            raise NotImplementedError(
-                "model.decode_weight_quant on a mesh with fsdp or tp > 1 (ROADMAP §A11c: row W8 on local shard "
-                "shapes): the int8 copies are quantized per output column from whole masters")
         if self.decode_weight_quant:
             quantize_weights(self.model)
         self.rm_model = self._build_reward_model(config) if config.model.has_reward_model else None
@@ -153,14 +160,7 @@ class PPOTrainer(BaseTrainer):
         # lets the producer run ahead from boundary snapshots.
         self.max_staleness = max(0, int(m.max_staleness or 0))
         self.overlap_rollouts = bool(m.rollout_overlap) or self.max_staleness > 0
-        if self.overlap_rollouts and world_size() > 1:
-            raise NotImplementedError(
-                "method.rollout_overlap / method.max_staleness with several processes (ROADMAP §A11b): the producer's "
-                "reward broadcast and sp-ring collectives would share a communicator with the train loop's")
-        if m.rollout_engine and world_size() > 1:
-            raise NotImplementedError(
-                "method.rollout_engine with several processes (ROADMAP §A11a: the engine's lock-step slot schedule, "
-                "verify_engine_schedule and _globalize are not ported)")
+        self._producer_stream = None  # the producer's own stream over NCCL, made at first use
         self._pack_train_batch = bool(m.pack_train_batch)
         # Packed row counts round up to a multiple of the node's data ranks.
         self._pack_rows_multiple = int(self.mesh.data_size // node_count())
@@ -425,6 +425,10 @@ class PPOTrainer(BaseTrainer):
                 spec_decode=str(m.spec_decode or ""),
                 spec_k=int(m.spec_k or 0),
                 generator=self.seeded_generator(3),
+                # With several processes each sync quantum is guarded: a peer
+                # that dies mid-decode ends this rank with exit 117 and the
+                # slot states in its incident bundle. 0 leaves it unguarded.
+                collective_deadline=float(self.config.train.collective_deadline) or None,
             )
         return self._rollout_engine
 
@@ -606,14 +610,37 @@ class PPOTrainer(BaseTrainer):
             num_rollouts = self.config.method.num_rollouts
 
             def produce(store, index, snapshot, staleness, stop):
-                orch.make_experience(num_rollouts, self.iter_count, store=store, snapshot=snapshot,
-                                     staleness=staleness, stop=stop)
+                with producer_collectives(), self._producer_stream_ctx():
+                    orch.make_experience(num_rollouts, self.iter_count, store=store, snapshot=snapshot,
+                                         staleness=staleness, stop=stop)
 
             def new_store():
                 return PPORolloutStorage(self.pad_token_id, record_staleness=True)
 
-            self._rollout_producer = RolloutProducer(produce, new_store, max_staleness=self.max_staleness).start(
-                snapshot=self._rollout_snapshot() if self.max_staleness > 0 else None)
+            def prepare(snapshot):
+                # The boundary a store reads, adopted (on the producer's stream)
+                # before the store counts as started.
+                if snapshot is not None:
+                    with self._producer_stream_ctx():
+                        snapshot["weights"].adopt()
+
+            # With several processes the producers stop at one point of every
+            # rank's program and read one boundary's weights a store
+            # (RolloutProducer's ``collective``).
+            collective = world_size() > 1
+            self._rollout_producer = RolloutProducer(produce, new_store, max_staleness=self.max_staleness,
+                                                     collective=collective, prepare=prepare if collective else None)
+            self._rollout_producer.start(snapshot=self._rollout_snapshot() if self.max_staleness > 0 else None)
+
+    def _producer_stream_ctx(self):
+        """The producer's stream: its own where the mesh's collectives run
+        over NCCL (two communicators' kernels must not share one stream in
+        rank-dependent orders), the current one otherwise."""
+        if world_size() == 1 or self.mesh.group("world").backend != "nccl":
+            return nullcontext()
+        if self._producer_stream is None:
+            self._producer_stream = torch.cuda.Stream(self.device)
+        return torch.cuda.stream(self._producer_stream)
 
     def post_epoch_callback(self):
         """Back to rollouts: apply the queued KL updates, then either
@@ -626,6 +653,8 @@ class PPOTrainer(BaseTrainer):
             self.store.clear_history()
             self.orch.make_experience(self.config.method.num_rollouts, self.iter_count)
         else:
+            if self._rollout_producer.collective:
+                self._rollout_producer.wait_due_started()
             snapshot = self._rollout_snapshot() if self.max_staleness > 0 else None
             self._rollout_producer.consume_done(snapshot=snapshot)
             self.store = self._rollout_producer.next_store()
