@@ -105,6 +105,14 @@ prefix, a dead slot on the trash block and a fully masked row), then drives
    rank's schedule crc of each engine phase (equal, or the phase raised),
    the W8 shapes launched, the recorded staleness, and the engine store's
    logprobs against a one-process model on the same tokens;
+15. the disaggregated and elastic fleet (``fleet_train``, GPT-J-6B width, 2
+   layers, the paged int8 engine with W8A16 decode weights): serial; the
+   colocated fleet at staleness 0 through the real transports (every store
+   and the end weights bit-equal to serial); a learner and a rollout-worker
+   process at staleness 1 with in-flight weight updates and a torn push
+   (staleness at most 1, the torn ordinal rejected, a push adopted
+   mid-phase); a learner and two elastic workers, one killed holding a
+   lease (reclaimed, every unit once, the stores bit-equal to serial);
 
 and checks that each path went through every kernel it runs, exactly as
 often as its config says.
@@ -1945,9 +1953,15 @@ def overlap_train_path(kernels):
     train batches and two prompt buckets, whose producer stores must read
     the boundary snapshot (the engine's weight_version is the snapshot's).
     (a) must launch rows 2-3 (the unpacked backward); (c) rows 1, 4-6, 8
-    and 10. Returns the three runs' numbers and their summed launches."""
+    and 10. The runs' end saves are not written (since fleet_train, the
+    smoke's time): ``resilience_drill`` saves, verifies and loads the same
+    4-layer state. Returns the three runs' numbers and their summed
+    launches."""
     import trlx_tpu_torch
     from trlx_tpu_torch.orchestrator.ppo_orchestrator import PPOOrchestrator
+    from trlx_tpu_torch.trainer import register_model
+
+    register_model("OverlapNoSavePPOTrainer")(no_save_trainer())
 
     n_layer = OVERLAP_LAYERS
     runs_cfg = {
@@ -1985,7 +1999,8 @@ def overlap_train_path(kernels):
                               temperature=0.5, do_sample=True)
             if method.get("pack_train_batch"):
                 gen_kwargs["prompt_buckets"] = OVERLAP_BUCKETS
-            config = train_config(n_layer, "ppo", run_dir, method=dict(ENGINE, paged_kv=True, **method), quant=True)
+            config = train_config(n_layer, "OverlapNoSavePPOTrainer", run_dir,
+                                  method=dict(ENGINE, paged_kv=True, **method), quant=True)
             config.method.gen_kwargs = gen_kwargs
             config.train.epochs, config.train.total_steps = 3, 24
             stores.clear()
@@ -2006,9 +2021,10 @@ def overlap_train_path(kernels):
                 recs = [json.loads(line) for line in f]
             steps = [r for r in recs if "loss" in r]
             windows = [r for r in recs if "time/overlap_fraction" in r]
-            if trainer.iter_count != 24 or len(steps) != 24 or len(windows) != 2:
+            if trainer.iter_count != 24 or len(steps) != 24 or len(windows) != 2 or trainer.saves_skipped != 1:
                 raise AssertionError(f"{name}: {trainer.iter_count} steps, {len(steps)} step records, "
-                                     f"{len(windows)} phase windows (expected 24, 24, 2)")
+                                     f"{len(windows)} phase windows, {trainer.saves_skipped} end saves (expected "
+                                     "24, 24, 2, 1)")
             bad = [r["step"] for r in steps if not np.isfinite(r["loss"]) or r["resilience/nonfinite"] != 0.0]
             if bad:
                 raise AssertionError(f"{name}: non-finite or skipped steps {bad}")
@@ -4439,6 +4455,485 @@ def dist_train_path(kernels):
 
 
 
+FLEET_LAYERS = 2  # GPT-J-6B width at dist_train's depth: a publish is the 0.848 G f32 masters, ~3.39 GB
+FLEET_ITERS = 3  # iterations of every leg: (c) adopts ordinal 1 mid-phase and meets the torn ordinal 2
+FLEET_TIMEOUT_S = 420  # each leg's role processes' wall limit, start and kernel load included
+FLEET_LEASE_TTL = 5.0  # (d): the dead worker's lease is reclaimable after this
+FLEET_HOOK_STEP = 8  # (c): the engine step of a phase at which the worker waits for the learner's next publish
+FLEET_NEED = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "fused_logprob_fwd",
+              "fused_logprob_bwd_dx", "fused_logprob_bwd_dw", "decode_attention_int8", "paged_decode_attention_int8",
+              "w8a16_matmul")
+FLEET_LEARNER_NEED = tuple(k for k in FLEET_NEED if k != "paged_decode_attention_int8")  # no engine: evaluate() only
+FLEET_WORKER_NEED = ("flash_attention_fwd", "fused_logprob_fwd", "paged_decode_attention_int8", "w8a16_matmul")
+
+
+def fleet_config(run_dir: str, iters: int, model_type: str = "FleetSmokeTrainer"):
+    """The fleet path's config: ``train_config``'s (ppo_gptj_config.yml's
+    values, 768 + 256 tokens, 16 rollouts in chunks of 8, batch 8) at
+    ``FLEET_LAYERS`` layers with one PPO epoch an iteration (dist_train's),
+    ``iters`` iterations, the rollouts through ``engine_train``'s paged int8
+    engine with W8A16 decode weights."""
+    config = train_config(FLEET_LAYERS, model_type, run_dir, method=dict(ENGINE, paged_kv=True), quant=True)
+    config.model.decode_weight_quant = True
+    config.method.ppo_epochs = 1
+    config.train.epochs, config.train.total_steps = iters, 2 * iters
+    return config
+
+
+def fleet_wait_publish(trainer, log_to: list):
+    """(c)'s hook, in the worker at its phase's ``FLEET_HOOK_STEP``-th engine
+    step: when the learner has not yet published the ordinal that follows
+    the one this phase may start from (so it will publish without waiting
+    for this phase's batch), wait for that publish (or the abort marker, at
+    most 120 s), so the next engine sync's weight poll meets it mid-decode."""
+    from trlx_tpu_torch.fleet import WeightSubscriber, fleet_paths
+    from trlx_tpu_torch.fleet.topology import read_jsonl_or_empty
+
+    paths = fleet_paths(trainer.config.train)
+    sub = WeightSubscriber(paths)
+    seq = len(read_jsonl_or_empty(paths.stream_index))  # the batch this phase produces
+    latest = sub.latest()
+    if latest is None or int(latest["ordinal"]) >= seq:
+        return
+    t0, start = time.perf_counter(), int(latest["ordinal"])
+    while time.perf_counter() - t0 < 120 and paths.read_abort() is None:
+        latest = sub.latest()
+        if latest is not None and int(latest["ordinal"]) > start:
+            break
+        time.sleep(0.05)
+    log_to.append({"seq": seq, "from_ordinal": start, "to": None if latest is None else int(latest["ordinal"]),
+                   "waited_s": time.perf_counter() - t0})
+
+
+def fleet_trainer_class(kernels, hook: bool):
+    """The fleet path's trainer: no checkpoint (``resilience_drill`` saves
+    and loads a PPO state of this format), a record of each train step's device time and of the
+    iteration boundaries; with ``hook`` (leg (c)'s worker) its engine waits
+    mid-phase for the learner's next publish."""
+    from trlx_tpu_torch.trainer import register_model
+    from trlx_tpu_torch.trainer.ppo import PPOTrainer
+
+    @register_model("FleetSmokeTrainer")
+    class FleetSmokeTrainer(PPOTrainer):
+        def __init__(self, config, **kwargs):
+            super().__init__(config, **kwargs)
+            self.step_log, self.marks, self.hook_log = [], [], []
+            self._phase_steps = 0
+
+        def save(self, directory=None, block=True):
+            pass
+
+        def learn(self):
+            self.marks.append(time.perf_counter())
+            try:
+                return super().learn()
+            finally:
+                self.marks.append(time.perf_counter())
+
+        def post_epoch_callback(self):
+            self.marks.append(time.perf_counter())
+            return super().post_epoch_callback()
+
+        def train_step(self, batch):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            stats = super().train_step(batch)
+            end.record()
+            torch.cuda.synchronize()
+            self.step_log.append({"device_s": start.elapsed_time(end) / 1e3, "loss": float(stats["loss"])})
+            return stats
+
+        def _adopt_snapshot(self, snapshot=None):
+            self._phase_steps = 0  # a phase starts
+            return super()._adopt_snapshot(snapshot)
+
+        def rollout_engine(self):
+            fresh = self._rollout_engine is None
+            engine = super().rollout_engine()
+            if fresh and hook:
+                step = engine.step
+
+                def hooked_step():
+                    self._phase_steps += 1
+                    if self._phase_steps == FLEET_HOOK_STEP:
+                        fleet_wait_publish(self, self.hook_log)
+                    return step()
+
+                engine.step = hooked_step
+            return engine
+
+    return FleetSmokeTrainer
+
+
+def fleet_scrape(port: int, seen: dict, stop: threading.Event):
+    """The learner's own ``/metrics``, scraped while it runs: the largest
+    value of each unlabelled ``trlx_tpu_fleet_*`` gauge."""
+    import urllib.request
+
+    while not stop.is_set():
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=2) as r:
+                for line in r.read().decode().splitlines():
+                    if line.startswith("trlx_tpu_fleet_") and "{" not in line:
+                        name, value = line.rsplit(" ", 1)
+                        seen[name] = max(seen.get(name, float("-inf")), float(value))
+        except Exception:  # noqa: BLE001 — not up yet, or tearing down
+            pass
+        stop.wait(0.2)
+
+
+def fleet_run(kernels, config, hook: bool = False, record_stores: bool = False, scrape_port: int = 0):
+    """``trlx_tpu_torch.train(reward_fn=...)`` through ``fleet_trainer_class``
+    with ``engine_train``'s prompts, the counters set to 0 just before.
+    Returns a result dict: wall, launches, peak GB, step and iteration walls,
+    parameter fingerprints, the stores make_experience filled (with
+    ``record_stores``) and the scraped fleet gauges."""
+    import trlx_tpu_torch
+    from trlx_tpu_torch.orchestrator.ppo_orchestrator import PPOOrchestrator
+
+    fleet_trainer_class(kernels, hook)
+    orig_make, stores = PPOOrchestrator.make_experience, []
+
+    def recorded_make(self, num_rollouts=1024, iter_count=0, store=None, **kw):
+        out = orig_make(self, num_rollouts, iter_count, store=store, **kw)
+        if out is not None:
+            cols = (store if store is not None else self.rl_model.store).columns()
+            stores.append({k: v for k, v in cols.items() if k != "staleness"})
+        return out
+
+    seen, stop, scraper = {}, threading.Event(), None
+    if scrape_port:
+        scraper = threading.Thread(target=fleet_scrape, args=(scrape_port, seen, stop), daemon=True)
+        scraper.start()
+    if record_stores:
+        PPOOrchestrator.make_experience = recorded_make
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    try:
+        trainer = trlx_tpu_torch.train(reward_fn=reward_fn, prompts=engine_prompts(),
+                                       eval_prompts=seeded_prompts(CHUNK, 1), config=config)
+        torch.cuda.synchronize()
+    finally:
+        PPOOrchestrator.make_experience = orig_make
+        stop.set()
+        if scraper is not None:
+            scraper.join(timeout=5)
+    out = {"wall_s": time.perf_counter() - t0, "launches": {n: f.launches for n, f in kernels.items()},
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "iter_count": trainer.iter_count,
+           "step_device_s": [r["device_s"] for r in trainer.step_log],
+           "iteration_wall_s": list(np.diff(trainer.marks)), "hook": trainer.hook_log,
+           "params": {n: fingerprint([p]) for n, p in trainer.model.named_parameters()}, "gauges": seen,
+           "stores": stores}
+    if trainer._fleet_weights is not None:
+        out["fleet_modules"] = len(trainer._fleet_weights.modules)
+        out["fleet_module_is_live"] = any(m is trainer.model for m in trainer._fleet_weights.modules)
+    del trainer
+    free()
+    return out
+
+
+def fleet_role_cmd(role: str, leg_dir: str, tag: str, iters: int, staleness: int, extra=()):
+    """The command of one role process of a fleet leg: this script in fleet
+    worker mode."""
+    return [sys.executable, os.path.abspath(__file__), "--fleet-role", role, "--fleet-leg-dir", leg_dir,
+            "--fleet-tag", tag, "--fleet-iters", str(iters), "--fleet-staleness", str(staleness), *extra]
+
+
+def fleet_role_config(role: str, leg_dir: str, tag: str, iters: int, staleness: int):
+    config = fleet_config(os.path.join(leg_dir, tag), iters)
+    config.method.fleet_disaggregate = True
+    config.method.max_staleness = staleness
+    config.train.fleet_dir = os.path.join(leg_dir, "fleet")
+    config.train.heartbeat_interval = 0.5
+    config.train.fleet_episode_timeout = 60.0
+    config.train.fleet_stream_retries = 2
+    config.train.fleet_stream_backoff = 1.0
+    config.train.fleet_heartbeat_timeout = 60.0
+    config.train.fleet_broadcast_deadline = 300.0
+    return config
+
+
+def fleet_worker(args) -> int:
+    """One role process of a fleet leg (``--fleet-role`` rollout or learner,
+    the fleet's own switches in its environment): trains or serves through
+    ``fleet_run`` and writes its numbers to ``<leg dir>/<tag>.json``. A
+    ``--fleet-wait-claim W:U`` process waits, set up, until worker W has
+    claimed a unit >= U before it joins."""
+    from trlx_tpu_torch.fleet.topology import read_jsonl_or_empty
+    from trlx_tpu_torch.ops import cuda_lib
+
+    role, leg_dir, tag = args["--fleet-role"], args["--fleet-leg-dir"], args["--fleet-tag"]
+    iters, staleness = int(args["--fleet-iters"]), int(args["--fleet-staleness"])
+    torch.cuda.set_device(0)
+    cuda_lib.lib()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels = port_kernels()
+    config = fleet_role_config(role, leg_dir, tag, iters, staleness)
+    config.method.fleet_elastic = "--fleet-elastic" in args
+    config.method.fleet_inflight_weights = "--fleet-inflight" in args
+    if config.method.fleet_elastic:
+        config.train.fleet_lease_ttl = FLEET_LEASE_TTL
+    if "--fleet-wait-claim" in args:
+        w, u = (int(x) for x in args["--fleet-wait-claim"].split(":"))
+        events = os.path.join(config.train.fleet_dir, "fleet_events.jsonl")
+        t0 = time.perf_counter()
+        while not any(e["event"] == "lease_claimed" and e.get("worker") == w and e["unit"] >= u
+                      for e in read_jsonl_or_empty(events)):
+            if time.perf_counter() - t0 > FLEET_TIMEOUT_S:
+                raise AssertionError(f"fleet_train: worker {w} never claimed a unit >= {u}")
+            time.sleep(0.1)
+    port = int(os.environ.get("TRLX_TPU_METRICS_PORT", "0") or 0)
+    out = fleet_run(kernels, config, hook="--fleet-hook" in args, scrape_port=port)
+    out.pop("stores")
+    out["role"], out["tag"] = role, tag
+    with open(os.path.join(leg_dir, f"{tag}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def fleet_leg(name: str, leg_dir: str, roles):
+    """Start every role process of a leg (``roles``: (tag, command, extra
+    environment, expected exit code), started in order), wait for all under
+    ``FLEET_TIMEOUT_S``, and return each tag's result (None for a process
+    that ends without writing one) and the leg's wall."""
+    os.makedirs(leg_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = []
+    for tag, cmd, env, want in roles:
+        logf = open(os.path.join(leg_dir, f"{tag}.log"), "w")
+        full_env = dict(os.environ)
+        for var in ("TRLX_TPU_FAULTS", "TRLX_TPU_FLEET_ROLE", "TRLX_TPU_FLEET_WORKER", "TRLX_TPU_METRICS_PORT"):
+            full_env.pop(var, None)
+        full_env.update(env)
+        procs.append((tag, subprocess.Popen(cmd, stdout=logf, stderr=subprocess.STDOUT, env=full_env), logf, want))
+    deadline = time.monotonic() + FLEET_TIMEOUT_S
+    failed = []
+    for tag, p, logf, want in procs:
+        try:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            failed.append(f"{tag} timed out")
+        if p.returncode != want:
+            failed.append(f"{tag} exit {p.returncode} (expected {want})")
+    for tag, p, logf, want in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        logf.close()
+    wall = time.perf_counter() - t0
+    if failed:
+        for tag, *_ in procs:
+            with open(os.path.join(leg_dir, f"{tag}.log")) as f:
+                log(f"[fleet_train] {name} {tag} output (tail):\n{f.read()[-4000:]}")
+        raise AssertionError(f"fleet_train {name}: {failed}")
+    results = {}
+    for tag, *_ in procs:
+        path = os.path.join(leg_dir, f"{tag}.json")
+        results[tag] = json.load(open(path)) if os.path.exists(path) else None
+    return results, wall
+
+
+def fleet_stream_stores(fleet_dir: str, elastic: bool):
+    """The consumed batches of a fleet directory, in consume order: the
+    stream's (single-worker) records, or each unit's chosen record."""
+    from trlx_tpu_torch.fleet import ElasticStreamReader, EpisodeStreamReader, FleetPaths
+
+    paths = FleetPaths(fleet_dir)
+    reader = ElasticStreamReader(paths) if elastic else EpisodeStreamReader(paths)
+    recs = [r for _, r in sorted((reader.chosen() if elastic else reader.index()).items())]
+    return recs, [{k: v for k, v in reader.load(r).items() if k != "staleness"} for r in recs]
+
+
+def fleet_stores_equal(name: str, got, ref, errors: list):
+    if len(got) < len(ref):
+        errors.append(f"{name}: {len(got)} consumed stores, (a) has {len(ref)}")
+        return
+    for i, (g, r) in enumerate(zip(got, ref)):
+        for key in r:
+            if key not in g or g[key].dtype != r[key].dtype or not np.array_equal(g[key], r[key]):
+                errors.append(f"{name}: store {i} column {key} differs from (a)'s")
+                return
+
+
+def fleet_publish_stats(events):
+    pub = [e for e in events if e["event"] == "weights_published"]
+    loads = [e for e in events if e["event"] in ("weights_fetched", "weights_adopted_inflight")]
+    return {"publishes": len(pub), "bytes": pub[0]["bytes"] if pub else None,
+            "d2h_s": [round(e["d2h_s"], 3) for e in pub], "write_s": [round(e["write_s"], 3) for e in pub],
+            "load_s": [round(e["load_s"], 3) for e in loads], "h2d_s": [round(e["h2d_s"], 3) for e in loads]}
+
+
+def fleet_train_path(kernels):
+    """The disaggregated and elastic fleet (``trlx_tpu_torch.fleet``) on the
+    engine main path at GPT-J-6B width and ``FLEET_LAYERS`` layers
+    (``fleet_config``): (a) serial, ``FLEET_ITERS`` iterations, no fleet;
+    (b) the colocated fleet at staleness 0 in this process, through the real
+    npz transports: every consumed store and the end weights bit-equal to
+    (a)'s; (c) a learner process and a rollout-worker process at staleness 1
+    with in-flight weight updates and ``weight_push_torn@2`` on the learner:
+    every consumed batch at staleness
+    <= 1, every streamed version (and span) published, the torn ordinal
+    rejected by the worker, a push adopted mid-phase (an episode of two
+    spans; the learner's ``fleet/mixed_version_tokens`` gauge nonzero), the
+    worker out with exit 0 on the abort marker; (d) a learner and two
+    elastic workers at staleness 0, ``worker_kill_mid_lease@1`` in worker 1
+    (worker 0 joins once worker 1 claimed unit 1): worker 0 reclaims the
+    unit at the next lease generation, every unit consumed once
+    (``fleet/units_reclaimed_total`` 1, ``fleet/episodes_deduped_total`` 0),
+    the consumed stores and the learner's end weights bit-equal to (a)'s.
+    Logs a publish's bytes and seconds, each process's peak, the legs' and
+    iterations' walls, the staleness per consumed batch, the workers'
+    W8 and rows 8 / 10 launches. The fleet directories are removed."""
+    from trlx_tpu_torch.fleet.topology import read_jsonl_or_empty
+
+    root = os.path.join(RUN_DIR, "fleet")
+    shutil.rmtree(root, ignore_errors=True)
+    errors, legs = [], {}
+    smi = card_line()
+
+    # (a) serial.
+    a = fleet_run(kernels, fleet_config(os.path.join(root, "a"), FLEET_ITERS), record_stores=True)
+    legs["a"] = {k: a[k] for k in ("wall_s", "peak_gb", "iteration_wall_s", "step_device_s", "launches")}
+    if a["iter_count"] != 2 * FLEET_ITERS or len(a["stores"]) != FLEET_ITERS:
+        errors.append(f"(a) {a['iter_count']} steps, {len(a['stores'])} stores")
+
+    # (b) colocated at staleness 0, this process.
+    config = fleet_config(os.path.join(root, "b"), FLEET_ITERS)
+    config.method.fleet_disaggregate, config.method.max_staleness = True, 0
+    config.train.fleet_dir = os.path.join(root, "b", "fleet")
+    b = fleet_run(kernels, config)
+    b_events = read_jsonl_or_empty(os.path.join(config.train.fleet_dir, "fleet_events.jsonl"))
+    _, b_stores = fleet_stream_stores(config.train.fleet_dir, elastic=False)
+    fleet_stores_equal("(b)", b_stores, a["stores"], errors)
+    if b["params"] != a["params"]:
+        errors.append("(b): the end weights differ from (a)'s: " + ", ".join(
+            n for n in a["params"] if b["params"][n] != a["params"][n])[:400])
+    if b.get("fleet_modules") != 1 or b.get("fleet_module_is_live"):
+        errors.append(f"(b): rollout-side modules {b.get('fleet_modules')}, the live one among them "
+                      f"{b.get('fleet_module_is_live')}")
+    legs["b"] = {k: b[k] for k in ("wall_s", "peak_gb", "iteration_wall_s", "launches")} | {
+        "publish": fleet_publish_stats(b_events),
+        "staleness": [e["staleness"] for e in b_events if e["event"] == "episode_consumed"]}
+    shutil.rmtree(os.path.join(root, "b"), ignore_errors=True)
+
+    # (c) learner + rollout worker at staleness 1, in-flight weights, a torn push.
+    leg_dir = os.path.join(root, "c")
+    port = free_local_port()
+    res, wall = fleet_leg("(c)", leg_dir, [
+        ("learner", fleet_role_cmd("learner", leg_dir, "learner", FLEET_ITERS, 1, ("--fleet-inflight",)),
+         {"TRLX_TPU_FLEET_ROLE": "learner", "TRLX_TPU_FAULTS": "weight_push_torn@2",
+          "TRLX_TPU_METRICS_PORT": str(port)}, 0),
+        ("worker", fleet_role_cmd("rollout", leg_dir, "worker", FLEET_ITERS, 1,
+                                  ("--fleet-inflight", "--fleet-hook")), {"TRLX_TPU_FLEET_ROLE": "rollout"}, 0),
+    ])
+    fdir = os.path.join(leg_dir, "fleet")
+    events = read_jsonl_or_empty(os.path.join(fdir, "fleet_events.jsonl"))
+    broadcast = read_jsonl_or_empty(os.path.join(fdir, "broadcast.jsonl"))
+    stream = read_jsonl_or_empty(os.path.join(fdir, "stream.jsonl"))
+    published = {r["version"] for r in broadcast if r["status"] == "published"}
+    torn = {r["ordinal"] for r in broadcast if r["status"] == "injected_torn"}
+    consumed = [e for e in events if e["event"] == "episode_consumed"]
+    c_stal = [e["staleness"] for e in consumed]
+    rejected = [e for e in events if e["event"] == "weights_torn"]
+    adopted = [e for e in events if e["event"] == "weights_adopted_inflight"]
+    spans = [r.get("version_spans") or [] for r in stream]
+    mixed = res["learner"]["gauges"].get("trlx_tpu_fleet_mixed_version_tokens", 0.0)
+    if len(consumed) != FLEET_ITERS or not all(0 <= s <= 1 for s in c_stal):
+        errors.append(f"(c) consumed {len(consumed)} batches at staleness {c_stal}")
+    if not stream or not all(r["weight_version"] in published for r in stream) or not all(
+            v in published for sp in spans for v, _ in sp):
+        errors.append(f"(c) streamed versions {[(r['weight_version'], r.get('version_spans')) for r in stream]} "
+                      f"against published {sorted(published)}")
+    if torn != {2} or not rejected or not all(e["ordinal"] == 2 and e["held"] < 2 for e in rejected):
+        errors.append(f"(c) torn ordinals {torn}, rejections {rejected[:3]}")
+    if 2 in {e["ordinal"] for e in events if e["event"] in ("weights_fetched", "weights_adopted_inflight")}:
+        errors.append("(c) the worker adopted the torn ordinal 2")
+    if not adopted or not any(len(sp) >= 2 for sp in spans) or not mixed > 0:
+        errors.append(f"(c) no push adopted mid-phase: adoptions {adopted}, spans {spans}, mixed-version gauge "
+                      f"{mixed}")
+    if not any(e["event"] == "worker_exit" and e["reason"] == "abort" for e in events):
+        errors.append("(c) the worker never left on the abort marker")
+    legs["c"] = {"wall_s": wall, "staleness": c_stal, "spans": spans, "rejected_torn": len(rejected),
+                 "adopted_inflight": [e["ordinal"] for e in adopted], "mixed_version_tokens_gauge": mixed,
+                 "hook": res["worker"]["hook"], "publish": fleet_publish_stats(events)} | {
+        tag: {k: r[k] for k in ("wall_s", "peak_gb", "iteration_wall_s", "launches", "iter_count")}
+        for tag, r in res.items()}
+    with open(os.path.join(leg_dir, "worker", "metrics.jsonl")) as f:
+        switches = sum(int(json.loads(line).get("engine/weight_switches", 0)) for line in f)
+    if not switches:
+        errors.append("(c) the worker's engine recorded no version switch of a live slot")
+    legs["c"]["engine_weight_switches"] = switches
+    for tag, r in res.items():
+        need = FLEET_WORKER_NEED if tag == "worker" else FLEET_LEARNER_NEED
+        if any(r["launches"][k] == 0 for k in need):
+            errors.append(f"(c) {tag} launched none of {[k for k in need if r['launches'][k] == 0]}")
+    shutil.rmtree(leg_dir, ignore_errors=True)
+
+    # (d) learner + two elastic workers at staleness 0, worker 1 killed holding a lease.
+    leg_dir = os.path.join(root, "d")
+    port = free_local_port()
+    elastic = ("--fleet-elastic",)
+    res_d, wall_d = fleet_leg("(d)", leg_dir, [
+        ("learner", fleet_role_cmd("learner", leg_dir, "learner", FLEET_ITERS, 0, elastic),
+         {"TRLX_TPU_FLEET_ROLE": "learner", "TRLX_TPU_METRICS_PORT": str(port)}, 0),
+        ("worker1", fleet_role_cmd("rollout", leg_dir, "worker1", FLEET_ITERS, 0, elastic),
+         {"TRLX_TPU_FLEET_ROLE": "rollout", "TRLX_TPU_FLEET_WORKER": "1",
+          "TRLX_TPU_FAULTS": "worker_kill_mid_lease@1"}, 1),
+        ("worker0", fleet_role_cmd("rollout", leg_dir, "worker0", FLEET_ITERS, 0,
+                                   elastic + ("--fleet-wait-claim", "1:1")),
+         {"TRLX_TPU_FLEET_ROLE": "rollout", "TRLX_TPU_FLEET_WORKER": "0"}, 0),
+    ])
+    from trlx_tpu_torch.fleet import ElasticStreamReader, FleetPaths, LeaseLedger
+
+    fdir = os.path.join(leg_dir, "fleet")
+    events = read_jsonl_or_empty(os.path.join(fdir, "fleet_events.jsonl"))
+    consumed = [e for e in events if e["event"] == "episode_consumed"]
+    reclaims = [e for e in events if e["event"] == "lease_reclaimed"]
+    reclaimed = LeaseLedger(FleetPaths(fdir).leases_dir, ttl=60.0).reclaimed_units()
+    deduped = ElasticStreamReader(FleetPaths(fdir)).duplicates()
+    gauges = res_d["learner"]["gauges"]
+    _, d_stores = fleet_stream_stores(fdir, elastic=True)
+    fleet_stores_equal("(d)", d_stores, a["stores"], errors)
+    if res_d["learner"]["params"] != a["params"]:
+        errors.append("(d): the learner's end weights differ from (a)'s")
+    if [e["unit"] for e in consumed] != list(range(FLEET_ITERS)) or not all(e["staleness"] == 0 for e in consumed):
+        errors.append(f"(d) consumed units {[(e['unit'], e['staleness']) for e in consumed]}")
+    if (reclaimed != [1] or not reclaims or reclaims[0]["worker"] != 0 or reclaims[0]["gen"] < 1 or deduped != 0
+            or gauges.get("trlx_tpu_fleet_units_reclaimed_total") != 1.0
+            or gauges.get("trlx_tpu_fleet_episodes_deduped_total") != 0.0):
+        errors.append(f"(d) reclaimed units {reclaimed}, reclaims {reclaims}, deduplicated {deduped}, gauges "
+                      f"{gauges}")
+    legs["d"] = {"wall_s": wall_d, "staleness": [e["staleness"] for e in consumed],
+                 "producers": [e["worker"] for e in consumed], "reclaims": reclaims, "gauges": gauges,
+                 "publish": fleet_publish_stats(events)} | {
+        tag: (None if r is None else {k: r[k] for k in ("wall_s", "peak_gb", "iteration_wall_s", "launches")})
+        for tag, r in res_d.items()}
+    if any(res_d["worker0"]["launches"][k] == 0 for k in FLEET_WORKER_NEED) or any(
+            res_d["learner"]["launches"][k] == 0 for k in FLEET_LEARNER_NEED):
+        errors.append(f"(d) launches: worker 0 {res_d['worker0']['launches']}, learner {res_d['learner']['launches']}")
+    for name, leg in (("(a)", a), ("(b)", b)):
+        if any(leg["launches"][k] == 0 for k in FLEET_NEED):
+            errors.append(f"{name} launched none of {[k for k in FLEET_NEED if leg['launches'][k] == 0]}")
+    shutil.rmtree(root, ignore_errors=True)
+
+    for name, leg in legs.items():
+        log(f"[fleet_train] ({name}) {json.dumps(leg)} on {smi}")
+    for tag, r in (("(c) worker", legs["c"]["worker"]), ("(d) worker 0", legs["d"]["worker0"])):
+        log(f"[fleet_train] {tag}: W8 {r['launches']['w8a16_matmul']}, row 8 {r['launches']['decode_attention_int8']}, "
+            f"row 10 {r['launches']['paged_decode_attention_int8']} launches, peak {r['peak_gb']:.2f} GB on {smi}")
+    if errors:
+        raise AssertionError(f"fleet_train: {errors}")
+    launches = dict.fromkeys(kernels, 0)
+    for leg in (legs["a"], legs["b"], legs["c"]["learner"], legs["c"]["worker"], legs["d"]["learner"],
+                legs["d"]["worker0"]):
+        for k, v in leg["launches"].items():
+            launches[k] += v
+    return legs, launches
+
+
 def successor_processor(gcfg, vocab: int):
     """A logit processor that allows ``SPEC_SUCCESSORS`` successors of each
     token (a seeded hash of it), then the default chain: constrained
@@ -4599,6 +5094,13 @@ def main() -> int:
         args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
         sys.path.insert(0, ROOT)
         return dist_worker(int(args["--dist-rank"]), int(args["--dist-world"]), args["--dist-dir"])
+    if "--fleet-role" in sys.argv:
+        args, argv = {}, sys.argv[1:]
+        while argv:
+            key = argv.pop(0)
+            args[key] = argv.pop(0) if argv and not argv[0].startswith("--") else True
+        sys.path.insert(0, ROOT)
+        return fleet_worker(args)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a CUDA device", file=sys.stderr)
         return 2
@@ -4682,6 +5184,7 @@ def main() -> int:
     run("engine_spec", lambda: engine_spec_path(kernels))
     sp_out, _ = run("sp_train", lambda: sp_train_path(kernels))
     run("dist_train", lambda: dist_train_path(kernels))
+    run("fleet_train", lambda: fleet_train_path(kernels))
     t0 = time.perf_counter()
     phase_grad_consistency()
     log(f"[grad] done in {time.perf_counter() - t0:.1f}s")

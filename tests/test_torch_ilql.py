@@ -461,6 +461,40 @@ def test_decode_weight_quant_is_accepted_and_ignored(tmp_path):
             assert stats[True][step][k] == stats[False][step][k], (step, k)
 
 
+def test_fleet_knobs_are_ignored_as_in_jax(tmp_path, monkeypatch):
+    """The fleet is PPO's: an ILQL config with ``train.fleet_*`` set (and the
+    role's environment switch) trains in both packages as it does without
+    them. The JAX ILQL trainer never reads the knobs; the port's trains the
+    same steps as the JAX one (the twin's tolerances) and as its own run
+    without the knobs (bit for bit), and neither makes a fleet directory."""
+    samples, rewards = _samples()
+    fleet = dict(fleet_role="rollout", fleet_dir=str(tmp_path / "fleet"), fleet_episode_timeout=5.0)
+    monkeypatch.setenv("TRLX_TPU_FLEET_ROLE", "rollout")
+    stats = {}
+    for name in ("jax", "torch", "torch-plain"):
+        cfg = _trainer_config(tmp_path / name, total_steps=2, **({} if name == "torch-plain" else fleet))
+        if name == "jax":
+            init = JaxILQLTrainer(JaxTRLConfig.from_dict(cfg))
+            _JAX_INIT["params"] = jax.device_get(init.state.params)
+            _JAX_INIT["extras"] = jax.device_get(init.state.extras)
+            del init
+            trlx_tpu.train(dataset=(samples, rewards), eval_prompts=[[1, 2]], config=JaxTRLConfig.from_dict(cfg))
+        else:
+            cfg["model"]["model_type"] = "ILQLFromJaxInit"
+            model = trlx_tpu_torch.train(dataset=(samples, rewards), eval_prompts=[[1, 2]],
+                                         config=TRLConfig.from_dict(cfg), device="cpu")
+            assert model.iter_count == 2 and not hasattr(model, "fleet_role")
+        stats[name] = _step_stats(os.path.join(tmp_path, name, "metrics.jsonl"))
+    assert not os.path.exists(tmp_path / "fleet")
+    assert sorted(stats["torch"]) == sorted(stats["jax"]) == sorted(stats["torch-plain"]) == [1, 2]
+    for step in (1, 2):
+        tol = 1e-5 if step == 1 else 2e-4
+        for k in STAT_KEYS:
+            np.testing.assert_allclose(stats["torch"][step][k], stats["jax"][step][k], rtol=tol, atol=tol,
+                                       err_msg=f"step {step} {k}")
+            assert stats["torch"][step][k] == stats["torch-plain"][step][k], (step, k)
+
+
 # --------------------------------------------------------------- learning
 
 

@@ -19,7 +19,8 @@ flush, rollback and drills) against the JAX package, on the CPU.
   finishes ``train()`` in both packages, and in the port (serial and
   overlapped) its store equals a run's whose ``reward_fn`` never raised;
   ``TRLX_TPU_FAULTS=nan_grad@3`` skips step 3 in both; each unported
-  environment switch and fault kind raises NotImplementedError naming it.
+  environment switch and fault kind raises NotImplementedError naming it,
+  and the fleet's (ported) are accepted and arm the fleet.
 """
 
 import dataclasses
@@ -58,7 +59,7 @@ from trlx_tpu_torch.resilience import (  # noqa: E402
     poison_nan,
 )
 from trlx_tpu_torch.resilience import checkpoint as ckpt_util  # noqa: E402
-from trlx_tpu_torch.resilience.faults import UNFIRED_KINDS  # noqa: E402
+from trlx_tpu_torch.resilience.faults import FLEET_KINDS, UNFIRED_KINDS  # noqa: E402
 from trlx_tpu_torch.trainer import register_model  # noqa: E402
 from trlx_tpu_torch.trainer.base import UNPORTED_ENV_SWITCHES, lr_schedule  # noqa: E402
 from trlx_tpu_torch.trainer.ppo import PPOTrainer  # noqa: E402
@@ -114,7 +115,9 @@ def test_multihost_fault_kinds_parse_and_fire_once():
     # now: none is refused.
     assert set(MULTI_PROCESS_KINDS) == {"host_desync", "host_hang", "host_kill", "slow_host", "mid_decode_host_kill"}
     assert plan.unfired_kinds() == []
-    assert FaultPlan.parse("nan_grad@1,slow_step@2,rollout_host_kill@3").unfired_kinds() == ["rollout_host_kill"]
+    # The fleet's kinds fire in the port's fleet now; only nan_layer is left.
+    assert FaultPlan.parse("nan_grad@1,slow_step@2,rollout_host_kill@3").unfired_kinds() == []
+    assert FaultPlan.parse("nan_grad@1,nan_layer@3").unfired_kinds() == ["nan_layer"]
 
 
 @pytest.mark.parametrize("seed", range(4))
@@ -688,19 +691,49 @@ def test_env_fault_plan_nan_grad_skips_step_3(task, tmp_path, monkeypatch, packa
     assert [steps[s]["resilience/nonfinite"] for s in (1, 2, 3, 4)] == [0.0, 0.0, 1.0, 0.0]
 
 
-@pytest.mark.parametrize("var", sorted(UNPORTED_ENV_SWITCHES))
+# The fleet's switches and fault kinds were refused until the fleet was
+# ported: their cases keep their ids and now pin that each is accepted and
+# arms the fleet.
+_FLEET_ENV_SWITCHES = {"TRLX_TPU_FLEET_ROLE": "learner", "TRLX_TPU_FLEET_WORKER": "1",
+                       "TRLX_TPU_FLEET_LEAVE_AFTER": "1"}
+
+
+@pytest.mark.parametrize("var", sorted(set(UNPORTED_ENV_SWITCHES) | set(_FLEET_ENV_SWITCHES)))
 def test_unported_env_switch_is_refused(task, tmp_path, monkeypatch, var):
-    monkeypatch.setenv(var, "1")
-    with pytest.raises(NotImplementedError, match=var):
-        _trainer(task, tmp_path)
+    if var not in _FLEET_ENV_SWITCHES:
+        monkeypatch.setenv(var, "1")
+        with pytest.raises(NotImplementedError, match=var):
+            _trainer(task, tmp_path)
+        return
+    monkeypatch.setenv(var, _FLEET_ENV_SWITCHES[var])
+    config = _walk_config(tmp_path)
+    config.method.fleet_disaggregate = True
+    config.method.fleet_elastic = var != "TRLX_TPU_FLEET_ROLE"
+    _, logit_mask, metric_fn, reward_fn = task
+    trainer = PPOTrainer(config, device="cpu", reward_fn=reward_fn, metric_fn=metric_fn, logit_mask=logit_mask)
+    assert trainer.fleet_role == ("learner" if var == "TRLX_TPU_FLEET_ROLE" else "colocated")
+    # Without the fleet a role switch is a config error, as in the JAX
+    # package; the worker switches are read only by an elastic worker's loop.
+    config.method.fleet_disaggregate = config.method.fleet_elastic = False
+    if var == "TRLX_TPU_FLEET_ROLE":
+        with pytest.raises(ValueError, match=var):
+            PPOTrainer(config, device="cpu", reward_fn=reward_fn)
+    else:
+        assert PPOTrainer(config, device="cpu", reward_fn=reward_fn).fleet_role is None
 
 
 @pytest.mark.parametrize("kind", ["nan_layer", "episode_stream_stall", "rollout_host_kill", "worker_join_mid_run"])
 def test_unported_fault_kind_is_refused(task, tmp_path, monkeypatch, kind):
-    assert kind in UNFIRED_KINDS
     monkeypatch.setenv("TRLX_TPU_FAULTS", f"nan_grad@1,{kind}@2")
-    with pytest.raises(NotImplementedError, match=f"kinds {kind}"):
-        _trainer(task, tmp_path)
+    if kind == "nan_layer":
+        assert kind in UNFIRED_KINDS
+        with pytest.raises(NotImplementedError, match=f"kinds {kind}"):
+            _trainer(task, tmp_path)
+        return
+    assert kind in FLEET_KINDS and kind not in UNFIRED_KINDS
+    trainer = _trainer(task, tmp_path)
+    assert [(f.kind, f.at) for f in trainer.fault_plan.faults] == [("nan_grad", 1), (kind, 2)]
+    assert trainer.fault_plan.unfired_kinds() == []
 
 
 def test_ported_env_switches_arm_their_features(task, tmp_path, monkeypatch):

@@ -263,12 +263,17 @@ def _ilql_config(tmp_path):
 
 
 # The PPO cases keep their ids; the ILQL trainer refuses the shared knobs
-# from the same list (trainer/base.py ``refuse_unported``).
+# from the same list (trainer/base.py ``refuse_unported``). The fleet's
+# cases (ported) keep their ids too and now pin acceptance: the PPO trainer
+# arms the fleet, the ILQL trainer ignores ``train.fleet_*`` as the JAX
+# package's ILQL trainer does (``tests/test_torch_ilql.py`` runs such a
+# config through both packages).
 _KNOBS = [("method", "fleet_disaggregate", True), ("train", "watch_interval", 10), ("train", "graftnum", True),
           ("train", "device_telemetry", True), ("train", "fault_plan", "rollout_host_kill@2")]
 _ILQL_KNOBS = [("train", "graftscope", True), ("train", "watch_interval", 10),
                ("train", "fleet_dir", "fleet"), ("train", "fleet_role", "rollout"),
                ("train", "profile_dir", "profiles"), ("train", "graftnum", True)]
+_FLEET_KNOBS = {"fleet_disaggregate", "fault_plan", "fleet_dir", "fleet_role"}
 
 
 @pytest.mark.parametrize("trainer,section,knob,value", [
@@ -279,8 +284,21 @@ def test_unported_knobs_are_refused(tmp_path, trainer, section, knob, value):
 
     cfg = _config(tmp_path, kernels=False) if trainer == "ppo" else _ilql_config(tmp_path)
     cfg[section][knob] = value
-    with pytest.raises(NotImplementedError, match=f"{section}.{knob}"):
-        (PPOTrainer if trainer == "ppo" else ILQLTrainer)(TRLConfig.from_dict(cfg), device="cpu")
+    cls = PPOTrainer if trainer == "ppo" else ILQLTrainer
+    if knob not in _FLEET_KNOBS:
+        with pytest.raises(NotImplementedError, match=f"{section}.{knob}"):
+            cls(TRLConfig.from_dict(cfg), device="cpu")
+        return
+    built = cls(TRLConfig.from_dict(cfg), device="cpu")
+    if trainer == "ilql":
+        assert not hasattr(built, "fleet_role") and not os.path.exists(tmp_path / "fleet")
+    elif knob == "fleet_disaggregate":
+        assert built.fleet_role == "colocated" and not built.overlap_rollouts and built.store.record_staleness
+    else:
+        # A fleet fault kind is armed (the fleet's sites fire it) and no
+        # fleet runs without method.fleet_disaggregate.
+        assert [(f.kind, f.at) for f in built.fault_plan.faults] == [("rollout_host_kill", 2)]
+        assert built.fleet_role is None and built.fault_plan.unfired_kinds() == []
 
 
 def test_train_dispatch_refuses_ilql_and_needs_reward_fn(tmp_path, monkeypatch):

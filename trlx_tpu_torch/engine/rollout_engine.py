@@ -55,7 +55,9 @@ Parity: with greedy sampling a slot's tokens equal whole-batch
 ``generate``'s for the same prompt (the new token's mask bit is written
 before the model call, eos is written with its mask bit, post-finish
 positions hold pad / mask 0). Sampling draws from one device generator for
-all slots, so sampled runs match the JAX engine only in distribution.
+all slots (``generator``; the PPO orchestrator reseeds it at each phase's
+start from the absolute chunk index), so sampled runs match the JAX engine
+only in distribution.
 
 Host spans (``observability.spans``, when armed): ``engine/prefill`` per
 prefill group, ``engine/decode`` / ``engine/verify`` per sync quantum.

@@ -8,10 +8,13 @@ default:
 - ``GET /metrics``: Prometheus text exposition (version 0.0.4) of the
   freshest log-boundary scalars and ``health/*`` gauges, keys sanitized and
   prefixed ``trlx_tpu_``; keys ending ``_total`` are counters, the rest
-  gauges; cumulative histograms (``observe``) with optional labels.
+  gauges; labelled gauge series (``set_gauge``: the elastic fleet's
+  per-worker gauges); cumulative histograms (``observe``) with optional
+  labels.
 - ``GET /healthz``: the HealthMonitor's JSON status (``ok`` / ``degraded``
-  / ``critical`` and each detector's state), with graftfleet's ``fleet``
-  block when it is armed (``set_fleet``).
+  / ``critical`` and each detector's state), with the ``fleet`` block
+  (``set_fleet``: graftfleet's and the disaggregated fleet's, merged) when
+  one is armed.
 
 The handler reads a snapshot under a lock and never touches trainer state,
 so a scrape never stalls a train step.
@@ -66,6 +69,9 @@ class MetricsExporter:
         self.prefix = prefix
         self._lock = threading.Lock()
         self._gauges = {}
+        # (key, labels-tuple) -> float: labelled gauge series (set_gauge),
+        # rendered with the flat gauge of the same name.
+        self._labeled_gauges = {}
         # (key, labels-tuple) -> {"buckets": (edges...), "counts": [..],
         # "sum": float, "count": int} — cumulative, Prometheus-style.
         self._histograms = {}
@@ -151,11 +157,33 @@ class MetricsExporter:
                 self._health = health
 
     def set_fleet(self, payload):
-        """Attach graftfleet's block (per-rank heartbeat ages, the desync
-        check's status, the straggler verdict, the clock estimate) to
-        ``/healthz``."""
+        """Attach a fleet block to ``/healthz``: graftfleet's (per-rank
+        heartbeat ages, the desync check's status, the straggler verdict,
+        the clock estimate) or the disaggregated fleet feed's
+        (``disaggregated``, ``workers``). Dict payloads MERGE key-wise: the
+        two feeds own disjoint top-level keys."""
         with self._lock:
-            self._fleet = payload
+            if isinstance(payload, dict) and isinstance(self._fleet, dict):
+                merged = dict(self._fleet)
+                merged.update(payload)
+                self._fleet = merged
+            else:
+                self._fleet = payload
+
+    def set_gauge(self, key: str, value, labels: dict = None):
+        """Set one LABELLED gauge series (``labels`` distinguishes series
+        under one metric name, e.g. ``worker="1"`` on the elastic fleet's
+        per-worker gauges). Without labels it is ``update({key: value})``.
+        A labelled series renders beside the flat gauge of the same name
+        under one HELP/TYPE block."""
+        if not isinstance(value, (int, float)):
+            return
+        if not labels:
+            self.update({key: value})
+            return
+        label_key = tuple(sorted((str(k), str(v)) for k, v in labels.items()))
+        with self._lock:
+            self._labeled_gauges[(key, label_key)] = float(value)
 
     def observe(self, key: str, values, buckets, labels: dict = None):
         """Fold ``values`` into the cumulative histogram ``key`` (creating
@@ -196,6 +224,7 @@ class MetricsExporter:
     def render_metrics(self) -> str:
         with self._lock:
             gauges = dict(self._gauges)
+            labeled = dict(self._labeled_gauges)
             histograms = {
                 k: {
                     "buckets": h["buckets"],
@@ -211,13 +240,23 @@ class MetricsExporter:
         by_name = {}
         for key in sorted(gauges):
             by_name[sanitize_metric_name(self.prefix + key)] = (key, gauges[key])
+        # A name's flat sample and its labelled series share one HELP/TYPE
+        # block (the label set keeps labelled samples distinct).
+        labeled_by_name = {}
+        for (key, label_key), value in sorted(labeled.items()):
+            name = sanitize_metric_name(self.prefix + key)
+            labeled_by_name.setdefault(name, (key, []))[1].append((label_key, value))
+            by_name.setdefault(name, (key, None))
         lines = []
         for name in sorted(by_name):
             key, value = by_name[name]
             kind = "counter" if key.endswith("_total") else "gauge"
             lines.append(f"# HELP {name} trlx_tpu tracker key {key!r}")
             lines.append(f"# TYPE {name} {kind}")
-            lines.append(f"{name} {_fmt_value(value)}")
+            if value is not None:
+                lines.append(f"{name} {_fmt_value(value)}")
+            for label_key, lvalue in labeled_by_name.get(name, ("", []))[1]:
+                lines.append(f"{name}{self._render_labels(label_key)} {_fmt_value(lvalue)}")
         hist_by_name = {}
         for (key, label_key), hist in sorted(histograms.items()):
             hist_by_name.setdefault(

@@ -62,7 +62,15 @@ says ``rollout``, and the phase ends with ``verify_engine_schedule`` under
 ``collective_guard("engine/schedule_verify")`` with the slot states as its
 incident detail.
 
-Not ported here: in-flight weight polling and the fleet.
+The fleet (``trlx_tpu_torch.fleet``): ``chunks_per_unit`` is the elastic
+fleet's work-unit width and ``seek_chunks`` positions the prompt stream at
+any unit's shard, so any worker reproduces any unit's prompts. On the
+engine path ``make_experience(..., weight_poll=...)`` polls once per engine
+sync and pushes a fresher version into the running engine
+(``RolloutEngine.update_weights``, coalesced to the latest); the phase's
+``version_spans`` aggregate is returned with its statistics. The chunked
+path has no sync boundary to adopt at mid-phase: it leaves a poller unused,
+as the JAX package does.
 """
 
 import os
@@ -138,6 +146,26 @@ class PPOOrchestrator(Orchestrator):
         self._chunks_consumed += 1
         return batch
 
+    def chunks_per_unit(self, num_rollouts: int) -> int:
+        """Prompt chunks one experience phase consumes: the elastic fleet's
+        work-unit width (unit u owns chunks [u*w, (u+1)*w))."""
+        return max(1, -(-int(num_rollouts) // max(1, int(self.chunk_size))))
+
+    def seek_chunks(self, target: int):
+        """Position the prompt stream at absolute chunk ``target``. The
+        loader's shuffle is seeded, so the chunk sequence is the same on
+        every worker; seeking backward rebuilds the loader (the same
+        sequence from 0) and both directions skip forward by discarding
+        chunks. Every sampling generator derives from the absolute chunk
+        index (``chunk_rng``), so a seeked unit is the unit."""
+        target = int(target)
+        if target < self._chunks_consumed:
+            self.pipeline_loader = self.pipeline.create_loader(self.chunk_size, shuffle=True)
+            self.pipeline_iterator = iter(self.pipeline_loader)
+            self._chunks_consumed = 0
+        while self._chunks_consumed < target:
+            self._next_prompt_batch()
+
     def _generate_next_chunk(self, snapshot=None):
         """Launch one chunk's generation from the module ``snapshot`` names
         (the live one for None). The sampling generator is a pure function
@@ -199,17 +227,20 @@ class PPOOrchestrator(Orchestrator):
         return world_size() == 1 and worker.ready()
 
     def make_experience(self, num_rollouts: int = 1024, iter_count: int = 0, store=None, snapshot=None,
-                        staleness: int = 0, stop=None):
+                        staleness: int = 0, stop=None, weight_poll=None):
         """Fill ``store`` (the trainer's by default) with ``num_rollouts``
         rows generated by the policy whose step is ``iter_count``, or by the
         boundary ``snapshot``'s weights (see the module docstring). Returns
         the phase statistics (host wall seconds per part, device seconds of
         prefill / decode / scoring, decode tokens per second) and logs them
         to the trainer's tracker at step ``iter_count``; None when ``stop``
-        ended the phase early (the partial store is dropped)."""
+        ended the phase early (the partial store is dropped).
+        ``weight_poll`` (the engine path's in-flight weight updates) is
+        unused here: the chunked path has no sync boundary mid-phase."""
         rl = self.rl_model
         if rl.rollout_engine_enabled:
-            return self._make_experience_engine(num_rollouts, iter_count, store, snapshot, staleness, stop)
+            return self._make_experience_engine(num_rollouts, iter_count, store, snapshot, staleness, stop,
+                                                weight_poll)
         store = store if store is not None else rl.store
         record_staleness = store.record_staleness
         # Between stores: the whole store reads one weight version.
@@ -387,7 +418,7 @@ class PPOOrchestrator(Orchestrator):
         return stats
 
     def _make_experience_engine(self, num_rollouts: int, iter_count: int, store=None, snapshot=None,
-                                staleness: int = 0, stop=None):
+                                staleness: int = 0, stop=None, weight_poll=None):
         """The engine path: submit exactly ``num_rollouts`` prompts, step the
         engine until every episode is back, and per chunk of finished
         episodes: left-pad the prompts to the trainer's width, decode and
@@ -395,13 +426,28 @@ class PPOOrchestrator(Orchestrator):
         pipeline), score on the device (a policy re-forward plus the
         reference pass), push. The phase drains fully, so no episode
         crosses a phase boundary; the weights (the live module, or the
-        snapshot's) are handed over once, under the version they hold.
-        Returns and logs the phase statistics (the JAX package's keys plus
-        the engine's ``engine/*`` gauges); None when ``stop`` ended it."""
+        snapshot's) are handed over at the phase's start, under the version
+        they hold, and scoring reads them. ``weight_poll`` (a zero-argument
+        callable returning None or ``(module, version)``) is called once per
+        engine sync: a module it returns is pushed into the RUNNING engine
+        (in-flight weight updates: staged, adopted at the engine's next
+        sync, live slots keep decoding and their episodes split into
+        version spans). Returns and logs the phase statistics (the JAX
+        package's keys plus the engine's ``engine/*`` gauges; the phase's
+        ``version_spans`` aggregate, ``[[version, tokens], ...]``, is
+        returned, not logged); None when ``stop`` ended it."""
         rl = self.rl_model
         store = store if store is not None else rl.store
         record_staleness = store.record_staleness
         engine = rl.rollout_engine()
+        # The phase's sampling stream is a pure function of (train.seed, the
+        # absolute chunk index it starts at), as the chunked path's chunk_rng
+        # is: an elastic fleet's work unit samples the same tokens on any
+        # worker, whatever that worker's engine drew before. (The JAX
+        # engine's key runs on across phases.) A captured decode graph reads
+        # the generator's seed at replay, so reseeding between phases is
+        # graph-safe.
+        engine.generator.manual_seed(rl.seed_of(3, self._chunks_consumed))
         weight_version = rl._adopt_snapshot(snapshot)
         snap_kw = {} if snapshot is None else {"snapshot": snapshot}  # the live weights' calls keep their form
         engine.update_weights(rl.rollout_engine_variables(**snap_kw), version=weight_version)
@@ -437,6 +483,7 @@ class PPOOrchestrator(Orchestrator):
 
         gen_s = reward_s = score_s = push_s = 0.0
         episode_steps = []
+        span_agg = {}  # the phase's per-token weight versions
         last_scores = np.zeros((1,), dtype=np.float32)
         last_kl = np.zeros((1, 1), dtype=np.float32)
 
@@ -456,6 +503,7 @@ class PPOOrchestrator(Orchestrator):
                 episode_steps.append(int(e.decode_steps))
                 for v, k in e.version_spans or ((e.weight_version, e.decode_steps),):
                     spans[v] = spans.get(v, 0) + int(k)
+                    span_agg[v] = span_agg.get(v, 0) + int(k)
             version_spans = sorted(([v, k] for v, k in spans.items()), key=lambda x: (x[0] is None, x[0]))
             return tokens_h, mask_h, version_spans
 
@@ -509,6 +557,10 @@ class PPOOrchestrator(Orchestrator):
                     return None
                 if rl.heartbeat is not None:
                     rl.heartbeat.beat(step=iter_count, phase="rollout")
+                if weight_poll is not None:
+                    pushed = weight_poll()
+                    if pushed is not None:
+                        engine.update_weights(pushed[0], version=pushed[1])
                 sync_tick += 1
                 if fault_plan and fault_plan.fire("mid_decode_host_kill", sync_tick):
                     # Death mid-phase with slots live: no cleanup, no last
@@ -601,4 +653,5 @@ class PPOOrchestrator(Orchestrator):
             stats["exp_staleness"] = float(staleness)
         rl._last_exp_stats = {"exp_per_sec": stats["exp_per_sec"]}
         rl.tracker.log(stats, step=iter_count)
+        stats["version_spans"] = sorted(([v, k] for v, k in span_agg.items()), key=lambda x: (x[0] is None, x[0]))
         return stats

@@ -41,9 +41,33 @@ rank reading its own ``TRLX_TPU_FAULTS``, after the train step N:
   (``PPOOrchestrator``'s engine path) → the others' guarded decode sync
   ends them with exit 117 and their slot states in the incident bundle.
 
-The JAX package's other kinds parse here too, but fire only where their
-subsystems run: ``nan_layer`` (the numerics observatory) and the fleet and
-elastic-fleet kinds; the trainer refuses a plan that names one
+The fleet kinds (``FLEET_KINDS``, the disaggregated rollout/learner jobs
+of ``trlx_tpu_torch.fleet``) fire per PROCESS, each role reading its own
+``TRLX_TPU_FAULTS``:
+
+- ``rollout_host_kill@N``: the rollout worker dies (``os._exit(1)``) right
+  after streaming episode batch N → the learner triages the role DEAD,
+  drains the queued batches at elevated staleness under ``fleet/degraded``
+  and exits cleanly;
+- ``episode_stream_stall@N``: the stream writer sleeps
+  ``TRLX_TPU_STREAM_STALL_SECONDS`` (default 3600) INSTEAD of writing batch
+  N, its heartbeat thread still beating → triaged STALLED, not dead;
+- ``broadcast_timeout@N``: the learner SKIPS publishing ordinal N → a
+  worker waiting for it outlives ``train.fleet_broadcast_deadline`` and
+  exits 117;
+- ``weight_push_torn@N``: ordinal N's pointer flips but its file is
+  truncated → subscribers reject it and keep the version they hold;
+- ``version_switch_storm@N``: from the worker's Nth in-flight weight poll
+  on, the held latest is re-pushed into the running engine every sync for
+  ``TRLX_TPU_SWITCH_STORM_PUSHES`` (default 8) polls → the engine coalesces;
+- ``worker_kill_mid_lease@N`` / ``slow_worker_reclaim@N`` /
+  ``worker_join_mid_run@N`` (elastic workers, keyed on the unit or cursor
+  THRESHOLD: each fires once, at the first opportunity at or past N): die
+  holding a lease, oversleep the lease TTL holding one and produce anyway,
+  or defer registration until the learner's cursor reaches N.
+
+``nan_layer`` (the numerics observatory) parses here too but fires only
+where its subsystem runs: the trainer refuses a plan that names it
 (``UNFIRED_KINDS``).
 """
 
@@ -58,18 +82,12 @@ import torch
 SINGLE_PROCESS_KINDS = ("nan_grad", "reward_exc", "reward_hang", "ckpt_corrupt", "sigterm", "slow_step",
                         "reward_drift", "entropy_collapse")
 MULTI_PROCESS_KINDS = ("host_hang", "host_kill", "slow_host", "host_desync", "mid_decode_host_kill")
+FLEET_KINDS = ("rollout_host_kill", "episode_stream_stall", "broadcast_timeout", "weight_push_torn",
+               "version_switch_storm", "worker_kill_mid_lease", "slow_worker_reclaim", "worker_join_mid_run")
 UNFIRED_KINDS = {
     "nan_layer": "the numerics observatory (graftnum, ROADMAP §A13)",
-    "rollout_host_kill": "the fleet (ROADMAP §A12)",
-    "episode_stream_stall": "the fleet (ROADMAP §A12)",
-    "broadcast_timeout": "the fleet (ROADMAP §A12)",
-    "weight_push_torn": "the fleet (ROADMAP §A12)",
-    "version_switch_storm": "the fleet (ROADMAP §A12)",
-    "worker_kill_mid_lease": "the elastic fleet (ROADMAP §A12)",
-    "slow_worker_reclaim": "the elastic fleet (ROADMAP §A12)",
-    "worker_join_mid_run": "the elastic fleet (ROADMAP §A12)",
 }
-KINDS = SINGLE_PROCESS_KINDS + MULTI_PROCESS_KINDS + tuple(UNFIRED_KINDS)
+KINDS = SINGLE_PROCESS_KINDS + MULTI_PROCESS_KINDS + FLEET_KINDS + tuple(UNFIRED_KINDS)
 
 _ENTRY_RE = re.compile(r"^([a-z_]+)@(\d+)$")
 

@@ -4,7 +4,10 @@ trainer, ``PromptPipeline``, orchestrator, the first ``make_experience``,
 the eval pipeline, ``learn()``; a ``dataset`` of (samples, rewards) runs
 offline ILQL — trainer, ``OfflineOrchestrator.make_experience``, the eval
 pipeline, ``learn()``. Prompts and samples are strings (with the config's
-tokenizer) or token ids. Without a config, the port's copies of the JAX
+tokenizer) or token ids. With the fleet (``method.fleet_disaggregate``) a
+learner or colocated PPO trainer takes its first store through the episode
+stream (``_fleet_bootstrap``) and a rollout trainer runs
+``fleet.run_rollout_worker`` in place of ``learn()``. Without a config, the port's copies of the JAX
 package's default configs are read (``trlx_tpu_torch/configs``)."""
 
 import os
@@ -74,7 +77,14 @@ def train(
         orch = get_orchestrator(config.train.orchestrator)(
             model, pipeline, reward_fn=reward_fn, metric_fn=metric_fn, chunk_size=config.method.chunk_size
         )
-        orch.make_experience(config.method.num_rollouts)
+        fleet_role = getattr(model, "fleet_role", None)
+        if fleet_role is None:
+            orch.make_experience(config.method.num_rollouts)
+        elif fleet_role != "rollout":
+            # The fleet's learner or colocated role: iteration 0's experience
+            # arrives through the stream, after the v0 weight publish. A
+            # rollout role produces on demand in its worker loop.
+            model._fleet_bootstrap()
         eval_prompts = eval_prompts if eval_prompts is not None else prompts
     elif dataset is not None:
         samples, rewards = dataset
@@ -93,5 +103,11 @@ def train(
     else:
         raise ValueError("Either reward_fn or dataset must be given")
     model.add_eval_pipeline(PromptPipeline(eval_prompts, model.tokenizer, max_prompt_length=model.prompt_length))
+    if getattr(model, "fleet_role", None) == "rollout":
+        # The rollout job: the persistent worker loop in place of learn().
+        from trlx_tpu_torch.fleet import run_rollout_worker
+
+        run_rollout_worker(model, orch)
+        return model
     model.learn()
     return model

@@ -74,7 +74,6 @@ import numpy as np
 import torch
 
 from trlx_tpu_torch.data.configs import TRLConfig
-from trlx_tpu_torch.data.method_configs import PPOConfig
 from trlx_tpu_torch.device import resolve_device
 from trlx_tpu_torch.models.hf_export import export_hf
 from trlx_tpu_torch.models.lm import LMConfig, gather_tensor, placement_of, refresh_weight_copies, shard_tensor
@@ -269,9 +268,6 @@ UNPORTED_ENV_SWITCHES = {
     "TRLX_TPU_GRAFTSCOPE": "graftscope (ROADMAP §A13)",
     "TRLX_TPU_GRAFTNUM": "graftnum (ROADMAP §A13)",
     "TRLX_TPU_SANITIZE": "the dispatch sanitizer (the port has no dispatch lock)",
-    "TRLX_TPU_FLEET_ROLE": "the fleet (ROADMAP §A12)",
-    "TRLX_TPU_FLEET_WORKER": "the fleet (ROADMAP §A12)",
-    "TRLX_TPU_FLEET_LEAVE_AFTER": "the fleet (ROADMAP §A12)",
 }
 
 
@@ -279,17 +275,14 @@ def refuse_unported(config: TRLConfig):
     """Raise on every knob, environment switch and fault kind whose feature
     is not ported yet, so no config silently runs a different algorithm, or
     records less, than it asks for. The one list of such knobs: those every
-    trainer shares, the environment switches (``UNPORTED_ENV_SWITCHES``),
-    the fault kinds only other subsystems fire (``faults.UNFIRED_KINDS``;
-    ``TRLX_TPU_FAULTS`` wins over ``train.fault_plan``), then the PPO
-    method's own (a method config without them has none to refuse). Int8
-    decode weights are PPO's rollout feature: other trainers accept and
-    ignore them, as the JAX package's do."""
-    m, t = config.method, config.train
+    trainer shares, the environment switches (``UNPORTED_ENV_SWITCHES``)
+    and the fault kinds only other subsystems fire (``faults.UNFIRED_KINDS``;
+    ``TRLX_TPU_FAULTS`` wins over ``train.fault_plan``). Int8 decode weights
+    and the fleet (``train.fleet_*``, its environment switches and fault
+    kinds) are PPO's rollout features: other trainers accept and ignore
+    them, as the JAX package's do."""
+    t = config.train
     unported = {
-        # the fleet
-        "train.fleet_role": bool(t.fleet_role),
-        "train.fleet_dir": bool(t.fleet_dir),
         # profiling and observability beyond the single-process core
         "train.profile_dir": bool(t.profile_dir),
         "train.watch_interval": t.watch_interval > 0,
@@ -300,13 +293,8 @@ def refuse_unported(config: TRLConfig):
     for var, feature in UNPORTED_ENV_SWITCHES.items():
         unported[f"{var} ({feature})"] = env_flag(var)
     kinds = FaultPlan.from_env_or_config(t.fault_plan).unfired_kinds()
-    unported[f"train.fault_plan / TRLX_TPU_FAULTS kinds {', '.join(kinds)} (fired only by subsystems not ported: "
-             "the numerics observatory and the fleet)"] = bool(kinds)
-    if isinstance(m, PPOConfig):
-        unported.update({
-            "method.fleet_disaggregate": m.fleet_disaggregate,
-            "method.fleet_elastic": m.fleet_elastic,
-        })
+    unported[f"train.fault_plan / TRLX_TPU_FAULTS kinds {', '.join(kinds)} (fired only by a subsystem not ported: "
+             "the numerics observatory)"] = bool(kinds)
     on = [k for k, v in unported.items() if v]
     if on:
         raise NotImplementedError(f"not ported yet: {', '.join(on)}")
@@ -629,13 +617,16 @@ class BaseTrainer(BaseRLTrainer):
             scores = None
         return broadcast_host(scores)
 
-    def seeded_generator(self, *key: int) -> torch.Generator:
-        """A generator on the trainer's device seeded from (train.seed,
-        *key) through numpy's SeedSequence, so distinct keys give unrelated
-        streams."""
+    def seed_of(self, *key: int) -> int:
+        """The seed of (train.seed, *key) through numpy's SeedSequence, so
+        distinct keys give unrelated streams."""
         seed = np.random.SeedSequence([int(self.config.train.seed), *[int(k) for k in key]])
+        return int(seed.generate_state(1, np.uint64)[0] >> np.uint64(1))
+
+    def seeded_generator(self, *key: int) -> torch.Generator:
+        """A generator on the trainer's device seeded with ``seed_of(*key)``."""
         g = torch.Generator(device=self.device)
-        g.manual_seed(int(seed.generate_state(1, np.uint64)[0] >> np.uint64(1)))
+        g.manual_seed(self.seed_of(*key))
         return g
 
     def chunk_rng(self, chunk: int) -> torch.Generator:

@@ -59,6 +59,18 @@ events. The fingerprint checks at the boundaries stay on the main thread.
 The engine runs under its multi-process contract (``engine.rollout_engine``)
 and the int8 decode copies of a sharded model are quantized from its pieces
 (``ops.w8a16.quantize_dense``).
+
+The fleet (``method.fleet_disaggregate``, ``trlx_tpu_torch.fleet``): the
+role is validated at construction (``validate_fleet_config``: every
+misconfiguration is a ValueError here, never mid-run) and the in-process
+overlap stays off under a role (``method.max_staleness`` bounds the
+cross-job episode stream instead). A learner or colocated trainer takes its
+stores from a ``FleetLearnerFeed`` (``_fleet_bootstrap`` at the first fill,
+then publish-and-consume at every ``post_epoch_callback``); a
+``FleetDegradedExit`` saves the rollback checkpoint and ends ``learn()``
+cleanly, returning None; ``learn()``'s teardown shuts the feed down with the
+coordinated abort marker (none on preemption). A rollout trainer runs
+``fleet.run_rollout_worker`` instead of ``learn()`` (``trainer.api``).
 """
 
 import copy
@@ -71,6 +83,8 @@ import torch
 from trlx_tpu_torch.data import PackedPPOBatch, PPORLBatch
 from trlx_tpu_torch.data.configs import TRLConfig
 from trlx_tpu_torch.device import stamp
+from trlx_tpu_torch.fleet.runner import FleetDegradedExit
+from trlx_tpu_torch.fleet.topology import validate_fleet_config
 from trlx_tpu_torch.models.heads import LMWithValueHead, extract_branch_params, swapped_params, trainable_mask
 from trlx_tpu_torch.models.hf_import import build_lm_config, load_or_init_params
 from trlx_tpu_torch.models.snapshot import RolloutSnapshot
@@ -142,6 +156,8 @@ class PPOTrainer(BaseTrainer):
         super().__init__(config, device=device, **kwargs)
         m = config.method
         gen_kwargs = dict(m.gen_kwargs)
+        # The fleet's role (None: fleet off), validated at construction.
+        self.fleet_role = validate_fleet_config(config)
 
         self.load_log = {}  # the HF loads' records (bytes, seconds) by model; None for a model built from scratch
         self.model = self.get_arch(config)
@@ -157,9 +173,11 @@ class PPOTrainer(BaseTrainer):
 
         # The overlapped pipeline (pipeline.overlap): background scoring,
         # batch prefetch and the rollout producer; max_staleness > 0 also
-        # lets the producer run ahead from boundary snapshots.
+        # lets the producer run ahead from boundary snapshots. Under a fleet
+        # role max_staleness bounds the cross-job stream instead, and the
+        # in-process machinery stays off.
         self.max_staleness = max(0, int(m.max_staleness or 0))
-        self.overlap_rollouts = bool(m.rollout_overlap) or self.max_staleness > 0
+        self.overlap_rollouts = (bool(m.rollout_overlap) or self.max_staleness > 0) and self.fleet_role is None
         self._producer_stream = None  # the producer's own stream over NCCL, made at first use
         self._pack_train_batch = bool(m.pack_train_batch)
         # Packed row counts round up to a multiple of the node's data ranks.
@@ -170,9 +188,16 @@ class PPOTrainer(BaseTrainer):
         self._rollout_producer = None
         self._snapshot_weights = None  # the producer's RolloutSnapshot, built at the first boundary
         self._last_exp_stats = None
+        # The fleet's learner feed (built by _fleet_bootstrap), the
+        # degraded-exit latch, and the rollout-side weights (fleet.runner).
+        self._fleet_feed = None
+        self._fleet_stopped = False
+        self._fleet_weights = None
         # Decided once, so iteration 0's store and every producer-built one
-        # share one column layout.
-        self.store = PPORolloutStorage(self.pad_token_id, record_staleness=self.overlap_rollouts)
+        # share one column layout; fleet stores carry the realized staleness
+        # stamped at consume time.
+        self.store = PPORolloutStorage(self.pad_token_id,
+                                       record_staleness=self.overlap_rollouts or self.fleet_role is not None)
         if m.target is not None:
             self.kl_ctl = AdaptiveKLController(m.init_kl_coef, m.target, m.horizon)
         else:
@@ -551,14 +576,33 @@ class PPOTrainer(BaseTrainer):
     def learn(self):
         """The base loop, then the queued KL-controller updates are applied,
         so ``kl_ctl.value`` is current when training ends. The rollout
-        producer (in the base loop's teardown) and then the rollout engine,
-        if any, shut down on the way out."""
+        producer or the fleet feed (in the base loop's teardown) and then
+        the rollout engine, if any, shut down on the way out. A
+        ``FleetDegradedExit`` is a clean stop: the feed drained what it
+        could, ``post_epoch_callback`` saved the rollback checkpoint, and
+        the teardown wrote the abort marker; it returns None."""
         try:
             stats = super().learn()
             self._flush_kl_updates()
+        except FleetDegradedExit as e:
+            print(f"[fleet] learner stopped cleanly: {e}", flush=True)
+            return None
         finally:
             self._shutdown_rollout_engine()
         return stats
+
+    def _fleet_bootstrap(self):
+        """Learner and colocated roles: iteration 0's store arrives through
+        the episode stream (``trainer.api`` calls this in place of the first
+        ``make_experience``), after the v0 publish that lets a worker's
+        staleness gate open. A resumed learner publishes its restored
+        step."""
+        from trlx_tpu_torch.fleet.runner import FleetLearnerFeed
+
+        if self._resumed:
+            self.iter_count = int(self.step)
+        self._fleet_feed = FleetLearnerFeed(self, self.orch)
+        self.store = self._fleet_feed.bootstrap()
 
     def host_state_dict(self) -> dict:
         """The base host state plus the KL coefficient, after the queued
@@ -644,12 +688,23 @@ class PPOTrainer(BaseTrainer):
 
     def post_epoch_callback(self):
         """Back to rollouts: apply the queued KL updates, then either
-        generate the next iteration's experience into the cleared store
-        (serial), or release the producer (one iteration consumed, with the
-        boundary snapshot at staleness > 0) and take its next store. Then
-        the train loader is rebuilt and the phase window logged."""
+        publish the post-train weights and consume the next stream batch
+        (the fleet; a ``FleetDegradedExit`` saves the rollback checkpoint
+        first, then unwinds), generate the next iteration's experience into
+        the cleared store (serial), or release the producer (one iteration
+        consumed, with the boundary snapshot at staleness > 0) and take its
+        next store. Then the train loader is rebuilt and the phase window
+        logged."""
         self._flush_kl_updates()
-        if self._rollout_producer is None:
+        if self._fleet_feed is not None:
+            try:
+                self._fleet_feed.consume_done()
+                self.store = self._fleet_feed.next_store()
+            except FleetDegradedExit:
+                self._fleet_stopped = True
+                self.save()
+                raise
+        elif self._rollout_producer is None:
             self.store.clear_history()
             self.orch.make_experience(self.config.method.num_rollouts, self.iter_count)
         else:
@@ -697,8 +752,14 @@ class PPOTrainer(BaseTrainer):
             self._metrics_exporter.update(stats, step=self.iter_count)
 
     def _shutdown_experience_pipeline(self):
-        """learn()'s teardown: stop the rollout producer (also on the
-        preemption and early-return paths)."""
+        """learn()'s teardown: shut the fleet feed down (the abort marker,
+        except on preemption: this learner resumes into the same fleet_dir
+        and the worker keeps serving it) and stop the rollout producer (also
+        on the preemption and early-return paths)."""
+        feed, self._fleet_feed = self._fleet_feed, None
+        if feed is not None:
+            reason = "preempted" if self._preempted else "degraded" if self._fleet_stopped else "complete"
+            feed.shutdown(reason=reason)
         producer, self._rollout_producer = self._rollout_producer, None
         if producer is not None:
             producer.shutdown()
