@@ -139,6 +139,7 @@ import subprocess
 import sys
 import threading
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -1790,6 +1791,114 @@ def check_live_pool(engine):
             "blocks_shared": int(blocks.size - np.unique(blocks).size)}
 
 
+# The main path's unarmed figures PERF.md holds (one H100 80GB HBM3 at
+# 700.00 W, other calls): a PPO step at 28 layers (PR 13 calls 4 and 6).
+UNARMED_STEP_DEVICE_S = 0.6209
+MFU_REL_TOL = 0.10  # the monitor's MFU against the smoke's own reckoning
+LEDGER_ERROR_MAX = 0.01  # |device_busy + host + bubble - wall| as a share of the wall
+# Device kernels the profile_dir trace of train steps must name.
+ARMED_TRACE_KERNELS = {"flash_fwd_kernel", "flash_bwd_dq_kernel", "logprob_fwd_kernel", "logprob_dw_kernel"}
+
+
+def reckon_ppo_step_flops(n_layer: int, k: int, rows: int, T: int, R: int, arch=GPTJ_6B_ARCH) -> float:
+    """The FLOPs of one remat PPO train step, from the shapes alone: every
+    block's products (q, k, v, out: 4 d^2; the MLP: 2 d d_ff) run forward,
+    again in the remat recompute but for the MLP's output product (the
+    recompute stops early, once the last tensor the backward saved, that
+    product's input, is made again: ``set_checkpoint_early_stop``), and
+    backward for dX (the embedding trains, so the gradient crosses every
+    block), and for dW in the top ``k``; attention over the causal pairs
+    (the flash kernels: forward twice, 4 a pair and head dim; dq 6; dk/dv
+    8); the fused head over the ``R`` response rows of each sequence
+    (forward 2, ds + dx 4, dW 2, times D V); the value head (d -> 2d -> 1)
+    forward, dX and dW."""
+    d, d_ff, V, h = arch["d_model"], arch["d_ff"], arch["vocab_size"], arch["n_head"]
+    tokens = rows * T
+    per_block = 4 * d * d + 2 * d * d_ff
+    dense = 2 * tokens * (per_block * (3 * n_layer + k) - d * d_ff * n_layer)
+    pairs = rows * h * T * (T + 1) / 2
+    attn = (2 * 4 + 6 + 8) * (d // h) * pairs * n_layer
+    head = (2 + 4 + 2) * rows * R * d * V
+    v_head = 3 * 2 * tokens * (d * 2 * d + 2 * d)
+    return dense + attn + head + v_head
+
+
+def check_armed_run(trainer, run_dir: str, config, prof_rec: dict, n_layer: int, k: int, card: str):
+    """graftnum, device telemetry, graftscope, watch_interval and profile_dir
+    armed on the main path: each window's ``obs/train_mfu_pct`` against the
+    smoke's reckoning (``reckon_ppo_step_flops`` over the window's steps'
+    CUDA-event device seconds, within ``MFU_REL_TOL``) and the counted FLOPs
+    of a train step against the reckoned; each window's ledger error within
+    ``LEDGER_ERROR_MAX`` of the wall, with its dropped fences; every
+    ``num/*`` and ``obs/*`` value finite; the profile's trace file naming
+    the hand kernels, its launches against the wrappers' counts short of the
+    records the trace proves lost; the report's numerics, graftscope and
+    telemetry sections. Returns the numbers it printed."""
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    with open(os.path.join(run_dir, "programs.json")) as f:
+        programs = json.load(f)
+    R = MAX_LEN - PROMPT_LEN
+    reckoned = reckon_ppo_step_flops(n_layer, k, config.train.batch_size, MAX_LEN, R)
+    counted = programs["train/step"]["variants"][0]["flops"]
+    log_, done, windows = trainer.step_log, 0, []
+    for r in recs:
+        if "obs/train_mfu_pct" not in r:
+            continue
+        steps = log_[done:int(r["step"])]
+        done = int(r["step"])
+        dev_s = sum(s["device_s"] for s in steps)
+        want = 100.0 * reckoned * len(steps) / dev_s / PEAK_BF16_FLOPS
+        err = abs(r["obs/ledger_device_busy_s"] + r["obs/ledger_host_s"] + r["obs/ledger_bubble_s"]
+                  - r["obs/ledger_wall_s"]) / r["obs/ledger_wall_s"]
+        windows.append({"step": r["step"], "train_mfu_pct": r["obs/train_mfu_pct"], "reckoned_mfu_pct": want,
+                        "train_device_s": r.get("obs/train_device_s"), "steps_device_s": dev_s, "steps": len(steps),
+                        "iter_mfu_pct": r.get("obs/iter_mfu_pct"), "ledger_error_frac": err,
+                        "ledger_wall_s": r["obs/ledger_wall_s"], "device_busy_s": r["obs/ledger_device_busy_s"],
+                        "host_s": r["obs/ledger_host_s"], "bubble_s": r["obs/ledger_bubble_s"],
+                        "fences_dropped": r["obs/graftscope_fences_dropped_total"]})
+    bad = sorted({k_ for r in recs for k_, v in r.items() if k_.startswith(("num/", "obs/", "watch/"))
+                  and isinstance(v, float) and not np.isfinite(v)})
+    num_keys = sorted({k_ for r in recs for k_ in r if k_.startswith("num/")})
+    trace = os.path.join(config.train.profile_dir, "trace.json")
+    with open(trace, "rb") as f:
+        raw = f.read()
+    named = sorted(k_ for k_ in DEVICE_KERNELS if k_.encode() in raw)
+    with open(os.path.join(run_dir, "report.md")) as f:
+        md = f.read()
+    sections = {s: s in md for s in ("## Numerics (graftnum)", "## Device-time attribution (graftscope)",
+                                      "- train MFU:", "### Monitored programs")}
+    empty = [s for s in ("No numerics records", "No graftscope snapshot", "No FLOP gauges") if s in md]
+    out = {"windows": windows, "reckoned_step_tflop": reckoned / 1e12, "counted_step_tflop": counted / 1e12,
+           "num_keys": len(num_keys), "nonfinite": bad, "trace_bytes": os.path.getsize(trace),
+           "trace_kernels": named, "profile_launches": prof_rec.get("traced"),
+           "report_sections": sections, "report_bytes": len(md)}
+    log(f"[engine-armed] graftnum, telemetry, graftscope, watch_interval 4, profile_dir on the main path on {card}: "
+        f"{json.dumps(out)}")
+    for w in windows:
+        log(f"[engine-armed] window at step {w['step']}: obs/train_mfu_pct {w['train_mfu_pct']:.3f} against the "
+            f"reckoning {w['reckoned_mfu_pct']:.3f} ({w['steps']} steps, {w['steps_device_s']:.4f} device s); ledger "
+            f"|device + host + bubble - wall| / wall {w['ledger_error_frac']:.2e}, fences dropped "
+            f"{w['fences_dropped']:.0f}")
+    if not windows:
+        raise AssertionError("the armed main path logged no MFU window")
+    for w in windows:
+        if abs(w["train_mfu_pct"] / w["reckoned_mfu_pct"] - 1) > MFU_REL_TOL:
+            raise AssertionError(f"obs/train_mfu_pct {w['train_mfu_pct']} against the reckoning "
+                                 f"{w['reckoned_mfu_pct']} (tolerance {MFU_REL_TOL})")
+        if w["ledger_error_frac"] > LEDGER_ERROR_MAX or w["fences_dropped"]:
+            raise AssertionError(f"the ledger's error {w['ledger_error_frac']} or dropped fences {w['fences_dropped']}")
+    if abs(counted / reckoned - 1) > MFU_REL_TOL:
+        raise AssertionError(f"counted train-step FLOPs {counted} against the reckoned {reckoned}")
+    if bad or not num_keys:
+        raise AssertionError(f"non-finite telemetry {bad}, num/* keys {len(num_keys)}")
+    if not ARMED_TRACE_KERNELS <= set(named):
+        raise AssertionError(f"the profile_dir trace names only {named} of the hand kernels")
+    if not all(sections.values()) or empty:
+        raise AssertionError(f"report sections {sections}, empty ones {empty}")
+    return out
+
+
 def engine_train_path(kernels):
     """The main path: ``trlx_tpu_torch.train(reward_fn=...)`` at GPT-J-6B
     full width and depth through the continuous-batching engine, paged
@@ -1798,14 +1907,38 @@ def engine_train_path(kernels):
     512-token prefix, with ``train_config``'s method and optimizer values:
     16 PPO steps, two experience phases, a final evaluate(). Its end save
     is not written (since dist_train, the smoke's time): ``hf_rm_train``'s
-    end save of the same 33.6 GB state is written and checked. Returns its
-    numbers and the launches of the whole run."""
+    end save of the same 33.6 GB state is written and checked. Since PR 21
+    it runs with graftnum, device telemetry, graftscope, ``watch_interval``
+    and ``profile_dir`` armed (``check_armed_run``): none of them changes a
+    launch the run holds. Returns its numbers and the launches of the whole
+    run."""
     import trlx_tpu_torch
     from trlx_tpu_torch.trainer.ppo import PPOTrainer
 
     n_layer, k, R = GPTJ_6B_ARCH["n_layer"], 2, MAX_LEN - PROMPT_LEN
     spc = ENGINE["engine_steps_per_sync"]
     eng = {}
+    prof_rec = {}
+
+    def on_built(trainer):
+        # The profile_dir window's profiler, kept past its stop so its trace
+        # is held against the wrappers' counts of the same window.
+        tick, stop = trainer._profile_tick, trainer._profile_stop
+
+        def tick_():
+            was = trainer._profiling
+            tick()
+            if was is None and trainer._profiling is not None:
+                prof_rec["before"] = {n: f.launches for n, f in kernels.items()}
+
+        def stop_():
+            prof = trainer._profiling
+            if prof is not None:
+                prof_rec["counted"] = {n: f.launches - prof_rec["before"][n] for n, f in kernels.items()}
+                prof_rec["prof"] = prof
+            stop()
+
+        trainer._profile_tick, trainer._profile_stop = tick_, stop_
 
     def on_engine(engine):
         eng["engine"] = engine
@@ -1829,9 +1962,12 @@ def engine_train_path(kernels):
 
         engine._decode, engine.stats = decode_, stats_
 
-    cls = make_timed_trainer(kernels, n_layer, on_engine, base=no_save_trainer())
+    cls = make_timed_trainer(kernels, n_layer, on_engine, base=no_save_trainer(), on_built=on_built)
     run_dir = os.path.join(RUN_DIR, "engine_train")
     config = train_config(n_layer, cls.__name__, run_dir, method=dict(ENGINE, paged_kv=True), quant=True)
+    config.train.graftnum = config.train.device_telemetry = config.train.graftscope = True
+    config.train.watch_interval = 4
+    config.train.profile_dir = os.path.join(run_dir, "profile")
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
         fn.launches = 0
@@ -1891,6 +2027,12 @@ def engine_train_path(kernels):
         raise AssertionError("no decode call ran with two live slots sharing a block: the live-pool check never ran")
 
     log_ = check_train_steps(trainer, config, train_step_launches(kernels, n_layer))
+    prof = prof_rec.pop("prof", None)
+    if prof is None:
+        raise AssertionError("train.profile_dir opened no profiling window")
+    _, prof_rec["traced"] = trace_launches(prof, prof_rec["counted"])
+    del prof
+    armed = check_armed_run(trainer, run_dir, config, prof_rec, n_layer, k, card_line())
     cols = trainer.store.columns()
     if len(trainer.store) != N_ROLLOUTS:
         raise AssertionError(f"store holds {len(trainer.store)} rows, expected {N_ROLLOUTS}")
@@ -1914,6 +2056,8 @@ def engine_train_path(kernels):
         "fixed_layout_bytes": engine.n_slots * engine.cache_len * per_token * cfg.n_layer,
         "live_pool_check": eng["live_pool"],
         "step_device_s_median": float(np.median(dev_s)),
+        "unarmed_step_device_s": UNARMED_STEP_DEVICE_S,
+        "armed": armed,
         "mean_ratio_per_step": [r["mean_ratio"] for r in log_],
         "experience": exp,
         "eval": dict(trainer.eval_log[0]),
@@ -1921,6 +2065,9 @@ def engine_train_path(kernels):
     }
     log(f"[engine] trlx_tpu_torch.train through the paged int8 engine at GPT-J-6B ({n_layer} layers), "
         f"{steps} steps: {json.dumps(out)}")
+    log(f"[engine-armed] armed run: wall {wall:.1f} s, step device s median {float(np.median(dev_s)):.4f} (step 1, "
+        f"counted under FlopCount: {dev_s[0]:.4f}; each step: {[round(x, 4) for x in dev_s]}); unarmed, from PERF.md "
+        f"(PR 13, other calls): step {UNARMED_STEP_DEVICE_S} s, no engine_train wall recorded")
     log(f"[engine] launches {launches} expected {expected}")
     if launches != expected:
         raise AssertionError(f"kernel launches {launches} != {expected}")
@@ -2087,7 +2234,9 @@ DRILL_LAYERS = 4  # depth of the resilience drill, at GPT-J-6B width
 DRILL_STEPS = 12
 DRILL_RUN1_FAULTS = "reward_exc@1,reward_hang@2,nan_grad@3,ckpt_corrupt@2,sigterm@5"
 DRILL_SAVE_INTERVAL = 4  # run 1 saves state_4, then the preemption's state_5: a 4-layer save is 14.2 GB, ~28 s
-DRILL_RUN2_FAULTS = "reward_drift@2,nan_grad@6,nan_grad@7,slow_step@10"
+# nan_layer@9: past the rollback to step 4, graftnum's drill (run 2 arms it);
+# its bundle's bisect must name block_3, the last block (9 clamped to the depth).
+DRILL_RUN2_FAULTS = "reward_drift@2,nan_grad@6,nan_grad@7,nan_layer@9,slow_step@10"
 DRILL_SLOW_STEP_S = 2.0
 DRILL_REWARD_TIMEOUT_S = 1.0
 # Only the poisoned steps may trip the watchdog: at 0.5 a new store's loss
@@ -2186,7 +2335,8 @@ def resilience_drill_path(kernels):
     memory); spans of the train step, the engine and the checkpoints and
     the guard_skip instant.
 
-    (b) Run 2 resumes (greedy decode, saves only at the end), and holds what
+    (b) Run 2 resumes (greedy decode; its end save, never read, is not
+    written since PR 21: the smoke's time), and holds what
     the resumed PPO run of earlier smokes held: the loaded state bit-equal,
     the first resumed step at schedule(step) with mean_ratio within 1 +-
     0.05, every step's launches. It arms the health
@@ -2199,6 +2349,13 @@ def resilience_drill_path(kernels):
     half the schedule's); a slow_step bundle at step 10; the reward-drift
     detector at CRIT with its bundle; /healthz critical and /metrics serving
     health/* while the run is live; step 12 with a finite loss.
+
+    Since PR 21 the guard-skip bundles carry graftnum's ``numerics.json``:
+    run 1's at step 3 (graftnum off) a census naming every trainable leaf
+    (the step's gradients are wholly non-finite); run 2 arms graftnum, its
+    step-6 bundle's bisect finds the forward clean (the poison reaches the
+    loss, not the activations) and ``nan_layer@9``'s names block_3, through
+    the hand kernels.
 
     (c) Run 2's trainer, fresh off its resume load of state_4, decodes 8
     prompts greedily through its engine and its chunked sampler (each
@@ -2291,6 +2448,12 @@ def resilience_drill_path(kernels):
             rb["graph_fresh"] = rb["graph_kept"] and graph is drill.get("graph_fresh")
             rb["engine_version"] = engine.weight_version
             drill["rollback"] = rb
+
+        def save(self, directory=None, block=True):
+            if self._resumed:  # run 2's end save: nothing reads it
+                drill["end_saves_skipped"] = drill.get("end_saves_skipped", 0) + 1
+                return None
+            return super().save(directory, block)
 
         def evaluate(self):
             if self._metrics_exporter is not None:  # run 2's end, with the endpoint still live
@@ -2399,6 +2562,17 @@ def resilience_drill_path(kernels):
                                  f"{run1['state_5_verifies']}")
         if not guard3:
             raise AssertionError(f"run 1: no guard_skip bundle at step 3: {run1['incidents']}")
+        with open(os.path.join(run_dir, "incidents", "3", "numerics.json")) as f:
+            census = json.load(f)
+        trainable = sorted(n.replace(".", "/") for n, p in trainer.model.named_parameters() if p.requires_grad)
+        run1["census"] = {k: census["grad_census"].get(k) for k in ("total_nonfinite_leaves",)}
+        log(f"[resilience_drill] run 1's step-3 numerics.json (graftnum off): census of "
+            f"{census['grad_census'].get('total_nonfinite_leaves')} non-finite leaves of {len(trainable)} trainable, "
+            f"bisect {'forward_bisect' in census}")
+        if census["grad_census"].get("total_nonfinite_leaves") != len(trainable) or "forward_bisect" in census or \
+                [e["path"] for e in census["grad_census"]["nonfinite_leaves"]] != trainable[:32]:
+            raise AssertionError(f"run 1: step 3's census {census['grad_census']} does not name the {len(trainable)} "
+                                 "trainable leaves, or a bisect ran with graftnum off")
         with open(os.path.join(run_dir, "incidents", "3", "threads.txt")) as f:
             threads_txt = f.read()
         with open(os.path.join(run_dir, "incidents", "3", "memory.json")) as f:
@@ -2421,7 +2595,7 @@ def resilience_drill_path(kernels):
                             anomaly_factor=3.0, health_monitor=True, health_warmup=1, health_warn_streak=1,
                             health_crit_streak=2, metrics_port=free_local_port(),
                             watchdog_patience=2, watchdog_warmup=1, watchdog_lr_decay=0.5, max_rollbacks=2,
-                            watchdog_threshold=DRILL_WATCHDOG_THRESHOLD)
+                            watchdog_threshold=DRILL_WATCHDOG_THRESHOLD, graftnum=True)
         config.method.gen_kwargs = dict(config.method.gen_kwargs, do_sample=False)
         trainer, wall2 = run(config)
         launches = {name: fn.launches for name, fn in kernels.items()}
@@ -2472,6 +2646,22 @@ def resilience_drill_path(kernels):
         if not after or abs(after[0]["learning_rate"] - 0.5 * unscaled) > 1e-6 * unscaled:
             raise AssertionError(f"run 2: learning rate after the rollback {run2['lr_after_rollback']}, expected "
                                  f"0.5 x {unscaled}")
+        bisects = {}
+        for step_dir in ("6", "9"):
+            with open(os.path.join(run_dir, "incidents", step_dir, "numerics.json")) as f:
+                payload = json.load(f)
+            b = payload.get("forward_bisect", {})
+            bisects[step_dir] = {"first_nonfinite": b.get("first_nonfinite"), "injected": b.get("injected"),
+                                 "taps": [(t.get("tap"), t.get("nan")) for t in b.get("taps", [])],
+                                 "census_leaves": payload["grad_census"].get("total_nonfinite_leaves")}
+        run2["bisects"] = bisects
+        log(f"[resilience_drill] run 2's numerics.json (graftnum armed): {json.dumps(bisects)}")
+        taps9 = [t for t, _ in bisects["9"]["taps"]]
+        if bisects["6"]["first_nonfinite"] is not None or bisects["6"]["injected"] is not None or \
+                (bisects["9"]["first_nonfinite"], bisects["9"]["injected"]) != ("block_3", "block_3") or \
+                taps9 != ["embed", "block_0", "block_1", "block_2", "block_3", "ln_f"] or \
+                any(n for t, n in bisects["9"]["taps"][:4]):
+            raise AssertionError(f"run 2: the bisects {bisects} (step 6 clean, step 9 block_3 first)")
         if not any(d == "10" for d, _ in bundles2.get("slow_step", [])):
             raise AssertionError(f"run 2: no slow_step bundle at step 10: {run2['incidents']}")
         if not health_states or max(health_states) != 2.0 or "health_reward_drift" not in bundles2:
@@ -2481,6 +2671,8 @@ def resilience_drill_path(kernels):
                 "trlx_tpu_health_reward_drift_state 2.0" not in metrics_text:
             raise AssertionError(f"run 2: /healthz {healthz}, /metrics health gauges "
                                  f"{[ln for ln in metrics_text.splitlines() if 'health_' in ln][:6]}")
+        if drill.get("end_saves_skipped") != 1:
+            raise AssertionError(f"run 2 asked for {drill.get('end_saves_skipped')} saves, expected its end save")
         if trainer.iter_count != DRILL_STEPS or not steps2 or not np.isfinite(steps2[-1]["loss"]):
             raise AssertionError(f"run 2 ended at {trainer.iter_count} with loss {run2['last_loss']}")
         if any(rec["launches"] != per_step for rec in trainer.step_log):
@@ -3410,13 +3602,31 @@ def traced_kernel_ms(kernels, fn):
     return out, us / 1e3, traced
 
 
+def device_events(raw):
+    """A trace's device records grouped by name, as ``key_averages`` groups
+    them (``key``, ``count``, ``self_device_time_total`` in us), read from
+    kineto's raw events in one pass: ``key_averages`` first builds the tree
+    of every host op, which takes seconds on a long trace (12-13 s on
+    ``engine_train``'s three profiled steps at 28 layers, PR 21 call 5)."""
+    by_name = {}
+    for e in raw:
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            rec = by_name.get(e.name())
+            if rec is None:
+                rec = by_name[e.name()] = SimpleNamespace(key=e.name(), count=0, self_device_time_total=0.0)
+            rec.count += 1
+            rec.self_device_time_total += e.duration_ns() / 1e3
+    return list(by_name.values())
+
+
 def trace_launches(prof, counted):
-    """The device events of a finished profile (``key_averages``) and what
+    """The device events of a finished profile (``device_events``) and what
     it shows of the port's launches: ``traced_launches`` held against the
     wrappers' ``counted`` launches, with the records the trace proves lost
     (``lost_device_records``) beside them."""
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    lost = lost_device_records(prof.profiler.kineto_results.events())
+    raw = prof.profiler.kineto_results.events()
+    events = device_events(raw)
+    lost = lost_device_records(raw)
     return events, {"launches": traced_launches(events, counted, lost["lost"]), **lost}
 
 

@@ -1,6 +1,7 @@
 """graftfleet in the port (``trlx_tpu_torch/observability/fleet.py``): twins of
-``tests/test_fleet.py`` but its report case (``observability/report.py`` is
-not ported).
+``tests/test_fleet.py``, its report case included (the port's
+``observability/report.py`` renders the same section from the same files as
+the JAX package's, line for line).
 
 The pure readers (``read_fleet_spans``, the per-collective skew table, the
 arrival reader) take the same files as the JAX package's and must give the
@@ -361,3 +362,29 @@ def test_ported_switches_are_accepted(tmp_path, monkeypatch, switch):
     monkeypatch.setenv(switch, "1")
     trainer = PPOTrainer(_walk_config(tmp_path), device="cpu")
     assert trainer._fleet is not None if switch == "TRLX_TPU_GRAFTFLEET" else trainer._fleet is None
+
+
+def test_report_fleet_section_renders_artifacts(tmp_path):
+    """The report's Fleet section: the actionable fallback when nothing is
+    armed, then the merged-trace line, the clock offsets and the skew table
+    naming the laggard; the same lines as the JAX package's section over the
+    same files."""
+    from trlx_tpu.observability.report import _fleet_section as jax_fleet_section
+    from trlx_tpu_torch.observability.report import _fleet_section
+
+    d = str(tmp_path)
+    lines = _fleet_section(d)
+    assert any("train.graftfleet off" in ln for ln in lines) and lines == jax_fleet_section(d)
+
+    _write_host_spans(d, 0, [{"name": "a", "ph": "X", "ts": 1, "dur": 1, "tid": 1}])
+    _write_host_spans(d, 1, [{"name": "b", "ph": "X", "ts": 2, "dur": 1, "tid": 1}])
+    _clock_record(d, [0.0, 0.25])
+    base = 50.0
+    _write_arrivals(d, 0, [{"site": "s", "seq": 0, "host": 0, "t0": base, "t1": base + 0.1}])
+    _write_arrivals(d, 1, [{"site": "s", "seq": 0, "host": 1, "t0": base + 0.3, "t1": base + 0.4}])
+    lines = _fleet_section(d)
+    text = "\n".join(lines)
+    assert "clock-alignment error" in text
+    assert "| s |" in text and "host 1" in text
+    assert "host1 +250.000ms" in text
+    assert lines == jax_fleet_section(d)

@@ -2002,3 +2002,86 @@ def test_overlapped_pipeline_over_nccl_on_two_cards(tmp_path):
                 q.kill()
             raise
     assert all(p.returncode == 0 for p in procs), [o[-3000:] for o in outs]
+
+
+def test_probe_tap_is_inert_in_a_captured_decode_graph():
+    """graftnum's taps inside the engine's decode graph: the first step()
+    (prefill, the eager decode call, then the capture) runs inside a live
+    bisect session on this thread; the eager forwards are recorded, the
+    capture records nothing (a live tap would read the host mid-capture and
+    break it), and the replays outside the session decode the eager engine's
+    tokens bit for bit."""
+    dev = _cuda()
+    import numpy as np
+
+    from trlx_tpu_torch.engine import RolloutEngine
+    from trlx_tpu_torch.observability import numerics
+    from trlx_tpu_torch.ops.sampling import GenerateConfig
+
+    model, _, _ = _graph_model(dev, quant=True)
+    n_layer = model.cfg.n_layer
+    rng = np.random.default_rng(1)
+    prompts = rng.integers(1, 64, size=(6, 200)).astype(np.int32)
+    mask = np.ones_like(prompts)
+    gcfg = GenerateConfig(max_new_tokens=16, do_sample=False)
+    kw = dict(n_slots=4, prompt_width=200, prefill_batch=2, steps_per_sync=4, paged_kv=True, kv_block_size=128)
+    out = {}
+    for name in ("eager", "graph"):
+        engine = RolloutEngine(model, gcfg, **kw, _eager=name == "eager")
+        engine.update_weights(model, version=1)
+        engine.submit(prompts, mask)
+        eps = []
+        if name == "graph":
+            session = numerics.bisect_forward(lambda: eps.extend(engine.step()))
+            assert engine._graph is not None
+            assert not any(t["tap"] == "<error>" for t in session["taps"]), session["taps"][-1]
+            # Two prefill forwards and the eager call's 4 decode steps: no record from the capture.
+            assert len(session["taps"]) == 6 * (n_layer + 2) and session["first_nonfinite"] is None
+        while not engine.idle:
+            eps.extend(engine.step())
+        torch.cuda.synchronize()
+        out[name] = {tuple(e.prompt_ids.tolist()): e.response_ids for e in eps}
+        engine.shutdown()
+    assert out["eager"].keys() == out["graph"].keys() and len(out["eager"]) == 6
+    for key in out["eager"]:
+        np.testing.assert_array_equal(out["graph"][key], out["eager"][key])
+
+
+def test_graftscope_ledger_conserves_with_cuda_event_fences():
+    """The card's ledger: each monitored dispatch's CUDA event pair is placed
+    on the host clock by the drain thread; over a window of dispatches and
+    host gaps, device busy + host + bubble equals the wall (error <= 1e-9),
+    no fence is dropped, every placed interval lies inside the window, and a
+    dispatch's device interval lasts what its events measure."""
+    dev = _cuda()
+    import time
+
+    from trlx_tpu_torch.observability import devicemon, graftscope
+
+    mon = devicemon.DeviceMonitor(peak_flops=989e12, device=dev)
+    gs = graftscope.GraftScope()
+    mon.ledger = gs
+    x = torch.randn((4096, 4096), device=dev, dtype=torch.bfloat16)
+    step = mon.wrap("train/step", lambda a: a @ a, phase="train")
+    gs.window()  # opens the window here
+    t0 = time.time()
+    for _ in range(6):
+        step(x)
+        graftscope.host_interval("train", time.time(), time.time() + 0.001)
+        time.sleep(0.005)
+    torch.cuda.synchronize()
+    with gs._lock:
+        placed = list(gs._device)
+    stats = mon.window({"train": 1.0, "wall": 1.0})
+    gauges = gs.window()
+    t1 = time.time()
+    wall = gauges["obs/ledger_wall_s"]
+    assert abs(gauges["obs/ledger_device_busy_s"] + gauges["obs/ledger_host_s"] + gauges["obs/ledger_bubble_s"]
+               - wall) / wall <= 1e-9
+    assert gauges["obs/graftscope_fences_dropped_total"] == 0.0 and gauges["obs/ledger_device_busy_s"] > 0
+    assert gauges["obs/ledger_device_busy_s"] <= stats["obs/train_device_s"] + 1e-3
+    assert all(t0 - 1e-3 <= a <= b <= t1 for a, b, _ in placed) and len(placed) <= 6
+    flops = mon.snapshot()["train/step"]["variants"][0]["flops"]
+    assert flops == 2 * 4096 ** 3
+    assert stats["obs/train_mfu_pct"] == pytest.approx(100 * 6 * flops / stats["obs/train_device_s"] / 989e12)
+    gs.close()

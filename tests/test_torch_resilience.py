@@ -18,9 +18,11 @@ flush, rollback and drills) against the JAX package, on the CPU.
 - The repairs: with the default config a ``reward_fn`` that raises once
   finishes ``train()`` in both packages, and in the port (serial and
   overlapped) its store equals a run's whose ``reward_fn`` never raised;
-  ``TRLX_TPU_FAULTS=nan_grad@3`` skips step 3 in both; each unported
-  environment switch and fault kind raises NotImplementedError naming it,
-  and the fleet's (ported) are accepted and arm the fleet.
+  ``TRLX_TPU_FAULTS=nan_grad@3`` skips step 3 in both; the one unported
+  environment switch (``TRLX_TPU_SANITIZE``) raises NotImplementedError
+  naming it, and the ported ones (the fleet's, device telemetry's,
+  graftscope's, graftnum's) and every fault kind are accepted and arm their
+  features.
 """
 
 import dataclasses
@@ -59,7 +61,8 @@ from trlx_tpu_torch.resilience import (  # noqa: E402
     poison_nan,
 )
 from trlx_tpu_torch.resilience import checkpoint as ckpt_util  # noqa: E402
-from trlx_tpu_torch.resilience.faults import FLEET_KINDS, UNFIRED_KINDS  # noqa: E402
+from trlx_tpu_torch.observability.spans import enabled as spans_enabled  # noqa: E402
+from trlx_tpu_torch.resilience.faults import FLEET_KINDS, SINGLE_PROCESS_KINDS, UNFIRED_KINDS  # noqa: E402
 from trlx_tpu_torch.trainer import register_model  # noqa: E402
 from trlx_tpu_torch.trainer.base import UNPORTED_ENV_SWITCHES, lr_schedule  # noqa: E402
 from trlx_tpu_torch.trainer.ppo import PPOTrainer  # noqa: E402
@@ -115,9 +118,10 @@ def test_multihost_fault_kinds_parse_and_fire_once():
     # now: none is refused.
     assert set(MULTI_PROCESS_KINDS) == {"host_desync", "host_hang", "host_kill", "slow_host", "mid_decode_host_kill"}
     assert plan.unfired_kinds() == []
-    # The fleet's kinds fire in the port's fleet now; only nan_layer is left.
+    # The fleet's kinds fire in the port's fleet, and nan_layer in the learn
+    # loop (graftnum's drill): every kind fires now.
     assert FaultPlan.parse("nan_grad@1,slow_step@2,rollout_host_kill@3").unfired_kinds() == []
-    assert FaultPlan.parse("nan_grad@1,nan_layer@3").unfired_kinds() == ["nan_layer"]
+    assert FaultPlan.parse("nan_grad@1,nan_layer@3").unfired_kinds() == [] and UNFIRED_KINDS == {}
 
 
 @pytest.mark.parametrize("seed", range(4))
@@ -692,18 +696,33 @@ def test_env_fault_plan_nan_grad_skips_step_3(task, tmp_path, monkeypatch, packa
 
 
 # The fleet's switches and fault kinds were refused until the fleet was
-# ported: their cases keep their ids and now pin that each is accepted and
-# arms the fleet.
+# ported, and device telemetry's, graftscope's and graftnum's until theirs
+# were: their cases keep their ids and now pin that each is accepted and
+# arms its feature. TRLX_TPU_SANITIZE alone is still refused.
 _FLEET_ENV_SWITCHES = {"TRLX_TPU_FLEET_ROLE": "learner", "TRLX_TPU_FLEET_WORKER": "1",
                        "TRLX_TPU_FLEET_LEAVE_AFTER": "1"}
+_OBS_ENV_SWITCHES = {"TRLX_TPU_DEVICE_TELEMETRY": "_devicemon", "TRLX_TPU_GRAFTSCOPE": "_graftscope",
+                     "TRLX_TPU_GRAFTNUM": "_graftnum"}
 
 
-@pytest.mark.parametrize("var", sorted(set(UNPORTED_ENV_SWITCHES) | set(_FLEET_ENV_SWITCHES)))
+@pytest.mark.parametrize("var", sorted(set(UNPORTED_ENV_SWITCHES) | set(_FLEET_ENV_SWITCHES) | set(_OBS_ENV_SWITCHES)))
 def test_unported_env_switch_is_refused(task, tmp_path, monkeypatch, var):
-    if var not in _FLEET_ENV_SWITCHES:
+    if var in UNPORTED_ENV_SWITCHES:
+        assert set(UNPORTED_ENV_SWITCHES) == {"TRLX_TPU_SANITIZE"}
         monkeypatch.setenv(var, "1")
         with pytest.raises(NotImplementedError, match=var):
             _trainer(task, tmp_path)
+        return
+    if var in _OBS_ENV_SWITCHES:
+        from trlx_tpu_torch.observability import graftscope, numerics
+
+        monkeypatch.setenv(var, "1")
+        trainer = _trainer(task, tmp_path)
+        assert getattr(trainer, _OBS_ENV_SWITCHES[var]) is not None
+        if var == "TRLX_TPU_GRAFTSCOPE":  # arms the monitor and the span file with it
+            assert trainer._devicemon.ledger is trainer._graftscope and spans_enabled()
+        graftscope.shutdown()
+        numerics.shutdown()
         return
     monkeypatch.setenv(var, _FLEET_ENV_SWITCHES[var])
     config = _walk_config(tmp_path)
@@ -724,11 +743,13 @@ def test_unported_env_switch_is_refused(task, tmp_path, monkeypatch, var):
 
 @pytest.mark.parametrize("kind", ["nan_layer", "episode_stream_stall", "rollout_host_kill", "worker_join_mid_run"])
 def test_unported_fault_kind_is_refused(task, tmp_path, monkeypatch, kind):
+    """Every kind is accepted now (nan_layer since graftnum was ported: its
+    drill is ``tests/test_torch_numerics.py``'s)."""
     monkeypatch.setenv("TRLX_TPU_FAULTS", f"nan_grad@1,{kind}@2")
     if kind == "nan_layer":
-        assert kind in UNFIRED_KINDS
-        with pytest.raises(NotImplementedError, match=f"kinds {kind}"):
-            _trainer(task, tmp_path)
+        assert kind in SINGLE_PROCESS_KINDS and kind not in UNFIRED_KINDS
+        trainer = _trainer(task, tmp_path)
+        assert [(f.kind, f.at) for f in trainer.fault_plan.faults] == [("nan_grad", 1), (kind, 2)]
         return
     assert kind in FLEET_KINDS and kind not in UNFIRED_KINDS
     trainer = _trainer(task, tmp_path)

@@ -132,6 +132,26 @@ def test_lost_device_records(case):
     assert got["device_records_per_graph_launch"] == [5 if case == "graph_replay_short" else 8, 8]
 
 
+def test_device_events_group_raw_records_as_key_averages_does():
+    """The smoke reads a trace's device records from kineto's raw events:
+    grouped by kernel name with their counts and summed durations (us), host
+    records left out; ``traced_launches`` takes them as it takes
+    ``key_averages``' device events."""
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+
+    def raw(device_type, name, ns):
+        return SimpleNamespace(device_type=lambda: device_type, name=lambda: name, duration_ns=lambda: ns)
+
+    records = [raw(cpu, "cudaLaunchKernel", 5000), raw(cuda, "flash_fwd_kernel", 2000), raw(cpu, "aten::mm", 9000),
+               raw(cuda, "flash_fwd_kernel", 3000), raw(cuda, "decode_split_kernel", 1500),
+               raw(cuda, "decode_merge_kernel", 500)]
+    got = {e.key: (e.count, e.self_device_time_total) for e in chip_smoke.device_events(records)}
+    assert got == {"flash_fwd_kernel": (2, 5.0), "decode_split_kernel": (1, 1.5), "decode_merge_kernel": (1, 0.5)}
+    counted = {"flash_attention_fwd": 2, "decode_attention": 1}
+    assert chip_smoke.traced_launches(chip_smoke.device_events(records), counted) == {
+        "flash_fwd_kernel": 2, "decode_split_kernel": 1, "decode_merge_kernel": 1}
+
+
 def test_smoke_gptj_checkpoint_layout(tmp_path):
     """The HF directory the smoke writes: the published GPT-J-6B config maps
     to the smoke's GPT-J-6B architecture, and its tensor names are exactly

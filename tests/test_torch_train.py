@@ -262,10 +262,11 @@ def _ilql_config(tmp_path):
     return cfg
 
 
-# The PPO cases keep their ids; the ILQL trainer refuses the shared knobs
-# from the same list (trainer/base.py ``refuse_unported``). The fleet's
-# cases (ported) keep their ids too and now pin acceptance: the PPO trainer
-# arms the fleet, the ILQL trainer ignores ``train.fleet_*`` as the JAX
+# The cases keep the ids they had while these knobs were refused: the fleet's
+# since PR 20 and the observability knobs (device telemetry, graftscope,
+# graftnum, watch_interval, profile_dir) since their features were ported
+# now pin that each knob is accepted and arms its feature. The PPO trainer
+# arms the fleet; the ILQL trainer ignores ``train.fleet_*`` as the JAX
 # package's ILQL trainer does (``tests/test_torch_ilql.py`` runs such a
 # config through both packages).
 _KNOBS = [("method", "fleet_disaggregate", True), ("train", "watch_interval", 10), ("train", "graftnum", True),
@@ -274,6 +275,34 @@ _ILQL_KNOBS = [("train", "graftscope", True), ("train", "watch_interval", 10),
                ("train", "fleet_dir", "fleet"), ("train", "fleet_role", "rollout"),
                ("train", "profile_dir", "profiles"), ("train", "graftnum", True)]
 _FLEET_KNOBS = {"fleet_disaggregate", "fault_plan", "fleet_dir", "fleet_role"}
+
+
+def _arms_observability_knob(built, knob, tmp_path):
+    """The knob's feature is armed on the built trainer (its cheapest
+    observable effect)."""
+    from trlx_tpu_torch.observability import graftscope, numerics
+
+    if knob == "graftnum":
+        assert built._graftnum is not None and numerics.enabled() and built._incidents is not None
+    elif knob == "device_telemetry":
+        assert built._devicemon is not None and built._graftscope is None
+    elif knob == "graftscope":
+        assert built._graftscope is graftscope.scope() and built._devicemon.ledger is built._graftscope
+    elif knob == "watch_interval":
+        built.iter_count = 10
+        built.log_param_watch()
+        with open(os.path.join(built.config.train.checkpoint_dir, "metrics.jsonl")) as f:
+            hists = {json.loads(line).get("histogram") for line in f}
+        assert "watch/params/transformer" in hists
+    else:
+        built.config.train.profile_dir = str(tmp_path / "profiles")
+        built._learn_start, built.iter_count = 0, 2
+        built._profile_tick()
+        assert built._profiling is not None
+        built._profile_stop()
+        assert (tmp_path / "profiles" / "trace.json").exists()
+    graftscope.shutdown()
+    numerics.shutdown()
 
 
 @pytest.mark.parametrize("trainer,section,knob,value", [
@@ -285,12 +314,10 @@ def test_unported_knobs_are_refused(tmp_path, trainer, section, knob, value):
     cfg = _config(tmp_path, kernels=False) if trainer == "ppo" else _ilql_config(tmp_path)
     cfg[section][knob] = value
     cls = PPOTrainer if trainer == "ppo" else ILQLTrainer
-    if knob not in _FLEET_KNOBS:
-        with pytest.raises(NotImplementedError, match=f"{section}.{knob}"):
-            cls(TRLConfig.from_dict(cfg), device="cpu")
-        return
     built = cls(TRLConfig.from_dict(cfg), device="cpu")
-    if trainer == "ilql":
+    if knob not in _FLEET_KNOBS:
+        _arms_observability_knob(built, knob, tmp_path)
+    elif trainer == "ilql":
         assert not hasattr(built, "fleet_role") and not os.path.exists(tmp_path / "fleet")
     elif knob == "fleet_disaggregate":
         assert built.fleet_role == "colocated" and not built.overlap_rollouts and built.store.record_staleness

@@ -103,6 +103,8 @@ import torch
 
 from trlx_tpu_torch.engine.paged_pool import BlockPool, PoolExhausted
 from trlx_tpu_torch.models.lm import decode_weights, init_cache, init_paged_cache, refresh_weight_copies
+from trlx_tpu_torch.observability import graftscope
+from trlx_tpu_torch.observability import numerics as obs_numerics
 from trlx_tpu_torch.observability.spans import trace_span
 from trlx_tpu_torch.ops.cuda_graph import CudaGraph, StepGraph
 from trlx_tpu_torch.ops.generate import graphs_allowed
@@ -167,6 +169,7 @@ class RolloutEngine:
         drafter=None,
         generator: Optional[torch.Generator] = None,
         collective_deadline: Optional[float] = None,
+        monitor=None,
         _eager: bool = False,
     ):
         if n_slots < 1:
@@ -220,6 +223,7 @@ class RolloutEngine:
         self.queue = PromptSlotQueue()
         self._slot_meta = [None] * self.n_slots
         self._free = list(range(self.n_slots))
+        self._slot_free_t = [None] * self.n_slots  # when each slot was last harvested (graftscope's refill wait)
         self._variables = None  # the module that decodes
         self.weight_version = None
         self._weights_invalid = False  # set by invalidate_weights(), read at the next adoption
@@ -253,6 +257,12 @@ class RolloutEngine:
             self.drafter = None
             self._spec_last_tok = None
             self._verify = None
+        if monitor is not None:
+            # Device telemetry: the decode (or verify) call is a monitored
+            # program, its first dispatch counted (the eager call; the
+            # capture after it launches nothing), every replay charged alike.
+            self._decode = monitor.wrap("engine/verify_step" if spec else "engine/decode_step", self._decode,
+                                        phase="rollout")
         self._reset_counters()
 
     # ------------------------------------------------------------- host side
@@ -291,7 +301,11 @@ class RolloutEngine:
         """Hand over the module to decode with (same config and device as
         the engine's model), under ``version``. Callable at any time; the
         handoff is staged and adopted at the top of the next ``step()``, and
-        a second push before then replaces the first (coalesced)."""
+        a second push before then replaces the first (coalesced). With
+        graftnum armed the handoff's int8 round-trip error is recorded here,
+        never in a decode step."""
+        if obs_numerics.enabled():
+            obs_numerics.record_weight_handoff(variables, version=version)
         if self._staged is not None and self._staged[1] != version:
             self._switches_coalesced += 1
         self._staged = (variables, version)
@@ -369,9 +383,20 @@ class RolloutEngine:
             # next admission overwrites.
             toks = self._state["tokens"].cpu().numpy().copy()
             R = int(self.gcfg.max_new_tokens)
+            scope = graftscope.scope()
+            now = time.time()
             for i in done:
                 meta, self._slot_meta[i] = self._slot_meta[i], None
                 steps = int(n_gen[i])
+                if scope is not None:
+                    # The slot timeline: occupancy row, straggler and
+                    # accept-rate samples keyed by prompt width.
+                    width, admit_t = meta.get("width", 0), meta.get("admit_t")
+                    scope.record_harvest(i, width, steps, (now - admit_t) if admit_t is not None else 0.0)
+                    disp = int(meta.get("dispatches", 0))
+                    if self.spec_decode and disp > 0:
+                        scope.record_spec_accept(i, width, steps / float(disp * self.spec_k))
+                    self._slot_free_t[i] = now
                 rmask = np.zeros((R,), dtype=np.int32)
                 rmask[:steps] = 1
                 spans = self._build_spans(meta, steps)
@@ -388,6 +413,11 @@ class RolloutEngine:
                 # writing (clamped) in every decode step.
                 self._state["block_tables"][torch.as_tensor(done, device=self.device)] = 0
             self._completed += len(done)
+        scope = graftscope.scope()
+        if self.paged and scope is not None:
+            # The pool's occupancy at this sync boundary (host bookkeeping).
+            scope.record_pool(self.pool.used_blocks(), self.pool.cached_blocks(), len(self.pool.free), self.n_blocks,
+                              self._pool_frag(), self.pool.hits_total, self.pool.tokens_saved_total)
         return episodes
 
     def _step_decode(self):
@@ -519,6 +549,7 @@ class RolloutEngine:
             for row, slot in enumerate(slots):
                 self._slot_meta[slot] = {"prompt_ids": ids[row], "prompt_mask": msk[row],
                                          "version": self.weight_version}
+                self._record_admit(slot, width)
                 self._reset_drafter(slot, ids[row], msk[row])
             self._prefill_calls += 1
             self._refills += len(slots)
@@ -576,6 +607,7 @@ class RolloutEngine:
                     self.pool.register_prefix(slot, self.weight_version, ids[r], msk[r])
                     self._slot_meta[slot] = {"prompt_ids": ids[r], "prompt_mask": msk[r],
                                              "version": self.weight_version, "prefix_hit": int(hit)}
+                    self._record_admit(slot, width)
                     self._reset_drafter(slot, ids[r], msk[r])
                 self._prefill_calls += 1
             self._refills += len(rows)
@@ -583,6 +615,18 @@ class RolloutEngine:
             if len(rows) < n:
                 break
         return admitted
+
+    def _record_admit(self, slot: int, width):
+        """graftscope's slot timeline at an admission: it ends the slot's
+        refill wait and starts its occupancy."""
+        scope = graftscope.scope()
+        if scope is None:
+            return
+        now = time.time()
+        meta = self._slot_meta[slot]
+        meta["admit_t"], meta["width"] = now, int(width)
+        freed = self._slot_free_t[slot]
+        scope.record_refill(slot, int(width), (now - freed) if freed is not None else None)
 
     def _reset_drafter(self, slot: int, ids, msk):
         """A spec engine's admitted slot: its frontier is the prompt's last

@@ -42,8 +42,10 @@ trainer checkpoints (the rollback point), writes ``abort.json``
 (coordinated shutdown: a stalled-but-alive worker reads it and exits 0),
 and winds down instead of hanging.
 
-Not ported: the numerics observatory's weight-quant and handoff records
-(graftnum, ROADMAP §A13).
+With graftnum armed (``observability.numerics``) each publish records the
+published weights' int8 round-trip error, and each adoption on the rollout
+side records the handoff's (``record_weight_handoff``), tagged with the
+version.
 """
 
 import copy
@@ -57,6 +59,7 @@ import torch
 from torch import nn
 
 from trlx_tpu_torch.models.lm import refresh_weight_copies
+from trlx_tpu_torch.observability import numerics as obs_numerics
 from trlx_tpu_torch.pipeline.overlap import staleness_gate_open
 from trlx_tpu_torch.pipeline.ppo_pipeline import PPORolloutStorage
 from trlx_tpu_torch.resilience.checkpoint import atomic_write_json
@@ -160,6 +163,8 @@ def fleet_snapshot(trainer, host_leaves, version: int, avoid: Optional[dict] = N
     if weights is None:
         weights = trainer._fleet_weights = FleetWeightSet(trainer, own_module=trainer.fleet_role == ROLE_ROLLOUT)
     held = weights.load(host_leaves, version, avoid=None if avoid is None else avoid["weights"].module)
+    if obs_numerics.enabled():
+        obs_numerics.record_weight_handoff(held.module, version=version)
     return {"version": int(version), "weights": held}
 
 
@@ -590,6 +595,8 @@ class FleetLearnerFeed:
         ordinal = self.publisher.publish(published_params(tr.model), version=version,
                                          meta={"kl_coef": float(tr.kl_ctl.value)})
         self._version_ordinal[version] = ordinal
+        if obs_numerics.enabled():
+            obs_numerics.record_weight_quant(tr.model, version=version)
         _event(self.paths, self.role, "weights_published", ordinal=ordinal, version=version,
                **self.publisher.last_stats)
         return ordinal

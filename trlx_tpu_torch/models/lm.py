@@ -74,6 +74,7 @@ from torch.utils.checkpoint import (
 )
 
 from trlx_tpu_torch.device import resolve_device, torch_dtype
+from trlx_tpu_torch.observability.numerics import probe_tap
 from trlx_tpu_torch.ops.decode_attention import (
     decode_attention,
     decode_attn_eligible,
@@ -929,6 +930,10 @@ class TransformerLM(nn.Module):
 
         if start_layer == 0 and cfg.pos_type == "learned":
             x = x + self.wpe(position_ids, dtype)
+        if start_layer == 0:
+            # graftnum's probe tap: x itself unless the NaN-provenance
+            # bisector's eager re-forward is live on this thread.
+            x = probe_tap("embed", x)
 
         # Flash prefill needs a STATIC zero write offset (a vector offset,
         # as the paged suffix prefill passes, takes the einsum path).
@@ -985,10 +990,12 @@ class TransformerLM(nn.Module):
                     x, layer_cache = checkpoint(self.block(i), *args, use_reentrant=False, **remat_kw)
             else:
                 x, layer_cache = self.block(i)(*args)
+            x = probe_tap(f"block_{i}", x)
             if cache is not None:
                 new_cache.append(layer_cache)
 
         x = self.ln_f(x, dtype)
+        x = probe_tap("ln_f", x)
         if collect_hidden_at is not None and collect_hidden_at == cfg.n_layer:
             branch_hidden = x
         if n_soft:

@@ -12,11 +12,18 @@ single-process core), all off the hot path and off by default:
   ``<ckpt_dir>/lineage.jsonl`` (``train.health_monitor`` /
   ``TRLX_TPU_HEALTH=1``);
 - ``export``: a live Prometheus ``/metrics`` and JSON ``/healthz`` from the
-  main process (``train.metrics_port`` / ``TRLX_TPU_METRICS_PORT``).
-
-Device telemetry, graftscope, graftfleet, graftnum, the report and the
-profiling knobs are not ported yet: the trainer refuses their knobs and
-switches (ROADMAP §A13).
+  main process (``train.metrics_port`` / ``TRLX_TPU_METRICS_PORT``);
+- ``fleet``: graftfleet, the cross-rank arrivals, clock and skew table
+  (``train.graftfleet`` / ``TRLX_TPU_GRAFTFLEET``);
+- ``numerics``: graftnum, the ``num/*`` step statistics, NaN provenance in
+  guard-skip bundles and the quantization error at handoffs
+  (``train.graftnum`` / ``TRLX_TPU_GRAFTNUM``);
+- ``devicemon``: FLOPs counted at each monitored program's first dispatch,
+  MFU per window, routing and memory gauges, ``programs.json``
+  (``train.device_telemetry`` / ``TRLX_TPU_DEVICE_TELEMETRY``);
+- ``graftscope``: the device/host/bubble ledger, the engine's slot timeline
+  and ``RunManifest`` (``train.graftscope`` / ``TRLX_TPU_GRAFTSCOPE``);
+- ``report``: the markdown report of a run's directory.
 """
 
 import os

@@ -18,9 +18,9 @@ the first):
 - ``profile/``: a short ``torch.profiler`` window around a probe launch.
   It holds ``ops.cuda_lib.launch_lock`` so it never overlaps a CUDA graph
   capture on another thread, and it reads no device record back (the
-  profiler may drop some). The JAX package skips it while the trainer's own
-  profiling window is open; the port's trainer has none (``train.profile_dir``
-  is refused).
+  profiler may drop some). It is skipped while the trainer's own profiling
+  window (``train.profile_dir``) is open (``profiling_active``): two
+  profilers cannot run at once.
 
 Capture is bounded (``max_incidents`` per run) and best-effort: each
 section is guarded, because an observability crash must not turn a slow
@@ -106,12 +106,13 @@ class IncidentCapture:
     directory, capture seconds)."""
 
     def __init__(self, checkpoint_dir: str, device=None, metrics_path=None, max_incidents: int = 4,
-                 last_n_metrics: int = 50):
+                 last_n_metrics: int = 50, profiling_active=None):
         self.directory = os.path.join(os.path.abspath(checkpoint_dir), "incidents")
         self.device = torch.device(device if device is not None else "cpu")
         self.metrics_path = metrics_path
         self.max_incidents = int(max_incidents)
         self.last_n_metrics = int(last_n_metrics)
+        self.profiling_active = profiling_active
         self.captured = 0
         self.bundles = []
         self._taken = set()
@@ -184,7 +185,10 @@ class IncidentCapture:
         guard("threads", write_threads)
         guard("memory", write_memory)
         guard("metrics_tail", write_metrics_tail)
-        guard("profile", write_profile)
+        if self.profiling_active is not None and self.profiling_active():
+            sections["profile"] = "skipped: the trainer's profiling window is open"
+        else:
+            guard("profile", write_profile)
 
         seconds = time.time() - t0
         manifest = {"step": int(step), "reason": reason, "detail": detail, "time": t0,

@@ -53,6 +53,7 @@ neither taken back nor replayed, and two captures never overlap.
 
 import torch
 
+from trlx_tpu_torch.observability import devicemon
 from trlx_tpu_torch.ops import cuda_lib
 
 
@@ -90,11 +91,19 @@ class StepGraph:
     """``fn`` captured once into ``graph`` (a ``CudaGraph``, or any object
     with ``capture()`` and ``replay()``). Each ``replay()`` runs the
     captured work and adds the capture's launch counts to the wrappers'
-    counters. A failed capture raises; nothing runs eagerly instead."""
+    counters. A failed capture raises; nothing runs eagerly instead.
+
+    Captured inside a dispatch that device telemetry counts
+    (``observability.devicemon.FlopCount``), the graph keeps the FLOPs its
+    capture issued (``flops``) and reports them at each replay made while a
+    dispatch is counted: a replay is charged what the step it replays
+    costs."""
 
     def __init__(self, fn, graph):
         self.graph = graph
         counters = launch_counters()
+        modes = devicemon._active_counts()
+        flops0 = modes[-1].captured_flops if modes else None
         with cuda_lib.launch_lock:
             before = [c.launches for c in counters]
             with graph.capture():
@@ -102,8 +111,11 @@ class StepGraph:
             self.deltas = [(c, c.launches - b) for c, b in zip(counters, before) if c.launches != b]
             for c, b in zip(counters, before):
                 c.launches = b
+        self.flops = None if flops0 is None else modes[-1].captured_flops - flops0
 
     def replay(self):
         self.graph.replay()
         for c, d in self.deltas:
             cuda_lib.count_launch(c, d)
+        if self.flops and devicemon.counting():
+            devicemon.add_kernel_cost(self.flops)

@@ -17,6 +17,8 @@ import subprocess
 import tempfile
 import threading
 
+from trlx_tpu_torch.observability import devicemon
+
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _BUILD_ROOT = os.path.join(_CSRC, "_build")
 NVCC_FLAGS = (
@@ -34,10 +36,14 @@ _state = {"lib": None, "log": ""}
 launch_lock = threading.RLock()
 
 
-def count_launch(fn, n: int = 1):
-    """Add ``n`` launches to ``fn.launches`` (thread-safe)."""
+def count_launch(fn, n: int = 1, cost=None):
+    """Add ``n`` launches to ``fn.launches`` (thread-safe). ``cost()``, given
+    and called only while device telemetry counts a dispatch
+    (``observability.devicemon``), returns the launch's (FLOPs, bytes)."""
     with launch_lock:
         fn.launches += n
+    if cost is not None and devicemon.counting():
+        devicemon.add_kernel_cost(*cost())
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -146,7 +146,7 @@ def decode_attention(q, k_cache, v_cache, bias_row, *, scale: float, ks=None, vs
         cuda_lib.stream_ptr(q.device),
     )
     cuda_lib.check(err, "decode_attn_bf16")
-    cuda_lib.count_launch(decode_attention)
+    cuda_lib.count_launch(decode_attention, cost=lambda: _decode_cost(B, T, h, d, 2))
     return out[:, None]
 
 
@@ -179,8 +179,17 @@ def decode_attention_int8(q, k_cache, v_cache, ks, vs, bias_row, *, scale: float
         *sstrides, float(scale), cuda_lib.stream_ptr(q.device),
     )
     cuda_lib.check(err, "decode_attn_int8")
-    cuda_lib.count_launch(decode_attention_int8)
+    cuda_lib.count_launch(decode_attention_int8, cost=lambda: _decode_cost(B, T, h, d, 1))
     return out[:, None]
+
+
+def _decode_cost(B: int, T: int, h: int, d: int, elem: int):
+    """(FLOPs, bytes) of one decode launch over B rows of T keys, from the
+    shapes (every key, masked ones too: QK and PV, 4 FLOPs a key and head
+    dim; K and V of ``elem`` bytes an element (plus an f32 scale a key and
+    head when int8), the bias, q and the output)."""
+    scales = 2 * B * T * h * 4 if elem == 1 else 0
+    return 4 * B * T * h * d, 2 * B * T * h * d * elem + scales + B * T * 4 + 2 * B * h * d * 2
 
 
 def _paged_operands(q, k_pool, v_pool, block_tables, bias_row, fn, dtype):
@@ -232,7 +241,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, bias_row, *, scale: 
         cuda_lib.stream_ptr(q.device),
     )
     cuda_lib.check(err, "paged_decode_attn_bf16")
-    cuda_lib.count_launch(paged_decode_attention)
+    cuda_lib.count_launch(paged_decode_attention, cost=lambda: _decode_cost(dims[0], dims[1] * dims[2], *dims[3:], 2))
     return out[:, None]
 
 
@@ -254,7 +263,8 @@ def paged_decode_attention_int8(q, k_pool, v_pool, ks_pool, vs_pool, block_table
         *k_pool.stride()[:3], *v_pool.stride()[:3], *sstrides, float(scale), cuda_lib.stream_ptr(q.device),
     )
     cuda_lib.check(err, "paged_decode_attn_int8")
-    cuda_lib.count_launch(paged_decode_attention_int8)
+    cuda_lib.count_launch(paged_decode_attention_int8,
+                          cost=lambda: _decode_cost(dims[0], dims[1] * dims[2], *dims[3:], 1))
     return out[:, None]
 
 

@@ -15,6 +15,7 @@ where a row's every key block was skipped), so a log-sum-exp combine gives
 it weight 0, and the backward gives it p = 0.
 """
 
+import numpy as np
 import torch
 
 from trlx_tpu_torch.ops import cuda_lib
@@ -143,7 +144,7 @@ def flash_fwd(q, k, v, kv_mask, *, scale: float, causal: bool = True, window: in
         cuda_lib.stream_ptr(q.device),
     )
     cuda_lib.check(err, "flash_fwd_bf16")
-    _count(flash_fwd, causal, offset)
+    _count(flash_fwd, causal, offset, q, window, (q, k, v, kmask, o, lse))
     return o, lse
 
 
@@ -158,7 +159,7 @@ def flash_bwd_dq(q, k, v, kmask, do, lse, delta, *, scale: float, window: int, c
         int(bool(causal)), int(offset), cuda_lib.stream_ptr(q.device),
     )
     cuda_lib.check(err, "flash_bwd_dq_bf16")
-    _count(flash_bwd_dq, causal, offset)
+    _count(flash_bwd_dq, causal, offset, q, window, (q, k, v, do, kmask, lse, delta, dq))
     return dq
 
 
@@ -173,17 +174,40 @@ def flash_bwd_dkv(q, k, v, kmask, do, lse, delta, *, scale: float, window: int, 
         int(window), int(bool(causal)), int(offset), cuda_lib.stream_ptr(q.device),
     )
     cuda_lib.check(err, "flash_bwd_dkv_bf16")
-    _count(flash_bwd_dkv, causal, offset)
+    _count(flash_bwd_dkv, causal, offset, q, window, (q, k, v, do, kmask, lse, delta, dk, dv))
     return dk, dv
 
 
-def _count(fn, causal: bool, offset: int):
+def reachable_pairs(Tq: int, Tk: int, *, causal: bool = True, window: int = 0, offset: int = 0) -> int:
+    """The (query, key) pairs ``reachable`` leaves, counted on the host:
+    query i reaches keys j in (i - window - offset, i - offset] (causal
+    bound, window bound) within [0, Tk)."""
+    i = np.arange(Tq)
+    hi = np.minimum(Tk - 1, i - int(offset)) if causal else np.full(Tq, Tk - 1)
+    lo = np.maximum(0, i - int(window) - int(offset) + 1) if window > 0 else np.zeros(Tq, dtype=np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+# FLOPs per reachable (query, key) pair and head dim of each kernel: the
+# forward's QK^T and PV; dq's recomputed S, dP and dS K; dk/dv's S, dP, dS^T Q
+# and P^T dO (PERF.md's bounds).
+_PAIR_FLOPS = {"flash_fwd": 4, "flash_bwd_dq": 6, "flash_bwd_dkv": 8}
+
+
+def _count(fn, causal: bool, offset: int, q=None, window: int = 0, tensors=()):
     """One launch of ``fn``'s kernel, also counted by mode: "causal" (offset
     0, the model's own attention and the ring's diagonal chunks), "offset"
-    (a ring chunk's displacement) or "noncausal"."""
+    (a ring chunk's displacement) or "noncausal"; its cost (``cuda_lib
+    .count_launch``) from q's shape and the reachable pairs."""
     with cuda_lib.launch_lock:
-        fn.launches += 1
         fn.launches_by_mode["noncausal" if not causal else "offset" if offset else "causal"] += 1
+
+    def cost():
+        b, T, h, d = q.shape
+        pairs = b * h * reachable_pairs(T, T, causal=causal, window=window, offset=offset)
+        return _PAIR_FLOPS[fn.__name__] * d * pairs, sum(t.numel() * t.element_size() for t in tensors)
+
+    cuda_lib.count_launch(fn, cost=cost if q is not None else None)
 
 
 def reset_launches():

@@ -168,6 +168,13 @@ def _fwd_operands(x, labels, bias, D: int, V: int):
     return N, x2, y, b, out
 
 
+def _head_cost(products: int, rows: int, D: int, V: int, *tensors):
+    """(FLOPs, bytes) of a head kernel launch: ``products`` FLOPs per (row,
+    d, v) (2: the forward's or dW's one product; 4: ds's recomputed logits
+    and dx), and the bytes of its operands, each read or written once."""
+    return products * rows * D * V, sum(t.numel() * t.element_size() for t in tensors)
+
+
 def fused_logprob_fwd(x, w, labels, bias=None, *, tied: bool = False):
     """The forward kernel pair on CUDA tensors: f32 (logprob, lse, entropy)
     shaped like labels. bf16 x: the weight goes through ``kernel_weight``
@@ -186,7 +193,7 @@ def fused_logprob_fwd(x, w, labels, bias=None, *, tied: bool = False):
         N, D, V, wk.stride(0), int(bool(tied)), S, cuda_lib.stream_ptr(x.device),
     )
     cuda_lib.check(err, "fused_logprob_fwd")
-    cuda_lib.count_launch(fused_logprob_fwd)
+    cuda_lib.count_launch(fused_logprob_fwd, cost=lambda: _head_cost(2, N, D, V, x2, wk))
     lead = labels.shape
     return lp.reshape(lead), lse.reshape(lead), ent.reshape(lead)
 
@@ -210,7 +217,7 @@ def fused_logprob_fwd_f32(x, w, labels, bias=None, *, tied: bool = False):
         N, D, V, wk.stride(0), int(bool(tied)), S, cuda_lib.stream_ptr(x.device),
     )
     cuda_lib.check(err, "fused_logprob_fwd_f32")
-    cuda_lib.count_launch(fused_logprob_fwd_f32)
+    cuda_lib.count_launch(fused_logprob_fwd_f32, cost=lambda: _head_cost(2, N, D, V, x2, wk))
     lead = labels.shape
     return lp.reshape(lead), lse.reshape(lead), ent.reshape(lead)
 
@@ -230,7 +237,7 @@ def fused_logprob_bwd_dx(x2, wc, b, y, rows_f32, ds, dbpart, dx, *, rows: int, C
         split_count(rows, V, _sm_count(x2.device)), cuda_lib.stream_ptr(x2.device),
     )
     cuda_lib.check(err, "fused_logprob_bwd_ds_dx")
-    cuda_lib.count_launch(fused_logprob_bwd_dx)
+    cuda_lib.count_launch(fused_logprob_bwd_dx, cost=lambda: _head_cost(4, rows, D, V, x2, wc, ds, dx))
 
 
 def fused_logprob_bwd_dw(x2, ds, dw, *, rows: int, V: int, ldv: int, tied: bool, dbpart=None, db=None):
@@ -245,7 +252,7 @@ def fused_logprob_bwd_dw(x2, ds, dw, *, rows: int, V: int, ldv: int, tied: bool,
         _sm_count(x2.device), cuda_lib.stream_ptr(x2.device),
     )
     cuda_lib.check(err, "fused_logprob_bwd_dw")
-    cuda_lib.count_launch(fused_logprob_bwd_dw)
+    cuda_lib.count_launch(fused_logprob_bwd_dw, cost=lambda: _head_cost(2, rows, D, V, x2, ds, dw))
 
 
 def fused_logprob_bwd_dx_f32(x2, w, b, y, rows_f32, ds, dbpart, dx, *, rows: int, C: int, ldv: int, tied: bool):
@@ -262,7 +269,7 @@ def fused_logprob_bwd_dx_f32(x2, w, b, y, rows_f32, ds, dbpart, dx, *, rows: int
         cuda_lib.stream_ptr(x2.device),
     )
     cuda_lib.check(err, "fused_logprob_bwd_ds_dx_f32")
-    cuda_lib.count_launch(fused_logprob_bwd_dx_f32)
+    cuda_lib.count_launch(fused_logprob_bwd_dx_f32, cost=lambda: _head_cost(4, rows, D, V, x2, w, ds, dx))
 
 
 def fused_logprob_bwd_dw_f32(x2, ds, dw, *, rows: int, V: int, ldv: int, tied: bool, dbpart=None, db=None):
@@ -282,7 +289,7 @@ def fused_logprob_bwd_dw_f32(x2, ds, dw, *, rows: int, V: int, ldv: int, tied: b
         n_tiles, _sm_count(x2.device), cuda_lib.stream_ptr(x2.device),
     )
     cuda_lib.check(err, "fused_logprob_bwd_dw_f32")
-    cuda_lib.count_launch(fused_logprob_bwd_dw_f32)
+    cuda_lib.count_launch(fused_logprob_bwd_dw_f32, cost=lambda: _head_cost(2, rows, D, V, x2, ds, dw))
 
 
 for _fn in (fused_logprob_fwd, fused_logprob_bwd_dx, fused_logprob_bwd_dw, fused_logprob_fwd_f32,

@@ -226,7 +226,7 @@ def w8a16_matmul(x, kq, scale, bias=None):
         M, N, K, bx, cols, wgs, splits, grid, cuda_lib.stream_ptr(x.device),
     )
     cuda_lib.check(err, "w8a16_gemm")
-    cuda_lib.count_launch(w8a16_matmul)
+    cuda_lib.count_launch(w8a16_matmul, cost=lambda: (2 * M * N * K, M * K * 2 + K * N + 8 * N + M * N * 2))
     return y.reshape(tuple(x.shape[:-1]) + (N,))
 
 

@@ -30,6 +30,7 @@ import time
 from collections import deque
 from contextlib import contextmanager
 
+from trlx_tpu_torch.observability import graftscope
 from trlx_tpu_torch.observability.spans import trace_span
 from trlx_tpu_torch.parallel.mesh import group_set, producer_collectives
 
@@ -130,7 +131,9 @@ class ScoreWorker:
             except BaseException as e:  # noqa: BLE001 — delivered via result()
                 self._out.put(("err", e))
             finally:
-                self.busy_s += time.time() - t0
+                t1 = time.time()
+                self.busy_s += t1 - t0
+                graftscope.host_interval("score", t0, t1)
 
     def submit(self, item):
         self._in.put(item)
@@ -208,7 +211,7 @@ class PrefetchIterator:
             for item in it:
                 if self._stop.is_set():
                     return
-                with trace_span("prefetch/stage"):
+                with trace_span("prefetch/stage"), graftscope.lane_span("prefetch"):
                     staged = ("ok", self._transform(item))
                 if not self._put(staged):
                     return
@@ -329,7 +332,7 @@ class RolloutProducer:
                 self._cv.notify_all()
             store = self._new_store()
             try:
-                with trace_span("rollout/produce", index=index, staleness=staleness):
+                with trace_span("rollout/produce", index=index, staleness=staleness), graftscope.lane_span("producer"):
                     self._produce(store, index, snapshot, staleness, self._should_stop)
             except BaseException as e:  # noqa: BLE001 — re-raised in next_store()
                 with self._cv:

@@ -22,7 +22,11 @@ this package fires in one process (``SINGLE_PROCESS_KINDS``):
   detector's incident;
 - ``reward_drift@N`` / ``entropy_collapse@N``: from reward call / train
   step N on, the health monitor OBSERVES shifted rewards / scaled entropy
-  (training never sees them) → the health detectors' WARN → CRIT path.
+  (training never sees them) → the health detectors' WARN → CRIT path;
+- ``nan_layer@N``: the Nth train step's batch is NaN-poisoned as for
+  ``nan_grad`` AND the tap ``block_{min(N, n_layer - 1)}`` is latched for
+  graftnum's bisector (``observability.numerics``), whose re-forward must
+  name that block first.
 
 The multi-process kinds (``MULTI_PROCESS_KINDS``) fire per PROCESS, each
 rank reading its own ``TRLX_TPU_FAULTS``, after the train step N:
@@ -66,9 +70,8 @@ of ``trlx_tpu_torch.fleet``) fire per PROCESS, each role reading its own
   holding a lease, oversleep the lease TTL holding one and produce anyway,
   or defer registration until the learner's cursor reaches N.
 
-``nan_layer`` (the numerics observatory) parses here too but fires only
-where its subsystem runs: the trainer refuses a plan that names it
-(``UNFIRED_KINDS``).
+A kind this package parses but does not fire would be listed in
+``UNFIRED_KINDS``, which the trainer refuses; every kind fires now.
 """
 
 import dataclasses
@@ -80,13 +83,11 @@ from typing import List
 import torch
 
 SINGLE_PROCESS_KINDS = ("nan_grad", "reward_exc", "reward_hang", "ckpt_corrupt", "sigterm", "slow_step",
-                        "reward_drift", "entropy_collapse")
+                        "reward_drift", "entropy_collapse", "nan_layer")
 MULTI_PROCESS_KINDS = ("host_hang", "host_kill", "slow_host", "host_desync", "mid_decode_host_kill")
 FLEET_KINDS = ("rollout_host_kill", "episode_stream_stall", "broadcast_timeout", "weight_push_torn",
                "version_switch_storm", "worker_kill_mid_lease", "slow_worker_reclaim", "worker_join_mid_run")
-UNFIRED_KINDS = {
-    "nan_layer": "the numerics observatory (graftnum, ROADMAP §A13)",
-}
+UNFIRED_KINDS = {}
 KINDS = SINGLE_PROCESS_KINDS + MULTI_PROCESS_KINDS + FLEET_KINDS + tuple(UNFIRED_KINDS)
 
 _ENTRY_RE = re.compile(r"^([a-z_]+)@(\d+)$")

@@ -53,8 +53,19 @@ step-time anomaly detector with incident bundles, the health monitor, the
 live ``/metrics`` endpoint and graftfleet (``observability.fleet``: a span
 file and an arrival file a rank, the clock estimate at start and every
 ``train.fleet_resync_interval`` steps, rank 0's skew gauges at log
-boundaries, the bundle of a desync) arm from the config or the environment
-(``_setup_observability``).
+boundaries, the bundle of a desync), device telemetry
+(``observability.devicemon``: the monitored programs' counted FLOPs, MFU per
+window, routing and memory gauges, ``programs.json``), graftscope
+(``observability.graftscope``: the device/host/bubble ledger,
+``graftscope.json``) and graftnum (``observability.numerics``: the ``num/*``
+step statistics, the NaN census and bisect in guard-skip bundles, the
+quantization error at weight handoffs) arm from the config or the
+environment (``_setup_observability``); a run with any of the three armed
+ends with ``<checkpoint_dir>/report.md`` (``observability.report``).
+``train.profile_dir`` traces local steps [2, 5) with ``torch.profiler``;
+``train.watch_interval`` logs per-group gradient norms and parameter
+histograms. The non-finite guard's bundle always carries the gradient
+census (``numerics.json``) when incidents are armed.
 """
 
 import dataclasses
@@ -86,7 +97,10 @@ from trlx_tpu_torch.parallel.mesh import (
 from trlx_tpu_torch.resilience import distributed as dist_res
 from trlx_tpu_torch.observability import env_flag
 from trlx_tpu_torch.observability import fleet as obs_fleet
+from trlx_tpu_torch.observability import graftscope as obs_graftscope
+from trlx_tpu_torch.observability import numerics as obs_numerics
 from trlx_tpu_torch.observability import spans as obs_spans
+from trlx_tpu_torch.observability.devicemon import PROGRAMS_FILENAME, DeviceMonitor
 from trlx_tpu_torch.observability.anomaly import AnomalyDetector, IncidentCapture, register_emergency
 from trlx_tpu_torch.observability.health import HealthMonitor
 from trlx_tpu_torch.pipeline.overlap import PrefetchIterator, SerialFeed
@@ -193,6 +207,10 @@ class ClippedAdamW:
             raise ValueError(f"{len(self.names)} names for {len(params)} parameters")
         self.count = 0  # applied updates: Adam's bias-correction count and the schedule's
         self.norm_fn = global_norm  # a sharded mesh's trainer sets the global one
+        # graftnum: with record_deltas a step leaves each parameter's realized
+        # update's sum of squares in last_deltas (device scalars).
+        self.record_deltas = False
+        self.last_deltas = None
 
     def _require_names(self):
         if self.names is None:
@@ -238,13 +256,18 @@ class ClippedAdamW:
         self.count += 1
         bc1 = float(np.float32(1.0) - np.float32(self.b1) ** np.float32(self.count))
         bc2 = float(np.float32(1.0) - np.float32(self.b2) ** np.float32(self.count))
+        deltas = [] if self.record_deltas else None
         for p, g, m, v in zip(params, grads, self.mu, self.nu):
             m.mul_(self.b1).add_(g, alpha=1 - self.b1)
             v.mul_(self.b2).addcmul_(g, g, value=1 - self.b2)
             upd = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
             if self.weight_decay:
                 upd.add_(p, alpha=self.weight_decay)
+            old = p.detach().clone() if deltas is not None else None
             p.add_(upd, alpha=-lr)
+            if deltas is not None:
+                deltas.append((p.detach() - old).float().pow(2).sum())
+        self.last_deltas = deltas
 
 
 def build_optimizer(train_cfg, params: List[torch.Tensor], names: List[str]):
@@ -258,44 +281,21 @@ def build_optimizer(train_cfg, params: List[torch.Tensor], names: List[str]):
 
 
 # Environment switches of the JAX package whose features are not ported:
-# each raises by name (the ported ones, TRLX_TPU_FAULTS / _SPANS / _HEALTH /
-# _ANOMALY_FACTOR / _METRICS_PORT, are read where their features arm, the
-# environment winning over the config as in the JAX package). The parameters
-# of unported features (TRLX_TPU_PEAK_TFLOPS, TRLX_TPU_HANG_SECONDS, ...) act
-# only through a switch, knob or fault kind refused here.
+# each raises by name (every other switch is read where its feature arms,
+# the environment winning over the config as in the JAX package).
 UNPORTED_ENV_SWITCHES = {
-    "TRLX_TPU_DEVICE_TELEMETRY": "device telemetry (ROADMAP §A13)",
-    "TRLX_TPU_GRAFTSCOPE": "graftscope (ROADMAP §A13)",
-    "TRLX_TPU_GRAFTNUM": "graftnum (ROADMAP §A13)",
     "TRLX_TPU_SANITIZE": "the dispatch sanitizer (the port has no dispatch lock)",
 }
 
 
 def refuse_unported(config: TRLConfig):
-    """Raise on every knob, environment switch and fault kind whose feature
-    is not ported yet, so no config silently runs a different algorithm, or
-    records less, than it asks for. The one list of such knobs: those every
-    trainer shares, the environment switches (``UNPORTED_ENV_SWITCHES``)
-    and the fault kinds only other subsystems fire (``faults.UNFIRED_KINDS``;
-    ``TRLX_TPU_FAULTS`` wins over ``train.fault_plan``). Int8 decode weights
-    and the fleet (``train.fleet_*``, its environment switches and fault
-    kinds) are PPO's rollout features: other trainers accept and ignore
-    them, as the JAX package's do."""
-    t = config.train
-    unported = {
-        # profiling and observability beyond the single-process core
-        "train.profile_dir": bool(t.profile_dir),
-        "train.watch_interval": t.watch_interval > 0,
-        "train.device_telemetry": t.device_telemetry,
-        "train.graftscope": t.graftscope,
-        "train.graftnum": t.graftnum,
-    }
-    for var, feature in UNPORTED_ENV_SWITCHES.items():
-        unported[f"{var} ({feature})"] = env_flag(var)
-    kinds = FaultPlan.from_env_or_config(t.fault_plan).unfired_kinds()
-    unported[f"train.fault_plan / TRLX_TPU_FAULTS kinds {', '.join(kinds)} (fired only by a subsystem not ported: "
-             "the numerics observatory)"] = bool(kinds)
-    on = [k for k, v in unported.items() if v]
+    """Raise on every environment switch whose feature is not ported
+    (``UNPORTED_ENV_SWITCHES``), so no config silently runs a different
+    algorithm, or records less, than it asks for. Int8 decode weights and
+    the fleet (``train.fleet_*``, its environment switches and fault kinds)
+    are PPO's rollout features: other trainers accept and ignore them, as
+    the JAX package's do."""
+    on = [f"{var} ({feature})" for var, feature in UNPORTED_ENV_SWITCHES.items() if env_flag(var)]
     if on:
         raise NotImplementedError(f"not ported yet: {', '.join(on)}")
 
@@ -364,6 +364,8 @@ class BaseTrainer(BaseRLTrainer):
         self.watchdog = (DivergenceWatchdog(t.watchdog_threshold, patience=t.watchdog_patience,
                                             ema_alpha=t.watchdog_ema_alpha, warmup=t.watchdog_warmup)
                          if t.watchdog_threshold > 0 else None)
+        self._res_batch_refs = []  # each buffered step's device batch (a reference) while incidents are armed
+        self._profiling = None  # the torch.profiler of train.profile_dir while its window is open
         self._resumed = False
         self._preempted = False
         self.last_restore_fallback = False  # load() fell past latest.txt
@@ -373,22 +375,38 @@ class BaseTrainer(BaseRLTrainer):
     def _setup_observability(self):
         """Arm what the config and the environment ask for (the environment
         wins, as in the JAX package): span tracing into
-        ``<checkpoint_dir>/spans.jsonl``, the step-time anomaly detector with
-        incident bundles, the health monitor (whose CRIT escalates into an
-        incident, and whose lineage lands in ``lineage.jsonl``), and the live
-        ``/metrics`` endpoint on the main process. The trainer's construction
-        owns the process's tracer and emergency hook: an earlier trainer's
+        ``<checkpoint_dir>/spans.jsonl``, device telemetry, graftscope, the
+        step-time anomaly detector with incident bundles, the health monitor
+        (whose CRIT escalates into an incident, and whose lineage lands in
+        ``lineage.jsonl``), graftnum, and the live ``/metrics`` endpoint on
+        the main process. The trainer's construction owns the process's
+        tracer, scope, observatory and emergency hook: an earlier trainer's
         are replaced, or disarmed when this one arms none."""
         t = self.config.train
         ckpt_dir = os.path.abspath(t.checkpoint_dir)
+        # graftscope needs the monitor's dispatch hook and the span file for
+        # its timeline rows: arming it arms both.
+        graftscope_on = t.graftscope or env_flag("TRLX_TPU_GRAFTSCOPE")
         # graftfleet owns the span file's name when armed (one file a rank,
         # spans.host<k>.jsonl) and implies span tracing.
         fleet_on = t.graftfleet or env_flag("TRLX_TPU_GRAFTFLEET")
-        if t.trace_spans or fleet_on or env_flag("TRLX_TPU_SPANS"):
+        if t.trace_spans or fleet_on or graftscope_on or env_flag("TRLX_TPU_SPANS"):
             name = obs_spans.host_spans_filename(process_rank()) if fleet_on else obs_spans.SPANS_FILENAME
             obs_spans.configure(os.path.join(ckpt_dir, name), process_index=process_rank())
         else:
             obs_spans.shutdown()
+        self._devicemon = None
+        if t.device_telemetry or graftscope_on or env_flag("TRLX_TPU_DEVICE_TELEMETRY"):
+            self._devicemon = DeviceMonitor(
+                programs_path=os.path.join(ckpt_dir, PROGRAMS_FILENAME) if is_main_process() else None,
+                device=self.device, census=self._state_census)
+        self._graftscope = None
+        if graftscope_on:
+            self._graftscope = obs_graftscope.configure(
+                os.path.join(ckpt_dir, obs_graftscope.SNAPSHOT_FILENAME) if is_main_process() else None)
+            self._devicemon.ledger = self._graftscope
+        else:
+            obs_graftscope.shutdown()
         anomaly_factor = float(os.environ.get("TRLX_TPU_ANOMALY_FACTOR", "") or t.anomaly_factor)
         self._anomaly = self._incidents = self._health = None
         if anomaly_factor > 0:
@@ -400,6 +418,22 @@ class BaseTrainer(BaseRLTrainer):
             self._health = HealthMonitor(
                 warmup=t.health_warmup, warn_streak=t.health_warn_streak, crit_streak=t.health_crit_streak,
                 lineage_path=os.path.join(ckpt_dir, "lineage.jsonl") if is_main_process() else None)
+        # graftnum: the num/* step statistics (gated when the loss is built),
+        # the NaN provenance in guard-skip bundles (so it arms incidents) and
+        # the quantization error at handoffs. Its detectors join the health
+        # monitor, or escalate through the emergency hook without one.
+        self._graftnum = None
+        if obs_numerics.armed(t):
+            self._graftnum = obs_numerics.configure()
+            if self._incidents is None:
+                self._incidents = self._build_incident_capture(ckpt_dir)
+            for det in self._graftnum.detectors:
+                if self._health is not None:
+                    self._health.register_detector(det)
+                else:
+                    det.on_crit = obs_numerics.escalate
+        else:
+            obs_numerics.shutdown()
         if self._incidents is None:
             register_emergency(None)
         # graftfleet: this rank's collective arrivals, the clock estimate
@@ -429,11 +463,77 @@ class BaseTrainer(BaseRLTrainer):
 
     def _build_incident_capture(self, ckpt_dir: str) -> IncidentCapture:
         """The run's IncidentCapture, registered as the emergency hook (the
-        health monitor's CRIT escalation runs with no trainer in scope)."""
+        health monitor's CRIT escalation runs with no trainer in scope). The
+        hook holds the trainer weakly: the process-global registration must
+        not keep a finished trainer (and its device memory) alive."""
+        me = weakref.ref(self)
         incidents = IncidentCapture(ckpt_dir, device=self.device, metrics_path=os.path.join(ckpt_dir, "metrics.jsonl"),
-                                    max_incidents=self.config.train.max_incidents)
-        register_emergency(incidents, lambda: getattr(self, "iter_count", 0))
+                                    max_incidents=self.config.train.max_incidents,
+                                    profiling_active=lambda: getattr(me(), "_profiling", None) is not None)
+        register_emergency(incidents, lambda: getattr(me(), "iter_count", 0))
         return incidents
+
+    def _state_census(self):
+        """The tensors of the train state (the CPU memory gauge's census):
+        parameters, the optimizer's moments and the frozen extras."""
+        model, opt = getattr(self, "model", None), getattr(self, "optimizer", None)
+        out = list(model.parameters()) if model is not None else []
+        if opt is not None:
+            out += list(opt.mu) + list(opt.nu)
+        return out + list(getattr(self, "extras", {}).values())
+
+    def _wrap_monitored(self, name: str, fn, phase: str = "train"):
+        """``fn`` through the device monitor (``DeviceMonitor.wrap``), or
+        ``fn`` itself when device telemetry is off."""
+        monitor = getattr(self, "_devicemon", None)
+        return fn if monitor is None else monitor.wrap(name, fn, phase=phase)
+
+    def _flush_device_telemetry(self, phase_seconds: dict) -> dict:
+        """The window boundary's telemetry: the monitor's FLOP counters into
+        MFU and throughput gauges, the routing and memory gauges, and the
+        graftscope ledger with its samples and snapshot. {} when off."""
+        monitor = getattr(self, "_devicemon", None)
+        if monitor is None:
+            return {}
+        out = monitor.window(phase_seconds)
+        out.update(monitor.kernel_routing_gauges())
+        out.update(monitor.device_memory_gauges())
+        gs = getattr(self, "_graftscope", None)
+        if gs is not None:
+            out.update(gs.window())
+            self._flush_graftscope_samples(gs)
+            gs.flush()
+        return out
+
+    def _flush_graftscope_samples(self, gs):
+        """The window's raw graftscope samples (lane gaps, refill waits,
+        straggler steps and accept rates by prompt width) to the tracker's
+        histogram records and, when serving, the ``/metrics`` histograms."""
+        samples = gs.drain_samples()
+        if not samples:
+            return
+        exporter = self._metrics_exporter
+        for lane, gaps in sorted(samples.get("lane_gaps", {}).items()):
+            if gaps:
+                self.tracker.log_histogram("obs/lane_gap_" + lane + "_s", gaps, step=self.iter_count)
+                if exporter is not None:
+                    exporter.observe("obs/lane_gap_s", gaps, buckets=obs_graftscope.LANE_GAP_S_BUCKETS,
+                                     labels={"lane": lane})
+        waits = samples.get("refill_wait_ms") or []
+        if waits:
+            self.tracker.log_histogram("engine/refill_wait_ms", waits, step=self.iter_count)
+            if exporter is not None:
+                exporter.observe("engine/refill_wait_ms", waits, buckets=obs_graftscope.REFILL_WAIT_MS_BUCKETS)
+        for width, steps in sorted((samples.get("straggler_steps") or {}).items()):
+            if steps and exporter is not None:
+                exporter.observe("engine/straggler_steps", steps, buckets=obs_graftscope.STRAGGLER_STEPS_BUCKETS,
+                                 labels={"width": str(width)})
+        for width, rates in sorted((samples.get("spec_accept") or {}).items()):
+            if rates:
+                self.tracker.log_histogram("engine/spec_accept_rate", rates, step=self.iter_count)
+                if exporter is not None:
+                    exporter.observe("engine/spec_accept_rate", rates, buckets=obs_graftscope.SPEC_ACCEPT_RATE_BUCKETS,
+                                     labels={"width": str(width)})
 
     def _export_metrics(self, stats_host: dict):
         """The freshest log-boundary scalars (health gauges included) to the
@@ -469,16 +569,18 @@ class BaseTrainer(BaseRLTrainer):
         """Per trainable parameter, one over the processes that hold the
         same piece of its gradient after ``reduce_gradients``."""
         if getattr(self, "_norm_weights", None) is None:
-            shape = self.mesh.shape
-            out = []
-            for name in self.trainable_names:
-                pl = placement_of(self.model, name)
-                rep = shape[AXIS_DP] * shape[AXIS_SP]
-                rep *= shape[AXIS_FSDP] if pl is None or pl.fsdp_dim is None else 1
-                rep *= shape[AXIS_TP] if pl is None or pl.tp_dim is None else 1
-                out.append(1.0 / rep)
-            self._norm_weights = out
+            self._norm_weights = [self._piece_weight(n) for n in self.trainable_names]
         return self._norm_weights
+
+    def _piece_weight(self, name: str) -> float:
+        """One over the processes that hold the same piece of parameter
+        ``name``."""
+        shape = self.mesh.shape
+        pl = placement_of(self.model, name)
+        rep = shape[AXIS_DP] * shape[AXIS_SP]
+        rep *= shape[AXIS_FSDP] if pl is None or pl.fsdp_dim is None else 1
+        rep *= shape[AXIS_TP] if pl is None or pl.tp_dim is None else 1
+        return 1.0 / rep
 
     def grad_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
         """The global norm of the whole gradient (``global_norm`` over every
@@ -764,9 +866,16 @@ class BaseTrainer(BaseRLTrainer):
         guard, clip + AdamW over the trainable parameters. Returns the loss
         stats plus ``grad_norm`` (before clipping), ``learning_rate`` (the
         schedule at this step) and the guard's ``resilience/*`` counters, as
-        device scalars."""
+        device scalars. With ``train.watch_interval`` it adds
+        ``watch/grad_norm/<group>`` per top-level parameter group; with
+        graftnum armed the ``num/*`` statistics (``_numerics_stats``). Both
+        gates are resolved when the loss is built: disarmed, the step issues
+        what it issued without them."""
         if getattr(self, "_loss_fn", None) is None:
             self.build_train_step()
+            t = self.config.train
+            self._step_gates = (obs_numerics.armed(t), t.watch_interval > 0)
+        num_on, watch_on = getattr(self, "_step_gates", (False, False))
         params = self.trainable
         for p in params:
             p.grad = None
@@ -779,6 +888,16 @@ class BaseTrainer(BaseRLTrainer):
             grads = self.reduce_gradients(grads)
         stats = dict(stats)
         stats["grad_norm"] = self.grad_norm(grads)
+        pre = None
+        if num_on or watch_on:
+            # Before the update: the optimizer clips the gradients in place.
+            names, weights, group = self._all_param_layout()
+            g_sq = obs_numerics.tensor_sq(self._by_all_names(grads), self.device)
+            if watch_on:
+                stats.update(self._watch_grad_norms(names, g_sq, weights, group))
+            if num_on:
+                pre = (g_sq, self._param_sq())
+                self.optimizer.record_deltas, self.optimizer.last_deltas = True, None
         if self.config.train.nonfinite_guard:
             group = self.mesh.group("world") if self._distributed_grads() else None
             self.bad_steps, applied = guarded_update(self.optimizer, params, grads, loss.detach(), self.bad_steps,
@@ -787,10 +906,84 @@ class BaseTrainer(BaseRLTrainer):
             stats["resilience/bad_steps"] = torch.tensor(float(self.bad_steps))
         else:
             self.optimizer.step(params, grads)
+        if pre is not None:
+            stats.update(self._numerics_stats(*pre))
         stats["learning_rate"] = torch.tensor(self.schedule(self.step), dtype=torch.float32)
         self.step += 1
         self._saved = None
         return stats
+
+    # ------------------------------------------------------- step telemetry
+
+    def _all_param_layout(self):
+        """(every parameter's name, the per-name weights and the group a
+        sharded mesh's sums run over, or None and None on one process)."""
+        if getattr(self, "_param_layout", None) is None:
+            names = [n for n, _ in self.model.named_parameters()]
+            weights = group = None
+            if self._distributed_grads():
+                weights = [self._piece_weight(n) for n in names]
+                group = self.mesh.group("world")
+            self._param_layout = (names, weights, group)
+        return self._param_layout
+
+    def _by_all_names(self, tensors) -> list:
+        """``tensors`` (one per trainable parameter) spread over every
+        parameter's name, None where a parameter is frozen."""
+        by_name = dict(zip(self.trainable_names, tensors))
+        return [by_name.get(n) for n in self._all_param_layout()[0]]
+
+    def _param_sq(self) -> torch.Tensor:
+        """Every parameter's sum of squares (device vector, no host sync);
+        the frozen ones' are kept while their values are unchanged."""
+        names = self._all_param_layout()[0]
+        named = dict(self.model.named_parameters())
+        trainable = set(self.trainable_names)
+        frozen = [named[n] for n in names if n not in trainable]
+        key = tuple((p._version, p.data_ptr()) for p in frozen)
+        cached = getattr(self, "_frozen_sq", None)
+        if cached is None or cached[0] != key:
+            cached = self._frozen_sq = (key, obs_numerics.tensor_sq(
+                [None if n in trainable else named[n] for n in names], self.device))
+        return obs_numerics.tensor_sq([named[n] if n in trainable else None for n in names], self.device) + cached[1]
+
+    def _numerics_stats(self, g_sq, p_sq) -> Dict[str, torch.Tensor]:
+        """graftnum's ``num/*`` statistics of the step just taken, from the
+        gradients' and the old parameters' sums of squares and the
+        optimizer's realized updates (none on a skipped step: ratio 0)."""
+        names, weights, group = self._all_param_layout()
+        deltas, self.optimizer.last_deltas = self.optimizer.last_deltas, None
+        self.optimizer.record_deltas = False
+        zero = torch.zeros((), device=self.device)
+        by_name = dict(zip(self.trainable_names, deltas)) if deltas is not None else {}
+        d_sq = torch.stack([by_name.get(n, zero) for n in names])
+        return obs_numerics.train_step_stats(names, g_sq, p_sq, d_sq, weights=weights, group=group)
+
+    def _watch_grad_norms(self, names, g_sq, weights, group) -> Dict[str, torch.Tensor]:
+        """``watch/grad_norm/<group>``: the gradient norm of each top-level
+        parameter group (device scalars)."""
+        groups, norms = obs_numerics.grouped_norms(names, g_sq[None], key=obs_numerics.top_group, weights=weights,
+                                                   group=group)
+        return {f"watch/grad_norm/{g}": norms[0, j] for j, g in enumerate(groups)}
+
+    def log_param_watch(self, limit_per_leaf: int = 4096):
+        """Parameter distributions per top-level group (``wandb.watch``'s
+        counterpart): a strided subsample of at most ``limit_per_leaf``
+        elements of each floating parameter, taken on the device, is the only
+        host transfer. Skipped on several processes (a piece is not the
+        parameter), as the JAX package skips it on a pod."""
+        if not self.tracker.enabled or world_size() > 1:
+            return
+        pieces = {}
+        with torch.no_grad():
+            for name, p in self.model.named_parameters():
+                if not p.is_floating_point():
+                    continue
+                flat = p.detach().reshape(-1)
+                stride = max(1, flat.shape[0] // limit_per_leaf)
+                pieces.setdefault(obs_numerics.top_group(name), []).append(flat[::stride][:limit_per_leaf].float())
+        for group, parts in sorted(pieces.items()):
+            self.tracker.log_histogram(f"watch/params/{group}", torch.cat(parts).cpu().numpy(), step=self.iter_count)
 
     def post_backward_callback(self, stats=None):
         """Called with every step's stats (device scalars)."""
@@ -868,15 +1061,21 @@ class BaseTrainer(BaseRLTrainer):
         checkpoint (not with ``allow_rollback=False``: from inside a save,
         where a rollback would recurse). A flush that counted skips records
         a ``guard_skip`` span instant, an incident bundle (when incidents are
-        armed) and ``resilience/skipped_steps``."""
+        armed) with the first skipped step's numerics (``_capture_numerics``)
+        and ``resilience/skipped_steps``."""
         if not self._res_pending:
             return
         pending, self._res_pending = self._res_pending, []
+        batch_refs, self._res_batch_refs = self._res_batch_refs, []
+        batch_refs += [None] * (len(pending) - len(batch_refs))
         max_bad = self.config.train.max_bad_steps
         skips_before = self.skipped_steps
-        for loss, nonfinite, bad in pending:
+        offending_batch = None
+        for (loss, nonfinite, bad), batch in zip(pending, batch_refs):
             if nonfinite is not None and float(nonfinite) > 0:
                 self.skipped_steps += 1
+                if offending_batch is None:
+                    offending_batch = batch
             if bad is not None and max_bad > 0 and int(bad) >= max_bad:
                 raise TrainingDiverged(
                     f"{int(bad)} consecutive non-finite train steps (>= train.max_bad_steps={max_bad}) around step "
@@ -890,9 +1089,48 @@ class BaseTrainer(BaseRLTrainer):
         if self.skipped_steps != skips_before:
             obs_spans.instant("guard_skip", step=self.iter_count, skipped=int(self.skipped_steps))
             if self._incidents is not None:
-                self._incidents.capture(self.iter_count, "guard_skip",
-                                        detail={"skipped_steps": int(self.skipped_steps)})
+                bundle = self._incidents.capture(self.iter_count, "guard_skip",
+                                                 detail={"skipped_steps": int(self.skipped_steps)})
+                if bundle and offending_batch is not None:
+                    self._capture_numerics(bundle, offending_batch)
             self.tracker.log({"resilience/skipped_steps": float(self.skipped_steps)}, step=self.iter_count)
+
+    def _capture_numerics(self, bundle_dir: str, batch):
+        """The NaN provenance of a guard-skip bundle
+        (``incidents/<step>/numerics.json``), on the incident path only:
+
+        - the gradient census: the gradient re-derived by autograd through
+          ``_loss_fn`` on the offending batch, every non-finite trainable
+          leaf named by its JAX-form path; it runs whenever incidents are
+          armed, graftnum on or off;
+        - the forward bisect (graftnum armed): one eager re-forward of the
+          batch (``_numerics_forward``) with the probe taps live, naming the
+          first block whose activations go non-finite, with the
+          ``nan_layer`` drill's latched injection."""
+        payload = {"step": int(self.iter_count), "reason": "guard_skip"}
+        try:
+            for p in self.trainable:
+                p.grad = None
+            with torch.enable_grad():
+                loss, _ = self._loss_fn(batch)
+                loss.backward()
+            payload["grad_census"] = obs_numerics.nonfinite_census(
+                [(n, p.grad) for n, p in zip(self.trainable_names, self.trainable)])
+        except Exception as e:  # noqa: BLE001 — the incident path never ends the run
+            payload["grad_census"] = {"error": repr(e)}
+        finally:
+            for p in self.trainable:
+                p.grad = None
+        if obs_numerics.enabled():
+            with torch.no_grad():
+                payload["forward_bisect"] = obs_numerics.bisect_forward(
+                    lambda: self._numerics_forward(batch), inject=obs_numerics.consume_injection())
+        obs_numerics.write_incident(bundle_dir, payload)
+
+    def _numerics_forward(self, batch):
+        """An eager forward of the model over a train batch for graftnum's
+        bisector (outputs discarded); each trainer defines it."""
+        raise NotImplementedError
 
     def _rollback(self):
         """The watchdog's response: restore the last intact checkpoint (in
@@ -925,6 +1163,7 @@ class BaseTrainer(BaseRLTrainer):
             self._rebuild_for_lr_scale()
         self.watchdog.reset()
         self._res_pending = []
+        self._res_batch_refs = []
         self.iter_count = int(self.step)
         self.tracker.log({"resilience/rollback_to_step": float(self.iter_count),
                           "resilience/rollbacks": float(self._rollbacks),
@@ -994,12 +1233,18 @@ class BaseTrainer(BaseRLTrainer):
         on after the current step, or at the next batch boundary: a save,
         a ``preempted_at_step`` record, and ``None`` is returned without
         evaluating. Otherwise returns the final ``evaluate()`` stats. The
-        metrics endpoint closes on the way out."""
+        metrics endpoint closes on the way out; with device telemetry,
+        graftscope or graftnum armed, ``<checkpoint_dir>/report.md`` is
+        written last (``observability.report``)."""
         self.prepare_learning()
         self.iter_count = self.step if self._resumed else 0
         if self.iter_count >= self.total_steps:
             return self.evaluate()
         self._preempted = False
+        # The telemetry window's anchor for trainers without a phase timer
+        # (ILQL): the first window spans from here.
+        self._telemetry_t0 = time.time()
+        self._learn_start = self.iter_count
 
         def on_sigterm(signum, frame):
             self._preempted = True
@@ -1021,6 +1266,20 @@ class BaseTrainer(BaseRLTrainer):
             self._close_batch_feed()
             self._shutdown_experience_pipeline()
             self._finalize_pending_save()
+            self._profile_stop()
+            report = self._devicemon is not None or self._graftnum is not None
+            if self._devicemon is not None:
+                # programs.json with the dispatches since the last window.
+                self._devicemon.flush()
+            if self._graftscope is not None:
+                # Joins the drain thread and writes the final snapshot.
+                self._devicemon.ledger = None
+                obs_graftscope.shutdown()
+                self._graftscope = None
+            if self._graftnum is not None:
+                # Clears the instance and any latched injection.
+                obs_numerics.shutdown()
+                self._graftnum = None
             if self.heartbeat is not None:
                 self.heartbeat.beat(step=self.iter_count, phase="exited")
                 self.heartbeat.stop()
@@ -1035,6 +1294,46 @@ class BaseTrainer(BaseRLTrainer):
                 self._metrics_exporter = None
             if installed:
                 signal.signal(signal.SIGTERM, old_handler if old_handler is not None else signal.SIG_DFL)
+            if report:
+                self._write_report()
+
+    def _write_report(self):
+        """``<checkpoint_dir>/report.md`` on the main process (best-effort)."""
+        if not is_main_process():
+            return
+        try:
+            from trlx_tpu_torch.observability.report import build_report
+
+            ckpt_dir = os.path.abspath(self.config.train.checkpoint_dir)
+            ckpt_util.atomic_write_text(os.path.join(ckpt_dir, "report.md"), build_report(ckpt_dir))
+        except Exception as e:  # noqa: BLE001 — a report never fails the run
+            print(f"[trlx_tpu_torch.observability] report.md not written: {type(e).__name__}: {e}", file=sys.stderr)
+
+    def _profile_tick(self):
+        """``train.profile_dir``: ``torch.profiler`` (CPU and CUDA activities)
+        over local steps [2, 5) of this ``learn()`` (past the first steps'
+        captures and builds), on the main process; the trace goes to
+        ``<profile_dir>/trace.json``."""
+        profile_dir = self.config.train.profile_dir
+        if not profile_dir or not is_main_process():
+            return
+        local = self.iter_count - self._learn_start
+        if local == 2 and self._profiling is None:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
+            self._profiling = profile(activities=activities)
+            self._profiling.start()
+        elif self._profiling is not None and local >= 5:
+            self._profile_stop()
+
+    def _profile_stop(self):
+        prof, self._profiling = self._profiling, None
+        if prof is None:
+            return
+        prof.stop()
+        os.makedirs(self.config.train.profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(self.config.train.profile_dir, "trace.json"))
 
     def _prepare_batch(self, batch):
         """Host batch → (device batch, host extras): the host-only
@@ -1073,6 +1372,7 @@ class BaseTrainer(BaseRLTrainer):
     def _learn_loop(self):
         train = self.config.train
         timer = getattr(self, "_phase_timer", None)
+        step_fn = self._wrap_monitored("train/step", self.train_step)
         for _ in range(train.epochs):
             feed = self._train_batch_feed()
             while True:
@@ -1088,6 +1388,7 @@ class BaseTrainer(BaseRLTrainer):
                 train_t0 = time.time()
                 phase_exclude_s = 0.0  # eval wall inside the train window
                 for _ in range(self.n_updates_per_batch):
+                    self._profile_tick()
                     if self.heartbeat is not None:
                         self.heartbeat.beat(step=self.iter_count, phase="train")
                     forward_t0 = time.time()
@@ -1096,13 +1397,23 @@ class BaseTrainer(BaseRLTrainer):
                         # The drill: this step's float tensors NaN-poisoned;
                         # the non-finite guard must skip the update.
                         step_batch = poison_nan(device_batch)
-                    stats = self.train_step(step_batch)
+                    if self.fault_plan and self.fault_plan.fire("nan_layer", self.iter_count + 1):
+                        # graftnum's drill: the same poison (the guard trips)
+                        # and a latched tap injection, so the bisector's
+                        # re-forward must name that block first.
+                        step_batch = poison_nan(device_batch)
+                        n_layer = int(self.model.cfg.n_layer)
+                        obs_numerics.latch_injection(f"block_{min(self.iter_count + 1, n_layer - 1)}")
+                    stats = step_fn(step_batch)
                     self.iter_count += 1
                     self._fire_host_faults()
                     self.post_backward_callback(stats)
                     if self.watchdog is not None or "resilience/bad_steps" in stats:
                         self._res_pending.append((stats.get("loss"), stats.get("resilience/nonfinite"),
                                                   stats.get("resilience/bad_steps")))
+                        # The step's device batch (a reference), for the
+                        # guard-skip census; kept only while incidents are armed.
+                        self._res_batch_refs.append(step_batch if self._incidents is not None else None)
                         if len(self._res_pending) >= max(train.log_interval, 8):
                             self._flush_resilience()
                     if self.fault_plan and self.fault_plan.fire("sigterm", self.iter_count):
@@ -1128,6 +1439,15 @@ class BaseTrainer(BaseRLTrainer):
                             self._incidents.capture(self.iter_count, "slow_step", detail={
                                 "step_time": stats_host["step_time"], "p50": self._anomaly.p50(),
                                 "factor": self._anomaly.factor})
+                        if self._devicemon is not None and timer is None:
+                            # Trainers without a phase timer (ILQL) close the
+                            # telemetry window here; PPO at its rollout
+                            # boundary (_log_phase_window).
+                            now = time.time()
+                            since = now - self._telemetry_t0
+                            self._telemetry_t0 = now
+                            obs_graftscope.host_interval("train", now - since, now)
+                            stats_host.update(self._flush_device_telemetry({"train": since, "wall": since}))
                         stats_host["samples_per_sec"] = train.batch_size / max(stats_host["step_time"], 1e-9)
                         if iv["do_eval"]:
                             stats_host.update(self.evaluate())
@@ -1138,14 +1458,26 @@ class BaseTrainer(BaseRLTrainer):
                             v = np.asarray(v)
                             stats_host[f"{k}/mean"] = float(v.mean())
                             stats_host[f"{k}/max"] = float(v.max())
+                        if self._graftnum is not None:
+                            # Before the health gauges merge: the detectors
+                            # judge this record's num/* values.
+                            self._graftnum.observe_train(stats_host)
                         if self._health is not None:
                             self._observe_health(stats_host)
+                        if self._graftnum is not None:
+                            # The latest handoff's quantization gauges; the
+                            # detectors' states only without a health monitor.
+                            stats_host.update(self._graftnum.gauges(include_states=self._health is None))
                         self._export_metrics(stats_host)
                         if self._fleet is not None:
                             # Rank 0's fleet rollup (empty on the others).
                             stats_host.update(self._fleet.on_log_boundary(self.iter_count,
                                                                           exporter=self._metrics_exporter))
                         self.tracker.log(stats_host, step=self.iter_count)
+                    # Independent of the log cadence.
+                    wi = train.watch_interval
+                    if wi and self.iter_count % wi == 0:
+                        self.log_param_watch()
                     if self._preempted_mid_batch():
                         self._save_on_preemption()
                         return None
@@ -1153,7 +1485,9 @@ class BaseTrainer(BaseRLTrainer):
                         self.save()
                         return self.evaluate()
                 if timer is not None:
-                    timer.add("train", max(0.0, time.time() - train_t0 - phase_exclude_s))
+                    train_dt = max(0.0, time.time() - train_t0 - phase_exclude_s)
+                    timer.add("train", train_dt)
+                    obs_graftscope.host_interval("train", train_t0, train_t0 + train_dt)
             self._close_batch_feed()
             self.post_epoch_callback()
         self.save()

@@ -77,10 +77,10 @@ class ILQLTrainer(BaseTrainer):
         self.extras = self.make_extras()
         self.store: ILQLRolloutStorage = None
         self.build_train_state()
-        self._generate_fn = make_generate_fn(
+        self._generate_fn = self._wrap_monitored("rollout/generate", make_generate_fn(
             self.model, self.gen_cfg, processor=self._make_ilql_processor(), carry_keys=("qs", "vs"),
             step_stats_fn=self._decode_step_stats,
-        )
+        ), phase="rollout")
         self._maybe_resume()  # the target heads are part of the saved state; ILQL adds no host state
 
     # ----------------------------------------------------------------- setup
@@ -186,6 +186,12 @@ class ILQLTrainer(BaseTrainer):
     def build_train_step(self):
         self._loss_fn = make_ilql_loss_fn(self.model, self.config, lambda: self.extras, self.use_fused())
         return self.train_step
+
+    @torch.no_grad()
+    def _numerics_forward(self, batch):
+        """The eager forward of a train batch for graftnum's bisector (the
+        probe taps see its activations; outputs discarded)."""
+        self.model(batch.input_ids, batch.attention_mask, states_ixs=batch.states_ixs, actions_ixs=batch.actions_ixs)
 
     # ------------------------------------------------------------- callbacks
 

@@ -88,6 +88,7 @@ from trlx_tpu_torch.fleet.topology import validate_fleet_config
 from trlx_tpu_torch.models.heads import LMWithValueHead, extract_branch_params, swapped_params, trainable_mask
 from trlx_tpu_torch.models.hf_import import build_lm_config, load_or_init_params
 from trlx_tpu_torch.models.snapshot import RolloutSnapshot
+from trlx_tpu_torch.observability import numerics as obs_numerics
 from trlx_tpu_torch.ops.fused_logprob import fused_logprob_eligible
 from trlx_tpu_torch.ops.generate import make_generate_fn
 from trlx_tpu_torch.ops.modeling import logprobs_from_logits
@@ -169,6 +170,7 @@ class PPOTrainer(BaseTrainer):
         self.decode_weight_quant = bool(config.model.decode_weight_quant)
         if self.decode_weight_quant:
             quantize_weights(self.model)
+            obs_numerics.record_weight_quant(self.model, version=0)
         self.rm_model = self._build_reward_model(config) if config.model.has_reward_model else None
 
         # The overlapped pipeline (pipeline.overlap): background scoring,
@@ -255,6 +257,13 @@ class PPOTrainer(BaseTrainer):
                 "delta is bounded by the engine+int8 parity test)."
             )
         self._generate_fn, self._generate_fused_fn = self._generate_fns_for(self.model)
+        if self._devicemon is not None:
+            # Device telemetry: the scoring passes are monitored programs
+            # (one counted signature per prompt width).
+            self.rollout_score = self._wrap_monitored("rollout/score", self.rollout_score, phase="score")
+            self.rollout_score_fused = self._wrap_monitored("rollout/score_fused", self.rollout_score_fused,
+                                                            phase="score")
+            self.rollout_score_rm = self._wrap_monitored("rollout/score_rm", self.rollout_score_rm, phase="score")
 
         # The continuous-batching engine (method.rollout_engine), built at
         # first use. Its episodes are always scored unfused (a policy
@@ -382,7 +391,10 @@ class PPOTrainer(BaseTrainer):
                     apply_kwargs={"collect_branch_hidden": True},
                     prefill_collect=("branch_hidden",),
                 )
-            fns = self._generate_fns[id(module)] = (make_generate_fn(module, self.gen_cfg, self._gen_processor), fused)
+            plain = make_generate_fn(module, self.gen_cfg, self._gen_processor)
+            fns = self._generate_fns[id(module)] = (
+                self._wrap_monitored("rollout/generate", plain, phase="rollout"),
+                None if fused is None else self._wrap_monitored("rollout/generate_fused", fused, phase="rollout"))
         return fns
 
     def _decode_module(self, snapshot=None):
@@ -408,6 +420,9 @@ class PPOTrainer(BaseTrainer):
             trainable = {n for n, p in self.model.named_parameters() if p.requires_grad}
             self._snapshot_weights = RolloutSnapshot(self.model, trainable)
         self._snapshot_weights.take(self.iter_count)
+        if self.decode_weight_quant and obs_numerics.enabled():
+            # The snapshot's int8 copies are quantized from the live masters.
+            obs_numerics.record_weight_quant(self.model, version=self.iter_count)
         return {"version": int(self.iter_count), "weights": self._snapshot_weights}
 
     def rollout_generate(self, input_ids, attention_mask, generator=None, timings=None, snapshot=None, rows=None):
@@ -450,6 +465,7 @@ class PPOTrainer(BaseTrainer):
                 spec_decode=str(m.spec_decode or ""),
                 spec_k=int(m.spec_k or 0),
                 generator=self.seeded_generator(3),
+                monitor=self._devicemon,
                 # With several processes each sync quantum is guarded: a peer
                 # that dies mid-decode ends this rank with exit 117 and the
                 # slot states in its incident bundle. 0 leaves it unguarded.
@@ -552,6 +568,18 @@ class PPOTrainer(BaseTrainer):
         self._loss_fn = make_ppo_loss_fn(self.model, self.config, self.prompt_length,
                                          resolve_fused_head(self.model.cfg, self.device))
         return self.train_step
+
+    @torch.no_grad()
+    def _numerics_forward(self, batch):
+        """The eager policy forward of a train batch for graftnum's bisector
+        (the probe taps see its activations; outputs discarded)."""
+        if isinstance(batch, PackedPPOBatch):
+            self.model(batch.input_ids, batch.attention_mask, position_ids=batch.position_ids,
+                       segment_ids=batch.segment_ids)
+            return
+        all_ids = torch.cat([batch.query_tensors, batch.response_tensors], dim=1)
+        all_mask = torch.cat([batch.query_mask, batch.response_mask], dim=1)
+        self.model(all_ids, all_mask, logits_start=self.prompt_length - 1)
 
     def post_backward_callback(self, stats=None):
         """Queue this step's policy-vs-rollout mean_kl for the adaptive
@@ -696,6 +724,10 @@ class PPOTrainer(BaseTrainer):
         next store. Then the train loader is rebuilt and the phase window
         logged."""
         self._flush_kl_updates()
+        if self.decode_weight_quant and self._rollout_producer is None and obs_numerics.enabled():
+            # The samplers re-quantize the int8 copies from the live policy
+            # before this phase's rollouts (refresh_weight_copies).
+            obs_numerics.record_weight_quant(self.model, version=self.iter_count)
         if self._fleet_feed is not None:
             try:
                 self._fleet_feed.consume_done()
@@ -744,6 +776,11 @@ class PPOTrainer(BaseTrainer):
             stats["train_batch_fill"] = float(np.mean(window_fill))
         if self._last_exp_stats:
             stats.update(self._last_exp_stats)
+        # Device telemetry on the phase window's cadence: the window's FLOPs
+        # over exactly these seconds.
+        stats.update(self._flush_device_telemetry({
+            "train": stats.get("time/train_s", 0.0), "rollout": stats.get("time/rollout_s", 0.0),
+            "score": stats.get("time/score_s", 0.0), "wall": stats.get("time/window_wall_s", 0.0)}))
         if self._health is not None:
             # The detectors' state at the rollout boundary, in the window record.
             stats.update(self._health.gauges())
