@@ -118,6 +118,8 @@ and checks that each path went through every kernel it runs, exactly as
 often as its config says.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --race-overhead   # only overlap_train's (c): a warm-up,
+                                            # then unarmed and armed (A B B A)
 
 The W8A16 product (``[w8a16]``) is held against its plain version at
 GPT-J-6B's decode shapes (timed with the weight L2-warm and cold), one
@@ -2088,7 +2090,15 @@ OVERLAP_BUCKETS = [704, 768]  # the engine prompts' lengths fill both (6 and 10 
 REWARD_HOST_S = 0.2  # host wall time the overlap path's reward_fn spends per chunk, in every run alike
 
 
-def overlap_train_path(kernels):
+# The race sanitizer's cost (``--race-overhead``): (c) unarmed and armed,
+# in the order A B B A, one process, after an unarmed warm-up run (a first
+# run pays the process's one-time costs: on an H100 80GB HBM3 at 700 W it
+# took 19.1 s, the runs after it 12.1-12.5 s).
+RACE_AB_PLAN = (("warmup", "stale1_packed", False), ("stale1_unarmed_1", "stale1_packed", False), ("stale1_armed_1", "stale1_packed", True),
+                ("stale1_armed_2", "stale1_packed", True), ("stale1_unarmed_2", "stale1_packed", False))
+
+
+def overlap_train_path(kernels, plan=None):
     """The overlapped rollout/train pipeline (``method.rollout_overlap``,
     ``max_staleness``, ``pack_train_batch``, ``prompt_buckets``) on the main
     path: ``trlx_tpu_torch.train(reward_fn=...)`` through the paged int8
@@ -2098,15 +2108,19 @@ def overlap_train_path(kernels):
     staleness 0 with prefetch, whose every store, step statistic and final
     parameter must equal (a)'s bit for bit; (c) staleness 1 with packed
     train batches and two prompt buckets, whose producer stores must read
-    the boundary snapshot (the engine's weight_version is the snapshot's).
+    the boundary snapshot (the engine's weight_version is the snapshot's),
+    run with ``TRLX_TPU_SANITIZE=race`` (``utils.sanitize``): no race
+    violation, and some tracked field shared by two threads.
     (a) must launch rows 2-3 (the unpacked backward); (c) rows 1, 4-6, 8
     and 10. The runs' end saves are not written (since fleet_train, the
     smoke's time): ``resilience_drill`` saves, verifies and loads the same
     4-layer state. Returns the three runs' numbers and their summed
-    launches."""
+    launches. ``plan`` ((label, run, armed), ...) runs those instead and
+    checks each alone (``RACE_AB_PLAN``)."""
     import trlx_tpu_torch
     from trlx_tpu_torch.orchestrator.ppo_orchestrator import PPOOrchestrator
     from trlx_tpu_torch.trainer import register_model
+    from trlx_tpu_torch.utils import sanitize
 
     register_model("OverlapNoSavePPOTrainer")(no_save_trainer())
 
@@ -2138,9 +2152,12 @@ def overlap_train_path(kernels):
         return out
 
     results, launches_sum = {}, dict.fromkeys(kernels, 0)
+    # (c) is the run the race sanitizer watches.
+    default_plan = tuple((name, name, name == "stale1_packed") for name in runs_cfg)
     PPOOrchestrator.make_experience = recorded_make
     try:
-        for name, method in runs_cfg.items():
+        for name, run_name, armed in plan or default_plan:
+            method = runs_cfg[run_name]
             run_dir = os.path.join(RUN_DIR, f"overlap_{name}")
             gen_kwargs = dict(prompt_length=PROMPT_LEN, max_length=MAX_LEN, min_length=MAX_LEN, top_k=0, top_p=0.7,
                               temperature=0.5, do_sample=True)
@@ -2153,12 +2170,23 @@ def overlap_train_path(kernels):
             stores.clear()
             free()
             torch.cuda.reset_peak_memory_stats()
+            if armed:
+                os.environ[sanitize.ENV_VAR] = "race"
+                sanitize.refresh()
+                sanitize.clear_races()
             for fn in kernels.values():
                 fn.launches = 0
             t0 = time.perf_counter()
-            trainer = trlx_tpu_torch.train(reward_fn=slow_reward, prompts=engine_prompts(),
-                                           eval_prompts=seeded_prompts(CHUNK, 1), config=config)
-            torch.cuda.synchronize()
+            try:
+                trainer = trlx_tpu_torch.train(reward_fn=slow_reward, prompts=engine_prompts(),
+                                               eval_prompts=seeded_prompts(CHUNK, 1), config=config)
+                torch.cuda.synchronize()
+            finally:
+                race = {"shared_fields": sanitize.shared_fields(), "violations": sanitize.violations()}
+                if armed:
+                    os.environ.pop(sanitize.ENV_VAR, None)
+                    sanitize.refresh()
+                    sanitize.clear_races()
             wall = time.perf_counter() - t0
             launches = {k: fn.launches for k, fn in kernels.items()}
             peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2191,6 +2219,11 @@ def overlap_train_path(kernels):
                 "peak_mem_gb": peak_gb,
                 "launches": launches,
             }
+            if armed:
+                out["sanitize_race"] = {"shared_field_count": len(race["shared_fields"]),
+                                        "shared_fields": race["shared_fields"], "violations": race["violations"]}
+                if race["violations"] or not race["shared_fields"]:
+                    raise AssertionError(f"{name} under TRLX_TPU_SANITIZE=race: {race}")
             log(f"[overlap_train] {name} ({n_layer} layers, {json.dumps(method)}) on {card_line()}: "
                 f"{json.dumps({k: v for k, v in out.items() if k != 'staleness/mean'})}")
             log(f"[overlap_train] {name} staleness/mean per logged step {out['staleness/mean']}")
@@ -2205,6 +2238,8 @@ def overlap_train_path(kernels):
     finally:
         PPOOrchestrator.make_experience = orig_make
 
+    if plan:
+        return results, launches_sum
     a, b, c = results["serial"], results["overlap_s0"], results["stale1_packed"]
     if b["steps"] != a["steps"] or b["params"] != a["params"] or len(b["store_columns"]) != 3:
         raise AssertionError("(b) rollout_overlap at staleness 0: step stats or final parameters differ from (a)")
@@ -4666,7 +4701,9 @@ def dist_train_path(kernels):
 
 
 FLEET_LAYERS = 2  # GPT-J-6B width at dist_train's depth: a publish is the 0.848 G f32 masters, ~3.39 GB
-FLEET_ITERS = 3  # iterations of every leg: (c) adopts ordinal 1 mid-phase and meets the torn ordinal 2
+FLEET_ITERS = 2  # iterations of (a), (b) and (d): 2 pay for (c)'s second rollout rank in the smoke's wall
+FLEET_C_ITERS = 3  # (c)'s: it adopts ordinal 1 mid-phase and meets the torn ordinal 2, published after iteration 2
+FLEET_ROLE_RANKS = 2  # (c)'s rollout role: a gloo world of dp ranks, its fleet I/O on rank 0
 FLEET_TIMEOUT_S = 420  # each leg's role processes' wall limit, start and kernel load included
 FLEET_LEASE_TTL = 5.0  # (d): the dead worker's lease is reclaimable after this
 FLEET_HOOK_STEP = 8  # (c): the engine step of a phase at which the worker waits for the learner's next publish
@@ -4836,7 +4873,8 @@ def fleet_run(kernels, config, hook: bool = False, record_stores: bool = False, 
            "step_device_s": [r["device_s"] for r in trainer.step_log],
            "iteration_wall_s": list(np.diff(trainer.marks)), "hook": trainer.hook_log,
            "params": {n: fingerprint([p]) for n, p in trainer.model.named_parameters()}, "gauges": seen,
-           "stores": stores}
+           "stores": stores, "schedule_crcs": list(trainer.orch.schedule_crcs),
+           "weight_pushes": [[list(p) for p in phase] for phase in trainer.orch.weight_pushes]}
     if trainer._fleet_weights is not None:
         out["fleet_modules"] = len(trainer._fleet_weights.modules)
         out["fleet_module_is_live"] = any(m is trainer.model for m in trainer._fleet_weights.modules)
@@ -4871,17 +4909,27 @@ def fleet_worker(args) -> int:
     the fleet's own switches in its environment): trains or serves through
     ``fleet_run`` and writes its numbers to ``<leg dir>/<tag>.json``. A
     ``--fleet-wait-claim W:U`` process waits, set up, until worker W has
-    claimed a unit >= U before it joins."""
+    claimed a unit >= U before it joins. ``--fleet-rank R --fleet-world N``:
+    rank R of a role world of N dp ranks (gloo through a file store in the
+    leg's directory; the hook runs on rank 0 only, the others follow its
+    decisions)."""
     from trlx_tpu_torch.fleet.topology import read_jsonl_or_empty
     from trlx_tpu_torch.ops import cuda_lib
 
     role, leg_dir, tag = args["--fleet-role"], args["--fleet-leg-dir"], args["--fleet-tag"]
     iters, staleness = int(args["--fleet-iters"]), int(args["--fleet-staleness"])
+    rank, world = int(args.get("--fleet-rank", 0)), int(args.get("--fleet-world", 1))
     torch.cuda.set_device(0)
+    if world > 1:
+        import torch.distributed as dist
+
+        dist.init_process_group("gloo", init_method=f"file://{os.path.join(leg_dir, 'store_' + role)}", rank=rank,
+                                world_size=world)
     cuda_lib.lib()
     torch.backends.cuda.matmul.allow_tf32 = False
     kernels = port_kernels()
     config = fleet_role_config(role, leg_dir, tag, iters, staleness)
+    config.train.mesh = (world, 1, 1, 1)
     config.method.fleet_elastic = "--fleet-elastic" in args
     config.method.fleet_inflight_weights = "--fleet-inflight" in args
     if config.method.fleet_elastic:
@@ -4896,9 +4944,9 @@ def fleet_worker(args) -> int:
                 raise AssertionError(f"fleet_train: worker {w} never claimed a unit >= {u}")
             time.sleep(0.1)
     port = int(os.environ.get("TRLX_TPU_METRICS_PORT", "0") or 0)
-    out = fleet_run(kernels, config, hook="--fleet-hook" in args, scrape_port=port)
+    out = fleet_run(kernels, config, hook="--fleet-hook" in args and rank == 0, scrape_port=port)
     out.pop("stores")
-    out["role"], out["tag"] = role, tag
+    out["role"], out["tag"], out["rank"] = role, tag, rank
     with open(os.path.join(leg_dir, f"{tag}.json"), "w") as f:
         json.dump(out, f)
     return 0
@@ -4982,13 +5030,17 @@ def fleet_train_path(kernels):
     (``fleet_config``): (a) serial, ``FLEET_ITERS`` iterations, no fleet;
     (b) the colocated fleet at staleness 0 in this process, through the real
     npz transports: every consumed store and the end weights bit-equal to
-    (a)'s; (c) a learner process and a rollout-worker process at staleness 1
-    with in-flight weight updates and ``weight_push_torn@2`` on the learner:
-    every consumed batch at staleness
-    <= 1, every streamed version (and span) published, the torn ordinal
-    rejected by the worker, a push adopted mid-phase (an episode of two
-    spans; the learner's ``fleet/mixed_version_tokens`` gauge nonzero), the
-    worker out with exit 0 on the abort marker; (d) a learner and two
+    (a)'s; (c) a learner process and a rollout role of ``FLEET_ROLE_RANKS``
+    gloo ranks (dp; rank 0 does the role's fleet I/O and sends each publish's
+    leaves to the others) at staleness 1, ``FLEET_C_ITERS`` iterations, with
+    in-flight weight updates and ``weight_push_torn@2`` on the learner: every
+    consumed batch at staleness <= 1, every streamed version (and span)
+    published, the torn ordinal rejected by the role, a push adopted
+    mid-phase (an episode of two spans; the learner's
+    ``fleet/mixed_version_tokens`` gauge nonzero) by every rank at the same
+    engine sync (equal push logs) with equal engine schedule crcs, every
+    adoption timed on every rank, the role out with exit 0 on the abort
+    marker; (d) a learner and two
     elastic workers at staleness 0, ``worker_kill_mid_lease@1`` in worker 1
     (worker 0 joins once worker 1 claimed unit 1): worker 0 reclaims the
     unit at the next lease generation, every unit consumed once
@@ -5029,16 +5081,22 @@ def fleet_train_path(kernels):
         "staleness": [e["staleness"] for e in b_events if e["event"] == "episode_consumed"]}
     shutil.rmtree(os.path.join(root, "b"), ignore_errors=True)
 
-    # (c) learner + rollout worker at staleness 1, in-flight weights, a torn push.
+    # (c) learner + a rollout role of FLEET_ROLE_RANKS ranks at staleness 1,
+    # in-flight weights, a torn push.
     leg_dir = os.path.join(root, "c")
     port = free_local_port()
+    role_ranks = [(("worker" if r == 0 else f"worker{r}"),
+                   fleet_role_cmd("rollout", leg_dir, "worker" if r == 0 else f"worker{r}", FLEET_C_ITERS, 1,
+                                  ("--fleet-inflight", "--fleet-hook", "--fleet-rank", str(r), "--fleet-world",
+                                   str(FLEET_ROLE_RANKS))), {"TRLX_TPU_FLEET_ROLE": "rollout"}, 0)
+                  for r in range(FLEET_ROLE_RANKS)]
     res, wall = fleet_leg("(c)", leg_dir, [
-        ("learner", fleet_role_cmd("learner", leg_dir, "learner", FLEET_ITERS, 1, ("--fleet-inflight",)),
+        ("learner", fleet_role_cmd("learner", leg_dir, "learner", FLEET_C_ITERS, 1, ("--fleet-inflight",)),
          {"TRLX_TPU_FLEET_ROLE": "learner", "TRLX_TPU_FAULTS": "weight_push_torn@2",
           "TRLX_TPU_METRICS_PORT": str(port)}, 0),
-        ("worker", fleet_role_cmd("rollout", leg_dir, "worker", FLEET_ITERS, 1,
-                                  ("--fleet-inflight", "--fleet-hook")), {"TRLX_TPU_FLEET_ROLE": "rollout"}, 0),
+        *role_ranks,
     ])
+    ranks = [res[tag] for tag, *_ in role_ranks]
     fdir = os.path.join(leg_dir, "fleet")
     events = read_jsonl_or_empty(os.path.join(fdir, "fleet_events.jsonl"))
     broadcast = read_jsonl_or_empty(os.path.join(fdir, "broadcast.jsonl"))
@@ -5051,7 +5109,7 @@ def fleet_train_path(kernels):
     adopted = [e for e in events if e["event"] == "weights_adopted_inflight"]
     spans = [r.get("version_spans") or [] for r in stream]
     mixed = res["learner"]["gauges"].get("trlx_tpu_fleet_mixed_version_tokens", 0.0)
-    if len(consumed) != FLEET_ITERS or not all(0 <= s <= 1 for s in c_stal):
+    if len(consumed) != FLEET_C_ITERS or not all(0 <= s <= 1 for s in c_stal):
         errors.append(f"(c) consumed {len(consumed)} batches at staleness {c_stal}")
     if not stream or not all(r["weight_version"] in published for r in stream) or not all(
             v in published for sp in spans for v, _ in sp):
@@ -5066,9 +5124,23 @@ def fleet_train_path(kernels):
                       f"{mixed}")
     if not any(e["event"] == "worker_exit" and e["reason"] == "abort" for e in events):
         errors.append("(c) the worker never left on the abort marker")
+    crcs = [r["schedule_crcs"] for r in ranks]
+    pushes = [r["weight_pushes"] for r in ranks]
+    if not crcs[0] or any(c != crcs[0] for c in crcs) or any(p != pushes[0] for p in pushes) or not any(pushes[0]):
+        errors.append(f"(c) the role's ranks: engine schedule crcs {crcs}, in-flight pushes (sync, version) {pushes}")
+    loads = [e for e in events if e["event"] in ("weights_fetched", "weights_adopted_inflight")]
+    if not loads or any(len(e.get("rank_load_s") or ()) != FLEET_ROLE_RANKS for e in loads):
+        errors.append(f"(c) adoptions without every rank's seconds: {loads}")
+    for name_, n in (("worker_start", 1), ("worker_exit", 1)):
+        if sum(e["event"] == name_ for e in events) != n:
+            errors.append(f"(c) {name_} logged {sum(e['event'] == name_ for e in events)} times (rank 0 alone: {n})")
     legs["c"] = {"wall_s": wall, "staleness": c_stal, "spans": spans, "rejected_torn": len(rejected),
                  "adopted_inflight": [e["ordinal"] for e in adopted], "mixed_version_tokens_gauge": mixed,
-                 "hook": res["worker"]["hook"], "publish": fleet_publish_stats(events)} | {
+                 "hook": res["worker"]["hook"], "publish": fleet_publish_stats(events),
+                 "role_ranks": FLEET_ROLE_RANKS, "schedule_crcs": crcs[0], "weight_pushes": pushes[0],
+                 "adoptions": [{"event": e["event"], "ordinal": e["ordinal"], "read_s": e.get("read_s"),
+                                "rank_load_s": e.get("rank_load_s"), "rank_h2d_s": e.get("rank_h2d_s")}
+                               for e in loads]} | {
         tag: {k: r[k] for k in ("wall_s", "peak_gb", "iteration_wall_s", "launches", "iter_count")}
         for tag, r in res.items()}
     with open(os.path.join(leg_dir, "worker", "metrics.jsonl")) as f:
@@ -5077,7 +5149,7 @@ def fleet_train_path(kernels):
         errors.append("(c) the worker's engine recorded no version switch of a live slot")
     legs["c"]["engine_weight_switches"] = switches
     for tag, r in res.items():
-        need = FLEET_WORKER_NEED if tag == "worker" else FLEET_LEARNER_NEED
+        need = FLEET_WORKER_NEED if tag.startswith("worker") else FLEET_LEARNER_NEED
         if any(r["launches"][k] == 0 for k in need):
             errors.append(f"(c) {tag} launched none of {[k for k in need if r['launches'][k] == 0]}")
     shutil.rmtree(leg_dir, ignore_errors=True)
@@ -5131,14 +5203,15 @@ def fleet_train_path(kernels):
 
     for name, leg in legs.items():
         log(f"[fleet_train] ({name}) {json.dumps(leg)} on {smi}")
-    for tag, r in (("(c) worker", legs["c"]["worker"]), ("(d) worker 0", legs["d"]["worker0"])):
+    for tag, r in ([(f"(c) rollout rank {i}", legs["c"][t]) for i, (t, *_) in enumerate(role_ranks)]
+                   + [("(d) worker 0", legs["d"]["worker0"])]):
         log(f"[fleet_train] {tag}: W8 {r['launches']['w8a16_matmul']}, row 8 {r['launches']['decode_attention_int8']}, "
             f"row 10 {r['launches']['paged_decode_attention_int8']} launches, peak {r['peak_gb']:.2f} GB on {smi}")
     if errors:
         raise AssertionError(f"fleet_train: {errors}")
     launches = dict.fromkeys(kernels, 0)
-    for leg in (legs["a"], legs["b"], legs["c"]["learner"], legs["c"]["worker"], legs["d"]["learner"],
-                legs["d"]["worker0"]):
+    for leg in (legs["a"], legs["b"], legs["c"]["learner"], *[legs["c"][t] for t, *_ in role_ranks],
+                legs["d"]["learner"], legs["d"]["worker0"]):
         for k, v in leg["launches"].items():
             launches[k] += v
     return legs, launches
@@ -5335,6 +5408,13 @@ def main() -> int:
             log(f"[build] {ln.strip()}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    if "--race-overhead" in sys.argv:
+        # Only the race sanitizer's cost on overlap_train's (c): unarmed,
+        # armed, armed, unarmed.
+        results, _ = overlap_train_path(port_kernels(), plan=RACE_AB_PLAN)
+        walls = {k: v["wall_s"] for k, v in results.items()}
+        log(f"[race-overhead] overlap_train (c) walls in s, unarmed and armed, on {smi}: {json.dumps(walls)}")
+        return 0
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernels = port_kernels()
     phases = {}

@@ -21,6 +21,7 @@ and a rollout-worker process under a hard wall limit.
 
 import os
 import sys
+import threading
 
 import numpy as np
 import torch
@@ -135,7 +136,7 @@ def test_engine_coalesces_pushes_and_clamps_spans():
     the held version records nothing, and an episode's spans are clamped to
     its tokens: the JAX engine's contract, on the port's engine."""
     eng = RolloutEngine.__new__(RolloutEngine)
-    eng._staged, eng._switches_coalesced = None, 0
+    eng._staged, eng._switches_coalesced, eng._staged_lock = None, 0, threading.Lock()
     for v in (3, 4, 5):
         eng.update_weights(object(), version=v)
     assert eng._staged[1] == 5 and eng._switches_coalesced == 2

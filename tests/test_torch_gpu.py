@@ -1707,6 +1707,40 @@ def test_ring_over_nccl_on_two_cards(tmp_path):
     assert all(p.returncode == 0 for p in procs), outs
 
 
+def test_fleet_role_world_over_nccl_on_two_cards():
+    """A fleet role of two ranks over NCCL, one card each
+    (``tests/torch_role_nccl_case.py``): rank 0's decisions, its word that a
+    wait goes on, and a publish's host leaves reach the other rank byte for
+    byte (NCCL moves them through a buffer on each rank's card)."""
+    _cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices (NCCL refuses two ranks on one card)")
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for r in range(2):
+        env = dict(os.environ, WORLD_SIZE="2", RANK=str(r), LOCAL_RANK=str(r), LOCAL_WORLD_SIZE="2",
+                   MASTER_ADDR="localhost", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen([sys.executable, os.path.join(root, "tests", "torch_role_nccl_case.py")],
+                                      env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=300)[0].decode())
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise
+    assert all(p.returncode == 0 and "OK nccl" in out for p, out in zip(procs, outs)), outs
+
+
 def test_graph_capture_beside_a_thread_that_allocates_and_syncs():
     """The overlapped pipeline's capture rule (``ops.cuda_graph``): a thread
     captures decode-step graphs while another allocates and reads results

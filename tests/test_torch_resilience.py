@@ -64,7 +64,7 @@ from trlx_tpu_torch.resilience import checkpoint as ckpt_util  # noqa: E402
 from trlx_tpu_torch.observability.spans import enabled as spans_enabled  # noqa: E402
 from trlx_tpu_torch.resilience.faults import FLEET_KINDS, SINGLE_PROCESS_KINDS, UNFIRED_KINDS  # noqa: E402
 from trlx_tpu_torch.trainer import register_model  # noqa: E402
-from trlx_tpu_torch.trainer.base import UNPORTED_ENV_SWITCHES, lr_schedule  # noqa: E402
+from trlx_tpu_torch.trainer.base import lr_schedule  # noqa: E402
 from trlx_tpu_torch.trainer.ppo import PPOTrainer  # noqa: E402
 
 torch.set_num_threads(1)
@@ -696,22 +696,32 @@ def test_env_fault_plan_nan_grad_skips_step_3(task, tmp_path, monkeypatch, packa
 
 
 # The fleet's switches and fault kinds were refused until the fleet was
-# ported, and device telemetry's, graftscope's and graftnum's until theirs
-# were: their cases keep their ids and now pin that each is accepted and
-# arms its feature. TRLX_TPU_SANITIZE alone is still refused.
+# ported, device telemetry's, graftscope's and graftnum's until theirs were,
+# and TRLX_TPU_SANITIZE until its race mode was: their cases keep their ids
+# and now pin that each is accepted and arms its feature (the sanitizer's
+# dispatch mode is refused by name).
 _FLEET_ENV_SWITCHES = {"TRLX_TPU_FLEET_ROLE": "learner", "TRLX_TPU_FLEET_WORKER": "1",
                        "TRLX_TPU_FLEET_LEAVE_AFTER": "1"}
 _OBS_ENV_SWITCHES = {"TRLX_TPU_DEVICE_TELEMETRY": "_devicemon", "TRLX_TPU_GRAFTSCOPE": "_graftscope",
                      "TRLX_TPU_GRAFTNUM": "_graftnum"}
 
 
-@pytest.mark.parametrize("var", sorted(set(UNPORTED_ENV_SWITCHES) | set(_FLEET_ENV_SWITCHES) | set(_OBS_ENV_SWITCHES)))
+@pytest.mark.parametrize("var", sorted(set(_FLEET_ENV_SWITCHES) | set(_OBS_ENV_SWITCHES) | {"TRLX_TPU_SANITIZE"}))
 def test_unported_env_switch_is_refused(task, tmp_path, monkeypatch, var):
-    if var in UNPORTED_ENV_SWITCHES:
-        assert set(UNPORTED_ENV_SWITCHES) == {"TRLX_TPU_SANITIZE"}
-        monkeypatch.setenv(var, "1")
-        with pytest.raises(NotImplementedError, match=var):
+    if var == "TRLX_TPU_SANITIZE":
+        from trlx_tpu_torch.utils import sanitize
+
+        try:
+            monkeypatch.setenv(var, "race")
             _trainer(task, tmp_path)
+            assert sanitize.armed("race")
+            monkeypatch.setenv(var, "race,dispatch")
+            with pytest.raises(ValueError, match="'dispatch'"):
+                _trainer(task, tmp_path)
+        finally:
+            monkeypatch.delenv(var)
+            sanitize.refresh()
+            sanitize.clear_races()
         return
     if var in _OBS_ENV_SWITCHES:
         from trlx_tpu_torch.observability import graftscope, numerics

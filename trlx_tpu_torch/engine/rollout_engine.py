@@ -110,6 +110,7 @@ from trlx_tpu_torch.ops.cuda_graph import CudaGraph, StepGraph
 from trlx_tpu_torch.ops.generate import graphs_allowed
 from trlx_tpu_torch.ops.sampling import GenerateConfig, process_logits_default, sample_categorical
 from trlx_tpu_torch.pipeline.prompt_pipeline import PromptSlotQueue
+from trlx_tpu_torch.utils import sanitize
 
 
 @dataclass
@@ -228,6 +229,7 @@ class RolloutEngine:
         self.weight_version = None
         self._weights_invalid = False  # set by invalidate_weights(), read at the next adoption
         self._staged = None  # (module, version) adopted at the next step()
+        self._staged_lock = sanitize.make_lock("engine.staged_weights")
         self._n_gen_host = None  # per-slot n_gen at the last sync
         self._state = None
         if generator is None:
@@ -306,18 +308,28 @@ class RolloutEngine:
         never in a decode step."""
         if obs_numerics.enabled():
             obs_numerics.record_weight_handoff(variables, version=version)
-        if self._staged is not None and self._staged[1] != version:
-            self._switches_coalesced += 1
-        self._staged = (variables, version)
+        with self._staged_lock:
+            sanitize.race_access(self, "staged_weights", write=True)
+            if self._staged is not None and self._staged[1] != version:
+                self._switches_coalesced += 1
+            self._staged = (variables, version)
 
     def _adopt_staged(self):
         """Swap in the staged weights at the sync boundary. Live slots whose
         version changes record the switch position (their tokens so far),
         so harvest splits their episodes into version spans."""
-        staged, self._staged = self._staged, None
+        with self._staged_lock:
+            sanitize.race_access(self, "staged_weights", write=True)
+            staged, self._staged = self._staged, None
         if staged is None:
             return
         variables, version = staged
+        # The engine moves between threads only at phase boundaries (the
+        # producer thread with the overlap, the main thread otherwise), each
+        # move ordered by the producer's join or the phase handoff and
+        # passing through a fresh handoff: the slot state's history restarts.
+        sanitize.race_forget(self)
+        sanitize.race_access(self, "slot_state", write=True)
         if self._variables is not None and version != self.weight_version and self.live_slots > 0:
             for i, meta in enumerate(self._slot_meta):
                 if meta is not None:
@@ -363,6 +375,7 @@ class RolloutEngine:
         if self._variables is None:
             raise RuntimeError("RolloutEngine.update_weights() must be called before step()")
         self._ensure_state()
+        sanitize.race_access(self, "slot_state", write=True)
         with decode_weights(self._variables), self._sync_guard():
             self._admit()
             n_live = self.live_slots
@@ -754,8 +767,13 @@ class RolloutEngine:
     def shutdown(self):
         """Release the queue, the slots, the device state and the weight
         reference. Synchronous and idempotent: the engine owns no threads."""
+        # Teardown runs after the producer's join, which ordered every
+        # producer-side access before it.
+        sanitize.race_forget(self)
         self.abort()
-        self._staged = None
+        with self._staged_lock:
+            sanitize.race_access(self, "staged_weights", write=True)
+            self._staged = None
         self._state = None
         self._graph = None
         self._variables = None

@@ -1,8 +1,9 @@
 """Disaggregated rollout/learner fleet (the counterpart of
 ``trlx_tpu.fleet``).
 
-Dedicated rollout and learner JOBS, each its own process, coupled only
-through ``train.fleet_dir``: a fault-tolerant episode stream (``stream``), a
+Dedicated rollout and learner JOBS, each its own process or world of
+processes (rank 0 of a role does its fleet I/O, ``runner.RoleWorld``),
+coupled only through ``train.fleet_dir``: a fault-tolerant episode stream (``stream``), a
 versioned weight broadcast (``broadcast``), and per-role heartbeats driving
 a degradation ladder (``runner``). Armed by ``method.fleet_disaggregate``;
 the per-process role comes from ``TRLX_TPU_FLEET_ROLE`` or
@@ -24,7 +25,7 @@ step. The fleet itself is host and filesystem code.
 
 from .broadcast import WeightPublisher, WeightSubscriber, put_leaves
 from .leases import Lease, LeaseLedger, WorkerRegistry
-from .runner import FleetDegradedExit, FleetLearnerFeed, fleet_snapshot, run_rollout_worker
+from .runner import FleetDegradedExit, FleetLearnerFeed, RoleWorld, fleet_snapshot, run_rollout_worker
 from .stream import (
     ElasticStreamReader,
     EpisodeStreamReader,
@@ -65,6 +66,7 @@ __all__ = [
     "ROLE_LEARNER",
     "ROLE_ROLLOUT",
     "ROLLOUT_HOST",
+    "RoleWorld",
     "WORKER_ENV",
     "WeightPublisher",
     "WeightSubscriber",

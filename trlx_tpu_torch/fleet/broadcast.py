@@ -48,7 +48,7 @@ from trlx_tpu_torch.resilience.checkpoint import atomic_write_json
 from trlx_tpu_torch.resilience.distributed import collective_guard
 from trlx_tpu_torch.utils.jsonl import append_record
 
-from .topology import FleetPaths, read_jsonl_or_empty
+from .topology import FleetPaths, read_jsonl_or_empty, require_role_lead
 
 BROADCAST_GUARD = "fleet/weight_broadcast"
 
@@ -75,6 +75,7 @@ class WeightPublisher:
     (device-to-host copy, npz write)."""
 
     def __init__(self, paths: FleetPaths, fault_plan=None):
+        require_role_lead("the weight broadcast's publisher")
         self.paths = paths
         self.fault_plan = fault_plan
         records = read_jsonl_or_empty(paths.broadcast_log)
@@ -213,13 +214,19 @@ class WeightSubscriber:
 
 
 @torch.no_grad()
-def put_leaves(template: Leaves, host_leaves: List[np.ndarray]) -> Dict[str, torch.Tensor]:
+def put_leaves(template: Leaves, host_leaves: List[np.ndarray], module=None) -> Dict[str, torch.Tensor]:
     """Copy broadcast byte-leaves into ``template``'s tensors (name → tensor,
     in the publish order), in place: each blob re-viewed with the tensor's
     dtype and shape and copied to its device, the tensor's address kept, so
     a captured graph reads the new values. Bitwise: no cast. A count or
     byte-size mismatch raises, naming the first leaf at fault, before any
-    tensor is written. Returns the template as a dict."""
+    tensor is written. Returns the template as a dict.
+
+    ``module`` (the template's, on an fsdp or tp mesh): a blob holds the
+    whole parameter, and this rank's piece of it is copied
+    (``models.lm.shard_tensor``)."""
+    from trlx_tpu_torch.models.lm import placement_of, shard_tensor
+
     named = _named(template)
     if len(named) != len(host_leaves):
         raise ValueError(
@@ -231,7 +238,9 @@ def put_leaves(template: Leaves, host_leaves: List[np.ndarray]) -> Dict[str, tor
     blobs = []
     for raw, (name, ref) in zip(host_leaves, named):
         raw = np.ascontiguousarray(np.asarray(raw)).reshape(-1).view(np.uint8)
-        expected = ref.numel() * ref.element_size()
+        pl = None if module is None else placement_of(module, name)
+        shape = tuple(ref.shape) if pl is None else tuple(pl.full_shape)
+        expected = int(np.prod(shape)) * ref.element_size()
         if raw.nbytes != expected:
             # A same-shape dtype misconfig (f32 learner → bf16 rollout) looks
             # like a byte-count skew on every leaf: the name tells the
@@ -239,12 +248,13 @@ def put_leaves(template: Leaves, host_leaves: List[np.ndarray]) -> Dict[str, tor
             raise ValueError(
                 f"weight broadcast leaf size mismatch at param leaf "
                 f"{name!r}: {raw.nbytes} bytes vs "
-                f"expected {expected} for shape {tuple(ref.shape)} "
+                f"expected {expected} for shape {shape} "
                 f"{ref.dtype} — the jobs are not running the same model config "
                 "(dtype mismatch, e.g. an f32 learner streaming to a bf16 "
                 "rollout world, shows up here as a per-leaf byte-count skew)."
             )
-        blobs.append(torch.from_numpy(raw).view(ref.dtype).reshape(ref.shape))
+        blob = torch.from_numpy(raw).view(ref.dtype).reshape(shape)
+        blobs.append(blob if pl is None else shard_tensor(module, name, blob))
     for host, (_, ref) in zip(blobs, named):
         ref.copy_(host)
     return dict(named)

@@ -44,6 +44,8 @@ from typing import Dict, List, Optional
 
 from trlx_tpu_torch.resilience.checkpoint import atomic_write_json
 
+from .topology import require_role_lead
+
 _LEASE_FMT = "unit_{unit:06d}.gen{gen:03d}.json"
 
 
@@ -76,6 +78,7 @@ class LeaseLedger:
     """O_EXCL/atomic-rename work-unit leases (module docstring)."""
 
     def __init__(self, directory: str, ttl: float):
+        require_role_lead("the lease ledger")
         self.directory = directory
         self.ttl = max(0.1, float(ttl))
         os.makedirs(directory, exist_ok=True)
@@ -249,6 +252,7 @@ class WorkerRegistry:
     """O_EXCL worker-id membership records (module docstring)."""
 
     def __init__(self, directory: str):
+        require_role_lead("the worker registry")
         self.directory = directory
         os.makedirs(directory, exist_ok=True)
 

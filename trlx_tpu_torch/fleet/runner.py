@@ -46,6 +46,20 @@ With graftnum armed (``observability.numerics``) each publish records the
 published weights' int8 round-trip error, and each adoption on the rollout
 side records the handoff's (``record_weight_handoff``), tagged with the
 version.
+
+A role over several processes (``RoleWorld``, topology's contract): every
+rank runs the same loop, and every input of a host decision that comes from
+the fleet directory (the abort marker, the cursor, the latest pointer, the
+stream, the heartbeats) is read by rank 0 and handed to every rank over the
+role's process group, so every rank takes the same branches, issues the
+same collectives and adopts each publish at the same decode step. Rank 0
+loads a publish's snapshot file and sends its leaves to the other ranks
+(``fleet/role_leaves``); it alone appends the role's batch (with one node
+every rank's store already holds it: ``make_experience`` gathers the data
+ranks' rows in rank order), writes the events, the role's fleet heartbeat,
+the publishes, the cursor and the abort marker. The other ranks beat their
+own resilience heartbeat. An fsdp or tp learner gathers the whole leaves on
+every rank before rank 0 publishes them.
 """
 
 import copy
@@ -60,10 +74,12 @@ from torch import nn
 
 from trlx_tpu_torch.models.lm import refresh_weight_copies
 from trlx_tpu_torch.observability import numerics as obs_numerics
+from trlx_tpu_torch.parallel import collectives as coll
+from trlx_tpu_torch.parallel.mesh import allgather_host, broadcast_host, node_count, peek_mesh, process_rank, world_size
 from trlx_tpu_torch.pipeline.overlap import staleness_gate_open
 from trlx_tpu_torch.pipeline.ppo_pipeline import PPORolloutStorage
 from trlx_tpu_torch.resilience.checkpoint import atomic_write_json
-from trlx_tpu_torch.resilience.distributed import Heartbeat, read_heartbeats
+from trlx_tpu_torch.resilience.distributed import Heartbeat, collective_guard, read_heartbeats
 from trlx_tpu_torch.utils.jsonl import append_record
 
 from .broadcast import WeightPublisher, WeightSubscriber, put_leaves
@@ -78,6 +94,7 @@ from .topology import (
     FleetPaths,
     fleet_paths,
     read_jsonl_or_empty,
+    require_role_lead,
     role_timeouts,
 )
 
@@ -91,6 +108,139 @@ class FleetDegradedExit(RuntimeError):
         self.reason = reason
         self.triage = triage
         self.detail = detail
+
+
+class _RankBeat:
+    """A role rank's progress beats without a fleet heartbeat of its own:
+    forwarded to its resilience heartbeat (if any), which the trainer
+    stops."""
+
+    def __init__(self, heartbeat):
+        self._heartbeat = heartbeat
+
+    def beat(self, step=None, phase=None):
+        if self._heartbeat is not None:
+            self._heartbeat.beat(step=step, phase=phase)
+
+    def stop(self):
+        pass
+
+
+class RoleWorld:
+    """The processes of this fleet role: the default process group (a role
+    is a world of its own). Rank 0 (``lead``) does the role's fleet I/O;
+    ``decide`` hands what it read or decided to every rank, ``leaves`` the
+    weights it loaded, ``role_batch`` gathers the role's rows for it. One
+    process: each is the plain call."""
+
+    def __init__(self):
+        self.size = world_size()
+        self.rank = process_rank()
+        self.lead = self.rank == 0
+        # Rank 0's last snapshot-file read and each rank's share of the
+        # leaves, in seconds.
+        self.last_read_s = 0.0
+        self.last_share_s = 0.0
+
+    def decide(self, fn, deadline=None):
+        """``fn()`` on rank 0, its value on every rank. A degraded exit or an
+        error on rank 0 is raised on every rank. ``deadline`` guards each
+        wait for rank 0's word (``broadcast_host``): rank 0 sends
+        ``still_waiting()`` between bounded rounds of a longer wait, and
+        each restarts the others' guard."""
+        if self.size == 1:
+            return fn()
+        if self.lead:
+            try:
+                value = fn()
+            except FleetDegradedExit as e:
+                broadcast_host(("exit", (e.reason, e.triage, e.detail)), deadline=deadline)
+                raise
+            except BaseException as e:
+                broadcast_host(("error", f"{type(e).__name__}: {e}"), deadline=deadline)
+                raise
+            broadcast_host(("ok", value), deadline=deadline)
+            return value
+        while True:
+            kind, value = broadcast_host(None, deadline=deadline)
+            if kind != "wait":
+                break
+        if kind == "exit":
+            raise FleetDegradedExit(*value)
+        if kind == "error":
+            raise RuntimeError(f"rank 0 of the fleet role failed: {value}")
+        return value
+
+    def still_waiting(self, deadline=None):
+        """Rank 0, inside ``decide``'s ``fn``: tell the other ranks that its
+        wait goes on (they wait one ``deadline`` more)."""
+        if self.size > 1 and self.lead:
+            broadcast_host(("wait", None), deadline=deadline)
+
+    def leaves(self, load):
+        """Rank 0's ``load()`` (a snapshot's host byte-leaves, or None when
+        it is torn) on every rank: rank 0 reads the file, then sends each
+        leaf's bytes over the role's world group (through the card on
+        NCCL, ``collectives.broadcast_bytes``)."""
+        if self.size == 1:
+            return load()
+        held = []
+
+        def read():
+            t0 = time.perf_counter()
+            got = load()
+            self.last_read_s = time.perf_counter() - t0
+            if got is None:
+                return None
+            held.extend(got)
+            return [int(np.asarray(x).nbytes) for x in got]
+
+        sizes = self.decide(read)
+        if sizes is None:
+            return None
+        t0 = time.perf_counter()
+        group = peek_mesh().group("world")
+        out = []
+        with collective_guard("fleet/role_leaves"):
+            for i, n in enumerate(sizes):
+                got = coll.broadcast_bytes(held[i] if self.lead else None, n, group)
+                if not self.lead:
+                    out.append(got)
+        self.last_share_s = time.perf_counter() - t0
+        return held if self.lead else out
+
+    def role_batch(self, columns: dict) -> dict:
+        """The role's whole batch from this rank's store columns. With one
+        node every rank's store holds it already (``make_experience``
+        gathers the data ranks' rows in rank order); with several, each
+        node's rows are gathered, node by node."""
+        nodes = node_count()
+        if nodes == 1:
+            return columns
+        per_node = self.size // nodes
+        with collective_guard("fleet/role_batch"):
+            parts = coll.all_gather_object(columns, peek_mesh().group("world"))
+        return {k: np.concatenate([parts[n * per_node][k] for n in range(nodes)], axis=0) for k in columns}
+
+
+class _RoleSubscriber(WeightSubscriber):
+    """The weight subscriber of every rank of a role world: rank 0 reads the
+    latest pointer and the snapshot files, every rank gets what it read, so
+    ``fetch`` polls in step on every rank. ``last_load_s`` is this rank's
+    whole adoption wait (rank 0's read and the leaves' share)."""
+
+    def __init__(self, paths: FleetPaths, world: RoleWorld):
+        super().__init__(paths)
+        self.world = world
+
+    def latest(self) -> Optional[dict]:
+        return self.world.decide(lambda: WeightSubscriber.latest(self))
+
+    def try_load(self, record: dict):
+        t0 = time.perf_counter()
+        leaves = self.world.leaves(lambda: WeightSubscriber.try_load(self, record))
+        self.last_load_s = time.perf_counter() - t0
+        return leaves
 
 
 # ------------------------------------------------------- rollout-side weights
@@ -144,7 +294,8 @@ class FleetWeightSet:
             target = self._new_module()
             self.modules.append(target)
         t0 = time.perf_counter()
-        put_leaves(published_params(target), host_leaves)
+        mesh = peek_mesh()
+        put_leaves(published_params(target), host_leaves, module=target if mesh is not None and mesh.sharded else None)
         refresh_weight_copies(target)
         if next(target.parameters()).is_cuda:
             torch.cuda.synchronize()
@@ -192,20 +343,29 @@ def _read_cursor(paths: FleetPaths) -> int:
 
 
 def _event(paths: FleetPaths, role: str, event: str, **fields):
+    require_role_lead("the fleet event log")
     rec = {"t": time.time(), "role": role, "event": event}
     rec.update(fields)
     append_record(paths.events, rec)
 
 
-def _hold(trainer, paths, subscriber, latest: dict, leaves, event: str, avoid=None, **fields) -> dict:
+def _hold(trainer, paths, subscriber, latest: dict, leaves, event: str, avoid=None, world=None, **fields) -> dict:
     """A worker takes a loaded broadcast: the snapshot (``fleet_snapshot``),
     the learner's adaptive KL coefficient in lockstep with the weights (it
-    shapes rollout rewards), and an event with the load's seconds."""
+    shapes rollout rewards), and an event with the load's seconds (in a
+    role world each rank's: its wait for the leaves, rank 0's file read,
+    the host-to-device copy)."""
     snapshot = fleet_snapshot(trainer, leaves, latest["version"], avoid=avoid)
     if "kl_coef" in latest:
         trainer.kl_ctl.value = float(latest["kl_coef"])
-    _event(paths, ROLE_ROLLOUT, event, ordinal=int(latest["ordinal"]), version=snapshot["version"], **fields,
-           load_s=subscriber.last_load_s, h2d_s=trainer._fleet_weights.last_h2d_s)
+    load_s, h2d_s = subscriber.last_load_s, trainer._fleet_weights.last_h2d_s
+    if world is not None and world.size > 1:
+        per_rank = allgather_host(np.asarray([[load_s, h2d_s]], dtype=np.float64))
+        fields.update(read_s=world.last_read_s, rank_load_s=[float(x) for x in per_rank[:, 0]],
+                      rank_h2d_s=[float(x) for x in per_rank[:, 1]])
+    if world is None or world.lead:
+        _event(paths, ROLE_ROLLOUT, event, ordinal=int(latest["ordinal"]), version=snapshot["version"], **fields,
+               load_s=load_s, h2d_s=h2d_s)
     return snapshot
 
 
@@ -229,22 +389,34 @@ def run_rollout_worker(trainer, orch, num_rollouts: Optional[int] = None):
     the collective guard if the broadcast starves past
     ``train.fleet_broadcast_deadline``, and abruptly (``os._exit(1)``) on
     the ``rollout_host_kill`` fault. With ``method.fleet_elastic`` the worker
-    joins the N-worker lease-claiming loop instead."""
+    joins the N-worker lease-claiming loop instead. In a role world every
+    rank runs this loop (the module docstring)."""
     if trainer.config.method.fleet_elastic:
         return _run_elastic_worker(trainer, orch, num_rollouts)
     t = trainer.config.train
     knobs = role_timeouts(t)
-    paths = fleet_paths(t).ensure()
+    world = RoleWorld()
+    paths = fleet_paths(t)
     S = trainer.max_staleness
     n_roll = int(num_rollouts or trainer.config.method.num_rollouts)
-    heartbeat = Heartbeat(paths.heartbeats_dir, knobs["heartbeat_interval"], rank=ROLLOUT_HOST)
-    heartbeat.start()
-    writer = EpisodeStreamWriter(paths, fault_plan=trainer.fault_plan)
-    subscriber = WeightSubscriber(paths)
-    _event(paths, ROLE_ROLLOUT, "worker_start", next_seq=writer.next_seq)
+    if world.lead:
+        paths.ensure()
+        heartbeat = Heartbeat(paths.heartbeats_dir, knobs["heartbeat_interval"], rank=ROLLOUT_HOST)
+        heartbeat.start()
+        writer = EpisodeStreamWriter(paths, fault_plan=trainer.fault_plan)
+    else:
+        heartbeat, writer = _RankBeat(trainer.heartbeat), None
+    subscriber = _RoleSubscriber(paths, world) if world.size > 1 else WeightSubscriber(paths)
+    next_seq = world.decide(lambda: writer.next_seq)
+
+    def event(name, **fields):
+        if world.lead:
+            _event(paths, ROLE_ROLLOUT, name, **fields)
+
+    event("worker_start", next_seq=next_seq)
 
     def aborted() -> bool:
-        return paths.read_abort() is not None
+        return world.decide(lambda: paths.read_abort() is not None)
 
     current_ordinal = -1
     snapshot = None
@@ -260,7 +432,7 @@ def run_rollout_worker(trainer, orch, num_rollouts: Optional[int] = None):
         per torn ordinal."""
         if poll_state.get("torn_seen") != int(latest["ordinal"]):
             poll_state["torn_seen"] = int(latest["ordinal"])
-            _event(paths, ROLE_ROLLOUT, "weights_torn", ordinal=int(latest["ordinal"]), held=current_ordinal)
+            event("weights_torn", ordinal=int(latest["ordinal"]), held=current_ordinal)
 
     def weight_poll():
         """Once per engine sync: adopt a fresher broadcast ordinal into the
@@ -286,20 +458,23 @@ def run_rollout_worker(trainer, orch, num_rollouts: Optional[int] = None):
             if leaves is None:
                 # Torn push: the pointer flipped but the file is truncated.
                 # The engine keeps the old version; the next sync retries.
-                _event(paths, ROLE_ROLLOUT, "weights_torn", ordinal=int(latest["ordinal"]), held=current_ordinal)
+                event("weights_torn", ordinal=int(latest["ordinal"]), held=current_ordinal)
                 return None
             snapshot = _hold(trainer, paths, subscriber, latest, leaves, "weights_adopted_inflight",
-                             avoid=phase_snapshot)
+                             avoid=phase_snapshot, world=world)
             current_ordinal = int(latest["ordinal"])
         if snapshot is None:
             return None
         return trainer.rollout_engine_variables(snapshot), snapshot["version"]
 
     try:
-        while not aborted():
-            seq = writer.next_seq
+        while True:
+            seq = next_seq
             heartbeat.beat(step=seq, phase="fleet:gate")
-            if not staleness_gate_open(seq, _read_cursor(paths), S):
+            stop, consumed = world.decide(lambda: (paths.read_abort() is not None, _read_cursor(paths)))
+            if stop:
+                break
+            if not staleness_gate_open(seq, consumed, S):
                 time.sleep(0.05)
                 continue
             # Gate open: cursor read BEFORE the latest pointer, so the
@@ -327,7 +502,7 @@ def run_rollout_worker(trainer, orch, num_rollouts: Optional[int] = None):
             else:
                 leaves = None
             if leaves is not None:
-                snapshot = _hold(trainer, paths, subscriber, latest, leaves, "weights_fetched", seq=seq)
+                snapshot = _hold(trainer, paths, subscriber, latest, leaves, "weights_fetched", world=world, seq=seq)
                 current_ordinal = int(latest["ordinal"])
 
             store = PPORolloutStorage(trainer.pad_token_id, record_staleness=True)
@@ -344,18 +519,22 @@ def run_rollout_worker(trainer, orch, num_rollouts: Optional[int] = None):
             if aborted():
                 break  # the phase was cut short; drop the partial store
             heartbeat.beat(step=seq, phase="fleet:stream")
-            writer.append(
-                store.columns(),
-                # In-flight adoption may have advanced the snapshot mid-phase:
-                # the tag is the LAST version that decoded, and the span
-                # aggregate carries the per-token mix.
-                weight_version=snapshot["version"],
-                version_spans=(info or {}).get("version_spans") if inflight else None,
-            )
-            _event(paths, ROLE_ROLLOUT, "episode_streamed", seq=seq, version=snapshot["version"], n=len(store))
+            columns = world.role_batch(store.columns())
+            if world.lead:
+                writer.append(
+                    columns,
+                    # In-flight adoption may have advanced the snapshot
+                    # mid-phase: the tag is the LAST version that decoded,
+                    # and the span aggregate carries the per-token mix.
+                    weight_version=snapshot["version"],
+                    version_spans=(info or {}).get("version_spans") if inflight else None,
+                )
+            next_seq = seq + 1
+            event("episode_streamed", seq=seq, version=snapshot["version"],
+                  n=int(next(iter(columns.values())).shape[0]) if columns else 0)
             if trainer.fault_plan.fire("rollout_host_kill", seq):
                 os._exit(1)  # abrupt: no cleanup, no final heartbeat
-        _event(paths, ROLE_ROLLOUT, "worker_exit", reason="abort", next_seq=writer.next_seq)
+        event("worker_exit", reason="abort", next_seq=next_seq)
     finally:
         _stop_heartbeats(heartbeat, trainer)
 
@@ -518,6 +697,17 @@ def _run_elastic_worker(trainer, orch, num_rollouts: Optional[int] = None):
 # ----------------------------------------------------------- learner feed
 
 
+def follow_deadline(knobs: dict) -> float:
+    """How long a learner rank other than 0 waits for rank 0's word on the
+    next batch: rank 0's publish before it (``broadcast_deadline``), one
+    round of its stream wait (each attempt's ``episode_timeout`` and the
+    doubling backoffs between them, ``resilience.retry``) and the triage
+    after it (``heartbeat_timeout``)."""
+    retries = max(0, int(knobs["stream_retries"]))
+    stream = (retries + 1) * max(0.1, knobs["episode_timeout"]) + knobs["stream_backoff"] * (2 ** retries - 1)
+    return knobs["broadcast_deadline"] + stream + knobs["heartbeat_timeout"]
+
+
 class FleetLearnerFeed:
     """The learner's store source: one consumed stream batch per call.
 
@@ -526,7 +716,12 @@ class FleetLearnerFeed:
     role) it also runs the worker inline at each boundary: both roles in one
     process, episodes still crossing the real npz transports, the bitwise
     staleness-0 parity configuration. Each publish's bytes and seconds go
-    to its ``weights_published`` event."""
+    to its ``weights_published`` event.
+
+    A learner world of several processes builds the feed on every rank:
+    the transports, the ladder and its state live on rank 0, which hands
+    each consumed batch (or the degraded exit) to every rank; each keeps
+    its node's rows."""
 
     def __init__(self, trainer, orch=None):
         self.trainer = trainer
@@ -536,7 +731,19 @@ class FleetLearnerFeed:
         self.max_staleness = trainer.max_staleness
         self.knobs = role_timeouts(t)
         self.elastic = bool(trainer.config.method.fleet_elastic)
-        self.paths = fleet_paths(t).ensure_elastic() if self.elastic else fleet_paths(t).ensure()
+        self.world = RoleWorld()
+        self.paths = fleet_paths(t)
+        self.state = "ok"
+        self.triage = ""
+        self.consumed = 0
+        self.follow_deadline = follow_deadline(self.knobs)
+        if not self.world.lead:
+            self.heartbeat = _RankBeat(trainer.heartbeat)
+            return
+        if self.elastic:
+            self.paths.ensure_elastic()
+        else:
+            self.paths.ensure()
         # Elastic: exactly-once unit intake across N per-worker indexes, else
         # the single-stream sequential reader. Same wait/queued_from/load.
         self.reader = ElasticStreamReader(self.paths) if self.elastic else EpisodeStreamReader(self.paths)
@@ -558,8 +765,6 @@ class FleetLearnerFeed:
                 self._stream_marks = {str(k): int(v) for k, v in marks.items()}
             except (OSError, ValueError, TypeError, AttributeError):
                 pass
-        self.state = "ok"
-        self.triage = ""
         self._abort_written = False
         self._t0 = time.monotonic()
         self.heartbeat = Heartbeat(self.paths.heartbeats_dir, self.knobs["heartbeat_interval"], rank=LEARNER_HOST)
@@ -589,11 +794,15 @@ class FleetLearnerFeed:
 
     def _publish(self):
         tr = self.trainer
+        # fsdp / tp: every rank gathers the whole leaves (a collective), rank
+        # 0 writes them.
+        params = list(tr.full_params().items()) if tr.mesh.sharded else published_params(tr.model)
+        if not self.world.lead:
+            return None
         version = int(tr.iter_count)
         # The adaptive KL coefficient travels WITH the weights: a worker on
         # version-n weights must also hold version-n's coefficient.
-        ordinal = self.publisher.publish(published_params(tr.model), version=version,
-                                         meta={"kl_coef": float(tr.kl_ctl.value)})
+        ordinal = self.publisher.publish(params, version=version, meta={"kl_coef": float(tr.kl_ctl.value)})
         self._version_ordinal[version] = ordinal
         if obs_numerics.enabled():
             obs_numerics.record_weight_quant(tr.model, version=version)
@@ -619,6 +828,20 @@ class FleetLearnerFeed:
     # ------------------------------------------------------------- consume
 
     def next_store(self) -> PPORolloutStorage:
+        """The next consumed batch as this rank's store. In a role world
+        rank 0 runs the wait and the ladder, and every rank gets the batch's
+        columns or the degraded exit from it. The other ranks' wait is
+        guarded by ``follow_deadline``: rank 0 speaks after each bounded
+        round of its stream wait, so a rank 0 that hangs (or dies without
+        closing the group) ends them with exit 117."""
+        cols = self.world.decide(self._next_columns, deadline=self.follow_deadline)
+        if node_count() > 1:
+            cols = {k: self.trainer.node_slice(v) for k, v in cols.items()}
+        store = PPORolloutStorage(self.trainer.pad_token_id, record_staleness=True)
+        store.push_batch(cols)
+        return store
+
+    def _next_columns(self) -> dict:
         if self.state == "degraded":
             return self._drain_one()
         if self._writer is not None:
@@ -633,12 +856,13 @@ class FleetLearnerFeed:
                 if verdict in ("alive", "starting"):
                     # Slow but live (or still building): keep waiting.
                     _event(self.paths, self.role, "stream_slow", seq=self.consumed, triage=verdict)
+                    self.world.still_waiting(deadline=self.follow_deadline)
                     continue
                 self._enter_degraded(verdict)
                 return self._drain_one()
             return self._consume(rec)
 
-    def _consume(self, rec: dict) -> PPORolloutStorage:
+    def _consume(self, rec: dict) -> dict:
         seq = int(rec["seq"])
         # Elastic records advance the cursor by WORK UNIT; the single-worker
         # stream's seq IS its unit.
@@ -680,8 +904,6 @@ class FleetLearnerFeed:
         cols = dict(self.reader.load(rec))
         n = int(rec.get("n", 0))
         cols["staleness"] = np.full((n, 1), float(staleness), dtype=np.float32)
-        store = PPORolloutStorage(self.trainer.pad_token_id, record_staleness=True)
-        store.push_batch(cols)
         self.consumed = unit + 1
         cursor_payload = {"consumed": self.consumed, "ordinal": latest_ordinal, "t": time.time()}
         if self.elastic:
@@ -696,7 +918,7 @@ class FleetLearnerFeed:
         self._export(staleness=float(staleness), version=version,
                      mixed_tokens=float(mixed_tokens) if spans else None,
                      worker=worker if self.elastic else None)
-        return store
+        return cols
 
     # ---------------------------------------------------------- colocated
 
@@ -811,7 +1033,7 @@ class FleetLearnerFeed:
         _event(self.paths, self.role, "degraded", triage=triage, consumed=self.consumed,
                queued=len(self.reader.queued_from(self.consumed)))
 
-    def _drain_one(self) -> PPORolloutStorage:
+    def _drain_one(self) -> dict:
         """Degraded: hand over the next queued batch (tagged with its
         elevated staleness), or raise when the stream is dry."""
         queued = self.reader.queued_from(self.consumed)
@@ -827,6 +1049,8 @@ class FleetLearnerFeed:
         shutdown signal the worker polls) EXCEPT on preemption: a preempted
         learner resumes into the same fleet_dir, and the worker keeps
         serving it."""
+        if not self.world.lead:
+            return
         if reason != "preempted" and not self._abort_written:
             atomic_write_json(self.paths.abort, {"reason": reason, "triage": self.triage, "consumed": self.consumed,
                                                  "t": time.time()})

@@ -35,7 +35,7 @@ import numpy as np
 from trlx_tpu_torch.resilience.retry import call_with_retries
 from trlx_tpu_torch.utils.jsonl import append_record
 
-from .topology import FleetPaths, read_jsonl_or_empty
+from .topology import FleetPaths, read_jsonl_or_empty, require_role_lead
 
 
 class EpisodeStreamTimeout(RuntimeError):
@@ -79,6 +79,7 @@ class EpisodeStreamWriter:
     never contend on an append; worker 0 keeps the single-worker names."""
 
     def __init__(self, paths: FleetPaths, fault_plan=None, worker: int = 0):
+        require_role_lead("the episode stream's writer")
         self.paths = paths
         self.fault_plan = fault_plan
         self.worker = int(worker)

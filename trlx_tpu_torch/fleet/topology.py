@@ -26,9 +26,16 @@ one config file can serve both jobs of a drill. No role with
 in one process through the real transports (the bitwise staleness-0 parity
 path).
 
-A role world of several processes (JAX's multi-host role submeshes) is not
-ported: the transports would have to be limited to one process of the role.
-``validate_fleet_config`` refuses it by name (ROADMAP §A12b).
+A role may be a world of several processes (the JAX package's multi-host
+role submeshes): a rollout role of dp ranks, a learner of fsdp or tp ranks.
+Every rank of the role computes the same host decisions (rank 0 reads the
+fleet directory and shares what it read over the role's process group,
+``runner.RoleWorld``), and rank 0 alone does the role's fleet I/O: the
+stream, the broadcast, the cursor, the abort marker, the leases, the event
+log and the role's fleet heartbeat (``require_role_lead`` refuses them on
+any other rank). Different roles never share one world, so a role world
+needs its role set explicitly; the colocated mode and an elastic worker
+stay one process each.
 """
 
 import json
@@ -36,7 +43,7 @@ import os
 from dataclasses import dataclass
 from typing import Optional
 
-from trlx_tpu_torch.parallel.mesh import world_size
+from trlx_tpu_torch.parallel.mesh import process_rank, world_size
 from trlx_tpu_torch.utils.jsonl import read_jsonl
 
 
@@ -54,9 +61,9 @@ ROLE_ROLLOUT = "rollout"
 ROLE_LEARNER = "learner"
 ROLE_COLOCATED = "colocated"  # internal: fleet on, no per-process role
 
-# Heartbeat file indices inside <fleet_dir>/heartbeats/. Each role is rank 0
-# of its own world, so the rank would collide both roles onto one file: the
-# fleet heartbeat directory keys files by role instead.
+# Heartbeat file indices inside <fleet_dir>/heartbeats/. Each role's rank 0
+# writes its role's file, and the rank would collide both roles onto one
+# file: the fleet heartbeat directory keys files by role instead.
 LEARNER_HOST = 0
 ROLLOUT_HOST = 1
 ROLE_HOSTS = {ROLE_LEARNER: LEARNER_HOST, ROLE_COLOCATED: LEARNER_HOST, ROLE_ROLLOUT: ROLLOUT_HOST}
@@ -206,6 +213,13 @@ class FleetPaths:
             return None
 
 
+def require_role_lead(what: str):
+    """Fleet I/O belongs to rank 0 of the role: raise on any other rank."""
+    if process_rank() != 0:
+        raise RuntimeError(f"{what} is fleet I/O of rank 0 of the role: rank {process_rank()} of "
+                           f"{world_size()} must not open it")
+
+
 def fleet_paths(train_cfg) -> FleetPaths:
     """Resolve the shared fleet directory: ``train.fleet_dir`` or
     ``<checkpoint_dir>/fleet``. Disaggregated jobs keep PRIVATE
@@ -232,7 +246,8 @@ def validate_fleet_config(config) -> Optional[str]:
     a mid-run raise. The messages are the JAX package's, word for word.
 
     Returns the resolved role (None / 'rollout' / 'learner' / 'colocated').
-    A role world of several processes raises NotImplementedError (§A12b)."""
+    A role may span a world of several processes (the module docstring);
+    the colocated mode and an elastic worker may not."""
     t = config.train
     env_role = os.environ.get(ROLE_ENV, "")
     set_knobs = [k for k in FLEET_TRAIN_KNOBS if getattr(t, k, None)]
@@ -274,10 +289,16 @@ def validate_fleet_config(config) -> Optional[str]:
             "consumer. Give each role its own world (possibly multi-host) "
             "and set the role explicitly."
         )
-    if world_size() > 1:
-        raise NotImplementedError(
-            f"not ported yet: a fleet role ({role!r}) over a world of {world_size()} processes (ROADMAP §A12b): "
-            "the transports would run on every rank of the role. Run each role as one process."
+    if world_size() > 1 and role == ROLE_COLOCATED:
+        raise ValueError(
+            f"fleet role {role!r} over a world of {world_size()} processes: the colocated mode runs both roles "
+            "in one process. Give the rollout role and the learner a world each (TRLX_TPU_FLEET_ROLE)."
+        )
+    if world_size() > 1 and role == ROLE_ROLLOUT and getattr(config.method, "fleet_elastic", False):
+        raise ValueError(
+            f"method.fleet_elastic: an elastic rollout worker is one process (a lease, a worker id and a "
+            f"stream index each), not a world of {world_size()} — start {world_size()} workers instead, "
+            f"each with its own {WORKER_ENV}."
         )
     if getattr(config.method, "rollout_overlap", False):
         raise ValueError(

@@ -25,6 +25,8 @@ import re
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from trlx_tpu_torch.utils import sanitize
+
 
 __all__ = ["sanitize_metric_name", "MetricsExporter"]
 
@@ -67,7 +69,7 @@ class MetricsExporter:
     def __init__(self, port: int = 0, host: str = "0.0.0.0", prefix: str = "trlx_tpu_",
                  port_file=None):
         self.prefix = prefix
-        self._lock = threading.Lock()
+        self._lock = sanitize.make_lock("MetricsExporter._lock")
         self._gauges = {}
         # (key, labels-tuple) -> float: labelled gauge series (set_gauge),
         # rendered with the flat gauge of the same name.
@@ -150,6 +152,7 @@ class MetricsExporter:
             k: float(v) for k, v in (gauges or {}).items() if isinstance(v, (int, float))
         }
         with self._lock:
+            sanitize.race_access(self, "_gauges", write=True)
             self._gauges.update(numeric)
             if step is not None:
                 self._step = int(step)
@@ -183,6 +186,7 @@ class MetricsExporter:
             return
         label_key = tuple(sorted((str(k), str(v)) for k, v in labels.items()))
         with self._lock:
+            sanitize.race_access(self, "_gauges", write=True)
             self._labeled_gauges[(key, label_key)] = float(value)
 
     def observe(self, key: str, values, buckets, labels: dict = None):
@@ -223,6 +227,7 @@ class MetricsExporter:
 
     def render_metrics(self) -> str:
         with self._lock:
+            sanitize.race_access(self, "_gauges")
             gauges = dict(self._gauges)
             labeled = dict(self._labeled_gauges)
             histograms = {
@@ -304,3 +309,5 @@ class MetricsExporter:
             # race; leak the daemon thread and let exit reap it.
             return
         self._server.server_close()
+        # Closed: no request reads the gauges after this.
+        sanitize.race_forget(self)

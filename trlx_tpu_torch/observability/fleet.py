@@ -40,7 +40,6 @@ Imports are stdlib and numpy (the mesh's host collectives load inside
 import json
 import os
 import re
-import threading
 import time
 import warnings
 
@@ -48,7 +47,7 @@ import numpy as np
 
 from trlx_tpu_torch.observability import spans as obs_spans
 from trlx_tpu_torch.observability.health import HysteresisDetector
-from trlx_tpu_torch.utils import jsonl
+from trlx_tpu_torch.utils import jsonl, sanitize
 
 __all__ = ["configure", "shutdown", "armed", "fleet", "collective_complete", "incident_bundle",
            "read_collective_arrivals", "collective_skew_table", "FleetMonitor", "FleetStragglerDetector",
@@ -193,7 +192,7 @@ class FleetMonitor:
         self.min_skew_ms = float(min_skew_ms)
         # Shared by the guard's threads (the producer's and score worker's
         # collectives are guarded too) and the main thread's rollup.
-        self._lock = threading.Lock()
+        self._lock = sanitize.make_lock("FleetMonitor._lock")
         self._seq = {}  # site -> the next occurrence index on THIS rank
         self._file = jsonl.open_line_atomic(os.path.join(self.checkpoint_dir, host_collectives_filename(process_index)))
         self.clock = {"offsets_s": [0.0] * self.process_count, "uncertainty_s": 0.0, "drift_s": 0.0, "step": 0}
@@ -214,6 +213,7 @@ class FleetMonitor:
         record (from ``collective_guard.__exit__``, on the thread that ran
         it; line-atomic, never raises into the caller)."""
         with self._lock:
+            sanitize.race_access(self, "fleet_state", write=True)
             if self._file is None:
                 return
             seq = self._seq.get(name, 0)
@@ -227,10 +227,12 @@ class FleetMonitor:
     def note_fingerprint(self, step: int, fingerprint):
         """Keep this rank's latest consistency fingerprint for a bundle."""
         with self._lock:
+            sanitize.race_access(self, "fleet_state", write=True)
             self._fingerprint = {"step": int(step), "fingerprint": [int(v) for v in np.asarray(fingerprint).ravel()]}
 
     def note_desync(self, step: int, ok: bool):
         with self._lock:
+            sanitize.race_access(self, "fleet_state", write=True)
             self._desync = {"step": int(step), "ok": bool(ok)}
 
     # ------------------------------------------------------------ clock sync
@@ -257,6 +259,7 @@ class FleetMonitor:
         offsets = [float(v) for v in (mids - mids[0])]
         uncertainty = float((rows[:, 1] - rows[:, 0]).max())
         with self._lock:
+            sanitize.race_access(self, "fleet_state", write=True)
             prev = self.clock.get("offsets_s", [])
             drift = (float(np.max(np.abs(np.asarray(offsets) - np.asarray(prev))))
                      if len(prev) == len(offsets) and self.clock.get("step", 0) != 0 else 0.0)
@@ -287,6 +290,7 @@ class FleetMonitor:
         window instead of being dropped."""
         arrivals = read_collective_arrivals(self.checkpoint_dir)
         with self._lock:
+            sanitize.race_access(self, "fleet_state")
             offsets = list(self.clock.get("offsets_s", []))
             seen = dict(self._seen)
         by_site = {}
@@ -303,6 +307,7 @@ class FleetMonitor:
                 watermark = seq
             seen[site] = watermark
         with self._lock:
+            sanitize.race_access(self, "fleet_state", write=True)
             self._seen = seen
         return out
 
@@ -315,6 +320,7 @@ class FleetMonitor:
             return {}
         window = self._window_skews()
         with self._lock:
+            sanitize.race_access(self, "fleet_state")
             clock = dict(self.clock)
         gauges = {"fleet/hosts": float(self.process_count),
                   "fleet/clock_uncertainty_ms": float(clock.get("uncertainty_s", 0.0)) * 1e3,
@@ -338,6 +344,7 @@ class FleetMonitor:
         worst_host = max(worst_counts, key=worst_counts.get) if worst_counts else None
         share = (worst_counts[worst_host] / samples) if worst_host is not None else 0.0
         with self._lock:
+            sanitize.race_access(self, "fleet_state", write=True)
             for host, n in worst_counts.items():
                 self._worst_total[host] = self._worst_total.get(host, 0) + n
             worst_total = dict(self._worst_total)
@@ -366,6 +373,7 @@ class FleetMonitor:
         now = time.time() if now is None else now
         beats = read_heartbeats(os.path.join(self.checkpoint_dir, "heartbeats"))
         with self._lock:
+            sanitize.race_access(self, "fleet_state")
             clock = dict(self.clock)
             desync = dict(self._desync) if self._desync else {"status": "unchecked"}
         return {
@@ -389,6 +397,7 @@ class FleetMonitor:
         thread just before the process exits: every step is best-effort and
         never blocks the abort."""
         with self._lock:
+            sanitize.race_access(self, "fleet_state", write=True)
             if self._bundles >= MAX_FLEET_BUNDLES:
                 return None
             self._bundles += 1
@@ -442,12 +451,14 @@ class FleetMonitor:
 
     def close(self):
         with self._lock:
+            sanitize.race_access(self, "fleet_state", write=True)
             f, self._file = self._file, None
         if f is not None:
             try:
                 f.close()
             except OSError:
                 pass
+        sanitize.race_forget(self)
 
 
 def _tail_whole_lines(path: str, max_bytes: int = _SPAN_TAIL_BYTES) -> bytes:

@@ -29,8 +29,8 @@ counterpart of ``trlx_tpu.observability.graftscope``).
   during what it died.
 
 Armed by ``train.graftscope`` / ``TRLX_TPU_GRAFTSCOPE``, off by default;
-disarmed every hook is one module-dict load. The locks are plain
-``threading`` locks.
+disarmed every hook is one module-dict load. The lock is a plain
+``threading`` lock, tracked under ``TRLX_TPU_SANITIZE=race``.
 """
 
 import contextlib
@@ -41,7 +41,7 @@ import threading
 import time
 import warnings
 
-from trlx_tpu_torch.utils import jsonl
+from trlx_tpu_torch.utils import jsonl, sanitize
 
 __all__ = ["GraftScope", "RunManifest", "configure", "shutdown", "armed", "scope", "host_interval", "lane_span",
            "SNAPSHOT_FILENAME", "LANES", "MANIFEST_FILENAME"]
@@ -144,7 +144,7 @@ class GraftScope:
         self.snapshot_path = snapshot_path
         self.top_k = int(top_k)
         self.max_windows = int(max_windows)
-        self._lock = threading.Lock()
+        self._lock = sanitize.make_lock("GraftScope._lock")
         self._device = []  # (t0, t1, name) placed device intervals
         self._host = []  # (t0, t1, lane)
         self._refill_wait_ms = []
@@ -178,6 +178,7 @@ class GraftScope:
         if events is None:
             t1 = time.time()
             with self._lock:
+                sanitize.race_access(self, "_device", write=True)
                 self._device.append((t0, t1, name))
             return
         with self._lock:
@@ -201,10 +202,12 @@ class GraftScope:
                 t0, t1 = self._clock.host_time(start), self._clock.host_time(end)
             except Exception:  # noqa: BLE001 — drop the sample, never the run
                 with self._lock:
+                    sanitize.race_access(self, "_fences_dropped", write=True)
                     self._fences_dropped += 1
                     self._placed += 1
                 continue
             with self._lock:
+                sanitize.race_access(self, "_device", write=True)
                 self._device.append((t0, t1, name))
                 self._placed += 1
 
@@ -223,6 +226,7 @@ class GraftScope:
     def host_interval(self, lane, t0, t1):
         if t1 > t0:
             with self._lock:
+                sanitize.race_access(self, "_host", write=True)
                 self._host.append((t0, t1, lane))
 
     # --------------------------------------------------------- engine slots
@@ -278,6 +282,9 @@ class GraftScope:
         with self._lock:
             t0w = self._win_t0
             self._win_t0 = t1w
+            sanitize.race_access(self, "_device", write=True)
+            sanitize.race_access(self, "_host", write=True)
+            sanitize.race_access(self, "_fences_dropped")
             device, self._device = self._device, []
             host, self._host = self._host, []
             refill, self._refill_wait_ms = self._refill_wait_ms, []
@@ -413,6 +420,9 @@ class GraftScope:
         if drain is not None:
             self._pending.put(None)
             drain.join(timeout=30.0)
+            if not drain.is_alive():
+                # Joined: the drain's fields pass to this thread.
+                sanitize.race_forget(self)
         self.flush()
 
 

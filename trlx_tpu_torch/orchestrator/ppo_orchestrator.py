@@ -70,7 +70,12 @@ sync and pushes a fresher version into the running engine
 (``RolloutEngine.update_weights``, coalesced to the latest); the phase's
 ``version_spans`` aggregate is returned with its statistics. The chunked
 path has no sync boundary to adopt at mid-phase: it leaves a poller unused,
-as the JAX package does.
+as the JAX package does. In a rollout role of several processes the poll is
+a collective whose decision comes from the role's rank 0
+(``fleet.runner.RoleWorld``): every rank pushes the same version at the
+same sync. Each push is logged as (sync, version) in ``weight_pushes``, and
+the phase's end checks the log against rank 0's
+(``verify_weight_pushes``, beside the schedule check).
 """
 
 import os
@@ -99,6 +104,7 @@ class PPOOrchestrator(Orchestrator):
         self._reward_calls = 0
         self.reward_log = []  # per reward call: its index, attempts and wall seconds
         self.schedule_crcs = []  # the engine's schedule crc at the end of each engine phase
+        self.weight_pushes = []  # per engine phase with a poller: its [(sync, version), ...] in-flight pushes
         self.rl_model.orch = self
         self.rl_model.reward_fn = reward_fn
         self.rl_model.metric_fn = metric_fn
@@ -480,6 +486,7 @@ class PPOOrchestrator(Orchestrator):
                     "chunk_size (and num_rollouts) that is a positive multiple of the process count")
         fault_plan = rl.fault_plan
         sync_tick = 0
+        pushes = []  # (sync, version) of each in-flight push this phase
 
         gen_s = reward_s = score_s = push_s = 0.0
         episode_steps = []
@@ -561,6 +568,7 @@ class PPOOrchestrator(Orchestrator):
                     pushed = weight_poll()
                     if pushed is not None:
                         engine.update_weights(pushed[0], version=pushed[1])
+                        pushes.append((sync_tick, pushed[1]))
                 sync_tick += 1
                 if fault_plan and fault_plan.fire("mid_decode_host_kill", sync_tick):
                     # Death mid-phase with slots live: no cleanup, no last
@@ -626,7 +634,11 @@ class PPOOrchestrator(Orchestrator):
             with dist_res.collective_guard("engine/schedule_verify",
                                            detail=lambda: {"slot_states": engine.slot_states()}):
                 dist_res.verify_engine_schedule(engine.schedule_fingerprint(), phase=iter_count)
+                if weight_poll is not None:
+                    dist_res.verify_weight_pushes(pushes, phase=iter_count)
         self.schedule_crcs.append(engine.schedule_fingerprint())
+        if weight_poll is not None:
+            self.weight_pushes.append(pushes)
 
         eng = engine.stats(reset=True)
         exp_time = time.perf_counter() - t_phase

@@ -1,5 +1,6 @@
-"""The port's one collectives module: every dp, fsdp and tp collective goes
-through it (the sp ring keeps its point-to-point exchange in ``mesh.py``).
+"""The port's one collectives module: every dp, fsdp, tp and sp collective
+goes through it (the sp ring's point-to-point exchange too, which
+``mesh.py``'s ``DistSpGroup`` drives).
 
 A mesh axis is an ``AxisGroup``: a ``torch.distributed`` subgroup with the
 global ranks it spans in axis order, this process's index in it and its
@@ -14,8 +15,9 @@ back; a CPU tensor is used as it is. gloo runs its ops on host memory, and
 several processes that share one card (NCCL refuses two ranks on one device)
 reach each other only through gloo. A sum staged through the host adds in
 float32 and is cast back to the tensor's dtype (gloo has no bfloat16 sum);
-NCCL sums in the tensor's dtype. Nothing here catches an error to pick a
-route.
+NCCL sums in the tensor's dtype. Host bytes (``broadcast_bytes``) go the
+other way on an NCCL group: through a buffer on this process's card, since
+NCCL moves CUDA memory only. Nothing here catches an error to pick a route.
 
 **Order.** Every rank of a group issues the same collectives in the same
 order: each op here waits for its own result before it returns, and the
@@ -40,6 +42,7 @@ and the seconds spent staging through the host; ``traffic()`` reads it and
 import time
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -190,6 +193,47 @@ def broadcast(x: torch.Tensor, group: AxisGroup, src: int = 0) -> torch.Tensor:
     dist.broadcast(out, src=group.ranks[src], group=group.pg)
     _count("broadcast", x)
     return out
+
+
+def broadcast_bytes(data: Optional[np.ndarray], nbytes: int, group: AxisGroup, src: int = 0) -> np.ndarray:
+    """Group rank ``src``'s host array ``data`` (None on the other ranks)
+    as ``nbytes`` host bytes (a uint8 array) on every rank; ``data`` itself
+    on ``src``."""
+    if group.size == 1:
+        return data
+    if group.rank == src:
+        buf = torch.from_numpy(np.ascontiguousarray(data).reshape(-1).view(np.uint8))
+    else:
+        buf = torch.empty(int(nbytes), dtype=torch.uint8)
+    if group.backend == "nccl":
+        buf = buf.to(torch.device("cuda", torch.cuda.current_device()))
+    dist.broadcast(buf, src=group.ranks[src], group=group.pg)
+    _count("broadcast", buf)
+    return data if group.rank == src else buf.cpu().numpy()
+
+
+def ring_exchange(tensors, dst: int, src: int, pg) -> list:
+    """The sp ring's step: send each tensor to global rank ``dst`` and
+    receive a tensor of its shape from ``src`` over ``pg`` (one batch of
+    point-to-point ops), and wait. Returns the received tensors."""
+    ops, outs = [], []
+    for x in tensors:
+        x = x.contiguous()
+        buf = torch.empty_like(x)
+        ops.append(dist.P2POp(dist.isend, x, dst, pg))
+        ops.append(dist.P2POp(dist.irecv, buf, src, pg))
+        outs.append(buf)
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return outs
+
+
+def all_gather_parts(x: torch.Tensor, size: int, pg) -> list:
+    """Every rank's ``x`` over ``pg`` (``size`` ranks), as a list in rank
+    order (the sp ring's gather)."""
+    parts = [torch.empty_like(x) for _ in range(size)]
+    dist.all_gather(parts, x.contiguous(), group=pg)
+    return parts
 
 
 def all_gather_object(obj, group: AxisGroup) -> list:

@@ -65,7 +65,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from trlx_tpu_torch.parallel.collectives import SOLO, AxisGroup, all_gather_object
+from trlx_tpu_torch.parallel.collectives import SOLO, AxisGroup, all_gather_object, all_gather_parts, ring_exchange
 
 AXIS_DP = "dp"
 AXIS_FSDP = "fsdp"
@@ -330,15 +330,17 @@ def barrier(name: str = "barrier"):
             dist.barrier(group=_world_pg())
 
 
-def broadcast_host(value):
+def broadcast_host(value, deadline: Optional[float] = None):
     """Rank 0's picklable host value on every process (identity for one
-    process): decisions and host results every rank must share."""
+    process): decisions and host results every rank must share. Guarded by
+    the collective deadline, or by ``deadline`` (a fleet role's wait for
+    rank 0, ``fleet.runner.RoleWorld.decide``)."""
     if world_size() == 1:
         return value
     from trlx_tpu_torch.resilience.distributed import collective_guard
 
     box = [value]
-    with collective_guard("broadcast_host"):
+    with collective_guard("broadcast_host", deadline=deadline):
         dist.broadcast_object_list(box, src=0, group=_world_pg())
     return box[0]
 
@@ -408,21 +410,10 @@ class DistSpGroup:
         (one batch of point-to-point ops), and wait."""
         dst = self._global[(self.rank + step) % self.size]
         src = self._global[(self.rank - step) % self.size]
-        ops, outs = [], []
-        for x in tensors:
-            x = x.contiguous()
-            buf = torch.empty_like(x)
-            ops.append(dist.P2POp(dist.isend, x, dst, self.group))
-            ops.append(dist.P2POp(dist.irecv, buf, src, self.group))
-            outs.append(buf)
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-        return outs
+        return ring_exchange(tensors, dst, src, self.group)
 
     def _all_gather(self, x: torch.Tensor):
-        parts = [torch.empty_like(x) for _ in range(self.size)]
-        dist.all_gather(parts, x.contiguous(), group=self.group)
-        return parts
+        return all_gather_parts(x, self.size, self.group)
 
     def rotate(self, items):
         (item,) = items

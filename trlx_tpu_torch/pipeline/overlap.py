@@ -20,8 +20,9 @@ pieces overlap them, in plain ``threading``:
 All of it is off unless the method config sets ``rollout_overlap`` or
 ``max_staleness``. Every thread is named ``trlx-*``, and each records its
 host spans on its own lane when tracing is armed (``score/host``,
-``prefetch/stage``, ``rollout/produce``). The JAX module's graftscope lanes
-and the sanitizer's race tracker are not ported.
+``prefetch/stage``, ``rollout/produce``). With ``TRLX_TPU_SANITIZE=race``
+(``utils.sanitize``) the producer's condition is a tracked one and its
+shared fields, and the score worker's ``busy_s``, report each access.
 """
 
 import queue
@@ -33,6 +34,7 @@ from contextlib import contextmanager
 from trlx_tpu_torch.observability import graftscope
 from trlx_tpu_torch.observability.spans import trace_span
 from trlx_tpu_torch.parallel.mesh import group_set, producer_collectives
+from trlx_tpu_torch.utils import sanitize
 
 
 def staleness_gate_open(index: int, consumed: int, max_staleness: int) -> bool:
@@ -117,23 +119,21 @@ class ScoreWorker:
 
     def _run(self):
         with producer_collectives(self._group_set):
-            self._loop()
-
-    def _loop(self):
-        while True:
-            item = self._in.get()
-            if item is self._STOP:
-                return
-            t0 = time.time()
-            try:
-                with trace_span("score/host"):
-                    self._out.put(("ok", self._fn(item)))
-            except BaseException as e:  # noqa: BLE001 — delivered via result()
-                self._out.put(("err", e))
-            finally:
-                t1 = time.time()
-                self.busy_s += t1 - t0
-                graftscope.host_interval("score", t0, t1)
+            while True:
+                item = self._in.get()
+                if item is self._STOP:
+                    return
+                t0 = time.time()
+                try:
+                    with trace_span("score/host"):
+                        self._out.put(("ok", self._fn(item)))
+                except BaseException as e:  # noqa: BLE001 — delivered via result()
+                    self._out.put(("err", e))
+                finally:
+                    t1 = time.time()
+                    sanitize.race_access(self, "busy_s", write=True)
+                    self.busy_s += t1 - t0
+                    graftscope.host_interval("score", t0, t1)
 
     def submit(self, item):
         self._in.put(item)
@@ -153,6 +153,9 @@ class ScoreWorker:
         worker exits; after the join ``busy_s`` is the caller's to read."""
         self._in.put(self._STOP)
         self._thread.join()
+        # Joined: busy_s passes to the caller (the orchestrator's reward
+        # accounting), a happens-before edge the lockset model cannot see.
+        sanitize.race_forget(self)
 
     @property
     def alive(self) -> bool:
@@ -289,7 +292,7 @@ class RolloutProducer:
         self.collective = bool(collective)
         self._prepare = prepare
         self._started = 0  # the last store index started (its snapshot adopted)
-        self._cv = threading.Condition(threading.Lock())
+        self._cv = sanitize.make_condition("RolloutProducer._cv")
         self._consumed = 0  # training iterations fully consumed
         self._ready = deque()  # completed stores, FIFO
         self.history = deque(maxlen=64)
@@ -300,6 +303,7 @@ class RolloutProducer:
 
     def start(self, snapshot=None):
         with self._cv:
+            sanitize.race_access(self, "_snapshot", write=True)
             self._snapshot = snapshot
         self._thread.start()
         return self
@@ -307,27 +311,32 @@ class RolloutProducer:
     def _should_stop(self) -> bool:
         return self._stop.is_set() and not self.collective
 
-    def _stopping(self, index: int) -> bool:
+    def _stopping(self, index: int, consumed: int) -> bool:
         """Store ``index`` is not to be made: stopped, and (collective) its
-        gate shut at the final consumed count."""
+        gate shut at the final ``consumed`` count (read under ``_cv``)."""
         if not self._stop.is_set():
             return False
-        return not (self.collective and staleness_gate_open(index, self._consumed, self.max_staleness))
+        return not (self.collective and staleness_gate_open(index, consumed, self.max_staleness))
 
     def _run(self):
         index = 1
         while True:
             with self._cv:
-                while not self._stopping(index) and not staleness_gate_open(index, self._consumed,
-                                                                            self.max_staleness):
+                while True:
+                    sanitize.race_access(self, "_consumed")
+                    consumed = self._consumed
+                    if self._stopping(index, consumed) or staleness_gate_open(index, consumed, self.max_staleness):
+                        break
                     self._cv.wait(timeout=0.5)
-                if self._stopping(index):
+                if self._stopping(index, consumed):
                     return
+                sanitize.race_access(self, "_snapshot")
                 snapshot = self._snapshot
-                staleness = index - self._consumed
+                staleness = index - consumed
             if self._prepare is not None:
                 self._prepare(snapshot)
             with self._cv:
+                sanitize.race_access(self, "_started", write=True)
                 self._started = index
                 self._cv.notify_all()
             store = self._new_store()
@@ -336,6 +345,7 @@ class RolloutProducer:
                     self._produce(store, index, snapshot, staleness, self._should_stop)
             except BaseException as e:  # noqa: BLE001 — re-raised in next_store()
                 with self._cv:
+                    sanitize.race_access(self, "_error", write=True)
                     self._error = e
                     self._cv.notify_all()
                 return
@@ -345,6 +355,7 @@ class RolloutProducer:
                         return  # aborted mid-phase: the partial store is dropped
                     # collective: dropped too, but the next due store is still made
                 else:
+                    sanitize.race_access(self, "_ready", write=True)
                     self._ready.append(store)
                     self.history.append({
                         "index": index,
@@ -359,6 +370,8 @@ class RolloutProducer:
         started store has adopted its snapshot): then a new boundary may be
         staged without any store reading it by chance of timing."""
         with self._cv:
+            sanitize.race_access(self, "_started")
+            sanitize.race_access(self, "_consumed")
             while (staleness_gate_open(self._started + 1, self._consumed, self.max_staleness)
                    and self._thread.is_alive() and self._error is None and not self._stop.is_set()):
                 self._cv.wait(timeout=0.5)
@@ -367,8 +380,10 @@ class RolloutProducer:
         """Mark one training iteration fully consumed, optionally handing
         the producer the boundary snapshot to generate the next store from."""
         with self._cv:
+            sanitize.race_access(self, "_consumed", write=True)
             self._consumed += 1
             if snapshot is not None:
+                sanitize.race_access(self, "_snapshot", write=True)
                 self._snapshot = snapshot
             self._cv.notify_all()
 
@@ -378,9 +393,13 @@ class RolloutProducer:
         deadline = None if timeout is None else time.time() + timeout
         with self._cv:
             while True:
+                sanitize.race_access(self, "_ready")
                 if self._ready:
+                    sanitize.race_access(self, "_ready", write=True)
                     return self._ready.popleft()
+                sanitize.race_access(self, "_error")
                 if self._error is not None:
+                    sanitize.race_access(self, "_error", write=True)
                     e, self._error = self._error, None
                     raise e
                 if not self._thread.is_alive():
@@ -409,3 +428,6 @@ class RolloutProducer:
             self._cv.notify_all()
         if self._thread.ident is not None and self._thread.is_alive():
             self._thread.join(timeout=None if self.collective else timeout)
+        if not self._thread.is_alive():
+            # Joined: the producer's fields pass to this thread.
+            sanitize.race_forget(self)

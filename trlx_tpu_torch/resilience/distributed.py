@@ -60,6 +60,7 @@ import torch
 import torch.distributed as dist
 
 from trlx_tpu_torch.resilience.checkpoint import atomic_write_text
+from trlx_tpu_torch.utils import sanitize
 
 EXIT_COLLECTIVE_TIMEOUT = 117
 
@@ -88,7 +89,10 @@ class Heartbeat:
         self.directory = directory
         self.interval = float(interval)
         self.rank = int(rank)
-        self._lock = threading.Lock()
+        # beat() runs on whichever thread makes progress and _write() on the
+        # writer thread: the lock keeps a record from tearing across step,
+        # phase and stamps (tracked under TRLX_TPU_SANITIZE=race).
+        self._lock = sanitize.make_lock("Heartbeat._lock")
         self.step = 0
         self.phase = "init"
         self.progress_t = time.time()
@@ -102,6 +106,7 @@ class Heartbeat:
 
     def beat(self, step: Optional[int] = None, phase: Optional[str] = None):
         with self._lock:
+            sanitize.race_access(self, "beat_state", write=True)
             if step is not None:
                 self.step = int(step)
             if phase is not None:
@@ -111,6 +116,7 @@ class Heartbeat:
 
     def _write(self):
         with self._lock:
+            sanitize.race_access(self, "beat_state")
             payload = json.dumps({"rank": self.rank, "step": self.step, "phase": self.phase,
                                   "progress_t": self.progress_t, "progress_mono": self.progress_mono,
                                   "written_t": time.time(), "written_mono": time.monotonic()})
@@ -289,7 +295,9 @@ class collective_guard:
         stack = getattr(_ACTIVE, "stack", None)
         if stack is None:
             stack = _ACTIVE.stack = []
-        self._outer = list(stack)
+        # Written before the timer thread starts (Thread.start orders the
+        # write before _fire's read) and never again.
+        self._outer = list(stack)  # graftlint: disable=GL008 -- set before the timer starts, never rewritten
         stack.append(self)
         if self.deadline <= 0:
             return self
@@ -408,19 +416,44 @@ def verify_engine_schedule(schedule_crc: int, phase: Optional[int] = None) -> No
     skew = int(os.environ.get("TRLX_TPU_ENGINE_SCHEDULE_SKEW", "0") or "0")
     if skew:
         crc ^= skew & 0xFFFFFFFF
-    row = np.asarray([int(phase or 0), crc], dtype=np.int64)
-    gathered = np.asarray(allgather_host(row[None, :])).reshape(-1, 2)
-    fields = ("engine phase counter", "slot schedule crc32")
+    _same_as_rank0(allgather_host(np.asarray([[int(phase or 0), crc]], dtype=np.int64)),
+                   ("engine phase counter", "slot schedule crc32"), "engine slot-schedule check",
+                   "The slot managers made different admission/harvest decisions (non-deterministic host code or "
+                   "skewed prompt data); the next decode step would hang the ranks in a collective. Restart the "
+                   "phase with identical inputs on every rank.")
+
+
+def _same_as_rank0(gathered, fields, check: str, consequence: str) -> None:
+    """Raise the same ``HostDesync`` on every rank when any rank's row of
+    the all-gathered matrix differs from rank 0's, naming the ranks and
+    fields."""
+    gathered = np.asarray(gathered).reshape(-1, len(fields))
     problems = []
     for r in range(1, gathered.shape[0]):
-        bad = [f"{fields[j]} {gathered[r, j]} != {gathered[0, j]}" for j in range(2) if gathered[r, j] != gathered[0, j]]
+        bad = [f"{fields[j]} {gathered[r, j]} != {gathered[0, j]}" for j in range(len(fields))
+               if gathered[r, j] != gathered[0, j]]
         if bad:
             problems.append(f"rank {r}: " + ", ".join(bad))
     if problems:
-        raise HostDesync("engine slot-schedule check failed vs rank 0 — " + "; ".join(problems)
-                         + ". The slot managers made different admission/harvest decisions (non-deterministic host "
-                         "code or skewed prompt data); the next decode step would hang the ranks in a collective. "
-                         "Restart the phase with identical inputs on every rank.")
+        raise HostDesync(f"{check} failed vs rank 0 — " + "; ".join(problems) + ". " + consequence)
+
+
+def verify_weight_pushes(pushes, phase: Optional[int] = None) -> None:
+    """Check that every rank adopted the same in-flight weight pushes at the
+    same engine syncs this phase: all-gather [phase, count, crc32 of the
+    (sync, version) list] and raise the same ``HostDesync`` on every rank,
+    naming the ranks that differ from rank 0 (a rollout role whose ranks
+    decoded with different weights). A single process is trivially
+    consistent."""
+    from trlx_tpu_torch.parallel.mesh import allgather_host, world_size
+
+    if world_size() == 1:
+        return
+    crc = zlib.crc32(json.dumps([[int(t), None if v is None else int(v)] for t, v in pushes]).encode())
+    _same_as_rank0(allgather_host(np.asarray([[int(phase or 0), len(pushes), crc]], dtype=np.int64)),
+                   ("engine phase counter", "weight pushes", "push schedule crc32"), "in-flight weight push check",
+                   "The ranks adopted different weight versions at different decode steps, so they decoded with "
+                   "different weights; every rank must take rank 0's adoption decision.")
 
 
 @torch.no_grad()

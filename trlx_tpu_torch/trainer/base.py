@@ -110,6 +110,7 @@ from trlx_tpu_torch.resilience.faults import FaultPlan, poison_nan
 from trlx_tpu_torch.resilience.guard import TrainingDiverged, guarded_update
 from trlx_tpu_torch.resilience.watchdog import DivergenceWatchdog
 from trlx_tpu_torch.trainer import BaseRLTrainer
+from trlx_tpu_torch.utils import sanitize
 from trlx_tpu_torch.utils.logging import Tracker
 
 
@@ -280,24 +281,15 @@ def build_optimizer(train_cfg, params: List[torch.Tensor], names: List[str]):
     return opt, schedule
 
 
-# Environment switches of the JAX package whose features are not ported:
-# each raises by name (every other switch is read where its feature arms,
-# the environment winning over the config as in the JAX package).
-UNPORTED_ENV_SWITCHES = {
-    "TRLX_TPU_SANITIZE": "the dispatch sanitizer (the port has no dispatch lock)",
-}
-
-
 def refuse_unported(config: TRLConfig):
-    """Raise on every environment switch whose feature is not ported
-    (``UNPORTED_ENV_SWITCHES``), so no config silently runs a different
-    algorithm, or records less, than it asks for. Int8 decode weights and
-    the fleet (``train.fleet_*``, its environment switches and fault kinds)
-    are PPO's rollout features: other trainers accept and ignore them, as
-    the JAX package's do."""
-    on = [f"{var} ({feature})" for var, feature in UNPORTED_ENV_SWITCHES.items() if env_flag(var)]
-    if on:
-        raise NotImplementedError(f"not ported yet: {', '.join(on)}")
+    """Raise on a ``TRLX_TPU_SANITIZE`` mode the port does not have
+    (``sanitize.refresh`` names it), so no config silently records less
+    than it asks for. Every other environment switch of the JAX package is
+    ported and read where its feature arms. Int8 decode weights and the
+    fleet (``train.fleet_*``, its environment switches and fault kinds) are
+    PPO's rollout features: other trainers accept and ignore them, as the
+    JAX package's do."""
+    sanitize.refresh()
 
 
 class BaseTrainer(BaseRLTrainer):
@@ -1628,8 +1620,11 @@ class BaseTrainer(BaseRLTrainer):
         if block:
             _write_state(path, snapshot, pending["result"])
         else:
-            pending["thread"] = threading.Thread(target=_write_state, args=(path, snapshot, pending["result"]),
-                                                 name="trlx-ckpt-writer")
+            # Not a daemon: a half-written checkpoint must finish before the
+            # interpreter exits. _finalize_pending_save joins it through
+            # self._pending_save (the next save, load() and learn()'s exit).
+            pending["thread"] = threading.Thread(  # graftlint: disable=GL010 -- joined via _pending_save at finalize
+                target=_write_state, args=(path, snapshot, pending["result"]), name="trlx-ckpt-writer")
             pending["thread"].start()
         self._pending_save = pending
         if block:
@@ -1696,7 +1691,10 @@ class BaseTrainer(BaseRLTrainer):
         t0 = time.perf_counter()
         if "thread" in pending:
             pending["thread"].join()
+            # Joined: the writer's result passes to this thread.
+            sanitize.race_forget(pending["result"])
         result, record = pending["result"], pending["record"]
+        sanitize.race_access(result, "ckpt_result")
         if "error" in result:
             raise CheckpointError(f"writing {pending['name']} failed") from result["error"]
         record["join_s"] = time.perf_counter() - t0
@@ -2020,7 +2018,9 @@ def _write_state(path: str, snapshot: Dict[str, Dict], result: Dict, fresh: bool
                 torch.save(group, w)
             digests[f"{f}.pt"] = (w.size, w.crc)
             crc_wait_s += w.crc_wait_s
+        sanitize.race_access(result, "ckpt_result", write=True)
         result.update(digests=digests, bytes=sum(s for s, _ in digests.values()), crc_wait_s=crc_wait_s,
                       write_s=time.perf_counter() - t0)
     except Exception as e:  # noqa: BLE001 — re-raised by _finalize_pending_save
+        sanitize.race_access(result, "ckpt_result", write=True)
         result["error"] = e

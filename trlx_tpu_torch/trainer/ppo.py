@@ -70,7 +70,9 @@ then publish-and-consume at every ``post_epoch_callback``); a
 ``FleetDegradedExit`` saves the rollback checkpoint and ends ``learn()``
 cleanly, returning None; ``learn()``'s teardown shuts the feed down with the
 coordinated abort marker (none on preemption). A rollout trainer runs
-``fleet.run_rollout_worker`` instead of ``learn()`` (``trainer.api``).
+``fleet.run_rollout_worker`` instead of ``learn()`` (``trainer.api``). A
+role may be a world of several processes: every rank builds the feed or
+runs the worker, and the transports live on rank 0 (``fleet.runner``).
 """
 
 import copy
@@ -624,7 +626,8 @@ class PPOTrainer(BaseTrainer):
         the episode stream (``trainer.api`` calls this in place of the first
         ``make_experience``), after the v0 publish that lets a worker's
         staleness gate open. A resumed learner publishes its restored
-        step."""
+        step. In a learner world every rank builds the feed; its transports
+        are rank 0's."""
         from trlx_tpu_torch.fleet.runner import FleetLearnerFeed
 
         if self._resumed:
