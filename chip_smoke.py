@@ -113,6 +113,14 @@ prefix, a dead slot on the trash block and a fully masked row), then drives
    (staleness at most 1, the torn ordinal rejected, a push adopted
    mid-phase); a learner and two elastic workers, one killed holding a
    lease (reclaimed, every unit once, the stores bit-equal to serial);
+16. the port's own example, ``trlx_tpu_torch.examples.randomwalks``, on the
+   card (``randomwalks``): PPO and then ILQL at the sizes of the CPU learning
+   gates, each held to the JAX package's optimality floor (0.8 and 0.70); a
+   tiny model (d_head 36, vocab 21) that no kernel's shape gate admits, so
+   the phase checks learning and logs the wrappers it launched. The
+   trainer's progress line is read from its stderr there and on the main
+   path (one line a logged step), and ``train_bf16`` runs under
+   ``TRLX_TPU_NO_PROGRESS=1`` (no line);
 
 and checks that each path went through every kernel it runs, exactly as
 often as its config says.
@@ -133,6 +141,7 @@ power limit as ``nvidia-smi`` reports them; one JSON line of per-kernel
 numbers; and last, one JSON line ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import gc
 import json
 import os
@@ -214,8 +223,11 @@ def graph_ms(fn, iters: int = 50, replays: int = 3) -> float:
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    from trlx_tpu_torch.ops import cuda_lib
+    from trlx_tpu_torch.ops.cuda_graph import CudaGraph
+
+    graph = CudaGraph()  # the port's one capture home: thread_local, under the launch lock
+    with cuda_lib.launch_lock, graph.capture():
         for _ in range(iters):
             fn()
     graph.replay()
@@ -1901,6 +1913,46 @@ def check_armed_run(trainer, run_dir: str, config, prof_rec: dict, n_layer: int,
     return out
 
 
+EARLIER_STEP_DEVICE_S = 0.62  # engine_train's armed train step before the progress line (PERF.md section 5)
+
+
+@contextlib.contextmanager
+def progress_env(value):
+    """``TRLX_TPU_NO_PROGRESS`` set to ``value`` (None: unset) inside the
+    block, restored after."""
+    old = os.environ.pop("TRLX_TPU_NO_PROGRESS", None)
+    if value is not None:
+        os.environ["TRLX_TPU_NO_PROGRESS"] = value
+    try:
+        yield
+    finally:
+        os.environ.pop("TRLX_TPU_NO_PROGRESS", None)
+        if old is not None:
+            os.environ["TRLX_TPU_NO_PROGRESS"] = old
+
+
+def progress_lines(err_path: str):
+    """The trainer's progress lines in a captured stderr (a file: one line a
+    logged step)."""
+    with open(err_path) as f:
+        return [ln.rstrip("\n") for ln in f if ln.startswith("step ")]
+
+
+def check_progress_lines(err_path: str, steps: int, log_interval: int, name: str, need=("loss=", "samples/s=")):
+    """One progress line at each logged step k, reading ``step k/steps`` and
+    each of ``need`` (ILQL's step stats have no ``loss``, in both packages).
+    Returns the lines."""
+    lines = progress_lines(err_path)
+    want = [f"step {k}/{steps}" for k in range(log_interval, steps + 1, log_interval)]
+    got = [" ".join(ln.split()[:2]) for ln in lines]
+    if got != want:
+        raise AssertionError(f"{name}: progress lines {got}, expected {want}")
+    bad = [ln for ln in lines if any(f"  {w}" not in ln for w in need)]
+    if bad:
+        raise AssertionError(f"{name}: progress lines without {need}: {bad[:3]}")
+    return lines
+
+
 def engine_train_path(kernels):
     """The main path: ``trlx_tpu_torch.train(reward_fn=...)`` at GPT-J-6B
     full width and depth through the continuous-batching engine, paged
@@ -1964,7 +2016,20 @@ def engine_train_path(kernels):
 
         engine._decode, engine.stats = decode_, stats_
 
-    cls = make_timed_trainer(kernels, n_layer, on_engine, base=no_save_trainer(), on_built=on_built)
+    progress_s = []  # host seconds of each progress_line call
+
+    def on_built_(trainer):
+        on_built(trainer)
+        line = trainer.progress_line
+
+        def progress_line(stats_host):
+            t = time.perf_counter()
+            line(stats_host)
+            progress_s.append(time.perf_counter() - t)
+
+        trainer.progress_line = progress_line
+
+    cls = make_timed_trainer(kernels, n_layer, on_engine, base=no_save_trainer(), on_built=on_built_)
     run_dir = os.path.join(RUN_DIR, "engine_train")
     config = train_config(n_layer, cls.__name__, run_dir, method=dict(ENGINE, paged_kv=True), quant=True)
     config.train.graftnum = config.train.device_telemetry = config.train.graftscope = True
@@ -1973,9 +2038,12 @@ def engine_train_path(kernels):
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
         fn.launches = 0
+    os.makedirs(run_dir, exist_ok=True)
+    err_path = os.path.join(run_dir, "stderr.txt")
     t0 = time.perf_counter()
-    trainer = trlx_tpu_torch.train(reward_fn=reward_fn, prompts=engine_prompts(),
-                                   eval_prompts=seeded_prompts(CHUNK, 1), config=config)
+    with progress_env(None), open(err_path, "w") as err, contextlib.redirect_stderr(err):
+        trainer = trlx_tpu_torch.train(reward_fn=reward_fn, prompts=engine_prompts(),
+                                       eval_prompts=seeded_prompts(CHUNK, 1), config=config)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in kernels.items()}
@@ -2029,6 +2097,21 @@ def engine_train_path(kernels):
         raise AssertionError("no decode call ran with two live slots sharing a block: the live-pool check never ran")
 
     log_ = check_train_steps(trainer, config, train_step_launches(kernels, n_layer))
+    lines = check_progress_lines(err_path, steps, config.train.log_interval, "engine_train")
+    # The first phase window is logged at the second rollout boundary, after
+    # the first iteration's steps: every later line folds it in.
+    per_iter = steps // config.train.epochs
+    late = [ln for ln in lines[per_iter:] if "exp/s=" not in ln or "phases r/s/t=" not in ln]
+    if late:
+        raise AssertionError(f"engine_train progress lines after step {per_iter} without the phase window: {late}")
+    dev_med = float(np.median([r["device_s"] for r in log_]))
+    progress = {"lines": len(lines), "first": lines[0], "last": lines[-1],
+                "line_host_s_total": sum(progress_s), "line_host_us_median": 1e6 * float(np.median(progress_s)),
+                "step_device_s_median": dev_med, "earlier_step_device_s": EARLIER_STEP_DEVICE_S}
+    log(f"[progress] engine_train: one progress line a logged step on {card_line()}: {json.dumps(progress)}")
+    log(f"[progress] engine_train step device s median {dev_med:.4f} beside the earlier {EARLIER_STEP_DEVICE_S} "
+        f"(the line runs on the host after the step's stats are fetched: "
+        f"{1e6 * float(np.median(progress_s)):.1f} us a call, {sum(progress_s):.4f} s in all)")
     prof = prof_rec.pop("prof", None)
     if prof is None:
         raise AssertionError("train.profile_dir opened no profiling window")
@@ -2060,6 +2143,7 @@ def engine_train_path(kernels):
         "step_device_s_median": float(np.median(dev_s)),
         "unarmed_step_device_s": UNARMED_STEP_DEVICE_S,
         "armed": armed,
+        "progress": progress,
         "mean_ratio_per_step": [r["mean_ratio"] for r in log_],
         "experience": exp,
         "eval": dict(trainer.eval_log[0]),
@@ -2083,6 +2167,87 @@ def engine_train_path(kernels):
     free()
     shutil.rmtree(run_dir)
     return out, launches
+
+
+def without_progress(fn, name: str):
+    """``fn()`` under ``TRLX_TPU_NO_PROGRESS=1`` with stderr captured:
+    fails if the trainer wrote a progress line."""
+    os.makedirs(RUN_DIR, exist_ok=True)
+    err_path = os.path.join(RUN_DIR, f"{name}.stderr.txt")
+    with progress_env("1"), open(err_path, "w") as err, contextlib.redirect_stderr(err):
+        out = fn()
+    lines = progress_lines(err_path)
+    if lines:
+        raise AssertionError(f"{name} under TRLX_TPU_NO_PROGRESS=1 wrote progress lines: {lines[:3]}")
+    log(f"[progress] {name} under TRLX_TPU_NO_PROGRESS=1: no progress line ({os.path.getsize(err_path)} bytes of "
+        "stderr)")
+    return out
+
+
+# The CPU learning gates' sizes (tests/test_torch_train.py, tests/test_torch_ilql.py) and the JAX package's
+# optimality floors (tests/test_e2e.py:319,353).
+RANDOMWALKS = (
+    ("ppo", dict(total_steps=48, eval_interval=16, batch_size=48), dict(num_rollouts=96, chunk_size=48), 0.8),
+    ("ilql", dict(total_steps=100, eval_interval=25, batch_size=48), {}, 0.70),
+)
+
+
+def randomwalks_path(kernels):
+    """The port's own example on the card: ``trlx_tpu_torch.examples
+    .randomwalks`` PPO and then ILQL (the example's config, the learning
+    gates' sizes), each failing unless its best eval optimality reaches the
+    JAX package's floor. Its model (2 layers, d_head 36, vocab 21) is below
+    every kernel's shape gate, so it checks learning, not kernels: it logs
+    the wrappers each run launched. The PPO run's stderr holds one progress
+    line a step, with the eval reward and optimality at the eval steps."""
+    from trlx_tpu_torch.examples import randomwalks
+
+    out, total = {}, dict.fromkeys(kernels, 0)
+    for method, train_kw, method_kw, floor in RANDOMWALKS:
+        run_dir = os.path.join(RUN_DIR, f"randomwalks_{method}")
+        config = randomwalks.base_config(method, 21, 10)
+        for k, v in dict(train_kw, checkpoint_interval=10**6, checkpoint_dir=run_dir).items():
+            setattr(config.train, k, v)
+        for k, v in method_kw.items():
+            setattr(config.method, k, v)
+        history = []
+
+        def recording(task_metric):
+            def metric(samples):
+                m = task_metric(samples)
+                history.append(float(np.mean(m["optimality"])))
+                return m
+            return metric
+
+        for fn in kernels.values():
+            fn.launches = 0
+        os.makedirs(run_dir, exist_ok=True)
+        err_path = os.path.join(run_dir, "stderr.txt")
+        t0 = time.perf_counter()
+        with progress_env(None), open(err_path, "w") as err, contextlib.redirect_stderr(err):
+            trainer = randomwalks.main(method, config=config, metric_fn=recording)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for n, f in kernels.items():
+            total[n] += f.launches
+        steps = config.train.total_steps
+        lines = check_progress_lines(err_path, steps, config.train.log_interval, f"randomwalks {method}",
+                                     need=("loss=", "samples/s=") if method == "ppo" else ("samples/s=",))
+        at_eval = [ln for k, ln in zip(range(1, steps + 1), lines) if k % config.train.eval_interval == 0]
+        want = ("reward=", "optimality=") if method == "ppo" else ("optimality=",)
+        if not at_eval or any(w not in ln for ln in at_eval for w in want):
+            raise AssertionError(f"randomwalks {method}: eval-step progress lines without {want}: {at_eval}")
+        out[method] = {"wall_s": wall, "steps": trainer.iter_count, "optimality": history, "best": max(history),
+                       "floor": floor, "launched": {n: f.launches for n, f in kernels.items() if f.launches},
+                       "device": str(trainer.device), "eval_lines": at_eval}
+        log(f"[randomwalks] {method} on {card_line()}: {json.dumps(out[method])}")
+        if trainer.iter_count != steps or max(history) < floor:
+            raise AssertionError(f"randomwalks {method}: {trainer.iter_count} steps, best eval optimality "
+                                 f"{max(history)} (history {history}) below the floor {floor}")
+        del trainer
+        free()
+        shutil.rmtree(run_dir)
+    return out, total
 
 
 OVERLAP_LAYERS = 4  # depth of the overlapped-pipeline path, at GPT-J-6B width
@@ -4474,6 +4639,7 @@ def dist_worker(rank: int, world: int, run_dir: str) -> int:
     from trlx_tpu_torch.models.lm import placement_of
     from trlx_tpu_torch.ops import cuda_lib
     from trlx_tpu_torch.parallel import collectives as coll
+    from trlx_tpu_torch.parallel.mesh import barrier
 
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=f"file://{os.path.join(run_dir, 'store')}", rank=rank,
@@ -4519,7 +4685,7 @@ def dist_worker(rank: int, world: int, run_dir: str) -> int:
     out["c"] = {"param_max_abs": worst, "moved_max_abs": moved, "update_sign_agreement": agree / max(counted, 1)}
     with open(os.path.join(run_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
-    dist.barrier()
+    barrier("dist_worker_end")
     dist.destroy_process_group()
     return 0
 
@@ -5485,10 +5651,11 @@ def main() -> int:
     phase_rm_route(kernels)
     log(f"[rm-route] done in {time.perf_counter() - t0:.1f}s")
     run("text_ppo", lambda: text_ppo_path(kernels))
-    run("train_bf16", lambda: train_path(kernels))
+    run("train_bf16", lambda: without_progress(lambda: train_path(kernels), "train_bf16"))
     run("engine_train", lambda: engine_train_path(kernels))
     run("overlap_train", lambda: overlap_train_path(kernels))
     run("resilience_drill", lambda: resilience_drill_path(kernels))
+    run("randomwalks", lambda: randomwalks_path(kernels))
     t0 = time.perf_counter()
     phase_graph(kernels)
     log(f"[graph] done in {time.perf_counter() - t0:.1f}s")

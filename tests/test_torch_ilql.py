@@ -32,7 +32,6 @@
 
 import json
 import os
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -501,18 +500,14 @@ def test_fleet_knobs_are_ignored_as_in_jax(tmp_path, monkeypatch):
 @pytest.mark.slow
 def test_ilql_learns_randomwalks(tmp_path):
     """Learning-quality gate, the torch twin of the JAX package's: ILQL on
-    the offline randomwalks dataset beats the random-walk baseline (~0.55
-    optimality) by a clear margin, with the example config and the JAX
-    test's sizes."""
-    import dataclasses
-
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "examples"))
-    from randomwalks import base_config, generate_random_walks
+    the offline dataset of the port's randomwalks example
+    (``trlx_tpu_torch.examples.randomwalks``) beats the random-walk baseline
+    (~0.55 optimality) by a clear margin, with the example config and the
+    JAX test's sizes."""
+    from trlx_tpu_torch.examples.randomwalks import base_config, main
 
     n_nodes, max_length = 21, 10
-    walks, logit_mask, metric_fn, _ = generate_random_walks(n_nodes=n_nodes, max_length=max_length)
-    jcfg = base_config("ilql", n_nodes, max_length)
-    config = TRLConfig.from_dict({k: dataclasses.asdict(getattr(jcfg, k)) for k in ("model", "train", "method")})
+    config = base_config("ilql", n_nodes, max_length)
     config.train.total_steps = 100
     config.train.eval_interval = 25
     config.train.checkpoint_interval = 10**6
@@ -521,13 +516,13 @@ def test_ilql_learns_randomwalks(tmp_path):
 
     history = []
 
-    def recording_metric(samples):
-        m = metric_fn(samples)
-        history.append(float(np.mean(m["optimality"])))
-        return m
+    def recording(metric_fn):
+        def recording_metric(samples):
+            m = metric_fn(samples)
+            history.append(float(np.mean(m["optimality"])))
+            return m
+        return recording_metric
 
-    lengths = metric_fn(walks)["lengths"]
-    trlx_tpu_torch.train(dataset=(walks, lengths), eval_prompts=[[i] for i in range(1, n_nodes)],
-                         metric_fn=recording_metric, config=config, logit_mask=logit_mask, device="cpu")
+    main("ilql", device="cpu", config=config, metric_fn=recording)
     assert history, "evaluate() never ran"
     assert max(history) >= 0.70, f"ILQL failed to learn: optimality history {history}"

@@ -21,10 +21,8 @@
   (marked slow, like its JAX twin).
 """
 
-import dataclasses
 import json
 import os
-import sys
 import types
 
 import jax
@@ -370,15 +368,13 @@ def test_train_dispatch_refuses_ilql_and_needs_reward_fn(tmp_path, monkeypatch):
 @pytest.mark.slow
 def test_ppo_learns_randomwalks(tmp_path):
     """Learning-quality gate, the torch twin of the JAX package's: PPO on
-    randomwalks reaches >= 0.8 eval optimality, with the example config and
-    the JAX test's sizes."""
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "examples"))
-    from randomwalks import base_config, generate_random_walks
+    the port's randomwalks example (``trlx_tpu_torch.examples.randomwalks``)
+    reaches >= 0.8 eval optimality, with the example config and the JAX
+    test's sizes."""
+    from trlx_tpu_torch.examples.randomwalks import base_config, main
 
     n_nodes, max_length = 21, 10
-    walks, logit_mask, metric_fn, reward_fn = generate_random_walks(n_nodes=n_nodes, max_length=max_length)
-    jcfg = base_config("ppo", n_nodes, max_length)
-    config = TRLConfig.from_dict({k: dataclasses.asdict(getattr(jcfg, k)) for k in ("model", "train", "method")})
+    config = base_config("ppo", n_nodes, max_length)
     config.train.total_steps = 48
     config.train.eval_interval = 16
     config.train.checkpoint_interval = 10**6
@@ -390,14 +386,14 @@ def test_ppo_learns_randomwalks(tmp_path):
     history = []
     n_eval_prompts = n_nodes - 1
 
-    def recording_metric(samples):
-        assert len(samples) == n_eval_prompts
-        m = metric_fn(samples)
-        history.append(float(np.mean(m["optimality"])))
-        return m
+    def recording(metric_fn):
+        def recording_metric(samples):
+            assert len(samples) == n_eval_prompts
+            m = metric_fn(samples)
+            history.append(float(np.mean(m["optimality"])))
+            return m
+        return recording_metric
 
-    prompts = [[int(np.random.default_rng(i).integers(1, n_nodes))] for i in range(200)]
-    trlx_tpu_torch.train(reward_fn=reward_fn, prompts=prompts, eval_prompts=[[i] for i in range(1, n_nodes)],
-                         metric_fn=recording_metric, config=config, logit_mask=logit_mask, device="cpu")
+    main("ppo", device="cpu", config=config, metric_fn=recording)
     assert history, "evaluate() never ran"
     assert max(history) >= 0.8, f"PPO failed to learn: optimality history {history}"

@@ -18,4 +18,13 @@ rollouts in place of ``reward_fn``.
 
 __version__ = "0.2.0"
 
-from trlx_tpu_torch.trainer.api import train  # noqa: E402,F401
+
+
+def __getattr__(name):
+    # ``train`` is imported on first use, so a subpackage that needs no
+    # torch (``analysis``, the linter) imports without it.
+    if name == "train":
+        from trlx_tpu_torch.trainer.api import train
+
+        return train
+    raise AttributeError(f"module 'trlx_tpu_torch' has no attribute {name!r}")

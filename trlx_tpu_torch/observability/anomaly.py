@@ -173,11 +173,15 @@ class IncidentCapture:
 
             on_card = self.device.type == "cuda"
             activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+            if on_card:
+                torch.cuda.synchronize(self.device)  # drain the queue before taking the launch lock
             with cuda_lib.launch_lock:  # no graph capture on another thread meanwhile
                 with profile(activities=activities) as prof:
                     probe = torch.zeros(8, device=self.device) + 1
                     if on_card:
-                        torch.cuda.synchronize(self.device)
+                        # The queue was drained just before the lock: this waits
+                        # for the probe (and what another thread queued meanwhile).
+                        torch.cuda.synchronize(self.device)  # graftlint: disable=GL011 -- waits for the probe
                     del probe
             os.makedirs(os.path.join(bundle, "profile"), exist_ok=True)
             prof.export_chrome_trace(os.path.join(bundle, "profile", "trace.json"))

@@ -983,6 +983,54 @@ class BaseTrainer(BaseRLTrainer):
     def post_epoch_callback(self):
         """Called after every epoch of the train loader."""
 
+    def progress_line(self, stats_host: dict):
+        """The main process's progress line on stderr at each logged step
+        (the JAX package's, and the counterpart of the reference's tqdm bar).
+        It reads only ``stats_host`` (already on the host at the log
+        boundary) and the last phase window: no device read, no sync. On a
+        terminal the line is rewritten in place (``\\r``); on a file or a pipe
+        each logged step writes one line. ``TRLX_TPU_NO_PROGRESS`` silences
+        it."""
+        if not is_main_process() or os.environ.get("TRLX_TPU_NO_PROGRESS"):
+            return
+        # The last rollout-phase window (exp/s, the time/* split), so the line
+        # shows the whole iteration, not just the train step.
+        merged = dict(getattr(self, "_last_phase_stats", None) or {})
+        merged.update(stats_host)
+        parts = [f"step {self.iter_count}/{self.total_steps}"]
+        for key, label in (("loss", "loss"), ("mean_reward", "reward"), ("mean_kl", "kl"),
+                           ("metrics/optimality", "optimality"), ("samples_per_sec", "samples/s"),
+                           ("exp_per_sec", "exp/s"), ("train_tokens_per_s", "tok/s"), ("train_batch_fill", "fill")):
+            if key in merged:
+                parts.append(f"{label}={merged[key]:.4g}")
+        if all(f"time/{p}_s" in merged for p in ("rollout", "score", "train")):
+            parts.append("phases r/s/t={:.1f}/{:.1f}/{:.1f}s ov={:.0%}".format(
+                merged["time/rollout_s"], merged["time/score_s"], merged["time/train_s"],
+                merged.get("time/overlap_fraction", 0.0)))
+        if "obs/bubble_fraction" in merged:
+            parts.append("bub={:.0%}".format(merged["obs/bubble_fraction"]))
+        fl = self._fleet
+        if fl is not None and fl.process_count > 1:
+            # graftfleet's readout: the processes and the last window's worst
+            # aligned collective skew (the straggler signal at a glance).
+            parts.append(f"hosts={fl.process_count} skew={fl.last_skew_ms:.0f}ms")
+        line = "  ".join(parts)
+        err = sys.stderr
+        if getattr(err, "isatty", lambda: False)():
+            # \x1b[K clears to the end of the line, so a longer previous line
+            # leaves no remnant after the rewrite.
+            print(line + "\x1b[K", end="\r", file=err, flush=True)
+            self._progress_open = True
+        else:
+            print(line, file=err, flush=True)
+
+    def end_progress(self):
+        """End a rewritten progress line, so later output (eval tables,
+        tracebacks) does not print over it."""
+        if getattr(self, "_progress_open", False):
+            print(file=sys.stderr, flush=True)
+            self._progress_open = False
+
     def add_eval_pipeline(self, eval_pipeline):
         self.eval_pipeline = eval_pipeline
 
@@ -996,6 +1044,7 @@ class BaseTrainer(BaseRLTrainer):
         eval rows: the loader's fixed-shape wrap-around duplicates are
         dropped first. With an on-device reward model and no ``reward_fn``,
         the rewards are the reward model's scores."""
+        self.end_progress()
         eval_t0 = time.time()
         stats = {}
         all_texts = []
@@ -1257,6 +1306,7 @@ class BaseTrainer(BaseRLTrainer):
             # finalize.
             self._close_batch_feed()
             self._shutdown_experience_pipeline()
+            self.end_progress()
             self._finalize_pending_save()
             self._profile_stop()
             report = self._devicemon is not None or self._graftnum is not None
@@ -1466,6 +1516,7 @@ class BaseTrainer(BaseRLTrainer):
                             stats_host.update(self._fleet.on_log_boundary(self.iter_count,
                                                                           exporter=self._metrics_exporter))
                         self.tracker.log(stats_host, step=self.iter_count)
+                        self.progress_line(stats_host)
                     # Independent of the log cadence.
                     wi = train.watch_interval
                     if wi and self.iter_count % wi == 0:

@@ -787,6 +787,7 @@ class PPOTrainer(BaseTrainer):
         if self._health is not None:
             # The detectors' state at the rollout boundary, in the window record.
             stats.update(self._health.gauges())
+        self._last_phase_stats = stats  # the progress line folds it in
         self.tracker.log(stats, step=self.iter_count)
         if self._metrics_exporter is not None:
             self._metrics_exporter.update(stats, step=self.iter_count)

@@ -1,9 +1,9 @@
 """The runtime race sanitizer, armed by ``TRLX_TPU_SANITIZE=race`` (the
 counterpart of the ``race`` half of ``trlx_tpu.utils.sanitize``).
 
-The static pass (``python -m trlx_tpu.analysis trlx_tpu_torch --select
-GL008``) checks the lexical lock discipline of the port's threads; this
-module checks the dynamic half when armed::
+The static pass (the port's own linter, ``python -m trlx_tpu_torch.analysis
+trlx_tpu_torch --select GL008``) checks the lexical lock discipline of the
+port's threads; this module checks the dynamic half when armed::
 
     TRLX_TPU_SANITIZE=race python -m pytest tests/test_torch_overlap.py
 
