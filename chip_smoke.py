@@ -121,6 +121,15 @@ prefix, a dead slot on the trash block and a fully masked row), then drives
    trainer's progress line is read from its stderr there and on the main
    path (one line a logged step), and ``train_bf16`` runs under
    ``TRLX_TPU_NO_PROGRESS=1`` (no line);
+17. GPT-NeoX-20B (``neox_rm_train``, run third): ``ppo_neox20b_rm_config.yml``
+   as ``default_config`` loads it, at NeoX-20B's published width (64 heads of
+   96) and 4 layers, the policy and an on-device reward model written as NeoX
+   HF directories from seeded weights, mesh [1, 1, 1, 1]: leg (a) at the
+   recipe's 32 + 32 tokens, 2 PPO iterations (einsum attention, the fused
+   head at D = 6144, V = 50432); leg (b) at 768 + 256, one iteration of 8
+   steps and ``evaluate()``, every train and scoring pass and prefill through
+   rows 1-3 at head_dim 96 (rows 1h-3h, held against their plain versions at
+   [8, 1024, 64, 96] beside rows 1-3);
 
 and checks that each path went through every kernel it runs, exactly as
 often as its config says.
@@ -275,12 +284,13 @@ def check_rel(name: str, got, ref, rel: float):
     return check(name, got, ref, tol), tol
 
 
-def phase_flash(gen, T: int, ragged: bool):
-    """Flash attention forward at [8, T, 16, 256] bf16, causal; with
-    ``ragged`` the rows are left-padded to seeded prompt lengths."""
+def phase_flash(gen, T: int, ragged: bool, h: int = 16, d: int = 256):
+    """Flash attention forward at [8, T, h, d] bf16, causal (GPT-J-6B's
+    heads by default; NeoX-20B's are h = 64, d = 96); with ``ragged`` the
+    rows are left-padded to seeded prompt lengths."""
     from trlx_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 
-    b, h, d = 8, 16, 256
+    b = 8
     dev = "cuda"
     q, k, v = (torch.randn((b, T, h, d), generator=gen, device=dev).to(torch.bfloat16) for _ in range(3))
     mask = torch.ones((b, T), device=dev)
@@ -294,7 +304,7 @@ def phase_flash(gen, T: int, ragged: bool):
     # bf16 output (ulp 2^-8 near 1) and bf16 P in the P.V product on both
     # sides; summation order differs (64-key tiles vs one einsum).
     tol = 2e-2
-    err = check(f"flash[T={T}]", out[rows], ref[rows], tol)
+    err = check(f"flash[{b},{T},{h},{d}]", out[rows], ref[rows], tol)
     ms = time_ms(lambda: flash_attention(q, k, v, mask, scale=scale))
     plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, mask, scale=scale), iters=3, warmup=1)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -518,16 +528,17 @@ def phase_logprob(gen):
                 matmul_ms=matmul_ms, matmul="torch.matmul bf16 [N, D] x [D, V], the yardstick of the mainloop")
 
 
-def phase_flash_bwd(gen):
+def phase_flash_bwd(gen, h: int = 16, d: int = 256, suffix: str = ""):
     """Flash attention backward (dq, then dk/dv) at the train shape
-    [8, 1024, 16, 256] bf16, rows left-padded to seeded prompt lengths,
-    with nonzero dO and lse cotangents on the valid rows (padded rows carry
-    none in the model: no later position reads them)."""
+    [8, 1024, h, d] bf16 (GPT-J-6B's heads by default; ``suffix`` names the
+    rows of other heads), rows left-padded to seeded prompt lengths, with
+    nonzero dO and lse cotangents on the valid rows (padded rows carry none
+    in the model: no later position reads them)."""
     from trlx_tpu_torch.ops.flash_attention import (
         flash_attention_bwd_plain, flash_bwd_dkv, flash_bwd_dq, flash_fwd,
     )
 
-    b, T, h, d = 8, MAX_LEN, 16, 256
+    b, T = 8, MAX_LEN
     dev = "cuda"
     scale = d ** -0.5
     q, k, v = (torch.randn((b, T, h, d), generator=gen, device=dev).to(torch.bfloat16) for _ in range(3))
@@ -546,14 +557,14 @@ def phase_flash_bwd(gen):
     dq, dk, dv = pair()
     # No atomics: a second call gives the same bits.
     if not all(torch.equal(x, y) for x, y in zip(pair(), (dq, dk, dv))):
-        raise AssertionError("flash_bwd: a second call of dq / dk / dv differs from the first")
+        raise AssertionError(f"flash_bwd{suffix}: a second call of dq / dk / dv differs from the first")
     rq, rk, rv = flash_attention_bwd_plain(q, k, v, mask, o, lse, do, dlse, scale=scale)
     # bf16 outputs and bf16 P / dS in the products on both sides; tiles vs
     # one einsum sum in another order.
     rel = 2e-2
-    err_q, tol_q = check_rel("flash_bwd.dq", dq[rows], rq[rows], rel)
-    err_k, tol_k = check_rel("flash_bwd.dk", dk, rk, rel)
-    err_v, tol_v = check_rel("flash_bwd.dv", dv, rv, rel)
+    err_q, tol_q = check_rel(f"flash_bwd{suffix}.dq", dq[rows], rq[rows], rel)
+    err_k, tol_k = check_rel(f"flash_bwd{suffix}.dk", dk, rk, rel)
+    err_v, tol_v = check_rel(f"flash_bwd{suffix}.dv", dv, rv, rel)
     del rq, rk, rv
     ms_dq = time_ms(lambda: flash_bwd_dq(q, k, v, mask, do, lse, delta, scale=scale, window=0))
     ms_dkv = time_ms(lambda: flash_bwd_dkv(q, k, v, mask, do, lse, delta, scale=scale, window=0))
@@ -578,7 +589,8 @@ def phase_flash_bwd(gen):
             turns[name].append(time_ms(pair if name == "pair" else sdpa_bwd, iters=10, warmup=1))
     del sdpa_out
     pair_ms, lib_ms = float(np.median(turns["pair"])), float(np.median(turns["sdpa_bwd"]))
-    log(f"[flash_bwd] pair (dq + dk/dv) {pair_ms:.4f} ms vs SDPA backward ({backend}) {lib_ms:.4f} ms, medians of "
+    log(f"[flash_bwd{suffix}] pair (dq + dk/dv) at {[b, T, h, d]} {pair_ms:.4f} ms vs SDPA backward ({backend}) "
+        f"{lib_ms:.4f} ms, medians of "
         f"{BWD_TURNS} alternating turns: ratio {pair_ms / lib_ms:.3f}; turns {json.dumps(turns)}")
     pairs = b * h * T * (T + 1) / 2
     one = b * T * h * d * 2  # one bf16 [b, T, h, d] tensor
@@ -589,10 +601,10 @@ def phase_flash_bwd(gen):
                   pair_ms=pair_ms, pair_over_library=pair_ms / lib_ms,
                   shape=[b, T, h, d])
     return {
-        "flash_attention_bwd_dq": dict(max_abs_err=err_q, tol=tol_q, ms=ms_dq, bound_ms=bdq[0], bound_by=bdq[1],
-                                       **common),
-        "flash_attention_bwd_dkv": dict(max_abs_err=max(err_k, err_v), tol=max(tol_k, tol_v), ms=ms_dkv,
-                                        bound_ms=bdkv[0], bound_by=bdkv[1], **common),
+        f"flash_attention_bwd_dq{suffix}": dict(max_abs_err=err_q, tol=tol_q, ms=ms_dq, bound_ms=bdq[0],
+                                                bound_by=bdq[1], **common),
+        f"flash_attention_bwd_dkv{suffix}": dict(max_abs_err=max(err_k, err_v), tol=max(tol_k, tol_v), ms=ms_dkv,
+                                                 bound_ms=bdkv[0], bound_by=bdkv[1], **common),
     }
 
 
@@ -1106,33 +1118,42 @@ def smoke_config(quant: bool = False, n_layer: int = GPTJ_6B_ARCH["n_layer"], ru
     })
 
 
+def recipe(name: str, model=None, train=None, method=None, gen_kwargs=None):
+    """The port's recipe ``name`` as its user loads it (``default_config``:
+    ``trlx_tpu_torch/configs/<name>_config.yml``), with the fields of each
+    section that a path changes against the recipe as written overridden
+    (``gen_kwargs`` merged into the recipe's)."""
+    from trlx_tpu_torch.data.configs import TRLConfig
+    from trlx_tpu_torch.trainer.api import default_config
+
+    base = default_config(name)
+    sections = {sec: dict(getattr(base, sec).__dict__, **(over or {}))
+                for sec, over in (("model", model), ("train", train), ("method", method))}
+    sections["method"]["gen_kwargs"] = dict(sections["method"]["gen_kwargs"], **(gen_kwargs or {}))
+    return TRLConfig.from_dict(sections)
+
+
 def train_config(n_layer: int, model_type: str, run_dir: str, method=None, quant: bool = False,
                  method_name: str = "ppoconfig", prompt_len: int = PROMPT_LEN, **arch):
-    """The training path's config: GPT-J-6B (depth ``n_layer``) with the
-    method and optimizer values of trlx_tpu/configs/ppo_gptj_config.yml
-    (remat, 2 unfrozen layers, vf_coef 0.2, betas (0.9, 0.95), lr 1.412e-4
-    with a 100-step ramp, 4 PPO epochs, adaptive KL 0.2 → 6), the smoke's
-    768 + 256 lengths, 16 rollouts in chunks of 8, batch 8, 2 epochs and 16
-    steps. ``method`` adds method fields (of ``method_name``'s config),
-    ``quant`` sets model.kv_cache_quant, ``prompt_len`` is the prompt width
-    (256 new tokens after it)."""
-    from trlx_tpu_torch.data.configs import TRLConfig
-
-    return TRLConfig.from_dict({
-        "model": dict(model_path="", tokenizer_path="", model_type=model_type, num_layers_unfrozen=2,
-                      model_arch=dict(GPTJ_6B_ARCH, n_layer=n_layer, **arch), dtype="bfloat16",
-                      param_dtype="float32", remat=True, kv_cache_quant=quant),
-        "train": dict(total_steps=16, seq_length=prompt_len + MAX_LEN - PROMPT_LEN, epochs=2, batch_size=CHUNK,
-                      lr_ramp_steps=100,
-                      lr_decay_steps=79000, weight_decay=1e-6, learning_rate_init=1.412e-4,
-                      learning_rate_target=1.412e-4, opt_betas=[0.9, 0.95], grad_clip=1.0,
-                      checkpoint_interval=10**6, eval_interval=10**6, checkpoint_dir=run_dir, seed=1000),
-        "method": dict(name=method_name, num_rollouts=N_ROLLOUTS, chunk_size=CHUNK, ppo_epochs=4, init_kl_coef=0.2,
-                       target=6, horizon=10000, gamma=1.0, lam=0.95, cliprange=0.2, cliprange_value=0.2,
-                       vf_coef=0.2, gen_kwargs=dict(prompt_length=prompt_len, max_length=prompt_len + MAX_LEN - PROMPT_LEN,
-                                                    min_length=prompt_len + MAX_LEN - PROMPT_LEN, top_k=0, top_p=0.7,
-                                                    temperature=0.5, do_sample=True), **(method or {})),
-    })
+    """The training path's config: ``ppo_gptj_config.yml``'s recipe (remat,
+    2 unfrozen layers, vf_coef 0.2, betas (0.9, 0.95), lr 1.412e-4 with a
+    100-step ramp, 4 PPO epochs, adaptive KL 0.2 → 6, top_p 0.7 at
+    temperature 0.5) at GPT-J-6B width and depth ``n_layer`` from seeded
+    weights, changed to the smoke's 768 + 256 lengths, 16 rollouts in chunks
+    of 8, 2 epochs and 16 steps, mesh [-1, 1, 1, 1] (data parallel over the
+    processes: one but on the mesh paths, which set their own), no save or
+    eval interval inside the run. ``method`` adds method fields (of
+    ``method_name``'s config), ``quant`` sets model.kv_cache_quant,
+    ``prompt_len`` is the prompt width (256 new tokens after it)."""
+    T = prompt_len + MAX_LEN - PROMPT_LEN
+    return recipe(
+        "ppo_gptj",
+        model=dict(model_path="", tokenizer_path="", model_type=model_type,
+                   model_arch=dict(GPTJ_6B_ARCH, n_layer=n_layer, **arch), kv_cache_quant=quant),
+        train=dict(total_steps=16, seq_length=T, epochs=2, eval_interval=10**6, checkpoint_dir=run_dir,
+                   mesh=[-1, 1, 1, 1]),
+        method=dict(name=method_name, num_rollouts=N_ROLLOUTS, **(method or {})),
+        gen_kwargs=dict(prompt_length=prompt_len, max_length=T, min_length=T))
 
 
 def seeded_prompts(n: int, seed: int):
@@ -1374,9 +1395,10 @@ def train_step_launches(kernels, n_layer: int):
 
 def check_train_steps(trainer, config, per_step):
     """Every train step recorded by the timed trainer launched exactly
-    ``per_step``, has finite stats and no guard skip; steps 1 and 9, the
-    first on fresh rollouts (the second make_experience ran with the
-    updated weights), have mean_ratio within 1 +- 0.05: the training
+    ``per_step``, has finite stats and no guard skip; step 1 and the first
+    step of the second epoch (9 at 16 steps and 2 epochs), the first on
+    fresh rollouts (the second make_experience ran with the updated
+    weights), have mean_ratio within 1 +- 0.05: the training
     forward reproduces the rollout policy's statistics. Returns the log."""
     log_, steps = trainer.step_log, config.train.total_steps
     if len(log_) != steps or trainer.iter_count != steps:
@@ -1387,7 +1409,7 @@ def check_train_steps(trainer, config, per_step):
         bad = [k for k, v in rec.items() if k != "launches" and not np.isfinite(v)]
         if bad or rec["resilience/nonfinite"] != 0.0:
             raise AssertionError(f"step {i + 1}: non-finite {bad} or a guard skip ({rec['resilience/nonfinite']})")
-    for i in (0, steps // config.train.epochs):
+    for i in sorted({0, steps // config.train.epochs} & set(range(steps))):  # one epoch: step 1 alone
         if not abs(log_[i]["mean_ratio"] - 1.0) <= 0.05:
             raise AssertionError(f"step {i + 1} mean_ratio {log_[i]['mean_ratio']} is not within 1 +- 0.05")
     return log_
@@ -3385,12 +3407,21 @@ class ByteTokenizer:
                 for row in np.asarray(tokens)]
 
 
-def seeded_texts(n: int, seed: int):
-    """``n`` printable ASCII strings of seeded lengths in [MIN_PROMPT,
-    PROMPT_LEN] bytes."""
+def seeded_texts(n: int, seed: int, lo: int = MIN_PROMPT, hi: int = PROMPT_LEN):
+    """``n`` printable ASCII strings of seeded lengths in [lo, hi] bytes."""
     rng = np.random.default_rng(seed)
-    return ["".join(map(chr, rng.integers(32, 127, size=int(rng.integers(MIN_PROMPT, PROMPT_LEN + 1)))))
-            for _ in range(n)]
+    return ["".join(map(chr, rng.integers(32, 127, size=int(rng.integers(lo, hi + 1))))) for _ in range(n)]
+
+
+# EleutherAI/gpt-neox-20b's published config.json, field for field.
+NEOX_20B_HF_CONFIG = {
+    "architectures": ["GPTNeoXForCausalLM"], "attention_probs_dropout_prob": 0, "bos_token_id": 0, "eos_token_id": 0,
+    "hidden_act": "gelu_fast", "hidden_dropout_prob": 0, "hidden_size": 6144, "initializer_range": 0.02,
+    "intermediate_size": 24576, "layer_norm_eps": 1e-05, "max_position_embeddings": 2048, "model_type": "gpt_neox",
+    "num_attention_heads": 64, "num_hidden_layers": 44, "rotary_emb_base": 10000, "rotary_pct": 0.25,
+    "tie_word_embeddings": False, "torch_dtype": "float16", "transformers_version": "4.24.0.dev0", "use_cache": True,
+    "use_parallel_residual": True, "vocab_size": 50432,
+}
 
 
 def gptj_hf_shapes(n_layer: int):
@@ -3406,14 +3437,42 @@ def gptj_hf_shapes(n_layer: int):
     return shapes
 
 
-class SeededGPTJ:
-    """An HF GPT-J state dict of seeded bf16 values, each made on the card
-    when it is looked up (a pure function of the seed and the name), so the
-    checkpoint is written one tensor at a time and each loaded parameter can
-    be held against the tensor it was written from."""
+def neox_hf_shapes(n_layer: int):
+    """The HF GPT-NeoX state dict's names and shapes at GPT-NeoX-20B width
+    (the fused query_key_value in NeoX's [n_head, 3, head_dim] row order)."""
+    c = NEOX_20B_HF_CONFIG
+    V, D, F_ = c["vocab_size"], c["hidden_size"], c["intermediate_size"]
+    shapes = {"gpt_neox.embed_in.weight": (V, D), "gpt_neox.final_layer_norm.weight": (D,),
+              "gpt_neox.final_layer_norm.bias": (D,), "embed_out.weight": (V, D)}
+    for i in range(n_layer):
+        h = f"gpt_neox.layers.{i}"
+        for ln in ("input_layernorm", "post_attention_layernorm"):
+            shapes.update({f"{h}.{ln}.weight": (D,), f"{h}.{ln}.bias": (D,)})
+        shapes.update({f"{h}.attention.query_key_value.weight": (3 * D, D),
+                       f"{h}.attention.query_key_value.bias": (3 * D,), f"{h}.attention.dense.weight": (D, D),
+                       f"{h}.attention.dense.bias": (D,), f"{h}.mlp.dense_h_to_4h.weight": (F_, D),
+                       f"{h}.mlp.dense_h_to_4h.bias": (F_,), f"{h}.mlp.dense_4h_to_h.weight": (D, F_),
+                       f"{h}.mlp.dense_4h_to_h.bias": (D,)})
+    return shapes
 
-    def __init__(self, n_layer: int, seed: int):
-        self.shapes, self.seed = gptj_hf_shapes(n_layer), seed
+
+# Each family's published config, the key of its depth there, and its state dict's shapes.
+HF_FAMILIES = {"gptj": (GPTJ_6B_HF_CONFIG, "n_layer", gptj_hf_shapes),
+               "gpt_neox": (NEOX_20B_HF_CONFIG, "num_hidden_layers", neox_hf_shapes)}
+
+
+class SeededHF:
+    """An HF state dict of ``family`` (``HF_FAMILIES``) of seeded bf16
+    values, each made on the card when it is looked up (a pure function of
+    the seed and the name), so the checkpoint is written one tensor at a
+    time and each loaded parameter can be held against the tensor it was
+    written from."""
+
+    LN_WEIGHTS = ("ln_1.weight", "ln_f.weight", "input_layernorm.weight", "post_attention_layernorm.weight",
+                  "final_layer_norm.weight")
+
+    def __init__(self, family: str, n_layer: int, seed: int):
+        self.shapes, self.seed = HF_FAMILIES[family][2](n_layer), seed
 
     def __iter__(self):
         return iter(self.shapes)
@@ -3426,7 +3485,7 @@ class SeededGPTJ:
 
         g = torch.Generator(device="cuda").manual_seed(self.seed * 1_000_003 + zlib.crc32(name.encode()))
         x = torch.randn(self.shapes[name], generator=g, device="cuda") * HF_INIT_STD
-        if name.endswith(("ln_1.weight", "ln_f.weight")):
+        if name.endswith(self.LN_WEIGHTS):
             x += 1.0
         return x.to(torch.bfloat16)
 
@@ -3434,32 +3493,35 @@ class SeededGPTJ:
         return sum(2 * int(np.prod(s)) for s in self.shapes.values())
 
 
-def write_hf_gptj(path: str, n_layer: int, seed: int):
-    """A GPT-J HF checkpoint directory: the published config.json (depth
-    ``n_layer``) and bf16 safetensors of ``SeededGPTJ`` in 5 GB shards with
-    an index, written by the port's writer. Returns its record."""
+def write_hf_checkpoint(path: str, family: str, n_layer: int, seed: int):
+    """An HF checkpoint directory of ``family``: the published config.json
+    (depth ``n_layer``) and bf16 safetensors of ``SeededHF`` in 5 GB shards
+    with an index, written by the port's writer. Returns its record."""
     from trlx_tpu_torch.models.safetensors_io import LazyTensor, write_safetensors
 
-    sd = SeededGPTJ(n_layer, seed)
+    sd = SeededHF(family, n_layer, seed)
+    hf_config, depth_key, _ = HF_FAMILIES[family]
     os.makedirs(path)
     with open(os.path.join(path, "config.json"), "w") as f:
-        json.dump(dict(GPTJ_6B_HF_CONFIG, n_layer=n_layer), f, indent=2)
+        json.dump(dict(hf_config, **{depth_key: n_layer}), f, indent=2)
     t0 = time.perf_counter()
     files = write_safetensors(path, {n: LazyTensor(sd.shapes[n], torch.bfloat16, lambda n=n: sd[n]) for n in sd})
     write_s = time.perf_counter() - t0
     params = sum(int(np.prod(s)) for s in sd.shapes.values())
-    return {"path": os.path.basename(path), "n_layer": n_layer, "params_b": params / 1e9, "gb": sd.nbytes() / 1e9,
-            "files": len(files), "write_s": write_s, "write_gb_per_s": sd.nbytes() / 1e9 / write_s}
+    return {"path": os.path.basename(path), "family": family, "n_layer": n_layer, "params_b": params / 1e9,
+            "gb": sd.nbytes() / 1e9, "files": len(files), "write_s": write_s,
+            "write_gb_per_s": sd.nbytes() / 1e9 / write_s}
 
 
-def check_loaded_trunk(model, n_layer: int, seed: int, name: str):
+def check_loaded_trunk(model, n_layer: int, seed: int, name: str, family: str = "gptj"):
     """Every trunk parameter of ``model`` equals, bit for bit, the bf16
-    tensor it was written from, converted (transposed) and cast to f32."""
+    tensor it was written from, converted (transposed; NeoX's fused qkv
+    permuted from [n_head, 3, head_dim]) and cast to f32."""
     from trlx_tpu_torch.models.hf_import import trunk_spec
 
-    sd = SeededGPTJ(n_layer, seed)
+    sd = SeededHF(family, n_layer, seed)
     params = dict(model.transformer.named_parameters())
-    spec = trunk_spec("gptj", model.transformer.cfg)
+    spec = trunk_spec(family, model.transformer.cfg)
     if set(spec) != set(params):
         raise AssertionError(f"{name}: the spec names {len(spec)} tensors, the trunk has {len(params)}")
     bad = [n for n, thunk in spec.items() if not torch.equal(params[n], thunk(sd).to(params[n].dtype))]
@@ -3493,7 +3555,8 @@ def hf_rm_train_path(kernels):
     run_dir = os.path.join(RUN_DIR, "hf_rm_train")
     pol_dir, rm_dir = os.path.join(RUN_DIR, "hf_policy"), os.path.join(RUN_DIR, "hf_reward_model")
     card = card_line()
-    written = [write_hf_gptj(pol_dir, n_layer, seed=1), write_hf_gptj(rm_dir, RM_LAYERS, seed=2)]
+    written = [write_hf_checkpoint(pol_dir, "gptj", n_layer, seed=1),
+               write_hf_checkpoint(rm_dir, "gptj", RM_LAYERS, seed=2)]
     for rec in written:
         log(f"[hf] wrote {json.dumps(rec)} on {card}")
     built = {}
@@ -3594,6 +3657,186 @@ def hf_rm_train_path(kernels):
     free()
     shutil.rmtree(run_dir)
     return out, launches
+
+
+# neox_rm_train: ppo_neox20b_rm_config.yml at GPT-NeoX-20B's width, 4 layers.
+NEOX_LAYERS = 4  # the policy's and the reward model's depth (the recipe's model has 44)
+NEOX_HEAD_DIM = 96  # 6144 / 64 heads
+# The two legs of one launch: (a) the recipe's own lengths, 2 PPO iterations;
+# (b) the smoke's 768 + 256, 1 iteration of 8 steps, then evaluate().
+NEOX_LEGS = {
+    "a": dict(prompt=32, T=64, num_rollouts=32, epochs=2, total_steps=32, min_prompt=16),
+    "b": dict(prompt=PROMPT_LEN, T=MAX_LEN, num_rollouts=16, epochs=1, total_steps=8, min_prompt=MIN_PROMPT),
+}
+NEOX_FLASH_ROWS = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+
+
+class NeoXByteTokenizer(ByteTokenizer):
+    """``ByteTokenizer`` with GPT-NeoX-20B's special token: its tokenizer's
+    ``<|endoftext|>`` is id 0 (bos, eos and pad); printable text bytes
+    (32-126) never collide with it."""
+
+    bos_token_id = eos_token_id = pad_token_id = 0
+
+
+def neox_config(leg: dict, model_type: str, run_dir: str, rm_dir: str):
+    """``default_config("ppo_neox20b_rm")`` with the path's changes against
+    the recipe as written: the policy and reward model from local HF
+    directories of seeded weights (model_path is ``train``'s argument) with
+    the byte tokenizer; mesh [1, 1, 1, 1] (the recipe's [-1, 8, 4, 1] is 32
+    ranks); the leg's lengths (leg a: the recipe's own), rollouts, epochs and
+    steps. Every other value is the recipe's (remat, 2 unfrozen layers,
+    batch 8, chunks of 16, lr 8e-5 → 8e-6, 4 PPO epochs, KL 0.05, top_p 0.9
+    at temperature 0.7, resume_from_checkpoint on a fresh directory)."""
+    return recipe(
+        "ppo_neox20b_rm",
+        model=dict(model_type=model_type, tokenizer_path="byte-level", reward_model_path=rm_dir),
+        train=dict(seq_length=leg["T"], epochs=leg["epochs"], total_steps=leg["total_steps"], mesh=[1, 1, 1, 1],
+                   checkpoint_dir=run_dir),
+        method=dict(num_rollouts=leg["num_rollouts"]),
+        gen_kwargs=dict(prompt_length=leg["prompt"], max_length=leg["T"], min_length=leg["T"]))
+
+
+def neox_expected_launches(kernels, leg: dict, n_layer: int, k: int, chunk: int, batch: int):
+    """The launches of a leg, reckoned from its config: one make_experience
+    an epoch (the first in ``train()``, then one after each epoch but the
+    last, where ``total_steps`` ends the run); a rollout chunk runs
+    the prefill at cache index 0, the policy's re-forward, the reference
+    branch (k blocks) and the reward model, the fused head twice; a train
+    step runs the flash forward twice a layer (remat), its backward once,
+    the fused head's forward once, ds + dx once a 1024-row chunk and dW once;
+    eval runs the prefill and the reward model. Flash only where the JAX
+    routing admits the length (T >= 256, T % 128 == 0); decode attention is
+    the einsum path at head_dim 96 (``decode_attn_eligible`` asks
+    head_dim % 128 == 0), so rows 7-10 launch nothing."""
+    from trlx_tpu_torch.ops.flash_attention import auto_flash_ok
+
+    R = leg["T"] - leg["prompt"]
+    chunks = leg["epochs"] * leg["num_rollouts"] // chunk
+    steps = leg["total_steps"]
+    flash = auto_flash_ok(leg["T"])
+    prefill = n_layer if auto_flash_ok(leg["prompt"]) else 0
+    per_step = dict.fromkeys(kernels, 0)
+    per_step.update({"fused_logprob_fwd": 1, "fused_logprob_bwd_dx": -(-batch * R // 1024), "fused_logprob_bwd_dw": 1,
+                     "flash_attention_fwd": 2 * n_layer if flash else 0,
+                     "flash_attention_bwd_dq": n_layer if flash else 0,
+                     "flash_attention_bwd_dkv": n_layer if flash else 0})
+    total = {name: steps * n for name, n in per_step.items()}
+    total["fused_logprob_fwd"] += 2 * chunks
+    total["flash_attention_fwd"] += chunks * (prefill + ((2 * n_layer + k) if flash else 0)) + prefill \
+        + (n_layer if flash else 0)  # eval: the prefill and the reward model
+    return total, per_step, chunks
+
+
+def neox_leg(kernels, name: str, leg: dict, pol_dir: str, rm_dir: str, card: str):
+    """One leg of ``neox_rm_train``: ``trlx_tpu_torch.train(model_path=<HF
+    dir>, prompts=[str], eval_prompts=[str], metric_fn=<over text>,
+    config=neox_config(...))``, scored by the reward model alone (no
+    reward_fn), through the timed trainer whose end save writes nothing (a
+    4-layer NeoX-20B state is ~27 GB: the smoke's time). Holds the loads
+    against the written tensors, the launches against the reckoning, every
+    step's launches and statistics, the reward model frozen and evaluate()'s
+    reward-model mean finite. Returns its numbers."""
+    import trlx_tpu_torch
+
+    n_layer, k = NEOX_LAYERS, 2
+    run_dir = os.path.join(RUN_DIR, f"neox_rm_train_{name}")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    built = {}
+
+    def on_built(trainer):
+        for m in (trainer.model, trainer.rm_model):
+            if m.cfg.head_dim != NEOX_HEAD_DIM or m.cfg.d_model != NEOX_20B_HF_CONFIG["hidden_size"]:
+                raise AssertionError(f"loaded {m.cfg.d_model} / {m.cfg.head_dim}, not NeoX-20B's width")
+        built["policy_tensors"] = check_loaded_trunk(trainer.model, n_layer, 21, "policy", "gpt_neox")
+        built["rm_tensors"] = check_loaded_trunk(trainer.rm_model, n_layer, 22, "reward model", "gpt_neox")
+        built["rm_fp"] = fingerprint(trainer.rm_model.parameters())
+        built["load"] = trainer.load_log
+
+    cls = make_timed_trainer(kernels, n_layer, tokenizer=NeoXByteTokenizer(), on_built=on_built,
+                             base=no_save_trainer())
+    config = neox_config(leg, cls.__name__, run_dir, rm_dir)
+    chunk, batch = config.method.chunk_size, config.train.batch_size
+    if leg["total_steps"] != leg["epochs"] * leg["num_rollouts"] // batch * config.method.ppo_epochs:
+        raise AssertionError(f"leg ({name}): total_steps must end the run at the last epoch's end")
+    eval_texts = []
+
+    def metric_fn(texts):
+        eval_texts.extend(texts)
+        return text_metric(texts)
+
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    trainer = trlx_tpu_torch.train(
+        model_path=pol_dir, prompts=seeded_texts(leg["num_rollouts"], 30, leg["min_prompt"], leg["prompt"]),
+        eval_prompts=seeded_texts(batch, 31, leg["min_prompt"], leg["prompt"]), metric_fn=metric_fn,
+        config=config)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expected, per_step, chunks = neox_expected_launches(kernels, leg, n_layer, k, chunk, batch)
+    log(f"[neox_rm_train] leg ({name}) launches {launches} expected {expected}")
+    if launches != expected:
+        raise AssertionError(f"leg ({name}): kernel launches {launches} != {expected}")
+    log_ = check_train_steps(trainer, config, per_step)
+    if fingerprint(trainer.rm_model.parameters()) != built["rm_fp"]:
+        raise AssertionError("the reward model changed during training")
+    if not trainer.has_reward_model or trainer.reward_fn is not None or trainer.fused_rollout:
+        raise AssertionError("the path did not score with the reward model alone, unfused")
+    if trainer.saves_skipped != 1:
+        raise AssertionError(f"expected the end save alone (skipped), got {trainer.saves_skipped}")
+    ev = trainer.eval_log
+    if len(ev) != 1 or not np.isfinite(ev[0]["mean_reward"]) or len(eval_texts) != batch:
+        raise AssertionError(f"expected one evaluate() over {batch} texts with a finite mean_reward, got {ev}")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        exp = [r for r in map(json.loads, f) if "exp_time" in r]
+    if len(exp) * leg["num_rollouts"] // chunk != chunks or any(r["exp_reward_s"] != 0.0 for r in exp):
+        raise AssertionError(f"expected {chunks} chunks scored on the device, got {exp}")
+    dev_s = [r["device_s"] for r in log_]
+    out = {
+        "card": card, "wall_s": wall, "peak_mem_gb": peak_gb, "lengths": [leg["prompt"], leg["T"]],
+        "steps": len(log_), "step_device_s_median": float(np.median(dev_s)), "step_device_s": dev_s,
+        "rollout_rows_per_s": [r["exp_per_sec"] for r in exp],
+        "decode_tokens_per_s": [r["exp_decode_tokens_per_s"] for r in exp],
+        "rm_score_ms_per_chunk": [1e3 * r["exp_rm_score_device_s"] / (leg["num_rollouts"] // chunk) for r in exp],
+        "load": built["load"], "checked_tensors": {"policy": built["policy_tensors"], "reward_model": built["rm_tensors"]},
+        "mean_ratio_step1": log_[0]["mean_ratio"], "eval_mean_reward": ev[0]["mean_reward"],
+        "launches_by_row": launches,
+    }
+    log(f"[neox_rm_train] leg ({name}) at GPT-NeoX-20B width ({n_layer} layers, 64 heads x {NEOX_HEAD_DIM}), "
+        f"{leg['prompt']} + {leg['T'] - leg['prompt']} tokens: {json.dumps(out)}")
+    del trainer
+    free()
+    shutil.rmtree(run_dir)
+    return out
+
+
+def neox_rm_train_path(kernels):
+    """``ppo_neox20b_rm_config.yml`` on the card at GPT-NeoX-20B's published
+    width (d_model 6144, 64 heads x 96, d_ff 24576, rotary_dim 24 with NeoX's
+    rotary, parallel residual with two LayerNorms, fused qkv, untied head,
+    vocab 50432) and ``NEOX_LAYERS`` layers: the policy and the reward model
+    written as NeoX HF directories from seeded bf16 weights, then the two
+    legs of ``NEOX_LEGS`` from the same directories (deleted at the end).
+    Leg (b) runs every train and scoring pass and every prefill at cache
+    index 0 through rows 1-3 at head_dim 96; the smoke fails unless each of
+    the three launched. Returns its numbers and leg (b)'s launches."""
+    card = card_line()
+    pol_dir, rm_dir = os.path.join(RUN_DIR, "neox_policy"), os.path.join(RUN_DIR, "neox_reward_model")
+    written = [write_hf_checkpoint(pol_dir, "gpt_neox", NEOX_LAYERS, seed=21),
+               write_hf_checkpoint(rm_dir, "gpt_neox", NEOX_LAYERS, seed=22)]
+    for rec in written:
+        log(f"[hf] wrote {json.dumps(rec)} on {card}")
+    legs = {name: neox_leg(kernels, name, leg, pol_dir, rm_dir, card) for name, leg in NEOX_LEGS.items()}
+    shutil.rmtree(pol_dir)
+    shutil.rmtree(rm_dir)
+    launches = legs["b"]["launches_by_row"]
+    if not all(launches[n] > 0 for n in NEOX_FLASH_ROWS):
+        raise AssertionError(f"leg (b) did not launch rows 1-3 at head_dim {NEOX_HEAD_DIM}: {launches}")
+    return {"written": written, "legs": legs}, launches
 
 
 def text_ppo_path(kernels):
@@ -4292,25 +4535,15 @@ SP_REPORTED_KEYS = ("mean_kl", "mean_return", "mean_advantage", "explained_varia
 
 
 def sp_config(run_dir: str, mesh, total_steps: int):
-    """``trlx_tpu/configs/ppo_long_config.yml``'s model, train and method
-    values (remat, int8 KV, 2 unfrozen layers, seq 4096 from 3072-token
-    prompts, batch 8, 8 rollouts, 4 PPO epochs, its optimizer and sampling)
-    at GPT-J-6B width and ``SP_LAYERS`` layers, with ``mesh`` for train.mesh."""
-    from trlx_tpu_torch.data.configs import TRLConfig
-
-    return TRLConfig.from_dict({
-        "model": dict(model_path="", tokenizer_path="", model_type="ppo", num_layers_unfrozen=2,
-                      model_arch=dict(GPTJ_6B_ARCH, n_layer=SP_LAYERS), dtype="bfloat16", param_dtype="float32",
-                      remat=True, kv_cache_quant=True),
-        "train": dict(seq_length=SP_MAX, epochs=2500, total_steps=total_steps, batch_size=8, lr_ramp_steps=100,
-                      lr_decay_steps=9000, weight_decay=1e-6, learning_rate_init=1e-4, learning_rate_target=1e-5,
-                      opt_betas=[0.9, 0.95], checkpoint_interval=10**6, eval_interval=10**6, mesh=list(mesh),
-                      grad_clip=1.0, seed=1000, checkpoint_dir=run_dir),
-        "method": dict(name="ppoconfig", num_rollouts=8, chunk_size=8, ppo_epochs=4, init_kl_coef=0.2, target=6,
-                       horizon=10000, gamma=1, lam=0.95, cliprange=0.2, cliprange_value=0.2, vf_coef=0.2,
-                       gen_kwargs=dict(prompt_length=SP_PROMPT, max_length=SP_MAX, min_length=SP_MAX, top_k=0,
-                                       top_p=0.9, do_sample=True, temperature=0.7)),
-    })
+    """``ppo_long_config.yml``'s recipe (remat, int8 KV, 2 unfrozen layers,
+    seq 4096 from 3072-token prompts, batch 8, 8 rollouts, 4 PPO epochs, its
+    optimizer and sampling) at GPT-J-6B width and ``SP_LAYERS`` layers from
+    seeded weights, ``total_steps`` steps, no save or eval inside the run,
+    with ``mesh`` for train.mesh."""
+    return recipe("ppo_long",
+                  model=dict(model_path="", tokenizer_path="", model_arch=dict(GPTJ_6B_ARCH, n_layer=SP_LAYERS)),
+                  train=dict(total_steps=total_steps, checkpoint_interval=10**6, eval_interval=10**6,
+                             mesh=list(mesh), checkpoint_dir=run_dir))
 
 
 def sp_run(kernels, mesh, total_steps: int, tag: str):
@@ -5586,12 +5819,14 @@ def main() -> int:
     phases = {}
     for name, fn in (("flash_prefill", lambda: phase_flash(gen, PROMPT_LEN, ragged=True)),
                      ("flash_branch_replay", lambda: phase_flash(gen, MAX_LEN, ragged=False)),
+                     ("flash_neox20b", lambda: phase_flash(gen, MAX_LEN, ragged=True, h=64, d=NEOX_HEAD_DIM)),
                      ("decode", lambda: phase_decode(gen)),
                      ("decode_int8", lambda: phase_decode_int8(gen, phases["decode"].pop("valid"))),
                      ("paged_decode", lambda: phase_paged(gen, quant=False)),
                      ("paged_decode_int8", lambda: phase_paged(gen, quant=True)),
                      ("fused_logprob", lambda: phase_logprob(gen)),
                      ("flash_bwd", lambda: phase_flash_bwd(gen)),
+                     ("flash_bwd_neox20b", lambda: phase_flash_bwd(gen, h=64, d=NEOX_HEAD_DIM, suffix="_h96")),
                      ("fused_logprob_bwd", lambda: phase_logprob_bwd(LOGPROB_BWD_SEED)),
                      ("fused_logprob_f32", lambda: phase_logprob_f32(F32_SEED)),
                      ("fused_logprob_bwd_f32", lambda: phase_logprob_bwd_f32(F32_SEED)),
@@ -5603,7 +5838,7 @@ def main() -> int:
         free()
         shown = {k: v for k, v in phases[name].items() if k != "valid"}
         log(f"[kernel] {name} ({time.perf_counter() - t0:.1f}s): {json.dumps(shown)}")
-    for name in ("flash_bwd", "fused_logprob_bwd", "fused_logprob_bwd_f32"):
+    for name in ("flash_bwd", "flash_bwd_neox20b", "fused_logprob_bwd", "fused_logprob_bwd_f32"):
         phases.update(phases.pop(name))
 
     by_path = {}
@@ -5626,6 +5861,7 @@ def main() -> int:
     free()
     log(f"[resume] ILQL done in {time.perf_counter() - t0:.1f}s")
     run("hf_rm_train", lambda: hf_rm_train_path(kernels))
+    run("neox_rm_train", lambda: neox_rm_train_path(kernels))
     bf16_out, _ = run("rollout_bf16", lambda: main_path(kernels))
     w8_out, _ = run("rollout_w8", lambda: main_path(kernels, w8=True))
     log(f"[rollout-w8] decode tokens/s at GPT-J-6B full depth: W8A16 {w8_out['decode_tokens_per_s']:.1f} against "
@@ -5723,6 +5959,18 @@ def main() -> int:
         if name == "flash_attention_fwd":
             row["branch_replay"] = phases["flash_branch_replay"]
         rows.append(row)
+    # Rows 1h-3h: rows 1-3 at GPT-NeoX-20B's heads, their launches those of
+    # neox_rm_train's leg (b), every flash pass of which is at head_dim 96.
+    for kernel, phase in (("flash_attention_fwd", "flash_neox20b"), ("flash_attention_bwd_dq", "flash_attention_bwd_dq_h96"),
+                          ("flash_attention_bwd_dkv", "flash_attention_bwd_dkv_h96")):
+        p = phases[phase]
+        base_row = next(r for r in rows if r["name"] == kernel)
+        rows.append({"name": f"{kernel}_h96", "route": "cuda", "source": base_row["source"],
+                     "replaces": base_row["replaces"], "launches": by_path["neox_rm_train"][kernel],
+                     "launches_path": "neox_rm_train (leg b)", "max_abs_err": p["max_abs_err"], "tol": p["tol"],
+                     "ms": p["ms"], "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
+                     "library_ms": p["library_ms"], "library": p.get("library", "SDPA with the boolean mask"),
+                     "shape": p["shape"], "share_of_bound": p["bound_ms"] / p["ms"]})
     rows += ring_mode_rows(phases["flash_ring"], phases["ring"], sp_out["launches_by_mode"])
     log(f"[done] total {time.perf_counter() - t_start:.1f}s")
     print(smi)

@@ -467,12 +467,12 @@ def test_ilql_on_fsdp_tp_mesh(mesh_runs, route):
 
 
 def _yaml_case(name, tmp_path, world, n_layer=2):
-    """A JAX package config as written (mesh, method, batch and sequence
-    sizes), at tiny width: no checkpoint or tokenizer to fetch, token
+    """A shipped recipe as written, read from the port's own copy (mesh,
+    method, batch and sequence sizes), at tiny width: no checkpoint or tokenizer to fetch, token
     prompts, 2 steps."""
     import yaml
 
-    with open(os.path.join(ROOT, "trlx_tpu", "configs", name)) as f:
+    with open(os.path.join(ROOT, "trlx_tpu_torch", "configs", name)) as f:
         cfg = yaml.safe_load(f)
     cfg["model"].update(model_path="", tokenizer_path="",
                         model_arch=dict(ARCH, n_layer=n_layer, max_position=cfg["train"]["seq_length"]))

@@ -22,6 +22,13 @@ Padded query rows carry no cotangent (dO = dlse = 0), as in the model, where
 no later position reads them: every row of dk/dv and every valid row of dq
 compare.
 
+Head dim 96 (GPT-NeoX-20B): the kernels store a row of d bf16 as whole
+64-column boxes (``box_chunks`` in ``csrc/common.cuh``), so at d = 96 the
+tile is 128 columns whose last 32 TMA fills with zeros; the key tile of dq
+at each d is the source's rule (``D == 256 ? DQ_BK_D256 : DQ_BK``). The
+walk at d = 96 runs on those zero-padded tiles and must leave the padded
+columns of dq, dk and dv exactly 0 (the kernels do not store them).
+
 The offset frame (ring attention): with ``offset`` key k sits at k + offset
 of the query frame and ``causal=False`` drops the diagonal; the walks'
 ranges and tile tests are written in that frame, as the kernels compute
@@ -50,15 +57,28 @@ WG_ROWS = 64  # query rows of a dq consumer warpgroup (one wgmma M)
 
 
 def _kernel_tiles():
-    """The tile constants of ``csrc/flash_bwd.cu``."""
+    """The tile constants of ``csrc/flash_bwd.cu``, its dq key-tile rule, and
+    the box width rows are stored in (``csrc/common.cuh`` ``box_chunks``)."""
     with open(os.path.join(cuda_lib._CSRC, "flash_bwd.cu")) as f:
         src = f.read()
     names = ("DQ_BQ", "DQ_BK", "DQ_BK_D256", "DKV_BK", "DKV_BQ")
-    return {n: int(re.search(rf"constexpr int {n} = (\d+);", src).group(1)) for n in names}
+    tiles = {n: int(re.search(rf"constexpr int {n} = (\d+);", src).group(1)) for n in names}
+    rule = re.search(r"static constexpr int BK = D == (\d+) \? DQ_BK_D256 : DQ_BK;", src)
+    tiles["DQ_BK_D256_AT"] = int(rule.group(1))
+    with open(os.path.join(cuda_lib._CSRC, "common.cuh")) as f:
+        box = re.search(r"int box_chunks\(int d\) \{ return \(d \+ (\d+)\) / (\d+); \}", f.read())
+    assert int(box.group(1)) + 1 == int(box.group(2))
+    tiles["BOX_COLS"] = int(box.group(2))
+    return tiles
 
 
 TILES = _kernel_tiles()
-DQ_KEY_TILES = (TILES["DQ_BK_D256"], TILES["DQ_BK"])  # d = 256; d = 64 / 128
+DQ_KEY_TILES = (TILES["DQ_BK_D256"], TILES["DQ_BK"])  # d = 256; d = 64 / 96 / 128
+
+
+def dq_key_tile(d):
+    """The dq kernel's keys per ring tile at head dim d (the source's rule)."""
+    return TILES["DQ_BK_D256"] if d == TILES["DQ_BK_D256_AT"] else TILES["DQ_BK"]
 
 
 def _live(r0, rows, k0, bk, window, T, causal=True, offset=0):
@@ -383,3 +403,76 @@ def test_offset_walks_visit_every_reachable_pair_once(T, offset, window, causal,
             dkv_seen[q0:q0 + bq, k0:k0 + bkv] += 1
     assert (dkv_seen[reach] == 1).all()
     assert dkv_seen.max() <= 1
+
+
+def walk_bwd_boxed(q, k, v, kv_mask, o, lse, do, dlse, *, scale, window, causal=True, offset=0):
+    """``walk_bwd`` on the kernels' shared-memory layout: q, k, v and dO
+    padded with zero columns to whole boxes (TMA's fill past d), the dq key
+    tile of this d, and the padded columns of every output checked to be
+    exactly 0 before they are cut (the kernels do not store them)."""
+    d = q.shape[-1]
+    width = -(-d // TILES["BOX_COLS"]) * TILES["BOX_COLS"]
+
+    def pad(x):
+        return torch.nn.functional.pad(x, (0, width - d))
+
+    out = walk_bwd(pad(q), pad(k), pad(v), kv_mask, pad(o), lse, pad(do), dlse, scale=scale, window=window,
+                   dq_bk=dq_key_tile(d), causal=causal, offset=offset)
+    for x in out:
+        assert (x[..., d:] == 0).all()
+    return tuple(x[..., :d] for x in out)
+
+
+@pytest.mark.parametrize("T,window,pads", [(1, 0, (0, 0)), (129, 48, (0, 70)), (200, 5, (3, 130)),
+                                           (300, 100, (0, 130))])
+def test_walk_at_head_dim_96_matches_plain_and_pallas(T, window, pads):
+    """d = 96, float32: the walk on the boxed layout (two 64-column boxes,
+    the second half zeros; 64-key dq tiles) gives the plain backward's dq,
+    dk, dv and the Pallas backward's (interpret mode, one block of T rows)
+    to float32 summation order (TOL)."""
+    d = 96
+    assert -(-d // TILES["BOX_COLS"]) == 2 and dq_key_tile(d) == TILES["DQ_BK"]
+    arrays = _inputs(11 * T, T, d, pads)
+    q, k, v, mask, do, dlse = _torch_case(arrays, torch.float32)
+    scale = d ** -0.5
+    o, lse = _plain_fwd(q, k, v, mask, scale, window)
+    got = walk_bwd_boxed(q, k, v, mask, o, lse, do, dlse, scale=scale, window=window)
+    ref = flash_mod.flash_attention_bwd_plain(q, k, v, mask, o, lse, do, dlse, scale=scale, window=window)
+    rows = mask.bool()
+    torch.testing.assert_close(got[0][rows], ref[0][rows], **TOL)
+    torch.testing.assert_close(got[1], ref[1], **TOL)
+    torch.testing.assert_close(got[2], ref[2], **TOL)
+    q_np, k_np, v_np, mask_np, do_np, dlse_np = arrays
+
+    def f(q_, k_, v_):
+        return jax_flash_attention(q_, k_, v_, jnp.asarray(mask_np), scale=scale, causal=True, window=window,
+                                   block_q=T, block_k=T, interpret=True, return_lse=True)
+
+    _, vjp = jax.vjp(f, jnp.asarray(q_np), jnp.asarray(k_np), jnp.asarray(v_np))
+    want = [np.asarray(x) for x in vjp((jnp.asarray(do_np), jnp.asarray(dlse_np)))]
+    np.testing.assert_allclose(got[0].numpy()[rows.numpy()], want[0][rows.numpy()], **TOL)
+    np.testing.assert_allclose(got[1].numpy(), want[1], **TOL)
+    np.testing.assert_allclose(got[2].numpy(), want[2], **TOL)
+
+
+@pytest.mark.parametrize("T,window,causal,offset", [OFFSET_CASES[i] for i in (0, 4, 6, 9)],
+                         ids=[OFFSET_IDS[i] for i in (0, 4, 6, 9)])
+def test_offset_walk_at_head_dim_96(T, window, causal, offset):
+    """d = 96 in the offset frame, causal and not, bf16 operands: the boxed
+    walk against the same walk on the unpadded d = 96 tensors bit for bit
+    (the zero columns add exact zeros to every sum over d and produce only
+    zero columns), and against the plain backward within 2^-7 of each
+    output's max (one bf16 output rounding on each side)."""
+    d = 96
+    q, k, v, mask, do, dlse = _torch_case(_inputs(T + 96 + abs(offset), T, d, (0, 9)), torch.bfloat16)
+    modes = dict(scale=d ** -0.5, window=window, causal=causal, offset=offset)
+    o, lse = flash_mod.flash_attention_plain(q, k, v, mask, return_lse=True, **modes)
+    reach = flash_mod.reachable(T, T, "cpu", causal=causal, window=window, offset=offset)
+    keep = (reach[None] & mask.bool()[:, None, :]).any(-1) | ~reach.any(-1)[None]
+    do, dlse = (do * keep[:, :, None, None]).to(torch.bfloat16), dlse * keep[:, None, :]
+    boxed = walk_bwd_boxed(q, k, v, mask, o, lse, do, dlse, **modes)
+    plain_walk = walk_bwd(q, k, v, mask, o, lse, do, dlse, dq_bk=dq_key_tile(d), **modes)
+    ref = flash_mod.flash_attention_bwd_plain(q, k, v, mask, o, lse, do, dlse, **modes)
+    for b_, w_, r in zip(boxed, plain_walk, ref):
+        assert torch.equal(b_, w_)
+        assert float((b_.float() - r.float()).abs().max()) <= 2.0 ** -7 * float(r.float().abs().max())

@@ -37,7 +37,7 @@ def _cuda():
 
 
 @pytest.mark.parametrize("T,window,pads", [(128, 0, (0, 37)), (200, 0, (5, 0)), (256, 64, (0, 90)), (200, 8, (0, 37))])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
 def test_flash_kernel_matches_plain(T, window, pads, d):
     dev = _cuda()
     from trlx_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain, flash_fwd
@@ -60,7 +60,7 @@ def test_flash_kernel_matches_plain(T, window, pads, d):
 
 
 @pytest.mark.parametrize("window", [0, 48], ids=["causal", "window48"])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
 @pytest.mark.parametrize("T", [1, 64, 127, 128, 200, 768, 1024])
 def test_flash_fwd_tiles_match_plain(T, d, window):
     """The TMA + wgmma forward at the edges of its 128-query and 64-key
@@ -88,7 +88,7 @@ def test_flash_fwd_tiles_match_plain(T, d, window):
 
 
 @pytest.mark.parametrize("window", [48, 100])
-@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("d", [64, 96, 256])
 def test_flash_fwd_window_ring_is_stable(d, window):
     """With a window, the second consumer warpgroup skips the math of its
     query tile's first key tile (every tile from q0 = 128 on) and later
@@ -548,7 +548,7 @@ def _bwd_case(dev, seed, b, T, h, d, pads):
 
 
 @pytest.mark.parametrize("T,window,pads", _BWD_CASES)
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
 def test_flash_bwd_kernels_match_plain(T, window, pads, d):
     """dq and dk/dv against the plain backward, with the lse cotangent on.
     Padded query rows carry no cotangent, as in the model (no later position
@@ -576,7 +576,7 @@ def test_flash_bwd_kernels_match_plain(T, window, pads, d):
 
 
 @pytest.mark.parametrize("window", [48, 100])
-@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("d", [64, 96, 256])
 def test_flash_bwd_window_ring_is_stable(d, window):
     """The backward twin of ``test_flash_fwd_window_ring_is_stable``: with a
     window, a dq consumer warpgroup skips the math of the key tiles its 64
@@ -602,7 +602,7 @@ def test_flash_bwd_window_ring_is_stable(d, window):
     _close(first[2], ref[2], 2e-2)
 
 
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
 def test_flash_bwd_is_deterministic(d):
     """No atomics: two calls on the same inputs give bit-equal dq, dk, dv."""
     dev = _cuda()
@@ -640,6 +640,105 @@ def test_flash_bwd_strided_inputs(window):
     _close(dqkv[:, :, 0][rows], rq[rows], 2e-2)
     _close(dqkv[:, :, 1], rk, 2e-2)
     _close(dqkv[:, :, 2], rv, 2e-2)
+
+
+@pytest.mark.parametrize("window", [0, 48], ids=["causal", "window48"])
+def test_flash_strided_inputs_at_neox_20b_heads(window):
+    """d = 96 (GPT-NeoX-20B's heads) with q/k/v as the model slices them out
+    of its fused projection: [b, T, 3 * h * 96] in q|k|v blocks, so each is a
+    view whose rows are 3 * h * 96 apart and whose k and v start 192 * h
+    bytes in. Forward and, through ``FlashAttentionFn``, the gradient of the
+    fused tensor against the plain versions; the kernels launch once each."""
+    dev = _cuda()
+    from trlx_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_bwd_plain, flash_attention_plain, flash_bwd_dkv, flash_bwd_dq, flash_fwd,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(18)
+    b, T, h, d = 2, 300, 4, 96
+    qkv = torch.randn((b, T, 3 * h * d), generator=g, device=dev).to(torch.bfloat16).requires_grad_()
+    mask = torch.ones((b, T), device=dev)
+    mask[1, :40] = 0
+    rows = mask.bool()
+    do = (torch.randn((b, T, h, d), generator=g, device=dev) * rows[:, :, None, None]).to(torch.bfloat16)
+    dlse = torch.randn((b, h, T), generator=g, device=dev) * rows[:, None, :]
+    q, k, v = qkv.view(b, T, 3, h, d).unbind(2)
+    assert q.stride() == (3 * h * d * T, 3 * h * d, d, 1)
+    n = (flash_fwd.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    o, lse = flash_attention(q, k, v, mask, scale=d ** -0.5, window=window, return_lse=True)
+    (dqkv,) = torch.autograd.grad((o, lse), (qkv,), (do, dlse))
+    torch.cuda.synchronize()
+    assert (flash_fwd.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches) == tuple(x + 1 for x in n)
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    ro = flash_attention_plain(qd, kd, vd, mask, scale=d ** -0.5, window=window)
+    _close(o[rows], ro[rows], 2e-2)
+    rq, rk, rv = flash_attention_bwd_plain(qd, kd, vd, mask, o.detach(), lse.detach(), do, dlse, scale=d ** -0.5,
+                                           window=window)
+    dq, dk, dv = dqkv.view(b, T, 3, h, d).unbind(2)
+    _close(dq[rows], rq[rows], 2e-2)
+    _close(dk, rk, 2e-2)
+    _close(dv, rv, 2e-2)
+
+
+def test_flash_c_entries_refuse_other_head_dims():
+    """The C entries of rows 1-3 take d in (64, 96, 128, 256) and return
+    cudaErrorInvalidValue (1) for any other d before anything launches,
+    whatever the wrapper's check would have said."""
+    dev = _cuda()
+    from trlx_tpu_torch.ops import cuda_lib
+
+    lib = cuda_lib.lib()
+    for d in (32, 48, 80, 112, 160, 192):
+        b, T, h = 1, 128, 2
+        x = torch.zeros((b, T, h, d), dtype=torch.bfloat16, device=dev)
+        kmask = torch.ones((b, T), device=dev)
+        rowv = torch.zeros((b, h, T), device=dev)
+        out = torch.empty_like(x)
+        st = (*x.stride()[:3],) * 3
+        s = cuda_lib.stream_ptr(dev)
+        assert lib.flash_fwd_bf16(x.data_ptr(), x.data_ptr(), x.data_ptr(), kmask.data_ptr(), out.data_ptr(),
+                                  rowv.data_ptr(), b, T, h, d, *st, 1.0, 0, 1, 0, s) == 1, d
+        assert lib.flash_bwd_dq_bf16(x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(), kmask.data_ptr(),
+                                     rowv.data_ptr(), rowv.data_ptr(), out.data_ptr(), b, T, h, d, *st, 1.0, 0, 1, 0,
+                                     s) == 1, d
+        assert lib.flash_bwd_dkv_bf16(x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(), kmask.data_ptr(),
+                                      rowv.data_ptr(), rowv.data_ptr(), out.data_ptr(), out.data_ptr(), b, T, h, d,
+                                      *st, 1.0, 0, 1, 0, s) == 1, d
+    torch.cuda.synchronize()
+
+
+def test_fused_logprob_at_the_neox_20b_width():
+    """Rows 4-6 at GPT-NeoX-20B's head (D = 6144, V = 50432, untied, no
+    bias, an f32 master read in bf16) over N = 1300 rows (two backward
+    chunks, the second ragged), as the D = 256 tests hold the bf16 mode: the
+    forward on logits of unit spread within 5e-2 (the plain version rounds
+    its logits to bf16, the kernel keeps them in f32), then dx / dW within
+    2e-2 / 1e-2 of their max with logits spread as a trained head's (std
+    ~3.5)."""
+    dev = _cuda()
+    from trlx_tpu_torch.ops import fused_logprob as fl
+
+    g = torch.Generator(device=dev).manual_seed(19)
+    N, D, V = 1300, 6144, 50432
+    x = torch.randn((N, D), generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn((D, V), generator=g, device=dev) * D ** -0.5
+    y = torch.randint(0, V, (N,), generator=g, device=dev)
+    n = (fl.fused_logprob_fwd.launches, fl.fused_logprob_bwd_dx.launches, fl.fused_logprob_bwd_dw.launches)
+    got = fl.fused_logprob_fwd(x, w, y)
+    for gv, rv in zip(got, fl.naive_logprob(x, w, y)):
+        torch.testing.assert_close(gv, rv, rtol=0, atol=5e-2)
+    w *= 3.5
+    _, lse, ent = fl.fused_logprob_fwd(x, w, y)
+    dlp, dlse, dent = (torch.randn((N,), generator=g, device=dev) for _ in range(3))
+    dx, dw, db = fl.fused_logprob_bwd(x, w, None, y, lse, ent, dlp, dlse, dent)
+    torch.cuda.synchronize()
+    chunks = -(-N // fl.BWD_CHUNK_ROWS)
+    assert (fl.fused_logprob_fwd.launches, fl.fused_logprob_bwd_dx.launches,
+            fl.fused_logprob_bwd_dw.launches) == (n[0] + 2, n[1] + chunks, n[2] + 1)
+    rdx, rdw, _ = fl.fused_logprob_bwd_plain(x, w, None, y, lse, ent, dlp, dlse, dent)
+    assert db is None and dx.dtype == torch.bfloat16 and dw.dtype == torch.float32
+    _close(dx, rdx, 2e-2)
+    _close(dw, rdw, 1e-2)
 
 
 @pytest.mark.parametrize("xdtype,tied,bias,wdtype", _HEAD_MODES + [(torch.bfloat16, True, True, torch.float32),
@@ -1572,7 +1671,7 @@ _MODE_CASES = [(T, off, causal, window) for T in (128, 200) for off in (-2 * T, 
 
 @pytest.mark.parametrize("T,offset,causal,window", _MODE_CASES,
                          ids=[f"T{T}-off{o}-{'causal' if c else 'full'}-w{w}" for T, o, c, w in _MODE_CASES])
-@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("d", [64, 96, 256])
 def test_flash_modes_match_plain(T, offset, causal, window, d):
     """Forward, dq and dk/dv in the offset frame against the plain versions.
     Rows with a valid reachable key compare; rows that reach no key get o = 0

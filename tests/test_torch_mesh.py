@@ -65,7 +65,7 @@ def test_ppo_long_config_mesh_is_accepted():
     """``ppo_long_config.yml`` asks for dp 1, fsdp 2, tp 2: accepted before
     anything is built (the port shards over every axis), and its sp-only
     form too."""
-    config = TRLConfig.load_yaml(os.path.join(ROOT, "trlx_tpu", "configs", "ppo_long_config.yml"))
+    config = TRLConfig.load_yaml(os.path.join(ROOT, "trlx_tpu_torch", "configs", "ppo_long_config.yml"))
     assert tuple(config.train.mesh) == (1, 2, 2, -1)
     refuse_unported(config)
     assert port_mesh.resolve_mesh_shape(config.train.mesh, 8) == jax_resolve(config.train.mesh, 8) == (1, 2, 2, 2)

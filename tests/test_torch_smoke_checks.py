@@ -179,3 +179,61 @@ def test_smoke_byte_tokenizer_round_trip():
     ids = tok(text)["input_ids"]
     assert len(ids) == len(text) and max(ids) < 127
     assert tok.batch_decode([[50256, 50256, *ids, 50256]]) == [text]
+
+
+def test_smoke_neox_checkpoint_layout(tmp_path):
+    """The NeoX HF directory ``neox_rm_train`` writes: the published
+    GPT-NeoX-20B config maps to its width (64 heads of 96, rotary_dim 24
+    with NeoX's rotary, two LayerNorms in the parallel block, fused qkv with
+    bias, an untied head over 50432), and its tensor names are exactly the
+    HF GPT-NeoX state dict the port's exporter checks against."""
+    import json
+
+    from trlx_tpu_torch.models.hf_export import hf_state_keys
+    from trlx_tpu_torch.models.hf_import import lm_config_from_hf, read_hf_config
+
+    (tmp_path / "config.json").write_text(json.dumps(chip_smoke.NEOX_20B_HF_CONFIG))
+    cfg = lm_config_from_hf(read_hf_config(str(tmp_path)))
+    assert (cfg.d_model, cfg.n_head, cfg.head_dim, cfg.ff_dim, cfg.vocab_size) == (6144, 64, 96, 24576, 50432)
+    assert cfg.head_dim == chip_smoke.NEOX_HEAD_DIM and cfg.rotary_dim == 24 and cfg.extra.get("neox_rotary")
+    assert cfg.fused_qkv and cfg.qkv_bias and cfg.parallel_residual and cfg.use_parallel_ln
+    assert not cfg.tie_word_embeddings
+    for n_layer in (chip_smoke.NEOX_LAYERS, 44):
+        assert set(chip_smoke.neox_hf_shapes(n_layer)) == hf_state_keys("gpt_neox", cfg.replace(n_layer=n_layer))
+
+
+def test_smoke_neox_recipe_changes():
+    """``neox_rm_train``'s configs are ``ppo_neox20b_rm_config.yml`` as the
+    port loads it, but for the changes the path lists: lengths, rollouts,
+    epochs and steps of each leg, mesh [1, 1, 1, 1], the local directories
+    and the byte tokenizer. Leg (a) keeps the recipe's own lengths, and each
+    leg's steps end the run at the end of its last epoch."""
+    from trlx_tpu_torch.trainer.api import default_config
+
+    base = default_config("ppo_neox20b_rm")
+    changed = {"seq_length", "epochs", "total_steps", "mesh", "checkpoint_dir", "num_rollouts", "gen_kwargs",
+               "model_type", "tokenizer_path", "reward_model_path"}
+    for name, leg in chip_smoke.NEOX_LEGS.items():
+        cfg = chip_smoke.neox_config(leg, "ppo", f"/run/{name}", "/rm")
+        got, want = cfg.to_dict(), base.to_dict()
+        assert {k for k in want if got[k] != want[k]} <= changed, name
+        assert tuple(cfg.train.mesh) == (1, 1, 1, 1) and cfg.model.reward_model_path == "/rm"
+        g = cfg.method.gen_kwargs
+        assert (g["prompt_length"], g["max_length"], cfg.train.seq_length) == (leg["prompt"], leg["T"], leg["T"])
+        assert {k: g[k] for k in ("top_p", "temperature", "top_k")} == {
+            k: base.method.gen_kwargs[k] for k in ("top_p", "temperature", "top_k")}
+        assert cfg.train.total_steps == (cfg.train.epochs * cfg.method.num_rollouts // cfg.train.batch_size
+                                         * cfg.method.ppo_epochs)
+    a = chip_smoke.NEOX_LEGS["a"]
+    assert (a["prompt"], a["T"]) == (base.method.gen_kwargs["prompt_length"], base.train.seq_length)
+
+
+def test_smoke_neox_byte_tokenizer_round_trip():
+    """The NeoX byte tokenizer: GPT-NeoX-20B's <|endoftext|> id 0 is BOS, EOS
+    and pad, skipped when decoding; text bytes never take it."""
+    tok = chip_smoke.NeoXByteTokenizer()
+    text = "".join(chip_smoke.seeded_texts(1, 0, 16, 32))
+    ids = tok(text)["input_ids"]
+    assert 16 <= len(ids) == len(text) <= 32 and min(ids) >= 32
+    assert (tok.bos_token_id, tok.eos_token_id, tok.pad_token_id) == (0, 0, 0)
+    assert tok.batch_decode([[0, 0, *ids, 0]]) == [text]

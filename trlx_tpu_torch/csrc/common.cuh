@@ -20,6 +20,14 @@
 // floor(a / b) for b > 0 and any sign of a (C's division truncates).
 __host__ __device__ __forceinline__ int floor_div(int a, int b) { return a >= 0 ? a / b : -((b - 1 - a) / b); }
 
+// The head dims the flash kernels are instantiated for (ops/flash_attention.py
+// KERNEL_HEAD_DIMS); the C entries refuse every other d.
+__host__ __device__ constexpr bool flash_head_dim_ok(int d) { return d == 64 || d == 96 || d == 128 || d == 256; }
+
+// 64-column (128-byte) TMA boxes a row of d bf16 takes in shared memory: d
+// rounded up to a whole box (d = 96: two boxes, columns 96-127 zero-filled).
+__host__ __device__ constexpr int box_chunks(int d) { return (d + 63) / 64; }
+
 // The flash kernels' position rule, shared by the forward, dq and dk/dv (the
 // JAX kernels' _masked_scores): a key at position kpos of the query frame
 // (its index plus the block's offset) is reachable from query row `row`

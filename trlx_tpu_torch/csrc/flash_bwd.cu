@@ -78,7 +78,16 @@
 //   then dk += dS^T.Q (RS, Q MN-major).
 // Forming S^T rather than S puts P^T and dS^T straight into the A-fragment
 // layout. Shared memory at d = 256: K + V 64 KB, two stages of Q + dO 128
-// KB, the P^T tile 16 KB: 208 KB. One design serves d = 64/128/256.
+// KB, the P^T tile 16 KB: 208 KB. One design serves d = 64/96/128/256.
+//
+// d = 96 (GPT-NeoX-20B) keeps d = 128's tiles and layout: a row of 96 bf16
+// (192 bytes) is stored as two 64-column boxes whose second box has its
+// columns 96-127 zero-filled by TMA's out-of-bounds fill (the tensor maps'
+// inner dimension is d, so nothing past column 96 is read from memory). The
+// products that reduce over d (S = Q.K^T, dP = dO.V^T and their transposes)
+// take the 6 k16 steps of the 96 columns only; those whose N is d (dS.K,
+// P^T.dO, dS^T.Q) run m64n64 on both boxes, and the accumulators' columns
+// 96-127 (zeros) are not stored.
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -111,8 +120,9 @@ struct BwdParams {
 };
 
 // out rows row0 and row0 + 8 of a [64, d] f32 accumulator (the wgmma
-// fragment of this thread) times `mul`, as bf16, rows past T dropped.
-template <int CH>
+// fragment of this thread, box_chunks(d) boxes of 64 columns) times `mul`,
+// as bf16, rows past T and the zero-filled columns past d dropped.
+template <int D, int CH = box_chunks(D)>
 __device__ __forceinline__ void store_acc(__nv_bfloat16* out, const float (&acc)[CH][32], int row0, int T,
                                           size_t orow, float mul, int t4) {
   const int row1 = row0 + 8;
@@ -120,6 +130,7 @@ __device__ __forceinline__ void store_acc(__nv_bfloat16* out, const float (&acc)
   for (int c = 0; c < CH; ++c)
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
+      if (c * 64 + j * 8 >= D) continue;
       const int col = c * 64 + j * 8 + 2 * t4;
       if (row0 < T)
         *reinterpret_cast<uint32_t*>(out + (size_t)row0 * orow + col) =
@@ -149,10 +160,10 @@ __device__ __forceinline__ float dead_or_log2(float lse) {
   return lse > TRLX_DEAD_LSE ? lse * LOG2E : __int_as_float(0x7f800000);
 }
 
-template <int D>
-__device__ __forceinline__ void init_acc(float (&acc)[D / 64][32]) {
+template <int CH>
+__device__ __forceinline__ void init_acc(float (&acc)[CH][32]) {
 #pragma unroll
-  for (int c = 0; c < D / 64; ++c)
+  for (int c = 0; c < CH; ++c)
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
 }
@@ -164,8 +175,8 @@ __device__ __forceinline__ void init_acc(float (&acc)[D / 64][32]) {
 template <int D>
 struct DqSmem {
   static constexpr int BK = D == 256 ? DQ_BK_D256 : DQ_BK;
-  static constexpr int Q_BYTES = DQ_BQ * D * 2;  // Q, and dO
-  static constexpr int KV_BYTES = BK * D * 2;    // one K or V tile
+  static constexpr int Q_BYTES = DQ_BQ * box_chunks(D) * 128;  // Q, and dO
+  static constexpr int KV_BYTES = BK * box_chunks(D) * 128;    // one K or V tile
   static constexpr int Q = 0;
   static constexpr int DO = Q + Q_BYTES;
   static constexpr int K = DO + Q_BYTES;               // K[stage]
@@ -182,7 +193,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                         const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                         BwdParams p) {
   using L = DqSmem<D>;
-  constexpr int CH = D / 64, BK = L::BK, NS = BK / 2;  // NS: registers of a 64 x BK tile a thread
+  constexpr int CH = box_chunks(D), BK = L::BK, NS = BK / 2;  // NS: registers of a 64 x BK tile a thread
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = align_1024(smem_raw);
   const uint32_t sbase = smem_u32(sm);
@@ -266,7 +277,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   const int2 sp1 = flash_key_span(row1, T, p.causal, p.window, p.offset);
 
   float acc[CH][32];
-  init_acc<D>(acc);
+  init_acc<CH>(acc);
   const uint32_t q_base = sbase + L::Q + cw * 64 * 128;
   const uint32_t do_base = sbase + L::DO + cw * 64 * 128;
   mbar_wait(bar_q, 0);
@@ -343,7 +354,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   }
 
   const size_t orow = (size_t)p.h * D;
-  store_acc<CH>(p.dq + (size_t)bi * T * orow + (size_t)hi * D, acc, row0, T, orow, p.scale, t4);
+  store_acc<D>(p.dq + (size_t)bi * T * orow + (size_t)hi * D, acc, row0, T, orow, p.scale, t4);
 }
 
 // ---------------------------------------------------------------------------
@@ -352,8 +363,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 
 template <int D>
 struct DkvSmem {
-  static constexpr int KV_BYTES = DKV_BK * D * 2;  // K, or V
-  static constexpr int QD_BYTES = DKV_BQ * D * 2;  // one Q or dO tile
+  static constexpr int KV_BYTES = DKV_BK * box_chunks(D) * 128;  // K, or V
+  static constexpr int QD_BYTES = DKV_BQ * box_chunks(D) * 128;  // one Q or dO tile
   static constexpr int K = 0;
   static constexpr int V = K + KV_BYTES;
   static constexpr int Q = V + KV_BYTES;                  // Q[stage]
@@ -373,7 +384,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                          const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                          BwdParams p) {
   using L = DkvSmem<D>;
-  constexpr int CH = D / 64;
+  constexpr int CH = box_chunks(D);
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = align_1024(smem_raw);
   const uint32_t sbase = smem_u32(sm);
@@ -461,7 +472,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   const float mask2 = TRLX_MASK_VAL * LOG2E;
 
   float acc[CH][32];
-  init_acc<D>(acc);
+  init_acc<CH>(acc);
   mbar_wait(bar_kv, 0);
   const bool kv0 = kms[key0 - k0] > 0.5f, kv1 = kms[key1 - k0] > 0.5f;
   // The query rows that reach keys key0 and key1 by position.
@@ -548,9 +559,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   const size_t orow = (size_t)p.h * D;
   const size_t off = (size_t)bi * T * orow + (size_t)hi * D;
   if (p_group)
-    store_acc<CH>(p.dv + off, acc, key0, T, orow, 1.f, t4);
+    store_acc<D>(p.dv + off, acc, key0, T, orow, 1.f, t4);
   else
-    store_acc<CH>(p.dk + off, acc, key0, T, orow, p.scale, t4);
+    store_acc<D>(p.dk + off, acc, key0, T, orow, p.scale, t4);
 }
 
 // ---------------------------------------------------------------------------
@@ -610,7 +621,7 @@ extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v, co
                                  const void* lse, const void* delta, void* dq, int b, int T, int h, int d, int qsb,
                                  int qst, int qsh, int ksb, int kst, int ksh, int vsb, int vst, int vsh, float scale,
                                  int window, int causal, int offset, void* stream) {
-  if (d != 64 && d != 128 && d != 256) return (int)cudaErrorInvalidValue;
+  if (!flash_head_dim_ok(d)) return (int)cudaErrorInvalidValue;
   Maps m;
   if (!make_maps(&m, q, k, v, dout, b, T, h, d, qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh, DQ_BQ,
                  d == 256 ? DQ_BK_D256 : DQ_BK))
@@ -620,8 +631,10 @@ extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v, co
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64: return (int)launch_dq<64>(m, p, s);
+    case 96: return (int)launch_dq<96>(m, p, s);
     case 128: return (int)launch_dq<128>(m, p, s);
-    default: return (int)launch_dq<256>(m, p, s);
+    case 256: return (int)launch_dq<256>(m, p, s);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -629,7 +642,7 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, c
                                   const void* lse, const void* delta, void* dk, void* dv, int b, int T, int h, int d,
                                   int qsb, int qst, int qsh, int ksb, int kst, int ksh, int vsb, int vst, int vsh,
                                   float scale, int window, int causal, int offset, void* stream) {
-  if (d != 64 && d != 128 && d != 256) return (int)cudaErrorInvalidValue;
+  if (!flash_head_dim_ok(d)) return (int)cudaErrorInvalidValue;
   Maps m;
   if (!make_maps(&m, q, k, v, dout, b, T, h, d, qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh, DKV_BQ, DKV_BK))
     return (int)cudaErrorInvalidValue;
@@ -639,7 +652,9 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, c
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64: return (int)launch_dkv<64>(m, p, s);
+    case 96: return (int)launch_dkv<96>(m, p, s);
     case 128: return (int)launch_dkv<128>(m, p, s);
-    default: return (int)launch_dkv<256>(m, p, s);
+    case 256: return (int)launch_dkv<256>(m, p, s);
+    default: return (int)cudaErrorInvalidValue;
   }
 }

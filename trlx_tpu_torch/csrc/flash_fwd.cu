@@ -46,7 +46,16 @@
 //   barriers and frees their stage, so each consumer observes every phase of
 //   the ring. A CTA whose rows reach no key walks no tile.
 // Shared memory at d = 256: Q 64 KB + 2 x (K 32 KB + V 32 KB) = 192 KB.
-// The same template serves d = 64 and 128 (GPT-2, NeoX families).
+// The same template serves d = 64 (GPT-2), 96 (GPT-NeoX-20B: 6144 / 64
+// heads) and 128 (GPT-Neo 1.3B / 2.7B). A row of 96 bf16 is 192 bytes, one
+// and a half 128-byte boxes: its tile is stored as two 64-column boxes (the
+// layout, swizzle and descriptors of d = 128), the second box's columns
+// 96-127 zero-filled by TMA's out-of-bounds fill (the tensor map's inner
+// dimension is d, so nothing past column 96 is read from memory). Q.K^T
+// reduces over the 6 k16 steps of the 96 columns only; P.V runs m64n64 on
+// both boxes, and the accumulator's columns 96-127 (zeros) are not stored:
+// a third of the second box's P.V products, 1/7 of the kernel's tensor-core
+// work, is spent on the padding. Shared memory is d = 128's (128 KB).
 // Tensor maps are encoded on the host per call over the strided views,
 // through cudaGetDriverEntryPoint (no -lcuda), and passed as
 // __grid_constant__ parameters.
@@ -77,9 +86,9 @@ struct FlashParams {
 // ---- shared-memory layout ---------------------------------------------------
 template <int D>
 struct Smem {
-  static constexpr int CHUNKS = D / 64;                    // 128-byte column boxes per row
-  static constexpr int Q_BYTES = BQ * D * 2;
-  static constexpr int KV_BYTES = BK * D * 2;
+  static constexpr int CHUNKS = box_chunks(D);             // 128-byte column boxes per row
+  static constexpr int Q_BYTES = BQ * CHUNKS * 128;
+  static constexpr int KV_BYTES = BK * CHUNKS * 128;
   static constexpr int Q = 0;
   static constexpr int K = Q + Q_BYTES;                     // K[stage]
   static constexpr int V = K + STAGES * KV_BYTES;           // V[stage]
@@ -296,6 +305,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   for (int c = 0; c < CH; ++c)
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
+      if (c * 64 + j * 8 >= D) continue;  // the zero-filled columns past d (d = 96)
       const int col = c * 64 + j * 8 + 2 * t4;
       if (row0 < T)
         *reinterpret_cast<uint32_t*>(ob + (size_t)row0 * orow + col) =
@@ -328,7 +338,7 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, const
                               int b, int T, int h, int d, int qsb, int qst, int qsh, int ksb, int kst, int ksh,
                               int vsb, int vst, int vsh, float scale, int window, int causal, int offset,
                               void* stream) {
-  if (d != 64 && d != 128 && d != 256) return (int)cudaErrorInvalidValue;
+  if (!flash_head_dim_ok(d)) return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, d, T, h, b, qst, qsh, qsb, BQ) || !make_map(&tk, k, d, T, h, b, kst, ksh, ksb, BK) ||
       !make_map(&tv, v, d, T, h, b, vst, vsh, vsb, BK))
@@ -344,7 +354,9 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, const
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64: return (int)launch<64>(tq, tk, tv, p, s);
+    case 96: return (int)launch<96>(tq, tk, tv, p, s);
     case 128: return (int)launch<128>(tq, tk, tv, p, s);
-    default: return (int)launch<256>(tq, tk, tv, p, s);
+    case 256: return (int)launch<256>(tq, tk, tv, p, s);
+    default: return (int)cudaErrorInvalidValue;
   }
 }

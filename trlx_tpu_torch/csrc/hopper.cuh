@@ -8,9 +8,10 @@
 //
 // Shared-memory tiles are TMA boxes of 64 bf16 columns (128 bytes, the
 // 128-byte swizzle's span) by `rows` rows; a [rows, d] tile is d / 64 such
-// boxes one after another, each rows * 128 bytes, every base 1024-aligned
-// (the swizzle pattern repeats every 8 rows of 128 bytes). One tile can be
-// read both ways:
+// boxes one after another (d rounded up to a whole box: at d = 96 the second
+// box's columns 96-127 are TMA's zero fill), each rows * 128 bytes, every
+// base 1024-aligned (the swizzle pattern repeats every 8 rows of 128 bytes).
+// One tile can be read both ways:
 // - K-major (the reduction runs along the 64 columns): start at the box of
 //   column 16 kk, plus (kk % 4) * 32 bytes, leading offset unused, stride
 //   1024 (8 rows);

@@ -32,9 +32,10 @@ default; a disarmed hook costs one dict load.
   when a ``CollectiveTimeout`` aborts the run: the wedged peer cannot dump,
   so the aborting rank collects every rank's files.
 
-The report's fleet section (``observability/report.py``) is not ported.
-Imports are stdlib and numpy (the mesh's host collectives load inside
-``clock_sync``), so tooling can read the files offline.
+The report renders these files as its fleet section
+(``observability/report.py`` ``_fleet_section``). Imports are stdlib and
+numpy (the mesh's host collectives load inside ``clock_sync``), so tooling
+can read the files offline.
 """
 
 import json

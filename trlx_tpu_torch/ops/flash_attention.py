@@ -23,7 +23,7 @@ from trlx_tpu_torch.ops import cuda_lib
 MASK_VAL = -1e9
 M_INIT = -1e30
 DEAD_LSE = -1e29  # below this, a row's lse is M_INIT: its forward reached no key
-KERNEL_HEAD_DIMS = (64, 128, 256)
+KERNEL_HEAD_DIMS = (64, 96, 128, 256)  # csrc/common.cuh flash_head_dim_ok
 
 
 def auto_flash_ok(q_len: int) -> bool:
@@ -279,7 +279,7 @@ def flash_attention(q, k, v, kv_mask, *, scale: float, causal: bool = True, wind
 
     Differentiable through ``FlashAttentionFn`` whenever grad is enabled and
     q, k or v requires it. CPU tensors take the plain versions; CUDA tensors
-    launch the kernels (bf16, head_dim 64/128/256, any T) or raise."""
+    launch the kernels (bf16, head_dim 64/96/128/256, any T) or raise."""
     modes = dict(scale=float(scale), causal=bool(causal), window=int(window), offset=int(offset))
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         o, lse = FlashAttentionFn.apply(q, k, v, kv_mask, *modes.values())

@@ -29,7 +29,11 @@ _CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__fil
 
 
 def default_config(name: str) -> TRLConfig:
-    """The default config of method ``name`` ("ppo" or "ilql")."""
+    """The recipe ``name`` from ``trlx_tpu_torch/configs/<name>_config.yml``,
+    the port's copies of the JAX package's seven: "ppo" and "ilql" (the
+    defaults of ``train()``), "ppo_softprompt", "ppo_gptj" (GPT-J-6B),
+    "ppo_long" (T = 4096 over an sp ring), "ppo_neox20b_rm" (GPT-NeoX-20B
+    with an on-device reward model) and "test" (the small fixture)."""
     return TRLConfig.load_yaml(os.path.join(_CONFIG_DIR, f"{name}_config.yml"))
 
 
