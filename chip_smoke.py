@@ -154,6 +154,7 @@ import contextlib
 import gc
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -299,6 +300,8 @@ def phase_flash(gen, T: int, ragged: bool, h: int = 16, d: int = 256):
         mask = (torch.arange(T, device=dev)[None, :] >= (T - lens)[:, None]).float()
     scale = d ** -0.5
     out = flash_attention(q, k, v, mask, scale=scale)
+    if not torch.equal(flash_attention(q, k, v, mask, scale=scale), out):
+        raise AssertionError(f"flash[{b},{T},{h},{d}]: a second call differs from the first")
     ref = flash_attention_plain(q, k, v, mask, scale=scale)
     rows = mask.bool()  # query rows with a valid own key; pad rows differ by design
     # bf16 output (ulp 2^-8 near 1) and bf16 P in the P.V product on both
@@ -606,6 +609,87 @@ def phase_flash_bwd(gen, h: int = 16, d: int = 256, suffix: str = ""):
         f"flash_attention_bwd_dkv{suffix}": dict(max_abs_err=max(err_k, err_v), tol=max(tol_k, tol_v), ms=ms_dkv,
                                                  bound_ms=bdkv[0], bound_by=bdkv[1], **common),
     }
+
+
+# Rows 1h-3h in every mode at head_dim 96, small shapes (b = 3: no padding,
+# a third left-padded, a wholly masked row; h = 4): (name, T, causal,
+# offset, window). Ragged T cuts the 128-key tiles of the forward and of a
+# dk/dv CTA (T = 65 and 130: the upper warpgroup's keys past T, or some).
+H96_MODES = (("causal-T1", 1, True, 0, 0), ("causal-T65", 65, True, 0, 0), ("causal-T130", 130, True, 0, 0),
+             ("causal-T1000", 1000, True, 0, 0), ("noncausal", 1000, False, 0, 0), ("window100", 1000, True, 0, 100),
+             ("window48-noncausal", 300, False, 0, 48), ("offset-past", 1000, True, -1000, 0),
+             ("offset37", 1000, True, 37, 0), ("offset-future", 300, True, 300, 0),
+             ("offset-64-window48", 300, True, -64, 48))
+
+
+def flash_h96_case(gen, T: int, causal: bool, offset: int, window: int, b: int = 3, h: int = 4):
+    """Rows 1h-3h at [b, T, h, 96] in one mode against the plain versions,
+    as ``tests/test_torch_gpu.py`` holds the modes: o and lse on the rows
+    with a valid reachable key (0.02 / 0.01 absolute), rows that reach no key
+    exactly 0 and M_INIT; dq on those rows and every row of dk / dv within
+    2e-2 of each output's max, with cotangents on the rows that carry them in
+    the model (a valid reachable key, or none reachable). Two calls of the
+    forward and of the backward give the same bits. Returns the errors."""
+    from trlx_tpu_torch.ops.flash_attention import (
+        M_INIT, flash_attention_bwd, flash_attention_bwd_plain, flash_attention_plain, flash_fwd, reachable,
+    )
+
+    d, dev = NEOX_HEAD_DIM, "cuda"
+    q, k, v = (torch.randn((b, T, h, d), generator=gen, device=dev).to(torch.bfloat16) for _ in range(3))
+    mask = torch.ones((b, T), device=dev)
+    mask[1, : T // 3] = 0
+    mask[2] = 0
+    reach = reachable(T, T, dev, causal=causal, window=window, offset=offset)
+    good = (reach[None] & mask.bool()[:, None, :]).any(-1)
+    dead = ~reach.any(-1)
+    keep = good | dead[None]
+    do = (torch.randn((b, T, h, d), generator=gen, device=dev) * keep[:, :, None, None]).to(torch.bfloat16)
+    dlse = torch.randn((b, h, T), generator=gen, device=dev) * keep[:, None, :]
+    modes = dict(scale=d ** -0.5, causal=causal, window=window, offset=offset)
+    o, lse = flash_fwd(q, k, v, mask, **modes)
+    grads = flash_attention_bwd(q, k, v, mask, o, lse, do, dlse, **modes)
+    again = flash_fwd(q, k, v, mask, **modes)
+    if not (torch.equal(again[0], o) and torch.equal(again[1], lse)):
+        raise AssertionError(f"flash_h96 T={T} {modes}: a second forward differs from the first")
+    if not all(torch.equal(x, y) for x, y in zip(flash_attention_bwd(q, k, v, mask, o, lse, do, dlse, **modes), grads)):
+        raise AssertionError(f"flash_h96 T={T} {modes}: a second backward differs from the first")
+    ro, rlse = flash_attention_plain(q, k, v, mask, return_lse=True, **modes)
+    errs = {}
+    if good.any():
+        errs["o"] = check(f"flash_h96 T={T} {modes} o", o[good], ro[good], 2e-2)
+        lg = good[:, None, :].expand_as(lse)
+        errs["lse"] = check(f"flash_h96 T={T} {modes} lse", lse[lg], rlse[lg], 1e-2)
+    if not ((o[:, dead] == 0).all() and (lse[:, :, dead] == M_INIT).all()):
+        raise AssertionError(f"flash_h96 T={T} {modes}: a row that reaches no key is not 0 / M_INIT")
+    ref = flash_attention_bwd_plain(q, k, v, mask, o, lse, do, dlse, **modes)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
+        if name == "dq":
+            got, want = got[good], want[good]
+        if want.numel():
+            errs[name] = check_rel(f"flash_h96 T={T} {modes} {name}", got, want, 2e-2)[0]
+    return errs
+
+
+def phase_flash_h96_modes(gen):
+    """``flash_h96_case`` over ``H96_MODES``: the modes 1h-3h take beside
+    the main path's causal one."""
+    return {name: flash_h96_case(gen, T, causal, offset, window) for name, T, causal, offset, window in H96_MODES}
+
+
+def ptxas_report(build_log: str, kernel: str) -> dict:
+    """ptxas's registers and spill bytes of the entry function whose mangled
+    name holds ``kernel`` (the build's ``-Xptxas -v`` lines)."""
+    lines = build_log.splitlines()
+    for i, ln in enumerate(lines):
+        if "Compiling entry function" in ln and kernel in ln:
+            rest = lines[i + 1:i + 8]
+            text = " ".join(rest[:next((j for j, x in enumerate(rest) if "Compiling entry" in x), len(rest))])
+            nums = {key: int(m.group(1)) for key, pat in (
+                ("registers", r"Used (\d+) registers"), ("spill_stores", r"(\d+) bytes spill stores"),
+                ("spill_loads", r"(\d+) bytes spill loads")) if (m := re.search(pat, text))}
+            loss = [x.strip() for x in lines if "Performance Loss" in x and kernel in x]
+            return dict(kernel=kernel, **nums, performance_loss=loss)
+    raise AssertionError(f"ptxas reported no entry function {kernel}")
 
 
 # [flash_ring]: rows 1-3 in the ring's modes at a local chunk of ppo_long's
@@ -3662,6 +3746,9 @@ def hf_rm_train_path(kernels):
 # neox_rm_train: ppo_neox20b_rm_config.yml at GPT-NeoX-20B's width, 4 layers.
 NEOX_LAYERS = 4  # the policy's and the reward model's depth (the recipe's model has 44)
 NEOX_HEAD_DIM = 96  # 6144 / 64 heads
+# Row → the entry function of its head_dim-96 kernel (2h is the template's instance).
+H96_KERNELS = {"flash_attention_fwd": "flash_fwd_d96_kernel", "flash_attention_bwd_dkv": "flash_bwd_dkv_d96_kernel"}
+H96_ERRS = {"flash_attention_fwd": ("o", "lse"), "flash_attention_bwd_dq": ("dq",), "flash_attention_bwd_dkv": ("dk", "dv")}
 # The two legs of one launch: (a) the recipe's own lengths, 2 PPO iterations;
 # (b) the smoke's 768 + 256, 1 iteration of 8 steps, then evaluate().
 NEOX_LEGS = {
@@ -5805,6 +5892,10 @@ def main() -> int:
     for ln in cuda_lib.build_log().splitlines():
         if any(w in ln for w in ("Compiling entry function", "registers", "spill", "Performance Loss")):
             log(f"[build] {ln.strip()}")
+    h96_ptxas = [ptxas_report(cuda_lib.build_log(), name) for name in H96_KERNELS.values()]
+    log(f"[build] head_dim 96 (rows 1h, 3h): {json.dumps(h96_ptxas)}")
+    if any(r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in h96_ptxas):
+        raise AssertionError(f"a head_dim 96 kernel spills: {h96_ptxas}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     if "--race-overhead" in sys.argv:
@@ -5827,6 +5918,7 @@ def main() -> int:
                      ("fused_logprob", lambda: phase_logprob(gen)),
                      ("flash_bwd", lambda: phase_flash_bwd(gen)),
                      ("flash_bwd_neox20b", lambda: phase_flash_bwd(gen, h=64, d=NEOX_HEAD_DIM, suffix="_h96")),
+                     ("flash_h96_modes", lambda: phase_flash_h96_modes(gen)),
                      ("fused_logprob_bwd", lambda: phase_logprob_bwd(LOGPROB_BWD_SEED)),
                      ("fused_logprob_f32", lambda: phase_logprob_f32(F32_SEED)),
                      ("fused_logprob_bwd_f32", lambda: phase_logprob_bwd_f32(F32_SEED)),
@@ -5970,7 +6062,10 @@ def main() -> int:
                      "launches_path": "neox_rm_train (leg b)", "max_abs_err": p["max_abs_err"], "tol": p["tol"],
                      "ms": p["ms"], "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
                      "library_ms": p["library_ms"], "library": p.get("library", "SDPA with the boolean mask"),
-                     "shape": p["shape"], "share_of_bound": p["bound_ms"] / p["ms"]})
+                     "shape": p["shape"], "share_of_bound": p["bound_ms"] / p["ms"],
+                     "modes_max_err": {m: max(e.get(x, 0.0) for x in H96_ERRS[kernel])
+                                       for m, e in phases["flash_h96_modes"].items()},
+                     "ptxas": next((r for r in h96_ptxas if r["kernel"] == H96_KERNELS.get(kernel)), None)})
     rows += ring_mode_rows(phases["flash_ring"], phases["ring"], sp_out["launches_by_mode"])
     log(f"[done] total {time.perf_counter() - t_start:.1f}s")
     print(smi)

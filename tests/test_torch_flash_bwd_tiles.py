@@ -12,7 +12,12 @@ inputs. The tile sizes are read from the kernel's source.
   reach by position (the forward's test).
 - dk/dv: one CTA per DKV_BK = 64 keys; query tiles of DKV_BQ = 64 from the
   diagonal to T, or with a window to the last query that still sees a key
-  of the tile.
+  of the tile. At d = 96 (``flash_bwd_dkv_d96_kernel``) a CTA takes
+  DKV_BK_D96 = 128 keys, its walk bounded by the CTA's first and last keys
+  likewise, and each consumer warpgroup owns 64 of them and does its math
+  on the query tiles some pair of whose queries and its keys (cut at T) is
+  reachable: the upper half's run starts one query tile later on the
+  diagonal, and a half whose keys all lie past T does none.
 
 On every visited tile: s = q·kᵀ·scale with masked scores replaced by -1e9,
 p = exp(s - lse), ds = p·(dO·vᵀ - δ), δ = rowsum(dO·O) - dlse; P and dS are
@@ -22,12 +27,15 @@ Padded query rows carry no cotangent (dO = dlse = 0), as in the model, where
 no later position reads them: every row of dk/dv and every valid row of dq
 compare.
 
-Head dim 96 (GPT-NeoX-20B): the kernels store a row of d bf16 as whole
-64-column boxes (``box_chunks`` in ``csrc/common.cuh``), so at d = 96 the
-tile is 128 columns whose last 32 TMA fills with zeros; the key tile of dq
-at each d is the source's rule (``D == 256 ? DQ_BK_D256 : DQ_BK``). The
-walk at d = 96 runs on those zero-padded tiles and must leave the padded
-columns of dq, dk and dv exactly 0 (the kernels do not store them).
+Head dim 96 (GPT-NeoX-20B): dq stores a row of d bf16 as whole 64-column
+boxes (``box_chunks`` in ``csrc/common.cuh``), so at d = 96 its tile is 128
+columns whose last 32 TMA fills with zeros; the key tile of dq at each d is
+the source's rule (``D == 256 ? DQ_BK_D256 : DQ_BK``). dk/dv at d = 96
+stores it as three BOX_D96 = 32-column boxes: no padding. The boxed walk at
+d = 96 runs dq on the zero-padded tiles and must leave their padded columns
+exactly 0 (the kernel does not store them). The d = 96 schedule (ring
+phases, the warpgroups' turns) is ``tests/torch_flash_schedule.py``'s,
+simulated on every CTA.
 
 The offset frame (ring attention): with ``offset`` key k sits at k + offset
 of the query frame and ``causal=False`` drops the diagonal; the walks'
@@ -45,6 +53,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_flash_schedule as schedule
 from trlx_tpu.ops.flash_attention import flash_attention as jax_flash_attention
 from trlx_tpu_torch.ops import cuda_lib
 from trlx_tpu_torch.ops import flash_attention as flash_mod
@@ -57,14 +66,21 @@ WG_ROWS = 64  # query rows of a dq consumer warpgroup (one wgmma M)
 
 
 def _kernel_tiles():
-    """The tile constants of ``csrc/flash_bwd.cu``, its dq key-tile rule, and
-    the box width rows are stored in (``csrc/common.cuh`` ``box_chunks``)."""
+    """The tile constants of ``csrc/flash_bwd.cu``, its dq key-tile rule, the
+    d = 96 dk/dv CTA (its keys, a warpgroup's, its ring depth, its box
+    width, its whole-tile rule as written), and the box width rows are
+    stored in elsewhere (``csrc/common.cuh`` ``box_chunks``)."""
     with open(os.path.join(cuda_lib._CSRC, "flash_bwd.cu")) as f:
         src = f.read()
-    names = ("DQ_BQ", "DQ_BK", "DQ_BK_D256", "DKV_BK", "DKV_BQ")
+    names = ("DQ_BQ", "DQ_BK", "DQ_BK_D256", "DKV_BK", "DKV_BQ", "DKV_BK_D96", "DKV_STAGES_D96", "BOX_D96")
     tiles = {n: int(re.search(rf"constexpr int {n} = (\d+);", src).group(1)) for n in names}
     rule = re.search(r"static constexpr int BK = D == (\d+) \? DQ_BK_D256 : DQ_BK;", src)
     tiles["DQ_BK_D256_AT"] = int(rule.group(1))
+    tiles["DKV_WG_KEYS"] = int(re.search(r"const int kw0 = k0 \+ cw \* (\d+);", src).group(1))
+    assert "cudaError_t launch_dkv<96>(const Maps& m, BwdParams p, cudaStream_t stream) {" in src
+    for text in ("kw0 < T && flash_tile_live(q0, min(q0 + BQT - 1, T - 1), kw0 + p.offset, min(kw0 + 64, T) - 1 + p.offset,",
+                 "(!p.causal || kw0 + 63 + p.offset <= q0)", "(p.window <= 0 || kw0 + p.offset + p.window > q0 + BQT - 1)"):
+        assert text in src, text
     with open(os.path.join(cuda_lib._CSRC, "common.cuh")) as f:
         box = re.search(r"int box_chunks\(int d\) \{ return \(d \+ (\d+)\) / (\d+); \}", f.read())
     assert int(box.group(1)) + 1 == int(box.group(2))
@@ -106,23 +122,46 @@ def dq_walk(T, window, bk, causal=True, offset=0):
     return out
 
 
-def dkv_walk(T, window, causal=True, offset=0):
-    """[(k0, [q0, ...])]: the query tiles each dk/dv CTA walks."""
-    bk, bq = TILES["DKV_BK"], TILES["DKV_BQ"]
+D96 = 96
+DKV_GEOMETRIES = {64: (TILES["DKV_BK"], TILES["DKV_BK"]), D96: (TILES["DKV_BK_D96"], TILES["DKV_WG_KEYS"])}
+
+
+def dkv_geometry(d):
+    """(keys a dk/dv CTA takes, keys whose math one warpgroup runs) at head
+    dim d: the template's one 64-key group, or d = 96's two halves."""
+    return DKV_GEOMETRIES[D96 if d == D96 else 64]
+
+
+def dkv_walk(T, window, causal=True, offset=0, geometry=DKV_GEOMETRIES[64]):
+    """[(k0, [(q0, (live for each key group of the CTA)), ...])]: the query
+    tiles each dk/dv CTA walks and which of its warpgroups' key groups do
+    their math on each (the forward's tile test on the group's keys, cut at
+    T; a group whose keys all lie past T does none)."""
+    bk, group = geometry
+    bq = TILES["DKV_BQ"]
     nq = -(-T // bq)
     out = []
     for k0 in range(0, T, bk):
         lo = (nq if k0 + offset > T - 1 else max(0, (k0 + offset) // bq)) if causal else 0
         hi = min(nq - 1, (min(k0 + bk, T) - 2 + offset + window) // bq) if window > 0 else nq - 1
-        out.append((k0, [qt * bq for qt in range(lo, hi + 1)]))
+        tiles = []
+        for qt in range(lo, hi + 1):
+            q0 = qt * bq
+            tiles.append((q0, tuple(k0 + g < T and _live(q0, bq, k0 + g, group, window, T, causal, offset)
+                                    for g in range(0, bk, group))))
+        out.append((k0, tiles))
     return out
 
 
-def walk_bwd(q, k, v, kv_mask, o, lse, do, dlse, *, scale, window, dq_bk, skip=True, causal=True, offset=0):
+def walk_bwd(q, k, v, kv_mask, o, lse, do, dlse, *, scale, window, dq_bk, skip=True, causal=True, offset=0,
+             dkv=None):
     """(dq, dk, dv) by the kernels' walks, tile by tile, f32 sums over
-    operands in the inputs' dtype, P and dS rounded to it. ``skip=False``
-    visits every tile of both walks (the skip must not change a bit)."""
+    operands in the inputs' dtype, P and dS rounded to it; ``dkv`` is the
+    dk/dv geometry (by default ``dkv_geometry`` of q's head dim).
+    ``skip=False`` visits every tile of both walks (the skip must not change
+    a bit)."""
     b, T, h, d = q.shape
+    dkv = dkv or dkv_geometry(d)
     dt = q.dtype
 
     def heads(x):
@@ -160,11 +199,16 @@ def walk_bwd(q, k, v, kv_mask, o, lse, do, dlse, *, scale, window, dq_bk, skip=T
             for k0 in visits:
                 rows, keys, _, ds = tile(r0, WG_ROWS, k0, dq_bk)
                 dq[:, :, rows] += rnd(ds) @ kf[:, :, keys]
-    for k0, q0s in dkv_walk(T, window, causal, offset):
-        for q0 in q0s if skip else range(0, T, TILES["DKV_BQ"]):
-            rows, keys, p, ds = tile(q0, TILES["DKV_BQ"], k0, TILES["DKV_BK"])
-            dv[:, :, keys] += rnd(p).transpose(-1, -2) @ dof[:, :, rows]
-            dk[:, :, keys] += rnd(ds).transpose(-1, -2) @ qf[:, :, rows]
+    groups = range(0, dkv[0], dkv[1])
+    for k0, tiles in dkv_walk(T, window, causal, offset, dkv):
+        every = [(q0, tuple(k0 + g < T for g in groups)) for q0 in range(0, T, TILES["DKV_BQ"])]
+        for q0, lives in tiles if skip else every:
+            for g, lv in zip(groups, lives):
+                if not lv:
+                    continue
+                rows, keys, p, ds = tile(q0, TILES["DKV_BQ"], k0 + g, dkv[1])
+                dv[:, :, keys] += rnd(p).transpose(-1, -2) @ dof[:, :, rows]
+                dk[:, :, keys] += rnd(ds).transpose(-1, -2) @ qf[:, :, rows]
     return tuple(x.permute(0, 2, 1, 3).to(dt) for x in (dq * scale, dk * scale, dv))
 
 
@@ -299,10 +343,12 @@ def test_skipped_tiles_add_nothing(T, window, pads, dq_bk, dtype):
 @pytest.mark.parametrize("T", [1, 31, 64, 100, 129, 300])
 def test_walks_visit_every_reachable_pair_once(T, window, bk):
     """Every (query, key) pair reachable by position is visited exactly once
-    by a dq warpgroup that does its math and exactly once by a dk/dv CTA;
-    every tile whose math runs holds a reachable pair and every tile a dq
-    warpgroup skips holds none; each dk/dv walk starts on its diagonal tile
-    and stops at the last query tile that still sees its keys."""
+    by a dq warpgroup that does its math and exactly once by a dk/dv
+    warpgroup, in both dk/dv geometries (the template's 64-key CTA, d = 96's
+    128-key CTA of two 64-key halves); every tile whose math runs holds a
+    reachable pair and every tile a warpgroup skips holds none; each dk/dv
+    walk starts on its diagonal tile and stops at the last query tile that
+    still sees its keys."""
     qi, kj = np.arange(T)[:, None], np.arange(T)[None, :]
     reach = kj <= qi
     if window > 0:
@@ -317,17 +363,32 @@ def test_walks_visit_every_reachable_pair_once(T, window, bk):
                 if lv:
                     dq_seen[r0:r0 + WG_ROWS, k0:k0 + bk] += 1
     assert (dq_seen[reach] == 1).all()
-    dkv_seen = np.zeros((T, T), int)
-    bkv, bq = TILES["DKV_BK"], TILES["DKV_BQ"]
-    for k0, q0s in dkv_walk(T, window):
-        assert q0s[0] <= k0 < q0s[0] + bq
-        for q0 in q0s:
-            assert reach[q0:q0 + bq, k0:k0 + bkv].any(), (k0, q0)
-            dkv_seen[q0:q0 + bq, k0:k0 + bkv] += 1
-        after = q0s[-1] + bq
-        assert after >= T or not reach[after:after + bq, k0:k0 + bkv].any()
-    assert (dkv_seen[reach] == 1).all()
-    assert dkv_seen.max() <= 1
+    for geometry in DKV_GEOMETRIES.values():
+        _check_dkv_walk(reach, T, window, True, 0, geometry, ends=True)
+
+
+def _check_dkv_walk(reach, T, window, causal, offset, geometry, ends=False):
+    """Every reachable pair is visited exactly once by a dk/dv warpgroup that
+    does its math; a CTA's walk holds a live group on each of its tiles, a
+    group's math runs exactly on the tiles holding a reachable pair of its
+    keys, and (``ends``: offset 0) each walk starts on its first key's
+    diagonal tile and stops at the last query tile that still sees a key."""
+    bkv, group = geometry
+    bq = TILES["DKV_BQ"]
+    seen = np.zeros((T, T), int)
+    for k0, tiles in dkv_walk(T, window, causal, offset, geometry):
+        if ends:
+            assert tiles[0][0] <= k0 < tiles[0][0] + bq
+            after = tiles[-1][0] + bq
+            assert after >= T or not reach[after:after + bq, k0:k0 + bkv].any()
+        for q0, lives in tiles:
+            assert any(lives), (k0, q0)
+            for g, lv in zip(range(0, bkv, group), lives):
+                assert lv == bool(reach[q0:q0 + bq, k0 + g:k0 + g + group].any()), (k0, g, q0)
+                if lv:
+                    seen[q0:q0 + bq, k0 + g:k0 + g + group] += 1
+    assert (seen[reach] == 1).all()
+    assert seen.max() <= 1
 
 
 
@@ -376,10 +437,10 @@ def test_offset_walk_matches_plain_backward(T, window, causal, offset, dq_bk):
 def test_offset_walks_visit_every_reachable_pair_once(T, offset, window, causal, bk):
     """The offset twin of ``test_walks_visit_every_reachable_pair_once``:
     every (query, key) pair reachable in the offset frame is visited exactly
-    once by a dq warpgroup that does its math and once by a dk/dv CTA; every
-    tile whose math runs holds a reachable pair, every tile a dq warpgroup
-    skips holds none, and every walk that is cut short stops where the next
-    tile would hold none."""
+    once by a dq warpgroup that does its math and once by a dk/dv warpgroup
+    in both dk/dv geometries; every tile whose math runs holds a reachable
+    pair, every tile a warpgroup skips holds none, and every walk that is cut
+    short stops where the next tile would hold none."""
     reach = flash_mod.reachable(T, T, "cpu", causal=causal, window=window, offset=offset).numpy()
     dq_seen = np.zeros((T, T), int)
     for q0, tiles in dq_walk(T, window, bk, causal, offset):
@@ -395,43 +456,45 @@ def test_offset_walks_visit_every_reachable_pair_once(T, offset, window, causal,
             if k0 not in walked:
                 assert not reach[q0:q0 + TILES["DQ_BQ"], k0:k0 + bk].any(), (q0, k0)
     assert (dq_seen[reach] == 1).all()
-    dkv_seen = np.zeros((T, T), int)
-    bkv, bq = TILES["DKV_BK"], TILES["DKV_BQ"]
-    for k0, q0s in dkv_walk(T, window, causal, offset):
-        for q0 in q0s:
-            assert reach[q0:q0 + bq, k0:k0 + bkv].any(), (k0, q0)
-            dkv_seen[q0:q0 + bq, k0:k0 + bkv] += 1
-    assert (dkv_seen[reach] == 1).all()
-    assert dkv_seen.max() <= 1
+    for geometry in DKV_GEOMETRIES.values():
+        _check_dkv_walk(reach, T, window, causal, offset, geometry)
 
 
 def walk_bwd_boxed(q, k, v, kv_mask, o, lse, do, dlse, *, scale, window, causal=True, offset=0):
-    """``walk_bwd`` on the kernels' shared-memory layout: q, k, v and dO
-    padded with zero columns to whole boxes (TMA's fill past d), the dq key
-    tile of this d, and the padded columns of every output checked to be
-    exactly 0 before they are cut (the kernels do not store them)."""
+    """``walk_bwd`` on the kernels' shared-memory layouts at d = 96: dq on q,
+    k, v and dO padded with zero columns to whole 64-column boxes (TMA's
+    fill past d) with its key tile of this d, its padded columns checked to
+    be exactly 0 before they are cut (the kernel does not store them); dk
+    and dv on whole BOX_D96-column boxes (no padding) in the d = 96
+    geometry."""
     d = q.shape[-1]
-    width = -(-d // TILES["BOX_COLS"]) * TILES["BOX_COLS"]
 
-    def pad(x):
-        return torch.nn.functional.pad(x, (0, width - d))
+    def pad(x, box):
+        return torch.nn.functional.pad(x, (0, -(-d // box) * box - d))
 
-    out = walk_bwd(pad(q), pad(k), pad(v), kv_mask, pad(o), lse, pad(do), dlse, scale=scale, window=window,
-                   dq_bk=dq_key_tile(d), causal=causal, offset=offset)
-    for x in out:
-        assert (x[..., d:] == 0).all()
-    return tuple(x[..., :d] for x in out)
+    def walk(box):
+        return walk_bwd(*(pad(x, box) for x in (q, k, v)), kv_mask, pad(o, box), lse, pad(do, box), dlse,
+                        scale=scale, window=window, dq_bk=dq_key_tile(d), causal=causal, offset=offset,
+                        dkv=dkv_geometry(d))
+
+    dq = walk(TILES["BOX_COLS"])[0]
+    assert (dq[..., d:] == 0).all()
+    assert d % TILES["BOX_D96"] == 0
+    _, dk, dv = walk(TILES["BOX_D96"])
+    return dq[..., :d], dk, dv
 
 
 @pytest.mark.parametrize("T,window,pads", [(1, 0, (0, 0)), (129, 48, (0, 70)), (200, 5, (3, 130)),
                                            (300, 100, (0, 130))])
 def test_walk_at_head_dim_96_matches_plain_and_pallas(T, window, pads):
-    """d = 96, float32: the walk on the boxed layout (two 64-column boxes,
-    the second half zeros; 64-key dq tiles) gives the plain backward's dq,
-    dk, dv and the Pallas backward's (interpret mode, one block of T rows)
-    to float32 summation order (TOL)."""
+    """d = 96, float32: the walks on the kernels' layouts (dq: two 64-column
+    boxes, the second half zeros, 64-key tiles; dk/dv: three 32-column boxes,
+    128-key CTAs of two warpgroup halves) give the plain backward's dq, dk,
+    dv and the Pallas backward's (interpret mode, one block of T rows) to
+    float32 summation order (TOL)."""
     d = 96
     assert -(-d // TILES["BOX_COLS"]) == 2 and dq_key_tile(d) == TILES["DQ_BK"]
+    assert dkv_geometry(d) == (TILES["DKV_BK_D96"], TILES["DKV_WG_KEYS"]) == (128, 64)
     arrays = _inputs(11 * T, T, d, pads)
     q, k, v, mask, do, dlse = _torch_case(arrays, torch.float32)
     scale = d ** -0.5
@@ -459,10 +522,12 @@ def test_walk_at_head_dim_96_matches_plain_and_pallas(T, window, pads):
                          ids=[OFFSET_IDS[i] for i in (0, 4, 6, 9)])
 def test_offset_walk_at_head_dim_96(T, window, causal, offset):
     """d = 96 in the offset frame, causal and not, bf16 operands: the boxed
-    walk against the same walk on the unpadded d = 96 tensors bit for bit
-    (the zero columns add exact zeros to every sum over d and produce only
-    zero columns), and against the plain backward within 2^-7 of each
-    output's max (one bf16 output rounding on each side)."""
+    walks against the same walks on the unpadded d = 96 tensors bit for bit
+    (dq's zero columns add exact zeros to every sum over d and produce only
+    zero columns), the d = 96 dk/dv geometry against the template's bit for
+    bit (each key's sums run over the same query tiles in the same order),
+    and against the plain backward within 2^-7 of each output's max (one
+    bf16 output rounding on each side)."""
     d = 96
     q, k, v, mask, do, dlse = _torch_case(_inputs(T + 96 + abs(offset), T, d, (0, 9)), torch.bfloat16)
     modes = dict(scale=d ** -0.5, window=window, causal=causal, offset=offset)
@@ -472,7 +537,28 @@ def test_offset_walk_at_head_dim_96(T, window, causal, offset):
     do, dlse = (do * keep[:, :, None, None]).to(torch.bfloat16), dlse * keep[:, None, :]
     boxed = walk_bwd_boxed(q, k, v, mask, o, lse, do, dlse, **modes)
     plain_walk = walk_bwd(q, k, v, mask, o, lse, do, dlse, dq_bk=dq_key_tile(d), **modes)
+    template = walk_bwd(q, k, v, mask, o, lse, do, dlse, dq_bk=dq_key_tile(d), dkv=DKV_GEOMETRIES[64], **modes)
     ref = flash_mod.flash_attention_bwd_plain(q, k, v, mask, o, lse, do, dlse, **modes)
-    for b_, w_, r in zip(boxed, plain_walk, ref):
-        assert torch.equal(b_, w_)
+    for b_, w_, t_, r in zip(boxed, plain_walk, template, ref):
+        assert torch.equal(b_, w_) and torch.equal(w_, t_)
         assert float((b_.float() - r.float()).abs().max()) <= 2.0 ** -7 * float(r.float().abs().max())
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("window", [0, 48, 300])
+@pytest.mark.parametrize("offset", [-1024, -300, 0, 37, 512])
+@pytest.mark.parametrize("T", [1, 65, 130, 1000, 1024])
+def test_dkv_d96_schedule_completes(T, offset, window, causal):
+    """The schedule of every d = 96 dk/dv CTA (``torch_flash_schedule``: the
+    producer's Q / dO ring of DKV_STAGES_D96 stages, both warpgroups' rounds
+    and turns) runs to its end: each warpgroup takes n + 1 turns, observes
+    every phase of the ring, frees every stage once, issues S^T / dP^T and
+    dv / dk of each live tile once in order, and no stage is refilled
+    before both warpgroups freed it."""
+    for k0, tiles in dkv_walk(T, window, causal, offset, DKV_GEOMETRIES[D96]):
+        runs = []
+        for g in range(2):
+            idx = [i for i, (_, lives) in enumerate(tiles) if lives[g]]
+            assert idx == list(range(idx[0], idx[-1] + 1)) if idx else True  # one contiguous run
+            runs.append((idx[0], idx[-1]) if idx else (len(tiles), -1))
+        schedule.simulate(len(tiles), runs, schedule.DKV, TILES["DKV_STAGES_D96"])

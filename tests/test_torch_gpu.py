@@ -680,6 +680,95 @@ def test_flash_strided_inputs_at_neox_20b_heads(window):
     _close(dv, rv, 2e-2)
 
 
+# Rows 1h and 3h (head_dim 96, their own kernels): ragged T against the
+# forward's 128-key tiles and dk/dv's 128-key CTA (T = 1: its upper half past
+# T; 65: one key of it below T; 130: a second CTA of two keys), with the
+# modes of the ring and a window. (T, offset, causal, window).
+_H96_CASES = [(T, 0, True, w) for T in (1, 65, 130, 1000) for w in (0, 100)] + [
+    (1000, 0, False, 0), (300, 0, False, 48), (1000, -1000, True, 0), (1000, 37, True, 0), (300, 300, True, 0),
+    (300, -64, True, 48), (130, -130, False, 0),
+]
+
+
+@pytest.mark.parametrize("T,offset,causal,window", _H96_CASES,
+                         ids=[f"T{T}-off{o}-{'causal' if c else 'full'}-w{w}" for T, o, c, w in _H96_CASES])
+def test_flash_h96_kernels_match_plain(T, offset, causal, window):
+    """The head_dim-96 forward (row 1h) and dk/dv (row 3h), with dq (2h), at
+    ragged T and in every mode, three rows: no padding, a third
+    left-padded, wholly masked. o and lse on the rows with a valid reachable
+    key (0.02 / 0.01 absolute), rows that reach no key exactly 0 and -1e30;
+    dq on those rows and every row of dk / dv within 2e-2 of each output's
+    max, with cotangents on the rows that carry them in the model. A second
+    forward and a second backward give the same bits; each kernel launches
+    once a call."""
+    dev = _cuda()
+    from trlx_tpu_torch.ops.flash_attention import (
+        M_INIT, flash_attention_bwd, flash_attention_bwd_plain, flash_attention_plain, flash_bwd_dkv, flash_fwd,
+        reachable,
+    )
+
+    b, h, d = 3, 4, 96
+    q, k, v, _, _, _ = _bwd_case(dev, 31 + T, b, T, h, d, (0, 0, 0))
+    mask = torch.ones((b, T), device=dev)
+    mask[1, : T // 3] = 0
+    mask[2] = 0
+    g = torch.Generator(device=dev).manual_seed(32)
+    reach = reachable(T, T, dev, causal=causal, window=window, offset=offset)
+    good = (reach[None] & mask.bool()[:, None, :]).any(-1)
+    dead = ~reach.any(-1)
+    keep = good | dead[None]
+    do = (torch.randn((b, T, h, d), generator=g, device=dev) * keep[:, :, None, None]).to(torch.bfloat16)
+    dlse = torch.randn((b, h, T), generator=g, device=dev) * keep[:, None, :]
+    modes = dict(scale=d ** -0.5, causal=causal, window=window, offset=offset)
+    n = (flash_fwd.launches, flash_bwd_dkv.launches)
+    o, lse = flash_fwd(q, k, v, mask, **modes)
+    grads = flash_attention_bwd(q, k, v, mask, o, lse, do, dlse, **modes)
+    torch.cuda.synchronize()
+    assert (flash_fwd.launches, flash_bwd_dkv.launches) == (n[0] + 1, n[1] + 1)
+    o2, lse2 = flash_fwd(q, k, v, mask, **modes)
+    assert torch.equal(o2, o) and torch.equal(lse2, lse)
+    assert all(torch.equal(x, y) for x, y in zip(flash_attention_bwd(q, k, v, mask, o, lse, do, dlse, **modes), grads))
+    ro, rlse = flash_attention_plain(q, k, v, mask, return_lse=True, **modes)
+    if good.any():
+        torch.testing.assert_close(o[good].float(), ro[good].float(), rtol=0, atol=2e-2)
+        lg = good[:, None, :].expand_as(lse)
+        torch.testing.assert_close(lse[lg], rlse[lg], rtol=0, atol=1e-2)
+    assert (o[:, dead] == 0).all() and (lse[:, :, dead] == M_INIT).all()
+    rq, rk, rv = flash_attention_bwd_plain(q, k, v, mask, o, lse, do, dlse, **modes)
+    if good.any():
+        _close(grads[0][good], rq[good], 2e-2)
+    _close(grads[1], rk, 2e-2)
+    _close(grads[2], rv, 2e-2)
+
+
+def test_flash_h96_calls_are_bit_equal_at_the_neox_shape():
+    """At GPT-NeoX-20B's heads and the train length ([2, 1024, 64, 96],
+    rows left-padded, 1024 CTAs of each kernel over many waves), eight
+    forwards and eight backwards each give the first call's bits, which
+    match the plain versions."""
+    dev = _cuda()
+    from trlx_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_plain, flash_fwd,
+    )
+
+    b, T, h, d = 2, 1024, 64, 96
+    q, k, v, mask, do, dlse = _bwd_case(dev, 33, b, T, h, d, (0, 150))
+    o, lse = flash_fwd(q, k, v, mask, scale=d ** -0.5)
+    grads = flash_attention_bwd(q, k, v, mask, o, lse, do, dlse, scale=d ** -0.5)
+    for _ in range(8):
+        o2, lse2 = flash_fwd(q, k, v, mask, scale=d ** -0.5)
+        assert torch.equal(o2, o) and torch.equal(lse2, lse)
+        again = flash_attention_bwd(q, k, v, mask, o, lse, do, dlse, scale=d ** -0.5)
+        assert all(torch.equal(x, y) for x, y in zip(again, grads))
+    rows = mask.bool()
+    ro = flash_attention_plain(q, k, v, mask, scale=d ** -0.5)
+    torch.testing.assert_close(o[rows].float(), ro[rows].float(), rtol=0, atol=2e-2)
+    rq, rk, rv = flash_attention_bwd_plain(q, k, v, mask, o, lse, do, dlse, scale=d ** -0.5)
+    _close(grads[0][rows], rq[rows], 2e-2)
+    _close(grads[1], rk, 2e-2)
+    _close(grads[2], rv, 2e-2)
+
+
 def test_flash_c_entries_refuse_other_head_dims():
     """The C entries of rows 1-3 take d in (64, 96, 128, 256) and return
     cudaErrorInvalidValue (1) for any other d before anything launches,

@@ -237,3 +237,31 @@ def test_smoke_neox_byte_tokenizer_round_trip():
     assert 16 <= len(ids) == len(text) <= 32 and min(ids) >= 32
     assert (tok.bos_token_id, tok.eos_token_id, tok.pad_token_id) == (0, 0, 0)
     assert tok.batch_decode([[0, 0, *ids, 0]]) == [text]
+
+
+_PTXAS_LOG = """== flash_fwd.cu
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120flash_fwd_d96_kernelE14CUtensorMap_stS0_S0_NS_11FlashParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_120flash_fwd_d96_kernelE14CUtensorMap_stS0_S0_NS_11FlashParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 16 barriers
+== flash_bwd.cu
+ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async instructions are serialized in the function '_ZN12_GLOBAL__N_124flash_bwd_dkv_d96_kernelE14CUtensorMap_stS0_S0_S0_NS_9BwdParamsE'
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_124flash_bwd_dkv_d96_kernelE14CUtensorMap_stS0_S0_S0_NS_9BwdParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_124flash_bwd_dkv_d96_kernelE14CUtensorMap_stS0_S0_S0_NS_9BwdParamsE
+    24 bytes stack frame, 24 bytes spill stores, 40 bytes spill loads
+ptxas info    : Used 168 registers, used 16 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi96EEEv14CUtensorMap_stS1_S1_S1_NS_9BwdParamsE' for 'sm_90a'
+"""
+
+
+def test_ptxas_report_reads_each_head_dim_96_kernel():
+    """The smoke's ``[build] head_dim 96`` line: each kernel's registers and
+    spill bytes from the lines under its own entry function (not the next
+    one's), its serialization warnings, and a failure for a kernel ptxas
+    did not compile."""
+    fwd, dkv = (chip_smoke.ptxas_report(_PTXAS_LOG, k) for k in chip_smoke.H96_KERNELS.values())
+    assert fwd == dict(kernel="flash_fwd_d96_kernel", registers=168, spill_stores=0, spill_loads=0, performance_loss=[])
+    assert (dkv["spill_stores"], dkv["spill_loads"], dkv["registers"]) == (24, 40, 168)
+    assert len(dkv["performance_loss"]) == 1
+    with pytest.raises(AssertionError, match="no entry function"):
+        chip_smoke.ptxas_report(_PTXAS_LOG.replace("flash_fwd_d96_kernel", "other_kernel"), "flash_fwd_d96_kernel")

@@ -71,11 +71,34 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// wgmma / mma.sync A fragments (bf16 pairs) of a [64, 16 * KS] f32 accumulator, k16 step kk
+// from columns 16 kk .. 16 kk + 15.
+template <int KS>
+__device__ __forceinline__ void to_frags(uint32_t (&a)[KS][4], const float* r) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    a[kk][0] = pack_bf16(r[(2 * kk) * 4 + 0], r[(2 * kk) * 4 + 1]);
+    a[kk][1] = pack_bf16(r[(2 * kk) * 4 + 2], r[(2 * kk) * 4 + 3]);
+    a[kk][2] = pack_bf16(r[(2 * kk + 1) * 4 + 0], r[(2 * kk + 1) * 4 + 1]);
+    a[kk][3] = pack_bf16(r[(2 * kk + 1) * 4 + 2], r[(2 * kk + 1) * 4 + 3]);
+  }
+}
+
 // Two bf16 at arbitrary (2-byte aligned) shared addresses → one register.
 __device__ __forceinline__ uint32_t pack_bf16_pair(const __nv_bfloat16* lo, const __nv_bfloat16* hi) {
   uint16_t l = *reinterpret_cast<const uint16_t*>(lo);
   uint16_t h = *reinterpret_cast<const uint16_t*>(hi);
   return (uint32_t)l | ((uint32_t)h << 16);
+}
+
+// 2^x on the special-function unit alone (ex2.approx.ftz, one instruction:
+// exp2f adds a denormal fixup). A result below 2^-126 flushes to 0, which
+// is nothing beside the row sum of at least 1 it joins. The head-dim-96
+// flash kernels' exponential.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ float quad_max(float v) {

@@ -78,16 +78,45 @@
 //   then dk += dS^T.Q (RS, Q MN-major).
 // Forming S^T rather than S puts P^T and dS^T straight into the A-fragment
 // layout. Shared memory at d = 256: K + V 64 KB, two stages of Q + dO 128
-// KB, the P^T tile 16 KB: 208 KB. One design serves d = 64/96/128/256.
+// KB, the P^T tile 16 KB: 208 KB. This design serves d = 64/128/256.
 //
-// d = 96 (GPT-NeoX-20B) keeps d = 128's tiles and layout: a row of 96 bf16
-// (192 bytes) is stored as two 64-column boxes whose second box has its
+// d = 96 (GPT-NeoX-20B): dq keeps d = 128's tiles and layout, a row of 96
+// bf16 (192 bytes) stored as two 64-column boxes whose second box has its
 // columns 96-127 zero-filled by TMA's out-of-bounds fill (the tensor maps'
-// inner dimension is d, so nothing past column 96 is read from memory). The
-// products that reduce over d (S = Q.K^T, dP = dO.V^T and their transposes)
-// take the 6 k16 steps of the 96 columns only; those whose N is d (dS.K,
-// P^T.dO, dS^T.Q) run m64n64 on both boxes, and the accumulators' columns
-// 96-127 (zeros) are not stored.
+// inner dimension is d, so nothing past column 96 is read from memory); its
+// reductions over d take the 6 k16 steps of the 96 columns only, its dS.K
+// runs m64n64 on both boxes, and the accumulator's columns 96-127 (zeros)
+// are not stored.
+//
+// dk/dv at d = 96 has a kernel of its own, flash_bwd_dkv_d96_kernel. What
+// bounds it at [8, 1024, 64, 96]: 8 * d flops a live pair, 2.06e11 (0.209
+// ms at the bf16 peak), against 0.60 GB of q, k, v, dO, dk, dv (0.18 ms);
+// the split above has no cause here (its reason, accumulators too large
+// for one warpgroup, holds only at d = 256) and ran the two warpgroups in
+// series through the P^T exchange. The design:
+// - one CTA per DKV_BK_D96 = 128 keys; consumer warpgroup cw owns keys
+//   k0 + 64 cw .. + 63 and computes everything for them: S^T = K.Q^T and
+//   dP^T = V.dO^T (m64n64k16, SS), P^T and dS^T in registers, then dv +=
+//   P^T.dO and dk += dS^T.Q (m64n96k16, RS, dO and Q MN-major). No P^T
+//   exchange, no named barriers 1 and 2. Registers a consumer thread: dk 48
+//   + dv 48 + S^T 32 + dP^T 32 + bf16 fragments 32, no spills.
+// - no padding: K, V and the Q / dO tiles are three 32-column boxes at the
+//   64-byte swizzle (hopper.cuh make_desc64).
+// - one ring of DKV_STAGES_D96 = 4 stages of 64-query Q, dO, lse and delta
+//   tiles serves both warpgroups, so Q / dO cross L2 once for 128 keys, not
+//   64 (4096 CTAs at this shape where the template launches 8192); K + V 48
+//   KB + 4 x 24 KB: 144 KB.
+// - the causal walk: the CTA walks from its first key's diagonal; the upper
+//   half's keys reach their diagonal one query tile later, so a warpgroup
+//   skips the math of the tiles its keys miss (a contiguous run) but still
+//   waits on every phase of the ring and frees every stage.
+// - overlap as the d = 96 forward: a warpgroup issues tile i's S^T and dP^T,
+//   then tile i-1's dv and dk, and forms tile i's P^T while dP^T and those
+//   run, then its dS^T while dv and dk run; the two warpgroups take turns issuing through named barriers 3 and
+//   4 (n + 1 turns each, idle tiles too).
+// - the position test only on tiles where some query misses some key of
+//   the warpgroup (the diagonal, a window's edge); elsewhere only each key
+//   row's validity.
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -104,6 +133,10 @@ constexpr int DKV_BK = 64;      // dk/dv: keys per CTA
 constexpr int DKV_BQ = 64;      // dk/dv: queries per ring tile
 constexpr int BAR_PT_FULL = 1;  // named barriers of the P^T exchange
 constexpr int BAR_PT_EMPTY = 2;
+constexpr int DKV_BK_D96 = 128;    // dk/dv at d = 96: keys per CTA, 64 a consumer warpgroup
+constexpr int DKV_STAGES_D96 = 4;  // dk/dv at d = 96: Q / dO ring depth
+constexpr int BOX_D96 = 32;        // columns per TMA box at d = 96 (64 bytes: the 64-byte swizzle)
+constexpr int BAR_TURN = 3;        // dk/dv at d = 96: consumer warpgroup cw's turn is named barrier BAR_TURN + cw
 
 struct BwdParams {
   const float* kmask;  // [b, T] key validity (> 0.5 = valid)
@@ -139,19 +172,6 @@ __device__ __forceinline__ void store_acc(__nv_bfloat16* out, const float (&acc)
         *reinterpret_cast<uint32_t*>(out + (size_t)row1 * orow + col) =
             pack_bf16(acc[c][j * 4 + 2] * mul, acc[c][j * 4 + 3] * mul);
     }
-}
-
-// A fragments (bf16 pairs) of a [64, 16 * KS] f32 accumulator, k16 step kk
-// from columns 16 kk .. 16 kk + 15.
-template <int KS>
-__device__ __forceinline__ void to_frags(uint32_t (&a)[KS][4], const float* r) {
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    a[kk][0] = pack_bf16(r[(2 * kk) * 4 + 0], r[(2 * kk) * 4 + 1]);
-    a[kk][1] = pack_bf16(r[(2 * kk) * 4 + 2], r[(2 * kk) * 4 + 3]);
-    a[kk][2] = pack_bf16(r[(2 * kk + 1) * 4 + 0], r[(2 * kk + 1) * 4 + 1]);
-    a[kk][3] = pack_bf16(r[(2 * kk + 1) * 4 + 2], r[(2 * kk + 1) * 4 + 3]);
-  }
 }
 
 // A row's lse in log2 units, or +inf where its forward reached no key
@@ -565,6 +585,317 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 }
 
 // ---------------------------------------------------------------------------
+// dk / dv at d = 96: one warpgroup per 64-key half of a 128-key CTA (header)
+// ---------------------------------------------------------------------------
+
+struct DkvSmem96 {
+  static constexpr int ST = DKV_STAGES_D96;
+  static constexpr int CH = 96 / BOX_D96;           // three boxes a row
+  static constexpr int KV_BOX = DKV_BK_D96 * 64;    // one box of K or V: 128 rows of 64 bytes
+  static constexpr int QD_BOX = DKV_BQ * 64;        // one box of a Q or dO tile
+  static constexpr int KV_BYTES = CH * KV_BOX;
+  static constexpr int QD_BYTES = CH * QD_BOX;
+  static constexpr int K = 0;
+  static constexpr int V = K + KV_BYTES;
+  static constexpr int Q = V + KV_BYTES;                  // Q[stage]
+  static constexpr int DO = Q + ST * QD_BYTES;            // dO[stage]
+  static constexpr int KMASK = DO + ST * QD_BYTES;        // float[DKV_BK_D96]
+  static constexpr int LSE = KMASK + DKV_BK_D96 * 4;      // float[stage][BQ], log2 units
+  static constexpr int DELTA = LSE + ST * DKV_BQ * 4;     // float[stage][BQ]
+  static constexpr int BAR = DELTA + ST * DKV_BQ * 4;     // kv, full[stage], empty[stage]
+  static constexpr int BYTES = BAR + 8 * (1 + 2 * ST);
+  static constexpr int ALLOC = BYTES + 1024;
+};
+
+// S^T = K.Q^T and dP^T = V.dO^T of a warpgroup's 64 keys and a 64-query
+// tile: m64n64k16 over the 6 k16 steps of the 96 columns, all operands
+// K-major; a commit group each, so P^T forms while dP^T runs.
+__device__ __forceinline__ void issue_sdp96(float (&st)[32], float (&dp)[32], uint32_t k_base, uint32_t v_base,
+                                            uint32_t q_s, uint32_t do_s) {
+  using L = DkvSmem96;
+  fence_regs<32>(st);
+  fence_regs<32>(dp);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 6; ++kk) {
+    const uint32_t off = (kk % 2) * 32;  // 16 columns of the 64-byte row
+    wgmma_ss(st, make_desc64(k_base + (kk / 2) * L::KV_BOX + off, 16, 512),
+             make_desc64(q_s + (kk / 2) * L::QD_BOX + off, 16, 512), kk > 0);
+  }
+  wgmma_commit();
+#pragma unroll
+  for (int kk = 0; kk < 6; ++kk) {
+    const uint32_t off = (kk % 2) * 32;
+    wgmma_ss(dp, make_desc64(v_base + (kk / 2) * L::KV_BOX + off, 16, 512),
+             make_desc64(do_s + (kk / 2) * L::QD_BOX + off, 16, 512), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// dv += P^T.dO and dk += dS^T.Q: m64n96k16 over the tile's 4 k16 steps of
+// queries, A from registers, dO and Q MN-major (three boxes one leading
+// offset apart); one commit group.
+__device__ __forceinline__ void issue_acc96(float (&dv)[48], float (&dk)[48], const uint32_t (&pf)[DKV_BQ / 16][4],
+                                            const uint32_t (&df)[DKV_BQ / 16][4], uint32_t q_s, uint32_t do_s) {
+  using L = DkvSmem96;
+  fence_regs<48>(dv);
+  fence_regs<48>(dk);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < DKV_BQ / 16; ++kk) wgmma_rs_n96(dv, pf[kk], make_desc64(do_s + kk * 16 * 64, L::QD_BOX, 512));
+#pragma unroll
+  for (int kk = 0; kk < DKV_BQ / 16; ++kk) wgmma_rs_n96(dk, df[kk], make_desc64(q_s + kk * 16 * 64, L::QD_BOX, 512));
+  wgmma_commit();
+}
+
+// P^T = 2^(S^T * sl2 - lse) with the forward's mask for this thread's keys
+// key0 (valid kv0, queries qs0) and key1, in place (st becomes P^T).
+// WHOLE: every query of the tile reaches every key of the warpgroup by
+// position, so only the keys' validity masks (one per row). lse is read two
+// queries at once.
+template <bool WHOLE>
+__device__ __forceinline__ void probs96(float (&st)[32], const float* ls, int q0, bool kv0, bool kv1, int2 qs0,
+                                        int2 qs1, float sl2, int t4) {
+  const float mask2 = TRLX_MASK_VAL * LOG2E;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 l2 = *reinterpret_cast<const float2*>(ls + j * 8 + 2 * t4);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int query = q0 + j * 8 + 2 * t4 + (e & 1);
+      const int2 qs = e < 2 ? qs0 : qs1;
+      const bool valid = (e < 2 ? kv0 : kv1) && (WHOLE || (query >= qs.x && query <= qs.y));
+      st[j * 4 + e] = exp2_ftz((valid ? st[j * 4 + e] * sl2 : mask2) - (e & 1 ? l2.y : l2.x));
+    }
+  }
+}
+
+// dS^T = P^T (dP^T - delta), in place (dp becomes dS^T).
+__device__ __forceinline__ void dsT96(const float (&st)[32], float (&dp)[32], const float* dl, int t4) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 d2 = *reinterpret_cast<const float2*>(dl + j * 8 + 2 * t4);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dp[j * 4 + e] = st[j * 4 + e] * (dp[j * 4 + e] - (e & 1 ? d2.y : d2.x));
+  }
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+    flash_bwd_dkv_d96_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                             BwdParams p) {
+  using L = DkvSmem96;
+  constexpr int BKC = DKV_BK_D96, BQT = DKV_BQ, ST = L::ST, CH = L::CH;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align_1024(smem_raw);
+  const uint32_t sbase = smem_u32(sm);
+  float* kms = reinterpret_cast<float*>(sm + L::KMASK);
+  float* lse_s = reinterpret_cast<float*>(sm + L::LSE);
+  float* delta_s = reinterpret_cast<float*>(sm + L::DELTA);
+  const uint32_t bar_kv = sbase + L::BAR;
+  auto bar_f = [&](int s) { return sbase + L::BAR + 8 * (1 + s); };
+  auto bar_e = [&](int s) { return sbase + L::BAR + 8 * (1 + ST + s); };
+
+  // Key tiles of a head are neighbours in the grid (key tile 0, the longest
+  // walk, first), so a wave's CTAs share their Q / dO tiles in L2.
+  const int bh = (int)blockIdx.x / p.n_tiles, hi = bh % p.h, bi = bh / p.h;
+  const int k0 = (int)(blockIdx.x % p.n_tiles) * BKC, T = p.T;
+  // Query tiles the CTA visits: under causality from the diagonal of key k0
+  // in the offset frame, to T, or with a window to the last query that still
+  // sees the CTA's last key below T; none when no query reaches a key of it.
+  const int nq = (T + BQT - 1) / BQT;
+  const int qt_lo = !p.causal ? 0 : k0 + p.offset > T - 1 ? nq : max(0, floor_div(k0 + p.offset, BQT));
+  const int qt_hi =
+      p.window > 0 ? min(nq - 1, floor_div(min(k0 + BKC, T) - 2 + p.offset + p.window, BQT)) : nq - 1;
+  const int n_q = max(0, qt_hi - qt_lo + 1);
+  const size_t rv = ((size_t)bi * p.h + hi) * T;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 2);  // the TMA's expect_tx and the staged kv_mask slice
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(bar_f(s), 2);  // the TMA's expect_tx and the staged lse / delta slices
+      mbar_init(bar_e(s), 2 * 128);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    if (lane == 0) {
+      mbar_expect_tx(bar_kv, 2 * L::KV_BYTES);
+      for (int c = 0; c < CH; ++c) {
+        tma_load(sbase + L::K + c * L::KV_BOX, &tk, bar_kv, c * BOX_D96, k0, hi, bi);
+        tma_load(sbase + L::V + c * L::KV_BOX, &tv, bar_kv, c * BOX_D96, k0, hi, bi);
+      }
+    }
+    for (int j = lane; j < BKC; j += 32) {
+      const int key = k0 + j;
+      kms[j] = key < T ? p.kmask[(size_t)bi * T + key] : 0.f;
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_kv);
+    for (int i = 0; i < n_q; ++i) {
+      const int s = i % ST, q0 = (qt_lo + i) * BQT;
+      mbar_wait(bar_e(s), ((i / ST) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_expect_tx(bar_f(s), 2 * L::QD_BYTES);
+        for (int c = 0; c < CH; ++c) {
+          tma_load(sbase + L::Q + s * L::QD_BYTES + c * L::QD_BOX, &tq, bar_f(s), c * BOX_D96, q0, hi, bi);
+          tma_load(sbase + L::DO + s * L::QD_BYTES + c * L::QD_BOX, &tdo, bar_f(s), c * BOX_D96, q0, hi, bi);
+        }
+      }
+      for (int j = lane; j < BQT; j += 32) {
+        const int row = q0 + j;
+        lse_s[s * BQT + j] = row < T ? dead_or_log2(p.lse[rv + row]) : 0.f;
+        delta_s[s * BQT + j] = row < T ? p.delta[rv + row] : 0.f;
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_f(s));
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup cw owns keys kw0 .. kw0 + 63 and all their math ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int cw = wg - 1;
+  const int warp = (threadIdx.x / 32) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int kw0 = k0 + cw * 64;
+  const int key0 = kw0 + warp * 16 + g, key1 = key0 + 8;  // this thread's two key rows
+  const float sl2 = p.scale * LOG2E;
+
+  // The query tiles whose math this warpgroup runs (the forward's tile test
+  // on its 64 keys, cut at T) are a contiguous run [a, b] of the CTA's walk:
+  // the upper half's keys reach their diagonal one query tile later.
+  int a = n_q, b = -1;
+  for (int i = 0; i < n_q; ++i) {
+    const int q0 = (qt_lo + i) * BQT;
+    if (kw0 < T && flash_tile_live(q0, min(q0 + BQT - 1, T - 1), kw0 + p.offset, min(kw0 + 64, T) - 1 + p.offset,
+                                   p.causal, p.window)) {
+      a = min(a, i);
+      b = i;
+    }
+  }
+
+  float dk[48], dv[48], st[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 48; ++i) dk[i] = dv[i] = 0.f;
+  uint32_t pf[BQT / 16][4], df[BQT / 16][4];  // P^T and dS^T rounded to bf16
+  mbar_wait(bar_kv, 0);
+  const bool kv0 = kms[key0 - k0] > 0.5f, kv1 = kms[key1 - k0] > 0.5f;
+  // The query rows that reach keys key0 and key1 by position.
+  const int2 qs0 = flash_query_span(key0, p.causal, p.window, p.offset);
+  const int2 qs1 = flash_query_span(key1, p.causal, p.window, p.offset);
+  const uint32_t k_base = sbase + L::K + cw * 64 * 64, v_base = sbase + L::V + cw * 64 * 64;
+  auto q_at = [&](int i) { return sbase + L::Q + (i % ST) * L::QD_BYTES; };
+  auto do_at = [&](int i) { return sbase + L::DO + (i % ST) * L::QD_BYTES; };
+  auto par = [&](int i) { return (uint32_t)((i / ST) & 1); };
+  // Tile i's P^T, with the position test only where some query of the tile
+  // misses some key of the warpgroup (the diagonal, a window's edge); its dS^T.
+  auto probs = [&](int i) {
+    const int q0 = (qt_lo + i) * BQT;
+    const bool whole = (!p.causal || kw0 + 63 + p.offset <= q0) &&
+                       (p.window <= 0 || kw0 + p.offset + p.window > q0 + BQT - 1);
+    const float *ls = lse_s + (i % ST) * BQT;
+    if (whole)
+      probs96<true>(st, ls, q0, kv0, kv1, qs0, qs1, sl2, t4);
+    else
+      probs96<false>(st, ls, q0, kv0, kv1, qs0, qs1, sl2, t4);
+  };
+  auto dsT = [&](int i) { dsT96(st, dp, delta_s + (i % ST) * BQT, t4); };
+
+  // Turns at the tensor core, as the d = 96 forward takes them: n_q + 1 each.
+  const int my_turn = BAR_TURN + cw, other_turn = BAR_TURN + 1 - cw;
+  if (cw == 1) named_arrive(BAR_TURN, 256);
+  auto hand_over = [&](int r) {
+    if (cw == 0 || r < n_q) named_arrive(other_turn, 256);
+  };
+  auto idle_round = [&](int r) {
+    if (r < n_q) mbar_wait(bar_f(r % ST), par(r));
+    named_sync(my_turn, 256);
+    hand_over(r);
+    if (r < n_q) mbar_arrive(bar_e(r % ST));
+  };
+
+  if (a > b) {
+    for (int r = 0; r <= n_q; ++r) idle_round(r);
+  } else {
+    for (int r = 0; r < a; ++r) idle_round(r);
+    // Prologue: S^T and dP^T of tile a.
+    mbar_wait(bar_f(a % ST), par(a));
+    named_sync(my_turn, 256);
+    issue_sdp96(st, dp, k_base, v_base, q_at(a), do_at(a));
+    hand_over(a);
+    wgmma_wait1();
+    fence_regs<32>(st);
+    probs(a);
+    wgmma_wait0();
+    fence_regs<32>(dp);
+    dsT(a);
+    to_frags<BQT / 16>(pf, st);
+    to_frags<BQT / 16>(df, dp);
+    // Steady state: tile i's S^T, dP^T and tile i-1's dv, dk in flight together.
+    for (int i = a + 1; i <= b; ++i) {
+      mbar_wait(bar_f(i % ST), par(i));
+      named_sync(my_turn, 256);
+      issue_sdp96(st, dp, k_base, v_base, q_at(i), do_at(i));
+      issue_acc96(dv, dk, pf, df, q_at(i - 1), do_at(i - 1));
+      hand_over(i);
+      wgmma_wait2();
+      fence_regs<32>(st);
+      probs(i);
+      wgmma_wait1();
+      fence_regs<32>(dp);
+      dsT(i);
+      wgmma_wait0();
+      fence_regs<48>(dv);
+      fence_regs<48>(dk);
+      fence_frags<BQT / 4>(&pf[0][0]);
+      fence_frags<BQT / 4>(&df[0][0]);
+      mbar_arrive(bar_e((i - 1) % ST));
+      to_frags<BQT / 16>(pf, st);
+      to_frags<BQT / 16>(df, dp);
+    }
+    // Epilogue: dv and dk of tile b, in the round of tile b + 1.
+    const int r = b + 1;
+    if (r < n_q) mbar_wait(bar_f(r % ST), par(r));
+    named_sync(my_turn, 256);
+    issue_acc96(dv, dk, pf, df, q_at(b), do_at(b));
+    hand_over(r);
+    wgmma_wait0();
+    fence_regs<48>(dv);
+    fence_regs<48>(dk);
+    fence_frags<BQT / 4>(&pf[0][0]);
+    fence_frags<BQT / 4>(&df[0][0]);
+    mbar_arrive(bar_e(b % ST));
+    if (r < n_q) mbar_arrive(bar_e(r % ST));
+    for (int rr = b + 2; rr <= n_q; ++rr) idle_round(rr);
+  }
+
+  const size_t orow = (size_t)p.h * 96;
+  const size_t off = (size_t)bi * T * orow + (size_t)hi * 96;
+#pragma unroll
+  for (int j = 0; j < 12; ++j) {
+    const int col = j * 8 + 2 * t4;
+    if (key0 < T) {
+      *reinterpret_cast<uint32_t*>(p.dv + off + (size_t)key0 * orow + col) = pack_bf16(dv[j * 4 + 0], dv[j * 4 + 1]);
+      *reinterpret_cast<uint32_t*>(p.dk + off + (size_t)key0 * orow + col) =
+          pack_bf16(dk[j * 4 + 0] * p.scale, dk[j * 4 + 1] * p.scale);
+    }
+    if (key1 < T) {
+      *reinterpret_cast<uint32_t*>(p.dv + off + (size_t)key1 * orow + col) = pack_bf16(dv[j * 4 + 2], dv[j * 4 + 3]);
+      *reinterpret_cast<uint32_t*>(p.dk + off + (size_t)key1 * orow + col) =
+          pack_bf16(dk[j * 4 + 2] * p.scale, dk[j * 4 + 3] * p.scale);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -573,13 +904,15 @@ struct Maps {
 };
 
 // Tensor maps over the strided q/k/v views and the contiguous dO, with boxes
-// of `qrows` rows for q and dO and `krows` for k and v.
+// of `qrows` rows for q and dO and `krows` for k and v, BOX_COLS columns wide.
+template <int BOX_COLS = 64>
 bool make_maps(Maps* m, const void* q, const void* k, const void* v, const void* dout, int b, int T, int h, int d,
                int qsb, int qst, int qsh, int ksb, int kst, int ksh, int vsb, int vst, int vsh, int qrows,
                int krows) {
-  return make_map(&m->q, q, d, T, h, b, qst, qsh, qsb, qrows) && make_map(&m->k, k, d, T, h, b, kst, ksh, ksb, krows) &&
-         make_map(&m->v, v, d, T, h, b, vst, vsh, vsb, krows) &&
-         make_map(&m->dout, dout, d, T, h, b, h * d, d, T * h * d, qrows);
+  return make_map<BOX_COLS>(&m->q, q, d, T, h, b, qst, qsh, qsb, qrows) &&
+         make_map<BOX_COLS>(&m->k, k, d, T, h, b, kst, ksh, ksb, krows) &&
+         make_map<BOX_COLS>(&m->v, v, d, T, h, b, vst, vsh, vsb, krows) &&
+         make_map<BOX_COLS>(&m->dout, dout, d, T, h, b, h * d, d, T * h * d, qrows);
 }
 
 BwdParams make_params(const void* kmask, const void* lse, const void* delta, int b, int T, int h, float scale,
@@ -615,6 +948,17 @@ cudaError_t launch_dkv(const Maps& m, BwdParams p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// d = 96 launches its own dk/dv kernel.
+template <>
+cudaError_t launch_dkv<96>(const Maps& m, BwdParams p, cudaStream_t stream) {
+  const int smem = DkvSmem96::ALLOC;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_d96_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  p.n_tiles = (p.T + DKV_BK_D96 - 1) / DKV_BK_D96;
+  flash_bwd_dkv_d96_kernel<<<p.n_tiles * p.b * p.h, NTHREADS, smem, stream>>>(m.q, m.k, m.v, m.dout, p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* dout, const void* kmask,
@@ -644,8 +988,11 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, c
                                   float scale, int window, int causal, int offset, void* stream) {
   if (!flash_head_dim_ok(d)) return (int)cudaErrorInvalidValue;
   Maps m;
-  if (!make_maps(&m, q, k, v, dout, b, T, h, d, qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh, DKV_BQ, DKV_BK))
-    return (int)cudaErrorInvalidValue;
+  const bool maps = d == 96 ? make_maps<BOX_D96>(&m, q, k, v, dout, b, T, h, d, qsb, qst, qsh, ksb, kst, ksh, vsb,
+                                                 vst, vsh, DKV_BQ, DKV_BK_D96)
+                            : make_maps(&m, q, k, v, dout, b, T, h, d, qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh,
+                                        DKV_BQ, DKV_BK);
+  if (!maps) return (int)cudaErrorInvalidValue;
   BwdParams p = make_params(kmask, lse, delta, b, T, h, scale, window, causal, offset);
   p.dk = static_cast<__nv_bfloat16*>(dk);
   p.dv = static_cast<__nv_bfloat16*>(dv);

@@ -18,6 +18,13 @@
 // - MN-major (the reduction runs along the rows): start 16 kk rows into the
 //   box of the output columns (kk * 2048 bytes), leading offset one box,
 //   stride 1024 (8 reduction rows).
+// The head-dim-96 flash kernels store a [rows, 96] tile as three boxes of 32
+// columns (64 bytes, the 64-byte swizzle's span), each rows * 64 bytes and
+// 1024-aligned, read through descriptors of the 64-byte swizzle
+// (make_desc64): K-major from the box of column 16 kk plus (kk % 2) * 32
+// bytes, stride 512 (8 rows of 64 bytes); MN-major 16 kk rows in (kk * 1024
+// bytes), leading offset one box, stride 512, so an N = 96 product reads the
+// three boxes and no padding.
 #pragma once
 
 #include <cuda.h>
@@ -126,11 +133,22 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint3
   return d;
 }
 
+// The same descriptor for tiles stored with the 64-byte swizzle (rows of 64
+// bytes; the pattern repeats every 8 rows, 512 bytes).
+__device__ __forceinline__ uint64_t make_desc64(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  uint64_t d = (uint64_t)((addr & 0x3FFFF) >> 4);
+  d |= (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
+  d |= (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
+  d |= (uint64_t)2 << 62;
+  return d;
+}
+
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
-// Waits until at most one committed batch is still in flight.
+// Wait until at most one (two) committed batches are still in flight.
 __device__ __forceinline__ void wgmma_wait1() { asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait2() { asm volatile("wgmma.wait_group.sync.aligned 2;\n" ::: "memory"); }
 
 // Keep the compiler from moving reads or writes of accumulator registers
 // across the asynchronous wgmma (its results are valid only after the wait).
@@ -138,6 +156,14 @@ template <int N = 32>
 __device__ __forceinline__ void fence_regs(float* r) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// The same for the bf16 A fragments of a register-A wgmma: they must stay in
+// their registers until the wait that ends the product.
+template <int N>
+__device__ __forceinline__ void fence_frags(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 #define TRLX_ACC16                                                                                             \
@@ -243,6 +269,40 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t d
   "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" \
   "}"
 
+// d[64 x 128] (+)= A[64 x 16] . B[16 x 128], A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " TRLX_REGS64 ", %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : TRLX_ACC64
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+#define TRLX_ACC48 TRLX_F16(0), TRLX_F16(16), TRLX_F16(32)
+#define TRLX_REGS48 \
+  "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47" \
+  "}"
+
+// d[64 x 96] += A[64 x 16] . B[16 x 96], A from registers (bf16 pairs in the
+// mma.sync A-fragment layout), B MN-major in shared memory: 48 accumulator
+// registers a thread, d[4 j + e] at column 8 j + 2 t + (e & 1).
+__device__ __forceinline__ void wgmma_rs_n96(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 " TRLX_REGS48 ", {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n"
+      "}\n"
+      : TRLX_ACC48
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d[64 x N] += A[64 x 16] . B[16 x N] for N = 8, 32, 64, 128 or 256 (N / 2
 // accumulator registers a thread), A from registers (bf16 pairs in the
 // mma.sync A-fragment layout), B K-major in shared memory.
@@ -339,19 +399,22 @@ inline EncodeTiled encoder() {
 }
 
 // A 4-D map (d, t, h, b) over a strided [b, T, h, d] bf16 view (element
-// strides st, sh, sb); boxes of 64 columns by `rows` rows, 128-byte
-// swizzle, zero fill past T.
+// strides st, sh, sb); boxes of BOX_COLS columns by `rows` rows, zero fill
+// past T: 64 columns at the 128-byte swizzle, or 32 (head dim 96) at the
+// 64-byte swizzle.
+template <int BOX_COLS = 64>
 inline bool make_map(CUtensorMap* map, const void* base, int d, int T, int h, int b, int st, int sh, int sb,
                      int rows) {
+  static_assert(BOX_COLS == 64 || BOX_COLS == 32, "make_map: boxes of 64 or 32 columns");
   EncodeTiled enc = encoder();
   if (enc == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)T, (cuuint64_t)h, (cuuint64_t)b};
   const cuuint64_t strides[3] = {(cuuint64_t)st * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)BOX_COLS, (cuuint32_t)rows, 1, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box, estr,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+             CU_TENSOR_MAP_INTERLEAVE_NONE, BOX_COLS == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // A 2-D map over a row-major matrix [outer, inner] of ELEM_BYTES-wide
